@@ -1,0 +1,133 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources live in `lightgbm_tpu_torch/csrc/*.cu`, each with a plain C
+interface.  At first use, `library()` compiles every source with its own
+`nvcc` process (all started together), links the objects into one shared
+library under `build/torch_kernels/` at the repository root, and loads it
+with `ctypes`.  The library's file name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads the
+library already built.  Nothing here runs at import time: the CPU tests
+import every module on a machine without `nvcc`.
+
+`launches` holds one plain integer per kernel.  Each wrapper adds one to
+its entry where it launches its kernel, and nowhere else, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+launches: Dict[str, int] = {"hist_batched": 0, "partition_rows": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+build_log: str = ""
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of "
+                       "lightgbm_tpu_torch need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _build(target: Path) -> str:
+    """Compile each source in parallel, link one shared library."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="tmp_"))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        failed = []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed)
+                               + "\n" + "\n".join(logs))
+        so_tmp = tmp / target.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(so_tmp),
+                *[str(obj) for _, obj, _ in procs]]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed\n{res.stdout}")
+        os.replace(so_tmp, target)
+        return "\n".join(logs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    target = BUILD_DIR / f"liblgbt_kernels_{h.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if not target.exists():
+        build_log = _build(target)
+    build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(target))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.lgbt_hist_batched_plan.argtypes = [i32, i64, i32, i32, i32, ip]
+    lib.lgbt_hist_batched_plan.restype = i32
+    lib.lgbt_hist_batched.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp,
+                                      i32, i64, i32, i32, i32, ip, vp]
+    lib.lgbt_hist_batched.restype = i32
+    lib.lgbt_partition_rows.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp]
+    lib.lgbt_partition_rows.restype = i32
+    lib.lgbt_error_string.argtypes = [i32]
+    lib.lgbt_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().lgbt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
