@@ -41,6 +41,15 @@
 // fills the card: fewer row ranges mean fewer scratch slices to add.
 // hilo's five rows stay five separate f32 sums, as in the TPU kernel's
 // raw output.
+//
+// The integer variant (int8/int16 [3, n] stats of the quantized
+// precisions) is the same kernel instantiated for int32: shared-memory
+// int32 atomics, int32 scratch slices added in int32.  Integer sums do
+// not depend on their order, so it is bitwise equal to its twin.
+//
+// Kernel B4, the flat variant (lightgbm_tpu/ops/histogram.py:
+// _hist_pallas, variant "flat", pallas_call at histogram.py:541; the
+// tpu_hist_impl=pallas histogram), is at the end of this file.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,13 +60,27 @@ constexpr int kMaxS = 5;
 constexpr int kThreads = 1024;
 constexpr int kUnroll = 4;
 constexpr uint8_t kNoSlot = 255;
+// stat types (the wrapper's _STAT_KINDS)
+constexpr int kBF16 = 0, kF32 = 1, kI8 = 2, kI16 = 3;
 
-__device__ __forceinline__ float load_stat(const void* stats, int f32,
-                                           long long idx) {
-  if (f32) return static_cast<const float*>(stats)[idx];
+template <typename Acc>
+__device__ __forceinline__ Acc load_stat(const void* stats, int kind,
+                                         long long idx);
+
+template <>
+__device__ __forceinline__ float load_stat<float>(const void* stats,
+                                                  int kind, long long idx) {
+  if (kind == kF32) return static_cast<const float*>(stats)[idx];
   // bf16 -> f32 is exact: the bf16 bits are the high half of the f32
   const uint32_t b = static_cast<const uint16_t*>(stats)[idx];
   return __uint_as_float(b << 16);
+}
+
+template <>
+__device__ __forceinline__ int load_stat<int>(const void* stats, int kind,
+                                              long long idx) {
+  if (kind == kI8) return static_cast<const int8_t*>(stats)[idx];
+  return static_cast<const int16_t*>(stats)[idx];
 }
 
 // First pass: each row's first slot (kNoSlot when its leaf is in none),
@@ -85,17 +108,19 @@ __global__ void hist_slot_kernel(const int32_t* __restrict__ leaf,
   }
 }
 
+template <typename Acc>
 __global__ void hist_batched_kernel(const uint8_t* __restrict__ bins,
                                     const void* __restrict__ stats,
-                                    int stats_f32,
+                                    int stats_kind,
                                     const uint8_t* __restrict__ slot_of,
                                     const int32_t* __restrict__ slots,
-                                    float* __restrict__ partial,
+                                    Acc* __restrict__ partial,
                                     int F, long long n, int S, int K, int B,
                                     int fchunk, int kchunk,
                                     long long rows_per_block) {
   // [fchunk][B][kchunk][S] sums, then all K slot ids and a duplicate flag
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Acc* sh = reinterpret_cast<Acc*>(smem);
   int* sl = reinterpret_cast<int*>(sh + fchunk * B * kchunk * S);
   int* dup = sl + K;
   const int f0 = blockIdx.x * fchunk;
@@ -108,7 +133,7 @@ __global__ void hist_batched_kernel(const uint8_t* __restrict__ bins,
 
   if (threadIdx.x == 0) *dup = 0;
   for (int i = threadIdx.x; i < K; i += blockDim.x) sl[i] = slots[i];
-  for (int i = threadIdx.x; i < used; i += blockDim.x) sh[i] = 0.f;
+  for (int i = threadIdx.x; i < used; i += blockDim.x) sh[i] = Acc(0);
   __syncthreads();
   // a leaf id held by two live slots adds its rows to both (the JAX
   // kernel's slot one-hot does); rare, so the per-row check is skipped
@@ -134,10 +159,10 @@ __global__ void hist_batched_kernel(const uint8_t* __restrict__ bins,
       if (s0 == kNoSlot || s0 >= k0 + kc) continue;
       if (s0 < k0 && !has_dup) continue;
       const long long r = base + static_cast<long long>(u) * blockDim.x;
-      float v[kMaxS];
+      Acc v[kMaxS];
 #pragma unroll
       for (int s = 0; s < kMaxS; ++s)
-        v[s] = s < S ? load_stat(stats, stats_f32, s * n + r) : 0.f;
+        v[s] = s < S ? load_stat<Acc>(stats, stats_kind, s * n + r) : Acc(0);
       // the row's slots in this chunk: its first one, and with
       // duplicates every later slot holding the same leaf id
       for (int k = max(s0, k0); k < k0 + kc; ++k) {
@@ -145,7 +170,7 @@ __global__ void hist_batched_kernel(const uint8_t* __restrict__ bins,
         for (int f = 0; f < fc; ++f) {
           const int b = bins[static_cast<long long>(f0 + f) * n + r];
           if (b >= B) continue;
-          float* dst = sh + ((f * B + b) * kc + (k - k0)) * S;
+          Acc* dst = sh + ((f * B + b) * kc + (k - k0)) * S;
 #pragma unroll
           for (int s = 0; s < kMaxS; ++s)
             if (s < S) atomicAdd(dst + s, v[s]);
@@ -158,7 +183,7 @@ __global__ void hist_batched_kernel(const uint8_t* __restrict__ bins,
 
   // write the block's sub-histogram, zeros included, to its scratch
   // slice partial[blockIdx.y] of layout [F][B][K][S]
-  float* part = partial + static_cast<long long>(blockIdx.y) * F * B * K * S;
+  Acc* part = partial + static_cast<long long>(blockIdx.y) * F * B * K * S;
   for (int i = threadIdx.x; i < used; i += blockDim.x) {
     const int s = i % S;
     int t = i / S;
@@ -172,13 +197,14 @@ __global__ void hist_batched_kernel(const uint8_t* __restrict__ bins,
 }
 
 // raw[i] = sum over the row ranges y of partial[y][i], y ascending
-__global__ void hist_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ raw, long long size,
+template <typename Acc>
+__global__ void hist_reduce_kernel(const Acc* __restrict__ partial,
+                                   Acc* __restrict__ raw, long long size,
                                    int ny) {
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
                      + threadIdx.x;
        i < size; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float acc = partial[i];
+    Acc acc = partial[i];
     for (int y = 1; y < ny; ++y) acc += partial[y * size + i];
     raw[i] = acc;
   }
@@ -234,23 +260,20 @@ extern "C" int lgbt_hist_batched_plan(int F, long long n, int S, int K,
   return 0;
 }
 
-// slot_of: scratch of n bytes; partial: scratch of plan[2] * F * B * K * S
-// floats; raw: F * B * K * S floats, fully written.  Returns a
-// cudaError_t (0 = launched).
-extern "C" int lgbt_hist_batched(const void* bins, const void* stats,
-                                 int stats_f32, const void* leaf,
-                                 const void* slots, void* slot_of,
-                                 void* partial, void* raw, int F, long long n,
-                                 int S, int K, int B, const int* plan,
-                                 void* stream) {
+namespace {
+
+template <typename Acc>
+int launch_hist_batched(const void* bins, const void* stats, int stats_kind,
+                        const void* leaf, const void* slots, void* slot_of,
+                        void* partial, void* raw, int F, long long n, int S,
+                        int K, int B, const int* plan, cudaStream_t st) {
   const int fchunk = plan[0], kchunk = plan[1], ny = plan[2];
   const long long rows = plan[3];
   const size_t smem = static_cast<size_t>(plan[4]);
   cudaError_t err = cudaFuncSetAttribute(
-      hist_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hist_batched_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   long long sblocks = (n + 255) / 256;
   if (sblocks > 8192) sblocks = 8192;
   hist_slot_kernel<<<static_cast<unsigned>(sblocks), 256, 4 * K, st>>>(
@@ -259,21 +282,142 @@ extern "C" int lgbt_hist_batched(const void* bins, const void* stats,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((F + fchunk - 1) / fchunk, ny, (K + kchunk - 1) / kchunk);
-  hist_batched_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const uint8_t*>(bins), stats, stats_f32,
+  hist_batched_kernel<Acc><<<grid, kThreads, smem, st>>>(
+      static_cast<const uint8_t*>(bins), stats, stats_kind,
       static_cast<const uint8_t*>(slot_of),
-      static_cast<const int32_t*>(slots), static_cast<float*>(partial), F, n,
+      static_cast<const int32_t*>(slots), static_cast<Acc*>(partial), F, n,
       S, K, B, fchunk, kchunk, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long size = static_cast<long long>(F) * B * K * S;
   long long blocks = (size + 255) / 256;
   if (blocks > 4096) blocks = 4096;
-  hist_reduce_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(raw), size, ny);
+  hist_reduce_kernel<Acc><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      static_cast<const Acc*>(partial), static_cast<Acc*>(raw), size, ny);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// slot_of: scratch of n bytes; partial: scratch of plan[2] * F * B * K * S
+// sums; raw: F * B * K * S sums, fully written.  The sums are f32 for
+// bf16/f32 stats and int32 for int8/int16 stats.  Returns a cudaError_t
+// (0 = launched).
+extern "C" int lgbt_hist_batched(const void* bins, const void* stats,
+                                 int stats_kind, const void* leaf,
+                                 const void* slots, void* slot_of,
+                                 void* partial, void* raw, int F, long long n,
+                                 int S, int K, int B, const int* plan,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stats_kind == kI8 || stats_kind == kI16)
+    return launch_hist_batched<int>(bins, stats, stats_kind, leaf, slots,
+                                    slot_of, partial, raw, F, n, S, K, B,
+                                    plan, st);
+  if (stats_kind != kBF16 && stats_kind != kF32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hist_batched<float>(bins, stats, stats_kind, leaf, slots,
+                                    slot_of, partial, raw, F, n, S, K, B,
+                                    plan, st);
 }
 
 extern "C" const char* lgbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Kernel B4: the flat variant of the batched histogram.
+//
+// Replaces lightgbm_tpu/ops/histogram.py:_hist_pallas, variant "flat"
+// (pallas_call at histogram.py:541, body kernel_flat), which builds one
+// [F*B, 256] one-hot per 256-row block and contracts it against the
+// block's K-slot stats into a [F*B, K*S] accumulator resident in VMEM
+// across the row grid.  Its contract is B1's: the same raw [F, B, K, S]
+// sums of the same inputs, and the same plain twin.
+//
+// Here a block covers 256 rows for all features at once, one row per
+// thread: the thread finds the row's slots among the K in shared memory,
+// loads its S stats once, and for each feature adds them at
+// raw[f, bin, k, s].  The whole [F, B, K, S] histogram (4 MB at 32 x 255
+// x 25 x 5 f32) does not fit a block's shared memory, and a slice per
+// block would not fit device memory, so the adds are global atomics on
+// the zeroed output (the wrapper zeroes it).  Neighbouring threads read
+// neighbouring bytes of each feature row.  Integer adds are exact in
+// any order, so the int variant is bitwise equal to its twin; f32 global
+// atomics add in the order the blocks arrive.
+//
+// What bounds it on this card: the atomics.  Each matched row issues
+// F * S of them to L2, against B1's shared-memory atomics; the bytes
+// read are B1's.
+
+namespace {
+
+constexpr int kFlatRows = 256;
+
+template <typename Acc>
+__global__ void hist_flat_kernel(const uint8_t* __restrict__ bins,
+                                 const void* __restrict__ stats,
+                                 int stats_kind,
+                                 const int32_t* __restrict__ leaf,
+                                 const int32_t* __restrict__ slots,
+                                 Acc* __restrict__ raw, int F, long long n,
+                                 int S, int K, int B) {
+  extern __shared__ int fsl[];  // the K slot ids
+  for (int i = threadIdx.x; i < K; i += blockDim.x) fsl[i] = slots[i];
+  __syncthreads();
+  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (r >= n) return;
+  const int l = leaf[r];
+  Acc v[kMaxS];
+  bool loaded = false;
+  // every slot holding the row's leaf gets the row (a leaf id held by
+  // two live slots adds to both, as the one-hot contraction does)
+  for (int k = 0; k < K; ++k) {
+    if (fsl[k] != l) continue;
+    if (!loaded) {
+#pragma unroll
+      for (int s = 0; s < kMaxS; ++s)
+        v[s] = s < S ? load_stat<Acc>(stats, stats_kind, s * n + r) : Acc(0);
+      loaded = true;
+    }
+    for (int f = 0; f < F; ++f) {
+      const int b = bins[static_cast<long long>(f) * n + r];
+      if (b >= B) continue;
+      Acc* dst = raw + ((static_cast<long long>(f) * B + b) * K + k) * S;
+#pragma unroll
+      for (int s = 0; s < kMaxS; ++s)
+        if (s < S) atomicAdd(dst + s, v[s]);
+    }
+  }
+}
+
+}  // namespace
+
+// raw: F * B * K * S sums (f32, or int32 for int8/int16 stats), zeroed by
+// the caller.  Returns a cudaError_t (0 = launched).
+extern "C" int lgbt_hist_flat(const void* bins, const void* stats,
+                              int stats_kind, const void* leaf,
+                              const void* slots, void* raw, int F,
+                              long long n, int S, int K, int B,
+                              void* stream) {
+  if (S < 1 || S > kMaxS || K < 1 || B < 1 || F < 1 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + kFlatRows - 1)
+                                                / kFlatRows);
+  const size_t smem = static_cast<size_t>(K) * sizeof(int);
+  if (stats_kind == kI8 || stats_kind == kI16) {
+    hist_flat_kernel<int><<<blocks, kFlatRows, smem, st>>>(
+        static_cast<const uint8_t*>(bins), stats, stats_kind,
+        static_cast<const int32_t*>(leaf), static_cast<const int32_t*>(slots),
+        static_cast<int*>(raw), F, n, S, K, B);
+  } else if (stats_kind == kBF16 || stats_kind == kF32) {
+    hist_flat_kernel<float><<<blocks, kFlatRows, smem, st>>>(
+        static_cast<const uint8_t*>(bins), stats, stats_kind,
+        static_cast<const int32_t*>(leaf), static_cast<const int32_t*>(slots),
+        static_cast<float*>(raw), F, n, S, K, B);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,7 @@ from ..io.bin_mapper import BinMapper
 from ..io.dataset import TrainingData
 from ..ops.binning import bin_matrix_t
 from ..ops.predict import class_scores, device_tables, pack_trees
+from ..utils.prng import PRNGKey
 from .learner import TreeLearner
 from .metrics import Metric, create_metrics
 from .objectives import (Objective, create_objective,
@@ -155,6 +156,7 @@ class GBDT:
         self._tables = None
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
+        self._key: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data: TrainingData) -> None:
@@ -186,6 +188,10 @@ class GBDT:
         self._boosted_from_average = [False] * self.num_tree_per_iteration
         self._step = self.learner.make_train_step(
             self.objective.get_gradients, self.shrinkage_rate)
+        # the threefry key stream of the JAX package's GBDT (gbdt.py:312):
+        # every iteration and class advances it, and each tree's key seeds
+        # the stochastic rounding of the quantized precisions
+        self._key = PRNGKey(int(config.seed))
 
     def _boost_from_average(self, class_id: int) -> float:
         if (self.models or self._pending
@@ -212,10 +218,14 @@ class GBDT:
                     "training data with a single label class is not ported "
                     "to lightgbm_tpu_torch yet")
             init = self._boost_from_average(k)
-            records, scores, _, _ = self._step(self.train_scores.scores, k)
+            records, scores, _, leaf_out, self._key = self._step(
+                self.train_scores.scores, k, self._key)
             self.train_scores.scores = scores
             self.grower_syncs += self.learner.last_syncs
-            self._pending.append((records, k, init))
+            # refit leaves: the tree takes the refitted device outputs
+            self._pending.append((
+                records, leaf_out if self.learner.refits_leaves else None,
+                k, init))
         self.iter_ += 1
         return False
 
@@ -226,10 +236,13 @@ class GBDT:
             return
         pending, self._pending = self._pending, []
         recs = torch.stack([p[0] for p in pending]).cpu().numpy()
-        for (_, class_id, init), rec in zip(pending, recs):
+        outs = [None] * len(pending)
+        if pending[0][1] is not None:
+            outs = list(torch.stack([p[1] for p in pending]).cpu().numpy())
+        for (_, _, class_id, init), rec, out in zip(pending, recs, outs):
             if self._stopped:
                 break
-            tree = self.learner.build_tree_from_records(rec)
+            tree = self.learner.build_tree_from_records(rec, out)
             if tree.num_leaves > 1:
                 tree.apply_shrinkage(self.shrinkage_rate)
                 if abs(init) > K_EPSILON:

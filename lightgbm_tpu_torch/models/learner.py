@@ -6,14 +6,20 @@ The port of the serial, dense, numerical subset of
 arrays, `_resolve_hist_impl`, the fused per-iteration train step, and
 `build_tree_from_records`.
 
-Histogram implementations: "auto" and "pallas2" (the perfeature Pallas
-kernel in the JAX package) mean kernel B1 on a CUDA tensor and its plain
-twin on the CPU.  "xla" computes the same function, so it rides the same
-path with the XLA scan's row block.  "pallas" (the flat variant, B4) and
-"fused" (the grow megakernel, B2) are not ported yet and raise.
+Histogram implementations: "pallas2" (the perfeature Pallas kernel in
+the JAX package) means kernel B1 on a CUDA tensor and its plain twin on
+the CPU.  "xla" computes the same function, so it rides the same path
+with the XLA scan's row block.  "pallas" (the flat variant) means kernel
+B4, with B1's twin.  "fused" (the grow megakernel) means kernel B2 in
+every grower round for the int8/int16 precisions, and rides "pallas2"
+for the float ones.  "auto" picks "fused" for int8/int16 and "pallas2"
+otherwise.  On the card the learner first runs B2 against its twin on
+tiny operands, and raises on any difference.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,16 +27,19 @@ import torch
 from ..config import Config
 from ..io.dataset import TrainingData
 from ..ops import grower as G
+from ..ops.fused import fused_supported, probe_fused
 from ..ops.grower import GrowerParams, pad_rows, resolve_split_batch
-from ..ops.histogram import _dot_spec
+from ..ops.histogram import INT_PRECISIONS, _dot_spec
+from ..utils import prng
 from .tree import Tree
 
-HIST_IMPLS = ("auto", "pallas2", "xla")
+HIST_IMPLS = ("auto", "pallas", "pallas2", "fused", "xla")
 
 
 def check_slice(config: Config) -> None:
     """Refuse, by name, every parameter value outside the ported slice
-    (serial learner, dense numeric columns, gbdt, float histograms)."""
+    (serial learner, dense numeric columns, gbdt; float and int8/int16
+    histograms)."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
@@ -97,7 +106,7 @@ class TreeLearner:
         self._check_bundling(config, train_data, B)
 
         precision = str(config.tpu_hist_precision)
-        impl, block = self._resolve_hist_impl(config)
+        impl, block = self._resolve_hist_impl(config, precision)
         # the JAX package pads the column axis to a multiple of 32 for its
         # perfeature kernel; padding columns hold bin 0 (num_bin=1) and
         # can never split
@@ -168,7 +177,17 @@ class TreeLearner:
             partition_impl=str(config.tpu_partition_impl),
             ramp=bool(config.tpu_ramp),
             ramp_step=(4 if str(config.tpu_bucket_policy) == "wide"
-                       else 2))
+                       else 2),
+            hist_impl=impl,
+            quant_round=str(config.tpu_quant_round),
+            quant_refit=(precision in INT_PRECISIONS
+                         and bool(config.tpu_quant_refit_leaves)))
+        # refit leaves: the trees take their leaf values from the grower's
+        # refitted outputs, not from the split records
+        self.refits_leaves = self.params.quant_refit
+        if impl == "fused" and fused_supported(precision) is None \
+                and dev.type == "cuda":
+            probe_fused(dev, precision)
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
 
@@ -201,20 +220,25 @@ class TreeLearner:
                 and block % 256 == 0)
 
     @staticmethod
-    def _resolve_hist_impl(config: Config):
-        """(impl, row block): "auto" resolves to the perfeature kernel
-        ("pallas2", kernel B1 on the card) with its 8192-row block; "xla"
-        keeps the XLA scan's 16384-row block for the padding."""
+    def _resolve_hist_impl(config: Config, precision: str):
+        """(impl, row block), as the JAX learner resolves them on its
+        accelerator (learner.py:912-993): "auto" is the grow megakernel
+        ("fused", kernel B2) for int8/int16 and the perfeature kernel
+        ("pallas2", B1) otherwise.  The row blocks are the JAX package's:
+        256 for the flat kernel, 8192 for the perfeature and fused ones,
+        the XLA scan's 16384 for "xla"."""
         impl = str(config.tpu_hist_impl)
         if impl not in HIST_IMPLS:
             raise NotImplementedError(
                 f"tpu_hist_impl={impl!r} is not ported to lightgbm_tpu_torch"
                 " yet")
         if impl == "auto":
-            impl = "pallas2"
+            impl = "fused" if fused_supported(precision) is None \
+                else "pallas2"
         block = int(config.tpu_block_rows)
         if block <= 0:
-            block = 8192 if impl == "pallas2" else 16384
+            block = {"pallas": 256, "pallas2": 8192,
+                     "fused": 8192}.get(impl, 16384)
         return impl, block
 
     # ------------------------------------------------------------------
@@ -222,19 +246,25 @@ class TreeLearner:
         """Gradients + tree growth + train-score update, all on the
         device; the only host waits are the grower's stop tests.
 
-        Returns step(scores [k, n], class_id) ->
-            (records, new_scores, leaf_ids[:n], leaf_output)."""
+        Returns step(scores [k, n], class_id, key) ->
+            (records, new_scores, leaf_ids[:n], leaf_output, key): `key`
+            is the booster's threefry key, advanced as the JAX step
+            advances it (learner.py:1135,1196)."""
         n, n_pad = self.n, self.n_pad
         dev = self.device
 
-        def step(scores: torch.Tensor, class_id: int):
+        def step(scores: torch.Tensor, class_id: int, key: np.ndarray):
             grad, hess = grad_fn(scores)
             g = torch.zeros(n_pad, dtype=torch.float32, device=dev)
             h = torch.zeros(n_pad, dtype=torch.float32, device=dev)
             g[:n] = grad[:n]
             h[:n] = hess[:n]
+            # key -> (key, kf) feeds feature_fraction in the JAX step (not
+            # ported); key -> (key, k_node) seeds the tree
+            key = prng.split(key)[0]
+            key, k_node = prng.split(key)
             out = G.grow(self.params, self.bins_t, g, h, self._ones_mask,
-                         self.feature_mask, self.meta)
+                         self.feature_mask, self.meta, k_node)
             self.last_syncs = out["syncs"]
             records, leaf_ids = out["records"], out["leaf_ids"]
             # scale the [L] leaf vector first, then gather: one rounded add
@@ -244,12 +274,16 @@ class TreeLearner:
                                  0.0)
             new_scores = scores.clone()
             new_scores[class_id] += scaled[leaf_ids[:n].long()]
-            return records, new_scores, leaf_ids[:n], out["leaf_output"]
+            return (records, new_scores, leaf_ids[:n], out["leaf_output"],
+                    key)
 
         return step
 
-    def build_tree_from_records(self, rec: np.ndarray) -> Tree:
-        """Replay device split records into a reference-compatible Tree."""
+    def build_tree_from_records(self, rec: np.ndarray,
+                                leaf_output: Optional[np.ndarray] = None
+                                ) -> Tree:
+        """Replay device split records into a reference-compatible Tree;
+        `leaf_output` (refit leaves) overrides the records' leaf values."""
         L = self.params.num_leaves
         tree = Tree(L)
         used = self.td.used_feature_idx
@@ -277,4 +311,9 @@ class TreeLearner:
                 threshold_bin=thr_bin,
                 threshold_double=mappers[real_f].bin_to_value(thr_bin),
                 default_left=row[G.REC_DEFAULT_LEFT] > 0.5)
+        if leaf_output is not None and tree.num_leaves > 1:
+            # the grower's leaf ids are the Tree's leaf indices (the left
+            # child keeps the parent's id, the right takes the next one)
+            tree.leaf_value[:tree.num_leaves] = np.asarray(
+                leaf_output[:tree.num_leaves], np.float64)
         return tree

@@ -21,18 +21,34 @@ count host syncs.
 Every state vector carries one extra trailing slot (index L): the slot
 updates of dead slots land there, where the JAX grower drops
 out-of-bounds scatter indices.  Nothing reads it back.
+
+The quantized precisions (int8/int16) follow the JAX grower's quantized
+branch: grad/hess are rounded once per tree onto an integer grid (max-abs
+scales, stochastic rounding seeded from the tree's threefry key), the
+histograms, the pool and sibling subtraction stay exact int32, and the
+split search runs int32 prefix sums before it dequantizes.  With
+hist_impl="fused" each round's histograms, subtraction and split scan
+are one call (kernel B2 on the card), whose per-feature records the
+round reduces to each child's best split.  quant_refit recomputes the
+final leaf outputs from the f32 grad/hess sums of each leaf's rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .fused import partition_rows, partition_rows_plain
-from .histogram import build_histogram_batched_t, pack_stats
+from ..utils.prng import fold_in
+from .fused import (CTX_COUNT, CTX_MAX_C, CTX_MIN_C, CTX_SUM_G, CTX_SUM_H,
+                    CTX_USE_SMALL, CTX_WIDTH, fused_hist_scan, partition_rows,
+                    partition_rows_plain)
+from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
+                        pack_stats, quant_limit, quantize_values)
 from .split import (K_MIN_SCORE, finalize_split, leaf_output,
-                    numeric_go_left, per_feature_best_split)
+                    numeric_go_left, per_feature_best_split,
+                    unpack_pf_records)
 
 # record-row field indices (lightgbm_tpu/ops/grower.py REC_*)
 REC_LEAF, REC_FEATURE, REC_THRESHOLD, REC_DEFAULT_LEFT, REC_GAIN, \
@@ -69,6 +85,14 @@ class GrowerParams(NamedTuple):
     # full-K loop; bit-identical trees, less dead-slot work
     ramp: bool = False
     ramp_step: int = 2
+    # batched histogram: "pallas" (kernel B4 on the card), "fused" (the
+    # grow megakernel B2 for int8/int16; the perfeature histogram
+    # otherwise), anything else the perfeature kernel B1
+    hist_impl: str = "pallas2"
+    # int8/int16 only: grad/hess rounding ("stochastic" or "nearest"),
+    # and the leaf refit from the f32 sums
+    quant_round: str = "stochastic"
+    quant_refit: bool = False
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -96,17 +120,24 @@ def _top_k(x: torch.Tensor, k: int):
 
 def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
          hess: torch.Tensor, row_mask: torch.Tensor,
-         feature_mask: torch.Tensor, meta: Dict[str, torch.Tensor]
-         ) -> Dict[str, torch.Tensor]:
+         feature_mask: torch.Tensor, meta: Dict[str, torch.Tensor],
+         key: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
     """Grow one tree.
 
     bins_t: [F, n_pad] uint8 (padding rows and features hold bin 0);
     grad/hess/row_mask: [n_pad] f32 (padding rows zero); feature_mask:
     [F] f32; meta: per-feature int32 num_bin/missing_type/default_bin/
-    monotone and f32 penalty.
+    monotone and f32 penalty; key: the tree's threefry key (uint32[2],
+    `utils.prng`), which seeds the stochastic rounding of int8/int16.
 
     Returns records [L-1, 16], leaf_ids [n_pad], leaf_output [L],
     leaf_cnt [L], leaf_sum_h [L] (device tensors) and syncs (int)."""
+    quantized = params.precision in INT_PRECISIONS
+    if quantized and params.quant_round not in ("stochastic", "nearest"):
+        raise ValueError(f"tpu_quant_round={params.quant_round!r}; expected "
+                         "stochastic or nearest")
+    if quantized and key is None:
+        raise ValueError("the quantized precisions need the tree's key")
     if params.partition_impl not in PARTITION_IMPLS:
         raise NotImplementedError(
             f"tpu_partition_impl={params.partition_impl!r} is not ported "
@@ -129,32 +160,79 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     out_kw = dict(l1=params.l1, l2=params.l2,
                   max_delta_step=params.max_delta_step)
 
-    def select(hist, sg, sh, cnt, min_c, max_c):
-        """Best split of each leaf of the batch: hist [C, F, B, 3]."""
-        pf = per_feature_best_split(
-            hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
-            meta["default_bin"], meta["monotone"], meta["penalty"],
-            feature_mask, min_constraint=min_c, max_constraint=max_c,
-            **split_kw)
+    fused_scan = params.hist_impl == "fused" and quantized
+    qscale = None
+
+    def best_of(pf, sg, sh, min_c, max_c):
+        """Each child's best feature (the lowest index among equal gains)
+        and its finalized split."""
         bf = torch.argmax(pf.gain, dim=-1).to(i32)
         return finalize_split(pf, bf, sg, sh, min_constraint=min_c,
                               max_constraint=max_c, **out_kw)
 
+    def select(hist, sg, sh, cnt, min_c, max_c):
+        """Best split of each leaf of the batch: hist [C, F, B, 3] (int32
+        sums under the quantized precisions, rescaled after the bin
+        prefix sums)."""
+        pf = per_feature_best_split(
+            hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
+            meta["default_bin"], meta["monotone"], meta["penalty"],
+            feature_mask, min_constraint=min_c, max_constraint=max_c,
+            acc_scale=qscale, **split_kw)
+        return best_of(pf, sg, sh, min_c, max_c)
+
     # ---- root ------------------------------------------------------------
     g = grad * row_mask
     h = hess * row_mask
-    sum_g = g.sum(dtype=f32)
-    sum_h = h.sum(dtype=f32)
-    cnt = row_mask.sum(dtype=f32)
-    stats = pack_stats(g, h, row_mask, params.precision).contiguous()
+    if quantized:
+        # per-tree discretization (grower.py:937-984 of the JAX package):
+        # max-abs scales capped by quant_limit so no int32 bin overflows,
+        # stochastic rounding from the tree key folded with 0x5154, and
+        # the leaf totals from the same integers the histograms add
+        qmax = quant_limit(params.precision, n_pad)
+        # XLA rewrites the JAX grower's division by the constant qmax
+        # into a product with its f32 reciprocal; so does this
+        inv_q = torch.tensor(np.float32(1.0) / np.float32(qmax), device=dev)
+        floor = torch.tensor(1e-30, dtype=f32, device=dev)
+        g_scale = torch.maximum(g.abs().max(), floor) * inv_q
+        h_scale = torch.maximum(h.abs().max(), floor) * inv_q
+        seed_a, seed_b = key_words(fold_in(key, 0x5154))
+        g_q = quantize_values(g, g_scale, qmax, params.quant_round, seed_a,
+                              seed_b, 0, salt=0x9E3779B9)
+        h_q = quantize_values(h, h_scale, qmax, params.quant_round, seed_a,
+                              seed_b, 0, salt=0x85EBCA6B)
+        qscale = torch.stack([g_scale, h_scale,
+                              torch.ones((), dtype=f32, device=dev)])
+        sum_g = g_q.sum(dtype=i32).to(f32) * g_scale
+        sum_h = h_q.sum(dtype=i32).to(f32) * h_scale
+        cnt = row_mask.to(i32).sum(dtype=i32).to(f32)
+        stats = pack_stats(g_q, h_q, row_mask, params.precision).contiguous()
+    else:
+        sum_g = g.sum(dtype=f32)
+        sum_h = h.sum(dtype=f32)
+        cnt = row_mask.sum(dtype=f32)
+        stats = pack_stats(g, h, row_mask, params.precision).contiguous()
     leaf_ids = torch.zeros(n_pad, dtype=i32, device=dev)
     root_slots = torch.full((K,), -1, dtype=i32, device=dev)
     root_slots[0] = 0
-    root_hist = build_histogram_batched_t(bins_t, stats, leaf_ids,
-                                          root_slots, B, params.precision)[0]
+    root_hist = build_histogram_batched_t(
+        bins_t, stats, leaf_ids, root_slots, B, params.precision,
+        params.hist_impl)[0]
     big = torch.tensor(1e30, dtype=f32, device=dev)
     root = select(root_hist[None], sum_g[None], sum_h[None], cnt[None],
                   -big, big)
+    if fused_scan:
+        # the megakernel's per-feature tables (the JAX package's fused.py
+        # layout); no per-node masks in this slice, so the feature mask
+        # is baked in
+        zi = torch.zeros(F, dtype=i32, device=dev)
+        fmeta_i = torch.stack(
+            [meta["num_bin"], meta["missing_type"], meta["default_bin"],
+             meta["monotone"], zi, zi, zi, zi], dim=1).to(i32).contiguous()
+        zf = torch.zeros(F, dtype=f32, device=dev)
+        fmeta_f = torch.stack(
+            [meta["penalty"].to(f32), feature_mask.to(f32), zf, zf, zf, zf,
+             zf, zf], dim=1).contiguous()
 
     def vec(fill, dtype=f32, first=None):
         v = torch.full((L + 1,), fill, dtype=dtype, device=dev)
@@ -163,7 +241,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return v
 
     st = {
-        "pool": torch.zeros((L + 1, F, B, 3), dtype=f32, device=dev),
+        # int32 under the quantized precisions: subtraction stays exact
+        "pool": torch.zeros((L + 1, F, B, 3), dtype=root_hist.dtype,
+                            device=dev),
         "leaf_sum_g": vec(0.0, first=sum_g),
         "leaf_sum_h": vec(0.0, first=sum_h),
         "leaf_cnt": vec(0.0, first=cnt),
@@ -242,8 +322,27 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         smaller_ids = torch.where(
             do_k, torch.where(smaller_is_left, sel, new_ids), -1).to(i32)
         parent_hist = st["pool"][sl]                      # [Kr, F, B, 3]
-        hist_small = build_histogram_batched_t(
-            bins_t, stats, leaf_ids, smaller_ids, B, params.precision)
+        if fused_scan:
+            # histograms + subtraction + split scan of all 2K children in
+            # one call (grower.py:1410-1436); dead slots carry garbage
+            # records that land in the trash slot
+            C = 2 * Kr
+            ctx = torch.zeros((C + 1, CTX_WIDTH), dtype=f32, device=dev)
+            ctx[:C, CTX_SUM_G] = torch.cat([lg, rg])
+            ctx[:C, CTX_SUM_H] = torch.cat([lh, rh])
+            ctx[:C, CTX_COUNT] = torch.cat([lc, rc])
+            ctx[:C, CTX_MIN_C] = -big
+            ctx[:C, CTX_MAX_C] = big
+            ctx[:C, CTX_USE_SMALL] = torch.cat(
+                [smaller_is_left, ~smaller_is_left]).to(f32)
+            ctx[C, :3] = qscale
+            hist_small, srecs = fused_hist_scan(
+                bins_t, stats, leaf_ids, smaller_ids, parent_hist, ctx,
+                fmeta_i, fmeta_f, B, params.precision, split_kw=split_kw)
+        else:
+            hist_small = build_histogram_batched_t(
+                bins_t, stats, leaf_ids, smaller_ids, B, params.precision,
+                params.hist_impl)
         hist_large = parent_hist - hist_small
         sil = smaller_is_left[:, None, None, None]
         hist_left = torch.where(sil, hist_small, hist_large)
@@ -259,9 +358,15 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         put("pool", hist_left, hist_right)
 
         # best splits of all 2K children (no monotone bounds in this slice)
-        ch = select(torch.cat([hist_left, hist_right]),
-                    torch.cat([lg, rg]), torch.cat([lh, rh]),
-                    torch.cat([lc, rc]), -big, big)
+        if fused_scan:
+            # the megakernel's records: argmax over the per-feature gains,
+            # then finalize_split (grower.py:1532-1551)
+            ch = best_of(unpack_pf_records(srecs), torch.cat([lg, rg]),
+                         torch.cat([lh, rh]), -big, big)
+        else:
+            ch = select(torch.cat([hist_left, hist_right]),
+                        torch.cat([lg, rg]), torch.cat([lh, rh]),
+                        torch.cat([lc, rc]), -big, big)
 
         # the record block reads the parent's output before it changes
         rec = torch.stack([
@@ -300,6 +405,16 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         if not bool(go):      # the one host wait of the round
             break
         exec_round(K)
+    if quantized and params.quant_refit:
+        # leaf refit (grower.py:1733-1755): the structure came from the
+        # integer histograms, the outputs come from the f32 sums
+        ids = leaf_ids.long()
+        rg = torch.zeros(L + 1, dtype=f32, device=dev).index_add_(0, ids, g)
+        rh = torch.zeros(L + 1, dtype=f32, device=dev).index_add_(0, ids, h)
+        refit = torch.minimum(torch.maximum(
+            leaf_output(rg, rh + 2e-15, **out_kw), -big), big)
+        st["leaf_output"] = torch.where(st["leaf_cnt"] > 0, refit,
+                                        st["leaf_output"])
     return {"records": records[:L - 1], "leaf_ids": leaf_ids,
             "leaf_output": st["leaf_output"][:L],
             "leaf_cnt": st["leaf_cnt"][:L],

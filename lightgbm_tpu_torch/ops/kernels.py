@@ -30,10 +30,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
-                           "-Xptxas", "-v"]
+# --fmad=false: no a*b+c contracts into one rounding, so the kernels' f32
+# arithmetic rounds op by op as their PyTorch twins do (kernel B2's split
+# records are held bitwise equal to its twin's)
+NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
+                           "-fPIC", "-Xptxas", "-v"]
 
-launches: Dict[str, int] = {"hist_batched": 0, "partition_rows": 0}
+# B1 float, B1 integer variant, B2, B3, B4
+launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
+                            "fused_hist_scan": 0, "partition_rows": 0,
+                            "hist_flat": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -112,12 +118,21 @@ def library() -> ctypes.CDLL:
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     lib.lgbt_hist_batched_plan.argtypes = [i32, i64, i32, i32, i32, ip]
     lib.lgbt_hist_batched_plan.restype = i32
     lib.lgbt_hist_batched.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp,
                                       i32, i64, i32, i32, i32, ip, vp]
     lib.lgbt_hist_batched.restype = i32
+    lib.lgbt_hist_flat.argtypes = [vp, vp, i32, vp, vp, vp, i32, i64, i32,
+                                   i32, i32, vp]
+    lib.lgbt_hist_flat.restype = i32
+    lib.lgbt_fused_hist_scan.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp,
+                                         vp, vp, vp, vp, vp, i32, i64, i32,
+                                         i32, ip, f32, f32, f32, f32, f32,
+                                         f32, vp]
+    lib.lgbt_fused_hist_scan.restype = i32
     lib.lgbt_partition_rows.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp]
     lib.lgbt_partition_rows.restype = i32
     lib.lgbt_error_string.argtypes = [i32]

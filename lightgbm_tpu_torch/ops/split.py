@@ -157,12 +157,18 @@ def per_feature_best_split(
         monotone, penalty, feature_mask, *, l1: float, l2: float,
         max_delta_step: float, min_data_in_leaf: float,
         min_sum_hessian: float, min_gain_to_split: float,
-        min_constraint=-1e30, max_constraint=1e30) -> PerFeatureBest:
+        min_constraint=-1e30, max_constraint=1e30,
+        acc_scale=None) -> PerFeatureBest:
     """Best candidate per feature.
 
     hist: [..., F, B, 3] f32 (g, h, cnt); sum_g/sum_h/num_data and the
     monotone bounds min/max_constraint: [...] (or scalars); the
-    per-feature arrays: [F]."""
+    per-feature arrays: [F].
+
+    acc_scale (quantized precisions): hist arrives as int32 sums and the
+    bin prefix sums run in int32, which is exact in any order; the [3]
+    dequantization scales (g, h, count) apply after them, as in the JAX
+    package (split.py:206-210)."""
     F, B = hist.shape[-3], hist.shape[-2]
     dev = hist.device
 
@@ -183,8 +189,14 @@ def per_feature_best_split(
     acc_mask = (~skip_bin) & (~na_bin) & (bin_iota < nb)
 
     zero = torch.zeros((), dtype=hist.dtype, device=dev)
-    cg, ch, cc = cumsum_last(torch.where(
-        acc_mask, torch.stack([hg, hh, hc]), zero)).unbind(0)
+    masked = torch.where(acc_mask, torch.stack([hg, hh, hc]), zero)
+    if acc_scale is None:
+        cg, ch, cc = cumsum_last(masked).unbind(0)
+    else:
+        # int32 prefix sums are exact; dequantize at the scan boundary
+        scale = torch.as_tensor(acc_scale, dtype=torch.float32, device=dev)
+        ci = torch.cumsum(masked, dim=-1, dtype=torch.int32)
+        cg, ch, cc = (ci[i].to(torch.float32) * scale[i] for i in range(3))
 
     gain_shift = leaf_split_gain(sg, sh + 2 * K_EPSILON, l1, l2,
                                  max_delta_step)

@@ -76,9 +76,15 @@ OUT_OF_SLICE = [
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
     {"tpu_stream_mode": "streamed"},
     {"deterministic": True},
-    {"tpu_hist_precision": "int8"}, {"tpu_hist_precision": "int16"},
+    # packed 4-bit bins stay refused for the flat and perfeature kernels,
+    # at every precision (the JAX package never packs for "fused")
+    {"tpu_hist_precision": "int8", "tpu_hist_impl": "pallas2",
+     "tpu_pack_bins": True},
+    {"tpu_hist_precision": "int16", "tpu_hist_impl": "pallas",
+     "tpu_pack_bins": True},
     {"tpu_hist_precision": "f64"},
-    {"tpu_hist_impl": "fused"}, {"tpu_hist_impl": "pallas"},
+    {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
+    {"tpu_hist_impl": "pallas", "tpu_pack_bins": True},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},
     {"objective": "multiclass", "num_class": 3},

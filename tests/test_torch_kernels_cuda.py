@@ -15,7 +15,7 @@ from lightgbm_tpu_torch.ops import fused as TF
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops import kernels
 
-from .test_torch_util import cuda_device
+from .test_torch_util import cuda_device, fused_args, fused_case
 
 pytestmark = pytest.mark.cuda
 
@@ -109,7 +109,9 @@ def test_training_on_card_matches_cpu():
          "tpu_partition_impl": "kernel", "verbosity": -1}
     kernels.reset_launches()
     gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
-    assert all(v > 0 for v in kernels.launches.values())
+    # the hilo path: B1 and B3
+    assert kernels.launches["hist_batched"] > 0
+    assert kernels.launches["partition_rows"] > 0
     cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(X, label=y),
                     num_boost_round=3)
     pg, pc = gpu.predict(X), cpu.predict(X)
@@ -117,3 +119,119 @@ def test_training_on_card_matches_cpu():
     # the trees may differ where an exact f32 tie between split gains
     # flips with the summation order; the predictions stay close
     assert np.abs(pg - pc).mean() < 1e-3
+
+
+# ---- the quantized path: B1's integer variant, B2, and B4 ----------------
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+@pytest.mark.parametrize("F,n,B,leaves,slots", [
+    (32, 1 << 18, 255, 60, list(range(0, 48, 2)) + [-1]),
+    (7, 5000, 13, 5, [3, -1, 0]),
+    (8, 1 << 16, 255, 120, list(range(0, 100, 2))),
+])
+def test_hist_kernel_int_bitwise(precision, F, n, B, leaves, slots):
+    dev = cuda_device()
+    args = _int_hist_inputs(dev, 4, F, n, B, leaves, slots, precision)
+    before = kernels.launches["hist_batched_int"]
+    got = TH.hist_batched_kernel(*args, B)
+    assert kernels.launches["hist_batched_int"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, TH.hist_batched_plain(*args, B))
+
+
+def _int_hist_inputs(dev, seed, F, n, B, leaves, slots, precision):
+    rng = np.random.default_rng(seed)
+    q = TH.quant_limit(precision, n)
+    g = rng.integers(-q, q + 1, size=n)
+    h = rng.integers(0, q + 1, size=n)
+    mask = np.ones(n, np.int64)
+    mask[-50:] = 0
+    stats = TH.pack_stats(torch.from_numpy(g * mask),
+                          torch.from_numpy(h * mask),
+                          torch.from_numpy(mask), precision)
+    return (torch.from_numpy(rng.integers(0, B, size=(F, n))
+                             .astype(np.uint8)).to(dev),
+            stats.to(dev).contiguous(),
+            torch.from_numpy(rng.integers(0, leaves, size=n)
+                             .astype(np.int32)).to(dev),
+            torch.tensor(slots, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("precision", ["hilo", "f32", "int8", "int16"])
+@pytest.mark.parametrize("F,n,B,leaves,slots", [
+    (32, 1 << 17, 255, 60, list(range(0, 48, 2)) + [-1]),
+    (7, 5000, 13, 5, [3, -1, 0]),
+])
+def test_flat_kernel_matches_twin(precision, F, n, B, leaves, slots):
+    dev = cuda_device()
+    before = kernels.launches["hist_flat"]
+    if precision.startswith("int"):
+        args = _int_hist_inputs(dev, 5, F, n, B, leaves, slots, precision)
+        got = TH.hist_flat_kernel(*args, B)
+        assert torch.equal(got, TH.hist_batched_plain(*args, B))
+    else:
+        args, sg, sh = _hist_inputs(dev, 5, F, n, B, leaves, slots,
+                                    precision)
+        got = TH._unpack_hist(TH.hist_flat_kernel(*args, B)
+                              .permute(3, 2, 0, 1), precision).cpu().numpy()
+        ref = TH._unpack_hist(TH.hist_batched_plain(*args, B)
+                              .permute(3, 2, 0, 1), precision).cpu().numpy()
+        np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+        # f32 atomics in arrival order: B1's HIST_RTOL
+        assert np.abs(got[..., 0] - ref[..., 0]).max() <= 1e-6 * sg
+        assert np.abs(got[..., 1] - ref[..., 1]).max() <= 1e-6 * sh
+    assert kernels.launches["hist_flat"] == before + 1
+
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+@pytest.mark.parametrize("F,n,B,K,dead,extra", [
+    (32, 1 << 18, 255, 25, (7, 24), {}),
+    (28, 1 << 16, 63, 4, (), dict(l2=1.0, min_data=20.0)),
+    (5, 3000, 13, 3, (1,), dict(l1=0.5, mds=0.3)),
+    (8, 1 << 16, 255, 50, (0,), {}),
+])
+def test_fused_kernel_bitwise(precision, F, n, B, K, dead, extra):
+    dev = cuda_device()
+    case, kw = fused_case(6, F, n, B, K, precision, dead, **extra)
+    ops = fused_args(case, B, precision, dev)
+    before = kernels.launches["fused_hist_scan"]
+    got = TF.fused_hist_scan_kernel(*ops, split_kw=kw)
+    assert kernels.launches["fused_hist_scan"] == before + 1
+    ref = TF.fused_hist_scan_plain(*ops, split_kw=kw)
+    TF.assert_fused_equal(got, ref)
+    # the scan found real splits, not only the -1e30 sentinel
+    assert (ref[1][..., 0] > 0).any()
+
+
+def test_fused_probe_raises_on_a_corrupted_record():
+    dev = cuda_device()
+    TF.probe_fused(dev, "int8")           # passes on the card
+    args, kw = TF.probe_operands("int8", dev)
+    hist, rec = TF.fused_hist_scan_kernel(*args, split_kw=kw)
+    ref = TF.fused_hist_scan_plain(*args, split_kw=kw)
+    bad = rec.clone()
+    bad.view(torch.int32)[1, 2, 0] += 1   # one ulp of one gain
+    with pytest.raises(RuntimeError, match="records differ"):
+        TF.assert_fused_equal((hist, bad), ref)
+
+
+def test_int8_training_on_card_matches_cpu_text():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(20000, 10))
+    X[rng.random(X.shape) < 0.03] = np.nan
+    y = X[:, 0] + np.nan_to_num(X[:, 1]) ** 2 + 0.3 * rng.normal(size=20000)
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+         "tpu_partition_impl": "kernel", "verbosity": -1}
+    kernels.reset_launches()
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    for name in ("hist_batched_int", "fused_hist_scan", "partition_rows"):
+        assert kernels.launches[name] > 0, name
+    cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(X, label=y),
+                    num_boost_round=3)
+    # integer histograms, bitwise kernels, op-by-op f32: the same model
+    assert gpu.model_to_string().split("parameters:")[0] == \
+        cpu.model_to_string().split("parameters:")[0]

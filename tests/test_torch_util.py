@@ -1,12 +1,13 @@
 """Shared helpers of the lightgbm_tpu_torch parity tests (no tests here)."""
 
 import numpy as np
-import pytest
-import torch
 
 
 def cuda_device():
     """The first CUDA device, or skip (decided inside the test)."""
+    import pytest
+    import torch
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the hand-written kernels run only "
                     "on the card")
@@ -25,3 +26,188 @@ def binary_data(n=2000, f=6, seed=0, nan_frac=0.05, zero_frac=0.0):
     logit = (Xn[:, :3] ** 2).sum(1) * 0.3 + Xn @ w * 0.5 - 0.9
     y = (logit + rng.logistic(size=n) > 0).astype(np.float64)
     return X, y
+
+
+
+def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
+               mds=0.0, min_data=5.0):
+    """Seeded numpy operands of the grow megakernel (B2): quantized
+    stats, leaf ids, K slots (some dead), parent histograms, the ctx rows
+    with both sibling choices and consistent child totals, mixed missing
+    types and bin counts, a penalized and a masked feature.  Returns
+    (dict of arrays, split_kw)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import histogram as TH
+
+    rng = np.random.default_rng(seed)
+    q = TH.quant_limit(precision, n)
+    leaves = 3 * K
+    slots = rng.permutation(leaves)[:K].astype(np.int32)
+    slots[list(dead)] = -1
+    mask = np.ones(n, np.int64)
+    mask[-50:] = 0
+    stats = np.stack([rng.integers(-q, q + 1, size=n) * mask,
+                      rng.integers(0, q + 1, size=n) * mask,
+                      mask]).astype(np.dtype(precision))
+    bins = rng.integers(0, B, size=(F, n)).astype(np.uint8)
+    leaf = rng.integers(0, leaves, size=n).astype(np.int32)
+    small = TH._unpack_hist(TH.hist_batched_plain(
+        torch.from_numpy(bins), torch.from_numpy(stats),
+        torch.from_numpy(leaf), torch.from_numpy(slots), B)
+        .permute(3, 2, 0, 1), precision).numpy()
+    parent = (small * 2 + rng.integers(0, 50, size=small.shape)
+              ).astype(np.int32)
+    C = 2 * K
+    scales = np.array([0.013, 0.007, 1.0], np.float32)
+    ctx = np.zeros((C + 1, 8), np.float32)
+    for j in range(C):
+        use_small = bool(rng.random() < 0.5)
+        hs = small[j % K] if use_small else parent[j % K] - small[j % K]
+        tot = hs[0].sum(0).astype(np.float32) * scales
+        ctx[j, :6] = [tot[0], tot[1], tot[2], -1e30, 1e30, float(use_small)]
+    ctx[C, :3] = scales
+    num_bin = rng.integers(2, B + 1, size=F).astype(np.int32)
+    meta_i = np.zeros((F, 8), np.int32)
+    meta_i[:, 0] = num_bin
+    meta_i[:, 1] = np.arange(F) % 3
+    meta_i[:, 2] = [rng.integers(0, nb) for nb in num_bin]
+    meta_f = np.zeros((F, 8), np.float32)
+    meta_f[:, 0] = 1.0
+    meta_f[:, 1] = 1.0
+    meta_f[F // 2, 0] = 0.5
+    meta_f[F - 1, 1] = 0.0
+    kw = dict(l1=l1, l2=l2, max_delta_step=mds, min_data_in_leaf=min_data,
+              min_sum_hessian=1e-3, min_gain_to_split=0.0)
+    return dict(bins=bins, stats=stats, leaf=leaf, slots=slots,
+                parent=parent, ctx=ctx, meta_i=meta_i, meta_f=meta_f), kw
+
+
+FUSED_KEYS = ("bins", "stats", "leaf", "slots", "parent", "ctx", "meta_i",
+              "meta_f")
+
+
+def fused_args(case, B, precision, device="cpu"):
+    """The positional operands of ops/fused.py's functions."""
+    import torch
+
+    return tuple(torch.from_numpy(case[k]).to(device)
+                 for k in FUSED_KEYS) + (B, precision)
+
+
+# ---- the JAX package compiled without fused multiply-add ------------------
+#
+# XLA:CPU contracts f32 a*b+c inside its fusions into single-rounding FMA
+# instructions wherever the host has them (its LLVM target allows FP op
+# fusion), so the jitted JAX package rounds some products once where its
+# own op-by-op evaluation, the port's plain twins and the port's CUDA
+# kernels round twice.  The bitwise parity tests therefore run the JAX side
+# in a subprocess compiled for an x86 ISA without FMA
+# (--xla_cpu_max_isa=AVX): the same program, every f32 op rounded on its
+# own.  XLA's other rewrite that reaches the results, a division by a
+# constant turned into a product with its f32 reciprocal, is reproduced by
+# the port itself (ops/grower.py).  This module imports torch and pytest
+# lazily, so that process loads JAX alone.
+#
+#     python -m tests.test_torch_util JOB IN.npz OUT.npz
+# runs JOB ("fused", "grow" or "train") in such a process.
+
+NOFMA_FLAGS = "--xla_cpu_max_isa=AVX"
+
+
+def run_jax_nofma(job, arrays, spec, tmp_path):
+    """Run `job` of this module in a JAX process compiled without FMA;
+    `arrays` (name -> numpy array) and the JSON-able `spec` go in, a dict
+    of numpy arrays comes back."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    src, dst = tmp_path / f"{job}_in.npz", tmp_path / f"{job}_out.npz"
+    np.savez(src, __spec__=np.array(json.dumps(spec)), **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=NOFMA_FLAGS)
+    res = subprocess.run(
+        [sys.executable, "-m", "tests.test_torch_util", job, str(src),
+         str(dst)], cwd=root, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    with np.load(dst) as out:
+        return {k: out[k] for k in out.files}
+
+
+def _job_fused(inp, spec):
+    """lightgbm_tpu's fused_hist_scan (interpret mode) on each case."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.fused import fused_hist_scan
+
+    out = {}
+    for c, case in enumerate(spec["cases"]):
+        a = {k: inp[f"{c}_{k}"] for k in ("bins", "stats", "leaf", "slots",
+                                          "parent", "ctx", "meta_i",
+                                          "meta_f")}
+        F, n = a["bins"].shape
+        nb, blk = case["nb"], n // case["nb"]
+        hist, rec = fused_hist_scan(
+            jnp.asarray(a["bins"].reshape(F, nb, blk).transpose(1, 0, 2)),
+            jnp.asarray(a["stats"].reshape(3, nb, blk)),
+            jnp.asarray(a["leaf"].reshape(nb, blk)),
+            jnp.asarray(a["slots"]), jnp.asarray(a["parent"]),
+            jnp.asarray(a["ctx"]), jnp.asarray(a["meta_i"]),
+            jnp.asarray(a["meta_f"]), case["B"], case["precision"],
+            split_kw=case["split_kw"])
+        out[f"{c}_hist"], out[f"{c}_rec"] = np.asarray(hist), np.asarray(rec)
+    return out
+
+
+def _job_grow(inp, spec):
+    """lightgbm_tpu's jitted grower, one program per precision; the
+    rounding mode and the leaf refit ride its traced mode flags."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops import grower as JG
+
+    meta = {k: jnp.asarray(inp["meta_" + k]) for k in spec["meta_keys"]}
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        p = JG.GrowerParams(**run["params"])
+        grow = JG.make_grower(JG.canonical_params(p), inp["bins"].shape[0])
+        m = dict(meta, mode_flags=jnp.asarray(JG.mode_flags_np(
+            p.quant_round, p.quant_refit)))
+        res = grow(jnp.asarray(inp["bins"]), jnp.asarray(inp["grad"]),
+                   jnp.asarray(inp["hess"]), jnp.asarray(inp["mask"]),
+                   jnp.asarray(inp["fmask"]), m, jnp.asarray(inp["key"]))
+        for k in ("records", "leaf_ids", "leaf_output"):
+            out[f"{c}_{k}"] = np.asarray(res[k])
+    return out
+
+
+def _job_train(inp, spec):
+    """lgb.train of lightgbm_tpu: each run's model text and raw scores."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, params in enumerate(spec["runs"]):
+        y = inp["y_" + params.pop("label")]
+        b = lgb.train(params, lgb.Dataset(inp["X"], label=y,
+                                          params={"max_bin":
+                                                  params["max_bin"]}),
+                      num_boost_round=spec["rounds"])
+        out[f"{c}_text"] = np.array(b.model_to_string())
+        out[f"{c}_raw"] = np.asarray(b.predict(inp["X"], raw_score=True))
+        out[f"{c}_key"] = np.asarray(b._driver._key)
+    return out
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    job, src, dst = sys.argv[1:4]
+    with np.load(src) as f:
+        inp = {k: f[k] for k in f.files}
+    spec = json.loads(str(inp.pop("__spec__")))
+    result = {"fused": _job_fused, "grow": _job_grow,
+              "train": _job_train}[job](inp, spec)
+    np.savez(dst, **result)
