@@ -18,14 +18,21 @@ Phases, each fatal on failure (exit code 1, no result line):
              at the root, B2 in every grower round, B3;
        flat  tpu_hist_impl=pallas, hilo, 3 iterations: B4 and B3;
   4. each kernel against its plain PyTorch twin on the card, at the
-     shapes its path gives it, with times, the bound and, where one
-     exists, one PyTorch library call computing the same function;
+     shapes its path gives it, with times (ms: the kernel's device time
+     per call from torch.profiler; event_ms: CUDA events around 20
+     back-to-back calls, which read the host's time when a call is
+     shorter than its wrapper), the bound (every leaf id, the
+     bins and stats of the live rows, the output) and, where one exists,
+     one PyTorch library call computing the same function; B1 and B1-int
+     also at the root call's operands (every row in slot 0, the other
+     slots dead);
   5. the card against the CPU path at a reduced size (50,000 rows): hilo
      and binary int8 by AUC, and regression int8 with the leaf refit
      off by its model text, which must be byte-identical.
 With --profile, two more iterations of the hilo and the int8 paths run
-under torch.profiler and the device time by op and the device's idle
-share are printed.
+under torch.profiler and the device time by op, each port kernel's
+device time per call on the path and the device's idle share are
+printed.
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  The data is the seeded synthetic
 generator of bench.py (its non-env branch), copied here.
@@ -111,6 +118,28 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps, kernels_of=None):
+    """Device time per fn() of the port's own kernels, from
+    torch.profiler: unlike cuda_ms it leaves out the time the device
+    waits for the host between calls, which is what back-to-back CUDA
+    events read when a call is shorter than its Python wrapper.
+    kernels_of: as profile's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    labels = (kernels_of or port_kernels)([ev.name for ev in events])
+    us = sum(float(ev.self_device_time_total)
+             for ev, label in zip(events, labels) if label is not None)
+    return us / 1e3 / reps
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -171,14 +200,50 @@ _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
              "aten::lift_fresh", "aten::_unsafe_view"}
 
 
-def profile(booster, iters=2):
+# device kernel name -> the port kernel (launch counter) it belongs to
+_PORT_KERNELS = (("ScanTail", "fused_hist_scan"),
+                 ("grouped_hist_kernel<float", "hist_batched"),
+                 ("grouped_hist_kernel<int", "hist_batched_int"),
+                 ("partition_rows_kernel", "partition_rows"),
+                 ("hist_flat_kernel", "hist_flat"))
+
+
+def port_kernel(device_name):
+    for part, name in _PORT_KERNELS:
+        if part in device_name:
+            return name
+    return None
+
+
+def port_kernels(device_names):
+    """The port kernel of each device launch (None: not the port's)."""
+    return [port_kernel(name) for name in device_names]
+
+
+def _device_events(prof):
+    """The device events of a torch.profiler run, in launch order."""
+    import torch
+
+    return sorted((ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda ev: ev.time_range.start)
+
+
+def profile(booster, iters=2, kernels_of=None):
     """`--profile`: where the time of `iters` more iterations goes, from
-    torch.profiler's device trace."""
+    torch.profiler's device trace.  kernels_of maps the device launches'
+    names, in launch order, to the port kernels they belong to (default
+    port_kernels; a caller timing another version of the package gives
+    one that knows that version's kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from lightgbm_tpu_torch.ops import kernels
+
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    kernels.reset_launches()
+    syncs = booster._driver.grower_syncs
     with tprofile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -186,6 +251,8 @@ def profile(booster, iters=2):
         booster.num_trees()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    calls = dict(kernels.launches)
+    syncs = booster._driver.grower_syncs - syncs
     # device busy time: the kernel, copy and set events themselves (the
     # torch ops that launched them carry the same time as self device
     # time, so summing both would count it twice)
@@ -203,50 +270,79 @@ def profile(booster, iters=2):
     ops = sum(1 for ev in prof.events()
               if ev.cpu_parent is None and ev.name.startswith("aten::")
               and ev.name not in _VIEW_OPS)
+    # each port kernel's device launches summed under its name, so that
+    # its time per call on the path reads directly (calls: its wrapper's
+    # count over the profiled iterations)
+    per_kernel = {}
+    events = _device_events(prof)
+    labels = (kernels_of or port_kernels)([ev.name for ev in events])
+    for ev, name in zip(events, labels):
+        if name is None:
+            continue
+        row = per_kernel.setdefault(name, {"calls": calls[name],
+                                           "device_launches": 0,
+                                           "device_ms": 0.0})
+        row["device_launches"] += 1
+        row["device_ms"] += float(ev.self_device_time_total) / 1e3
+    for row in per_kernel.values():
+        row["ms_per_call"] = row["device_ms"] / max(row["calls"], 1)
     return {"iters": iters, "wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "host_torch_ops_per_iter": ops / iters,
+            "host_syncs_per_tree": syncs / iters,
+            "kernels": per_kernel,
             "top": [{"kernel": k[:70], "calls": c, "device_ms": d / 1e3}
                     for d, k, c in rows[:12]]}
 
 
-def check_hist(learner, gen):
-    """Phase 4, kernel B1 at the hilo path's shapes."""
+def check_hist(learner, gen, operands):
+    """Phase 4, kernel B1 at the hilo path's shapes.  operands "random":
+    leaf ids over the L leaves, K random slots, one dead (about 9.4% of
+    the rows live), held to the twin; "root": every row in slot 0 and
+    the other K-1 slots dead (the root call), held to an f64 sum, since
+    the f32 twin's own rounding over a million rows in one slot is of the
+    tolerance's order."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
-    dev = learner.bins_t.device
     bins_t = learner.bins_t
     F, n = bins_t.shape
     B = learner.num_bins
     K = learner.params.split_batch
-    mask = learner._ones_mask
-    g = torch.randn(n, generator=gen, device=dev) * 0.5 * mask
-    h = torch.rand(n, generator=gen, device=dev) * 0.25 * mask
-    stats = H.pack_stats(g, h, mask, "hilo").contiguous()
-    leaf, slots = _random_slots(learner, gen)
+    stats, g, h = _hilo_stats(learner, gen)
+    leaf, slots = _slots_of(learner, gen, operands)
     hk = H._unpack_hist(H.hist_batched_kernel(bins_t, stats, leaf, slots, B)
                         .permute(3, 2, 0, 1), "hilo")
     hp = H._unpack_hist(H.hist_batched_plain(bins_t, stats, leaf, slots, B)
                         .permute(3, 2, 0, 1), "hilo")
     torch.cuda.synchronize()
-    err, rel = _hist_rel_err(hk, hp, g, h, leaf, slots)
+    extra = {}
+    if operands == "root":
+        h64 = _hist_f64(bins_t, stats, leaf, slots, B)
+        err, rel = _hist_rel_err(hk.double(), h64, g, h, leaf, slots)
+        extra["twin_max_abs_err_vs_f64"] = float(
+            (hp.double() - h64).abs().max().item())
+        extra["reference"] = "f64 sum of the same stats"
+    else:
+        err, rel = _hist_rel_err(hk, hp, g, h, leaf, slots)
     lib_ms, m = _index_add_ms(bins_t, stats, leaf, slots, B)
-    ms = cuda_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf, slots, B),
-                 20)
+    ms = device_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf, slots,
+                                                 B), 20)
+    event_ms = cuda_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf,
+                                                     slots, B), 20)
     plain_ms = cuda_ms(
         lambda: H.hist_batched_plain(bins_t, stats, leaf, slots, B), 5)
     S = stats.shape[0]
-    nbytes = F * n + S * n * 2 + n * 4 + K * 4 + F * B * K * S * 4
-    return {"name": "hist_batched", "route": "cuda",
+    return {"name": "hist_batched", "operands": operands, "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
             "replaces": "lightgbm_tpu/ops/histogram.py:584",
             "max_abs_err": err, "max_rel_err": rel,
             "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}", "ms": ms,
-            "plain_ms": plain_ms, **_bound(nbytes, m * F * S, PEAK_F32_S),
-            "library_ms": lib_ms,
+            "event_ms": event_ms, "plain_ms": plain_ms,
+            **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S),
+            "library_ms": lib_ms, **extra,
             "shape": f"bins [{F}, {n}] u8, stats [{S}, {n}] bf16, K={K}, "
-                     f"B={B}, matched rows {m}"}
+                     f"B={B}, live rows {m}"}
 
 
 def check_partition(learner, gen):
@@ -281,7 +377,8 @@ def check_partition(learner, gen):
     err = (out_k - out_p).abs().max().item()
     if err != 0:
         fail(f"partition_rows differs from its twin (max err {err})")
-    ms = cuda_ms(lambda: fused.partition_rows_kernel(*args), 20)
+    ms = device_ms(lambda: fused.partition_rows_kernel(*args), 20)
+    event_ms = cuda_ms(lambda: fused.partition_rows_kernel(*args), 20)
     plain_ms = cuda_ms(lambda: fused.partition_rows_plain(*args), 5)
     m = int(((leaf[None, :] == sel[:, None]) & do_k[:, None]).sum().item())
     nbytes = n * 4 + n * 4 + m + K * 9 * 4
@@ -289,10 +386,25 @@ def check_partition(learner, gen):
             "source": "lightgbm_tpu_torch/csrc/partition.cu",
             "replaces": "lightgbm_tpu/ops/fused.py:296",
             "max_abs_err": float(err), "max_rel_err": float(err),
-            "tolerance": "bitwise", "ms": ms, "plain_ms": plain_ms,
+            "tolerance": "bitwise", "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms,
             **_bound(nbytes, n * K * 2, PEAK_ALU_S), "library_ms": None,
             "shape": f"bins [{F}, {n}] u8, leaf [{n}] i32, K={K}, "
                      f"rows of splitting leaves {m}"}
+
+
+def _hilo_stats(learner, gen):
+    """hilo [5, n] stats of random grad/hess on the learner's rows, and
+    the grad and hess."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    dev = learner.bins_t.device
+    n = learner.bins_t.shape[1]
+    mask = learner._ones_mask
+    g = torch.randn(n, generator=gen, device=dev) * 0.5 * mask
+    h = torch.rand(n, generator=gen, device=dev) * 0.25 * mask
+    return H.pack_stats(g, h, mask, "hilo").contiguous(), g, h
 
 
 def _int8_stats(learner, gen):
@@ -344,19 +456,74 @@ def _index_add_ms(bins_t, stats, leaf, slots, B):
     F, n = bins_t.shape
     K = slots.shape[0]
     S = stats.shape[0]
+    flat, m = _flat_index(bins_t, leaf, slots, B)
+    acc = torch.float32 if stats.is_floating_point() else torch.int32
+    vals = stats.to(acc).T[None].expand(F, -1, -1).reshape(-1, S)
+    out = torch.zeros(F * B * K + 1, S, device=dev, dtype=acc)
+    return cuda_ms(lambda: out.index_add_(0, flat, vals), 5), m
+
+
+def _slots_of(learner, gen, operands):
+    if operands == "random":
+        return _random_slots(learner, gen)
+    import torch
+
+    dev = learner.bins_t.device
+    K = learner.params.split_batch
+    leaf = torch.zeros(learner.bins_t.shape[1], dtype=torch.int32,
+                       device=dev)
+    slots = torch.full((K,), -1, dtype=torch.int32, device=dev)
+    slots[0] = 0
+    return leaf, slots
+
+
+def _hist_bound(n, m, F, S, stat_bytes, K, out_words, peak_ops):
+    """The bound of a K-slot histogram call, from what its inputs need:
+    every leaf id, the bins and stats of the m live rows only, the slot
+    ids, and the output written once; m * F * S adds.  Beside it the
+    bound that counts every row's bins and stats, as earlier versions of
+    this script did."""
+    live = n * 4 + m * (F + S * stat_bytes) + K * 4 + out_words * 4
+    every = n * 4 + n * (F + S * stat_bytes) + K * 4 + out_words * 4
+    return {**_bound(live, m * F * S, peak_ops),
+            "bound_ms_all_rows": _bound(every, m * F * S,
+                                        peak_ops)["bound_ms"]}
+
+
+def _flat_index(bins_t, leaf, slots, B):
+    """[F * n] flat (feature, bin, slot) index of each row's adds (one
+    past the end for rows in no slot) and the live-row count."""
+    import torch
+
+    dev = bins_t.device
+    F, n = bins_t.shape
+    K = slots.shape[0]
     k_of = torch.full((n,), K * F * B, device=dev, dtype=torch.int64)
-    for k in range(K):
+    for k in reversed(range(K)):
         k_of = torch.where(leaf == slots[k], k, k_of)
     live = k_of < K * F * B
     f_iota = torch.arange(F, device=dev)[:, None]
     flat = torch.where(live[None, :],
                        (f_iota * B + bins_t.long()) * K + k_of[None, :],
                        F * B * K).reshape(-1)
-    acc = torch.float32 if stats.is_floating_point() else torch.int32
-    vals = stats.to(acc).T[None].expand(F, -1, -1).reshape(-1, S)
-    out = torch.zeros(F * B * K + 1, S, device=dev, dtype=acc)
-    return cuda_ms(lambda: out.index_add_(0, flat, vals), 5), \
-        int(live.sum().item())
+    return flat, int(live.sum().item())
+
+
+def _hist_f64(bins_t, stats, leaf, slots, B):
+    """[K, F, B, 3] f64 histogram of float stats (the reference of the
+    root operands; distinct live slot ids)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    F, n = bins_t.shape
+    K = slots.shape[0]
+    S = stats.shape[0]
+    flat, _ = _flat_index(bins_t, leaf, slots, B)
+    vals = stats.double().T[None].expand(F, -1, -1).reshape(-1, S)
+    out = torch.zeros(F * B * K + 1, S, device=bins_t.device,
+                      dtype=torch.float64).index_add_(0, flat, vals)
+    return H._unpack_hist(out[:-1].view(F, B, K, S).permute(3, 2, 0, 1),
+                          "hilo")
 
 
 def _random_slots(learner, gen):
@@ -375,8 +542,9 @@ def _random_slots(learner, gen):
     return leaf, slots.contiguous()
 
 
-def check_hist_int(learner, gen):
-    """Phase 4, kernel B1's integer variant at the int8 path's shapes."""
+def check_hist_int(learner, gen, operands):
+    """Phase 4, kernel B1's integer variant at the int8 path's shapes
+    (operands as check_hist's), bitwise."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -385,35 +553,37 @@ def check_hist_int(learner, gen):
     B = learner.num_bins
     K = learner.params.split_batch
     stats = _int8_stats(learner, gen)
-    leaf, slots = _random_slots(learner, gen)
+    leaf, slots = _slots_of(learner, gen, operands)
     raw_k = H.hist_batched_kernel(bins_t, stats, leaf, slots, B)
     raw_p = H.hist_batched_plain(bins_t, stats, leaf, slots, B)
     torch.cuda.synchronize()
     if not torch.equal(raw_k, raw_p):
-        fail(f"hist_batched (int8) differs from its twin: max err "
-             f"{(raw_k - raw_p).abs().max().item()}")
+        fail(f"hist_batched (int8, {operands}) differs from its twin: max "
+             f"err {(raw_k - raw_p).abs().max().item()}")
     lib_ms, m = _index_add_ms(bins_t, stats, leaf, slots, B)
-    ms = cuda_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf, slots,
-                                               B), 20)
+    ms = device_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf, slots,
+                                                 B), 20)
+    event_ms = cuda_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf,
+                                                     slots, B), 20)
     plain_ms = cuda_ms(
         lambda: H.hist_batched_plain(bins_t, stats, leaf, slots, B), 5)
     S = 3
-    nbytes = F * n + S * n + n * 4 + K * 4 + F * B * K * S * 4
-    return {"name": "hist_batched_int", "route": "cuda",
+    return {"name": "hist_batched_int", "operands": operands, "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
             "replaces": "lightgbm_tpu/ops/histogram.py:584",
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
-            "ms": ms, "plain_ms": plain_ms,
-            **_bound(nbytes, m * F * S, PEAK_ALU_S), "library_ms": lib_ms,
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S),
+            "library_ms": lib_ms,
             "shape": f"bins [{F}, {n}] u8, stats [3, {n}] int8, K={K}, "
-                     f"B={B}, matched rows {m}"}
+                     f"B={B}, live rows {m}"}
 
 
-def check_fused(learner, gen):
-    """Phase 4, kernel B2 at the int8 path's shapes: K parent leaves
-    k and K + k, each split in two, the smaller child histogrammed."""
+def _fused_operands(learner, gen):
+    """Kernel B2's operands at the int8 path's shapes: K parent leaves
+    k and K + k, each split in two, the smaller child histogrammed.
+    Returns (positional args, split_kw)."""
     import torch
-    from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.ops import histogram as H
 
     dev = learner.bins_t.device
@@ -457,8 +627,21 @@ def check_fused(learner, gen):
               min_data_in_leaf=p.min_data_in_leaf,
               min_sum_hessian=p.min_sum_hessian,
               min_gain_to_split=p.min_gain_to_split)
-    args = (bins_t, stats, leaf, slots, parent, ctx, meta_i, meta_f, B,
-            "int8")
+    return (bins_t, stats, leaf, slots, parent, ctx, meta_i, meta_f, B,
+            "int8"), kw
+
+
+def check_fused(learner, gen):
+    """Phase 4, kernel B2 at `_fused_operands`' operands."""
+    import torch
+    from lightgbm_tpu_torch.ops import fused
+
+    bins_t = learner.bins_t
+    F, n = bins_t.shape
+    B = learner.num_bins
+    K = learner.params.split_batch
+    args, kw = _fused_operands(learner, gen)
+    leaf, slots = args[2], args[3]
     got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
     ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
     torch.cuda.synchronize()
@@ -469,16 +652,21 @@ def check_fused(learner, gen):
     if not bool((ref[1][..., 0] > 0).any()):
         fail("fused_hist_scan check found no split: its operands are "
              "degenerate")
-    ms = cuda_ms(lambda: fused.fused_hist_scan_kernel(*args, split_kw=kw),
-                 20)
+    ms = device_ms(lambda: fused.fused_hist_scan_kernel(*args, split_kw=kw),
+                   20)
+    event_ms = cuda_ms(
+        lambda: fused.fused_hist_scan_kernel(*args, split_kw=kw), 20)
     plain_ms = cuda_ms(
         lambda: fused.fused_hist_scan_plain(*args, split_kw=kw), 3)
     m = int((slots[:, None] == leaf[None, :]).any(0).sum().item())
     C = 2 * K
-    # each input read once, each output written once: bins, stats, leaf
-    # ids, slots, parents, ctx, meta; histograms and records
-    nbytes = (F * n + 3 * n + 4 * n + 4 * K + 2 * K * F * B * 12
-              + (C + 1) * 32 + F * 64 + C * F * 32)
+    # each input read once, each output written once: every leaf id, the
+    # bins and stats of the live rows, slots, parents, ctx, meta;
+    # histograms and records (earlier versions: every row's bins and
+    # stats)
+    rest = 4 * K + 2 * K * F * B * 12 + (C + 1) * 32 + F * 64 + C * F * 32
+    nbytes = 4 * n + m * (F + 3) + rest
+    nbytes_all = 4 * n + n * (F + 3) + rest
     # histogram adds, then about 100 f32 operations per (child, feature,
     # bin) in the scan (prefix sums, dequantization, both directions'
     # leaf outputs, clips and gains)
@@ -487,10 +675,12 @@ def check_fused(learner, gen):
             "source": "lightgbm_tpu_torch/csrc/fused.cu",
             "replaces": "lightgbm_tpu/ops/fused.py:221",
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             **_bound(nbytes, ops, PEAK_F32_S), "library_ms": None,
+            "bound_ms_all_rows": _bound(nbytes_all, ops,
+                                        PEAK_F32_S)["bound_ms"],
             "shape": f"bins [{F}, {n}] u8, stats [3, {n}] int8, K={K}, "
-                     f"B={B}, 2K children, matched rows {m}"}
+                     f"B={B}, 2K children, live rows {m}"}
 
 
 def check_flat(learner, gen):
@@ -499,15 +689,11 @@ def check_flat(learner, gen):
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
-    dev = learner.bins_t.device
     bins_t = learner.bins_t
     F, n = bins_t.shape
     B = learner.num_bins
     K = learner.params.split_batch
-    mask = learner._ones_mask
-    g = torch.randn(n, generator=gen, device=dev) * 0.5 * mask
-    h = torch.rand(n, generator=gen, device=dev) * 0.25 * mask
-    stats = H.pack_stats(g, h, mask, "hilo").contiguous()
+    stats, g, h = _hilo_stats(learner, gen)
     leaf, slots = _random_slots(learner, gen)
     hk = H._unpack_hist(H.hist_flat_kernel(bins_t, stats, leaf, slots, B)
                         .permute(3, 2, 0, 1), "hilo")
@@ -520,21 +706,23 @@ def check_flat(learner, gen):
                        H.hist_batched_plain(bins_t, st8, leaf, slots, B)):
         fail("hist_flat (int8) differs from its twin")
     lib_ms, m = _index_add_ms(bins_t, stats, leaf, slots, B)
-    ms = cuda_ms(lambda: H.hist_flat_kernel(bins_t, stats, leaf, slots, B),
-                 10)
+    ms = device_ms(lambda: H.hist_flat_kernel(bins_t, stats, leaf, slots, B),
+                   10)
+    event_ms = cuda_ms(lambda: H.hist_flat_kernel(bins_t, stats, leaf,
+                                                  slots, B), 10)
     plain_ms = cuda_ms(
         lambda: H.hist_batched_plain(bins_t, stats, leaf, slots, B), 5)
     S = stats.shape[0]
-    nbytes = F * n + S * n * 2 + n * 4 + K * 4 + F * B * K * S * 4
     return {"name": "hist_flat", "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
             "replaces": "lightgbm_tpu/ops/histogram.py:541",
             "max_abs_err": err, "max_rel_err": rel,
             "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}; int8 bitwise",
-            "ms": ms, "plain_ms": plain_ms,
-            **_bound(nbytes, m * F * S, PEAK_F32_S), "library_ms": lib_ms,
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S),
+            "library_ms": lib_ms,
             "shape": f"bins [{F}, {n}] u8, stats [{S}, {n}] bf16, K={K}, "
-                     f"B={B}, matched rows {m}"}
+                     f"B={B}, live rows {m}"}
 
 
 def cross_check(lgb, X, y):
@@ -615,8 +803,10 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(7)
     learners = {k: b._driver.learner for k, b in boosters.items()}
     # (row, the path whose launches it reports)
-    kernel_rows = [(check_hist(learners["hilo"], gen), "hilo"),
-                   (check_hist_int(learners["int8"], gen), "int8"),
+    kernel_rows = [(check_hist(learners["hilo"], gen, "random"), "hilo"),
+                   (check_hist(learners["hilo"], gen, "root"), "hilo"),
+                   (check_hist_int(learners["int8"], gen, "random"), "int8"),
+                   (check_hist_int(learners["int8"], gen, "root"), "int8"),
                    (check_fused(learners["int8"], gen), "int8"),
                    (check_partition(learners["hilo"], gen), "hilo"),
                    (check_flat(learners["flat"], gen), "flat")]
@@ -635,8 +825,11 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in kernel_rows]}), flush=True)
+    # B1 and B1-int have two rows: random operands, then the root's
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **({"operands": r["operands"]} if "operands" in r else {})}
+        for r in kernel_rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ from ..io.dataset import TrainingData
 from ..ops import grower as G
 from ..ops.fused import fused_supported, probe_fused
 from ..ops.grower import GrowerParams, pad_rows, resolve_split_batch
-from ..ops.histogram import INT_PRECISIONS, _dot_spec
+from ..ops.histogram import INT_PRECISIONS, _dot_spec, row_major_bins
 from ..utils import prng
 from .tree import Tree
 
@@ -145,6 +145,12 @@ class TreeLearner:
                              device=dev)
         bins_t[:self.num_features, :n] = train_data.bins_t
         self.bins_t = bins_t
+        if dev.type == "cuda":
+            # kernels B1 and B2 gather each live row's bins from a
+            # row-major copy ([n_pad, 32] uint8 at up to 32 features);
+            # row_major_bins makes it here, at set-up, and keeps it on
+            # bins_t for every later call
+            row_major_bins(bins_t)
         ones = torch.zeros(self.n_pad, dtype=torch.float32, device=dev)
         ones[:n] = 1.0
         self._ones_mask = ones

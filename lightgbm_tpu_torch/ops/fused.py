@@ -7,10 +7,12 @@ The port of `lightgbm_tpu/ops/fused.py`.
 sibling subtraction against the parents' pooled histograms, and the
 per-feature split scan of all 2K children, returned as flat
 `pack_pf_records` rows.  On a CUDA tensor it launches kernel B2
-(`csrc/fused.cu`); on a CPU tensor it runs `fused_hist_scan_plain`, the
-same function in plain PyTorch.  The scan runs on exact int32 prefix
-sums and then the same elementwise f32 math as the grower's own split
-search, so the records are bitwise equal to it: the two paths grow the
+(`csrc/fused.cu`: kernel B1's grouped integer histogram and the split
+scan in one cooperative launch); on a CPU tensor it runs
+`fused_hist_scan_plain`, the same function in plain PyTorch.  The scan
+runs on exact int32 prefix sums and then the same elementwise f32 math
+as the grower's own split search, so the records are bitwise equal to
+it: the two paths grow the
 same trees.  `probe_fused` runs the kernel against its twin on tiny
 operands before the learner trusts it, and raises on any difference.
 
@@ -23,14 +25,14 @@ Both are bitwise equal to the "vselect" lowering.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from . import kernels
-from .histogram import (INT_PRECISIONS, _STAT_KINDS, _unpack_hist,
+from .histogram import (INT_PRECISIONS, _STAT_KINDS, _grouped_call,
+                        _raw_buffer, _raw_view, _unpack_hist,
                         hist_batched_plain)
 from .split import (PF_RECORD_WIDTH, numeric_go_left, pack_pf_records,
                     per_feature_best_split)
@@ -122,28 +124,22 @@ def _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
                          "the quantized precisions")
     if not 1 <= B <= 256 or not 1 <= K < 255:
         raise ValueError(f"num_bins={B} or {K} slots out of range")
-    lib = kernels.library()
-    plan = (ctypes.c_int * 5)()
-    with torch.cuda.device(dev):
-        kernels.check(lib.lgbt_hist_batched_plan(F, n, 3, K, B, plan),
-                      "fused_hist_scan plan")
-    slot_of = torch.empty(n, dtype=torch.uint8, device=dev)
-    partial = torch.empty((plan[2], F, B, K, 3), dtype=torch.int32,
-                          device=dev)
-    raw = torch.empty((F, B, K, 3), dtype=torch.int32, device=dev)
+    rows, _, scratch, cplan = _grouped_call(bins_t, stats, slot_leaf_ids, B,
+                                            scan=True)
+    raw = _raw_buffer(K, F, B, 3, torch.int32, dev)
     records = torch.empty((C, F, PF_RECORD_WIDTH), dtype=torch.float32,
                           device=dev)
     kw = [float(split_kw[k]) for k in SPLIT_KW]
     with torch.cuda.device(dev):
-        code = lib.lgbt_fused_hist_scan(
-            bins_t.data_ptr(), stats.data_ptr(), _STAT_KINDS[stats.dtype],
-            leaf_ids.data_ptr(), slot_leaf_ids.data_ptr(),
-            slot_of.data_ptr(), partial.data_ptr(), raw.data_ptr(),
+        code = kernels.library().lgbt_fused_hist_scan(
+            rows.data_ptr(), rows.shape[1], stats.data_ptr(),
+            _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
+            slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(),
             parent_hist.data_ptr(), child_ctx.data_ptr(), meta_i.data_ptr(),
-            meta_f.data_ptr(), records.data_ptr(), F, n, K, B, plan, *kw,
+            meta_f.data_ptr(), records.data_ptr(), F, n, K, B, cplan, *kw,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "fused_hist_scan launch")
-    return raw.permute(2, 0, 1, 3), records
+    return _raw_view(raw, F, B, 3), records
 
 
 def fused_hist_scan_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,

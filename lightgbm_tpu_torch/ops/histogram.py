@@ -17,17 +17,24 @@ hash runs in int64 masked to 32 bits, since torch's uint32 arithmetic is
 partial; it gives the JAX package's uint32 results bit for bit.
 
 `build_histogram_batched_t` is the K-slot batched histogram.  On a CUDA
-tensor it launches kernel B1 (`csrc/histogram.cu`, the port of the
-perfeature Pallas kernel `_hist_pallas`), or kernel B4 (the port of its
-"flat" variant) for `impl="pallas"`; on a CPU tensor both run
-`hist_batched_plain`, the plain PyTorch version of the same function
-(the scatter form of the XLA branch of the JAX function).  There is no
-fallback from one to the other.
+tensor it launches kernel B1 (`csrc/histogram.cu` on
+`csrc/grouped_hist.cuh`, the port of the perfeature Pallas kernel
+`_hist_pallas`), or kernel B4 (the port of its "flat" variant) for
+`impl="pallas"`; on a CPU tensor both run `hist_batched_plain`, the
+plain PyTorch version of the same function (the scatter form of the XLA
+branch of the JAX function).  There is no fallback from one to the
+other.  B1 (and B2, ops/fused.py) group the rows by slot and gather
+each live row's bins from a row-major copy of the bin matrix
+(`row_major_bins`, kept on the matrix: 32 MB at 1M rows x 32 features);
+`group_rows_plain` is the plain version of that grouping, and
+`hist_plan` the launch geometry, both plain Python.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -223,38 +230,217 @@ def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
         raise ValueError(f"{K} slots; the kernel takes 1 to 254")
 
 
+# shared memory the CUDA runtime reserves for each resident block
+_SMEM_PER_BLOCK_RESERVED = 1024
+_MAX_STATS_BYTES = 16      # one row's packed stats: one 16-byte load
+
+
+class HistPlan(NamedTuple):
+    """Launch geometry of one call of the grouped histogram kernel (the
+    field order of csrc/grouped_hist.cuh's kPlan* indices)."""
+    threads: int          # threads of a block
+    smem: int             # dynamic shared memory of a block, bytes
+    chunks: int           # feature chunks of 32 features
+    grid: int             # blocks: all resident at once (cooperative)
+    seg_rows: int         # least rows of the grouped list a block takes
+    tile_rows: int        # rows whose leaf ids each block groups
+    scratch_words: int    # int32 words of scratch the call needs
+
+
+# words of the grouping's leaf id -> slot table (grouped_hist.cuh kTable)
+_TABLE_WORDS = 4096 // 4
+# shared words of one 256-thread part of kernel B2's split scan
+# (csrc/fused.cu ScanTail::kWords)
+_SCAN_WORDS = 3 * 8 + 6 * 256 + 4 * 8
+
+
+def _smem_bytes(K: int, B: int, S: int, threads: int, scan: bool,
+                floats: bool) -> int:
+    """grouped_hist.cuh's layout: the persistent [4K+1] words (slot ids,
+    duplicate chains, offsets, write positions) rounded to 16 bytes, then
+    the largest of the grouping's two [warps, K] tables, [K] totals and
+    leaf id -> slot table,
+    the histogram's [B, S, 32] sums and, for B2, the scan's words."""
+    persist = (4 * K + 1 + 3) // 4 * 4
+    # int32 sums at a row stride of 33 words, f32 sums at 32; after them
+    # each warp's tile of 32 rows' bins (32 x 9 words), which the f32
+    # flush reuses for its staging tiles (8 warps x 32 x 33 words)
+    tiles = max((threads // 32) * 32 * 9, 8 * 32 * 33 if floats else 0)
+    sums = B * S * (32 if floats else 33) + tiles
+    union = max(2 * (threads // 32) * K + K + _TABLE_WORDS, sums,
+                (threads // 256) * _SCAN_WORDS if scan else 0)
+    return 4 * (persist + union)
+
+
+def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
+              smem_max: int, smem_sm: int, scan: bool = False,
+              floats: bool = False) -> HistPlan:
+    """Geometry of kernel B1 (and of B2's histogram phases).
+
+    Features go in chunks of 32, one per lane, so one slot's [B, S, 32]
+    sums (163,200 bytes at B = 255, S = 5) always fit a block.  Where two
+    blocks fit an SM's shared memory (smem_sm), blocks have 512 threads
+    and two share an SM; else one block of 1024.  The grid is every
+    block the card holds at once, as a cooperative launch needs.  Each
+    block groups a tile of ceil(n / grid) rows, rounded to 4 x its
+    threads (each warp takes an equal part of it).  scan: the call is
+    kernel B2's, whose split scan also needs shared memory."""
+    if not (1 <= S <= 5 and 1 <= K < 255 and 1 <= B <= 256 and F >= 1
+            and n >= 1 and sms >= 1):
+        raise ValueError(f"no histogram plan for F={F}, K={K}, S={S}, "
+                         f"B={B}, n={n}, sms={sms}")
+    chunks = -(-F // 32)
+    small = _smem_bytes(K, B, S, 512, scan, floats)
+    if 2 * (small + _SMEM_PER_BLOCK_RESERVED) <= smem_sm:
+        threads, per_sm, smem = 512, 2, small
+    else:
+        threads, per_sm = 1024, 1
+        smem = _smem_bytes(K, B, S, threads, scan, floats)
+    if smem > smem_max or smem + _SMEM_PER_BLOCK_RESERVED > smem_sm:
+        raise ValueError(f"the histogram needs {smem} bytes of shared "
+                         f"memory; the card gives a block {smem_max}")
+    grid = sms * per_sm
+    # rows of the grouped list that a block takes at least: fewer rows a
+    # block spread a small call over more blocks, each flushing up to
+    # B x S x 32 sums
+    seg_rows = 512
+    # each warp groups 4 x 32 rows at a time
+    step = 4 * threads
+    tile = -(-n // grid)
+    tile = -(-tile // step) * step
+    # [n] uint4 packed stats, [n] rows, [K, grid] counts, [K+1] offsets
+    scratch = 4 * n + n + grid * K + K + 1
+    return HistPlan(threads, smem, chunks, grid, seg_rows, tile, scratch)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple:
+    """(SMs, opt-in shared memory of a block, shared memory of an SM)."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        kernels.check(kernels.library().lgbt_device_limits(out),
+                      "device limits")
+    return tuple(out)
+
+
+def row_major_bins(bins_t: torch.Tensor) -> torch.Tensor:
+    """[n, FR] uint8 copy of the [F, n] bins, FR = F rounded up to 32
+    (padding bytes 0): one row's bins of a 32-feature chunk are one
+    32-byte sector.  Made once and kept on bins_t itself, so every call
+    on the same matrix (the learner's, for the whole training) reuses
+    it; an in-place change of bins_t makes a new one."""
+    cached = getattr(bins_t, "_lgbt_rows", None)
+    if cached is not None and cached[0] == bins_t._version:
+        return cached[1]
+    F, n = bins_t.shape
+    fr = -(-F // 32) * 32
+    rows = torch.zeros((n, fr), dtype=torch.uint8, device=bins_t.device)
+    rows[:, :F] = bins_t.t()
+    bins_t._lgbt_rows = (bins_t._version, rows)
+    return rows
+
+
+def group_rows_plain(leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor):
+    """The grouping pass of kernels B1 and B2 in plain PyTorch: (rows,
+    offsets).  rows [m] int32 lists the rows in any slot, grouped by
+    slot and in row order within a slot; slot k's rows are
+    rows[offsets[k]:offsets[k+1]] ([K+1] int32).  A row goes to the first
+    slot holding its leaf id; a later slot with the same id, and a dead
+    slot (a negative id), gets none."""
+    match = (slot_leaf_ids[:, None] == leaf_ids[None, :]) \
+        & (slot_leaf_ids[:, None] >= 0)
+    first = match & (match.to(torch.int32).cumsum(0) == 1)
+    _, rows = first.nonzero(as_tuple=True)       # slot-major, rows ascending
+    counts = first.sum(1)
+    offsets = torch.zeros(slot_leaf_ids.shape[0] + 1, dtype=torch.int32,
+                          device=leaf_ids.device)
+    offsets[1:] = counts.cumsum(0)
+    return rows.to(torch.int32), offsets
+
+
+def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
+                  scan: bool = False):
+    """Row-major bins, plan, scratch and ctypes plan of one call."""
+    F, n = bins_t.shape
+    S = stats.shape[0]
+    K = slot_leaf_ids.shape[0]
+    if S * stats.element_size() > _MAX_STATS_BYTES:
+        raise ValueError(f"{S} {stats.dtype} stat rows exceed the kernel's "
+                         f"{_MAX_STATS_BYTES} bytes a row")
+    rows = row_major_bins(bins_t)
+    index = bins_t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = hist_plan(F, K, S, int(num_bins), n, *_device_limits(index),
+                     scan=scan, floats=stats.is_floating_point())
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                          device=bins_t.device)
+    return rows, plan, scratch, (ctypes.c_int * 6)(*plan[:6])
+
+
+def _raw_buffer(K, F, B, S, dtype, device):
+    """The kernels' output: [K, F, BSp], a (slot, feature) row of B * S
+    sums padded to a multiple of 4 words (16-byte vector atomics)."""
+    return torch.empty((K, F, -(-B * S // 4) * 4), dtype=dtype,
+                       device=device)
+
+
+def _raw_view(raw, F, B, S):
+    """[K, F, B, S] view of a `_raw_buffer` (the padding left out)."""
+    return raw[:, :, :B * S].view(raw.shape[0], F, B, S)
+
+
+def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
+                 group_only: bool):
+    F, n = bins_t.shape
+    S = stats.shape[0]
+    K = slot_leaf_ids.shape[0]
+    rows, plan, scratch, cplan = _grouped_call(bins_t, stats, slot_leaf_ids,
+                                               num_bins)
+    raw = _raw_buffer(K, F, int(num_bins), S, _acc_dtype(stats),
+                      bins_t.device)
+    with torch.cuda.device(bins_t.device):
+        code = kernels.library().lgbt_hist_batched(
+            rows.data_ptr(), rows.shape[1], stats.data_ptr(),
+            _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
+            slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(), F,
+            n, S, K, int(num_bins), cplan, int(group_only),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(code, "hist_batched launch")
+    return _raw_view(raw, F, int(num_bins), S).permute(1, 2, 0, 3), plan, \
+        scratch
+
+
 def hist_batched_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                         leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
                         num_bins: int) -> torch.Tensor:
     """Kernel B1 on the card: raw [F, B, K, S] sums (f32, or int32 for
-    int8/int16 stats: the integer variant, counted apart)."""
+    int8/int16 stats: the integer variant, counted apart).  One
+    cooperative launch: the grouping pass, then the histogram."""
     _check_hist_args("B1", bins_t, stats, leaf_ids, slot_leaf_ids,
                      num_bins)
-    F, n = bins_t.shape
-    S = stats.shape[0]
-    K = slot_leaf_ids.shape[0]
-    acc = _acc_dtype(stats)
-    lib = kernels.library()
-    plan = (ctypes.c_int * 5)()
-    with torch.cuda.device(bins_t.device):
-        kernels.check(lib.lgbt_hist_batched_plan(F, n, S, K, int(num_bins),
-                                                 plan), "hist_batched plan")
-    # scratch: each row's slot, and one histogram slice per row range
-    # (plan[2] of them, added in order)
-    slot_of = torch.empty(n, dtype=torch.uint8, device=bins_t.device)
-    partial = torch.empty((plan[2], F, num_bins, K, S), dtype=acc,
-                          device=bins_t.device)
-    raw = torch.empty((F, num_bins, K, S), dtype=acc, device=bins_t.device)
-    with torch.cuda.device(bins_t.device):
-        code = lib.lgbt_hist_batched(
-            bins_t.data_ptr(), stats.data_ptr(), _STAT_KINDS[stats.dtype],
-            leaf_ids.data_ptr(), slot_leaf_ids.data_ptr(), slot_of.data_ptr(),
-            partial.data_ptr(), raw.data_ptr(), F, n, S, K, int(num_bins),
-            plan, torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "hist_batched launch")
-    kernels.launches["hist_batched" if acc == torch.float32
+    raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
+                             num_bins, False)
+    kernels.launches["hist_batched" if raw.dtype == torch.float32
                      else "hist_batched_int"] += 1
     return raw
+
+
+def hist_group_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
+                      leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
+                      num_bins: int):
+    """Kernel B1 stopped after its grouping pass: (rows, offsets) as
+    `group_rows_plain` gives them.  For the tests; not counted."""
+    _check_hist_args("B1", bins_t, stats, leaf_ids, slot_leaf_ids,
+                     num_bins)
+    n = bins_t.shape[1]
+    K = slot_leaf_ids.shape[0]
+    _, plan, scratch = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
+                                    num_bins, True)
+    at = 5 * n + plan.grid * K
+    offsets = scratch[at:at + K + 1].clone()
+    m = int(offsets[K].item())
+    return scratch[4 * n:4 * n + m].clone(), offsets
 
 
 def hist_flat_kernel(bins_t: torch.Tensor, stats: torch.Tensor,

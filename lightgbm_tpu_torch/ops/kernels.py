@@ -11,7 +11,8 @@ import every module on a machine without `nvcc`.
 
 `launches` holds one plain integer per kernel.  Each wrapper adds one to
 its entry where it launches its kernel, and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  The sources may share
+headers (`csrc/*.cuh`), which the library's hash covers too.
 """
 
 from __future__ import annotations
@@ -66,6 +67,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _build(target: Path) -> str:
     """Compile each source in parallel, link one shared library."""
     nvcc = _nvcc()
@@ -95,7 +100,8 @@ def _build(target: Path) -> str:
         res = subprocess.run(link, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed\n{res.stdout}")
+            raise RuntimeError(f"nvcc link failed\n{res.stdout}\n"
+                               + "\n".join(logs))
         os.replace(so_tmp, target)
         return "\n".join(logs)
     finally:
@@ -108,7 +114,7 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     target = BUILD_DIR / f"liblgbt_kernels_{h.hexdigest()[:16]}.so"
@@ -120,15 +126,15 @@ def library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.lgbt_hist_batched_plan.argtypes = [i32, i64, i32, i32, i32, ip]
-    lib.lgbt_hist_batched_plan.restype = i32
-    lib.lgbt_hist_batched.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp,
-                                      i32, i64, i32, i32, i32, ip, vp]
+    lib.lgbt_device_limits.argtypes = [ip]
+    lib.lgbt_device_limits.restype = i32
+    lib.lgbt_hist_batched.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
+                                      i64, i32, i32, i32, ip, i32, vp]
     lib.lgbt_hist_batched.restype = i32
     lib.lgbt_hist_flat.argtypes = [vp, vp, i32, vp, vp, vp, i32, i64, i32,
                                    i32, i32, vp]
     lib.lgbt_hist_flat.restype = i32
-    lib.lgbt_fused_hist_scan.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp,
+    lib.lgbt_fused_hist_scan.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp,
                                          vp, vp, vp, vp, vp, i32, i64, i32,
                                          i32, ip, f32, f32, f32, f32, f32,
                                          f32, vp]

@@ -235,3 +235,98 @@ def test_int8_training_on_card_matches_cpu_text():
     # integer histograms, bitwise kernels, op-by-op f32: the same model
     assert gpu.model_to_string().split("parameters:")[0] == \
         cpu.model_to_string().split("parameters:")[0]
+
+
+# ---- the grouped kernels' edge cases: B1, B1-int and B2 held to their
+# twins (int bitwise, float within 1e-6 of each slot's sum of |stat|) ----
+
+# (name, F, n, B, leaves, slots); leaf ids are drawn from range(leaves)
+GROUPED_CASES = [
+    # every row in slot 0, the other slots dead: the root call
+    ("root", 32, 1 << 17, 255, 1, [0] + [-1] * 24),
+    # a leaf id held by two live slots: both get its sums
+    ("dup", 32, 50000, 255, 6, [2, 5, 2, -1, 4]),
+    # a live slot whose leaf holds no row
+    ("empty", 32, 50000, 255, 6, [1, 77, 3]),
+    ("all_dead", 32, 20000, 255, 6, [-1, -1, -1]),
+    ("k1", 32, 50000, 255, 3, [1]),
+    ("b63", 28, 60000, 63, 8, [0, 2, 4, 6, -1]),
+    # F not a multiple of the 32-feature chunk
+    ("f40", 40, 30000, 255, 5, [0, 1, 2, 3, 4]),
+    # n not a multiple of the block's tile nor of the segment
+    ("n_odd", 32, 70001, 255, 4, [3, 1, -1, 0]),
+    # leaf ids past the grouping's 4096-entry slot table (compared against
+    # the slot ids instead), one of them held by two live slots
+    ("high_ids", 32, 200000, 255, 5001, [5000, 4097, 5000, -1, 7]),
+]
+
+
+def _slot_abs_sums(leaf, slots, x):
+    """Each slot's sum of |x| over its rows (the tolerance's scale)."""
+    return np.array([np.abs(x[leaf == s]).sum() if s >= 0 else 0.0
+                     for s in slots])
+
+
+@pytest.mark.parametrize("precision", ["hilo", "int8"])
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=lambda c: c[0])
+def test_grouped_hist_edge_cases(precision, case):
+    _, F, n, B, leaves, slots = case
+    dev = cuda_device()
+    if precision == "int8":
+        args = _int_hist_inputs(dev, 7, F, n, B, leaves, slots, precision)
+        before = kernels.launches["hist_batched_int"]
+        got = TH.hist_batched_kernel(*args, B)
+        assert kernels.launches["hist_batched_int"] == before + 1
+        assert torch.equal(got, TH.hist_batched_plain(*args, B))
+        return
+    args, _, _ = _hist_inputs(dev, 7, F, n, B, leaves, slots, precision)
+    got = TH._unpack_hist(TH.hist_batched_kernel(*args, B)
+                          .permute(3, 2, 0, 1), precision).cpu().numpy()
+    ref = TH._unpack_hist(TH.hist_batched_plain(*args, B)
+                          .permute(3, 2, 0, 1), precision).cpu().numpy()
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    leaf = args[2].cpu().numpy()
+    stats = args[1].float().cpu().numpy()
+    for c, (hi, lo) in enumerate(((0, 1), (2, 3))):
+        scale = _slot_abs_sums(leaf, slots, stats[hi] + stats[lo])
+        err = np.abs(got[..., c] - ref[..., c]).max(axis=(1, 2))
+        assert (err <= 1e-6 * scale).all(), (c, err, scale)
+    assert not got[np.asarray(slots) < 0].any()
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=lambda c: c[0])
+def test_grouping_pass_matches_plain(case):
+    _, F, n, B, leaves, slots = case
+    dev = cuda_device()
+    args = _int_hist_inputs(dev, 8, F, n, B, leaves, slots, "int8")
+    rows, offsets = TH.hist_group_kernel(*args, B)
+    ref_rows, ref_off = TH.group_rows_plain(args[2], args[3])
+    assert torch.equal(offsets, ref_off)
+    # stable: each slot's rows in row order, as the plain grouping
+    assert torch.equal(rows, ref_rows)
+
+
+@pytest.mark.parametrize("name,F,n,B,K,slots", [
+    ("root", 32, 1 << 17, 255, 25, [0] + [-1] * 24),
+    ("dup", 32, 50000, 255, 4, [2, 5, 2, -1]),
+    ("empty", 32, 50000, 255, 3, [1, 77, 3]),
+    ("all_dead", 32, 20000, 255, 3, [-1, -1, -1]),
+    ("k1", 32, 50000, 255, 1, [1]),
+    ("b63", 28, 60000, 63, 5, [0, 2, 4, 6, -1]),
+    ("f40", 40, 30000, 255, 5, [0, 1, 2, 3, 4]),
+    ("n_odd", 32, 70001, 255, 4, [3, 1, -1, 0]),
+    # leaf ids 4090-4101: 4097 and 4099 past the slot table, 4097 twice
+    ("high_ids", 32, 50000, 255, 4, [4097, 4092, 4097, 4099]),
+])
+def test_fused_kernel_edge_cases(name, F, n, B, K, slots):
+    dev = cuda_device()
+    case, kw = fused_case(9, F, n, B, K, "int8")
+    case["slots"] = np.asarray(slots, np.int32)
+    if name == "root":
+        case["leaf"] = np.zeros(n, np.int32)
+    if name == "high_ids":
+        case["leaf"] = case["leaf"] + 4090
+    ops = fused_args(case, B, "int8", dev)
+    got = TF.fused_hist_scan_kernel(*ops, split_kw=kw)
+    ref = TF.fused_hist_scan_plain(*ops, split_kw=kw)
+    TF.assert_fused_equal(got, ref)
