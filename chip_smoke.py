@@ -7,32 +7,46 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. three paths at full width, each lgb.train on the Higgs-1M shape
-     (1,000,000 rows x 28 dense features, binary, 255 leaves, 255 bins,
-     tpu_partition_impl=kernel), then predict 100,000 held-out rows; the
-     launch counters are set to 0 just before each path and read just
-     after, and each kernel of the path must have launched:
-       hilo  hilo histograms, 10 iterations: B1 and B3;
-       int8  tpu_hist_precision=int8 with its defaults (stochastic
-             rounding, leaf refit), 10 iterations: B1's integer variant
-             at the root, B2 in every grower round, B3;
-       flat  tpu_hist_impl=pallas, hilo, 3 iterations: B4 and B3;
+  3. five paths at full width, each lgb.train on the Higgs-1M shape
+     (1,000,000 rows x 28 dense features, binary, 255 leaves), then
+     predict 100,000 held-out rows; the launch counters are set to 0 just
+     before each path and read just after, and each kernel of the path
+     must have launched:
+       hilo    255 bins, tpu_partition_impl=kernel, hilo histograms, 10
+               iterations: B1 and B3;
+       int8    as hilo with tpu_hist_precision=int8 and its defaults
+               (stochastic rounding, leaf refit), 10 iterations: B1's
+               integer variant at the root, B2 in every grower round,
+               B3, and the refit's fixed-order leaf sums;
+       flat    as hilo with tpu_hist_impl=pallas, 3 iterations: B4, B3;
+       packed  max_bin=15 with every other parameter at the JAX
+               package's default (select partition, auto histogram),
+               10 iterations: the bins are 4-bit packed and every
+               histogram is B1's packed variant;
+       packed_int8  as packed with tpu_hist_precision=int8 and
+               tpu_hist_impl=pallas2 (auto would take B2, which never
+               packs), 5 iterations: B1's packed integer variant and the
+               leaf sums;
   4. each kernel against its plain PyTorch twin on the card, at the
      shapes its path gives it, with times (ms: the kernel's device time
      per call from torch.profiler; event_ms: CUDA events around 20
      back-to-back calls, which read the host's time when a call is
      shorter than its wrapper), the bound (every leaf id, the
      bins and stats of the live rows, the output) and, where one exists,
-     one PyTorch library call computing the same function; B1 and B1-int
-     also at the root call's operands (every row in slot 0, the other
-     slots dead);
-  5. the card against the CPU path at a reduced size (50,000 rows): hilo
-     and binary int8 by AUC, and regression int8 with the leaf refit
-     off by its model text, which must be byte-identical.
-With --profile, two more iterations of the hilo and the int8 paths run
-under torch.profiler and the device time by op, each port kernel's
-device time per call on the path and the device's idle share are
-printed.
+     one PyTorch library call computing the same function; B1, B1-int
+     and their packed variants also at the root call's operands (every
+     row in slot 0, the other slots dead); the leaf sums bitwise against
+     index_add_ on the CPU;
+  5. the card against the CPU path at a reduced size (50,000 rows): hilo,
+     binary int8 and packed hilo by AUC; regression int8 (fused) and
+     packed regression int8 (pallas2), both with the leaf refit off, by
+     their whole model text (only the device_type line normalized),
+     which must be byte-identical, and the packed one also to the card's
+     unpacked run; and two refit-on int8 trainings on the card, which
+     must write the same text.
+With --profile, two more iterations of every path run under
+torch.profiler and the device time by op, each port kernel's device time
+per call on the path and the device's idle share are printed.
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  The data is the seeded synthetic
 generator of bench.py (its non-env branch), copied here.
@@ -40,6 +54,7 @@ generator of bench.py (its non-env branch), copied here.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +66,7 @@ N_HOLD = 100_000
 N_FEAT = 28
 ITERS = 10
 ITERS_FLAT = 3
+ITERS_PACKED_INT8 = 5
 N_SMALL = 50_000
 ITERS_SMALL = 5
 # the small run's AUC on the card and on the CPU: their trees differ only
@@ -68,13 +84,24 @@ PARAMS = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
           "tree_learner": "serial", "tpu_hist_precision": "hilo",
           "tpu_partition_impl": "kernel", "tpu_shape_buckets": 0,
           "verbosity": -1}
+# the JAX package's defaults (select partition, shape buckets, auto
+# histogram) at max_bin=15: every feature has 16 bins or fewer, so the
+# learner stores the bins 4-bit packed
+PACKED_PARAMS = {"objective": "binary", "num_leaves": 255,
+                 "learning_rate": 0.1, "min_data_in_leaf": 20,
+                 "max_bin": 15, "metric": "auc", "verbosity": -1}
 # (name, params, iterations, kernels the path must launch)
 PATHS = [
     ("hilo", PARAMS, ITERS, ("hist_batched", "partition_rows")),
     ("int8", dict(PARAMS, tpu_hist_precision="int8"), ITERS,
-     ("hist_batched_int", "fused_hist_scan", "partition_rows")),
+     ("hist_batched_int", "fused_hist_scan", "partition_rows",
+      "leaf_sums")),
     ("flat", dict(PARAMS, tpu_hist_impl="pallas"), ITERS_FLAT,
      ("hist_flat", "partition_rows")),
+    ("packed", PACKED_PARAMS, ITERS, ("hist_batched_packed",)),
+    ("packed_int8", dict(PACKED_PARAMS, tpu_hist_precision="int8",
+                         tpu_hist_impl="pallas2"), ITERS_PACKED_INT8,
+     ("hist_batched_packed_int", "leaf_sums")),
 ]
 
 
@@ -178,6 +205,11 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
     for name in must_launch:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on this path")
+    packed = any(name.startswith("hist_batched_packed")
+                 for name in must_launch)
+    if driver.learner.packed_bins != packed:
+        fail(f"the bins are {'not ' if packed else ''}4-bit packed on "
+             "this path")
     hold_auc = auc(pred, yho)
     if not 0.6 < train_auc <= 1.0 or not 0.6 < hold_auc <= 1.0:
         fail(f"AUC out of range: train {train_auc}, held-out {hold_auc}")
@@ -189,6 +221,7 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
             "launches_per_tree": {k: v / trees for k, v in launches.items()},
             "launches": launches, "n_pad": learner.n_pad,
             "f_pad": learner.f_pad, "hist_impl": learner.params.hist_impl,
+            "packed_bins": learner.packed_bins,
             "precision": learner.params.precision,
             "split_batch": learner.params.split_batch}, booster
 
@@ -200,17 +233,24 @@ _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
              "aten::lift_fresh", "aten::_unsafe_view"}
 
 
-# device kernel name -> the port kernel (launch counter) it belongs to
-_PORT_KERNELS = (("ScanTail", "fused_hist_scan"),
-                 ("grouped_hist_kernel<float", "hist_batched"),
-                 ("grouped_hist_kernel<int", "hist_batched_int"),
-                 ("partition_rows_kernel", "partition_rows"),
-                 ("hist_flat_kernel", "hist_flat"))
+# device kernel name -> the port kernel (launch counter) it belongs to;
+# B1's packed variant is the instance of the same template with Packed
+# = true
+_PORT_KERNELS = ((r"ScanTail", "fused_hist_scan"),
+                 (r"grouped_hist_kernel<float,[^>]*true>",
+                  "hist_batched_packed"),
+                 (r"grouped_hist_kernel<int,[^>]*true>",
+                  "hist_batched_packed_int"),
+                 (r"grouped_hist_kernel<float", "hist_batched"),
+                 (r"grouped_hist_kernel<int", "hist_batched_int"),
+                 (r"partition_rows_kernel", "partition_rows"),
+                 (r"hist_flat_kernel", "hist_flat"),
+                 (r"leaf_sums_kernel", "leaf_sums"))
 
 
 def port_kernel(device_name):
     for part, name in _PORT_KERNELS:
-        if part in device_name:
+        if re.search(part, device_name):
             return name
     return None
 
@@ -295,54 +335,72 @@ def profile(booster, iters=2, kernels_of=None):
                     for d, k, c in rows[:12]]}
 
 
+def _b1_operands(learner):
+    """(bins_t, the bins unpacked, packed block, name suffix, bytes of one
+    row's bins of a feature) of kernel B1 on the learner's matrix: packed
+    4-bit [F, n/2] bins (the packed variant) or [F, n]."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    pb = learner.packed_block
+    bins_t = learner.bins_t
+    full = H.unpack2d(bins_t, pb) if pb else bins_t
+    return bins_t, full, pb, ("_packed" if pb else ""), (0.5 if pb else 1)
+
+
 def check_hist(learner, gen, operands):
-    """Phase 4, kernel B1 at the hilo path's shapes.  operands "random":
-    leaf ids over the L leaves, K random slots, one dead (about 9.4% of
-    the rows live), held to the twin; "root": every row in slot 0 and
-    the other K-1 slots dead (the root call), held to an f64 sum, since
-    the f32 twin's own rounding over a million rows in one slot is of the
-    tolerance's order."""
+    """Phase 4, kernel B1 (or its packed variant, on a learner whose bins
+    are packed) at the path's shapes.  operands "random": leaf ids over
+    the L leaves, K random slots, one dead (about 9.4% of the rows live),
+    held to the twin; "root": every row in slot 0 and the other K-1 slots
+    dead (the root call), held to an f64 sum, since the f32 twin's own
+    rounding over a million rows in one slot is of the tolerance's
+    order."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
-    bins_t = learner.bins_t
-    F, n = bins_t.shape
+    bins_t, full, pb, suffix, bin_bytes = _b1_operands(learner)
+    F, n = full.shape
     B = learner.num_bins
     K = learner.params.split_batch
     stats, g, h = _hilo_stats(learner, gen)
     leaf, slots = _slots_of(learner, gen, operands)
-    hk = H._unpack_hist(H.hist_batched_kernel(bins_t, stats, leaf, slots, B)
-                        .permute(3, 2, 0, 1), "hilo")
-    hp = H._unpack_hist(H.hist_batched_plain(bins_t, stats, leaf, slots, B)
-                        .permute(3, 2, 0, 1), "hilo")
+
+    def kernel():
+        return H.hist_batched_kernel(bins_t, stats, leaf, slots, B,
+                                     packed_block=pb)
+
+    def plain():
+        return H.hist_batched_plain(bins_t, stats, leaf, slots, B, pb)
+
+    hk = H._unpack_hist(kernel().permute(3, 2, 0, 1), "hilo")
+    hp = H._unpack_hist(plain().permute(3, 2, 0, 1), "hilo")
     torch.cuda.synchronize()
     extra = {}
     if operands == "root":
-        h64 = _hist_f64(bins_t, stats, leaf, slots, B)
+        h64 = _hist_f64(full, stats, leaf, slots, B)
         err, rel = _hist_rel_err(hk.double(), h64, g, h, leaf, slots)
         extra["twin_max_abs_err_vs_f64"] = float(
             (hp.double() - h64).abs().max().item())
         extra["reference"] = "f64 sum of the same stats"
     else:
         err, rel = _hist_rel_err(hk, hp, g, h, leaf, slots)
-    lib_ms, m = _index_add_ms(bins_t, stats, leaf, slots, B)
-    ms = device_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf, slots,
-                                                 B), 20)
-    event_ms = cuda_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf,
-                                                     slots, B), 20)
-    plain_ms = cuda_ms(
-        lambda: H.hist_batched_plain(bins_t, stats, leaf, slots, B), 5)
+    lib_ms, m = _index_add_ms(full, stats, leaf, slots, B)
+    ms = device_ms(kernel, 20)
+    event_ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 5)
     S = stats.shape[0]
-    return {"name": "hist_batched", "operands": operands, "route": "cuda",
+    return {"name": "hist_batched" + suffix, "operands": operands,
+            "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
             "replaces": "lightgbm_tpu/ops/histogram.py:584",
             "max_abs_err": err, "max_rel_err": rel,
             "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}", "ms": ms,
             "event_ms": event_ms, "plain_ms": plain_ms,
-            **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S),
+            **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S,
+                          bin_bytes),
             "library_ms": lib_ms, **extra,
-            "shape": f"bins [{F}, {n}] u8, stats [{S}, {n}] bf16, K={K}, "
-                     f"B={B}, live rows {m}"}
+            "shape": f"bins [{F}, {n}] u8{' packed 4-bit' if pb else ''}, "
+                     f"stats [{S}, {n}] bf16, K={K}, B={B}, live rows {m}"}
 
 
 def check_partition(learner, gen):
@@ -400,7 +458,7 @@ def _hilo_stats(learner, gen):
     from lightgbm_tpu_torch.ops import histogram as H
 
     dev = learner.bins_t.device
-    n = learner.bins_t.shape[1]
+    n = learner.n_pad
     mask = learner._ones_mask
     g = torch.randn(n, generator=gen, device=dev) * 0.5 * mask
     h = torch.rand(n, generator=gen, device=dev) * 0.25 * mask
@@ -414,7 +472,7 @@ def _int8_stats(learner, gen):
     from lightgbm_tpu_torch.ops import histogram as H
 
     dev = learner.bins_t.device
-    n = learner.bins_t.shape[1]
+    n = learner.n_pad
     mask = learner._ones_mask
     q = H.quant_limit("int8", n)
     g = torch.randn(n, generator=gen, device=dev) * mask
@@ -470,21 +528,23 @@ def _slots_of(learner, gen, operands):
 
     dev = learner.bins_t.device
     K = learner.params.split_batch
-    leaf = torch.zeros(learner.bins_t.shape[1], dtype=torch.int32,
-                       device=dev)
+    leaf = torch.zeros(learner.n_pad, dtype=torch.int32, device=dev)
     slots = torch.full((K,), -1, dtype=torch.int32, device=dev)
     slots[0] = 0
     return leaf, slots
 
 
-def _hist_bound(n, m, F, S, stat_bytes, K, out_words, peak_ops):
+def _hist_bound(n, m, F, S, stat_bytes, K, out_words, peak_ops,
+                bin_bytes=1):
     """The bound of a K-slot histogram call, from what its inputs need:
-    every leaf id, the bins and stats of the m live rows only, the slot
-    ids, and the output written once; m * F * S adds.  Beside it the
-    bound that counts every row's bins and stats, as earlier versions of
-    this script did."""
-    live = n * 4 + m * (F + S * stat_bytes) + K * 4 + out_words * 4
-    every = n * 4 + n * (F + S * stat_bytes) + K * 4 + out_words * 4
+    every leaf id, the bins (bin_bytes a feature: 0.5 packed) and stats
+    of the m live rows only, the slot ids, and the output written once;
+    m * F * S adds.  Beside it the bound that counts every row's bins
+    and stats, as earlier versions of this script did."""
+    live = (n * 4 + m * (F * bin_bytes + S * stat_bytes) + K * 4
+            + out_words * 4)
+    every = (n * 4 + n * (F * bin_bytes + S * stat_bytes) + K * 4
+             + out_words * 4)
     return {**_bound(live, m * F * S, peak_ops),
             "bound_ms_all_rows": _bound(every, m * F * S,
                                         peak_ops)["bound_ms"]}
@@ -532,7 +592,7 @@ def _random_slots(learner, gen):
     import torch
 
     dev = learner.bins_t.device
-    n = learner.bins_t.shape[1]
+    n = learner.n_pad
     K = learner.params.split_batch
     L = learner.params.num_leaves
     leaf = torch.randint(0, L, (n,), generator=gen, device=dev,
@@ -543,40 +603,98 @@ def _random_slots(learner, gen):
 
 
 def check_hist_int(learner, gen, operands):
-    """Phase 4, kernel B1's integer variant at the int8 path's shapes
-    (operands as check_hist's), bitwise."""
+    """Phase 4, kernel B1's integer variant (or its packed integer
+    variant) at the path's shapes (operands as check_hist's), bitwise."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
-    bins_t = learner.bins_t
-    F, n = bins_t.shape
+    bins_t, full, pb, suffix, bin_bytes = _b1_operands(learner)
+    F, n = full.shape
     B = learner.num_bins
     K = learner.params.split_batch
     stats = _int8_stats(learner, gen)
     leaf, slots = _slots_of(learner, gen, operands)
-    raw_k = H.hist_batched_kernel(bins_t, stats, leaf, slots, B)
-    raw_p = H.hist_batched_plain(bins_t, stats, leaf, slots, B)
+
+    def kernel():
+        return H.hist_batched_kernel(bins_t, stats, leaf, slots, B,
+                                     packed_block=pb)
+
+    def plain():
+        return H.hist_batched_plain(bins_t, stats, leaf, slots, B, pb)
+
+    raw_k, raw_p = kernel(), plain()
     torch.cuda.synchronize()
     if not torch.equal(raw_k, raw_p):
-        fail(f"hist_batched (int8, {operands}) differs from its twin: max "
-             f"err {(raw_k - raw_p).abs().max().item()}")
-    lib_ms, m = _index_add_ms(bins_t, stats, leaf, slots, B)
-    ms = device_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf, slots,
-                                                 B), 20)
-    event_ms = cuda_ms(lambda: H.hist_batched_kernel(bins_t, stats, leaf,
-                                                     slots, B), 20)
-    plain_ms = cuda_ms(
-        lambda: H.hist_batched_plain(bins_t, stats, leaf, slots, B), 5)
+        fail(f"hist_batched{suffix} (int8, {operands}) differs from its "
+             f"twin: max err {(raw_k - raw_p).abs().max().item()}")
+    lib_ms, m = _index_add_ms(full, stats, leaf, slots, B)
+    ms = device_ms(kernel, 20)
+    event_ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 5)
     S = 3
-    return {"name": "hist_batched_int", "operands": operands, "route": "cuda",
+    return {"name": f"hist_batched{suffix}_int", "operands": operands,
+            "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
             "replaces": "lightgbm_tpu/ops/histogram.py:584",
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S),
+            **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S,
+                          bin_bytes),
             "library_ms": lib_ms,
-            "shape": f"bins [{F}, {n}] u8, stats [3, {n}] int8, K={K}, "
-                     f"B={B}, live rows {m}"}
+            "shape": f"bins [{F}, {n}] u8{' packed 4-bit' if pb else ''}, "
+                     f"stats [3, {n}] int8, K={K}, B={B}, live rows {m}"}
+
+
+def check_leaf_sums(learner, gen):
+    """Phase 4, the leaf refit's sums at the int8 path's shapes: leaf ids
+    over the L leaves of the n_pad rows, f32 grad/hess; bitwise against
+    the twin, index_add_ on the CPU (the order XLA:CPU's scatter adds
+    in).  ms: the wrapper's whole device time (sort, gather, segment
+    starts and the kernel); kernel_ms: the kernel's alone."""
+    import torch
+    from lightgbm_tpu_torch.ops import leafsum
+
+    dev = learner.bins_t.device
+    n = learner.n_pad
+    L = learner.params.num_leaves + 1
+    leaf = torch.randint(0, L - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals = torch.stack([torch.randn(n, generator=gen, device=dev),
+                        torch.rand(n, generator=gen, device=dev) * 0.25])
+    got = leafsum.leaf_sums_kernel(leaf, vals, L).cpu()
+    ids_c, vals_c = leaf.cpu(), vals.cpu()
+    ref = leafsum.leaf_sums_plain(ids_c, vals_c, L)
+    if not torch.equal(got, ref):
+        fail(f"leaf_sums differs from index_add_ on the CPU: max err "
+             f"{(got - ref).abs().max().item()}")
+
+    def kernel():
+        return leafsum.leaf_sums_kernel(leaf, vals, L)
+
+    ms = device_ms(kernel, 20, kernels_of=lambda names: ["all"] * len(names))
+    kernel_ms = device_ms(kernel, 20)
+    event_ms = cuda_ms(kernel, 20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        leafsum.leaf_sums_plain(ids_c, vals_c, L)
+    plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    ids = leaf.long()
+    out = torch.zeros(L, device=dev)
+    lib_ms = cuda_ms(lambda: (out.index_add_(0, ids, vals[0]),
+                              out.index_add_(0, ids, vals[1])), 5)
+    # ids and values read once, sums written once; 2n adds
+    return {"name": "leaf_sums", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/leafsum.cu",
+            "replaces": "lightgbm_tpu/ops/grower.py:1745",
+            "max_abs_err": 0.0, "max_rel_err": 0.0,
+            "tolerance": "bitwise to index_add_ on the CPU",
+            "ms": ms, "kernel_ms": kernel_ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "plain_on": "cpu",
+            **_bound(n * 4 + 2 * n * 4 + 2 * L * 4, 2 * n, PEAK_F32_S),
+            "library_ms": lib_ms,
+            "library": "2 x index_add_ on the card (f32 atomics, not "
+                       "deterministic)",
+            "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
 
 
 def _fused_operands(learner, gen):
@@ -725,38 +843,76 @@ def check_flat(learner, gen):
                      f"B={B}, live rows {m}"}
 
 
+def _norm_param(text, name):
+    """Model text with the parameter line `name` normalized."""
+    return re.sub(rf"^\[{name}: [^\]]*\]$", f"[{name}: -]", text,
+                  flags=re.M)
+
+
 def cross_check(lgb, X, y):
     """Phase 5: the card against the CPU path at a reduced size."""
     Xs, ys = X[:N_SMALL], y[:N_SMALL]
     rng = np.random.default_rng(43)
     y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
         size=N_SMALL)
-    runs = {"hilo": (PARAMS, ys), "int8_binary": (PATHS[1][1], ys),
-            "int8_regression": (dict(PARAMS, objective="regression",
-                                     metric="l2", tpu_hist_precision="int8",
-                                     tpu_quant_refit_leaves=False), y_reg)}
+    reg = dict(objective="regression", metric="l2",
+               tpu_hist_precision="int8", tpu_quant_refit_leaves=False)
+    # (params, label, compared by: "auc" or the whole model text)
+    runs = {"hilo": (PARAMS, ys, "auc"),
+            "int8_binary": (PATHS[1][1], ys, "auc"),
+            "packed_hilo": (PACKED_PARAMS, ys, "auc"),
+            "int8_regression": (dict(PARAMS, **reg), y_reg, "text"),
+            "packed_int8_regression": (
+                dict(PACKED_PARAMS, tpu_hist_impl="pallas2", **reg), y_reg,
+                "text")}
     out = {}
-    texts = {}
-    for name, (params, label) in runs.items():
+    for name, (params, label, by) in runs.items():
+        texts = {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
             t0 = time.perf_counter()
             b = lgb.train(p, lgb.Dataset(Xs, label=label, params=p),
                           num_boost_round=ITERS_SMALL)
-            if name == "int8_regression":
-                texts[dev] = b.model_to_string().split("parameters:")[0]
+            if b._driver.learner.packed_bins != name.startswith("packed"):
+                fail(f"{name}: packed bins {b._driver.learner.packed_bins}")
+            if by == "text":
+                texts[dev] = _norm_param(b.model_to_string(), "device_type")
             else:
                 out[f"{name}_{dev}_auc"] = auc(b.predict(Xs, raw_score=True),
                                                ys)
             out[f"{name}_{dev}_s"] = time.perf_counter() - t0
-        if name != "int8_regression":
+        if by == "auc":
             diff = abs(out[f"{name}_cuda_auc"] - out[f"{name}_cpu_auc"])
             out[f"{name}_auc_diff"] = diff
             if diff > AUC_TOL:
                 fail(f"{name}: card and CPU AUC differ by {diff} > {AUC_TOL}")
-    out["int8_regression_text_identical"] = texts["cuda"] == texts["cpu"]
-    if not out["int8_regression_text_identical"]:
-        fail("int8 regression: the card's model text differs from the CPU's")
+            continue
+        out[f"{name}_text_identical"] = texts["cuda"] == texts["cpu"]
+        if not out[f"{name}_text_identical"]:
+            fail(f"{name}: the card's model text differs from the CPU's")
+        if name.startswith("packed"):
+            # packing is a layout, not a result
+            p = dict(params, tpu_pack_bins=False)
+            b = lgb.train(p, lgb.Dataset(Xs, label=label, params=p),
+                          num_boost_round=ITERS_SMALL)
+            same = (_norm_param(_norm_param(b.model_to_string(),
+                                            "device_type"), "tpu_pack_bins")
+                    == _norm_param(texts["cuda"], "tpu_pack_bins"))
+            out[f"{name}_text_identical_to_unpacked"] = same
+            if not same:
+                fail(f"{name}: the packed run's model text differs from the "
+                     "unpacked run's")
+    # the leaf refit sums each leaf in row order on the card too: two
+    # trainings write the same text
+    p = dict(PARAMS, objective="regression", metric="l2",
+             tpu_hist_precision="int8")
+    refit = [lgb.train(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                       num_boost_round=ITERS_SMALL).model_to_string()
+             for _ in range(2)]
+    out["int8_refit_two_runs_identical"] = refit[0] == refit[1]
+    if not out["int8_refit_two_runs_identical"]:
+        fail("int8 with the leaf refit: two trainings on the card wrote "
+             "different model text")
     return out
 
 
@@ -786,19 +942,27 @@ def main() -> None:
     print(kernels.build_log.strip(), flush=True)
 
     X, y = make_data(N_TRAIN + N_HOLD, N_FEAT)
-    t0 = time.perf_counter()
-    ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
-                     params=dict(PARAMS)).construct()
-    torch.cuda.synchronize()
-    print(f"ingest_s {time.perf_counter() - t0:.3f}", flush=True)
+    # one binned dataset per max_bin (255, and 15 for the packed paths)
+    datasets = {}
+    for _, params, _, _ in PATHS:
+        if params["max_bin"] not in datasets:
+            t0 = time.perf_counter()
+            datasets[params["max_bin"]] = lgb.Dataset(
+                X[:N_TRAIN], label=y[:N_TRAIN],
+                params=dict(params)).construct()
+            torch.cuda.synchronize()
+            print(f"ingest_s max_bin={params['max_bin']} "
+                  f"{time.perf_counter() - t0:.3f}", flush=True)
     reports, boosters = {}, {}
     for name, params, iters, must in PATHS:
-        reports[name], boosters[name] = main_path(lgb, kernels, ds, X, y,
-                                                  params, iters, must)
+        reports[name], boosters[name] = main_path(
+            lgb, kernels, datasets[params["max_bin"]], X, y, params, iters,
+            must)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
-        if "--profile" in sys.argv[1:] and name != "flat":
+        if "--profile" in sys.argv[1:]:
             print(f"profile {name} " + json.dumps(profile(boosters[name])),
                   flush=True)
+    del datasets
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     learners = {k: b._driver.learner for k, b in boosters.items()}
@@ -809,7 +973,14 @@ def main() -> None:
                    (check_hist_int(learners["int8"], gen, "root"), "int8"),
                    (check_fused(learners["int8"], gen), "int8"),
                    (check_partition(learners["hilo"], gen), "hilo"),
-                   (check_flat(learners["flat"], gen), "flat")]
+                   (check_flat(learners["flat"], gen), "flat"),
+                   (check_hist(learners["packed"], gen, "random"), "packed"),
+                   (check_hist(learners["packed"], gen, "root"), "packed"),
+                   (check_hist_int(learners["packed_int8"], gen, "random"),
+                    "packed_int8"),
+                   (check_hist_int(learners["packed_int8"], gen, "root"),
+                    "packed_int8"),
+                   (check_leaf_sums(learners["int8"], gen), "int8")]
     for row, path in kernel_rows:
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
@@ -825,7 +996,8 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # B1 and B1-int have two rows: random operands, then the root's
+    # B1, B1-int and their packed variants have two rows: random
+    # operands, then the root's
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **({"operands": r["operands"]} if "operands" in r else {})}

@@ -76,6 +76,9 @@ class Booster:
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
+        """The model text, ending, as the JAX package's and the reference
+        package's do, with the Python layer's `pandas_categorical:` line
+        (always null here: the port takes no pandas frames)."""
         return self._driver.save_model_to_string(
             -1 if num_iteration is None else int(num_iteration),
-            start_iteration)
+            start_iteration) + "\npandas_categorical:null\n"

@@ -27,6 +27,13 @@
 //      (a slot's words contiguous, rows padded to 4 words) with global
 //      atomics, a warp's 32 lanes on consecutive words.
 //
+// Packed 4-bit bins (the Packed instance, B1 only, B <= 16): the
+// row-major copy holds two features a byte, feature 2j of a chunk in the
+// low nibble of byte j and 2j + 1 in the high one, so a row of a chunk
+// is one 16-byte sector (one load) and the tile 5 words an entry; lane f
+// takes nibble f of its entry's 16 bytes.  Phases A and B do not read
+// bins and are the same; so are the sums and the flush, at B <= 16 bins.
+//
 // The adds.  int32 sums (int8/int16 stats) use the native shared ATOMS.ADD
 // and global RED.ADD, exact in any order.  An f32 atomicAdd on shared
 // memory compiles on sm_90a to a compare-and-swap loop (ATOMS.CAST.SPIN;
@@ -80,9 +87,10 @@ struct Layout<float> {
 };
 constexpr int kStageWarps = 8;
 constexpr int kStageWords = kChunk * (kChunk + 1);
-// phase C's per-warp tile of 32 entries' bins: 8 words and a pad each
+// phase C's per-warp tile of 32 entries' bins: 8 words and a pad each,
+// or, for packed bins, 4 words and a pad (ops/histogram.py _TILE_STRIDE*)
 constexpr int kTileStride = 9;
-constexpr int kTileWords = 32 * kTileStride;
+constexpr int kTileStridePacked = 5;
 constexpr int kGroupUnroll = 4;  // rows per lane in flight in phases A, B
 constexpr int kMaxThreads = 1024;
 // stat types (the wrapper's _STAT_KINDS)
@@ -93,7 +101,7 @@ constexpr int kPlanThreads = 0, kPlanSmem = 1, kPlanChunks = 2,
               kPlanFields = 6;
 
 struct HistArgs {
-  const uint8_t* bins_rm;  // [n, FR] row-major bins
+  const uint8_t* bins_rm;  // [n, FR] row-major bins (FR bytes a row)
   const void* stats;       // [S, n]
   const int32_t* leaf;     // [n]
   const int32_t* slots;    // [K]
@@ -376,15 +384,28 @@ __device__ __forceinline__ void add_run(Acc* sh, int bin, const Acc* acc,
 // rows [a0, e0) of the grouped list, features [f0, f0 + fc).  A warp
 // takes 32 list entries at a time: lane e loads entry e (row index,
 // packed stats) and gathers that row's 32 bins (one 32-byte sector, two
-// 16-byte loads), so the warp has 32 gathers in flight; the bins go
-// through the warp's tile in shared memory (9 words an entry: lane e's
-// writes on distinct banks) and lane f reads feature f of each entry.
-template <typename Acc>
+// 16-byte loads; packed bins one 16-byte load), so the warp has 32
+// gathers in flight; the bins go through the warp's tile in shared
+// memory (9 words an entry, 5 packed: lane e's writes on distinct banks)
+// and lane f reads feature f of each entry.
+template <bool Packed>
+__host__ __device__ constexpr int tile_stride() {
+  return Packed ? kTileStridePacked : kTileStride;
+}
+
+template <typename Acc, bool Packed>
 __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
                            int a0, int e0, int f0, int fc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const bool feat = lane < fc;
+  constexpr bool packed = Packed;
+  constexpr int ts = tile_stride<Packed>();
+  // lane f's bin: byte f of its entry's word f / 4, or nibble f of word
+  // f / 8 for packed bins
+  const int word = packed ? lane >> 3 : lane >> 2;
+  const int shift = packed ? 4 * (lane & 7) : 8 * (lane & 3);
+  const uint32_t bin_mask = packed ? 0xfu : 0xffu;
   const int S = a.S, B = a.B;
   const unsigned full = 0xffffffffu;
   // the 32-bit words a row's packed stats fill
@@ -403,13 +424,16 @@ __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
       const int r = __ldcg(a.rows + i);
       my_q = __ldcg(a.gstats + i);
       const uint4* src = reinterpret_cast<const uint4*>(
-          a.bins_rm + static_cast<long long>(r) * a.FR + f0);
+          a.bins_rm + static_cast<long long>(r) * a.FR
+          + (packed ? f0 >> 1 : f0));
       lo = __ldg(src);
-      hi = __ldg(src + 1);
+      if constexpr (!packed) hi = __ldg(src + 1);
     }
-    uint32_t* t = tile + lane * kTileStride;
+    uint32_t* t = tile + lane * ts;
     t[0] = lo.x; t[1] = lo.y; t[2] = lo.z; t[3] = lo.w;
-    t[4] = hi.x; t[5] = hi.y; t[6] = hi.z; t[7] = hi.w;
+    if constexpr (!packed) {
+      t[4] = hi.x; t[5] = hi.y; t[6] = hi.z; t[7] = hi.w;
+    }
     __syncwarp();
     for (int e = 0; e < cnt; ++e) {
       uint4 q = make_uint4(0u, 0u, 0u, 0u);
@@ -417,8 +441,7 @@ __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
       if (qwords > 1) q.y = __shfl_sync(full, my_q.y, e);
       if (qwords > 2) q.z = __shfl_sync(full, my_q.z, e);
       if (qwords > 3) q.w = __shfl_sync(full, my_q.w, e);
-      const int bin = feat ? (tile[e * kTileStride + (lane >> 2)]
-                              >> (8 * (lane & 3))) & 0xffu
+      const int bin = feat ? (tile[e * ts + word] >> shift) & bin_mask
                            : 256;
       if (bin >= B) continue;  // not a feature, or a bin past num_bins
       Acc v[kMaxS];
@@ -511,7 +534,7 @@ __device__ __forceinline__ int segment_rows(const HistArgs& a, int m) {
 }
 
 // ---- phase C ----
-template <typename Acc>
+template <typename Acc, bool Packed>
 __device__ void phase_hist(const HistArgs& a, const Persist& p, Acc* sh) {
   const int K = a.K;
   const int words = a.B * a.S * Layout<Acc>::kStride;
@@ -534,8 +557,9 @@ __device__ void phase_hist(const HistArgs& a, const Persist& p, Acc* sh) {
     for (int k = 0; k < K; ++k) {
       const int s0 = max(lo, p.off[k]), e0 = min(hi, p.off[k + 1]);
       if (s0 >= e0) continue;
-      accumulate<Acc>(a, sh, tiles + (threadIdx.x >> 5) * kTileWords, s0,
-                      e0, f0, fc);
+      accumulate<Acc, Packed>(
+          a, sh, tiles + (threadIdx.x >> 5) * 32 * tile_stride<Packed>(), s0,
+          e0, f0, fc);
       __syncthreads();
       flush<Acc>(a, p, sh, k, f0, fc);
       __syncthreads();
@@ -544,8 +568,9 @@ __device__ void phase_hist(const HistArgs& a, const Persist& p, Acc* sh) {
 }
 
 // The kernel: phases A, B, C and, for B2, the tail (the split scan).
-// Tail::run(args, tail_args) runs after a last grid barrier.
-template <typename Acc, class Tail>
+// Tail::run(args, tail_args) runs after a last grid barrier.  Packed: the
+// row-major bins are 4-bit, two features a byte.
+template <typename Acc, class Tail, bool Packed>
 __global__ void __launch_bounds__(kMaxThreads)
     grouped_hist_kernel(HistArgs a, typename Tail::Args t) {
   extern __shared__ __align__(16) int smem[];
@@ -561,7 +586,7 @@ __global__ void __launch_bounds__(kMaxThreads)
               reinterpret_cast<const unsigned char*>(tab));
   if (a.group_only) return;
   grid.sync();
-  phase_hist<Acc>(a, p, reinterpret_cast<Acc*>(un));
+  phase_hist<Acc, Packed>(a, p, reinterpret_cast<Acc*>(un));
   if constexpr (Tail::kRuns) {
     grid.sync();
     Tail::run(a, t);
@@ -575,13 +600,13 @@ struct NoTail {
 };
 
 // Launch one call: plan[] from the wrapper (ops/histogram.py:hist_plan).
-template <typename Acc, class Tail>
+template <typename Acc, class Tail, bool Packed = false>
 inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
                           cudaStream_t st) {
   const int threads = plan[kPlanThreads];
   const int smem = plan[kPlanSmem];
   const int grid = plan[kPlanGrid];
-  auto* fn = grouped_hist_kernel<Acc, Tail>;
+  auto* fn = grouped_hist_kernel<Acc, Tail, Packed>;
   // the function attributes and the resident-grid check, once per device
   // and shared-memory size (they cost host time on every call otherwise)
   struct Checked {

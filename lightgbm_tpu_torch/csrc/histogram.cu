@@ -2,7 +2,9 @@
 //
 // Replaces lightgbm_tpu/ops/histogram.py:_hist_pallas, variant
 // "perfeature" (pallas_call at histogram.py:584, body
-// kernel_perfeature_chunk at histogram.py:516).  For every row r whose
+// kernel_perfeature_chunk at histogram.py:516), with its packed_rows
+// branch (4-bit bins two rows a byte, unpacked at histogram.py:505 by
+// unpack2d): here the packed instance of the same kernel.  For every row r whose
 // leaf id equals slots[k] (a dead slot holds -1 and matches nothing) and
 // every feature f it adds the row's S packed stat rows into
 //     raw[f, bins[f, r], k, s]
@@ -40,20 +42,21 @@ extern "C" int lgbt_device_limits(int* out) {
       &out[2], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
 }
 
-// bins_rm: [n, FR] row-major bins; scratch: [n] uint4 grouped stats, then
+// bins_rm: [n, FR] row-major bins, FR bytes a row (packed: two 4-bit bins
+// a byte, B <= 16); scratch: [n] uint4 grouped stats, then
 // [n] grouped rows, [K * grid] counts and [K + 1] offsets (int32 words);
 // raw: [K][F][BSp] sums, BSp = B * S padded to 4, fully written (f32 for
 // bf16/f32 stats, int32 for int8/int16).  group_only stops after the
 // grouping (the tests read the list).  Returns a cudaError_t (0 =
 // launched).
-extern "C" int lgbt_hist_batched(const void* bins_rm, int FR,
+extern "C" int lgbt_hist_batched(const void* bins_rm, int FR, int packed,
                                  const void* stats, int stats_kind,
                                  const void* leaf, const void* slots,
                                  void* scratch, void* raw, int F, long long n,
                                  int S, int K, int B, const int* plan,
                                  int group_only, void* stream) {
-  if (S < 1 || S > lgbt::kMaxS || K < 1 || B < 1 || B > 256 || F < 1
-      || n < 1)
+  if (S < 1 || S > lgbt::kMaxS || K < 1 || B < 1 || B > (packed ? 16 : 256)
+      || F < 1 || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   lgbt::HistArgs a{};
   a.bins_rm = static_cast<const uint8_t*>(bins_rm);
@@ -75,11 +78,16 @@ extern "C" int lgbt_hist_batched(const void* bins_rm, int FR,
   a.group_only = group_only;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   lgbt::NoTail::Args none{};
-  if (stats_kind == lgbt::kI8 || stats_kind == lgbt::kI16)
-    return lgbt::launch_grouped<int, lgbt::NoTail>(a, none, plan, st);
-  if (stats_kind != lgbt::kBF16 && stats_kind != lgbt::kF32)
+  const bool ints = stats_kind == lgbt::kI8 || stats_kind == lgbt::kI16;
+  if (!ints && stats_kind != lgbt::kBF16 && stats_kind != lgbt::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
-  return lgbt::launch_grouped<float, lgbt::NoTail>(a, none, plan, st);
+  if (packed)
+    return ints ? lgbt::launch_grouped<int, lgbt::NoTail, true>(a, none,
+                                                                plan, st)
+                : lgbt::launch_grouped<float, lgbt::NoTail, true>(a, none,
+                                                                  plan, st);
+  return ints ? lgbt::launch_grouped<int, lgbt::NoTail>(a, none, plan, st)
+              : lgbt::launch_grouped<float, lgbt::NoTail>(a, none, plan, st);
 }
 
 extern "C" const char* lgbt_error_string(int code) {

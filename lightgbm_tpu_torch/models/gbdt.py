@@ -5,7 +5,9 @@ boost-from-average, one fused device step per iteration (gradients, tree
 growth, train-score update), host `Tree` models built lazily from the
 device step records (`_materialize`: one batched fetch for all pending
 trees), model text with the `tpu_bin_mappers:` trailer, and device
-predict in bin space.
+predict in bin space.  The `tpu_feature_profile:` trailer (the training
+reference profile of `obs/modelhealth.py`) follows the mapper trailer,
+as in the JAX package.
 
 Left out, and not silently: rollback, OOM ladders, fault injection,
 telemetry, validation sets, DART/GOSS/RF and custom objectives.
@@ -23,6 +25,7 @@ import torch
 from ..config import Config
 from ..io.bin_mapper import BinMapper
 from ..io.dataset import TrainingData
+from ..obs import modelhealth
 from ..ops.binning import bin_matrix_t
 from ..ops.predict import class_scores, device_tables, pack_trees
 from ..utils.prng import PRNGKey
@@ -157,6 +160,8 @@ class GBDT:
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
         self._key: Optional[np.ndarray] = None
+        # a loaded model's tpu_feature_profile: trailer
+        self._profile: Optional[modelhealth.FeatureProfile] = None
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data: TrainingData) -> None:
@@ -322,12 +327,40 @@ class GBDT:
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
+        if not raw_score and self.objective is None \
+                and self.loaded_params.get("objective"):
+            # a loaded model whose objective the port cannot rebuild: its
+            # raw scores are the JAX package's, its output conversion is
+            # not ported
+            raise NotImplementedError(
+                f"objective={self.loaded_params['objective'].split()[0]!r} "
+                "(its output conversion) is not ported to lightgbm_tpu_torch "
+                "yet; predict(raw_score=True) gives the raw scores")
         raw = self.predict_raw(X, num_iteration)
         if not raw_score and self.objective is not None:
             raw = self.objective.convert_output(raw)
         if raw.shape[0] == 1:
             return raw[0]
         return raw.T
+
+    def health_profile(self) -> Optional[modelhealth.FeatureProfile]:
+        """The training reference profile written as the model's
+        `tpu_feature_profile:` trailer (lightgbm_tpu/models/gbdt.py:
+        health_profile): rebuilt from the training data and the current
+        train scores while the booster trains, else the loaded one; None
+        with tpu_profile_capture=false and nothing loaded."""
+        td = self.train_data
+        if td is None or self.train_scores is None:
+            return self._profile
+        if self.config is not None and \
+                not bool(self.config.tpu_profile_capture):
+            return self._profile
+        score_bins = (int(self.config.tpu_profile_score_bins)
+                      if self.config is not None
+                      else modelhealth.DEFAULT_SCORE_BINS)
+        prof = modelhealth.FeatureProfile.from_training(
+            td, self.feature_names, self.train_scores.numpy(), score_bins)
+        return prof if prof is not None else self._profile
 
     # ------------------------------------------------------------------
     def _split_counts(self) -> np.ndarray:
@@ -397,6 +430,9 @@ class GBDT:
         if self._pred_ctx is not None:
             buf.write(_MAPPER_MARKER + json.dumps(self._pred_ctx.to_payload())
                       + "\n")
+        prof = self.health_profile()
+        if prof is not None:
+            buf.write(prof.to_line())
         return buf.getvalue()
 
     @classmethod
@@ -406,6 +442,7 @@ class GBDT:
         pos = text.rfind("\npandas_categorical:")
         if pos >= 0:
             text = text[:pos]
+        text, self._profile = modelhealth.split_profile_trailer(text)
         text, ctx = _split_mapper_snapshot(text)
         lines = text.split("\n")
         kv: Dict[str, str] = {}

@@ -15,6 +15,13 @@ every grower round for the int8/int16 precisions, and rides "pallas2"
 for the float ones.  "auto" picks "fused" for int8/int16 and "pallas2"
 otherwise.  On the card the learner first runs B2 against its twin on
 tiny operands, and raises on any difference.
+
+Bins are stored 4-bit packed exactly where the JAX learner packs them
+(learner.py:615-641): tpu_pack_bins=true, every feature at 16 bins or
+fewer, impl "pallas"/"pallas2", a select-family partition, and row
+blocks of a multiple of 256 rows that tile the padded rows.  B1 reads
+them packed; B4's packed read is not ported, so "pallas" with packing
+is refused by name.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from ..io.dataset import TrainingData
 from ..ops import grower as G
 from ..ops.fused import fused_supported, probe_fused
 from ..ops.grower import GrowerParams, pad_rows, resolve_split_batch
-from ..ops.histogram import INT_PRECISIONS, _dot_spec, row_major_bins
+from ..ops.histogram import (INT_PRECISIONS, _dot_spec, pack_bins,
+                             row_major_bins)
 from ..utils import prng
 from .tree import Tree
 
@@ -134,23 +142,33 @@ class TreeLearner:
         self.n_pad = bucket_rows(n)
         if buckets > 0:
             self.f_pad = bucket_up(self.f_pad, 32)
-        if self._would_pack(config, B, impl, block):
+        # the pack layout's blocks are the grower's: min(block, n_pad)
+        eff_block = min(block, self.n_pad)
+        self.packed_bins = self._would_pack(config, B, impl, eff_block,
+                                            self.n_pad)
+        # rows of a packed block (0: bins unpacked), as the kernels take it
+        self.packed_block = eff_block if self.packed_bins else 0
+        if self.packed_bins and impl == "pallas":
             raise NotImplementedError(
-                "tpu_pack_bins=true with max_bin<=15 (4-bit packed bins) is "
-                "not ported to lightgbm_tpu_torch yet; set "
-                "tpu_pack_bins=false")
+                "tpu_hist_impl=pallas with tpu_pack_bins=true (4-bit packed "
+                "bins in kernel B4) is not ported to lightgbm_tpu_torch yet;"
+                " set tpu_pack_bins=false")
 
         dev = self.device
         bins_t = torch.zeros((self.f_pad, self.n_pad), dtype=torch.uint8,
                              device=dev)
         bins_t[:self.num_features, :n] = train_data.bins_t
+        if self.packed_bins:
+            # [f_pad, n_pad/2]: two rows a byte (reference
+            # dense_nbits_bin.hpp), the JAX learner's per-block layout
+            bins_t = pack_bins(bins_t, eff_block)
         self.bins_t = bins_t
         if dev.type == "cuda":
             # kernels B1 and B2 gather each live row's bins from a
-            # row-major copy ([n_pad, 32] uint8 at up to 32 features);
-            # row_major_bins makes it here, at set-up, and keeps it on
-            # bins_t for every later call
-            row_major_bins(bins_t)
+            # row-major copy ([n_pad, 32] uint8 at up to 32 features, or
+            # [n_pad, 16] packed); row_major_bins makes it here, at
+            # set-up, and keeps it on bins_t for every later call
+            row_major_bins(bins_t, self.packed_block)
         ones = torch.zeros(self.n_pad, dtype=torch.float32, device=dev)
         ones[:n] = 1.0
         self._ones_mask = ones
@@ -185,6 +203,8 @@ class TreeLearner:
             ramp_step=(4 if str(config.tpu_bucket_policy) == "wide"
                        else 2),
             hist_impl=impl,
+            packed_bins=self.packed_bins,
+            block_rows=block,
             quant_round=str(config.tpu_quant_round),
             quant_refit=(precision in INT_PRECISIONS
                          and bool(config.tpu_quant_refit_leaves)))
@@ -218,12 +238,15 @@ class TreeLearner:
                 "enable_bundle=false")
 
     @staticmethod
-    def _would_pack(config: Config, B: int, impl: str, block: int) -> bool:
-        """Whether the JAX package would store 4-bit packed bins here."""
+    def _would_pack(config: Config, B: int, impl: str, eff_block: int,
+                    n_pad: int) -> bool:
+        """Whether the JAX learner stores 4-bit packed bins here
+        (learner.py:628-634, on one device: no stream layout, sparse
+        storage, bundles or partitioned rows, which this slice refuses)."""
         return (bool(config.tpu_pack_bins) and B <= 16
                 and impl in ("pallas", "pallas2")
                 and str(config.tpu_partition_impl) in ("select", "vselect")
-                and block % 256 == 0)
+                and eff_block % 256 == 0 and n_pad % eff_block == 0)
 
     @staticmethod
     def _resolve_hist_impl(config: Config, precision: str):

@@ -33,7 +33,7 @@ import torch
 from . import kernels
 from .histogram import (INT_PRECISIONS, _STAT_KINDS, _grouped_call,
                         _raw_buffer, _raw_view, _unpack_hist,
-                        hist_batched_plain)
+                        hist_batched_plain, unpack2d)
 from .split import (PF_RECORD_WIDTH, numeric_go_left, pack_pf_records,
                     per_feature_best_split)
 
@@ -237,12 +237,17 @@ def probe_fused(device: torch.device, precision: str) -> None:
 
 
 def partition_rows_plain(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
-                         dleft, mt, nbf, db, do_k) -> torch.Tensor:
+                         dleft, mt, nbf, db, do_k,
+                         packed_block: int = 0) -> torch.Tensor:
     """The "vselect" partition: [n] int32 updated leaf ids.
 
-    bins_t: [F, n] bins; sel_feat/sel/new_ids/thr/mt/nbf/db: [K] int32;
-    dleft/do_k: [K] bool."""
-    cols = bins_t[sel_feat.long()].to(torch.int32)              # [K, n]
+    bins_t: [F, n] bins (or 4-bit packed [F, n/2] in blocks of
+    packed_block rows, when > 0); sel_feat/sel/new_ids/thr/mt/nbf/db: [K]
+    int32; dleft/do_k: [K] bool."""
+    cols = bins_t[sel_feat.long()]
+    if packed_block:
+        cols = unpack2d(cols, packed_block)
+    cols = cols.to(torch.int32)                                 # [K, n]
     go_left = numeric_go_left(cols, mt[:, None], nbf[:, None], db[:, None],
                               thr[:, None], dleft[:, None])
     move = (leaf_ids[None, :] == sel[:, None]) & do_k[:, None] & ~go_left

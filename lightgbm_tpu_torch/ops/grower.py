@@ -31,6 +31,12 @@ hist_impl="fused" each round's histograms, subtraction and split scan
 are one call (kernel B2 on the card), whose per-feature records the
 round reduces to each child's best split.  quant_refit recomputes the
 final leaf outputs from the f32 grad/hess sums of each leaf's rows.
+
+With packed_bins the matrix is 4-bit packed [F, n_pad/2] in row blocks
+of the JAX grower's size (grower.py:585-591): the histograms read it
+packed (B1's packed variant on the card), and the select-family
+partitions unpack the columns they test (`unpack2d`), as the JAX grower
+does (grower.py:1238-1241,1277-1278,1303-1304).
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from .fused import (CTX_COUNT, CTX_MAX_C, CTX_MIN_C, CTX_SUM_G, CTX_SUM_H,
                     CTX_USE_SMALL, CTX_WIDTH, fused_hist_scan, partition_rows,
                     partition_rows_plain)
 from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
-                        pack_stats, quant_limit, quantize_values)
+                        pack_stats, quant_limit, quantize_values, unpack2d)
+from .leafsum import leaf_sums
 from .split import (K_MIN_SCORE, finalize_split, leaf_output,
                     numeric_go_left, per_feature_best_split,
                     unpack_pf_records)
@@ -89,6 +96,10 @@ class GrowerParams(NamedTuple):
     # grow megakernel B2 for int8/int16; the perfeature histogram
     # otherwise), anything else the perfeature kernel B1
     hist_impl: str = "pallas2"
+    # bins stored 4-bit packed two rows a byte, in row blocks of
+    # min(block_rows, n_pad) rows (the learner's layout)
+    packed_bins: bool = False
+    block_rows: int = 8192
     # int8/int16 only: grad/hess rounding ("stochastic" or "nearest"),
     # and the leaf refit from the f32 sums
     quant_round: str = "stochastic"
@@ -124,7 +135,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
          key: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
     """Grow one tree.
 
-    bins_t: [F, n_pad] uint8 (padding rows and features hold bin 0);
+    bins_t: [F, n_pad] uint8 (padding rows and features hold bin 0), or
+    [F, n_pad/2] packed with params.packed_bins;
     grad/hess/row_mask: [n_pad] f32 (padding rows zero); feature_mask:
     [F] f32; meta: per-feature int32 num_bin/missing_type/default_bin/
     monotone and f32 penalty; key: the tree's threefry key (uint32[2],
@@ -145,11 +157,20 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     if params.ramp_step < 2:
         raise ValueError(f"ramp_step={params.ramp_step}; the frontier "
                          "bound needs a growth factor >= 2")
+    if params.packed_bins and (
+            params.partition_impl not in ("select", "vselect")
+            or not params.hist_impl.startswith("pallas")):
+        raise ValueError("packed 4-bit bins require the pallas histogram "
+                         "impl and a select-family partition lowering")
     dev = bins_t.device
     L = params.num_leaves
     B = params.num_bins
     F = bins_t.shape[0]
+    # rows come from grad, not bins_t: packed bins hold two rows a byte
     n_pad = grad.shape[0]
+    block = min(params.block_rows, n_pad)
+    block = n_pad // max(n_pad // block, 1)
+    pblock = block if params.packed_bins else 0
     K = max(1, min(int(params.split_batch), L - 1))
     f32, i32 = torch.float32, torch.int32
     split_kw = dict(l1=params.l1, l2=params.l2,
@@ -217,7 +238,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     root_slots[0] = 0
     root_hist = build_histogram_batched_t(
         bins_t, stats, leaf_ids, root_slots, B, params.precision,
-        params.hist_impl)[0]
+        params.hist_impl, pblock)[0]
     big = torch.tensor(1e30, dtype=f32, device=dev)
     root = select(root_hist[None], sum_g[None], sum_h[None], cnt[None],
                   -big, big)
@@ -281,11 +302,14 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         if params.partition_impl == "vselect":
             return partition_rows_plain(bins_t, sel_feat, leaf_ids, sel,
                                         new_ids, sel_thr, sel_dleft, mt,
-                                        nbf, db, do_k)
+                                        nbf, db, do_k, pblock)
         # "select": one scalar-broadcast pass per slot
         new_leaf = leaf_ids
         for k in range(sel.shape[0]):
-            col = bins_t[sel_feat[k].long()].to(i32)
+            col = bins_t[sel_feat[k].long()]
+            if pblock:
+                col = unpack2d(col, pblock)
+            col = col.to(i32)
             go_left = numeric_go_left(col, mt[k], nbf[k], db[k],
                                       sel_thr[k], sel_dleft[k])
             move = (leaf_ids == sel[k]) & do_k[k] & ~go_left
@@ -342,7 +366,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         else:
             hist_small = build_histogram_batched_t(
                 bins_t, stats, leaf_ids, smaller_ids, B, params.precision,
-                params.hist_impl)
+                params.hist_impl, pblock)
         hist_large = parent_hist - hist_small
         sil = smaller_is_left[:, None, None, None]
         hist_left = torch.where(sil, hist_small, hist_large)
@@ -408,9 +432,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     if quantized and params.quant_refit:
         # leaf refit (grower.py:1733-1755): the structure came from the
         # integer histograms, the outputs come from the f32 sums
-        ids = leaf_ids.long()
-        rg = torch.zeros(L + 1, dtype=f32, device=dev).index_add_(0, ids, g)
-        rh = torch.zeros(L + 1, dtype=f32, device=dev).index_add_(0, ids, h)
+        # per-leaf sums in row order, as XLA:CPU's scatter adds them (a
+        # fixed-order kernel on the card: ops/leafsum.py)
+        rg, rh = leaf_sums(leaf_ids, torch.stack([g, h]), L + 1)
         refit = torch.minimum(torch.maximum(
             leaf_output(rg, rh + 2e-15, **out_kw), -big), big)
         st["leaf_output"] = torch.where(st["leaf_cnt"] > 0, refit,

@@ -28,6 +28,14 @@ each live row's bins from a row-major copy of the bin matrix
 (`row_major_bins`, kept on the matrix: 32 MB at 1M rows x 32 features);
 `group_rows_plain` is the plain version of that grouping, and
 `hist_plan` the launch geometry, both plain Python.
+
+4-bit packed bins (`tpu_pack_bins`, every feature at 16 bins or fewer):
+the learner stores `[F, n/2]` uint8, two rows a byte in the JAX
+package's per-block stride layout (`pack_bins`, `unpack2d`: row j of a
+block in the low nibble, row j + block/2 in the high one).  B1 then
+reads a packed row-major copy, two features a byte (16 bytes a row of a
+32-feature chunk, 16 MB at 1M rows), and unpacks in registers; the twin
+unpacks and runs the unpacked twin.
 """
 
 from __future__ import annotations
@@ -160,13 +168,40 @@ def _unpack_hist(raw: torch.Tensor, precision: str) -> torch.Tensor:
     return torch.stack([g, h, c], dim=-1)
 
 
+def unpack2d(packed: torch.Tensor, block: int) -> torch.Tensor:
+    """[..., n/2] packed uint8 -> [..., n] uint8 bins (n a multiple of
+    block): the port of `lightgbm_tpu/ops/histogram.py:unpack2d`, the one
+    definition of the stride layout, with the row block passed in.  In
+    each block of `block` rows, byte j holds row j in its low nibble and
+    row j + block/2 in its high nibble."""
+    half = int(block) // 2
+    lead = packed.shape[:-1]
+    nb = packed.shape[-1] // half
+    if half < 1 or nb * half != packed.shape[-1]:
+        raise ValueError(f"{packed.shape[-1]} packed bytes are not whole "
+                         f"blocks of {block} rows")
+    b = packed.reshape(*lead, nb, half)
+    return torch.cat([b & 0xF, b >> 4], dim=-1).reshape(*lead, nb * 2 * half)
+
+
+def pack_bins(bins_t: torch.Tensor, block: int) -> torch.Tensor:
+    """[F, n] uint8 bins below 16 -> [F, n/2] packed (`unpack2d`'s
+    inverse), as the JAX learner packs them (learner.py:630-633)."""
+    F, n = bins_t.shape
+    half = int(block) // 2
+    if half < 1 or n % (2 * half):
+        raise ValueError(f"{n} rows are not whole blocks of {block}")
+    x = bins_t.reshape(F, n // (2 * half), 2, half)
+    return (x[:, :, 0, :] | (x[:, :, 1, :] << 4)).reshape(F, n // 2)
+
+
 def _acc_dtype(stats: torch.Tensor) -> torch.dtype:
     return torch.float32 if stats.is_floating_point() else torch.int32
 
 
 def hist_batched_plain(bins_t: torch.Tensor, stats: torch.Tensor,
                        leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
-                       num_bins: int) -> torch.Tensor:
+                       num_bins: int, packed_block: int = 0) -> torch.Tensor:
     """Plain PyTorch batched histogram: raw [F, B, K, S] sums, f32 for
     float stats and int32 for integer stats.
 
@@ -176,7 +211,11 @@ def hist_batched_plain(bins_t: torch.Tensor, stats: torch.Tensor,
     its (feature, bin, slot) index with `index_add_`.
         raw[f, bins_t[f, r], k, s] += stats[s, r]
             for every row r with leaf_ids[r] == slot_leaf_ids[k]
-    Bins >= num_bins contribute nothing, as they match no one-hot row."""
+    Bins >= num_bins contribute nothing, as they match no one-hot row.
+    packed_block > 0: bins_t is packed 4-bit `[F, n/2]` in blocks of that
+    many rows, unpacked first (`unpack2d`)."""
+    if packed_block:
+        bins_t = unpack2d(bins_t, packed_block)
     F, n = bins_t.shape
     S = stats.shape[0]
     K = slot_leaf_ids.shape[0]
@@ -198,10 +237,10 @@ def hist_batched_plain(bins_t: torch.Tensor, stats: torch.Tensor,
 
 
 def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
-                     num_bins: int) -> None:
+                     num_bins: int, packed_block: int = 0) -> None:
     """The checks both histogram kernels' wrappers make."""
-    F, n = bins_t.shape
-    S = stats.shape[0]
+    F = bins_t.shape[0]
+    S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     if bins_t.device.type != "cuda":
         raise ValueError(f"kernel {what} takes CUDA tensors, got "
@@ -220,12 +259,18 @@ def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
                          f"{stats.dtype}")
     if leaf_ids.dtype != torch.int32 or slot_leaf_ids.dtype != torch.int32:
         raise ValueError("leaf_ids and slot_leaf_ids must be int32")
-    if stats.shape[1] != n or leaf_ids.shape != (n,) or not 1 <= S <= 5:
+    cols = n // 2 if packed_block else n
+    if bins_t.shape[1] != cols or leaf_ids.shape != (n,) or not 1 <= S <= 5:
         raise ValueError(f"shapes do not agree: bins_t {tuple(bins_t.shape)}"
                          f", stats {tuple(stats.shape)}, leaf_ids "
-                         f"{tuple(leaf_ids.shape)}")
-    if not 1 <= num_bins <= 256:
-        raise ValueError(f"num_bins={num_bins} outside [1, 256]")
+                         f"{tuple(leaf_ids.shape)}, packed_block "
+                         f"{packed_block}")
+    if not 1 <= num_bins <= (16 if packed_block else 256):
+        raise ValueError(f"num_bins={num_bins} outside [1, "
+                         f"{16 if packed_block else 256}]")
+    if packed_block and (packed_block % 2 or n % packed_block):
+        raise ValueError(f"{n} rows are not whole packed blocks of "
+                         f"{packed_block}")
     if not 1 <= K < 255:
         raise ValueError(f"{K} slots; the kernel takes 1 to 254")
 
@@ -249,13 +294,17 @@ class HistPlan(NamedTuple):
 
 # words of the grouping's leaf id -> slot table (grouped_hist.cuh kTable)
 _TABLE_WORDS = 4096 // 4
+# words of phase C's per-entry tile of a row's bins (grouped_hist.cuh
+# kTileStride): 32 bytes and a pad, or 16 packed bytes and a pad
+_TILE_STRIDE = 9
+_TILE_STRIDE_PACKED = 5
 # shared words of one 256-thread part of kernel B2's split scan
 # (csrc/fused.cu ScanTail::kWords)
 _SCAN_WORDS = 3 * 8 + 6 * 256 + 4 * 8
 
 
 def _smem_bytes(K: int, B: int, S: int, threads: int, scan: bool,
-                floats: bool) -> int:
+                floats: bool, packed: bool = False) -> int:
     """grouped_hist.cuh's layout: the persistent [4K+1] words (slot ids,
     duplicate chains, offsets, write positions) rounded to 16 bytes, then
     the largest of the grouping's two [warps, K] tables, [K] totals and
@@ -263,9 +312,12 @@ def _smem_bytes(K: int, B: int, S: int, threads: int, scan: bool,
     the histogram's [B, S, 32] sums and, for B2, the scan's words."""
     persist = (4 * K + 1 + 3) // 4 * 4
     # int32 sums at a row stride of 33 words, f32 sums at 32; after them
-    # each warp's tile of 32 rows' bins (32 x 9 words), which the f32
-    # flush reuses for its staging tiles (8 warps x 32 x 33 words)
-    tiles = max((threads // 32) * 32 * 9, 8 * 32 * 33 if floats else 0)
+    # each warp's tile of 32 rows' bins (32 x 9 words, 32 x 5 packed),
+    # which the f32 flush reuses for its staging tiles (8 warps x 32 x 33
+    # words)
+    stride = _TILE_STRIDE_PACKED if packed else _TILE_STRIDE
+    tiles = max((threads // 32) * 32 * stride,
+                8 * 32 * 33 if floats else 0)
     sums = B * S * (32 if floats else 33) + tiles
     union = max(2 * (threads // 32) * K + K + _TABLE_WORDS, sums,
                 (threads // 256) * _SCAN_WORDS if scan else 0)
@@ -274,7 +326,7 @@ def _smem_bytes(K: int, B: int, S: int, threads: int, scan: bool,
 
 def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
               smem_max: int, smem_sm: int, scan: bool = False,
-              floats: bool = False) -> HistPlan:
+              floats: bool = False, packed: bool = False) -> HistPlan:
     """Geometry of kernel B1 (and of B2's histogram phases).
 
     Features go in chunks of 32, one per lane, so one slot's [B, S, 32]
@@ -284,18 +336,23 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
     block the card holds at once, as a cooperative launch needs.  Each
     block groups a tile of ceil(n / grid) rows, rounded to 4 x its
     threads (each warp takes an equal part of it).  scan: the call is
-    kernel B2's, whose split scan also needs shared memory."""
-    if not (1 <= S <= 5 and 1 <= K < 255 and 1 <= B <= 256 and F >= 1
-            and n >= 1 and sms >= 1):
+    kernel B2's, whose split scan also needs shared memory.  packed: the
+    bins are 4-bit (B <= 16), so a slot's sums take [16, S, 32] words at
+    most and each warp's bins tile 5 words an entry, not 9; the block
+    geometry is the same (registers, not shared memory, hold a 512-thread
+    block to two per SM: __launch_bounds__(1024) lets a thread 64)."""
+    if not (1 <= S <= 5 and 1 <= K < 255 and 1 <= B <= (16 if packed
+                                                         else 256)
+            and F >= 1 and n >= 1 and sms >= 1):
         raise ValueError(f"no histogram plan for F={F}, K={K}, S={S}, "
                          f"B={B}, n={n}, sms={sms}")
     chunks = -(-F // 32)
-    small = _smem_bytes(K, B, S, 512, scan, floats)
+    small = _smem_bytes(K, B, S, 512, scan, floats, packed)
     if 2 * (small + _SMEM_PER_BLOCK_RESERVED) <= smem_sm:
         threads, per_sm, smem = 512, 2, small
     else:
         threads, per_sm = 1024, 1
-        smem = _smem_bytes(K, B, S, threads, scan, floats)
+        smem = _smem_bytes(K, B, S, threads, scan, floats, packed)
     if smem > smem_max or smem + _SMEM_PER_BLOCK_RESERVED > smem_sm:
         raise ValueError(f"the histogram needs {smem} bytes of shared "
                          f"memory; the card gives a block {smem_max}")
@@ -323,20 +380,35 @@ def _device_limits(index: int) -> tuple:
     return tuple(out)
 
 
-def row_major_bins(bins_t: torch.Tensor) -> torch.Tensor:
+def row_major_bins(bins_t: torch.Tensor,
+                   packed_block: int = 0) -> torch.Tensor:
     """[n, FR] uint8 copy of the [F, n] bins, FR = F rounded up to 32
     (padding bytes 0): one row's bins of a 32-feature chunk are one
     32-byte sector.  Made once and kept on bins_t itself, so every call
     on the same matrix (the learner's, for the whole training) reuses
-    it; an in-place change of bins_t makes a new one."""
+    it; an in-place change of bins_t makes a new one.
+
+    packed_block > 0: bins_t is packed 4-bit [F, n/2] in blocks of that
+    many rows, and the copy is [n, FR/2], two features a byte (feature
+    2j of a chunk in the low nibble of its byte j, 2j + 1 in the high
+    one): one row of a 32-feature chunk is one 16-byte load."""
     cached = getattr(bins_t, "_lgbt_rows", None)
-    if cached is not None and cached[0] == bins_t._version:
+    if cached is not None and cached[0] == (bins_t._version, packed_block):
         return cached[1]
-    F, n = bins_t.shape
+    F = bins_t.shape[0]
     fr = -(-F // 32) * 32
-    rows = torch.zeros((n, fr), dtype=torch.uint8, device=bins_t.device)
-    rows[:, :F] = bins_t.t()
-    bins_t._lgbt_rows = (bins_t._version, rows)
+    if packed_block:
+        full = unpack2d(bins_t, packed_block)
+        n = full.shape[1]
+        cols = torch.zeros((fr, n), dtype=torch.uint8, device=bins_t.device)
+        cols[:F] = full
+        del full
+        rows = (cols[0::2] | (cols[1::2] << 4)).t().contiguous()
+    else:
+        n = bins_t.shape[1]
+        rows = torch.zeros((n, fr), dtype=torch.uint8, device=bins_t.device)
+        rows[:, :F] = bins_t.t()
+    bins_t._lgbt_rows = ((bins_t._version, packed_block), rows)
     return rows
 
 
@@ -359,20 +431,21 @@ def group_rows_plain(leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor):
 
 
 def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
-                  scan: bool = False):
+                  scan: bool = False, packed_block: int = 0):
     """Row-major bins, plan, scratch and ctypes plan of one call."""
-    F, n = bins_t.shape
-    S = stats.shape[0]
+    F = bins_t.shape[0]
+    S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     if S * stats.element_size() > _MAX_STATS_BYTES:
         raise ValueError(f"{S} {stats.dtype} stat rows exceed the kernel's "
                          f"{_MAX_STATS_BYTES} bytes a row")
-    rows = row_major_bins(bins_t)
+    rows = row_major_bins(bins_t, packed_block)
     index = bins_t.device.index
     if index is None:
         index = torch.cuda.current_device()
     plan = hist_plan(F, K, S, int(num_bins), n, *_device_limits(index),
-                     scan=scan, floats=stats.is_floating_point())
+                     scan=scan, floats=stats.is_floating_point(),
+                     packed=bool(packed_block))
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=bins_t.device)
     return rows, plan, scratch, (ctypes.c_int * 6)(*plan[:6])
@@ -391,17 +464,18 @@ def _raw_view(raw, F, B, S):
 
 
 def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
-                 group_only: bool):
-    F, n = bins_t.shape
-    S = stats.shape[0]
+                 group_only: bool, packed_block: int = 0):
+    F = bins_t.shape[0]
+    S, n = stats.shape
     K = slot_leaf_ids.shape[0]
-    rows, plan, scratch, cplan = _grouped_call(bins_t, stats, slot_leaf_ids,
-                                               num_bins)
+    rows, plan, scratch, cplan = _grouped_call(
+        bins_t, stats, slot_leaf_ids, num_bins, packed_block=packed_block)
     raw = _raw_buffer(K, F, int(num_bins), S, _acc_dtype(stats),
                       bins_t.device)
     with torch.cuda.device(bins_t.device):
         code = kernels.library().lgbt_hist_batched(
-            rows.data_ptr(), rows.shape[1], stats.data_ptr(),
+            rows.data_ptr(), rows.shape[1], int(bool(packed_block)),
+            stats.data_ptr(),
             _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
             slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(), F,
             n, S, K, int(num_bins), cplan, int(group_only),
@@ -413,16 +487,19 @@ def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
 
 def hist_batched_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                         leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
-                        num_bins: int) -> torch.Tensor:
+                        num_bins: int, packed_block: int = 0) -> torch.Tensor:
     """Kernel B1 on the card: raw [F, B, K, S] sums (f32, or int32 for
     int8/int16 stats: the integer variant, counted apart).  One
-    cooperative launch: the grouping pass, then the histogram."""
+    cooperative launch: the grouping pass, then the histogram.
+    packed_block > 0: the packed 4-bit variant (bins_t [F, n/2] in
+    blocks of that many rows), counted apart too."""
     _check_hist_args("B1", bins_t, stats, leaf_ids, slot_leaf_ids,
-                     num_bins)
+                     num_bins, packed_block)
     raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
-                             num_bins, False)
-    kernels.launches["hist_batched" if raw.dtype == torch.float32
-                     else "hist_batched_int"] += 1
+                             num_bins, False, packed_block)
+    name = "hist_batched_packed" if packed_block else "hist_batched"
+    kernels.launches[name if raw.dtype == torch.float32
+                     else name + "_int"] += 1
     return raw
 
 
@@ -433,7 +510,7 @@ def hist_group_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
     `group_rows_plain` gives them.  For the tests; not counted."""
     _check_hist_args("B1", bins_t, stats, leaf_ids, slot_leaf_ids,
                      num_bins)
-    n = bins_t.shape[1]
+    n = stats.shape[1]
     K = slot_leaf_ids.shape[0]
     _, plan, scratch = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
                                     num_bins, True)
@@ -471,7 +548,8 @@ def build_histogram_batched_t(bins_t: torch.Tensor, stats: torch.Tensor,
                               leaf_ids: torch.Tensor,
                               slot_leaf_ids: torch.Tensor, num_bins: int,
                               precision: str = "hilo",
-                              impl: str = "pallas2") -> torch.Tensor:
+                              impl: str = "pallas2",
+                              packed_block: int = 0) -> torch.Tensor:
     """Histograms of K leaves in one pass: [K, F, B, 3] (g, h, cnt), f32
     or, for the integer precisions, int32.
 
@@ -481,14 +559,21 @@ def build_histogram_batched_t(bins_t: torch.Tensor, stats: torch.Tensor,
     slot_leaf_ids: [K] int32 leaf wanted in each slot (-1 = dead slot)
     impl:          "pallas" takes kernel B4 on the card; every other
                    histogram implementation takes kernel B1
+    packed_block:  > 0: bins_t is packed 4-bit [F, n/2] in blocks of this
+                   many rows (B1's packed variant; B4 takes no packed
+                   bins, and the learner never packs for it)
 
     A CPU tensor goes through `hist_batched_plain`."""
     if bins_t.device.type == "cuda":
-        kernel = hist_flat_kernel if impl == "pallas" else hist_batched_kernel
-        raw = kernel(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins)
+        if impl == "pallas":
+            raw = hist_flat_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,
+                                   num_bins)
+        else:
+            raw = hist_batched_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,
+                                      num_bins, packed_block)
     elif bins_t.device.type == "cpu":
         raw = hist_batched_plain(bins_t, stats, leaf_ids, slot_leaf_ids,
-                                 num_bins)
+                                 num_bins, packed_block)
     else:
         raise ValueError(f"unsupported device {bins_t.device}")
     return _unpack_hist(raw.permute(3, 2, 0, 1), precision)

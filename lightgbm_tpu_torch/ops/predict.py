@@ -107,13 +107,42 @@ def leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
     return torch.gather(tables["leaf_value"], 1, leaf)
 
 
+# XLA:CPU's reduce window: a sum over more than this many trees goes in
+# windows of this many
+_XLA_WINDOW = 32
+
+
+def sum_trees(vals: torch.Tensor) -> torch.Tensor:
+    """[T, n] -> [n] f32 sum over trees in the order of XLA:CPU's
+    `vals.sum(axis=0)`, the JAX package's device predict, so that both
+    round alike.  Up to 32 trees add in sequence.  Past that XLA pads T
+    with zeros to a multiple of 32 (half the padding, rounded down, in
+    front), sums each window of 32 in sequence, and reduces the window
+    sums by the same rule.  Every add is elementwise, so the order is the
+    same on the card."""
+    while vals.shape[0] > _XLA_WINDOW:
+        T = vals.shape[0]
+        nb = -(-T // _XLA_WINDOW)
+        pad = nb * _XLA_WINDOW - T
+        vals = torch.nn.functional.pad(vals, (0, 0, pad // 2, pad - pad // 2))
+        win = vals.view(nb, _XLA_WINDOW, -1)
+        acc = torch.zeros_like(win[:, 0])
+        for j in range(_XLA_WINDOW):
+            acc = acc + win[:, j]
+        vals = acc
+    acc = torch.zeros_like(vals[0])
+    for t in range(vals.shape[0]):
+        acc = acc + vals[t]
+    return acc
+
+
 def class_scores(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
                  meta: List[torch.Tensor], k: int, depth: int
                  ) -> torch.Tensor:
     """[k, n] f32 per-class raw scores: tree i adds to class i % k."""
     vals = leaf_values(tables, bins_t, *meta, depth)
     if k == 1:
-        return vals.sum(dim=0, keepdim=True)
+        return sum_trees(vals)[None]
     cid = torch.arange(vals.shape[0], device=vals.device) % k
     out = torch.zeros((k, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)

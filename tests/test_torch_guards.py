@@ -76,10 +76,8 @@ OUT_OF_SLICE = [
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
     {"tpu_stream_mode": "streamed"},
     {"deterministic": True},
-    # packed 4-bit bins stay refused for the flat and perfeature kernels,
-    # at every precision (the JAX package never packs for "fused")
-    {"tpu_hist_precision": "int8", "tpu_hist_impl": "pallas2",
-     "tpu_pack_bins": True},
+    # packed 4-bit bins stay refused for the flat kernel B4, at every
+    # precision (its packed read is not ported)
     {"tpu_hist_precision": "int16", "tpu_hist_impl": "pallas",
      "tpu_pack_bins": True},
     {"tpu_hist_precision": "f64"},
@@ -90,19 +88,59 @@ OUT_OF_SLICE = [
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"},
     {"categorical_feature": "0"},
-    {"tpu_pack_bins": True},
 ]
 
 
 @pytest.mark.parametrize("extra", OUT_OF_SLICE, ids=lambda d: ",".join(d))
 def test_out_of_slice_parameters_raise(extra):
-    X, y = binary_data(n=300, f=3, seed=1)
+    # 512 rows where the case packs: the JAX learner packs only row blocks
+    # of a multiple of 256 rows (300 rows pad to one block of 384)
+    n = 512 if extra.get("tpu_pack_bins") else 300
+    X, y = binary_data(n=n, f=3, seed=1)
     if extra.get("objective") == "multiclass":
-        y = np.arange(300) % 3
+        y = np.arange(n) % 3
     params = dict(SMALL, **CPU, **extra)
     name = next(iter(extra))
     with pytest.raises(NotImplementedError, match=name.split("_")[0]):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
+
+
+# once refused; now packed as the JAX learner packs, B1's packed variant
+PACKED_NOW_PORTED = [
+    {"tpu_hist_precision": "int8", "tpu_hist_impl": "pallas2",
+     "tpu_pack_bins": True},
+    {"tpu_pack_bins": True},
+]
+
+
+@pytest.mark.parametrize("extra", PACKED_NOW_PORTED,
+                         ids=lambda d: ",".join(d))
+def test_packed_cases_train_like_jax(extra):
+    X, y = binary_data(n=512, f=3, seed=1)
+    params = dict(SMALL, **extra)
+    # the JAX package's own "auto" is "xla" off its accelerator, where it
+    # never packs; the port's "auto" is the accelerator's "pallas2"
+    bj = jlgb.train(dict(params, verbosity=-1, tpu_hist_impl="pallas2"),
+                    jlgb.Dataset(X, label=y), 1, keep_training_booster=True)
+    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+    lj, lt = bj._driver.learner, bt._driver.learner
+    assert lj.packed_bins and lt.packed_bins
+    assert lt.params.hist_impl == "pallas2"
+    np.testing.assert_array_equal(lt.bins_t.numpy(), np.asarray(lj.bins_t))
+    assert bt.num_trees() == 1
+
+
+def test_packing_follows_the_jax_row_blocks():
+    # 300 rows pad to one 384-row block, not a multiple of 256: neither
+    # package packs, and the port trains (it once refused this case)
+    X, y = binary_data(n=300, f=3, seed=1)
+    params = dict(SMALL, tpu_pack_bins=True, tpu_hist_impl="pallas2")
+    bj = jlgb.train(dict(params, verbosity=-1), jlgb.Dataset(X, label=y), 1,
+                    keep_training_booster=True)
+    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+    assert not bj._driver.learner.packed_bins
+    assert not bt._driver.learner.packed_bins
+    assert bt._driver.learner.n_pad == bj._driver.learner.n_pad == 384
 
 
 def test_more_than_256_bins_raise():

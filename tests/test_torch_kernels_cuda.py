@@ -7,6 +7,8 @@ port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -330,3 +332,122 @@ def test_fused_kernel_edge_cases(name, F, n, B, K, slots):
     got = TF.fused_hist_scan_kernel(*ops, split_kw=kw)
     ref = TF.fused_hist_scan_plain(*ops, split_kw=kw)
     TF.assert_fused_equal(got, ref)
+
+
+# ---- B1 on packed 4-bit bins, and the leaf refit's sums ------------------
+
+# (name, F, n, B, leaves, slots, block): n a whole number of blocks
+PACKED_CASES = [
+    ("path", 32, 1 << 18, 16, 60, list(range(0, 48, 2)) + [-1], 8192),
+    ("root", 32, 1 << 17, 15, 1, [0] + [-1] * 24, 8192),
+    ("small", 7, 5120, 13, 5, [3, -1, 0], 512),
+    ("f40", 40, 30720, 15, 5, [0, 1, 2, 3, 4], 1024),
+    ("dup", 32, 51200, 16, 6, [2, 5, 2, -1, 4], 256),
+]
+
+
+@pytest.mark.parametrize("precision", ["hilo", "int8", "int16"])
+@pytest.mark.parametrize("case", PACKED_CASES, ids=lambda c: c[0])
+def test_hist_kernel_packed_matches_twin(precision, case):
+    _, F, n, B, leaves, slots, block = case
+    dev = cuda_device()
+    if precision == "hilo":
+        args, _, _ = _hist_inputs(dev, 10, F, n, 16, leaves, slots,
+                                  precision)
+    else:
+        args = _int_hist_inputs(dev, 10, F, n, 16, leaves, slots, precision)
+    # bins drawn below 16, some of them >= B: they add nothing
+    packed = TH.pack_bins(args[0], block)
+    args = (packed,) + args[1:]
+    name = "hist_batched_packed" + ("" if precision == "hilo" else "_int")
+    before = kernels.launches[name]
+    got = TH.hist_batched_kernel(*args, B, packed_block=block)
+    assert kernels.launches[name] == before + 1
+    ref = TH.hist_batched_plain(*args, B, packed_block=block)
+    if precision != "hilo":
+        assert torch.equal(got, ref)
+        return
+    got = TH._unpack_hist(got.permute(3, 2, 0, 1), precision).cpu().numpy()
+    ref = TH._unpack_hist(ref.permute(3, 2, 0, 1), precision).cpu().numpy()
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    leaf = args[2].cpu().numpy()
+    stats = args[1].float().cpu().numpy()
+    for c, (hi, lo) in enumerate(((0, 1), (2, 3))):
+        scale = _slot_abs_sums(leaf, slots, stats[hi] + stats[lo])
+        err = np.abs(got[..., c] - ref[..., c]).max(axis=(1, 2))
+        assert (err <= 1e-6 * scale).all(), (c, err, scale)
+    assert not got[np.asarray(slots) < 0].any()
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_leaf_sums_kernel_bitwise_to_cpu_index_add(skew):
+    from lightgbm_tpu_torch.ops import leafsum as TL
+
+    dev = cuda_device()
+    rng = np.random.default_rng(12)
+    n, L = (1 << 18) + 7, 256
+    leaf = rng.integers(0, L - 3, size=n).astype(np.int32)  # empty leaves
+    if skew:
+        leaf[rng.random(n) < 0.9] = 5       # one leaf holds most rows
+    vals = np.stack([rng.normal(size=n), rng.random(n) * 0.25]
+                    ).astype(np.float32)
+    ids_c, vals_c = torch.from_numpy(leaf), torch.from_numpy(vals)
+    before = kernels.launches["leaf_sums"]
+    got = TL.leaf_sums_kernel(ids_c.to(dev), vals_c.to(dev), L)
+    assert kernels.launches["leaf_sums"] == before + 1
+    # the twin: index_add_ on the CPU, each leaf's rows in row order
+    assert torch.equal(got.cpu(), TL.leaf_sums_plain(ids_c, vals_c, L))
+
+
+def _norm(text, name):
+    """Model text with the parameter line `name` normalized."""
+    return re.sub(rf"^\[{name}: [^\]]*\]$", f"[{name}: -]", text,
+                  flags=re.M)
+
+
+def _packed_reg_data(n=40960):
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(n, 10))
+    X[rng.random(X.shape) < 0.03] = np.nan
+    y = X[:, 0] + np.nan_to_num(X[:, 1]) ** 2 + 0.3 * rng.normal(size=n)
+    return X, y
+
+
+def test_packed_int8_training_on_card_matches_cpu_text():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _packed_reg_data()
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 15,
+         "tpu_hist_precision": "int8", "tpu_hist_impl": "pallas2",
+         "tpu_quant_refit_leaves": False, "verbosity": -1}
+    kernels.reset_launches()
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    assert gpu._driver.learner.packed_bins
+    assert kernels.launches["hist_batched_packed_int"] > 0
+    assert kernels.launches["hist_batched_int"] == 0
+    cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(X, label=y),
+                    num_boost_round=3)
+    unpacked = lgb.train(dict(p, tpu_pack_bins=False),
+                         lgb.Dataset(X, label=y), num_boost_round=3)
+    text = gpu.model_to_string()
+    assert _norm(text, "device_type") == \
+        _norm(cpu.model_to_string(), "device_type")
+    # packing is a layout: the unpacked run writes the same model
+    assert _norm(unpacked.model_to_string(), "tpu_pack_bins") == \
+        _norm(text, "tpu_pack_bins")
+
+
+def test_refit_training_on_card_is_deterministic():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _packed_reg_data()
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "tpu_hist_precision": "int8", "verbosity": -1}
+    kernels.reset_launches()
+    texts = [lgb.train(dict(p), lgb.Dataset(X, label=y),
+                       num_boost_round=3).model_to_string()
+             for _ in range(2)]
+    assert kernels.launches["leaf_sums"] == 6
+    assert texts[0] == texts[1]

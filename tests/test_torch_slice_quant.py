@@ -2,21 +2,26 @@
 
 The shape of the JAX package's own fused-growth gate
 (tests/test_fused_grow.py): 4,096 rows x 10 features, 15 leaves, 63
-bins, 512-row blocks, 5 iterations.  The port runs on the CPU with
-tpu_hist_impl=auto (which resolves to the grow megakernel's twin for
-int8/int16); the JAX package runs tpu_hist_impl=fused, in interpret
-mode, in a process compiled without FMA (see tests/test_torch_util.py).
+bins, 512-row blocks, 5 iterations.  Both packages run
+tpu_hist_impl=fused (the grow megakernel; the port's twin on the CPU):
+the JAX package in interpret mode, in a process compiled without FMA
+(see tests/test_torch_util.py).
 
-- objective=regression with tpu_quant_refit_leaves=false: integer
-  histograms and exact gradients (score - label), so the model text is
-  byte-identical, int8 and int16;
+- objective=regression: integer histograms and exact gradients (score -
+  label), so the whole model text is byte-identical (the trees, the
+  parameters apart from device_type, and the tpu_bin_mappers: and
+  tpu_feature_profile: trailers), int8 and int16 with the leaf refit
+  off, and int8 with it on (the refit adds each leaf's rows in row
+  order, as XLA:CPU's scatter does);
 - objective=binary with the leaf refit on (the default): the binary
-  gradients may differ from XLA's in the last ulps (exp) and the refit
-  sums f32 per leaf, so the raw scores are held to a tolerance;
+  gradients may differ from XLA's in the last ulps (exp), so the
+  refitted leaf values, and the raw scores, are held to a tolerance;
 - the threefry key stream ends where the JAX package's does;
 - tpu_hist_impl=pallas (kernel B4's twin on the CPU) and fused grow the
   same trees as pallas2; models load in the other package.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -30,7 +35,7 @@ ROUNDS = 5
 BASE = {"num_leaves": 15, "max_bin": 63, "min_data_in_leaf": 5,
         "verbosity": -1, "tpu_block_rows": 512}
 RUNS = [("regression", "int8", False), ("regression", "int16", False),
-        ("binary", "int8", True)]
+        ("binary", "int8", True), ("regression", "int8", True)]
 # binary, refit on: |port - JAX| raw score, relative to the largest |score|
 SCORE_RTOL = 1e-5
 
@@ -55,13 +60,21 @@ def _trees(text):
     return text.split("\nparameters:")[0]
 
 
+def _text(text):
+    """The whole model text, with the one parameter line that names the
+    device (the port's "cpu", the JAX package's default) normalized."""
+    return re.sub(r"^\[device_type: [^\]]*\]$", "[device_type: -]", text,
+                  flags=re.M)
+
+
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     X, ys = _data()
     runs = [dict(_params(o, p, r, "fused"), label=o) for o, p, r in RUNS]
     out = run_jax_nofma("train", {"X": X, **{"y_" + k: v
                                              for k, v in ys.items()}},
-                        {"runs": runs, "rounds": ROUNDS},
+                        {"runs": runs, "rounds": ROUNDS,
+                         "device_predict_iterations": [ROUNDS]},
                         tmp_path_factory.mktemp("train"))
     return X, ys, out
 
@@ -69,7 +82,7 @@ def jax_ref(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_runs():
     X, ys = _data()
-    return [tlgb.train(dict(_params(o, p, r, "auto"), device_type="cpu"),
+    return [tlgb.train(dict(_params(o, p, r, "fused"), device_type="cpu"),
                        tlgb.Dataset(X, label=ys[o]), num_boost_round=ROUNDS)
             for o, p, r in RUNS]
 
@@ -80,7 +93,16 @@ def test_regression_model_text_byte_identical(jax_ref, port_runs, c):
     bt = port_runs[c]
     assert bt._driver.learner.params.hist_impl == "fused"
     assert not bt._driver.learner.refits_leaves
-    assert _trees(bt.model_to_string()) == _trees(str(out[f"{c}_text"]))
+    text = bt.model_to_string()
+    assert "\ntpu_feature_profile:" in text
+    assert _text(text) == _text(str(out[f"{c}_text"]))
+
+
+def test_regression_refit_model_text_byte_identical(jax_ref, port_runs):
+    _, _, out = jax_ref
+    bt = port_runs[3]
+    assert bt._driver.learner.refits_leaves
+    assert _text(bt.model_to_string()) == _text(str(out["3_text"]))
 
 
 def test_binary_refit_scores_within_tolerance(jax_ref, port_runs):
@@ -140,7 +162,9 @@ def test_models_cross_load(jax_ref, port_runs):
     np.testing.assert_allclose(bj.predict(X, raw_score=True),
                                bt.predict(X, raw_score=True), rtol=0,
                                atol=1e-6)
+    # the JAX model in the port predicts equal to the JAX package's own
+    # device predict (f32 sums over trees in XLA's order)
     back = tlgb.Booster(model_str=str(out["2_text"]),
                         params={"device_type": "cpu"})
-    np.testing.assert_allclose(back.predict(X, raw_score=True), out["2_raw"],
-                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(back.predict(X, raw_score=True),
+                                  out[f"2_device_raw_{ROUNDS}"])

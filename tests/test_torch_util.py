@@ -197,6 +197,12 @@ def _job_train(inp, spec):
         out[f"{c}_text"] = np.array(b.model_to_string())
         out[f"{c}_raw"] = np.asarray(b.predict(inp["X"], raw_score=True))
         out[f"{c}_key"] = np.asarray(b._driver._key)
+        # the jitted bin-space forest walk (f32 sums over trees) of the
+        # first `it` iterations
+        for it in spec.get("device_predict_iterations", []):
+            out[f"{c}_device_raw_{it}"] = np.asarray(b.predict(
+                inp["X"], raw_score=True, num_iteration=it,
+                tpu_predict_device="true"))
     return out
 
 
