@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. five paths at full width, each lgb.train on the Higgs-1M shape
+  3. eight paths at full width, each lgb.train on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
      before each path and read just after, and each kernel of the path
@@ -18,7 +18,10 @@ Phases, each fatal on failure (exit code 1, no result line):
                (stochastic rounding, leaf refit), 10 iterations: B1's
                integer variant at the root, B2 in every grower round,
                B3, and the refit's fixed-order leaf sums;
-       flat    as hilo with tpu_hist_impl=pallas, 3 iterations: B4, B3;
+       flat    as hilo with tpu_hist_impl=pallas, 10 iterations: B4
+               (the grouped body under its own instance), B3;
+       flat_int8  flat with tpu_hist_precision=int8, 5 iterations: B4's
+               integer variant every round, B3, the leaf sums;
        packed  max_bin=15 with every other parameter at the JAX
                package's default (select partition, auto histogram),
                10 iterations: the bins are 4-bit packed and every
@@ -27,23 +30,29 @@ Phases, each fatal on failure (exit code 1, no result line):
                tpu_hist_impl=pallas2 (auto would take B2, which never
                packs), 5 iterations: B1's packed integer variant and the
                leaf sums;
+       packed_flat  packed with tpu_hist_impl=pallas, 10 iterations: the
+               bins 4-bit packed in 256-row blocks, every histogram B4's
+               packed variant;
+       packed_flat_int8  packed_flat with tpu_hist_precision=int8, 5
+               iterations: B4's packed integer variant, the leaf sums;
   4. each kernel against its plain PyTorch twin on the card, at the
      shapes its path gives it, with times (ms: the kernel's device time
      per call from torch.profiler; event_ms: CUDA events around 20
      back-to-back calls, which read the host's time when a call is
      shorter than its wrapper), the bound (every leaf id, the
      bins and stats of the live rows, the output) and, where one exists,
-     one PyTorch library call computing the same function; B1, B1-int
-     and their packed variants also at the root call's operands (every
-     row in slot 0, the other slots dead); the leaf sums bitwise against
+     one PyTorch library call computing the same function; B1, B4, their
+     integer and packed variants at random operands and at the root
+     call's operands (every row in slot 0, the other slots dead); B3 also
+     with two slots holding one leaf id; the leaf sums bitwise against
      index_add_ on the CPU;
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
-     packed regression int8 (pallas2), both with the leaf refit off, by
-     their whole model text (only the device_type line normalized),
-     which must be byte-identical, and the packed one also to the card's
-     unpacked run; and two refit-on int8 trainings on the card, which
-     must write the same text.
+     packed regression int8 (pallas2, and pallas: B4), all with the leaf
+     refit off, by their whole model text (only the device_type line
+     normalized), which must be byte-identical, and the packed ones also
+     to the card's unpacked run; and two refit-on int8 trainings on the
+     card, which must write the same text.
 With --profile, two more iterations of every path run under
 torch.profiler and the device time by op, each port kernel's device time
 per call on the path and the device's idle share are printed.
@@ -65,8 +74,8 @@ N_TRAIN = 1_000_000
 N_HOLD = 100_000
 N_FEAT = 28
 ITERS = 10
-ITERS_FLAT = 3
-ITERS_PACKED_INT8 = 5
+# the integer flat and packed paths, which exist to launch their variants
+ITERS_INT_VARIANT = 5
 N_SMALL = 50_000
 ITERS_SMALL = 5
 # the small run's AUC on the card and on the CPU: their trees differ only
@@ -96,12 +105,20 @@ PATHS = [
     ("int8", dict(PARAMS, tpu_hist_precision="int8"), ITERS,
      ("hist_batched_int", "fused_hist_scan", "partition_rows",
       "leaf_sums")),
-    ("flat", dict(PARAMS, tpu_hist_impl="pallas"), ITERS_FLAT,
+    ("flat", dict(PARAMS, tpu_hist_impl="pallas"), ITERS,
      ("hist_flat", "partition_rows")),
+    ("flat_int8", dict(PARAMS, tpu_hist_impl="pallas",
+                       tpu_hist_precision="int8"), ITERS_INT_VARIANT,
+     ("hist_flat_int", "partition_rows", "leaf_sums")),
     ("packed", PACKED_PARAMS, ITERS, ("hist_batched_packed",)),
     ("packed_int8", dict(PACKED_PARAMS, tpu_hist_precision="int8",
-                         tpu_hist_impl="pallas2"), ITERS_PACKED_INT8,
+                         tpu_hist_impl="pallas2"), ITERS_INT_VARIANT,
      ("hist_batched_packed_int", "leaf_sums")),
+    ("packed_flat", dict(PACKED_PARAMS, tpu_hist_impl="pallas"), ITERS,
+     ("hist_flat_packed",)),
+    ("packed_flat_int8", dict(PACKED_PARAMS, tpu_hist_impl="pallas",
+                              tpu_hist_precision="int8"), ITERS_INT_VARIANT,
+     ("hist_flat_packed_int", "leaf_sums")),
 ]
 
 
@@ -145,26 +162,50 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps, kernels_of=None):
+def device_ms(fn, reps, kernels_of=None, launches=1):
     """Device time per fn() of the port's own kernels, from
     torch.profiler: unlike cuda_ms it leaves out the time the device
     waits for the host between calls, which is what back-to-back CUDA
     events read when a call is shorter than its Python wrapper.
-    kernels_of: as profile's."""
+    kernels_of: as profile's.  launches: the port kernel launches one
+    fn() makes (one for each port wrapper), or None where that is not a
+    fixed number.
+
+    A profile's last device events can arrive only in a later profile
+    (seen on an H100: 15 of 20 launches seen, or none and then twice as
+    many; a sum over the launches seen then read a quarter low).  So an
+    empty profile first takes stragglers of earlier ones, another after
+    the timed one takes its own, and the time is the mean over the
+    launches seen times `launches`; with launches=None it is the sum
+    seen over reps."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def launches_of(prof):
+        events = _device_events(prof)
+        labels = (kernels_of or port_kernels)([ev.name for ev in events])
+        return [float(ev.self_device_time_total)
+                for ev, label in zip(events, labels) if label is not None]
+
+    with tprofile(activities=acts):
+        torch.cuda.synchronize()
+    with tprofile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = _device_events(prof)
-    labels = (kernels_of or port_kernels)([ev.name for ev in events])
-    us = sum(float(ev.self_device_time_total)
-             for ev, label in zip(events, labels) if label is not None)
-    return us / 1e3 / reps
+    with tprofile(activities=acts) as late:
+        torch.cuda.synchronize()
+    us = launches_of(prof) + launches_of(late)
+    if launches is None:
+        return sum(us) / 1e3 / reps
+    if len(us) < reps * launches // 2:
+        fail(f"torch.profiler saw {len(us)} port kernel launches in {reps} "
+             "calls")
+    return sum(us) / len(us) * launches / 1e3
 
 
 def smi_line() -> str:
@@ -205,8 +246,7 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
     for name in must_launch:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on this path")
-    packed = any(name.startswith("hist_batched_packed")
-                 for name in must_launch)
+    packed = any("_packed" in name for name in must_launch)
     if driver.learner.packed_bins != packed:
         fail(f"the bins are {'not ' if packed else ''}4-bit packed on "
              "this path")
@@ -234,9 +274,15 @@ _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
 
 
 # device kernel name -> the port kernel (launch counter) it belongs to;
-# B1's packed variant is the instance of the same template with Packed
-# = true
+# B4 is the grouped body under its own tail type (Flat), the packed
+# variants the instances with Packed = true
 _PORT_KERNELS = ((r"ScanTail", "fused_hist_scan"),
+                 (r"grouped_hist_kernel<float,[^>]*Flat[^>]*true>",
+                  "hist_flat_packed"),
+                 (r"grouped_hist_kernel<int,[^>]*Flat[^>]*true>",
+                  "hist_flat_packed_int"),
+                 (r"grouped_hist_kernel<float,[^>]*Flat", "hist_flat"),
+                 (r"grouped_hist_kernel<int,[^>]*Flat", "hist_flat_int"),
                  (r"grouped_hist_kernel<float,[^>]*true>",
                   "hist_batched_packed"),
                  (r"grouped_hist_kernel<int,[^>]*true>",
@@ -244,7 +290,6 @@ _PORT_KERNELS = ((r"ScanTail", "fused_hist_scan"),
                  (r"grouped_hist_kernel<float", "hist_batched"),
                  (r"grouped_hist_kernel<int", "hist_batched_int"),
                  (r"partition_rows_kernel", "partition_rows"),
-                 (r"hist_flat_kernel", "hist_flat"),
                  (r"leaf_sums_kernel", "leaf_sums"))
 
 
@@ -282,6 +327,8 @@ def profile(booster, iters=2, kernels_of=None):
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    with tprofile(activities=acts):
+        pass          # takes device events late from a profile before
     kernels.reset_launches()
     syncs = booster._driver.grower_syncs
     with tprofile(activities=acts) as prof:
@@ -337,8 +384,8 @@ def profile(booster, iters=2, kernels_of=None):
 
 def _b1_operands(learner):
     """(bins_t, the bins unpacked, packed block, name suffix, bytes of one
-    row's bins of a feature) of kernel B1 on the learner's matrix: packed
-    4-bit [F, n/2] bins (the packed variant) or [F, n]."""
+    row's bins of a feature) of kernel B1 or B4 on the learner's matrix:
+    packed 4-bit [F, n/2] bins (the packed variant) or [F, n]."""
     from lightgbm_tpu_torch.ops import histogram as H
 
     pb = learner.packed_block
@@ -347,18 +394,31 @@ def _b1_operands(learner):
     return bins_t, full, pb, ("_packed" if pb else ""), (0.5 if pb else 1)
 
 
+def _hist_route(learner):
+    """(wrapper, name, the TPU kernel it replaces) of the learner's
+    histogram: B4 on the flat paths (tpu_hist_impl=pallas), else B1."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    if learner.params.hist_impl == "pallas":
+        return H.hist_flat_kernel, "hist_flat", \
+            "lightgbm_tpu/ops/histogram.py:541"
+    return H.hist_batched_kernel, "hist_batched", \
+        "lightgbm_tpu/ops/histogram.py:584"
+
+
 def check_hist(learner, gen, operands):
-    """Phase 4, kernel B1 (or its packed variant, on a learner whose bins
-    are packed) at the path's shapes.  operands "random": leaf ids over
-    the L leaves, K random slots, one dead (about 9.4% of the rows live),
-    held to the twin; "root": every row in slot 0 and the other K-1 slots
-    dead (the root call), held to an f64 sum, since the f32 twin's own
-    rounding over a million rows in one slot is of the tolerance's
-    order."""
+    """Phase 4, kernel B1, or B4 on a flat path (each the packed variant
+    on a learner whose bins are packed) at the path's shapes.  operands
+    "random": leaf ids over the L leaves, K random slots, one dead (about
+    9.4% of the rows live), held to the twin; "root": every row in slot
+    0 and the other K-1 slots dead (the root call), held to an f64 sum,
+    since the f32 twin's own rounding over a million rows in one slot is
+    of the tolerance's order."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
     bins_t, full, pb, suffix, bin_bytes = _b1_operands(learner)
+    wrapper, route, replaces = _hist_route(learner)
     F, n = full.shape
     B = learner.num_bins
     K = learner.params.split_batch
@@ -366,8 +426,7 @@ def check_hist(learner, gen, operands):
     leaf, slots = _slots_of(learner, gen, operands)
 
     def kernel():
-        return H.hist_batched_kernel(bins_t, stats, leaf, slots, B,
-                                     packed_block=pb)
+        return wrapper(bins_t, stats, leaf, slots, B, packed_block=pb)
 
     def plain():
         return H.hist_batched_plain(bins_t, stats, leaf, slots, B, pb)
@@ -389,10 +448,10 @@ def check_hist(learner, gen, operands):
     event_ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     S = stats.shape[0]
-    return {"name": "hist_batched" + suffix, "operands": operands,
+    return {"name": route + suffix, "operands": operands,
             "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
-            "replaces": "lightgbm_tpu/ops/histogram.py:584",
+            "replaces": replaces,
             "max_abs_err": err, "max_rel_err": rel,
             "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}", "ms": ms,
             "event_ms": event_ms, "plain_ms": plain_ms,
@@ -429,24 +488,33 @@ def check_partition(learner, gen):
     db = meta["default_bin"][feat.long()]
     do_k = torch.arange(K, device=dev) < K - 2
     args = (bins_t, feat, leaf, sel, new_ids, thr, dleft, mt, nbf, db, do_k)
-    out_k = fused.partition_rows_kernel(*args)
-    out_p = fused.partition_rows_plain(*args)
-    torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
+    # and two slots holding one leaf id: its rows take the max of the
+    # moving slots' new ids
+    sel_dup = sel.clone()
+    sel_dup[1] = sel_dup[0]
+    err = 0
+    for a in (args, args[:3] + (sel_dup,) + args[4:]):
+        out_k = fused.partition_rows_kernel(*a)
+        out_p = fused.partition_rows_plain(*a)
+        torch.cuda.synchronize()
+        err = max(err, (out_k - out_p).abs().max().item())
     if err != 0:
         fail(f"partition_rows differs from its twin (max err {err})")
     ms = device_ms(lambda: fused.partition_rows_kernel(*args), 20)
     event_ms = cuda_ms(lambda: fused.partition_rows_kernel(*args), 20)
     plain_ms = cuda_ms(lambda: fused.partition_rows_plain(*args), 5)
     m = int(((leaf[None, :] == sel[:, None]) & do_k[:, None]).sum().item())
-    nbytes = n * 4 + n * 4 + m + K * 9 * 4
+    # every leaf id read and written, the bin byte of each row of a
+    # splitting slot, the K slots' seven int32 and two bool parameters;
+    # a table lookup and a select a row, the decision for those rows
+    nbytes = n * 4 + n * 4 + m + K * (7 * 4 + 2)
     return {"name": "partition_rows", "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/partition.cu",
             "replaces": "lightgbm_tpu/ops/fused.py:296",
             "max_abs_err": float(err), "max_rel_err": float(err),
-            "tolerance": "bitwise", "ms": ms, "event_ms": event_ms,
-            "plain_ms": plain_ms,
-            **_bound(nbytes, n * K * 2, PEAK_ALU_S), "library_ms": None,
+            "tolerance": "bitwise (and with a duplicated slot)", "ms": ms,
+            "event_ms": event_ms, "plain_ms": plain_ms,
+            **_bound(nbytes, n * 2 + m * 4, PEAK_ALU_S), "library_ms": None,
             "shape": f"bins [{F}, {n}] u8, leaf [{n}] i32, K={K}, "
                      f"rows of splitting leaves {m}"}
 
@@ -603,12 +671,14 @@ def _random_slots(learner, gen):
 
 
 def check_hist_int(learner, gen, operands):
-    """Phase 4, kernel B1's integer variant (or its packed integer
-    variant) at the path's shapes (operands as check_hist's), bitwise."""
+    """Phase 4, the integer variant of kernel B1, or of B4 on a flat path
+    (each packed on a learner whose bins are packed) at the path's shapes
+    (operands as check_hist's), bitwise."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
     bins_t, full, pb, suffix, bin_bytes = _b1_operands(learner)
+    wrapper, route, replaces = _hist_route(learner)
     F, n = full.shape
     B = learner.num_bins
     K = learner.params.split_batch
@@ -616,8 +686,7 @@ def check_hist_int(learner, gen, operands):
     leaf, slots = _slots_of(learner, gen, operands)
 
     def kernel():
-        return H.hist_batched_kernel(bins_t, stats, leaf, slots, B,
-                                     packed_block=pb)
+        return wrapper(bins_t, stats, leaf, slots, B, packed_block=pb)
 
     def plain():
         return H.hist_batched_plain(bins_t, stats, leaf, slots, B, pb)
@@ -625,17 +694,17 @@ def check_hist_int(learner, gen, operands):
     raw_k, raw_p = kernel(), plain()
     torch.cuda.synchronize()
     if not torch.equal(raw_k, raw_p):
-        fail(f"hist_batched{suffix} (int8, {operands}) differs from its "
+        fail(f"{route}{suffix} (int8, {operands}) differs from its "
              f"twin: max err {(raw_k - raw_p).abs().max().item()}")
     lib_ms, m = _index_add_ms(full, stats, leaf, slots, B)
     ms = device_ms(kernel, 20)
     event_ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     S = 3
-    return {"name": f"hist_batched{suffix}_int", "operands": operands,
+    return {"name": f"{route}{suffix}_int", "operands": operands,
             "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
-            "replaces": "lightgbm_tpu/ops/histogram.py:584",
+            "replaces": replaces,
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S,
@@ -671,7 +740,8 @@ def check_leaf_sums(learner, gen):
     def kernel():
         return leafsum.leaf_sums_kernel(leaf, vals, L)
 
-    ms = device_ms(kernel, 20, kernels_of=lambda names: ["all"] * len(names))
+    ms = device_ms(kernel, 20, kernels_of=lambda names: ["all"] * len(names),
+                   launches=None)
     kernel_ms = device_ms(kernel, 20)
     event_ms = cuda_ms(kernel, 20)
     t0 = time.perf_counter()
@@ -801,48 +871,6 @@ def check_fused(learner, gen):
                      f"B={B}, 2K children, live rows {m}"}
 
 
-def check_flat(learner, gen):
-    """Phase 4, kernel B4 at the flat path's shapes: hilo within the
-    summation-order tolerance (timed), int8 bitwise."""
-    import torch
-    from lightgbm_tpu_torch.ops import histogram as H
-
-    bins_t = learner.bins_t
-    F, n = bins_t.shape
-    B = learner.num_bins
-    K = learner.params.split_batch
-    stats, g, h = _hilo_stats(learner, gen)
-    leaf, slots = _random_slots(learner, gen)
-    hk = H._unpack_hist(H.hist_flat_kernel(bins_t, stats, leaf, slots, B)
-                        .permute(3, 2, 0, 1), "hilo")
-    hp = H._unpack_hist(H.hist_batched_plain(bins_t, stats, leaf, slots, B)
-                        .permute(3, 2, 0, 1), "hilo")
-    torch.cuda.synchronize()
-    err, rel = _hist_rel_err(hk, hp, g, h, leaf, slots)
-    st8 = _int8_stats(learner, gen)
-    if not torch.equal(H.hist_flat_kernel(bins_t, st8, leaf, slots, B),
-                       H.hist_batched_plain(bins_t, st8, leaf, slots, B)):
-        fail("hist_flat (int8) differs from its twin")
-    lib_ms, m = _index_add_ms(bins_t, stats, leaf, slots, B)
-    ms = device_ms(lambda: H.hist_flat_kernel(bins_t, stats, leaf, slots, B),
-                   10)
-    event_ms = cuda_ms(lambda: H.hist_flat_kernel(bins_t, stats, leaf,
-                                                  slots, B), 10)
-    plain_ms = cuda_ms(
-        lambda: H.hist_batched_plain(bins_t, stats, leaf, slots, B), 5)
-    S = stats.shape[0]
-    return {"name": "hist_flat", "route": "cuda",
-            "source": "lightgbm_tpu_torch/csrc/histogram.cu",
-            "replaces": "lightgbm_tpu/ops/histogram.py:541",
-            "max_abs_err": err, "max_rel_err": rel,
-            "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}; int8 bitwise",
-            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S),
-            "library_ms": lib_ms,
-            "shape": f"bins [{F}, {n}] u8, stats [{S}, {n}] bf16, K={K}, "
-                     f"B={B}, live rows {m}"}
-
-
 def _norm_param(text, name):
     """Model text with the parameter line `name` normalized."""
     return re.sub(rf"^\[{name}: [^\]]*\]$", f"[{name}: -]", text,
@@ -864,6 +892,9 @@ def cross_check(lgb, X, y):
             "int8_regression": (dict(PARAMS, **reg), y_reg, "text"),
             "packed_int8_regression": (
                 dict(PACKED_PARAMS, tpu_hist_impl="pallas2", **reg), y_reg,
+                "text"),
+            "packed_flat_int8_regression": (
+                dict(PACKED_PARAMS, tpu_hist_impl="pallas", **reg), y_reg,
                 "text")}
     out = {}
     for name, (params, label, by) in runs.items():
@@ -967,20 +998,17 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(7)
     learners = {k: b._driver.learner for k, b in boosters.items()}
     # (row, the path whose launches it reports)
-    kernel_rows = [(check_hist(learners["hilo"], gen, "random"), "hilo"),
-                   (check_hist(learners["hilo"], gen, "root"), "hilo"),
-                   (check_hist_int(learners["int8"], gen, "random"), "int8"),
-                   (check_hist_int(learners["int8"], gen, "root"), "int8"),
-                   (check_fused(learners["int8"], gen), "int8"),
-                   (check_partition(learners["hilo"], gen), "hilo"),
-                   (check_flat(learners["flat"], gen), "flat"),
-                   (check_hist(learners["packed"], gen, "random"), "packed"),
-                   (check_hist(learners["packed"], gen, "root"), "packed"),
-                   (check_hist_int(learners["packed_int8"], gen, "random"),
-                    "packed_int8"),
-                   (check_hist_int(learners["packed_int8"], gen, "root"),
-                    "packed_int8"),
-                   (check_leaf_sums(learners["int8"], gen), "int8")]
+    kernel_rows = []
+    # B1 and B4 with their integer and packed variants, each at random
+    # and root operands
+    for path in ("hilo", "int8", "flat", "flat_int8", "packed",
+                 "packed_int8", "packed_flat", "packed_flat_int8"):
+        check = check_hist_int if path.endswith("int8") else check_hist
+        kernel_rows += [(check(learners[path], gen, operands), path)
+                        for operands in ("random", "root")]
+    kernel_rows += [(check_fused(learners["int8"], gen), "int8"),
+                    (check_partition(learners["hilo"], gen), "hilo"),
+                    (check_leaf_sums(learners["int8"], gen), "int8")]
     for row, path in kernel_rows:
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
@@ -996,7 +1024,7 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # B1, B1-int and their packed variants have two rows: random
+    # B1, B4 and their integer and packed variants have two rows: random
     # operands, then the root's
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},

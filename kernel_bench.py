@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the histogram kernels of lightgbm_tpu_torch on one CUDA card, at
-the shapes of the Higgs-1M paths, so that two checkouts of the package
-can be compared in one machine.
+"""Time the kernels of lightgbm_tpu_torch on one CUDA card, at the shapes
+of the Higgs-1M paths, so that two checkouts of the package can be
+compared in one machine.
 
     python3 kernel_bench.py [--root DIR] [--label NAME] [--sass]
 
@@ -9,15 +9,15 @@ Imports lightgbm_tpu_torch from DIR (default: the directory of this
 script), builds its kernels and prints one JSON line per measurement,
 each taken with chip_smoke.py's own functions (from this script's
 directory, whatever DIR is):
-  path     the hilo and the int8 paths, 10 iterations and then 2 more
+  path     the hilo, int8 and flat paths, 10 iterations and then 2 more
            under torch.profiler (chip_smoke.profile): each kernel's
            device time per call on the path, the device's busy time and
            idle share, the host's torch ops per iteration and host syncs
            per tree;
-  kernel   B1 and B1-int at chip_smoke.py's phase-4 random and root
-           operands, B2 at its phase-4 operands: each against its plain
-           twin, with its device time per call (chip_smoke.device_ms)
-           and its CUDA-event time;
+  kernel   B1, B1-int and B4 at chip_smoke.py's phase-4 random and root
+           operands, B2 and B3 at their phase-4 operands: each against
+           its plain twin, with its device time per call
+           (chip_smoke.device_ms) and its CUDA-event time;
   sass     (--sass) the atomic instructions of each kernel of the built
            library, counted from `cuobjdump -sass`.
 To compare two checkouts, run it for each in turn in one call (parent,
@@ -41,21 +41,11 @@ import chip_smoke as cs  # noqa: E402
 
 def kernels_of(names):
     """The port kernel of each device launch, for either version of the
-    package: chip_smoke.port_kernels, and the launches of the version
-    before B1 and B2 were redesigned by the call they belong to.  There a
-    call began with a slot launch, then a histogram and a reduce launch;
-    B2's call added a scan launch."""
-    out = cs.port_kernels(names)
-    for i, name in enumerate(names):
-        if "hist_slot_kernel" not in name:
-            continue
-        call = names[i:i + 4]
-        if len(call) == 4 and "fused_scan_kernel" in call[3]:
-            out[i:i + 4] = ["fused_hist_scan"] * 4
-        elif len(call) >= 3:
-            out[i:i + 3] = ["hist_batched" if "<float" in call[1]
-                            else "hist_batched_int"] * 3
-    return out
+    package: chip_smoke.port_kernels, and B4's one launch a call before
+    it became the grouped body (`hist_flat_kernel`).  Every kernel here
+    makes one launch a call in both versions."""
+    return ["hist_flat" if "hist_flat_kernel" in name else label
+            for name, label in zip(names, cs.port_kernels(names))]
 
 
 def sass_census(lib_path):
@@ -80,38 +70,42 @@ def sass_census(lib_path):
 
 
 def kernel_rows(learners, kernels_of):
-    """B1 and B1-int at phase 4's random and root operands, then B2 at
-    its phase-4 operands, drawn in phase 4's order: each against its
-    plain twin (float: counts equal and the largest difference; int and
-    B2: bitwise), timed as phase 4 times it."""
+    """B1, B1-int and B4 at phase 4's random and root operands, then B2
+    and B3 at their phase-4 operands: each against its plain twin
+    (float: counts equal and the largest difference; int, B2 and B3:
+    bitwise), timed as phase 4 times it."""
     import torch
     from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.ops import histogram as H
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for precision in ("hilo", "int8"):
-        learner = learners[precision]
+    for name, path, wrapper in (
+            ("hist_batched", "hilo", H.hist_batched_kernel),
+            ("hist_batched_int", "int8", H.hist_batched_kernel),
+            ("hist_flat", "flat", H.hist_flat_kernel)):
+        learner = learners[path]
+        floats = not name.endswith("_int")
         for operands in ("random", "root"):
-            stats = (cs._hilo_stats(learner, gen)[0] if precision == "hilo"
+            stats = (cs._hilo_stats(learner, gen)[0] if floats
                      else cs._int8_stats(learner, gen))
             leaf, slots = cs._slots_of(learner, gen, operands)
             args = (learner.bins_t, stats, leaf, slots, learner.num_bins)
-            got = H.hist_batched_kernel(*args)
+            got = wrapper(*args)
             ref = H.hist_batched_plain(*args)
-            if precision == "hilo":
+            if floats:
                 got, ref = (H._unpack_hist(x.permute(3, 2, 0, 1), "hilo")
                             for x in (got, ref))
                 equal = torch.equal(got[..., 2], ref[..., 2])
             else:
                 equal = torch.equal(got, ref)
-            yield {"name": "hist_batched" if precision == "hilo"
-                   else "hist_batched_int", "operands": operands,
-                   "equal": equal,
+            yield {"name": name, "operands": operands, "equal": equal,
                    "max_abs_err": float((got - ref).abs().max().item()),
-                   "ms": cs.device_ms(lambda: H.hist_batched_kernel(*args),
-                                      20, kernels_of),
-                   "event_ms": cs.cuda_ms(
-                       lambda: H.hist_batched_kernel(*args), 20)}
+                   "ms": cs.device_ms(lambda: wrapper(*args), 20,
+                                      kernels_of),
+                   "event_ms": cs.cuda_ms(lambda: wrapper(*args), 20)}
+    row = cs.check_partition(learners["hilo"], gen)  # fails unless bitwise
+    yield {"name": "partition_rows", "operands": "random", "equal": True,
+           "ms": row["ms"], "event_ms": row["event_ms"]}
     args, kw = cs._fused_operands(learners["int8"], gen)
     got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
     ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
@@ -159,7 +153,7 @@ def main():
     X, y = cs.make_data(cs.N_TRAIN, cs.N_FEAT)
     ds = lgb.Dataset(X, label=y, params=dict(cs.PARAMS)).construct()
     learners = {}
-    for name, params, _, _ in cs.PATHS[:2]:
+    for name, params, _, _ in cs.PATHS[:3]:
         booster = lgb.train(dict(params), ds, num_boost_round=cs.ITERS)
         booster.num_trees()
         emit("path", path=name, **cs.profile(booster,

@@ -1,6 +1,6 @@
-// The grouped K-slot histogram: the body of kernels B1 (histogram.cu) and
-// B2 (fused.cu).  One cooperative launch (all blocks resident), in three
-// phases separated by grid-wide barriers:
+// The grouped K-slot histogram: the body of kernels B1 and B4
+// (histogram.cu) and B2 (fused.cu).  One cooperative launch (all blocks
+// resident), in three phases separated by grid-wide barriers:
 //
 //   A  count: each warp reads the leaf ids of its part of its block's
 //      tile of rows once, finds each row's slot (the first slot holding
@@ -27,7 +27,7 @@
 //      (a slot's words contiguous, rows padded to 4 words) with global
 //      atomics, a warp's 32 lanes on consecutive words.
 //
-// Packed 4-bit bins (the Packed instance, B1 only, B <= 16): the
+// Packed 4-bit bins (the Packed instance, B1 and B4, B <= 16): the
 // row-major copy holds two features a byte, feature 2j of a chunk in the
 // low nibble of byte j and 2j + 1 in the high one, so a row of a chunk
 // is one 16-byte sector (one load) and the tile 5 words an entry; lane f
@@ -598,6 +598,9 @@ struct NoTail {
   struct Args {};
   __device__ static void run(const HistArgs&, const Args&) {}
 };
+
+// kernel B4's instances: NoTail under a name of their own
+struct Flat : NoTail {};
 
 // Launch one call: plan[] from the wrapper (ops/histogram.py:hist_plan).
 template <typename Acc, class Tail, bool Packed = false>

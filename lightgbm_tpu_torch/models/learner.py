@@ -10,18 +10,17 @@ Histogram implementations: "pallas2" (the perfeature Pallas kernel in
 the JAX package) means kernel B1 on a CUDA tensor and its plain twin on
 the CPU.  "xla" computes the same function, so it rides the same path
 with the XLA scan's row block.  "pallas" (the flat variant) means kernel
-B4, with B1's twin.  "fused" (the grow megakernel) means kernel B2 in
-every grower round for the int8/int16 precisions, and rides "pallas2"
-for the float ones.  "auto" picks "fused" for int8/int16 and "pallas2"
-otherwise.  On the card the learner first runs B2 against its twin on
-tiny operands, and raises on any difference.
+B4 on its 256-row blocks, with B1's twin.  "fused" (the grow megakernel)
+means kernel B2 in every grower round for the int8/int16 precisions, and
+rides "pallas2" for the float ones.  "auto" picks "fused" for int8/int16
+and "pallas2" otherwise.  On the card the learner first runs B2 against
+its twin on tiny operands, and raises on any difference.
 
 Bins are stored 4-bit packed exactly where the JAX learner packs them
 (learner.py:615-641): tpu_pack_bins=true, every feature at 16 bins or
 fewer, impl "pallas"/"pallas2", a select-family partition, and row
-blocks of a multiple of 256 rows that tile the padded rows.  B1 reads
-them packed; B4's packed read is not ported, so "pallas" with packing
-is refused by name.
+blocks of a multiple of 256 rows that tile the padded rows.  B1 and B4
+read them packed.
 """
 
 from __future__ import annotations
@@ -148,11 +147,6 @@ class TreeLearner:
                                             self.n_pad)
         # rows of a packed block (0: bins unpacked), as the kernels take it
         self.packed_block = eff_block if self.packed_bins else 0
-        if self.packed_bins and impl == "pallas":
-            raise NotImplementedError(
-                "tpu_hist_impl=pallas with tpu_pack_bins=true (4-bit packed "
-                "bins in kernel B4) is not ported to lightgbm_tpu_torch yet;"
-                " set tpu_pack_bins=false")
 
         dev = self.device
         bins_t = torch.zeros((self.f_pad, self.n_pad), dtype=torch.uint8,
@@ -164,7 +158,7 @@ class TreeLearner:
             bins_t = pack_bins(bins_t, eff_block)
         self.bins_t = bins_t
         if dev.type == "cuda":
-            # kernels B1 and B2 gather each live row's bins from a
+            # kernels B1, B2 and B4 gather each live row's bins from a
             # row-major copy ([n_pad, 32] uint8 at up to 32 features, or
             # [n_pad, 16] packed); row_major_bins makes it here, at
             # set-up, and keeps it on bins_t for every later call

@@ -258,33 +258,58 @@ def partition_rows_plain(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
     return torch.where(moved_to >= 0, moved_to, leaf_ids)
 
 
-def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
-                          dleft, mt, nbf, db, do_k) -> torch.Tensor:
-    """Kernel B3 on the card."""
+# the largest K kernel B3 takes: its leaf id -> slot table holds bytes
+# (csrc/partition.cu kMaxK)
+_PARTITION_MAX_K = 254
+
+
+def check_partition_args(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
+                         dleft, mt, nbf, db, do_k) -> None:
+    """The checks of kernel B3's wrapper, on any device: the slot
+    parameters go to the kernel as they are, one pointer each (int32, and
+    the two flags as bool or uint8 bytes), so nothing is converted or
+    packed on the host per round."""
     F, n = bins_t.shape
     K = sel.shape[0]
-    if bins_t.device.type != "cuda":
-        raise ValueError(f"kernel B3 takes CUDA tensors, got {bins_t.device}")
     if bins_t.dtype != torch.uint8 or not bins_t.is_contiguous():
         raise ValueError("bins_t must be a contiguous uint8 [F, n] tensor")
     if leaf_ids.dtype != torch.int32 or leaf_ids.shape != (n,) \
             or not leaf_ids.is_contiguous():
         raise ValueError("leaf_ids must be a contiguous int32 [n] tensor")
+    if not 1 <= K <= _PARTITION_MAX_K:
+        raise ValueError(f"{K} slots; kernel B3 takes 1 to "
+                         f"{_PARTITION_MAX_K}")
     for name, t in (("sel_feat", sel_feat), ("sel", sel),
                     ("new_ids", new_ids), ("thr", thr), ("dleft", dleft),
                     ("mt", mt), ("nbf", nbf), ("db", db), ("do_k", do_k)):
-        if t.shape != (K,) or t.device != bins_t.device:
-            raise ValueError(f"{name} must be a [{K}] tensor on "
-                             f"{bins_t.device}")
-    ints = torch.stack([sel, new_ids, thr, dleft, mt, nbf, db, do_k],
-                       dim=1).to(torch.int32).contiguous()       # [K, 8]
-    feat = sel_feat.to(torch.int32).contiguous()
-    out = torch.empty_like(leaf_ids)
-    lib = kernels.library()
+        flag = name in ("dleft", "do_k")
+        ok = (torch.bool, torch.uint8) if flag else (torch.int32,)
+        if t.shape != (K,) or t.device != bins_t.device \
+                or t.dtype not in ok or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous [{K}] "
+                f"{'bool' if flag else 'int32'} tensor on {bins_t.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
+                          dleft, mt, nbf, db, do_k) -> torch.Tensor:
+    """Kernel B3 on the card.  leaf_ids at a 16-byte aligned address
+    takes the kernel's 16-byte loads; a slice at another address the
+    scalar ones."""
+    if bins_t.device.type != "cuda":
+        raise ValueError(f"kernel B3 takes CUDA tensors, got {bins_t.device}")
+    check_partition_args(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
+                         dleft, mt, nbf, db, do_k)
+    n = bins_t.shape[1]
+    out = torch.empty_like(leaf_ids)         # its own, aligned allocation
+    vec = leaf_ids.data_ptr() % 16 == 0
     with torch.cuda.device(bins_t.device):
-        code = lib.lgbt_partition_rows(
-            bins_t.data_ptr(), n, feat.data_ptr(), ints.data_ptr(),
-            leaf_ids.data_ptr(), out.data_ptr(), K,
+        code = kernels.library().lgbt_partition_rows(
+            bins_t.data_ptr(), n, sel_feat.data_ptr(), sel.data_ptr(),
+            new_ids.data_ptr(), thr.data_ptr(), dleft.data_ptr(),
+            mt.data_ptr(), nbf.data_ptr(), db.data_ptr(), do_k.data_ptr(),
+            leaf_ids.data_ptr(), out.data_ptr(), sel.shape[0], int(vec),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "partition_rows launch")
     kernels.launches["partition_rows"] += 1

@@ -19,11 +19,12 @@ partial; it gives the JAX package's uint32 results bit for bit.
 `build_histogram_batched_t` is the K-slot batched histogram.  On a CUDA
 tensor it launches kernel B1 (`csrc/histogram.cu` on
 `csrc/grouped_hist.cuh`, the port of the perfeature Pallas kernel
-`_hist_pallas`), or kernel B4 (the port of its "flat" variant) for
-`impl="pallas"`; on a CPU tensor both run `hist_batched_plain`, the
-plain PyTorch version of the same function (the scatter form of the XLA
-branch of the JAX function).  There is no fallback from one to the
-other.  B1 (and B2, ops/fused.py) group the rows by slot and gather
+`_hist_pallas`), or kernel B4 (the port of its "flat" variant, B1's
+function on B1's operands, launched as its own instance of the same
+body) for `impl="pallas"`; on a CPU tensor both run `hist_batched_plain`,
+the plain PyTorch version of the same function (the scatter form of the
+XLA branch of the JAX function).  There is no fallback from one to the
+other.  B1, B4 (and B2, ops/fused.py) group the rows by slot and gather
 each live row's bins from a row-major copy of the bin matrix
 (`row_major_bins`, kept on the matrix: 32 MB at 1M rows x 32 features);
 `group_rows_plain` is the plain version of that grouping, and
@@ -32,10 +33,10 @@ each live row's bins from a row-major copy of the bin matrix
 4-bit packed bins (`tpu_pack_bins`, every feature at 16 bins or fewer):
 the learner stores `[F, n/2]` uint8, two rows a byte in the JAX
 package's per-block stride layout (`pack_bins`, `unpack2d`: row j of a
-block in the low nibble, row j + block/2 in the high one).  B1 then
-reads a packed row-major copy, two features a byte (16 bytes a row of a
-32-feature chunk, 16 MB at 1M rows), and unpacks in registers; the twin
-unpacks and runs the unpacked twin.
+block in the low nibble, row j + block/2 in the high one).  B1 and B4
+then read a packed row-major copy, two features a byte (16 bytes a row
+of a 32-feature chunk, 16 MB at 1M rows), and unpack in registers; the
+twin unpacks and runs the unpacked twin.
 """
 
 from __future__ import annotations
@@ -464,7 +465,8 @@ def _raw_view(raw, F, B, S):
 
 
 def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
-                 group_only: bool, packed_block: int = 0):
+                 group_only: bool, packed_block: int = 0,
+                 flat: bool = False):
     F = bins_t.shape[0]
     S, n = stats.shape
     K = slot_leaf_ids.shape[0]
@@ -478,7 +480,7 @@ def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
             stats.data_ptr(),
             _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
             slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(), F,
-            n, S, K, int(num_bins), cplan, int(group_only),
+            n, S, K, int(num_bins), cplan, int(group_only), int(flat),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "hist_batched launch")
     return _raw_view(raw, F, int(num_bins), S).permute(1, 2, 0, 3), plan, \
@@ -522,25 +524,19 @@ def hist_group_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
 
 def hist_flat_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                      leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
-                     num_bins: int) -> torch.Tensor:
+                     num_bins: int, packed_block: int = 0) -> torch.Tensor:
     """Kernel B4 on the card (the flat variant): raw [F, B, K, S] sums,
-    f32 or int32; B1's contract."""
+    f32 or int32; B1's contract, on the flat path's operands (256-row
+    blocks; packed_block > 0: 4-bit bins packed in blocks of that many
+    rows).  The grouped body of B1 under B4's own instance, one
+    cooperative launch; its four variants are counted apart."""
     _check_hist_args("B4", bins_t, stats, leaf_ids, slot_leaf_ids,
-                     num_bins)
-    F, n = bins_t.shape
-    S = stats.shape[0]
-    K = slot_leaf_ids.shape[0]
-    raw = torch.zeros((F, num_bins, K, S), dtype=_acc_dtype(stats),
-                      device=bins_t.device)
-    lib = kernels.library()
-    with torch.cuda.device(bins_t.device):
-        code = lib.lgbt_hist_flat(
-            bins_t.data_ptr(), stats.data_ptr(), _STAT_KINDS[stats.dtype],
-            leaf_ids.data_ptr(), slot_leaf_ids.data_ptr(), raw.data_ptr(),
-            F, n, S, K, int(num_bins),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "hist_flat launch")
-    kernels.launches["hist_flat"] += 1
+                     num_bins, packed_block)
+    raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
+                             num_bins, False, packed_block, flat=True)
+    name = "hist_flat_packed" if packed_block else "hist_flat"
+    kernels.launches[name if raw.dtype == torch.float32
+                     else name + "_int"] += 1
     return raw
 
 
@@ -560,17 +556,14 @@ def build_histogram_batched_t(bins_t: torch.Tensor, stats: torch.Tensor,
     impl:          "pallas" takes kernel B4 on the card; every other
                    histogram implementation takes kernel B1
     packed_block:  > 0: bins_t is packed 4-bit [F, n/2] in blocks of this
-                   many rows (B1's packed variant; B4 takes no packed
-                   bins, and the learner never packs for it)
+                   many rows (the packed variant of B1 or B4)
 
     A CPU tensor goes through `hist_batched_plain`."""
     if bins_t.device.type == "cuda":
-        if impl == "pallas":
-            raw = hist_flat_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,
-                                   num_bins)
-        else:
-            raw = hist_batched_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,
-                                      num_bins, packed_block)
+        kernel = hist_flat_kernel if impl == "pallas" \
+            else hist_batched_kernel
+        raw = kernel(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins,
+                     packed_block)
     elif bins_t.device.type == "cpu":
         raw = hist_batched_plain(bins_t, stats, leaf_ids, slot_leaf_ids,
                                  num_bins, packed_block)

@@ -38,12 +38,15 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
 # B1 float, B1 integer variant, B1 on packed 4-bit bins (float and
-# integer), B2, B3, B4, and the leaf refit's sums
+# integer), B2, B3, B4 in the same four variants, and the leaf refit's
+# sums
 launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
                             "hist_batched_packed": 0,
                             "hist_batched_packed_int": 0,
                             "fused_hist_scan": 0, "partition_rows": 0,
-                            "hist_flat": 0, "leaf_sums": 0}
+                            "hist_flat": 0, "hist_flat_int": 0,
+                            "hist_flat_packed": 0,
+                            "hist_flat_packed_int": 0, "leaf_sums": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -132,17 +135,15 @@ def library() -> ctypes.CDLL:
     lib.lgbt_device_limits.argtypes = [ip]
     lib.lgbt_device_limits.restype = i32
     lib.lgbt_hist_batched.argtypes = [vp, i32, i32, vp, i32, vp, vp, vp, vp,
-                                      i32, i64, i32, i32, i32, ip, i32, vp]
+                                      i32, i64, i32, i32, i32, ip, i32, i32,
+                                      vp]
     lib.lgbt_hist_batched.restype = i32
-    lib.lgbt_hist_flat.argtypes = [vp, vp, i32, vp, vp, vp, i32, i64, i32,
-                                   i32, i32, vp]
-    lib.lgbt_hist_flat.restype = i32
     lib.lgbt_fused_hist_scan.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp,
                                          vp, vp, vp, vp, vp, i32, i64, i32,
                                          i32, ip, f32, f32, f32, f32, f32,
                                          f32, vp]
     lib.lgbt_fused_hist_scan.restype = i32
-    lib.lgbt_partition_rows.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp]
+    lib.lgbt_partition_rows.argtypes = [vp, i64, *[vp] * 11, i32, i32, vp]
     lib.lgbt_partition_rows.restype = i32
     lib.lgbt_leaf_sums.argtypes = [vp, vp, vp, i32, i32, i64, vp]
     lib.lgbt_leaf_sums.restype = i32

@@ -76,13 +76,8 @@ OUT_OF_SLICE = [
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
     {"tpu_stream_mode": "streamed"},
     {"deterministic": True},
-    # packed 4-bit bins stay refused for the flat kernel B4, at every
-    # precision (its packed read is not ported)
-    {"tpu_hist_precision": "int16", "tpu_hist_impl": "pallas",
-     "tpu_pack_bins": True},
     {"tpu_hist_precision": "f64"},
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
-    {"tpu_hist_impl": "pallas", "tpu_pack_bins": True},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},
     {"objective": "multiclass", "num_class": 3},
@@ -105,11 +100,17 @@ def test_out_of_slice_parameters_raise(extra):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
 
 
-# once refused; now packed as the JAX learner packs, B1's packed variant
+# once refused; now packed as the JAX learner packs, into the packed
+# variant of B1 or (tpu_hist_impl=pallas) of B4
 PACKED_NOW_PORTED = [
     {"tpu_hist_precision": "int8", "tpu_hist_impl": "pallas2",
      "tpu_pack_bins": True},
     {"tpu_pack_bins": True},
+    pytest.param({"tpu_hist_precision": "int16", "tpu_hist_impl": "pallas",
+                  "tpu_pack_bins": True},
+                 id="int16,pallas,tpu_pack_bins"),
+    pytest.param({"tpu_hist_impl": "pallas", "tpu_pack_bins": True},
+                 id="pallas,tpu_pack_bins"),
 ]
 
 
@@ -120,13 +121,21 @@ def test_packed_cases_train_like_jax(extra):
     params = dict(SMALL, **extra)
     # the JAX package's own "auto" is "xla" off its accelerator, where it
     # never packs; the port's "auto" is the accelerator's "pallas2"
-    bj = jlgb.train(dict(params, verbosity=-1, tpu_hist_impl="pallas2"),
+    impl = extra.get("tpu_hist_impl", "pallas2")
+    bj = jlgb.train(dict(params, verbosity=-1, tpu_hist_impl=impl),
                     jlgb.Dataset(X, label=y), 1, keep_training_booster=True)
     bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
     lj, lt = bj._driver.learner, bt._driver.learner
     assert lj.packed_bins and lt.packed_bins
-    assert lt.params.hist_impl == "pallas2"
-    np.testing.assert_array_equal(lt.bins_t.numpy(), np.asarray(lj.bins_t))
+    assert lt.params.hist_impl == impl
+    # the same bytes; the port pads the features to 32 on every impl, the
+    # JAX learner on "pallas" to 8 (padding features hold bin 0)
+    fj = lj.bins_t.shape[0]
+    assert lt.f_pad == 32 and lj.f_pad == fj == (32 if impl == "pallas2"
+                                                 else 8)
+    np.testing.assert_array_equal(lt.bins_t[:fj].numpy(),
+                                  np.asarray(lj.bins_t))
+    assert not lt.bins_t[fj:].any()
     assert bt.num_trees() == 1
 
 

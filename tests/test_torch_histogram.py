@@ -1,8 +1,9 @@
 """lightgbm_tpu_torch histogram (kernel B1's module) against lightgbm_tpu.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
-The JAX reference runs its perfeature Pallas kernel (impl="pallas2") in
-interpret mode on the CPU, as the JAX package's own tests run it.
+The JAX reference runs its perfeature Pallas kernel (impl="pallas2") and
+its flat one (impl="pallas", kernel B4's function) in interpret mode on
+the CPU, as the JAX package's own tests run them.
 """
 
 import jax.numpy as jnp
@@ -111,3 +112,59 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         TH.hist_batched_kernel(bins, stats, leaf,
                                torch.zeros(1, dtype=torch.int32), 4)
+
+
+def test_flat_kernel_wrapper_refuses_cpu_tensors():
+    # kernel B4's wrapper never falls back either, packed or not
+    bins = torch.zeros((2, 512), dtype=torch.uint8)
+    stats = torch.zeros((3, 512), dtype=torch.int8)
+    leaf = torch.zeros(512, dtype=torch.int32)
+    slots = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="kernel B4 takes CUDA"):
+        TH.hist_flat_kernel(bins, stats, leaf, slots, 4)
+    with pytest.raises(ValueError, match="kernel B4 takes CUDA"):
+        TH.hist_flat_kernel(bins[:, :256], stats, leaf, slots, 4,
+                            packed_block=256)
+
+
+@pytest.mark.parametrize("precision", ["hilo", "int8", "int16"])
+def test_flat_twin_matches_pallas_flat(precision):
+    # the flat kernel's 256-row blocks; slot 4 repeats slot 1's leaf id
+    # and gets the same sums (B1's contract, which B4 keeps)
+    nb, block, B = 3, 256, 21
+    bins, g, h, mask, leaf, slots = _hist_case(
+        seed=6, nb=nb, F=4, block=block, B=B, leaves=6,
+        slots=[2, 0, -1, 5, 0])
+    F, n = bins.shape
+    if precision == "hilo":
+        stats_j = JH.pack_stats(jnp.asarray(g), jnp.asarray(h),
+                                jnp.asarray(mask), precision)
+        stats_t = TH.pack_stats(torch.from_numpy(g), torch.from_numpy(h),
+                                torch.from_numpy(mask), precision)
+    else:
+        q = TH.quant_limit(precision, n)
+        rng = np.random.default_rng(7)
+        st = np.stack([rng.integers(-q, q + 1, size=n) * mask,
+                       rng.integers(0, q + 1, size=n) * mask,
+                       mask]).astype(np.dtype(precision))
+        stats_j, stats_t = jnp.asarray(st), torch.from_numpy(st)
+    ref = np.asarray(JH.build_histogram_batched_t(
+        jnp.asarray(bins.reshape(F, nb, block).transpose(1, 0, 2)),
+        stats_j.reshape(stats_j.shape[0], nb, block),
+        jnp.asarray(leaf.reshape(nb, block)), jnp.asarray(slots), B,
+        precision, impl="pallas"))
+    got = TH.build_histogram_batched_t(
+        torch.from_numpy(bins), stats_t, torch.from_numpy(leaf),
+        torch.from_numpy(slots), B, precision, impl="pallas").numpy()
+    assert got.shape == ref.shape == (len(slots), F, B, 3)
+    np.testing.assert_array_equal(got[4], got[1])
+    if precision != "hilo":
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, ref)
+        return
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    for k, s in enumerate(slots):
+        rows = leaf == s
+        for j, v in ((0, g), (1, h)):
+            tol = 1e-6 * max(float(np.abs(v[rows]).sum()), 1e-30)
+            assert np.abs(got[k, :, :, j] - ref[k, :, :, j]).max() <= tol

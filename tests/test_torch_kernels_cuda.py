@@ -163,10 +163,14 @@ def _int_hist_inputs(dev, seed, F, n, B, leaves, slots, precision):
 @pytest.mark.parametrize("F,n,B,leaves,slots", [
     (32, 1 << 17, 255, 60, list(range(0, 48, 2)) + [-1]),
     (7, 5000, 13, 5, [3, -1, 0]),
+    # the root call on the flat path's row count: every row in slot 0
+    (32, 1_000_192, 255, 1, [0] + [-1] * 24),
 ])
 def test_flat_kernel_matches_twin(precision, F, n, B, leaves, slots):
     dev = cuda_device()
-    before = kernels.launches["hist_flat"]
+    # B4 is the grouped body under its own instance, counted per variant
+    name = "hist_flat_int" if precision.startswith("int") else "hist_flat"
+    before = kernels.launches[name]
     if precision.startswith("int"):
         args = _int_hist_inputs(dev, 5, F, n, B, leaves, slots, precision)
         got = TH.hist_flat_kernel(*args, B)
@@ -182,7 +186,7 @@ def test_flat_kernel_matches_twin(precision, F, n, B, leaves, slots):
         # f32 atomics in arrival order: B1's HIST_RTOL
         assert np.abs(got[..., 0] - ref[..., 0]).max() <= 1e-6 * sg
         assert np.abs(got[..., 1] - ref[..., 1]).max() <= 1e-6 * sh
-    assert kernels.launches["hist_flat"] == before + 1
+    assert kernels.launches[name] == before + 1
 
 
 @pytest.mark.parametrize("precision", ["int8", "int16"])
@@ -379,6 +383,41 @@ def test_hist_kernel_packed_matches_twin(precision, case):
     assert not got[np.asarray(slots) < 0].any()
 
 
+@pytest.mark.parametrize("precision", ["hilo", "int8", "int16"])
+@pytest.mark.parametrize("case", PACKED_CASES, ids=lambda c: c[0])
+def test_flat_kernel_packed_matches_twin(precision, case):
+    # kernel B4's packed variant, on the flat path's 256-row pack blocks
+    _, F, n, B, leaves, slots, _ = case
+    n = -(-n // 256) * 256
+    dev = cuda_device()
+    if precision == "hilo":
+        args, _, _ = _hist_inputs(dev, 11, F, n, 16, leaves, slots,
+                                  precision)
+    else:
+        args = _int_hist_inputs(dev, 11, F, n, 16, leaves, slots, precision)
+    args = (TH.pack_bins(args[0], 256),) + args[1:]
+    name = "hist_flat_packed" + ("" if precision == "hilo" else "_int")
+    before = dict(kernels.launches)
+    got = TH.hist_flat_kernel(*args, B, packed_block=256)
+    # only this variant's counter moved
+    assert {k: v - before[k] for k, v in kernels.launches.items()
+            if v != before[k]} == {name: 1}
+    ref = TH.hist_batched_plain(*args, B, packed_block=256)
+    if precision != "hilo":
+        assert torch.equal(got, ref)
+        return
+    got = TH._unpack_hist(got.permute(3, 2, 0, 1), precision).cpu().numpy()
+    ref = TH._unpack_hist(ref.permute(3, 2, 0, 1), precision).cpu().numpy()
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    leaf = args[2].cpu().numpy()
+    stats = args[1].float().cpu().numpy()
+    for c, (hi, lo) in enumerate(((0, 1), (2, 3))):
+        scale = _slot_abs_sums(leaf, slots, stats[hi] + stats[lo])
+        err = np.abs(got[..., c] - ref[..., c]).max(axis=(1, 2))
+        assert (err <= 1e-6 * scale).all(), (c, err, scale)
+    assert not got[np.asarray(slots) < 0].any()
+
+
 @pytest.mark.parametrize("skew", [False, True])
 def test_leaf_sums_kernel_bitwise_to_cpu_index_add(skew):
     from lightgbm_tpu_torch.ops import leafsum as TL
@@ -451,3 +490,122 @@ def test_refit_training_on_card_is_deterministic():
              for _ in range(2)]
     assert kernels.launches["leaf_sums"] == 6
     assert texts[0] == texts[1]
+
+
+def test_packed_flat_int8_training_on_card_matches_cpu_text():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _packed_reg_data()
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 15,
+         "tpu_hist_precision": "int8", "tpu_hist_impl": "pallas",
+         "tpu_quant_refit_leaves": False, "verbosity": -1}
+    kernels.reset_launches()
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    assert gpu._driver.learner.packed_bins
+    assert gpu._driver.learner.packed_block == 256
+    assert kernels.launches["hist_flat_packed_int"] > 0
+    assert kernels.launches["hist_batched_packed_int"] == 0
+    cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(X, label=y),
+                    num_boost_round=3)
+    unpacked = lgb.train(dict(p, tpu_pack_bins=False),
+                         lgb.Dataset(X, label=y), num_boost_round=3)
+    text = gpu.model_to_string()
+    assert _norm(text, "device_type") == \
+        _norm(cpu.model_to_string(), "device_type")
+    assert _norm(unpacked.model_to_string(), "tpu_pack_bins") == \
+        _norm(text, "tpu_pack_bins")
+
+
+# ---- kernel B3's edge cases, bitwise to its twin --------------------------
+
+def _partition_case(seed, n, K=25, leaves=60, offset=0):
+    """Kernel B3's operands: leaf ids offset..offset+leaves, K slots of
+    distinct leaves over every missing type and both default directions,
+    the last three not split."""
+    rng = np.random.default_rng(seed)
+    F = 30
+    num_bin = rng.integers(4, 256, size=F).astype(np.int32)
+    bins = np.stack([rng.integers(0, nb, size=n) for nb in num_bin]
+                    ).astype(np.uint8)
+    feat = rng.integers(0, F, size=K).astype(np.int32)
+    c = dict(bins=bins, feat=feat,
+             leaf=(rng.integers(0, leaves, size=n) + offset).astype(np.int32),
+             sel=(rng.permutation(leaves)[:K] + offset).astype(np.int32),
+             new_ids=(offset + leaves + np.arange(K)).astype(np.int32),
+             thr=np.array([rng.integers(0, num_bin[f] - 1) for f in feat],
+                          np.int32),
+             dleft=np.arange(K) % 2 == 0,
+             mt=(np.arange(K) // 2 % 3).astype(np.int32),
+             nbf=num_bin[feat],
+             db=np.array([rng.integers(0, num_bin[f]) for f in feat],
+                         np.int32),
+             do_k=np.arange(K) < K - 3)
+    return c
+
+
+_PART_KEYS = ("bins", "feat", "leaf", "sel", "new_ids", "thr", "dleft", "mt",
+              "nbf", "db", "do_k")
+
+
+def _partition_args(c, dev):
+    return [torch.from_numpy(np.ascontiguousarray(c[k])).to(dev)
+            for k in _PART_KEYS]
+
+
+# (name, rows, leaf id offset, slot edits, K)
+PARTITION_CASES = [
+    ("path", 1_007_616, 0, None, 25),
+    # two slots holding one leaf id, each with its own split
+    ("dup", 100_000, 0, "dup", 25),
+    # a repeated leaf id whose second slot is not split
+    ("dup_dead", 100_000, 0, "dup_dead", 25),
+    # leaf ids past the 4096-entry table, one held twice
+    ("high_ids", 100_000, 4090, "dup", 25),
+    ("do_false", 100_000, 0, "do_false", 25),
+    # more slots than a warp's lanes: the table and chains built by loops
+    ("k50_dup", 100_000, 0, "dup", 50),
+    ("k50_high_ids", 100_000, 4090, "dup_dead", 50),
+    # 32 slots: every lane of the warp a slot, the last one duplicated
+    ("k32_dup", 100_000, 0, "dup_last", 32),
+    # tails: the last 1-3 rows after whole 16-byte groups, and arrays
+    # shorter than one group
+    ("tail1", 100_001, 0, None, 25),
+    ("tail2", 100_002, 0, None, 25),
+    ("tail3", 100_003, 0, None, 25),
+    ("n3", 3, 0, None, 25),
+    ("n5", 5, 0, None, 25),
+]
+
+
+@pytest.mark.parametrize("case", PARTITION_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+def test_partition_kernel_edge_cases(case, aligned):
+    name, n, offset, edit, K = case
+    dev = cuda_device()
+    c = _partition_case(13, n, K=K, leaves=2 * K + 10, offset=offset)
+    if edit in ("dup", "dup_dead"):
+        c["sel"][5] = c["sel"][1]
+        if edit == "dup_dead":
+            c["do_k"][5] = False
+    elif edit == "dup_last":
+        c["sel"][K - 1] = c["sel"][2]
+        c["do_k"][:] = True
+    elif edit == "do_false":
+        c["do_k"] = np.arange(len(c["sel"])) % 2 == 0
+    args = _partition_args(c, dev)
+    if not aligned:
+        # leaf ids one int32 into an allocation: not 16-byte aligned, the
+        # kernel's scalar loads
+        padded = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        padded[1:] = args[2]
+        args[2] = padded[1:]
+    assert (args[2].data_ptr() % 16 == 0) == aligned
+    before = kernels.launches["partition_rows"]
+    got = TF.partition_rows_kernel(*args)
+    assert kernels.launches["partition_rows"] == before + 1
+    ref = TF.partition_rows_plain(*args)
+    assert torch.equal(got, ref)
+    if n > 1000:
+        assert (ref != args[2]).any()

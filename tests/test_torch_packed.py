@@ -3,10 +3,11 @@ against lightgbm_tpu on the CPU.
 
 The JAX learner stores every feature of 16 bins or fewer two rows a byte
 when the histogram is "pallas"/"pallas2" and the partition select-family;
-its perfeature Pallas kernel (`_hist_pallas(..., packed_rows=True)`) runs
-here in interpret mode.  The port stores the same bytes, unpacks them the
-same way in its partitions, and reads them packed in kernel B1 (its
-plain twin unpacks, then runs the unpacked twin).  Small shapes: 2,000
+its perfeature and flat Pallas kernels (`_hist_pallas(...,
+packed_rows=True)`) run here in interpret mode.  The port stores the same
+bytes, unpacks them the same way in its partitions, and reads them
+packed in kernels B1 and B4 (their plain twin unpacks, then runs the
+unpacked twin).  Small shapes: 2,000
 rows x 6 features, 15 leaves, max_bin=15, 5 iterations; int8 text is
 compared with the JAX package compiled without FMA
 (tests/test_torch_util.py).
@@ -109,7 +110,7 @@ def test_packed_plan_counts_smaller_tiles():
 # ---- kernel B1's packed variant: the twin against the Pallas kernel -------
 
 def _packed_case(seed, precision, F=5, nb=2, block=512, B=13, leaves=6,
-                 slots=(2, 0, -1, 5)):
+                 slots=(2, 0, -1, 5), impl="pallas2"):
     rng = np.random.default_rng(seed)
     n = nb * block
     bins = rng.integers(0, 16, size=(F, n)).astype(np.uint8)  # some >= B
@@ -138,10 +139,10 @@ def _packed_case(seed, precision, F=5, nb=2, block=512, B=13, leaves=6,
                     .transpose(1, 0, 2)),
         stats_j.reshape(stats_j.shape[0], nb, block),
         jnp.asarray(leaf.reshape(nb, block)), jnp.asarray(slots), B,
-        precision, impl="pallas2", packed_rows=True))
+        precision, impl=impl, packed_rows=True))
     got = TH.build_histogram_batched_t(
         packed, stats_t, torch.from_numpy(leaf), torch.from_numpy(slots), B,
-        precision, packed_block=block).numpy()
+        precision, impl=impl, packed_block=block).numpy()
     return got, ref, g, h, leaf, slots
 
 
@@ -152,8 +153,7 @@ def test_packed_twin_bitwise_to_pallas(precision):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_packed_twin_hilo_to_pallas():
-    got, ref, g, h, leaf, slots = _packed_case(12, "hilo")
+def _assert_hilo_close(got, ref, g, h, leaf, slots):
     np.testing.assert_array_equal(got[..., 2], ref[..., 2])
     # as tests/test_torch_histogram.py: within 1e-6 of the slot's sum of
     # |stat|
@@ -162,6 +162,28 @@ def test_packed_twin_hilo_to_pallas():
         for j, v in ((0, g), (1, h)):
             tol = 1e-6 * max(float(np.abs(v[rows]).sum()), 1e-30)
             assert np.abs(got[k, :, :, j] - ref[k, :, :, j]).max() <= tol
+
+
+def test_packed_twin_hilo_to_pallas():
+    _assert_hilo_close(*_packed_case(12, "hilo"))
+
+
+# kernel B4's packed read: the flat Pallas kernel on its 256-row blocks,
+# and slots that hold one leaf id twice
+FLAT = dict(impl="pallas", block=256, nb=4, slots=(2, 0, -1, 5, 0))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+def test_packed_flat_twin_bitwise_to_pallas(precision):
+    got, ref, *_ = _packed_case(13, precision, **FLAT)
+    assert got.dtype == np.int32 and got.shape == ref.shape == (5, 5, 13, 3)
+    np.testing.assert_array_equal(got, ref)
+    # the duplicated slot holds the same sums as the first
+    np.testing.assert_array_equal(got[4], got[1])
+
+
+def test_packed_flat_twin_hilo_to_pallas():
+    _assert_hilo_close(*_packed_case(14, "hilo", **FLAT))
 
 
 # ---- the whole slice at max_bin=15 ------------------------------------------
@@ -243,6 +265,42 @@ def test_packed_int8_model_text_byte_identical(int8_pair, c):
     assert bt._driver.learner.params.hist_impl == "pallas2"
     text = bt.model_to_string()
     assert "\ntpu_feature_profile:" in text
+    assert _text(text) == _text(str(out[f"{c}_text"]))
+    # and the unpacked run writes it too
+    b = tlgb.train(dict(params, tpu_pack_bins=False),
+                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+    assert not b._driver.learner.packed_bins
+    assert _text(b.model_to_string(), "tpu_pack_bins") == \
+        _text(text, "tpu_pack_bins")
+
+
+# ---- kernel B4's packed read in the whole slice ----------------------------
+
+@pytest.fixture(scope="module")
+def flat_int_pair(tmp_path_factory):
+    X, y = _reg_data()
+    runs = [dict(INT8, tpu_hist_precision=p, tpu_hist_impl="pallas",
+                 label="reg") for p in ("int8", "int16")]
+    out = run_jax_nofma("train", {"X": X, "y_reg": y},
+                        {"runs": runs, "rounds": ROUNDS},
+                        tmp_path_factory.mktemp("packed_flat"))
+    return X, y, out
+
+
+@pytest.mark.parametrize("c,precision", enumerate(["int8", "int16"]),
+                         ids=["int8", "int16"])
+def test_packed_flat_int_model_text_byte_identical(flat_int_pair, c,
+                                                   precision):
+    X, y, out = flat_int_pair
+    params = dict(INT8, tpu_hist_precision=precision, tpu_hist_impl="pallas",
+                  device_type="cpu")
+    bt = tlgb.train(params, tlgb.Dataset(X, label=y),
+                    num_boost_round=ROUNDS)
+    learner = bt._driver.learner
+    assert learner.packed_bins and learner.params.hist_impl == "pallas"
+    # the flat kernel's 256-row blocks are the pack layout's
+    assert learner.packed_block == 256
+    text = bt.model_to_string()
     assert _text(text) == _text(str(out[f"{c}_text"]))
     # and the unpacked run writes it too
     b = tlgb.train(dict(params, tpu_pack_bins=False),

@@ -81,3 +81,99 @@ def test_rows_of_other_leaves_and_dead_slots_stay():
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         TF.partition_rows_kernel(*_port_args(_case(0)))
+
+
+# ---- kernel B3's edge cases: the twin held to the Pallas kernel ----------
+
+def _edge_case(name, seed=21):
+    """_case with the slot layout kernel B3 treats apart: its leaf id ->
+    slot table, the chain between slots of one leaf, the do flags."""
+    c = _case(seed, n=2048, F=6, K=6, leaves=10)
+    K = len(c["sel"])
+    if name == "dup":
+        # slots 0 and 3 hold one leaf id (each with its own feature and
+        # threshold): its rows take the larger new id of the slots that
+        # move them
+        c["sel"][3] = c["sel"][0]
+        for k in ("feat", "thr", "mt", "nbf", "db"):   # slot 4's split
+            c[k][3] = c[k][4]
+    elif name == "dup_dead":
+        # a slot that repeats a live leaf id but is not split
+        c["sel"][3] = c["sel"][0]
+        c["do_k"][3] = False
+    elif name == "high_ids":
+        # leaf ids past the 4096-entry table, one of them held twice
+        c["leaf"] = c["leaf"] + 4090
+        c["sel"] = c["sel"] + 4090
+        c["sel"][4] = c["sel"][1]
+        c["new_ids"] = c["new_ids"] + 5000
+    elif name == "do_false":
+        c["do_k"] = np.arange(K) % 2 == 0
+    elif name == "missing":
+        # every missing type on each default direction
+        c["mt"] = np.array([MISSING_NAN, MISSING_NAN, MISSING_ZERO,
+                            MISSING_ZERO, MISSING_NONE, MISSING_NONE],
+                           np.int32)
+        c["dleft"] = np.arange(K) % 2 == 0
+        c["do_k"] = np.ones(K, bool)
+    return c
+
+
+EDGE_CASES = ["dup", "dup_dead", "high_ids", "do_false", "missing"]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_twin_edge_cases_bitwise_to_pallas(name):
+    c = _edge_case(name)
+    ref = _jax_ref(c)
+    got = TF.partition_rows(*_port_args(c)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got != c["leaf"]).any()
+
+
+def test_twin_duplicate_slots_take_the_larger_new_id():
+    c = _edge_case("dup")
+    got = TF.partition_rows(*_port_args(c)).numpy()
+    rows = c["leaf"] == c["sel"][0]
+    moved = got[rows][got[rows] != c["sel"][0]]
+    # rows that only the later slot moves take its id, the others the max
+    assert set(moved.tolist()) <= {int(c["new_ids"][0]),
+                                   int(c["new_ids"][3])}
+    assert int(c["new_ids"][3]) in set(moved.tolist())
+
+
+def test_partition_args_checked_as_the_kernel_takes_them():
+    args = _port_args(_case(0))
+    TF.check_partition_args(*args)
+    # the flags may be bool or uint8 bytes
+    TF.check_partition_args(*args[:6], args[6].to(torch.uint8), *args[7:])
+    with pytest.raises(ValueError, match="thr"):
+        TF.check_partition_args(*args[:5], args[5].long(), *args[6:])
+    with pytest.raises(ValueError, match="do_k"):
+        TF.check_partition_args(*args[:10], args[10].int())
+    with pytest.raises(ValueError, match="leaf_ids"):
+        TF.check_partition_args(args[0], args[1], args[2].long(), *args[3:])
+
+
+def test_grower_hands_the_kernel_its_types(monkeypatch):
+    # on the CPU the grower's kernel lowering runs the twin; the arguments
+    # it passes must be what kernel B3 takes without a host conversion
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import grower as TG
+
+    from .test_torch_util import binary_data
+
+    calls = []
+
+    def checked(*args):
+        TF.check_partition_args(*args)
+        calls.append(args[3].shape[0])
+        return TF.partition_rows(*args)
+
+    monkeypatch.setattr(TG, "partition_rows", checked)
+    X, y = binary_data(n=600, f=4, seed=3)
+    tlgb.train({"objective": "binary", "num_leaves": 15,
+                "tpu_partition_impl": "kernel", "device_type": "cpu",
+                "verbosity": -1}, tlgb.Dataset(X, label=y),
+               num_boost_round=2)
+    assert calls
