@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. eight paths at full width, each lgb.train on the Higgs-1M shape
+  3. ten paths at full width, each lgb.train on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
      before each path and read just after, and each kernel of the path
@@ -35,6 +35,19 @@ Phases, each fatal on failure (exit code 1, no result line):
                packed variant;
        packed_flat_int8  packed_flat with tpu_hist_precision=int8, 5
                iterations: B4's packed integer variant, the leaf sums;
+       valid_bag_int8  int8 under its defaults with bagging_fraction=0.8,
+               bagging_freq=1, feature_fraction=0.8, the 100,000
+               held-out rows as a validation set (reference= the training
+               set), metric auc and binary_logloss, early_stopping_rounds
+               5, 20 iterations: B1-int, B2, B3 and the leaf sums on
+               bagged rows and masked features; the valid AUC of every
+               iteration, the trees, the best iteration, the host waits,
+               and the added cost of evaluating (5 more iterations
+               without and with it, twice in turns, and the host waits of
+               one iteration each way);
+       fobj_hilo  hilo with binary logloss gradients given as fobj
+               (numpy on the host) through the sync step, 5 iterations:
+               B1 and B3; its held-out AUC beside the hilo path's;
   4. each kernel against its plain PyTorch twin on the card, at the
      shapes its path gives it, with times (ms: the kernel's device time
      per call from torch.profiler; event_ms: CUDA events around 20
@@ -45,14 +58,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      integer and packed variants at random operands and at the root
      call's operands (every row in slot 0, the other slots dead); B3 also
      with two slots holding one leaf id; the leaf sums bitwise against
-     index_add_ on the CPU;
+     index_add_ on the CPU; B1-int and B2 also at bagged operands (about
+     20% of the rows with zero stats, about 20% of the features masked);
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
      refit off, by their whole model text (only the device_type line
      normalized), which must be byte-identical, and the packed ones also
-     to the card's unpacked run; and two refit-on int8 trainings on the
-     card, which must write the same text.
+     to the card's unpacked run; two refit-on int8 trainings on the
+     card, which must write the same text; and int8 regression with the
+     refit off, bagging, feature_fraction, a validation set and an early
+     stop that fires, built in and with fobj, whose texts, evals_result
+     curves and best iterations must be equal card to CPU.
 With --profile, two more iterations of every path run under
 torch.profiler and the device time by op, each port kernel's device time
 per call on the path and the device's idle share are printed.
@@ -85,6 +102,11 @@ AUC_TOL = 5e-3
 # kernel B1 against its twin: count rows exact; g and h within this
 # fraction of the slot's sum of |stat|, the f32 summation-order bound
 HIST_RTOL = 1e-6
+# device_ms: profiles taken before a timing with too few launches seen fails
+PROFILE_TRIES = 3
+# phase 4's bagged operands: the share of the rows with zero stats and of
+# the features masked (bagging_fraction and feature_fraction 0.8)
+BAG_OUT = 0.2
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_S = 67e12         # H100 SXM f32 outside the tensor cores
 PEAK_ALU_S = 67e12         # H100 SXM scalar rate (the f32 row of the table)
@@ -120,6 +142,33 @@ PATHS = [
                               tpu_hist_precision="int8"), ITERS_INT_VARIANT,
      ("hist_flat_packed_int", "leaf_sums")),
 ]
+
+
+# the validation path (the configuration users run): int8 under its
+# defaults with bagging, feature_fraction, a held-out validation set built
+# with reference= the training set, two metrics and early stopping
+VALID_PARAMS = dict(PARAMS, tpu_hist_precision="int8", bagging_fraction=0.8,
+                    bagging_freq=1, feature_fraction=0.8,
+                    metric=["auc", "binary_logloss"])
+ITERS_VALID = 20
+EARLY_STOP = 5
+# the custom-objective path: binary logloss gradients from the host
+ITERS_FOBJ = 5
+# iterations timed with and without evaluating the validation set, twice
+ITERS_EVAL_COST = 5
+
+
+def logloss_fobj(scores, train_set):
+    """Binary logloss gradients on the host (numpy), as a user's fobj."""
+    s = scores.reshape(-1)
+    p = 1.0 / (1.0 + np.exp(-s))
+    return p - train_set.get_label(), p * (1.0 - p)
+
+
+def l2_fobj(scores, train_set):
+    """L2 regression gradients on the host (numpy)."""
+    s = scores.reshape(-1)
+    return s - train_set.get_label(), np.ones_like(s)
 
 
 def fail(msg: str) -> None:
@@ -177,7 +226,9 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
     empty profile first takes stragglers of earlier ones, another after
     the timed one takes its own, and the time is the mean over the
     launches seen times `launches`; with launches=None it is the sum
-    seen over reps."""
+    seen over reps.  A profile that saw fewer than half the launches (seen
+    on an H100 after the path profiles of --profile: 4 of 20) is taken
+    again, up to PROFILE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -191,21 +242,22 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
         return [float(ev.self_device_time_total)
                 for ev, label in zip(events, labels) if label is not None]
 
-    with tprofile(activities=acts):
-        torch.cuda.synchronize()
-    with tprofile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tprofile(activities=acts) as late:
-        torch.cuda.synchronize()
-    us = launches_of(prof) + launches_of(late)
-    if launches is None:
-        return sum(us) / 1e3 / reps
-    if len(us) < reps * launches // 2:
-        fail(f"torch.profiler saw {len(us)} port kernel launches in {reps} "
-             "calls")
-    return sum(us) / len(us) * launches / 1e3
+    for _ in range(PROFILE_TRIES):
+        with tprofile(activities=acts):
+            torch.cuda.synchronize()
+        with tprofile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tprofile(activities=acts) as late:
+            torch.cuda.synchronize()
+        us = launches_of(prof) + launches_of(late)
+        if launches is None:
+            return sum(us) / 1e3 / reps
+        if len(us) >= reps * launches // 2:
+            return sum(us) / len(us) * launches / 1e3
+    fail(f"torch.profiler saw {len(us)} port kernel launches in {reps} "
+         f"calls, {PROFILE_TRIES} times")
 
 
 def smi_line() -> str:
@@ -227,7 +279,8 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    booster = lgb.train(dict(params), ds, num_boost_round=iters)
+    booster = lgb.train(dict(params), ds, num_boost_round=iters,
+                        keep_training_booster=True)
     trees = booster.num_trees()       # materializes: one records fetch
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -264,6 +317,142 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
             "packed_bins": learner.packed_bins,
             "precision": learner.params.precision,
             "split_batch": learner.params.split_batch}, booster
+
+
+def count_syncs(fn):
+    """Run fn() and return the host waits on the device it made, as
+    torch's sync debug mode reports them (one warning each: a blocking
+    copy, `.item()`, a stream synchronize)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in seen if "synchroniz" in str(w.message))
+
+
+def valid_path(lgb, kernels, ds, X, y):
+    """Phase 3, path valid_bag_int8: lgb.train with the held-out rows as
+    a validation set, evaluated every iteration, early stopping on; then
+    the added cost of that evaluation.  Returns (report, booster)."""
+    import torch
+
+    valid = lgb.Dataset(X[N_TRAIN:], label=y[N_TRAIN:],
+                        reference=ds).construct()
+    evals = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    booster = lgb.train(dict(VALID_PARAMS), ds, num_boost_round=ITERS_VALID,
+                        valid_sets=[valid], valid_names=["valid"],
+                        evals_result=evals, early_stopping_rounds=EARLY_STOP,
+                        verbose_eval=False, keep_training_booster=True)
+    trees = booster.num_trees()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    grower_syncs = booster._driver.grower_syncs
+    for name in ("hist_batched_int", "fused_hist_scan", "partition_rows",
+                 "leaf_sums"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on path valid_bag_int8")
+    driver = booster._driver
+    curve = evals["valid"]["auc"]
+    best = booster.best_iteration
+    if len(curve) != trees or not 1 <= best <= trees \
+            or len(evals["valid"]["binary_logloss"]) != trees:
+        fail(f"valid_bag_int8: {trees} trees, {len(curve)} evaluations, "
+             f"best iteration {best}")
+    if not all(0.6 < v <= 1.0 for v in curve):
+        fail(f"valid_bag_int8: valid AUC out of range: {curve}")
+    # predict defaults to the best iteration and agrees with the valid
+    # scores kept on the card (trees summed in another order)
+    hold_auc = auc(booster.predict(X[N_TRAIN:]), y[N_TRAIN:])
+    if abs(hold_auc - curve[best - 1]) > 1e-4:
+        fail(f"valid_bag_int8: predict's AUC {hold_auc} is not the best "
+             f"iteration's valid AUC {curve[best - 1]}")
+    if driver._bag_cfg is None:
+        fail("valid_bag_int8: bagging is not configured")
+    # the added cost of evaluating: iterations without and with it, in
+    # turns (the host's pace drifts), in wall time; then the host waits
+    # of one iteration each way, counted apart from the timing
+    def iterations(evaluate, count):
+        for _ in range(count):
+            booster.update()
+            if evaluate:
+                booster.eval_valid()
+        booster.num_trees()
+        torch.cuda.synchronize()
+
+    spent = {False: [], True: []}
+    for evaluate in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterations(evaluate, ITERS_EVAL_COST)
+        spent[evaluate].append((time.perf_counter() - t0) / ITERS_EVAL_COST)
+    mean = {e: sum(v) / len(v) for e, v in spent.items()}
+    # all waits, and the grower's stop tests among them, an iteration
+    waits, grower_waits = {}, {}
+    for evaluate in (False, True):
+        before = driver.grower_syncs
+        waits[evaluate] = count_syncs(
+            lambda: iterations(evaluate, ITERS_EVAL_COST)) / ITERS_EVAL_COST
+        grower_waits[evaluate] = (driver.grower_syncs
+                                  - before) / ITERS_EVAL_COST
+    return {"train_s": train_s, "iters_per_s": trees / train_s,
+            "valid_auc": curve, "trees": trees, "best_iteration": best,
+            "best_score": booster.best_score, "holdout_auc": hold_auc,
+            "host_syncs_per_tree": grower_syncs / trees,
+            "host_waits_per_iter_without_eval": waits[False],
+            "host_waits_per_iter_with_eval": waits[True],
+            "grower_waits_per_iter_without_eval": grower_waits[False],
+            "grower_waits_per_iter_with_eval": grower_waits[True],
+            "iter_s_without_eval": spent[False],
+            "iter_s_with_eval": spent[True],
+            "eval_s_per_iter": mean[True] - mean[False],
+            "launches_per_tree": {k: v / trees for k, v in launches.items()},
+            "launches": launches, "n_pad": driver.learner.n_pad,
+            "n_valid": N_HOLD}, booster
+
+
+def fobj_path(lgb, kernels, ds, X, y):
+    """Phase 3, path fobj_hilo: binary logloss gradients given as fobj
+    (numpy on the host) through the sync step, hilo histograms and B3.
+    Returns (report, booster)."""
+    import torch
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    booster = lgb.train(dict(PARAMS), ds, num_boost_round=ITERS_FOBJ,
+                        fobj=logloss_fobj, keep_training_booster=True)
+    trees = booster.num_trees()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ("hist_batched", "partition_rows"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on path fobj_hilo")
+    driver = booster._driver
+    if trees != ITERS_FOBJ or driver.objective is not None:
+        fail(f"fobj_hilo: {trees} trees, objective {driver.objective}")
+    pred = booster.predict(X[N_TRAIN:], raw_score=True)
+    if not np.all(np.isfinite(pred)) or pred.shape != (N_HOLD,):
+        fail("fobj_hilo: held-out scores not finite or of the wrong shape")
+    hold_auc = auc(pred, y[N_TRAIN:])
+    if not 0.6 < hold_auc <= 1.0:
+        fail(f"fobj_hilo: held-out AUC {hold_auc}")
+    return {"train_s": train_s, "iters_per_s": trees / train_s,
+            "holdout_auc": hold_auc,
+            "host_syncs_per_tree": driver.grower_syncs / trees,
+            "launches_per_tree": {k: v / trees for k, v in launches.items()},
+            "launches": launches}, booster
 
 
 _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
@@ -314,12 +503,14 @@ def _device_events(prof):
                   key=lambda ev: ev.time_range.start)
 
 
-def profile(booster, iters=2, kernels_of=None):
+def profile(booster, iters=2, kernels_of=None, fobj=None, evaluate=False):
     """`--profile`: where the time of `iters` more iterations goes, from
     torch.profiler's device trace.  kernels_of maps the device launches'
     names, in launch order, to the port kernels they belong to (default
     port_kernels; a caller timing another version of the package gives
-    one that knows that version's kernels)."""
+    one that knows that version's kernels).  fobj: the path's custom
+    gradients; evaluate: each iteration also evaluates the validation
+    sets, as lgb.train does."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -334,7 +525,9 @@ def profile(booster, iters=2, kernels_of=None):
     with tprofile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            booster.update()
+            booster.update(fobj=fobj)
+            if evaluate:
+                booster.eval_valid()
         booster.num_trees()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -533,15 +726,33 @@ def _hilo_stats(learner, gen):
     return H.pack_stats(g, h, mask, "hilo").contiguous(), g, h
 
 
-def _int8_stats(learner, gen):
-    """int8 [3, n] stats of random grad/hess on the learner's rows,
-    rounded as the quantized grower rounds them (nearest)."""
+def _bag_masks(learner, gen):
+    """Bagged operands: a row mask with about BAG_OUT of the live rows
+    out, and the feature mask with round(BAG_OUT * F) of the F features
+    out, drawn at random."""
+    import torch
+
+    dev = learner.bins_t.device
+    rows = learner._ones_mask * (torch.rand(
+        learner.n_pad, generator=gen, device=dev) >= BAG_OUT).float()
+    nf = learner.num_features
+    out = torch.randperm(nf, generator=gen, device=dev)[
+        :round(BAG_OUT * nf)]
+    fmask = learner.feature_mask.clone()
+    fmask[out] = 0.0
+    return rows, fmask
+
+
+def _int8_stats(learner, gen, mask=None):
+    """int8 [3, n] stats of random grad/hess on the learner's rows (or
+    the rows of `mask`), rounded as the quantized grower rounds them
+    (nearest)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
     dev = learner.bins_t.device
     n = learner.n_pad
-    mask = learner._ones_mask
+    mask = learner._ones_mask if mask is None else mask
     q = H.quant_limit("int8", n)
     g = torch.randn(n, generator=gen, device=dev) * mask
     h = torch.rand(n, generator=gen, device=dev) * mask
@@ -590,7 +801,7 @@ def _index_add_ms(bins_t, stats, leaf, slots, B):
 
 
 def _slots_of(learner, gen, operands):
-    if operands == "random":
+    if operands in ("random", "bagged"):
         return _random_slots(learner, gen)
     import torch
 
@@ -673,7 +884,8 @@ def _random_slots(learner, gen):
 def check_hist_int(learner, gen, operands):
     """Phase 4, the integer variant of kernel B1, or of B4 on a flat path
     (each packed on a learner whose bins are packed) at the path's shapes
-    (operands as check_hist's), bitwise."""
+    (operands as check_hist's, or "bagged": random slots over rows of
+    which about BAG_OUT have zero stats), bitwise."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -682,7 +894,8 @@ def check_hist_int(learner, gen, operands):
     F, n = full.shape
     B = learner.num_bins
     K = learner.params.split_batch
-    stats = _int8_stats(learner, gen)
+    rows = _bag_masks(learner, gen)[0] if operands == "bagged" else None
+    stats = _int8_stats(learner, gen, rows)
     leaf, slots = _slots_of(learner, gen, operands)
 
     def kernel():
@@ -701,10 +914,14 @@ def check_hist_int(learner, gen, operands):
     event_ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     S = 3
+    extra = {}
+    if rows is not None:
+        extra["rows_out"] = float(1.0 - rows.sum().item()
+                                  / learner._ones_mask.sum().item())
     return {"name": f"{route}{suffix}_int", "operands": operands,
             "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
-            "replaces": replaces,
+            "replaces": replaces, **extra,
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S,
@@ -767,10 +984,11 @@ def check_leaf_sums(learner, gen):
             "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
 
 
-def _fused_operands(learner, gen):
+def _fused_operands(learner, gen, bagged=False):
     """Kernel B2's operands at the int8 path's shapes: K parent leaves
-    k and K + k, each split in two, the smaller child histogrammed.
-    Returns (positional args, split_kw)."""
+    k and K + k, each split in two, the smaller child histogrammed;
+    bagged: about BAG_OUT of the rows with zero stats and of the
+    features masked.  Returns (positional args, split_kw)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -780,7 +998,9 @@ def _fused_operands(learner, gen):
     B = learner.num_bins
     K = learner.params.split_batch
     p = learner.params
-    stats = _int8_stats(learner, gen)
+    rows, fmask = (_bag_masks(learner, gen) if bagged
+                   else (None, learner.feature_mask))
+    stats = _int8_stats(learner, gen, rows)
     leaf = torch.randint(0, 2 * K, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
     pairs = torch.arange(2 * K, device=dev, dtype=torch.int32)
@@ -809,8 +1029,8 @@ def _fused_operands(learner, gen):
                           meta["default_bin"], meta["monotone"], zi, zi, zi,
                           zi], 1).to(torch.int32).contiguous()
     zf = torch.zeros(F, device=dev)
-    meta_f = torch.stack([meta["penalty"], learner.feature_mask, zf, zf, zf,
-                          zf, zf, zf], 1).contiguous()
+    meta_f = torch.stack([meta["penalty"], fmask, zf, zf, zf, zf, zf, zf],
+                         1).contiguous()
     kw = dict(l1=p.l1, l2=p.l2, max_delta_step=p.max_delta_step,
               min_data_in_leaf=p.min_data_in_leaf,
               min_sum_hessian=p.min_sum_hessian,
@@ -819,8 +1039,9 @@ def _fused_operands(learner, gen):
             "int8"), kw
 
 
-def check_fused(learner, gen):
-    """Phase 4, kernel B2 at `_fused_operands`' operands."""
+def check_fused(learner, gen, operands="random"):
+    """Phase 4, kernel B2 at `_fused_operands`' operands ("random", or
+    "bagged")."""
     import torch
     from lightgbm_tpu_torch.ops import fused
 
@@ -828,7 +1049,7 @@ def check_fused(learner, gen):
     F, n = bins_t.shape
     B = learner.num_bins
     K = learner.params.split_batch
-    args, kw = _fused_operands(learner, gen)
+    args, kw = _fused_operands(learner, gen, operands == "bagged")
     leaf, slots = args[2], args[3]
     got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
     ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
@@ -859,7 +1080,10 @@ def check_fused(learner, gen):
     # bin) in the scan (prefix sums, dequantization, both directions'
     # leaf outputs, clips and gains)
     ops = m * F * 3 + C * F * B * 100
-    return {"name": "fused_hist_scan", "route": "cuda",
+    return {"name": "fused_hist_scan", "operands": operands,
+            "features_masked": int((args[7][:learner.num_features, 1] == 0)
+                                   .sum().item()),
+            "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/fused.cu",
             "replaces": "lightgbm_tpu/ops/fused.py:221",
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
@@ -903,7 +1127,8 @@ def cross_check(lgb, X, y):
             p = dict(params, device_type=dev)
             t0 = time.perf_counter()
             b = lgb.train(p, lgb.Dataset(Xs, label=label, params=p),
-                          num_boost_round=ITERS_SMALL)
+                          num_boost_round=ITERS_SMALL,
+                          keep_training_booster=True)
             if b._driver.learner.packed_bins != name.startswith("packed"):
                 fail(f"{name}: packed bins {b._driver.learner.packed_bins}")
             if by == "text":
@@ -933,6 +1158,40 @@ def cross_check(lgb, X, y):
             if not same:
                 fail(f"{name}: the packed run's model text differs from the "
                      "unpacked run's")
+    # a validation set, bagging, feature_fraction and an early stop that
+    # fires (learning_rate 0.5 turns the valid l2 within 30 iterations),
+    # built in and as fobj: the same text, curve and best iteration
+    n_fit = N_SMALL * 4 // 5
+    sampled = dict(PARAMS, **reg, bagging_fraction=0.8, bagging_freq=1,
+                   feature_fraction=0.8, learning_rate=0.5)
+    for name, fobj in (("valid_bag_int8_regression", None),
+                       ("valid_bag_int8_fobj", l2_fobj)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(sampled, device_type=dev)
+            t0 = time.perf_counter()
+            train = lgb.Dataset(Xs[:n_fit], label=y_reg[:n_fit], params=p)
+            valid = train.create_valid(Xs[n_fit:], label=y_reg[n_fit:])
+            evals = {}
+            b = lgb.train(p, train, num_boost_round=30, valid_sets=[valid],
+                          fobj=fobj, evals_result=evals,
+                          early_stopping_rounds=3, verbose_eval=False,
+                          keep_training_booster=True)
+            got[dev] = (_norm_param(b.model_to_string(), "device_type"),
+                        evals, b.best_iteration, b.current_iteration())
+            out[f"{name}_{dev}_s"] = time.perf_counter() - t0
+        (text, evals, best, done), cpu = got["cuda"], got["cpu"]
+        out[f"{name}_best_iteration"] = best
+        out[f"{name}_iterations"] = done
+        out[f"{name}_text_identical"] = text == cpu[0]
+        out[f"{name}_evals_equal"] = evals == cpu[1]
+        if not best < done < 30:
+            fail(f"{name}: the early stop did not fire (best {best}, "
+                 f"{done} iterations)")
+        if text != cpu[0] or evals != cpu[1] or (best, done) != cpu[2:]:
+            fail(f"{name}: the card and the CPU differ (text "
+                 f"{text == cpu[0]}, evals_result {evals == cpu[1]}, best "
+                 f"iteration {best}/{cpu[2]}, iterations {done}/{cpu[3]})")
     # the leaf refit sums each leaf in row order on the card too: two
     # trainings write the same text
     p = dict(PARAMS, objective="regression", metric="l2",
@@ -993,6 +1252,18 @@ def main() -> None:
         if "--profile" in sys.argv[1:]:
             print(f"profile {name} " + json.dumps(profile(boosters[name])),
                   flush=True)
+    for name, run, kw in (("valid_bag_int8", valid_path,
+                           {"evaluate": True}),
+                          ("fobj_hilo", fobj_path, {"fobj": logloss_fobj})):
+        reports[name], boosters[name] = run(lgb, kernels, datasets[255], X,
+                                            y)
+        if name == "fobj_hilo":
+            reports[name]["hilo_holdout_auc"] = reports["hilo"][
+                "holdout_auc"]
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        if "--profile" in sys.argv[1:]:
+            print(f"profile {name} "
+                  + json.dumps(profile(boosters[name], **kw)), flush=True)
     del datasets
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1009,6 +1280,12 @@ def main() -> None:
     kernel_rows += [(check_fused(learners["int8"], gen), "int8"),
                     (check_partition(learners["hilo"], gen), "hilo"),
                     (check_leaf_sums(learners["int8"], gen), "int8")]
+    # B1-int and B2 on bagged operands: rows with zero stats, features
+    # masked, at the validation path's shapes
+    bagged = learners["valid_bag_int8"]
+    kernel_rows += [(check_hist_int(bagged, gen, "bagged"),
+                     "valid_bag_int8"),
+                    (check_fused(bagged, gen, "bagged"), "valid_bag_int8")]
     for row, path in kernel_rows:
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
@@ -1025,7 +1302,7 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B1, B4 and their integer and packed variants have two rows: random
-    # operands, then the root's
+    # operands, then the root's; B1-int and B2 a third, bagged operands
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **({"operands": r["operands"]} if "operands" in r else {})}

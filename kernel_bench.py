@@ -154,7 +154,8 @@ def main():
     ds = lgb.Dataset(X, label=y, params=dict(cs.PARAMS)).construct()
     learners = {}
     for name, params, _, _ in cs.PATHS[:3]:
-        booster = lgb.train(dict(params), ds, num_boost_round=cs.ITERS)
+        booster = lgb.train(dict(params), ds, num_boost_round=cs.ITERS,
+                            keep_training_booster=True)
         booster.num_trees()
         emit("path", path=name, **cs.profile(booster,
                                              kernels_of=kernels_of))

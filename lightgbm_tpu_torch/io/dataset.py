@@ -6,8 +6,12 @@ on the host with the copied `BinMapper`; the value->bin step runs as torch
 ops on the dataset's device (`ops/binning.py`) and leaves the transposed
 `[F, n]` bin matrix there, the layout the grower reads.
 
+A validation set (`reference=` the training data) takes the training
+set's mappers, the same objects, and is binned with them on the training
+set's device.
+
 Outside this slice, and refused loudly: categorical features, sparse
-input, file ingest and validation sets.
+input and file ingest.
 """
 
 from __future__ import annotations
@@ -179,10 +183,14 @@ class TrainingData:
                     config: Optional[Config] = None,
                     weight: Optional[np.ndarray] = None,
                     init_score: Optional[np.ndarray] = None,
+                    reference: Optional["TrainingData"] = None,
                     feature_names: Optional[List[str]] = None,
                     categorical_features: Optional[Sequence[int]] = None,
                     ) -> "TrainingData":
-        """Bin a raw dense float matrix on the config's device."""
+        """Bin a raw dense float matrix on the config's device.
+
+        With `reference` given, reuses its BinMappers and its device
+        (validation-set alignment, reference dataset.h:501 CreateValid)."""
         from ..ops.binning import bin_matrix_t
 
         config = config or Config()
@@ -190,7 +198,8 @@ class TrainingData:
             raise NotImplementedError(
                 "categorical_feature: categorical features are not ported "
                 "to lightgbm_tpu_torch yet")
-        device = resolve_device(config)
+        device = (reference.device if reference is not None
+                  else resolve_device(config))
         X = np.asarray(X, dtype=np.float64)
         if X.ndim != 2:
             raise ValueError("X must be 2-D")
@@ -202,12 +211,30 @@ class TrainingData:
         self.num_total_features = nf
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(nf)])
-        self._find_mappers(X, config)
+        if reference is not None:
+            self._adopt_reference_mappers(reference)
+        else:
+            self._find_mappers(X, config)
         self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
                                    device, int(config.tpu_ingest_chunk_rows))
         self.metadata = Metadata(n, label, weight, None, init_score)
         self._set_constraints(config)
         return self
+
+    def _adopt_reference_mappers(self, reference: "TrainingData") -> None:
+        """Share the reference's BinMappers for validation-set alignment
+        (reference dataset.h:501 CreateValid)."""
+        self.mappers = reference.mappers
+        self.used_feature_idx = list(reference.used_feature_idx)
+        self.monotone_constraints = reference.monotone_constraints
+        self.feature_penalty = reference.feature_penalty
+        if reference.num_total_features != self.num_total_features:
+            raise ValueError("validation data feature count mismatch")
+
+    def create_valid(self, X, label: Optional[np.ndarray] = None,
+                     **kw) -> "TrainingData":
+        return TrainingData.from_matrix(X, label, self.config,
+                                        reference=self, **kw)
 
     def _find_mappers(self, X: np.ndarray, config: Config) -> None:
         """Greedy bin finding per column on a row sample, as the JAX

@@ -1,16 +1,19 @@
 """GBDT boosting driver (reference src/boosting/gbdt.cpp:368-449).
 
 The port of the plain training subset of `lightgbm_tpu/models/gbdt.py`:
-boost-from-average, one fused device step per iteration (gradients, tree
-growth, train-score update), host `Tree` models built lazily from the
-device step records (`_materialize`: one batched fetch for all pending
-trees), model text with the `tpu_bin_mappers:` trailer, and device
-predict in bin space.  The `tpu_feature_profile:` trailer (the training
-reference profile of `obs/modelhealth.py`) follows the mapper trailer,
-as in the JAX package.
+boost-from-average, one fused device step per iteration (gradients,
+bagging and feature_fraction masks, tree growth, train-score update),
+host `Tree` models built lazily from the device step records
+(`_materialize`: one batched fetch for all pending trees), validation
+sets whose scores stay on the device (each new tree's leaf values added
+at `_materialize`), evaluation with custom `feval`, the synchronous
+step of custom objectives (`fobj`), model text with the
+`tpu_bin_mappers:` trailer, and device predict in bin space.  The
+`tpu_feature_profile:` trailer (the training reference profile of
+`obs/modelhealth.py`) follows the mapper trailer, as in the JAX package.
 
 Left out, and not silently: rollback, OOM ladders, fault injection,
-telemetry, validation sets, DART/GOSS/RF and custom objectives.
+telemetry, checkpoints, DART/GOSS/RF.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from ..io.bin_mapper import BinMapper
 from ..io.dataset import TrainingData
 from ..obs import modelhealth
 from ..ops.binning import bin_matrix_t
-from ..ops.predict import class_scores, device_tables, pack_trees
+from ..ops.predict import (class_scores, device_tables, pack_trees,
+                           tree_leaf_values, upload)
 from ..utils.prng import PRNGKey
 from .learner import TreeLearner
 from .metrics import Metric, create_metrics
@@ -56,6 +60,7 @@ class PredictContext:
             "missing_type": np.array([int(mappers[i].missing_type)
                                       for i in idx], np.int64),
         }
+        self._meta_dev: Dict[str, List[torch.Tensor]] = {}
 
     def to_payload(self) -> Dict:
         return {"num_total_features": len(self.mappers),
@@ -71,8 +76,13 @@ class PredictContext:
         return cls(mappers, payload["used_feature_idx"])
 
     def meta_dev(self, device) -> List[torch.Tensor]:
-        return [torch.as_tensor(self.meta[k], device=device)
+        """The per-feature bin metadata on `device`, uploaded once."""
+        key = str(device)
+        if key not in self._meta_dev:
+            self._meta_dev[key] = [
+                torch.as_tensor(self.meta[k], device=device)
                 for k in ("num_bin", "default_bin", "missing_type")]
+        return self._meta_dev[key]
 
     def bin_rows_t(self, X: np.ndarray, device) -> torch.Tensor:
         """[F_used, n] device bins of raw rows in training-mapper space."""
@@ -125,6 +135,9 @@ class _ScoreState:
     def add_constant(self, val: float, class_id: int) -> None:
         self.scores[class_id] += np.float32(val)
 
+    def add(self, class_id: int, delta: torch.Tensor) -> None:
+        self.scores[class_id] += delta
+
     def numpy(self) -> np.ndarray:
         return self.scores.cpu().numpy().astype(np.float64)
 
@@ -140,6 +153,9 @@ class GBDT:
         self.train_data: Optional[TrainingData] = None
         self.learner: Optional[TreeLearner] = None
         self.metrics: List[Metric] = []
+        self.valid_sets: List[TrainingData] = []
+        self.valid_metrics: List[List[Metric]] = []
+        self.valid_scores: List[_ScoreState] = []
         self.train_scores: Optional[_ScoreState] = None
         self.num_class = 1
         self.num_tree_per_iteration = 1
@@ -160,6 +176,11 @@ class GBDT:
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
         self._key: Optional[np.ndarray] = None
+        self._bag_key: Optional[np.ndarray] = None
+        self._bag_rng: Optional[np.random.Generator] = None
+        self._bag_cfg: Optional[Dict] = None
+        self._cached_bag_mask: Optional[torch.Tensor] = None
+        self._step = None
         # a loaded model's tpu_feature_profile: trailer
         self._profile: Optional[modelhealth.FeatureProfile] = None
 
@@ -171,16 +192,17 @@ class GBDT:
         self.num_class = int(config.num_class)
         self.shrinkage_rate = float(config.learning_rate)
         self.objective = create_objective(config)
-        if self.objective is None:
-            raise NotImplementedError(
-                "objective=none (custom objectives) is not ported to "
-                "lightgbm_tpu_torch yet")
-        self.objective.init(train_data.metadata, train_data.num_data,
-                            self.device)
-        self.num_tree_per_iteration = \
-            self.objective.num_model_per_iteration()
+        if self.objective is not None:
+            self.objective.init(train_data.metadata, train_data.num_data,
+                                self.device)
+            self.num_tree_per_iteration = \
+                self.objective.num_model_per_iteration()
+        else:
+            # objective=none: custom gradients through update(fobj=...)
+            self.num_tree_per_iteration = self.num_class
         self.learner = TreeLearner(config, train_data)
-        self.metrics = create_metrics(config, self.objective.name)
+        self.metrics = create_metrics(
+            config, self.objective.name if self.objective else "")
         for m in self.metrics:
             m.init(train_data.metadata, train_data.num_data)
         self.train_scores = _ScoreState(self.num_tree_per_iteration,
@@ -191,12 +213,102 @@ class GBDT:
         self._pred_ctx = PredictContext(train_data.mappers,
                                         train_data.used_feature_idx)
         self._boosted_from_average = [False] * self.num_tree_per_iteration
-        self._step = self.learner.make_train_step(
-            self.objective.get_gradients, self.shrinkage_rate)
-        # the threefry key stream of the JAX package's GBDT (gbdt.py:312):
-        # every iteration and class advances it, and each tree's key seeds
-        # the stochastic rounding of the quantized precisions
+        # the threefry key streams of the JAX package's GBDT (gbdt.py:
+        # 307-313): every iteration and class advances `_key`, and each
+        # tree's key seeds the stochastic rounding of the quantized
+        # precisions; `_bag_key` advances at each bagging refresh.  The
+        # sync path draws its bagging masks from `_bag_rng` instead.
         self._key = PRNGKey(int(config.seed))
+        self._bag_key = PRNGKey(int(config.bagging_seed))
+        self._bag_rng = np.random.default_rng(int(config.bagging_seed))
+        self._bag_cfg = self._bagging_config()
+        self._make_train_step()
+
+    def _make_train_step(self) -> None:
+        """(Re)build the fused step when the objective is built in; with
+        objective=none every iteration takes the sync path."""
+        self._step = None
+        if self.objective is not None:
+            self._step = self.learner.make_train_step(
+                self.objective.get_gradients, self.shrinkage_rate,
+                self._bag_cfg)
+
+    def _bagging_config(self) -> Optional[Dict]:
+        cfg = self.config
+        frac = float(cfg.bagging_fraction)
+        freq = int(cfg.bagging_freq)
+        pos_frac = float(cfg.pos_bagging_fraction)
+        neg_frac = float(cfg.neg_bagging_fraction)
+        balanced = (pos_frac < 1.0 or neg_frac < 1.0)
+        if freq <= 0 or (frac >= 1.0 and not balanced):
+            return None
+        out = {"fraction": frac, "pos_fraction": pos_frac,
+               "neg_fraction": neg_frac, "freq": freq}
+        if balanced:
+            label = np.asarray(self.train_data.metadata.label)
+            is_pos = np.zeros(self.learner.n_pad, bool)
+            is_pos[:len(label)] = label > 0
+            out["is_pos"] = is_pos
+        return out
+
+    def reset_config(self, config: Config) -> None:
+        """Take a new learning rate (reset_parameter): the train step is
+        rebuilt with the new shrinkage."""
+        self._materialize()
+        self.config = config
+        self.shrinkage_rate = float(config.learning_rate)
+        if self.learner is not None:
+            # the JAX driver rebuilds its learner here, which restarts the
+            # sync path's feature generator from its seed
+            self.learner.config = config
+            self.learner._feature_rng = np.random.default_rng(
+                int(config.feature_fraction_seed))
+            self._make_train_step()
+
+    def free_dataset(self) -> None:
+        """Drop the training and validation data and the train step; the
+        header fields and the profile trailer that the model text derives
+        from the training data are kept first (booster.py:free_dataset)."""
+        self._materialize()
+        self.loaded_params["feature_infos"] = self._feature_infos()
+        self._profile = self.health_profile()
+        self.train_data = None
+        self.learner = None
+        self.train_scores = None
+        self.valid_sets = []
+        self.valid_scores = []
+        self.valid_metrics = []
+        self._step = None
+
+    # ------------------------------------------------------------------
+    def add_valid(self, data: TrainingData, name: str) -> None:
+        if data.mappers is not self.train_data.mappers:
+            raise ValueError("validation set must be created with "
+                             "reference=train dataset")
+        self._materialize()
+        self.valid_sets.append(data)
+        ms = create_metrics(self.config,
+                            self.objective.name if self.objective else "")
+        for m in ms:
+            m.init(data.metadata, data.num_data)
+        self.valid_metrics.append(ms)
+        state = _ScoreState(self.num_tree_per_iteration, data.num_data,
+                            self.device, data.metadata.init_score)
+        self.valid_scores.append(state)
+        self._replay(state, data)
+
+    def _replay(self, state: _ScoreState, data: TrainingData) -> None:
+        """Add the existing model's raw scores over a binned dataset to a
+        score state: one packed-forest pass on the device."""
+        if not self.models:
+            return
+        tables, depth = pack_trees(self.models)
+        scores = class_scores(device_tables(tables, self.device),
+                              data.bins_t,
+                              self._pred_ctx.meta_dev(self.device),
+                              self.num_tree_per_iteration, depth)
+        for k in range(self.num_tree_per_iteration):
+            state.add(k, scores[k])
 
     def _boost_from_average(self, class_id: int) -> float:
         if (self.models or self._pending
@@ -209,22 +321,63 @@ class GBDT:
         init = self.objective.boost_from_score(class_id)
         if abs(init) > K_EPSILON:
             self.train_scores.add_constant(init, class_id)
+            for vs in self.valid_scores:
+                vs.add_constant(init, class_id)
             return init
         return 0.0
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration on the device; True once training has
-        stalled (known only after `_materialize`, as in the JAX driver)."""
+    def bagging_mask(self, it: int) -> Optional[torch.Tensor]:
+        """The sync path's row mask for this iteration (None = all
+        rows), from the numpy generator (gbdt.py:507-535)."""
+        bag = self._bag_cfg
+        if bag is None:
+            return None
+        if it % bag["freq"] != 0 and self._cached_bag_mask is not None:
+            return self._cached_bag_mask
+        n = self.train_data.num_data
+        if "is_pos" in bag:
+            is_pos = np.asarray(self.train_data.metadata.label) > 0
+            r = self._bag_rng.random(n)
+            keep = np.where(is_pos, r < bag["pos_fraction"],
+                            r < bag["neg_fraction"])
+        else:
+            cnt = int(n * bag["fraction"])
+            idx = self._bag_rng.choice(n, size=cnt, replace=False)
+            keep = np.zeros(n, bool)
+            keep[idx] = True
+        mask = upload(keep.astype(np.float32), self.device)
+        self._cached_bag_mask = mask
+        return mask
+
+    def train_one_iter(self, grad: Optional[np.ndarray] = None,
+                       hess: Optional[np.ndarray] = None) -> bool:
+        """One boosting iteration; True once training has stalled (known
+        only after `_materialize` on the fused path, as in the JAX
+        driver).  Given gradients (custom objectives) take the sync
+        path."""
         if self._stopped:
             return True
+        if grad is not None:
+            return self._train_one_iter_sync(grad, hess)
+        if self._step is None:
+            raise ValueError("objective=none trains on given gradients: "
+                             "update(fobj=...)")
+        return self._train_one_iter_fused()
+
+    def _train_one_iter_fused(self) -> bool:
+        """One fused device step per class, no host wait beyond the
+        grower's; the trees materialize lazily."""
+        bag = self._bag_cfg
         for k in range(self.num_tree_per_iteration):
             if not self.objective.class_need_train(k):
                 raise NotImplementedError(
                     "training data with a single label class is not ported "
                     "to lightgbm_tpu_torch yet")
             init = self._boost_from_average(k)
-            records, scores, _, leaf_out, self._key = self._step(
-                self.train_scores.scores, k, self._key)
+            refresh = bag is not None and self.iter_ % bag["freq"] == 0
+            (records, scores, _, leaf_out, self._key,
+             self._bag_key) = self._step(self.train_scores.scores, k,
+                                         self._key, self._bag_key, refresh)
             self.train_scores.scores = scores
             self.grower_syncs += self.learner.last_syncs
             # refit leaves: the tree takes the refitted device outputs
@@ -234,9 +387,79 @@ class GBDT:
         self.iter_ += 1
         return False
 
+    def _train_one_iter_sync(self, grad: np.ndarray, hess: np.ndarray
+                             ) -> bool:
+        """The synchronous path of custom gradients (gbdt.py:1037-1097):
+        the numpy bagging mask, one tree fetched per class, no
+        boost-from-average."""
+        k_all = self.num_tree_per_iteration
+        grad = torch.as_tensor(np.asarray(grad, np.float32).reshape(
+            k_all, -1), device=self.device)
+        hess = torch.as_tensor(np.asarray(hess, np.float32).reshape(
+            k_all, -1), device=self.device)
+        self._materialize()
+        mask = self.bagging_mask(self.iter_)
+        should_continue = False
+        for k in range(k_all):
+            need = (self.objective is None
+                    or self.objective.class_need_train(k))
+            tree = None
+            if need:
+                tree, leaf_ids, _ = self.learner.train(grad[k], hess[k],
+                                                       mask)
+                self.grower_syncs += self.learner.last_syncs
+            if tree is not None and tree.num_leaves > 1:
+                should_continue = True
+                self._update_scores(tree, leaf_ids, k)
+            else:
+                tree = Tree(2)
+                if len(self.models) < k_all:
+                    output = (0.0 if need
+                              else self.objective.boost_from_score(k))
+                    tree.as_constant_tree(output)
+                    self.train_scores.add_constant(output, k)
+                    for vs in self.valid_scores:
+                        vs.add_constant(output, k)
+            self.models.append(tree)
+        if not should_continue:
+            if len(self.models) > k_all:
+                del self.models[-k_all:]
+            self._stopped = True
+            return True
+        self.iter_ += 1
+        return False
+
+    def _update_scores(self, tree: Tree, leaf_ids: torch.Tensor,
+                       class_id: int) -> None:
+        """The train-score update of the sync path (gbdt.py:1159-1195,
+        without the renew branch of the percentile objectives): shrink
+        the tree, gather its f32 leaf values by leaf id, and add its
+        leaf values over each validation set."""
+        tree.apply_shrinkage(self.shrinkage_rate)
+        leaf_vals = torch.as_tensor(
+            tree.leaf_value[:tree.num_leaves].astype(np.float32),
+            device=self.device)
+        self.train_scores.add(class_id, leaf_vals[leaf_ids.long()])
+        self._add_valid_deltas(tree, class_id)
+
+    def _add_valid_deltas(self, tree: Tree, class_id: int) -> None:
+        """Each validation set's scores += the tree's f32 leaf values over
+        its bins (the per-tree device delta, gbdt.py:1591-1621): one
+        pack, at the run's leaf width, shared by every set."""
+        if not self.valid_sets:
+            return
+        tables, depth = pack_trees([tree],
+                                   leaf_width=int(self.config.num_leaves))
+        tables = device_tables(tables, self.device)
+        meta = self._pred_ctx.meta_dev(self.device)
+        for vs, vd in zip(self.valid_scores, self.valid_sets):
+            vs.add(class_id,
+                   tree_leaf_values(tables, vd.bins_t, meta, depth))
+
     def _materialize(self) -> None:
         """Fetch the pending device records (one batched copy) and build
-        the host Tree models."""
+        the host Tree models; each new tree, shrunk and before its bias,
+        adds its leaf values to the validation scores."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
@@ -246,10 +469,13 @@ class GBDT:
             outs = list(torch.stack([p[1] for p in pending]).cpu().numpy())
         for (_, _, class_id, init), rec, out in zip(pending, recs, outs):
             if self._stopped:
+                # drop queued post-stall iterations (the reference pops
+                # them)
                 break
             tree = self.learner.build_tree_from_records(rec, out)
             if tree.num_leaves > 1:
                 tree.apply_shrinkage(self.shrinkage_rate)
+                self._add_valid_deltas(tree, class_id)
                 if abs(init) > K_EPSILON:
                     tree.add_bias(init)
                 self.models.append(tree)
@@ -266,11 +492,61 @@ class GBDT:
         self._materialize()
         return len(self.models) // max(self.num_tree_per_iteration, 1)
 
-    def eval_train(self) -> List[Tuple[str, float, bool]]:
-        """Metric values of the train scores (one device fetch)."""
-        score = self.train_scores.numpy()
-        return [(m.name, m.eval(score, self.objective), m.higher_is_better)
-                for m in self.metrics]
+    def current_score_for_fobj(self) -> np.ndarray:
+        return self.train_scores.numpy()
+
+    def eval(self, name: str, valid_idx: int, feval=None) -> List[Tuple]:
+        """(dataset, metric, value, higher_is_better) of the train scores
+        (valid_idx < 0) or of one validation set: one device fetch of
+        the scores (gbdt.py:1420-1440)."""
+        self._materialize()
+        if valid_idx < 0:
+            scores = self.train_scores.numpy()
+            metrics = self.metrics
+        else:
+            scores = self.valid_scores[valid_idx].numpy()
+            metrics = self.valid_metrics[valid_idx]
+        out = []
+        for m in metrics:
+            for metric_name, val in m.eval_all(scores, self.objective):
+                out.append((name, metric_name, val, m.higher_is_better))
+        if feval is not None:
+            ds = (self.train_data if valid_idx < 0
+                  else self.valid_sets[valid_idx])
+            res = feval(scores.reshape(-1), _FevalData(ds))
+            for item in (res if isinstance(res, list) else [res]):
+                out.append((name, item[0], item[1], item[2]))
+        return out
+
+    def eval_for_data(self, data: TrainingData, name: str, feval=None
+                      ) -> List[Tuple]:
+        """Metrics on a dataset built with reference=the training set,
+        without registering it (gbdt.py:1442-1497): the model replays
+        onto it in one packed-forest pass."""
+        self._materialize()
+        if self.config is None or self.train_data is None:
+            raise ValueError("eval on data needs a booster that still holds "
+                             "its training dataset")
+        if data.mappers is not self.train_data.mappers:
+            raise ValueError("eval data must be created with "
+                             "reference=the training dataset")
+        ms = create_metrics(self.config,
+                            self.objective.name if self.objective else "")
+        for m in ms:
+            m.init(data.metadata, data.num_data)
+        state = _ScoreState(self.num_tree_per_iteration, data.num_data,
+                            self.device, data.metadata.init_score)
+        self._replay(state, data)
+        scores = state.numpy()
+        out = []
+        for m in ms:
+            for metric_name, val in m.eval_all(scores, self.objective):
+                out.append((name, metric_name, val, m.higher_is_better))
+        if feval is not None:
+            res = feval(scores.reshape(-1), _FevalData(data))
+            for item in (res if isinstance(res, list) else [res]):
+                out.append((name, item[0], item[1], item[2]))
+        return out
 
     # ------------------------------------------------------------------
     def _forest(self, num_iteration: int):
@@ -492,3 +768,17 @@ class GBDT:
         self.iter_ = self.current_iteration()
         return self
 
+
+
+class _FevalData:
+    """Minimal Dataset-like shim passed to custom feval callbacks."""
+
+    def __init__(self, td: TrainingData):
+        self._td = td
+
+    def get_label(self):
+        return np.asarray(self._td.metadata.label)
+
+    def get_weight(self):
+        w = self._td.metadata.weight
+        return None if w is None else np.asarray(w)

@@ -3,7 +3,9 @@
 The port of the serial, dense, numerical subset of
 `lightgbm_tpu/models/learner.py:TPUTreeLearner`: the padded layout
 (`f_pad`, `n_pad` with the same shape bucketing), the per-feature meta
-arrays, `_resolve_hist_impl`, the fused per-iteration train step, and
+arrays, `_resolve_hist_impl`, the fused per-iteration train step with
+its bagging and feature_fraction prologue, the synchronous `train` of
+custom gradients (its masks from numpy generators), and
 `build_tree_from_records`.
 
 Histogram implementations: "pallas2" (the perfeature Pallas kernel in
@@ -35,8 +37,9 @@ from ..io.dataset import TrainingData
 from ..ops import grower as G
 from ..ops.fused import fused_supported, probe_fused
 from ..ops.grower import GrowerParams, pad_rows, resolve_split_batch
-from ..ops.histogram import (INT_PRECISIONS, _dot_spec, pack_bins,
-                             row_major_bins)
+from ..ops.histogram import (INT_PRECISIONS, _dot_spec, hashed_uniform,
+                             key_words, pack_bins, row_major_bins)
+from ..ops.predict import upload
 from ..utils import prng
 from .tree import Tree
 
@@ -45,8 +48,8 @@ HIST_IMPLS = ("auto", "pallas", "pallas2", "fused", "xla")
 
 def check_slice(config: Config) -> None:
     """Refuse, by name, every parameter value outside the ported slice
-    (serial learner, dense numeric columns, gbdt; float and int8/int16
-    histograms)."""
+    (serial learner, dense numeric columns, gbdt with bagging and
+    per-tree feature_fraction; float and int8/int16 histograms)."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
@@ -59,13 +62,6 @@ def check_slice(config: Config) -> None:
     # machine (with a warning), so only a real multi-machine run is refused
     if str(c.tree_learner) != "serial" and int(c.num_machines) > 1:
         refuse(f"tree_learner={c.tree_learner!r} with num_machines>1")
-    if int(c.bagging_freq) > 0 and float(c.bagging_fraction) < 1.0:
-        refuse("bagging_fraction<1")
-    if float(c.pos_bagging_fraction) < 1.0 \
-            or float(c.neg_bagging_fraction) < 1.0:
-        refuse("pos_bagging_fraction/neg_bagging_fraction<1")
-    if float(c.feature_fraction) < 1.0:
-        refuse("feature_fraction<1")
     if float(c.feature_fraction_bynode) < 1.0:
         refuse("feature_fraction_bynode<1")
     if any(int(v) != 0 for v in c.monotone_constraints):
@@ -210,6 +206,10 @@ class TreeLearner:
             probe_fused(dev, precision)
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
+        # the sync path's per-tree feature_fraction draws and tree keys
+        # (learner.py:860)
+        self._feature_rng = np.random.default_rng(
+            int(config.feature_fraction_seed))
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -265,29 +265,118 @@ class TreeLearner:
         return impl, block
 
     # ------------------------------------------------------------------
-    def make_train_step(self, grad_fn, learning_rate: float):
-        """Gradients + tree growth + train-score update, all on the
-        device; the only host waits are the grower's stop tests.
+    def pad_vector(self, v: torch.Tensor) -> torch.Tensor:
+        v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
+        if v.shape[0] == self.n_pad:
+            return v
+        out = torch.zeros(self.n_pad, dtype=torch.float32,
+                          device=self.device)
+        out[:v.shape[0]] = v
+        return out
 
-        Returns step(scores [k, n], class_id, key) ->
-            (records, new_scores, leaf_ids[:n], leaf_output, key): `key`
-            is the booster's threefry key, advanced as the JAX step
-            advances it (learner.py:1135,1196)."""
+    def sample_features(self) -> torch.Tensor:
+        """Per-tree feature_fraction mask of the sync path, from the
+        numpy generator (learner.py:1059-1072); padding features stay
+        masked off."""
+        frac = float(self.config.feature_fraction)
+        if frac >= 1.0:
+            return self.feature_mask
+        F = self.num_features
+        mask = np.zeros(self.f_pad, np.float32)
+        k = max(1, int(np.ceil(F * frac)))
+        mask[self._feature_rng.choice(F, size=k, replace=False)] = 1.0
+        return upload(mask, self.device)
+
+    def train(self, grad: torch.Tensor, hess: torch.Tensor,
+              row_mask: Optional[torch.Tensor] = None):
+        """Grow one tree from given gradients (the sync path of custom
+        objectives, learner.py:1283-1367).  The feature mask is drawn
+        first, then the tree key from the same generator.  Returns
+        (tree, leaf_ids[:n], raw grower out); one host fetch builds the
+        tree."""
+        fmask = self.sample_features()
+        key = prng.PRNGKey(int(self._feature_rng.integers(2 ** 31)))
+        mask = self._ones_mask if row_mask is None else \
+            self.pad_vector(row_mask) * self._ones_mask
+        out = G.grow(self.params, self.bins_t, self.pad_vector(grad),
+                     self.pad_vector(hess), mask, fmask, self.meta, key)
+        self.last_syncs = out["syncs"]
+        leaf_out = out["leaf_output"] if self.refits_leaves else None
+        if leaf_out is None:
+            rec = out["records"].cpu().numpy()
+        else:
+            both = torch.cat([out["records"].reshape(-1),
+                              leaf_out.reshape(-1)]).cpu().numpy()
+            rec = both[:out["records"].numel()].reshape(
+                out["records"].shape)
+            leaf_out = both[out["records"].numel():]
+        tree = self.build_tree_from_records(rec, leaf_out)
+        return tree, out["leaf_ids"][:self.n], out
+
+    def make_train_step(self, grad_fn, learning_rate: float,
+                        bagging: Optional[dict] = None):
+        """Gradients + bagging and feature_fraction masks + tree growth +
+        train-score update, all on the device; the only host waits are
+        the grower's stop tests.
+
+        Returns step(scores [k, n], class_id, key, bag_key, refresh_bag)
+            -> (records, new_scores, leaf_ids[:n], leaf_output, key,
+            bag_key): `key` is the booster's threefry key and `bag_key`
+            its bagging key, advanced as the JAX step advances them
+            (learner.py:1116-1197, without GOSS)."""
         n, n_pad = self.n, self.n_pad
         dev = self.device
+        F, f_pad = self.num_features, self.f_pad
+        frac = 1.0 if bagging is None else bagging["fraction"]
+        pos_frac = 1.0 if bagging is None else bagging["pos_fraction"]
+        neg_frac = 1.0 if bagging is None else bagging["neg_fraction"]
+        is_pos = None
+        if bagging is not None and (pos_frac < 1.0 or neg_frac < 1.0):
+            is_pos = torch.as_tensor(bagging["is_pos"], device=dev)
+        feature_frac = float(self.config.feature_fraction)
+        k_used = max(1, int(np.ceil(F * feature_frac)))
+        # the row uniforms key on the global row index (a PCG hash, as
+        # the quantized rounding), so padding rows draw too and stay
+        # masked by the ones mask
+        iota = torch.arange(n_pad, dtype=torch.int64, device=dev)
+        # the fractions as f32 device scalars, made once (a host scalar
+        # per call would be a blocking copy each tree)
+        frac_t, pos_t, neg_t = (torch.tensor(np.float32(v), device=dev)
+                                for v in (frac, pos_frac, neg_frac))
 
-        def step(scores: torch.Tensor, class_id: int, key: np.ndarray):
+        def row_mask(bag_key: np.ndarray) -> torch.Tensor:
+            if is_pos is None and frac >= 1.0:
+                return self._ones_mask
+            sa, sb = key_words(bag_key)
+            r = hashed_uniform(iota, sa, sb, 0xBA66)
+            if is_pos is not None:
+                keep = torch.where(is_pos, r < pos_t, r < neg_t)
+            else:
+                keep = r < frac_t
+            return self._ones_mask * keep.to(torch.float32)
+
+        def feature_mask(kf: np.ndarray) -> torch.Tensor:
+            if feature_frac >= 1.0:
+                return self.feature_mask
+            fmask = np.zeros(f_pad, np.float32)
+            fmask[prng.permutation(kf, F)[:k_used]] = 1.0
+            return upload(fmask, dev)
+
+        def step(scores: torch.Tensor, class_id: int, key: np.ndarray,
+                 bag_key: np.ndarray, refresh_bag: bool):
             grad, hess = grad_fn(scores)
             g = torch.zeros(n_pad, dtype=torch.float32, device=dev)
             h = torch.zeros(n_pad, dtype=torch.float32, device=dev)
             g[:n] = grad[:n]
             h[:n] = hess[:n]
-            # key -> (key, kf) feeds feature_fraction in the JAX step (not
-            # ported); key -> (key, k_node) seeds the tree
-            key = prng.split(key)[0]
+            key, kf = prng.split(key)
+            if refresh_bag:
+                bag_key = prng.split(bag_key)[0]
+            mask = row_mask(bag_key)
+            fmask = feature_mask(kf)
             key, k_node = prng.split(key)
-            out = G.grow(self.params, self.bins_t, g, h, self._ones_mask,
-                         self.feature_mask, self.meta, k_node)
+            out = G.grow(self.params, self.bins_t, g, h, mask, fmask,
+                         self.meta, k_node)
             self.last_syncs = out["syncs"]
             records, leaf_ids = out["records"], out["leaf_ids"]
             # scale the [L] leaf vector first, then gather: one rounded add
@@ -298,7 +387,7 @@ class TreeLearner:
             new_scores = scores.clone()
             new_scores[class_id] += scaled[leaf_ids[:n].long()]
             return (records, new_scores, leaf_ids[:n], out["leaf_output"],
-                    key)
+                    key, bag_key)
 
         return step
 

@@ -62,9 +62,22 @@ def pack_trees(trees: Sequence, leaf_width: int = 0
     return tables, depth
 
 
+def upload(host: np.ndarray, device) -> torch.Tensor:
+    """A small host array on `device` without a host wait: on the card,
+    one copy from pinned memory queued on the stream (a blocking copy
+    would wait for the work queued before it)."""
+    t = torch.from_numpy(host)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def device_tables(tables: Dict[str, np.ndarray], device
                   ) -> Dict[str, torch.Tensor]:
-    """Host tables -> device tensors (numeric node tables only)."""
+    """Host tables -> device tensors (numeric node tables only), in one
+    upload: every table packed into one int64 buffer (the leaf values
+    by their f32 bits), on the card copied from pinned memory without a
+    host wait, then viewed apart on the device."""
     words = np.asarray(tables["cat_words"])
     if words.shape[0] > 1 or np.any(
             (np.asarray(tables["decision_type"]) & 1) != 0):
@@ -72,10 +85,15 @@ def device_tables(tables: Dict[str, np.ndarray], device
             "categorical splits are not ported to lightgbm_tpu_torch yet")
     keys = ("split_feature", "threshold", "decision_type", "left_child",
             "right_child", "init_node")
-    out = {k: torch.as_tensor(np.asarray(tables[k], np.int64),
-                              device=device) for k in keys}
-    out["leaf_value"] = torch.as_tensor(
-        np.asarray(tables["leaf_value"], np.float32), device=device)
+    lv = np.asarray(tables["leaf_value"], np.float32)
+    parts = [np.asarray(tables[k], np.int64) for k in keys] + [
+        lv.view(np.int32).astype(np.int64)]
+    flat = upload(np.concatenate([p.ravel() for p in parts]), device)
+    out, pos = {}, 0
+    for k, p in zip(keys + ("leaf_value",), parts):
+        out[k] = flat[pos:pos + p.size].view(p.shape)
+        pos += p.size
+    out["leaf_value"] = out["leaf_value"].to(torch.int32).view(torch.float32)
     return out
 
 
@@ -105,6 +123,14 @@ def leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
         node = torch.where(node >= 0, nxt, node)
     leaf = torch.where(node < 0, ~node, 0)
     return torch.gather(tables["leaf_value"], 1, leaf)
+
+
+def tree_leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
+                     meta: List[torch.Tensor], depth: int) -> torch.Tensor:
+    """[n] f32 leaf values of one packed tree over a binned [F, n] set:
+    the per-tree delta of the validation scores (`forest_leaf_values`
+    of the JAX package at one tree)."""
+    return leaf_values(tables, bins_t, *meta, depth)[0]
 
 
 # XLA:CPU's reduce window: a sum over more than this many trees goes in

@@ -102,3 +102,33 @@ def fold_in(key, data: int) -> np.ndarray:
     key = key_data(key)
     return _hash_counts(key, np.array([0, int(data) & 0xFFFFFFFF],
                                       np.uint32))
+
+
+def random_bits(key, n: int, partitionable: bool = True) -> np.ndarray:
+    """`jax.random.bits(key, (n,), uint32)`: [n] uint32.  The partitionable
+    form hashes the counter pairs (0, i) and xors the two words; the
+    original hashes an iota of n counters split into two halves."""
+    key = key_data(key)
+    n = int(n)
+    if partitionable:
+        b1, b2 = threefry2x32(key[0], key[1], np.zeros(n, np.uint32),
+                              np.arange(n, dtype=np.uint32))
+        return b1 ^ b2
+    return _hash_counts(key, np.arange(n, dtype=np.uint32))
+
+
+def permutation(key, n: int, partitionable: bool = True) -> np.ndarray:
+    """`jax.random.permutation(key, n)`: [n] int32, a shuffle of
+    arange(n) by repeated stable sorts on fresh 32-bit keys
+    (jax/_src/random.py:_shuffle).  The round count,
+    ceil(3 * log(n) / log(2**32 - 1)), is 0 at n = 1, 1 up to n = 1625
+    and 2 from there to about 2.6 million."""
+    n = int(n)
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key, 2, partitionable)
+        bits = random_bits(sub, n, partitionable)
+        x = x[np.argsort(bits, kind="stable")]
+    return x

@@ -13,7 +13,7 @@ import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu.ops.predict import pack_trees as j_pack_trees
 from lightgbm_tpu_torch.convert import booster_from_arrays
 
-from .test_torch_util import binary_data
+from .test_torch_util import assert_trees_match, binary_data
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = {"device_type": "cpu", "verbosity": -1}
@@ -66,9 +66,7 @@ def test_training_without_cuda_raises_unless_cpu_is_asked():
 OUT_OF_SLICE = [
     {"boosting": "dart"}, {"boosting": "goss"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"pos_bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction": 0.5}, {"feature_fraction_bynode": 0.5},
+    {"feature_fraction_bynode": 0.5},
     {"monotone_constraints": [1, 0, 0]},
     {"cegb_penalty_split": 0.1},
     {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0]},
@@ -100,6 +98,59 @@ def test_out_of_slice_parameters_raise(extra):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
 
 
+# once refused; now sampled as the JAX step samples them (rows by the
+# hashed uniforms of the bagging key, features by a permutation of the
+# feature key), and the trees equal the JAX package's
+SAMPLING_NOW_PORTED = [
+    {"bagging_fraction": 0.5, "bagging_freq": 1},
+    {"pos_bagging_fraction": 0.5, "bagging_freq": 1},
+    {"feature_fraction": 0.5},
+]
+
+
+@pytest.mark.parametrize("extra", SAMPLING_NOW_PORTED,
+                         ids=lambda d: ",".join(d))
+def test_sampling_cases_train_like_jax(extra):
+    X, y = binary_data(n=300, f=3, seed=1)
+    params = dict(SMALL, tpu_hist_impl="pallas2", **extra)
+    bj = jlgb.train(dict(params, verbosity=-1), jlgb.Dataset(X, label=y), 2)
+    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 2)
+    assert bt.num_trees() == 2
+    assert_trees_match(bj._driver.models, bt._driver.models)
+
+
+# arguments and parameters of lgb.train that wait on later slices
+UNPORTED_TRAIN_ARGS = [
+    ({"init_model": "model.txt"}, {}, "init_model"),
+    ({"resume": True}, {}, "resume"),
+    ({}, {"tpu_checkpoint_dir": "ckpt"}, "tpu_checkpoint_dir"),
+    ({}, {"snapshot_freq": 2}, "snapshot_freq"),
+]
+
+
+@pytest.mark.parametrize("kwargs,extra,name", UNPORTED_TRAIN_ARGS,
+                         ids=[c[2] for c in UNPORTED_TRAIN_ARGS])
+def test_unported_train_arguments_raise(kwargs, extra, name):
+    X, y = binary_data(n=300, f=3, seed=1)
+    with pytest.raises(NotImplementedError, match=name):
+        tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y),
+                   1, **kwargs)
+
+
+def test_reset_parameter_refuses_all_but_the_learning_rate():
+    X, y = binary_data(n=300, f=3, seed=1)
+    b = tlgb.train(dict(SMALL, **CPU), tlgb.Dataset(X, label=y), 1,
+                   keep_training_booster=True)
+    b.reset_parameter({"eta": 0.05})
+    assert b._driver.shrinkage_rate == 0.05
+    with pytest.raises(NotImplementedError, match="num_leaves"):
+        b.reset_parameter({"num_leaves": 3})
+    with pytest.raises(NotImplementedError, match="bagging_fraction"):
+        tlgb.train(dict(SMALL, **CPU), tlgb.Dataset(X, label=y), 2,
+                   callbacks=[tlgb.reset_parameter(
+                       bagging_fraction=[0.5, 0.6])])
+
+
 # once refused; now packed as the JAX learner packs, into the packed
 # variant of B1 or (tpu_hist_impl=pallas) of B4
 PACKED_NOW_PORTED = [
@@ -124,7 +175,8 @@ def test_packed_cases_train_like_jax(extra):
     impl = extra.get("tpu_hist_impl", "pallas2")
     bj = jlgb.train(dict(params, verbosity=-1, tpu_hist_impl=impl),
                     jlgb.Dataset(X, label=y), 1, keep_training_booster=True)
-    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1,
+                    keep_training_booster=True)
     lj, lt = bj._driver.learner, bt._driver.learner
     assert lj.packed_bins and lt.packed_bins
     assert lt.params.hist_impl == impl
@@ -146,7 +198,8 @@ def test_packing_follows_the_jax_row_blocks():
     params = dict(SMALL, tpu_pack_bins=True, tpu_hist_impl="pallas2")
     bj = jlgb.train(dict(params, verbosity=-1), jlgb.Dataset(X, label=y), 1,
                     keep_training_booster=True)
-    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+    bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1,
+                    keep_training_booster=True)
     assert not bj._driver.learner.packed_bins
     assert not bt._driver.learner.packed_bins
     assert bt._driver.learner.n_pad == bj._driver.learner.n_pad == 384

@@ -110,7 +110,8 @@ def test_training_on_card_matches_cpu():
     p = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
          "tpu_partition_impl": "kernel", "verbosity": -1}
     kernels.reset_launches()
-    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3,
+                    keep_training_booster=True)
     # the hilo path: B1 and B3
     assert kernels.launches["hist_batched"] > 0
     assert kernels.launches["partition_rows"] > 0
@@ -209,6 +210,73 @@ def test_fused_kernel_bitwise(precision, F, n, B, K, dead, extra):
     assert (ref[1][..., 0] > 0).any()
 
 
+# ---- bagged operands: rows with zero stats (a bagging mask with about
+# 20% of the rows out) and masked features (feature_fraction 0.8) --------
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+def test_hist_kernel_int_bagged_bitwise(precision):
+    dev = cuda_device()
+    F, n, B, leaves = 28, 1 << 18, 255, 60
+    slots = list(range(0, 48, 2)) + [-1]
+    bins, stats, leaf, sl = _int_hist_inputs(dev, 8, F, n, B, leaves, slots,
+                                             precision)
+    keep = torch.from_numpy(np.random.default_rng(9).random(n) >= 0.2)
+    stats = (stats * keep.to(dev).to(stats.dtype)).contiguous()
+    assert 0.15 < 1.0 - float(stats[2].float().mean()) < 0.25
+    before = kernels.launches["hist_batched_int"]
+    got = TH.hist_batched_kernel(bins, stats, leaf, sl, B)
+    assert kernels.launches["hist_batched_int"] == before + 1
+    assert torch.equal(got, TH.hist_batched_plain(bins, stats, leaf, sl, B))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+@pytest.mark.parametrize("F,n,B,K,dead", [
+    (28, 1 << 18, 255, 25, (7, 24)),
+    (32, 1 << 16, 63, 4, ()),
+])
+def test_fused_kernel_bagged_bitwise(precision, F, n, B, K, dead):
+    dev = cuda_device()
+    case, kw = fused_case(11, F, n, B, K, precision, dead, bag=0.2)
+    assert 0.15 < 1.0 - case["stats"][2].mean() < 0.25
+    assert (case["meta_f"][:, 1] == 0).sum() >= 2
+    ops = fused_args(case, B, precision, dev)
+    before = kernels.launches["fused_hist_scan"]
+    got = TF.fused_hist_scan_kernel(*ops, split_kw=kw)
+    assert kernels.launches["fused_hist_scan"] == before + 1
+    ref = TF.fused_hist_scan_plain(*ops, split_kw=kw)
+    TF.assert_fused_equal(got, ref)
+    assert (ref[1][..., 0] > 0).any()
+
+
+def test_bagged_int8_training_on_card_matches_cpu():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(24000, 10))
+    Xn = X.copy()
+    X[rng.random(X.shape) < 0.03] = np.nan
+    y = Xn[:, 0] + Xn[:, 1] ** 2 + 0.3 * rng.normal(size=24000)
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+         "tpu_partition_impl": "kernel", "verbosity": -1,
+         "learning_rate": 0.5, "bagging_fraction": 0.8, "bagging_freq": 1,
+         "feature_fraction": 0.8}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        train = lgb.Dataset(X[:20000], label=y[:20000],
+                            params=dict(p, device_type=dev))
+        valid = train.create_valid(X[20000:], label=y[20000:])
+        evals = {}
+        b = lgb.train(dict(p, device_type=dev), train, 6,
+                      valid_sets=[valid], evals_result=evals,
+                      early_stopping_rounds=2, verbose_eval=False)
+        out[dev] = (_norm(b.model_to_string(), "device_type"), evals,
+                    b.best_iteration)
+    assert np.isfinite(out["cpu"][1]["valid_0"]["l2"]).all()
+    assert out["cuda"] == out["cpu"]
+
+
 def test_fused_probe_raises_on_a_corrupted_record():
     dev = cuda_device()
     TF.probe_fused(dev, "int8")           # passes on the card
@@ -233,7 +301,8 @@ def test_int8_training_on_card_matches_cpu_text():
          "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
          "tpu_partition_impl": "kernel", "verbosity": -1}
     kernels.reset_launches()
-    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3,
+                    keep_training_booster=True)
     for name in ("hist_batched_int", "fused_hist_scan", "partition_rows"):
         assert kernels.launches[name] > 0, name
     cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(X, label=y),
@@ -461,7 +530,8 @@ def test_packed_int8_training_on_card_matches_cpu_text():
          "tpu_hist_precision": "int8", "tpu_hist_impl": "pallas2",
          "tpu_quant_refit_leaves": False, "verbosity": -1}
     kernels.reset_launches()
-    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3,
+                    keep_training_booster=True)
     assert gpu._driver.learner.packed_bins
     assert kernels.launches["hist_batched_packed_int"] > 0
     assert kernels.launches["hist_batched_int"] == 0
@@ -501,7 +571,8 @@ def test_packed_flat_int8_training_on_card_matches_cpu_text():
          "tpu_hist_precision": "int8", "tpu_hist_impl": "pallas",
          "tpu_quant_refit_leaves": False, "verbosity": -1}
     kernels.reset_launches()
-    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3)
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3,
+                    keep_training_booster=True)
     assert gpu._driver.learner.packed_bins
     assert gpu._driver.learner.packed_block == 256
     assert kernels.launches["hist_flat_packed_int"] > 0

@@ -195,7 +195,8 @@ def hilo_pair(request):
     bj = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
                     num_boost_round=ROUNDS, keep_training_booster=True)
     bt = tlgb.train(dict(params, device_type="cpu"),
-                    tlgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+                    tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                    keep_training_booster=True)
     return X, y, params, bj, bt
 
 
@@ -239,7 +240,8 @@ def test_packed_hilo_layouts_and_lowerings_same_text(hilo_pair, partition):
                         ({"tpu_partition_impl": partition},
                          "tpu_partition_impl")):
         b = tlgb.train(dict(params, device_type="cpu", **extra),
-                       tlgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+                       tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                       keep_training_booster=True)
         assert b._driver.learner.packed_bins == (name != "tpu_pack_bins")
         assert _text(b.model_to_string(), name) == _text(text, name)
 
@@ -260,7 +262,7 @@ def test_packed_int8_model_text_byte_identical(int8_pair, c):
     X, y, out = int8_pair
     params = dict(INT8, tpu_block_rows=BLOCKS[c], device_type="cpu")
     bt = tlgb.train(params, tlgb.Dataset(X, label=y),
-                    num_boost_round=ROUNDS)
+                    num_boost_round=ROUNDS, keep_training_booster=True)
     assert bt._driver.learner.packed_bins
     assert bt._driver.learner.params.hist_impl == "pallas2"
     text = bt.model_to_string()
@@ -268,7 +270,8 @@ def test_packed_int8_model_text_byte_identical(int8_pair, c):
     assert _text(text) == _text(str(out[f"{c}_text"]))
     # and the unpacked run writes it too
     b = tlgb.train(dict(params, tpu_pack_bins=False),
-                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                   keep_training_booster=True)
     assert not b._driver.learner.packed_bins
     assert _text(b.model_to_string(), "tpu_pack_bins") == \
         _text(text, "tpu_pack_bins")
@@ -295,7 +298,7 @@ def test_packed_flat_int_model_text_byte_identical(flat_int_pair, c,
     params = dict(INT8, tpu_hist_precision=precision, tpu_hist_impl="pallas",
                   device_type="cpu")
     bt = tlgb.train(params, tlgb.Dataset(X, label=y),
-                    num_boost_round=ROUNDS)
+                    num_boost_round=ROUNDS, keep_training_booster=True)
     learner = bt._driver.learner
     assert learner.packed_bins and learner.params.hist_impl == "pallas"
     # the flat kernel's 256-row blocks are the pack layout's
@@ -304,7 +307,8 @@ def test_packed_flat_int_model_text_byte_identical(flat_int_pair, c,
     assert _text(text) == _text(str(out[f"{c}_text"]))
     # and the unpacked run writes it too
     b = tlgb.train(dict(params, tpu_pack_bins=False),
-                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                   keep_training_booster=True)
     assert not b._driver.learner.packed_bins
     assert _text(b.model_to_string(), "tpu_pack_bins") == \
         _text(text, "tpu_pack_bins")

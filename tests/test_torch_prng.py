@@ -77,3 +77,33 @@ def test_key_data_refuses_other_shapes():
         prng.key_data(np.zeros(3, np.uint32))
     with pytest.raises(ValueError, match="uint32"):
         prng.key_data(np.zeros(2, np.int64))
+
+
+@pytest.mark.parametrize("n", [1, 2, 28, 32, 1625, 1626, 5000])
+def test_permutation_bitwise(partitionable, n):
+    # 1 takes no sort round, 2..1625 one, 1626 on two (the round count
+    # ceil(3 log n / log(2**32 - 1))); the feature_fraction draw of the
+    # training step permutes F features with its split-off key kf
+    for seed in SEEDS:
+        for kj, kt in ((jax.random.PRNGKey(seed), prng.PRNGKey(seed)),
+                       (jax.random.split(jax.random.PRNGKey(seed))[1],
+                        prng.split(prng.PRNGKey(seed),
+                                   partitionable=partitionable)[1])):
+            ref = np.asarray(jax.random.permutation(kj, n))
+            got = prng.permutation(kt, n, partitionable)
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_random_bits_bitwise(partitionable, n):
+    key = prng.split(prng.PRNGKey(11), partitionable=partitionable)[0]
+    ref = np.asarray(jax.random.bits(jnp_key(key), (n,), np.uint32))
+    np.testing.assert_array_equal(prng.random_bits(key, n, partitionable),
+                                  ref)
+
+
+def jnp_key(words):
+    import jax.numpy as jnp
+
+    return jnp.asarray(words, jnp.uint32)

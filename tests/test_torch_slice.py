@@ -37,7 +37,8 @@ def trained():
     dj, dt = jlgb.Dataset(X, label=y), tlgb.Dataset(X, label=y)
     bj = jlgb.train(dict(PARAMS), dj, num_boost_round=ROUNDS,
                     keep_training_booster=True)
-    bt = tlgb.train(dict(PARAMS), dt, num_boost_round=ROUNDS)
+    bt = tlgb.train(dict(PARAMS), dt, num_boost_round=ROUNDS,
+                    keep_training_booster=True)
     bj.datasets = (dj._inner, dt._inner)
     return X, y, bj, bt
 
@@ -121,7 +122,8 @@ def test_partition_lowerings_grow_the_same_trees(trained, impl):
     # line that names the lowering
     X, y, _, bt = trained
     b = tlgb.train(dict(PARAMS, tpu_partition_impl=impl),
-                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS)
+                   tlgb.Dataset(X, label=y), num_boost_round=ROUNDS,
+                   keep_training_booster=True)
     text = b.model_to_string()
     assert f"[tpu_partition_impl: {impl}]" in text
     assert text.replace(f"[tpu_partition_impl: {impl}]",

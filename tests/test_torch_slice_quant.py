@@ -83,7 +83,8 @@ def jax_ref(tmp_path_factory):
 def port_runs():
     X, ys = _data()
     return [tlgb.train(dict(_params(o, p, r, "fused"), device_type="cpu"),
-                       tlgb.Dataset(X, label=ys[o]), num_boost_round=ROUNDS)
+                       tlgb.Dataset(X, label=ys[o]), num_boost_round=ROUNDS,
+                       keep_training_booster=True)
             for o, p, r in RUNS]
 
 
@@ -128,7 +129,7 @@ def test_histogram_impls_grow_the_same_trees(port_runs, impl, precision):
     p = dict(_params("regression", precision, False, impl),
              device_type="cpu")
     b = tlgb.train(p, tlgb.Dataset(X, label=ys["regression"]),
-                   num_boost_round=ROUNDS)
+                   num_boost_round=ROUNDS, keep_training_booster=True)
     assert b._driver.learner.params.hist_impl == impl
     ref = (port_runs[0] if precision == "int8" else
            tlgb.train(dict(p, tpu_hist_impl="auto"),

@@ -30,12 +30,14 @@ def binary_data(n=2000, f=6, seed=0, nan_frac=0.05, zero_frac=0.0):
 
 
 def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
-               mds=0.0, min_data=5.0):
+               mds=0.0, min_data=5.0, bag=0.0):
     """Seeded numpy operands of the grow megakernel (B2): quantized
     stats, leaf ids, K slots (some dead), parent histograms, the ctx rows
     with both sibling choices and consistent child totals, mixed missing
-    types and bin counts, a penalized and a masked feature.  Returns
-    (dict of arrays, split_kw)."""
+    types and bin counts, a penalized and a masked feature.  With bag > 0
+    (bagged operands) about that share of the rows has zero stats and
+    of the features is masked, drawn from a generator of their own.
+    Returns (dict of arrays, split_kw)."""
     import torch
 
     from lightgbm_tpu_torch.ops import histogram as TH
@@ -47,6 +49,9 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     slots[list(dead)] = -1
     mask = np.ones(n, np.int64)
     mask[-50:] = 0
+    bag_rng = np.random.default_rng(seed + 1000)
+    if bag:
+        mask[bag_rng.random(n) < bag] = 0
     stats = np.stack([rng.integers(-q, q + 1, size=n) * mask,
                       rng.integers(0, q + 1, size=n) * mask,
                       mask]).astype(np.dtype(precision))
@@ -77,6 +82,8 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     meta_f[:, 1] = 1.0
     meta_f[F // 2, 0] = 0.5
     meta_f[F - 1, 1] = 0.0
+    if bag:
+        meta_f[bag_rng.random(F) < bag, 1] = 0.0
     kw = dict(l1=l1, l2=l2, max_delta_step=mds, min_data_in_leaf=min_data,
               min_sum_hessian=1e-3, min_gain_to_split=0.0)
     return dict(bins=bins, stats=stats, leaf=leaf, slots=slots,
@@ -93,6 +100,26 @@ def fused_args(case, B, precision, device="cpu"):
 
     return tuple(torch.from_numpy(case[k]).to(device)
                  for k in FUSED_KEYS) + (B, precision)
+
+
+def assert_trees_match(trees_j, trees_t, rtol=1e-5):
+    """Float-histogram trees of the two packages: the same structure,
+    thresholds and leaf counts; leaf values within rtol of the tree's
+    largest |value| (they are differences of f32 row sums, rounded in
+    another order; tests/test_torch_slice.py:test_trees_equal)."""
+    assert len(trees_t) == len(trees_j)
+    for i, (a, b) in enumerate(zip(trees_j, trees_t)):
+        assert b.num_leaves == a.num_leaves, i
+        ni, nl = a.num_leaves - 1, a.num_leaves
+        for name in ("split_feature", "threshold_in_bin", "decision_type",
+                     "left_child", "right_child"):
+            np.testing.assert_array_equal(getattr(b, name)[:ni],
+                                          getattr(a, name)[:ni],
+                                          err_msg=f"tree {i} {name}")
+        np.testing.assert_array_equal(b.leaf_count[:nl], a.leaf_count[:nl])
+        ref = np.asarray(a.leaf_value[:nl], np.float64)
+        err = np.abs(np.asarray(b.leaf_value[:nl]) - ref).max()
+        assert err <= rtol * np.abs(ref).max(), (i, err)
 
 
 # ---- the JAX package compiled without fused multiply-add ------------------
@@ -197,12 +224,113 @@ def _job_train(inp, spec):
         out[f"{c}_text"] = np.array(b.model_to_string())
         out[f"{c}_raw"] = np.asarray(b.predict(inp["X"], raw_score=True))
         out[f"{c}_key"] = np.asarray(b._driver._key)
+        out[f"{c}_bag_key"] = np.asarray(b._driver._bag_key)
         # the jitted bin-space forest walk (f32 sums over trees) of the
         # first `it` iterations
         for it in spec.get("device_predict_iterations", []):
             out[f"{c}_device_raw_{it}"] = np.asarray(b.predict(
                 inp["X"], raw_score=True, num_iteration=it,
                 tpu_predict_device="true"))
+    return out
+
+
+# ---- training runs with validation sets, callbacks and custom objectives ---
+#
+# One driver for both packages: `train_valid_run(lgb, ...)` takes either
+# module, so the port (in process) and the JAX package (in the no-FMA
+# process, job "train_valid") run the very same script.
+
+
+def fobj_l2(scores, train_set):
+    """Custom L2 gradients on the host (numpy): scores [1, n] f64."""
+    s = scores.reshape(-1)
+    return s - train_set.get_label(), np.ones_like(s)
+
+
+def fobj_logloss(scores, train_set):
+    """Custom binary logloss gradients on the host (numpy)."""
+    s = scores.reshape(-1)
+    p = 1.0 / (1.0 + np.exp(-s))
+    return p - train_set.get_label(), p * (1.0 - p)
+
+
+def fobj_zero(scores, train_set):
+    """No gradient at all: the first tree cannot split."""
+    s = scores.reshape(-1)
+    return np.zeros_like(s), np.ones_like(s)
+
+
+def feval_mae(preds, data):
+    return "mae", float(np.mean(np.abs(preds - data.get_label()))), False
+
+
+FOBJS = {"l2": fobj_l2, "logloss": fobj_logloss, "zero": fobj_zero}
+FEVALS = {"mae": feval_mae}
+
+
+def train_valid_run(lgb, X, y, run):
+    """lgb.train of `lgb` with the run's validation layout, custom
+    functions and callbacks.  run: params, n_train (the rows before it
+    train, the rest validate), rounds, and optionally valid ("valid",
+    "train+valid" or "none"), fobj, feval, early_stopping_rounds,
+    learning_rates, verbose_eval, callbacks (a list of names).  Returns
+    a dict of the model text at the default (best) iteration and in
+    full, the evals_result, best_iteration, best_score, the raw scores
+    of the validation rows and the printed log."""
+    import contextlib
+    import io
+    import json
+
+    p = dict(run["params"])
+    n = run["n_train"]
+    train = lgb.Dataset(X[:n], label=y[:n], params={"max_bin":
+                                                    p["max_bin"]})
+    valid = lgb.Dataset(X[n:], label=y[n:], reference=train)
+    layout = run.get("valid", "valid")
+    sets, names = {"valid": ([valid], ["valid"]),
+                   "train+valid": ([train, valid], ["train", "valid"]),
+                   "none": (None, None)}[layout]
+    evals = {}
+    cbs = []
+    for name in run.get("callbacks", []):
+        if name == "record":
+            cbs.append(lgb.callback.record_evaluation(evals))
+        elif name == "log":
+            cbs.append(lgb.callback.log_evaluation(2))
+        elif name == "early_stopping":
+            cbs.append(lgb.callback.early_stopping(3, verbose=True))
+        elif name == "reset_lr":
+            cbs.append(lgb.callback.reset_parameter(
+                learning_rate=lambda i: 0.6 * 0.97 ** i))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        b = lgb.train(p, train, num_boost_round=run["rounds"],
+                      valid_sets=sets, valid_names=names,
+                      fobj=FOBJS.get(run.get("fobj")),
+                      feval=FEVALS.get(run.get("feval")),
+                      callbacks=cbs or None,
+                      early_stopping_rounds=run.get("early_stopping_rounds"),
+                      learning_rates=run.get("learning_rates"),
+                      verbose_eval=run.get("verbose_eval", False),
+                      evals_result=None if "record" in run.get(
+                          "callbacks", []) else evals)
+    return {"text": b.model_to_string(),
+            "full_text": b.model_to_string(num_iteration=-1),
+            "evals": json.dumps(evals),
+            "best_iteration": b.best_iteration,
+            "best_score": json.dumps(b.best_score),
+            "raw": np.asarray(b.predict(X[n:], raw_score=True)),
+            "log": out.getvalue()}
+
+
+def _job_train_valid(inp, spec):
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        res = train_valid_run(lgb, inp["X"], inp["y_" + run["label"]], run)
+        for k, v in res.items():
+            out[f"{c}_{k}"] = np.asarray(v)
     return out
 
 
@@ -215,5 +343,6 @@ if __name__ == "__main__":
         inp = {k: f[k] for k in f.files}
     spec = json.loads(str(inp.pop("__spec__")))
     result = {"fused": _job_fused, "grow": _job_grow,
-              "train": _job_train}[job](inp, spec)
+              "train": _job_train, "train_valid": _job_train_valid}[job](
+                  inp, spec)
     np.savez(dst, **result)
