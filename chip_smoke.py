@@ -48,6 +48,18 @@ Phases, each fatal on failure (exit code 1, no result line):
        fobj_hilo  hilo with binary logloss gradients given as fobj
                (numpy on the host) through the sync step, 5 iterations:
                B1 and B3; its held-out AUC beside the hilo path's;
+       wide    hilo at max_bin=1023: the learner stores the bins int32
+               (about 1,023 bins a feature), 10 iterations: B1's wide
+               variant (16-bit row-major bins, one tile of bins a block
+               at a time) and B3's (the int32 matrix in place);
+       wide_int8  wide with tpu_hist_precision=int8, 10 iterations: B1's
+               wide integer variant at the root, B2's wide variant every
+               round, B3's, the leaf sums;
+       wide_flat, wide_flat_int8  wide with tpu_hist_impl=pallas (and
+               int8), 5 iterations: B4's wide variants, B3's, the leaf
+               sums;
+     the wide paths print the bytes of the int32 bins and of their 16-bit
+     row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
      shapes its path gives it, with times (ms: the kernel's device time
      per call from torch.profiler; event_ms: CUDA events around 20
@@ -60,6 +72,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      with two slots holding one leaf id; the leaf sums bitwise against
      index_add_ on the CPU; B1-int and B2 also at bagged operands (about
      20% of the rows with zero stats, about 20% of the features masked);
+     the wide variants of B1, B4 (random and root), B2 and B3 on the wide
+     paths' learners, with a second bound that counts each bin tile's
+     re-read of the rows;
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
@@ -69,7 +84,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      card, which must write the same text; and int8 regression with the
      refit off, bagging, feature_fraction, a validation set and an early
      stop that fires, built in and with fobj, whose texts, evals_result
-     curves and best iterations must be equal card to CPU.
+     curves and best iterations must be equal card to CPU; at
+     max_bin=1023 (wide bins), hilo by AUC and regression int8 with the
+     refit off, fused and pallas (B4), by their whole model text.
 With --profile, two more iterations of every path run under
 torch.profiler and the device time by op, each port kernel's device time
 per call on the path and the device's idle share are printed.
@@ -121,6 +138,8 @@ PARAMS = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
 PACKED_PARAMS = {"objective": "binary", "num_leaves": 255,
                  "learning_rate": 0.1, "min_data_in_leaf": 20,
                  "max_bin": 15, "metric": "auc", "verbosity": -1}
+# the wide paths: more than 256 bins a feature, stored int32
+WIDE_PARAMS = dict(PARAMS, max_bin=1023)
 # (name, params, iterations, kernels the path must launch)
 PATHS = [
     ("hilo", PARAMS, ITERS, ("hist_batched", "partition_rows")),
@@ -141,6 +160,16 @@ PATHS = [
     ("packed_flat_int8", dict(PACKED_PARAMS, tpu_hist_impl="pallas",
                               tpu_hist_precision="int8"), ITERS_INT_VARIANT,
      ("hist_flat_packed_int", "leaf_sums")),
+    ("wide", WIDE_PARAMS, ITERS, ("hist_batched_wide",
+                                  "partition_rows_wide")),
+    ("wide_int8", dict(WIDE_PARAMS, tpu_hist_precision="int8"), ITERS,
+     ("hist_batched_wide_int", "fused_hist_scan_wide", "partition_rows_wide",
+      "leaf_sums")),
+    ("wide_flat", dict(WIDE_PARAMS, tpu_hist_impl="pallas"),
+     ITERS_INT_VARIANT, ("hist_flat_wide", "partition_rows_wide")),
+    ("wide_flat_int8", dict(WIDE_PARAMS, tpu_hist_impl="pallas",
+                            tpu_hist_precision="int8"), ITERS_INT_VARIANT,
+     ("hist_flat_wide_int", "partition_rows_wide", "leaf_sums")),
 ]
 
 
@@ -226,9 +255,10 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
     empty profile first takes stragglers of earlier ones, another after
     the timed one takes its own, and the time is the mean over the
     launches seen times `launches`; with launches=None it is the sum
-    seen over reps.  A profile that saw fewer than half the launches (seen
-    on an H100 after the path profiles of --profile: 4 of 20) is taken
-    again, up to PROFILE_TRIES times."""
+    seen over reps.  Where a profile saw fewer than half the launches
+    (seen on an H100 after the path profiles of --profile: 4 and 9 of 20),
+    more are taken, up to PROFILE_TRIES in all, until the launches seen
+    in them together reach half of one profile's."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -242,6 +272,7 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
         return [float(ev.self_device_time_total)
                 for ev, label in zip(events, labels) if label is not None]
 
+    us = []
     for _ in range(PROFILE_TRIES):
         with tprofile(activities=acts):
             torch.cuda.synchronize()
@@ -251,13 +282,13 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
             torch.cuda.synchronize()
         with tprofile(activities=acts) as late:
             torch.cuda.synchronize()
-        us = launches_of(prof) + launches_of(late)
         if launches is None:
-            return sum(us) / 1e3 / reps
+            return sum(launches_of(prof) + launches_of(late)) / 1e3 / reps
+        us += launches_of(prof) + launches_of(late)
         if len(us) >= reps * launches // 2:
             return sum(us) / len(us) * launches / 1e3
-    fail(f"torch.profiler saw {len(us)} port kernel launches in {reps} "
-         f"calls, {PROFILE_TRIES} times")
+    fail(f"torch.profiler saw {len(us)} port kernel launches in "
+         f"{PROFILE_TRIES} profiles of {reps} calls")
 
 
 def smi_line() -> str:
@@ -303,10 +334,14 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
     if driver.learner.packed_bins != packed:
         fail(f"the bins are {'not ' if packed else ''}4-bit packed on "
              "this path")
+    wide = any("_wide" in name for name in must_launch)
+    if (driver.learner.bins_t.dtype == torch.int32) != wide:
+        fail(f"the bins are {driver.learner.bins_t.dtype} on this path")
     hold_auc = auc(pred, yho)
     if not 0.6 < train_auc <= 1.0 or not 0.6 < hold_auc <= 1.0:
         fail(f"AUC out of range: train {train_auc}, held-out {hold_auc}")
     learner = driver.learner
+    rows = getattr(learner.bins_t, "_lgbt_rows", (None, None))[1]
     return {"train_s": train_s, "iters_per_s": iters / train_s,
             "train_auc": train_auc, "holdout_auc": hold_auc,
             "predict_s": predict_s, "predict_rows_per_s": N_HOLD / predict_s,
@@ -315,6 +350,12 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
             "launches": launches, "n_pad": learner.n_pad,
             "f_pad": learner.f_pad, "hist_impl": learner.params.hist_impl,
             "packed_bins": learner.packed_bins,
+            "num_bins": learner.num_bins,
+            "bins_dtype": str(learner.bins_t.dtype),
+            "bins_bytes": learner.bins_t.numel()
+            * learner.bins_t.element_size(),
+            "row_major_bytes": (None if rows is None else
+                                rows.numel() * rows.element_size()),
             "precision": learner.params.precision,
             "split_batch": learner.params.split_batch}, booster
 
@@ -462,28 +503,29 @@ _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
              "aten::lift_fresh", "aten::_unsafe_view"}
 
 
-# device kernel name -> the port kernel (launch counter) it belongs to;
-# B4 is the grouped body under its own tail type (Flat), the packed
-# variants the instances with Packed = true
-_PORT_KERNELS = ((r"ScanTail", "fused_hist_scan"),
-                 (r"grouped_hist_kernel<float,[^>]*Flat[^>]*true>",
-                  "hist_flat_packed"),
-                 (r"grouped_hist_kernel<int,[^>]*Flat[^>]*true>",
-                  "hist_flat_packed_int"),
-                 (r"grouped_hist_kernel<float,[^>]*Flat", "hist_flat"),
-                 (r"grouped_hist_kernel<int,[^>]*Flat", "hist_flat_int"),
-                 (r"grouped_hist_kernel<float,[^>]*true>",
-                  "hist_batched_packed"),
-                 (r"grouped_hist_kernel<int,[^>]*true>",
-                  "hist_batched_packed_int"),
-                 (r"grouped_hist_kernel<float", "hist_batched"),
-                 (r"grouped_hist_kernel<int", "hist_batched_int"),
-                 (r"partition_rows_kernel", "partition_rows"),
-                 (r"leaf_sums_kernel", "leaf_sums"))
+# device kernel name -> the port kernel (launch counter) it belongs to.
+# B1, B4 and B2 are instances of the grouped body: its stats type, its
+# tail (B4: Flat, B2: ScanTail) and its bin layout (U8Bins, PackedBins,
+# WideBins; before the wide layout, a bool: true for packed bins)
+_GROUPED = re.compile(r"grouped_hist_kernel<(float|int), ([^<>]*?), "
+                      r"(?:lgbt::(U8|Packed|Wide)Bins|(true|false))>")
+_LAYOUT_SUFFIX = {"U8": "", "Packed": "_packed", "Wide": "_wide",
+                  "false": "", "true": "_packed"}
+_OTHER_KERNELS = ((r"partition_rows_kernel<int>", "partition_rows_wide"),
+                  (r"partition_rows_kernel", "partition_rows"),
+                  (r"leaf_sums_kernel", "leaf_sums"))
 
 
 def port_kernel(device_name):
-    for part, name in _PORT_KERNELS:
+    m = _GROUPED.search(device_name)
+    if m:
+        acc, tail, layout, flag = m.groups()
+        suffix = _LAYOUT_SUFFIX[layout or flag]
+        if "ScanTail" in tail:
+            return "fused_hist_scan" + suffix
+        base = "hist_flat" if "Flat" in tail else "hist_batched"
+        return base + suffix + ("_int" if acc == "int" else "")
+    for part, name in _OTHER_KERNELS:
         if re.search(part, device_name):
             return name
     return None
@@ -577,14 +619,38 @@ def profile(booster, iters=2, kernels_of=None, fobj=None, evaluate=False):
 
 def _b1_operands(learner):
     """(bins_t, the bins unpacked, packed block, name suffix, bytes of one
-    row's bins of a feature) of kernel B1 or B4 on the learner's matrix:
-    packed 4-bit [F, n/2] bins (the packed variant) or [F, n]."""
+    row's bins of a feature in the kernel's row-major copy) of kernel B1
+    or B4 on the learner's matrix: packed 4-bit [F, n/2] bins (the packed
+    variant), int32 [F, n] (the wide variant, a 16-bit copy) or uint8
+    [F, n]."""
     from lightgbm_tpu_torch.ops import histogram as H
 
     pb = learner.packed_block
     bins_t = learner.bins_t
     full = H.unpack2d(bins_t, pb) if pb else bins_t
-    return bins_t, full, pb, ("_packed" if pb else ""), (0.5 if pb else 1)
+    suffix = H.bins_layout(bins_t, pb)[1]
+    return bins_t, full, pb, suffix, {"_packed": 0.5, "_wide": 2}.get(
+        suffix, 1)
+
+
+def _bin_tiles(learner, S, floats, scan=False):
+    """The bin tiles of the learner's histogram calls on this card (1
+    but for wide bins): each re-reads its rows' bins and stats."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    if learner.bins_t.dtype != torch.int32:
+        return 1
+    plan = H.hist_plan(learner.f_pad, learner.params.split_batch, S,
+                       learner.num_bins, learner.n_pad,
+                       *H._device_limits(torch.cuda.current_device()),
+                       scan=scan, floats=floats, wide=True)
+    return -(-learner.num_bins // plan.bin_tile)
+
+
+def _bins_shape(learner, F, n, pb):
+    dt = {1: "u8", 4: "i32"}[learner.bins_t.element_size()]
+    return f"bins [{F}, {n}] {dt}{' packed 4-bit' if pb else ''}"
 
 
 def _hist_route(learner):
@@ -649,9 +715,9 @@ def check_hist(learner, gen, operands):
             "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}", "ms": ms,
             "event_ms": event_ms, "plain_ms": plain_ms,
             **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S,
-                          bin_bytes),
+                          bin_bytes, _bin_tiles(learner, S, True)),
             "library_ms": lib_ms, **extra,
-            "shape": f"bins [{F}, {n}] u8{' packed 4-bit' if pb else ''}, "
+            "shape": f"{_bins_shape(learner, F, n, pb)}, "
                      f"stats [{S}, {n}] bf16, K={K}, B={B}, live rows {m}"}
 
 
@@ -697,19 +763,22 @@ def check_partition(learner, gen):
     event_ms = cuda_ms(lambda: fused.partition_rows_kernel(*args), 20)
     plain_ms = cuda_ms(lambda: fused.partition_rows_plain(*args), 5)
     m = int(((leaf[None, :] == sel[:, None]) & do_k[:, None]).sum().item())
-    # every leaf id read and written, the bin byte of each row of a
-    # splitting slot, the K slots' seven int32 and two bool parameters;
-    # a table lookup and a select a row, the decision for those rows
-    nbytes = n * 4 + n * 4 + m + K * (7 * 4 + 2)
-    return {"name": "partition_rows", "route": "cuda",
+    # every leaf id read and written, the bin (1 byte, 4 wide) of each
+    # row of a splitting slot, the K slots' seven int32 and two bool
+    # parameters; a table lookup and a select a row, the decision for
+    # those rows
+    bin_bytes = bins_t.element_size()
+    nbytes = n * 4 + n * 4 + m * bin_bytes + K * (7 * 4 + 2)
+    name = "partition_rows" + ("_wide" if bin_bytes == 4 else "")
+    return {"name": name, "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/partition.cu",
             "replaces": "lightgbm_tpu/ops/fused.py:296",
             "max_abs_err": float(err), "max_rel_err": float(err),
             "tolerance": "bitwise (and with a duplicated slot)", "ms": ms,
             "event_ms": event_ms, "plain_ms": plain_ms,
             **_bound(nbytes, n * 2 + m * 4, PEAK_ALU_S), "library_ms": None,
-            "shape": f"bins [{F}, {n}] u8, leaf [{n}] i32, K={K}, "
-                     f"rows of splitting leaves {m}"}
+            "shape": f"{_bins_shape(learner, F, n, 0)}, leaf [{n}] i32, "
+                     f"K={K}, rows of splitting leaves {m}"}
 
 
 def _hilo_stats(learner, gen):
@@ -814,19 +883,24 @@ def _slots_of(learner, gen, operands):
 
 
 def _hist_bound(n, m, F, S, stat_bytes, K, out_words, peak_ops,
-                bin_bytes=1):
+                bin_bytes=1, tiles=1):
     """The bound of a K-slot histogram call, from what its inputs need:
-    every leaf id, the bins (bin_bytes a feature: 0.5 packed) and stats
-    of the m live rows only, the slot ids, and the output written once;
-    m * F * S adds.  Beside it the bound that counts every row's bins
-    and stats, as earlier versions of this script did."""
-    live = (n * 4 + m * (F * bin_bytes + S * stat_bytes) + K * 4
-            + out_words * 4)
-    every = (n * 4 + n * (F * bin_bytes + S * stat_bytes) + K * 4
-             + out_words * 4)
-    return {**_bound(live, m * F * S, peak_ops),
-            "bound_ms_all_rows": _bound(every, m * F * S,
-                                        peak_ops)["bound_ms"]}
+    every leaf id, the bins (bin_bytes a feature: 0.5 packed, 2 wide) and
+    stats of the m live rows only, the slot ids, and the output written
+    once; m * F * S adds.  Beside it the bound that counts every row's
+    bins and stats, as earlier versions of this script did, and, with
+    tiles > 1 bin tiles (wide bins), the one that counts the live rows'
+    bins and stats once a tile, as the kernel reads them."""
+    row = F * bin_bytes + S * stat_bytes
+    fixed = n * 4 + K * 4 + out_words * 4
+    out = {**_bound(fixed + m * row, m * F * S, peak_ops),
+           "bound_ms_all_rows": _bound(fixed + n * row, m * F * S,
+                                       peak_ops)["bound_ms"]}
+    if tiles > 1:
+        out["bin_tiles"] = tiles
+        out["bound_ms_tiled"] = _bound(fixed + tiles * m * row, m * F * S,
+                                       peak_ops)["bound_ms"]
+    return out
 
 
 def _flat_index(bins_t, leaf, slots, B):
@@ -925,9 +999,9 @@ def check_hist_int(learner, gen, operands):
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S,
-                          bin_bytes),
+                          bin_bytes, _bin_tiles(learner, S, False)),
             "library_ms": lib_ms,
-            "shape": f"bins [{F}, {n}] u8{' packed 4-bit' if pb else ''}, "
+            "shape": f"{_bins_shape(learner, F, n, pb)}, "
                      f"stats [3, {n}] int8, K={K}, B={B}, live rows {m}"}
 
 
@@ -1074,13 +1148,23 @@ def check_fused(learner, gen, operands="random"):
     # histograms and records (earlier versions: every row's bins and
     # stats)
     rest = 4 * K + 2 * K * F * B * 12 + (C + 1) * 32 + F * 64 + C * F * 32
-    nbytes = 4 * n + m * (F + 3) + rest
-    nbytes_all = 4 * n + n * (F + 3) + rest
+    # a row's bins in the kernel's row-major copy (16-bit when wide) and
+    # its three int8 stats
+    row = F * (2 if bins_t.dtype == torch.int32 else 1) + 3
+    tiles = _bin_tiles(learner, 3, False, scan=True)
+    nbytes = 4 * n + m * row + rest
+    nbytes_all = 4 * n + n * row + rest
     # histogram adds, then about 100 f32 operations per (child, feature,
     # bin) in the scan (prefix sums, dequantization, both directions'
     # leaf outputs, clips and gains)
     ops = m * F * 3 + C * F * B * 100
-    return {"name": "fused_hist_scan", "operands": operands,
+    extra = {}
+    if tiles > 1:
+        extra = {"bin_tiles": tiles, "bound_ms_tiled": _bound(
+            4 * n + tiles * m * row + rest, ops, PEAK_F32_S)["bound_ms"]}
+    return {"name": "fused_hist_scan" + ("_wide" if bins_t.dtype
+                                         == torch.int32 else ""),
+            "operands": operands, **extra,
             "features_masked": int((args[7][:learner.num_features, 1] == 0)
                                    .sum().item()),
             "route": "cuda",
@@ -1091,8 +1175,8 @@ def check_fused(learner, gen, operands="random"):
             **_bound(nbytes, ops, PEAK_F32_S), "library_ms": None,
             "bound_ms_all_rows": _bound(nbytes_all, ops,
                                         PEAK_F32_S)["bound_ms"],
-            "shape": f"bins [{F}, {n}] u8, stats [3, {n}] int8, K={K}, "
-                     f"B={B}, 2K children, live rows {m}"}
+            "shape": f"{_bins_shape(learner, F, n, 0)}, stats [3, {n}] "
+                     f"int8, K={K}, B={B}, 2K children, live rows {m}"}
 
 
 def _norm_param(text, name):
@@ -1119,6 +1203,12 @@ def cross_check(lgb, X, y):
                 "text"),
             "packed_flat_int8_regression": (
                 dict(PACKED_PARAMS, tpu_hist_impl="pallas", **reg), y_reg,
+                "text"),
+            "wide_hilo": (WIDE_PARAMS, ys, "auc"),
+            "wide_int8_regression": (dict(WIDE_PARAMS, **reg), y_reg,
+                                     "text"),
+            "wide_flat_int8_regression": (
+                dict(WIDE_PARAMS, tpu_hist_impl="pallas", **reg), y_reg,
                 "text")}
     out = {}
     for name, (params, label, by) in runs.items():
@@ -1129,8 +1219,12 @@ def cross_check(lgb, X, y):
             b = lgb.train(p, lgb.Dataset(Xs, label=label, params=p),
                           num_boost_round=ITERS_SMALL,
                           keep_training_booster=True)
-            if b._driver.learner.packed_bins != name.startswith("packed"):
-                fail(f"{name}: packed bins {b._driver.learner.packed_bins}")
+            learner = b._driver.learner
+            if learner.packed_bins != name.startswith("packed"):
+                fail(f"{name}: packed bins {learner.packed_bins}")
+            if (learner.bins_t.element_size() == 4) \
+                    != name.startswith("wide"):
+                fail(f"{name}: bins {learner.bins_t.dtype}")
             if by == "text":
                 texts[dev] = _norm_param(b.model_to_string(), "device_type")
             else:
@@ -1232,17 +1326,21 @@ def main() -> None:
     print(kernels.build_log.strip(), flush=True)
 
     X, y = make_data(N_TRAIN + N_HOLD, N_FEAT)
-    # one binned dataset per max_bin (255, and 15 for the packed paths)
+    # one binned dataset per max_bin (255, 15 for the packed paths, 1023
+    # for the wide ones)
     datasets = {}
     for _, params, _, _ in PATHS:
         if params["max_bin"] not in datasets:
             t0 = time.perf_counter()
-            datasets[params["max_bin"]] = lgb.Dataset(
+            ds = datasets[params["max_bin"]] = lgb.Dataset(
                 X[:N_TRAIN], label=y[:N_TRAIN],
                 params=dict(params)).construct()
             torch.cuda.synchronize()
+            bins = ds._inner.bins_t
             print(f"ingest_s max_bin={params['max_bin']} "
-                  f"{time.perf_counter() - t0:.3f}", flush=True)
+                  f"{time.perf_counter() - t0:.3f} bins {bins.dtype} "
+                  f"{bins.numel() * bins.element_size()} bytes, up to "
+                  f"{ds._inner.max_num_bin} bins a feature", flush=True)
     reports, boosters = {}, {}
     for name, params, iters, must in PATHS:
         reports[name], boosters[name] = main_path(
@@ -1273,13 +1371,16 @@ def main() -> None:
     # B1 and B4 with their integer and packed variants, each at random
     # and root operands
     for path in ("hilo", "int8", "flat", "flat_int8", "packed",
-                 "packed_int8", "packed_flat", "packed_flat_int8"):
+                 "packed_int8", "packed_flat", "packed_flat_int8", "wide",
+                 "wide_int8", "wide_flat", "wide_flat_int8"):
         check = check_hist_int if path.endswith("int8") else check_hist
         kernel_rows += [(check(learners[path], gen, operands), path)
                         for operands in ("random", "root")]
     kernel_rows += [(check_fused(learners["int8"], gen), "int8"),
                     (check_partition(learners["hilo"], gen), "hilo"),
-                    (check_leaf_sums(learners["int8"], gen), "int8")]
+                    (check_leaf_sums(learners["int8"], gen), "int8"),
+                    (check_fused(learners["wide_int8"], gen), "wide_int8"),
+                    (check_partition(learners["wide"], gen), "wide")]
     # B1-int and B2 on bagged operands: rows with zero stats, features
     # masked, at the validation path's shapes
     bagged = learners["valid_bag_int8"]

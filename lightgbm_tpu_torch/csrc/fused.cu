@@ -21,17 +21,25 @@
 // previous version took four (slot pass, histogram, reduce, scan).
 //
 // The scan: the blocks are cut into parts of 256 threads, each with its
-// own named barrier, and a part takes one (child, feature) at a time,
-// one thread per bin (B <= 256).  Each thread masks its bin as the search
-// does (the zero bin of a zero-missing feature, the NaN bin, bins past
-// num_bin), the part takes inclusive int32 prefix sums of (g, h, count)
-// -- exact in any order -- and each thread dequantizes its prefix,
-// evaluates both missing-value directions at its threshold, and the part
-// reduces to the best threshold of each direction: the first maximum for
-// +1 and the last for -1, the reference's tie-break that the twin takes
-// with argmax.  (One warp per item, eight bins a lane, keeps a serial
-// chain of sixteen gain evaluations a lane: 73 us a round against about
-// 14 us for one thread a bin, NVIDIA H100 80GB HBM3, 700 W.)
+// own named barrier, and a part takes one (child, feature) at a time, in
+// tiles of 256 bins, one thread a bin.  Each thread masks its bin as the
+// search does (the zero bin of a zero-missing feature, the NaN bin, bins
+// past num_bin), the part takes inclusive int32 prefix sums of (g, h,
+// count) -- exact in any order -- carried from tile to tile, and each
+// thread dequantizes its prefix, evaluates both missing-value directions
+// at its threshold, and keeps its best of each direction with the int32
+// prefix sums there; the part then reduces to the best threshold of each
+// direction: the first maximum for +1 and the last for -1, across tiles
+// too, the reference's tie-break that the twin takes with argmax.  With
+// more than one tile (wide bins, B > 256) a first pass adds up the
+// totals that direction -1 reads; with one they are the tile's.  (One
+// warp per item, eight bins a lane, keeps a serial chain of sixteen gain
+// evaluations a lane: 73 us a round against about 14 us for one thread a
+// bin, NVIDIA H100 80GB HBM3, 700 W.)
+//
+// Wide bins (int32 bins_t; the TPU kernel reads them at fused.py:148):
+// the histogram phases are B1's WideBins instance (16-bit row-major
+// bins, one tile of bins a block at a time, grouped_hist.cuh).
 //
 // Rounding: the twin is a sequence of PyTorch elementwise ops, each
 // rounded on its own.  Every product, sum and quotient here is written
@@ -53,7 +61,7 @@ namespace {
 
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
-constexpr int kScanThreads = 256;   // one thread per bin (B <= 256)
+constexpr int kScanThreads = 256;   // bins a part scans at a time
 constexpr int kWarps = kScanThreads / 32;
 // ctx columns (ops/fused.py CTX_*)
 constexpr int kCtxSumG = 0, kCtxSumH = 1, kCtxCount = 2, kCtxMinC = 3,
@@ -154,28 +162,27 @@ struct ScanTail {
     float* records;         // [2K][F][8]
     SplitScalars p;
   };
-  // a part's shared words: wsum[3][8], cum[3][256], left_m1[3][256],
-  // red_v[2][8], red_i[2][8] (ops/histogram.py:_SCAN_WORDS)
-  static constexpr int kWords = 3 * kWarps + 6 * kScanThreads + 4 * kWarps;
+  // a part's shared words: wsum[3][8] (each warp's int32 sums), red_v[2][8],
+  // red_i[2][8] (each warp's best of each direction), win[3] and a pad
+  // (the int32 prefix sums at the chosen threshold;
+  // ops/histogram.py:_SCAN_WORDS)
+  static constexpr int kWords = 3 * kWarps + 4 * kWarps + 4;
 
-  // child j, feature f, on one part of kScanThreads threads, one per bin
+  // child j, feature f, on one part of kScanThreads threads, in tiles of
+  // one bin a thread
   __device__ static void scan_one(const lgbt::HistArgs& a, const Args& t,
                                   int j, int f, int part, int* words) {
     int(*wsum)[kWarps] = reinterpret_cast<int(*)[kWarps]>(words);
-    float(*cum)[kScanThreads] =
-        reinterpret_cast<float(*)[kScanThreads]>(words + 3 * kWarps);
-    float(*left_m1)[kScanThreads] = reinterpret_cast<float(*)[kScanThreads]>(
-        words + 3 * kWarps + 3 * kScanThreads);
-    float(*red_v)[kWarps] = reinterpret_cast<float(*)[kWarps]>(
-        words + 3 * kWarps + 6 * kScanThreads);
-    int(*red_i)[kWarps] = reinterpret_cast<int(*)[kWarps]>(
-        words + 5 * kWarps + 6 * kScanThreads);
+    float(*red_v)[kWarps] =
+        reinterpret_cast<float(*)[kWarps]>(words + 3 * kWarps);
+    int(*red_i)[kWarps] =
+        reinterpret_cast<int(*)[kWarps]>(words + 5 * kWarps);
+    int* win = words + 7 * kWarps;
     const int F = a.F, B = a.B, K = a.K, C = 2 * K;
     const int k = j % K;
-    const int32_t* raw = static_cast<const int32_t*>(a.raw);
     const SplitScalars& p = t.p;
-    const int b = threadIdx.x % kScanThreads;
-    const int lane = b & 31, warp = b >> 5;
+    const int tb = threadIdx.x % kScanThreads;
+    const int lane = tb & 31, warp = tb >> 5;
 
     const int nb = t.meta_i[f * 8 + 0];
     const int mt = t.meta_i[f * 8 + 1];
@@ -188,87 +195,139 @@ struct ScanTail {
     const float min_c = cj[kCtxMinC], max_c = cj[kCtxMaxC];
     const bool use_small = cj[kCtxUseSmall] > 0.f;
     const float* qs = t.ctx + C * 8;
-
     const bool is_nan = mt == kMissingNan;
-    const bool skip = (mt == kMissingZero) && b == db;
-    const bool na = is_nan && b == nb - 1;
+    // the fresh sums, written by other blocks' atomics: from L2
+    const int32_t* small_row =
+        static_cast<const int32_t*>(a.raw)
+        + (static_cast<long long>(k) * F + f) * lgbt::padded_row(B, 3);
+    const int32_t* parent_row =
+        t.parent + (static_cast<long long>(k) * F + f) * B * 3;
 
-    // ---- sibling subtraction and the masked bins, in int32 ----
-    int v[3] = {0, 0, 0};
-    if (b < B && !skip && !na && b < nb) {
+    // bin b's sibling-subtracted int32 sums, 0 where the search masks
+    // the bin (the zero bin of a zero-missing feature, the NaN bin, bins
+    // past num_bin or B)
+    auto sums_of = [&](int b, int* v) {
+      v[0] = v[1] = v[2] = 0;
+      if (b >= B || b >= nb || (mt == kMissingZero && b == db)
+          || (is_nan && b == nb - 1))
+        return;
       for (int c = 0; c < 3; ++c) {
-        // the fresh sums, written by other blocks' atomics: from L2
-        const int small = __ldcg(
-            raw + (static_cast<long long>(k) * F + f) * lgbt::padded_row(B, 3)
-            + b * 3 + c);
-        v[c] = use_small
-                   ? small
-                   : __ldg(t.parent
-                           + ((static_cast<long long>(k) * F + f) * B + b)
-                                 * 3
-                           + c) - small;
+        const int small = __ldcg(small_row + b * 3 + c);
+        v[c] = use_small ? small : __ldg(parent_row + b * 3 + c) - small;
       }
-    }
-    // ---- inclusive int32 prefix sums over the bins (exact) ----
-    for (int c = 0; c < 3; ++c) {
-      int x = v[c];
+    };
+    // the part's int32 totals of x[3] (exact in any order), in wsum
+    auto part_sum = [&](int* x) {
+      for (int c = 0; c < 3; ++c) {
+        int y = x[c];
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, d);
-        if (lane >= d) x += y;
+        for (int d = 16; d > 0; d >>= 1)
+          y += __shfl_xor_sync(0xffffffffu, y, d);
+        if (lane == 0) wsum[c][warp] = y;
       }
-      v[c] = x;
-      if (lane == 31) wsum[c][warp] = x;
-    }
-    part_sync(part);
-    for (int c = 0; c < 3; ++c) {
-      int off = 0;
-      for (int w = 0; w < warp; ++w) off += wsum[c][w];
-      v[c] += off;
-      cum[c][b] = __fmul_rn(__int2float_rn(v[c]), qs[c]);
-    }
-    part_sync(part);
+      part_sync(part);
+      for (int c = 0; c < 3; ++c) {
+        x[c] = 0;
+        for (int w = 0; w < kWarps; ++w) x[c] += wsum[c][w];
+      }
+      part_sync(part);
+    };
 
-    // ---- gains of both directions at this thread's threshold ----
+    // ---- the totals over every bin, which direction -1 reads; with one
+    // tile they come out of its prefix sums ----
+    int tot[3] = {0, 0, 0};
+    const bool tiled = B > kScanThreads;
+    if (tiled) {
+      for (int b = tb; b < B; b += kScanThreads) {
+        int v[3];
+        sums_of(b, v);
+        for (int c = 0; c < 3; ++c) tot[c] += v[c];
+      }
+      part_sum(tot);
+    }
+
     const float sh_eps = __fadd_rn(sh, static_cast<float>(2e-15));
     const float gain_shift = gain_terms(threshold_l1(sg, p.l1),
                                         leaf_output(sg, sh_eps, p), sh_eps,
                                         p);
     const float min_gain_shift = __fadd_rn(gain_shift, p.min_gain);
-    // bins past B never win: every real gain is >= -1e30
+    // this thread's best threshold of each direction, and the int32
+    // prefix sums there: the first maximum for +1, the last for -1
     const float neg_inf = -__int_as_float(0x7f800000);
-    float g_p1 = neg_inf, g_m1 = neg_inf;
-    if (b < B) {
-      const float cg = cum[0][b], ch = cum[1][b], cc = cum[2][b];
-      g_p1 = eval_dir(cg, ch, cc, b <= nb - 2 && !skip, sg, sh, nd, min_c,
-                      max_c, mono, min_gain_shift, p);
-      const float lg = __fsub_rn(sg, __fsub_rn(cum[0][B - 1], cg));
-      const float lh = __fsub_rn(sh, __fsub_rn(cum[1][B - 1], ch));
-      const float lc = __fsub_rn(nd, __fsub_rn(cum[2][B - 1], cc));
-      left_m1[0][b] = lg;
-      left_m1[1][b] = lh;
-      left_m1[2][b] = lc;
-      g_m1 = eval_dir(lg, lh, lc, b <= nb - 2 - (is_nan ? 1 : 0) && !skip,
-                      sg, sh, nd, min_c, max_c, mono, min_gain_shift, p);
+    float vp = neg_inf, vm = neg_inf;
+    int ip = -1, im = -1;
+    int pp[3] = {0, 0, 0}, pm[3] = {0, 0, 0};
+    int carry[3] = {0, 0, 0};
+    for (int t0 = 0; t0 < B; t0 += kScanThreads) {
+      const int b = t0 + tb;
+      // ---- inclusive int32 prefix sums over the bins (exact) ----
+      int v[3];
+      sums_of(b, v);
+      for (int c = 0; c < 3; ++c) {
+        int x = v[c];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, d);
+          if (lane >= d) x += y;
+        }
+        v[c] = x;
+        if (lane == 31) wsum[c][warp] = x;
+      }
+      part_sync(part);
+      for (int c = 0; c < 3; ++c) {
+        int off = carry[c], all = 0;
+        for (int w = 0; w < kWarps; ++w) {
+          if (w < warp) off += wsum[c][w];
+          all += wsum[c][w];
+        }
+        v[c] += off;
+        carry[c] += all;
+        if (!tiled) tot[c] = carry[c];
+      }
+      // the next tile writes wsum once every thread has read it
+      if (t0 + kScanThreads < B) part_sync(part);
+      if (b >= B) continue;
+      // ---- gains of both directions at this thread's threshold ----
+      float cum[3], left[3];
+      for (int c = 0; c < 3; ++c) {
+        cum[c] = __fmul_rn(__int2float_rn(v[c]), qs[c]);
+        const float last = __fmul_rn(__int2float_rn(tot[c]), qs[c]);
+        left[c] = __fsub_rn(c == 0 ? sg : (c == 1 ? sh : nd),
+                            __fsub_rn(last, cum[c]));
+      }
+      const bool skip = (mt == kMissingZero) && b == db;
+      const float g_p1 = eval_dir(cum[0], cum[1], cum[2],
+                                  b <= nb - 2 && !skip, sg, sh, nd, min_c,
+                                  max_c, mono, min_gain_shift, p);
+      const float g_m1 = eval_dir(
+          left[0], left[1], left[2],
+          b <= nb - 2 - (is_nan ? 1 : 0) && !skip, sg, sh, nd, min_c,
+          max_c, mono, min_gain_shift, p);
+      const int ip0 = ip, im0 = im;
+      arg_better(vp, ip, g_p1, b, true);
+      arg_better(vm, im, g_m1, b, false);
+      for (int c = 0; c < 3; ++c) {
+        if (ip != ip0) pp[c] = v[c];
+        if (im != im0) pm[c] = v[c];
+      }
     }
-    // ---- best threshold per direction: first max (+1), last max (-1) ----
-    float vp = g_p1, vm = g_m1;
-    int ip = b, im = b;
+    // ---- best threshold per direction over the part ----
+    float wp = vp, wm = vm;
+    int jp = ip, jm = im;
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) {
-      arg_better(vp, ip, __shfl_xor_sync(0xffffffffu, vp, d),
-                 __shfl_xor_sync(0xffffffffu, ip, d), true);
-      arg_better(vm, im, __shfl_xor_sync(0xffffffffu, vm, d),
-                 __shfl_xor_sync(0xffffffffu, im, d), false);
+      arg_better(wp, jp, __shfl_xor_sync(0xffffffffu, wp, d),
+                 __shfl_xor_sync(0xffffffffu, jp, d), true);
+      arg_better(wm, jm, __shfl_xor_sync(0xffffffffu, wm, d),
+                 __shfl_xor_sync(0xffffffffu, jm, d), false);
     }
     if (lane == 0) {
-      red_v[0][warp] = vp;
-      red_i[0][warp] = ip;
-      red_v[1][warp] = vm;
-      red_i[1][warp] = im;
+      red_v[0][warp] = wp;
+      red_i[0][warp] = jp;
+      red_v[1][warp] = wm;
+      red_i[1][warp] = jm;
     }
     part_sync(part);
-    if (b != 0) return;
     float best_p1 = red_v[0][0], best_m1 = red_v[1][0];
     int idx_p1 = red_i[0][0], idx_m1 = red_i[1][0];
     for (int w = 1; w < kWarps; ++w) {
@@ -276,8 +335,14 @@ struct ScanTail {
       arg_better(best_m1, idx_m1, red_v[1][w], red_i[1][w], false);
     }
     const bool use_p1 = best_p1 > best_m1;
-    float feat_gain = use_p1 ? best_p1 : best_m1;
     const int thr = use_p1 ? idx_p1 : idx_m1;
+    // the thread that took bin thr publishes its prefix sums there (the
+    // part's best is its own best too: the order is total)
+    if (use_p1 ? ip == thr : im == thr)
+      for (int c = 0; c < 3; ++c) win[c] = use_p1 ? pp[c] : pm[c];
+    part_sync(part);
+    if (tb != 0) return;
+    float feat_gain = use_p1 ? best_p1 : best_m1;
     bool dleft = !use_p1;
     // only-2-bin NaN features get default_left = false
     if (nb <= 2 && is_nan) dleft = false;
@@ -290,8 +355,12 @@ struct ScanTail {
     rec[0] = out_gain;
     rec[1] = static_cast<float>(thr);
     rec[2] = dleft ? 1.f : 0.f;
-    for (int c = 0; c < 3; ++c) rec[3 + c] = dleft ? left_m1[c][thr]
-                                                   : cum[c][thr];
+    const float tots[3] = {sg, sh, nd};
+    for (int c = 0; c < 3; ++c) {
+      const float cum = __fmul_rn(__int2float_rn(win[c]), qs[c]);
+      const float last = __fmul_rn(__int2float_rn(tot[c]), qs[c]);
+      rec[3 + c] = dleft ? __fsub_rn(tots[c], __fsub_rn(last, cum)) : cum;
+    }
     rec[6] = 0.f;
     rec[7] = 0.f;
   }
@@ -317,19 +386,21 @@ struct ScanTail {
 }  // namespace
 
 // One cooperative launch: B1's integer histogram of the K slots into raw
-// ([K][F][BSp] int32, BSp = 3B padded to 4; scratch and plan as
-// lgbt_hist_batched's), then the
+// ([K][F][BSp] int32, BSp = 3B padded to 4; bins_rm, bins, scratch and
+// plan as lgbt_hist_batched's, bins 0 or 2), then the
 // scan into records ([2K][F][8] f32).  parent: [K][F][B][3] int32; ctx:
 // [2K+1][8] f32; meta_i / meta_f: [F][8].  Returns a cudaError_t (0 =
 // launched).
 extern "C" int lgbt_fused_hist_scan(
-    const void* bins_rm, int FR, const void* stats, int stats_kind,
+    const void* bins_rm, int FR, int bins, const void* stats, int stats_kind,
     const void* leaf, const void* slots, void* scratch, void* raw,
     const void* parent, const void* ctx, const void* meta_i,
     const void* meta_f, void* records, int F, long long n, int K, int B,
     const int* plan, float l1, float l2, float max_delta_step,
     float min_data, float min_hess, float min_gain, void* stream) {
-  if (B < 1 || B > kScanThreads || K < 1 || F < 1 || n < 1
+  const bool wide = bins == lgbt::WideBins::kCode;
+  if (B < 1 || B > (wide ? 65536 : 256) || K < 1 || F < 1 || n < 1
+      || (!wide && bins != lgbt::U8Bins::kCode)
       || (stats_kind != lgbt::kI8 && stats_kind != lgbt::kI16))
     return static_cast<int>(cudaErrorInvalidValue);
   lgbt::HistArgs a{};
@@ -357,6 +428,9 @@ extern "C" int lgbt_fused_hist_scan(
                    static_cast<float*>(records),
                    SplitScalars{l1, l2, max_delta_step, min_data, min_hess,
                                 min_gain, max_delta_step > 0.f ? 1 : 0}};
-  return lgbt::launch_grouped<int, ScanTail>(
-      a, t, plan, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wide ? lgbt::launch_grouped<int, ScanTail, lgbt::WideBins>(a, t,
+                                                                   plan, st)
+              : lgbt::launch_grouped<int, ScanTail, lgbt::U8Bins>(a, t,
+                                                                 plan, st);
 }

@@ -27,12 +27,27 @@
 //      (a slot's words contiguous, rows padded to 4 words) with global
 //      atomics, a warp's 32 lanes on consecutive words.
 //
-// Packed 4-bit bins (the Packed instance, B1 and B4, B <= 16): the
+// Packed 4-bit bins (the PackedBins instance, B1 and B4, B <= 16): the
 // row-major copy holds two features a byte, feature 2j of a chunk in the
 // low nibble of byte j and 2j + 1 in the high one, so a row of a chunk
 // is one 16-byte sector (one load) and the tile 5 words an entry; lane f
 // takes nibble f of its entry's 16 bytes.  Phases A and B do not read
 // bins and are the same; so are the sums and the flush, at B <= 16 bins.
+//
+// Wide bins (the WideBins instance, B1, B2 and B4, B > 256: the int32
+// bins of max_bin > 255, learner.py:486 of the JAX package): the
+// row-major copy holds 16 bits a bin, so a row of a chunk is 64 bytes
+// (two sectors, four 16-byte loads) and the tile 16 words and a pad an
+// entry; lane f takes halfword f.  One slot's [B][S][32] sums do not fit
+// a block at B > 256 (655,360 bytes of f32 sums at B = 1024), so a
+// block holds one tile of bin_tile bins (the plan's) at a time: phase
+// C's items are (segment x feature chunk x bin tile), the tile fastest,
+// so that the blocks of one segment's tiles run together and its rows'
+// second reads come from L2.  A lane adds only the bins of its item's
+// tile, and the flush writes them at the tile's bin offset of the same
+// [K][F][BSp] output.  Every tile walks its segment's rows again: the
+// bins and stats are read ceil(B / bin_tile) times (4 at max_bin=1023
+// with f32 sums).  The uint8 and packed instances are one tile of B.
 //
 // The adds.  int32 sums (int8/int16 stats) use the native shared ATOMS.ADD
 // and global RED.ADD, exact in any order.  An f32 atomicAdd on shared
@@ -87,10 +102,30 @@ struct Layout<float> {
 };
 constexpr int kStageWarps = 8;
 constexpr int kStageWords = kChunk * (kChunk + 1);
-// phase C's per-warp tile of 32 entries' bins: 8 words and a pad each,
-// or, for packed bins, 4 words and a pad (ops/histogram.py _TILE_STRIDE*)
-constexpr int kTileStride = 9;
-constexpr int kTileStridePacked = 5;
+// the bin layouts of the row-major copy (ops/histogram.py BINS_*): bytes
+// a row of a 32-feature chunk, phase C's per-warp tile of 32 entries'
+// bins (those bytes' words and a pad each: ops/histogram.py
+// _TILE_STRIDE*), and lane f's bin in its entry's words
+struct U8Bins {
+  static constexpr int kCode = 0, kRowBytes = 32, kTileStride = 9;
+  __device__ static int word(int f) { return f >> 2; }
+  __device__ static int shift(int f) { return 8 * (f & 3); }
+  static constexpr uint32_t kMask = 0xffu;
+};
+struct PackedBins {
+  static constexpr int kCode = 1, kRowBytes = 16, kTileStride = 5;
+  __device__ static int word(int f) { return f >> 3; }
+  __device__ static int shift(int f) { return 4 * (f & 7); }
+  static constexpr uint32_t kMask = 0xfu;
+};
+struct WideBins {
+  static constexpr int kCode = 2, kRowBytes = 64, kTileStride = 17;
+  __device__ static int word(int f) { return f >> 1; }
+  __device__ static int shift(int f) { return 16 * (f & 1); }
+  static constexpr uint32_t kMask = 0xffffu;
+};
+// the bin of a lane without a feature: above every tile
+constexpr int kNoBin = 0x7fffffff;
 constexpr int kGroupUnroll = 4;  // rows per lane in flight in phases A, B
 constexpr int kMaxThreads = 1024;
 // stat types (the wrapper's _STAT_KINDS)
@@ -98,7 +133,7 @@ constexpr int kBF16 = 0, kF32 = 1, kI8 = 2, kI16 = 3;
 // plan fields (ops/histogram.py HistPlan order)
 constexpr int kPlanThreads = 0, kPlanSmem = 1, kPlanChunks = 2,
               kPlanGrid = 3, kPlanSegRows = 4, kPlanTileRows = 5,
-              kPlanFields = 6;
+              kPlanBinTile = 6, kPlanFields = 7;
 
 struct HistArgs {
   const uint8_t* bins_rm;  // [n, FR] row-major bins (FR bytes a row)
@@ -113,6 +148,7 @@ struct HistArgs {
   long long n;
   int FR, kind, S, F, K, B;
   int chunks, seg_rows, tile_rows;
+  int bin_tile, tiles;     // bins a block's sums hold; tiles covering B
   int group_only;          // stop after phase B (the tests' entry)
 };
 
@@ -381,32 +417,29 @@ __device__ __forceinline__ void add_run(Acc* sh, int bin, const Acc* acc,
                          acc[s]);
 }
 
-// rows [a0, e0) of the grouped list, features [f0, f0 + fc).  A warp
-// takes 32 list entries at a time: lane e loads entry e (row index,
-// packed stats) and gathers that row's 32 bins (one 32-byte sector, two
-// 16-byte loads; packed bins one 16-byte load), so the warp has 32
-// gathers in flight; the bins go through the warp's tile in shared
-// memory (9 words an entry, 5 packed: lane e's writes on distinct banks)
-// and lane f reads feature f of each entry.
-template <bool Packed>
-__host__ __device__ constexpr int tile_stride() {
-  return Packed ? kTileStridePacked : kTileStride;
-}
-
-template <typename Acc, bool Packed>
+// rows [a0, e0) of the grouped list, features [f0, f0 + fc), bins
+// [b0, b0 + nbt).  A warp takes 32 list entries at a time: lane e loads
+// entry e (row index, packed stats) and gathers that row's 32 bins (one
+// 32-byte sector, two 16-byte loads; packed bins one 16-byte load, wide
+// bins four), so the warp has 32 gathers in flight; the bins go through
+// the warp's tile in shared memory (9 words an entry, 5 packed, 17
+// wide: lane e's writes on distinct banks) and lane f reads feature f of
+// each entry.
+template <typename Acc, class Bins>
 __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
-                           int a0, int e0, int f0, int fc) {
+                           int a0, int e0, int f0, int fc, int b0,
+                           int nbt) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const bool feat = lane < fc;
-  constexpr bool packed = Packed;
-  constexpr int ts = tile_stride<Packed>();
-  // lane f's bin: byte f of its entry's word f / 4, or nibble f of word
-  // f / 8 for packed bins
-  const int word = packed ? lane >> 3 : lane >> 2;
-  const int shift = packed ? 4 * (lane & 7) : 8 * (lane & 3);
-  const uint32_t bin_mask = packed ? 0xfu : 0xffu;
-  const int S = a.S, B = a.B;
+  constexpr int ts = Bins::kTileStride;
+  constexpr int loads = Bins::kRowBytes / 16;
+  const int word = Bins::word(lane);
+  const int shift = Bins::shift(lane);
+  // the chunk's first byte of a row
+  const long long chunk_byte = static_cast<long long>(f0)
+                               * Bins::kRowBytes / kChunk;
+  const int S = a.S;
   const unsigned full = 0xffffffffu;
   // the 32-bit words a row's packed stats fill
   const int esize = (a.kind == kF32) ? 4 : (a.kind == kI8 ? 1 : 2);
@@ -419,20 +452,24 @@ __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
     const int i = base + lane;
     const int cnt = min(32, e0 - base);
     uint4 my_q = make_uint4(0u, 0u, 0u, 0u);
-    uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+    uint4 rb[loads];
+#pragma unroll
+    for (int j = 0; j < loads; ++j) rb[j] = make_uint4(0u, 0u, 0u, 0u);
     if (i < e0) {
       const int r = __ldcg(a.rows + i);
       my_q = __ldcg(a.gstats + i);
       const uint4* src = reinterpret_cast<const uint4*>(
-          a.bins_rm + static_cast<long long>(r) * a.FR
-          + (packed ? f0 >> 1 : f0));
-      lo = __ldg(src);
-      if constexpr (!packed) hi = __ldg(src + 1);
+          a.bins_rm + static_cast<long long>(r) * a.FR + chunk_byte);
+#pragma unroll
+      for (int j = 0; j < loads; ++j) rb[j] = __ldg(src + j);
     }
     uint32_t* t = tile + lane * ts;
-    t[0] = lo.x; t[1] = lo.y; t[2] = lo.z; t[3] = lo.w;
-    if constexpr (!packed) {
-      t[4] = hi.x; t[5] = hi.y; t[6] = hi.z; t[7] = hi.w;
+#pragma unroll
+    for (int j = 0; j < loads; ++j) {
+      t[4 * j] = rb[j].x;
+      t[4 * j + 1] = rb[j].y;
+      t[4 * j + 2] = rb[j].z;
+      t[4 * j + 3] = rb[j].w;
     }
     __syncwarp();
     for (int e = 0; e < cnt; ++e) {
@@ -441,9 +478,14 @@ __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
       if (qwords > 1) q.y = __shfl_sync(full, my_q.y, e);
       if (qwords > 2) q.z = __shfl_sync(full, my_q.z, e);
       if (qwords > 3) q.w = __shfl_sync(full, my_q.w, e);
-      const int bin = feat ? (tile[e * ts + word] >> shift) & bin_mask
-                           : 256;
-      if (bin >= B) continue;  // not a feature, or a bin past num_bins
+      // the bin within this item's tile
+      const int bin =
+          feat ? static_cast<int>((tile[e * ts + word] >> shift)
+                                  & Bins::kMask) - b0
+               : kNoBin;
+      // not a feature, a bin of another tile, or a bin past num_bins
+      if (static_cast<unsigned>(bin) >= static_cast<unsigned>(nbt))
+        continue;
       Acc v[kMaxS];
       unpack_stats<Acc>(q, a.kind, v);
       if (bin == cur) {
@@ -461,16 +503,18 @@ __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
   if (cur >= 0) add_run<Acc>(sh, cur, acc, S, lane);
 }
 
-// the block's sums of slot k into raw (and into every later slot with
-// the same leaf id), then zero them.  raw is [K][F][BSp], so the words
-// of one (slot, feature) are contiguous and a warp's global adds cover
-// consecutive words: int32 sums one word a lane, f32 sums four (one
-// 16-byte atomic a lane, sm_90).
+// the block's sums of slot k, bins [b0, b0 + nbt), into raw (and into
+// every later slot with the same leaf id), then zero them.  raw is
+// [K][F][BSp], so the words of one (slot, feature) are contiguous and a
+// warp's global adds cover consecutive words: int32 sums one word a
+// lane, f32 sums four (one 16-byte atomic a lane, sm_90; b0 is a
+// multiple of 4, so a tile's words start 16-byte aligned).
 template <typename Acc>
 __device__ void flush(const HistArgs& a, const Persist& p, Acc* sh, int k,
-                      int f0, int fc) {
-  Acc* raw = static_cast<Acc*>(a.raw);
-  const int BS = a.B * a.S, BSp = padded_row(a.B, a.S);
+                      int f0, int fc, int b0, int nbt) {
+  Acc* raw = static_cast<Acc*>(a.raw) + static_cast<long long>(b0) * a.S;
+  // the tile's words, and the row stride of raw
+  const int BS = nbt * a.S, BSp = padded_row(a.B, a.S);
   if constexpr (Layout<Acc>::kStride != kChunk) {
     for (int i = threadIdx.x; i < fc * BS; i += blockDim.x) {
       const int f = i / BS, rem = i % BS;  // rem = bin * S + stat
@@ -485,8 +529,10 @@ __device__ void flush(const HistArgs& a, const Persist& p, Acc* sh, int k,
     }
   } else {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // the tile's words padded to 4: the last tile ends at BSp
+    const int BSt = padded_row(nbt, a.S);
     if (warp < kStageWarps) {
-      Acc* st = sh + BS * kChunk + warp * kStageWords;
+      Acc* st = sh + a.bin_tile * a.S * kChunk + warp * kStageWords;
       const int sub = lane & 7, grp = lane >> 3;
       for (int r0 = warp * 32; r0 < BS; r0 += kStageWarps * 32) {
         // read lane = feature (bank = lane), write transposed
@@ -503,7 +549,7 @@ __device__ void flush(const HistArgs& a, const Persist& p, Acc* sh, int k,
         __syncwarp();
         // lane (grp, sub): words r0 + 4 sub .. + 3 of features grp + 4 i
         const int rem = r0 + 4 * sub;
-        if (rem < BSp) {
+        if (rem < BSt) {
           for (int f = grp; f < fc; f += 4) {
             const Acc* c = st + 4 * sub * (kChunk + 1) + f;
             const float4 v = make_float4(c[0], c[kChunk + 1],
@@ -526,51 +572,56 @@ __device__ void flush(const HistArgs& a, const Persist& p, Acc* sh, int k,
 }
 
 // rows of the grouped list a block takes at a time: at least seg_rows,
-// and few enough that the grid's blocks share the m rows x chunks
+// and few enough that the grid's blocks share the m rows x chunks x bin
+// tiles
 __device__ __forceinline__ int segment_rows(const HistArgs& a, int m) {
   const long long per =
-      (static_cast<long long>(m) * a.chunks + gridDim.x - 1) / gridDim.x;
+      (static_cast<long long>(m) * a.chunks * a.tiles + gridDim.x - 1)
+      / gridDim.x;
   return static_cast<int>(per > a.seg_rows ? per : a.seg_rows);
 }
 
 // ---- phase C ----
-template <typename Acc, bool Packed>
+template <typename Acc, class Bins>
 __device__ void phase_hist(const HistArgs& a, const Persist& p, Acc* sh) {
   const int K = a.K;
-  const int words = a.B * a.S * Layout<Acc>::kStride;
+  const int words = a.bin_tile * a.S * Layout<Acc>::kStride;
   for (int i = threadIdx.x; i < words; i += blockDim.x) sh[i] = Acc(0);
   // the warps' bins tiles after the sums (the f32 flush's staging tiles
   // use the same words, at another time)
-  uint32_t* tiles = reinterpret_cast<uint32_t*>(
-      sh + a.B * a.S * Layout<Acc>::kStride);
+  uint32_t* tiles = reinterpret_cast<uint32_t*>(sh + words);
   __syncthreads();
   const int m = p.off[K];
   if (m == 0) return;
   const int R = segment_rows(a, m);
   const int nr = (m + R - 1) / R;
   const int G = gridDim.x;
-  const int items = nr * a.chunks;
+  const int T = a.tiles;
+  const int items = nr * a.chunks * T;
   for (int t = blockIdx.x; t < items; t += G) {
-    const int c = t / nr, i = t % nr;
+    // the bin tile fastest, then the segment, then the feature chunk
+    const int bt = t % T, rest = t / T;
+    const int c = rest / nr, i = rest % nr;
     const int lo = i * R, hi = min(m, lo + R);
     const int f0 = c * kChunk, fc = min(kChunk, a.F - f0);
+    const int b0 = bt * a.bin_tile, nbt = min(a.bin_tile, a.B - b0);
     for (int k = 0; k < K; ++k) {
       const int s0 = max(lo, p.off[k]), e0 = min(hi, p.off[k + 1]);
       if (s0 >= e0) continue;
-      accumulate<Acc, Packed>(
-          a, sh, tiles + (threadIdx.x >> 5) * 32 * tile_stride<Packed>(), s0,
-          e0, f0, fc);
+      accumulate<Acc, Bins>(
+          a, sh, tiles + (threadIdx.x >> 5) * 32 * Bins::kTileStride, s0,
+          e0, f0, fc, b0, nbt);
       __syncthreads();
-      flush<Acc>(a, p, sh, k, f0, fc);
+      flush<Acc>(a, p, sh, k, f0, fc, b0, nbt);
       __syncthreads();
     }
   }
 }
 
 // The kernel: phases A, B, C and, for B2, the tail (the split scan).
-// Tail::run(args, tail_args) runs after a last grid barrier.  Packed: the
-// row-major bins are 4-bit, two features a byte.
-template <typename Acc, class Tail, bool Packed>
+// Tail::run(args, tail_args) runs after a last grid barrier.  Bins: the
+// layout of the row-major bins (U8Bins, PackedBins or WideBins).
+template <typename Acc, class Tail, class Bins>
 __global__ void __launch_bounds__(kMaxThreads)
     grouped_hist_kernel(HistArgs a, typename Tail::Args t) {
   extern __shared__ __align__(16) int smem[];
@@ -586,7 +637,7 @@ __global__ void __launch_bounds__(kMaxThreads)
               reinterpret_cast<const unsigned char*>(tab));
   if (a.group_only) return;
   grid.sync();
-  phase_hist<Acc, Packed>(a, p, reinterpret_cast<Acc*>(un));
+  phase_hist<Acc, Bins>(a, p, reinterpret_cast<Acc*>(un));
   if constexpr (Tail::kRuns) {
     grid.sync();
     Tail::run(a, t);
@@ -603,13 +654,17 @@ struct NoTail {
 struct Flat : NoTail {};
 
 // Launch one call: plan[] from the wrapper (ops/histogram.py:hist_plan).
-template <typename Acc, class Tail, bool Packed = false>
+template <typename Acc, class Tail, class Bins>
 inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
                           cudaStream_t st) {
   const int threads = plan[kPlanThreads];
   const int smem = plan[kPlanSmem];
   const int grid = plan[kPlanGrid];
-  auto* fn = grouped_hist_kernel<Acc, Tail, Packed>;
+  const int bin_tile = plan[kPlanBinTile];
+  // a tile starts 16-byte aligned in raw (flush's f32 atomics)
+  if (bin_tile < 1 || (bin_tile < a.B && bin_tile % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* fn = grouped_hist_kernel<Acc, Tail, Bins>;
   // the function attributes and the resident-grid check, once per device
   // and shared-memory size (they cost host time on every call otherwise)
   struct Checked {
@@ -649,6 +704,8 @@ inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
   a.chunks = plan[kPlanChunks];
   a.seg_rows = plan[kPlanSegRows];
   a.tile_rows = plan[kPlanTileRows];
+  a.bin_tile = bin_tile;
+  a.tiles = (a.B + bin_tile - 1) / bin_tile;
   void* args[] = {&a, &t};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
                                     dim3(grid),

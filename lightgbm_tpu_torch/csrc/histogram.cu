@@ -33,6 +33,13 @@
 // stats would lose their contract in TF32.  So B4 is the grouped body
 // too, launched under a type of its own (Flat), so that the library holds
 // B4's instances apart from B1's and a profile names them.
+//
+// Wide bins (int32 bins_t, more than 256 bins a feature; the TPU kernels
+// read them through _hist_pallas's per-dtype chunk table, histogram.py:
+// 569, and the flat one-hot, :541): B1's and B4's WideBins instances,
+// reading a 16-bit row-major copy and holding one tile of bins a block
+// at a time (grouped_hist.cuh).  Bound as above, with the bins at 2
+// bytes a feature; each bin tile re-reads its rows' bins and stats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,38 +61,48 @@ extern "C" int lgbt_device_limits(int* out) {
 
 namespace {
 
-// launch the instance of stats type Acc, packed or not, under B1's type
-// (NoTail) or B4's (Flat)
-template <class Tail>
-int launch_variant(const lgbt::HistArgs& a, bool ints, int packed,
-                   const int* plan, cudaStream_t st) {
+// launch the instance of stats type Acc and bin layout Bins under B1's
+// type (NoTail) or B4's (Flat)
+template <class Tail, class Bins>
+int launch_stats(const lgbt::HistArgs& a, bool ints, const int* plan,
+                 cudaStream_t st) {
   typename Tail::Args none{};
-  if (packed)
-    return ints ? lgbt::launch_grouped<int, Tail, true>(a, none, plan, st)
-                : lgbt::launch_grouped<float, Tail, true>(a, none, plan, st);
-  return ints ? lgbt::launch_grouped<int, Tail>(a, none, plan, st)
-              : lgbt::launch_grouped<float, Tail>(a, none, plan, st);
+  return ints ? lgbt::launch_grouped<int, Tail, Bins>(a, none, plan, st)
+              : lgbt::launch_grouped<float, Tail, Bins>(a, none, plan, st);
+}
+
+template <class Tail>
+int launch_variant(const lgbt::HistArgs& a, bool ints, int bins,
+                   const int* plan, cudaStream_t st) {
+  if (bins == lgbt::PackedBins::kCode)
+    return launch_stats<Tail, lgbt::PackedBins>(a, ints, plan, st);
+  if (bins == lgbt::WideBins::kCode)
+    return launch_stats<Tail, lgbt::WideBins>(a, ints, plan, st);
+  return launch_stats<Tail, lgbt::U8Bins>(a, ints, plan, st);
 }
 
 }  // namespace
 
-// bins_rm: [n, FR] row-major bins, FR bytes a row (packed: two 4-bit bins
-// a byte, B <= 16); scratch: [n] uint4 grouped stats, then
+// bins_rm: [n, FR] row-major bins, FR bytes a row; bins: the layout
+// (0: bytes, B <= 256; 1: two 4-bit bins a byte, B <= 16; 2: 16-bit
+// wide bins, B <= 65536); scratch: [n] uint4 grouped stats, then
 // [n] grouped rows, [K * grid] counts and [K + 1] offsets (int32 words);
 // raw: [K][F][BSp] sums, BSp = B * S padded to 4, fully written (f32 for
 // bf16/f32 stats, int32 for int8/int16).  group_only stops after the
 // grouping (the tests read the list).  flat: launch kernel B4's instance
 // (the same body) in place of B1's.  Returns a cudaError_t (0 =
 // launched).
-extern "C" int lgbt_hist_batched(const void* bins_rm, int FR, int packed,
+extern "C" int lgbt_hist_batched(const void* bins_rm, int FR, int bins,
                                  const void* stats, int stats_kind,
                                  const void* leaf, const void* slots,
                                  void* scratch, void* raw, int F, long long n,
                                  int S, int K, int B, const int* plan,
                                  int group_only, int flat,
                                  void* stream) {
-  if (S < 1 || S > lgbt::kMaxS || K < 1 || B < 1 || B > (packed ? 16 : 256)
-      || F < 1 || n < 1)
+  const int top = bins == lgbt::PackedBins::kCode ? 16
+                  : bins == lgbt::WideBins::kCode ? 65536 : 256;
+  if (S < 1 || S > lgbt::kMaxS || K < 1 || B < 1 || B > top || F < 1
+      || n < 1 || bins < 0 || bins > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   lgbt::HistArgs a{};
   a.bins_rm = static_cast<const uint8_t*>(bins_rm);
@@ -109,8 +126,8 @@ extern "C" int lgbt_hist_batched(const void* bins_rm, int FR, int packed,
   const bool ints = stats_kind == lgbt::kI8 || stats_kind == lgbt::kI16;
   if (!ints && stats_kind != lgbt::kBF16 && stats_kind != lgbt::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
-  return flat ? launch_variant<lgbt::Flat>(a, ints, packed, plan, st)
-              : launch_variant<lgbt::NoTail>(a, ints, packed, plan, st);
+  return flat ? launch_variant<lgbt::Flat>(a, ints, bins, plan, st)
+              : launch_variant<lgbt::NoTail>(a, ints, bins, plan, st);
 }
 
 extern "C" const char* lgbt_error_string(int code) {

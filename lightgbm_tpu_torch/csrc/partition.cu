@@ -34,8 +34,10 @@
 //     rows' loads are issued together, after the table lookups;
 //   - the K parameters come from their own [K] tensors (bools as bytes)
 //     into shared memory, so the host packs nothing per round.
-// The bins are the uint8 [F, n] matrix, read in place (the JAX grower
-// first gathers an int32 [K, n] copy, grower.py:1349).
+// The bins are the [F, n] matrix, read in place (the JAX grower first
+// gathers an int32 [K, n] copy, grower.py:1349): uint8, or int32 for wide
+// bins (max_bin > 255; the kernel's Bin type), 4 bytes a row of the
+// chosen feature, read only for rows of a splitting slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,7 +83,8 @@ __device__ __forceinline__ int first_slot(const int* sp,
 
 // the row's new leaf id: slot k (the first live slot of its leaf, col its
 // bin in k's feature), then every later slot of the same leaf
-__device__ __forceinline__ int resolve(const int* sp, const uint8_t* bins,
+template <typename Bin>
+__device__ __forceinline__ int resolve(const int* sp, const Bin* bins,
                                        long long n, long long r, int K,
                                        int l, int k, int col) {
   int moved = -1;
@@ -95,13 +98,15 @@ __device__ __forceinline__ int resolve(const int* sp, const uint8_t* bins,
     if (!left && sp[kNew * K + k] > moved) moved = sp[kNew * K + k];
     k = sp[kNext * K + k];
     if (k >= 0)
-      col = __ldg(bins + static_cast<long long>(sp[kFeat * K + k]) * n + r);
+      col = static_cast<int>(
+          __ldg(bins + static_cast<long long>(sp[kFeat * K + k]) * n + r));
   }
   return moved >= 0 ? moved : l;
 }
 
+template <typename Bin>
 __global__ void __launch_bounds__(kThreads)
-    partition_rows_kernel(const uint8_t* __restrict__ bins, long long n,
+    partition_rows_kernel(const Bin* __restrict__ bins, long long n,
                           SlotArgs a, const int32_t* __restrict__ leaf,
                           int32_t* __restrict__ out, int K, int vec) {
   __shared__ unsigned int tab_words[kTable / 4];
@@ -189,8 +194,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRows; ++i) {
     const long long r = r0[i / 4] + (i % 4);
     col[i] = k0[i] >= 0
-                 ? __ldg(bins + static_cast<long long>(sp[kFeat * K + k0[i]])
-                                    * n + r)
+                 ? static_cast<int>(__ldg(
+                       bins + static_cast<long long>(sp[kFeat * K + k0[i]])
+                                  * n + r))
                  : 0;
   }
 #pragma unroll
@@ -213,12 +219,13 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// bins: [F, n] uint8; feat, sel, new_ids, thr, mt, nbf, db: [K] int32;
+// bins: [F, n] uint8, or int32 when wide; feat, sel, new_ids, thr, mt,
+// nbf, db: [K] int32;
 // dleft, do_k: [K] bool bytes; leaf, out: [n] int32.  vec: leaf and out
 // are 16-byte aligned (the wrapper tests leaf's pointer; out is its own
 // allocation), so whole groups of 4 rows take 16-byte loads and stores.
 // Returns a cudaError_t (0 = launched).
-extern "C" int lgbt_partition_rows(const void* bins, long long n,
+extern "C" int lgbt_partition_rows(const void* bins, int wide, long long n,
                                    const void* feat, const void* sel,
                                    const void* new_ids, const void* thr,
                                    const void* dleft, const void* mt,
@@ -242,9 +249,16 @@ extern "C" int lgbt_partition_rows(const void* bins, long long n,
   const long long per_block = static_cast<long long>(kThreads) * kRows;
   const long long blocks = (n + per_block - 1) / per_block;
   const size_t smem = static_cast<size_t>(kFields) * K * sizeof(int);
-  partition_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bins), n, a,
-      static_cast<const int32_t*>(leaf), static_cast<int32_t*>(out), K, vec);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* lp = static_cast<const int32_t*>(leaf);
+  auto* op = static_cast<int32_t*>(out);
+  if (wide)
+    partition_rows_kernel<int32_t>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+            static_cast<const int32_t*>(bins), n, a, lp, op, K, vec);
+  else
+    partition_rows_kernel<uint8_t>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+            static_cast<const uint8_t*>(bins), n, a, lp, op, K, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -121,7 +121,7 @@ class TrainingData:
     """Binned dataset + metadata: the unit the tree learner consumes.
 
     `bins_t` is the device-resident transposed `[F_used, n]` bin matrix
-    (uint8 when every feature has at most 256 bins)."""
+    (uint8 when every feature has at most 256 bins, else int32)."""
 
     def __init__(self) -> None:
         self.num_data: int = 0

@@ -15,8 +15,14 @@ with the XLA scan's row block.  "pallas" (the flat variant) means kernel
 B4 on its 256-row blocks, with B1's twin.  "fused" (the grow megakernel)
 means kernel B2 in every grower round for the int8/int16 precisions, and
 rides "pallas2" for the float ones.  "auto" picks "fused" for int8/int16
-and "pallas2" otherwise.  On the card the learner first runs B2 against
-its twin on tiny operands, and raises on any difference.
+and "pallas2" otherwise, where the JAX learner's perfeature kernel fits
+its feature chunk's accumulator (`chunk_fits`), else "xla".  On the card
+the learner first runs B2 against its twin on tiny operands, and raises
+on any difference.
+
+Bins are stored uint8 when every feature has 256 bins or fewer, else
+int32 (the wide layout, learner.py:486 of the JAX package); the kernels
+then read a 16-bit row-major copy, so more than 65,536 bins are refused.
 
 Bins are stored 4-bit packed exactly where the JAX learner packs them
 (learner.py:615-641): tpu_pack_bins=true, every feature at 16 bins or
@@ -37,13 +43,18 @@ from ..io.dataset import TrainingData
 from ..ops import grower as G
 from ..ops.fused import fused_supported, probe_fused
 from ..ops.grower import GrowerParams, pad_rows, resolve_split_batch
-from ..ops.histogram import (INT_PRECISIONS, _dot_spec, hashed_uniform,
-                             key_words, pack_bins, row_major_bins)
+from ..ops.histogram import (INT_PRECISIONS, MAX_WIDE_BINS, _dot_spec,
+                             hashed_uniform, key_words, pack_bins,
+                             row_major_bins)
 from ..ops.predict import upload
 from ..utils import prng
 from .tree import Tree
 
 HIST_IMPLS = ("auto", "pallas", "pallas2", "fused", "xla")
+# VMEM budget of one feature chunk's accumulator block in the JAX
+# package's perfeature Pallas kernel (its ops/histogram.py
+# _PERFEATURE_OUT_BUDGET), which its "auto" rule tests
+PERFEATURE_OUT_BUDGET = 6 * 1024 * 1024
 
 
 def check_slice(config: Config) -> None:
@@ -102,14 +113,15 @@ class TreeLearner:
         self.meta_np = meta_np
         B = int(meta_np["num_bin"].max())
         self.num_bins = B
-        if B > 256:
+        if B > MAX_WIDE_BINS:
             raise NotImplementedError(
-                f"max_bin={config.max_bin} (features with more than 256 "
-                "bins) is not ported to lightgbm_tpu_torch yet")
+                f"max_bin={config.max_bin} (features with more than "
+                f"{MAX_WIDE_BINS} bins) is not ported to lightgbm_tpu_torch "
+                "yet: its kernels read wide bins as 16-bit values")
         self._check_bundling(config, train_data, B)
 
         precision = str(config.tpu_hist_precision)
-        impl, block = self._resolve_hist_impl(config, precision)
+        impl, block = self._resolve_hist_impl(config, precision, B)
         # the JAX package pads the column axis to a multiple of 32 for its
         # perfeature kernel; padding columns hold bin 0 (num_bin=1) and
         # can never split
@@ -145,7 +157,10 @@ class TreeLearner:
         self.packed_block = eff_block if self.packed_bins else 0
 
         dev = self.device
-        bins_t = torch.zeros((self.f_pad, self.n_pad), dtype=torch.uint8,
+        # uint8 when every feature fits a byte, else int32, as the JAX
+        # learner stores them (learner.py:486)
+        bins_t = torch.zeros((self.f_pad, self.n_pad),
+                             dtype=torch.uint8 if B <= 256 else torch.int32,
                              device=dev)
         bins_t[:self.num_features, :n] = train_data.bins_t
         if self.packed_bins:
@@ -155,8 +170,9 @@ class TreeLearner:
         self.bins_t = bins_t
         if dev.type == "cuda":
             # kernels B1, B2 and B4 gather each live row's bins from a
-            # row-major copy ([n_pad, 32] uint8 at up to 32 features, or
-            # [n_pad, 16] packed); row_major_bins makes it here, at
+            # row-major copy ([n_pad, 32] uint8 at up to 32 features,
+            # [n_pad, 16] packed, or [n_pad, 32] 16-bit for int32 bins);
+            # row_major_bins makes it here, at
             # set-up, and keeps it on bins_t for every later call
             row_major_bins(bins_t, self.packed_block)
         ones = torch.zeros(self.n_pad, dtype=torch.float32, device=dev)
@@ -203,7 +219,7 @@ class TreeLearner:
         self.refits_leaves = self.params.quant_refit
         if impl == "fused" and fused_supported(precision) is None \
                 and dev.type == "cuda":
-            probe_fused(dev, precision)
+            probe_fused(dev, precision, wide=B > 256)
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
         # the sync path's per-tree feature_fraction draws and tree keys
@@ -243,21 +259,41 @@ class TreeLearner:
                 and eff_block % 256 == 0 and n_pad % eff_block == 0)
 
     @staticmethod
-    def _resolve_hist_impl(config: Config, precision: str):
+    def chunk_fits(config: Config, num_bins: int, precision: str) -> bool:
+        """The JAX learner's `chunk_fits` test (learner.py:939-962): the
+        perfeature kernel's smallest feature chunk (32 features for uint8
+        bins, 8 for int32) times Bp = ceil(B/8)*8 bins times the K*S stat
+        columns padded to 128 lanes, in f32, fits its VMEM budget."""
+        leaves = max(int(config.num_leaves), 2)
+        k = min(resolve_split_batch(int(config.tpu_split_batch), leaves),
+                leaves - 1)
+        s = 5 if precision == "hilo" else 3
+        ks_pad = -(-(k * s) // 128) * 128
+        bp = -(-int(num_bins) // 8) * 8
+        step = 32 if num_bins <= 256 else 8
+        return step * bp * ks_pad * 4 <= PERFEATURE_OUT_BUDGET
+
+    @staticmethod
+    def _resolve_hist_impl(config: Config, precision: str, num_bins: int):
         """(impl, row block), as the JAX learner resolves them on its
         accelerator (learner.py:912-993): "auto" is the grow megakernel
         ("fused", kernel B2) for int8/int16 and the perfeature kernel
-        ("pallas2", B1) otherwise.  The row blocks are the JAX package's:
-        256 for the flat kernel, 8192 for the perfeature and fused ones,
-        the XLA scan's 16384 for "xla"."""
+        ("pallas2", B1) otherwise, where `chunk_fits` holds, and the XLA
+        scan ("xla", which rides B1 here) where it does not.  The row
+        blocks are the JAX package's: 256 for the flat kernel, 8192 for
+        the perfeature and fused ones, the XLA scan's 16384 for "xla"."""
         impl = str(config.tpu_hist_impl)
         if impl not in HIST_IMPLS:
             raise NotImplementedError(
                 f"tpu_hist_impl={impl!r} is not ported to lightgbm_tpu_torch"
                 " yet")
         if impl == "auto":
-            impl = "fused" if fused_supported(precision) is None \
-                else "pallas2"
+            if not TreeLearner.chunk_fits(config, num_bins, precision):
+                impl = "xla"
+            elif fused_supported(precision) is None:
+                impl = "fused"
+            else:
+                impl = "pallas2"
         block = int(config.tpu_block_rows)
         if block <= 0:
             block = {"pallas": 256, "pallas2": 8192,

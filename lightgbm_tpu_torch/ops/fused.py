@@ -21,6 +21,11 @@ rows (tpu_partition_impl=kernel).  On a CUDA tensor it launches kernel
 B3 (`csrc/partition.cu`); on a CPU tensor it runs
 `partition_rows_plain`, the "vselect" integer math in plain PyTorch.
 Both are bitwise equal to the "vselect" lowering.
+
+Both take uint8 bins or the int32 bins of wide features (more than 256
+bins): B2's wide instance reads the 16-bit row-major copy and scans the
+bins in tiles of 256, B3's reads the int32 matrix in place; each is
+counted apart ("_wide").
 """
 
 from __future__ import annotations
@@ -31,9 +36,10 @@ import numpy as np
 import torch
 
 from . import kernels
-from .histogram import (INT_PRECISIONS, _STAT_KINDS, _grouped_call,
-                        _raw_buffer, _raw_view, _unpack_hist,
-                        hist_batched_plain, unpack2d)
+from .histogram import (BINS_WIDE, INT_PRECISIONS, MAX_WIDE_BINS,
+                        _STAT_KINDS, _grouped_call, _raw_buffer, _raw_view,
+                        _unpack_hist, bins_layout, hist_batched_plain,
+                        unpack2d)
 from .split import (PF_RECORD_WIDTH, numeric_go_left, pack_pf_records,
                     per_feature_best_split)
 
@@ -64,7 +70,8 @@ def fused_hist_scan_plain(bins_t, stats, leaf_ids, slot_leaf_ids,
                           num_bins: int, precision: str, *, split_kw: dict):
     """Plain PyTorch twin of kernel B2.
 
-    bins_t [F, n] uint8; stats [3, n] int8/int16; leaf_ids [n] int32;
+    bins_t [F, n] uint8 or int32; stats [3, n] int8/int16; leaf_ids [n]
+    int32;
     slot_leaf_ids [K] int32 (-1 = dead); parent_hist [K, F, B, 3] int32;
     child_ctx [2K+1, 8] f32 (the CTX_* columns); meta_i [F, 8] int32
     (num_bin, missing_type, default_bin, monotone); meta_f [F, 8] f32
@@ -104,7 +111,9 @@ def _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
     dev = bins_t.device
     if dev.type != "cuda":
         raise ValueError(f"kernel B2 takes CUDA tensors, got {dev}")
-    expect = (("bins_t", bins_t, torch.uint8, (F, n)),
+    layout, _ = bins_layout(bins_t)
+    top = MAX_WIDE_BINS if layout == BINS_WIDE else 256
+    expect = (("bins_t", bins_t, bins_t.dtype, (F, n)),
               ("stats", stats, stats.dtype, (3, n)),
               ("leaf_ids", leaf_ids, torch.int32, (n,)),
               ("slot_leaf_ids", slot_leaf_ids, torch.int32, (K,)),
@@ -122,7 +131,7 @@ def _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
             or stats.dtype not in (torch.int8, torch.int16):
         raise ValueError("kernel B2 takes the [3, n] int8/int16 stats of "
                          "the quantized precisions")
-    if not 1 <= B <= 256 or not 1 <= K < 255:
+    if not 1 <= B <= top or not 1 <= K < 255:
         raise ValueError(f"num_bins={B} or {K} slots out of range")
     rows, _, scratch, cplan = _grouped_call(bins_t, stats, slot_leaf_ids, B,
                                             scan=True)
@@ -132,7 +141,8 @@ def _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
     kw = [float(split_kw[k]) for k in SPLIT_KW]
     with torch.cuda.device(dev):
         code = kernels.library().lgbt_fused_hist_scan(
-            rows.data_ptr(), rows.shape[1], stats.data_ptr(),
+            rows.data_ptr(), rows.shape[1] * rows.element_size(), layout,
+            stats.data_ptr(),
             _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
             slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(),
             parent_hist.data_ptr(), child_ctx.data_ptr(), meta_i.data_ptr(),
@@ -146,11 +156,12 @@ def fused_hist_scan_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,
                            parent_hist, child_ctx, meta_i, meta_f,
                            num_bins: int, precision: str, *,
                            split_kw: dict):
-    """Kernel B2 on the card; `fused_hist_scan_plain`'s contract."""
+    """Kernel B2 on the card; `fused_hist_scan_plain`'s contract.  Its
+    wide instance (int32 bins_t) is counted apart."""
     out = _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
                         child_ctx, meta_i, meta_f, num_bins, precision,
                         split_kw)
-    kernels.launches["fused_hist_scan"] += 1
+    kernels.launches["fused_hist_scan" + bins_layout(bins_t)[1]] += 1
     return out
 
 
@@ -168,15 +179,17 @@ def fused_hist_scan(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
     raise ValueError(f"unsupported device {bins_t.device}")
 
 
-def probe_operands(precision: str, device, seed: int = 0):
+def probe_operands(precision: str, device, seed: int = 0, wide: bool = False):
     """Tiny seeded operands of B2 (the shapes of the JAX package's
     `fused_scan_ok` probe: 256 rows, 8 features, 16 bins, K = 2): a
-    positional tuple and the split_kw."""
+    positional tuple and the split_kw.  wide: int32 bins over 600 bins
+    (three scan tiles), for B2's wide instance."""
     rng = np.random.default_rng(seed)
-    n, F, B, K = 256, 8, 16, 2
+    n, F, B, K = 256, 8, (600 if wide else 16), 2
     q = 127 if precision == "int8" else 32767
     dt = torch.int8 if precision == "int8" else torch.int16
-    bins = torch.from_numpy(rng.integers(0, B, size=(F, n)).astype(np.uint8))
+    bins = torch.from_numpy(rng.integers(0, B, size=(F, n)).astype(
+        np.int32 if wide else np.uint8))
     g = rng.integers(-q, q + 1, size=n)
     h = rng.integers(0, q + 1, size=n)
     stats = torch.from_numpy(np.stack([g, h, np.ones(n, np.int64)])).to(dt)
@@ -226,11 +239,13 @@ def assert_fused_equal(got, ref) -> None:
 
 
 @functools.lru_cache(maxsize=8)
-def probe_fused(device: torch.device, precision: str) -> None:
+def probe_fused(device: torch.device, precision: str,
+                wide: bool = False) -> None:
     """Run kernel B2 against its twin on tiny operands on the card; raise
-    on any difference (there is no fallback to hide behind).  A check,
-    not a use: its launch is not counted."""
-    args, kw = probe_operands(precision, device)
+    on any difference (there is no fallback to hide behind).  wide: its
+    wide instance, at int32 bins.  A check, not a use: its launch is not
+    counted."""
+    args, kw = probe_operands(precision, device, wide=wide)
     got = _launch_fused(*args, kw)
     ref = fused_hist_scan_plain(*args, split_kw=kw)
     assert_fused_equal(got, ref)
@@ -241,9 +256,9 @@ def partition_rows_plain(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
                          packed_block: int = 0) -> torch.Tensor:
     """The "vselect" partition: [n] int32 updated leaf ids.
 
-    bins_t: [F, n] bins (or 4-bit packed [F, n/2] in blocks of
-    packed_block rows, when > 0); sel_feat/sel/new_ids/thr/mt/nbf/db: [K]
-    int32; dleft/do_k: [K] bool."""
+    bins_t: [F, n] uint8 or int32 bins (or 4-bit packed [F, n/2] in
+    blocks of packed_block rows, when > 0);
+    sel_feat/sel/new_ids/thr/mt/nbf/db: [K] int32; dleft/do_k: [K] bool."""
     cols = bins_t[sel_feat.long()]
     if packed_block:
         cols = unpack2d(cols, packed_block)
@@ -271,8 +286,10 @@ def check_partition_args(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
     packed on the host per round."""
     F, n = bins_t.shape
     K = sel.shape[0]
-    if bins_t.dtype != torch.uint8 or not bins_t.is_contiguous():
-        raise ValueError("bins_t must be a contiguous uint8 [F, n] tensor")
+    if bins_t.dtype not in (torch.uint8, torch.int32) \
+            or not bins_t.is_contiguous():
+        raise ValueError("bins_t must be a contiguous uint8 or int32 "
+                         "[F, n] tensor")
     if leaf_ids.dtype != torch.int32 or leaf_ids.shape != (n,) \
             or not leaf_ids.is_contiguous():
         raise ValueError("leaf_ids must be a contiguous int32 [n] tensor")
@@ -296,7 +313,7 @@ def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
                           dleft, mt, nbf, db, do_k) -> torch.Tensor:
     """Kernel B3 on the card.  leaf_ids at a 16-byte aligned address
     takes the kernel's 16-byte loads; a slice at another address the
-    scalar ones."""
+    scalar ones.  Its wide instance (int32 bins_t) is counted apart."""
     if bins_t.device.type != "cuda":
         raise ValueError(f"kernel B3 takes CUDA tensors, got {bins_t.device}")
     check_partition_args(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
@@ -304,15 +321,18 @@ def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
     n = bins_t.shape[1]
     out = torch.empty_like(leaf_ids)         # its own, aligned allocation
     vec = leaf_ids.data_ptr() % 16 == 0
+    wide = bins_t.dtype == torch.int32
     with torch.cuda.device(bins_t.device):
         code = kernels.library().lgbt_partition_rows(
-            bins_t.data_ptr(), n, sel_feat.data_ptr(), sel.data_ptr(),
+            bins_t.data_ptr(), int(wide), n, sel_feat.data_ptr(),
+            sel.data_ptr(),
             new_ids.data_ptr(), thr.data_ptr(), dleft.data_ptr(),
             mt.data_ptr(), nbf.data_ptr(), db.data_ptr(), do_k.data_ptr(),
             leaf_ids.data_ptr(), out.data_ptr(), sel.shape[0], int(vec),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "partition_rows launch")
-    kernels.launches["partition_rows"] += 1
+    kernels.launches["partition_rows_wide" if wide else "partition_rows"] \
+        += 1
     return out
 
 

@@ -135,8 +135,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
          key: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
     """Grow one tree.
 
-    bins_t: [F, n_pad] uint8 (padding rows and features hold bin 0), or
-    [F, n_pad/2] packed with params.packed_bins;
+    bins_t: [F, n_pad] uint8, or int32 when a feature has more than 256
+    bins (padding rows and features hold bin 0), or [F, n_pad/2] packed
+    with params.packed_bins;
     grad/hess/row_mask: [n_pad] f32 (padding rows zero); feature_mask:
     [F] f32; meta: per-feature int32 num_bin/missing_type/default_bin/
     monotone and f32 penalty; key: the tree's threefry key (uint32[2],

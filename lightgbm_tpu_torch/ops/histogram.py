@@ -37,6 +37,13 @@ block in the low nibble, row j + block/2 in the high one).  B1 and B4
 then read a packed row-major copy, two features a byte (16 bytes a row
 of a 32-feature chunk, 16 MB at 1M rows), and unpack in registers; the
 twin unpacks and runs the unpacked twin.
+
+Wide bins (more than 256 bins in a feature, `max_bin>255`): the learner
+stores `[F, n]` int32, as the JAX learner does.  B1 and B4 then read a
+16-bit row-major copy (64 bytes a row of a 32-feature chunk, 64.5 MB at
+1M rows) and hold the sums of one tile of bins at a time (`hist_plan`'s
+`bin_tile`): each tile walks the rows again.  The twin takes the int32
+matrix as it is.
 """
 
 from __future__ import annotations
@@ -58,6 +65,12 @@ _INT_TYPE_MAX = {"int8": 127, "int16": 32767}
 _STAT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
                torch.int16: 3}
 _MASK32 = 0xFFFFFFFF
+# the most bins a feature may have: the wide kernels' row-major copy
+# holds 16 bits a bin (the learner refuses more)
+MAX_WIDE_BINS = 65536
+# the bins codes of the C entry points (csrc/grouped_hist.cuh
+# U8Bins/PackedBins/WideBins::kCode)
+BINS_U8, BINS_PACKED, BINS_WIDE = 0, 1, 2
 
 
 def _dot_spec(precision: str):
@@ -196,6 +209,19 @@ def pack_bins(bins_t: torch.Tensor, block: int) -> torch.Tensor:
     return (x[:, :, 0, :] | (x[:, :, 1, :] << 4)).reshape(F, n // 2)
 
 
+def bins_layout(bins_t: torch.Tensor, packed_block: int = 0):
+    """(bins code, counter suffix) of a bin matrix: uint8, 4-bit packed
+    uint8 (packed_block > 0) or wide (int32)."""
+    if bins_t.dtype == torch.int32:
+        if packed_block:
+            raise ValueError("int32 bins are never packed")
+        return BINS_WIDE, "_wide"
+    if bins_t.dtype != torch.uint8:
+        raise ValueError(f"bins_t must be uint8 or int32, got "
+                         f"{bins_t.dtype}")
+    return (BINS_PACKED, "_packed") if packed_block else (BINS_U8, "")
+
+
 def _acc_dtype(stats: torch.Tensor) -> torch.dtype:
     return torch.float32 if stats.is_floating_point() else torch.int32
 
@@ -213,8 +239,9 @@ def hist_batched_plain(bins_t: torch.Tensor, stats: torch.Tensor,
         raw[f, bins_t[f, r], k, s] += stats[s, r]
             for every row r with leaf_ids[r] == slot_leaf_ids[k]
     Bins >= num_bins contribute nothing, as they match no one-hot row.
-    packed_block > 0: bins_t is packed 4-bit `[F, n/2]` in blocks of that
-    many rows, unpacked first (`unpack2d`)."""
+    bins_t may be uint8 or int32 (wide bins).  packed_block > 0: bins_t
+    is packed 4-bit `[F, n/2]` in blocks of that many rows, unpacked
+    first (`unpack2d`)."""
     if packed_block:
         bins_t = unpack2d(bins_t, packed_block)
     F, n = bins_t.shape
@@ -253,8 +280,7 @@ def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
                              f"{bins_t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if bins_t.dtype != torch.uint8:
-        raise ValueError(f"bins_t must be uint8, got {bins_t.dtype}")
+    code, _ = bins_layout(bins_t, packed_block)
     if stats.dtype not in _STAT_KINDS:
         raise ValueError(f"stats must be bf16, f32, int8 or int16, got "
                          f"{stats.dtype}")
@@ -266,9 +292,9 @@ def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
                          f", stats {tuple(stats.shape)}, leaf_ids "
                          f"{tuple(leaf_ids.shape)}, packed_block "
                          f"{packed_block}")
-    if not 1 <= num_bins <= (16 if packed_block else 256):
-        raise ValueError(f"num_bins={num_bins} outside [1, "
-                         f"{16 if packed_block else 256}]")
+    top = {BINS_U8: 256, BINS_PACKED: 16, BINS_WIDE: MAX_WIDE_BINS}[code]
+    if not 1 <= num_bins <= top:
+        raise ValueError(f"num_bins={num_bins} outside [1, {top}]")
     if packed_block and (packed_block % 2 or n % packed_block):
         raise ValueError(f"{n} rows are not whole packed blocks of "
                          f"{packed_block}")
@@ -290,44 +316,74 @@ class HistPlan(NamedTuple):
     grid: int             # blocks: all resident at once (cooperative)
     seg_rows: int         # least rows of the grouped list a block takes
     tile_rows: int        # rows whose leaf ids each block groups
+    bin_tile: int         # bins whose sums a block holds at a time
     scratch_words: int    # int32 words of scratch the call needs
 
 
 # words of the grouping's leaf id -> slot table (grouped_hist.cuh kTable)
 _TABLE_WORDS = 4096 // 4
 # words of phase C's per-entry tile of a row's bins (grouped_hist.cuh
-# kTileStride): 32 bytes and a pad, or 16 packed bytes and a pad
+# kTileStride*): 32 bytes and a pad, 16 packed bytes and a pad, or 64
+# bytes of 16-bit wide bins and a pad
 _TILE_STRIDE = 9
 _TILE_STRIDE_PACKED = 5
+_TILE_STRIDE_WIDE = 17
 # shared words of one 256-thread part of kernel B2's split scan
 # (csrc/fused.cu ScanTail::kWords)
-_SCAN_WORDS = 3 * 8 + 6 * 256 + 4 * 8
+_SCAN_WORDS = 3 * 8 + 4 * 8 + 4
+
+
+def _tiles_words(threads: int, floats: bool, packed: bool,
+                 wide: bool) -> int:
+    """Words after the sums: each warp's tile of 32 rows' bins, which the
+    f32 flush reuses for its staging tiles (8 warps x 32 x 33 words)."""
+    stride = (_TILE_STRIDE_WIDE if wide else
+              _TILE_STRIDE_PACKED if packed else _TILE_STRIDE)
+    return max((threads // 32) * 32 * stride, 8 * 32 * 33 if floats else 0)
 
 
 def _smem_bytes(K: int, B: int, S: int, threads: int, scan: bool,
-                floats: bool, packed: bool = False) -> int:
+                floats: bool, packed: bool = False,
+                wide: bool = False) -> int:
     """grouped_hist.cuh's layout: the persistent [4K+1] words (slot ids,
     duplicate chains, offsets, write positions) rounded to 16 bytes, then
     the largest of the grouping's two [warps, K] tables, [K] totals and
     leaf id -> slot table,
-    the histogram's [B, S, 32] sums and, for B2, the scan's words."""
+    the histogram's [B, S, 32] sums of B bins (a bin tile, for wide bins)
+    and the bins tiles, and, for B2, the scan's words.  int32 sums take a
+    row stride of 33 words, f32 sums 32."""
     persist = (4 * K + 1 + 3) // 4 * 4
-    # int32 sums at a row stride of 33 words, f32 sums at 32; after them
-    # each warp's tile of 32 rows' bins (32 x 9 words, 32 x 5 packed),
-    # which the f32 flush reuses for its staging tiles (8 warps x 32 x 33
-    # words)
-    stride = _TILE_STRIDE_PACKED if packed else _TILE_STRIDE
-    tiles = max((threads // 32) * 32 * stride,
-                8 * 32 * 33 if floats else 0)
-    sums = B * S * (32 if floats else 33) + tiles
+    sums = B * S * (32 if floats else 33) + _tiles_words(threads, floats,
+                                                         packed, wide)
     union = max(2 * (threads // 32) * K + K + _TABLE_WORDS, sums,
                 (threads // 256) * _SCAN_WORDS if scan else 0)
     return 4 * (persist + union)
 
 
+def _wide_tiles(K: int, B: int, S: int, threads: int, scan: bool,
+                floats: bool, limit: int):
+    """(tiles, bins a tile) of wide bins in a block of `threads` with
+    `limit` bytes of shared memory, or None: the fewest tiles whose sums
+    fit, their bins balanced and a multiple of 4 (the f32 flush's 16-byte
+    atomics start at a tile's first bin)."""
+    fixed = _smem_bytes(K, 0, S, threads, scan, floats, wide=True)
+    if fixed > limit:
+        return None
+    per_bin = 4 * S * (32 if floats else 33)
+    tiles_bytes = 4 * _tiles_words(threads, floats, False, True)
+    persist = 4 * ((4 * K + 1 + 3) // 4 * 4)
+    most = (limit - persist - tiles_bytes) // per_bin // 4 * 4
+    if most < 4:
+        return None
+    tiles = -(-B // most)
+    per_tile = -(-B // tiles)
+    return tiles, -(-per_tile // 4) * 4
+
+
 def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
               smem_max: int, smem_sm: int, scan: bool = False,
-              floats: bool = False, packed: bool = False) -> HistPlan:
+              floats: bool = False, packed: bool = False,
+              wide: bool = False) -> HistPlan:
     """Geometry of kernel B1 (and of B2's histogram phases).
 
     Features go in chunks of 32, one per lane, so one slot's [B, S, 32]
@@ -341,19 +397,47 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
     bins are 4-bit (B <= 16), so a slot's sums take [16, S, 32] words at
     most and each warp's bins tile 5 words an entry, not 9; the block
     geometry is the same (registers, not shared memory, hold a 512-thread
-    block to two per SM: __launch_bounds__(1024) lets a thread 64)."""
-    if not (1 <= S <= 5 and 1 <= K < 255 and 1 <= B <= (16 if packed
-                                                         else 256)
-            and F >= 1 and n >= 1 and sms >= 1):
+    block to two per SM: __launch_bounds__(1024) lets a thread 64).
+
+    wide: the bins are 16-bit (B up to MAX_WIDE_BINS), each warp's bins
+    tile 17 words an entry, and a block holds the sums of `bin_tile`
+    bins at a time, walking its rows once for each of the
+    ceil(B / bin_tile) tiles.  Of 512 threads two to an SM, 512 alone
+    and 1024 alone, the plan takes the one with the fewest tiles per
+    block an SM holds, then the most threads on an SM (at S = 5 and
+    B = 1023 on an H100: 512 threads alone, 4 tiles of 256 bins; 1024
+    threads would need 5 tiles: their bins tiles leave room for 252
+    bins' f32 sums, not 256)."""
+    top = MAX_WIDE_BINS if wide else (16 if packed else 256)
+    if not (1 <= S <= 5 and 1 <= K < 255 and 1 <= B <= top
+            and F >= 1 and n >= 1 and sms >= 1) or (packed and wide):
         raise ValueError(f"no histogram plan for F={F}, K={K}, S={S}, "
                          f"B={B}, n={n}, sms={sms}")
     chunks = -(-F // 32)
-    small = _smem_bytes(K, B, S, 512, scan, floats, packed)
-    if 2 * (small + _SMEM_PER_BLOCK_RESERVED) <= smem_sm:
-        threads, per_sm, smem = 512, 2, small
+    if wide:
+        best = None
+        for threads, per_sm in ((512, 2), (512, 1), (1024, 1)):
+            limit = min(smem_max,
+                        smem_sm // per_sm - _SMEM_PER_BLOCK_RESERVED)
+            fit = _wide_tiles(K, B, S, threads, scan, floats, limit)
+            if fit is None:
+                continue
+            key = (fit[0] / per_sm, -threads * per_sm, fit[0])
+            if best is None or key < best[0]:
+                best = (key, threads, per_sm, fit[1])
+        if best is None:
+            raise ValueError(f"no bin tile of the wide histogram fits "
+                             f"the card's {smem_max} bytes a block")
+        _, threads, per_sm, bin_tile = best
+        smem = _smem_bytes(K, bin_tile, S, threads, scan, floats, wide=True)
     else:
-        threads, per_sm = 1024, 1
-        smem = _smem_bytes(K, B, S, threads, scan, floats, packed)
+        bin_tile = B
+        small = _smem_bytes(K, B, S, 512, scan, floats, packed)
+        if 2 * (small + _SMEM_PER_BLOCK_RESERVED) <= smem_sm:
+            threads, per_sm, smem = 512, 2, small
+        else:
+            threads, per_sm = 1024, 1
+            smem = _smem_bytes(K, B, S, threads, scan, floats, packed)
     if smem > smem_max or smem + _SMEM_PER_BLOCK_RESERVED > smem_sm:
         raise ValueError(f"the histogram needs {smem} bytes of shared "
                          f"memory; the card gives a block {smem_max}")
@@ -368,7 +452,8 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
     tile = -(-tile // step) * step
     # [n] uint4 packed stats, [n] rows, [K, grid] counts, [K+1] offsets
     scratch = 4 * n + n + grid * K + K + 1
-    return HistPlan(threads, smem, chunks, grid, seg_rows, tile, scratch)
+    return HistPlan(threads, smem, chunks, grid, seg_rows, tile, bin_tile,
+                    scratch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -389,6 +474,10 @@ def row_major_bins(bins_t: torch.Tensor,
     on the same matrix (the learner's, for the whole training) reuses
     it; an in-place change of bins_t makes a new one.
 
+    int32 (wide) bins_t: the copy is [n, FR] int16 holding each bin's low
+    16 bits, which the kernels read unsigned (bins up to 65,535): one row
+    of a 32-feature chunk is 64 bytes, four 16-byte loads.
+
     packed_block > 0: bins_t is packed 4-bit [F, n/2] in blocks of that
     many rows, and the copy is [n, FR/2], two features a byte (feature
     2j of a chunk in the low nibble of its byte j, 2j + 1 in the high
@@ -407,7 +496,9 @@ def row_major_bins(bins_t: torch.Tensor,
         rows = (cols[0::2] | (cols[1::2] << 4)).t().contiguous()
     else:
         n = bins_t.shape[1]
-        rows = torch.zeros((n, fr), dtype=torch.uint8, device=bins_t.device)
+        # int32 -> int16 keeps the low 16 bits (a two's-complement wrap)
+        dtype = torch.int16 if bins_t.dtype == torch.int32 else torch.uint8
+        rows = torch.zeros((n, fr), dtype=dtype, device=bins_t.device)
         rows[:, :F] = bins_t.t()
     bins_t._lgbt_rows = ((bins_t._version, packed_block), rows)
     return rows
@@ -444,12 +535,13 @@ def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
     index = bins_t.device.index
     if index is None:
         index = torch.cuda.current_device()
+    code, _ = bins_layout(bins_t, packed_block)
     plan = hist_plan(F, K, S, int(num_bins), n, *_device_limits(index),
                      scan=scan, floats=stats.is_floating_point(),
-                     packed=bool(packed_block))
+                     packed=code == BINS_PACKED, wide=code == BINS_WIDE)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=bins_t.device)
-    return rows, plan, scratch, (ctypes.c_int * 6)(*plan[:6])
+    return rows, plan, scratch, (ctypes.c_int * 7)(*plan[:7])
 
 
 def _raw_buffer(K, F, B, S, dtype, device):
@@ -476,8 +568,8 @@ def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
                       bins_t.device)
     with torch.cuda.device(bins_t.device):
         code = kernels.library().lgbt_hist_batched(
-            rows.data_ptr(), rows.shape[1], int(bool(packed_block)),
-            stats.data_ptr(),
+            rows.data_ptr(), rows.shape[1] * rows.element_size(),
+            bins_layout(bins_t, packed_block)[0], stats.data_ptr(),
             _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
             slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(), F,
             n, S, K, int(num_bins), cplan, int(group_only), int(flat),
@@ -494,12 +586,13 @@ def hist_batched_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
     int8/int16 stats: the integer variant, counted apart).  One
     cooperative launch: the grouping pass, then the histogram.
     packed_block > 0: the packed 4-bit variant (bins_t [F, n/2] in
-    blocks of that many rows), counted apart too."""
+    blocks of that many rows); int32 bins_t: the wide variant; each
+    counted apart too."""
     _check_hist_args("B1", bins_t, stats, leaf_ids, slot_leaf_ids,
                      num_bins, packed_block)
     raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
                              num_bins, False, packed_block)
-    name = "hist_batched_packed" if packed_block else "hist_batched"
+    name = "hist_batched" + bins_layout(bins_t, packed_block)[1]
     kernels.launches[name if raw.dtype == torch.float32
                      else name + "_int"] += 1
     return raw
@@ -528,13 +621,14 @@ def hist_flat_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
     """Kernel B4 on the card (the flat variant): raw [F, B, K, S] sums,
     f32 or int32; B1's contract, on the flat path's operands (256-row
     blocks; packed_block > 0: 4-bit bins packed in blocks of that many
-    rows).  The grouped body of B1 under B4's own instance, one
-    cooperative launch; its four variants are counted apart."""
+    rows; int32 bins_t: wide bins).  The grouped body of B1 under B4's
+    own instance, one cooperative launch; its six variants are counted
+    apart."""
     _check_hist_args("B4", bins_t, stats, leaf_ids, slot_leaf_ids,
                      num_bins, packed_block)
     raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
                              num_bins, False, packed_block, flat=True)
-    name = "hist_flat_packed" if packed_block else "hist_flat"
+    name = "hist_flat" + bins_layout(bins_t, packed_block)[1]
     kernels.launches[name if raw.dtype == torch.float32
                      else name + "_int"] += 1
     return raw
@@ -549,7 +643,7 @@ def build_histogram_batched_t(bins_t: torch.Tensor, stats: torch.Tensor,
     """Histograms of K leaves in one pass: [K, F, B, 3] (g, h, cnt), f32
     or, for the integer precisions, int32.
 
-    bins_t:        [F, n] uint8 bins (rows contiguous)
+    bins_t:        [F, n] uint8 or int32 (wide) bins (rows contiguous)
     stats:         [S, n] packed rows from `pack_stats`
     leaf_ids:      [n] int32 current leaf per row
     slot_leaf_ids: [K] int32 leaf wanted in each slot (-1 = dead slot)

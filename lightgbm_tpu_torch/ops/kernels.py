@@ -37,16 +37,22 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
-# B1 float, B1 integer variant, B1 on packed 4-bit bins (float and
-# integer), B2, B3, B4 in the same four variants, and the leaf refit's
-# sums
+# B1 float, B1 integer variant, B1 on packed 4-bit bins and on wide
+# (int32) bins (float and integer), B2 and B3 on uint8 and on wide bins,
+# B4 in B1's six variants, and the leaf refit's sums
 launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
                             "hist_batched_packed": 0,
                             "hist_batched_packed_int": 0,
-                            "fused_hist_scan": 0, "partition_rows": 0,
+                            "hist_batched_wide": 0,
+                            "hist_batched_wide_int": 0,
+                            "fused_hist_scan": 0,
+                            "fused_hist_scan_wide": 0,
+                            "partition_rows": 0, "partition_rows_wide": 0,
                             "hist_flat": 0, "hist_flat_int": 0,
                             "hist_flat_packed": 0,
-                            "hist_flat_packed_int": 0, "leaf_sums": 0}
+                            "hist_flat_packed_int": 0,
+                            "hist_flat_wide": 0, "hist_flat_wide_int": 0,
+                            "leaf_sums": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -138,12 +144,12 @@ def library() -> ctypes.CDLL:
                                       i32, i64, i32, i32, i32, ip, i32, i32,
                                       vp]
     lib.lgbt_hist_batched.restype = i32
-    lib.lgbt_fused_hist_scan.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp,
-                                         vp, vp, vp, vp, vp, i32, i64, i32,
-                                         i32, ip, f32, f32, f32, f32, f32,
-                                         f32, vp]
+    lib.lgbt_fused_hist_scan.argtypes = [vp, i32, i32, vp, i32, *[vp] * 9,
+                                         i32, i64, i32, i32, ip,
+                                         *[f32] * 6, vp]
     lib.lgbt_fused_hist_scan.restype = i32
-    lib.lgbt_partition_rows.argtypes = [vp, i64, *[vp] * 11, i32, i32, vp]
+    lib.lgbt_partition_rows.argtypes = [vp, i32, i64, *[vp] * 11, i32,
+                                        i32, vp]
     lib.lgbt_partition_rows.restype = i32
     lib.lgbt_leaf_sums.argtypes = [vp, vp, vp, i32, i32, i64, vp]
     lib.lgbt_leaf_sums.restype = i32

@@ -205,11 +205,28 @@ def test_packing_follows_the_jax_row_blocks():
     assert bt._driver.learner.n_pad == bj._driver.learner.n_pad == 384
 
 
-def test_more_than_256_bins_raise():
+def test_more_bins_than_the_wide_copy_holds_raise():
+    # the kernels read wide bins as 16-bit values: 65,536 bins at most
+    rng = np.random.default_rng(2)
+    n = 70_000
+    X = rng.permutation(n).astype(np.float64)[:, None]
+    y = (rng.random(n) < 0.5).astype(np.float64)
+    params = dict(SMALL, **CPU, max_bin=70_000, min_data_in_bin=1,
+                  bin_construct_sample_cnt=n)
+    with pytest.raises(NotImplementedError, match="max_bin=70000"):
+        tlgb.train(params, tlgb.Dataset(X, label=y, params=params),
+                   num_boost_round=1)
+
+
+def test_max_bin_1000_trains_on_the_cpu():
+    # more than 256 bins a feature: the learner stores them int32
     X, y = binary_data(n=3000, f=2, seed=2)
     params = dict(SMALL, **CPU, max_bin=1000, min_data_in_bin=1)
-    with pytest.raises(NotImplementedError, match="max_bin"):
-        tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
+    b = tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=2,
+                   keep_training_booster=True)
+    learner = b._driver.learner
+    assert learner.num_bins > 256 and learner.bins_t.dtype == torch.int32
+    assert b.num_trees() == 2 and np.isfinite(b.predict(X)).all()
 
 
 def test_sparse_features_refuse_bundling():

@@ -68,8 +68,8 @@ def test_hist_kernel_refuses_bad_inputs():
     dev = cuda_device()
     args, _, _ = _hist_inputs(dev, 2, 4, 1000, 16, 3, [0, 1], "hilo")
     bins, stats, leaf, slots = args
-    with pytest.raises(ValueError, match="uint8"):
-        TH.hist_batched_kernel(bins.int(), stats, leaf, slots, 16)
+    with pytest.raises(ValueError, match="uint8 or int32"):
+        TH.hist_batched_kernel(bins.short(), stats, leaf, slots, 16)
     with pytest.raises(ValueError, match="contiguous"):
         TH.hist_batched_kernel(bins, stats[:, ::2], leaf[::2], slots, 16)
     with pytest.raises(ValueError, match="num_bins"):
@@ -680,3 +680,155 @@ def test_partition_kernel_edge_cases(case, aligned):
     assert torch.equal(got, ref)
     if n > 1000:
         assert (ref != args[2]).any()
+
+
+# ---- wide bins (int32 bins_t, more than 256 bins): B1, B4, B2, B3 --------
+
+WIDE_CASES = [
+    # (name, F, n, B, leaves, slots)
+    # the Higgs-1M width at max_bin=1023: 4 bin tiles of f32 sums, 3 int
+    ("k25_b1023", 32, 1 << 17, 1023, 60, list(range(0, 48, 2)) + [-1]),
+    # just past a byte, a duplicated slot and a dead one
+    ("b257_dup", 5, 5000, 257, 5, [3, -1, 0, 3]),
+    # two feature chunks, 14 bin tiles of f32 sums
+    ("f40_b4096", 40, 20000, 4096, 10, [1, 4, -1, 7]),
+    # every row in slot 0: the root call
+    ("root", 28, 1 << 17, 1023, 1, [0] + [-1] * 24),
+]
+
+
+def _wide(args, B):
+    """The same operands with int32 bins over [0, B)."""
+    rng = np.random.default_rng(B)
+    bins = torch.from_numpy(rng.integers(0, B, size=tuple(args[0].shape))
+                            .astype(np.int32)).to(args[0].device)
+    return (bins,) + tuple(args[1:])
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["B1", "B4"])
+@pytest.mark.parametrize("precision", ["hilo", "f32", "int8", "int16"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: c[0])
+def test_hist_kernel_wide_matches_twin(case, precision, flat):
+    dev = cuda_device()
+    _, F, n, B, leaves, slots = case
+    kernel = TH.hist_flat_kernel if flat else TH.hist_batched_kernel
+    name = ("hist_flat" if flat else "hist_batched") + "_wide"
+    if precision.startswith("int"):
+        name += "_int"
+        args = _wide(_int_hist_inputs(dev, 12, F, n, B, leaves, slots,
+                                      precision), B)
+    else:
+        args, sg, sh = _hist_inputs(dev, 12, F, n, 2, leaves, slots,
+                                    precision)
+        args = _wide(args, B)
+    before = kernels.launches[name]
+    got = kernel(*args, B)
+    assert kernels.launches[name] == before + 1
+    ref = TH.hist_batched_plain(*args, B)
+    if precision.startswith("int"):
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+        return
+    got = TH._unpack_hist(got.permute(3, 2, 0, 1), precision).cpu().numpy()
+    ref = TH._unpack_hist(ref.permute(3, 2, 0, 1), precision).cpu().numpy()
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    # f32 sums taken in another order: within 1e-6 of the sum of |stat|
+    assert np.abs(got[..., 0] - ref[..., 0]).max() <= 1e-6 * sg
+    assert np.abs(got[..., 1] - ref[..., 1]).max() <= 1e-6 * sh
+    # a slot repeating a leaf id gets the same sums, in f32 atomics of
+    # another arrival order
+    dup = [k for k in range(1, len(slots)) if slots[k] in slots[:k]]
+    for k in dup:
+        first = got[slots.index(slots[k])]
+        np.testing.assert_array_equal(got[k][..., 2], first[..., 2])
+        assert np.abs(got[k][..., 0] - first[..., 0]).max() <= 1e-6 * sg
+
+
+def test_hist_kernel_wide_bins_past_num_bins_add_nothing():
+    dev = cuda_device()
+    args = _wide(_int_hist_inputs(dev, 13, 6, 4000, 600, 3, [0, 2],
+                                  "int16"), 600)
+    # bins in [300, 600) lie past num_bins=300: no tile adds them
+    got = TH.hist_batched_kernel(*args, 300)
+    assert torch.equal(got, TH.hist_batched_plain(*args, 300))
+
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+@pytest.mark.parametrize("F,n,B,K,dead", [
+    (32, 1 << 17, 1023, 25, (7, 24)),
+    (6, 3000, 300, 3, (1,)),
+    (8, 1 << 15, 4096, 4, ()),
+])
+def test_fused_kernel_wide_bitwise(precision, F, n, B, K, dead):
+    dev = cuda_device()
+    case, kw = fused_case(14, F, n, B, K, precision, dead)
+    assert case["bins"].dtype == np.int32
+    ops = fused_args(case, B, precision, dev)
+    before = kernels.launches["fused_hist_scan_wide"]
+    got = TF.fused_hist_scan_kernel(*ops, split_kw=kw)
+    assert kernels.launches["fused_hist_scan_wide"] == before + 1
+    ref = TF.fused_hist_scan_plain(*ops, split_kw=kw)
+    TF.assert_fused_equal(got, ref)
+    assert (ref[1][..., 0] > 0).any()
+    # some feature's best threshold lies past the first 256-bin tile
+    assert (ref[1][..., 1][ref[1][..., 0] > 0] > 255).any()
+
+
+def test_fused_probe_wide_passes():
+    dev = cuda_device()
+    TF.probe_fused(dev, "int8", wide=True)
+    TF.probe_fused(dev, "int16", wide=True)
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "offset"])
+def test_partition_kernel_wide_matches_twin(aligned):
+    dev = cuda_device()
+    rng = np.random.default_rng(15)
+    F, n, K, leaves = 30, (1 << 16) + 3, 25, 60
+    num_bin = rng.integers(300, 1024, size=F).astype(np.int32)
+    bins = np.stack([rng.integers(0, nb, size=n) for nb in num_bin]
+                    ).astype(np.int32)
+    feat = rng.integers(0, F, size=K).astype(np.int32)
+    mt = (np.arange(K) % 3).astype(np.int32)
+    db = np.array([rng.integers(0, num_bin[f]) for f in feat], np.int32)
+    thr = np.array([rng.integers(256, num_bin[f] - 1) for f in feat],
+                   np.int32)
+    sel = rng.permutation(leaves)[:K].astype(np.int32)
+    sel[3] = sel[2]                                  # a duplicated slot
+    leaf = rng.integers(0, leaves, size=n + 1).astype(np.int32)
+    c = [bins, feat, leaf, sel, (leaves + np.arange(K)).astype(np.int32),
+         thr, rng.random(K) < 0.5, mt, num_bin[feat], db,
+         np.arange(K) < K - 3]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in c]
+    args[2] = args[2][:n] if aligned else args[2][1:]
+    before = kernels.launches["partition_rows_wide"]
+    got = TF.partition_rows_kernel(*args).cpu().numpy()
+    assert kernels.launches["partition_rows_wide"] == before + 1
+    ref = TF.partition_rows_plain(*args).cpu().numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_wide_int8_training_on_card_matches_cpu_text(impl):
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(16)
+    X = rng.normal(size=(20000, 10))
+    X[rng.random(X.shape) < 0.03] = np.nan
+    y = X[:, 0] + np.nan_to_num(X[:, 1]) ** 2 + 0.3 * rng.normal(size=20000)
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 511,
+         "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+         "tpu_partition_impl": "kernel", "tpu_hist_impl": impl,
+         "verbosity": -1}
+    kernels.reset_launches()
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        b = lgb.train(dict(p, device_type=dev), lgb.Dataset(X, label=y), 3,
+                      keep_training_booster=True)
+        assert b._driver.learner.bins_t.dtype == torch.int32
+        texts[dev] = _norm(b.model_to_string(), "device_type")
+    route = "fused_hist_scan_wide" if impl == "auto" else "hist_flat_wide_int"
+    assert kernels.launches[route] > 0
+    assert kernels.launches["partition_rows_wide"] > 0
+    assert texts["cuda"] == texts["cpu"]

@@ -144,7 +144,7 @@ def test_auto_resolution_and_blocks():
 
     def resolve(**kw):
         return TreeLearner._resolve_hist_impl(Config(kw),
-                                              kw["tpu_hist_precision"])
+                                              kw["tpu_hist_precision"], 255)
 
     assert resolve(tpu_hist_precision="int8") == ("fused", 8192)
     assert resolve(tpu_hist_precision="int16") == ("fused", 8192)

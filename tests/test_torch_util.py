@@ -30,13 +30,15 @@ def binary_data(n=2000, f=6, seed=0, nan_frac=0.05, zero_frac=0.0):
 
 
 def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
-               mds=0.0, min_data=5.0, bag=0.0):
+               mds=0.0, min_data=5.0, bag=0.0, bins=None):
     """Seeded numpy operands of the grow megakernel (B2): quantized
     stats, leaf ids, K slots (some dead), parent histograms, the ctx rows
     with both sibling choices and consistent child totals, mixed missing
     types and bin counts, a penalized and a masked feature.  With bag > 0
     (bagged operands) about that share of the rows has zero stats and
     of the features is masked, drawn from a generator of their own.
+    The bins are uint8 up to 256 bins and int32 (wide) above; `bins`
+    ([F, n]) replaces the random ones.
     Returns (dict of arrays, split_kw)."""
     import torch
 
@@ -55,7 +57,9 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     stats = np.stack([rng.integers(-q, q + 1, size=n) * mask,
                       rng.integers(0, q + 1, size=n) * mask,
                       mask]).astype(np.dtype(precision))
-    bins = rng.integers(0, B, size=(F, n)).astype(np.uint8)
+    drawn = rng.integers(0, B, size=(F, n))
+    bins = (drawn if bins is None else np.asarray(bins)).astype(
+        np.uint8 if B <= 256 else np.int32)
     leaf = rng.integers(0, leaves, size=n).astype(np.int32)
     small = TH._unpack_hist(TH.hist_batched_plain(
         torch.from_numpy(bins), torch.from_numpy(stats),
