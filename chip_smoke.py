@@ -7,7 +7,8 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. ten paths at full width, each lgb.train on the Higgs-1M shape
+  3. nineteen paths at full width, each lgb.train (cv_int8: lgb.cv) on
+     the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
      before each path and read just after, and each kernel of the path
@@ -58,6 +59,26 @@ Phases, each fatal on failure (exit code 1, no result line):
        wide_flat, wide_flat_int8  wide with tpu_hist_impl=pallas (and
                int8), 5 iterations: B4's wide variants, B3's, the leaf
                sums;
+       goss_int8  int8 with boosting=goss (top_rate 0.2, other_rate 0.1),
+               15 iterations: 10 of warm-up (learning_rate 0.1), then 5
+               sampled on the card; B1-int at the root, B2, B3, the leaf
+               sums; the kept-row share of every tree (1.0, then about
+               0.3);
+       bynode_int8  int8 with feature_fraction_bynode=0.5, 5 iterations:
+               one feature mask a node, so the grower leaves B2's scan:
+               B1-int every round, B3, the leaf sums, and no B2 launch;
+       dart_hilo  hilo with boosting=dart under its defaults (drop_rate
+               0.1, skip_drop 0.5, max_drop 50), 15 iterations through
+               the sync step: B1, B3; the trees dropped at each iteration,
+               the CUDA-event time of each f64 walk of a drop set on the
+               path, and the profiled device time of one such walk;
+       rf_int8  int8 with boosting=rf, bagging_fraction 0.8 every
+               iteration, feature_fraction 0.8, 10 iterations: B1-int,
+               B2, B3, the leaf sums; the averaged forest's held-out AUC;
+       cv_int8  lgb.cv with int8, 3 stratified folds of the training
+               rows, 5 rounds: each fold's B1-int, B2, B3 and leaf sums;
+               the AUC mean and stdv after each round, each round's wall
+               seconds, the bytes of the fold datasets on the card;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -71,7 +92,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      call's operands (every row in slot 0, the other slots dead); B3 also
      with two slots holding one leaf id; the leaf sums bitwise against
      index_add_ on the CPU; B1-int and B2 also at bagged operands (about
-     20% of the rows with zero stats, about 20% of the features masked);
+     20% of the rows with zero stats, about 20% of the features masked)
+     and at GOSS operands (the grad, hess and row mask of one sampled
+     tree of goss_int8: about 70% of the rows out, the rest kept by the
+     draw upscaled by 8), bitwise;
      the wide variants of B1, B4 (random and root), B2 and B3 on the wide
      paths' learners, with a second bound that counts each bin tile's
      re-read of the rows;
@@ -86,7 +110,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      stop that fires, built in and with fobj, whose texts, evals_result
      curves and best iterations must be equal card to CPU; at
      max_bin=1023 (wide bins), hilo by AUC and regression int8 with the
-     refit off, fused and pallas (B4), by their whole model text.
+     refit off, fused and pallas (B4), by their whole model text; int8
+     regression with the refit off under goss (learning_rate 0.25, 8
+     iterations), dart (drop_rate 0.5, skip_drop 0), rf and
+     feature_fraction_bynode=0.5, by their whole model text, and lgb.cv
+     (3 folds) by its result dict; hilo dart by AUC.
 With --profile, two more iterations of every path run under
 torch.profiler and the device time by op, each port kernel's device time
 per call on the path and the device's idle share are printed.
@@ -185,6 +213,27 @@ EARLY_STOP = 5
 ITERS_FOBJ = 5
 # iterations timed with and without evaluating the validation set, twice
 ITERS_EVAL_COST = 5
+
+# the boosting modes and per-node feature sampling, at full width
+INT_KERNELS = ("hist_batched_int", "fused_hist_scan", "partition_rows",
+               "leaf_sums")
+# GOSS at learning_rate 0.1: 10 full iterations, then 5 sampled
+GOSS_PARAMS = dict(PARAMS, tpu_hist_precision="int8", boosting="goss",
+                   top_rate=0.2, other_rate=0.1)
+ITERS_GOSS = 15
+# per-node feature masks: the grower leaves B2's in-launch scan
+BYNODE_PARAMS = dict(PARAMS, tpu_hist_precision="int8",
+                     feature_fraction_bynode=0.5)
+# DART's defaults; its drop generator (drop_seed 4) skips every drop of
+# the first 12 iterations and drops 1 and 2 trees at iterations 13 and 15
+DART_PARAMS = dict(PARAMS, boosting="dart", drop_rate=0.1, skip_drop=0.5,
+                   max_drop=50)
+ITERS_DART = 15
+RF_PARAMS = dict(PARAMS, tpu_hist_precision="int8", boosting="rf",
+                 bagging_fraction=0.8, bagging_freq=1, feature_fraction=0.8)
+CV_PARAMS = dict(PARAMS, tpu_hist_precision="int8")
+ITERS_CV = 5
+NFOLD = 3
 
 
 def logloss_fobj(scores, train_set):
@@ -301,9 +350,10 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
+def main_path(lgb, kernels, ds, X, y, params, iters, must_launch,
+              must_not=()):
     """Phase 3, one path: train + predict at full width; returns the
-    report and the booster."""
+    report and the booster.  must_not: kernels the path must not launch."""
     import torch
 
     Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
@@ -330,6 +380,10 @@ def main_path(lgb, kernels, ds, X, y, params, iters, must_launch):
     for name in must_launch:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on this path")
+    for name in must_not:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched {launches[name]} times on "
+                 "this path, which must not launch it")
     packed = any("_packed" in name for name in must_launch)
     if driver.learner.packed_bins != packed:
         fail(f"the bins are {'not ' if packed else ''}4-bit packed on "
@@ -494,6 +548,178 @@ def fobj_path(lgb, kernels, ds, X, y):
             "host_syncs_per_tree": driver.grower_syncs / trees,
             "launches_per_tree": {k: v / trees for k, v in launches.items()},
             "launches": launches}, booster
+
+
+def goss_path(lgb, kernels, ds, X, y):
+    """Phase 3, path goss_int8: the kept-row share of every tree (the row
+    mask the step hands the grower, summed on the card and read after
+    training): 1.0 through the warm-up, about top_rate + (1 - top_rate)
+    * other_rate / (1 - top_rate) = 0.3 after it."""
+    from lightgbm_tpu_torch.ops import grower
+
+    kept = []
+    grow = grower.grow
+
+    def spy(params, bins_t, g, h, mask, *rest):
+        kept.append(mask.sum())
+        return grow(params, bins_t, g, h, mask, *rest)
+
+    grower.grow = spy
+    try:
+        report, booster = main_path(lgb, kernels, ds, X, y, GOSS_PARAMS,
+                                    ITERS_GOSS, INT_KERNELS)
+    finally:
+        grower.grow = grow
+    driver = booster._driver
+    n = driver.learner.n
+    share = [float(k.item()) / n for k in kept]
+    warm = driver._goss_cfg["warmup"]
+    if share[:warm] != [1.0] * warm \
+            or not all(0.25 < v < 0.35 for v in share[warm:]):
+        fail(f"goss_int8: kept-row shares {share} (warm-up {warm})")
+    report.update(kept_share=share, warmup=warm)
+    return report, booster
+
+
+def dart_path(lgb, kernels, ds, X, y):
+    """Phase 3, path dart_hilo: the trees dropped at each iteration, and
+    each f64 walk of a drop set (drop and restore, train rows) timed by
+    CUDA events around it on the path."""
+    import torch
+    from lightgbm_tpu_torch.models import dart, gbdt
+
+    drops, walks = [], []
+    drop_fn = dart.DART._dropping_trees
+    walk_fn = gbdt.GBDT._score_trees_binned
+
+    def dropping(self):
+        drop_fn(self)
+        drops.append(len(self._drop_idx))
+
+    def walk(self, bins_t, trees, scales):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = walk_fn(self, bins_t, trees, scales)
+        b.record()
+        walks.append((a, b, len(trees), int(bins_t.shape[1])))
+        return out
+
+    dart.DART._dropping_trees, gbdt.GBDT._score_trees_binned = dropping, walk
+    try:
+        report, booster = main_path(lgb, kernels, ds, X, y, DART_PARAMS,
+                                    ITERS_DART, ("hist_batched",
+                                                 "partition_rows"))
+    finally:
+        dart.DART._dropping_trees = drop_fn
+        gbdt.GBDT._score_trees_binned = walk_fn
+    torch.cuda.synchronize()
+    if not any(drops):
+        fail(f"dart_hilo: no tree was dropped ({drops})")
+    report.update(dropped_per_iter=drops, drop_walks=[
+        {"trees": t, "rows": r, "event_ms": a.elapsed_time(b)}
+        for a, b, t, r in walks])
+    return report, booster
+
+
+def drop_walk_ms(booster):
+    """The device time of one f64 drop walk of the dart_hilo booster's
+    first two trees over its training rows, from torch.profiler: every
+    device launch of the walk (pack upload, level gathers, f64 adds)."""
+    driver = booster._driver
+    trees = driver.models[:2]
+    bins_t = driver.train_data.bins_t
+    ms = device_ms(lambda: driver._score_trees_binned(bins_t, trees,
+                                                      [-1.0, -1.0]), 10,
+                   kernels_of=lambda names: ["all"] * len(names),
+                   launches=None)
+    return {"trees": len(trees), "rows": int(bins_t.shape[1]),
+            "device_ms": ms}
+
+
+def cv_path(lgb, kernels, ds, X, y):
+    """Phase 3, path cv_int8: lgb.cv, NFOLD stratified folds of the
+    training rows, ITERS_CV rounds; the mean and stdv of the first metric
+    after each round, and each round's wall seconds (to the last fold's
+    evaluation; the first round includes the folds' set-up)."""
+    import torch
+
+    stamps = []
+    eval_fn = lgb.Booster.eval_valid
+
+    def timed(self, feval=None):
+        out = eval_fn(self, feval)
+        stamps.append(time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    lgb.Booster.eval_valid = timed
+    t0 = time.perf_counter()
+    try:
+        res = lgb.cv(dict(CV_PARAMS), ds, num_boost_round=ITERS_CV,
+                     nfold=NFOLD, return_cvbooster=True)
+    finally:
+        lgb.Booster.eval_valid = eval_fn
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in INT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on path cv_int8")
+    mean, stdv = res["auc-mean"], res["auc-stdv"]
+    if len(mean) != ITERS_CV or not all(0.6 < v <= 1.0 for v in mean):
+        fail(f"cv_int8: auc-mean {mean}")
+    folds = res["cvbooster"].boosters
+    preds = res["cvbooster"].predict(X[N_TRAIN:])
+    if len(preds) != NFOLD or not all(
+            p.shape == (N_HOLD,) and np.all(np.isfinite(p)) for p in preds):
+        fail("cv_int8: the fold boosters' predictions")
+    ends = [t0] + stamps[NFOLD - 1::NFOLD]
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    fold_bytes = []
+    for b in folds:
+        d = b._driver
+        rows = getattr(d.learner.bins_t, "_lgbt_rows", (None, None))[1]
+        fold_bytes.append({
+            "train_rows": d.train_data.num_data,
+            "valid_rows": d.valid_sets[0].num_data,
+            "train_bins": nbytes(d.train_data.bins_t),
+            "valid_bins": nbytes(d.valid_sets[0].bins_t),
+            "learner_bins": nbytes(d.learner.bins_t),
+            "row_major_bins": None if rows is None else nbytes(rows)})
+    trees = sum(b.num_trees() for b in folds)
+    return {"wall_s": wall, "auc_mean": mean, "auc_stdv": stdv,
+            "round_s": [b - a for a, b in zip(ends, ends[1:])],
+            "fold_bytes": fold_bytes,
+            "holdout_auc_per_fold": [auc(p, y[N_TRAIN:]) for p in preds],
+            "launches_per_tree": {k: v / trees for k, v in launches.items()},
+            "launches": launches}, folds[0]
+
+
+def goss_operands(booster):
+    """The padded grad, hess and row mask one sampled GOSS tree hands
+    the grower: one more iteration of the goss_int8 booster, its grower
+    call's operands kept."""
+    from lightgbm_tpu_torch.ops import grower
+
+    seen = []
+    grow = grower.grow
+
+    def spy(params, bins_t, g, h, mask, *rest):
+        seen.append((g, h, mask))
+        return grow(params, bins_t, g, h, mask, *rest)
+
+    grower.grow = spy
+    try:
+        booster.update()
+        booster.num_trees()
+    finally:
+        grower.grow = grow
+    if len(seen) != 1:
+        fail(f"goss_operands: {len(seen)} grower calls")
+    return seen[0]
 
 
 _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
@@ -812,10 +1038,10 @@ def _bag_masks(learner, gen):
     return rows, fmask
 
 
-def _int8_stats(learner, gen, mask=None):
-    """int8 [3, n] stats of random grad/hess on the learner's rows (or
-    the rows of `mask`), rounded as the quantized grower rounds them
-    (nearest)."""
+def _int8_stats(learner, gen, mask=None, gh=None):
+    """int8 [3, n] stats of random grad/hess (or the given pair) on the
+    learner's rows (or the rows of `mask`), rounded as the quantized
+    grower rounds them (nearest)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -823,8 +1049,10 @@ def _int8_stats(learner, gen, mask=None):
     n = learner.n_pad
     mask = learner._ones_mask if mask is None else mask
     q = H.quant_limit("int8", n)
-    g = torch.randn(n, generator=gen, device=dev) * mask
-    h = torch.rand(n, generator=gen, device=dev) * mask
+    if gh is None:
+        gh = (torch.randn(n, generator=gen, device=dev),
+              torch.rand(n, generator=gen, device=dev))
+    g, h = gh[0] * mask, gh[1] * mask
     gq = H.quantize_values(g, g.abs().max() / q, q, "nearest")
     hq = H.quantize_values(h, h.abs().max() / q, q, "nearest")
     return H.pack_stats(gq, hq, mask, "int8").contiguous()
@@ -870,7 +1098,7 @@ def _index_add_ms(bins_t, stats, leaf, slots, B):
 
 
 def _slots_of(learner, gen, operands):
-    if operands in ("random", "bagged"):
+    if operands in ("random", "bagged", "goss"):
         return _random_slots(learner, gen)
     import torch
 
@@ -955,11 +1183,12 @@ def _random_slots(learner, gen):
     return leaf, slots.contiguous()
 
 
-def check_hist_int(learner, gen, operands):
+def check_hist_int(learner, gen, operands, goss=None):
     """Phase 4, the integer variant of kernel B1, or of B4 on a flat path
     (each packed on a learner whose bins are packed) at the path's shapes
     (operands as check_hist's, or "bagged": random slots over rows of
-    which about BAG_OUT have zero stats), bitwise."""
+    which about BAG_OUT have zero stats, or "goss": random slots over
+    the grad, hess and row mask `goss` of a sampled GOSS tree), bitwise."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -969,7 +1198,10 @@ def check_hist_int(learner, gen, operands):
     B = learner.num_bins
     K = learner.params.split_batch
     rows = _bag_masks(learner, gen)[0] if operands == "bagged" else None
-    stats = _int8_stats(learner, gen, rows)
+    if operands == "goss":
+        rows = goss[2]
+    stats = _int8_stats(learner, gen, rows, None if goss is None
+                        else goss[:2])
     leaf, slots = _slots_of(learner, gen, operands)
 
     def kernel():
@@ -1058,11 +1290,12 @@ def check_leaf_sums(learner, gen):
             "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
 
 
-def _fused_operands(learner, gen, bagged=False):
+def _fused_operands(learner, gen, bagged=False, goss=None):
     """Kernel B2's operands at the int8 path's shapes: K parent leaves
     k and K + k, each split in two, the smaller child histogrammed;
     bagged: about BAG_OUT of the rows with zero stats and of the
-    features masked.  Returns (positional args, split_kw)."""
+    features masked; goss: the grad, hess and row mask of a sampled GOSS
+    tree.  Returns (positional args, split_kw)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -1074,7 +1307,10 @@ def _fused_operands(learner, gen, bagged=False):
     p = learner.params
     rows, fmask = (_bag_masks(learner, gen) if bagged
                    else (None, learner.feature_mask))
-    stats = _int8_stats(learner, gen, rows)
+    if goss is not None:
+        rows = goss[2]
+    stats = _int8_stats(learner, gen, rows, None if goss is None
+                        else goss[:2])
     leaf = torch.randint(0, 2 * K, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
     pairs = torch.arange(2 * K, device=dev, dtype=torch.int32)
@@ -1113,9 +1349,9 @@ def _fused_operands(learner, gen, bagged=False):
             "int8"), kw
 
 
-def check_fused(learner, gen, operands="random"):
-    """Phase 4, kernel B2 at `_fused_operands`' operands ("random", or
-    "bagged")."""
+def check_fused(learner, gen, operands="random", goss=None):
+    """Phase 4, kernel B2 at `_fused_operands`' operands ("random",
+    "bagged", or "goss" with the operands `goss`)."""
     import torch
     from lightgbm_tpu_torch.ops import fused
 
@@ -1123,7 +1359,7 @@ def check_fused(learner, gen, operands="random"):
     F, n = bins_t.shape
     B = learner.num_bins
     K = learner.params.split_batch
-    args, kw = _fused_operands(learner, gen, operands == "bagged")
+    args, kw = _fused_operands(learner, gen, operands == "bagged", goss)
     leaf, slots = args[2], args[3]
     got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
     ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
@@ -1162,6 +1398,9 @@ def check_fused(learner, gen, operands="random"):
     if tiles > 1:
         extra = {"bin_tiles": tiles, "bound_ms_tiled": _bound(
             4 * n + tiles * m * row + rest, ops, PEAK_F32_S)["bound_ms"]}
+    if goss is not None:
+        extra["rows_out"] = float(1.0 - goss[2].sum().item()
+                                  / learner._ones_mask.sum().item())
     return {"name": "fused_hist_scan" + ("_wide" if bins_t.dtype
                                          == torch.int32 else ""),
             "operands": operands, **extra,
@@ -1286,6 +1525,59 @@ def cross_check(lgb, X, y):
             fail(f"{name}: the card and the CPU differ (text "
                  f"{text == cpu[0]}, evals_result {evals == cpu[1]}, best "
                  f"iteration {best}/{cpu[2]}, iterations {done}/{cpu[3]})")
+    # the boosting modes and per-node feature sampling, int8 regression
+    # with the refit off: the card writes the CPU's text (GOSS at
+    # learning_rate 0.25: 4 full iterations, then 4 sampled; DART drops
+    # at every iteration from the third)
+    modes = {
+        "goss_int8_regression": (dict(PARAMS, **reg, boosting="goss",
+                                      learning_rate=0.25), 8),
+        "dart_int8_regression": (dict(PARAMS, **reg, boosting="dart",
+                                      drop_rate=0.5, skip_drop=0.0), 8),
+        "rf_int8_regression": (dict(PARAMS, **reg, boosting="rf",
+                                    bagging_fraction=0.8, bagging_freq=1,
+                                    feature_fraction=0.8), ITERS_SMALL),
+        "bynode_int8_regression": (dict(PARAMS, **reg,
+                                        feature_fraction_bynode=0.5),
+                                   ITERS_SMALL)}
+    for name, (params, iters) in modes.items():
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(params, device_type=dev)
+            t0 = time.perf_counter()
+            b = lgb.train(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                          num_boost_round=iters)
+            texts[dev] = _norm_param(b.model_to_string(), "device_type")
+            out[f"{name}_{dev}_s"] = time.perf_counter() - t0
+        out[f"{name}_text_identical"] = texts["cuda"] == texts["cpu"]
+        if not out[f"{name}_text_identical"]:
+            fail(f"{name}: the card's model text differs from the CPU's")
+    # lgb.cv: the result dicts equal
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = dict(PARAMS, **reg, device_type=dev)
+        t0 = time.perf_counter()
+        got[dev] = lgb.cv(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                          num_boost_round=ITERS_SMALL, nfold=NFOLD)
+        out[f"cv_int8_regression_{dev}_s"] = time.perf_counter() - t0
+    out["cv_int8_regression_results_equal"] = got["cuda"] == got["cpu"]
+    out["cv_int8_regression_l2_mean"] = got["cuda"]["l2-mean"]
+    if got["cuda"] != got["cpu"]:
+        fail(f"cv_int8_regression: the card's results {got['cuda']} differ "
+             f"from the CPU's {got['cpu']}")
+    # hilo DART by AUC
+    for dev in ("cuda", "cpu"):
+        p = dict(PARAMS, boosting="dart", drop_rate=0.5, skip_drop=0.0,
+                 device_type=dev)
+        t0 = time.perf_counter()
+        b = lgb.train(p, lgb.Dataset(Xs, label=ys, params=p),
+                      num_boost_round=8)
+        out[f"dart_hilo_{dev}_auc"] = auc(b.predict(Xs, raw_score=True), ys)
+        out[f"dart_hilo_{dev}_s"] = time.perf_counter() - t0
+    diff = abs(out["dart_hilo_cuda_auc"] - out["dart_hilo_cpu_auc"])
+    out["dart_hilo_auc_diff"] = diff
+    if diff > AUC_TOL:
+        fail(f"dart_hilo: card and CPU AUC differ by {diff} > {AUC_TOL}")
     # the leaf refit sums each leaf in row order on the card too: two
     # trainings write the same text
     p = dict(PARAMS, objective="regression", metric="l2",
@@ -1362,6 +1654,27 @@ def main() -> None:
         if "--profile" in sys.argv[1:]:
             print(f"profile {name} "
                   + json.dumps(profile(boosters[name], **kw)), flush=True)
+    # the boosting modes, per-node feature sampling and cv
+    for name, run in (
+            ("goss_int8", goss_path),
+            ("bynode_int8", lambda *a: main_path(
+                *a, BYNODE_PARAMS, ITERS_INT_VARIANT,
+                ("hist_batched_int", "partition_rows", "leaf_sums"),
+                must_not=("fused_hist_scan",))),
+            ("dart_hilo", dart_path),
+            ("rf_int8", lambda *a: main_path(*a, RF_PARAMS, ITERS,
+                                             INT_KERNELS)),
+            ("cv_int8", cv_path)):
+        reports[name], boosters[name] = run(lgb, kernels, datasets[255], X,
+                                            y)
+        if name == "dart_hilo":
+            reports[name]["drop_walk"] = drop_walk_ms(boosters[name])
+        if name == "rf_int8" and not boosters[name]._driver.average_output:
+            fail("rf_int8: the model does not average its trees")
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        if "--profile" in sys.argv[1:] and name != "cv_int8":
+            print(f"profile {name} " + json.dumps(profile(boosters[name])),
+                  flush=True)
     del datasets
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1387,6 +1700,14 @@ def main() -> None:
     kernel_rows += [(check_hist_int(bagged, gen, "bagged"),
                      "valid_bag_int8"),
                     (check_fused(bagged, gen, "bagged"), "valid_bag_int8")]
+    # and at GOSS operands: the grad, hess and row mask of a sampled tree
+    # of the goss_int8 path (about 70% of the rows out, the others kept
+    # at random upscaled by 8)
+    goss = goss_operands(boosters["goss_int8"])
+    kernel_rows += [(check_hist_int(learners["goss_int8"], gen, "goss",
+                                    goss), "goss_int8"),
+                    (check_fused(learners["goss_int8"], gen, "goss", goss),
+                     "goss_int8")]
     for row, path in kernel_rows:
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
@@ -1403,7 +1724,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B1, B4 and their integer and packed variants have two rows: random
-    # operands, then the root's; B1-int and B2 a third, bagged operands
+    # operands, then the root's; B1-int and B2 two more, bagged and GOSS
+    # operands
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **({"operands": r["operands"]} if "operands" in r else {})}

@@ -1,11 +1,13 @@
 """The `Booster` front end (reference basic.py Booster).
 
 The port of the subset of `lightgbm_tpu/booster.py:Booster` that
-`lgb.train` and its callbacks need: update (with custom gradients),
-validation sets and evaluation, `best_iteration`/`best_score` (predict
-and model text default to the best iteration), `reset_parameter` of
-the learning rate, `free_dataset`, predict, and model-text save and
-load.
+`lgb.train`, `lgb.cv` and the callbacks need: update (with custom
+gradients), validation sets and evaluation, `best_iteration`/
+`best_score` (predict and model text default to the best iteration),
+`reset_parameter` of the learning rate, `free_dataset`, predict, and
+model-text save and load.  The boosting driver follows `boosting`
+(gbdt, goss, dart, rf: `models.create_boosting`).  Rollback is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ class Booster:
                  train_set=None, model_file: Optional[str] = None,
                  model_str: Optional[str] = None):
         from .basic import Dataset
+        from .models import create_boosting
         from .models.gbdt import GBDT
 
         self.params = dict(params) if params else {}
@@ -40,7 +43,7 @@ class Booster:
             train_set.construct()
             self._train_set = train_set
             cfg = Config(self.params)
-            self._driver = GBDT()
+            self._driver = create_boosting(cfg)
             self._driver.init(cfg, train_set._inner)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
@@ -84,6 +87,15 @@ class Booster:
                           self._train_set)
         return self._driver.train_one_iter(np.asarray(grad, np.float32),
                                            np.asarray(hess, np.float32))
+
+    def rollback_one_iter(self) -> "Booster":
+        """Not ported: the rollback of an iteration (and of DART's and
+        RF's state with it) waits for a later slice."""
+        cfg = self._driver.config
+        raise NotImplementedError(
+            "Booster.rollback_one_iter (boosting="
+            f"{cfg.boosting if cfg is not None else 'gbdt'}) is not ported "
+            "to lightgbm_tpu_torch yet")
 
     def current_iteration(self) -> int:
         return self._driver.current_iteration()

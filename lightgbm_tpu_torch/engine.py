@@ -1,17 +1,25 @@
-"""`train`: the `lgb.train` entry point (reference engine.py).
+"""`train` and `cv`: the `lgb.train` and `lgb.cv` entry points
+(reference engine.py).
 
-The port of `lightgbm_tpu/engine.py:train`: validation sets (the
+The port of `lightgbm_tpu/engine.py`.  `train`: validation sets (the
 training set among them, too), custom objectives (`fobj`) and metrics
 (`feval`), callbacks run before and after each iteration in their
 `order`, early stopping, evaluation logging and recording, and a
-learning-rate schedule.  Init models, checkpoints, `resume` and
-training snapshots are not ported yet and raise when given.
+learning-rate schedule.  `cv`: k folds (stratified for binary labels,
+shuffled from a numpy generator of `seed`), one booster a fold trained
+in turns on a row subset of the dataset (`Dataset.subset`), the mean
+and standard deviation of each metric over the folds after each round,
+early stopping on the first metric, and the fold boosters as a
+`CVBooster`.  Init models, checkpoints, `resume` and training snapshots
+are not ported yet and raise when given.
 """
 
 from __future__ import annotations
 
 import copy
 from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
 
 from .basic import Dataset
 from .booster import Booster
@@ -149,3 +157,149 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if not keep_training_booster:
         booster.free_dataset()
     return booster
+
+
+class CVBooster:
+    """The fold boosters of `cv` (reference engine.py:296): any Booster
+    method called on it runs on every fold and returns one result a
+    fold."""
+
+    def __init__(self):
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def _append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _FoldFanout(self.boosters, name)
+
+
+class _FoldFanout:
+    """A Booster method mapped over every fold."""
+
+    def __init__(self, boosters: List[Booster], method: str):
+        self._boosters = boosters
+        self._method = method
+
+    def __call__(self, *args: Any, **kwargs: Any) -> List[Any]:
+        return [getattr(b, self._method)(*args, **kwargs)
+                for b in self._boosters]
+
+
+def _make_n_folds(full_data: Dataset, nfold: int, seed: int,
+                  stratified: bool, shuffle: bool):
+    """(train indices, test indices) of each fold, drawn as
+    lightgbm_tpu/engine.py:_make_n_folds draws them: stratified by label
+    class, or plain; shuffled by a numpy generator of `seed`."""
+    full_data.construct()
+    num_data = full_data.num_data()
+    rng = np.random.default_rng(seed)
+    if stratified:
+        label = full_data.get_field("label")
+        idx_by_class: List[np.ndarray] = []
+        for c in np.unique(label):
+            ci = np.where(label == c)[0]
+            if shuffle:
+                rng.shuffle(ci)
+            idx_by_class.append(ci)
+        folds = []
+        for k in range(nfold):
+            test_idx = np.concatenate([ci[k::nfold] for ci in idx_by_class])
+            mask = np.zeros(num_data, dtype=bool)
+            mask[test_idx] = True
+            folds.append((np.where(~mask)[0], np.where(mask)[0]))
+        return folds
+    idx = np.arange(num_data)
+    if shuffle:
+        rng.shuffle(idx)
+    return [(np.setdiff1d(idx, idx[k::nfold], assume_unique=False),
+             idx[k::nfold]) for k in range(nfold)]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
+       folds=None, nfold: int = 5, stratified: bool = True,
+       shuffle: bool = True, metrics=None, fobj=None, feval=None,
+       init_model=None, early_stopping_rounds: Optional[int] = None,
+       verbose_eval: Union[bool, int, None] = None, show_stdv: bool = True,
+       seed: int = 0, callbacks=None, return_cvbooster: bool = False
+       ) -> Dict:
+    """k-fold cross-validation: {"<metric>-mean": [...], "<metric>-stdv":
+    [...]} over the rounds (cut at the best round when early stopping
+    fires), with "cvbooster" when return_cvbooster."""
+    params = copy.deepcopy(params)
+    given = [name for name, v in (("init_model", init_model),
+                                  ("callbacks", callbacks)) if v]
+    if given:
+        raise NotImplementedError(
+            f"lgb.cv({', '.join(given)}=...) is not ported to "
+            "lightgbm_tpu_torch yet")
+    if metrics is not None:
+        params["metric"] = metrics
+    for alias in _ROUND_ALIASES:
+        if alias in params:
+            num_boost_round = int(params.pop(alias))
+    if train_set._inner is None:
+        # the dataset is binned with its own params, as the JAX package's
+        # cv bins it, on the device the training params name
+        train_set.params = {**train_set.params,
+                            **{k: params[k] for k in ("device_type",
+                                                      "device")
+                               if k in params}}
+    if folds is None:
+        stratified = stratified and str(params.get("objective", "")
+                                        ).startswith(("binary",
+                                                      "multiclass"))
+        folds = _make_n_folds(train_set, nfold, seed, stratified, shuffle)
+    elif hasattr(folds, "split"):
+        label = train_set.get_field("label")
+        folds = list(folds.split(np.zeros(train_set.num_data()), label))
+
+    cvbooster = CVBooster()
+    for train_idx, test_idx in folds:
+        tr = train_set.subset(np.sort(train_idx))
+        te = train_set.subset(np.sort(test_idx))
+        bst = Booster(params=params, train_set=tr)
+        bst.add_valid(te, "valid")
+        cvbooster._append(bst)
+
+    results: Dict[str, List[float]] = {}
+    for i in range(num_boost_round):
+        all_evals = []
+        for bst in cvbooster.boosters:
+            bst.update(fobj=fobj)
+            all_evals.append(bst.eval_valid(feval))
+        agg: Dict[str, List[float]] = {}
+        higher: Dict[str, bool] = {}
+        for evals in all_evals:
+            for item in evals:
+                agg.setdefault(item[1], []).append(item[2])
+                higher[item[1]] = item[3]
+        for key, vals in agg.items():
+            results.setdefault(f"{key}-mean", []).append(
+                float(np.mean(vals)))
+            results.setdefault(f"{key}-stdv", []).append(float(np.std(vals)))
+        if verbose_eval:
+            print(f"[{i + 1}]\t" + "\t".join(
+                f"{k}: {np.mean(v):g} + {np.std(v):g}"
+                for k, v in agg.items()))
+        stop = False
+        if early_stopping_rounds and i >= early_stopping_rounds:
+            # the first metric decides
+            key = next(iter(agg))
+            series = results[f"{key}-mean"]
+            best = np.argmax(series) if higher[key] else np.argmin(series)
+            if i - best >= early_stopping_rounds:
+                cvbooster.best_iteration = int(best) + 1
+                stop = True
+        if stop:
+            for key in list(results):
+                results[key] = results[key][:cvbooster.best_iteration]
+            break
+
+    out: Dict[str, Any] = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = cvbooster
+    return out

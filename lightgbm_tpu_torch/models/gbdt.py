@@ -7,13 +7,18 @@ host `Tree` models built lazily from the device step records
 (`_materialize`: one batched fetch for all pending trees), validation
 sets whose scores stay on the device (each new tree's leaf values added
 at `_materialize`), evaluation with custom `feval`, the synchronous
-step of custom objectives (`fobj`), model text with the
-`tpu_bin_mappers:` trailer, and device predict in bin space.  The
+step (custom objectives, and the DART and RF subclasses), model text
+with the `tpu_bin_mappers:` trailer and the `average_output` flag of
+random forests, and device predict in bin space.  The
 `tpu_feature_profile:` trailer (the training reference profile of
 `obs/modelhealth.py`) follows the mapper trailer, as in the JAX package.
+The hooks of the boosting modes (`models/goss.py`, `dart.py`, `rf.py`):
+`_goss_cfg` (threaded into the fused step), `_train_one_iter_impl`,
+`_ScoreState.multiply`, `_score_trees_binned` (the f64 walk of a listed
+subset of trees) and `_invalidate_tables`.
 
 Left out, and not silently: rollback, OOM ladders, fault injection,
-telemetry, checkpoints, DART/GOSS/RF.
+telemetry, checkpoints.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from ..io.dataset import TrainingData
 from ..obs import modelhealth
 from ..ops.binning import bin_matrix_t
 from ..ops.predict import (class_scores, device_tables, pack_trees,
-                           tree_leaf_values, upload)
+                           subset_scores, tree_leaf_values, upload)
 from ..utils.prng import PRNGKey
 from .learner import TreeLearner
 from .metrics import Metric, create_metrics
@@ -138,6 +143,11 @@ class _ScoreState:
     def add(self, class_id: int, delta: torch.Tensor) -> None:
         self.scores[class_id] += delta
 
+    def multiply(self, class_id: int, val: float) -> None:
+        """Scale one class's scores by f32(val) (the RF running average,
+        reference score_updater.hpp MultiplyScore)."""
+        self.scores[class_id] *= np.float32(val)
+
     def numpy(self) -> np.ndarray:
         return self.scores.cpu().numpy().astype(np.float64)
 
@@ -181,6 +191,10 @@ class GBDT:
         self._bag_cfg: Optional[Dict] = None
         self._cached_bag_mask: Optional[torch.Tensor] = None
         self._step = None
+        # GOSS's rates and warm-up (models/goss.py); threaded into the step
+        self._goss_cfg: Optional[Dict] = None
+        # random forests: scores and predictions are averages over trees
+        self.average_output = False
         # a loaded model's tpu_feature_profile: trailer
         self._profile: Optional[modelhealth.FeatureProfile] = None
 
@@ -231,7 +245,7 @@ class GBDT:
         if self.objective is not None:
             self._step = self.learner.make_train_step(
                 self.objective.get_gradients, self.shrinkage_rate,
-                self._bag_cfg)
+                self._bag_cfg, self._goss_cfg)
 
     def _bagging_config(self) -> Optional[Dict]:
         cfg = self.config
@@ -357,17 +371,25 @@ class GBDT:
         path."""
         if self._stopped:
             return True
-        if grad is not None:
-            return self._train_one_iter_sync(grad, hess)
-        if self._step is None:
+        return self._train_one_iter_impl(grad, hess)
+
+    def _train_one_iter_impl(self, grad, hess) -> bool:
+        """The iteration itself; the boosting modes override it."""
+        if grad is None and self.objective is None:
             raise ValueError("objective=none trains on given gradients: "
                              "update(fobj=...)")
-        return self._train_one_iter_fused()
+        if grad is None and self._step is not None:
+            return self._train_one_iter_fused()
+        return self._train_one_iter_sync(grad, hess)
 
     def _train_one_iter_fused(self) -> bool:
         """One fused device step per class, no host wait beyond the
-        grower's; the trees materialize lazily."""
+        grower's; the trees materialize lazily.  GOSS samples once its
+        warm-up of 1/learning_rate iterations is over (decided here, on
+        the host, as gbdt.py:631-632 does)."""
         bag = self._bag_cfg
+        goss_on = (self._goss_cfg is not None
+                   and self.iter_ >= self._goss_cfg["warmup"])
         for k in range(self.num_tree_per_iteration):
             if not self.objective.class_need_train(k):
                 raise NotImplementedError(
@@ -377,7 +399,8 @@ class GBDT:
             refresh = bag is not None and self.iter_ % bag["freq"] == 0
             (records, scores, _, leaf_out, self._key,
              self._bag_key) = self._step(self.train_scores.scores, k,
-                                         self._key, self._bag_key, refresh)
+                                         self._key, self._bag_key, refresh,
+                                         goss_on)
             self.train_scores.scores = scores
             self.grower_syncs += self.learner.last_syncs
             # refit leaves: the tree takes the refitted device outputs
@@ -387,16 +410,25 @@ class GBDT:
         self.iter_ += 1
         return False
 
-    def _train_one_iter_sync(self, grad: np.ndarray, hess: np.ndarray
-                             ) -> bool:
-        """The synchronous path of custom gradients (gbdt.py:1037-1097):
-        the numpy bagging mask, one tree fetched per class, no
-        boost-from-average."""
+    def _train_one_iter_sync(self, grad: Optional[np.ndarray] = None,
+                             hess: Optional[np.ndarray] = None) -> bool:
+        """The synchronous path (gbdt.py:1037-1097): custom gradients, or
+        without them boost-from-average and the objective's gradients on
+        the device (DART); the numpy bagging mask, one tree fetched per
+        class."""
         k_all = self.num_tree_per_iteration
-        grad = torch.as_tensor(np.asarray(grad, np.float32).reshape(
-            k_all, -1), device=self.device)
-        hess = torch.as_tensor(np.asarray(hess, np.float32).reshape(
-            k_all, -1), device=self.device)
+        init_scores = [0.0] * k_all
+        if grad is None:
+            for k in range(k_all):
+                init_scores[k] = self._boost_from_average(k)
+            grad, hess = self.objective.get_gradients(
+                self.train_scores.scores)
+            grad, hess = grad.reshape(k_all, -1), hess.reshape(k_all, -1)
+        else:
+            grad = torch.as_tensor(np.asarray(grad, np.float32).reshape(
+                k_all, -1), device=self.device)
+            hess = torch.as_tensor(np.asarray(hess, np.float32).reshape(
+                k_all, -1), device=self.device)
         self._materialize()
         mask = self.bagging_mask(self.iter_)
         should_continue = False
@@ -411,10 +443,13 @@ class GBDT:
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
                 self._update_scores(tree, leaf_ids, k)
+                if abs(init_scores[k]) > K_EPSILON:
+                    tree.add_bias(init_scores[k])
             else:
                 tree = Tree(2)
                 if len(self.models) < k_all:
-                    output = (0.0 if need
+                    output = (init_scores[k]
+                              if need or self.objective is None
                               else self.objective.boost_from_score(k))
                     tree.as_constant_tree(output)
                     self.train_scores.add_constant(output, k)
@@ -455,6 +490,21 @@ class GBDT:
         for vs, vd in zip(self.valid_scores, self.valid_sets):
             vs.add(class_id,
                    tree_leaf_values(tables, vd.bins_t, meta, depth))
+
+    def _score_trees_binned(self, bins_t: torch.Tensor, trees, scales
+                            ) -> torch.Tensor:
+        """[n] f32 device scores sum_i scales[i] * trees[i] over a binned
+        [F, n] set, summed per row in f64 in list order and cast once
+        (gbdt.py:1519-1543; the DART drop and restore)."""
+        return subset_scores(trees, scales, bins_t,
+                             self._pred_ctx.meta_dev(self.device))
+
+    def _invalidate_tables(self) -> None:
+        """Drop the cached device forest: it keys on the model count and
+        the last tree, so a change of leaf values in place (DART's
+        shrinkage of dropped trees) must clear it."""
+        self._tables_key = None
+        self._tables = None
 
     def _materialize(self) -> None:
         """Fetch the pending device records (one batched copy) and build
@@ -549,19 +599,24 @@ class GBDT:
         return out
 
     # ------------------------------------------------------------------
-    def _forest(self, num_iteration: int):
-        """(device tables, depth, tree count) for the first
-        `num_iteration` iterations (-1 = all), cached per model count."""
-        self._materialize()
-        if self._preset is not None:
-            tables, depth = self._preset
-            total = tables["leaf_value"].shape[0]
-        else:
-            tables = depth = None
-            total = len(self.models)
+    def _model_subset(self, num_iteration: int) -> Tuple[int, float]:
+        """(tree count, the divisor of random-forest averaging) of the
+        first `num_iteration` iterations (-1 = all), gbdt.py:1716-1727."""
         k = max(self.num_tree_per_iteration, 1)
+        total = (self._preset[0]["leaf_value"].shape[0]
+                 if self._preset is not None else len(self.models))
         if num_iteration is not None and num_iteration > 0:
             total = min(total, num_iteration * k)
+        div = (float(max(total // k, 1))
+               if self.average_output and total > 0 else 1.0)
+        return total, div
+
+    def _forest(self, total: int):
+        """(device tables, depth) of the first `total` trees, cached per
+        tree count and last tree (`_invalidate_tables` clears it)."""
+        tables = depth = None
+        if self._preset is not None:
+            tables, depth = self._preset
         key = (total, id(self.models[-1]) if self.models else 0)
         if self._tables_key != key:
             if self._preset is None:
@@ -571,7 +626,7 @@ class GBDT:
                           for n, v in tables.items()}
             self._tables = (device_tables(tables, self.device), depth)
             self._tables_key = key
-        return self._tables[0], self._tables[1], total
+        return self._tables
 
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1
                     ) -> np.ndarray:
@@ -585,12 +640,14 @@ class GBDT:
                 "predict on a model without the tpu_bin_mappers: trailer "
                 "(the raw-value host walker) is not ported to "
                 "lightgbm_tpu_torch yet")
+        self._materialize()
         k = self.num_tree_per_iteration
         n = X.shape[0]
         out = np.zeros((k, n), np.float64)
-        tables, depth, total = self._forest(num_iteration)
+        total, div = self._model_subset(num_iteration)
         if total == 0:
             return out
+        tables, depth = self._forest(total)
         meta = self._pred_ctx.meta_dev(self.device)
         chunk = max(int(self.config.tpu_predict_chunk_rows)
                     if self.config is not None else 65536, 1024)
@@ -599,7 +656,8 @@ class GBDT:
             bins_t = self._pred_ctx.bin_rows_t(X[lo:hi], self.device)
             scores = class_scores(tables, bins_t, meta, k, depth)
             out[:, lo:hi] = scores.cpu().numpy()
-        return out
+        # random-forest averaging (gbdt_prediction.cpp:55)
+        return out / div
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
@@ -671,6 +729,9 @@ class GBDT:
         buf.write(f"max_feature_idx={self.max_feature_idx}\n")
         if self.objective is not None:
             buf.write(f"objective={self.objective.to_model_string()}\n")
+        if self.average_output:
+            # a bare flag (gbdt_model_text.cpp:289)
+            buf.write("average_output\n")
         buf.write("feature_names=" + " ".join(self.feature_names) + "\n")
         buf.write("feature_infos=" + " ".join(self._feature_infos()) + "\n")
         total = len(self.models)
@@ -738,14 +799,13 @@ class GBDT:
             if line.startswith("end of trees"):
                 break
             if line.strip() == "average_output":
-                raise NotImplementedError(
-                    "average_output (random forest models) is not ported to "
-                    "lightgbm_tpu_torch yet")
-            if "=" in line:
+                kv["average_output"] = "1"
+            elif "=" in line:
                 key, v = line.split("=", 1)
                 kv[key] = v
             i += 1
         self.num_class = int(kv.get("num_class", "1"))
+        self.average_output = "average_output" in kv
         self.num_tree_per_iteration = int(kv.get("num_tree_per_iteration",
                                                  "1"))
         self.label_index = int(kv.get("label_index", "0"))

@@ -4,9 +4,9 @@ The port of the serial, dense, numerical subset of
 `lightgbm_tpu/models/learner.py:TPUTreeLearner`: the padded layout
 (`f_pad`, `n_pad` with the same shape bucketing), the per-feature meta
 arrays, `_resolve_hist_impl`, the fused per-iteration train step with
-its bagging and feature_fraction prologue, the synchronous `train` of
-custom gradients (its masks from numpy generators), and
-`build_tree_from_records`.
+its bagging, GOSS and feature_fraction prologue, the synchronous
+`train` of custom gradients, DART and RF (its masks from numpy
+generators), and `build_tree_from_records`.
 
 Histogram implementations: "pallas2" (the perfeature Pallas kernel in
 the JAX package) means kernel B1 on a CUDA tensor and its plain twin on
@@ -59,22 +59,22 @@ PERFEATURE_OUT_BUDGET = 6 * 1024 * 1024
 
 def check_slice(config: Config) -> None:
     """Refuse, by name, every parameter value outside the ported slice
-    (serial learner, dense numeric columns, gbdt with bagging and
-    per-tree feature_fraction; float and int8/int16 histograms)."""
+    (serial learner, dense numeric columns, the gbdt, goss, dart and rf
+    boosting modes with bagging and per-tree and per-node feature
+    sampling; float and int8/int16 histograms)."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
             f"{what} is not ported to lightgbm_tpu_torch yet")
 
     c = config
-    if str(c.boosting) != "gbdt":
+    if str(c.boosting) not in ("gbdt", "goss", "dart", "rf",
+                               "random_forest"):
         refuse(f"boosting={c.boosting!r}")
     # the JAX package itself trains a parallel learner serially on one
     # machine (with a warning), so only a real multi-machine run is refused
     if str(c.tree_learner) != "serial" and int(c.num_machines) > 1:
         refuse(f"tree_learner={c.tree_learner!r} with num_machines>1")
-    if float(c.feature_fraction_bynode) < 1.0:
-        refuse("feature_fraction_bynode<1")
     if any(int(v) != 0 for v in c.monotone_constraints):
         refuse("monotone_constraints")
     if float(c.cegb_penalty_split) != 0.0 \
@@ -213,12 +213,15 @@ class TreeLearner:
             block_rows=block,
             quant_round=str(config.tpu_quant_round),
             quant_refit=(precision in INT_PRECISIONS
-                         and bool(config.tpu_quant_refit_leaves)))
+                         and bool(config.tpu_quant_refit_leaves)),
+            feature_fraction_bynode=float(config.feature_fraction_bynode))
         # refit leaves: the trees take their leaf values from the grower's
         # refitted outputs, not from the split records
         self.refits_leaves = self.params.quant_refit
+        # under feature_fraction_bynode the grower never runs B2's scan
         if impl == "fused" and fused_supported(precision) is None \
-                and dev.type == "cuda":
+                and dev.type == "cuda" \
+                and self.params.feature_fraction_bynode >= 1.0:
             probe_fused(dev, precision, wide=B > 256)
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
@@ -350,16 +353,19 @@ class TreeLearner:
         return tree, out["leaf_ids"][:self.n], out
 
     def make_train_step(self, grad_fn, learning_rate: float,
-                        bagging: Optional[dict] = None):
-        """Gradients + bagging and feature_fraction masks + tree growth +
-        train-score update, all on the device; the only host waits are
-        the grower's stop tests.
+                        bagging: Optional[dict] = None,
+                        goss: Optional[dict] = None):
+        """Gradients + bagging (or GOSS) and feature_fraction masks +
+        tree growth + train-score update, all on the device; the only
+        host waits are the grower's stop tests.
 
-        Returns step(scores [k, n], class_id, key, bag_key, refresh_bag)
-            -> (records, new_scores, leaf_ids[:n], leaf_output, key,
-            bag_key): `key` is the booster's threefry key and `bag_key`
-            its bagging key, advanced as the JAX step advances them
-            (learner.py:1116-1197, without GOSS)."""
+        Returns step(scores [k, n], class_id, key, bag_key, refresh_bag,
+            goss_on=False) -> (records, new_scores, leaf_ids[:n],
+            leaf_output, key, bag_key): `key` is the booster's threefry
+            key and `bag_key` its bagging key, advanced as the JAX step
+            advances them (learner.py:1110-1197).  goss: {"top_rate",
+            "other_rate"}; goss_on (decided on the host, after the
+            warm-up) samples the rows of this tree by GOSS."""
         n, n_pad = self.n, self.n_pad
         dev = self.device
         F, f_pad = self.num_features, self.f_pad
@@ -379,6 +385,37 @@ class TreeLearner:
         # per call would be a blocking copy each tree)
         frac_t, pos_t, neg_t = (torch.tensor(np.float32(v), device=dev)
                                 for v in (frac, pos_frac, neg_frac))
+        if goss is not None:
+            top_k = max(1, int(n * float(goss["top_rate"])))
+            other_k = max(1, int(n * float(goss["other_rate"])))
+            # the keep rate of the other rows and their upscale, Python
+            # floats rounded to f32 once, as the JAX step's weak-typed
+            # constants are
+            p_other_t, multiply_t = (
+                torch.tensor(np.float32(v), device=dev)
+                for v in (other_k / max(n - top_k, 1),
+                          (n - top_k) / other_k))
+            gh_pad = torch.full((n_pad,), -1.0, dtype=torch.float32,
+                                device=dev)
+
+        def goss_sample(grad, hess, g, h, bag_key):
+            """GOSS on the device (learner.py:1160-1181): keep the rows
+            whose |g*h| reaches the top_k-th largest value (ties keep
+            more), and each other row with probability other_k/(n-top_k),
+            upscaled by (n-top_k)/other_k; the bagging key is split
+            anew for the draw.  Returns (g, h, row mask, bag_key)."""
+            gh = gh_pad.clone()
+            gh[:n] = (grad[:n] * hess[:n]).abs()
+            thr = torch.sort(gh).values[n_pad - top_k]
+            keep_top = gh >= thr
+            bag_key = prng.split(bag_key)[0]
+            sa, sb = key_words(bag_key)
+            r = hashed_uniform(iota, sa, sb, 0x60553)
+            keep_other = ~keep_top & (r < p_other_t)
+            scale = torch.where(keep_other, multiply_t, 1.0)
+            mask = self._ones_mask * (keep_top | keep_other).to(
+                torch.float32)
+            return g * scale, h * scale, mask, bag_key
 
         def row_mask(bag_key: np.ndarray) -> torch.Tensor:
             if is_pos is None and frac >= 1.0:
@@ -399,7 +436,8 @@ class TreeLearner:
             return upload(fmask, dev)
 
         def step(scores: torch.Tensor, class_id: int, key: np.ndarray,
-                 bag_key: np.ndarray, refresh_bag: bool):
+                 bag_key: np.ndarray, refresh_bag: bool,
+                 goss_on: bool = False):
             grad, hess = grad_fn(scores)
             g = torch.zeros(n_pad, dtype=torch.float32, device=dev)
             h = torch.zeros(n_pad, dtype=torch.float32, device=dev)
@@ -408,7 +446,10 @@ class TreeLearner:
             key, kf = prng.split(key)
             if refresh_bag:
                 bag_key = prng.split(bag_key)[0]
-            mask = row_mask(bag_key)
+            if goss_on:
+                g, h, mask, bag_key = goss_sample(grad, hess, g, h, bag_key)
+            else:
+                mask = row_mask(bag_key)
             fmask = feature_mask(kf)
             key, k_node = prng.split(key)
             out = G.grow(self.params, self.bins_t, g, h, mask, fmask,

@@ -37,6 +37,15 @@ of the JAX grower's size (grower.py:585-591): the histograms read it
 packed (B1's packed variant on the card), and the select-family
 partitions unpack the columns they test (`unpack2d`), as the JAX grower
 does (grower.py:1238-1241,1277-1278,1303-1304).
+
+With feature_fraction_bynode < 1 every node's split search sees its own
+Bernoulli draw of the tree's features (grower.py:616-623): the root's
+from a split of the tree key, each round's 2K children's from the next
+split, `jax.random.uniform` over the padded feature axis, computed on
+the host (`utils.prng.uniform`) and queued to the device.  As in the JAX
+grower, the per-node masks take the fused scan away ("fused" then runs
+the B1 histogram and the torch split search every round) and the
+frontier ramp with it.
 """
 
 from __future__ import annotations
@@ -46,13 +55,14 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.prng import fold_in
+from ..utils.prng import fold_in, split, uniform
 from .fused import (CTX_COUNT, CTX_MAX_C, CTX_MIN_C, CTX_SUM_G, CTX_SUM_H,
                     CTX_USE_SMALL, CTX_WIDTH, fused_hist_scan, partition_rows,
                     partition_rows_plain)
 from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
                         pack_stats, quant_limit, quantize_values, unpack2d)
 from .leafsum import leaf_sums
+from .predict import upload
 from .split import (K_MIN_SCORE, finalize_split, leaf_output,
                     numeric_go_left, per_feature_best_split,
                     unpack_pf_records)
@@ -104,6 +114,9 @@ class GrowerParams(NamedTuple):
     # and the leaf refit from the f32 sums
     quant_round: str = "stochastic"
     quant_refit: bool = False
+    # per-node feature sampling: each node's split search sees a
+    # Bernoulli(fraction) subset of the tree's features
+    feature_fraction_bynode: float = 1.0
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -182,8 +195,27 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     out_kw = dict(l1=params.l1, l2=params.l2,
                   max_delta_step=params.max_delta_step)
 
-    fused_scan = params.hist_impl == "fused" and quantized
+    # per-node feature masks reshape the split search, so the megakernel's
+    # in-launch scan (one mask for every child) is left, as the JAX
+    # grower leaves it (grower.py:557-562): "fused" then rides B1
+    bynode = params.feature_fraction_bynode < 1.0
+    if bynode and key is None:
+        raise ValueError("feature_fraction_bynode needs the tree's key")
+    fused_scan = params.hist_impl == "fused" and quantized and not bynode
     qscale = None
+    FG = feature_mask.shape[0]
+    frac_node = np.float32(params.feature_fraction_bynode)
+
+    def bynode_masks(k, shape_prefix):
+        """Per-node feature masks (grower.py:616-623): Bernoulli(fraction)
+        over the tree's mask from `jax.random.uniform` of the padded
+        feature axis, the tree's mask where a draw is empty.  The draw is
+        made on the host from the key and queued to the device; the rest
+        stays there."""
+        draw = uniform(k, shape_prefix + (FG,)) < frac_node
+        samp = upload(draw.astype(np.float32), dev) * (feature_mask > 0)
+        nonempty = samp.sum(dim=-1, keepdim=True) > 0
+        return torch.where(nonempty, samp, feature_mask)
 
     def best_of(pf, sg, sh, min_c, max_c):
         """Each child's best feature (the lowest index among equal gains)
@@ -192,14 +224,14 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return finalize_split(pf, bf, sg, sh, min_constraint=min_c,
                               max_constraint=max_c, **out_kw)
 
-    def select(hist, sg, sh, cnt, min_c, max_c):
+    def select(hist, sg, sh, cnt, min_c, max_c, fmask):
         """Best split of each leaf of the batch: hist [C, F, B, 3] (int32
         sums under the quantized precisions, rescaled after the bin
-        prefix sums)."""
+        prefix sums); fmask [F], or [C, F] (one mask a leaf)."""
         pf = per_feature_best_split(
             hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
             meta["default_bin"], meta["monotone"], meta["penalty"],
-            feature_mask, min_constraint=min_c, max_constraint=max_c,
+            fmask, min_constraint=min_c, max_constraint=max_c,
             acc_scale=qscale, **split_kw)
         return best_of(pf, sg, sh, min_c, max_c)
 
@@ -241,8 +273,15 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         bins_t, stats, leaf_ids, root_slots, B, params.precision,
         params.hist_impl, pblock)[0]
     big = torch.tensor(1e30, dtype=f32, device=dev)
+    root_fmask = feature_mask
+    node_key = key
+    if bynode:
+        # the rounding seed above folds the tree key without advancing it;
+        # the node draws split it (grower.py:1084-1086)
+        node_key, k_root = split(node_key)
+        root_fmask = bynode_masks(k_root, ())
     root = select(root_hist[None], sum_g[None], sum_h[None], cnt[None],
-                  -big, big)
+                  -big, big, root_fmask)
     if fused_scan:
         # the megakernel's per-feature tables (the JAX package's fused.py
         # layout); no per-node masks in this slice, so the feature mask
@@ -318,7 +357,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return new_leaf
 
     def exec_round(Kr: int) -> None:
-        nonlocal leaf_ids, n_splits
+        nonlocal leaf_ids, n_splits, node_key
         vals, sel = _top_k(cand_gains(), Kr)
         kar = torch.arange(Kr, dtype=i32, device=dev)
         budget = (L - 1) - n_splits
@@ -383,6 +422,12 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         put("pool", hist_left, hist_right)
 
         # best splits of all 2K children (no monotone bounds in this slice)
+        child_masks = feature_mask
+        if bynode:
+            # one mask a child, from the round's split of the key
+            # (grower.py:1476-1479)
+            node_key, k_nodes = split(node_key)
+            child_masks = bynode_masks(k_nodes, (2 * Kr,))
         if fused_scan:
             # the megakernel's records: argmax over the per-feature gains,
             # then finalize_split (grower.py:1532-1551)
@@ -391,7 +436,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         else:
             ch = select(torch.cat([hist_left, hist_right]),
                         torch.cat([lg, rg]), torch.cat([lh, rh]),
-                        torch.cat([lc, rc]), -big, big)
+                        torch.cat([lc, rc]), -big, big, child_masks)
 
         # the record block reads the parent's output before it changes
         rec = torch.stack([
@@ -414,11 +459,12 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         records.index_copy_(0, (n_splits + kar).long(), rec)
         n_splits = n_splits + num_do
 
-    if params.ramp and K > 1:
+    if params.ramp and not bynode and K > 1:
         # after r rounds the frontier holds at most 2^r leaves, so a
         # pre-round of width K' >= 2^r splits exactly the leaves the
         # full-K round would: the tree is the same, the dead-slot work
-        # of the first rounds goes
+        # of the first rounds goes.  Not under bynode: its draws take
+        # the round's width, which would change the masks
         kr = 1
         while kr < K:
             exec_round(kr)

@@ -97,10 +97,10 @@ def device_tables(tables: Dict[str, np.ndarray], device
     return out
 
 
-def leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
-                num_bin: torch.Tensor, default_bin: torch.Tensor,
-                missing_type: torch.Tensor, depth: int) -> torch.Tensor:
-    """[T, n] f32 leaf values: every tree walked over every row.
+def leaf_index(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
+               num_bin: torch.Tensor, default_bin: torch.Tensor,
+               missing_type: torch.Tensor, depth: int) -> torch.Tensor:
+    """[T, n] int64 leaf indices: every tree walked over every row.
 
     bins_t: [F, n] bins; num_bin/default_bin/missing_type: [F] int64.
     Rows already at a leaf (node < 0) keep their state."""
@@ -121,8 +121,38 @@ def leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
                           torch.gather(tables["left_child"], 1, nid),
                           torch.gather(tables["right_child"], 1, nid))
         node = torch.where(node >= 0, nxt, node)
-    leaf = torch.where(node < 0, ~node, 0)
-    return torch.gather(tables["leaf_value"], 1, leaf)
+    return torch.where(node < 0, ~node, 0)
+
+
+def leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
+                num_bin: torch.Tensor, default_bin: torch.Tensor,
+                missing_type: torch.Tensor, depth: int) -> torch.Tensor:
+    """[T, n] f32 leaf values: every tree walked over every row."""
+    return torch.gather(tables["leaf_value"], 1, leaf_index(
+        tables, bins_t, num_bin, default_bin, missing_type, depth))
+
+
+def subset_scores(trees: Sequence, scales: Sequence[float],
+                  bins_t: torch.Tensor, meta: List[torch.Tensor]
+                  ) -> torch.Tensor:
+    """[n] f32: sum_i scales[i] * trees[i](row) over a binned [F, n] set,
+    as the JAX package's binned subset walk computes it
+    (src/capi/forest_predictor.cpp:270-285, the DART drop and restore):
+    per row an f64 sum over the listed trees in list order of the f64
+    leaf values times their scales, then one cast to f32.  One walk of
+    every listed tree, on the set's device."""
+    tables, depth = pack_trees(trees)
+    dev = bins_t.device
+    lv = np.zeros(tables["leaf_value"].shape, np.float64)
+    for i, (t, sc) in enumerate(zip(trees, scales)):
+        lv[i, :t.num_leaves] = (np.asarray(t.leaf_value[:t.num_leaves],
+                                           np.float64) * float(sc))
+    leaf = leaf_index(device_tables(tables, dev), bins_t, *meta, depth)
+    vals = torch.gather(upload(lv, dev), 1, leaf)
+    acc = torch.zeros(bins_t.shape[1], dtype=torch.float64, device=dev)
+    for t in range(vals.shape[0]):
+        acc = acc + vals[t]
+    return acc.to(torch.float32)
 
 
 def tree_leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,

@@ -132,3 +132,15 @@ def permutation(key, n: int, partitionable: bool = True) -> np.ndarray:
         bits = random_bits(sub, n, partitionable)
         x = x[np.argsort(bits, kind="stable")]
     return x
+
+
+def uniform(key, shape, partitionable: bool = True) -> np.ndarray:
+    """`jax.random.uniform(key, shape)` (f32 in [0, 1)): the random bits
+    of the flattened shape, their top 23 bits as the mantissa of a float
+    in [1, 2), minus 1."""
+    shape = tuple(int(s) for s in np.atleast_1d(np.asarray(shape, np.int64)))
+    size = int(np.prod(shape, dtype=np.int64))
+    bits = random_bits(key, size, partitionable)
+    one = np.array(1.0, np.float32).view(np.uint32)
+    floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
+    return np.maximum(np.float32(0.0), floats).reshape(shape)

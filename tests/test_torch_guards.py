@@ -64,9 +64,6 @@ def test_training_without_cuda_raises_unless_cpu_is_asked():
 
 
 OUT_OF_SLICE = [
-    {"boosting": "dart"}, {"boosting": "goss"},
-    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction_bynode": 0.5},
     {"monotone_constraints": [1, 0, 0]},
     {"cegb_penalty_split": 0.1},
     {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0]},
@@ -117,6 +114,37 @@ def test_sampling_cases_train_like_jax(extra):
     bt = tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 2)
     assert bt.num_trees() == 2
     assert_trees_match(bj._driver.models, bt._driver.models)
+
+
+# once refused; now the boosting modes and per-node feature sampling of
+# the JAX package (tests/test_torch_boosting.py holds them to it)
+BOOSTING_NOW_PORTED = [
+    {"boosting": "dart"}, {"boosting": "goss"},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"feature_fraction_bynode": 0.5},
+]
+
+
+@pytest.mark.parametrize("extra", BOOSTING_NOW_PORTED,
+                         ids=lambda d: ",".join(d))
+def test_boosting_cases_train_on_the_cpu(extra):
+    X, y = binary_data(n=300, f=3, seed=1)
+    b = tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y), 2)
+    assert b.num_trees() == 2
+    assert np.isfinite(b.predict(X)).all()
+
+
+@pytest.mark.parametrize("extra", BOOSTING_NOW_PORTED[::2],
+                         ids=lambda d: d["boosting"])
+def test_rollback_is_refused_by_name(extra):
+    # the rollback of an iteration (and DART's and RF's undo of it) waits
+    # for a later slice
+    X, y = binary_data(n=300, f=3, seed=1)
+    b = tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y), 2,
+                   keep_training_booster=True)
+    with pytest.raises(NotImplementedError,
+                       match=f"rollback_one_iter.*{extra['boosting']}"):
+        b.rollback_one_iter()
 
 
 # arguments and parameters of lgb.train that wait on later slices

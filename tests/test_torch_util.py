@@ -338,6 +338,84 @@ def _job_train_valid(inp, spec):
     return out
 
 
+def goss_kept_jax(lgb, X, y, params, rounds):
+    """The live rows of the JAX step's row mask at each of `rounds`
+    trees: the learner's grower wrapped before the step is built, the
+    mask's sum sent to the host from inside the compiled step."""
+    import jax
+
+    b = lgb.Booster(params=dict(params), train_set=lgb.Dataset(
+        X, label=y, params={"max_bin": params["max_bin"]}))
+    drv = b._driver
+    grow = drv.learner.grow
+    kept = []
+
+    def spy(bins_t, g, h, mask, *rest):
+        jax.debug.callback(lambda m: kept.append(float(np.sum(m))), mask)
+        return grow(bins_t, g, h, mask, *rest)
+
+    drv.learner.grow = spy
+    drv._maybe_make_train_step()
+    for _ in range(rounds):
+        b.update()
+    jax.effects_barrier()
+    return np.asarray(kept)
+
+
+def cv_run(lgb, X, y, run):
+    """lgb.cv of `lgb` on a dataset binned with the run's max_bin:
+    (the result dict without the boosters as JSON, each fold booster's
+    raw scores of X or None)."""
+    import json
+
+    p = dict(run["params"])
+    res = lgb.cv(p, lgb.Dataset(X, label=y, params={"max_bin":
+                                                    p["max_bin"]}),
+                 num_boost_round=run["rounds"], nfold=run["nfold"],
+                 stratified=run.get("stratified", True),
+                 shuffle=run.get("shuffle", True), seed=run.get("seed", 0),
+                 early_stopping_rounds=run.get("early_stopping_rounds"),
+                 return_cvbooster=run.get("return_cvbooster", False))
+    boosters = res.pop("cvbooster", None)
+    raw = None
+    if boosters is not None:
+        kw = {} if lgb.__name__ == "lightgbm_tpu_torch" else {
+            "tpu_predict_device": "true"}
+        raw = np.stack(boosters.predict(X, raw_score=True, **kw))
+    return json.dumps(res), raw
+
+
+def _job_boosting(inp, spec):
+    """Runs of several kinds in one process: "train_valid"
+    (train_valid_run), "goss_kept" (goss_kept_jax), "cv" (cv_run) and
+    "load_predict" (a model text loaded and its raw scores of the rows
+    of X from `start` on, on the device path)."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    X = inp["X"]
+    for c, run in enumerate(spec["runs"]):
+        kind = run["kind"]
+        y = inp["y_" + run.get("label", "regression")]
+        if kind == "train_valid":
+            for k, v in train_valid_run(lgb, X, y, run).items():
+                out[f"{c}_{k}"] = np.asarray(v)
+        elif kind == "goss_kept":
+            out[f"{c}_kept"] = goss_kept_jax(lgb, X, y, run["params"],
+                                             run["rounds"])
+        elif kind == "cv":
+            res, raw = cv_run(lgb, X, y, run)
+            out[f"{c}_result"] = np.array(res)
+            if raw is not None:
+                out[f"{c}_raw"] = raw
+        elif kind == "load_predict":
+            b = lgb.Booster(model_str=run["text"])
+            out[f"{c}_raw"] = np.asarray(b.predict(
+                X[run.get("start", 0):], raw_score=True,
+                tpu_predict_device="true"))
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -347,6 +425,7 @@ if __name__ == "__main__":
         inp = {k: f[k] for k in f.files}
     spec = json.loads(str(inp.pop("__spec__")))
     result = {"fused": _job_fused, "grow": _job_grow,
-              "train": _job_train, "train_valid": _job_train_valid}[job](
+              "train": _job_train, "train_valid": _job_train_valid,
+              "boosting": _job_boosting}[job](
                   inp, spec)
     np.savez(dst, **result)
