@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. nineteen paths at full width, each lgb.train (cv_int8: lgb.cv) on
+  3. twenty-two paths at full width, each lgb.train (cv_int8: lgb.cv) on
      the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
@@ -79,6 +79,23 @@ Phases, each fatal on failure (exit code 1, no result line):
                rows, 5 rounds: each fold's B1-int, B2, B3 and leaf sums;
                the AUC mean and stdv after each round, each round's wall
                seconds, the bytes of the fold datasets on the card;
+       multiclass_int8  objective=multiclass, num_class=5 on the latent
+               (the generator's logits plus its logistic noise) cut at
+               its quintiles, int8, metrics multi_logloss and
+               multi_error, 5 iterations (25 trees, one fused step a
+               class): B1-int and the leaf sums once a tree (5 an
+               iteration), B2, B3; held-out multi_logloss and error;
+       lambdarank_int8  objective=lambdarank on queries of 100
+               consecutive rows (10,000), relevance 0-4 from the latent's
+               quintiles, int8, ndcg at 1, 3 and 5, 5 iterations through
+               the sync step with the lambdas on the host: B1-int, B2,
+               B3, the leaf sums; the host seconds an iteration of the
+               lambdas and their share of the sync step; held-out ndcg
+               beside that of random scores;
+       l1_hilo  objective=regression_l1 on the latent, hilo, 5 iterations
+               through the sync step with the host percentile refit of
+               every leaf: B1 and B3; the refit's host seconds and share;
+               held-out l1 beside the median's;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -95,7 +112,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      20% of the rows with zero stats, about 20% of the features masked)
      and at GOSS operands (the grad, hess and row mask of one sampled
      tree of goss_int8: about 70% of the rows out, the rest kept by the
-     draw upscaled by 8), bitwise;
+     draw upscaled by 8), at multiclass operands (class 0's softmax
+     gradients of an iteration of multiclass_int8) and at lambdarank
+     operands (the host lambdas of lambdarank_int8), bitwise;
      the wide variants of B1, B4 (random and root), B2 and B3 on the wide
      paths' learners, with a second bound that counts each bin tile's
      re-read of the rows;
@@ -114,7 +133,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      regression with the refit off under goss (learning_rate 0.25, 8
      iterations), dart (drop_rate 0.5, skip_drop 0), rf and
      feature_fraction_bynode=0.5, by their whole model text, and lgb.cv
-     (3 folds) by its result dict; hilo dart by AUC.
+     (3 folds) by its result dict; hilo dart by AUC; int8
+     regression_l1, huber, quantile, lambdarank (queries of 50) and GOSS
+     with regression_l1, the refit off, by their whole model text;
+     multiclass hilo and int8 by the held-out multi_logloss of the last
+     fifth of the rows, within AUC_TOL; and a saved model file loaded back
+     on the card, whose raw scores must equal the saving booster's.
 With --profile, two more iterations of every path run under
 torch.profiler and the device time by op, each port kernel's device time
 per call on the path and the device's idle share are printed.
@@ -235,6 +259,23 @@ CV_PARAMS = dict(PARAMS, tpu_hist_precision="int8")
 ITERS_CV = 5
 NFOLD = 3
 
+# the objective zoo at full width, its labels cut from the generator's
+# latent (the logits plus their logistic noise) at its quintiles
+ITERS_ZOO = 5
+# LightGBM's examples/multiclass_classification: 5 classes, one tree a
+# class an iteration, each through the fused int8 step
+MULTICLASS_PARAMS = dict(PARAMS, objective="multiclass", num_class=5,
+                         tpu_hist_precision="int8",
+                         metric=["multi_logloss", "multi_error"])
+# learning to rank on MSLR-WEB-style queries of about 100 documents:
+# relevance 0-4, the sync step with the lambdas on the host
+QUERY_ROWS = 100
+RANK_PARAMS = dict(PARAMS, objective="lambdarank", tpu_hist_precision="int8",
+                   metric="ndcg", eval_at=[1, 3, 5])
+# MAE regression on the latent: the sync step with the host percentile
+# refit of every leaf
+L1_PARAMS = dict(PARAMS, objective="regression_l1", metric="l1")
+
 
 def logloss_fobj(scores, train_set):
     """Binary logloss gradients on the host (numpy), as a user's fobj."""
@@ -262,6 +303,38 @@ def make_data(n, f, seed=42):
     logits = (X[:, :8] ** 2 - 1.0).sum(axis=1) * 0.3 + X @ w * 0.5
     y = (logits + rng.logistic(size=n) > 0).astype(np.float64)
     return X.astype(np.float64), y
+
+
+def make_latent(n, f, seed=42):
+    """make_data's latent of each row (its logits plus the logistic
+    noise that y thresholds at 0), from the same generator draws."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    w = rng.normal(size=(f,))
+    logits = (X[:, :8] ** 2 - 1.0).sum(axis=1) * 0.3 + X @ w * 0.5
+    return logits + rng.logistic(size=n)
+
+
+def quintiles(latent):
+    """0-4: the latent cut at the quintiles of its first N_TRAIN rows."""
+    return np.digitize(latent, np.quantile(latent[:N_TRAIN],
+                                           [0.2, 0.4, 0.6, 0.8])
+                       ).astype(np.float64)
+
+
+def metric_value(name, score, label, obj=None, group=None, **params):
+    """The port's metric `name` of raw scores [k, n] through the output
+    conversion of the objective `obj` (each ndcg@k of eval_at for
+    ndcg); params configure it."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.models.metrics import create_metric
+
+    cfg = Config({"metric": name, **params})
+    m = create_metric(name, cfg)
+    m.init(Metadata(len(label), label, None, group), len(label))
+    vals = m.eval_all(np.asarray(score, np.float64), obj)
+    return vals[0][1] if len(vals) == 1 else dict(vals)
 
 
 def auc(score, label):
@@ -698,10 +771,11 @@ def cv_path(lgb, kernels, ds, X, y):
             "launches": launches}, folds[0]
 
 
-def goss_operands(booster):
-    """The padded grad, hess and row mask one sampled GOSS tree hands
-    the grower: one more iteration of the goss_int8 booster, its grower
-    call's operands kept."""
+def grower_operands(booster, calls=1):
+    """The padded grad, hess and row mask the first tree of one more
+    iteration of `booster` hands the grower (one sampled GOSS tree of
+    goss_int8, class 0 of multiclass_int8, the host lambdas of
+    lambdarank_int8); the iteration makes `calls` grower calls."""
     from lightgbm_tpu_torch.ops import grower
 
     seen = []
@@ -717,9 +791,169 @@ def goss_operands(booster):
         booster.num_trees()
     finally:
         grower.grow = grow
-    if len(seen) != 1:
-        fail(f"goss_operands: {len(seen)} grower calls")
+    if len(seen) != calls:
+        fail(f"grower_operands: {len(seen)} grower calls, expected {calls}")
     return seen[0]
+
+
+def zoo_path(lgb, kernels, base_ds, X, label, params, must_launch,
+             group=None):
+    """Phase 3, a path of the objective zoo: the training rows of the
+    binned base dataset (a row subset: no binning again) with their own
+    label (and query sizes), ITERS_ZOO iterations, predict of the held-out
+    rows.  The sync step's wall seconds a call, and the host seconds a
+    call of the objective's gradients and of its leaf refit, are timed
+    on the path.  Returns (report, booster, held-out predictions)."""
+    import torch
+    from lightgbm_tpu_torch.models import gbdt
+
+    ds = base_ds.subset(np.arange(N_TRAIN))
+    ds.set_field("label", label[:N_TRAIN])
+    if group is not None:
+        ds.set_group(group)
+    spent = {"sync_step": [], "gradients": [], "leaf_refit": []}
+    wrapped = []
+
+    def timed(owner, attr, key):
+        fn = getattr(owner, attr)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if key == "sync_step" or not torch.is_tensor(out):
+                torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t0)
+            return out
+        setattr(owner, attr, run)
+        wrapped.append((owner, attr, fn))
+
+    from lightgbm_tpu_torch.models.objectives import create_objective
+    from lightgbm_tpu_torch.config import Config
+    obj_cls = type(create_objective(Config(params)))
+    timed(gbdt.GBDT, "_train_one_iter_sync", "sync_step")
+    if obj_cls.host_only:
+        timed(obj_cls, "get_gradients", "gradients")
+    if obj_cls.needs_renew:
+        timed(obj_cls, "renew_tree_output", "leaf_refit")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        booster = lgb.train(dict(params), ds, num_boost_round=ITERS_ZOO,
+                            keep_training_booster=True)
+        trees = booster.num_trees()
+        torch.cuda.synchronize()
+    finally:
+        for owner, attr, fn in wrapped:
+            setattr(owner, attr, fn)
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    k = booster.num_model_per_iteration()
+    if trees != ITERS_ZOO * k:
+        fail(f"trained {trees} trees, expected {ITERS_ZOO * k}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on this path")
+    t0 = time.perf_counter()
+    pred = booster.predict(X[N_TRAIN:], raw_score=True)
+    predict_s = time.perf_counter() - t0
+    if not np.all(np.isfinite(pred)) or pred.shape != (
+            (N_HOLD,) if k == 1 else (N_HOLD, k)):
+        fail(f"held-out predictions: shape {pred.shape}, finite "
+             f"{bool(np.all(np.isfinite(pred)))}")
+    learner = booster._driver.learner
+    sync_s = sum(spent["sync_step"])
+    report = {
+        "train_s": train_s, "iters_per_s": ITERS_ZOO / train_s,
+        "predict_s": predict_s, "predict_rows_per_s": N_HOLD / predict_s,
+        "trees": trees, "fused_step": booster._driver._step is not None,
+        "train_metrics": {n: v for _, n, v, _ in booster.eval_train()},
+        "sync_step_s_per_iter": sync_s / ITERS_ZOO,
+        "host_gradients_s_per_iter": sum(spent["gradients"]) / ITERS_ZOO,
+        "host_leaf_refit_s_per_iter": sum(spent["leaf_refit"]) / ITERS_ZOO,
+        "host_share_of_sync_step": (
+            (sum(spent["gradients"]) + sum(spent["leaf_refit"])) / sync_s
+            if sync_s else None),
+        "host_syncs_per_tree": booster._driver.grower_syncs / trees,
+        "launches_per_iter": {n: v / ITERS_ZOO for n, v in launches.items()},
+        "launches_per_tree": {n: v / trees for n, v in launches.items()},
+        "launches": launches, "n_pad": learner.n_pad,
+        "hist_impl": learner.params.hist_impl,
+        "precision": learner.params.precision,
+        "score_bytes": booster._driver.train_scores.scores.numel() * 4}
+    return report, booster, pred
+
+
+def multiclass_path(lgb, kernels, ds, X, latent):
+    """Phase 3, path multiclass_int8: 5 classes a fused int8 step each
+    an iteration; B1-int and the leaf sums launch once a tree, 5 times
+    an iteration (int8: once)."""
+    label = quintiles(latent)
+    report, booster, raw = zoo_path(lgb, kernels, ds, X, label,
+                                    MULTICLASS_PARAMS, INT_KERNELS)
+    launches = report["launches"]
+    for name in ("hist_batched_int", "leaf_sums"):
+        if launches[name] != report["trees"]:
+            fail(f"multiclass_int8: {name} launched {launches[name]} times "
+                 f"for {report['trees']} trees")
+    if not report["fused_step"]:
+        fail("multiclass_int8 took the sync step")
+    obj = booster._driver.objective
+    prob = booster.predict(X[N_TRAIN:])
+    if not np.allclose(prob.sum(axis=1), 1.0, atol=1e-6):
+        fail("multiclass_int8: class probabilities do not sum to 1")
+    yho = label[N_TRAIN:]
+    ll = metric_value("multi_logloss", raw.T, yho, obj,
+                      objective="multiclass", num_class=5)
+    err = metric_value("multi_error", raw.T, yho, obj,
+                       objective="multiclass", num_class=5)
+    if not ll < np.log(5.0) or not err < 0.8:
+        fail(f"multiclass_int8: held-out multi_logloss {ll}, "
+             f"multi_error {err}")
+    report.update(holdout_multi_logloss=ll, holdout_multi_error=err)
+    return report, booster
+
+
+def lambdarank_path(lgb, kernels, ds, X, latent):
+    """Phase 3, path lambdarank_int8: queries of QUERY_ROWS consecutive
+    rows, relevance 0-4, the sync step with the lambdas on the host."""
+    label = quintiles(latent)
+    group = [QUERY_ROWS] * (N_TRAIN // QUERY_ROWS)
+    report, booster, raw = zoo_path(lgb, kernels, ds, X, label, RANK_PARAMS,
+                                    INT_KERNELS, group=group)
+    if report["fused_step"]:
+        fail("lambdarank_int8 took the fused step")
+    ho_group = np.full(N_HOLD // QUERY_ROWS, QUERY_ROWS)
+    yho = label[N_TRAIN:]
+    ndcg = metric_value("ndcg", raw[None], yho, group=ho_group,
+                        eval_at=[1, 3, 5])
+    rand = metric_value("ndcg", np.random.default_rng(1).normal(
+        size=(1, N_HOLD)), yho, group=ho_group, eval_at=[1, 3, 5])
+    if not ndcg["ndcg@5"] > rand["ndcg@5"] + 0.05:
+        fail(f"lambdarank_int8: held-out {ndcg} against random {rand}")
+    report.update(queries=len(group), holdout_ndcg=ndcg,
+                  holdout_ndcg_random_scores=rand,
+                  query_table_bytes=int(
+                      booster._driver.objective.query_boundaries.nbytes
+                      + booster._driver.objective.inverse_max_dcgs.nbytes))
+    return report, booster
+
+
+def l1_path(lgb, kernels, ds, X, latent):
+    """Phase 3, path l1_hilo: MAE regression on the latent, hilo, the
+    sync step with every leaf refit to its residuals' median on the
+    host."""
+    report, booster, raw = zoo_path(lgb, kernels, ds, X, latent, L1_PARAMS,
+                                    ("hist_batched", "partition_rows"))
+    if report["fused_step"]:
+        fail("l1_hilo took the fused step")
+    yho = latent[N_TRAIN:]
+    l1 = float(np.abs(yho - raw).mean())
+    base = float(np.abs(yho - np.median(latent[:N_TRAIN])).mean())
+    if not l1 < base:
+        fail(f"l1_hilo: held-out l1 {l1} against the median's {base}")
+    report.update(holdout_l1=l1, holdout_l1_of_median=base)
+    return report, booster
 
 
 _VIEW_OPS = {"aten::view", "aten::select", "aten::slice", "aten::as_strided",
@@ -1098,7 +1332,7 @@ def _index_add_ms(bins_t, stats, leaf, slots, B):
 
 
 def _slots_of(learner, gen, operands):
-    if operands in ("random", "bagged", "goss"):
+    if operands != "root":
         return _random_slots(learner, gen)
     import torch
 
@@ -1188,7 +1422,8 @@ def check_hist_int(learner, gen, operands, goss=None):
     (each packed on a learner whose bins are packed) at the path's shapes
     (operands as check_hist's, or "bagged": random slots over rows of
     which about BAG_OUT have zero stats, or "goss": random slots over
-    the grad, hess and row mask `goss` of a sampled GOSS tree), bitwise."""
+    the grad, hess and row mask `goss` of a sampled GOSS tree, or of a
+    tree of another path, "multiclass" and "lambdarank"), bitwise."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -1198,7 +1433,7 @@ def check_hist_int(learner, gen, operands, goss=None):
     B = learner.num_bins
     K = learner.params.split_batch
     rows = _bag_masks(learner, gen)[0] if operands == "bagged" else None
-    if operands == "goss":
+    if goss is not None:
         rows = goss[2]
     stats = _int8_stats(learner, gen, rows, None if goss is None
                         else goss[:2])
@@ -1294,8 +1529,8 @@ def _fused_operands(learner, gen, bagged=False, goss=None):
     """Kernel B2's operands at the int8 path's shapes: K parent leaves
     k and K + k, each split in two, the smaller child histogrammed;
     bagged: about BAG_OUT of the rows with zero stats and of the
-    features masked; goss: the grad, hess and row mask of a sampled GOSS
-    tree.  Returns (positional args, split_kw)."""
+    features masked; goss: the grad, hess and row mask of a tree of a
+    path (a sampled GOSS tree, a multiclass class, host lambdas).  Returns (positional args, split_kw)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -1351,7 +1586,8 @@ def _fused_operands(learner, gen, bagged=False, goss=None):
 
 def check_fused(learner, gen, operands="random", goss=None):
     """Phase 4, kernel B2 at `_fused_operands`' operands ("random",
-    "bagged", or "goss" with the operands `goss`)."""
+    "bagged", or "goss", "multiclass" or "lambdarank" with the grower
+    operands `goss` of a tree of that path)."""
     import torch
     from lightgbm_tpu_torch.ops import fused
 
@@ -1424,7 +1660,7 @@ def _norm_param(text, name):
                   flags=re.M)
 
 
-def cross_check(lgb, X, y):
+def cross_check(lgb, X, y, latent):
     """Phase 5: the card against the CPU path at a reduced size."""
     Xs, ys = X[:N_SMALL], y[:N_SMALL]
     rng = np.random.default_rng(43)
@@ -1589,6 +1825,87 @@ def cross_check(lgb, X, y):
     if not out["int8_refit_two_runs_identical"]:
         fail("int8 with the leaf refit: two trainings on the card wrote "
              "different model text")
+    out.update(cross_check_zoo(lgb, Xs, y_reg, latent[:N_SMALL]))
+    return out
+
+
+def cross_check_zoo(lgb, Xs, y_reg, lat):
+    """Phase 5 for the objective zoo, card against CPU at N_SMALL rows:
+    int8 regression_l1, huber, quantile, lambdarank (queries of 50) and
+    GOSS with regression_l1, the refit off, by their whole model text;
+    multiclass hilo and int8 by the held-out multi_logloss of their last
+    fifth of the rows; and one saved model file loaded on the card."""
+    reg = dict(metric="l2", tpu_hist_precision="int8",
+               tpu_quant_refit_leaves=False)
+    rel = quintiles(lat)
+    group = [50] * (N_SMALL // 50)
+    runs = {
+        "regression_l1_int8": (dict(PARAMS, **reg,
+                                    objective="regression_l1"),
+                               y_reg, None, ITERS_SMALL),
+        "huber_int8": (dict(PARAMS, **reg, objective="huber"), y_reg, None,
+                       ITERS_SMALL),
+        "quantile_int8": (dict(PARAMS, **reg, objective="quantile",
+                               alpha=0.3), y_reg, None, ITERS_SMALL),
+        "lambdarank_int8": (dict(PARAMS, **dict(reg, metric="ndcg"),
+                                 objective="lambdarank"), rel, group,
+                            ITERS_SMALL),
+        "goss_regression_l1_int8": (dict(PARAMS, **reg,
+                                         objective="regression_l1",
+                                         boosting="goss",
+                                         learning_rate=0.25), y_reg, None,
+                                    8)}
+    out = {}
+    for name, (params, label, grp, iters) in runs.items():
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(params, device_type=dev)
+            t0 = time.perf_counter()
+            b = lgb.train(p, lgb.Dataset(Xs, label=label, group=grp,
+                                         params=p), num_boost_round=iters)
+            texts[dev] = _norm_param(b.model_to_string(), "device_type")
+            out[f"{name}_{dev}_s"] = time.perf_counter() - t0
+        out[f"{name}_text_identical"] = texts["cuda"] == texts["cpu"]
+        if not out[f"{name}_text_identical"]:
+            fail(f"{name}: the card's model text differs from the CPU's")
+    # multiclass by the held-out multi_logloss of the last fifth
+    n_fit = N_SMALL * 4 // 5
+    cls = quintiles(lat)
+    for prec in ("hilo", "int8"):
+        for dev in ("cuda", "cpu"):
+            p = dict(MULTICLASS_PARAMS, tpu_hist_precision=prec,
+                     device_type=dev)
+            t0 = time.perf_counter()
+            b = lgb.train(p, lgb.Dataset(Xs[:n_fit], label=cls[:n_fit],
+                                         params=p),
+                          num_boost_round=ITERS_SMALL)
+            raw = b.predict(Xs[n_fit:], raw_score=True)
+            out[f"multiclass_{prec}_{dev}_multi_logloss"] = metric_value(
+                "multi_logloss", raw.T, cls[n_fit:], b._driver.objective,
+                objective="multiclass", num_class=5)
+            out[f"multiclass_{prec}_{dev}_s"] = time.perf_counter() - t0
+        diff = abs(out[f"multiclass_{prec}_cuda_multi_logloss"]
+                   - out[f"multiclass_{prec}_cpu_multi_logloss"])
+        out[f"multiclass_{prec}_multi_logloss_diff"] = diff
+        if diff > AUC_TOL:
+            fail(f"multiclass_{prec}: card and CPU held-out multi_logloss "
+                 f"differ by {diff} > {AUC_TOL}")
+    # a model file saved and loaded back on the card predicts as the
+    # booster that saved it (the last multiclass one, trained on the CPU)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_model.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    b.save_model(path)
+    loaded = lgb.Booster(model_file=path)
+    os.remove(path)
+    if loaded._driver.device.type != "cuda":
+        fail("a loaded model does not predict on the card")
+    same = np.array_equal(loaded.predict(Xs, raw_score=True),
+                          b.predict(Xs, raw_score=True))
+    out["saved_model_loads_and_predicts_equal"] = same
+    if not same:
+        fail("a saved model loaded on the card predicts other raw scores "
+             "than the booster that saved it")
     return out
 
 
@@ -1675,6 +1992,17 @@ def main() -> None:
         if "--profile" in sys.argv[1:] and name != "cv_int8":
             print(f"profile {name} " + json.dumps(profile(boosters[name])),
                   flush=True)
+    # the objective zoo: multiclass, ranking and MAE regression
+    latent = make_latent(N_TRAIN + N_HOLD, N_FEAT)
+    for name, run in (("multiclass_int8", multiclass_path),
+                      ("lambdarank_int8", lambdarank_path),
+                      ("l1_hilo", l1_path)):
+        reports[name], boosters[name] = run(lgb, kernels, datasets[255], X,
+                                            latent)
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        if "--profile" in sys.argv[1:]:
+            print(f"profile {name} " + json.dumps(profile(boosters[name])),
+                  flush=True)
     del datasets
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1703,11 +2031,19 @@ def main() -> None:
     # and at GOSS operands: the grad, hess and row mask of a sampled tree
     # of the goss_int8 path (about 70% of the rows out, the others kept
     # at random upscaled by 8)
-    goss = goss_operands(boosters["goss_int8"])
+    goss = grower_operands(boosters["goss_int8"])
     kernel_rows += [(check_hist_int(learners["goss_int8"], gen, "goss",
                                     goss), "goss_int8"),
                     (check_fused(learners["goss_int8"], gen, "goss", goss),
                      "goss_int8")]
+    # and at the zoo's int8 operands: class 0's softmax gradients of an
+    # iteration of multiclass_int8, the host lambdas of lambdarank_int8
+    for path, calls in (("multiclass_int8", 5), ("lambdarank_int8", 1)):
+        ops = grower_operands(boosters[path], calls)
+        tag = path.split("_")[0]
+        kernel_rows += [(check_hist_int(learners[path], gen, tag, ops),
+                         path),
+                        (check_fused(learners[path], gen, tag, ops), path)]
     for row, path in kernel_rows:
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
@@ -1717,7 +2053,7 @@ def main() -> None:
     kernel_rows = [row for row, _ in kernel_rows]
     del boosters, learners
 
-    cross = cross_check(lgb, X, y)
+    cross = cross_check(lgb, X, y, latent)
     print("cross-check " + json.dumps(cross), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -2,10 +2,14 @@
 
 The port of the subset of `lightgbm_tpu/basic.py:Dataset` that
 `lgb.train` and `lgb.cv` need: a lazily constructed, binned, dense
-numeric matrix, validation sets binned with a training set's mappers
-(`reference=`, `create_valid`), the fields (`get_field`, `num_data`)
-and row subsets (`subset`, the folds of `cv`), which share the parent's
-mappers and slice its binned rows on its device.
+numeric matrix (a numpy array or a numeric pandas DataFrame, whose
+column names become the feature names), validation sets binned with a
+training set's mappers (`reference=`, `create_valid`), the query groups
+of ranking data (`group=`, `set_group`, `get_group`), the fields
+(`get_field`, `set_field`, `num_data`) and row subsets (`subset`, the
+folds of `cv`), which share the parent's mappers, slice its binned rows
+on its device and keep whole queries.  pandas `category` columns wait
+for the categorical port and are refused by name.
 """
 
 from __future__ import annotations
@@ -26,10 +30,6 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  reference: Optional["Dataset"] = None, group=None):
-        if group is not None:
-            raise NotImplementedError(
-                "Dataset(group=...) (ranking) is not ported to "
-                "lightgbm_tpu_torch yet")
         if categorical_feature not in ("auto", None, [], ()):
             raise NotImplementedError(
                 "categorical_feature: categorical features are not ported "
@@ -38,10 +38,15 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.params = dict(params) if params else {}
         self._inner: Optional[TrainingData] = None
+        # the category tables of a pandas training frame: always empty
+        # here (category columns are refused), written to the model text
+        # as the JAX package writes them
+        self.pandas_categorical: Optional[List[List]] = None
 
     def construct(self) -> "Dataset":
         if self._inner is not None:
@@ -56,12 +61,19 @@ class Dataset:
             ref_inner = self.reference.construct()._inner
         names = (None if self.feature_name == "auto"
                  else list(self.feature_name))
+        if _is_pandas_df(self.data):
+            X, pd_names, self.pandas_categorical = _pandas_to_matrix(
+                self.data)
+            if names is None:
+                names = pd_names
+        else:
+            X = np.asarray(self.data, dtype=np.float64)
         self._inner = TrainingData.from_matrix(
-            np.asarray(self.data, dtype=np.float64),
-            None if self.label is None else np.asarray(self.label),
+            X, None if self.label is None else np.asarray(self.label),
             Config(self.params), weight=self.weight,
             init_score=self.init_score,
-            reference=ref_inner, feature_names=names)
+            reference=ref_inner, feature_names=names,
+            group_sizes=self.group)
         return self
 
     def create_valid(self, data, label=None, weight=None, group=None,
@@ -75,9 +87,25 @@ class Dataset:
         """label, weight, group (query boundaries) or init_score."""
         return self.construct()._inner.metadata.get_field(name)
 
+    def set_field(self, name: str, data) -> "Dataset":
+        self.construct()._inner.metadata.set_field(name, data)
+        return self
+
     def get_label(self):
         """The f32 labels (what a custom objective reads)."""
         return self.get_field("label")
+
+    def set_group(self, group) -> "Dataset":
+        """The query sizes of ranking data (rows of a query consecutive)."""
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_field("group", group)
+        return self
+
+    def get_group(self):
+        """The query sizes, or None."""
+        b = self.get_field("group")
+        return None if b is None else np.diff(b)
 
     def num_data(self) -> int:
         return self.construct()._inner.num_data
@@ -109,10 +137,66 @@ class Dataset:
         if init is not None:
             init = (init[idx] if init.ndim == 1 and len(init) == md.num_data
                     else init.reshape(md.num_data, -1)[idx].reshape(-1))
+        group_sizes = None
+        if md.query_boundaries is not None:
+            # whole queries only (cv's group folds take them so): each
+            # query's size is the run length of its id over the rows
+            qid = np.searchsorted(md.query_boundaries, idx, side="right") - 1
+            if np.any(np.diff(qid) < 0):
+                raise ValueError("subset indices must be sorted for grouped "
+                                 "data")
+            change = np.flatnonzero(np.diff(qid)) + 1
+            group_sizes = np.diff(np.concatenate([[0], change, [len(idx)]]))
         inner.metadata = Metadata(
             len(idx), md.label[idx],
-            None if md.weight is None else md.weight[idx], None, init)
+            None if md.weight is None else md.weight[idx], group_sizes, init)
         sub = Dataset(None, reference=self, feature_name=self.feature_name,
                       params=params if params else self.params)
+        sub.pandas_categorical = self.pandas_categorical
         sub._inner = inner
         return sub
+
+
+def _is_pandas_df(data) -> bool:
+    import sys
+
+    pd = sys.modules.get("pandas")
+    return pd is not None and isinstance(data, pd.DataFrame)
+
+
+def _pandas_to_matrix(df):
+    """A numeric DataFrame -> (X float64, feature names, pandas
+    categorical tables), as `lightgbm_tpu/basic.py:_pandas_to_matrix`
+    converts it: the column names become the feature names, missing
+    values NaN, and object (string) columns are refused as the JAX
+    package refuses them.  `category` columns are refused by name until
+    categorical features are ported; the tables are then `[]`, which is
+    what the JAX package writes for a frame without such columns."""
+    from pandas.api.types import is_numeric_dtype
+
+    names = [str(c) for c in df.columns]
+    cat_cols = [names[i] for i in range(len(names))
+                if str(df.dtypes.iloc[i]) == "category"]
+    if cat_cols:
+        raise NotImplementedError(
+            f"pandas category columns {cat_cols} (categorical features) "
+            "are not ported to lightgbm_tpu_torch yet")
+    bad = [f"{names[i]} ({df.dtypes.iloc[i]})" for i in range(len(names))
+           if not is_numeric_dtype(df.iloc[:, i])]
+    if bad:
+        raise ValueError(
+            f"DataFrame columns [{', '.join(bad)}] have non-numeric "
+            "(object/string/...) dtype; cast them to 'category' or "
+            "numeric before constructing a Dataset")
+    X = np.empty((len(df), len(names)), dtype=np.float64)
+    for i in range(len(names)):
+        X[:, i] = df.iloc[:, i].to_numpy(dtype=np.float64, na_value=np.nan)
+    return X, names, []
+
+
+def _to_2d_array(data) -> np.ndarray:
+    """The rows to predict as a float64 matrix; a DataFrame goes through
+    `_pandas_to_matrix`, with its refusals."""
+    if _is_pandas_df(data):
+        return _pandas_to_matrix(data)[0]
+    return np.asarray(data, dtype=np.float64)

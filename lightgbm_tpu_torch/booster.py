@@ -1,22 +1,55 @@
 """The `Booster` front end (reference basic.py Booster).
 
-The port of the subset of `lightgbm_tpu/booster.py:Booster` that
-`lgb.train`, `lgb.cv` and the callbacks need: update (with custom
+The port of `lightgbm_tpu/booster.py:Booster`: update (with custom
 gradients), validation sets and evaluation, `best_iteration`/
 `best_score` (predict and model text default to the best iteration),
-`reset_parameter` of the learning rate, `free_dataset`, predict, and
-model-text save and load.  The boosting driver follows `boosting`
-(gbdt, goss, dart, rf: `models.create_boosting`).  Rollback is not
-ported and raises.
+`reset_parameter` of the learning rate, `free_dataset`, predict
+(`[n]`, or `[n, k]` for multiclass), and the model surface: model text
+and files in both directions (`model_to_string`, `save_model`,
+`model_from_string`, `Booster(model_file=/model_str=)`, with the
+`pandas_categorical:` line), `dump_model`, `trees_to_dataframe`,
+`feature_importance`, `feature_name`, `num_feature`,
+`num_model_per_iteration`, `get_leaf_output`,
+`get_split_value_histogram`, `attr`/`set_attr`, `shuffle_models`, and
+copies and pickles through the model text.  The boosting driver follows
+`boosting` (gbdt, goss, dart, rf: `models.create_boosting`).
+
+Refused by name until their items are ported: rollback, `refit`,
+checkpoints (`save_checkpoint`, `resume_from_checkpoint`) and the
+network (`set_network`, `free_network`).
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .config import Config, canonical_name, resolve_device
+
+
+def _split_pandas_categorical(text: str):
+    """(model text, pandas_categorical): the Python layer's last line of
+    a saved model (lightgbm_tpu/booster.py:_split_pandas_categorical),
+    so both packages' files interchange."""
+    marker = "\npandas_categorical:"
+    pos = text.rfind(marker)
+    if pos < 0:
+        return text, None
+    payload = text[pos + len(marker):].split("\n", 1)[0].strip()
+    try:
+        pc = json.loads(payload) if payload else None
+    except json.JSONDecodeError as exc:
+        raise ValueError(
+            f"corrupt pandas_categorical line in model: {payload[:80]!r}"
+        ) from exc
+    return text[:pos] + "\n", pc
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to lightgbm_tpu_torch "
+                              "yet")
 
 
 class Booster:
@@ -33,6 +66,8 @@ class Booster:
         self._valid_names: List[str] = []
         self._train_data_name = "training"
         self._train_set = None
+        self.pandas_categorical = None
+        self._attr: Dict[str, str] = {}
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("train_set must be a Dataset")
@@ -45,10 +80,13 @@ class Booster:
             cfg = Config(self.params)
             self._driver = create_boosting(cfg)
             self._driver.init(cfg, train_set._inner)
+            self.pandas_categorical = train_set.pandas_categorical
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
+            model_str, self.pandas_categorical = \
+                _split_pandas_categorical(model_str)
             self._driver = GBDT.from_model_string(
                 model_str, resolve_device(Config(self.params)))
         else:
@@ -63,7 +101,55 @@ class Booster:
         self._valid_names = []
         self._train_data_name = "training"
         self._train_set = None
+        self.pandas_categorical = None
+        self._attr = {}
         self._driver = driver
+        return self
+
+    # -- copies and pickles go through the model text (booster.py:101-130)
+    def __copy__(self) -> "Booster":
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _memo) -> "Booster":
+        out = Booster(params=self.params,
+                      model_str=self.model_to_string(num_iteration=-1))
+        out.best_iteration = self.best_iteration
+        out._attr = dict(self._attr)
+        return out
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_train_set", None)
+        state.pop("_driver", None)
+        state["_model_str"] = self.model_to_string(num_iteration=-1)
+        return state
+
+    def __setstate__(self, state):
+        from .models.gbdt import GBDT
+
+        model_str = state.pop("_model_str", None)
+        self.__dict__.update(state)
+        self._train_set = None
+        self._driver = None
+        if model_str is not None:
+            model_str, pc = _split_pandas_categorical(model_str)
+            self._driver = GBDT.from_model_string(
+                model_str, resolve_device(Config(self.params)))
+            if self.pandas_categorical is None:
+                self.pandas_categorical = pc
+
+    # -- attributes (reference basic.py Booster.attr/set_attr) ----------
+    def attr(self, key: str) -> Optional[str]:
+        return self._attr.get(key)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        for key, value in kwargs.items():
+            if value is None:
+                self._attr.pop(key, None)
+            elif isinstance(value, str):
+                self._attr[key] = value
+            else:
+                raise ValueError("Only string values are accepted")
         return self
 
     # ------------------------------------------------------------------
@@ -101,8 +187,10 @@ class Booster:
         return self._driver.current_iteration()
 
     def num_trees(self) -> int:
-        return self._driver.current_iteration() \
-            * self._driver.num_tree_per_iteration
+        return self._driver.num_total_model()
+
+    def num_model_per_iteration(self) -> int:
+        return self._driver.num_tree_per_iteration
 
     def eval_train(self, feval=None) -> List[Tuple]:
         return self._driver.eval("training", -1, feval=feval)
@@ -152,15 +240,176 @@ class Booster:
 
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False) -> np.ndarray:
-        X = np.asarray(data, dtype=np.float64)
-        return self._driver.predict(
-            X, self._default_iteration(num_iteration), raw_score=raw_score)
+        """[n] outputs, or [n, k] for multiclass; `raw_score` skips the
+        objective's output conversion."""
+        from .basic import _to_2d_array
 
+        return self._driver.predict(
+            _to_2d_array(data), self._default_iteration(num_iteration),
+            raw_score=raw_score)
+
+    # -- model text ------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
         """The model text, ending, as the JAX package's and the reference
         package's do, with the Python layer's `pandas_categorical:` line
-        (always null here: the port takes no pandas frames)."""
+        (`null` for non-pandas training data)."""
         return self._driver.save_model_to_string(
             self._default_iteration(num_iteration),
-            start_iteration) + "\npandas_categorical:null\n"
+            start_iteration) + "\npandas_categorical:" \
+            + json.dumps(self.pandas_categorical) + "\n"
+
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
+        with open(filename, "w") as f:
+            f.write(self.model_to_string(num_iteration, start_iteration))
+        return self
+
+    def model_from_string(self, model_str: str, verbose: bool = True
+                          ) -> "Booster":
+        """Replace this booster's model in place from a model string."""
+        from .models.gbdt import GBDT
+
+        model_str, self.pandas_categorical = \
+            _split_pandas_categorical(model_str)
+        self._driver = GBDT.from_model_string(
+            model_str, resolve_device(Config(self.params)))
+        self._train_set = None
+        return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict:
+        """The model as JSON-able dicts (gbdt.py:dump_model)."""
+        return self._driver.dump_model(self._default_iteration(num_iteration),
+                                       start_iteration)
+
+    # -- introspection ---------------------------------------------------
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Splits ("split") or summed gains ("gain") per feature."""
+        return self._driver.feature_importance(importance_type)
+
+    def feature_name(self) -> List[str]:
+        return list(self._driver.feature_names)
+
+    def num_feature(self) -> int:
+        return self._driver.max_feature_idx + 1
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        self._driver._materialize()
+        return float(self._driver.models[tree_id].leaf_value[leaf_id])
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        self._driver.shuffle_models(start_iteration, end_iteration)
+        return self
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """Histogram of this feature's split thresholds over all trees
+        (lightgbm_tpu/booster.py:364)."""
+        model = self.dump_model()
+        feature_names = model["feature_names"]
+
+        def want(split_feature) -> bool:
+            if isinstance(feature, str):
+                return (feature_names is not None
+                        and feature_names[split_feature] == feature)
+            return split_feature == feature
+
+        values: List[float] = []
+
+        def walk(node):
+            if "split_index" in node:
+                if want(node["split_feature"]):
+                    values.append(float(node["threshold"]))
+                walk(node["left_child"])
+                walk(node["right_child"])
+
+        for t in model["tree_info"]:
+            walk(t["tree_structure"])
+        if bins is None or (isinstance(bins, int)
+                            and bins > len(set(values))
+                            and xgboost_style):
+            bins = max(len(set(values)), 1)
+        hist, edges = np.histogram(values, bins=bins)
+        if not xgboost_style:
+            return hist, edges
+        import pandas as pd
+
+        mask = hist != 0
+        return pd.DataFrame(np.column_stack([edges[1:][mask], hist[mask]]),
+                            columns=["SplitValue", "Count"])
+
+    def trees_to_dataframe(self):
+        """Every tree's nodes as one pandas DataFrame
+        (lightgbm_tpu/booster.py:408, the same columns)."""
+        import pandas as pd
+
+        if self.num_trees() == 0:
+            raise ValueError("no trees to parse")
+        model = self.dump_model()
+        feature_names = model["feature_names"]
+        rows: List[Dict[str, Any]] = []
+
+        def node_index(node, ti):
+            if "split_index" in node:
+                return f"{ti}-S{node['split_index']}"
+            return f"{ti}-L{node.get('leaf_index', 0)}"
+
+        def walk(node, ti, depth, parent):
+            is_split = "split_index" in node
+            row = {"tree_index": ti, "node_depth": depth,
+                   "node_index": node_index(node, ti), "left_child": None,
+                   "right_child": None, "parent_index": parent,
+                   "split_feature": None, "split_gain": None,
+                   "threshold": None, "decision_type": None,
+                   "missing_direction": None, "missing_type": None,
+                   "value": None, "weight": None, "count": None}
+            if is_split:
+                f = node["split_feature"]
+                row.update(
+                    left_child=node_index(node["left_child"], ti),
+                    right_child=node_index(node["right_child"], ti),
+                    split_feature=(feature_names[f] if feature_names
+                                   else f),
+                    split_gain=node["split_gain"],
+                    threshold=node["threshold"],
+                    decision_type=node["decision_type"],
+                    missing_direction=("left" if node["default_left"]
+                                       else "right"),
+                    missing_type=node["missing_type"],
+                    value=node["internal_value"],
+                    weight=node["internal_weight"],
+                    count=node["internal_count"])
+            else:
+                row.update(value=node["leaf_value"],
+                           weight=node.get("leaf_weight"),
+                           count=node.get("leaf_count"))
+            rows.append(row)
+            if is_split:
+                me = row["node_index"]
+                walk(node["left_child"], ti, depth + 1, me)
+                walk(node["right_child"], ti, depth + 1, me)
+
+        for t in model["tree_info"]:
+            walk(t["tree_structure"], t["tree_index"], 1, None)
+        return pd.DataFrame(rows)
+
+    # -- refused by name until their items are ported --------------------
+    def refit(self, data, label, decay_rate: float = 0.9) -> "Booster":
+        _not_ported("Booster.refit")
+
+    def save_checkpoint(self, directory: str, keep: int = 3) -> str:
+        _not_ported("Booster.save_checkpoint")
+
+    def resume_from_checkpoint(self, directory: str) -> Optional[int]:
+        _not_ported("Booster.resume_from_checkpoint")
+
+    def set_network(self, machines: str, local_listen_port: int = 12400,
+                    listen_time_out: int = 120, num_machines: int = 1
+                    ) -> "Booster":
+        _not_ported("Booster.set_network")
+
+    def free_network(self) -> "Booster":
+        _not_ported("Booster.free_network")

@@ -50,14 +50,17 @@ def booster_from_arrays(tables: Dict[str, np.ndarray],
                         used_feature_idx: Optional[Sequence[int]] = None,
                         num_total_features: Optional[int] = None,
                         objective: str = "binary sigmoid:1",
-                        num_tree_per_iteration: int = 1,
+                        num_tree_per_iteration: Optional[int] = None,
                         params: Optional[Dict] = None) -> Booster:
     """A port Booster over packed forest tables and bin mapper arrays.
 
     The mapper arrays are per used feature, in the order of the tables'
     split_feature (inner) ids; `used_feature_idx` maps them to the raw
-    matrix's columns (default: the first len(num_bin) columns).  Predict
-    runs on the device of `params` (the card unless device_type='cpu')."""
+    matrix's columns (default: the first len(num_bin) columns).  A
+    forest of k classes (`num_tree_per_iteration`, by default the
+    objective's `num_class:`) sends tree i to class i % k, as the JAX
+    package's predict does, and predicts [n, k].  Predict runs on the
+    device of `params` (the card unless device_type='cpu')."""
     used = (list(range(len(num_bin))) if used_feature_idx is None
             else [int(c) for c in used_feature_idx])
     total = (max(used) + 1 if num_total_features is None
@@ -74,7 +77,12 @@ def booster_from_arrays(tables: Dict[str, np.ndarray],
     driver = GBDT()
     driver.device = resolve_device(Config(dict(params or {})))
     driver.objective = create_objective_from_model_string(objective)
-    driver.num_tree_per_iteration = int(num_tree_per_iteration)
+    if num_tree_per_iteration is None:
+        num_tree_per_iteration = (
+            1 if driver.objective is None
+            else driver.objective.num_model_per_iteration())
+    driver.num_class = driver.num_tree_per_iteration = int(
+        num_tree_per_iteration)
     driver.max_feature_idx = total - 1
     driver._pred_ctx = PredictContext(mappers, used)
     tables = {k: np.asarray(v) for k, v in tables.items()}

@@ -5,8 +5,9 @@ The port of `lightgbm_tpu/engine.py`.  `train`: validation sets (the
 training set among them, too), custom objectives (`fobj`) and metrics
 (`feval`), callbacks run before and after each iteration in their
 `order`, early stopping, evaluation logging and recording, and a
-learning-rate schedule.  `cv`: k folds (stratified for binary labels,
-shuffled from a numpy generator of `seed`), one booster a fold trained
+learning-rate schedule.  `cv`: k folds (whole queries for ranking data,
+stratified for binary and multiclass labels, shuffled from a numpy
+generator of `seed`), one booster a fold trained
 in turns on a row subset of the dataset (`Dataset.subset`), the mean
 and standard deviation of each metric over the folds after each round,
 early stopping on the first metric, and the fold boosters as a
@@ -192,11 +193,26 @@ class _FoldFanout:
 def _make_n_folds(full_data: Dataset, nfold: int, seed: int,
                   stratified: bool, shuffle: bool):
     """(train indices, test indices) of each fold, drawn as
-    lightgbm_tpu/engine.py:_make_n_folds draws them: stratified by label
-    class, or plain; shuffled by a numpy generator of `seed`."""
+    lightgbm_tpu/engine.py:_make_n_folds draws them: whole queries for
+    ranking data, else stratified by label class, or plain; shuffled by
+    a numpy generator of `seed`."""
     full_data.construct()
     num_data = full_data.num_data()
     rng = np.random.default_rng(seed)
+    boundaries = full_data.get_field("group")
+    if boundaries is not None:
+        num_queries = len(boundaries) - 1
+        q_idx = np.arange(num_queries)
+        if shuffle:
+            rng.shuffle(q_idx)
+        flat_group = np.zeros(num_data, dtype=np.int64)
+        for q in range(num_queries):
+            flat_group[boundaries[q]:boundaries[q + 1]] = q
+        folds = []
+        for k in range(nfold):
+            test_mask = np.isin(flat_group, q_idx[k::nfold])
+            folds.append((np.where(~test_mask)[0], np.where(test_mask)[0]))
+        return folds
     if stratified:
         label = full_data.get_field("label")
         idx_by_class: List[np.ndarray] = []

@@ -10,6 +10,9 @@ A validation set (`reference=` the training data) takes the training
 set's mappers, the same objects, and is binned with them on the training
 set's device.
 
+`Metadata` carries the query boundaries of ranking data
+(`group_sizes`, the `group`/`query` field) and their per-query weights.
+
 Outside this slice, and refused loudly: categorical features, sparse
 input and file ingest.
 """
@@ -186,6 +189,7 @@ class TrainingData:
                     reference: Optional["TrainingData"] = None,
                     feature_names: Optional[List[str]] = None,
                     categorical_features: Optional[Sequence[int]] = None,
+                    group_sizes: Optional[np.ndarray] = None,
                     ) -> "TrainingData":
         """Bin a raw dense float matrix on the config's device.
 
@@ -217,7 +221,7 @@ class TrainingData:
             self._find_mappers(X, config)
         self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
                                    device, int(config.tpu_ingest_chunk_rows))
-        self.metadata = Metadata(n, label, weight, None, init_score)
+        self.metadata = Metadata(n, label, weight, group_sizes, init_score)
         self._set_constraints(config)
         return self
 

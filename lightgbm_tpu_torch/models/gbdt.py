@@ -17,6 +17,13 @@ The hooks of the boosting modes (`models/goss.py`, `dart.py`, `rf.py`):
 `_ScoreState.multiply`, `_score_trees_binned` (the f64 walk of a listed
 subset of trees) and `_invalidate_tables`.
 
+Objectives whose gradients run on the host (ranking) or whose leaves are
+refit on the host (the percentile family), and data with a single label
+class, take the sync step, as in the JAX package's GBDT; multiclass runs the
+fused step once per class, every class's gradients from the scores at
+the iteration's start.  The model surface: `feature_importance`,
+`dump_model`, `shuffle_models`.
+
 Left out, and not silently: rollback, OOM ladders, fault injection,
 telemetry, checkpoints.
 """
@@ -239,10 +246,17 @@ class GBDT:
         self._make_train_step()
 
     def _make_train_step(self) -> None:
-        """(Re)build the fused step when the objective is built in; with
-        objective=none every iteration takes the sync path."""
+        """(Re)build the fused step where the JAX package's GBDT builds it
+        (gbdt.py:356-380): a built-in objective whose gradients run on
+        the device, with no leaf refit on the host, and every class
+        trainable.  Otherwise (objective=none, the ranking objectives,
+        the percentile family, a single label class) every iteration
+        takes the sync step."""
         self._step = None
-        if self.objective is not None:
+        obj = self.objective
+        if (obj is not None and not obj.needs_renew and not obj.host_only
+                and all(obj.class_need_train(k)
+                        for k in range(self.num_tree_per_iteration))):
             self._step = self.learner.make_train_step(
                 self.objective.get_gradients, self.shrinkage_rate,
                 self._bag_cfg, self._goss_cfg)
@@ -390,15 +404,15 @@ class GBDT:
         bag = self._bag_cfg
         goss_on = (self._goss_cfg is not None
                    and self.iter_ >= self._goss_cfg["warmup"])
-        for k in range(self.num_tree_per_iteration):
-            if not self.objective.class_need_train(k):
-                raise NotImplementedError(
-                    "training data with a single label class is not ported "
-                    "to lightgbm_tpu_torch yet")
-            init = self._boost_from_average(k)
+        inits = [self._boost_from_average(k)
+                 for k in range(self.num_tree_per_iteration)]
+        # every class's gradients from the scores at the iteration's start
+        base_scores = self.train_scores.scores
+        for k, init in enumerate(inits):
             refresh = bag is not None and self.iter_ % bag["freq"] == 0
             (records, scores, _, leaf_out, self._key,
-             self._bag_key) = self._step(self.train_scores.scores, k,
+             self._bag_key) = self._step(base_scores,
+                                         self.train_scores.scores, k,
                                          self._key, self._bag_key, refresh,
                                          goss_on)
             self.train_scores.scores = scores
@@ -413,12 +427,14 @@ class GBDT:
     def _train_one_iter_sync(self, grad: Optional[np.ndarray] = None,
                              hess: Optional[np.ndarray] = None) -> bool:
         """The synchronous path (gbdt.py:1037-1097): custom gradients, or
-        without them boost-from-average and the objective's gradients on
-        the device (DART); the numpy bagging mask, one tree fetched per
-        class."""
+        without them boost-from-average and the objective's gradients
+        (on the device, or on the host for the ranking objectives); the
+        numpy bagging mask, one tree fetched per class, the percentile
+        refit of the leaves where the objective renews them."""
         k_all = self.num_tree_per_iteration
         init_scores = [0.0] * k_all
-        if grad is None:
+        given = grad is not None
+        if not given:
             for k in range(k_all):
                 init_scores[k] = self._boost_from_average(k)
             grad, hess = self.objective.get_gradients(
@@ -430,7 +446,7 @@ class GBDT:
             hess = torch.as_tensor(np.asarray(hess, np.float32).reshape(
                 k_all, -1), device=self.device)
         self._materialize()
-        mask = self.bagging_mask(self.iter_)
+        grad, hess, mask = self._sync_rows(grad, hess, given)
         should_continue = False
         for k in range(k_all):
             need = (self.objective is None
@@ -442,7 +458,7 @@ class GBDT:
                 self.grower_syncs += self.learner.last_syncs
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
-                self._update_scores(tree, leaf_ids, k)
+                self._renew_and_update(tree, leaf_ids, k, mask)
                 if abs(init_scores[k]) > K_EPSILON:
                     tree.add_bias(init_scores[k])
             else:
@@ -464,12 +480,29 @@ class GBDT:
         self.iter_ += 1
         return False
 
-    def _update_scores(self, tree: Tree, leaf_ids: torch.Tensor,
-                       class_id: int) -> None:
-        """The train-score update of the sync path (gbdt.py:1159-1195,
-        without the renew branch of the percentile objectives): shrink
-        the tree, gather its f32 leaf values by leaf id, and add its
-        leaf values over each validation set."""
+    def _sync_rows(self, grad: torch.Tensor, hess: torch.Tensor,
+                   given: bool):
+        """(grad, hess, row mask) of the sync step: the numpy bagging
+        mask here; GOSS samples instead."""
+        return grad, hess, self.bagging_mask(self.iter_)
+
+    def _renew_and_update(self, tree: Tree, leaf_ids: torch.Tensor,
+                          class_id: int, mask: Optional[torch.Tensor]
+                          ) -> None:
+        """The train-score update of the sync path (gbdt.py:1159-1195):
+        where the objective renews leaves, fetch the leaf ids, this
+        class's scores and the row mask and refit each leaf on the host
+        (its percentile of the residuals); then shrink the tree, gather
+        its f32 leaf values by leaf id, and add its leaf values over each
+        validation set."""
+        if self.objective is not None and self.objective.needs_renew:
+            leaf_np = leaf_ids.cpu().numpy()
+            score_np = self.train_scores.scores[class_id].cpu().numpy() \
+                .astype(np.float64)
+            mask_np = (np.ones(len(leaf_np), bool) if mask is None
+                       else mask.cpu().numpy()[:len(leaf_np)] > 0)
+            self.objective.renew_tree_output(tree, score_np, leaf_np,
+                                             mask_np)
         tree.apply_shrinkage(self.shrinkage_rate)
         leaf_vals = torch.as_tensor(
             tree.leaf_value[:tree.num_leaves].astype(np.float32),
@@ -541,6 +574,10 @@ class GBDT:
     def current_iteration(self) -> int:
         self._materialize()
         return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    def num_total_model(self) -> int:
+        self._materialize()
+        return len(self.models)
 
     def current_score_for_fobj(self) -> np.ndarray:
         return self.train_scores.numpy()
@@ -661,15 +698,7 @@ class GBDT:
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
-        if not raw_score and self.objective is None \
-                and self.loaded_params.get("objective"):
-            # a loaded model whose objective the port cannot rebuild: its
-            # raw scores are the JAX package's, its output conversion is
-            # not ported
-            raise NotImplementedError(
-                f"objective={self.loaded_params['objective'].split()[0]!r} "
-                "(its output conversion) is not ported to lightgbm_tpu_torch "
-                "yet; predict(raw_score=True) gives the raw scores")
+        """[n] outputs, or [n, k] with several trees an iteration."""
         raw = self.predict_raw(X, num_iteration)
         if not raw_score and self.objective is not None:
             raw = self.objective.convert_output(raw)
@@ -697,13 +726,31 @@ class GBDT:
         return prof if prof is not None else self._profile
 
     # ------------------------------------------------------------------
-    def _split_counts(self) -> np.ndarray:
-        """Splits per raw feature (the model text's feature_importances)."""
-        counts = np.zeros(self.max_feature_idx + 1, np.int64)
+    def shuffle_models(self, start: int = 0, end: int = -1) -> None:
+        """Shuffle the trees [start, end) with a generator of seed 0
+        (gbdt.py:2102); the cached device forest goes with the order."""
+        self._materialize()
+        self._invalidate_tables()
+        if end < 0:
+            end = len(self.models)
+        seg = self.models[start:end]
+        np.random.default_rng(0).shuffle(seg)
+        self.models[start:end] = seg
+
+    def feature_importance(self, importance_type: str = "split"
+                           ) -> np.ndarray:
+        """f64 per raw feature: the splits on it ("split") or the sum of
+        their positive gains (gbdt.py:2177)."""
+        self._materialize()
+        imp = np.zeros(self.max_feature_idx + 1, np.float64)
         for tree in self.models:
             for j in range(tree.num_leaves - 1):
-                counts[int(tree.split_feature[j])] += 1
-        return counts
+                f = int(tree.split_feature[j])
+                if importance_type == "split":
+                    imp[f] += 1
+                else:
+                    imp[f] += max(float(tree.split_gain[j]), 0.0)
+        return imp
 
     def _feature_infos(self) -> List[str]:
         td = self.train_data
@@ -748,7 +795,7 @@ class GBDT:
         for s in tree_strs:
             buf.write(s)
         buf.write("\nend of trees\n")
-        imp = self._split_counts()
+        imp = self.feature_importance("split")
         pairs = [(int(v), self.feature_names[i]) for i, v in enumerate(imp)
                  if v > 0]
         pairs.sort(key=lambda t: -t[0])
@@ -771,6 +818,30 @@ class GBDT:
         if prof is not None:
             buf.write(prof.to_line())
         return buf.getvalue()
+
+    def dump_model(self, num_iteration: int = -1, start_iteration: int = 0
+                   ) -> Dict:
+        """The model as JSON-able dicts (gbdt.py:2380-2448)."""
+        self._materialize()
+        k = self.num_tree_per_iteration
+        start = start_iteration * k
+        end = len(self.models)
+        if num_iteration is not None and num_iteration > 0:
+            end = min(end, start + num_iteration * k)
+        return {
+            "name": "tree",
+            "version": "v3",
+            "average_output": bool(self.average_output),
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_index,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": (self.objective.to_model_string()
+                          if self.objective else "none"),
+            "feature_names": list(self.feature_names),
+            "tree_info": [_tree_to_json(i, self.models[i])
+                          for i in range(start, end)],
+        }
 
     @classmethod
     def from_model_string(cls, text: str, device) -> "GBDT":
@@ -829,6 +900,40 @@ class GBDT:
         return self
 
 
+def _tree_to_json(idx: int, tree: Tree) -> Dict:
+    """One tree of dump_model (numerical splits: categorical ones are
+    refused on load and never trained)."""
+    def node(i: int) -> Dict:
+        if i < 0:
+            leaf = ~i
+            return {"leaf_index": int(leaf),
+                    "leaf_value": float(tree.leaf_value[leaf]),
+                    "leaf_weight": float(tree.leaf_weight[leaf]),
+                    "leaf_count": int(tree.leaf_count[leaf])}
+        dt = int(tree.decision_type[i])
+        return {
+            "split_index": int(i),
+            "split_feature": int(tree.split_feature[i]),
+            "split_gain": float(tree.split_gain[i]),
+            "threshold": float(tree.threshold[i]),
+            "decision_type": "<=",
+            "default_left": bool(dt & 2),
+            "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+            "internal_value": float(tree.internal_value[i]),
+            "internal_weight": float(tree.internal_weight[i]),
+            "internal_count": int(tree.internal_count[i]),
+            "left_child": node(int(tree.left_child[i])),
+            "right_child": node(int(tree.right_child[i])),
+        }
+    return {
+        "tree_index": idx,
+        "num_leaves": int(tree.num_leaves),
+        "num_cat": int(tree.num_cat),
+        "shrinkage": float(tree.shrinkage),
+        "tree_structure": node(0) if tree.num_leaves > 1 else {
+            "leaf_value": float(tree.leaf_value[0])},
+    }
+
 
 class _FevalData:
     """Minimal Dataset-like shim passed to custom feval callbacks."""
@@ -842,3 +947,7 @@ class _FevalData:
     def get_weight(self):
         w = self._td.metadata.weight
         return None if w is None else np.asarray(w)
+
+    def get_group(self):
+        b = self._td.metadata.query_boundaries
+        return None if b is None else np.diff(b)

@@ -94,6 +94,22 @@ def check_slice(config: Config) -> None:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
     if str(c.tpu_partition_impl) not in G.PARTITION_IMPLS:
         refuse(f"tpu_partition_impl={c.tpu_partition_impl!r}")
+    # the JAX package's numeric guardrails, HBM preflight and telemetry:
+    # only their defaults, which do nothing here, are taken
+    guard = str(c.tpu_guard_numerics).strip().lower()
+    if guard not in ("off", "warn", "raise", "skip"):
+        raise ValueError("tpu_guard_numerics must be off|warn|raise|skip, "
+                         f"got {guard!r}")
+    if guard != "off":
+        refuse(f"tpu_guard_numerics={guard!r}")
+    if str(c.tpu_hbm_preflight).strip().lower() != "warn":
+        refuse(f"tpu_hbm_preflight={c.tpu_hbm_preflight!r}")
+    if int(c.tpu_hbm_budget_bytes) != 0:
+        refuse(f"tpu_hbm_budget_bytes={c.tpu_hbm_budget_bytes}")
+    if str(c.tpu_telemetry).strip().lower() not in ("", "off"):
+        refuse(f"tpu_telemetry={c.tpu_telemetry!r}")
+    if str(c.tpu_trace_dir):
+        refuse(f"tpu_trace_dir={c.tpu_trace_dir!r}")
 
 
 class TreeLearner:
@@ -149,6 +165,19 @@ class TreeLearner:
         self.n_pad = bucket_rows(n)
         if buckets > 0:
             self.f_pad = bucket_up(self.f_pad, 32)
+        # the feature axis the JAX learner pads to for this impl
+        # (learner.py:371-384, 445-451): 32-aligned for its perfeature and
+        # fused kernels, else unpadded, both bucketed (the perfeature
+        # kernel's axis to 32, the others' to 8).  Its grower draws the
+        # per-node feature masks over that width, so the port draws over
+        # it too; the kernels keep their 32-wide layout
+        if impl in ("pallas2", "fused"):
+            self.draw_width = -(-self.num_features // 32) * 32
+        else:
+            self.draw_width = self.num_features
+        if buckets > 0:
+            self.draw_width = bucket_up(self.draw_width,
+                                        32 if impl == "pallas2" else 8)
         # the pack layout's blocks are the grower's: min(block, n_pad)
         eff_block = min(block, self.n_pad)
         self.packed_bins = self._would_pack(config, B, impl, eff_block,
@@ -214,7 +243,8 @@ class TreeLearner:
             quant_round=str(config.tpu_quant_round),
             quant_refit=(precision in INT_PRECISIONS
                          and bool(config.tpu_quant_refit_leaves)),
-            feature_fraction_bynode=float(config.feature_fraction_bynode))
+            feature_fraction_bynode=float(config.feature_fraction_bynode),
+            bynode_width=self.draw_width)
         # refit leaves: the trees take their leaf values from the grower's
         # refitted outputs, not from the split records
         self.refits_leaves = self.params.quant_refit
@@ -359,8 +389,9 @@ class TreeLearner:
         tree growth + train-score update, all on the device; the only
         host waits are the grower's stop tests.
 
-        Returns step(scores [k, n], class_id, key, bag_key, refresh_bag,
-            goss_on=False) -> (records, new_scores, leaf_ids[:n],
+        Returns step(grad_scores [k, n], scores [k, n], class_id, key,
+            bag_key, refresh_bag, goss_on=False) -> (records, new_scores,
+            leaf_ids[:n],
             leaf_output, key, bag_key): `key` is the booster's threefry
             key and `bag_key` its bagging key, advanced as the JAX step
             advances them (learner.py:1110-1197).  goss: {"top_rate",
@@ -405,7 +436,14 @@ class TreeLearner:
             upscaled by (n-top_k)/other_k; the bagging key is split
             anew for the draw.  Returns (g, h, row mask, bag_key)."""
             gh = gh_pad.clone()
-            gh[:n] = (grad[:n] * hess[:n]).abs()
+            if grad.ndim == 2:
+                # every class's |g*h|, added in class order
+                gh_all = (grad[0] * hess[0]).abs()
+                for c in range(1, grad.shape[0]):
+                    gh_all = gh_all + (grad[c] * hess[c]).abs()
+            else:
+                gh_all = (grad * hess).abs()
+            gh[:n] = gh_all[:n]
             thr = torch.sort(gh).values[n_pad - top_k]
             keep_top = gh >= thr
             bag_key = prng.split(bag_key)[0]
@@ -435,14 +473,17 @@ class TreeLearner:
             fmask[prng.permutation(kf, F)[:k_used]] = 1.0
             return upload(fmask, dev)
 
-        def step(scores: torch.Tensor, class_id: int, key: np.ndarray,
-                 bag_key: np.ndarray, refresh_bag: bool,
-                 goss_on: bool = False):
-            grad, hess = grad_fn(scores)
+        def step(grad_scores: torch.Tensor, scores: torch.Tensor,
+                 class_id: int, key: np.ndarray, bag_key: np.ndarray,
+                 refresh_bag: bool, goss_on: bool = False):
+            # every class's gradients come from the scores at the start of
+            # the iteration (`grad_scores`); `scores` takes the classes'
+            # trees one by one (learner.py:1116-1131)
+            grad, hess = grad_fn(grad_scores)
             g = torch.zeros(n_pad, dtype=torch.float32, device=dev)
             h = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-            g[:n] = grad[:n]
-            h[:n] = hess[:n]
+            g[:n] = (grad[class_id] if grad.ndim == 2 else grad)[:n]
+            h[:n] = (hess[class_id] if hess.ndim == 2 else hess)[:n]
             key, kf = prng.split(key)
             if refresh_bag:
                 bag_key = prng.split(bag_key)[0]

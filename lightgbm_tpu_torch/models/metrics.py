@@ -2,8 +2,9 @@
 
 A copy of the single-process part of `lightgbm_tpu/models/metrics.py`:
 metrics evaluate on host numpy arrays and report (name, value,
-higher_is_better).  The cross-process reductions of the JAX package
-are not part of the port yet.
+higher_is_better); `metrics_ext.py` registers the rest of the zoo.  The
+cross-process reductions of the JAX package are not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -155,6 +156,7 @@ DEFAULT_METRIC_FOR_OBJECTIVE = {
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
+    from . import metrics_ext  # noqa: F401  (registers the extended zoo)
     name = _METRIC_ALIASES.get(name, name)
     cls = _METRICS.get(name)
     return None if cls is None else cls(config)
@@ -177,8 +179,7 @@ def create_metrics(config: Config, objective_name: str) -> List[Metric]:
         seen.add(n)
         m = create_metric(n, config)
         if m is None:
-            raise NotImplementedError(
-                f"metric={n!r} is not ported to lightgbm_tpu_torch yet")
+            raise ValueError(f"unknown metric {n!r}")
         out.append(m)
     return out
 

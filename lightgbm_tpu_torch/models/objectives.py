@@ -1,11 +1,13 @@
 """Objectives: gradients and hessians on the device.
 
-The port of `BinaryLogloss` and `RegressionL2` of
-`lightgbm_tpu/models/objectives.py` (reference
-src/objective/binary_objective.hpp:20-213,
-regression_objective.hpp:78-158).  Gradients are f32 torch ops on the
-dataset's device; the host statistics (boost-from-average) stay numpy f64
-as in the JAX package.
+The port of `lightgbm_tpu/models/objectives.py`: the base class with its
+`needs_renew` (a host percentile refit of the leaf outputs) and
+`host_only` (gradients computed on the host) flags, `BinaryLogloss` and
+`RegressionL2` (reference src/objective/binary_objective.hpp:20-213,
+regression_objective.hpp:78-158), and the registry, which the rest of
+the zoo (`objectives_ext.py`) joins.  Gradients are f32 torch ops on the
+dataset's device; the host statistics (boost-from-average) stay numpy
+f64 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,8 +47,20 @@ class Objective:
 
     def get_gradients(self, score: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """score: [k, n] raw scores -> (grad, hess) [n]."""
+        """score: [k, n] raw scores -> (grad, hess), [n] or [k, n]."""
         raise NotImplementedError
+
+    #: whether renew_tree_output refits the leaves (GBDT then takes the
+    #: sync step, which fetches the leaf ids and scores)
+    needs_renew = False
+
+    #: gradients computed on the host (per-query work, host generators):
+    #: GBDT takes the sync step
+    host_only = False
+
+    def renew_tree_output(self, tree, score: np.ndarray,
+                          leaf_ids: np.ndarray, row_mask: np.ndarray) -> None:
+        """Post-hoc leaf refit (the L1/quantile/MAPE family)."""
 
     def class_need_train(self, class_id: int) -> bool:
         return True
@@ -62,10 +76,13 @@ def _apply_weight(grad, hess, weights):
 
 
 class BinaryLogloss(Objective):
-    """reference src/objective/binary_objective.hpp:20-213."""
+    """reference src/objective/binary_objective.hpp:20-213.
+
+    `is_pos_fn` customizes label binarization: the hook MulticlassOVA
+    builds its per-class losses with (multiclass_objective.hpp:186)."""
     name = "binary"
 
-    def __init__(self, config: Config):
+    def __init__(self, config: Config, is_pos_fn=None):
         super().__init__(config)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0:
@@ -75,10 +92,15 @@ class BinaryLogloss(Objective):
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             raise ValueError("cannot set is_unbalance and scale_pos_weight "
                              "together")
+        self._is_pos_fn = is_pos_fn
+
+    def _is_pos(self, label: np.ndarray) -> np.ndarray:
+        label = np.asarray(label)
+        return label > 0 if self._is_pos_fn is None else self._is_pos_fn(label)
 
     def init(self, metadata: Metadata, num_data: int, device) -> None:
         super().init(metadata, num_data, device)
-        is_pos = np.asarray(metadata.label) > 0
+        is_pos = self._is_pos(metadata.label)
         cnt_pos = int(is_pos.sum())
         cnt_neg = num_data - cnt_pos
         self.need_train = cnt_pos > 0 and cnt_neg > 0
@@ -106,7 +128,7 @@ class BinaryLogloss(Objective):
         return _apply_weight(g, h, self.weights)
 
     def boost_from_score(self, class_id: int) -> float:
-        is_pos = (np.asarray(self.metadata.label) > 0).astype(np.float64)
+        is_pos = self._is_pos(self.metadata.label).astype(np.float64)
         w = self.metadata.weight
         if w is not None:
             suml = float((is_pos * w).sum())
@@ -163,8 +185,16 @@ class RegressionL2(Objective):
         return "regression"
 
 
-_REGISTRY: Dict[str, type] = {c.name: c for c in (BinaryLogloss,
-                                                   RegressionL2)}
+_REGISTRY: Dict[str, type] = {}
+
+
+def register(cls):
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+for _cls in (BinaryLogloss, RegressionL2):
+    register(_cls)
 
 
 def create_objective(config: Config) -> Optional[Objective]:
@@ -172,10 +202,10 @@ def create_objective(config: Config) -> Optional[Objective]:
     name = config.objective
     if name in ("none", ""):
         return None
+    # a late import, so that the rest of the zoo registers itself
+    from . import objectives_ext  # noqa: F401
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"objective={name!r} is not ported to lightgbm_tpu_torch yet "
-            f"(ported: {', '.join(sorted(_REGISTRY))})")
+        raise ValueError(f"unknown objective {name!r}")
     return _REGISTRY[name](config)
 
 
@@ -190,5 +220,6 @@ def create_objective_from_model_string(spec: str) -> Optional[Objective]:
             k, v = t.split(":", 1)
             params[k] = v
     cfg = Config({"objective": toks[0], **params})
+    from . import objectives_ext  # noqa: F401
     cls = _REGISTRY.get(cfg.objective)
     return None if cls is None else cls(cfg)

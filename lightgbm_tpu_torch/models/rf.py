@@ -62,11 +62,20 @@ class RF(GBDT):
             need = self.objective.class_need_train(k)
             tree = None
             if need:
-                tree, _, _ = self.learner.train(self._rf_grad[k],
-                                                self._rf_hess[k], mask)
+                tree, leaf_ids, _ = self.learner.train(
+                    self._rf_grad[k], self._rf_hess[k], mask)
                 self.grower_syncs += self.learner.last_syncs
             if tree is not None and tree.num_leaves > 1:
                 init = self._rf_init_scores[k]
+                if self.objective.needs_renew:
+                    # the percentile refit against the constant init
+                    # scores (rf.py:87-94)
+                    leaf_np = leaf_ids.cpu().numpy()
+                    mask_np = (np.ones(len(leaf_np), bool) if mask is None
+                               else mask.cpu().numpy()[:len(leaf_np)] > 0)
+                    self.objective.renew_tree_output(
+                        tree, np.full(self.train_data.num_data, init),
+                        leaf_np, mask_np)
                 if abs(init) > K_EPSILON:
                     tree.add_bias(init)
                 self._update_average_score(tree, k, it)

@@ -115,8 +115,10 @@ class GrowerParams(NamedTuple):
     quant_round: str = "stochastic"
     quant_refit: bool = False
     # per-node feature sampling: each node's split search sees a
-    # Bernoulli(fraction) subset of the tree's features
+    # Bernoulli(fraction) subset of the tree's features, drawn over the
+    # first `bynode_width` features (0: the whole padded axis)
     feature_fraction_bynode: float = 1.0
+    bynode_width: int = 0
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -204,16 +206,21 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     fused_scan = params.hist_impl == "fused" and quantized and not bynode
     qscale = None
     FG = feature_mask.shape[0]
+    FW = params.bynode_width or FG
+    if FW > FG:
+        raise ValueError(f"bynode_width {FW} exceeds the feature axis {FG}")
     frac_node = np.float32(params.feature_fraction_bynode)
 
     def bynode_masks(k, shape_prefix):
         """Per-node feature masks (grower.py:616-623): Bernoulli(fraction)
-        over the tree's mask from `jax.random.uniform` of the padded
-        feature axis, the tree's mask where a draw is empty.  The draw is
+        over the tree's mask from `jax.random.uniform` of the feature
+        axis the JAX learner pads to (`bynode_width`), the tree's mask
+        where a draw is empty.  The draw is
         made on the host from the key and queued to the device; the rest
         stays there."""
-        draw = uniform(k, shape_prefix + (FG,)) < frac_node
-        samp = upload(draw.astype(np.float32), dev) * (feature_mask > 0)
+        draw = np.zeros(shape_prefix + (FG,), np.float32)
+        draw[..., :FW] = uniform(k, shape_prefix + (FW,)) < frac_node
+        samp = upload(draw, dev) * (feature_mask > 0)
         nonempty = samp.sum(dim=-1, keepdim=True) > 0
         return torch.where(nonempty, samp, feature_mask)
 

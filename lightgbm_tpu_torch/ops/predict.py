@@ -195,11 +195,17 @@ def sum_trees(vals: torch.Tensor) -> torch.Tensor:
 def class_scores(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
                  meta: List[torch.Tensor], k: int, depth: int
                  ) -> torch.Tensor:
-    """[k, n] f32 per-class raw scores: tree i adds to class i % k."""
+    """[k, n] f32 per-class raw scores: tree i adds to class i % k.  One
+    class sums in XLA:CPU's reduce order (`sum_trees`); several classes
+    in the order of its `segment_sum(vals, i % k)` scatter, which adds
+    the updates one by one in tree order onto zeros
+    (lightgbm_tpu/ops/predict.py:318-330): each class's trees in
+    sequence, as elementwise adds, so the card rounds alike."""
     vals = leaf_values(tables, bins_t, *meta, depth)
     if k == 1:
         return sum_trees(vals)[None]
-    cid = torch.arange(vals.shape[0], device=vals.device) % k
     out = torch.zeros((k, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
-    return out.index_add_(0, cid, vals)
+    for t in range(vals.shape[0]):
+        out[t % k] += vals[t]
+    return out

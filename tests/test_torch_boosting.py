@@ -11,8 +11,10 @@ process compiled without FMA (job "boosting").
 - feature_fraction_bynode=0.5, alone and with feature_fraction=0.8,
   int8 and int16: the whole model text byte-identical, under the port's
   `auto` (which leaves the fused scan, as the JAX grower leaves it under
-  its accelerator's `fused`) and under `pallas2`; hilo binary trees
-  within assert_trees_match's tolerance;
+  its accelerator's `fused`) and under `pallas2`, and under `xla` and
+  `pallas` with and without shape buckets (the masks drawn over the
+  JAX learner's unpadded feature axis); hilo binary trees within
+  assert_trees_match's tolerance;
 - GOSS at learning_rate 0.25 (4 warm-up iterations) over 8 iterations:
   the text byte-identical under `fused` and `pallas2`, the row mask of
   every tree as large as the JAX step's, with `fobj` the JAX package's
@@ -37,8 +39,8 @@ import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch.utils import prng
 
-from .test_torch_util import (assert_trees_match, binary_data, run_jax_nofma,
-                              train_valid_run)
+from .test_torch_util import (assert_trees_match, binary_data,
+                              start_jax_nofma, train_valid_run)
 
 N, N_TRAIN = 3000, 2400
 BASE = {"objective": "regression", "num_leaves": 15, "max_bin": 63,
@@ -61,6 +63,13 @@ def _bynode_cases():
                 cases[f"{prec}_ff{ff}_{impl}"] = dict(
                     BYNODE, tpu_hist_precision=prec, feature_fraction=ff,
                     tpu_hist_impl=impl)
+        # the impls whose feature axis the JAX learner leaves unpadded
+        # (bucketed to 8), which the port's masks are drawn over
+        for impl in ("xla", "pallas"):
+            for buckets in (32, 0):
+                cases[f"{prec}_{impl}_buckets{buckets}"] = dict(
+                    BYNODE, tpu_hist_precision=prec, tpu_hist_impl=impl,
+                    tpu_shape_buckets=buckets)
     return cases
 
 
@@ -118,34 +127,47 @@ def _norm(text):
 
 
 @pytest.fixture(scope="module")
-def port():
-    """Each run of the port, on the CPU."""
+def both(tmp_path_factory):
+    """(each run of the port on the CPU, the JAX package's): every JAX
+    run in one process without FMA, started once the port's RF model
+    (which it loads and predicts) is trained, and working while the port
+    trains the rest; with the runs, the GOSS step's row masks."""
     X, ys = _data()
-    out = {}
-    for name, run in RUNS.items():
-        out[name] = train_valid_run(
-            tlgb, X, ys["regression"],
-            dict(run, params=_port_params(run["params"])))
-    return out
 
+    def port_run(name):
+        run = RUNS[name]
+        return train_valid_run(tlgb, X, ys["regression"],
+                               dict(run, params=_port_params(run["params"])))
 
-@pytest.fixture(scope="module")
-def jax_ref(port, tmp_path_factory):
-    """Every JAX run in one process without FMA: the runs, the GOSS
-    step's row masks, and the port's RF model loaded and predicted."""
-    X, ys = _data()
+    port = {"rf": port_run("rf")}
     runs = [dict(run, kind="train_valid") for run in RUNS.values()]
     runs.append({"kind": "goss_kept", "params": GOSS, "rounds": ROUNDS})
     runs.append({"kind": "load_predict", "text": port["rf"]["text"],
                  "start": N_TRAIN})
-    got = run_jax_nofma("boosting", {"X": X, **{"y_" + k: v
-                                                for k, v in ys.items()}},
-                        {"runs": runs}, tmp_path_factory.mktemp("boosting"))
-    out = {name: {k: got[f"{c}_{k}"] for k in ("text", "evals", "raw")}
+    wait = start_jax_nofma("boosting", {"X": X, **{"y_" + k: v
+                                                  for k, v in ys.items()}},
+                           {"runs": runs},
+                           tmp_path_factory.mktemp("boosting"))
+    for name in RUNS:
+        if name not in port:
+            port[name] = port_run(name)
+    got = wait()
+    ref = {name: {k: got[f"{c}_{k}"] for k in ("text", "evals", "raw")}
            for c, name in enumerate(RUNS)}
-    out["goss_kept"] = got[f"{len(RUNS)}_kept"]
-    out["rf_port_text_raw"] = got[f"{len(RUNS) + 1}_raw"]
-    return out
+    ref["goss_kept"] = got[f"{len(RUNS)}_kept"]
+    ref["rf_port_text_raw"] = got[f"{len(RUNS) + 1}_raw"]
+    return port, ref
+
+
+@pytest.fixture(scope="module")
+def port(both):
+    """Each run of the port, on the CPU."""
+    return both[0]
+
+
+@pytest.fixture(scope="module")
+def jax_ref(both):
+    return both[1]
 
 
 @pytest.mark.parametrize("shape", [(32,), (50, 32)], ids=str)

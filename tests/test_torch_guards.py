@@ -75,9 +75,15 @@ OUT_OF_SLICE = [
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "lambdarank"},
     {"categorical_feature": "0"},
+    # the JAX package's numeric guardrails, HBM preflight and telemetry
+    {"tpu_guard_numerics": "warn"},
+    {"tpu_guard_numerics": "skip"},
+    {"tpu_hbm_preflight": "raise"},
+    {"tpu_hbm_preflight": "degrade"},
+    {"tpu_hbm_budget_bytes": 1000},
+    {"tpu_telemetry": "trace"},
+    {"tpu_trace_dir": "traces"},
 ]
 
 
@@ -87,12 +93,64 @@ def test_out_of_slice_parameters_raise(extra):
     # of a multiple of 256 rows (300 rows pad to one block of 384)
     n = 512 if extra.get("tpu_pack_bins") else 300
     X, y = binary_data(n=n, f=3, seed=1)
-    if extra.get("objective") == "multiclass":
-        y = np.arange(n) % 3
     params = dict(SMALL, **CPU, **extra)
     name = next(iter(extra))
     with pytest.raises(NotImplementedError, match=name.split("_")[0]):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
+
+
+@pytest.mark.parametrize("extra", OUT_OF_SLICE[-7:],
+                         ids=lambda d: ",".join(d))
+def test_knob_refusals_name_the_value(extra):
+    X, y = binary_data(n=300, f=3, seed=1)
+    (name, value), = extra.items()
+    with pytest.raises(NotImplementedError, match=f"{name}={value!r}"
+                       .replace("'", ".")):
+        tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y), 1)
+
+
+def test_invalid_guard_value_raises_value_error():
+    # as lightgbm_tpu/models/gbdt.py:319-322 refuses it
+    X, y = binary_data(n=300, f=3, seed=1)
+    with pytest.raises(ValueError, match="tpu_guard_numerics.*bogus"):
+        tlgb.train(dict(SMALL, **CPU, tpu_guard_numerics="bogus"),
+                   tlgb.Dataset(X, label=y), 1)
+
+
+def test_knob_defaults_train():
+    X, y = binary_data(n=300, f=3, seed=1)
+    defaults = {"tpu_guard_numerics": "off", "tpu_hbm_preflight": "warn",
+                "tpu_hbm_budget_bytes": 0, "tpu_telemetry": "off",
+                "tpu_trace_dir": ""}
+    for extra in ({}, defaults, {"tpu_telemetry": ""}):
+        b = tlgb.train(dict(SMALL, **CPU, **extra),
+                       tlgb.Dataset(X, label=y), 1)
+        assert b.num_trees() == 1
+
+
+# once refused; now ported with the objective zoo (the parity tests are
+# tests/test_torch_objectives.py)
+OBJECTIVES_NOW_PORTED = [
+    {"objective": "multiclass", "num_class": 3},
+    {"objective": "lambdarank"},
+]
+
+
+@pytest.mark.parametrize("extra", OBJECTIVES_NOW_PORTED,
+                         ids=lambda d: ",".join(d))
+def test_objective_cases_train_on_the_cpu(extra):
+    n = 300
+    X, y = binary_data(n=n, f=3, seed=1)
+    group = None
+    if extra["objective"] == "multiclass":
+        y = np.arange(n) % 3
+    else:
+        group = [30] * 10
+    b = tlgb.train(dict(SMALL, **CPU, **extra),
+                   tlgb.Dataset(X, label=y, group=group), 2)
+    k = extra.get("num_class", 1)
+    assert b.num_trees() == 2 * k
+    assert b.predict(X).shape == ((n, k) if k > 1 else (n,))
 
 
 # once refused; now sampled as the JAX step samples them (rows by the

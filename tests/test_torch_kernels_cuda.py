@@ -832,3 +832,70 @@ def test_wide_int8_training_on_card_matches_cpu_text(impl):
     assert kernels.launches[route] > 0
     assert kernels.launches["partition_rows_wide"] > 0
     assert texts["cuda"] == texts["cpu"]
+
+
+def _multiclass_booster(dev):
+    import lightgbm_tpu_torch as lgb
+
+    rng = np.random.default_rng(18)
+    X = rng.normal(size=(20000, 8))
+    X[rng.random(X.shape) < 0.03] = np.nan
+    lat = np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(X[:, 1]) \
+        + 0.5 * rng.normal(size=20000)
+    y = np.digitize(lat, np.quantile(lat, [0.25, 0.5, 0.75]))
+    p = {"objective": "multiclass", "num_class": 4, "num_leaves": 31,
+         "max_bin": 63, "verbosity": -1, "device_type": dev}
+    return X, lgb.train(p, lgb.Dataset(X, label=y), 12)
+
+
+def test_multiclass_class_scores_deterministic_and_equal_to_cpu():
+    # each class's trees add in tree order as elementwise adds (no
+    # atomics), so the card's [k, n] scores are the same every call and
+    # equal the CPU's
+    from lightgbm_tpu_torch.ops.predict import class_scores
+
+    dev = cuda_device()
+    X, b = _multiclass_booster("cuda")
+    drv = b._driver
+    meta = drv._pred_ctx.meta_dev(dev)
+    tables, depth = drv._forest(len(drv.models))
+    bins_t = drv._pred_ctx.bin_rows_t(X, dev)
+    runs = [class_scores(tables, bins_t, meta, 4, depth).cpu()
+            for _ in range(10)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    assert runs[0].shape == (4, 20000)
+    cpu = _cpu_copy(b)
+    np.testing.assert_array_equal(b.predict(X, raw_score=True),
+                                  cpu.predict(X, raw_score=True))
+
+
+def _cpu_copy(b):
+    """The same model, loaded on the CPU."""
+    import lightgbm_tpu_torch as lgb
+
+    return lgb.Booster(model_str=b.model_to_string(),
+                       params={"device_type": "cpu"})
+
+
+@pytest.mark.parametrize("objective", ["regression_l1", "lambdarank"])
+def test_sync_step_objectives_on_card_match_cpu_text(objective):
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _packed_reg_data(40950)
+    group = None
+    if objective == "lambdarank":
+        y = np.digitize(y, np.quantile(y, [0.2, 0.4, 0.6, 0.8]))
+        group = [50] * (len(y) // 50)
+    p = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+         "verbosity": -1}
+    kernels.reset_launches()
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        b = lgb.train(dict(p, device_type=dev),
+                      lgb.Dataset(X, label=y, group=group), 3)
+        texts[dev] = _norm(b.model_to_string(), "device_type")
+    assert kernels.launches["fused_hist_scan"] > 0
+    assert texts["cuda"] == texts["cpu"]

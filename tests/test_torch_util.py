@@ -150,6 +150,13 @@ def run_jax_nofma(job, arrays, spec, tmp_path):
     """Run `job` of this module in a JAX process compiled without FMA;
     `arrays` (name -> numpy array) and the JSON-able `spec` go in, a dict
     of numpy arrays comes back."""
+    return start_jax_nofma(job, arrays, spec, tmp_path)()
+
+
+def start_jax_nofma(job, arrays, spec, tmp_path):
+    """run_jax_nofma without the wait: the process starts, and calling
+    the returned function waits for it and returns its arrays, so a test
+    can run the port meanwhile."""
     import json
     import os
     import pathlib
@@ -160,13 +167,20 @@ def run_jax_nofma(job, arrays, spec, tmp_path):
     src, dst = tmp_path / f"{job}_in.npz", tmp_path / f"{job}_out.npz"
     np.savez(src, __spec__=np.array(json.dumps(spec)), **arrays)
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=NOFMA_FLAGS)
-    res = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "tests.test_torch_util", job, str(src),
-         str(dst)], cwd=root, env=env, capture_output=True, text=True,
-        timeout=600)
-    assert res.returncode == 0, res.stderr[-4000:]
-    with np.load(dst) as out:
-        return {k: out[k] for k in out.files}
+         str(dst)], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def result():
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, err[-4000:]
+        with np.load(dst) as out:
+            return {k: out[k] for k in out.files}
+    return result
 
 
 def _job_fused(inp, spec):
@@ -363,14 +377,15 @@ def goss_kept_jax(lgb, X, y, params, rounds):
 
 
 def cv_run(lgb, X, y, run):
-    """lgb.cv of `lgb` on a dataset binned with the run's max_bin:
+    """lgb.cv of `lgb` on a dataset binned with the run's max_bin (and
+    the run's query sizes, `group`, where it has them):
     (the result dict without the boosters as JSON, each fold booster's
     raw scores of X or None)."""
     import json
 
     p = dict(run["params"])
-    res = lgb.cv(p, lgb.Dataset(X, label=y, params={"max_bin":
-                                                    p["max_bin"]}),
+    res = lgb.cv(p, lgb.Dataset(X, label=y, group=run.get("group"),
+                                params={"max_bin": p["max_bin"]}),
                  num_boost_round=run["rounds"], nfold=run["nfold"],
                  stratified=run.get("stratified", True),
                  shuffle=run.get("shuffle", True), seed=run.get("seed", 0),
@@ -385,10 +400,98 @@ def cv_run(lgb, X, y, run):
     return json.dumps(res), raw
 
 
+def zoo_run(lgb, X, y, run):
+    """lgb.train of `lgb` with one objective of the zoo.  run: params,
+    rounds, and optionally group (the query sizes of all rows), weight
+    (a name of the inputs), n_train (the rows before it train, the rest
+    validate, on query bounds), early_stopping_rounds, frame (column
+    names: the rows go in as a pandas DataFrame) and predict_iterations.
+    Returns the model text, the raw scores of X (the JAX package's on its
+    device path), the evals_result, the best iteration and the raw
+    scores at each of predict_iterations."""
+    import json
+
+    p = dict(run["params"])
+    kw = {} if lgb.__name__ == "lightgbm_tpu_torch" else {
+        "tpu_predict_device": "true"}
+    group = run.get("group")
+    w = run.get("weight")
+    n = run.get("n_train", len(y))
+    rows = X
+    if run.get("frame"):
+        import pandas as pd
+
+        rows = pd.DataFrame(X, columns=run["frame"])
+    g_tr = g_va = None
+    if group is not None:
+        # the split moves up to the next query bound
+        bounds = np.concatenate([[0], np.cumsum(group)])
+        q = int(np.searchsorted(bounds, n))
+        n = int(bounds[q])
+        g_tr, g_va = list(group[:q]), list(group[q:])
+    train = lgb.Dataset(rows[:n], label=y[:n], group=g_tr,
+                        weight=None if w is None else w[:n],
+                        params={"max_bin": p["max_bin"]})
+    evals = {}
+    valid = []
+    if n < len(y):
+        valid = [lgb.Dataset(rows[n:], label=y[n:], group=g_va,
+                             weight=None if w is None else w[n:],
+                             reference=train)]
+    b = lgb.train(p, train, num_boost_round=run["rounds"],
+                  valid_sets=valid or None, evals_result=evals,
+                  early_stopping_rounds=run.get("early_stopping_rounds"),
+                  verbose_eval=False)
+    out = {"text": b.model_to_string(),
+           "raw": np.asarray(b.predict(rows, raw_score=True, **kw)),
+           "evals": json.dumps(evals),
+           "best_iteration": b.best_iteration}
+    for it in run.get("predict_iterations", []):
+        out[f"raw_{it}"] = np.asarray(b.predict(rows, raw_score=True,
+                                                num_iteration=it, **kw))
+    return out
+
+
+def booster_io_run(lgb, X, y, run, tmp):
+    """The model surface of one trained booster of `lgb`: its saved file,
+    dump_model JSON, both feature importances, trees_to_dataframe (as
+    JSON), the text after shuffle_models, and the raw scores of a model
+    text `run["load"]` loaded and predicted (the JAX package's on its
+    device path)."""
+    import json
+    import os
+
+    kw = {} if lgb.__name__ == "lightgbm_tpu_torch" else {
+        "tpu_predict_device": "true"}
+    p = dict(run["params"])
+    b = lgb.train(p, lgb.Dataset(X, label=y, params={"max_bin":
+                                                     p["max_bin"]}),
+                  num_boost_round=run["rounds"], keep_training_booster=True)
+    path = os.path.join(tmp, f"{lgb.__name__}.txt")
+    b.save_model(path)
+    with open(path) as f:
+        saved = f.read()
+    out = {"saved": saved,
+           "dump": json.dumps(b.dump_model()),
+           "split": b.feature_importance("split"),
+           "gain": b.feature_importance("gain"),
+           "trees_frame": b.trees_to_dataframe().to_json(),
+           "raw": np.asarray(b.predict(X, raw_score=True, **kw))}
+    b.shuffle_models(1, 4)
+    out["shuffled"] = b.model_to_string()
+    if run.get("load"):
+        other = lgb.Booster(model_str=run["load"], **(
+            {"params": {"device_type": "cpu"}}
+            if lgb.__name__ == "lightgbm_tpu_torch" else {}))
+        out["loaded_raw"] = np.asarray(other.predict(X, raw_score=True,
+                                                     **kw))
+    return out
+
+
 def _job_boosting(inp, spec):
     """Runs of several kinds in one process: "train_valid"
-    (train_valid_run), "goss_kept" (goss_kept_jax), "cv" (cv_run) and
-    "load_predict" (a model text loaded and its raw scores of the rows
+    (train_valid_run), "goss_kept" (goss_kept_jax), "cv" (cv_run), "zoo"
+    (zoo_run), "booster_io" (booster_io_run) and "load_predict" (a model text loaded and its raw scores of the rows
     of X from `start` on, on the device path)."""
     import lightgbm_tpu as lgb
 
@@ -408,6 +511,16 @@ def _job_boosting(inp, spec):
             out[f"{c}_result"] = np.array(res)
             if raw is not None:
                 out[f"{c}_raw"] = raw
+        elif kind == "zoo":
+            w = inp.get("w_" + run["weight"]) if run.get("weight") else None
+            for k, v in zoo_run(lgb, X, y, dict(run, weight=w)).items():
+                out[f"{c}_{k}"] = np.asarray(v)
+        elif kind == "booster_io":
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as tmp:
+                for k, v in booster_io_run(lgb, X, y, run, tmp).items():
+                    out[f"{c}_{k}"] = np.asarray(v)
         elif kind == "load_predict":
             b = lgb.Booster(model_str=run["text"])
             out[f"{c}_raw"] = np.asarray(b.predict(
