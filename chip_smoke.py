@@ -51,8 +51,9 @@ Phases, each fatal on failure (exit code 1, no result line):
                B1 and B3; its held-out AUC beside the hilo path's;
        wide    hilo at max_bin=1023: the learner stores the bins int32
                (about 1,023 bins a feature), 10 iterations: B1's wide
-               variant (16-bit row-major bins, one tile of bins a block
-               at a time) and B3's (the int32 matrix in place);
+               variant (16-bit row-major bins, a slot's sums spread
+               over a thread-block cluster, one tile of bins a block)
+               and B3's (the int32 matrix in place);
        wide_int8  wide with tpu_hist_precision=int8, 10 iterations: B1's
                wide integer variant at the root, B2's wide variant every
                round, B3's, the leaf sums;
@@ -115,9 +116,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      draw upscaled by 8), at multiclass operands (class 0's softmax
      gradients of an iteration of multiclass_int8) and at lambdarank
      operands (the host lambdas of lambdarank_int8), bitwise;
-     the wide variants of B1, B4 (random and root), B2 and B3 on the wide
-     paths' learners, with a second bound that counts each bin tile's
-     re-read of the rows;
+     the wide variants of B1, B4 (random and root), B2 (random and
+     root) and B3 on the wide paths' learners, each wide row with its
+     plan's cluster (blocks a cluster, bins a block) and the walks of
+     each entry (1 at max_bin=1023; where more, a second bound counts
+     the live rows once a walk); the leaf sums beside the floor that
+     their row-order contract sets (the largest leaf's dependent adds),
+     at phase 4's operands and on every path that refits;
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
@@ -179,6 +184,9 @@ BAG_OUT = 0.2
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_S = 67e12         # H100 SXM f32 outside the tensor cores
 PEAK_ALU_S = 67e12         # H100 SXM scalar rate (the f32 row of the table)
+# cycles from one f32 add to the next that depends on it (the issue
+# latency of FADD on sm_70 and later): the leaf sums' serial chain
+FADD_CYCLES = 4
 PARAMS = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
           "min_data_in_leaf": 20, "max_bin": 255, "metric": "auc",
           "tree_learner": "serial", "tpu_hist_precision": "hilo",
@@ -421,6 +429,38 @@ def smi_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def leaf_sums_floor(n, L, longest, mhz):
+    """The least time of the leaf sums' wrapper and kernel (ms) on this
+    card, from what the row-order contract imposes: the largest leaf's
+    `longest` rows as one chain of dependent f32 adds (FADD_CYCLES each
+    at the highest SM clock), after the wrapper's passes moved their
+    bytes once (the sort: n ids read, n sorted ids and n int64 indices
+    written; the gather: 2n values and n indices read, 2n values
+    written; searchsorted: L + 1 offsets written)."""
+    chain = longest * FADD_CYCLES / (mhz * 1e3)
+    nbytes = n * 4 + n * 4 + n * 8 + 2 * n * 4 + n * 8 + 2 * n * 4 \
+        + (L + 1) * 4
+    return chain + nbytes / PEAK_BYTES_S * 1e3, chain
+
+
+def largest_leaf(booster):
+    """The most rows of one leaf over the booster's trees."""
+    booster.num_trees()                  # the lazy trees materialized
+    return max(int(t.leaf_count[:t.num_leaves].max())
+               for t in booster._driver.models)
 
 
 def main_path(lgb, kernels, ds, X, y, params, iters, must_launch,
@@ -1093,19 +1133,22 @@ def _b1_operands(learner):
         suffix, 1)
 
 
-def _bin_tiles(learner, S, floats, scan=False):
-    """The bin tiles of the learner's histogram calls on this card (1
-    but for wide bins): each re-reads its rows' bins and stats."""
+def _wide_plan(learner, S, floats, scan=False, flat=False):
+    """The cluster plan of the learner's histogram calls on this card
+    (wide bins only, else {}): blocks a cluster, bins a block's tile, and
+    the walks of each grouped-list entry per (segment, chunk), 1
+    wherever the cluster holds all of B."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
     if learner.bins_t.dtype != torch.int32:
-        return 1
-    plan = H.hist_plan(learner.f_pad, learner.params.split_batch, S,
-                       learner.num_bins, learner.n_pad,
-                       *H._device_limits(torch.cuda.current_device()),
-                       scan=scan, floats=floats, wide=True)
-    return -(-learner.num_bins // plan.bin_tile)
+        return {}
+    plan = H.call_plan(learner.bins_t, S, learner.n_pad,
+                       learner.params.split_batch, learner.num_bins, floats,
+                       scan=scan, flat=flat)
+    return {"cluster": plan.cluster, "bin_tile": plan.bin_tile,
+            "grid": plan.grid, "threads": plan.threads,
+            "walks": H.plan_walks(plan, learner.num_bins)}
 
 
 def _bins_shape(learner, F, n, pb):
@@ -1167,15 +1210,16 @@ def check_hist(learner, gen, operands):
     event_ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     S = stats.shape[0]
+    wide = _wide_plan(learner, S, True, flat=route == "hist_flat")
     return {"name": route + suffix, "operands": operands,
             "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/histogram.cu",
             "replaces": replaces,
             "max_abs_err": err, "max_rel_err": rel,
             "tolerance": f"counts exact, g/h rel {HIST_RTOL:g}", "ms": ms,
-            "event_ms": event_ms, "plain_ms": plain_ms,
+            "event_ms": event_ms, "plain_ms": plain_ms, **wide,
             **_hist_bound(n, m, F, S, 2, K, F * B * K * S, PEAK_F32_S,
-                          bin_bytes, _bin_tiles(learner, S, True)),
+                          bin_bytes, wide.get("walks", 1)),
             "library_ms": lib_ms, **extra,
             "shape": f"{_bins_shape(learner, F, n, pb)}, "
                      f"stats [{S}, {n}] bf16, K={K}, B={B}, live rows {m}"}
@@ -1345,23 +1389,23 @@ def _slots_of(learner, gen, operands):
 
 
 def _hist_bound(n, m, F, S, stat_bytes, K, out_words, peak_ops,
-                bin_bytes=1, tiles=1):
+                bin_bytes=1, walks=1):
     """The bound of a K-slot histogram call, from what its inputs need:
     every leaf id, the bins (bin_bytes a feature: 0.5 packed, 2 wide) and
     stats of the m live rows only, the slot ids, and the output written
     once; m * F * S adds.  Beside it the bound that counts every row's
-    bins and stats, as earlier versions of this script did, and, with
-    tiles > 1 bin tiles (wide bins), the one that counts the live rows'
-    bins and stats once a tile, as the kernel reads them."""
+    bins and stats, as earlier versions of this script did, and, where
+    the kernel walks each entry walks > 1 times (wide bins past a
+    cluster's 8 tiles), the one that counts the live rows' bins and
+    stats once a walk, as the kernel reads them."""
     row = F * bin_bytes + S * stat_bytes
     fixed = n * 4 + K * 4 + out_words * 4
     out = {**_bound(fixed + m * row, m * F * S, peak_ops),
            "bound_ms_all_rows": _bound(fixed + n * row, m * F * S,
                                        peak_ops)["bound_ms"]}
-    if tiles > 1:
-        out["bin_tiles"] = tiles
-        out["bound_ms_tiled"] = _bound(fixed + tiles * m * row, m * F * S,
-                                       peak_ops)["bound_ms"]
+    if walks > 1:
+        out["bound_ms_walked"] = _bound(fixed + walks * m * row, m * F * S,
+                                        peak_ops)["bound_ms"]
     return out
 
 
@@ -1455,7 +1499,7 @@ def check_hist_int(learner, gen, operands, goss=None):
     event_ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
     S = 3
-    extra = {}
+    extra = _wide_plan(learner, S, False, flat=route == "hist_flat")
     if rows is not None:
         extra["rows_out"] = float(1.0 - rows.sum().item()
                                   / learner._ones_mask.sum().item())
@@ -1466,7 +1510,7 @@ def check_hist_int(learner, gen, operands, goss=None):
             "max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": "bitwise",
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             **_hist_bound(n, m, F, S, 1, K, F * B * K * S, PEAK_ALU_S,
-                          bin_bytes, _bin_tiles(learner, S, False)),
+                          bin_bytes, extra.get("walks", 1)),
             "library_ms": lib_ms,
             "shape": f"{_bins_shape(learner, F, n, pb)}, "
                      f"stats [3, {n}] int8, K={K}, B={B}, live rows {m}"}
@@ -1510,8 +1554,13 @@ def check_leaf_sums(learner, gen):
     out = torch.zeros(L, device=dev)
     lib_ms = cuda_ms(lambda: (out.index_add_(0, ids, vals[0]),
                               out.index_add_(0, ids, vals[1])), 5)
+    # the row-order contract's floor: the largest leaf's dependent adds
+    longest = int(torch.bincount(leaf.long(), minlength=L).max().item())
+    floor, chain = leaf_sums_floor(n, L, longest, sm_clock_mhz())
     # ids and values read once, sums written once; 2n adds
     return {"name": "leaf_sums", "route": "cuda",
+            "largest_leaf_rows": longest, "chain_ms": chain,
+            "floor_ms": floor,
             "source": "lightgbm_tpu_torch/csrc/leafsum.cu",
             "replaces": "lightgbm_tpu/ops/grower.py:1745",
             "max_abs_err": 0.0, "max_rel_err": 0.0,
@@ -1525,12 +1574,14 @@ def check_leaf_sums(learner, gen):
             "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
 
 
-def _fused_operands(learner, gen, bagged=False, goss=None):
+def _fused_operands(learner, gen, bagged=False, goss=None, root=False):
     """Kernel B2's operands at the int8 path's shapes: K parent leaves
     k and K + k, each split in two, the smaller child histogrammed;
     bagged: about BAG_OUT of the rows with zero stats and of the
     features masked; goss: the grad, hess and row mask of a tree of a
-    path (a sampled GOSS tree, a multiclass class, host lambdas).  Returns (positional args, split_kw)."""
+    path (a sampled GOSS tree, a multiclass class, host lambdas); root:
+    every row in leaf 0, histogrammed in slot 0 (the other slots find
+    no rows).  Returns (positional args, split_kw)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -1548,6 +1599,8 @@ def _fused_operands(learner, gen, bagged=False, goss=None):
                         else goss[:2])
     leaf = torch.randint(0, 2 * K, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
+    if root:
+        leaf.zero_()
     pairs = torch.arange(2 * K, device=dev, dtype=torch.int32)
 
     def hist_of(ids):
@@ -1558,6 +1611,8 @@ def _fused_operands(learner, gen, bagged=False, goss=None):
     left, right = hist_of(pairs[:K]), hist_of(pairs[K:])
     parent = (left + right).contiguous()
     small_left = torch.rand(K, generator=gen, device=dev) < 0.5
+    if root:
+        small_left[0] = True
     slots = torch.where(small_left, pairs[:K], pairs[K:]).to(torch.int32)
     slots[K // 3] = -1                                   # a dead slot
     scales = torch.tensor([0.01, 0.004, 1.0], device=dev)
@@ -1586,8 +1641,8 @@ def _fused_operands(learner, gen, bagged=False, goss=None):
 
 def check_fused(learner, gen, operands="random", goss=None):
     """Phase 4, kernel B2 at `_fused_operands`' operands ("random",
-    "bagged", or "goss", "multiclass" or "lambdarank" with the grower
-    operands `goss` of a tree of that path)."""
+    "bagged", "root", or "goss", "multiclass" or "lambdarank" with the
+    grower operands `goss` of a tree of that path)."""
     import torch
     from lightgbm_tpu_torch.ops import fused
 
@@ -1595,7 +1650,8 @@ def check_fused(learner, gen, operands="random", goss=None):
     F, n = bins_t.shape
     B = learner.num_bins
     K = learner.params.split_batch
-    args, kw = _fused_operands(learner, gen, operands == "bagged", goss)
+    args, kw = _fused_operands(learner, gen, operands == "bagged", goss,
+                               root=operands == "root")
     leaf, slots = args[2], args[3]
     got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
     ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
@@ -1623,17 +1679,18 @@ def check_fused(learner, gen, operands="random", goss=None):
     # a row's bins in the kernel's row-major copy (16-bit when wide) and
     # its three int8 stats
     row = F * (2 if bins_t.dtype == torch.int32 else 1) + 3
-    tiles = _bin_tiles(learner, 3, False, scan=True)
+    wide = _wide_plan(learner, 3, False, scan=True)
+    walks = wide.get("walks", 1)
     nbytes = 4 * n + m * row + rest
     nbytes_all = 4 * n + n * row + rest
     # histogram adds, then about 100 f32 operations per (child, feature,
     # bin) in the scan (prefix sums, dequantization, both directions'
     # leaf outputs, clips and gains)
     ops = m * F * 3 + C * F * B * 100
-    extra = {}
-    if tiles > 1:
-        extra = {"bin_tiles": tiles, "bound_ms_tiled": _bound(
-            4 * n + tiles * m * row + rest, ops, PEAK_F32_S)["bound_ms"]}
+    extra = dict(wide)
+    if walks > 1:
+        extra["bound_ms_walked"] = _bound(4 * n + walks * m * row + rest,
+                                          ops, PEAK_F32_S)["bound_ms"]
     if goss is not None:
         extra["rows_out"] = float(1.0 - goss[2].sum().item()
                                   / learner._ones_mask.sum().item())
@@ -2021,6 +2078,8 @@ def main() -> None:
                     (check_partition(learners["hilo"], gen), "hilo"),
                     (check_leaf_sums(learners["int8"], gen), "int8"),
                     (check_fused(learners["wide_int8"], gen), "wide_int8"),
+                    (check_fused(learners["wide_int8"], gen, "root"),
+                     "wide_int8"),
                     (check_partition(learners["wide"], gen), "wide")]
     # B1-int and B2 on bagged operands: rows with zero stats, features
     # masked, at the validation path's shapes
@@ -2044,7 +2103,19 @@ def main() -> None:
         kernel_rows += [(check_hist_int(learners[path], gen, tag, ops),
                          path),
                         (check_fused(learners[path], gen, tag, ops), path)]
+    # the leaf sums' floor on each path that refits: its largest leaf
+    mhz = sm_clock_mhz()
+    floors = {}
+    for path, report in reports.items():
+        if report.get("launches", {}).get("leaf_sums", 0) > 0:
+            learner = learners[path]
+            floors[path] = leaf_sums_floor(
+                learner.n_pad, learner.params.num_leaves + 1,
+                largest_leaf(boosters[path]), mhz)[0]
+    print("leaf sums floor_ms by path " + json.dumps(floors), flush=True)
     for row, path in kernel_rows:
+        if row["name"] == "leaf_sums":
+            row["floor_ms_by_path"] = floors
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
             row["name"]]

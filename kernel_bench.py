@@ -9,15 +9,18 @@ Imports lightgbm_tpu_torch from DIR (default: the directory of this
 script), builds its kernels and prints one JSON line per measurement,
 each taken with chip_smoke.py's own functions (from this script's
 directory, whatever DIR is):
-  path     the hilo, int8 and flat paths, 10 iterations and then 2 more
-           under torch.profiler (chip_smoke.profile): each kernel's
-           device time per call on the path, the device's busy time and
-           idle share, the host's torch ops per iteration and host syncs
-           per tree;
-  kernel   B1, B1-int and B4 at chip_smoke.py's phase-4 random and root
-           operands, B2 and B3 at their phase-4 operands: each against
-           its plain twin, with its device time per call
-           (chip_smoke.device_ms) and its CUDA-event time;
+  path     the hilo, int8, flat, wide, wide_int8 and wide_flat paths,
+           10 iterations and then 2 more under torch.profiler
+           (chip_smoke.profile): each kernel's device time per call on
+           the path, the device's busy time and idle share, the host's
+           torch ops per iteration and host syncs per tree;
+  kernel   B1 and B4 in all twelve instances (uint8, packed and wide,
+           float and int) at chip_smoke.py's phase-4 random and root
+           operands, B2 and B2-wide at random and root operands, B3 and
+           B3-wide: each against its plain twin, with its device time
+           per call (chip_smoke.device_ms) and its CUDA-event time, and
+           for the wide instances the cluster plan (blocks a cluster,
+           walks of each entry);
   sass     (--sass) the atomic instructions of each kernel of the built
            library, counted from `cuobjdump -sass`.
 To compare two checkouts, run it for each in turn in one call (parent,
@@ -69,29 +72,56 @@ def sass_census(lib_path):
     return {k: dict(v) for k, v in census.items()}
 
 
+# the paths profiled (10 iterations, then 2 under torch.profiler); the
+# others train one iteration for their learner's operands
+PROFILED = ("hilo", "int8", "flat", "wide", "wide_int8", "wide_flat")
+# (row name, path whose learner gives the operands, B4 or B1): every
+# instance of B1 and B4, uint8, packed and wide, float and int
+HIST_ROWS = [
+    ("hist_batched", "hilo", False), ("hist_batched_int", "int8", False),
+    ("hist_flat", "flat", True), ("hist_flat_int", "flat_int8", True),
+    ("hist_batched_packed", "packed", False),
+    ("hist_batched_packed_int", "packed_int8", False),
+    ("hist_flat_packed", "packed_flat", True),
+    ("hist_flat_packed_int", "packed_flat_int8", True),
+    ("hist_batched_wide", "wide", False),
+    ("hist_batched_wide_int", "wide_int8", False),
+    ("hist_flat_wide", "wide_flat", True),
+    ("hist_flat_wide_int", "wide_flat_int8", True)]
+
+
+def wide_plan(learner, S, floats, scan=False, flat=False):
+    """chip_smoke's plan fields (cluster, walks, ...) where the package
+    under test has the cluster plan, else {}."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    if not hasattr(H, "call_plan"):
+        return {}
+    return cs._wide_plan(learner, S, floats, scan=scan, flat=flat)
+
+
 def kernel_rows(learners, kernels_of):
-    """B1, B1-int and B4 at phase 4's random and root operands, then B2
-    and B3 at their phase-4 operands: each against its plain twin
-    (float: counts equal and the largest difference; int, B2 and B3:
-    bitwise), timed as phase 4 times it."""
+    """B1 and B4 in every instance at phase 4's random and root
+    operands, B2 (uint8 and wide) at random and root operands and B3:
+    each against its plain twin (float: counts equal and the largest
+    difference; int, B2 and B3: bitwise), timed as phase 4 times it."""
     import torch
     from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.ops import histogram as H
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for name, path, wrapper in (
-            ("hist_batched", "hilo", H.hist_batched_kernel),
-            ("hist_batched_int", "int8", H.hist_batched_kernel),
-            ("hist_flat", "flat", H.hist_flat_kernel)):
+    for name, path, flat in HIST_ROWS:
         learner = learners[path]
+        wrapper = H.hist_flat_kernel if flat else H.hist_batched_kernel
         floats = not name.endswith("_int")
+        pb = learner.packed_block
         for operands in ("random", "root"):
             stats = (cs._hilo_stats(learner, gen)[0] if floats
                      else cs._int8_stats(learner, gen))
             leaf, slots = cs._slots_of(learner, gen, operands)
             args = (learner.bins_t, stats, leaf, slots, learner.num_bins)
-            got = wrapper(*args)
-            ref = H.hist_batched_plain(*args)
+            got = wrapper(*args, packed_block=pb)
+            ref = H.hist_batched_plain(*args, pb)
             if floats:
                 got, ref = (H._unpack_hist(x.permute(3, 2, 0, 1), "hilo")
                             for x in (got, ref))
@@ -100,23 +130,34 @@ def kernel_rows(learners, kernels_of):
                 equal = torch.equal(got, ref)
             yield {"name": name, "operands": operands, "equal": equal,
                    "max_abs_err": float((got - ref).abs().max().item()),
-                   "ms": cs.device_ms(lambda: wrapper(*args), 20,
-                                      kernels_of),
-                   "event_ms": cs.cuda_ms(lambda: wrapper(*args), 20)}
-    row = cs.check_partition(learners["hilo"], gen)  # fails unless bitwise
-    yield {"name": "partition_rows", "operands": "random", "equal": True,
-           "ms": row["ms"], "event_ms": row["event_ms"]}
-    args, kw = cs._fused_operands(learners["int8"], gen)
-    got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
-    ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
-    yield {"name": "fused_hist_scan", "operands": "random",
-           "equal": torch.equal(got[0], ref[0]) and torch.equal(
-               got[1].contiguous().view(torch.int32),
-               ref[1].contiguous().view(torch.int32)),
-           "ms": cs.device_ms(lambda: fused.fused_hist_scan_kernel(
-               *args, split_kw=kw), 20, kernels_of),
-           "event_ms": cs.cuda_ms(lambda: fused.fused_hist_scan_kernel(
-               *args, split_kw=kw), 20)}
+                   **wide_plan(learner, stats.shape[0], floats, flat=flat),
+                   "ms": cs.device_ms(
+                       lambda: wrapper(*args, packed_block=pb), 20,
+                       kernels_of),
+                   "event_ms": cs.cuda_ms(
+                       lambda: wrapper(*args, packed_block=pb), 20)}
+    for path in ("hilo", "wide"):
+        row = cs.check_partition(learners[path], gen)  # fails unless bitwise
+        yield {"name": row["name"], "operands": "random", "equal": True,
+               "ms": row["ms"], "event_ms": row["event_ms"]}
+    for name, path in (("fused_hist_scan", "int8"),
+                       ("fused_hist_scan_wide", "wide_int8")):
+        for operands in ("random", "root"):
+            args, kw = cs._fused_operands(learners[path], gen,
+                                          root=operands == "root")
+            got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
+            ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
+
+            def call():
+                return fused.fused_hist_scan_kernel(*args, split_kw=kw)
+
+            yield {"name": name, "operands": operands,
+                   "equal": torch.equal(got[0], ref[0]) and torch.equal(
+                       got[1].contiguous().view(torch.int32),
+                       ref[1].contiguous().view(torch.int32)),
+                   **wide_plan(learners[path], 3, False, scan=True),
+                   "ms": cs.device_ms(call, 20, kernels_of),
+                   "event_ms": cs.cuda_ms(call, 20)}
 
 
 def main():
@@ -151,15 +192,22 @@ def main():
                 emit("sass", library=name, census=sass_census(
                     str(kernels.BUILD_DIR / name)))
     X, y = cs.make_data(cs.N_TRAIN, cs.N_FEAT)
-    ds = lgb.Dataset(X, label=y, params=dict(cs.PARAMS)).construct()
+    datasets = {}
     learners = {}
-    for name, params, _, _ in cs.PATHS[:3]:
-        booster = lgb.train(dict(params), ds, num_boost_round=cs.ITERS,
+    for name, params, _, _ in cs.PATHS[:12]:
+        if params["max_bin"] not in datasets:
+            datasets[params["max_bin"]] = lgb.Dataset(
+                X, label=y, params=dict(params)).construct()
+        profiled = name in PROFILED
+        booster = lgb.train(dict(params), datasets[params["max_bin"]],
+                            num_boost_round=cs.ITERS if profiled else 1,
                             keep_training_booster=True)
         booster.num_trees()
-        emit("path", path=name, **cs.profile(booster,
-                                             kernels_of=kernels_of))
+        if profiled:
+            emit("path", path=name, **cs.profile(booster,
+                                                 kernels_of=kernels_of))
         learners[name] = booster._driver.learner
+    del datasets
     for row in kernel_rows(learners, kernels_of):
         emit("kernel", **row)
 

@@ -39,7 +39,10 @@
 //
 // Wide bins (int32 bins_t; the TPU kernel reads them at fused.py:148):
 // the histogram phases are B1's WideBins instance (16-bit row-major
-// bins, one tile of bins a block at a time, grouped_hist.cuh).
+// bins, a slot's sums spread over a thread-block cluster, one tile of
+// bins a block, each live row read once per tile group;
+// grouped_hist.cuh), in one launch that is cooperative and clustered at
+// once, so the scan still follows a grid barrier.
 //
 // Rounding: the twin is a sequence of PyTorch elementwise ops, each
 // rounded on its own.  Every product, sum and quotient here is written
@@ -384,6 +387,15 @@ struct ScanTail {
 };
 
 }  // namespace
+
+// Clusters of `cluster` blocks of the wide instance that the card holds
+// at once at threads and smem bytes a block, into out[0] (the plan's
+// grid is at most this many clusters).  Returns a cudaError_t.
+extern "C" int lgbt_fused_clusters(int threads, int smem, int cluster,
+                                   int* out) {
+  return lgbt::query_clusters<int, ScanTail, lgbt::WideBins>(
+      threads, smem, cluster, out);
+}
 
 // One cooperative launch: B1's integer histogram of the K slots into raw
 // ([K][F][BSp] int32, BSp = 3B padded to 4; bins_rm, bins, scratch and

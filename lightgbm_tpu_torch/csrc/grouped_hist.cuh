@@ -39,15 +39,28 @@
 // row-major copy holds 16 bits a bin, so a row of a chunk is 64 bytes
 // (two sectors, four 16-byte loads) and the tile 16 words and a pad an
 // entry; lane f takes halfword f.  One slot's [B][S][32] sums do not fit
-// a block at B > 256 (655,360 bytes of f32 sums at B = 1024), so a
-// block holds one tile of bin_tile bins (the plan's) at a time: phase
-// C's items are (segment x feature chunk x bin tile), the tile fastest,
-// so that the blocks of one segment's tiles run together and its rows'
-// second reads come from L2.  A lane adds only the bins of its item's
-// tile, and the flush writes them at the tile's bin offset of the same
-// [K][F][BSp] output.  Every tile walks its segment's rows again: the
-// bins and stats are read ceil(B / bin_tile) times (4 at max_bin=1023
-// with f32 sums).  The uint8 and packed instances are one tile of B.
+// a block at B > 256 (655,360 bytes of f32 sums at B = 1024), so they
+// are spread over a thread-block cluster of C blocks (the plan's, at
+// most 8), each block holding one tile of bin_tile bins: the cluster
+// holds C tiles, a tile group, which is all of B whenever B fits 8 tiles
+// (max_bin 511 and 1023).  Phase C's items are (segment x feature chunk
+// x tile group), one cluster an item, and the cluster's C x nw warps
+// share the segment's entries: each entry is walked once per tile
+// group, with its gather, its stats shuffle and its bin extraction, and
+// each lane's run of equal bins is added into the shared sums of the
+// block that owns the bin's tile, through distributed shared memory
+// (cluster.map_shared_rank; a native shared add where the owner is the
+// block itself).  Barriers of the cluster (cluster.sync) stand where a
+// block's stood: after the zeroing, before each flush and after it, so
+// that no block adds into sums that are being zeroed or flushed.  Each
+// block flushes its own tile at its bin offset of the same [K][F][BSp]
+// output.  A larger B (up to 65,536) walks the entries once per tile
+// group, ceil(tiles / C) times.  The launch is cooperative and
+// clustered at once (cudaLaunchKernelEx), its grid a multiple of C and
+// no larger than the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters, which knows that GPC boundaries
+// leave some SMs out of clusters).  The uint8 and packed instances are
+// one tile of B, a block alone, and keep the block's barriers.
 //
 // The adds.  int32 sums (int8/int16 stats) use the native shared ATOMS.ADD
 // and global RED.ADD, exact in any order.  An f32 atomicAdd on shared
@@ -63,13 +76,24 @@
 // row.  f32 sums then depend on the order in which the warps' runs and
 // the blocks' flushes arrive: last-bit differences from run to run,
 // within the tolerance stated where the kernel is checked against its
-// plain twin (1e-6 of the slot's sum of |stat|).
+// plain twin (1e-6 of the slot's sum of |stat|).  The wide instances'
+// adds into another block of the cluster go through a generic address
+// of distributed shared memory: a native ATOM.E.ADD for int32 sums and
+// ATOM.E.ADD.F32.FTZ.RN for f32 sums (no compare-and-swap loop), which
+// cost more than a local shared add (probes/cluster_adds.py and
+// PERF.md section 6 give both).  A design that queues those adds in the
+// block's own shared memory and lets the owner drain them after a
+// cluster barrier was measured too (the same probe) and not taken.
 //
 // What bounds it on this card: the bytes, in principle (every leaf id,
 // the bins and stats of the live rows, the output: 3.6 us at 9.4% of 1M
 // rows live, 15 us at the root call).  In practice the dependent loads
 // (list entry, then its row's bins) and the global atomics of the
-// flushes, each block's B x S x 32 words per slot it touched.
+// flushes, each block's B x S x 32 words per slot it touched.  The wide
+// instances: the adds into the other blocks of the cluster, (C - 1) / C
+// of all adds, each lane to its own line of a remote block's shared
+// memory; these take several times the time of the re-reads of the
+// tiled read they replaced (PERF.md section 6).
 
 #pragma once
 
@@ -133,7 +157,9 @@ constexpr int kBF16 = 0, kF32 = 1, kI8 = 2, kI16 = 3;
 // plan fields (ops/histogram.py HistPlan order)
 constexpr int kPlanThreads = 0, kPlanSmem = 1, kPlanChunks = 2,
               kPlanGrid = 3, kPlanSegRows = 4, kPlanTileRows = 5,
-              kPlanBinTile = 6, kPlanFields = 7;
+              kPlanBinTile = 6, kPlanCluster = 7, kPlanFields = 8;
+// blocks of a cluster at most (the portable cluster size)
+constexpr int kMaxCluster = 8;
 
 struct HistArgs {
   const uint8_t* bins_rm;  // [n, FR] row-major bins (FR bytes a row)
@@ -151,6 +177,9 @@ struct HistArgs {
   int bin_tile, tiles;     // bins a block's sums hold; tiles covering B
   int group_only;          // stop after phase B (the tests' entry)
 };
+// (The cluster size is not a field: phase C reads it from the hardware.
+// A 136-byte HistArgs, one int past these 128, made the uint8 and
+// packed instances 5-12% slower at the root call; PERF.md section 6.)
 
 // leaf ids below this find their slot in a table in shared memory; the
 // others compare against the K slot ids
@@ -417,6 +446,32 @@ __device__ __forceinline__ void add_run(Acc* sh, int bin, const Acc* acc,
                          acc[s]);
 }
 
+// Where the wide instances add a lane's runs: a tile group's sums, the
+// bins [b0, b0 + n), bin_tile bins a block of the cluster, block j
+// holding bins [b0 + j * bin_tile, ...) at the same offset of its own
+// shared memory; a run goes to the block that owns its bin, a native
+// shared add where that is this block (rank)
+template <typename Acc>
+struct ClusterSums {
+  Acc* sh;
+  int b0, n, bin_tile, rank;
+  __device__ __forceinline__ void add(int bin, const Acc* acc, int S,
+                                      int f) const {
+    int owner = 0;
+#pragma unroll
+    for (int j = 1; j < kMaxCluster; ++j)
+      if (bin >= bin_tile) {
+        bin -= bin_tile;
+        ++owner;
+      }
+    if (owner == rank)
+      add_run<Acc>(sh, bin, acc, S, f);
+    else
+      add_run<Acc>(cg::this_cluster().map_shared_rank(sh, owner), bin, acc,
+                   S, f);
+  }
+};
+
 // rows [a0, e0) of the grouped list, features [f0, f0 + fc), bins
 // [b0, b0 + nbt).  A warp takes 32 list entries at a time: lane e loads
 // entry e (row index, packed stats) and gathers that row's 32 bins (one
@@ -501,6 +556,91 @@ __device__ void accumulate(const HistArgs& a, Acc* sh, uint32_t* tile,
     __syncwarp();
   }
   if (cur >= 0) add_run<Acc>(sh, cur, acc, S, lane);
+}
+
+// accumulate's walk in the wide instances: rows [a0, e0), features
+// [f0, f0 + fc), the tile group's bins [sums.b0, sums.b0 + sums.n).  The
+// nws warps of the cluster that share the rows take 32 list entries at
+// a time, this one the w0-th 32 of every nws x 32, with accumulate's
+// gather, tile and stats shuffle; each lane's run goes to the block that
+// owns its bin.
+template <typename Acc, class Bins>
+__device__ void accumulate_cluster(const HistArgs& a,
+                                   const ClusterSums<Acc>& sums,
+                                   uint32_t* tile, int a0, int e0, int f0,
+                                   int fc, int w0, int nws) {
+  const int lane = threadIdx.x & 31;
+  const bool feat = lane < fc;
+  constexpr int ts = Bins::kTileStride;
+  constexpr int loads = Bins::kRowBytes / 16;
+  const int word = Bins::word(lane);
+  const int shift = Bins::shift(lane);
+  // the chunk's first byte of a row
+  const long long chunk_byte = static_cast<long long>(f0)
+                               * Bins::kRowBytes / kChunk;
+  const int S = a.S;
+  const unsigned full = 0xffffffffu;
+  // the 32-bit words a row's packed stats fill
+  const int esize = (a.kind == kF32) ? 4 : (a.kind == kI8 ? 1 : 2);
+  const int qwords = (S * esize + 3) / 4;
+  int cur = -1;
+  Acc acc[kMaxS];
+#pragma unroll
+  for (int s = 0; s < kMaxS; ++s) acc[s] = Acc(0);
+  for (int base = a0 + w0 * 32; base < e0; base += nws * 32) {
+    const int i = base + lane;
+    const int cnt = min(32, e0 - base);
+    uint4 my_q = make_uint4(0u, 0u, 0u, 0u);
+    uint4 rb[loads];
+#pragma unroll
+    for (int j = 0; j < loads; ++j) rb[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (i < e0) {
+      const int r = __ldcg(a.rows + i);
+      my_q = __ldcg(a.gstats + i);
+      const uint4* src = reinterpret_cast<const uint4*>(
+          a.bins_rm + static_cast<long long>(r) * a.FR + chunk_byte);
+#pragma unroll
+      for (int j = 0; j < loads; ++j) rb[j] = __ldg(src + j);
+    }
+    uint32_t* t = tile + lane * ts;
+#pragma unroll
+    for (int j = 0; j < loads; ++j) {
+      t[4 * j] = rb[j].x;
+      t[4 * j + 1] = rb[j].y;
+      t[4 * j + 2] = rb[j].z;
+      t[4 * j + 3] = rb[j].w;
+    }
+    __syncwarp();
+    for (int e = 0; e < cnt; ++e) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      q.x = __shfl_sync(full, my_q.x, e);
+      if (qwords > 1) q.y = __shfl_sync(full, my_q.y, e);
+      if (qwords > 2) q.z = __shfl_sync(full, my_q.z, e);
+      if (qwords > 3) q.w = __shfl_sync(full, my_q.w, e);
+      // the bin within the sums' bins
+      const int bin =
+          feat ? static_cast<int>((tile[e * ts + word] >> shift)
+                                  & Bins::kMask) - sums.b0
+               : kNoBin;
+      // not a feature, a bin of another tile group, or a bin past
+      // num_bins
+      if (static_cast<unsigned>(bin) >= static_cast<unsigned>(sums.n))
+        continue;
+      Acc v[kMaxS];
+      unpack_stats<Acc>(q, a.kind, v);
+      if (bin == cur) {
+#pragma unroll
+        for (int s = 0; s < kMaxS; ++s) acc[s] += v[s];
+      } else {
+        if (cur >= 0) sums.add(cur, acc, S, lane);
+        cur = bin;
+#pragma unroll
+        for (int s = 0; s < kMaxS; ++s) acc[s] = v[s];
+      }
+    }
+    __syncwarp();
+  }
+  if (cur >= 0) sums.add(cur, acc, S, lane);
 }
 
 // the block's sums of slot k, bins [b0, b0 + nbt), into raw (and into
@@ -618,6 +758,62 @@ __device__ void phase_hist(const HistArgs& a, const Persist& p, Acc* sh) {
   }
 }
 
+// ---- phase C of the wide instances: one item a cluster ----
+// The grid's clusters are its blocks in order, C at a time (a 1-D
+// cluster), so cluster blockIdx.x / C takes items cid, cid + NC, ...;
+// every block of a cluster takes the same items and slots, so they all
+// reach the same cluster barriers.  Block rank holds the sums of tile
+// g * C + rank of tile group g (none past the last tile).
+template <typename Acc, class Bins>
+__device__ void phase_hist_cluster(const HistArgs& a, const Persist& p,
+                                   Acc* sh) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = a.K;
+  const int words = a.bin_tile * a.S * Layout<Acc>::kStride;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) sh[i] = Acc(0);
+  uint32_t* tiles = reinterpret_cast<uint32_t*>(sh + words);
+  // no block adds into a peer's sums before the peer has zeroed them
+  cluster.sync();
+  const int m = p.off[K];
+  if (m == 0) return;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int NC = gridDim.x / C, cid = blockIdx.x / C;
+  // tile groups: the walks of each entry
+  const int walks = (a.tiles + C - 1) / C;
+  // rows an item takes: at least seg_rows, and few enough that the
+  // clusters share the m rows x chunks x tile groups
+  const int R = static_cast<int>(
+      max(static_cast<long long>(a.seg_rows),
+          (static_cast<long long>(m) * a.chunks * walks + NC - 1) / NC));
+  const int nr = (m + R - 1) / R;
+  const int items = nr * a.chunks * walks;
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  for (int t = cid; t < items; t += NC) {
+    // the tile group fastest, then the segment, then the feature chunk
+    const int g = t % walks, rest = t / walks;
+    const int c = rest / nr, i = rest % nr;
+    const int lo = i * R, hi = min(m, lo + R);
+    const int f0 = c * kChunk, fc = min(kChunk, a.F - f0);
+    const int gb0 = g * C * a.bin_tile;
+    const ClusterSums<Acc> sums{sh, gb0, min(C * a.bin_tile, a.B - gb0),
+                                a.bin_tile, rank};
+    const int b0 = gb0 + rank * a.bin_tile, nbt = min(a.bin_tile, a.B - b0);
+    for (int k = 0; k < K; ++k) {
+      const int s0 = max(lo, p.off[k]), e0 = min(hi, p.off[k + 1]);
+      if (s0 >= e0) continue;
+      // the cluster's C x nw warps share the slot's entries
+      accumulate_cluster<Acc, Bins>(a, sums,
+                                    tiles + warp * 32 * Bins::kTileStride,
+                                    s0, e0, f0, fc, rank * nw + warp,
+                                    C * nw);
+      cluster.sync();
+      if (nbt > 0) flush<Acc>(a, p, sh, k, f0, fc, b0, nbt);
+      cluster.sync();
+    }
+  }
+}
+
 // The kernel: phases A, B, C and, for B2, the tail (the split scan).
 // Tail::run(args, tail_args) runs after a last grid barrier.  Bins: the
 // layout of the row-major bins (U8Bins, PackedBins or WideBins).
@@ -637,7 +833,10 @@ __global__ void __launch_bounds__(kMaxThreads)
               reinterpret_cast<const unsigned char*>(tab));
   if (a.group_only) return;
   grid.sync();
-  phase_hist<Acc, Bins>(a, p, reinterpret_cast<Acc*>(un));
+  if constexpr (Bins::kCode == WideBins::kCode)
+    phase_hist_cluster<Acc, Bins>(a, p, reinterpret_cast<Acc*>(un));
+  else
+    phase_hist<Acc, Bins>(a, p, reinterpret_cast<Acc*>(un));
   if constexpr (Tail::kRuns) {
     grid.sync();
     Tail::run(a, t);
@@ -653,22 +852,84 @@ struct NoTail {
 // kernel B4's instances: NoTail under a name of their own
 struct Flat : NoTail {};
 
-// Launch one call: plan[] from the wrapper (ops/histogram.py:hist_plan).
+// A refusal is returned to the caller, which raises; it must not stay
+// behind as the runtime's last error, where a later launch's check
+// (cudaGetLastError) would report it as its own.
+inline int returned(int err) {
+  if (err != 0) cudaGetLastError();
+  return err;
+}
+
+// the kernel's dynamic shared memory raised to smem bytes where it is
+// lower, with all of the SM's unified L1/shared storage as shared
+// memory, so that the plan's blocks per SM fit
+inline cudaError_t allow_smem(const void* fn, int smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess || attr.maxDynamicSharedSizeBytes >= smem)
+    return err;
+  err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>(cudaSharedmemCarveoutMaxShared));
+}
+
+// clusters of `cluster` blocks of the instance that the card holds at
+// once, at threads and smem bytes a block (the wide plan's grid is at
+// most this many clusters)
 template <typename Acc, class Tail, class Bins>
-inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
-                          cudaStream_t st) {
+inline int resident_clusters(int threads, int smem, int cluster, int* out) {
+  auto* fn = grouped_hist_kernel<Acc, Tail, Bins>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(fn), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  *out = 0;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, fn, &cfg));
+}
+
+// the above, for the C entry points
+template <typename Acc, class Tail, class Bins>
+inline int query_clusters(int threads, int smem, int cluster, int* out) {
+  return returned(resident_clusters<Acc, Tail, Bins>(threads, smem, cluster,
+                                                     out));
+}
+
+// Launch one call: plan[] from the wrapper (ops/histogram.py:hist_plan).
+// The wide instances launch cooperative and clustered at once
+// (cudaLaunchKernelEx with both attributes); the others cooperative, a
+// block alone.  A plan the card cannot hold is refused, never shrunk.
+template <typename Acc, class Tail, class Bins>
+inline int launch_grouped_once(HistArgs a, typename Tail::Args t,
+                               const int* plan, cudaStream_t st) {
+  constexpr bool kWide = Bins::kCode == WideBins::kCode;
   const int threads = plan[kPlanThreads];
   const int smem = plan[kPlanSmem];
   const int grid = plan[kPlanGrid];
   const int bin_tile = plan[kPlanBinTile];
-  // a tile starts 16-byte aligned in raw (flush's f32 atomics)
-  if (bin_tile < 1 || (bin_tile < a.B && bin_tile % 4 != 0))
+  const int cluster = plan[kPlanCluster];
+  // a tile starts 16-byte aligned in raw (flush's f32 atomics); a
+  // cluster is portable and tiles the grid; only wide bins cluster
+  if (bin_tile < 1 || (bin_tile < a.B && bin_tile % 4 != 0) || cluster < 1
+      || cluster > kMaxCluster || (!kWide && cluster != 1)
+      || grid % cluster != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* fn = grouped_hist_kernel<Acc, Tail, Bins>;
   // the function attributes and the resident-grid check, once per device
-  // and shared-memory size (they cost host time on every call otherwise)
+  // and geometry (they cost host time on every call otherwise)
   struct Checked {
-    int smem = -1, threads = 0, set = 0, max_grid = 0;
+    int smem = -1, threads = 0, cluster = 0, max_grid = 0;
   };
   static Checked checked[16];
   int dev = 0;
@@ -676,27 +937,26 @@ inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 16) return static_cast<int>(cudaErrorInvalidDevice);
   Checked& c = checked[dev];
-  if (c.smem != smem || c.threads != threads) {
-    if (smem > c.set) {
-      err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (c.smem != smem || c.threads != threads || c.cluster != cluster) {
+    if constexpr (kWide) {
+      int n = 0;
+      const int e = resident_clusters<Acc, Tail, Bins>(threads, smem,
+                                                       cluster, &n);
+      if (e != 0) return e;
+      c.max_grid = n * cluster;
+    } else {
+      err = allow_smem(reinterpret_cast<const void*>(fn), smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      // all of the SM's unified L1/shared storage as shared memory, so
-      // that the plan's blocks per SM fit
-      err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-          static_cast<int>(cudaSharedmemCarveoutMaxShared));
+      int sms = 0, per_sm = 0;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                          threads, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      c.set = smem;
+      c.max_grid = per_sm * sms;
     }
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
-                                                        threads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    c.max_grid = per_sm * sms;
     c.smem = smem;
     c.threads = threads;
+    c.cluster = cluster;
   }
   // a cooperative grid must be resident at once
   if (grid < 1 || grid > c.max_grid)
@@ -706,12 +966,35 @@ inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
   a.tile_rows = plan[kPlanTileRows];
   a.bin_tile = bin_tile;
   a.tiles = (a.B + bin_tile - 1) / bin_tile;
-  void* args[] = {&a, &t};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                    dim3(grid),
-                                    dim3(threads), args,
-                                    static_cast<size_t>(smem), st);
+  if constexpr (kWide) {
+    cudaLaunchAttribute at[2];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = cluster;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    at[1].id = cudaLaunchAttributeCooperative;
+    at[1].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = st;
+    cfg.attrs = at;
+    cfg.numAttrs = 2;
+    err = cudaLaunchKernelEx(&cfg, fn, a, t);
+  } else {
+    void* args[] = {&a, &t};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                      dim3(grid), dim3(threads), args,
+                                      static_cast<size_t>(smem), st);
+  }
   return static_cast<int>(err);
+}
+
+template <typename Acc, class Tail, class Bins>
+inline int launch_grouped(HistArgs a, typename Tail::Args t, const int* plan,
+                          cudaStream_t st) {
+  return returned(launch_grouped_once<Acc, Tail, Bins>(a, t, plan, st));
 }
 
 }  // namespace lgbt

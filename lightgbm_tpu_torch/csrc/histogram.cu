@@ -37,9 +37,12 @@
 // Wide bins (int32 bins_t, more than 256 bins a feature; the TPU kernels
 // read them through _hist_pallas's per-dtype chunk table, histogram.py:
 // 569, and the flat one-hot, :541): B1's and B4's WideBins instances,
-// reading a 16-bit row-major copy and holding one tile of bins a block
-// at a time (grouped_hist.cuh).  Bound as above, with the bins at 2
-// bytes a feature; each bin tile re-reads its rows' bins and stats.
+// reading a 16-bit row-major copy, a slot's sums spread over a
+// thread-block cluster, one tile of bins a block, so that each live
+// row's bins and stats are read once per tile group (once at max_bin
+// 511 and 1023) and its adds go to the tile's block through distributed
+// shared memory (grouped_hist.cuh).  Bound as above, with the bins at 2
+// bytes a feature.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,6 +85,25 @@ int launch_variant(const lgbt::HistArgs& a, bool ints, int bins,
 }
 
 }  // namespace
+
+// Clusters of `cluster` blocks of the wide instance of B1 (flat = 0) or
+// B4 (flat = 1), int32 sums (ints) or f32, that the card holds at once
+// at threads and smem bytes a block, into out[0]: the plan's grid is at
+// most this many clusters.  Returns a cudaError_t.
+extern "C" int lgbt_hist_clusters(int ints, int flat, int threads, int smem,
+                                  int cluster, int* out) {
+  using lgbt::query_clusters;
+  using lgbt::WideBins;
+  if (flat)
+    return ints ? query_clusters<int, lgbt::Flat, WideBins>(
+                      threads, smem, cluster, out)
+                : query_clusters<float, lgbt::Flat, WideBins>(
+                      threads, smem, cluster, out);
+  return ints ? query_clusters<int, lgbt::NoTail, WideBins>(
+                    threads, smem, cluster, out)
+              : query_clusters<float, lgbt::NoTail, WideBins>(
+                    threads, smem, cluster, out);
+}
 
 // bins_rm: [n, FR] row-major bins, FR bytes a row; bins: the layout
 // (0: bytes, B <= 256; 1: two 4-bit bins a byte, B <= 16; 2: 16-bit

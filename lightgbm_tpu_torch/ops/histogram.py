@@ -41,16 +41,18 @@ twin unpacks and runs the unpacked twin.
 Wide bins (more than 256 bins in a feature, `max_bin>255`): the learner
 stores `[F, n]` int32, as the JAX learner does.  B1 and B4 then read a
 16-bit row-major copy (64 bytes a row of a 32-feature chunk, 64.5 MB at
-1M rows) and hold the sums of one tile of bins at a time (`hist_plan`'s
-`bin_tile`): each tile walks the rows again.  The twin takes the int32
-matrix as it is.
+1M rows) and spread a slot's sums over a thread-block cluster of
+`hist_plan`'s `cluster` blocks, `bin_tile` bins a block, so that each
+row is walked once per tile group (`plan_walks`: once whenever B fits 8
+tiles); `cluster_schedule` is the plain model of that schedule.  The
+twin takes the int32 matrix as it is.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -304,6 +306,9 @@ def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
 
 # shared memory the CUDA runtime reserves for each resident block
 _SMEM_PER_BLOCK_RESERVED = 1024
+# blocks of a thread-block cluster at most: the portable cluster size
+# (grouped_hist.cuh kMaxCluster)
+MAX_CLUSTER = 8
 _MAX_STATS_BYTES = 16      # one row's packed stats: one 16-byte load
 
 
@@ -317,6 +322,7 @@ class HistPlan(NamedTuple):
     seg_rows: int         # least rows of the grouped list a block takes
     tile_rows: int        # rows whose leaf ids each block groups
     bin_tile: int         # bins whose sums a block holds at a time
+    cluster: int          # blocks of a thread-block cluster (wide bins)
     scratch_words: int    # int32 words of scratch the call needs
 
 
@@ -383,7 +389,9 @@ def _wide_tiles(K: int, B: int, S: int, threads: int, scan: bool,
 def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
               smem_max: int, smem_sm: int, scan: bool = False,
               floats: bool = False, packed: bool = False,
-              wide: bool = False) -> HistPlan:
+              wide: bool = False,
+              resident: Optional[Callable[[int, int, int], int]] = None
+              ) -> HistPlan:
     """Geometry of kernel B1 (and of B2's histogram phases).
 
     Features go in chunks of 32, one per lane, so one slot's [B, S, 32]
@@ -398,23 +406,35 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
     most and each warp's bins tile 5 words an entry, not 9; the block
     geometry is the same (registers, not shared memory, hold a 512-thread
     block to two per SM: __launch_bounds__(1024) lets a thread 64).
+    These plans have clusters of one block.
 
     wide: the bins are 16-bit (B up to MAX_WIDE_BINS), each warp's bins
-    tile 17 words an entry, and a block holds the sums of `bin_tile`
-    bins at a time, walking its rows once for each of the
-    ceil(B / bin_tile) tiles.  Of 512 threads two to an SM, 512 alone
-    and 1024 alone, the plan takes the one with the fewest tiles per
-    block an SM holds, then the most threads on an SM (at S = 5 and
-    B = 1023 on an H100: 512 threads alone, 4 tiles of 256 bins; 1024
-    threads would need 5 tiles: their bins tiles leave room for 252
-    bins' f32 sums, not 256)."""
+    tile 17 words an entry, and a slot's sums are spread over a cluster
+    of `cluster` blocks, each holding `bin_tile` bins (a tile): the
+    cluster holds a tile group, and each list entry is walked once per
+    tile group (`plan_walks`).  For each of 512 threads two to an SM,
+    512 alone and 1024 alone, the plan cuts B into the fewest balanced
+    tiles whose sums fit the block, and takes C = ceil(tiles / walks)
+    blocks a cluster, walks = ceil(tiles / MAX_CLUSTER), so that C <= 8
+    and the tile groups are even.  It keeps the geometry with the fewest
+    walks, then the most threads resident, then the smallest C (fewer
+    adds go to another block).  resident(threads, smem, C) is the number
+    of such clusters the card holds at once (the occupancy query of the
+    kernel's instance, which knows that GPC boundaries leave some SMs out
+    of clusters; required for wide), and the grid is that many clusters,
+    C blocks each.  At S = 5 and B = 1024 on an H100 each entry is
+    walked once: 1024 threads alone, 5 tiles of 208 bins, C = 5."""
     top = MAX_WIDE_BINS if wide else (16 if packed else 256)
     if not (1 <= S <= 5 and 1 <= K < 255 and 1 <= B <= top
             and F >= 1 and n >= 1 and sms >= 1) or (packed and wide):
         raise ValueError(f"no histogram plan for F={F}, K={K}, S={S}, "
                          f"B={B}, n={n}, sms={sms}")
     chunks = -(-F // 32)
+    cluster = 1
     if wide:
+        if resident is None:
+            raise ValueError("a wide plan needs the clusters the card "
+                             "holds at once (resident)")
         best = None
         for threads, per_sm in ((512, 2), (512, 1), (1024, 1)):
             limit = min(smem_max,
@@ -422,14 +442,22 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
             fit = _wide_tiles(K, B, S, threads, scan, floats, limit)
             if fit is None:
                 continue
-            key = (fit[0] / per_sm, -threads * per_sm, fit[0])
+            bin_tile = fit[1]
+            tiles = -(-B // bin_tile)
+            walks = -(-tiles // MAX_CLUSTER)
+            c = -(-tiles // walks)
+            smem = _smem_bytes(K, bin_tile, S, threads, scan, floats,
+                               wide=True)
+            held = resident(threads, smem, c)
+            if held < 1:
+                continue
+            key = (walks, -held * c * threads, c)
             if best is None or key < best[0]:
-                best = (key, threads, per_sm, fit[1])
+                best = (key, threads, smem, bin_tile, c, held * c)
         if best is None:
             raise ValueError(f"no bin tile of the wide histogram fits "
                              f"the card's {smem_max} bytes a block")
-        _, threads, per_sm, bin_tile = best
-        smem = _smem_bytes(K, bin_tile, S, threads, scan, floats, wide=True)
+        _, threads, smem, bin_tile, cluster, grid = best
     else:
         bin_tile = B
         small = _smem_bytes(K, B, S, 512, scan, floats, packed)
@@ -438,10 +466,10 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
         else:
             threads, per_sm = 1024, 1
             smem = _smem_bytes(K, B, S, threads, scan, floats, packed)
+        grid = sms * per_sm
     if smem > smem_max or smem + _SMEM_PER_BLOCK_RESERVED > smem_sm:
         raise ValueError(f"the histogram needs {smem} bytes of shared "
                          f"memory; the card gives a block {smem_max}")
-    grid = sms * per_sm
     # rows of the grouped list that a block takes at least: fewer rows a
     # block spread a small call over more blocks, each flushing up to
     # B x S x 32 sums
@@ -453,7 +481,72 @@ def hist_plan(F: int, K: int, S: int, B: int, n: int, sms: int,
     # [n] uint4 packed stats, [n] rows, [K, grid] counts, [K+1] offsets
     scratch = 4 * n + n + grid * K + K + 1
     return HistPlan(threads, smem, chunks, grid, seg_rows, tile, bin_tile,
-                    scratch)
+                    cluster, scratch)
+
+
+def plan_walks(plan: HistPlan, B: int) -> int:
+    """Walks of each grouped-list entry per (segment, feature chunk): the
+    tile groups, ceil(tiles / cluster) (1 but for wide bins past 8
+    tiles)."""
+    tiles = -(-B // plan.bin_tile)
+    return -(-tiles // plan.cluster)
+
+
+def cluster_schedule(offsets, F: int, B: int, bins, plan: HistPlan):
+    """Plain model of phase C's schedule in the wide instances
+    (grouped_hist.cuh phase_hist_cluster, with the same formulas): the
+    items (segment x chunk x tile group) over the grid's clusters, the
+    shares of a slot's entries over a cluster's C x nw warps (32 entries
+    a warp at a time), and each lane's owner block (ClusterSums::add).
+    offsets: the [K + 1] slot offsets of the grouped list; bins: [m, F]
+    ints, entry e's bin of feature f.  Returns (adds, tile, walked):
+    [m, F] the adds each (entry, feature) got and the tile whose block
+    took the last of them (-1: none), and [m, chunks] the walks of each
+    entry in each chunk."""
+    offsets = [int(o) for o in offsets]
+    bins = np.asarray(bins, dtype=np.int64)
+    K, m = len(offsets) - 1, offsets[-1]
+    C, bt, nw = plan.cluster, plan.bin_tile, plan.threads // 32
+    NC = plan.grid // C
+    walks = plan_walks(plan, B)
+    adds = np.zeros((m, F), np.int64)
+    tile = np.full((m, F), -1, np.int64)
+    walked = np.zeros((m, plan.chunks), np.int64)
+    if m == 0:
+        return adds, tile, walked
+    R = max(plan.seg_rows, -(-m * plan.chunks * walks // NC))
+    nr = -(-m // R)
+    items = nr * plan.chunks * walks
+    for cid in range(NC):
+        for t in range(cid, items, NC):
+            g, rest = t % walks, t // walks
+            c, i = rest // nr, rest % nr
+            lo, hi = i * R, min(m, i * R + R)
+            f0, fc = 32 * c, min(32, F - 32 * c)
+            gb0 = g * C * bt
+            n = min(C * bt, B - gb0)
+            for k in range(K):
+                s0, e0 = max(lo, offsets[k]), min(hi, offsets[k + 1])
+                if s0 >= e0:
+                    continue
+                for rank in range(C):
+                    # warp rank * nw + w takes the w0-th 32 entries of
+                    # every C * nw * 32
+                    idx = np.arange(s0, e0)
+                    w0 = ((idx - s0) // 32) % (C * nw)
+                    idx = idx[w0 // nw == rank]
+                    walked[idx, c] += 1
+                    b = bins[idx, f0:f0 + fc] - gb0
+                    ok = (b >= 0) & (b < n)
+                    owner = np.zeros_like(b)
+                    for _ in range(1, MAX_CLUSTER):
+                        over = b >= bt
+                        b = np.where(over, b - bt, b)
+                        owner += over
+                    e, f = np.nonzero(ok)
+                    adds[idx[e], f0 + f] += 1
+                    tile[idx[e], f0 + f] = g * C + owner[e, f]
+    return adds, tile, walked
 
 
 @functools.lru_cache(maxsize=None)
@@ -522,26 +615,55 @@ def group_rows_plain(leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor):
     return rows.to(torch.int32), offsets
 
 
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, scan: bool, ints: bool, flat: bool,
+                       threads: int, smem: int, cluster: int) -> int:
+    """Clusters of the wide instance of B1, B4 (flat) or B2 (scan) that
+    the card holds at once at this geometry: the occupancy query of the
+    kernel itself."""
+    out = (ctypes.c_int * 1)()
+    lib = kernels.library()
+    with torch.cuda.device(index):
+        code = (lib.lgbt_fused_clusters(threads, smem, cluster, out) if scan
+                else lib.lgbt_hist_clusters(int(ints), int(flat), threads,
+                                            smem, cluster, out))
+    kernels.check(code, "resident clusters")
+    return out[0]
+
+
+def call_plan(bins_t, S: int, n: int, K: int, num_bins: int, floats: bool,
+              scan: bool = False, packed_block: int = 0,
+              flat: bool = False) -> HistPlan:
+    """The plan of one call of B1, B4 (flat) or B2 (scan) on the card
+    that holds bins_t: its limits, and for wide bins the clusters that
+    card holds of the instance the call launches."""
+    index = bins_t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    code, _ = bins_layout(bins_t, packed_block)
+    resident = functools.partial(_resident_clusters, index, scan,
+                                 not floats, flat)
+    return hist_plan(bins_t.shape[0], K, S, int(num_bins), n,
+                     *_device_limits(index), scan=scan, floats=floats,
+                     packed=code == BINS_PACKED, wide=code == BINS_WIDE,
+                     resident=resident)
+
+
 def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
-                  scan: bool = False, packed_block: int = 0):
+                  scan: bool = False, packed_block: int = 0,
+                  flat: bool = False):
     """Row-major bins, plan, scratch and ctypes plan of one call."""
-    F = bins_t.shape[0]
     S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     if S * stats.element_size() > _MAX_STATS_BYTES:
         raise ValueError(f"{S} {stats.dtype} stat rows exceed the kernel's "
                          f"{_MAX_STATS_BYTES} bytes a row")
     rows = row_major_bins(bins_t, packed_block)
-    index = bins_t.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    code, _ = bins_layout(bins_t, packed_block)
-    plan = hist_plan(F, K, S, int(num_bins), n, *_device_limits(index),
-                     scan=scan, floats=stats.is_floating_point(),
-                     packed=code == BINS_PACKED, wide=code == BINS_WIDE)
+    plan = call_plan(bins_t, S, n, K, num_bins, stats.is_floating_point(),
+                     scan, packed_block, flat)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=bins_t.device)
-    return rows, plan, scratch, (ctypes.c_int * 7)(*plan[:7])
+    return rows, plan, scratch, (ctypes.c_int * 8)(*plan[:8])
 
 
 def _raw_buffer(K, F, B, S, dtype, device):
@@ -563,7 +685,8 @@ def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
     S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     rows, plan, scratch, cplan = _grouped_call(
-        bins_t, stats, slot_leaf_ids, num_bins, packed_block=packed_block)
+        bins_t, stats, slot_leaf_ids, num_bins, packed_block=packed_block,
+        flat=flat)
     raw = _raw_buffer(K, F, int(num_bins), S, _acc_dtype(stats),
                       bins_t.device)
     with torch.cuda.device(bins_t.device):

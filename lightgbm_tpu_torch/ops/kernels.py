@@ -144,6 +144,10 @@ def library() -> ctypes.CDLL:
                                       i32, i64, i32, i32, i32, ip, i32, i32,
                                       vp]
     lib.lgbt_hist_batched.restype = i32
+    lib.lgbt_hist_clusters.argtypes = [i32, i32, i32, i32, i32, ip]
+    lib.lgbt_hist_clusters.restype = i32
+    lib.lgbt_fused_clusters.argtypes = [i32, i32, i32, ip]
+    lib.lgbt_fused_clusters.restype = i32
     lib.lgbt_fused_hist_scan.argtypes = [vp, i32, i32, vp, i32, *[vp] * 9,
                                          i32, i64, i32, i32, ip,
                                          *[f32] * 6, vp]

@@ -56,6 +56,8 @@ def test_hist_plan_fits_and_covers(case):
     # packed stats, rows, [K, grid] counts, [K + 1] offsets
     assert p.scratch_words == 5 * n + p.grid * K + K + 1
     assert p.seg_rows == 512
+    # a block alone: only the wide plans cluster
+    assert p.cluster == 1 and p.bin_tile == B
 
 
 def test_hist_plan_chunks_features_too_large_for_a_block():

@@ -694,6 +694,11 @@ WIDE_CASES = [
     ("f40_b4096", 40, 20000, 4096, 10, [1, 4, -1, 7]),
     # every row in slot 0: the root call
     ("root", 28, 1 << 17, 1023, 1, [0] + [-1] * 24),
+    # more tiles than a cluster holds: each entry walked once per tile
+    # group, a duplicated slot
+    ("b16384", 8, 30000, 16384, 6, [2, 5, -1, 2]),
+    # and the root call there
+    ("root_b16384", 8, 30000, 16384, 1, [0, -1]),
 ]
 
 
@@ -753,14 +758,19 @@ def test_hist_kernel_wide_bins_past_num_bins_add_nothing():
 
 
 @pytest.mark.parametrize("precision", ["int8", "int16"])
-@pytest.mark.parametrize("F,n,B,K,dead", [
-    (32, 1 << 17, 1023, 25, (7, 24)),
-    (6, 3000, 300, 3, (1,)),
-    (8, 1 << 15, 4096, 4, ()),
+@pytest.mark.parametrize("F,n,B,K,dead,root", [
+    (32, 1 << 17, 1023, 25, (7, 24), False),
+    (6, 3000, 300, 3, (1,), False),
+    (8, 1 << 15, 4096, 4, (), False),
+    # more tiles than a cluster holds, and the root call there and at
+    # max_bin=1023
+    (8, 30000, 16384, 4, (), False),
+    (8, 30000, 16384, 1, (), True),
+    (28, 1 << 17, 1023, 1, (), True),
 ])
-def test_fused_kernel_wide_bitwise(precision, F, n, B, K, dead):
+def test_fused_kernel_wide_bitwise(precision, F, n, B, K, dead, root):
     dev = cuda_device()
-    case, kw = fused_case(14, F, n, B, K, precision, dead)
+    case, kw = fused_case(14, F, n, B, K, precision, dead, root=root)
     assert case["bins"].dtype == np.int32
     ops = fused_args(case, B, precision, dev)
     before = kernels.launches["fused_hist_scan_wide"]
@@ -771,6 +781,44 @@ def test_fused_kernel_wide_bitwise(precision, F, n, B, K, dead):
     assert (ref[1][..., 0] > 0).any()
     # some feature's best threshold lies past the first 256-bin tile
     assert (ref[1][..., 1][ref[1][..., 0] > 0] > 255).any()
+
+
+@pytest.mark.parametrize("bad", ["grid_past_resident", "smem_past_card",
+                                 "cluster_past_portable"])
+def test_wide_launch_refused_raises(bad, monkeypatch):
+    """A wide launch that the card (or the launcher's own check) refuses
+    raises through kernels.check: no tiled read, no twin, no launch
+    counted."""
+    dev = cuda_device()
+    args = _wide(_int_hist_inputs(dev, 17, 8, 20000, 1023, 6, [0, 2, 4],
+                                  "int8"), 1023)
+    plan_of = TH.hist_plan
+
+    def bad_plan(*a, **k):
+        p = plan_of(*a, **k)
+        assert p.cluster > 1
+        if bad == "grid_past_resident":
+            return p._replace(grid=p.grid + p.cluster)
+        if bad == "smem_past_card":
+            return p._replace(smem=TH._device_limits(dev.index)[1] + 1024)
+        return p._replace(cluster=16, grid=16 * max(1, p.grid // 16))
+
+    monkeypatch.setattr(TH, "hist_plan", bad_plan)
+    before = dict(kernels.launches)
+    for kernel in (TH.hist_batched_kernel, TH.hist_flat_kernel):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernel(*args, 1023)
+    assert kernels.launches == before
+    monkeypatch.undo()
+    # and the card still takes the planned launch; a later launch that
+    # checks the runtime's last error does not find the refusal there
+    got = TH.hist_batched_kernel(*args, 1023)
+    assert torch.equal(got, TH.hist_batched_plain(*args, 1023))
+    from lightgbm_tpu_torch.ops import leafsum as TL
+    leaf = torch.arange(64, dtype=torch.int32, device=dev) % 5
+    vals = torch.ones((2, 64), device=dev)
+    assert torch.equal(TL.leaf_sums_kernel(leaf, vals, 5).cpu(),
+                       TL.leaf_sums_plain(leaf.cpu(), vals.cpu(), 5))
 
 
 def test_fused_probe_wide_passes():

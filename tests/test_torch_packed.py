@@ -100,6 +100,7 @@ def test_packed_plan_counts_smaller_tiles():
                               packed=True)
         assert packed.smem <= full.smem
         assert packed._replace(smem=0) == full._replace(smem=0)
+        assert packed.cluster == full.cluster == 1
     # the int32 sums' block: the bins tiles set its size
     assert TH._smem_bytes(25, 16, 3, 512, False, False, packed=True) \
         == TH._smem_bytes(25, 16, 3, 512, False, False) - 4 * 16 * 32 * 4

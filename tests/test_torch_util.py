@@ -30,7 +30,7 @@ def binary_data(n=2000, f=6, seed=0, nan_frac=0.05, zero_frac=0.0):
 
 
 def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
-               mds=0.0, min_data=5.0, bag=0.0, bins=None):
+               mds=0.0, min_data=5.0, bag=0.0, bins=None, root=False):
     """Seeded numpy operands of the grow megakernel (B2): quantized
     stats, leaf ids, K slots (some dead), parent histograms, the ctx rows
     with both sibling choices and consistent child totals, mixed missing
@@ -38,7 +38,8 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     (bagged operands) about that share of the rows has zero stats and
     of the features is masked, drawn from a generator of their own.
     The bins are uint8 up to 256 bins and int32 (wide) above; `bins`
-    ([F, n]) replaces the random ones.
+    ([F, n]) replaces the random ones.  root: every row in slot 0 (the
+    root call).
     Returns (dict of arrays, split_kw)."""
     import torch
 
@@ -61,6 +62,8 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     bins = (drawn if bins is None else np.asarray(bins)).astype(
         np.uint8 if B <= 256 else np.int32)
     leaf = rng.integers(0, leaves, size=n).astype(np.int32)
+    if root:
+        leaf[:] = slots[0]
     small = TH._unpack_hist(TH.hist_batched_plain(
         torch.from_numpy(bins), torch.from_numpy(stats),
         torch.from_numpy(leaf), torch.from_numpy(slots), B)

@@ -32,6 +32,14 @@ from .test_torch_util import (FUSED_KEYS, assert_trees_match, binary_data,
 
 # NVIDIA H100 SXM: SMs, opt-in shared memory of a block, of an SM
 H100 = (132, 232448, 233472)
+# a model of the clusters such a card holds at once: its SMs in GPCs of
+# 16 and 18, a cluster inside one GPC (the plan asks the card itself)
+H100_GPCS = [16] * 6 + [18] * 2
+
+
+def h100_resident(threads, smem, cluster):
+    per_sm = min(2048 // threads, H100[2] // (smem + 1024))
+    return sum(g * per_sm // cluster for g in H100_GPCS)
 
 
 def _text(text):
@@ -311,7 +319,7 @@ def test_binary_hilo_trees_match_jax():
 
 # ---- 6. the plan and the auto rule ------------------------------------------
 
-@pytest.mark.parametrize("B", [257, 1024, 4096, 65536])
+@pytest.mark.parametrize("B", [257, 511, 1024, 4096, 16384, 65536])
 @pytest.mark.parametrize("K", [1, 25, 254])
 @pytest.mark.parametrize("S", [3, 5])
 def test_wide_plan_fits_and_tiles_cover(S, K, B):
@@ -319,11 +327,19 @@ def test_wide_plan_fits_and_tiles_cover(S, K, B):
     floats = S == 5
     for scan in ((False, True) if not floats else (False,)):
         p = TH.hist_plan(32, K, S, B, 1 << 20, sms, smem_max, smem_sm,
-                         scan=scan, floats=floats, wide=True)
-        per_sm = p.grid // sms
-        assert p.grid == per_sm * sms and per_sm in (1, 2)
+                         scan=scan, floats=floats, wide=True,
+                         resident=h100_resident)
+        per_sm = min(2048 // p.threads, smem_sm // (p.smem + 1024))
+        assert per_sm in (1, 2)
         assert p.smem <= smem_max and per_sm * (p.smem + 1024) <= smem_sm
-        # a tile's sums and the warps' 17-word bins tiles fit the block
+        # a portable cluster that tiles the grid, and no more clusters
+        # than the card holds at once
+        assert 1 <= p.cluster <= TH.MAX_CLUSTER
+        assert p.grid % p.cluster == 0
+        assert p.grid == p.cluster * h100_resident(p.threads, p.smem,
+                                                   p.cluster)
+        # each of the C blocks holds a tile's sums and the warps' 17-word
+        # bins tiles, as a block alone did
         assert 4 * (p.bin_tile * S * (32 if floats else 33)
                     + p.threads * 17) <= p.smem
         # the tiles cover [0, B) once, each starting 16-byte aligned
@@ -331,8 +347,53 @@ def test_wide_plan_fits_and_tiles_cover(S, K, B):
         starts = [t * p.bin_tile for t in range(tiles)]
         assert starts[-1] < B <= starts[-1] + p.bin_tile
         assert all(s * S % 4 == 0 for s in starts)
+        # the entries are walked once per tile group: once while B fits
+        # 8 tiles (max_bin 511 and 1023), and C is no larger than the
+        # tiles need
+        walks = TH.plan_walks(p, B)
+        assert walks == -(-tiles // p.cluster) == -(-tiles // 8)
+        assert p.cluster == -(-tiles // walks)
+        if B <= 1024:
+            assert walks == 1 and p.cluster == tiles
     with pytest.raises(ValueError):
         TH.hist_plan(32, K, S, B, 1000, *H100, floats=floats)
+    # a wide plan needs the card's answer
+    with pytest.raises(ValueError):
+        TH.hist_plan(32, K, S, B, 1000, *H100, floats=floats, wide=True)
+
+
+def _schedule_case(seed, K, m, F):
+    """[K + 1] offsets of m grouped entries (a few slots empty)."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(0, m + 1, size=K - 1))
+    if K > 2:
+        cuts[K // 2] = cuts[K // 2 - 1]          # an empty slot
+    return np.concatenate([[0], cuts, [m]])
+
+
+@pytest.mark.parametrize("B", [257, 1023, 4096, 65536])
+@pytest.mark.parametrize("K", [1, 25])
+@pytest.mark.parametrize("m", [40, 1500], ids=["short", "long"])
+def test_cluster_schedule_adds_each_entry_once_into_its_tile(B, K, m):
+    """Phase C's items, shares and owners (the wide kernels' formulas):
+    every (entry, feature) whose bin is below B is added exactly once,
+    into the block that holds its bin's tile; the others nowhere.  m = 40
+    entries is fewer than one warp of each of the C blocks takes."""
+    F, floats = 40, True                        # two feature chunks
+    p = TH.hist_plan(F, K, 5, B, 1 << 20, *H100, floats=floats, wide=True,
+                     resident=h100_resident)
+    offsets = _schedule_case(B + K, K, m, F)
+    rng = np.random.default_rng(m)
+    bins = rng.integers(0, B + 40, size=(m, F))  # some past num_bins
+    bins[:, 3] = 0                               # a feature in one bin
+    adds, tile, walked = TH.cluster_schedule(offsets, F, B, bins, p)
+    live = bins < B
+    np.testing.assert_array_equal(adds, live.astype(np.int64))
+    np.testing.assert_array_equal(tile[live], bins[live] // p.bin_tile)
+    assert (tile[~live] == -1).all()
+    np.testing.assert_array_equal(walked, TH.plan_walks(p, B))
+    if B <= 1023:
+        assert (walked == 1).all()
 
 
 def test_hist_plan_refuses_more_bins_than_the_wide_copy_holds():
