@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. twenty-two paths at full width, each lgb.train (cv_int8: lgb.cv) on
+  3. twenty-four paths at full width, each lgb.train (cv_int8: lgb.cv) on
      the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
@@ -97,6 +97,18 @@ Phases, each fatal on failure (exit code 1, no result line):
                through the sync step with the host percentile refit of
                every leaf: B1 and B3; the refit's host seconds and share;
                held-out l1 beside the median's;
+       cat_hilo  columns 22-27 recoded as categorical_feature, cut at
+               their training quantiles into 3, 7, 12, 31, 100 and 250
+               categories relabelled by a seeded permutation, hilo with
+               tpu_partition_impl=select, 10 iterations: B1 every round,
+               the categorical split search (one-hot on the 3-category
+               column, sorted-CTR on the others), bin LUT, mask routing
+               and bitset walk as torch ops, no B3; the trees must hold
+               categorical splits, counted per mode (phase 5 requires
+               both modes);
+       cat_int8  cat_hilo with tpu_hist_precision=int8, 10 iterations:
+               B1-int every round and the leaf sums; B2 (categorical data
+               leaves its scan) and B3 must not launch;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -142,8 +154,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      regression_l1, huber, quantile, lambdarank (queries of 50) and GOSS
      with regression_l1, the refit off, by their whole model text;
      multiclass hilo and int8 by the held-out multi_logloss of the last
-     fifth of the rows, within AUC_TOL; and a saved model file loaded back
-     on the card, whose raw scores must equal the saving booster's.
+     fifth of the rows, within AUC_TOL; a saved model file loaded back
+     on the card, whose raw scores must equal the saving booster's; and,
+     with columns 22-27 as categories, int8 regression with the refit off
+     on a label with category effects, by its whole model text, with
+     one-hot and sorted-CTR splits, at max_bin=255, at max_bin=511 with
+     column 27 as 300 categories (wide) and at max_bin=15 with the columns
+     of 12 categories or fewer categorical (packed), categorical hilo by AUC,
+     the categorical hilo model saved and loaded back on the card (raw
+     scores equal on rows with NaN and unseen categories), and
+     LGBMClassifier's text equal to lgb.train's with its params.
 With --profile, two more iterations of every path run under
 torch.profiler and the device time by op, each port kernel's device time
 per call on the path and the device's idle share are printed.
@@ -285,6 +305,31 @@ RANK_PARAMS = dict(PARAMS, objective="lambdarank", tpu_hist_precision="int8",
 L1_PARAMS = dict(PARAMS, objective="regression_l1", metric="l1")
 
 
+# categorical features at full width: the generator's columns 22-27 cut
+# into the cardinalities of the airline data of LightGBM's categorical
+# experiments (day of week, month, hour, day of month, carrier, airport)
+CAT_COLS = [22, 23, 24, 25, 26, 27]
+CAT_CARDS = [3, 7, 12, 31, 100, 250]
+# categorical splits keep the select-family partition (B3 takes numerical
+# splits only, as the JAX package's partition kernel does).  The
+# 3-category column searches in the one-hot mode (max_cat_to_onehot 4),
+# but on this data its splits never win at full width: the generator's
+# label is a function of the underlying values, which the 100 and 250
+# categories keep at a finer grain (0 one-hot of 218 categorical splits in
+# 10 trees on an H100; the JAX package also makes none at 200,000 rows).
+# Phase 5 holds both modes to the CPU on a label with category effects
+CAT_PARAMS = dict(PARAMS, tpu_partition_impl="select")
+# (name, params, kernels the path must launch, kernels it must not)
+CAT_PATHS = [
+    ("cat_hilo", CAT_PARAMS, ("hist_batched",), ("partition_rows",)),
+    ("cat_int8", dict(CAT_PARAMS, tpu_hist_precision="int8"),
+     ("hist_batched_int", "leaf_sums"),
+     ("fused_hist_scan", "partition_rows")),
+]
+# phase 5's wide categorical run: column 27 recoded into this many
+CAT_WIDE_CARD = 300
+
+
 def logloss_fobj(scores, train_set):
     """Binary logloss gradients on the host (numpy), as a user's fobj."""
     s = scores.reshape(-1)
@@ -321,6 +366,52 @@ def make_latent(n, f, seed=42):
     w = rng.normal(size=(f,))
     logits = (X[:, :8] ** 2 - 1.0).sum(axis=1) * 0.3 + X @ w * 0.5
     return logits + rng.logistic(size=n)
+
+
+def cat_data(X, cols=CAT_COLS, cards=CAT_CARDS, n_fit=N_TRAIN):
+    """X with the columns `cols` recoded as category codes: each cut at
+    the quantiles of its first n_fit rows into `cards` categories, the
+    codes relabelled through a permutation from np.random.default_rng(42),
+    so that their order carries no signal a numerical split could use."""
+    Xc = X.copy()
+    rng = np.random.default_rng(42)
+    for c, k in zip(cols, cards):
+        edges = np.quantile(X[:n_fit, c], np.arange(1, k) / k)
+        Xc[:, c] = rng.permutation(k)[np.digitize(X[:, c], edges)]
+    return Xc
+
+
+def cat_splits(booster):
+    """(one-hot, sorted-CTR) categorical splits over the booster's trees:
+    a categorical node on a feature of max_cat_to_onehot bins or fewer
+    was found in the one-hot mode."""
+    booster.num_trees()                  # the lazy trees materialized
+    driver = booster._driver
+    num_bin = driver.learner.meta_np["num_bin"]
+    onehot_max = int(driver.config.max_cat_to_onehot)
+    onehot = ctr = 0
+    for tree in driver.models:
+        for j in range(tree.num_leaves - 1):
+            if int(tree.decision_type[j]) & 1:
+                if num_bin[int(tree.split_feature_inner[j])] <= onehot_max:
+                    onehot += 1
+                else:
+                    ctr += 1
+    return onehot, ctr
+
+
+def cat_path(lgb, kernels, ds, Xc, y, params, must_launch, must_not):
+    """Phase 3, paths cat_hilo and cat_int8: main_path on the categorical
+    data; fails unless the trees hold categorical splits, which it counts
+    by mode."""
+    report, booster = main_path(lgb, kernels, ds, Xc, y, params, ITERS,
+                                must_launch, must_not)
+    onehot, ctr = cat_splits(booster)
+    if onehot + ctr == 0:
+        fail("no categorical split on a categorical path")
+    report.update(cat_splits_onehot=onehot, cat_splits_ctr=ctr,
+                  cat_splits_per_tree=(onehot + ctr) / ITERS)
+    return report, booster
 
 
 def quintiles(latent):
@@ -1883,6 +1974,115 @@ def cross_check(lgb, X, y, latent):
         fail("int8 with the leaf refit: two trainings on the card wrote "
              "different model text")
     out.update(cross_check_zoo(lgb, Xs, y_reg, latent[:N_SMALL]))
+    out.update(cross_check_cat(lgb, cat_data(Xs, n_fit=N_SMALL), ys, y_reg))
+    return out
+
+
+def cross_check_cat(lgb, Xs, ys, y_reg):
+    """Phase 5 for categorical features, card against CPU at N_SMALL rows
+    (Xs: the rows with columns 22-27 as categories): int8 regression on
+    a label with an effect of every category, the refit off, by its whole
+    model text, with splits of both modes (one-hot and sorted-CTR) on the
+    card and the CPU, at max_bin=255, at max_bin=511
+    with column 27 as 300 categories (wide bins) and at max_bin=15 with
+    the three columns of 12 categories or fewer categorical (packed bins);
+    hilo binary by AUC; the hilo model saved and loaded back on the card,
+    its raw scores on rows with NaN and unseen categories; and
+    LGBMClassifier's model text against lgb.train's with its params."""
+    reg = dict(objective="regression", metric="l2",
+               tpu_hist_precision="int8", tpu_quant_refit_leaves=False)
+    Xw = cat_data(Xs, [27], [CAT_WIDE_CARD], N_SMALL)
+
+    def cat_label(X):
+        """y_reg plus a seeded effect of each category of each column."""
+        rng = np.random.default_rng(44)
+        codes = X[:, CAT_COLS].astype(np.int64)
+        return y_reg + sum(0.5 * rng.normal(size=codes[:, j].max() + 1)[
+            codes[:, j]] for j in range(len(CAT_COLS)))
+
+    # (params, rows, label, categorical columns, compared by)
+    runs = {"cat_int8_regression": (dict(CAT_PARAMS, **reg), Xs,
+                                    cat_label(Xs), CAT_COLS, "text"),
+            "cat_wide_int8_regression": (dict(CAT_PARAMS, **reg,
+                                              max_bin=511), Xw,
+                                         cat_label(Xw), CAT_COLS, "text"),
+            "cat_packed_int8_regression": (
+                dict(PACKED_PARAMS, tpu_hist_impl="pallas2", **reg), Xs,
+                cat_label(Xs), CAT_COLS[:3], "text"),
+            "cat_hilo": (CAT_PARAMS, Xs, ys, CAT_COLS, "auc")}
+    out = {}
+    for name, (params, X, label, cat, by) in runs.items():
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(params, device_type=dev)
+            t0 = time.perf_counter()
+            b = lgb.train(p, lgb.Dataset(X, label=label,
+                                         categorical_feature=cat, params=p),
+                          num_boost_round=ITERS_SMALL,
+                          keep_training_booster=True)
+            learner = b._driver.learner
+            if learner.packed_bins != ("packed" in name) or (
+                    learner.bins_t.element_size() == 4) != ("wide" in name):
+                fail(f"{name}: packed bins {learner.packed_bins}, bins "
+                     f"{learner.bins_t.dtype}")
+            modes = cat_splits(b)
+            out[f"{name}_{dev}_cat_splits"] = modes
+            # the label with category effects splits in both modes
+            if sum(modes) == 0 or (by == "text" and min(modes) == 0):
+                fail(f"{name}: categorical splits {modes} (one-hot, "
+                     f"sorted-CTR) on the {dev}")
+            if by == "text":
+                texts[dev] = _norm_param(b.model_to_string(), "device_type")
+            else:
+                out[f"{name}_{dev}_auc"] = auc(b.predict(X, raw_score=True),
+                                               label)
+            if dev == "cuda":
+                card = b
+            out[f"{name}_{dev}_s"] = time.perf_counter() - t0
+        if by == "auc":
+            diff = abs(out[f"{name}_cuda_auc"] - out[f"{name}_cpu_auc"])
+            out[f"{name}_auc_diff"] = diff
+            if diff > AUC_TOL:
+                fail(f"{name}: card and CPU AUC differ by {diff} > {AUC_TOL}")
+            continue
+        out[f"{name}_text_identical"] = texts["cuda"] == texts["cpu"]
+        if not out[f"{name}_text_identical"]:
+            fail(f"{name}: the card's model text differs from the CPU's")
+    # the categorical hilo model of the card saved and loaded back on
+    # the card: the same raw scores, rows with NaN and unseen categories
+    # among them
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_cat_model.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    card.save_model(path)
+    loaded = lgb.Booster(model_file=path)
+    os.remove(path)
+    rows = Xs[:3000].copy()
+    rows[0::3, CAT_COLS] = np.nan
+    rows[1::3, CAT_COLS] = 1e6
+    same = np.array_equal(loaded.predict(rows, raw_score=True),
+                          card.predict(rows, raw_score=True))
+    out["cat_saved_model_loads_and_predicts_equal"] = same
+    if loaded._driver.device.type != "cuda" or not same:
+        fail("a saved categorical model loaded on the card predicts other "
+             "raw scores than the booster that saved it")
+    # the sklearn wrapper on the card: lgb.train's text with its params
+    t0 = time.perf_counter()
+    clf = lgb.LGBMClassifier(n_estimators=ITERS_SMALL,
+                             tpu_hist_precision="int8",
+                             tpu_quant_refit_leaves=False, verbosity=-1)
+    clf.fit(Xs, ys, categorical_feature=CAT_COLS)
+    params = dict(clf.booster_.params)
+    b = lgb.train(params, lgb.Dataset(Xs, label=ys,
+                                      categorical_feature=CAT_COLS,
+                                      params=params),
+                  num_boost_round=ITERS_SMALL)
+    same = b.model_to_string() == clf.booster_.model_to_string()
+    out["cat_lgbm_classifier_text_identical_to_train"] = same
+    out["cat_lgbm_classifier_s"] = time.perf_counter() - t0
+    if not same or clf.booster_._driver.device.type != "cuda":
+        fail("LGBMClassifier on the card wrote another model text than "
+             "lgb.train with its params")
     return out
 
 
@@ -2061,6 +2261,20 @@ def main() -> None:
             print(f"profile {name} " + json.dumps(profile(boosters[name])),
                   flush=True)
     del datasets
+    # categorical features: columns 22-27 as categories, both modes
+    Xc = cat_data(X)
+    t0 = time.perf_counter()
+    cat_ds = lgb.Dataset(Xc[:N_TRAIN], label=y[:N_TRAIN],
+                         categorical_feature=CAT_COLS,
+                         params=dict(CAT_PARAMS)).construct()
+    torch.cuda.synchronize()
+    print(f"ingest_s categorical {time.perf_counter() - t0:.3f}, up to "
+          f"{cat_ds._inner.max_num_bin} bins a feature", flush=True)
+    for name, params, must, must_not in CAT_PATHS:
+        reports[name], boosters[name] = cat_path(
+            lgb, kernels, cat_ds, Xc, y, params, must, must_not)
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+    del cat_ds, Xc
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     learners = {k: b._driver.learner for k, b in boosters.items()}
@@ -2122,6 +2336,13 @@ def main() -> None:
         row["path"] = path
         print("kernel " + json.dumps(row), flush=True)
     kernel_rows = [row for row, _ in kernel_rows]
+    if "--profile" in sys.argv[1:]:
+        # the categorical paths are profiled after phase 4: the device
+        # events of their ~58,000 host ops an iteration crowd phase 4's
+        # own profiles out (on an H100 none of 60 launches was seen)
+        for name, *_ in CAT_PATHS:
+            print(f"profile {name} " + json.dumps(profile(boosters[name])),
+                  flush=True)
     del boosters, learners
 
     cross = cross_check(lgb, X, y, latent)

@@ -6,10 +6,12 @@ same parameters: `lgb.train(params, Dataset(X, y), num_boost_round)` then
 (multiclass, and ranking on query groups, included), validation sets,
 callbacks, early stopping, custom objectives and metrics, bagging,
 feature_fraction and feature_fraction_bynode, the boosting modes gbdt,
-goss, dart and rf, `lgb.cv`, and the booster's model files, dumps and
-importances.  Entry points run on the first CUDA device unless
-the params say `device_type="cpu"`; without CUDA and without that, they
-raise.  The hot kernels are hand-written CUDA C++ for Hopper
+goss, dart and rf, `lgb.cv`, categorical features (by index or name, and
+pandas `category` columns), the booster's model files, dumps and
+importances, and the scikit-learn wrappers (`LGBMRegressor`,
+`LGBMClassifier`, `LGBMRanker`).  Entry points run on the first CUDA
+device unless the params say `device_type="cpu"`; without CUDA and
+without that, they raise.  The hot kernels are hand-written CUDA C++ for Hopper
 (`csrc/`), built with `nvcc` at first use.  This package never imports
 JAX or lightgbm_tpu.
 """
@@ -27,3 +29,9 @@ __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
            "LightGBMError", "callback", "early_stopping", "log_evaluation",
            "print_evaluation", "record_evaluation", "reset_parameter",
            "cv", "train"]
+
+try:  # the sklearn wrappers, as the JAX package exports them
+    from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+    __all__ += ["LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]
+except ImportError:  # pragma: no cover
+    pass

@@ -2,14 +2,18 @@
 
 The port of the subset of `lightgbm_tpu/basic.py:Dataset` that
 `lgb.train` and `lgb.cv` need: a lazily constructed, binned, dense
-numeric matrix (a numpy array or a numeric pandas DataFrame, whose
-column names become the feature names), validation sets binned with a
+matrix (a numpy array or a pandas DataFrame, whose column names become
+the feature names), categorical features (`categorical_feature=` by
+index or name, `set_categorical_feature`, and every pandas `category`
+column, which goes in as its codes, with the frame's category tables
+kept as `pandas_categorical` for valid sets and predict to remap
+through), validation sets binned with a
 training set's mappers (`reference=`, `create_valid`), the query groups
 of ranking data (`group=`, `set_group`, `get_group`), the fields
 (`get_field`, `set_field`, `num_data`) and row subsets (`subset`, the
 folds of `cv`), which share the parent's mappers, slice its binned rows
-on its device and keep whole queries.  pandas `category` columns wait
-for the categorical port and are refused by name.
+on its device and keep whole queries.  Object (string) columns are
+refused as the JAX package refuses them.
 """
 
 from __future__ import annotations
@@ -30,10 +34,6 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  reference: Optional["Dataset"] = None, group=None):
-        if categorical_feature not in ("auto", None, [], ()):
-            raise NotImplementedError(
-                "categorical_feature: categorical features are not ported "
-                "to lightgbm_tpu_torch yet")
         self.data = data
         self.label = label
         self.reference = reference
@@ -41,11 +41,12 @@ class Dataset:
         self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._inner: Optional[TrainingData] = None
-        # the category tables of a pandas training frame: always empty
-        # here (category columns are refused), written to the model text
-        # as the JAX package writes them
+        # the category tables of a pandas training frame, one list a
+        # category column (None: the data was not a frame); written to the
+        # model text as the JAX package writes them
         self.pandas_categorical: Optional[List[List]] = None
 
     def construct(self) -> "Dataset":
@@ -61,19 +62,46 @@ class Dataset:
             ref_inner = self.reference.construct()._inner
         names = (None if self.feature_name == "auto"
                  else list(self.feature_name))
+        pd_cat_idx: List[int] = []
         if _is_pandas_df(self.data):
-            X, pd_names, self.pandas_categorical = _pandas_to_matrix(
-                self.data)
+            # valid sets take the training frame's category tables, so
+            # their codes line up with the training bins
+            ref_pc = (self.reference.pandas_categorical
+                      if self.reference is not None else None)
+            X, pd_names, pd_cat_idx, self.pandas_categorical = \
+                _pandas_to_matrix(self.data, ref_pc)
             if names is None:
                 names = pd_names
         else:
             X = np.asarray(self.data, dtype=np.float64)
+        cat: List[int] = []
+        spec = self.categorical_feature
+        if isinstance(spec, (list, tuple)):
+            if all(isinstance(c, (int, np.integer)) for c in spec):
+                cat = [int(c) for c in spec]
+            elif names:
+                cat = [names.index(c) for c in spec]
+        # pandas category columns are categorical whatever the setting
+        cat = sorted(set(cat) | set(pd_cat_idx))
         self._inner = TrainingData.from_matrix(
             X, None if self.label is None else np.asarray(self.label),
             Config(self.params), weight=self.weight,
             init_score=self.init_score,
             reference=ref_inner, feature_names=names,
-            group_sizes=self.group)
+            categorical_features=cat, group_sizes=self.group)
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """The categorical columns, by index or name (lightgbm_tpu/basic.py:
+        set_categorical_feature): bin types are fixed when the bins are
+        found, so a constructed dataset takes no other setting."""
+        if self._inner is not None \
+                and list(categorical_feature) != list(
+                    self.categorical_feature or []):
+            raise RuntimeError(
+                "cannot change categorical_feature after the dataset is "
+                "constructed")
+        self.categorical_feature = categorical_feature
         return self
 
     def create_valid(self, data, label=None, weight=None, group=None,
@@ -151,6 +179,7 @@ class Dataset:
             len(idx), md.label[idx],
             None if md.weight is None else md.weight[idx], group_sizes, init)
         sub = Dataset(None, reference=self, feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
                       params=params if params else self.params)
         sub.pandas_categorical = self.pandas_categorical
         sub._inner = inner
@@ -164,39 +193,63 @@ def _is_pandas_df(data) -> bool:
     return pd is not None and isinstance(data, pd.DataFrame)
 
 
-def _pandas_to_matrix(df):
-    """A numeric DataFrame -> (X float64, feature names, pandas
-    categorical tables), as `lightgbm_tpu/basic.py:_pandas_to_matrix`
-    converts it: the column names become the feature names, missing
-    values NaN, and object (string) columns are refused as the JAX
-    package refuses them.  `category` columns are refused by name until
-    categorical features are ported; the tables are then `[]`, which is
-    what the JAX package writes for a frame without such columns."""
+def _pandas_to_matrix(df, pandas_categorical=None, training=True):
+    """DataFrame -> (X float64, feature names, category column indices,
+    pandas_categorical), as `lightgbm_tpu/basic.py:_pandas_to_matrix`
+    converts it: the column names become the feature names, missing values
+    NaN, and `category` columns their integer codes (missing and unseen
+    values -1, which the categorical bins route like a negative category).
+    At training time (`pandas_categorical` None) each category column's
+    categories are captured; later (valid sets, predict) the stored tables
+    re-index the frame's values, so codes line up with training whatever
+    order or content the new frame's categories have.  Object (string)
+    columns are refused as the JAX package refuses them."""
     from pandas.api.types import is_numeric_dtype
 
     names = [str(c) for c in df.columns]
-    cat_cols = [names[i] for i in range(len(names))
+    cat_cols = [i for i in range(len(names))
                 if str(df.dtypes.iloc[i]) == "category"]
-    if cat_cols:
-        raise NotImplementedError(
-            f"pandas category columns {cat_cols} (categorical features) "
-            "are not ported to lightgbm_tpu_torch yet")
     bad = [f"{names[i]} ({df.dtypes.iloc[i]})" for i in range(len(names))
-           if not is_numeric_dtype(df.iloc[:, i])]
+           if i not in cat_cols and not is_numeric_dtype(df.iloc[:, i])]
     if bad:
         raise ValueError(
             f"DataFrame columns [{', '.join(bad)}] have non-numeric "
             "(object/string/...) dtype; cast them to 'category' or "
             "numeric before constructing a Dataset")
+    if pandas_categorical is None:
+        if cat_cols and not training:
+            raise ValueError(
+                "this model has no stored pandas category tables "
+                "(trained on non-pandas data or an old model file); "
+                "cannot map the DataFrame's category-dtype columns "
+                f"{[names[i] for i in cat_cols]} onto trained bins — "
+                "pass integer codes instead")
+        pandas_categorical = [list(df.iloc[:, i].cat.categories)
+                              for i in cat_cols]
+    elif len(pandas_categorical) != len(cat_cols):
+        raise ValueError(
+            f"train/predict DataFrames disagree on categorical columns: "
+            f"model has {len(pandas_categorical)}, data has {len(cat_cols)}")
     X = np.empty((len(df), len(names)), dtype=np.float64)
+    ci = 0
     for i in range(len(names)):
-        X[:, i] = df.iloc[:, i].to_numpy(dtype=np.float64, na_value=np.nan)
-    return X, names, []
+        col = df.iloc[:, i]
+        if i in cat_cols:
+            cats = pandas_categorical[ci]
+            ci += 1
+            if list(col.cat.categories) != cats:
+                # re-index onto the training table by value (unseen -> -1)
+                col = col.cat.set_categories(cats)
+            X[:, i] = col.cat.codes.to_numpy(dtype=np.float64)
+        else:
+            X[:, i] = col.to_numpy(dtype=np.float64, na_value=np.nan)
+    return X, names, cat_cols, pandas_categorical
 
 
-def _to_2d_array(data) -> np.ndarray:
+def _to_2d_array(data, pandas_categorical=None) -> np.ndarray:
     """The rows to predict as a float64 matrix; a DataFrame goes through
-    `_pandas_to_matrix`, with its refusals."""
+    `_pandas_to_matrix` with the model's category tables."""
     if _is_pandas_df(data):
-        return _pandas_to_matrix(data)[0]
+        return _pandas_to_matrix(data, pandas_categorical,
+                                 training=False)[0]
     return np.asarray(data, dtype=np.float64)

@@ -8,7 +8,9 @@ gradients), validation sets and evaluation, `best_iteration`/
 and files in both directions (`model_to_string`, `save_model`,
 `model_from_string`, `Booster(model_file=/model_str=)`, with the
 `pandas_categorical:` line), `dump_model`, `trees_to_dataframe`,
-`feature_importance`, `feature_name`, `num_feature`,
+`feature_importance`, `feature_name`, `num_feature`, predict on
+DataFrames whose `category` columns remap through the model's
+`pandas_categorical` tables,
 `num_model_per_iteration`, `get_leaf_output`,
 `get_split_value_histogram`, `attr`/`set_attr`, `shuffle_models`, and
 copies and pickles through the model text.  The boosting driver follows
@@ -241,12 +243,14 @@ class Booster:
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False) -> np.ndarray:
         """[n] outputs, or [n, k] for multiclass; `raw_score` skips the
-        objective's output conversion."""
+        objective's output conversion.  A DataFrame's `category` columns
+        map onto the training codes through the model's
+        `pandas_categorical` tables."""
         from .basic import _to_2d_array
 
         return self._driver.predict(
-            _to_2d_array(data), self._default_iteration(num_iteration),
-            raw_score=raw_score)
+            _to_2d_array(data, self.pandas_categorical),
+            self._default_iteration(num_iteration), raw_score=raw_score)
 
     # -- model text ------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
@@ -322,6 +326,10 @@ class Booster:
         def walk(node):
             if "split_index" in node:
                 if want(node["split_feature"]):
+                    if node["decision_type"] == "==":
+                        raise ValueError(
+                            "cannot compute a split value histogram for a "
+                            "categorical feature")
                     values.append(float(node["threshold"]))
                 walk(node["left_child"])
                 walk(node["right_child"])

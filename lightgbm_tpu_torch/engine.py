@@ -75,10 +75,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     _refuse_unported(params, init_model, resume)
     if feature_name != "auto":
         train_set.feature_name = feature_name
-    if categorical_feature not in ("auto", None, [], ()):
-        raise NotImplementedError(
-            "categorical_feature: categorical features are not ported to "
-            "lightgbm_tpu_torch yet")
+    if categorical_feature != "auto":
+        train_set.set_categorical_feature(categorical_feature)
     if fobj is not None:
         params["objective"] = "none"
     for alias in _ROUND_ALIASES:

@@ -1,10 +1,12 @@
 """Binned training data: metadata and the dense numeric matrix ingest.
 
 The port of `lightgbm_tpu/io/dataset.py`'s `Metadata` (copied) and of
-`TrainingData.from_matrix` for dense numeric matrices.  Bin finding runs
-on the host with the copied `BinMapper`; the value->bin step runs as torch
-ops on the dataset's device (`ops/binning.py`) and leaves the transposed
-`[F, n]` bin matrix there, the layout the grower reads.
+`TrainingData.from_matrix` for dense matrices, with categorical features
+(`categorical_features`, column indices: their mappers bin categories by
+count, reference bin.cpp:425-497).  Bin finding runs on the host with the
+copied `BinMapper`; the value->bin step runs as torch ops on the
+dataset's device (`ops/binning.py`) and leaves the transposed `[F, n]`
+bin matrix there, the layout the grower reads.
 
 A validation set (`reference=` the training data) takes the training
 set's mappers, the same objects, and is binned with them on the training
@@ -13,8 +15,7 @@ set's device.
 `Metadata` carries the query boundaries of ranking data
 (`group_sizes`, the `group`/`query` field) and their per-query weights.
 
-Outside this slice, and refused loudly: categorical features, sparse
-input and file ingest.
+Outside this slice, and refused loudly: sparse input and file ingest.
 """
 
 from __future__ import annotations
@@ -163,12 +164,15 @@ class TrainingData:
                            dtype=np.int32)
         default_bin = np.array([self.mappers[i].default_bin for i in idx],
                                dtype=np.int32)
+        is_categorical = np.array(
+            [self.mappers[i].bin_type == BinType.CATEGORICAL for i in idx],
+            dtype=bool)
         mono = (self.monotone_constraints if self.monotone_constraints is not None
                 else np.zeros(len(idx), dtype=np.int32))
         penalty = (self.feature_penalty if self.feature_penalty is not None
                    else np.ones(len(idx), dtype=np.float32))
         return {"num_bin": num_bin, "missing_type": missing,
-                "default_bin": default_bin,
+                "default_bin": default_bin, "is_categorical": is_categorical,
                 "monotone": mono.astype(np.int32),
                 "penalty": penalty.astype(np.float32)}
 
@@ -194,14 +198,12 @@ class TrainingData:
         """Bin a raw dense float matrix on the config's device.
 
         With `reference` given, reuses its BinMappers and its device
-        (validation-set alignment, reference dataset.h:501 CreateValid)."""
+        (validation-set alignment, reference dataset.h:501 CreateValid).
+        `categorical_features` are column indices; as in the JAX package,
+        the `categorical_feature` parameter is read only by file ingest."""
         from ..ops.binning import bin_matrix_t
 
         config = config or Config()
-        if categorical_features or str(config.categorical_feature):
-            raise NotImplementedError(
-                "categorical_feature: categorical features are not ported "
-                "to lightgbm_tpu_torch yet")
         device = (reference.device if reference is not None
                   else resolve_device(config))
         X = np.asarray(X, dtype=np.float64)
@@ -218,7 +220,7 @@ class TrainingData:
         if reference is not None:
             self._adopt_reference_mappers(reference)
         else:
-            self._find_mappers(X, config)
+            self._find_mappers(X, config, categorical_features or [])
         self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
                                    device, int(config.tpu_ingest_chunk_rows))
         self.metadata = Metadata(n, label, weight, group_sizes, init_score)
@@ -240,9 +242,11 @@ class TrainingData:
         return TrainingData.from_matrix(X, label, self.config,
                                         reference=self, **kw)
 
-    def _find_mappers(self, X: np.ndarray, config: Config) -> None:
+    def _find_mappers(self, X: np.ndarray, config: Config,
+                      categorical_features: Sequence[int]) -> None:
         """Greedy bin finding per column on a row sample, as the JAX
-        package does it (reference dataset_loader.cpp:599-600,696)."""
+        package does it (reference dataset_loader.cpp:599-600,696); the
+        columns of `categorical_features` bin as categories."""
         n, nf = X.shape
         sample_cnt = min(n, int(config.bin_construct_sample_cnt))
         if sample_cnt < n:
@@ -254,6 +258,7 @@ class TrainingData:
         total = Xs.shape[0]
         ignore = set(_parse_column_spec(config.ignore_column,
                                         self.feature_names))
+        cat_set = set(int(c) for c in categorical_features)
         max_bin_by_feature = list(config.max_bin_by_feature)
         # near-unsplittable feature filter (dataset_loader.cpp:599-600)
         filter_cnt = int(float(config.min_data_in_leaf) * total / n)
@@ -274,7 +279,8 @@ class TrainingData:
             m.find_bin(nonzero, total, mb,
                        min_data_in_bin=int(config.min_data_in_bin),
                        min_split_data=filter_cnt,
-                       bin_type=BinType.NUMERICAL,
+                       bin_type=(BinType.CATEGORICAL if col in cat_set
+                                 else BinType.NUMERICAL),
                        use_missing=bool(config.use_missing),
                        zero_as_missing=bool(config.zero_as_missing))
 

@@ -38,14 +38,15 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..io.bin_mapper import BinMapper
+from ..io.bin_mapper import BinMapper, BinType
 from ..io.dataset import TrainingData
 from ..obs import modelhealth
 from ..ops.binning import bin_matrix_t
-from ..ops.predict import (class_scores, device_tables, pack_trees,
-                           subset_scores, tree_leaf_values, upload)
+from ..ops.predict import (PackedForest, class_scores, device_tables,
+                           pack_trees, subset_scores, tree_leaf_values,
+                           upload)
 from ..utils.prng import PRNGKey
-from .learner import TreeLearner
+from .learner import TreeLearner, _to_bitset
 from .metrics import Metric, create_metrics
 from .objectives import (Objective, create_objective,
                          create_objective_from_model_string)
@@ -115,17 +116,49 @@ def _split_mapper_snapshot(text: str):
 
 
 def _rebind_tree(tree: Tree, ctx: PredictContext) -> None:
-    """Map a loaded tree's raw-value splits back into bin space: each
-    saved threshold is a bin upper bound, so value_to_bin is exact."""
+    """Map a loaded tree's raw-value splits back into bin space
+    (lightgbm_tpu/models/gbdt.py:_rebind_tree_to_mappers): each saved
+    numerical threshold is a bin upper bound, so value_to_bin is exact;
+    each categorical node's bitset of raw categories is decoded, its
+    categories mapped to their bins through the mapper's
+    categorical_2_bin, and re-encoded as the bin bitset, and the node
+    keeps its bitset's index as its bin threshold."""
     used_pos = {col: j for j, col in enumerate(ctx.used_feature_idx)}
+    cat_nodes: Dict[int, List[int]] = {}  # cat_idx -> bin words
     for j in range(tree.num_leaves - 1):
         real_f = int(tree.split_feature[j])
-        if int(tree.decision_type[j]) & 1:
-            raise NotImplementedError(
-                "categorical splits are not ported to lightgbm_tpu_torch yet")
+        if real_f not in used_pos:
+            raise ValueError(
+                f"model splits on feature {real_f} which is trivial/"
+                "unused in the binning context")
         tree.split_feature_inner[j] = used_pos[real_f]
-        tree.threshold_in_bin[j] = ctx.mappers[real_f].value_to_bin(
-            float(tree.threshold[j]))
+        mapper = ctx.mappers[real_f]
+        if int(tree.decision_type[j]) & 1:
+            cat_idx = int(tree.threshold[j])
+            start = tree.cat_boundaries[cat_idx]
+            end = tree.cat_boundaries[cat_idx + 1]
+            words = tree.cat_threshold[start:end]
+            cats = [w * 32 + b for w, word in enumerate(words)
+                    for b in range(32) if (int(word) >> b) & 1]
+            cat_nodes[cat_idx] = _to_bitset(
+                [mapper.categorical_2_bin[c] for c in cats
+                 if c in mapper.categorical_2_bin])
+            # the node's bitset index, which the walk reads where a
+            # trained tree keeps it (Tree.split_categorical); the JAX
+            # package leaves it 0 here, so its device walk of a loaded
+            # model reads the first bitset at every categorical node
+            tree.threshold_in_bin[j] = cat_idx
+        else:
+            tree.threshold_in_bin[j] = mapper.value_to_bin(
+                float(tree.threshold[j]))
+    if cat_nodes:
+        bounds, words = [0], []
+        for ci in range(tree.num_cat):
+            bw = cat_nodes.get(ci, [0])
+            words.extend(bw)
+            bounds.append(bounds[-1] + len(bw))
+        tree.cat_boundaries_inner = bounds
+        tree.cat_threshold_inner = words
 
 
 class _ScoreState:
@@ -189,7 +222,8 @@ class GBDT:
         # packed from `models`
         self._preset: Optional[Tuple[Dict[str, np.ndarray], int]] = None
         self._tables_key = None
-        self._tables = None
+        self._tables: Optional[PackedForest] = None
+        self._preset_dev = None
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
         self._key: Optional[np.ndarray] = None
@@ -533,9 +567,10 @@ class GBDT:
                              self._pred_ctx.meta_dev(self.device))
 
     def _invalidate_tables(self) -> None:
-        """Drop the cached device forest: it keys on the model count and
-        the last tree, so a change of leaf values in place (DART's
-        shrinkage of dropped trees) must clear it."""
+        """Drop the cached forest tables: they append the trees trained
+        since they were last read, so a change of leaf values in place
+        (DART's shrinkage of dropped trees) or of the order must clear
+        them."""
         self._tables_key = None
         self._tables = None
 
@@ -649,21 +684,21 @@ class GBDT:
         return total, div
 
     def _forest(self, total: int):
-        """(device tables, depth) of the first `total` trees, cached per
-        tree count and last tree (`_invalidate_tables` clears it)."""
-        tables = depth = None
-        if self._preset is not None:
+        """(device tables, depth) of the first `total` trees: a
+        `PackedForest` that appends the new trees (`_invalidate_tables`
+        drops it), or the converted booster's preset tables."""
+        if self._preset is None:
+            if self._tables is None:
+                self._tables = PackedForest(self.device)
+            self._tables.sync(self.models)
+            return self._tables.device(total), self._tables.depth
+        if self._tables_key != total:
             tables, depth = self._preset
-        key = (total, id(self.models[-1]) if self.models else 0)
-        if self._tables_key != key:
-            if self._preset is None:
-                tables, depth = pack_trees(self.models[:total])
-            else:
-                tables = {n: (v[:total] if n != "cat_words" else v)
-                          for n, v in tables.items()}
-            self._tables = (device_tables(tables, self.device), depth)
-            self._tables_key = key
-        return self._tables
+            tables = {n: (v[:total] if n != "cat_words" else v)
+                      for n, v in tables.items()}
+            self._preset_dev = (device_tables(tables, self.device), depth)
+            self._tables_key = total
+        return self._preset_dev
 
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1
                     ) -> np.ndarray:
@@ -757,9 +792,17 @@ class GBDT:
         if td is None:
             return list(self.loaded_params.get("feature_infos", []))
         used = set(td.used_feature_idx)
-        return ["none" if i not in used or m.is_trivial
-                else f"[{m.min_val!r}:{m.max_val!r}]"
-                for i, m in enumerate(td.mappers)]
+        infos = []
+        for i, m in enumerate(td.mappers):
+            if i not in used or m.is_trivial:
+                infos.append("none")
+            elif m.bin_type == BinType.CATEGORICAL:
+                # the categories joined by ':' (gbdt.py:2205)
+                infos.append(":".join(str(c)
+                                      for c in sorted(m.bin_2_categorical)))
+            else:
+                infos.append(f"[{m.min_val!r}:{m.max_val!r}]")
+        return infos
 
     def save_model_to_string(self, num_iteration: int = -1,
                              start_iteration: int = 0) -> str:
@@ -901,8 +944,10 @@ class GBDT:
 
 
 def _tree_to_json(idx: int, tree: Tree) -> Dict:
-    """One tree of dump_model (numerical splits: categorical ones are
-    refused on load and never trained)."""
+    """One tree of dump_model (gbdt.py:_tree_to_json): a categorical
+    node's threshold is its raw categories joined by "||" and its
+    decision type "==", as the reference dump writes them (src/io/tree.cpp
+    ToJSON)."""
     def node(i: int) -> Dict:
         if i < 0:
             leaf = ~i
@@ -911,12 +956,20 @@ def _tree_to_json(idx: int, tree: Tree) -> Dict:
                     "leaf_weight": float(tree.leaf_weight[leaf]),
                     "leaf_count": int(tree.leaf_count[leaf])}
         dt = int(tree.decision_type[i])
+        if dt & 1:
+            ci = int(tree.threshold[i])
+            lo, hi = tree.cat_boundaries[ci], tree.cat_boundaries[ci + 1]
+            thr = "||".join(str(32 * (w - lo) + b) for w in range(lo, hi)
+                            for b in range(32)
+                            if (tree.cat_threshold[w] >> b) & 1)
+        else:
+            thr = float(tree.threshold[i])
         return {
             "split_index": int(i),
             "split_feature": int(tree.split_feature[i]),
             "split_gain": float(tree.split_gain[i]),
-            "threshold": float(tree.threshold[i]),
-            "decision_type": "<=",
+            "threshold": thr,
+            "decision_type": "==" if dt & 1 else "<=",
             "default_left": bool(dt & 2),
             "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
             "internal_value": float(tree.internal_value[i]),

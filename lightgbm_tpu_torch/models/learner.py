@@ -1,12 +1,14 @@
 """Serial tree learner: lays the bins out for the grower, replays trees.
 
-The port of the serial, dense, numerical subset of
-`lightgbm_tpu/models/learner.py:TPUTreeLearner`: the padded layout
+The port of the serial, dense subset of
+`lightgbm_tpu/models/learner.py:TPUTreeLearner`, numerical and
+categorical features: the padded layout
 (`f_pad`, `n_pad` with the same shape bucketing), the per-feature meta
 arrays, `_resolve_hist_impl`, the fused per-iteration train step with
 its bagging, GOSS and feature_fraction prologue, the synchronous
 `train` of custom gradients, DART and RF (its masks from numpy
-generators), and `build_tree_from_records`.
+generators), and `build_tree_from_records`, which turns a categorical
+record's mask of the bins routed left into the tree's bitsets.
 
 Histogram implementations: "pallas2" (the perfeature Pallas kernel in
 the JAX package) means kernel B1 on a CUDA tensor and its plain twin on
@@ -55,6 +57,18 @@ HIST_IMPLS = ("auto", "pallas", "pallas2", "fused", "xla")
 # package's perfeature Pallas kernel (its ops/histogram.py
 # _PERFEATURE_OUT_BUDGET), which its "auto" rule tests
 PERFEATURE_OUT_BUDGET = 6 * 1024 * 1024
+
+
+def _to_bitset(values) -> list:
+    """Int values -> uint32 bitset words, negatives dropped (reference
+    Common::ConstructBitset, include/LightGBM/utils/common.h)."""
+    vals = [int(v) for v in values if int(v) >= 0]
+    if not vals:
+        return [0]
+    words = [0] * (max(vals) // 32 + 1)
+    for v in vals:
+        words[v // 32] |= 1 << (v % 32)
+    return words
 
 
 def check_slice(config: Config) -> None:
@@ -230,6 +244,12 @@ class TreeLearner:
             min_sum_hessian=float(config.min_sum_hessian_in_leaf),
             min_gain_to_split=float(config.min_gain_to_split),
             max_depth=int(config.max_depth),
+            has_cat=bool(meta_np["is_categorical"].any()),
+            max_cat_threshold=int(config.max_cat_threshold),
+            cat_l2=float(config.cat_l2),
+            cat_smooth=float(config.cat_smooth),
+            max_cat_to_onehot=int(config.max_cat_to_onehot),
+            min_data_per_group=float(config.min_data_per_group),
             split_batch=resolve_split_batch(int(config.tpu_split_batch),
                                             int(config.num_leaves)),
             split_batch_alpha=float(config.tpu_split_batch_alpha),
@@ -245,12 +265,20 @@ class TreeLearner:
                          and bool(config.tpu_quant_refit_leaves)),
             feature_fraction_bynode=float(config.feature_fraction_bynode),
             bynode_width=self.draw_width)
+        if self.params.has_cat and self.params.partition_impl == "kernel":
+            # the JAX package's refusal (grower.py:384-390), at set-up
+            raise ValueError(
+                "tpu_partition_impl=kernel (the pallas row-partition) covers "
+                "plain dense numerical columns only — categorical splits, "
+                "EFB bundles, sparse storage, and 4-bit packing keep the "
+                "select-family lowerings")
         # refit leaves: the trees take their leaf values from the grower's
         # refitted outputs, not from the split records
         self.refits_leaves = self.params.quant_refit
-        # under feature_fraction_bynode the grower never runs B2's scan
+        # under feature_fraction_bynode or with categorical features the
+        # grower never runs B2's scan
         if impl == "fused" and fused_supported(precision) is None \
-                and dev.type == "cuda" \
+                and dev.type == "cuda" and not self.params.has_cat \
                 and self.params.feature_fraction_bynode >= 1.0:
             probe_fused(dev, precision, wide=B > 256)
         # host waits of the last grown tree (grower stop tests)
@@ -526,7 +554,7 @@ class TreeLearner:
             f = int(row[G.REC_FEATURE])
             thr_bin = int(row[G.REC_THRESHOLD])
             real_f = used[f]
-            tree.split(
+            common = dict(
                 leaf=int(row[G.REC_LEAF]),
                 feature_inner=f,
                 real_feature=real_f,
@@ -537,10 +565,21 @@ class TreeLearner:
                 left_weight=float(row[G.REC_LEFT_WEIGHT]),
                 right_weight=float(row[G.REC_RIGHT_WEIGHT]),
                 gain=float(row[G.REC_GAIN]),
-                missing_type=int(missing[f]),
-                threshold_bin=thr_bin,
-                threshold_double=mappers[real_f].bin_to_value(thr_bin),
-                default_left=row[G.REC_DEFAULT_LEFT] > 0.5)
+                missing_type=int(missing[f]))
+            if row[G.REC_IS_CAT] > 0.5:
+                # the bins routed left -> a bin bitset and a raw-category
+                # bitset (Tree::SplitCategorical, reference tree.h:60-85)
+                bins_left = np.nonzero(row[G.REC_WIDTH:] > 0.5)[0]
+                cats_left = [mappers[real_f].bin_2_categorical[b]
+                             for b in bins_left]
+                tree.split_categorical(threshold_bins=_to_bitset(bins_left),
+                                       thresholds=_to_bitset(cats_left),
+                                       **common)
+            else:
+                tree.split(
+                    threshold_bin=thr_bin,
+                    threshold_double=mappers[real_f].bin_to_value(thr_bin),
+                    default_left=row[G.REC_DEFAULT_LEFT] > 0.5, **common)
         if leaf_output is not None and tree.num_leaves > 1:
             # the grower's leaf ids are the Tree's leaf indices (the left
             # child keeps the parent's id, the right takes the next one)

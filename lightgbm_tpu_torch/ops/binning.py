@@ -1,7 +1,8 @@
-"""Device value->bin step: a batched searchsorted over monotone int64 keys.
+"""Device value->bin step: a batched searchsorted over monotone int64 keys,
+and a category lookup table.
 
-The port of `lightgbm_tpu/ops/binning.py:DeviceBinner`'s numerical path.
-For every (feature, row) the bin is the number of the feature's bin upper
+The port of `lightgbm_tpu/ops/binning.py:DeviceBinner`.  For every
+numerical (feature, row) the bin is the number of the feature's bin upper
 bounds strictly below the value, which is exactly
 `np.searchsorted(ub[:hi], v, side="left")` (`BinMapper.values_to_bins`,
 reference `BinMapper::ValueToBin`, bin.h:472-508).
@@ -15,12 +16,20 @@ The JAX package compares split (hi, lo) int32 planes because it runs in
 x32 mode; torch has int64 on every device, so one `torch.searchsorted`
 over int64 keys does it.
 
+Categorical features look up a flattened per-feature category->bin table
+(the LUT): the value truncates toward zero to its category id, NaN takes
+the sentinel `_NAN_CAT` (the last bin when NaN-missing, category 0's route
+otherwise), and negative, unseen and too-large categories fall to the
+last bin, as `value_to_bin` routes them.  Where a feature's category ids
+or the table as a whole pass the LUT's capacity, the columns are binned on
+the host with `values_to_bins`, as the JAX package falls back.
+
 The result is the transposed `[F, n]` matrix the grower reads.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +38,12 @@ from ..io.bin_mapper import BinMapper, BinType, MissingType, sort_keys
 
 _NAN_KEY = int(np.iinfo(np.int64).max)
 _INT64_MIN = int(np.iinfo(np.int64).min)
+_NAN_CAT = -2  # category sentinel for NaN values
+# per-feature / total category-LUT capacity: features with larger raw
+# category ids are binned on the host (pandas codes and typical int
+# categories sit far below this)
+_CAT_LUT_MAX = 1 << 16
+_CAT_LUT_TOTAL_MAX = 1 << 22
 
 
 def sort_keys_t(x: torch.Tensor) -> torch.Tensor:
@@ -39,17 +54,51 @@ def sort_keys_t(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), torch.full_like(keys, _NAN_KEY), keys)
 
 
+def _cat_lut(ms: Sequence[BinMapper]) -> Optional[dict]:
+    """The flattened category->bin table of the categorical features
+    (lightgbm_tpu/ops/binning.py:DeviceBinner.build), or None when a
+    feature's ids or the table pass the LUT's capacity."""
+    F = len(ms)
+    widths = np.zeros(F, np.int64)
+    for j, m in enumerate(ms):
+        if m.bin_type != BinType.CATEGORICAL:
+            continue
+        real = [c for c in m.categorical_2_bin if c >= 0]
+        w = (max(real) + 1) if real else 1
+        if w > _CAT_LUT_MAX:
+            return None
+        widths[j] = w
+    if widths.sum() > _CAT_LUT_TOTAL_MAX:
+        return None
+    offsets = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    lut = np.zeros(max(int(widths.sum()), 1), np.int64)
+    nan_cat_bin = np.zeros(F, np.int64)
+    for j, m in enumerate(ms):
+        if m.bin_type != BinType.CATEGORICAL:
+            continue
+        lo, w = int(offsets[j]), int(widths[j])
+        lut[lo:lo + w] = m.num_bin - 1          # unmapped -> last bin
+        for c, b in m.categorical_2_bin.items():
+            if 0 <= c < w:
+                lut[lo + c] = b
+        # NaN: the dedicated last bin when NaN-missing, else category 0's
+        # route (values_to_bins' nan_cat)
+        nan_cat_bin[j] = (m.num_bin - 1 if m.missing_type == MissingType.NAN
+                          else int(lut[lo]))
+    return {"is_cat": np.array([m.bin_type == BinType.CATEGORICAL
+                                for m in ms]),
+            "cat_offset": offsets, "cat_width": widths, "cat_lut": lut,
+            "nan_cat_bin": nan_cat_bin}
+
+
 def bin_tables(mappers: Sequence[BinMapper], used_cols: Sequence[int],
-               device) -> dict:
-    """Per-feature bound keys (NaN-key padded) and missing routing."""
+               device) -> Optional[dict]:
+    """Per-feature bound keys (NaN-key padded), missing routing and, with
+    categorical features, the category LUT; None when the LUT does not
+    fit (the host bins the columns then)."""
     ms = [mappers[c] for c in used_cols]
-    for m in ms:
-        if m.bin_type != BinType.NUMERICAL:
-            raise NotImplementedError(
-                "categorical_feature: categorical features are not ported "
-                "to lightgbm_tpu_torch yet")
-    his = [m.num_bin - 1 - (1 if m.missing_type == MissingType.NAN else 0)
-           for m in ms]
+    his = [(m.num_bin - 1 - (1 if m.missing_type == MissingType.NAN else 0))
+           if m.bin_type == BinType.NUMERICAL else 0 for m in ms]
     width = max(max(his, default=1), 1)
     bkeys = np.full((len(ms), width), _NAN_KEY, np.int64)
     for j, (m, hi) in enumerate(zip(ms, his)):
@@ -59,8 +108,33 @@ def bin_tables(mappers: Sequence[BinMapper], used_cols: Sequence[int],
     default_bin = np.array([m.default_bin for m in ms], np.int64)
     nan_is_last = np.array([m.missing_type == MissingType.NAN for m in ms])
     nan_bin = np.where(nan_is_last, last, default_bin)
-    return {"bkeys": torch.from_numpy(bkeys).to(device),
-            "nan_bin": torch.from_numpy(nan_bin).to(device)[:, None]}
+    out = {"bkeys": torch.from_numpy(bkeys).to(device),
+           "nan_bin": torch.from_numpy(nan_bin).to(device)[:, None]}
+    if any(m.bin_type == BinType.CATEGORICAL for m in ms):
+        cat = _cat_lut(ms)
+        if cat is None:
+            return None
+        out.update({k: torch.from_numpy(v).to(device) for k, v in
+                    cat.items()})
+        out["last"] = torch.from_numpy(last).to(device)
+    return out
+
+
+def _cat_bins(vals: torch.Tensor, t: dict) -> torch.Tensor:
+    """[F, rows] category bins of f64 values (`_bin_chunk_kernel`'s
+    categorical branch): truncation toward zero, NaN to its sentinel, the
+    clip keeping huge and infinite values unseen."""
+    isnan = torch.isnan(vals)
+    cv = torch.clamp(torch.trunc(torch.where(isnan, -1.0, vals)), -1.0,
+                     float(_CAT_LUT_MAX)).to(torch.int64)
+    cv = torch.where(isnan, _NAN_CAT, cv)
+    width = t["cat_width"][:, None]
+    idx = t["cat_offset"][:, None] + torch.minimum(
+        torch.clamp(cv, min=0), width - 1)
+    catbin = t["cat_lut"][idx]
+    unseen = (cv < 0) | (cv >= width)
+    catbin = torch.where(unseen, t["last"][:, None], catbin)
+    return torch.where(cv == _NAN_CAT, t["nan_cat_bin"][:, None], catbin)
 
 
 def bin_matrix_t(X: np.ndarray, mappers: Sequence[BinMapper],
@@ -79,6 +153,12 @@ def bin_matrix_t(X: np.ndarray, mappers: Sequence[BinMapper],
     if not used or n == 0:
         return out
     t = bin_tables(mappers, used, device)
+    if t is None:
+        # category ids past the LUT: the host bins every column
+        host = np.stack([mappers[c].values_to_bins(
+            np.ascontiguousarray(X[:, c], dtype=np.float64)) for c in used])
+        return torch.from_numpy(host).to(device=device, dtype=out_dtype)
+    has_cat = "cat_lut" in t
     chunk = max(int(chunk_rows), 256)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
@@ -86,6 +166,9 @@ def bin_matrix_t(X: np.ndarray, mappers: Sequence[BinMapper],
         vals = torch.from_numpy(block).to(device)               # [F, rows]
         keys = sort_keys_t(vals)
         num = torch.searchsorted(t["bkeys"], keys)              # [F, rows]
-        out[:, lo:hi] = torch.where(keys == _NAN_KEY, t["nan_bin"],
-                                    num).to(out_dtype)
+        bins = torch.where(keys == _NAN_KEY, t["nan_bin"], num)
+        if has_cat:
+            bins = torch.where(t["is_cat"][:, None], _cat_bins(vals, t),
+                               bins)
+        out[:, lo:hi] = bins.to(out_dtype)
     return out

@@ -252,19 +252,25 @@ def probe_fused(device: torch.device, precision: str,
 
 
 def partition_rows_plain(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
-                         dleft, mt, nbf, db, do_k,
-                         packed_block: int = 0) -> torch.Tensor:
+                         dleft, mt, nbf, db, do_k, packed_block: int = 0,
+                         iscat=None, cmask=None) -> torch.Tensor:
     """The "vselect" partition: [n] int32 updated leaf ids.
 
     bins_t: [F, n] uint8 or int32 bins (or 4-bit packed [F, n/2] in
     blocks of packed_block rows, when > 0);
-    sel_feat/sel/new_ids/thr/mt/nbf/db: [K] int32; dleft/do_k: [K] bool."""
+    sel_feat/sel/new_ids/thr/mt/nbf/db: [K] int32; dleft/do_k: [K] bool;
+    iscat [K] bool and cmask [K, B] f32 (categorical splits: a row goes
+    left where its bin's mask entry is set, grower.py:1331-1338 of the
+    JAX package), or None."""
     cols = bins_t[sel_feat.long()]
     if packed_block:
         cols = unpack2d(cols, packed_block)
     cols = cols.to(torch.int32)                                 # [K, n]
     go_left = numeric_go_left(cols, mt[:, None], nbf[:, None], db[:, None],
                               thr[:, None], dleft[:, None])
+    if iscat is not None:
+        cm = torch.gather(cmask, 1, cols.long())
+        go_left = torch.where(iscat[:, None], cm > 0.5, go_left)
     move = (leaf_ids[None, :] == sel[:, None]) & do_k[:, None] & ~go_left
     # each row sits in at most one frontier leaf: the max over slots is
     # its unique new id, -1 = stay

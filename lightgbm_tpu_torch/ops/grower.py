@@ -46,6 +46,17 @@ the host (`utils.prng.uniform`) and queued to the device.  As in the JAX
 grower, the per-node masks take the fused scan away ("fused" then runs
 the B1 histogram and the torch split search every round) and the
 frontier ramp with it.
+
+With has_cat (categorical features, grower.py:475-545 of the JAX
+package) every split search merges the numerical search, over the
+numerical features, with the categorical one
+(`split.per_feature_best_split_categorical`), over the categorical
+features; a categorical winner carries its [B] mask of the bins routed
+left, which the stored best splits, the partition (a row goes left where
+its bin's mask entry is set) and the records (16 + B columns) carry on.
+As in the JAX grower, categorical data takes the grower off B2's
+in-launch scan and the int precisions off the int32 bin prefix sums: the
+histograms are dequantized before the search.
 """
 
 from __future__ import annotations
@@ -63,17 +74,18 @@ from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
                         pack_stats, quant_limit, quantize_values, unpack2d)
 from .leafsum import leaf_sums
 from .predict import upload
-from .split import (K_MIN_SCORE, finalize_split, leaf_output,
+from .split import (K_MIN_SCORE, SplitResult, finalize_split, leaf_output,
                     numeric_go_left, per_feature_best_split,
-                    unpack_pf_records)
+                    per_feature_best_split_categorical, unpack_pf_records)
 
-# record-row field indices (lightgbm_tpu/ops/grower.py REC_*)
+# record-row field indices (lightgbm_tpu/ops/grower.py REC_*); rows are 16
+# wide, plus a trailing [B] categorical bin mask when has_cat
 REC_LEAF, REC_FEATURE, REC_THRESHOLD, REC_DEFAULT_LEFT, REC_GAIN, \
     REC_LEFT_OUTPUT, REC_RIGHT_OUTPUT, REC_LEFT_COUNT, REC_RIGHT_COUNT, \
     REC_LEFT_WEIGHT, REC_RIGHT_WEIGHT, REC_INTERNAL_VALUE, \
     REC_INTERNAL_WEIGHT, REC_INTERNAL_COUNT, REC_DID_SPLIT, \
     REC_IS_CAT = range(16)
-REC_WIDTH = 16
+REC_WIDTH = 16  # the categorical mask starts here
 
 PARTITION_IMPLS = ("select", "vselect", "kernel")
 
@@ -91,6 +103,14 @@ class GrowerParams(NamedTuple):
     min_sum_hessian: float
     min_gain_to_split: float
     max_depth: int
+    # categorical split search (feature_histogram.hpp:118-279); has_cat
+    # leaves the whole categorical path out for numerical data
+    has_cat: bool = False
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: float = 100.0
     # leaves split per round; 1 = strict reference best-first order
     split_batch: int = 16
     # batch only leaves whose gain >= alpha * the round's best gain
@@ -155,10 +175,12 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     with params.packed_bins;
     grad/hess/row_mask: [n_pad] f32 (padding rows zero); feature_mask:
     [F] f32; meta: per-feature int32 num_bin/missing_type/default_bin/
-    monotone and f32 penalty; key: the tree's threefry key (uint32[2],
-    `utils.prng`), which seeds the stochastic rounding of int8/int16.
+    monotone and f32 penalty (and is_categorical under has_cat); key: the
+    tree's threefry key (uint32[2], `utils.prng`), which seeds the
+    stochastic rounding of int8/int16.
 
-    Returns records [L-1, 16], leaf_ids [n_pad], leaf_output [L],
+    Returns records [L-1, 16] ([L-1, 16 + B] under has_cat, the bins
+    routed left by each categorical split), leaf_ids [n_pad], leaf_output [L],
     leaf_cnt [L], leaf_sum_h [L] (device tensors) and syncs (int)."""
     quantized = params.precision in INT_PRECISIONS
     if quantized and params.quant_round not in ("stochastic", "nearest"):
@@ -178,6 +200,13 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             or not params.hist_impl.startswith("pallas")):
         raise ValueError("packed 4-bit bins require the pallas histogram "
                          "impl and a select-family partition lowering")
+    if params.partition_impl == "kernel" and params.has_cat:
+        # grower.py:384-390 of the JAX package
+        raise ValueError(
+            "tpu_partition_impl=kernel (the pallas row-partition) covers "
+            "plain dense numerical columns only — categorical splits, EFB "
+            "bundles, sparse storage, and 4-bit packing keep the "
+            "select-family lowerings")
     dev = bins_t.device
     L = params.num_leaves
     B = params.num_bins
@@ -203,7 +232,13 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     bynode = params.feature_fraction_bynode < 1.0
     if bynode and key is None:
         raise ValueError("feature_fraction_bynode needs the tree's key")
-    fused_scan = params.hist_impl == "fused" and quantized and not bynode
+    # categorical data reshapes the search too (grower.py:553-561)
+    fused_scan = (params.hist_impl == "fused" and quantized and not bynode
+                  and not params.has_cat)
+    # the int32 bin prefix sums serve the numerical search alone: with
+    # categorical features the histograms rescale to f32 first
+    # (grower.py:845-848)
+    int_scan = quantized and not params.has_cat
     qscale = None
     FG = feature_mask.shape[0]
     FW = params.bynode_width or FG
@@ -226,21 +261,68 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
 
     def best_of(pf, sg, sh, min_c, max_c):
         """Each child's best feature (the lowest index among equal gains)
-        and its finalized split."""
+        and its finalized split (no categorical flag or mask)."""
         bf = torch.argmax(pf.gain, dim=-1).to(i32)
         return finalize_split(pf, bf, sg, sh, min_constraint=min_c,
-                              max_constraint=max_c, **out_kw)
+                              max_constraint=max_c, **out_kw), None, None
 
     def select(hist, sg, sh, cnt, min_c, max_c, fmask):
         """Best split of each leaf of the batch: hist [C, F, B, 3] (int32
         sums under the quantized precisions, rescaled after the bin
-        prefix sums); fmask [F], or [C, F] (one mask a leaf)."""
+        prefix sums, or before the search with categorical features);
+        fmask [F], or [C, F] (one mask a leaf).  Returns (SplitResult,
+        is_cat [C] bool, cat_mask [C, B] f32), the last two None without
+        categorical features."""
+        if not params.has_cat:
+            pf = per_feature_best_split(
+                hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
+                meta["default_bin"], meta["monotone"], meta["penalty"],
+                fmask, min_constraint=min_c, max_constraint=max_c,
+                acc_scale=qscale if int_scan else None, **split_kw)
+            return best_of(pf, sg, sh, min_c, max_c)
+        if quantized:
+            hist = hist.to(f32) * qscale
+        # the merged search (grower.py:509-543): numerical features
+        # through the numerical search, categorical ones through theirs
+        catf = meta["is_categorical"].to(f32)
         pf = per_feature_best_split(
             hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
             meta["default_bin"], meta["monotone"], meta["penalty"],
-            fmask, min_constraint=min_c, max_constraint=max_c,
-            acc_scale=qscale, **split_kw)
-        return best_of(pf, sg, sh, min_c, max_c)
+            fmask * (1.0 - catf), min_constraint=min_c,
+            max_constraint=max_c, **split_kw)
+        pfc = per_feature_best_split_categorical(
+            hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
+            meta["penalty"], fmask * catf, cat_l2=params.cat_l2,
+            cat_smooth=params.cat_smooth,
+            max_cat_threshold=params.max_cat_threshold,
+            max_cat_to_onehot=params.max_cat_to_onehot,
+            min_data_per_group=params.min_data_per_group,
+            min_constraint=min_c, max_constraint=max_c, **split_kw)
+        is_cat = meta["is_categorical"] > 0
+        gain = torch.where(is_cat, pfc.gain, pf.gain)
+        bf = torch.argmax(gain, dim=-1).to(i32)
+        resn = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
+                              max_constraint=max_c, **out_kw)
+        c = is_cat[bf.long()]
+
+        def pick(a):
+            return torch.gather(a, -1, bf[..., None].long())[..., 0]
+
+        res = SplitResult(
+            gain=pick(gain), feature=bf,
+            threshold=torch.where(c, 0, resn.threshold).to(i32),
+            default_left=resn.default_left & ~c,
+            left_sum_g=torch.where(c, pick(pfc.left_sum_g), resn.left_sum_g),
+            left_sum_h=torch.where(c, pick(pfc.left_sum_h), resn.left_sum_h),
+            left_count=torch.where(c, pick(pfc.left_count),
+                                   resn.left_count),
+            left_output=torch.where(c, pick(pfc.left_output),
+                                    resn.left_output),
+            right_output=torch.where(c, pick(pfc.right_output),
+                                     resn.right_output))
+        mask = torch.gather(pfc.cat_mask, -2, bf.long()[..., None, None]
+                            .expand(*bf.shape, 1, B))[..., 0, :]
+        return res, c, mask * c[..., None].to(f32)
 
     # ---- root ------------------------------------------------------------
     g = grad * row_mask
@@ -287,8 +369,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         # the node draws split it (grower.py:1084-1086)
         node_key, k_root = split(node_key)
         root_fmask = bynode_masks(k_root, ())
-    root = select(root_hist[None], sum_g[None], sum_h[None], cnt[None],
-                  -big, big, root_fmask)
+    root, root_iscat, root_cmask = select(
+        root_hist[None], sum_g[None], sum_h[None], cnt[None], -big, big,
+        root_fmask)
     if fused_scan:
         # the megakernel's per-feature tables (the JAX package's fused.py
         # layout); no per-node masks in this slice, so the feature mask
@@ -327,9 +410,15 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         "bs_lo": vec(0.0, first=root.left_output[0]),
         "bs_ro": vec(0.0, first=root.right_output[0]),
     }
+    if params.has_cat:
+        # the categorical best-split carry: flag and bins-going-left mask
+        st["bs_iscat"] = vec(False, torch.bool, first=root_iscat[0])
+        st["bs_catmask"] = torch.zeros((L + 1, B), dtype=f32, device=dev)
+        st["bs_catmask"][0] = root_cmask[0]
     st["pool"][0] = root_hist
     # K slack rows so the last round's full-width write stays in bounds
-    records = torch.zeros((L - 1 + K, REC_WIDTH), dtype=f32, device=dev)
+    RW = REC_WIDTH + (B if params.has_cat else 0)
+    records = torch.zeros((L - 1 + K, RW), dtype=f32, device=dev)
     n_splits = torch.zeros((), dtype=i32, device=dev)
 
     def cand_gains():
@@ -339,7 +428,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return torch.where(st["leaf_depth"][:L] < params.max_depth, gains,
                            K_MIN_SCORE)
 
-    def partition(sel, new_ids, do_k, sel_feat, sel_thr, sel_dleft):
+    def partition(sel, new_ids, do_k, sel_feat, sel_thr, sel_dleft,
+                  sel_iscat, cmask_sel):
         mt = meta["missing_type"][sel_feat]
         nbf = meta["num_bin"][sel_feat]
         db = meta["default_bin"][sel_feat]
@@ -349,7 +439,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         if params.partition_impl == "vselect":
             return partition_rows_plain(bins_t, sel_feat, leaf_ids, sel,
                                         new_ids, sel_thr, sel_dleft, mt,
-                                        nbf, db, do_k, pblock)
+                                        nbf, db, do_k, pblock, sel_iscat,
+                                        cmask_sel)
         # "select": one scalar-broadcast pass per slot
         new_leaf = leaf_ids
         for k in range(sel.shape[0]):
@@ -359,6 +450,12 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             col = col.to(i32)
             go_left = numeric_go_left(col, mt[k], nbf[k], db[k],
                                       sel_thr[k], sel_dleft[k])
+            if params.has_cat:
+                # the bins in the stored mask go left, every other (the
+                # NaN bin too) right (grower.py:1283-1287)
+                go_left = torch.where(sel_iscat[k],
+                                      cmask_sel[k][col.long()] > 0.5,
+                                      go_left)
             move = (leaf_ids == sel[k]) & do_k[k] & ~go_left
             new_leaf = torch.where(move, new_ids[k], new_leaf)
         return new_leaf
@@ -377,6 +474,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         sl = sel.long()
         sel_feat, sel_thr = st["bs_feat"][sl], st["bs_thr"][sl]
         sel_dleft = st["bs_dleft"][sl]
+        sel_iscat = cmask_sel = None
+        if params.has_cat:
+            sel_iscat, cmask_sel = st["bs_iscat"][sl], st["bs_catmask"][sl]
         lg, lh, lc = st["bs_lg"][sl], st["bs_lh"][sl], st["bs_lc"][sl]
         lo, ro = st["bs_lo"][sl], st["bs_ro"][sl]
         num_do = do_k.sum(dtype=i32)
@@ -386,7 +486,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         rg, rh, rc = pg - lg, ph - lh, pc - lc
 
         leaf_ids = partition(sel, new_ids, do_k, sel_feat, sel_thr,
-                             sel_dleft)
+                             sel_dleft, sel_iscat, cmask_sel)
 
         # all K smaller children in one pass, siblings by subtraction
         smaller_is_left = lc <= rc
@@ -438,19 +538,24 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         if fused_scan:
             # the megakernel's records: argmax over the per-feature gains,
             # then finalize_split (grower.py:1532-1551)
-            ch = best_of(unpack_pf_records(srecs), torch.cat([lg, rg]),
-                         torch.cat([lh, rh]), -big, big)
+            ch, ch_iscat, ch_cmask = best_of(
+                unpack_pf_records(srecs), torch.cat([lg, rg]),
+                torch.cat([lh, rh]), -big, big)
         else:
-            ch = select(torch.cat([hist_left, hist_right]),
-                        torch.cat([lg, rg]), torch.cat([lh, rh]),
-                        torch.cat([lc, rc]), -big, big, child_masks)
+            ch, ch_iscat, ch_cmask = select(
+                torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
+                torch.cat([lh, rh]), torch.cat([lc, rc]), -big, big,
+                child_masks)
 
         # the record block reads the parent's output before it changes
         rec = torch.stack([
             sel.to(f32), sel_feat.to(f32), sel_thr.to(f32),
             sel_dleft.to(f32), vals, lo, ro, lc, rc, lh, rh,
             st["leaf_output"][sl], ph, pc, do_k.to(f32),
-            torch.zeros(Kr, dtype=f32, device=dev)], dim=1)   # [Kr, 16]
+            (sel_iscat.to(f32) if params.has_cat
+             else torch.zeros(Kr, dtype=f32, device=dev))], dim=1)
+        if params.has_cat:
+            rec = torch.cat([rec, cmask_sel], dim=1)      # [Kr, 16 + B]
         for key, li, ri in (("leaf_sum_g", lg, rg), ("leaf_sum_h", lh, rh),
                             ("leaf_cnt", lc, rc), ("leaf_output", lo, ro)):
             put(key, li, ri)
@@ -463,6 +568,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
                         ("bs_lc", ch.left_count), ("bs_lo", ch.left_output),
                         ("bs_ro", ch.right_output)):
             put(key, cv[:Kr], cv[Kr:])
+        if params.has_cat:
+            put("bs_iscat", ch_iscat[:Kr], ch_iscat[Kr:])
+            put("bs_catmask", ch_cmask[:Kr], ch_cmask[Kr:])
         records.index_copy_(0, (n_splits + kar).long(), rec)
         n_splits = n_splits + num_do
 

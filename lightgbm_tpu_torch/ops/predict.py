@@ -1,21 +1,28 @@
 """Device forest prediction: bin-space traversal as torch ops.
 
 The port of `lightgbm_tpu/ops/predict.py`: `pack_trees` (host numpy,
-copied) flattens `Tree` models into dense per-tree node tables, and
+copied) flattens `Tree` models into dense per-tree node tables, with the
+categorical nodes' bitsets in one shared word pool (`cat_words`, word 0
+kept zero, each categorical node a (start, width) window into it), and
 `leaf_values` walks every row through every tree in bin space, one
-gather step per depth level — the analog of `NumericalDecisionInner`
-(reference tree.h:252-318) with NaN/zero missing routing.  The JAX
-package runs this as plain XLA, so the port runs it as plain torch ops
-on the card; it has no hand kernel.  Categorical nodes are outside the
-port's slice and refused.
+gather step per depth level — the analog of `NumericalDecisionInner` and
+`CategoricalDecisionInner` (reference tree.h:252-318) with NaN/zero
+missing routing and the bitset override.  `PackedForest` appends the
+trees trained since its last call to amortized host tables instead of
+packing the forest anew.  The JAX package runs this as plain XLA, so the
+port runs it as plain torch ops on the card; it has no hand kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# table keys that are [T, num_internal_nodes] int32
+_NODE_KEYS = ("split_feature", "threshold", "decision_type",
+              "left_child", "right_child", "cat_start", "cat_width")
 
 
 def pack_trees(trees: Sequence, leaf_width: int = 0
@@ -23,7 +30,10 @@ def pack_trees(trees: Sequence, leaf_width: int = 0
     """Flatten host Tree models into dense [T, ...] node tables.
 
     Returns (tables, max_depth).  Leaves stay encoded as `~leaf_idx` in
-    the child columns; a constant tree starts at node `~0`.  The table
+    the child columns; a constant tree starts at node `~0`.  Categorical
+    nodes carry a (start, width) window into the shared `cat_words`
+    bitset pool, whose word 0 stays zero so that numerical nodes point at
+    it harmlessly.  `leaf_width` pins the leaf axis.  The table
     keys and layout are those of the JAX package's `pack_trees`, so its
     tables load here unchanged (`convert.py`)."""
     T = len(trees)
@@ -34,8 +44,12 @@ def pack_trees(trees: Sequence, leaf_width: int = 0
     dt = np.zeros((T, ni_w), np.int32)
     lc = np.zeros((T, ni_w), np.int32)
     rc = np.zeros((T, ni_w), np.int32)
+    cs = np.zeros((T, ni_w), np.int32)
+    cw = np.zeros((T, ni_w), np.int32)
     lv = np.zeros((T, L), np.float32)
     init = np.zeros(T, np.int32)
+    words: List[np.ndarray] = [np.zeros(1, np.uint32)]
+    woff = 1
     depth = 1
     for ti, t in enumerate(trees):
         nl = int(t.num_leaves)
@@ -44,21 +58,27 @@ def pack_trees(trees: Sequence, leaf_width: int = 0
         if ni <= 0:
             init[ti] = -1  # ~0: already at leaf 0
             continue
-        if t.num_cat > 0:
-            raise NotImplementedError(
-                "categorical splits are not ported to lightgbm_tpu_torch "
-                "yet")
         sf[ti, :ni] = t.split_feature_inner[:ni]
         thr[ti, :ni] = t.threshold_in_bin[:ni]
         dt[ti, :ni] = t.decision_type[:ni].astype(np.int32) & 0xF
         lc[ti, :ni] = t.left_child[:ni]
         rc[ti, :ni] = t.right_child[:ni]
         depth = max(depth, int(t.max_depth()))
-    zeros = np.zeros((T, ni_w), np.int32)
+        if t.num_cat > 0:
+            cb = np.asarray(t.cat_boundaries_inner, np.int64)
+            tw = np.asarray(t.cat_threshold_inner, np.uint32)
+            is_cat = (dt[ti, :ni] & 1) != 0
+            ci = np.clip(thr[ti, :ni], 0, max(len(cb) - 2, 0))
+            cs[ti, :ni] = np.where(is_cat, woff + cb[ci], 0)
+            cw[ti, :ni] = np.where(is_cat, cb[ci + 1] - cb[ci], 0)
+            if len(tw):
+                words.append(tw)
+                woff += len(tw)
+    pool = np.concatenate(words)
     tables = {"split_feature": sf, "threshold": thr, "decision_type": dt,
-              "left_child": lc, "right_child": rc, "cat_start": zeros,
-              "cat_width": zeros.copy(), "leaf_value": lv, "init_node": init,
-              "cat_words": np.zeros(1, np.uint32)}
+              "left_child": lc, "right_child": rc, "cat_start": cs,
+              "cat_width": cw, "leaf_value": lv, "init_node": init,
+              "cat_words": pool}
     return tables, depth
 
 
@@ -74,17 +94,11 @@ def upload(host: np.ndarray, device) -> torch.Tensor:
 
 def device_tables(tables: Dict[str, np.ndarray], device
                   ) -> Dict[str, torch.Tensor]:
-    """Host tables -> device tensors (numeric node tables only), in one
-    upload: every table packed into one int64 buffer (the leaf values
-    by their f32 bits), on the card copied from pinned memory without a
-    host wait, then viewed apart on the device."""
-    words = np.asarray(tables["cat_words"])
-    if words.shape[0] > 1 or np.any(
-            (np.asarray(tables["decision_type"]) & 1) != 0):
-        raise NotImplementedError(
-            "categorical splits are not ported to lightgbm_tpu_torch yet")
-    keys = ("split_feature", "threshold", "decision_type", "left_child",
-            "right_child", "init_node")
+    """Host tables -> device tensors, in one upload: every table packed
+    into one int64 buffer (the leaf values by their f32 bits, the bitset
+    words as their uint32 values), on the card copied from pinned memory
+    without a host wait, then viewed apart on the device."""
+    keys = _NODE_KEYS + ("init_node", "cat_words")
     lv = np.asarray(tables["leaf_value"], np.float32)
     parts = [np.asarray(tables[k], np.int64) for k in keys] + [
         lv.view(np.int32).astype(np.int64)]
@@ -104,6 +118,8 @@ def leaf_index(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
 
     bins_t: [F, n] bins; num_bin/default_bin/missing_type: [F] int64.
     Rows already at a leaf (node < 0) keep their state."""
+    words = tables["cat_words"]
+    has_cat = words.shape[0] > 1
     T = tables["leaf_value"].shape[0]
     n = bins_t.shape[1]
     node = tables["init_node"][:, None].expand(T, n).contiguous()
@@ -117,6 +133,16 @@ def leaf_index(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
         dt = torch.gather(tables["decision_type"], 1, nid)
         thr = torch.gather(tables["threshold"], 1, nid)
         go_left = torch.where(is_missing, (dt & 2) != 0, fbin <= thr)
+        if has_cat:
+            # bitset membership in bin space: the bins in the node's set
+            # go left, every other bin (the NaN bin too) right
+            cs = torch.gather(tables["cat_start"], 1, nid)
+            width = torch.gather(tables["cat_width"], 1, nid)
+            word_idx = fbin // 32
+            word = words[torch.clamp(cs + word_idx, 0, words.shape[0] - 1)]
+            bit = (word >> (fbin % 32)) & 1
+            go_cat = (word_idx < width) & (bit == 1)
+            go_left = torch.where((dt & 1) != 0, go_cat, go_left)
         nxt = torch.where(go_left,
                           torch.gather(tables["left_child"], 1, nid),
                           torch.gather(tables["right_child"], 1, nid))
@@ -209,3 +235,77 @@ def class_scores(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
     for t in range(vals.shape[0]):
         out[t % k] += vals[t]
     return out
+
+
+class PackedForest:
+    """Appendable forest tables: amortized host buffers and a device copy
+    (lightgbm_tpu/ops/predict.py:PackedForest).
+
+    `sync(models)` packs only the trees added since the last call into
+    capacity-doubling host buffers, rebasing their bitset windows past the
+    pool's words; `device(n)` uploads the tables again only when the tree
+    count changed.  A tree wider than any seen repacks the forest.  A
+    change of leaf values in place (DART's shrinkage) or of the order
+    (`shuffle_models`) must drop the instance."""
+
+    def __init__(self, device):
+        self._target = device
+        self._count = 0
+        self._cap = 0
+        self._host: Optional[Dict[str, np.ndarray]] = None
+        self._depth = 1
+        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._dev_count = -1
+
+    @property
+    def depth(self) -> int:
+        return self._depth
+
+    def sync(self, models: Sequence) -> int:
+        """Append models[self._count:]; returns the packed tree count."""
+        new = models[self._count:]
+        if not new:
+            return self._count
+        width = max([t.num_leaves for t in new] + [1])
+        if self._host is None or width > self._host["leaf_value"].shape[1]:
+            # the first pack, or a wider tree: rebuild at full width
+            tables, depth = pack_trees(list(models))
+            self._host = tables
+            self._depth = max(self._depth, depth)
+            self._cap = self._count = len(models)
+            return self._count
+        tables, depth = pack_trees(
+            list(new), leaf_width=self._host["leaf_value"].shape[1])
+        self._depth = max(self._depth, depth)
+        need = self._count + len(new)
+        if need > self._cap:
+            self._cap = max(need, 2 * self._cap)
+            for key in _NODE_KEYS + ("leaf_value", "init_node"):
+                old = self._host[key]
+                grown = np.zeros((self._cap,) + old.shape[1:], old.dtype)
+                grown[:self._count] = old[:self._count]
+                self._host[key] = grown
+        base = int(self._host["cat_words"].shape[0])
+        for key in _NODE_KEYS + ("leaf_value", "init_node"):
+            self._host[key][self._count:need] = tables[key]
+        # the new trees' bitset windows, numbered from their own pack's
+        # word 1, move past the words already pooled
+        if tables["cat_words"].shape[0] > 1:
+            cs = self._host["cat_start"][self._count:need]
+            cs[cs > 0] += base - 1
+            self._host["cat_words"] = np.concatenate(
+                [self._host["cat_words"], tables["cat_words"][1:]])
+        self._count = need
+        return self._count
+
+    def device(self, num_trees: int = -1) -> Dict[str, torch.Tensor]:
+        """Device tables of the first `num_trees` trees (-1: all)."""
+        if self._dev_count != self._count:
+            host = {k: (v[:self._count] if k != "cat_words" else v)
+                    for k, v in self._host.items()}
+            self._dev = device_tables(host, self._target)
+            self._dev_count = self._count
+        if num_trees < 0 or num_trees >= self._count:
+            return self._dev
+        return {k: (v[:num_trees] if k != "cat_words" else v)
+                for k, v in self._dev.items()}

@@ -1,9 +1,11 @@
 """Best-split search over histograms as masked cumulative sums + argmax.
 
-The port of the numerical part of `lightgbm_tpu/ops/split.py`; the
-module docstring there derives the two scan directions from the
-reference (feature_histogram.hpp:508-644).  Every function takes optional
-leading batch dimensions in front of the feature axis, where the JAX
+The port of `lightgbm_tpu/ops/split.py`: the numerical search, whose two
+scan directions that module's docstring derives from the reference
+(feature_histogram.hpp:508-644), and the categorical search
+(`per_feature_best_split_categorical`, feature_histogram.hpp:118-279).
+Every function takes optional leading batch dimensions in front of the
+feature axis, where the JAX
 grower vmaps over children: the math is elementwise, so a written-out
 batch axis computes the same values.
 
@@ -289,3 +291,204 @@ def finalize_split(pf: PerFeatureBest, best_f, sum_g, sum_h, *, l1: float,
         threshold=pick(pf.threshold), default_left=pick(pf.default_left),
         left_sum_g=lg, left_sum_h=lh, left_count=pick(pf.left_count),
         left_output=lo, right_output=ro)
+
+
+class PerFeatureCatBest(NamedTuple):
+    """Per-feature best categorical split candidates."""
+    gain: torch.Tensor          # [..., F] net gain (penalized)
+    cat_mask: torch.Tensor      # [..., F, B] f32: 1.0 for bins going left
+    left_sum_g: torch.Tensor    # [..., F]
+    left_sum_h: torch.Tensor
+    left_count: torch.Tensor
+    left_output: torch.Tensor   # [..., F], with the mode's l2
+    right_output: torch.Tensor
+
+
+def _gain_given_outputs(gl, hl, gr, hr, l1, l2, mds, min_c, max_c):
+    """GetSplitGains (feature_histogram.hpp:432-447): the gain of the two
+    leaf outputs after the constraint clip."""
+    lo = _clip(leaf_output(gl, hl, l1, l2, mds), min_c, max_c)
+    ro = _clip(leaf_output(gr, hr, l1, l2, mds), min_c, max_c)
+    g_l = -(2.0 * _threshold_l1(gl, l1) * lo + (hl + l2) * lo * lo)
+    g_r = -(2.0 * _threshold_l1(gr, l1) * ro + (hr + l2) * ro * ro)
+    return g_l + g_r, lo, ro
+
+
+def cat_scan_steps(max_cat_threshold: int, num_bins: int) -> int:
+    """The steps of the sorted-CTR scan that can change its state: a
+    feature's scan is active for at most min(max_cat_threshold,
+    (used + 1) // 2) steps, and used <= B."""
+    return max(0, min(int(max_cat_threshold), (int(num_bins) + 1) // 2))
+
+
+def per_feature_best_split_categorical(
+        hist, sum_g, sum_h, num_data, num_bin, missing_type, penalty,
+        feature_mask, *, l1: float, l2: float, max_delta_step: float,
+        min_data_in_leaf: float, min_sum_hessian: float,
+        min_gain_to_split: float, cat_l2: float, cat_smooth: float,
+        max_cat_threshold: int, max_cat_to_onehot: int,
+        min_data_per_group: float, min_constraint=-1e30,
+        max_constraint=1e30, scan_steps=None) -> PerFeatureCatBest:
+    """Categorical best-split search (FindBestThresholdCategorical,
+    reference feature_histogram.hpp:118-279), the port of
+    `lightgbm_tpu/ops/split.py:per_feature_best_split_categorical`.
+
+    hist: [..., F, B, 3] f32; sum_g/sum_h/num_data and the bounds: [...];
+    num_bin/missing_type/penalty: [F]; feature_mask: [F] or [..., F].
+
+    Two modes a feature, by num_bin <= max_cat_to_onehot: one-hot (each
+    category bin against the rest, vectorized over the bins), or the
+    sorted-CTR subset scan (bins with count >= cat_smooth sorted by
+    sum_g / (sum_h + cat_smooth), a stable sort with invalid bins last,
+    then prefix-scanned from both ends with the reference's
+    min_data_per_group grouping and early-break rules).  The JAX package
+    runs the scan as a `lax.scan` of B steps of f32 scalars a feature;
+    here it is one loop of elementwise steps over (children, features,
+    both directions), adding one bin a step in f32 as that scan does (no
+    cumsum, whose order differs).  Past a feature's limit its state stops
+    changing, so the loop runs `cat_scan_steps` steps (`scan_steps`
+    overrides it; any larger count gives the same result).
+
+    Returns per-feature candidates whose cat_mask marks the bins (the
+    categories) routed left."""
+    F, B = hist.shape[-3], hist.shape[-2]
+    dev = hist.device
+    f32 = torch.float32
+
+    def lead(x):
+        x = torch.as_tensor(x, dtype=f32, device=dev)
+        return x[..., None, None]
+
+    sg, sh, nd = lead(sum_g), lead(sum_h), lead(num_data)
+    min_c, max_c = lead(min_constraint), lead(max_constraint)
+    hg, hh, hc = hist[..., 0], hist[..., 1], hist[..., 2]
+    bin_iota = torch.arange(B, device=dev, dtype=torch.int32)[None, :]
+
+    # used_bin = num_bin - 1 + (missing_type == None)  (hpp:130-131)
+    is_full = missing_type == MISSING_NONE
+    used_bin = num_bin - 1 + is_full.to(torch.int32)            # [F]
+
+    gain_shift = leaf_split_gain(sg[..., 0], sh[..., 0], l1, l2,
+                                 max_delta_step)                # [..., 1]
+    min_gain_shift = gain_shift + min_gain_to_split
+
+    # ---- one-hot mode (hpp:137-169) --------------------------------------
+    in_range = bin_iota < used_bin[:, None]                     # [F, B]
+    oh_hl = hh + K_EPSILON
+    oh_hr = sh - hh - K_EPSILON
+    ok = (in_range
+          & (hc >= min_data_in_leaf) & (hh >= min_sum_hessian)
+          & ((nd - hc) >= min_data_in_leaf)
+          & (oh_hr >= min_sum_hessian))
+    oh_gain = _gain_given_outputs(sg - hg, oh_hr, hg, oh_hl, l1, l2,
+                                  max_delta_step, min_c, max_c)[0]
+    oh_gain = torch.where(ok & (oh_gain > min_gain_shift[..., None]),
+                          oh_gain, K_MIN_SCORE)
+    oh_t = torch.argmax(oh_gain, dim=-1)                        # [..., F]
+
+    def at(a, idx):
+        return torch.gather(a, -1, idx[..., None])[..., 0]
+
+    oh_best_gain = at(oh_gain, oh_t)
+    oh_mask = (bin_iota == oh_t[..., None]).to(f32)
+    oh_lg, oh_lh, oh_lc = at(hg, oh_t), at(hh, oh_t) + K_EPSILON, \
+        at(hc, oh_t)
+
+    # ---- sorted-CTR subset mode (hpp:170-243) ----------------------------
+    l2c = l2 + cat_l2
+    valid = in_range & (hc >= cat_smooth)                       # [..., F, B]
+    ctr = hg / (hh + cat_smooth)
+    sort_key = torch.where(valid, ctr, float("inf"))
+    order = torch.sort(sort_key, dim=-1, stable=True).indices    # [..., F, B]
+    used = valid.sum(dim=-1, dtype=torch.int32)                 # [..., F]
+    limit = torch.clamp((used + 1) // 2, max=int(max_cat_threshold))
+    # the bins in scan order, ascending and descending: step i reads bin
+    # order[i] of the first and order[used - 1 - i] of the second
+    asc = torch.gather(hist, -2, order[..., None].expand(*order.shape, 3))
+    pos_d = torch.clamp(used[..., None] - 1 - bin_iota.to(torch.int64),
+                        0, B - 1)
+    desc = torch.gather(asc, -2, pos_d[..., None].expand(*pos_d.shape, 3))
+    seq = torch.stack([asc, desc], dim=-3)                  # [..., F, 2, B, 3]
+
+    shape = seq.shape[:-2]                                  # [..., F, 2]
+    lim = limit[..., None]
+    slg = torch.zeros(shape, dtype=f32, device=dev)
+    slh = torch.full(shape, K_EPSILON, dtype=f32, device=dev)
+    slc = torch.zeros(shape, dtype=f32, device=dev)
+    grp = torch.zeros(shape, dtype=f32, device=dev)
+    dead = torch.zeros(shape, dtype=torch.bool, device=dev)
+    bg = torch.full(shape, K_MIN_SCORE, dtype=f32, device=dev)
+    bi = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    blg, blh, blc = (torch.zeros(shape, dtype=f32, device=dev)
+                     for _ in range(3))
+    mgs = min_gain_shift[..., None]
+    steps = (cat_scan_steps(max_cat_threshold, B) if scan_steps is None
+             else int(scan_steps))
+    for i in range(min(steps, B)):
+        v = seq[..., i, :]
+        active = (lim > i) & ~dead
+        slg = slg + torch.where(active, v[..., 0], 0.0)
+        slh = slh + torch.where(active, v[..., 1], 0.0)
+        slc = slc + torch.where(active, v[..., 2], 0.0)
+        grp = grp + torch.where(active, v[..., 2], 0.0)
+        cont1 = (slc < min_data_in_leaf) | (slh < min_sum_hessian)
+        rc = nd - slc
+        srh = sh - slh
+        brk = ((rc < min_data_in_leaf) | (rc < min_data_per_group)
+               | (srh < min_sum_hessian))
+        cont2 = grp < min_data_per_group
+        evaluate = active & ~cont1 & ~brk & ~cont2
+        gain = _gain_given_outputs(slg, slh, sg - slg, srh, l1, l2c,
+                                   max_delta_step, min_c, max_c)[0]
+        good = evaluate & (gain > mgs) & (gain > bg)
+        grp = torch.where(evaluate, 0.0, grp)
+        bg = torch.where(good, gain, bg)
+        bi = torch.where(good, i, bi)
+        blg = torch.where(good, slg, blg)
+        blh = torch.where(good, slh, blh)
+        blc = torch.where(good, slc, blc)
+        dead = dead | (active & ~cont1 & brk)
+
+    # the ascending scan, the first, keeps ties
+    use2 = bg[..., 1] > bg[..., 0]
+
+    def pick(a):
+        return torch.where(use2, a[..., 1], a[..., 0])
+
+    so_gain, so_bi = pick(bg), pick(bi)
+    so_lg, so_lh, so_lc = pick(blg), pick(blh), pick(blc)
+    # bins routed left: sorted positions 0..bi (ascending), or the last
+    # bi + 1 valid ones (descending)
+    inv = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(B, device=dev).expand_as(order))
+    b_i = so_bi[..., None].to(inv.dtype)
+    asc_mask = inv <= b_i
+    desc_mask = (inv >= used[..., None] - 1 - b_i) & (inv < used[..., None])
+    so_mask = (torch.where(use2[..., None], desc_mask, asc_mask)
+               & (b_i >= 0)).to(f32)
+
+    # ---- merge the modes a feature (hpp:136 use_onehot) ------------------
+    use_oh = num_bin <= max_cat_to_onehot                       # [F]
+    gain = torch.where(use_oh, oh_best_gain, so_gain)
+    mask = torch.where(use_oh[:, None], oh_mask, so_mask)
+    lg = torch.where(use_oh, oh_lg, so_lg)
+    lh = torch.where(use_oh, oh_lh, so_lh)
+    lc = torch.where(use_oh, oh_lc, so_lc)
+    l2_out = torch.where(use_oh, torch.tensor(l2, dtype=f32, device=dev),
+                         torch.tensor(l2c, dtype=f32, device=dev))
+
+    # leaf outputs with the mode's l2 (hpp:244-258)
+    mc, xc = min_c[..., 0], max_c[..., 0]
+    lo = _clip(-_threshold_l1(lg, l1) / (lh + l2_out), mc, xc)
+    ro = _clip(-_threshold_l1(sg[..., 0] - lg, l1)
+               / (sh[..., 0] - lh + l2_out), mc, xc)
+    if max_delta_step > 0.0:
+        lo = torch.clamp(lo, -max_delta_step, max_delta_step)
+        ro = torch.clamp(ro, -max_delta_step, max_delta_step)
+
+    gain = torch.where(feature_mask > 0, gain, K_MIN_SCORE)
+    out_gain = torch.where(gain > K_MIN_SCORE / 2,
+                           (gain - min_gain_shift) * penalty, K_MIN_SCORE)
+    return PerFeatureCatBest(gain=out_gain, cat_mask=mask, left_sum_g=lg,
+                             left_sum_h=lh, left_count=lc, left_output=lo,
+                             right_output=ro)

@@ -20,8 +20,8 @@ CPU, both through the same functions.
   k from the objective's num_class) predicts as the JAX package does;
 - a numeric DataFrame trains to the JAX package's text (its column names
   as feature names, `pandas_categorical:[]`) and predicts as its array;
-  category columns are refused by name, object columns as the JAX
-  package refuses them;
+  a category column trains and writes its table, object columns are
+  refused as the JAX package refuses them;
 - the methods that wait on later slices raise by name.
 """
 
@@ -225,11 +225,16 @@ def test_frame_predicts_as_its_array():
 
 
 def test_category_and_object_columns_refused():
+    """Object columns are refused as the JAX package refuses them; a
+    category column trains (as a categorical feature) and writes its
+    category table as the model's pandas_categorical line."""
     X, y = _data()
     df = pd.DataFrame(X[:, :3], columns=["a", "b", "c"])
     cat = df.assign(c=pd.Categorical(np.arange(N) % 4))
-    with pytest.raises(NotImplementedError, match=r"category.*\['c'\]"):
-        tlgb.train(dict(PARAMS, **CPU), tlgb.Dataset(cat, label=y), 1)
+    b = tlgb.train(dict(PARAMS, **CPU), tlgb.Dataset(cat, label=y), 1)
+    assert b.pandas_categorical == [[0, 1, 2, 3]]
+    assert b.model_to_string().endswith(
+        "\npandas_categorical:[[0, 1, 2, 3]]\n")
     obj = df.assign(c=np.where(np.arange(N) % 2, "x", "y"))
     with pytest.raises(ValueError, match="non-numeric"):
         tlgb.train(dict(PARAMS, **CPU), tlgb.Dataset(obj, label=y), 1)

@@ -75,7 +75,6 @@ OUT_OF_SLICE = [
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},
-    {"categorical_feature": "0"},
     # the JAX package's numeric guardrails, HBM preflight and telemetry
     {"tpu_guard_numerics": "warn"},
     {"tpu_guard_numerics": "skip"},

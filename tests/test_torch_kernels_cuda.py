@@ -947,3 +947,44 @@ def test_sync_step_objectives_on_card_match_cpu_text(objective):
         texts[dev] = _norm(b.model_to_string(), "device_type")
     assert kernels.launches["fused_hist_scan"] > 0
     assert texts["cuda"] == texts["cpu"]
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas2"])
+def test_categorical_int8_training_on_card_matches_cpu_text(impl):
+    """Categorical features (one-hot and sorted-CTR splits) through B1-int
+    every round: no B2 launch, the card's model text the CPU's, and the
+    card's predict of rows with NaN, negative and unseen categories equal
+    to the booster's scores after a save and load."""
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(3)
+    n = 30000
+    X = rng.normal(size=(n, 6))
+    X[rng.random(X.shape) < 0.03] = np.nan
+    X[:, 1] = rng.integers(-1, 40, n)
+    X[:, 4] = rng.integers(0, 3, n)
+    eff = rng.normal(size=41)
+    y = (np.nan_to_num(X[:, 0]) + eff[X[:, 1].astype(int) + 1]
+         + 0.5 * (X[:, 4] == 2) + 0.3 * rng.normal(size=n))
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tpu_hist_impl": impl,
+         "tpu_quant_refit_leaves": False, "verbosity": -1}
+    kernels.reset_launches()
+    gpu = lgb.train(dict(p),
+                    lgb.Dataset(X, label=y, categorical_feature=[1, 4]),
+                    num_boost_round=3, keep_training_booster=True)
+    assert kernels.launches["hist_batched_int"] > 0
+    assert kernels.launches["fused_hist_scan"] == 0
+    cpu = lgb.train(dict(p, device_type="cpu"),
+                    lgb.Dataset(X, label=y, categorical_feature=[1, 4]),
+                    num_boost_round=3)
+    text = gpu.model_to_string()
+    assert re.search(r"^num_cat=[1-9]", text, flags=re.M)
+    assert _norm(text, "device_type") == \
+        _norm(cpu.model_to_string(), "device_type")
+    P = X[:200].copy()
+    P[0::4, 1], P[1::4, 1], P[2::4, 1] = np.nan, -5.0, 1000.0
+    loaded = lgb.Booster(model_str=text)
+    np.testing.assert_array_equal(loaded.predict(P, raw_score=True),
+                                  gpu.predict(P, raw_score=True))

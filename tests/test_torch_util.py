@@ -381,13 +381,15 @@ def goss_kept_jax(lgb, X, y, params, rounds):
 
 def cv_run(lgb, X, y, run):
     """lgb.cv of `lgb` on a dataset binned with the run's max_bin (and
-    the run's query sizes, `group`, where it has them):
+    the run's query sizes, `group`, and categorical columns, `cat`, where
+    it has them):
     (the result dict without the boosters as JSON, each fold booster's
     raw scores of X or None)."""
     import json
 
     p = dict(run["params"])
     res = lgb.cv(p, lgb.Dataset(X, label=y, group=run.get("group"),
+                                categorical_feature=run.get("cat", "auto"),
                                 params={"max_bin": p["max_bin"]}),
                  num_boost_round=run["rounds"], nfold=run["nfold"],
                  stratified=run.get("stratified", True),
@@ -491,11 +493,163 @@ def booster_io_run(lgb, X, y, run, tmp):
     return out
 
 
+# ---- categorical features --------------------------------------------------
+
+
+def cat_frame(X, cat):
+    """X as a DataFrame whose `cat` columns are pandas categoricals of
+    strings ("k<code>"; NaN and negative codes missing), the other
+    columns numeric."""
+    import pandas as pd
+
+    cols = {}
+    for j in range(X.shape[1]):
+        v = X[:, j]
+        if j in cat:
+            ok = ~np.isnan(v) & (v >= 0)
+            names = np.array([f"k{int(c)}" if o else None
+                              for c, o in zip(np.nan_to_num(v), ok)],
+                             dtype=object)
+            cols[f"f{j}"] = pd.Categorical(names)
+        else:
+            cols[f"f{j}"] = v
+    return pd.DataFrame(cols)
+
+
+def cat_run(lgb, X, y, run):
+    """lgb.train of `lgb` with categorical features.  run: params, rounds,
+    cat (the categorical column indices), and optionally n_train (the
+    rows before it train, the rest validate with reference= the training
+    set), frame (the rows go in as `cat_frame`, the categorical columns
+    as pandas categories), probe (the name of an input of rows to
+    predict) and load (a model text to load and predict X with).
+    Returns the model text, the raw scores of X (the JAX package's on its
+    device path), dump_model's JSON, trees_to_dataframe as JSON, the
+    evals_result and the raw scores of the probe rows and of the loaded
+    model."""
+    import json
+
+    p = dict(run["params"])
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    kw = {"tpu_predict_device": "true"} if jax_side else {}
+    rows = cat_frame(X, run["cat"]) if run.get("frame") else X
+    n = run.get("n_train", len(y))
+    train = lgb.Dataset(rows[:n], label=y[:n],
+                        categorical_feature=("auto" if run.get("frame")
+                                             else list(run["cat"])),
+                        params={"max_bin": p["max_bin"]})
+    evals = {}
+    valid = []
+    if n < len(y):
+        valid = [lgb.Dataset(rows[n:], label=y[n:], reference=train)]
+    b = lgb.train(p, train, num_boost_round=run["rounds"],
+                  valid_sets=valid or None, evals_result=evals,
+                  verbose_eval=False, keep_training_booster=True)
+    out = {"text": b.model_to_string(),
+           "raw": np.asarray(b.predict(rows, raw_score=True, **kw)),
+           "dump": json.dumps(b.dump_model()),
+           "trees_frame": b.trees_to_dataframe().to_json(),
+           "evals": json.dumps(evals)}
+    if run.get("probe") is not None:
+        out["probe_raw"] = np.asarray(b.predict(
+            run["probe"], raw_score=True, **kw))
+    if run.get("load"):
+        other = lgb.Booster(model_str=run["load"], **(
+            {} if jax_side else {"params": {"device_type": "cpu"}}))
+        out["loaded_raw"] = np.asarray(other.predict(X, raw_score=True,
+                                                     **kw))
+    return out
+
+
+def _job_cat_split(inp, spec):
+    """lightgbm_tpu's per_feature_best_split_categorical, jitted and
+    vmapped over the children as its grower runs it, on each case."""
+    import jax
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.split import per_feature_best_split_categorical
+
+    out = {}
+    for c, case in enumerate(spec["cases"]):
+        a = {k: jnp.asarray(inp[f"{c}_{k}"]) for k in (
+            "hist", "sum_g", "sum_h", "num_data", "num_bin",
+            "missing_type", "penalty", "feature_mask")}
+        kw = case["kw"]
+
+        def one(h, sg, sh, nd, a=a, kw=kw):
+            return per_feature_best_split_categorical(
+                h, sg, sh, nd, a["num_bin"], a["missing_type"],
+                a["penalty"], a["feature_mask"], **kw)
+
+        res = jax.jit(jax.vmap(one))(a["hist"], a["sum_g"], a["sum_h"],
+                                     a["num_data"])
+        for k, v in res._asdict().items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
+# ---- the sklearn wrappers ---------------------------------------------------
+
+
+def sk_l2_obj(y_true, y_pred):
+    """A custom objective of the wrapper's form: L2 gradients."""
+    return y_pred - y_true, np.ones_like(y_true)
+
+
+def sklearn_run(lgb, X, y, run):
+    """One estimator of `lgb`'s sklearn wrapper fitted and predicted.
+    run: est (the class name), kw (constructor arguments), and optionally
+    labels ("str": y as "neg"/"pos" strings), group (query sizes), cat
+    (categorical columns, passed to fit), frame (the rows as `cat_frame`
+    of cat), n_train with early_stopping_rounds (the rows past it as
+    eval_set) and fobj (sk_l2_obj as the objective).  Returns the model
+    text, predict (and predict_proba, for a classifier) of the fitted
+    rows, the best iteration and the evals_result."""
+    import json
+
+    kw = {} if lgb.__name__ == "lightgbm_tpu_torch" else {
+        "tpu_predict_device": "true"}
+    est = getattr(lgb, run["est"])(**run["kw"])
+    if run.get("fobj"):
+        est.set_params(objective=sk_l2_obj)
+    labels = np.where(y > 0, "pos", "neg") if run.get("labels") else y
+    rows = cat_frame(X, run["cat"]) if run.get("frame") else X
+    n = run.get("n_train", len(y))
+    fit = {}
+    if run.get("group") is not None:
+        fit["group"] = run["group"]
+    if run.get("cat") and not run.get("frame"):
+        fit["categorical_feature"] = list(run["cat"])
+    if n < len(y):
+        fit.update(eval_set=[(rows[n:], labels[n:])], eval_metric="l2",
+                   early_stopping_rounds=run["early_stopping_rounds"])
+    est.fit(rows[:n], labels[:n], **fit)
+    out = {"text": est.booster_.model_to_string(),
+           "pred": np.asarray(est.predict(rows[:n], **kw)),
+           "best_iteration": est.best_iteration_,
+           "evals": json.dumps(est.evals_result_)}
+    if hasattr(est, "predict_proba"):
+        out["proba"] = np.asarray(est.predict_proba(rows[:n], **kw))
+    return out
+
+
+def _job_sklearn(inp, spec):
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        y = inp["y_" + run.get("label", "regression")]
+        for k, v in sklearn_run(lgb, inp["X"], y, run).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 def _job_boosting(inp, spec):
     """Runs of several kinds in one process: "train_valid"
     (train_valid_run), "goss_kept" (goss_kept_jax), "cv" (cv_run), "zoo"
-    (zoo_run), "booster_io" (booster_io_run) and "load_predict" (a model text loaded and its raw scores of the rows
-    of X from `start` on, on the device path)."""
+    (zoo_run), "booster_io" (booster_io_run), "cat" (cat_run) and
+    "load_predict" (a model text loaded and its raw scores of the rows of
+    X from `start` on, on the device path unless `device` says
+    otherwise)."""
     import lightgbm_tpu as lgb
 
     out = {}
@@ -524,11 +678,17 @@ def _job_boosting(inp, spec):
             with tempfile.TemporaryDirectory() as tmp:
                 for k, v in booster_io_run(lgb, X, y, run, tmp).items():
                     out[f"{c}_{k}"] = np.asarray(v)
+        elif kind == "cat":
+            run = dict(run, probe=inp.get(run.get("probe", ""), None))
+            Xc = inp["X_" + run["data"]] if run.get("data", "base") != \
+                "base" else X
+            for k, v in cat_run(lgb, Xc, y, run).items():
+                out[f"{c}_{k}"] = np.asarray(v)
         elif kind == "load_predict":
             b = lgb.Booster(model_str=run["text"])
             out[f"{c}_raw"] = np.asarray(b.predict(
                 X[run.get("start", 0):], raw_score=True,
-                tpu_predict_device="true"))
+                tpu_predict_device=run.get("device", "true")))
     return out
 
 
@@ -542,6 +702,7 @@ if __name__ == "__main__":
     spec = json.loads(str(inp.pop("__spec__")))
     result = {"fused": _job_fused, "grow": _job_grow,
               "train": _job_train, "train_valid": _job_train_valid,
-              "boosting": _job_boosting}[job](
+              "boosting": _job_boosting, "cat_split": _job_cat_split,
+              "sklearn": _job_sklearn}[job](
                   inp, spec)
     np.savez(dst, **result)
