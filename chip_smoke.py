@@ -7,9 +7,10 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. twenty-four paths at full width, each lgb.train (cv_int8: lgb.cv) on
+  3. twenty-six paths at full width, each lgb.train (cv_int8: lgb.cv) on
      the Higgs-1M shape
-     (1,000,000 rows x 28 dense features, binary, 255 leaves), then
+     (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
+     paths: a sparse table of 697 features), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
      before each path and read just after, and each kernel of the path
      must have launched:
@@ -109,6 +110,20 @@ Phases, each fatal on failure (exit code 1, no result line):
        cat_int8  cat_hilo with tpu_hist_precision=int8, 10 iterations:
                B1-int every round and the leaf sums; B2 (categorical data
                leaves its scan) and B3 must not launch;
+       efb_hilo  the Flight Delay-shaped table of LightGBM's EFB
+               experiments (efb_data: Distance and one-hot Month,
+               DayofMonth, DayOfWeek, DepHour, UniqueCarrier, Origin and
+               Dest, 697 features, 8 stored values a row) as a scipy CSR
+               matrix, one Dataset for both paths, hilo with
+               tpu_partition_impl=select, 10 iterations: the plan must
+               be EFB_COLUMNS bundle columns (printed with their bins,
+               the plan's host seconds and the bytes on the card); B1
+               every round on the bundle columns, the expansion to the
+               features (timed a search) and the bundle-column partition
+               as torch ops, no B2, no B3; predict from CSR;
+       efb_int8  efb_hilo with tpu_hist_precision=int8: B1-int every
+               round and the leaf sums; no B2 (bundles leave its scan),
+               no B3;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -134,7 +149,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      each entry (1 at max_bin=1023; where more, a second bound counts
      the live rows once a walk); the leaf sums beside the floor that
      their row-order contract sets (the largest leaf's dependent adds),
-     at phase 4's operands and on every path that refits;
+     at phase 4's operands and on every path that refits; B1 and B1-int
+     on the efb learners' bundle columns, random and root operands;
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
@@ -163,13 +179,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      of 12 categories or fewer categorical (packed), categorical hilo by AUC,
      the categorical hilo model saved and loaded back on the card (raw
      scores equal on rows with NaN and unseen categories), and
-     LGBMClassifier's text equal to lgb.train's with its params.
-With --profile, two more iterations of every path run under
-torch.profiler and the device time by op, each port kernel's device time
-per call on the path and the device's idle share are printed.
+     LGBMClassifier's text equal to lgb.train's with its params; and on
+     the first 20,000 rows of the sparse table (63 leaves), int8
+     regression with the refit off by its whole model text, hilo by AUC,
+     and predict of the CSR rows equal to predict of their dense copy.
+With --profile, after phase 4, two more iterations of every path run
+under torch.profiler and the device time by op, each port kernel's
+device time per call on the path and the device's idle share are
+printed.
 The line before the last is {"kernels": [...]}, the last is
-{"ok": true, "device": {...}}.  The data is the seeded synthetic
-generator of bench.py (its non-env branch), copied here.
+{"ok": true, "device": {...}}.  The dense data is the seeded synthetic
+generator of bench.py (its non-env branch), copied here; the sparse
+table is efb_data's, from the same seed.
 """
 
 import json
@@ -329,6 +350,42 @@ CAT_PATHS = [
 # phase 5's wide categorical run: column 27 recoded into this many
 CAT_WIDE_CARD = 300
 
+# sparse one-hot data in the shape of the Flight Delay table of LightGBM's
+# EFB experiments (Ke et al., "LightGBM: A Highly Efficient Gradient
+# Boosting Decision Tree", NIPS 2017, Table 1: 10M rows x 700 features):
+# a numerical Distance and these one-hot blocks, 697 features, 8 stored
+# values a row, in a scipy CSR matrix
+EFB_BLOCKS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+              ("DepHour", 24), ("UniqueCarrier", 22), ("Origin", 300),
+              ("Dest", 300))
+# the carriers and airports take category k with weight k^-EFB_SKEW (the
+# busiest airport about 1% of the flights, the quietest 0.25%): every
+# category stays far under the 20% a bundle candidate may hold, and at
+# this skew the seeded data packs into the plan of EFB_COLUMNS (at 0.3
+# and above, Origin's and Dest's rarest airports meet on too few rows of
+# the plan's sample to keep apart, and the greedy spreads them over more
+# bundles)
+EFB_SKEW = 0.25
+# B3 is refused with bundles (as the JAX package refuses its partition
+# kernel), so the JAX package's default partition, select, applies
+EFB_PARAMS = dict(PARAMS, tpu_partition_impl="select")
+# (name, params, kernels the path must launch, kernels it must not)
+EFB_PATHS = [
+    ("efb_hilo", EFB_PARAMS, ("hist_batched",),
+     ("fused_hist_scan", "partition_rows")),
+    ("efb_int8", dict(EFB_PARAMS, tpu_hist_precision="int8"),
+     ("hist_batched_int", "leaf_sums"),
+     ("fused_hist_scan", "partition_rows")),
+]
+# the plan's columns: one bundle a small block, two for each of Origin
+# and Dest (a bundle holds at most B - 1 = 254 one-hot features), and
+# Distance alone
+EFB_COLUMNS = 10
+# phase 5 on the first rows of the same data; 63 leaves (K=3) keep the
+# CPU's split searches over 697 features short
+N_EFB_SMALL = 20_000
+EFB_SMALL_LEAVES = 63
+
 
 def logloss_fobj(scores, train_set):
     """Binary logloss gradients on the host (numpy), as a user's fobj."""
@@ -411,6 +468,77 @@ def cat_path(lgb, kernels, ds, Xc, y, params, must_launch, must_not):
         fail("no categorical split on a categorical path")
     report.update(cat_splits_onehot=onehot, cat_splits_ctr=ctr,
                   cat_splits_per_tree=(onehot + ctr) / ITERS)
+    return report, booster
+
+
+def efb_data(n, seed=42):
+    """(X, y, latent): the Flight Delay-shaped one-hot table, n rows as a
+    scipy CSR matrix of f64.  Distance is gamma distributed; each row
+    takes one category of each block, uniform for the calendar blocks,
+    and with weights k^-EFB_SKEW by rank for the carriers and airports;
+    the latent adds a seeded effect of each category, a distance term
+    and normal noise, and y cuts it at its median."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    dist = rng.gamma(2.0, 350.0, n) + 30.0
+    latent = 0.0008 * dist + rng.normal(size=n)
+    cols = [np.zeros(n, np.int64)]
+    off = 1
+    for name, k in EFB_BLOCKS:
+        if name in ("UniqueCarrier", "Origin", "Dest"):
+            w = np.arange(1, k + 1) ** -EFB_SKEW
+            code = rng.choice(k, size=n, p=w / w.sum())
+        else:
+            code = rng.integers(0, k, n)
+        latent += rng.normal(size=k)[code] * 0.5
+        cols.append(off + code)
+        off += k
+    indices = np.stack(cols, axis=1).reshape(-1).astype(np.int32)
+    data = np.ones((n, len(cols)))
+    data[:, 0] = dist
+    X = sp.csr_matrix((data.reshape(-1), indices,
+                       np.arange(0, n * len(cols) + 1, len(cols))),
+                      shape=(n, off))
+    y = (latent > np.median(latent)).astype(np.float64)
+    return X, y, latent
+
+
+def efb_path(lgb, kernels, ds, X, y, params, must_launch, must_not):
+    """Phase 3, paths efb_hilo and efb_int8: main_path on the sparse
+    data (the held-out rows predicted from CSR); fails unless the learner
+    planned EFB_COLUMNS bundle columns.  Adds the plan, the bytes of the
+    bins on the card against the plain columns', the plan's host
+    seconds, and the expansion of one round's 2K bundle histograms to
+    the features (split search's first step) timed on the card."""
+    import torch
+    from lightgbm_tpu_torch.ops.grower import expand_bundles
+
+    report, booster = main_path(lgb, kernels, ds, X, y, params, ITERS,
+                                must_launch, must_not)
+    learner = booster._driver.learner
+    plan = learner.bundle_plan
+    if plan is None or plan.num_columns != EFB_COLUMNS:
+        fail(f"EFB planned {None if plan is None else plan.num_columns} "
+             f"columns, expected {EFB_COLUMNS}")
+    B = learner.num_bins
+    C = 2 * learner.params.split_batch
+    dev = learner.bins_t.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hist = torch.rand((C, learner.g_pad, B, 3), generator=gen, device=dev)
+    tot = hist[:, 0].sum(1)
+    expand_ms = cuda_ms(lambda: expand_bundles(
+        hist, tot[:, 0], tot[:, 1], tot[:, 2], learner.meta), 20)
+    report.update(
+        plan_columns=plan.num_columns,
+        plan_groups=[len(g) for g in plan.groups],
+        plan_column_bins=[int(b) for b in plan.num_bin],
+        num_features=learner.num_features, g_pad=learner.g_pad,
+        plain_bins_bytes=learner.num_features * learner.n_pad,
+        efb_plan_s=learner.efb_s["plan"], efb_apply_s=learner.efb_s["apply"],
+        expand_ms_per_search=expand_ms,
+        expand_shape=f"[{C}, {learner.g_pad}, {B}, 3] -> "
+                     f"[{C}, {learner.f_pad}, {B}, 3]")
     return report, booster
 
 
@@ -1198,7 +1326,9 @@ def profile(booster, iters=2, kernels_of=None, fobj=None, evaluate=False):
         row["device_launches"] += 1
         row["device_ms"] += float(ev.self_device_time_total) / 1e3
     for row in per_kernel.values():
-        row["ms_per_call"] = row["device_ms"] / max(row["calls"], 1)
+        # the mean over the launches the profile delivered: a late profile
+        # can miss some (device_ms)
+        row["ms_per_call"] = row["device_ms"] / row["device_launches"]
     return {"iters": iters, "wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "host_torch_ops_per_iter": ops / iters,
@@ -2086,6 +2216,56 @@ def cross_check_cat(lgb, Xs, ys, y_reg):
     return out
 
 
+def cross_check_efb(lgb, X, y, latent):
+    """Phase 5 for the sparse data, card against CPU on the first
+    N_EFB_SMALL rows of the same CSR matrix, EFB_SMALL_LEAVES leaves:
+    int8 regression on the latent with the refit off, by its whole model
+    text; hilo binary by AUC; and predict of the CSR rows against
+    predict of their dense copy on the card, which must be equal."""
+    Xs, ys, yr = X[:N_EFB_SMALL], y[:N_EFB_SMALL], latent[:N_EFB_SMALL]
+    base = dict(EFB_PARAMS, num_leaves=EFB_SMALL_LEAVES)
+    reg = dict(base, objective="regression", metric="l2",
+               tpu_hist_precision="int8", tpu_quant_refit_leaves=False)
+    out = {}
+    for name, params, label, by in (("efb_int8_regression", reg, yr, "text"),
+                                    ("efb_hilo", base, ys, "auc")):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(params, device_type=dev)
+            t0 = time.perf_counter()
+            b = lgb.train(p, lgb.Dataset(Xs, label=label, params=p),
+                          num_boost_round=ITERS_SMALL,
+                          keep_training_booster=True)
+            plan = b._driver.learner.bundle_plan
+            if plan is None:
+                fail(f"{name}: no EFB plan on the {dev}")
+            out[f"{name}_{dev}_columns"] = plan.num_columns
+            got[dev] = (_norm_param(b.model_to_string(), "device_type")
+                        if by == "text"
+                        else auc(b.predict(Xs, raw_score=True), label))
+            out[f"{name}_{dev}_s"] = time.perf_counter() - t0
+            if dev == "cuda":
+                card = b
+        if by == "text":
+            out[f"{name}_text_identical"] = got["cuda"] == got["cpu"]
+            if not out[f"{name}_text_identical"]:
+                fail(f"{name}: the card's model text differs from the CPU's")
+        else:
+            diff = abs(got["cuda"] - got["cpu"])
+            out.update({f"{name}_cuda_auc": got["cuda"],
+                        f"{name}_cpu_auc": got["cpu"],
+                        f"{name}_auc_diff": diff})
+            if diff > AUC_TOL:
+                fail(f"{name}: card and CPU AUC differ by {diff} > {AUC_TOL}")
+    # predict of sparse rows densifies them in chunks: the same scores
+    same = np.array_equal(card.predict(Xs, raw_score=True),
+                          card.predict(Xs.toarray(), raw_score=True))
+    out["efb_predict_csr_equals_dense"] = same
+    if not same:
+        fail("predict of CSR rows differs from predict of their dense copy")
+    return out
+
+
 def cross_check_zoo(lgb, Xs, y_reg, lat):
     """Phase 5 for the objective zoo, card against CPU at N_SMALL rows:
     int8 regression_l1, huber, quantile, lambdarank (queries of 50) and
@@ -2208,14 +2388,14 @@ def main() -> None:
                   f"{bins.numel() * bins.element_size()} bytes, up to "
                   f"{ds._inner.max_num_bin} bins a feature", flush=True)
     reports, boosters = {}, {}
+    # --profile: (path, profile's keywords), profiled after phase 4
+    profiled = []
     for name, params, iters, must in PATHS:
         reports[name], boosters[name] = main_path(
             lgb, kernels, datasets[params["max_bin"]], X, y, params, iters,
             must)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
-        if "--profile" in sys.argv[1:]:
-            print(f"profile {name} " + json.dumps(profile(boosters[name])),
-                  flush=True)
+        profiled.append((name, {}))
     for name, run, kw in (("valid_bag_int8", valid_path,
                            {"evaluate": True}),
                           ("fobj_hilo", fobj_path, {"fobj": logloss_fobj})):
@@ -2225,9 +2405,7 @@ def main() -> None:
             reports[name]["hilo_holdout_auc"] = reports["hilo"][
                 "holdout_auc"]
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
-        if "--profile" in sys.argv[1:]:
-            print(f"profile {name} "
-                  + json.dumps(profile(boosters[name], **kw)), flush=True)
+        profiled.append((name, kw))
     # the boosting modes, per-node feature sampling and cv
     for name, run in (
             ("goss_int8", goss_path),
@@ -2246,9 +2424,8 @@ def main() -> None:
         if name == "rf_int8" and not boosters[name]._driver.average_output:
             fail("rf_int8: the model does not average its trees")
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
-        if "--profile" in sys.argv[1:] and name != "cv_int8":
-            print(f"profile {name} " + json.dumps(profile(boosters[name])),
-                  flush=True)
+        if name != "cv_int8":
+            profiled.append((name, {}))
     # the objective zoo: multiclass, ranking and MAE regression
     latent = make_latent(N_TRAIN + N_HOLD, N_FEAT)
     for name, run in (("multiclass_int8", multiclass_path),
@@ -2257,9 +2434,7 @@ def main() -> None:
         reports[name], boosters[name] = run(lgb, kernels, datasets[255], X,
                                             latent)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
-        if "--profile" in sys.argv[1:]:
-            print(f"profile {name} " + json.dumps(profile(boosters[name])),
-                  flush=True)
+        profiled.append((name, {}))
     del datasets
     # categorical features: columns 22-27 as categories, both modes
     Xc = cat_data(X)
@@ -2275,6 +2450,27 @@ def main() -> None:
             lgb, kernels, cat_ds, Xc, y, params, must, must_not)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
     del cat_ds, Xc
+    # sparse one-hot data: EFB bundles, both precisions, one Dataset
+    t0 = time.perf_counter()
+    Xe, ye, latent_e = efb_data(N_TRAIN + N_HOLD)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    efb_ds = lgb.Dataset(Xe[:N_TRAIN], label=ye[:N_TRAIN],
+                         params=dict(EFB_PARAMS)).construct()
+    torch.cuda.synchronize()
+    inner = efb_ds._inner
+    print(f"ingest_s efb {time.perf_counter() - t0:.3f} (sketch "
+          f"{inner.ingest_s['sketch']:.3f}, binning "
+          f"{inner.ingest_s['binning']:.3f}), CSR [{Xe.shape[0]}, "
+          f"{Xe.shape[1]}] with {Xe.nnz} stored values made in "
+          f"{made_s:.3f} s, {inner.num_features} features, feature bins "
+          f"{inner.bins_t.numel() * inner.bins_t.element_size()} bytes "
+          "on the card", flush=True)
+    for name, params, must, must_not in EFB_PATHS:
+        reports[name], boosters[name] = efb_path(
+            lgb, kernels, efb_ds, Xe, ye, params, must, must_not)
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+    del efb_ds, inner
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     learners = {k: b._driver.learner for k, b in boosters.items()}
@@ -2317,6 +2513,14 @@ def main() -> None:
         kernel_rows += [(check_hist_int(learners[path], gen, tag, ops),
                          path),
                         (check_fused(learners[path], gen, tag, ops), path)]
+    # B1 and B1-int on the bundle columns of the EFB learners, at random
+    # and root operands
+    for path, check in (("efb_hilo", check_hist),
+                        ("efb_int8", check_hist_int)):
+        for operands in ("random", "root"):
+            row = check(learners[path], gen, operands)
+            row["operands"] = f"bundle columns, {operands}"
+            kernel_rows.append((row, path))
     # the leaf sums' floor on each path that refits: its largest leaf
     mhz = sm_clock_mhz()
     floors = {}
@@ -2337,15 +2541,19 @@ def main() -> None:
         print("kernel " + json.dumps(row), flush=True)
     kernel_rows = [row for row, _ in kernel_rows]
     if "--profile" in sys.argv[1:]:
-        # the categorical paths are profiled after phase 4: the device
-        # events of their ~58,000 host ops an iteration crowd phase 4's
-        # own profiles out (on an H100 none of 60 launches was seen)
-        for name, *_ in CAT_PATHS:
-            print(f"profile {name} " + json.dumps(profile(boosters[name])),
-                  flush=True)
+        # every path is profiled after phase 4: a profile sees fewer of
+        # its device events the more launches and profiles the process
+        # has made before it (on an H100, phase 4 saw none of 60 launches
+        # after the path profiles and the EFB paths), and phase 4's
+        # timings need them
+        for name, kw in profiled + [(name, {}) for name, *_ in
+                                    CAT_PATHS + EFB_PATHS]:
+            print(f"profile {name} "
+                  + json.dumps(profile(boosters[name], **kw)), flush=True)
     del boosters, learners
 
     cross = cross_check(lgb, X, y, latent)
+    cross.update(cross_check_efb(lgb, Xe, ye, latent_e))
     print("cross-check " + json.dumps(cross), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,14 +1,15 @@
 """The `Dataset` front end (reference basic.py:712-1040).
 
 The port of the subset of `lightgbm_tpu/basic.py:Dataset` that
-`lgb.train` and `lgb.cv` need: a lazily constructed, binned, dense
-matrix (a numpy array or a pandas DataFrame, whose column names become
-the feature names), categorical features (`categorical_feature=` by
-index or name, `set_categorical_feature`, and every pandas `category`
-column, which goes in as its codes, with the frame's category tables
-kept as `pandas_categorical` for valid sets and predict to remap
-through), validation sets binned with a
-training set's mappers (`reference=`, `create_valid`), the query groups
+`lgb.train` and `lgb.cv` need: a lazily constructed, binned matrix (a
+numpy array, a pandas DataFrame, whose column names become the feature
+names, or a scipy CSR/CSC matrix, binned without densifying it:
+`TrainingData.from_sparse`), categorical features
+(`categorical_feature=` by index or name, `set_categorical_feature`, and
+every pandas `category` column, which goes in as its codes, with the
+frame's category tables kept as `pandas_categorical` for valid sets and
+predict to remap through), validation sets binned with a training set's
+mappers (`reference=`, `create_valid`), the query groups
 of ranking data (`group=`, `set_group`, `get_group`), the fields
 (`get_field`, `set_field`, `num_data`) and row subsets (`subset`, the
 folds of `cv`), which share the parent's mappers, slice its binned rows
@@ -23,7 +24,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 
 from .config import Config
-from .io.dataset import Metadata, TrainingData
+from .io.dataset import Metadata, TrainingData, _is_scipy_sparse
 
 
 class Dataset:
@@ -52,10 +53,9 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._inner is not None:
             return self
-        if isinstance(self.data, str) or hasattr(self.data, "tocsc"):
+        if isinstance(self.data, str):
             raise NotImplementedError(
-                "file and sparse Dataset input is not ported to "
-                "lightgbm_tpu_torch yet")
+                "file Dataset input is not ported to lightgbm_tpu_torch yet")
         ref_inner = None
         if self.reference is not None:
             # a reference not yet constructed is constructed first
@@ -72,6 +72,8 @@ class Dataset:
                 _pandas_to_matrix(self.data, ref_pc)
             if names is None:
                 names = pd_names
+        elif _is_scipy_sparse(self.data):
+            X = self.data
         else:
             X = np.asarray(self.data, dtype=np.float64)
         cat: List[int] = []
@@ -83,7 +85,10 @@ class Dataset:
                 cat = [names.index(c) for c in spec]
         # pandas category columns are categorical whatever the setting
         cat = sorted(set(cat) | set(pd_cat_idx))
-        self._inner = TrainingData.from_matrix(
+        # sparse input bins in O(nnz) without the [n, F] f64 matrix
+        factory = (TrainingData.from_sparse if _is_scipy_sparse(X)
+                   else TrainingData.from_matrix)
+        self._inner = factory(
             X, None if self.label is None else np.asarray(self.label),
             Config(self.params), weight=self.weight,
             init_score=self.init_score,

@@ -245,12 +245,34 @@ class Booster:
         """[n] outputs, or [n, k] for multiclass; `raw_score` skips the
         objective's output conversion.  A DataFrame's `category` columns
         map onto the training codes through the model's
-        `pandas_categorical` tables."""
+        `pandas_categorical` tables; a scipy sparse matrix is densified
+        65,536 rows at a time (`_predict_sparse_chunked`)."""
         from .basic import _to_2d_array
+        from .io.dataset import _is_scipy_sparse
 
+        it = self._default_iteration(num_iteration)
+        if _is_scipy_sparse(data):
+            return self._predict_sparse_chunked(data, it, raw_score)
         return self._driver.predict(
-            _to_2d_array(data, self.pandas_categorical),
-            self._default_iteration(num_iteration), raw_score=raw_score)
+            _to_2d_array(data, self.pandas_categorical), it,
+            raw_score=raw_score)
+
+    def _predict_sparse_chunked(self, data, num_iteration: int,
+                                raw_score: bool,
+                                chunk_rows: int = 65536) -> np.ndarray:
+        """Predict a scipy sparse matrix in dense row chunks
+        (lightgbm_tpu/booster.py:_predict_sparse_chunked): every output
+        is n-first, so the chunks concatenate on axis 0, and the host
+        holds one [chunk_rows, F] f64 block at a time, never the whole
+        densified matrix."""
+        rows = data.tocsr()
+        outs = []
+        for lo in range(0, max(rows.shape[0], 1), chunk_rows):
+            chunk = np.asarray(rows[lo:lo + chunk_rows].todense(),
+                               dtype=np.float64)
+            outs.append(self._driver.predict(chunk, num_iteration,
+                                             raw_score=raw_score))
+        return np.concatenate(outs, axis=0)
 
     # -- model text ------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,

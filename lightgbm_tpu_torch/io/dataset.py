@@ -8,25 +8,37 @@ copied `BinMapper`; the value->bin step runs as torch ops on the
 dataset's device (`ops/binning.py`) and leaves the transposed `[F, n]`
 bin matrix there, the layout the grower reads.
 
+A scipy CSR/CSC matrix goes through `TrainingData.from_sparse`, the
+port of the JAX package's: bin finding reads each column's stored values
+off the CSC arrays, and binning fills one column at a time on the host
+(its zero bin, then the stored values' bins), so the `[n, F]` f64 matrix
+is never made.  The bins then go to the device as for dense input.
+
 A validation set (`reference=` the training data) takes the training
 set's mappers, the same objects, and is binned with them on the training
-set's device.
+set's device; a sparse one through `from_sparse`.
 
 `Metadata` carries the query boundaries of ranking data
 (`group_sizes`, the `group`/`query` field) and their per-query weights.
 
-Outside this slice, and refused loudly: sparse input and file ingest.
+Outside this slice, and refused loudly: file ingest.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..config import Config, resolve_device
 from .bin_mapper import BinMapper, BinType, K_ZERO_THRESHOLD
+
+
+def _is_scipy_sparse(data) -> bool:
+    """scipy.sparse matrix/array, detected without importing scipy."""
+    return hasattr(data, "tocsc") and hasattr(data, "nnz")
 
 
 def _parallel_columns(fn, count: int, config: Optional[Config]) -> None:
@@ -139,6 +151,9 @@ class TrainingData:
         self.config: Optional[Config] = None
         self.monotone_constraints: Optional[np.ndarray] = None
         self.feature_penalty: Optional[np.ndarray] = None
+        # host seconds of from_sparse's phases: "sketch" (bin finding)
+        # and "binning" (the bins made and sent to the device)
+        self.ingest_s: Dict[str, float] = {}
 
     @property
     def bins(self) -> np.ndarray:
@@ -183,6 +198,16 @@ class TrainingData:
 
         cnt = (self.bins_t == 0).sum(dim=1, dtype=torch.int64).cpu().numpy()
         return cnt.astype(np.float64) / max(self.num_data, 1)
+
+    def strided_row_sample(self, quota: int) -> np.ndarray:
+        """The deterministic strided row sample `bundling._stride_sample`
+        takes, as a host `[rows, F]` array: a strided slice of the device
+        matrix, so EFB planning never fetches the whole matrix."""
+        n = self.num_data
+        cols = self.bins_t
+        if n > quota:
+            cols = cols[:, ::n // quota][:, :quota]
+        return cols.T.cpu().numpy()
 
     # ------------------------------------------------------------------
     @classmethod
@@ -237,16 +262,78 @@ class TrainingData:
         if reference.num_total_features != self.num_total_features:
             raise ValueError("validation data feature count mismatch")
 
+    @classmethod
+    def from_sparse(cls, sp, label: Optional[np.ndarray] = None,
+                    config: Optional[Config] = None,
+                    weight: Optional[np.ndarray] = None,
+                    init_score: Optional[np.ndarray] = None,
+                    reference: Optional["TrainingData"] = None,
+                    feature_names: Optional[List[str]] = None,
+                    categorical_features: Optional[Sequence[int]] = None,
+                    group_sizes: Optional[np.ndarray] = None,
+                    ) -> "TrainingData":
+        """Bin a scipy CSR/CSC matrix in O(nnz) host memory beside the
+        bins (lightgbm_tpu/io/dataset.py:from_sparse).
+
+        Bin finding reads the stored values off the CSC arrays; binning
+        fills each column with its zero-value bin (`default_bin`, which
+        is `value_to_bin(0.0)`) and puts the bins of the column's stored
+        values over it.  Stored zeros and NaNs bin as the values they
+        are.  The `[F, n]` bins then go to the device."""
+        import torch
+
+        t0 = time.perf_counter()
+        config = config or Config()
+        device = (reference.device if reference is not None
+                  else resolve_device(config))
+        sp = sp.tocsc()
+        # duplicate coordinates must add up, as scipy's own toarray()
+        # adds them, not let the last one win in the bin scatter
+        sp.sum_duplicates()
+        n, nf = sp.shape
+        self = cls()
+        self.config = config
+        self.device = device
+        self.num_data = n
+        self.num_total_features = nf
+        self.feature_names = (list(feature_names) if feature_names
+                              else [f"Column_{i}" for i in range(nf)])
+        if reference is not None:
+            self._adopt_reference_mappers(reference)
+        else:
+            self._find_mappers(sp, config, categorical_features or [])
+        t1 = time.perf_counter()
+        dtype = np.uint8 if self.max_num_bin <= 256 else np.int32
+        bins = np.empty((self.num_features, n), dtype=dtype)
+        indptr, indices, data = sp.indptr, sp.indices, sp.data
+        for j, col in enumerate(self.used_feature_idx):
+            m = self.mappers[col]
+            lo, hi = int(indptr[col]), int(indptr[col + 1])
+            bins[j] = m.default_bin
+            if hi > lo:
+                vals = np.asarray(data[lo:hi], dtype=np.float64)
+                bins[j, indices[lo:hi]] = m.values_to_bins(vals).astype(dtype)
+        self.bins_t = torch.from_numpy(bins).to(device)
+        self.ingest_s = {"sketch": t1 - t0,
+                         "binning": time.perf_counter() - t1}
+        self.metadata = Metadata(n, label, weight, group_sizes, init_score)
+        self._set_constraints(config)
+        return self
+
     def create_valid(self, X, label: Optional[np.ndarray] = None,
                      **kw) -> "TrainingData":
-        return TrainingData.from_matrix(X, label, self.config,
-                                        reference=self, **kw)
+        factory = (TrainingData.from_sparse if _is_scipy_sparse(X)
+                   else TrainingData.from_matrix)
+        return factory(X, label, self.config, reference=self, **kw)
 
-    def _find_mappers(self, X: np.ndarray, config: Config,
+    def _find_mappers(self, X, config: Config,
                       categorical_features: Sequence[int]) -> None:
         """Greedy bin finding per column on a row sample, as the JAX
         package does it (reference dataset_loader.cpp:599-600,696); the
-        columns of `categorical_features` bin as categories."""
+        columns of `categorical_features` bin as categories.  X is a
+        dense matrix or a scipy sparse one, whose columns' stored values
+        are read off the CSC arrays of the sample (reference sparse-aware
+        sampling, dataset_loader.cpp:959-1042)."""
         n, nf = X.shape
         sample_cnt = min(n, int(config.bin_construct_sample_cnt))
         if sample_cnt < n:
@@ -255,6 +342,10 @@ class TrainingData:
             Xs = X[sample_idx]
         else:
             Xs = X
+        sp_csc = None
+        if _is_scipy_sparse(Xs):
+            sp_csc = Xs.tocsc()
+            sp_csc.sum_duplicates()
         total = Xs.shape[0]
         ignore = set(_parse_column_spec(config.ignore_column,
                                         self.feature_names))
@@ -270,7 +361,14 @@ class TrainingData:
                 m.num_bin = 1
                 m.is_trivial = True
                 return
-            colv = Xs[:, col]
+            if sp_csc is not None:
+                colv = np.asarray(sp_csc.data[sp_csc.indptr[col]:
+                                              sp_csc.indptr[col + 1]],
+                                  dtype=np.float64)
+            else:
+                colv = Xs[:, col]
+            # (near-)zeros are implied by the sample's row count, stored
+            # sparse zeros as much as dense ones
             nonzero = colv[~((np.abs(colv) <= K_ZERO_THRESHOLD)
                              & ~np.isnan(colv))]
             mb = int(config.max_bin)

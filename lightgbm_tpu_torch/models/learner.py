@@ -28,19 +28,34 @@ then read a 16-bit row-major copy, so more than 65,536 bins are refused.
 
 Bins are stored 4-bit packed exactly where the JAX learner packs them
 (learner.py:615-641): tpu_pack_bins=true, every feature at 16 bins or
-fewer, impl "pallas"/"pallas2", a select-family partition, and row
-blocks of a multiple of 256 rows that tile the padded rows.  B1 and B4
-read them packed.
+fewer, no EFB bundles, impl "pallas"/"pallas2", a select-family
+partition, and row blocks of a multiple of 256 rows that tile the padded
+rows.  B1 and B4 read them packed.
+
+EFB (enable_bundle, on by default) plans bundles as the JAX learner does
+(learner.py:227-290): the features whose zero-bin share reaches
+sparse_threshold are the candidates, `io.bundling.find_bundles` groups
+them on the strided row sample, and a plan with a bundle of two or more
+features replaces the feature columns by its bundle columns
+(`apply_bundles`).  The bins then hold `num_columns` columns, padded to
+`g_pad` (a multiple of 32, for the kernels), while the meta arrays and
+the feature mask keep the features' axis, `f_pad` (the JAX learner's
+feature width), and carry each feature's bundle_idx, bin_offset and
+needs_fix.  A plan never fills a bundle past the widest feature's B bins,
+so the bundle columns keep the bins' dtype.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..io.bundling import EFB_SAMPLE_ROWS, BundlePlan, apply_bundles, \
+    find_bundles
 from ..io.dataset import TrainingData
 from ..ops import grower as G
 from ..ops.fused import fused_supported, probe_fused
@@ -50,6 +65,7 @@ from ..ops.histogram import (INT_PRECISIONS, MAX_WIDE_BINS, _dot_spec,
                              row_major_bins)
 from ..ops.predict import upload
 from ..utils import prng
+from ..utils.log import Log
 from .tree import Tree
 
 HIST_IMPLS = ("auto", "pallas", "pallas2", "fused", "xla")
@@ -148,14 +164,27 @@ class TreeLearner:
                 f"max_bin={config.max_bin} (features with more than "
                 f"{MAX_WIDE_BINS} bins) is not ported to lightgbm_tpu_torch "
                 "yet: its kernels read wide bins as 16-bit values")
-        self._check_bundling(config, train_data, B)
+        F = self.num_features
+        t0 = time.perf_counter()
+        plan = self._plan_bundles(config, train_data, meta_np["num_bin"], B)
+        self.bundle_plan = plan
+        # host seconds of the EFB plan and of making its bundle columns
+        self.efb_s = {"plan": time.perf_counter() - t0, "apply": 0.0}
+        if plan is not None:
+            Log.info(f"EFB: bundled {F} features into {plan.num_columns} "
+                     "columns")
+            meta_np["bundle_idx"] = plan.bundle_idx.astype(np.int32)
+            meta_np["bin_offset"] = plan.bin_offset.astype(np.int32)
+            meta_np["needs_fix"] = plan.needs_fix.astype(np.int32)
+        self.num_columns = F if plan is None else plan.num_columns
 
         precision = str(config.tpu_hist_precision)
         impl, block = self._resolve_hist_impl(config, precision, B)
         # the JAX package pads the column axis to a multiple of 32 for its
-        # perfeature kernel; padding columns hold bin 0 (num_bin=1) and
-        # can never split
-        self.f_pad = -(-self.num_features // 32) * 32
+        # perfeature kernel, and the port's kernels take chunks of 32
+        # columns; padding columns hold bin 0 (num_bin=1) and can never
+        # split
+        self.g_pad = -(-self.num_columns // 32) * 32
         buckets = int(config.tpu_shape_buckets)
 
         def bucket_up(count: int, quantum: int) -> int:
@@ -178,34 +207,54 @@ class TreeLearner:
 
         self.n_pad = bucket_rows(n)
         if buckets > 0:
-            self.f_pad = bucket_up(self.f_pad, 32)
+            self.g_pad = bucket_up(self.g_pad, 32)
         # the feature axis the JAX learner pads to for this impl
-        # (learner.py:371-384, 445-451): 32-aligned for its perfeature and
-        # fused kernels, else unpadded, both bucketed (the perfeature
-        # kernel's axis to 32, the others' to 8).  Its grower draws the
-        # per-node feature masks over that width, so the port draws over
-        # it too; the kernels keep their 32-wide layout
-        if impl in ("pallas2", "fused"):
-            self.draw_width = -(-self.num_features // 32) * 32
+        # (learner.py:371-386, 445-454): without bundles the column axis,
+        # 32-aligned for its perfeature and fused kernels, else unpadded,
+        # both bucketed (the perfeature kernel's axis to 32, the others'
+        # to 8); with bundles the features stay unpadded and only the
+        # bundle columns are aligned and bucketed, unless the two widths
+        # meet.  Its grower draws the per-node feature masks over that
+        # width, so the port draws over it too
+        aligned = impl in ("pallas2", "fused")
+        align = 32 if impl == "pallas2" else 8
+        if plan is None:
+            self.draw_width = -(-F // 32) * 32 if aligned else F
+            if buckets > 0:
+                self.draw_width = bucket_up(self.draw_width, align)
         else:
-            self.draw_width = self.num_features
-        if buckets > 0:
-            self.draw_width = bucket_up(self.draw_width,
-                                        32 if impl == "pallas2" else 8)
+            g_jax = -(-self.num_columns // 32) * 32 if aligned \
+                else self.num_columns
+            self.draw_width = F
+            if buckets > 0 and g_jax == F:
+                self.draw_width = bucket_up(F, align)
+        # the features' axis of the meta arrays and the feature mask:
+        # without bundles the columns, else the JAX learner's (no kernel
+        # reads it)
+        self.f_pad = self.g_pad if plan is None else self.draw_width
         # the pack layout's blocks are the grower's: min(block, n_pad)
         eff_block = min(block, self.n_pad)
         self.packed_bins = self._would_pack(config, B, impl, eff_block,
-                                            self.n_pad)
+                                            self.n_pad, plan is not None)
         # rows of a packed block (0: bins unpacked), as the kernels take it
         self.packed_block = eff_block if self.packed_bins else 0
 
         dev = self.device
         # uint8 when every feature fits a byte, else int32, as the JAX
         # learner stores them (learner.py:486)
-        bins_t = torch.zeros((self.f_pad, self.n_pad),
+        bins_t = torch.zeros((self.g_pad, self.n_pad),
                              dtype=torch.uint8 if B <= 256 else torch.int32,
                              device=dev)
-        bins_t[:self.num_features, :n] = train_data.bins_t
+        if plan is None:
+            bins_t[:F, :n] = train_data.bins_t
+        else:
+            # [n, G] int32 bundle columns of the host matrix
+            t0 = time.perf_counter()
+            cols = apply_bundles(train_data.bins, plan)
+            bins_t[:self.num_columns, :n] = torch.from_numpy(cols.T).to(
+                device=dev, dtype=bins_t.dtype)
+            del cols
+            self.efb_s["apply"] = time.perf_counter() - t0
         if self.packed_bins:
             # [f_pad, n_pad/2]: two rows a byte (reference
             # dense_nbits_bin.hpp), the JAX learner's per-block layout
@@ -213,7 +262,7 @@ class TreeLearner:
         self.bins_t = bins_t
         if dev.type == "cuda":
             # kernels B1, B2 and B4 gather each live row's bins from a
-            # row-major copy ([n_pad, 32] uint8 at up to 32 features,
+            # row-major copy ([n_pad, 32] uint8 at up to 32 columns,
             # [n_pad, 16] packed, or [n_pad, 32] 16-bit for int32 bins);
             # row_major_bins makes it here, at
             # set-up, and keeps it on bins_t for every later call
@@ -264,8 +313,10 @@ class TreeLearner:
             quant_refit=(precision in INT_PRECISIONS
                          and bool(config.tpu_quant_refit_leaves)),
             feature_fraction_bynode=float(config.feature_fraction_bynode),
-            bynode_width=self.draw_width)
-        if self.params.has_cat and self.params.partition_impl == "kernel":
+            bynode_width=self.draw_width,
+            has_bundles=plan is not None)
+        if (self.params.has_cat or self.params.has_bundles) \
+                and self.params.partition_impl == "kernel":
             # the JAX package's refusal (grower.py:384-390), at set-up
             raise ValueError(
                 "tpu_partition_impl=kernel (the pallas row-partition) covers "
@@ -275,10 +326,12 @@ class TreeLearner:
         # refit leaves: the trees take their leaf values from the grower's
         # refitted outputs, not from the split records
         self.refits_leaves = self.params.quant_refit
-        # under feature_fraction_bynode or with categorical features the
-        # grower never runs B2's scan
-        if impl == "fused" and fused_supported(precision) is None \
-                and dev.type == "cuda" and not self.params.has_cat \
+        # under feature_fraction_bynode, with categorical features or with
+        # bundles the grower never runs B2's scan
+        if impl == "fused" and dev.type == "cuda" \
+                and fused_supported(precision,
+                                    has_bundles=plan is not None) is None \
+                and not self.params.has_cat \
                 and self.params.feature_fraction_bynode >= 1.0:
             probe_fused(dev, precision, wide=B > 256)
         # host waits of the last grown tree (grower stop tests)
@@ -290,31 +343,29 @@ class TreeLearner:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _check_bundling(config: Config, td: TrainingData, B: int) -> None:
-        """EFB is not ported: refuse when the JAX package could bundle.
-
-        Its bundler only considers features whose zero-bin fraction is at
-        least sparse_threshold; with fewer than two such features every
-        bundle is a singleton and its plan is trivial, which is the
-        plain-column layout this learner uses."""
+    def _plan_bundles(config: Config, td: TrainingData, num_bin: np.ndarray,
+                      B: int) -> Optional[BundlePlan]:
+        """The JAX learner's EFB plan (learner.py:227-271), or None: the
+        features whose zero-bin share reaches sparse_threshold (and with
+        at most B bins) are the candidates, grouped on the strided row
+        sample; a plan of singletons alone is no plan."""
         if not bool(config.enable_bundle) or td.num_features <= 1:
-            return
-        zero_frac = td.column_zero_fraction()
-        num_bin = td.feature_arrays()["num_bin"]
-        cand = (zero_frac >= float(config.sparse_threshold)) & (num_bin <= B)
-        if int(cand.sum()) >= 2:
-            raise NotImplementedError(
-                "enable_bundle=true on data with sparse features (EFB "
-                "bundles) is not ported to lightgbm_tpu_torch yet; set "
-                "enable_bundle=false")
+            return None
+        plan = find_bundles(
+            td.strided_row_sample(EFB_SAMPLE_ROWS), num_bin,
+            td.column_zero_fraction() >= float(config.sparse_threshold),
+            float(config.max_conflict_rate), B,
+            sample_rows=EFB_SAMPLE_ROWS)
+        return None if plan.is_trivial else plan
 
     @staticmethod
     def _would_pack(config: Config, B: int, impl: str, eff_block: int,
-                    n_pad: int) -> bool:
+                    n_pad: int, bundled: bool) -> bool:
         """Whether the JAX learner stores 4-bit packed bins here
         (learner.py:628-634, on one device: no stream layout, sparse
-        storage, bundles or partitioned rows, which this slice refuses)."""
-        return (bool(config.tpu_pack_bins) and B <= 16
+        storage or partitioned rows, which this slice refuses, and no
+        EFB bundles)."""
+        return (bool(config.tpu_pack_bins) and B <= 16 and not bundled
                 and impl in ("pallas", "pallas2")
                 and str(config.tpu_partition_impl) in ("select", "vselect")
                 and eff_block % 256 == 0 and n_pad % eff_block == 0)

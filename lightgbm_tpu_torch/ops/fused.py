@@ -53,15 +53,17 @@ SPLIT_KW = ("l1", "l2", "max_delta_step", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split")
 
 
-def fused_supported(precision: str):
-    """Reason the in-kernel split scan cannot engage, or None if it can.
-
-    In the ported slice (serial learner, dense numerical columns, no
-    per-node masks, CEGB or forced splits) only the precision decides:
-    the scan needs the exact int32 sums of int8/int16."""
+def fused_supported(precision: str, *, has_bundles: bool = False):
+    """Reason the in-kernel split scan cannot engage, or None if it can
+    (lightgbm_tpu/ops/fused.py:73-98, on the ported slice's serial
+    learner without CEGB or forced splits): the scan needs the exact
+    int32 sums of int8/int16, and EFB bundle columns need their
+    histograms expanded to features before any search."""
     if precision not in INT_PRECISIONS:
         return (f"precision={precision!r} (the in-kernel scan needs the "
                 "exact int32 accumulation of int8/int16)")
+    if has_bundles:
+        return "EFB bundling"
     return None
 
 
@@ -251,9 +253,21 @@ def probe_fused(device: torch.device, precision: str,
     assert_fused_equal(got, ref)
 
 
+def fix_bundle_col(raw, off, nbf, fixed):
+    """Bundle column -> feature-space bin, elementwise (grower.py:
+    1197-1206 of the JAX package).  Bins outside the feature's
+    [offset+1, offset+num_bin-1] range are another bundle member's
+    value, so there this feature sits at its all-default bin 0; columns
+    of unbundled features (`fixed` false) pass through."""
+    rel = raw - off
+    in_rng = (rel >= 1) & (rel < nbf)
+    return torch.where(fixed, torch.where(in_rng, rel, 0), raw)
+
+
 def partition_rows_plain(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
                          dleft, mt, nbf, db, do_k, packed_block: int = 0,
-                         iscat=None, cmask=None) -> torch.Tensor:
+                         iscat=None, cmask=None, bundle=None
+                         ) -> torch.Tensor:
     """The "vselect" partition: [n] int32 updated leaf ids.
 
     bins_t: [F, n] uint8 or int32 bins (or 4-bit packed [F, n/2] in
@@ -261,11 +275,16 @@ def partition_rows_plain(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
     sel_feat/sel/new_ids/thr/mt/nbf/db: [K] int32; dleft/do_k: [K] bool;
     iscat [K] bool and cmask [K, B] f32 (categorical splits: a row goes
     left where its bin's mask entry is set, grower.py:1331-1338 of the
-    JAX package), or None."""
-    cols = bins_t[sel_feat.long()]
+    JAX package), or None; bundle: the split features' ([K] int32
+    bundle column, [K] int32 bin offset, [K] bool needs_fix) when
+    bins_t holds EFB bundle columns, else None."""
+    cols = bins_t[(sel_feat if bundle is None else bundle[0]).long()]
     if packed_block:
         cols = unpack2d(cols, packed_block)
     cols = cols.to(torch.int32)                                 # [K, n]
+    if bundle is not None:
+        cols = fix_bundle_col(cols, bundle[1][:, None], nbf[:, None],
+                              bundle[2][:, None])
     go_left = numeric_go_left(cols, mt[:, None], nbf[:, None], db[:, None],
                               thr[:, None], dleft[:, None])
     if iscat is not None:

@@ -57,6 +57,19 @@ its bin's mask entry is set) and the records (16 + B columns) carry on.
 As in the JAX grower, categorical data takes the grower off B2's
 in-launch scan and the int precisions off the int32 bin prefix sums: the
 histograms are dequantized before the search.
+
+With has_bundles (EFB, grower.py:625-660,1197-1206 of the JAX package)
+bins_t holds G bundle columns, fewer than the F features: the
+histograms, the pool and the sibling subtraction stay [.., G, B, 3], and
+every split search first expands them to [.., F, B, 3]
+(`expand_bundles`: one gather of each feature's bins out of its bundle
+column, one mask, and each bundled feature's bin 0 rebuilt as the leaf
+totals minus its other bins, summed in XLA's order).  The feature mask,
+the per-node draws, the search and the records stay in feature space;
+the partition reads a split feature's bundle column and maps it back to
+the feature's bins (`fused.fix_bundle_col`).  Bundles take the grower
+off B2's scan and the int32 prefix sums, as categorical data does, and
+are refused with B3 (tpu_partition_impl=kernel) and with packed bins.
 """
 
 from __future__ import annotations
@@ -68,15 +81,16 @@ import torch
 
 from ..utils.prng import fold_in, split, uniform
 from .fused import (CTX_COUNT, CTX_MAX_C, CTX_MIN_C, CTX_SUM_G, CTX_SUM_H,
-                    CTX_USE_SMALL, CTX_WIDTH, fused_hist_scan, partition_rows,
-                    partition_rows_plain)
+                    CTX_USE_SMALL, CTX_WIDTH, fix_bundle_col, fused_hist_scan,
+                    partition_rows, partition_rows_plain)
 from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
                         pack_stats, quant_limit, quantize_values, unpack2d)
 from .leafsum import leaf_sums
 from .predict import upload
 from .split import (K_MIN_SCORE, SplitResult, finalize_split, leaf_output,
                     numeric_go_left, per_feature_best_split,
-                    per_feature_best_split_categorical, unpack_pf_records)
+                    per_feature_best_split_categorical, reduce_sum,
+                    unpack_pf_records)
 
 # record-row field indices (lightgbm_tpu/ops/grower.py REC_*); rows are 16
 # wide, plus a trailing [B] categorical bin mask when has_cat
@@ -139,6 +153,10 @@ class GrowerParams(NamedTuple):
     # first `bynode_width` features (0: the whole padded axis)
     feature_fraction_bynode: float = 1.0
     bynode_width: int = 0
+    # EFB: bins_t holds bundle columns; meta carries each feature's
+    # bundle_idx / bin_offset / needs_fix, and every search expands the
+    # bundle histograms back to features
+    has_bundles: bool = False
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -162,6 +180,31 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[:k], idx[:k].to(torch.int32)
 
 
+def expand_bundles(hist_g: torch.Tensor, sg: torch.Tensor, sh: torch.Tensor,
+                   cnt: torch.Tensor, meta: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+    """[C, G, B, 3] f32 bundle-column histograms -> [C, F, B, 3] feature
+    histograms (grower.py:625-660 of the JAX package, vmapped over the C
+    leaves there); sg/sh/cnt: [C] leaf totals.
+
+    Each bundled feature's bins live at bin_offset+1..+num_bin-1 of its
+    bundle column; its bin 0 (the shared all-default bin) is the leaf
+    totals minus its other bins, the FixHistogram identity (reference
+    src/io/dataset.cpp:1044-1063), with the bins summed in XLA's order
+    (`split.reduce_sum`).  Unbundled features take their column whole."""
+    G, B = hist_g.shape[1], hist_g.shape[2]
+    bi = meta["bundle_idx"].clamp(0, G - 1).long()              # [F]
+    fix = meta["needs_fix"] > 0                                 # [F]
+    iota_b = torch.arange(B, dtype=torch.int32, device=hist_g.device)
+    src = (meta["bin_offset"][:, None] + iota_b).clamp(0, B - 1).long()
+    hist_f = hist_g[:, bi[:, None], src]                        # [C, F, B, 3]
+    in_range = (iota_b >= 1) & (iota_b < meta["num_bin"][:, None])
+    keep = in_range | ~fix[:, None]
+    hist_f = torch.where(keep[None, :, :, None], hist_f, 0.0)
+    totals = torch.stack([sg, sh, cnt], dim=-1)                 # [C, 3]
+    bin0 = totals[:, None, :] - reduce_sum(hist_f, 2)           # [C, F, 3]
+    hist_f[:, :, 0] = torch.where(fix[None, :, None], bin0, hist_f[:, :, 0])
+    return hist_f
 
 
 def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
@@ -170,12 +213,14 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
          key: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
     """Grow one tree.
 
-    bins_t: [F, n_pad] uint8, or int32 when a feature has more than 256
-    bins (padding rows and features hold bin 0), or [F, n_pad/2] packed
-    with params.packed_bins;
+    bins_t: [G, n_pad] uint8, or int32 when a feature has more than 256
+    bins (padding rows and columns hold bin 0), or [G, n_pad/2] packed
+    with params.packed_bins; its G columns are the F features, or EFB
+    bundle columns under params.has_bundles;
     grad/hess/row_mask: [n_pad] f32 (padding rows zero); feature_mask:
     [F] f32; meta: per-feature int32 num_bin/missing_type/default_bin/
-    monotone and f32 penalty (and is_categorical under has_cat); key: the
+    monotone and f32 penalty (and is_categorical under has_cat, and
+    bundle_idx/bin_offset/needs_fix under has_bundles); key: the
     tree's threefry key (uint32[2], `utils.prng`), which seeds the
     stochastic rounding of int8/int16.
 
@@ -196,11 +241,15 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         raise ValueError(f"ramp_step={params.ramp_step}; the frontier "
                          "bound needs a growth factor >= 2")
     if params.packed_bins and (
-            params.partition_impl not in ("select", "vselect")
+            params.has_bundles
+            or params.partition_impl not in ("select", "vselect")
             or not params.hist_impl.startswith("pallas")):
-        raise ValueError("packed 4-bit bins require the pallas histogram "
-                         "impl and a select-family partition lowering")
-    if params.partition_impl == "kernel" and params.has_cat:
+        # grower.py:366-372 of the JAX package
+        raise ValueError(
+            "packed 4-bit bins require the pallas histogram impl, a "
+            "select-family partition lowering, and no EFB bundling")
+    if params.partition_impl == "kernel" and (params.has_cat
+                                              or params.has_bundles):
         # grower.py:384-390 of the JAX package
         raise ValueError(
             "tpu_partition_impl=kernel (the pallas row-partition) covers "
@@ -210,7 +259,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     dev = bins_t.device
     L = params.num_leaves
     B = params.num_bins
-    F = bins_t.shape[0]
+    # the column axis of the bins, the kernels and the pool; the features
+    # are feature_mask's axis
+    G = bins_t.shape[0]
     # rows come from grad, not bins_t: packed bins hold two rows a byte
     n_pad = grad.shape[0]
     block = min(params.block_rows, n_pad)
@@ -232,13 +283,14 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     bynode = params.feature_fraction_bynode < 1.0
     if bynode and key is None:
         raise ValueError("feature_fraction_bynode needs the tree's key")
-    # categorical data reshapes the search too (grower.py:553-561)
+    # categorical data and bundles reshape the search too
+    # (grower.py:553-561)
     fused_scan = (params.hist_impl == "fused" and quantized and not bynode
-                  and not params.has_cat)
-    # the int32 bin prefix sums serve the numerical search alone: with
-    # categorical features the histograms rescale to f32 first
-    # (grower.py:845-848)
-    int_scan = quantized and not params.has_cat
+                  and not params.has_cat and not params.has_bundles)
+    # the int32 bin prefix sums serve the plain numerical search alone:
+    # with categorical features or bundles the histograms rescale to f32
+    # first (grower.py:845-848)
+    int_scan = quantized and not params.has_cat and not params.has_bundles
     qscale = None
     FG = feature_mask.shape[0]
     FW = params.bynode_width or FG
@@ -267,12 +319,17 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
                               max_constraint=max_c, **out_kw), None, None
 
     def select(hist, sg, sh, cnt, min_c, max_c, fmask):
-        """Best split of each leaf of the batch: hist [C, F, B, 3] (int32
+        """Best split of each leaf of the batch: hist [C, G, B, 3] (int32
         sums under the quantized precisions, rescaled after the bin
-        prefix sums, or before the search with categorical features);
+        prefix sums, or before the search with categorical features or
+        bundles, whose columns are expanded to the features first);
         fmask [F], or [C, F] (one mask a leaf).  Returns (SplitResult,
         is_cat [C] bool, cat_mask [C, B] f32), the last two None without
         categorical features."""
+        if quantized and not int_scan:
+            hist = hist.to(f32) * qscale
+        if params.has_bundles:
+            hist = expand_bundles(hist, sg, sh, cnt, meta)
         if not params.has_cat:
             pf = per_feature_best_split(
                 hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
@@ -280,8 +337,6 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
                 fmask, min_constraint=min_c, max_constraint=max_c,
                 acc_scale=qscale if int_scan else None, **split_kw)
             return best_of(pf, sg, sh, min_c, max_c)
-        if quantized:
-            hist = hist.to(f32) * qscale
         # the merged search (grower.py:509-543): numerical features
         # through the numerical search, categorical ones through theirs
         catf = meta["is_categorical"].to(f32)
@@ -376,11 +431,11 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         # the megakernel's per-feature tables (the JAX package's fused.py
         # layout); no per-node masks in this slice, so the feature mask
         # is baked in
-        zi = torch.zeros(F, dtype=i32, device=dev)
+        zi = torch.zeros(G, dtype=i32, device=dev)
         fmeta_i = torch.stack(
             [meta["num_bin"], meta["missing_type"], meta["default_bin"],
              meta["monotone"], zi, zi, zi, zi], dim=1).to(i32).contiguous()
-        zf = torch.zeros(F, dtype=f32, device=dev)
+        zf = torch.zeros(G, dtype=f32, device=dev)
         fmeta_f = torch.stack(
             [meta["penalty"].to(f32), feature_mask.to(f32), zf, zf, zf, zf,
              zf, zf], dim=1).contiguous()
@@ -393,7 +448,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
 
     st = {
         # int32 under the quantized precisions: subtraction stays exact
-        "pool": torch.zeros((L + 1, F, B, 3), dtype=root_hist.dtype,
+        "pool": torch.zeros((L + 1, G, B, 3), dtype=root_hist.dtype,
                             device=dev),
         "leaf_sum_g": vec(0.0, first=sum_g),
         "leaf_sum_h": vec(0.0, first=sum_h),
@@ -436,18 +491,27 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         if params.partition_impl == "kernel":
             return partition_rows(bins_t, sel_feat, leaf_ids, sel, new_ids,
                                   sel_thr, sel_dleft, mt, nbf, db, do_k)
+        # EFB: each split feature's bundle column, mapped back to its bins
+        bundle = None
+        if params.has_bundles:
+            bundle = (meta["bundle_idx"][sel_feat],
+                      meta["bin_offset"][sel_feat],
+                      meta["needs_fix"][sel_feat] > 0)
         if params.partition_impl == "vselect":
             return partition_rows_plain(bins_t, sel_feat, leaf_ids, sel,
                                         new_ids, sel_thr, sel_dleft, mt,
                                         nbf, db, do_k, pblock, sel_iscat,
-                                        cmask_sel)
+                                        cmask_sel, bundle)
         # "select": one scalar-broadcast pass per slot
         new_leaf = leaf_ids
         for k in range(sel.shape[0]):
-            col = bins_t[sel_feat[k].long()]
+            col = bins_t[(sel_feat if bundle is None
+                          else bundle[0])[k].long()]
             if pblock:
                 col = unpack2d(col, pblock)
             col = col.to(i32)
+            if bundle is not None:
+                col = fix_bundle_col(col, bundle[1][k], nbf[k], bundle[2][k])
             go_left = numeric_go_left(col, mt[k], nbf[k], db[k],
                                       sel_thr[k], sel_dleft[k])
             if params.has_cat:
@@ -492,7 +556,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         smaller_is_left = lc <= rc
         smaller_ids = torch.where(
             do_k, torch.where(smaller_is_left, sel, new_ids), -1).to(i32)
-        parent_hist = st["pool"][sl]                      # [Kr, F, B, 3]
+        parent_hist = st["pool"][sl]                      # [Kr, G, B, 3]
         if fused_scan:
             # histograms + subtraction + split scan of all 2K children in
             # one call (grower.py:1410-1436); dead slots carry garbage

@@ -81,6 +81,42 @@ def cumsum_last(x: torch.Tensor) -> torch.Tensor:
     return inner.reshape(*x.shape[:-1], nb * _SCAN_BASE)[..., :n]
 
 
+_REDUCE_WINDOW = 32
+
+
+def reduce_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim`, in XLA:CPU's f32 summation order.
+
+    XLA:CPU sums an axis of up to 32 elements in sequence, from 0.
+    A longer axis of n elements it first rewrites into a reduce-window
+    of 32: the axis is padded with zeros to the next multiple of 32,
+    half the padding (rounded down) in front, each window of 32 is summed
+    in sequence, and the ceil(n/32) window sums are then summed by the
+    same rule.  Taking the sums in that order makes sums that the JAX
+    package takes with `jnp.sum` bit-equal here (`torch.sum` adds in
+    another order on each device).  The summed axis is moved to the front
+    and made contiguous, so that each step adds whole contiguous slices."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n > _REDUCE_WINDOW:
+        nb = -(-n // _REDUCE_WINDOW)
+        pad = nb * _REDUCE_WINDOW - n
+        x = torch.cat([x.new_zeros((pad // 2,) + x.shape[1:]), x,
+                       x.new_zeros((pad - pad // 2,) + x.shape[1:])])
+        # [32, nb, ...]: position in the window first
+        x = x.reshape(nb, _REDUCE_WINDOW, *x.shape[1:]).transpose(0, 1)
+        return reduce_sum(_sum_in_order(x.contiguous()), 0)
+    return _sum_in_order(x.contiguous())
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """((0 + x[0]) + x[1]) + ... over the leading axis."""
+    acc = x[0] + 0.0
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
 def _threshold_l1(s, l1):
     reg = torch.clamp(s.abs() - l1, min=0.0)
     return torch.sign(s) * reg

@@ -250,7 +250,9 @@ class LGBMModel:
         self._evals_result = evals_result if evals_result else None
         self._best_iteration = self._Booster.best_iteration
         self._best_score = self._Booster.best_score
-        self._n_features = np.asarray(X).shape[1]
+        # a scipy matrix has no array form: read its shape directly
+        self._n_features = (X.shape[1] if hasattr(X, "shape")
+                            else np.asarray(X).shape[1])
         return self
 
     # -- prediction ----------------------------------------------------

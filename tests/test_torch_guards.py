@@ -315,8 +315,9 @@ def test_max_bin_1000_trains_on_the_cpu():
 
 
 def test_sparse_features_refuse_bundling():
-    # EFB is not ported: data the JAX package bundles is refused by name;
-    # enable_bundle=false trains
+    # data the JAX package bundles: the port forms the same plan (EFB is
+    # ported; tests/test_torch_bundling.py holds it to the JAX package),
+    # and enable_bundle=false trains on the plain columns
     rng = np.random.default_rng(4)
     X = np.zeros((400, 5))
     rows = np.flatnonzero(rng.random(400) < 0.4)
@@ -328,11 +329,13 @@ def test_sparse_features_refuse_bundling():
     bj = jlgb.train(dict(SMALL, verbosity=-1), jlgb.Dataset(X, label=y), 1,
                     keep_training_booster=True)
     assert bj._driver.learner.bundle_plan is not None
-    with pytest.raises(NotImplementedError, match="enable_bundle"):
-        tlgb.train(dict(SMALL, **CPU), tlgb.Dataset(X, label=y), 1)
+    bt = tlgb.train(dict(SMALL, **CPU), tlgb.Dataset(X, label=y), 1,
+                    keep_training_booster=True)
+    assert bt._driver.learner.bundle_plan.groups == \
+        bj._driver.learner.bundle_plan.groups
     b = tlgb.train(dict(SMALL, **CPU, enable_bundle=False),
-                   tlgb.Dataset(X, label=y), 1)
-    assert b.num_trees() == 1
+                   tlgb.Dataset(X, label=y), 1, keep_training_booster=True)
+    assert b.num_trees() == 1 and b._driver.learner.bundle_plan is None
 
 
 @pytest.fixture(scope="module")

@@ -988,3 +988,105 @@ def test_categorical_int8_training_on_card_matches_cpu_text(impl):
     loaded = lgb.Booster(model_str=text)
     np.testing.assert_array_equal(loaded.predict(P, raw_score=True),
                                   gpu.predict(P, raw_score=True))
+
+
+def _onehot_csr(n, seed):
+    """A seeded sparse table: a gamma-distributed column and one-hot
+    blocks of 12, 31, 7, 24 and 60 categories (135 features) as a scipy
+    CSR matrix, and a regression label of per-category effects."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    dist = rng.gamma(2.0, 350.0, n)
+    y = 0.001 * dist + 0.3 * rng.normal(size=n)
+    cols, off = [np.zeros(n, np.int64)], 1
+    for k in (12, 31, 7, 24, 60):
+        code = rng.integers(0, k, n)
+        y += rng.normal(size=k)[code]
+        cols.append(off + code)
+        off += k
+    data = np.ones((n, len(cols)))
+    data[:, 0] = dist
+    X = sp.csr_matrix((data.reshape(-1),
+                       np.stack(cols, 1).reshape(-1).astype(np.int32),
+                       np.arange(0, n * len(cols) + 1, len(cols))),
+                      shape=(n, off))
+    return X, y
+
+
+EFB_CARD = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+            "tpu_partition_impl": "select", "tpu_quant_refit_leaves": False,
+            "verbosity": -1}
+
+
+@pytest.mark.parametrize("precision", ["hilo", "int8"])
+def test_hist_kernels_on_bundle_columns_match_twin(precision):
+    """B1 (hilo) and B1-int on the EFB learner's bundle columns, padded to
+    32: random slots over its rows against the twin, counts and int sums
+    exact, float sums within 1e-6 of each slot's sum of |stat|; the
+    training itself launched B1 or B1-int, and neither B2 nor B3."""
+    import lightgbm_tpu_torch as lgb
+
+    dev = cuda_device()
+    X, y = _onehot_csr(40000, 5)
+    kernels.reset_launches()
+    b = lgb.train(dict(EFB_CARD, tpu_hist_precision=precision),
+                  lgb.Dataset(X, label=y), 1, keep_training_booster=True)
+    name = "hist_batched" if precision == "hilo" else "hist_batched_int"
+    assert kernels.launches[name] > 0
+    assert kernels.launches["fused_hist_scan"] == 0
+    assert kernels.launches["partition_rows"] == 0
+    learner = b._driver.learner
+    bins = learner.bins_t
+    assert learner.bundle_plan is not None
+    assert bins.shape[0] == learner.g_pad == 32 < learner.num_features
+    n, B = learner.n_pad, learner.num_bins
+    rng = np.random.default_rng(6)
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.random(n).astype(np.float32)
+    mask = learner._ones_mask.cpu().numpy()
+    if precision == "int8":
+        g, h = np.clip(np.round(g * 40), -127, 127), np.round(h * 120)
+    stats = TH.pack_stats(torch.from_numpy(g * mask),
+                          torch.from_numpy(h * mask),
+                          torch.from_numpy(mask), precision)
+    stats = stats.to(dev).contiguous()
+    leaf = torch.from_numpy(rng.integers(0, 60, n).astype(np.int32)).to(dev)
+    slots = torch.tensor(list(range(0, 48, 2)) + [-1], dtype=torch.int32,
+                         device=dev)
+    before = kernels.launches[name]
+    got = TH.hist_batched_kernel(bins, stats, leaf, slots, B)
+    assert kernels.launches[name] == before + 1
+    ref = TH.hist_batched_plain(bins, stats, leaf, slots, B)
+    if precision == "int8":
+        assert torch.equal(got, ref)
+        return
+    got = TH._unpack_hist(got.permute(3, 2, 0, 1), precision).cpu().numpy()
+    ref = TH._unpack_hist(ref.permute(3, 2, 0, 1), precision).cpu().numpy()
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    assert np.abs(got[..., 0] - ref[..., 0]).max() <= 1e-6 * np.abs(
+        g * mask).sum()
+    assert np.abs(got[..., 1] - ref[..., 1]).max() <= 1e-6 * np.abs(
+        h * mask).sum()
+
+
+def test_efb_int8_training_on_card_matches_cpu_text():
+    """int8 on sparse one-hot data, bundled: the card's model text is the
+    CPU's, and predict of the CSR rows equals predict of their dense
+    copy."""
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _onehot_csr(30000, 7)
+    p = dict(EFB_CARD, tpu_hist_precision="int8")
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        b = lgb.train(dict(p, device_type=dev), lgb.Dataset(X, label=y), 3,
+                      keep_training_booster=True)
+        assert b._driver.learner.bundle_plan is not None
+        texts[dev] = _norm(b.model_to_string(), "device_type")
+        if dev == "cuda":
+            np.testing.assert_array_equal(
+                b.predict(X[:5000], raw_score=True),
+                b.predict(X[:5000].toarray(), raw_score=True))
+    assert texts["cuda"] == texts["cpu"]

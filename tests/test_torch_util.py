@@ -692,6 +692,95 @@ def _job_boosting(inp, spec):
     return out
 
 
+# ---- sparse data and EFB bundles --------------------------------------------
+
+
+def csr_arrays(name, X):
+    """A scipy matrix as the npz arrays `csr_from` rebuilds it from."""
+    X = X.tocsr()
+    return {f"{name}_data": X.data, f"{name}_indices": X.indices,
+            f"{name}_indptr": X.indptr, f"{name}_shape": np.array(X.shape)}
+
+
+def csr_from(inp, name):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((inp[f"{name}_data"], inp[f"{name}_indices"],
+                          inp[f"{name}_indptr"]),
+                         shape=tuple(inp[f"{name}_shape"]))
+
+
+def sparse_run(lgb, X, y, run):
+    """lgb.train of `lgb` on the scipy matrix X.  run: params, rounds,
+    and optionally csc (X goes in as CSC), cat (categorical column
+    indices) and n_train (the rows before it train, the rest, CSR,
+    validate with reference= the training set).  Returns the model
+    text, the raw scores of X as CSR and densified (the JAX package's on
+    its device path), the evals_result, the bundle plan's groups as JSON
+    ("null": no plan) and the learner's bundle columns [G, n]."""
+    import json
+
+    p = dict(run["params"])
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    kw = {"tpu_predict_device": "true"} if jax_side else {}
+    n = run.get("n_train", X.shape[0])
+    rows = X[:n].tocsc() if run.get("csc") else X[:n]
+    train = lgb.Dataset(rows, label=y[:n],
+                        categorical_feature=run.get("cat", "auto"),
+                        params={"max_bin": p["max_bin"]})
+    valid = []
+    if n < X.shape[0]:
+        valid = [lgb.Dataset(X[n:], label=y[n:], reference=train)]
+    evals = {}
+    b = lgb.train(p, train, num_boost_round=run["rounds"],
+                  valid_sets=valid or None, evals_result=evals,
+                  verbose_eval=False, keep_training_booster=True)
+    learner = b._driver.learner
+    plan = learner.bundle_plan
+    G = learner.num_columns
+    return {"text": b.model_to_string(),
+            "raw": np.asarray(b.predict(X, raw_score=True, **kw)),
+            "raw_dense": np.asarray(b.predict(X.toarray(), raw_score=True,
+                                              **kw)),
+            "evals": json.dumps(evals),
+            "plan": json.dumps(None if plan is None else
+                               [list(map(int, g)) for g in plan.groups]),
+            "columns": np.asarray(learner.bins_t)[:G, :n]}
+
+
+def _job_sparse(inp, spec):
+    """Runs on a scipy matrix: kinds "train" (sparse_run), "cv"
+    (cv_run), "sklearn" (sklearn_run, on the densified rows with
+    "dense") and "load_predict" (a model text loaded and its raw scores
+    of the matrix, on the device path)."""
+    import lightgbm_tpu as lgb
+
+    X = csr_from(inp, "X")
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        kind = run["kind"]
+        y = inp["y_" + run.get("label", "regression")]
+        if kind == "train":
+            res = sparse_run(lgb, X, y, run)
+        elif kind == "cv":
+            res, raw = cv_run(lgb, X, y, run)
+            res = {"result": np.array(res)}
+            if raw is not None:
+                res["raw"] = raw
+        elif kind == "sklearn":
+            # "dense": the densified rows (the JAX wrapper's fit reads
+            # np.asarray(X).shape[1], which a scipy matrix does not have)
+            res = sklearn_run(lgb, X.toarray() if run.get("dense") else X,
+                              y, run)
+        elif kind == "load_predict":
+            b = lgb.Booster(model_str=run["text"])
+            res = {"raw": b.predict(X, raw_score=True,
+                                    tpu_predict_device="true")}
+        for k, v in res.items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -703,6 +792,6 @@ if __name__ == "__main__":
     result = {"fused": _job_fused, "grow": _job_grow,
               "train": _job_train, "train_valid": _job_train_valid,
               "boosting": _job_boosting, "cat_split": _job_cat_split,
-              "sklearn": _job_sklearn}[job](
+              "sklearn": _job_sklearn, "sparse": _job_sparse}[job](
                   inp, spec)
     np.savez(dst, **result)
