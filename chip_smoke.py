@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. twenty-six paths at full width, each lgb.train (cv_int8: lgb.cv) on
+  3. thirty paths at full width, each lgb.train (cv_int8: lgb.cv) on
      the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
      paths: a sparse table of 697 features), then
@@ -124,6 +124,30 @@ Phases, each fatal on failure (exit code 1, no result line):
        efb_int8  efb_hilo with tpu_hist_precision=int8: B1-int every
                round and the leaf sums; no B2 (bundles leave its scan),
                no B3;
+       mono_int8  int8 under its defaults with monotone_constraints 0 on
+               columns 0-7 and the sign of the generator's linear
+               coefficient on 8-27, on a Dataset of its own (the
+               constraints are read when a Dataset is constructed), 10
+               iterations: B1-int at the root, B2 with the children's
+               bounds every round, B3, the leaf sums (the refit clipped
+               to the bounds); the predictions of 1,000 held-out rows
+               along 32 grid values of each constrained column must be
+               monotone in its direction; it prints the splits on
+               constrained columns;
+       cegb_int8  int8 with CEGB (coupled penalties on columns 0-13, lazy
+               ones on 14-17, a split penalty), 10 iterations through the
+               sync step: B1-int every round, B3, the leaf sums, no B2;
+               fewer distinct features than int8's may split; it prints
+               both paths' root gains;
+       forced_hilo  hilo with a forcedsplits_filename JSON (the root on
+               column 8 at 0.0, its children on 9 and 10), 10
+               iterations: B1 and B3; every tree's first three splits
+               must be the forced ones at their thresholds' bins;
+       det_f64  hilo with deterministic=true and tpu_hist_impl=xla, 5
+               iterations, trained twice: the f64 histograms are torch
+               ops, so no histogram kernel may launch; B3; the two model
+               texts must be byte-identical; it prints ms an iteration
+               beside hilo's;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -150,7 +174,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      the live rows once a walk); the leaf sums beside the floor that
      their row-order contract sets (the largest leaf's dependent adds),
      at phase 4's operands and on every path that refits; B1 and B1-int
-     on the efb learners' bundle columns, random and root operands;
+     on the efb learners' bundle columns, random and root operands; B2
+     and B2-wide at monotone operands (constraints on half of the
+     features, finite bounds binding on two thirds of the children),
+     bitwise, and the constraints must change some record;
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
@@ -182,7 +209,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      LGBMClassifier's text equal to lgb.train's with its params; and on
      the first 20,000 rows of the sparse table (63 leaves), int8
      regression with the refit off by its whole model text, hilo by AUC,
-     and predict of the CSR rows equal to predict of their dense copy.
+     and predict of the CSR rows equal to predict of their dense copy;
+     and on the first 20,000 dense rows (63 leaves, 4 iterations), int8
+     regression with the refit off under mono_int8's constraints and
+     under CEGB by their whole model text, hilo with the forced splits by
+     its trees (leaf values within 1e-5 of each tree's largest),
+     deterministic=true by its trees (within 1e-12), and int8 with
+     deterministic=true against the same without it on the card, by the
+     model text.
 With --profile, after phase 4, two more iterations of every path run
 under torch.profiler and the device time by op, each port kernel's
 device time per call on the path and the device's idle share are
@@ -193,11 +227,13 @@ generator of bench.py (its non-env branch), copied here; the sparse
 table is efb_data's, from the same seed.
 """
 
+import atexit
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -387,6 +423,48 @@ N_EFB_SMALL = 20_000
 EFB_SMALL_LEAVES = 63
 
 
+# monotone constraints, CEGB, forced splits and deterministic=true, at
+# full width on the dense data: 0 on the squared columns 0-7, the sign of
+# the generator's linear coefficient on columns 8-27 (mono_constraints)
+MONO_PARAMS = dict(PARAMS, tpu_hist_precision="int8")
+# rows and grid values of each constrained column of the monotonicity
+# check
+MONO_ROWS, MONO_GRID = 1000, 32
+# CEGB, sized from the split gains of the int8 path at 1M rows (root
+# about 48,000 falling to 12,000 by the tenth tree, median split about
+# 400): a coupled penalty of 2,000 on columns 0-13 (a feature is bought
+# once, by a split gaining that much), a lazy 0.02 a row not yet paid on
+# columns 14-17 (20,000 at the root), a split penalty of 0.001 a row
+CEGB_PARAMS = dict(PARAMS, tpu_hist_precision="int8",
+                   cegb_penalty_feature_coupled=[2000.0] * 14 + [0.0] * 14,
+                   cegb_penalty_feature_lazy=[0.0] * 14 + [0.02] * 4
+                   + [0.0] * 10,
+                   cegb_penalty_split=0.001)
+# the forced splits: the root on column 8 at 0.0, its children on
+# columns 9 and 10 at 0.0
+FORCED_TREE = {"feature": 8, "threshold": 0.0,
+               "left": {"feature": 9, "threshold": 0.0},
+               "right": {"feature": 10, "threshold": 0.0}}
+FORCED_HEAD = (8, 9, 10)
+DET_PARAMS = dict(PARAMS, deterministic=True, tpu_hist_impl="xla")
+ITERS_DET = 5
+# phase 5 of these paths: rows, leaves and iterations on card and CPU
+N_CONSTRAINT_SMALL = 20_000
+CONSTRAINT_SMALL_LEAVES = 63
+ITERS_CONSTRAINT_SMALL = 4
+# f64 trees card against CPU: leaf values within this share of the
+# tree's largest
+F64_RTOL = 1e-12
+# float trees card against CPU (tests/test_torch_slice.py:test_trees_equal)
+FLOAT_RTOL = 1e-5
+
+
+def mono_constraints(w):
+    """The mono_int8 path's constraints: 0 on columns 0-7, the sign of
+    make_data's linear coefficient w_j on columns 8-27."""
+    return [0] * 8 + [int(np.sign(v)) for v in w[8:]]
+
+
 def logloss_fobj(scores, train_set):
     """Binary logloss gradients on the host (numpy), as a user's fobj."""
     s = scores.reshape(-1)
@@ -405,13 +483,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def make_data(n, f, seed=42):
-    """bench.py's synthetic Higgs-shaped generator (non-env branch)."""
+def make_data(n, f, seed=42, with_w=False):
+    """bench.py's synthetic Higgs-shaped generator (non-env branch);
+    with_w: also its linear coefficients w."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, f)).astype(np.float32)
     w = rng.normal(size=(f,))
     logits = (X[:, :8] ** 2 - 1.0).sum(axis=1) * 0.3 + X @ w * 0.5
     y = (logits + rng.logistic(size=n) > 0).astype(np.float64)
+    if with_w:
+        return X.astype(np.float64), y, w
     return X.astype(np.float64), y
 
 
@@ -539,6 +620,118 @@ def efb_path(lgb, kernels, ds, X, y, params, must_launch, must_not):
         expand_ms_per_search=expand_ms,
         expand_shape=f"[{C}, {learner.g_pad}, {B}, 3] -> "
                      f"[{C}, {learner.f_pad}, {B}, 3]")
+    return report, booster
+
+
+def split_features(booster):
+    """The real feature of every split of every tree of a booster."""
+    return np.concatenate([t.split_feature[:t.num_leaves - 1]
+                           for t in booster._driver.models])
+
+
+def mono_path(lgb, kernels, X, y, w):
+    """mono_int8: int8 under its defaults (the refit on) with
+    `mono_constraints(w)`, B2's scan reading the children's bounds; the
+    predictions of MONO_ROWS held-out rows along MONO_GRID values of each
+    constrained column must be monotone in its direction.  The
+    constraints are a Dataset parameter, read when it is constructed (as
+    in the JAX package), so the path bins its own."""
+    import torch
+
+    mono = mono_constraints(w)
+    params = dict(MONO_PARAMS, monotone_constraints=mono)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                     params=dict(params)).construct()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if list(ds._inner.monotone_constraints) != mono:
+        fail("mono_int8: the dataset does not hold the constraints")
+    report, booster = main_path(lgb, kernels, ds, X, y, params, ITERS,
+                                INT_KERNELS)
+    report["ingest_s"] = ingest_s
+    feats = split_features(booster)
+    constrained = [j for j, c in enumerate(mono) if c]
+    rows = X[N_TRAIN:N_TRAIN + MONO_ROWS]
+    grid = np.linspace(-3.0, 3.0, MONO_GRID)
+    worst = 0.0
+    for j in constrained:
+        probe = np.repeat(rows, MONO_GRID, axis=0)
+        probe[:, j] = np.tile(grid, MONO_ROWS)
+        pred = booster.predict(probe, raw_score=True).reshape(MONO_ROWS,
+                                                              MONO_GRID)
+        step = np.diff(pred, axis=1) * mono[j]
+        worst = min(worst, float(step.min()))
+        if step.min() < 0:
+            fail(f"mono_int8: predictions fall along column {j} against "
+                 f"its constraint {mono[j]} (by {-step.min()})")
+    report.update({
+        "constraints": mono, "splits": int(feats.size),
+        "splits_on_constrained": int(np.isin(feats, constrained).sum()),
+        "grid_checks": len(constrained) * MONO_ROWS * (MONO_GRID - 1),
+        "worst_step": worst})
+    return report, booster
+
+
+def cegb_path(lgb, kernels, ds, X, y, plain):
+    """cegb_int8: CEGB_PARAMS through the sync step, B1-int every round
+    and no B2; fewer distinct features than the int8 path `plain` (the
+    same iterations) may split.  Prints both paths' root gains."""
+    report, booster = main_path(lgb, kernels, ds, X, y, CEGB_PARAMS, ITERS,
+                                ("hist_batched_int", "leaf_sums"),
+                                must_not=("fused_hist_scan",))
+    used, used_plain = (sorted({int(f) for f in split_features(b)})
+                        for b in (booster, plain))
+    report.update({
+        "features_used": used, "int8_features_used": used_plain,
+        "root_gains": [float(t.split_gain[0])
+                       for t in booster._driver.models],
+        "int8_root_gains": [float(t.split_gain[0])
+                            for t in plain._driver.models]})
+    if len(used) >= len(used_plain):
+        fail(f"cegb_int8 split on {len(used)} features, the int8 path on "
+             f"{len(used_plain)}: the penalties took none away")
+    return report, booster
+
+
+def forced_path(lgb, kernels, ds, X, y, path):
+    """forced_hilo: hilo (B1, B3) with FORCED_TREE in the JSON file
+    `path`; every tree's first three splits must be the forced ones, on
+    the bins of their thresholds."""
+    report, booster = main_path(lgb, kernels, ds, X, y,
+                                dict(PARAMS, forcedsplits_filename=path),
+                                ITERS, ("hist_batched", "partition_rows"))
+    mappers = ds._inner.mappers
+    want = [int(mappers[f].value_to_bin(0.0)) for f in FORCED_HEAD]
+    for i, t in enumerate(booster._driver.models):
+        head = [int(f) for f in t.split_feature[:3]]
+        bins = [int(b) for b in t.threshold_in_bin[:3]]
+        if head != list(FORCED_HEAD) or bins != want:
+            fail(f"forced_hilo: tree {i} starts with features {head} at "
+                 f"bins {bins}, not {list(FORCED_HEAD)} at {want}")
+    report["forced_bins"] = want
+    return report, booster
+
+
+def det_path(lgb, kernels, ds, X, y, hilo_report):
+    """det_f64: deterministic=true (f64 histograms in torch ops, no
+    histogram kernel; B3), trained twice: the two model texts must be
+    byte-identical.  Returns the second run's report with both texts'
+    equality and ms an iteration beside hilo's."""
+    must_not = ("hist_batched", "hist_batched_int", "fused_hist_scan")
+    texts, runs = [], []
+    for _ in range(2):
+        report, booster = main_path(lgb, kernels, ds, X, y, DET_PARAMS,
+                                    ITERS_DET, ("partition_rows",), must_not)
+        if booster._driver.learner.params.precision != "f64":
+            fail("det_f64: the learner does not run f64 histograms")
+        texts.append(booster.model_to_string())
+        runs.append(report["train_s"])
+    if texts[0] != texts[1]:
+        fail("det_f64: two runs wrote different model texts")
+    report.update({"texts_identical": True,
+                   "ms_per_iter": [1e3 * s / ITERS_DET for s in runs],
+                   "hilo_ms_per_iter": 1e3 * hilo_report["train_s"] / ITERS})
     return report, booster
 
 
@@ -1795,14 +1988,20 @@ def check_leaf_sums(learner, gen):
             "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
 
 
-def _fused_operands(learner, gen, bagged=False, goss=None, root=False):
+def _fused_operands(learner, gen, bagged=False, goss=None, root=False,
+                    mono=False):
     """Kernel B2's operands at the int8 path's shapes: K parent leaves
     k and K + k, each split in two, the smaller child histogrammed;
     bagged: about BAG_OUT of the rows with zero stats and of the
     features masked; goss: the grad, hess and row mask of a tree of a
     path (a sampled GOSS tree, a multiclass class, host lambdas); root:
     every row in leaf 0, histogrammed in slot 0 (the other slots find
-    no rows).  Returns (positional args, split_kw)."""
+    no rows); mono: monotone constraints on half of the features (+1 on
+    every fourth from 0, -1 on every fourth from 2) and finite output
+    bounds on two thirds of the children, a tenth of the child's own
+    output either side of it (they bind on most splits) or from its
+    output up (one-sided); the last third keeps +-1e30.  Returns
+    (positional args, split_kw)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
 
@@ -1845,9 +2044,20 @@ def _fused_operands(learner, gen, bagged=False, goss=None, root=False):
     ctx[:2 * K, 5] = torch.cat([small_left, ~small_left]).float()
     ctx[2 * K, :3] = scales
     meta = learner.meta
+    monotone = meta["monotone"]
+    if mono:
+        fi = torch.arange(F, device=dev)
+        monotone = torch.where(fi % 4 == 0, 1,
+                               torch.where(fi % 4 == 2, -1, 0))
+        out = -tot[:, 0] / tot[:, 1].clamp(min=1e-3)
+        j = torch.arange(2 * K, device=dev)
+        band = (0.1 * out.abs()).clamp(min=1e-6)
+        ctx[:2 * K, 3] = torch.where(j % 3 == 2, -1e30, torch.where(
+            j % 3 == 0, out - band, out))
+        ctx[:2 * K, 4] = torch.where(j % 3 == 0, out + band, 1e30)
     zi = torch.zeros(F, dtype=torch.int32, device=dev)
     meta_i = torch.stack([meta["num_bin"], meta["missing_type"],
-                          meta["default_bin"], meta["monotone"], zi, zi, zi,
+                          meta["default_bin"], monotone, zi, zi, zi,
                           zi], 1).to(torch.int32).contiguous()
     zf = torch.zeros(F, device=dev)
     meta_f = torch.stack([meta["penalty"], fmask, zf, zf, zf, zf, zf, zf],
@@ -1872,7 +2082,8 @@ def check_fused(learner, gen, operands="random", goss=None):
     B = learner.num_bins
     K = learner.params.split_batch
     args, kw = _fused_operands(learner, gen, operands == "bagged", goss,
-                               root=operands == "root")
+                               root=operands == "root",
+                               mono=operands == "mono")
     leaf, slots = args[2], args[3]
     got = fused.fused_hist_scan_kernel(*args, split_kw=kw)
     ref = fused.fused_hist_scan_plain(*args, split_kw=kw)
@@ -1881,6 +2092,23 @@ def check_fused(learner, gen, operands="random", goss=None):
         fused.assert_fused_equal(got, ref)
     except RuntimeError as exc:
         fail(str(exc))
+    extra = {}
+    if operands == "mono":
+        # the constraints must bite: some child's best split differs from
+        # the one the same operands give without them
+        free = list(args)
+        free[5] = args[5].clone()
+        free[5][:-1, 3], free[5][:-1, 4] = -1e30, 1e30
+        free[6] = args[6].clone()
+        free[6][:, 3] = 0
+        unbound = fused.fused_hist_scan_plain(*free, split_kw=kw)[1]
+        moved = (unbound[..., 0] != ref[1][..., 0]).sum().item()
+        if moved == 0:
+            fail("fused_hist_scan mono check: the constraints and bounds "
+                 "change no record")
+        extra = {"records_changed_by_constraints": int(moved),
+                 "features_constrained": int((args[6][:, 3] != 0).sum()),
+                 "children_bounded": int((args[5][:-1, 3] > -1e30).sum())}
     if not bool((ref[1][..., 0] > 0).any()):
         fail("fused_hist_scan check found no split: its operands are "
              "degenerate")
@@ -1908,7 +2136,7 @@ def check_fused(learner, gen, operands="random", goss=None):
     # bin) in the scan (prefix sums, dequantization, both directions'
     # leaf outputs, clips and gains)
     ops = m * F * 3 + C * F * B * 100
-    extra = dict(wide)
+    extra.update(wide)
     if walks > 1:
         extra["bound_ms_walked"] = _bound(4 * n + walks * m * row + rest,
                                           ops, PEAK_F32_S)["bound_ms"]
@@ -2266,6 +2494,102 @@ def cross_check_efb(lgb, X, y, latent):
     return out
 
 
+def _trees_close(a, b, rtol):
+    """Two boosters' trees: the same structure, thresholds and leaf
+    counts, leaf values within rtol of the tree's largest |value|
+    (tests/test_torch_util.py:assert_trees_match).  The default-left
+    flag is compared only where a node's missing type reads it.  Returns
+    the largest relative leaf difference; fails on any other."""
+    worst = 0.0
+    ta, tb = a._driver.models, b._driver.models
+    if len(ta) != len(tb):
+        fail(f"{len(ta)} trees against {len(tb)}")
+    for i, (x, z) in enumerate(zip(ta, tb)):
+        ni, nl = x.num_leaves - 1, x.num_leaves
+        if z.num_leaves != x.num_leaves:
+            fail(f"tree {i}: {z.num_leaves} leaves against {x.num_leaves}")
+        dts = []
+        for t in (x, z):
+            dt = t.decision_type[:ni].copy()
+            dt[((dt >> 2) & 3) == 0] &= ~np.int8(2)
+            dts.append(dt)
+        for name in ("split_feature", "threshold_in_bin", "left_child",
+                     "right_child"):
+            if not np.array_equal(getattr(x, name)[:ni],
+                                  getattr(z, name)[:ni]):
+                fail(f"tree {i}: {name} differs")
+        if not np.array_equal(dts[0], dts[1]) or not np.array_equal(
+                x.leaf_count[:nl], z.leaf_count[:nl]):
+            fail(f"tree {i}: decision types or leaf counts differ")
+        ref = np.asarray(x.leaf_value[:nl], np.float64)
+        err = float(np.abs(np.asarray(z.leaf_value[:nl]) - ref).max()
+                    / max(np.abs(ref).max(), 1e-300))
+        worst = max(worst, err)
+        if err > rtol:
+            fail(f"tree {i}: leaf values differ by {err} of the largest "
+                 f"> {rtol}")
+    return worst
+
+
+def cross_check_constraints(lgb, X, w, forced_path):
+    """Phase 5 of mono_int8, cegb_int8, forced_hilo and det_f64, card
+    against CPU on the first N_CONSTRAINT_SMALL rows with
+    CONSTRAINT_SMALL_LEAVES leaves, regression on cross_check's label
+    form: int8 with the refit off under the path's monotone constraints,
+    and under CEGB (penalties for this size), by their whole model text;
+    hilo with the forced splits by their trees within FLOAT_RTOL;
+    deterministic=true by its trees within F64_RTOL; and on the card,
+    int8 with deterministic=true against the same without it, by the
+    model text (the deterministic line normalized)."""
+    Xs = X[:N_CONSTRAINT_SMALL]
+    rng = np.random.default_rng(43)
+    y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + Xs[:, 8:] @ w[8:] \
+        * 0.3 + 0.3 * rng.normal(size=N_CONSTRAINT_SMALL)
+    base = dict(PARAMS, objective="regression", metric="l2",
+                num_leaves=CONSTRAINT_SMALL_LEAVES)
+    int8 = dict(base, tpu_hist_precision="int8", tpu_quant_refit_leaves=False)
+    runs = {
+        "mono_int8": (dict(int8, monotone_constraints=mono_constraints(w)),
+                      "text"),
+        "cegb_int8": (dict(int8, cegb_penalty_feature_coupled=[20.0] * 14,
+                           cegb_penalty_feature_lazy=[0.0] * 14
+                           + [0.01] * 4, cegb_penalty_split=0.001), "text"),
+        "forced_hilo": (dict(base, forcedsplits_filename=forced_path),
+                        FLOAT_RTOL),
+        "det_f64": (dict(base, deterministic=True, tpu_hist_impl="xla"),
+                    F64_RTOL)}
+    out = {}
+    for name, (params, by) in runs.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(params, device_type=dev)
+            t0 = time.perf_counter()
+            b = lgb.train(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                          num_boost_round=ITERS_CONSTRAINT_SMALL,
+                          keep_training_booster=True)
+            got[dev] = (_norm_param(b.model_to_string(), "device_type")
+                        if by == "text" else b)
+            out[f"{name}_{dev}_s"] = time.perf_counter() - t0
+        if by == "text":
+            out[f"{name}_text_identical"] = got["cuda"] == got["cpu"]
+            if not out[f"{name}_text_identical"]:
+                fail(f"{name}: the card's model text differs from the CPU's")
+        else:
+            out[f"{name}_leaf_rel_diff"] = _trees_close(got["cpu"],
+                                                        got["cuda"], by)
+    # deterministic=true leaves int8 as it is
+    texts = []
+    for det in (True, False):
+        p = dict(int8, deterministic=det)
+        b = lgb.train(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                      num_boost_round=ITERS_CONSTRAINT_SMALL)
+        texts.append(_norm_param(b.model_to_string(), "deterministic"))
+    out["int8_deterministic_text_identical"] = texts[0] == texts[1]
+    if texts[0] != texts[1]:
+        fail("int8 with deterministic=true wrote another text than without")
+    return out
+
+
 def cross_check_zoo(lgb, Xs, y_reg, lat):
     """Phase 5 for the objective zoo, card against CPU at N_SMALL rows:
     int8 regression_l1, huber, quantile, lambdarank (queries of 50) and
@@ -2371,7 +2695,12 @@ def main() -> None:
     print(f"kernels built in {kernels.build_seconds:.2f} s", flush=True)
     print(kernels.build_log.strip(), flush=True)
 
-    X, y = make_data(N_TRAIN + N_HOLD, N_FEAT)
+    X, y, w = make_data(N_TRAIN + N_HOLD, N_FEAT, with_w=True)
+    # the forced splits' JSON file of forced_hilo and phase 5
+    fd, forced_file = tempfile.mkstemp(suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump(FORCED_TREE, f)
+    atexit.register(os.unlink, forced_file)
     # one binned dataset per max_bin (255, 15 for the packed paths, 1023
     # for the wide ones)
     datasets = {}
@@ -2435,7 +2764,21 @@ def main() -> None:
                                             latent)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
         profiled.append((name, {}))
-    del datasets
+    # monotone constraints (B2 with bounds), CEGB (B1-int, no B2), forced
+    # splits (B1, B3) and deterministic=true (f64 torch ops, B3)
+    ds = datasets[255]
+    for name, run in (
+            ("mono_int8", lambda: mono_path(lgb, kernels, X, y, w)),
+            ("cegb_int8", lambda: cegb_path(lgb, kernels, ds, X, y,
+                                            boosters["int8"])),
+            ("forced_hilo", lambda: forced_path(lgb, kernels, ds, X, y,
+                                                forced_file)),
+            ("det_f64", lambda: det_path(lgb, kernels, ds, X, y,
+                                         reports["hilo"]))):
+        reports[name], boosters[name] = run()
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        profiled.append((name, {}))
+    del datasets, ds
     # categorical features: columns 22-27 as categories, both modes
     Xc = cat_data(X)
     t0 = time.perf_counter()
@@ -2490,7 +2833,12 @@ def main() -> None:
                     (check_fused(learners["wide_int8"], gen), "wide_int8"),
                     (check_fused(learners["wide_int8"], gen, "root"),
                      "wide_int8"),
-                    (check_partition(learners["wide"], gen), "wide")]
+                    (check_partition(learners["wide"], gen), "wide"),
+                    # B2 and B2-wide with monotone constraints and bounds
+                    (check_fused(learners["mono_int8"], gen, "mono"),
+                     "mono_int8"),
+                    (check_fused(learners["wide_int8"], gen, "mono"),
+                     "wide_int8")]
     # B1-int and B2 on bagged operands: rows with zero stats, features
     # masked, at the validation path's shapes
     bagged = learners["valid_bag_int8"]
@@ -2554,6 +2902,7 @@ def main() -> None:
 
     cross = cross_check(lgb, X, y, latent)
     cross.update(cross_check_efb(lgb, Xe, ye, latent_e))
+    cross.update(cross_check_constraints(lgb, X, w, forced_file))
     print("cross-check " + json.dumps(cross), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

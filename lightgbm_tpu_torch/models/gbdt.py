@@ -256,6 +256,10 @@ class GBDT:
             # objective=none: custom gradients through update(fobj=...)
             self.num_tree_per_iteration = self.num_class
         self.learner = TreeLearner(config, train_data)
+        if self.learner.params.has_cegb and self._goss_cfg is not None:
+            # gbdt.py:339-341 of the JAX package
+            raise NotImplementedError(
+                "CEGB penalties do not compose with GOSS yet")
         self.metrics = create_metrics(
             config, self.objective.name if self.objective else "")
         for m in self.metrics:
@@ -282,13 +286,15 @@ class GBDT:
     def _make_train_step(self) -> None:
         """(Re)build the fused step where the JAX package's GBDT builds it
         (gbdt.py:356-380): a built-in objective whose gradients run on
-        the device, with no leaf refit on the host, and every class
-        trainable.  Otherwise (objective=none, the ranking objectives,
-        the percentile family, a single label class) every iteration
-        takes the sync step."""
+        the device, with no leaf refit on the host, no CEGB, and every
+        class trainable.  Otherwise (objective=none, the ranking
+        objectives, the percentile family, CEGB, whose state crosses
+        trees through the learner's `train`, a single label class) every
+        iteration takes the sync step."""
         self._step = None
         obj = self.objective
         if (obj is not None and not obj.needs_renew and not obj.host_only
+                and not self.learner.params.has_cegb
                 and all(obj.class_need_train(k)
                         for k in range(self.num_tree_per_iteration))):
             self._step = self.learner.make_train_step(

@@ -43,6 +43,17 @@ the feature mask keep the features' axis, `f_pad` (the JAX learner's
 feature width), and carry each feature's bundle_idx, bin_offset and
 needs_fix.  A plan never fills a bundle past the widest feature's B bins,
 so the bundle columns keep the bins' dtype.
+
+Monotone constraints come from the Dataset (`feature_arrays()`); CEGB's
+per-feature penalties are mapped onto the used features here, and its
+state (the features used, and with lazy penalties the rows that paid for
+each feature) lives on the learner for its lifetime, handed to each
+tree's grower through `meta` and taken back from its output
+(learner.py:69-88,810-830,1292-1342).  forcedsplits_filename is read
+into BFS (leaf, feature, threshold bin) triples (`_parse_forced_splits`),
+and forced splits form no EFB plan.  deterministic=true turns the float
+precisions into "f64" (`resolve_precision`), which runs on the XLA
+branch's impl.
 """
 
 from __future__ import annotations
@@ -89,9 +100,10 @@ def _to_bitset(values) -> list:
 
 def check_slice(config: Config) -> None:
     """Refuse, by name, every parameter value outside the ported slice
-    (serial learner, dense numeric columns, the gbdt, goss, dart and rf
-    boosting modes with bagging and per-tree and per-node feature
-    sampling; float and int8/int16 histograms)."""
+    (the serial learner; the gbdt, goss, dart and rf boosting modes with
+    bagging and per-tree and per-node feature sampling; float, f64
+    (deterministic=true) and int8/int16 histograms; monotone
+    constraints, CEGB and forced splits)."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
@@ -105,20 +117,10 @@ def check_slice(config: Config) -> None:
     # machine (with a warning), so only a real multi-machine run is refused
     if str(c.tree_learner) != "serial" and int(c.num_machines) > 1:
         refuse(f"tree_learner={c.tree_learner!r} with num_machines>1")
-    if any(int(v) != 0 for v in c.monotone_constraints):
-        refuse("monotone_constraints")
-    if float(c.cegb_penalty_split) != 0.0 \
-            or any(float(v) != 0.0 for v in c.cegb_penalty_feature_coupled) \
-            or any(float(v) != 0.0 for v in c.cegb_penalty_feature_lazy):
-        refuse("cegb_penalty_*")
-    if str(c.forcedsplits_filename):
-        refuse("forcedsplits_filename")
     if float(c.tpu_sparse_threshold) > 0.0:
         refuse("tpu_sparse_threshold>0")
     if str(c.tpu_stream_mode) == "streamed":
         refuse("tpu_stream_mode=streamed")
-    if bool(c.deterministic):
-        refuse("deterministic=true (f64 histograms)")
     _dot_spec(str(c.tpu_hist_precision))
     if str(c.tpu_hist_impl) not in HIST_IMPLS:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
@@ -156,7 +158,18 @@ class TreeLearner:
         if self.num_features == 0:
             raise ValueError("no usable features in training data")
         meta_np = dict(train_data.feature_arrays())
+        # CEGB's per-feature penalties, mapped onto the used features
+        # (learner.py:69-88); all-zero lists charge nothing and leave the
+        # machinery off
+        coupled_raw = [float(v) for v in config.cegb_penalty_feature_coupled]
+        lazy_raw = [float(v) for v in config.cegb_penalty_feature_lazy]
+        meta_np["cegb_coupled"] = self._per_feature(coupled_raw, train_data)
+        meta_np["cegb_lazy"] = self._per_feature(lazy_raw, train_data)
+        has_cegb_lazy = any(v != 0.0 for v in lazy_raw)
+        has_cegb = (any(v != 0.0 for v in coupled_raw) or has_cegb_lazy
+                    or float(config.cegb_penalty_split) != 0.0)
         self.meta_np = meta_np
+        forced = self._parse_forced_splits(config, train_data)
         B = int(meta_np["num_bin"].max())
         self.num_bins = B
         if B > MAX_WIDE_BINS:
@@ -166,7 +179,9 @@ class TreeLearner:
                 "yet: its kernels read wide bins as 16-bit values")
         F = self.num_features
         t0 = time.perf_counter()
-        plan = self._plan_bundles(config, train_data, meta_np["num_bin"], B)
+        # no plan under forced splits (learner.py:239)
+        plan = None if forced else self._plan_bundles(
+            config, train_data, meta_np["num_bin"], B)
         self.bundle_plan = plan
         # host seconds of the EFB plan and of making its bundle columns
         self.efb_s = {"plan": time.perf_counter() - t0, "apply": 0.0}
@@ -178,7 +193,7 @@ class TreeLearner:
             meta_np["needs_fix"] = plan.needs_fix.astype(np.int32)
         self.num_columns = F if plan is None else plan.num_columns
 
-        precision = str(config.tpu_hist_precision)
+        precision = self.resolve_precision(config)
         impl, block = self._resolve_hist_impl(config, precision, B)
         # the JAX package pads the column axis to a multiple of 32 for its
         # perfeature kernel, and the port's kernels take chunks of 32
@@ -314,26 +329,35 @@ class TreeLearner:
                          and bool(config.tpu_quant_refit_leaves)),
             feature_fraction_bynode=float(config.feature_fraction_bynode),
             bynode_width=self.draw_width,
-            has_bundles=plan is not None)
-        if (self.params.has_cat or self.params.has_bundles) \
-                and self.params.partition_impl == "kernel":
-            # the JAX package's refusal (grower.py:384-390), at set-up
-            raise ValueError(
-                "tpu_partition_impl=kernel (the pallas row-partition) covers "
-                "plain dense numerical columns only — categorical splits, "
-                "EFB bundles, sparse storage, and 4-bit packing keep the "
-                "select-family lowerings")
+            has_bundles=plan is not None,
+            has_cegb=has_cegb,
+            has_cegb_lazy=has_cegb_lazy,
+            cegb_tradeoff=float(config.cegb_tradeoff),
+            cegb_penalty_split=float(config.cegb_penalty_split),
+            forced=forced,
+            has_mono=bool(np.any(meta_np["monotone"] != 0)))
+        # the JAX grower's refusals, at set-up as there
+        G.check_params(self.params)
         # refit leaves: the trees take their leaf values from the grower's
         # refitted outputs, not from the split records
         self.refits_leaves = self.params.quant_refit
         # under feature_fraction_bynode, with categorical features or with
         # bundles the grower never runs B2's scan
-        if impl == "fused" and dev.type == "cuda" \
-                and fused_supported(precision,
-                                    has_bundles=plan is not None) is None \
-                and not self.params.has_cat \
-                and self.params.feature_fraction_bynode >= 1.0:
+        if impl == "fused" and dev.type == "cuda" and fused_supported(
+                precision,
+                bynode=self.params.feature_fraction_bynode < 1.0,
+                has_cat=self.params.has_cat, has_bundles=plan is not None,
+                has_cegb=has_cegb, forced=bool(forced)) is None:
             probe_fused(dev, precision, wide=B > 256)
+        if has_cegb:
+            # the CEGB state of the learner's lifetime (learner.py:810-830):
+            # the features any split has used, and with lazy penalties
+            # which rows have paid for which feature (bool, [f_pad, n_pad])
+            self.meta["cegb_used"] = torch.zeros(
+                self.f_pad, dtype=torch.float32, device=dev)
+            if has_cegb_lazy:
+                self.meta["cegb_paid"] = torch.zeros(
+                    (self.f_pad, self.n_pad), dtype=torch.bool, device=dev)
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
         # the sync path's per-tree feature_fraction draws and tree keys
@@ -342,6 +366,78 @@ class TreeLearner:
             int(config.feature_fraction_seed))
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _per_feature(raw, td: TrainingData) -> np.ndarray:
+        """A per-column parameter list mapped onto the used features
+        (learner.py:72-77); columns past its end take 0."""
+        vals = np.zeros(td.num_features, np.float32)
+        for j, col in enumerate(td.used_feature_idx):
+            if col < len(raw):
+                vals[j] = raw[col]
+        return vals
+
+    @staticmethod
+    def resolve_precision(config: Config) -> str:
+        """The histogram precision, honoring deterministic=true
+        (learner.py:996-1015): int8/int16 are order-free already and stay;
+        the float precisions become "f64", which takes the XLA branch
+        (here `histogram.hist_batched_f64`) and refuses the Pallas impls.
+        torch has no process-wide switch to flip, unlike JAX's x64.
+        "f64" given without deterministic=true is a ValueError: the JAX
+        learner fails so in a process without x64 (its f64 pool meets
+        f32 histograms)."""
+        precision = str(config.tpu_hist_precision)
+        if not bool(config.deterministic):
+            if precision == "f64":
+                raise ValueError("tpu_hist_precision=f64 is the precision "
+                                 "of deterministic=true; set that instead")
+            return precision
+        if precision in INT_PRECISIONS:
+            return precision
+        if str(config.tpu_hist_impl) in ("pallas", "pallas2", "fused"):
+            raise ValueError("deterministic=true requires tpu_hist_impl=xla")
+        return "f64"
+
+    @staticmethod
+    def _parse_forced_splits(config: Config, td: TrainingData) -> tuple:
+        """forcedsplits_filename's JSON -> BFS (parent_leaf, feature,
+        threshold bin) triples (learner.py:1017-1060; the reference's
+        ForceSplits reads the same nested {feature, threshold, left,
+        right} objects, serial_tree_learner.cpp:617-669), at most
+        num_leaves - 1 of them.  The left child keeps its parent's leaf
+        id, the right one takes the next new leaf's."""
+        path = str(config.forcedsplits_filename or "")
+        if not path:
+            return ()
+        import json
+
+        from ..io.bin_mapper import BinType
+
+        with open(path) as f:
+            root = json.load(f)
+        pos_of = {col: j for j, col in enumerate(td.used_feature_idx)}
+        out = []
+        queue = [(root, 0)]
+        while queue and len(out) < max(int(config.num_leaves) - 1, 0):
+            node, leaf = queue.pop(0)
+            real_f = int(node["feature"])
+            if real_f not in pos_of:
+                raise ValueError(
+                    f"forced split on unused/trivial feature {real_f}")
+            mapper = td.mappers[real_f]
+            if mapper.bin_type != BinType.NUMERICAL:
+                raise NotImplementedError(
+                    "forced splits on categorical features are not "
+                    "supported")
+            thr_bin = int(mapper.value_to_bin(float(node["threshold"])))
+            i = len(out)
+            out.append((leaf, pos_of[real_f], thr_bin))
+            for side, child_leaf in (("left", leaf), ("right", i + 1)):
+                child = node.get(side)
+                if isinstance(child, dict) and "feature" in child:
+                    queue.append((child, child_leaf))
+        return tuple(out)
+
     @staticmethod
     def _plan_bundles(config: Config, td: TrainingData, num_bin: np.ndarray,
                       B: int) -> Optional[BundlePlan]:
@@ -400,7 +496,9 @@ class TreeLearner:
                 f"tpu_hist_impl={impl!r} is not ported to lightgbm_tpu_torch"
                 " yet")
         if impl == "auto":
-            if not TreeLearner.chunk_fits(config, num_bins, precision):
+            # f64 stays on the XLA branch (learner.py:963-965)
+            if precision == "f64" or not TreeLearner.chunk_fits(
+                    config, num_bins, precision):
                 impl = "xla"
             elif fused_supported(precision) is None:
                 impl = "fused"
@@ -449,6 +547,12 @@ class TreeLearner:
         out = G.grow(self.params, self.bins_t, self.pad_vector(grad),
                      self.pad_vector(hess), mask, fmask, self.meta, key)
         self.last_syncs = out["syncs"]
+        if self.params.has_cegb:
+            # the CEGB state the next tree starts from (learner.py:
+            # 1337-1342)
+            self.meta["cegb_used"] = out["cegb_used"]
+            if self.params.has_cegb_lazy:
+                self.meta["cegb_paid"] = out["cegb_paid"]
         leaf_out = out["leaf_output"] if self.refits_leaves else None
         if leaf_out is None:
             rec = out["records"].cpu().numpy()

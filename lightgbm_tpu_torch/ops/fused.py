@@ -53,17 +53,25 @@ SPLIT_KW = ("l1", "l2", "max_delta_step", "min_data_in_leaf",
             "min_sum_hessian", "min_gain_to_split")
 
 
-def fused_supported(precision: str, *, has_bundles: bool = False):
+def fused_supported(precision: str, *, bynode: bool = False,
+                    has_cat: bool = False, has_bundles: bool = False,
+                    has_cegb: bool = False, forced: bool = False):
     """Reason the in-kernel split scan cannot engage, or None if it can
-    (lightgbm_tpu/ops/fused.py:73-98, on the ported slice's serial
-    learner without CEGB or forced splits): the scan needs the exact
-    int32 sums of int8/int16, and EFB bundle columns need their
-    histograms expanded to features before any search."""
+    (lightgbm_tpu/ops/fused.py:73-98, on the serial learner): the scan
+    needs the exact int32 sums of int8/int16 and one feature mask for
+    every child, and categorical splits, EFB bundle columns, CEGB
+    penalties and forced splits each reshape the search itself."""
     if precision not in INT_PRECISIONS:
         return (f"precision={precision!r} (the in-kernel scan needs the "
                 "exact int32 accumulation of int8/int16)")
-    if has_bundles:
-        return "EFB bundling"
+    if bynode:
+        return "feature_fraction_bynode (per-node masks)"
+    for flag, name in ((has_cat, "categorical splits"),
+                       (has_bundles, "EFB bundling"),
+                       (has_cegb, "CEGB"),
+                       (forced, "forced splits")):
+        if flag:
+            return name
     return None
 
 

@@ -70,6 +70,39 @@ the partition reads a split feature's bundle column and maps it back to
 the feature's bins (`fused.fix_bundle_col`).  Bundles take the grower
 off B2's scan and the int32 prefix sums, as categorical data does, and
 are refused with B3 (tpu_partition_impl=kernel) and with packed bins.
+
+Monotone constraints (grower.py:1391-1402 of the JAX package): each leaf
+carries bounds on its output, [-1e30, 1e30] at the root; a split on a
+constrained feature puts the midpoint of its two outputs between the
+children (the left child's max and the right child's min for +1, the
+other way for -1), and every search clips the children's outputs to
+their bounds and vetoes splits whose outputs break the feature's
+direction.  The bounds are set before the histograms, since B2's scan
+reads them in its ctx rows; the quantized refit clips to them too.
+Without a constrained feature (params.has_mono false) no bounds are
+kept: every leaf's would stay [-1e30, 1e30].
+
+CEGB (grower.py:690-707,1482-1530): every search subtracts from each
+candidate gain the split penalty times the leaf's rows, the coupled
+penalty of the features no split has used yet and, with lazy penalties,
+the lazy penalty times the leaf's rows that have not yet paid for the
+feature.  The used [F] and paid [F, n_pad] state comes in through meta
+and goes out with the tree (the learner keeps it across trees); each
+round marks the applied splits' features used, lets their parents' rows
+pay (one masked scatter), and re-credits the coupled penalty to the
+stored best splits of the other leaves on a feature just used.  CEGB
+leaves B2's scan.
+
+Forced splits (grower.py:1624-1717): before the best-gain rounds, each
+(parent leaf, feature, threshold bin) of params.forced splits as a round
+of its own, K wide with slot 0 alone live, its left sums read off the
+pool at the threshold; a split whose gain is negative, or with an empty
+side, stops it and every later one.  No frontier ramp, no B2.
+
+deterministic=true ("f64"): f64 stats, histograms (`histogram.
+hist_batched_f64`, torch ops in one fixed order, no kernel), pool and
+candidate math, cast to f32 once in `split.finalize_split`; the leaf
+totals are summed in f64 and kept f32, as in the JAX grower.
 """
 
 from __future__ import annotations
@@ -87,7 +120,8 @@ from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
                         pack_stats, quant_limit, quantize_values, unpack2d)
 from .leafsum import leaf_sums
 from .predict import upload
-from .split import (K_MIN_SCORE, SplitResult, finalize_split, leaf_output,
+from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
+                    finalize_split, leaf_output, leaf_split_gain,
                     numeric_go_left, per_feature_best_split,
                     per_feature_best_split_categorical, reduce_sum,
                     unpack_pf_records)
@@ -157,6 +191,23 @@ class GrowerParams(NamedTuple):
     # bundle_idx / bin_offset / needs_fix, and every search expands the
     # bundle histograms back to features
     has_bundles: bool = False
+    # CEGB (reference cost_effective_gradient_boosting.hpp): every search
+    # charges each feature's gain the split penalty times the leaf's
+    # rows, the coupled penalty of a feature no tree has used yet
+    # (meta cegb_coupled, state meta cegb_used [F]) and, with lazy
+    # penalties, the per-row cost of the leaf's rows that have not paid
+    # for the feature (meta cegb_lazy, state meta cegb_paid [F, n_pad])
+    has_cegb: bool = False
+    has_cegb_lazy: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    # forced splits (reference ForceSplits, serial_tree_learner.cpp:
+    # 607-769): BFS-ordered (parent_leaf, feature, threshold bin) triples
+    # run as rounds of their own before the best-gain rounds
+    forced: tuple = ()
+    # some feature has a monotone constraint (meta monotone != 0); without
+    # one every leaf's bounds stay [-1e30, 1e30], so none are tracked
+    has_mono: bool = False
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -207,6 +258,53 @@ def expand_bundles(hist_g: torch.Tensor, sg: torch.Tensor, sh: torch.Tensor,
     return hist_f
 
 
+def check_params(params: GrowerParams) -> None:
+    """The JAX grower's refusals of parameter combinations
+    (grower.py:359-421 of the JAX package, on the serial learner), which
+    the learner also makes at set-up."""
+    quantized = params.precision in INT_PRECISIONS
+    if params.has_bundles and params.forced:
+        # grower.py:363-365
+        raise ValueError("EFB bundling does not compose with forced splits; "
+                         "set enable_bundle=false")
+    if params.packed_bins and (
+            params.has_bundles
+            or params.partition_impl not in ("select", "vselect")
+            or not params.hist_impl.startswith("pallas")):
+        # grower.py:366-372
+        raise ValueError(
+            "packed 4-bit bins require the pallas histogram impl, a "
+            "select-family partition lowering, and no EFB bundling")
+    if params.partition_impl == "kernel" and (params.has_cat
+                                              or params.has_bundles):
+        # grower.py:384-390
+        raise ValueError(
+            "tpu_partition_impl=kernel (the pallas row-partition) covers "
+            "plain dense numerical columns only — categorical splits, EFB "
+            "bundles, sparse storage, and 4-bit packing keep the "
+            "select-family lowerings")
+    if quantized and params.forced:
+        # grower.py:397-399
+        raise ValueError("quantized histogram precisions do not compose "
+                         "with forced splits")
+    if quantized and params.quant_round not in ("stochastic", "nearest"):
+        raise ValueError(f"tpu_quant_round={params.quant_round!r}; expected "
+                         "stochastic or nearest")
+    if params.precision == "f64" and params.forced:
+        # the JAX grower's forced round writes its f64 sums into the f32
+        # records and fails there with this exception type
+        raise TypeError("forced splits do not compose with deterministic="
+                        "true (f64 histograms): the forced round's sums "
+                        "are f64 and the split records f32")
+    if params.partition_impl not in PARTITION_IMPLS:
+        raise NotImplementedError(
+            f"tpu_partition_impl={params.partition_impl!r} is not ported "
+            f"to lightgbm_tpu_torch yet (ported: {PARTITION_IMPLS})")
+    if params.ramp_step < 2:
+        raise ValueError(f"ramp_step={params.ramp_step}; the frontier "
+                         "bound needs a growth factor >= 2")
+
+
 def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
          hess: torch.Tensor, row_mask: torch.Tensor,
          feature_mask: torch.Tensor, meta: Dict[str, torch.Tensor],
@@ -222,40 +320,19 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     monotone and f32 penalty (and is_categorical under has_cat, and
     bundle_idx/bin_offset/needs_fix under has_bundles); key: the
     tree's threefry key (uint32[2], `utils.prng`), which seeds the
-    stochastic rounding of int8/int16.
+    stochastic rounding of int8/int16.  Under params.has_cegb meta also
+    carries cegb_coupled/cegb_lazy [F] f32 and the state cegb_used [F]
+    f32 (and cegb_paid [F, n_pad] bool with lazy penalties, updated in
+    place).
 
     Returns records [L-1, 16] ([L-1, 16 + B] under has_cat, the bins
     routed left by each categorical split), leaf_ids [n_pad], leaf_output [L],
-    leaf_cnt [L], leaf_sum_h [L] (device tensors) and syncs (int)."""
+    leaf_cnt [L], leaf_sum_h [L] (device tensors), syncs (int) and, under
+    CEGB, the state for the next tree: cegb_used (and cegb_paid)."""
     quantized = params.precision in INT_PRECISIONS
-    if quantized and params.quant_round not in ("stochastic", "nearest"):
-        raise ValueError(f"tpu_quant_round={params.quant_round!r}; expected "
-                         "stochastic or nearest")
+    check_params(params)
     if quantized and key is None:
         raise ValueError("the quantized precisions need the tree's key")
-    if params.partition_impl not in PARTITION_IMPLS:
-        raise NotImplementedError(
-            f"tpu_partition_impl={params.partition_impl!r} is not ported "
-            f"to lightgbm_tpu_torch yet (ported: {PARTITION_IMPLS})")
-    if params.ramp_step < 2:
-        raise ValueError(f"ramp_step={params.ramp_step}; the frontier "
-                         "bound needs a growth factor >= 2")
-    if params.packed_bins and (
-            params.has_bundles
-            or params.partition_impl not in ("select", "vselect")
-            or not params.hist_impl.startswith("pallas")):
-        # grower.py:366-372 of the JAX package
-        raise ValueError(
-            "packed 4-bit bins require the pallas histogram impl, a "
-            "select-family partition lowering, and no EFB bundling")
-    if params.partition_impl == "kernel" and (params.has_cat
-                                              or params.has_bundles):
-        # grower.py:384-390 of the JAX package
-        raise ValueError(
-            "tpu_partition_impl=kernel (the pallas row-partition) covers "
-            "plain dense numerical columns only — categorical splits, EFB "
-            "bundles, sparse storage, and 4-bit packing keep the "
-            "select-family lowerings")
     dev = bins_t.device
     L = params.num_leaves
     B = params.num_bins
@@ -283,10 +360,11 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     bynode = params.feature_fraction_bynode < 1.0
     if bynode and key is None:
         raise ValueError("feature_fraction_bynode needs the tree's key")
-    # categorical data and bundles reshape the search too
-    # (grower.py:553-561)
+    # categorical data, bundles, CEGB and forced splits reshape the search
+    # too (grower.py:553-563)
     fused_scan = (params.hist_impl == "fused" and quantized and not bynode
-                  and not params.has_cat and not params.has_bundles)
+                  and not params.has_cat and not params.has_bundles
+                  and not params.has_cegb and not params.forced)
     # the int32 bin prefix sums serve the plain numerical search alone:
     # with categorical features or bundles the histograms rescale to f32
     # first (grower.py:845-848)
@@ -318,13 +396,34 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return finalize_split(pf, bf, sg, sh, min_constraint=min_c,
                               max_constraint=max_c, **out_kw), None, None
 
-    def select(hist, sg, sh, cnt, min_c, max_c, fmask):
+    def apply_delta(gain, delta):
+        """The CEGB charge on the valid candidates' gains
+        (grower.py:709-711)."""
+        if delta is None:
+            return gain
+        return torch.where(gain > K_MIN_SCORE / 2, gain - delta, gain)
+
+    def cegb_delta(used, cnt, unpaid=None):
+        """[M, F] CEGB charges (DetlaGain, cost_effective_gradient_boosting
+        .hpp:50-62; grower.py:696-707): the split penalty times each
+        leaf's rows, the coupled penalty of the features not used yet,
+        and the lazy penalty times each leaf's rows that have not paid
+        for the feature; all times the tradeoff."""
+        d = (split_pen * cnt[:, None]
+             + meta["cegb_coupled"][None, :] * (1.0 - used)[None, :])
+        if unpaid is not None:
+            d = d + meta["cegb_lazy"][None, :] * unpaid
+        return tradeoff * d
+
+    def select(hist, sg, sh, cnt, min_c, max_c, fmask, delta=None):
         """Best split of each leaf of the batch: hist [C, G, B, 3] (int32
         sums under the quantized precisions, rescaled after the bin
         prefix sums, or before the search with categorical features or
         bundles, whose columns are expanded to the features first);
-        fmask [F], or [C, F] (one mask a leaf).  Returns (SplitResult,
-        is_cat [C] bool, cat_mask [C, B] f32), the last two None without
+        min_c/max_c: the leaves' monotone bounds, [C] (or scalars);
+        fmask [F], or [C, F] (one mask a leaf); delta: the CEGB charges,
+        [C, F] (or [F]), or None.  Returns (SplitResult, is_cat [C]
+        bool, cat_mask [C, B] f32), the last two None without
         categorical features."""
         if quantized and not int_scan:
             hist = hist.to(f32) * qscale
@@ -336,7 +435,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
                 meta["default_bin"], meta["monotone"], meta["penalty"],
                 fmask, min_constraint=min_c, max_constraint=max_c,
                 acc_scale=qscale if int_scan else None, **split_kw)
-            return best_of(pf, sg, sh, min_c, max_c)
+            return best_of(pf._replace(gain=apply_delta(pf.gain, delta)),
+                           sg, sh, min_c, max_c)
         # the merged search (grower.py:509-543): numerical features
         # through the numerical search, categorical ones through theirs
         catf = meta["is_categorical"].to(f32)
@@ -354,7 +454,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             min_data_per_group=params.min_data_per_group,
             min_constraint=min_c, max_constraint=max_c, **split_kw)
         is_cat = meta["is_categorical"] > 0
-        gain = torch.where(is_cat, pfc.gain, pf.gain)
+        gain = apply_delta(torch.where(is_cat, pfc.gain, pf.gain), delta)
         bf = torch.argmax(gain, dim=-1).to(i32)
         resn = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
                               max_constraint=max_c, **out_kw)
@@ -406,9 +506,12 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         cnt = row_mask.to(i32).sum(dtype=i32).to(f32)
         stats = pack_stats(g_q, h_q, row_mask, params.precision).contiguous()
     else:
-        sum_g = g.sum(dtype=f32)
-        sum_h = h.sum(dtype=f32)
-        cnt = row_mask.sum(dtype=f32)
+        # deterministic=true ("f64"): the leaf totals are summed in f64
+        # too, then kept f32 as the JAX grower keeps them (:989-992)
+        sum_t = torch.float64 if params.precision == "f64" else f32
+        sum_g = g.sum(dtype=sum_t).to(f32)
+        sum_h = h.sum(dtype=sum_t).to(f32)
+        cnt = row_mask.sum(dtype=sum_t).to(f32)
         stats = pack_stats(g, h, row_mask, params.precision).contiguous()
     leaf_ids = torch.zeros(n_pad, dtype=i32, device=dev)
     root_slots = torch.full((K,), -1, dtype=i32, device=dev)
@@ -424,12 +527,29 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         # the node draws split it (grower.py:1084-1086)
         node_key, k_root = split(node_key)
         root_fmask = bynode_masks(k_root, ())
+    delta0 = None
+    if params.has_cegb:
+        # the CEGB state lives across trees (grower.py:1087-1104): the
+        # features any earlier split used, and with lazy penalties which
+        # rows have paid for which feature
+        tradeoff = torch.tensor(np.float32(params.cegb_tradeoff), device=dev)
+        split_pen = torch.tensor(np.float32(params.cegb_penalty_split),
+                                 device=dev)
+        used0 = meta["cegb_used"]
+        unpaid_root = None
+        if params.has_cegb_lazy:
+            paid0 = meta["cegb_paid"]                       # [F, n_pad] bool
+            live_rows = row_mask > 0
+            unpaid_root = torch.clamp(
+                cnt - (paid0 & live_rows).sum(dim=1, dtype=i32).to(f32),
+                min=0.0)[None, :]
+        delta0 = cegb_delta(used0, cnt.reshape(1), unpaid_root)[0]
     root, root_iscat, root_cmask = select(
         root_hist[None], sum_g[None], sum_h[None], cnt[None], -big, big,
-        root_fmask)
+        root_fmask, delta0)
     if fused_scan:
         # the megakernel's per-feature tables (the JAX package's fused.py
-        # layout); no per-node masks in this slice, so the feature mask
+        # layout); no per-node masks on this path, so the feature mask
         # is baked in
         zi = torch.zeros(G, dtype=i32, device=dev)
         fmeta_i = torch.stack(
@@ -447,7 +567,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return v
 
     st = {
-        # int32 under the quantized precisions: subtraction stays exact
+        # int32 under the quantized precisions: subtraction stays exact;
+        # f64 under deterministic=true
         "pool": torch.zeros((L + 1, G, B, 3), dtype=root_hist.dtype,
                             device=dev),
         "leaf_sum_g": vec(0.0, first=sum_g),
@@ -465,16 +586,27 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         "bs_lo": vec(0.0, first=root.left_output[0]),
         "bs_ro": vec(0.0, first=root.right_output[0]),
     }
+    if params.has_mono:
+        # each leaf's monotone bounds on its output, narrowed at every
+        # split on a constrained feature (grower.py:1161-1163)
+        st["leaf_min"] = vec(-1e30)
+        st["leaf_max"] = vec(1e30)
     if params.has_cat:
         # the categorical best-split carry: flag and bins-going-left mask
         st["bs_iscat"] = vec(False, torch.bool, first=root_iscat[0])
         st["bs_catmask"] = torch.zeros((L + 1, B), dtype=f32, device=dev)
         st["bs_catmask"][0] = root_cmask[0]
+    if params.has_cegb:
+        st["used"] = used0
+        if params.has_cegb_lazy:
+            st["paid"] = paid0
     st["pool"][0] = root_hist
     # K slack rows so the last round's full-width write stays in bounds
     RW = REC_WIDTH + (B if params.has_cat else 0)
     records = torch.zeros((L - 1 + K, RW), dtype=f32, device=dev)
     n_splits = torch.zeros((), dtype=i32, device=dev)
+    if params.has_cegb_lazy:
+        iota_n = torch.arange(n_pad, dtype=torch.int64, device=dev)
 
     def cand_gains():
         gains = st["bs_gain"][:L]
@@ -524,33 +656,92 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             new_leaf = torch.where(move, new_ids[k], new_leaf)
         return new_leaf
 
-    def exec_round(Kr: int) -> None:
+    def cegb_round(Kr, prev_leaf_ids, sel_feat, do_k, at_sel, at_new, lc,
+                   rc):
+        """The round's CEGB update (grower.py:1482-1530): the applied
+        splits' features become used (and, lazily, every row of their
+        parents pays for them), the 2K children's charges, and the
+        re-credit of the coupled penalty to the stored best splits of
+        the other leaves whose feature was just used."""
+        prev_used = st["used"]
+        # one extra slot takes the dead slots' writes
+        upd = torch.zeros(FG + 1, dtype=f32, device=dev)
+        upd.index_fill_(0, torch.where(do_k, sel_feat, FG).long(), 1.0)
+        used = torch.maximum(prev_used, upd[:FG])
+        st["used"] = used
+        cnt_children = torch.cat([lc, rc])
+        unpaid = None
+        if params.has_cegb_lazy:
+            paid = st["paid"]
+            live_rows = row_mask > 0
+            # pay first, with the parents' rows before the partition
+            # (one masked scatter: each row marks its parent's feature)
+            slot_of = torch.full((L + 1,), Kr, dtype=torch.int64,
+                                 device=dev)
+            kar = torch.arange(Kr, dtype=torch.int64, device=dev)
+            slot_of[at_sel] = torch.where(do_k, kar, Kr)
+            row_slot = slot_of[prev_leaf_ids.long()]
+            pays = (row_slot < Kr) & live_rows
+            feat_of_row = torch.cat([sel_feat.long(), kar.new_zeros(1)])[
+                row_slot]
+            flat = paid.view(-1)
+            at = feat_of_row * n_pad + iota_n
+            flat[at] = flat[at] | pays
+            # the children's rows that have not paid, a feature each: a
+            # [2K, n] membership times the [n, F] paid matrix, as the JAX
+            # grower's einsum (an f32 matmul: counts below 2^24 are exact
+            # in any order, and no atomics crowd onto 2K x F sums)
+            child_of = torch.full((L + 1,), 2 * Kr, dtype=torch.int64,
+                                  device=dev)
+            child_of[at_sel] = torch.where(do_k, kar, 2 * Kr)
+            child_of[at_new] = torch.where(do_k, Kr + kar, 2 * Kr)
+            row_child = torch.where(live_rows, child_of[leaf_ids.long()],
+                                    2 * Kr)
+            memb = (row_child[None, :] == torch.arange(
+                2 * Kr, device=dev)[:, None]).to(f32)
+            paid_sum = memb @ paid.to(f32).T                   # [2K, F]
+            unpaid = torch.clamp(cnt_children[:, None] - paid_sum, min=0.0)
+        delta = cegb_delta(used, cnt_children, unpaid)
+        newly = used - prev_used
+        bf = st["bs_feat"].long()
+        credit = tradeoff * meta["cegb_coupled"][bf] * newly[bf]
+        st["bs_gain"] = st["bs_gain"] + torch.where(
+            st["bs_gain"] > K_MIN_SCORE / 2, credit, 0.0)
+        return delta
+
+    def exec_round(sel, vals, do_k, sel_feat, sel_thr, sel_dleft,
+                   sel_iscat, cmask_sel, lg, lh, lc, lo, ro) -> None:
+        """Up to Kr splits, slot k splitting leaf sel[k] on sel_feat[k]
+        (grower.py:1241-1598): partition, the children's bounds and
+        histograms, their search, the state and the records.  Shared by
+        the best-gain rounds, the ramp's and the forced splits'."""
         nonlocal leaf_ids, n_splits, node_key
-        vals, sel = _top_k(cand_gains(), Kr)
+        Kr = sel.shape[0]
         kar = torch.arange(Kr, dtype=i32, device=dev)
-        budget = (L - 1) - n_splits
-        # vals descend, so do_k is a prefix: this round's records are
-        # contiguous
-        do_k = (vals > 0.0) & (kar < budget)
-        if params.split_batch_alpha > 0.0 and K > 1:
-            alpha = min(params.split_batch_alpha, 0.999)
-            do_k &= vals >= alpha * vals[0]
         sl = sel.long()
-        sel_feat, sel_thr = st["bs_feat"][sl], st["bs_thr"][sl]
-        sel_dleft = st["bs_dleft"][sl]
-        sel_iscat = cmask_sel = None
-        if params.has_cat:
-            sel_iscat, cmask_sel = st["bs_iscat"][sl], st["bs_catmask"][sl]
-        lg, lh, lc = st["bs_lg"][sl], st["bs_lh"][sl], st["bs_lc"][sl]
-        lo, ro = st["bs_lo"][sl], st["bs_ro"][sl]
         num_do = do_k.sum(dtype=i32)
         new_ids = n_splits + 1 + kar
         pg, ph, pc = (st["leaf_sum_g"][sl], st["leaf_sum_h"][sl],
                       st["leaf_cnt"][sl])
         rg, rh, rc = pg - lg, ph - lh, pc - lc
 
+        prev_leaf_ids = leaf_ids
         leaf_ids = partition(sel, new_ids, do_k, sel_feat, sel_thr,
                              sel_dleft, sel_iscat, cmask_sel)
+
+        ch_min, ch_max = -big, big
+        if params.has_mono:
+            # the children's monotone bounds (grower.py:1391-1402), before
+            # the histograms: B2's scan reads them
+            p_min, p_max = st["leaf_min"][sl], st["leaf_max"][sl]
+            mono_k = meta["monotone"][sel_feat.long()]
+            mid = (lo + ro) / 2.0
+            l_min = torch.where(mono_k < 0, mid, p_min)
+            l_max = torch.where(mono_k > 0, mid, p_max)
+            r_min = torch.where(mono_k > 0, mid, p_min)
+            r_max = torch.where(mono_k < 0, mid, p_max)
+            ch_min = torch.cat([l_min, r_min])
+            ch_max = torch.cat([l_max, r_max])
 
         # all K smaller children in one pass, siblings by subtraction
         smaller_is_left = lc <= rc
@@ -566,8 +757,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             ctx[:C, CTX_SUM_G] = torch.cat([lg, rg])
             ctx[:C, CTX_SUM_H] = torch.cat([lh, rh])
             ctx[:C, CTX_COUNT] = torch.cat([lc, rc])
-            ctx[:C, CTX_MIN_C] = -big
-            ctx[:C, CTX_MAX_C] = big
+            ctx[:C, CTX_MIN_C] = ch_min
+            ctx[:C, CTX_MAX_C] = ch_max
             ctx[:C, CTX_USE_SMALL] = torch.cat(
                 [smaller_is_left, ~smaller_is_left]).to(f32)
             ctx[C, :3] = qscale
@@ -592,24 +783,28 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
 
         put("pool", hist_left, hist_right)
 
-        # best splits of all 2K children (no monotone bounds in this slice)
+        # best splits of all 2K children
         child_masks = feature_mask
         if bynode:
             # one mask a child, from the round's split of the key
             # (grower.py:1476-1479)
             node_key, k_nodes = split(node_key)
             child_masks = bynode_masks(k_nodes, (2 * Kr,))
+        delta = None
+        if params.has_cegb:
+            delta = cegb_round(Kr, prev_leaf_ids, sel_feat, do_k, at_sel,
+                               at_new, lc, rc)
         if fused_scan:
             # the megakernel's records: argmax over the per-feature gains,
             # then finalize_split (grower.py:1532-1551)
             ch, ch_iscat, ch_cmask = best_of(
                 unpack_pf_records(srecs), torch.cat([lg, rg]),
-                torch.cat([lh, rh]), -big, big)
+                torch.cat([lh, rh]), ch_min, ch_max)
         else:
             ch, ch_iscat, ch_cmask = select(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
-                torch.cat([lh, rh]), torch.cat([lc, rc]), -big, big,
-                child_masks)
+                torch.cat([lh, rh]), torch.cat([lc, rc]), ch_min, ch_max,
+                child_masks, delta)
 
         # the record block reads the parent's output before it changes
         rec = torch.stack([
@@ -623,6 +818,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         for key, li, ri in (("leaf_sum_g", lg, rg), ("leaf_sum_h", lh, rh),
                             ("leaf_cnt", lc, rc), ("leaf_output", lo, ro)):
             put(key, li, ri)
+        if params.has_mono:
+            put("leaf_min", l_min, r_min)
+            put("leaf_max", l_max, r_max)
         d_child = st["leaf_depth"][sl] + 1
         put("leaf_depth", d_child, d_child)
         for key, cv in (("bs_gain", ch.gain), ("bs_feat", ch.feature),
@@ -638,15 +836,89 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         records.index_copy_(0, (n_splits + kar).long(), rec)
         n_splits = n_splits + num_do
 
-    if params.ramp and not bynode and K > 1:
+    def best_round(Kr: int) -> None:
+        """A best-gain round: the top-Kr leaves by stored gain split on
+        their stored best splits (grower.py:1600-1622)."""
+        vals, sel = _top_k(cand_gains(), Kr)
+        kar = torch.arange(Kr, dtype=i32, device=dev)
+        budget = (L - 1) - n_splits
+        # vals descend, so do_k is a prefix: this round's records are
+        # contiguous
+        do_k = (vals > 0.0) & (kar < budget)
+        if params.split_batch_alpha > 0.0 and K > 1:
+            alpha = min(params.split_batch_alpha, 0.999)
+            do_k &= vals >= alpha * vals[0]
+        sl = sel.long()
+        exec_round(sel, vals, do_k, st["bs_feat"][sl], st["bs_thr"][sl],
+                   st["bs_dleft"][sl],
+                   st["bs_iscat"][sl] if params.has_cat else None,
+                   st["bs_catmask"][sl] if params.has_cat else None,
+                   st["bs_lg"][sl], st["bs_lh"][sl], st["bs_lc"][sl],
+                   st["bs_lo"][sl], st["bs_ro"][sl])
+
+    def forced_round(ok, parent: int, feat: int, thr: int):
+        """One forced split (grower.py:1624-1708): leaf `parent` splits on
+        (feat, thr) whatever its best split, its left sums read off the
+        pooled histogram at the threshold; a negative gain stops this
+        split and every later one.  Run as a K-wide round whose slot 0
+        alone may split, as the JAX grower runs it, so the round's width
+        (and under bynode its mask draw) is the best-gain rounds'.
+        Returns whether the split was made."""
+        iota_b = torch.arange(B, dtype=i32, device=dev)
+        mt = meta["missing_type"][feat]
+        nb_f = meta["num_bin"][feat]
+        db_f = meta["default_bin"][feat]
+        nan_excl = (mt == MISSING_NAN) & (iota_b == nb_f - 1)
+        mask_b = ((iota_b <= thr) & (iota_b < nb_f) & ~nan_excl).to(f32)
+        sums = reduce_sum(st["pool"][parent, feat] * mask_b[:, None], 0)
+        lg0, lh0, lc0 = sums[0], sums[1], sums[2]
+        pg0, ph0, pc0 = (st["leaf_sum_g"][parent], st["leaf_sum_h"][parent],
+                         st["leaf_cnt"][parent])
+        rg0, rh0, rc0 = pg0 - lg0, ph0 - lh0, pc0 - lc0
+        min_c, max_c = ((st["leaf_min"][parent], st["leaf_max"][parent])
+                        if params.has_mono else (-big, big))
+        lo0 = torch.minimum(torch.maximum(
+            leaf_output(lg0, lh0, **out_kw), min_c), max_c)
+        ro0 = torch.minimum(torch.maximum(
+            leaf_output(rg0, rh0, **out_kw), min_c), max_c)
+        shift = leaf_split_gain(pg0, ph0 + 2e-15, **out_kw)
+        gain0 = (leaf_split_gain(lg0, lh0, **out_kw)
+                 + leaf_split_gain(rg0, rh0, **out_kw)
+                 - shift - params.min_gain_to_split)
+        do0 = ok & (gain0 >= 0.0) & (lc0 > 0) & (rc0 > 0)
+        first = torch.arange(K, device=dev) == 0
+
+        def bcast(v, fill=0.0):
+            return torch.where(first, v, fill)
+
+        dleft0 = (mt == MISSING_ZERO) & (db_f <= thr)
+        exec_round(
+            torch.full((K,), parent, dtype=i32, device=dev),
+            bcast(gain0, K_MIN_SCORE), first & do0,
+            torch.full((K,), feat, dtype=i32, device=dev),
+            torch.full((K,), thr, dtype=i32, device=dev),
+            dleft0.repeat(K),
+            torch.zeros(K, dtype=torch.bool, device=dev)
+            if params.has_cat else None,
+            torch.zeros((K, B), dtype=f32, device=dev)
+            if params.has_cat else None,
+            bcast(lg0), bcast(lh0), bcast(lc0), bcast(lo0), bcast(ro0))
+        return do0
+
+    # forced splits first, one round each (grower.py:1710-1715)
+    forced_ok = torch.ones((), dtype=torch.bool, device=dev)
+    for parent, feat, thr in params.forced:
+        forced_ok = forced_round(forced_ok, int(parent), int(feat), int(thr))
+    if params.ramp and not params.forced and not bynode and K > 1:
         # after r rounds the frontier holds at most 2^r leaves, so a
         # pre-round of width K' >= 2^r splits exactly the leaves the
         # full-K round would: the tree is the same, the dead-slot work
         # of the first rounds goes.  Not under bynode: its draws take
-        # the round's width, which would change the masks
+        # the round's width, which would change the masks; not after
+        # forced splits, whose frontier the bound does not cover
         kr = 1
         while kr < K:
-            exec_round(kr)
+            best_round(kr)
             kr *= int(params.ramp_step)
     syncs = 0
     while True:
@@ -654,18 +926,27 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         syncs += 1
         if not bool(go):      # the one host wait of the round
             break
-        exec_round(K)
+        best_round(K)
     if quantized and params.quant_refit:
         # leaf refit (grower.py:1733-1755): the structure came from the
-        # integer histograms, the outputs come from the f32 sums
+        # integer histograms, the outputs come from the f32 sums, clipped
+        # to each leaf's monotone bounds
         # per-leaf sums in row order, as XLA:CPU's scatter adds them (a
         # fixed-order kernel on the card: ops/leafsum.py)
         rg, rh = leaf_sums(leaf_ids, torch.stack([g, h]), L + 1)
+        lo_b, hi_b = ((st["leaf_min"], st["leaf_max"]) if params.has_mono
+                      else (-big, big))
         refit = torch.minimum(torch.maximum(
-            leaf_output(rg, rh + 2e-15, **out_kw), -big), big)
+            leaf_output(rg, rh + 2e-15, **out_kw), lo_b), hi_b)
         st["leaf_output"] = torch.where(st["leaf_cnt"] > 0, refit,
                                         st["leaf_output"])
-    return {"records": records[:L - 1], "leaf_ids": leaf_ids,
-            "leaf_output": st["leaf_output"][:L],
-            "leaf_cnt": st["leaf_cnt"][:L],
-            "leaf_sum_h": st["leaf_sum_h"][:L], "syncs": syncs}
+    out = {"records": records[:L - 1], "leaf_ids": leaf_ids,
+           "leaf_output": st["leaf_output"][:L],
+           "leaf_cnt": st["leaf_cnt"][:L],
+           "leaf_sum_h": st["leaf_sum_h"][:L], "syncs": syncs}
+    if params.has_cegb:
+        # the state the next tree starts from (grower.py:1767-1773)
+        out["cegb_used"] = st["used"]
+        if params.has_cegb_lazy:
+            out["cegb_paid"] = st["paid"]
+    return out

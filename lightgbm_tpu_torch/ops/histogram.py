@@ -16,6 +16,10 @@ PCG-style hash of the row index and two key words (`key_words`).  The
 hash runs in int64 masked to 32 bits, since torch's uint32 arithmetic is
 partial; it gives the JAX package's uint32 results bit for bit.
 
+"f64" (deterministic=true) stacks f64 stat rows and accumulates them in
+f64 with `hist_batched_f64`, torch ops in one fixed order on every device
+(the JAX package runs it through its XLA branch alone, never Pallas).
+
 `build_histogram_batched_t` is the K-slot batched histogram.  On a CUDA
 tensor it launches kernel B1 (`csrc/histogram.cu` on
 `csrc/grouped_hist.cuh`, the port of the perfeature Pallas kernel
@@ -59,7 +63,7 @@ import torch
 
 from . import kernels
 
-PRECISIONS = ("hilo", "bf16", "f32", "int8", "int16")
+PRECISIONS = ("hilo", "bf16", "f32", "f64", "int8", "int16")
 INT_PRECISIONS = ("int8", "int16")
 _INT_STAT_DTYPES = {"int8": torch.int8, "int16": torch.int16}
 _INT_TYPE_MAX = {"int8": 127, "int16": 32767}
@@ -78,14 +82,16 @@ BINS_U8, BINS_PACKED, BINS_WIDE = 0, 1, 2
 def _dot_spec(precision: str):
     """(stat dtype, accumulator dtype) of a histogram pass: the one table
     the packing, the twin and the kernel wrappers read.  The integer
-    precisions accumulate in exact int32.  The f64 precision of the JAX
-    package is not ported yet."""
+    precisions accumulate in exact int32, "f64" (deterministic=true) in
+    doubles (`hist_batched_f64`)."""
     if precision not in PRECISIONS:
         raise NotImplementedError(
             f"tpu_hist_precision={precision!r} is not ported to "
             f"lightgbm_tpu_torch yet (ported: {', '.join(PRECISIONS)})")
     if precision in _INT_STAT_DTYPES:
         return _INT_STAT_DTYPES[precision], torch.int32
+    if precision == "f64":
+        return torch.float64, torch.float64
     stat = torch.float32 if precision == "f32" else torch.bfloat16
     return stat, torch.float32
 
@@ -158,8 +164,9 @@ def pack_stats(grad: torch.Tensor, hess: torch.Tensor, mask: torch.Tensor,
 
     grad/hess must already be multiplied by `mask` if masking is intended
     (mask also serves as the count row).  Returns [5, n] bf16 for "hilo",
-    [3, n] bf16/f32 for "bf16"/"f32", and for "int8"/"int16" the [3, n]
-    integer rows of grad/hess that `quantize_values` already rounded."""
+    [3, n] bf16/f32/f64 for "bf16"/"f32"/"f64", and for "int8"/"int16"
+    the [3, n] integer rows of grad/hess that `quantize_values` already
+    rounded."""
     stat_dtype, _ = _dot_spec(precision)
     if precision != "hilo":
         return torch.stack([grad.to(stat_dtype), hess.to(stat_dtype),
@@ -264,6 +271,47 @@ def hist_batched_plain(bins_t: torch.Tensor, stats: torch.Tensor,
     raw = torch.zeros(F * B * K, S, dtype=acc, device=dev)
     raw.index_add_(0, flat.reshape(-1), vals.reshape(-1, S))
     return raw.view(F, B, K, S)
+
+
+# one-hot elements of a block of `hist_batched_f64`: 2^24 f64 (134 MB)
+_F64_ONEHOT_ELEMS = 1 << 24
+
+
+def hist_batched_f64(bins_t: torch.Tensor, stats: torch.Tensor,
+                     leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
+                     num_bins: int) -> torch.Tensor:
+    """The f64 batched histogram of deterministic=true: raw [F, B, K, S]
+    f64 sums, in one fixed order on every device.
+
+    The JAX package computes it with its XLA branch alone (histogram.py:
+    311-337: a one-hot of (feature, bin) per row block contracted in f64
+    against the slot-expanded stat rows, the blocks added in order), and
+    so does this, over the rows of the live slots only: those rows in
+    ascending order, cut into blocks whose [F*B, blk] one-hot holds at
+    most 2^24 elements, each block one f64 matmul, the blocks added in
+    sequence.  No atomics: two runs on one device give the same bits
+    (`index_add_`, the float twin's form, adds through atomics on CUDA).
+    Bins >= num_bins match no one-hot row."""
+    F, n = bins_t.shape
+    S = stats.shape[0]
+    K = slot_leaf_ids.shape[0]
+    B = int(num_bins)
+    dev = bins_t.device
+    f64 = torch.float64
+    slot_oh = slot_leaf_ids[:, None] == leaf_ids[None, :]        # [K, n]
+    rows = slot_oh.any(dim=0).nonzero()[:, 0]                    # ascending
+    blk = 1
+    while blk * 2 * F * B <= _F64_ONEHOT_ELEMS:
+        blk *= 2
+    iota = torch.arange(B, device=dev)[None, :, None]
+    acc = torch.zeros(F * B, K * S, dtype=f64, device=dev)
+    for r0 in range(0, rows.shape[0], blk):
+        rb = rows[r0:r0 + blk]
+        onehot = (bins_t[:, rb].long()[:, None, :] == iota).to(f64)
+        sexp = (slot_oh[:, rb].to(f64)[:, None, :]
+                * stats[:, rb].to(f64)[None])                    # [K, S, m]
+        acc = acc + onehot.reshape(F * B, -1) @ sexp.reshape(K * S, -1).T
+    return acc.view(F, B, K, S)
 
 
 def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
@@ -775,8 +823,15 @@ def build_histogram_batched_t(bins_t: torch.Tensor, stats: torch.Tensor,
     packed_block:  > 0: bins_t is packed 4-bit [F, n/2] in blocks of this
                    many rows (the packed variant of B1 or B4)
 
-    A CPU tensor goes through `hist_batched_plain`."""
-    if bins_t.device.type == "cuda":
+    A CPU tensor goes through `hist_batched_plain`.  precision="f64"
+    (deterministic=true, an XLA-only path in the JAX package) takes
+    `hist_batched_f64` on every device and no kernel."""
+    if precision == "f64":
+        if packed_block:
+            raise ValueError("f64 histograms take unpacked bins")
+        raw = hist_batched_f64(bins_t, stats, leaf_ids, slot_leaf_ids,
+                               num_bins)
+    elif bins_t.device.type == "cuda":
         kernel = hist_flat_kernel if impl == "pallas" \
             else hist_batched_kernel
         raw = kernel(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins,

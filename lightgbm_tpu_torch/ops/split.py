@@ -322,11 +322,15 @@ def finalize_split(pf: PerFeatureBest, best_f, sum_g, sum_h, *, l1: float,
     lo = _clip(leaf_output(lg, lh, l1, l2, max_delta_step), min_c, max_c)
     ro = _clip(leaf_output(sum_g - lg, sum_h - lh, l1, l2, max_delta_step),
                min_c, max_c)
+    # the grower's stored splits are f32: under deterministic=true the
+    # candidate math above runs in f64 and is cast down here, in the one
+    # place the JAX package casts it (split.py:299-305)
     return SplitResult(
-        gain=pick(pf.gain), feature=best_f.to(torch.int32),
+        gain=pick(pf.gain).float(), feature=best_f.to(torch.int32),
         threshold=pick(pf.threshold), default_left=pick(pf.default_left),
-        left_sum_g=lg, left_sum_h=lh, left_count=pick(pf.left_count),
-        left_output=lo, right_output=ro)
+        left_sum_g=lg.float(), left_sum_h=lh.float(),
+        left_count=pick(pf.left_count).float(),
+        left_output=lo.float(), right_output=ro.float())
 
 
 class PerFeatureCatBest(NamedTuple):

@@ -64,14 +64,8 @@ def test_training_without_cuda_raises_unless_cpu_is_asked():
 
 
 OUT_OF_SLICE = [
-    {"monotone_constraints": [1, 0, 0]},
-    {"cegb_penalty_split": 0.1},
-    {"cegb_penalty_feature_coupled": [1.0, 0.0, 0.0]},
-    {"forcedsplits_filename": "splits.json"},
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
     {"tpu_stream_mode": "streamed"},
-    {"deterministic": True},
-    {"tpu_hist_precision": "f64"},
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},

@@ -1090,3 +1090,106 @@ def test_efb_int8_training_on_card_matches_cpu_text():
                 b.predict(X[:5000], raw_score=True),
                 b.predict(X[:5000].toarray(), raw_score=True))
     assert texts["cuda"] == texts["cpu"]
+
+
+# ---- monotone constraints, CEGB, forced splits, deterministic=true ------
+
+
+def _unconstrained(case):
+    """The operands of a monotone fused_case without its constraints and
+    bounds."""
+    free = dict(case, ctx=case["ctx"].copy(), meta_i=case["meta_i"].copy())
+    free["ctx"][:-1, 3], free["ctx"][:-1, 4] = -1e30, 1e30
+    free["meta_i"][:, 3] = 0
+    return free
+
+
+@pytest.mark.parametrize("precision", ["int8", "int16"])
+@pytest.mark.parametrize("F,n,B,K,dead", [
+    (32, 1 << 18, 255, 25, (7, 24)),
+    (8, 1 << 16, 63, 4, ()),
+    (28, 1 << 17, 1023, 25, (7,)),
+    (8, 30000, 300, 3, (1,)),
+])
+def test_fused_kernel_monotone_bitwise(precision, F, n, B, K, dead):
+    """B2 and B2-wide with monotone constraints on half of the features
+    and bounds that bind on some children: bitwise to the twin, and the
+    constraints change the records."""
+    dev = cuda_device()
+    case, kw = fused_case(17, F, n, B, K, precision, dead, mono=True)
+    name = "fused_hist_scan" + ("_wide" if B > 256 else "")
+    ops = fused_args(case, B, precision, dev)
+    before = kernels.launches[name]
+    got = TF.fused_hist_scan_kernel(*ops, split_kw=kw)
+    assert kernels.launches[name] == before + 1
+    ref = TF.fused_hist_scan_plain(*ops, split_kw=kw)
+    TF.assert_fused_equal(got, ref)
+    assert (ref[1][..., 0] > 0).any()
+    free = TF.fused_hist_scan_plain(
+        *fused_args(_unconstrained(case), B, precision, dev), split_kw=kw)
+    assert (free[1][..., 0] != ref[1][..., 0]).any()
+
+
+def _constraint_data(n=30000, seed=8):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 8))
+    y = X[:, 0] - 0.5 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3] \
+        + 0.3 * rng.normal(size=n)
+    return X, y
+
+
+CONSTRAINT_CARD = {"objective": "regression", "num_leaves": 31,
+                   "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
+                   "tpu_hist_precision": "int8",
+                   "tpu_quant_refit_leaves": False}
+
+
+@pytest.mark.parametrize("extra", [
+    {"monotone_constraints": [1, -1, 0, 1, 0, 0, 0, 0]},
+    {"cegb_penalty_feature_coupled": [50.0] * 8,
+     "cegb_penalty_feature_lazy": [0.0] * 4 + [0.01] * 4,
+     "cegb_penalty_split": 0.001}], ids=["monotone", "cegb"])
+def test_constraint_int8_training_on_card_matches_cpu_text(extra):
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _constraint_data()
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        p = dict(CONSTRAINT_CARD, device_type=dev, **extra)
+        b = lgb.train(p, lgb.Dataset(X, label=y, params=p), 3)
+        texts[dev] = _norm(b.model_to_string(), "device_type")
+    assert texts["cuda"] == texts["cpu"]
+
+
+def test_deterministic_training_on_card_is_byte_identical():
+    """deterministic=true: f64 histograms in torch ops (no histogram
+    kernel), two card runs write the same text, and its trees are the
+    CPU's within 1e-12 of each tree's largest leaf."""
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _constraint_data()
+    p = dict(CONSTRAINT_CARD, tpu_hist_precision="hilo", deterministic=True,
+             tpu_hist_impl="xla")
+    hist_kernels = [k for k in kernels.launches if k.startswith("hist_")
+                    or k.startswith("fused_")]
+    before = {k: kernels.launches[k] for k in hist_kernels}
+    texts, models = [], []
+    for dev in ("cuda", "cuda", "cpu"):
+        b = lgb.train(dict(p, device_type=dev),
+                      lgb.Dataset(X, label=y, params=p), 3)
+        texts.append(b.model_to_string())
+        models.append(b._driver.models)
+    assert {k: kernels.launches[k] for k in hist_kernels} == before
+    assert texts[0] == texts[1]
+    for tc, tp in zip(models[0], models[2]):
+        nl = tc.num_leaves
+        assert tp.num_leaves == nl
+        np.testing.assert_array_equal(tc.split_feature[:nl - 1],
+                                      tp.split_feature[:nl - 1])
+        np.testing.assert_array_equal(tc.threshold_in_bin[:nl - 1],
+                                      tp.threshold_in_bin[:nl - 1])
+        ref = np.asarray(tp.leaf_value[:nl])
+        assert np.abs(np.asarray(tc.leaf_value[:nl]) - ref).max() \
+            <= 1e-12 * np.abs(ref).max()

@@ -30,7 +30,8 @@ def binary_data(n=2000, f=6, seed=0, nan_frac=0.05, zero_frac=0.0):
 
 
 def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
-               mds=0.0, min_data=5.0, bag=0.0, bins=None, root=False):
+               mds=0.0, min_data=5.0, bag=0.0, bins=None, root=False,
+               mono=False):
     """Seeded numpy operands of the grow megakernel (B2): quantized
     stats, leaf ids, K slots (some dead), parent histograms, the ctx rows
     with both sibling choices and consistent child totals, mixed missing
@@ -39,7 +40,11 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     of the features is masked, drawn from a generator of their own.
     The bins are uint8 up to 256 bins and int32 (wide) above; `bins`
     ([F, n]) replaces the random ones.  root: every row in slot 0 (the
-    root call).
+    root call).  mono: monotone constraints on half of the features (+1
+    on every fourth from 0, -1 on every fourth from 2) and finite output
+    bounds on two thirds of the children, a tenth of the child's own
+    output either side of it (they bind on most splits) or from its
+    output up; the last third keeps +-1e30.
     Returns (dict of arrays, split_kw)."""
     import torch
 
@@ -91,6 +96,15 @@ def fused_case(seed, F, n, B, K, precision, dead=(), l1=0.0, l2=0.0,
     meta_f[F - 1, 1] = 0.0
     if bag:
         meta_f[bag_rng.random(F) < bag, 1] = 0.0
+    if mono:
+        meta_i[:, 3] = np.where(np.arange(F) % 4 == 0, 1,
+                                np.where(np.arange(F) % 4 == 2, -1, 0))
+        out = -ctx[:C, 0] / np.maximum(ctx[:C, 1], np.float32(1e-3))
+        band = np.maximum(np.float32(0.1) * np.abs(out), np.float32(1e-6))
+        j = np.arange(C)
+        ctx[:C, 3] = np.where(j % 3 == 2, -1e30,
+                              np.where(j % 3 == 0, out - band, out))
+        ctx[:C, 4] = np.where(j % 3 == 0, out + band, 1e30)
     kw = dict(l1=l1, l2=l2, max_delta_step=mds, min_data_in_leaf=min_data,
               min_sum_hessian=1e-3, min_gain_to_split=0.0)
     return dict(bins=bins, stats=stats, leaf=leaf, slots=slots,
@@ -781,6 +795,87 @@ def _job_sparse(inp, spec):
     return out
 
 
+# ---- monotone constraints, CEGB, forced splits, deterministic=true ---------
+
+
+def constraints_run(lgb, X, y, run):
+    """lgb.train of `lgb` (kind "updates": a Booster and `rounds`
+    update() calls) with monotone constraints, CEGB, forced splits or
+    deterministic=true.  run: params, rounds, and optionally cat (the
+    categorical columns).  Returns the model text, the raw scores of X
+    (the JAX package's on its device path), whether the learner formed
+    an EFB plan and, under CEGB, the learner's cross-tree state over the
+    real features and rows (used [F], paid [F, n] as uint8); or, where
+    training raises, the exception's class name and message."""
+    p = dict(run["params"])
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    kw = {"tpu_predict_device": "true"} if jax_side else {}
+    train = lgb.Dataset(X, label=y,
+                        categorical_feature=run.get("cat", "auto"),
+                        params={"max_bin": p["max_bin"]})
+    try:
+        if run["kind"] == "updates":
+            b = lgb.Booster(params=p, train_set=train)
+            for _ in range(run["rounds"]):
+                b.update()
+        else:
+            b = lgb.train(p, train, num_boost_round=run["rounds"],
+                          keep_training_booster=True)
+    except Exception as exc:  # noqa: BLE001 - the type is the result
+        return {"error": type(exc).__name__, "message": str(exc)}
+    learner = b._driver.learner
+    out = {"text": b.model_to_string(),
+           "raw": np.asarray(b.predict(X, raw_score=True, **kw)),
+           "plan": learner.bundle_plan is not None}
+    F, n = learner.num_features, X.shape[0]
+    state = ((getattr(learner, "_cegb_used", None),
+              getattr(learner, "_cegb_paid", None))
+             if jax_side else (learner.meta.get("cegb_used"),
+                               learner.meta.get("cegb_paid")))
+    if state[0] is not None:
+        out["used"] = np.asarray(state[0])[:F]
+    if state[1] is not None:
+        out["paid"] = np.asarray(state[1])[:F, :n].astype(np.uint8)
+    return out
+
+
+def _job_constraints(inp, spec):
+    """Runs of kinds "train"/"updates" (constraints_run), "cv" (cv_run),
+    "sklearn" (sklearn_run), "load" (a model text loaded and its raw
+    scores of the rows, on the device path) and "orders" (jnp.cumsum
+    over the last axis of the input orders_scan and jnp.sum over the
+    bins of orders_sum, in f64) on the data set named by each run."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        X = inp["X_" + run.get("data", "base")]
+        y = inp[f"y_{run.get('data', 'base')}_{run.get('label', 'reg')}"]
+        if run["kind"] == "cv":
+            res, raw = cv_run(lgb, X, y, run)
+            res = {"result": np.array(res)}
+        elif run["kind"] == "sklearn":
+            res = sklearn_run(lgb, X, y, run)
+        elif run["kind"] == "orders":
+            # XLA:CPU's f64 prefix sums and bin sums, in the x64 process
+            import jax
+            import jax.numpy as jnp
+
+            jax.config.update("jax_enable_x64", True)
+            res = {"cumsum": jax.jit(lambda a: jnp.cumsum(a, axis=-1))(
+                       inp["orders_scan"]),
+                   "sum": jax.jit(lambda a: jnp.sum(a, axis=-2))(
+                       inp["orders_sum"])}
+        elif run["kind"] == "load":
+            res = {"raw": lgb.Booster(model_str=run["text"]).predict(
+                X, raw_score=True, tpu_predict_device="true")}
+        else:
+            res = constraints_run(lgb, X, y, run)
+        for k, v in res.items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -792,6 +887,7 @@ if __name__ == "__main__":
     result = {"fused": _job_fused, "grow": _job_grow,
               "train": _job_train, "train_valid": _job_train_valid,
               "boosting": _job_boosting, "cat_split": _job_cat_split,
-              "sklearn": _job_sklearn, "sparse": _job_sparse}[job](
+              "sklearn": _job_sklearn, "sparse": _job_sparse,
+              "constraints": _job_constraints}[job](
                   inp, spec)
     np.savez(dst, **result)
