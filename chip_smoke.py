@@ -19,7 +19,8 @@ Phases, each fatal on failure (exit code 1, no result line):
        int8    as hilo with tpu_hist_precision=int8 and its defaults
                (stochastic rounding, leaf refit), 10 iterations: B1's
                integer variant at the root, B2 in every grower round,
-               B3, and the refit's fixed-order leaf sums;
+               B3, and the refit's fixed-order leaf sums (kernels
+               leaf_group and leaf_sums, as on every path that refits);
        flat    as hilo with tpu_hist_impl=pallas, 10 iterations: B4
                (the grouped body under its own instance), B3;
        flat_int8  flat with tpu_hist_precision=int8, 5 iterations: B4's
@@ -159,8 +160,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      one PyTorch library call computing the same function; B1, B4, their
      integer and packed variants at random operands and at the root
      call's operands (every row in slot 0, the other slots dead); B3 also
-     with two slots holding one leaf id; the leaf sums bitwise against
-     index_add_ on the CPU; B1-int and B2 also at bagged operands (about
+     with two slots holding one leaf id; the leaf refit's grouping
+     (leaf_group, bitwise against its twin on the card) and sums (the
+     whole call bitwise against index_add_ on the CPU), at uniform leaf
+     ids and with one leaf holding SKEW_LEAF_ROWS of the rows (the
+     largest leaf of multiclass_int8); B1-int and B2 also at bagged
+     operands (about
      20% of the rows with zero stats, about 20% of the features masked)
      and at GOSS operands (the grad, hess and row mask of one sampled
      tree of goss_int8: about 70% of the rows out, the rest kept by the
@@ -264,6 +269,9 @@ PEAK_ALU_S = 67e12         # H100 SXM scalar rate (the f32 row of the table)
 # cycles from one f32 add to the next that depends on it (the issue
 # latency of FADD on sm_70 and later): the leaf sums' serial chain
 FADD_CYCLES = 4
+# phase 4's skewed leaf-sum operands: one leaf holds this many of the
+# n_pad rows (multiclass_int8's largest leaf on an H100)
+SKEW_LEAF_ROWS = 570_000
 PARAMS = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
           "min_data_in_leaf": 20, "max_bin": 255, "metric": "auc",
           "tree_learner": "serial", "tpu_hist_precision": "hilo",
@@ -282,31 +290,32 @@ PATHS = [
     ("hilo", PARAMS, ITERS, ("hist_batched", "partition_rows")),
     ("int8", dict(PARAMS, tpu_hist_precision="int8"), ITERS,
      ("hist_batched_int", "fused_hist_scan", "partition_rows",
-      "leaf_sums")),
+      "leaf_group", "leaf_sums")),
     ("flat", dict(PARAMS, tpu_hist_impl="pallas"), ITERS,
      ("hist_flat", "partition_rows")),
     ("flat_int8", dict(PARAMS, tpu_hist_impl="pallas",
                        tpu_hist_precision="int8"), ITERS_INT_VARIANT,
-     ("hist_flat_int", "partition_rows", "leaf_sums")),
+     ("hist_flat_int", "partition_rows", "leaf_group", "leaf_sums")),
     ("packed", PACKED_PARAMS, ITERS, ("hist_batched_packed",)),
     ("packed_int8", dict(PACKED_PARAMS, tpu_hist_precision="int8",
                          tpu_hist_impl="pallas2"), ITERS_INT_VARIANT,
-     ("hist_batched_packed_int", "leaf_sums")),
+     ("hist_batched_packed_int", "leaf_group", "leaf_sums")),
     ("packed_flat", dict(PACKED_PARAMS, tpu_hist_impl="pallas"), ITERS,
      ("hist_flat_packed",)),
     ("packed_flat_int8", dict(PACKED_PARAMS, tpu_hist_impl="pallas",
                               tpu_hist_precision="int8"), ITERS_INT_VARIANT,
-     ("hist_flat_packed_int", "leaf_sums")),
+     ("hist_flat_packed_int", "leaf_group", "leaf_sums")),
     ("wide", WIDE_PARAMS, ITERS, ("hist_batched_wide",
                                   "partition_rows_wide")),
     ("wide_int8", dict(WIDE_PARAMS, tpu_hist_precision="int8"), ITERS,
      ("hist_batched_wide_int", "fused_hist_scan_wide", "partition_rows_wide",
-      "leaf_sums")),
+      "leaf_group", "leaf_sums")),
     ("wide_flat", dict(WIDE_PARAMS, tpu_hist_impl="pallas"),
      ITERS_INT_VARIANT, ("hist_flat_wide", "partition_rows_wide")),
     ("wide_flat_int8", dict(WIDE_PARAMS, tpu_hist_impl="pallas",
                             tpu_hist_precision="int8"), ITERS_INT_VARIANT,
-     ("hist_flat_wide_int", "partition_rows_wide", "leaf_sums")),
+     ("hist_flat_wide_int", "partition_rows_wide", "leaf_group",
+      "leaf_sums")),
 ]
 
 
@@ -325,7 +334,7 @@ ITERS_EVAL_COST = 5
 
 # the boosting modes and per-node feature sampling, at full width
 INT_KERNELS = ("hist_batched_int", "fused_hist_scan", "partition_rows",
-               "leaf_sums")
+               "leaf_group", "leaf_sums")
 # GOSS at learning_rate 0.1: 10 full iterations, then 5 sampled
 GOSS_PARAMS = dict(PARAMS, tpu_hist_precision="int8", boosting="goss",
                    top_rate=0.2, other_rate=0.1)
@@ -380,7 +389,7 @@ CAT_PARAMS = dict(PARAMS, tpu_partition_impl="select")
 CAT_PATHS = [
     ("cat_hilo", CAT_PARAMS, ("hist_batched",), ("partition_rows",)),
     ("cat_int8", dict(CAT_PARAMS, tpu_hist_precision="int8"),
-     ("hist_batched_int", "leaf_sums"),
+     ("hist_batched_int", "leaf_group", "leaf_sums"),
      ("fused_hist_scan", "partition_rows")),
 ]
 # phase 5's wide categorical run: column 27 recoded into this many
@@ -410,7 +419,7 @@ EFB_PATHS = [
     ("efb_hilo", EFB_PARAMS, ("hist_batched",),
      ("fused_hist_scan", "partition_rows")),
     ("efb_int8", dict(EFB_PARAMS, tpu_hist_precision="int8"),
-     ("hist_batched_int", "leaf_sums"),
+     ("hist_batched_int", "leaf_group", "leaf_sums"),
      ("fused_hist_scan", "partition_rows")),
 ]
 # the plan's columns: one bundle a small block, two for each of Origin
@@ -678,7 +687,8 @@ def cegb_path(lgb, kernels, ds, X, y, plain):
     and no B2; fewer distinct features than the int8 path `plain` (the
     same iterations) may split.  Prints both paths' root gains."""
     report, booster = main_path(lgb, kernels, ds, X, y, CEGB_PARAMS, ITERS,
-                                ("hist_batched_int", "leaf_sums"),
+                                ("hist_batched_int", "leaf_group",
+                                 "leaf_sums"),
                                 must_not=("fused_hist_scan",))
     used, used_plain = (sorted({int(f) for f in split_features(b)})
                         for b in (booster, plain))
@@ -855,16 +865,13 @@ def sm_clock_mhz() -> float:
 
 
 def leaf_sums_floor(n, L, longest, mhz):
-    """The least time of the leaf sums' wrapper and kernel (ms) on this
-    card, from what the row-order contract imposes: the largest leaf's
-    `longest` rows as one chain of dependent f32 adds (FADD_CYCLES each
-    at the highest SM clock), after the wrapper's passes moved their
-    bytes once (the sort: n ids read, n sorted ids and n int64 indices
-    written; the gather: 2n values and n indices read, 2n values
-    written; searchsorted: L + 1 offsets written)."""
+    """The least time of the leaf sums (ms) on this card, from what the
+    row-order contract imposes: the largest leaf's `longest` rows as one
+    chain of dependent f32 adds (FADD_CYCLES each at the highest SM
+    clock), after the function's own bytes moved once (n leaf ids and 2n
+    values read, 2L sums written).  Returns (floor, chain)."""
     chain = longest * FADD_CYCLES / (mhz * 1e3)
-    nbytes = n * 4 + n * 4 + n * 8 + 2 * n * 4 + n * 8 + 2 * n * 4 \
-        + (L + 1) * 4
+    nbytes = n * 4 + 2 * n * 4 + 2 * L * 4
     return chain + nbytes / PEAK_BYTES_S * 1e3, chain
 
 
@@ -979,7 +986,7 @@ def valid_path(lgb, kernels, ds, X, y):
     launches = dict(kernels.launches)
     grower_syncs = booster._driver.grower_syncs
     for name in ("hist_batched_int", "fused_hist_scan", "partition_rows",
-                 "leaf_sums"):
+                 "leaf_group", "leaf_sums"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on path valid_bag_int8")
     driver = booster._driver
@@ -1344,7 +1351,7 @@ def multiclass_path(lgb, kernels, ds, X, latent):
     report, booster, raw = zoo_path(lgb, kernels, ds, X, label,
                                     MULTICLASS_PARAMS, INT_KERNELS)
     launches = report["launches"]
-    for name in ("hist_batched_int", "leaf_sums"):
+    for name in ("hist_batched_int", "leaf_group", "leaf_sums"):
         if launches[name] != report["trees"]:
             fail(f"multiclass_int8: {name} launched {launches[name]} times "
                  f"for {report['trees']} trees")
@@ -1425,6 +1432,7 @@ _LAYOUT_SUFFIX = {"U8": "", "Packed": "_packed", "Wide": "_wide",
                   "false": "", "true": "_packed"}
 _OTHER_KERNELS = ((r"partition_rows_kernel<int>", "partition_rows_wide"),
                   (r"partition_rows_kernel", "partition_rows"),
+                  (r"leaf_group_kernel", "leaf_group"),
                   (r"leaf_sums_kernel", "leaf_sums"))
 
 
@@ -1930,62 +1938,105 @@ def check_hist_int(learner, gen, operands, goss=None):
                      f"stats [3, {n}] int8, K={K}, B={B}, live rows {m}"}
 
 
-def check_leaf_sums(learner, gen):
-    """Phase 4, the leaf refit's sums at the int8 path's shapes: leaf ids
-    over the L leaves of the n_pad rows, f32 grad/hess; bitwise against
-    the twin, index_add_ on the CPU (the order XLA:CPU's scatter adds
-    in).  ms: the wrapper's whole device time (sort, gather, segment
-    starts and the kernel); kernel_ms: the kernel's alone."""
+def _leaf_operands(learner, gen, operands):
+    """The leaf sums' operands at the int8 path's shapes: leaf ids over
+    the L - 1 leaves of the n_pad rows ("uniform"), or with
+    SKEW_LEAF_ROWS rows at random in leaf 5 ("skewed"); f32 grad/hess."""
     import torch
-    from lightgbm_tpu_torch.ops import leafsum
 
     dev = learner.bins_t.device
     n = learner.n_pad
     L = learner.params.num_leaves + 1
     leaf = torch.randint(0, L - 1, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
+    if operands == "skewed":
+        leaf[torch.randperm(n, generator=gen, device=dev)[
+            :SKEW_LEAF_ROWS]] = 5
     vals = torch.stack([torch.randn(n, generator=gen, device=dev),
                         torch.rand(n, generator=gen, device=dev) * 0.25])
+    return leaf, vals, L
+
+
+def check_leaf_sums(learner, gen, operands):
+    """Phase 4, the leaf refit's kernels at the int8 path's shapes
+    (_leaf_operands): leaf_group bitwise against its twin on the card
+    (the counting sort leaf_group_plain), the sums bitwise against
+    index_add_ on the CPU (the order XLA:CPU's scatter adds in).  Rows
+    of both kernels; the leaf_sums row's ms is the whole call's device
+    time (both kernels), kernel_ms the sums kernel's, group_ms the
+    grouping's, beside the floor its largest leaf sets (chain_ms: the
+    chain alone)."""
+    import torch
+    from lightgbm_tpu_torch.ops import leafsum
+
+    leaf, vals, L = _leaf_operands(learner, gen, operands)
+    n = leaf.numel()
+    grouped, offsets = leafsum.leaf_group_kernel(leaf, vals, L)
+    twin_grouped, twin_offsets = leafsum.leaf_group_plain(leaf, vals, L)
+    if not (torch.equal(offsets, twin_offsets)
+            and torch.equal(grouped, twin_grouped)):
+        fail(f"leaf_group differs from its twin at {operands} operands")
     got = leafsum.leaf_sums_kernel(leaf, vals, L).cpu()
     ids_c, vals_c = leaf.cpu(), vals.cpu()
     ref = leafsum.leaf_sums_plain(ids_c, vals_c, L)
     if not torch.equal(got, ref):
-        fail(f"leaf_sums differs from index_add_ on the CPU: max err "
-             f"{(got - ref).abs().max().item()}")
+        fail(f"leaf_sums differs from index_add_ on the CPU at {operands} "
+             f"operands: max err {(got - ref).abs().max().item()}")
 
-    def kernel():
+    def call():
         return leafsum.leaf_sums_kernel(leaf, vals, L)
 
-    ms = device_ms(kernel, 20, kernels_of=lambda names: ["all"] * len(names),
-                   launches=None)
-    kernel_ms = device_ms(kernel, 20)
-    event_ms = cuda_ms(kernel, 20)
+    def only(name):
+        return lambda names: [k if k == name else None
+                              for k in port_kernels(names)]
+
+    # a call is these two launches and no other (the card tests hold it
+    # to that), so its device time is theirs
+    kernel_ms = device_ms(call, 20, kernels_of=only("leaf_sums"))
+    group_ms = device_ms(call, 20, kernels_of=only("leaf_group"))
+    ms = group_ms + kernel_ms
+    event_ms = cuda_ms(call, 20)
     t0 = time.perf_counter()
     for _ in range(5):
         leafsum.leaf_sums_plain(ids_c, vals_c, L)
     plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    group_plain_ms = cuda_ms(lambda: leafsum.leaf_group_plain(leaf, vals, L),
+                             3)
     ids = leaf.long()
-    out = torch.zeros(L, device=dev)
+    out = torch.zeros(L, device=leaf.device)
     lib_ms = cuda_ms(lambda: (out.index_add_(0, ids, vals[0]),
                               out.index_add_(0, ids, vals[1])), 5)
+    sort_ms = cuda_ms(lambda: torch.sort(leaf, stable=True), 5)
     # the row-order contract's floor: the largest leaf's dependent adds
-    longest = int(torch.bincount(leaf.long(), minlength=L).max().item())
+    longest = int(torch.bincount(ids, minlength=L).max().item())
     floor, chain = leaf_sums_floor(n, L, longest, sm_clock_mhz())
-    # ids and values read once, sums written once; 2n adds
-    return {"name": "leaf_sums", "route": "cuda",
-            "largest_leaf_rows": longest, "chain_ms": chain,
-            "floor_ms": floor,
-            "source": "lightgbm_tpu_torch/csrc/leafsum.cu",
-            "replaces": "lightgbm_tpu/ops/grower.py:1745",
-            "max_abs_err": 0.0, "max_rel_err": 0.0,
+    common = {"route": "cuda", "operands": operands,
+              "source": "lightgbm_tpu_torch/csrc/leafsum.cu",
+              "replaces": "lightgbm_tpu/ops/grower.py:1745",
+              "max_abs_err": 0.0, "max_rel_err": 0.0,
+              "largest_leaf_rows": longest,
+              "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
+    # the grouping: ids and values read once, the pairs and offsets
+    # written once; a compare and an add a row
+    group = {"name": "leaf_group", **common,
+             "tolerance": "bitwise to leaf_group_plain on the card",
+             "ms": group_ms, "plain_ms": group_plain_ms, "plain_on": "cuda",
+             **_bound(n * 4 + 2 * n * 4 + 2 * n * 4 + (L + 1) * 4, 2 * n,
+                      PEAK_ALU_S),
+             "library_ms": sort_ms,
+             "library": "torch.sort(stable=True) of the ids (the order "
+                        "alone)"}
+    # the sums: ids and values read once, sums written once; 2n adds
+    sums = {"name": "leaf_sums", **common,
             "tolerance": "bitwise to index_add_ on the CPU",
-            "ms": ms, "kernel_ms": kernel_ms, "event_ms": event_ms,
+            "ms": ms, "kernel_ms": kernel_ms, "group_ms": group_ms,
+            "event_ms": event_ms, "chain_ms": chain, "floor_ms": floor,
             "plain_ms": plain_ms, "plain_on": "cpu",
             **_bound(n * 4 + 2 * n * 4 + 2 * L * 4, 2 * n, PEAK_F32_S),
             "library_ms": lib_ms,
             "library": "2 x index_add_ on the card (f32 atomics, not "
-                       "deterministic)",
-            "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}"}
+                       "deterministic)"}
+    return [group, sums]
 
 
 def _fused_operands(learner, gen, bagged=False, goss=None, root=False,
@@ -2740,7 +2791,8 @@ def main() -> None:
             ("goss_int8", goss_path),
             ("bynode_int8", lambda *a: main_path(
                 *a, BYNODE_PARAMS, ITERS_INT_VARIANT,
-                ("hist_batched_int", "partition_rows", "leaf_sums"),
+                ("hist_batched_int", "partition_rows", "leaf_group",
+                 "leaf_sums"),
                 must_not=("fused_hist_scan",))),
             ("dart_hilo", dart_path),
             ("rf_int8", lambda *a: main_path(*a, RF_PARAMS, ITERS,
@@ -2829,7 +2881,6 @@ def main() -> None:
                         for operands in ("random", "root")]
     kernel_rows += [(check_fused(learners["int8"], gen), "int8"),
                     (check_partition(learners["hilo"], gen), "hilo"),
-                    (check_leaf_sums(learners["int8"], gen), "int8"),
                     (check_fused(learners["wide_int8"], gen), "wide_int8"),
                     (check_fused(learners["wide_int8"], gen, "root"),
                      "wide_int8"),
@@ -2839,6 +2890,11 @@ def main() -> None:
                      "mono_int8"),
                     (check_fused(learners["wide_int8"], gen, "mono"),
                      "wide_int8")]
+    # the leaf refit's grouping and sums, uniform and with one leaf
+    # holding multiclass_int8's largest leaf's rows
+    kernel_rows += [(row, "int8") for operands in ("uniform", "skewed")
+                    for row in check_leaf_sums(learners["int8"], gen,
+                                               operands)]
     # B1-int and B2 on bagged operands: rows with zero stats, features
     # masked, at the validation path's shapes
     bagged = learners["valid_bag_int8"]

@@ -4,6 +4,7 @@ of the Higgs-1M paths, so that two checkouts of the package can be
 compared in one machine.
 
     python3 kernel_bench.py [--root DIR] [--label NAME] [--sass]
+                            [--rows all|leaf]
 
 Imports lightgbm_tpu_torch from DIR (default: the directory of this
 script), builds its kernels and prints one JSON line per measurement,
@@ -20,11 +21,21 @@ directory, whatever DIR is):
            B3-wide: each against its plain twin, with its device time
            per call (chip_smoke.device_ms) and its CUDA-event time, and
            for the wide instances the cluster plan (blocks a cluster,
-           walks of each entry);
+           walks of each entry); and the leaf refit's sums at
+           chip_smoke.py's uniform and skewed phase-4 operands (bitwise
+           against index_add_ on the CPU): the whole call's device time,
+           its sums kernel's and its grouping kernel's, beside the floor
+           of the largest leaf's chain;
+  leaf     the int8, multiclass_int8, efb_int8 and mono_int8 paths, 10
+           iterations (their iterations a second, from the host's
+           clock) and then 2 more under torch.profiler: each leaf
+           refit kernel's device time per call on the path, beside the
+           mean floor of the profiled trees (each tree's largest leaf);
   sass     (--sass) the atomic instructions of each kernel of the built
            library, counted from `cuobjdump -sass`.
-To compare two checkouts, run it for each in turn in one call (parent,
-change, change, parent), e.g. with the parent unpacked by
+`--rows leaf` takes the leaf refit's rows alone (its kernel rows and
+leaf paths).  To compare two checkouts, run it for each in turn in one
+call (parent, change, change, parent), e.g. with the parent unpacked by
 `git archive HEAD lightgbm_tpu_torch | tar -x -C build/parent`.
 """
 
@@ -36,6 +47,9 @@ import re
 import shutil
 import subprocess
 import sys
+import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -160,11 +174,100 @@ def kernel_rows(learners, kernels_of):
                    "event_ms": cs.cuda_ms(call, 20)}
 
 
+def leaf_rows(learner):
+    """The leaf refit's sums at chip_smoke's uniform and skewed phase-4
+    operands (the same draws for every package: a generator of its own),
+    bitwise against index_add_ on the CPU: the whole call's device time
+    (ms), its sums kernel's (kernel_ms) and its grouping kernel's
+    (group_ms; None for a package without one), and CUDA events around
+    20 calls (event_ms, which reads the host's time where a call is
+    shorter than its wrapper), beside the floor."""
+    import torch
+    from lightgbm_tpu_torch.ops import leafsum
+
+    def only(part):
+        return lambda names: [part if part in name else None
+                              for name in names]
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mhz = cs.sm_clock_mhz()
+    for operands in ("uniform", "skewed"):
+        leaf, vals, L = cs._leaf_operands(learner, gen, operands)
+
+        def call():
+            return leafsum.leaf_sums_kernel(leaf, vals, L)
+
+        equal = torch.equal(call().cpu(), leafsum.leaf_sums_plain(
+            leaf.cpu(), vals.cpu(), L))
+        ids = leaf.long()
+        out = torch.zeros(L, device=leaf.device)
+        longest = int(torch.bincount(ids, minlength=L).max().item())
+        floor, chain = cs.leaf_sums_floor(leaf.numel(), L, longest, mhz)
+        kernel_ms = cs.device_ms(call, 20, only("leaf_sums_kernel"))
+        if hasattr(leafsum, "leaf_group_kernel"):
+            # the call is the two kernels' launches
+            group_ms = cs.device_ms(call, 20, only("leaf_group_kernel"))
+            ms = group_ms + kernel_ms
+        else:
+            # the sort, gather and searchsorted around the kernel: the
+            # device time seen over the calls
+            group_ms = None
+            ms = cs.device_ms(call, 20, kernels_of=lambda names: [
+                "all"] * len(names), launches=None)
+        yield {"name": "leaf_sums", "operands": operands, "equal": equal,
+               "largest_leaf_rows": longest, "floor_ms": floor,
+               "chain_ms": chain, "ms": ms, "kernel_ms": kernel_ms,
+               "group_ms": group_ms, "event_ms": cs.cuda_ms(call, 20),
+               "library_ms": cs.cuda_ms(
+                   lambda: (out.index_add_(0, ids, vals[0]),
+                            out.index_add_(0, ids, vals[1])), 5)}
+
+
+def leaf_paths(lgb, int8_ds, X, y, w, kernels_of):
+    """The paths whose trees refit their leaves, with the largest
+    leaves: (name, booster, iterations a second of its training, its
+    profile) of int8 on int8_ds, multiclass_int8 (its
+    rows relabelled at the latent's quintiles), mono_int8 (its own
+    Dataset, the constraints being a Dataset parameter) and efb_int8
+    (the sparse table), each trained chip_smoke.ITERS iterations."""
+    import torch
+
+    n = cs.N_TRAIN
+    runs = [("int8", int8_ds, dict(cs.PARAMS, tpu_hist_precision="int8"))]
+    mc = int8_ds.subset(np.arange(n))
+    latent = cs.make_latent(n + cs.N_HOLD, cs.N_FEAT)
+    mc.set_field("label", cs.quintiles(latent)[:n])
+    runs.append(("multiclass_int8", mc, cs.MULTICLASS_PARAMS))
+    mono = dict(cs.MONO_PARAMS, monotone_constraints=cs.mono_constraints(w))
+    runs.append(("mono_int8", None, mono))
+    efb = dict(cs.EFB_PARAMS, tpu_hist_precision="int8")
+    runs.append(("efb_int8", None, efb))
+    for name, ds, params in runs:
+        if name == "mono_int8":
+            ds = lgb.Dataset(X[:n], label=y[:n],
+                             params=dict(params)).construct()
+        if name == "efb_int8":
+            Xe, ye, _ = cs.efb_data(n + cs.N_HOLD)
+            ds = lgb.Dataset(Xe[:n], label=ye[:n],
+                             params=dict(params)).construct()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = lgb.train(dict(params), ds, num_boost_round=cs.ITERS,
+                            keep_training_booster=True)
+        booster.num_trees()
+        torch.cuda.synchronize()
+        iters_per_s = cs.ITERS / (time.perf_counter() - t0)
+        yield (name, booster, iters_per_s,
+               cs.profile(booster, kernels_of=kernels_of))
+        del booster, ds
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--rows", choices=("all", "leaf"), default="all")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     label = args.label or os.path.relpath(root, HERE)
@@ -191,14 +294,16 @@ def main():
             if name.startswith("liblgbt_kernels_") and name.endswith(".so"):
                 emit("sass", library=name, census=sass_census(
                     str(kernels.BUILD_DIR / name)))
-    X, y = cs.make_data(cs.N_TRAIN, cs.N_FEAT)
+    X, y, w = cs.make_data(cs.N_TRAIN + cs.N_HOLD, cs.N_FEAT, with_w=True)
     datasets = {}
     learners = {}
-    for name, params, _, _ in cs.PATHS[:12]:
+    paths = cs.PATHS[:12] if args.rows == "all" else cs.PATHS[1:2]
+    for name, params, _, _ in paths:
         if params["max_bin"] not in datasets:
             datasets[params["max_bin"]] = lgb.Dataset(
-                X, label=y, params=dict(params)).construct()
-        profiled = name in PROFILED
+                X[:cs.N_TRAIN], label=y[:cs.N_TRAIN],
+                params=dict(params)).construct()
+        profiled = name in PROFILED and args.rows == "all"
         booster = lgb.train(dict(params), datasets[params["max_bin"]],
                             num_boost_round=cs.ITERS if profiled else 1,
                             keep_training_booster=True)
@@ -207,8 +312,30 @@ def main():
             emit("path", path=name, **cs.profile(booster,
                                                  kernels_of=kernels_of))
         learners[name] = booster._driver.learner
+    mhz = cs.sm_clock_mhz()
+    for name, booster, ips, prof in leaf_paths(lgb, datasets[255], X, y,
+                                               w, kernels_of):
+        learner = booster._driver.learner
+        # the floors of the profiled trees, a call each: the mean is what
+        # the mean time a call on the path compares with
+        trees = booster._driver.models[
+            -prof["iters"] * booster.num_model_per_iteration():]
+        longest = [int(t.leaf_count[:t.num_leaves].max()) for t in trees]
+        floors = [cs.leaf_sums_floor(learner.n_pad,
+                                     learner.params.num_leaves + 1, rows,
+                                     mhz) for rows in longest]
+        emit("leaf_path", path=name, iters_per_s=ips,
+             largest_leaf_rows=longest,
+             floor_ms=sum(f for f, _ in floors) / len(floors),
+             chain_ms=sum(c for _, c in floors) / len(floors),
+             leaf_kernels={k: v for k, v in prof["kernels"].items()
+                           if k.startswith("leaf_")},
+             **{k: v for k, v in prof.items() if k != "kernels"})
     del datasets
-    for row in kernel_rows(learners, kernels_of):
+    if args.rows == "all":
+        for row in kernel_rows(learners, kernels_of):
+            emit("kernel", **row)
+    for row in leaf_rows(learners["int8"]):
         emit("kernel", **row)
 
 

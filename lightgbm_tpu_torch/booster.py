@@ -28,7 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .config import Config, canonical_name, resolve_device
+from .config import (Config, canonical_name, refuse_host_predict,
+                     resolve_device)
 
 
 def _split_pandas_categorical(text: str):
@@ -89,8 +90,11 @@ class Booster:
                     model_str = f.read()
             model_str, self.pandas_categorical = \
                 _split_pandas_categorical(model_str)
-            self._driver = GBDT.from_model_string(
-                model_str, resolve_device(Config(self.params)))
+            cfg = Config(self.params)
+            refuse_host_predict(cfg.tpu_predict_device,
+                                "a parameter of the loading Booster")
+            self._driver = GBDT.from_model_string(model_str,
+                                                  resolve_device(cfg))
         else:
             raise ValueError("need train_set, model_file or model_str")
 
@@ -240,36 +244,104 @@ class Booster:
             return self.best_iteration if self.best_iteration >= 0 else -1
         return int(num_iteration)
 
+    # predict keywords the JAX package reads and the port does not honor
+    # yet, each with the value that leaves predict as it is
+    _UNPORTED_PREDICT = {"pred_leaf": False, "pred_contrib": False,
+                         "pred_early_stop": False, "pred_early_stop_freq": 10,
+                         "pred_early_stop_margin": 10.0}
+
     def predict(self, data, num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, **kwargs) -> np.ndarray:
         """[n] outputs, or [n, k] for multiclass; `raw_score` skips the
         objective's output conversion.  A DataFrame's `category` columns
         map onto the training codes through the model's
         `pandas_categorical` tables; a scipy sparse matrix is densified
-        65,536 rows at a time (`_predict_sparse_chunked`)."""
+        65,536 rows at a time (`_predict_sparse_chunked`).  The columns
+        must be the model's (`predict_disable_shape_check`, a parameter
+        or a keyword, pads missing trailing ones with NaN and drops extra
+        ones, as lightgbm_tpu/booster.py:predict does).  Keywords:
+        `predict_disable_shape_check` and `tpu_predict_device` (`auto`
+        or `true`: the device walk); the other keywords of the JAX
+        package's predict raise by name."""
         from .basic import _to_2d_array
         from .io.dataset import _is_scipy_sparse
 
+        self._check_predict_kwargs(dict(kwargs, pred_leaf=pred_leaf,
+                                        pred_contrib=pred_contrib))
         it = self._default_iteration(num_iteration)
         if _is_scipy_sparse(data):
-            return self._predict_sparse_chunked(data, it, raw_score)
-        return self._driver.predict(
-            _to_2d_array(data, self.pandas_categorical), it,
-            raw_score=raw_score)
+            return self._predict_sparse_chunked(data, it, raw_score, kwargs)
+        X = _to_2d_array(data, self.pandas_categorical)
+        n_feat = self.num_feature()
+        if X.ndim == 2 and X.shape[1] != n_feat:
+            self._check_predict_shape(X.shape[1], kwargs)
+            if X.shape[1] < n_feat:
+                # absent trailing features predict as missing
+                X = np.concatenate([X, np.full(
+                    (X.shape[0], n_feat - X.shape[1]), np.nan)], axis=1)
+            else:
+                X = X[:, :n_feat]
+        return self._driver.predict(X, it, raw_score=raw_score)
+
+    def _check_predict_kwargs(self, kwargs) -> None:
+        """Refuse by name what predict does not honor (see predict)."""
+        for key, value in kwargs.items():
+            if key in ("predict_disable_shape_check", "tpu_predict_device"):
+                continue
+            if key not in self._UNPORTED_PREDICT:
+                raise NotImplementedError(
+                    f"predict({key}=...) is not ported to lightgbm_tpu_torch "
+                    "yet")
+            if value != self._UNPORTED_PREDICT[key]:
+                raise NotImplementedError(
+                    f"predict({key}={value!r}) is not ported to "
+                    "lightgbm_tpu_torch yet")
+        if "tpu_predict_device" in kwargs:
+            refuse_host_predict(kwargs["tpu_predict_device"],
+                                "a predict keyword")
+
+    def _check_predict_shape(self, ncols: int, kwargs) -> None:
+        """Raise on a feature-count mismatch unless
+        predict_disable_shape_check (the keyword over the parameter) is
+        set (lightgbm_tpu/booster.py:_check_predict_shape, its message
+        word for word)."""
+        from .config import _parse_bool
+        from .utils.log import LightGBMError
+
+        if _parse_bool(kwargs.get(
+                "predict_disable_shape_check",
+                Config(self.params).predict_disable_shape_check)):
+            return
+        raise LightGBMError(
+            f"The number of features in data ({ncols}) is not the same as "
+            f"it was in training data ({self.num_feature()}).\n"
+            "You can set ``predict_disable_shape_check=true`` to discard "
+            "this error, but please be aware what you are doing.")
 
     def _predict_sparse_chunked(self, data, num_iteration: int,
-                                raw_score: bool,
+                                raw_score: bool, kwargs,
                                 chunk_rows: int = 65536) -> np.ndarray:
         """Predict a scipy sparse matrix in dense row chunks
         (lightgbm_tpu/booster.py:_predict_sparse_chunked): every output
         is n-first, so the chunks concatenate on axis 0, and the host
         holds one [chunk_rows, F] f64 block at a time, never the whole
-        densified matrix."""
+        densified matrix.  Extra columns are dropped while the matrix is
+        sparse; missing ones are NaN in each chunk."""
+        n_feat = self.num_feature()
+        if data.shape[1] != n_feat:
+            self._check_predict_shape(data.shape[1], kwargs)
         rows = data.tocsr()
+        if rows.shape[1] > n_feat:
+            rows = rows[:, :n_feat]
         outs = []
         for lo in range(0, max(rows.shape[0], 1), chunk_rows):
             chunk = np.asarray(rows[lo:lo + chunk_rows].todense(),
                                dtype=np.float64)
+            if chunk.shape[1] < n_feat:
+                chunk = np.concatenate([chunk, np.full(
+                    (chunk.shape[0], n_feat - chunk.shape[1]), np.nan)],
+                    axis=1)
             outs.append(self._driver.predict(chunk, num_iteration,
                                              raw_score=raw_score))
         return np.concatenate(outs, axis=0)

@@ -921,3 +921,16 @@ def resolve_device(config: "Config"):
             f"device_type={config.device_type!r} needs a CUDA device and "
             "none is available; pass device_type='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def refuse_host_predict(value: Any, where: str) -> None:
+    """Refuse tpu_predict_device=false by name.  In the JAX package it
+    pins predict to the f64 host walker (lightgbm_tpu/booster.py:
+    _device_predict_requested), which is not ported: the port walks the
+    trees on the device in f32 under `auto` and `true`.  where: how the
+    value was given (a training parameter, the model text, a predict
+    keyword)."""
+    if parse_tristate(value) == "false":
+        raise NotImplementedError(
+            f"tpu_predict_device=false ({where}; the JAX package's f64 "
+            "host walker) is not ported to lightgbm_tpu_torch yet")

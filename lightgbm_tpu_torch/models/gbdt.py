@@ -32,12 +32,13 @@ from __future__ import annotations
 
 import io
 import json
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, refuse_host_predict
 from ..io.bin_mapper import BinMapper, BinType
 from ..io.dataset import TrainingData
 from ..obs import modelhealth
@@ -901,6 +902,9 @@ class GBDT:
             text = text[:pos]
         text, self._profile = modelhealth.split_profile_trailer(text)
         text, ctx = _split_mapper_snapshot(text)
+        refuse_host_predict(_text_params(text).get("tpu_predict_device",
+                                                   "auto"),
+                            "in the model text's parameters")
         lines = text.split("\n")
         kv: Dict[str, str] = {}
         tree_blocks: List[str] = []
@@ -947,6 +951,17 @@ class GBDT:
             self._pred_ctx = ctx
         self.iter_ = self.current_iteration()
         return self
+
+
+def _text_params(text: str) -> Dict[str, str]:
+    """The `[key: value]` lines of a model text's parameters block."""
+    start = text.find("\nparameters:\n")
+    if start < 0:
+        return {}
+    end = text.find("\nend of parameters", start)
+    block = text[start:end if end >= 0 else len(text)]
+    return {m.group(1): m.group(2)
+            for m in re.finditer(r"^\[([^:\]]+): ?(.*)\]$", block, re.M)}
 
 
 def _tree_to_json(idx: int, tree: Tree) -> Dict:

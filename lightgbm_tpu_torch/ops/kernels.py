@@ -39,7 +39,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
 
 # B1 float, B1 integer variant, B1 on packed 4-bit bins and on wide
 # (int32) bins (float and integer), B2 and B3 on uint8 and on wide bins,
-# B4 in B1's six variants, and the leaf refit's sums
+# B4 in B1's six variants, and the leaf refit's grouping and sums
 launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
                             "hist_batched_packed": 0,
                             "hist_batched_packed_int": 0,
@@ -52,7 +52,7 @@ launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
                             "hist_flat_packed": 0,
                             "hist_flat_packed_int": 0,
                             "hist_flat_wide": 0, "hist_flat_wide_int": 0,
-                            "leaf_sums": 0}
+                            "leaf_group": 0, "leaf_sums": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -155,7 +155,11 @@ def library() -> ctypes.CDLL:
     lib.lgbt_partition_rows.argtypes = [vp, i32, i64, *[vp] * 11, i32,
                                         i32, vp]
     lib.lgbt_partition_rows.restype = i32
-    lib.lgbt_leaf_sums.argtypes = [vp, vp, vp, i32, i32, i64, vp]
+    lib.lgbt_leaf_group_plan.argtypes = [i64, i32, ip]
+    lib.lgbt_leaf_group_plan.restype = i32
+    lib.lgbt_leaf_group.argtypes = [vp, vp, i64, i32, vp, vp, vp, ip, vp]
+    lib.lgbt_leaf_group.restype = i32
+    lib.lgbt_leaf_sums.argtypes = [vp, vp, vp, i32, vp]
     lib.lgbt_leaf_sums.restype = i32
     lib.lgbt_error_string.argtypes = [i32]
     lib.lgbt_error_string.restype = ctypes.c_char_p

@@ -487,24 +487,89 @@ def test_flat_kernel_packed_matches_twin(precision, case):
     assert not got[np.asarray(slots) < 0].any()
 
 
-@pytest.mark.parametrize("skew", [False, True])
-def test_leaf_sums_kernel_bitwise_to_cpu_index_add(skew):
+# the leaf sums' shapes: (n, L, how the ids are drawn); the last three
+# leaves stay empty where the ids are drawn uniformly
+LEAF_CASES = {
+    "uniform": ((1 << 18) + 7, 256, "uniform"),
+    "skew90": ((1 << 18) + 7, 256, "skew"),
+    "one_leaf": ((1 << 18) + 7, 256, "one"),
+    "ragged_n": (1_000_003, 256, "uniform"),
+    "two_leaves": (100_001, 2, "uniform"),
+    "L4097": ((1 << 18) + 7, 4097, "uniform"),
+    # 8 x L counters miss shared memory: the grouping counts in global
+    "L131073": (300_001, 131073, "uniform"),
+}
+
+
+def _leaf_operands(case):
+    n, L, how = LEAF_CASES[case]
+    rng = np.random.default_rng(12)
+    leaf = rng.integers(0, max(L - 3, 1), size=n).astype(np.int32)
+    if how == "skew":
+        leaf[rng.random(n) < 0.9] = 5       # one leaf holds most rows
+    if how == "one":
+        leaf[:] = L // 3
+    vals = np.stack([rng.normal(size=n), rng.random(n) * 0.25]
+                    ).astype(np.float32)
+    return torch.from_numpy(leaf), torch.from_numpy(vals), L
+
+
+@pytest.mark.parametrize("case", list(LEAF_CASES))
+def test_leaf_sums_kernel_bitwise_to_cpu_index_add(case):
     from lightgbm_tpu_torch.ops import leafsum as TL
 
     dev = cuda_device()
-    rng = np.random.default_rng(12)
-    n, L = (1 << 18) + 7, 256
-    leaf = rng.integers(0, L - 3, size=n).astype(np.int32)  # empty leaves
-    if skew:
-        leaf[rng.random(n) < 0.9] = 5       # one leaf holds most rows
-    vals = np.stack([rng.normal(size=n), rng.random(n) * 0.25]
-                    ).astype(np.float32)
-    ids_c, vals_c = torch.from_numpy(leaf), torch.from_numpy(vals)
-    before = kernels.launches["leaf_sums"]
+    ids_c, vals_c, L = _leaf_operands(case)
+    before = dict(kernels.launches)
     got = TL.leaf_sums_kernel(ids_c.to(dev), vals_c.to(dev), L)
-    assert kernels.launches["leaf_sums"] == before + 1
+    assert {k: v - before[k] for k, v in kernels.launches.items()
+            if v != before[k]} == {"leaf_group": 1, "leaf_sums": 1}
     # the twin: index_add_ on the CPU, each leaf's rows in row order
     assert torch.equal(got.cpu(), TL.leaf_sums_plain(ids_c, vals_c, L))
+
+
+@pytest.mark.parametrize("case", list(LEAF_CASES))
+def test_leaf_group_kernel_matches_twin(case):
+    from lightgbm_tpu_torch.ops import leafsum as TL
+
+    dev = cuda_device()
+    ids_c, vals_c, L = _leaf_operands(case)
+    ids, vals = ids_c.to(dev), vals_c.to(dev)
+    grouped, offsets = TL.leaf_group_kernel(ids, vals, L)
+    want_g, want_o = TL.leaf_group_plain(ids, vals, L)
+    assert torch.equal(offsets, want_o)
+    assert torch.equal(grouped, want_g)
+
+
+def test_leaf_sums_launch_only_their_kernels():
+    # no torch.sort, searchsorted or index_add_ on the card route: the
+    # device sees the two hand-written kernels and nothing else
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.ops import leafsum as TL
+
+    dev = cuda_device()
+    ids_c, vals_c, L = _leaf_operands("skew90")
+    ids, vals = ids_c.to(dev), vals_c.to(dev)
+    TL.leaf_sums_kernel(ids, vals, L)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TL.leaf_sums_kernel(ids, vals, L)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert names and all("leaf_group_kernel" in k or "leaf_sums_kernel" in k
+                         for k in names), names
+
+
+def test_leaf_sums_refuse_other_value_rows():
+    from lightgbm_tpu_torch.ops import leafsum as TL
+
+    dev = cuda_device()
+    leaf = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=r"\[2, n\]"):
+        TL.leaf_sums_kernel(leaf, torch.ones((3, 64), device=dev), 4)
 
 
 def _norm(text, name):
@@ -559,6 +624,7 @@ def test_refit_training_on_card_is_deterministic():
                        num_boost_round=3).model_to_string()
              for _ in range(2)]
     assert kernels.launches["leaf_sums"] == 6
+    assert kernels.launches["leaf_group"] == 6
     assert texts[0] == texts[1]
 
 
