@@ -7,10 +7,10 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. thirty paths at full width, each lgb.train (cv_int8: lgb.cv) on
-     the Higgs-1M shape
+  3. thirty-three paths at full width, each lgb.train (cv_int8:
+     lgb.cv) on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
-     paths: a sparse table of 697 features), then
+     and sparse paths: a sparse table of 697 features), then
      predict 100,000 held-out rows; the launch counters are set to 0 just
      before each path and read just after, and each kernel of the path
      must have launched:
@@ -149,6 +149,36 @@ Phases, each fatal on failure (exit code 1, no result line):
                ops, so no histogram kernel may launch; B3; the two model
                texts must be byte-identical; it prints ms an iteration
                beside hilo's;
+       file_int8  the training rows written once as `label,f0..f27` CSV
+               (%.9g), loaded in one pass (parse, bin finding, binning
+               on the card), int8, 5 iterations: B1-int, B2, B3, the
+               leaf sums; the model text must equal an in-memory run's
+               on the file's values (which round to the rows' float32
+               values); it prints the file's bytes, the parse and ingest
+               seconds and the load's peak host RSS;
+       file_two_round_int8  the same file with two_round and
+               save_binary (pass 1 samples the rows for bin finding,
+               pass 2 bins chunk by chunk on the card), 5 iterations:
+               the same kernels; the load must be the two-round loader's
+               (ingest_s["two_round"]) with under half the one-pass
+               load's peak host RSS, and the same path loaded again must
+               take the binary cache without parsing and train the same
+               text; it prints both loads' peak host RSS;
+       predict_dataset  the int8 path's booster predicts the 100,000
+               held-out rows from a Dataset binned with reference= the
+               training set (its bins walked on the card); the raw
+               scores must equal predict of the rows bit for bit; rows/s
+               of both;
+       sparse_hilo  efb_data with enable_bundle=false and
+               tpu_sparse_threshold=0.02, hilo, 5 iterations: Origin's
+               and Dest's 600 one-hot columns stored as COO (row, bin)
+               entries, the other 97 features dense; B1 on the dense
+               columns, the COO histograms as torch ops, no B3; its
+               held-out AUC within AUC_TOL of the same path with every
+               feature dense; it prints the dense and COO bytes against
+               the all-dense matrix's, the sparse histograms' ms a round
+               (random operands, K slots), host ops and device busy ms
+               of one profiled iteration and iters/s of both;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -218,10 +248,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      and on the first 20,000 dense rows (63 leaves, 4 iterations), int8
      regression with the refit off under mono_int8's constraints and
      under CEGB by their whole model text, hilo with the forced splits by
-     its trees (leaf values within 1e-5 of each tree's largest),
+     its trees (leaf values within 1e-5 of each tree's largest; a
+     threshold may differ only at a gain tie that cuts the node's rows
+     the same way),
      deterministic=true by its trees (within 1e-12), and int8 with
      deterministic=true against the same without it on the card, by the
-     model text.
+     model text; the first 20,000 dense rows as CSV loaded with
+     two_round, int8 regression with the refit off, by the whole model
+     text; and the first 20,000 rows of the sparse table with sparse
+     storage, max_bin=63 and deterministic=true, 3 iterations, by their
+     f64 trees (within 1e-12), and on the card by its whole model text
+     against a second card run and the card's all-dense run.
 With --profile, after phase 4, two more iterations of every path run
 under torch.profiler and the device time by op, each port kernel's
 device time per call on the path and the device's idle share are
@@ -236,6 +273,7 @@ import atexit
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -457,6 +495,25 @@ FORCED_TREE = {"feature": 8, "threshold": 0.0,
 FORCED_HEAD = (8, 9, 10)
 DET_PARAMS = dict(PARAMS, deterministic=True, tpu_hist_impl="xla")
 ITERS_DET = 5
+# file ingest: the training rows as `label,f0..f27` CSV with
+# %.9g (make_data's values are float32, whose nine digits round back to
+# them), int8
+FILE_PARAMS = dict(PARAMS, tpu_hist_precision="int8")
+ITERS_FILE = 5
+# sparse COO storage on efb_data: Origin's and Dest's one-hot columns
+# (about 1% of the rows each, or less) go to COO, the calendar, hour and
+# carrier columns (3.2% of the rows or more) stay dense
+SPARSE_THRESHOLD = 0.02
+SPARSE_PARAMS = dict(EFB_PARAMS, enable_bundle=False,
+                     tpu_sparse_threshold=SPARSE_THRESHOLD)
+ITERS_SPARSE = 5
+SPARSE_COO_FEATURES = 600
+# phase 5 of the file paths: rows bin_construct_sample_cnt samples from
+TWO_ROUND_SMALL_SAMPLE = 5000
+# phase 5 of sparse_hilo, f64: the CPU side's f64 one-hot blocks of the
+# 97 dense columns grow with the bins, so the check bins to 63
+SPARSE_SMALL_MAX_BIN = 63
+ITERS_SPARSE_SMALL = 3
 # phase 5 of these paths: rows, leaves and iterations on card and CPU
 N_CONSTRAINT_SMALL = 20_000
 CONSTRAINT_SMALL_LEAVES = 63
@@ -742,6 +799,236 @@ def det_path(lgb, kernels, ds, X, y, hilo_report):
     report.update({"texts_identical": True,
                    "ms_per_iter": [1e3 * s / ITERS_DET for s in runs],
                    "hilo_ms_per_iter": 1e3 * hilo_report["train_s"] / ITERS})
+    return report, booster
+
+
+def write_csv(path, X, y):
+    """The rows as `label,f0..f<F-1>` CSV, %.9g; returns the seconds."""
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        f.write(",".join(["label"] + [f"f{i}" for i in range(X.shape[1])])
+                + "\n")
+        np.savetxt(f, np.column_stack([y, X]), delimiter=",", fmt="%.9g")
+    return time.perf_counter() - t0
+
+
+def _rss_bytes():
+    """This process's resident memory, from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+class PeakRss:
+    """The peak resident memory of this process over a with block,
+    above its level at the block's start, sampled every 2 ms by a
+    thread (`peak_bytes`)."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = _rss_bytes()
+        self.peak_bytes = 0
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak_bytes = max(self.peak_bytes,
+                                      _rss_bytes() - self.base)
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_bytes = max(self.peak_bytes, _rss_bytes() - self.base)
+        return False
+
+
+def load_file(lgb, path, params):
+    """(constructed Dataset, wall seconds, peak RSS bytes) of a file."""
+    import torch
+
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        ds = lgb.Dataset(path, params=dict(params)).construct()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return ds, wall, rss.peak_bytes
+
+
+def file_paths(lgb, kernels, X, y, tmp):
+    """file_int8 and file_two_round_int8: the training rows written once
+    as CSV; file_int8 loads it in one pass and trains FILE_PARAMS, whose
+    model text must equal an in-memory run's on the values the file
+    holds (named f0..f27); file_two_round_int8 loads it with two_round
+    and save_binary, trains, then loads the same path again, which must
+    take the binary cache without parsing and train the same text.
+
+    %.9g of a float32 value reads back as the double nearest its nine
+    digits, which is seldom the float32 value itself, but rounds to it:
+    so the in-memory run takes the file's values, read with pandas'
+    correctly rounded converter (float_precision="round_trip"), not the
+    parser's, and they must round to the rows' float32 values.  Returns
+    {name: (report, booster)}."""
+    import pandas as pd
+
+    path = os.path.join(tmp, "higgs.csv")
+    Xtr, ytr = X[:N_TRAIN], y[:N_TRAIN]
+    write_s = write_csv(path, Xtr, ytr)
+    size = os.path.getsize(path)
+    names = [f"f{i}" for i in range(X.shape[1])]
+    ds, ingest_s, rss = load_file(lgb, path, FILE_PARAMS)
+    parts = ds._inner.ingest_s
+    report, booster = main_path(lgb, kernels, ds, X, y, FILE_PARAMS,
+                                ITERS_FILE, INT_KERNELS)
+    held = pd.read_csv(path, float_precision="round_trip").to_numpy(
+        np.float64)[:, 1:]
+    if not np.array_equal(held.astype(np.float32), Xtr.astype(np.float32)):
+        fail("file_int8: the file's values do not round to the rows'")
+    mem = lgb.train(dict(FILE_PARAMS), lgb.Dataset(
+        held, label=ytr, feature_name=names, params=dict(FILE_PARAMS)),
+        ITERS_FILE)
+    del held
+    if mem.model_to_string() != booster.model_to_string():
+        fail("file_int8: the model text differs from the in-memory run's")
+    report.update(file_bytes=size, write_s=write_s, ingest_s=ingest_s,
+                  parse_s=parts["parse"], sketch_s=parts["sketch"],
+                  binning_s=parts["binning"], peak_rss_bytes=rss,
+                  text_equals_in_memory=True)
+    out = {"file_int8": (report, booster)}
+    del ds
+    two = dict(FILE_PARAMS, two_round=True, save_binary=True)
+    ds, ingest_s, rss2 = load_file(lgb, path, two)
+    parts = ds._inner.ingest_s
+    if parts.get("two_round") != 1.0:
+        fail("file_two_round_int8: the load did not take the two-round "
+             "loader")
+    # pass 2 holds one chunk of the raw rows, the one-pass load all of them
+    if rss2 > rss / 2:
+        fail(f"file_two_round_int8: peak RSS {rss2} B, not under half the "
+             f"one-pass load's {rss} B")
+    if not os.path.exists(path + ".bin"):
+        fail("file_two_round_int8: save_binary wrote no cache")
+    report, booster = main_path(lgb, kernels, ds, X, y, two, ITERS_FILE,
+                                INT_KERNELS)
+    del ds
+    again, bin_s, rss3 = load_file(lgb, path, two)
+    if "binary" not in again._inner.ingest_s \
+            or "parse" in again._inner.ingest_s:
+        fail("file_two_round_int8: the second load did not take the "
+             "binary cache")
+    b3 = lgb.train(dict(two), again, ITERS_FILE)
+    if b3.model_to_string() != booster.model_to_string():
+        fail("file_two_round_int8: the cached dataset trains another text")
+    report.update(file_bytes=size, ingest_s=ingest_s, parse_s=parts["parse"],
+                  sketch_s=parts["sketch"], binning_s=parts["binning"],
+                  peak_rss_bytes=rss2, one_pass_peak_rss_bytes=rss,
+                  cache_bytes=os.path.getsize(path + ".bin"),
+                  cache_load_s=bin_s, cache_peak_rss_bytes=rss3,
+                  cache_text_identical=True)
+    out["file_two_round_int8"] = (report, booster)
+    return out
+
+
+def predict_dataset_path(lgb, ds, booster, X, y):
+    """predict_dataset: the held-out rows as a Dataset binned with the
+    training set's mappers (reference=), predicted from its bins; the
+    raw scores must equal predict of the rows bit for bit.  Rows/s of
+    both, the Dataset's construction apart."""
+    import torch
+
+    Xho = X[N_TRAIN:]
+    t0 = time.perf_counter()
+    valid = lgb.Dataset(Xho, label=y[N_TRAIN:], reference=ds).construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    booster.predict(valid, raw_score=True)        # the forest tables made
+    t0 = time.perf_counter()
+    from_ds = booster.predict(valid, raw_score=True)
+    ds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_rows = booster.predict(Xho, raw_score=True)
+    rows_s = time.perf_counter() - t0
+    if not np.array_equal(from_ds, from_rows):
+        fail("predict_dataset: the Dataset's raw scores differ from the "
+             "rows' (max |diff| "
+             f"{float(np.abs(from_ds - from_rows).max())})")
+    return {"rows": len(Xho), "construct_s": construct_s,
+            "dataset_rows_per_s": len(Xho) / ds_s,
+            "array_rows_per_s": len(Xho) / rows_s, "bit_equal": True}
+
+
+def sparse_hist_ms(learner):
+    """Device ms of one round's sparse histograms and their merge with the
+    dense columns' into feature order (the torch ops beside B1), at K
+    slots over random leaf ids of the learner's rows."""
+    import torch
+    from lightgbm_tpu_torch.ops.grower import merged_histograms
+
+    meta = learner.meta
+    dev = learner.bins_t.device
+    p = learner.params
+    K, L, B = p.split_batch, p.num_leaves, p.num_bins
+    gen = torch.Generator(device=dev).manual_seed(5)
+    leaf = torch.randint(0, L, (learner.n_pad,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slots = torch.arange(0, 2 * K, 2, dtype=torch.int32, device=dev)
+    sp_stats = torch.rand((meta["sp_rows"].shape[0], 5), generator=gen,
+                          device=dev)
+    dense = torch.rand((K, learner.g_pad, B, 3), generator=gen, device=dev)
+
+    return cuda_ms(lambda: merged_histograms(dense, meta, sp_stats, leaf,
+                                             slots, B, L, "hilo"), 20)
+
+
+def sparse_path(lgb, kernels, ds, X, y):
+    """sparse_hilo: SPARSE_PARAMS on the efb_data Dataset (the bins are
+    the features'; the learner lays them out), B1 on the dense columns
+    and no B3, SPARSE_COO_FEATURES features as COO; the same with
+    tpu_sparse_threshold=0 (every feature dense), whose held-out AUC the
+    sparse path's must meet within AUC_TOL.  Returns both paths' reports
+    and boosters."""
+    must = ("hist_batched",)
+    must_not = ("partition_rows", "hist_batched_int", "fused_hist_scan")
+    report, booster = main_path(lgb, kernels, ds, X, y, SPARSE_PARAMS,
+                                ITERS_SPARSE, must, must_not)
+    learner = booster._driver.learner
+    if learner.sparse is None or len(learner.sparse["sparse_idx"]) \
+            != SPARSE_COO_FEATURES:
+        fail(f"sparse_hilo: {0 if learner.sparse is None else len(learner.sparse['sparse_idx'])} "
+             f"features as COO, expected {SPARSE_COO_FEATURES}")
+    dense_report, dense_booster = main_path(
+        lgb, kernels, ds, X, y, dict(SPARSE_PARAMS, tpu_sparse_threshold=0.0),
+        ITERS_SPARSE, must, must_not)
+    diff = abs(report["holdout_auc"] - dense_report["holdout_auc"])
+    if diff > AUC_TOL:
+        fail(f"sparse_hilo: held-out AUC {report['holdout_auc']} against "
+             f"{dense_report['holdout_auc']} all dense")
+    dl = dense_booster._driver.learner
+    prof = profile(booster, iters=1)
+    report.update(
+        coo_features=len(learner.sparse["sparse_idx"]),
+        num_features=learner.num_features,
+        coo_share=len(learner.sparse["sparse_idx"]) / learner.num_features,
+        coo_entries=learner.sparse["entries"],
+        coo_bytes=learner.sparse["coo_bytes"],
+        dense_columns=learner.num_columns,
+        dense_bins_bytes=report["bins_bytes"],
+        stored_bytes=report["bins_bytes"] + learner.sparse["coo_bytes"],
+        all_dense_bins_bytes=dl.bins_t.numel() * dl.bins_t.element_size(),
+        all_dense_feature_bytes=dl.num_features * dl.n_pad,
+        sparse_hist_ms_per_round=sparse_hist_ms(learner),
+        host_ops_per_iter=prof["host_torch_ops_per_iter"],
+        profiled_kernels=prof["kernels"],
+        device_busy_ms_per_iter=1e3 * prof["device_busy_s"],
+        device_idle_share=prof["device_idle_share"],
+        all_dense_iters_per_s=dense_report["iters_per_s"],
+        all_dense_holdout_auc=dense_report["holdout_auc"],
+        auc_diff=diff)
     return report, booster
 
 
@@ -2545,20 +2832,31 @@ def cross_check_efb(lgb, X, y, latent):
     return out
 
 
-def _trees_close(a, b, rtol):
+def _trees_close(a, b, rtol, what, float_ties=False):
     """Two boosters' trees: the same structure, thresholds and leaf
     counts, leaf values within rtol of the tree's largest |value|
     (tests/test_torch_util.py:assert_trees_match).  The default-left
-    flag is compared only where a node's missing type reads it.  Returns
-    the largest relative leaf difference; fails on any other."""
+    flag is compared only where a node's missing type reads it.
+    float_ties: a node's threshold bin may differ where both split gains
+    are equal within rtol; with the structure and every leaf count
+    equal, both thresholds then cut the node's training rows the same
+    way (the bins between them hold none of its rows), a tie that the
+    float sums' last bits break.  Returns {"leaf_rel_diff": the largest
+    relative leaf difference, "tied_thresholds": such nodes}; fails on
+    any other difference, and on boosters without trees, naming `what`
+    and the first differing node."""
     worst = 0.0
+    ties = 0
+    for booster in (a, b):
+        booster.num_trees()              # the lazy trees materialized
     ta, tb = a._driver.models, b._driver.models
-    if len(ta) != len(tb):
-        fail(f"{len(ta)} trees against {len(tb)}")
+    if len(ta) != len(tb) or not ta:
+        fail(f"{what}: {len(ta)} trees against {len(tb)}")
     for i, (x, z) in enumerate(zip(ta, tb)):
         ni, nl = x.num_leaves - 1, x.num_leaves
         if z.num_leaves != x.num_leaves:
-            fail(f"tree {i}: {z.num_leaves} leaves against {x.num_leaves}")
+            fail(f"{what}: tree {i}: {z.num_leaves} leaves against "
+                 f"{x.num_leaves}")
         dts = []
         for t in (x, z):
             dt = t.decision_type[:ni].copy()
@@ -2566,20 +2864,32 @@ def _trees_close(a, b, rtol):
             dts.append(dt)
         for name in ("split_feature", "threshold_in_bin", "left_child",
                      "right_child"):
-            if not np.array_equal(getattr(x, name)[:ni],
-                                  getattr(z, name)[:ni]):
-                fail(f"tree {i}: {name} differs")
+            u, v = getattr(x, name)[:ni], getattr(z, name)[:ni]
+            differ = u != v
+            if float_ties and name == "threshold_in_bin":
+                gx = x.split_gain[:ni].astype(np.float64)
+                gz = z.split_gain[:ni].astype(np.float64)
+                tied = differ & (np.abs(gx - gz)
+                                 <= rtol * np.maximum(np.abs(gx), 1e-300))
+                ties += int(tied.sum())
+                differ &= ~tied
+            if differ.any():
+                j = int(np.flatnonzero(differ)[0])
+                fail(f"{what}: tree {i}: {name} differs first at node {j} "
+                     f"({u[j]} against {v[j]}; feature "
+                     f"{x.split_feature[j]} against {z.split_feature[j]}, "
+                     f"gain {x.split_gain[j]} against {z.split_gain[j]})")
         if not np.array_equal(dts[0], dts[1]) or not np.array_equal(
                 x.leaf_count[:nl], z.leaf_count[:nl]):
-            fail(f"tree {i}: decision types or leaf counts differ")
+            fail(f"{what}: tree {i}: decision types or leaf counts differ")
         ref = np.asarray(x.leaf_value[:nl], np.float64)
         err = float(np.abs(np.asarray(z.leaf_value[:nl]) - ref).max()
                     / max(np.abs(ref).max(), 1e-300))
         worst = max(worst, err)
         if err > rtol:
-            fail(f"tree {i}: leaf values differ by {err} of the largest "
-                 f"> {rtol}")
-    return worst
+            fail(f"{what}: tree {i}: leaf values differ by {err} of the "
+                 f"largest > {rtol}")
+    return {"leaf_rel_diff": worst, "tied_thresholds": ties}
 
 
 def cross_check_constraints(lgb, X, w, forced_path):
@@ -2588,7 +2898,8 @@ def cross_check_constraints(lgb, X, w, forced_path):
     CONSTRAINT_SMALL_LEAVES leaves, regression on cross_check's label
     form: int8 with the refit off under the path's monotone constraints,
     and under CEGB (penalties for this size), by their whole model text;
-    hilo with the forced splits by their trees within FLOAT_RTOL;
+    hilo with the forced splits by their trees within FLOAT_RTOL (a
+    threshold may differ at a gain tie, `_trees_close`);
     deterministic=true by its trees within F64_RTOL; and on the card,
     int8 with deterministic=true against the same without it, by the
     model text (the deterministic line normalized)."""
@@ -2626,8 +2937,9 @@ def cross_check_constraints(lgb, X, w, forced_path):
             if not out[f"{name}_text_identical"]:
                 fail(f"{name}: the card's model text differs from the CPU's")
         else:
-            out[f"{name}_leaf_rel_diff"] = _trees_close(got["cpu"],
-                                                        got["cuda"], by)
+            close = _trees_close(got["cpu"], got["cuda"], by, name,
+                                 float_ties=by == FLOAT_RTOL)
+            out.update({f"{name}_{k}": v for k, v in close.items()})
     # deterministic=true leaves int8 as it is
     texts = []
     for det in (True, False):
@@ -2638,6 +2950,76 @@ def cross_check_constraints(lgb, X, w, forced_path):
     out["int8_deterministic_text_identical"] = texts[0] == texts[1]
     if texts[0] != texts[1]:
         fail("int8 with deterministic=true wrote another text than without")
+    return out
+
+
+def cross_check_storage(lgb, X, w, Xe, latent_e, tmp):
+    """Phase 5 of the file and sparse paths, card against CPU: the first
+    N_EFB_SMALL dense rows as CSV, loaded with two_round (bins from a
+    sample of TWO_ROUND_SMALL_SAMPLE rows), int8 regression with the
+    refit off, by the whole model text; and the first N_EFB_SMALL rows
+    of the sparse table with SPARSE_PARAMS, SPARSE_SMALL_MAX_BIN and
+    deterministic=true, f64 regression trees within F64_RTOL.  On the
+    card that sparse run is made twice, and both texts must equal each
+    other and the card's all-dense f64 text (deterministic=true gives
+    the same model on every run, and sparse storage the dense one's)."""
+    Xs = X[:N_EFB_SMALL]
+    rng = np.random.default_rng(44)
+    y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + Xs[:, 8:] @ w[8:] \
+        * 0.3 + 0.3 * rng.normal(size=N_EFB_SMALL)
+    path = os.path.join(tmp, "small.csv")
+    write_csv(path, Xs, y_reg)
+    two = dict(PARAMS, objective="regression", metric="l2",
+               num_leaves=EFB_SMALL_LEAVES, tpu_hist_precision="int8",
+               tpu_quant_refit_leaves=False, two_round=True,
+               bin_construct_sample_cnt=TWO_ROUND_SMALL_SAMPLE)
+    det = dict(SPARSE_PARAMS, objective="regression", metric="l2",
+               num_leaves=EFB_SMALL_LEAVES, deterministic=True,
+               tpu_hist_impl="xla", max_bin=SPARSE_SMALL_MAX_BIN)
+    out = {}
+    texts, boosters = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = dict(two, device_type=dev)
+        t0 = time.perf_counter()
+        ds = lgb.Dataset(path, params=p).construct()
+        if ds._inner.ingest_s.get("two_round") != 1.0:
+            fail(f"two_round_int8: the {dev} load did not take the "
+                 "two-round loader")
+        b = lgb.train(p, ds, ITERS_SMALL)
+        texts[dev] = _norm_param(b.model_to_string(), "device_type")
+        out[f"two_round_int8_{dev}_s"] = time.perf_counter() - t0
+        p = dict(det, device_type=dev)
+        t0 = time.perf_counter()
+        b = lgb.train(p, lgb.Dataset(Xe[:N_EFB_SMALL],
+                                     label=latent_e[:N_EFB_SMALL],
+                                     params=p), ITERS_SPARSE_SMALL,
+                      keep_training_booster=True)
+        if b._driver.learner.sparse is None:
+            fail(f"sparse_f64: no sparse storage on the {dev}")
+        out[f"sparse_f64_{dev}_coo_features"] = len(
+            b._driver.learner.sparse["sparse_idx"])
+        out[f"sparse_f64_{dev}_s"] = time.perf_counter() - t0
+        boosters[dev] = b
+    # the texts but for the threshold's parameter line
+    card = {"sparse": boosters["cuda"].model_to_string()}
+    for tag, sth in (("again", det["tpu_sparse_threshold"]), ("dense", 0.0)):
+        p = dict(det, device_type="cuda", tpu_sparse_threshold=sth)
+        card[tag] = lgb.train(p, lgb.Dataset(
+            Xe[:N_EFB_SMALL], label=latent_e[:N_EFB_SMALL], params=p),
+            ITERS_SPARSE_SMALL).model_to_string()
+    card = {k: _norm_param(v, "tpu_sparse_threshold")
+            for k, v in card.items()}
+    for tag in ("again", "dense"):
+        same = card[tag] == card["sparse"]
+        out[f"sparse_f64_card_text_equals_{tag}"] = same
+        if not same:
+            fail(f"sparse_f64: the card's text differs from its {tag} run's")
+    out["two_round_int8_text_identical"] = texts["cuda"] == texts["cpu"]
+    if texts["cuda"] != texts["cpu"]:
+        fail("two_round_int8: the card's model text differs from the CPU's")
+    close = _trees_close(boosters["cpu"], boosters["cuda"], F64_RTOL,
+                         "sparse_f64")
+    out.update({f"sparse_f64_{k}": v for k, v in close.items()})
     return out
 
 
@@ -2830,6 +3212,24 @@ def main() -> None:
         reports[name], boosters[name] = run()
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
         profiled.append((name, {}))
+    # file ingest: one pass and two-round with the binary cache (B1-int,
+    # B2, B3, leaf sums), then predict from a binned Dataset
+    tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, tmp, True)
+    t0 = time.perf_counter()
+    for name, (report, booster) in file_paths(lgb, kernels, X, y,
+                                              tmp).items():
+        reports[name], boosters[name] = report, booster
+        print(f"main path {name} " + json.dumps(report), flush=True)
+    print(f"path_s file_int8+file_two_round_int8 "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    reports["predict_dataset"] = predict_dataset_path(
+        lgb, ds, boosters["int8"], X, y)
+    print("main path predict_dataset "
+          + json.dumps(reports["predict_dataset"]), flush=True)
+    print(f"path_s predict_dataset {time.perf_counter() - t0:.1f}",
+          flush=True)
     del datasets, ds
     # categorical features: columns 22-27 as categories, both modes
     Xc = cat_data(X)
@@ -2865,6 +3265,14 @@ def main() -> None:
         reports[name], boosters[name] = efb_path(
             lgb, kernels, efb_ds, Xe, ye, params, must, must_not)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+    # sparse COO storage of the same features (EFB off): B1 on the dense
+    # columns, the COO histograms as torch ops
+    t0 = time.perf_counter()
+    reports["sparse_hilo"], boosters["sparse_hilo"] = sparse_path(
+        lgb, kernels, efb_ds, Xe, ye)
+    print("main path sparse_hilo " + json.dumps(reports["sparse_hilo"]),
+          flush=True)
+    print(f"path_s sparse_hilo {time.perf_counter() - t0:.1f}", flush=True)
     del efb_ds, inner
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -2959,6 +3367,10 @@ def main() -> None:
     cross = cross_check(lgb, X, y, latent)
     cross.update(cross_check_efb(lgb, Xe, ye, latent_e))
     cross.update(cross_check_constraints(lgb, X, w, forced_file))
+    t0 = time.perf_counter()
+    cross.update(cross_check_storage(lgb, X, w, Xe, latent_e, tmp))
+    print(f"path_s cross_check_storage {time.perf_counter() - t0:.1f}",
+          flush=True)
     print("cross-check " + json.dumps(cross), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -8,8 +8,10 @@ callbacks, early stopping, custom objectives and metrics, bagging,
 feature_fraction and feature_fraction_bynode, the boosting modes gbdt,
 goss, dart and rf, `lgb.cv`, categorical features (by index or name, and
 pandas `category` columns), the booster's model files, dumps and
-importances, and the scikit-learn wrappers (`LGBMRegressor`,
-`LGBMClassifier`, `LGBMRanker`).  Entry points run on the first CUDA
+importances, the scikit-learn wrappers (`LGBMRegressor`,
+`LGBMClassifier`, `LGBMRanker`), CSV/TSV/LibSVM files with two-round
+loading and the binary cache, and sparse train-time storage
+(`tpu_sparse_threshold`).  Entry points run on the first CUDA
 device unless the params say `device_type="cpu"`; without CUDA and
 without that, they raise.  The hot kernels are hand-written CUDA C++ for Hopper
 (`csrc/`), built with `nvcc` at first use.  This package never imports
@@ -17,6 +19,7 @@ JAX or lightgbm_tpu.
 """
 
 from . import callback
+from .version import __version__
 from .basic import Dataset
 from .booster import Booster
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
@@ -28,7 +31,7 @@ from .utils.log import LightGBMError
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
            "LightGBMError", "callback", "early_stopping", "log_evaluation",
            "print_evaluation", "record_evaluation", "reset_parameter",
-           "cv", "train"]
+           "cv", "train", "__version__"]
 
 try:  # the sklearn wrappers, as the JAX package exports them
     from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor

@@ -1,10 +1,11 @@
 """The `Dataset` front end (reference basic.py:712-1040).
 
-The port of the subset of `lightgbm_tpu/basic.py:Dataset` that
-`lgb.train` and `lgb.cv` need: a lazily constructed, binned matrix (a
-numpy array, a pandas DataFrame, whose column names become the feature
-names, or a scipy CSR/CSC matrix, binned without densifying it:
-`TrainingData.from_sparse`), categorical features
+The port of `lightgbm_tpu/basic.py:Dataset`: a lazily constructed,
+binned matrix (a numpy array, a pandas DataFrame, whose column names
+become the feature names, a scipy CSR/CSC matrix, binned without
+densifying it: `TrainingData.from_sparse`, or the path of a CSV, TSV or
+LibSVM file, `TrainingData.from_file`, with its binary cache:
+`save_binary`), categorical features
 (`categorical_feature=` by index or name, `set_categorical_feature`, and
 every pandas `category` column, which goes in as its codes, with the
 frame's category tables kept as `pandas_categorical` for valid sets and
@@ -14,7 +15,14 @@ of ranking data (`group=`, `set_group`, `get_group`), the fields
 (`get_field`, `set_field`, `num_data`) and row subsets (`subset`, the
 folds of `cv`), which share the parent's mappers, slice its binned rows
 on its device and keep whole queries.  Object (string) columns are
-refused as the JAX package refuses them.
+refused as the JAX package refuses them.  The rest of the JAX package's
+surface: the setters and getters of the metadata (`set_label`,
+`set_weight`, `set_init_score`, `get_weight`, `get_init_score`; a
+constructed dataset's `Metadata` is written through), `set_reference`,
+`set_feature_name`, `get_data`, `num_feature`, `get_feature_penalty`,
+`get_monotone_constraints`, `get_ref_chain` and `add_features_from`
+(the other dataset's columns appended: mappers on the host, bins on the
+device).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 
 from .config import Config
 from .io.dataset import Metadata, TrainingData, _is_scipy_sparse
+from .utils.log import LightGBMError, Log
 
 
 class Dataset:
@@ -34,7 +43,8 @@ class Dataset:
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 reference: Optional["Dataset"] = None, group=None):
+                 reference: Optional["Dataset"] = None, group=None,
+                 free_raw_data: bool = True, silent: bool = False):
         self.data = data
         self.label = label
         self.reference = reference
@@ -44,7 +54,10 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
+        self.free_raw_data = free_raw_data
         self._inner: Optional[TrainingData] = None
+        # the rows of the parent a subset() took (get_data's map back)
+        self.used_indices: Optional[np.ndarray] = None
         # the category tables of a pandas training frame, one list a
         # category column (None: the data was not a frame); written to the
         # model text as the JAX package writes them
@@ -53,13 +66,27 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._inner is not None:
             return self
-        if isinstance(self.data, str):
-            raise NotImplementedError(
-                "file Dataset input is not ported to lightgbm_tpu_torch yet")
+        cfg = Config(self.params)
+        if bool(cfg.two_round) and not isinstance(self.data, str):
+            # two_round is a way of reading a file; in-memory data has
+            # nothing to read twice
+            Log.warning("two_round=true ignored for in-memory data")
         ref_inner = None
         if self.reference is not None:
             # a reference not yet constructed is constructed first
             ref_inner = self.reference.construct()._inner
+        if isinstance(self.data, str):
+            self._inner = TrainingData.from_file(self.data, cfg,
+                                                 reference=ref_inner)
+            md = self._inner.metadata
+            # arguments given to the Dataset win over the side-car files
+            if self.label is not None:
+                md.set_field("label", self.label)
+            if self.group is not None and md.query_boundaries is None:
+                md.set_field("group", np.asarray(self.group))
+            if self.weight is not None and md.weight is None:
+                md.set_field("weight", np.asarray(self.weight))
+            return self
         names = (None if self.feature_name == "auto"
                  else list(self.feature_name))
         pd_cat_idx: List[int] = []
@@ -90,7 +117,7 @@ class Dataset:
                    else TrainingData.from_matrix)
         self._inner = factory(
             X, None if self.label is None else np.asarray(self.label),
-            Config(self.params), weight=self.weight,
+            cfg, weight=self.weight,
             init_score=self.init_score,
             reference=ref_inner, feature_names=names,
             categorical_features=cat, group_sizes=self.group)
@@ -115,6 +142,162 @@ class Dataset:
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score,
                        params=params if params is not None else self.params)
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the constructed bins, mappers and metadata as a binary
+        cache (`TrainingData.save_binary`): a `<data>.bin` beside a data
+        file is loaded in place of parsing it."""
+        self.construct()
+        self._inner.save_binary(filename)
+        return self
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """Bin this (not yet constructed) dataset with `reference`'s
+        mappers."""
+        if self._inner is not None and self.reference is not reference:
+            raise RuntimeError(
+                "cannot change reference after the dataset is constructed")
+        self.reference = reference
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """The feature names, one a column ("auto": Column_i)."""
+        if feature_name == "auto":
+            self.feature_name = feature_name
+            return self
+        names = list(feature_name)
+        if self._inner is not None:
+            if len(names) != self._inner.num_total_features:
+                raise ValueError(
+                    f"{len(names)} names for "
+                    f"{self._inner.num_total_features} features")
+            self._inner.feature_names = list(names)
+        self.feature_name = names
+        return self
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._inner is not None:
+            self._inner.metadata.set_field("label", label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._inner is not None:
+            self._inner.metadata.set_field("weight", weight)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._inner is not None:
+            self._inner.metadata.set_field("init_score", init_score)
+        return self
+
+    def get_weight(self):
+        return self.get_field("weight")
+
+    def get_init_score(self):
+        return self.get_field("init_score")
+
+    def get_data(self):
+        """The raw data this dataset was built from.  A subset's rows are
+        its parent's, taken by `used_indices` through every level of a
+        subset-of-subset chain; where no parent holds raw data it
+        raises, as lightgbm_tpu/basic.py:get_data does."""
+        freed = LightGBMError(
+            "Cannot call `get_data` after freed raw data, set "
+            "free_raw_data=False when construct Dataset to avoid this.")
+        if self.data is not None or self.used_indices is None:
+            if self.data is None and self._inner is not None:
+                raise freed
+            return self.data
+        idx = np.asarray(self.used_indices)
+        parent = self.reference
+        while parent is not None and parent.data is None \
+                and parent.used_indices is not None \
+                and parent.reference is not None:
+            idx = np.asarray(parent.used_indices)[idx]
+            parent = parent.reference
+        if parent is None or parent.data is None:
+            raise freed
+        pdata = parent.data
+        if _is_pandas_df(pdata):
+            return pdata.iloc[idx]
+        if isinstance(pdata, (list, tuple)):
+            pdata = np.asarray(pdata, dtype=np.float64)
+        return pdata[idx]
+
+    def get_feature_penalty(self):
+        """The split penalty of each used feature (feature_contri), or
+        None."""
+        self.construct()
+        return self._inner.feature_penalty
+
+    def get_monotone_constraints(self):
+        """The monotone constraint of each used feature, or None."""
+        self.construct()
+        return self._inner.monotone_constraints
+
+    def get_ref_chain(self, ref_limit: int = 100):
+        """The datasets reachable through `reference` links, this one
+        included."""
+        head = self
+        ref_chain = set()
+        while len(ref_chain) < ref_limit and isinstance(head, Dataset):
+            ref_chain.add(head)
+            if head.reference is None or head.reference in ref_chain:
+                break
+            head = head.reference
+        return ref_chain
+
+    def num_feature(self) -> int:
+        """The columns of the data, used or not."""
+        return self.construct()._inner.num_total_features
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append `other`'s columns after this dataset's (reference
+        Dataset::AddFeaturesFrom, c_api.h:297): both are constructed and
+        must have the same rows; `other`'s mappers, names and per-feature
+        metadata follow this dataset's, and its bins are appended on the
+        device (int32 when either side is)."""
+        import torch
+
+        self.construct()
+        other.construct()
+        ia, ib = self._inner, other._inner
+        if ia.num_data != ib.num_data:
+            raise ValueError("datasets have different row counts")
+        na = ia.num_total_features
+        n_used_a = len(ia.used_feature_idx)
+        n_used_b = len(ib.used_feature_idx)
+        dtype = (torch.uint8 if ia.bins_t.dtype == ib.bins_t.dtype
+                 == torch.uint8 else torch.int32)
+        ia.bins_t = torch.cat([ia.bins_t.to(dtype),
+                               ib.bins_t.to(device=ia.device, dtype=dtype)])
+        ia.used_feature_idx = list(ia.used_feature_idx) + \
+            [na + c for c in ib.used_feature_idx]
+        ia.mappers = list(ia.mappers) + list(ib.mappers)
+        ia.feature_names = list(ia.feature_names) + list(ib.feature_names)
+        ia.num_total_features = na + ib.num_total_features
+
+        def merge_per_used(attr, dtype, fill):
+            va, vb = getattr(ia, attr), getattr(ib, attr)
+            if va is None and vb is None:
+                return
+            if va is None:
+                va = np.full(n_used_a, fill, dtype)
+            if vb is None:
+                vb = np.full(n_used_b, fill, dtype)
+            setattr(ia, attr, np.concatenate([va, vb]))
+
+        merge_per_used("monotone_constraints", np.int32, 0)
+        merge_per_used("feature_penalty", np.float32, 1.0)
+        # the category tables follow the category columns in order, and
+        # every column of this dataset comes before other's
+        if self.pandas_categorical or other.pandas_categorical:
+            self.pandas_categorical = ((self.pandas_categorical or [])
+                                       + (other.pandas_categorical or []))
+        return self
 
     def get_field(self, name: str):
         """label, weight, group (query boundaries) or init_score."""
@@ -187,6 +370,7 @@ class Dataset:
                       categorical_feature=self.categorical_feature,
                       params=params if params else self.params)
         sub.pandas_categorical = self.pandas_categorical
+        sub.used_indices = idx
         sub._inner = inner
         return sub
 

@@ -254,7 +254,11 @@ class Booster:
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
         """[n] outputs, or [n, k] for multiclass; `raw_score` skips the
-        objective's output conversion.  A DataFrame's `category` columns
+        objective's output conversion.  `data` may be the path of a text
+        file (the label column dropped where the file has one), or a
+        constructed `Dataset` binned with reference= the training set,
+        whose bins are walked as they are (`GBDT.predict_binned`).  A
+        DataFrame's `category` columns
         map onto the training codes through the model's
         `pandas_categorical` tables; a scipy sparse matrix is densified
         65,536 rows at a time (`_predict_sparse_chunked`).  The columns
@@ -264,15 +268,37 @@ class Booster:
         `predict_disable_shape_check` and `tpu_predict_device` (`auto`
         or `true`: the device walk); the other keywords of the JAX
         package's predict raise by name."""
-        from .basic import _to_2d_array
+        from .basic import Dataset, _to_2d_array
         from .io.dataset import _is_scipy_sparse
 
+        if isinstance(data, Dataset) and (
+                pred_leaf or pred_contrib or kwargs.get("pred_early_stop")):
+            raise ValueError("pred_leaf/pred_contrib/pred_early_stop "
+                             "need raw data, not a Dataset (they run "
+                             "on the native walker)")
         self._check_predict_kwargs(dict(kwargs, pred_leaf=pred_leaf,
                                         pred_contrib=pred_contrib))
         it = self._default_iteration(num_iteration)
+        if isinstance(data, Dataset):
+            # the dataset's bins, walked where they lie: no binning pass
+            data.construct()
+            return self._driver.predict_binned(data._inner, it,
+                                               raw_score=raw_score)
         if _is_scipy_sparse(data):
             return self._predict_sparse_chunked(data, it, raw_score, kwargs)
-        X = _to_2d_array(data, self.pandas_categorical)
+        if isinstance(data, str):
+            from .io.parser import load_text_file
+
+            cfg = Config(self.params)
+            X = load_text_file(data, label_column=cfg.label_column,
+                               header=True if cfg.header else None)[0]
+            # a file without a label column: read again with every
+            # column a feature
+            if X.shape[1] == self.num_feature() - 1:
+                X = load_text_file(data, label_column=None,
+                                   header=True if cfg.header else None)[0]
+        else:
+            X = _to_2d_array(data, self.pandas_categorical)
         n_feat = self.num_feature()
         if X.ndim == 2 and X.shape[1] != n_feat:
             self._check_predict_shape(X.shape[1], kwargs)

@@ -21,7 +21,16 @@ set's device; a sparse one through `from_sparse`.
 `Metadata` carries the query boundaries of ranking data
 (`group_sizes`, the `group`/`query` field) and their per-query weights.
 
-Outside this slice, and refused loudly: file ingest.
+A text file (CSV, TSV, LibSVM, `io/parser.py`) goes through `from_file`,
+the port of the JAX package's: a `<path>.bin` binary cache beside it is
+loaded instead (`from_binary`); else the file is parsed whole and binned
+as a matrix, or with `two_round` read twice in chunks (pass 1 samples
+rows by algorithm R for bin finding, pass 2 bins chunk by chunk on the
+device, so the `[n, F]` f64 matrix is never held).  The parameters
+`categorical_feature`, `ignore_column`, `label_column`, `header` and
+`forcedbins_filename` are read on this path; `save_binary` writes the
+cache in the JAX package's layout and token, so either package loads the
+other's.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import numpy as np
 
 from ..config import Config, resolve_device
 from .bin_mapper import BinMapper, BinType, K_ZERO_THRESHOLD
+from .parser import (NoStreamingReader, TextChunkReader, load_sidecars,
+                     load_text_file)
 
 
 def _is_scipy_sparse(data) -> bool:
@@ -122,6 +133,21 @@ class Metadata:
         raise ValueError(f"unknown field {name}")
 
 
+def _load_forced_bins(config: Config) -> Dict[int, List[float]]:
+    """forcedbins_filename's JSON, [{"feature": i, "bin_upper_bound":
+    [...]}] -> {feature: bounds} (reference dataset_loader.cpp:1246
+    GetForcedBins)."""
+    path = config.forcedbins_filename
+    if not path:
+        return {}
+    import json
+
+    with open(path) as f:
+        entries = json.load(f)
+    return {int(e["feature"]): [float(x) for x in e["bin_upper_bound"]]
+            for e in entries}
+
+
 def _parse_column_spec(spec: str, feature_names: List[str]) -> List[int]:
     """Parse '0,1,2' or 'name:a,b,c' into column indices."""
     if not spec:
@@ -151,8 +177,10 @@ class TrainingData:
         self.config: Optional[Config] = None
         self.monotone_constraints: Optional[np.ndarray] = None
         self.feature_penalty: Optional[np.ndarray] = None
-        # host seconds of from_sparse's phases: "sketch" (bin finding)
-        # and "binning" (the bins made and sent to the device)
+        # host seconds of the ingest phases of from_sparse and from_file:
+        # "parse" (reading the text), "sketch" (bin finding) and
+        # "binning" (the bins made on or sent to the device); "binary"
+        # (a cache load) and "two_round" (1.0) also mark the loader
         self.ingest_s: Dict[str, float] = {}
 
     @property
@@ -199,6 +227,20 @@ class TrainingData:
         cnt = (self.bins_t == 0).sum(dim=1, dtype=torch.int64).cpu().numpy()
         return cnt.astype(np.float64) / max(self.num_data, 1)
 
+    def column_nonzero_counts(self, zero_bins: np.ndarray) -> np.ndarray:
+        """Per-used-column count of rows off that column's zero bin (the
+        sparse-storage gate), reduced on the device in column blocks that
+        bound the boolean temporary."""
+        import torch
+
+        zb = torch.as_tensor(np.asarray(zero_bins),
+                             device=self.bins_t.device).to(self.bins_t.dtype)
+        F, n = self.bins_t.shape
+        step = max((1 << 26) // max(n, 1), 1)
+        out = [(self.bins_t[lo:lo + step] != zb[lo:lo + step, None])
+               .sum(dim=1) for lo in range(0, F, step)]
+        return torch.cat(out).cpu().numpy().astype(np.int64)
+
     def strided_row_sample(self, quota: int) -> np.ndarray:
         """The deterministic strided row sample `bundling._stride_sample`
         takes, as a host `[rows, F]` array: a strided slice of the device
@@ -219,6 +261,7 @@ class TrainingData:
                     feature_names: Optional[List[str]] = None,
                     categorical_features: Optional[Sequence[int]] = None,
                     group_sizes: Optional[np.ndarray] = None,
+                    forced_bins: Optional[Dict[int, List[float]]] = None,
                     ) -> "TrainingData":
         """Bin a raw dense float matrix on the config's device.
 
@@ -242,12 +285,17 @@ class TrainingData:
         self.num_total_features = nf
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(nf)])
+        t0 = time.perf_counter()
         if reference is not None:
             self._adopt_reference_mappers(reference)
         else:
-            self._find_mappers(X, config, categorical_features or [])
+            self._find_mappers(X, config, categorical_features or [],
+                               forced_bins)
+        t1 = time.perf_counter()
         self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
                                    device, int(config.tpu_ingest_chunk_rows))
+        self.ingest_s = {"sketch": t1 - t0,
+                         "binning": time.perf_counter() - t1}
         self.metadata = Metadata(n, label, weight, group_sizes, init_score)
         self._set_constraints(config)
         return self
@@ -320,6 +368,214 @@ class TrainingData:
         self._set_constraints(config)
         return self
 
+    @classmethod
+    def from_file(cls, path: str, config: Optional[Config] = None,
+                  reference: Optional["TrainingData"] = None
+                  ) -> "TrainingData":
+        """A text data file, binned (lightgbm_tpu/io/dataset.py:from_file):
+        a `<path>.bin` cache beside it is loaded instead of parsing (not
+        for a validation set, which must take its reference's mappers);
+        `two_round` reads the file twice in chunks; `save_binary` writes
+        the cache after the load."""
+        import zipfile
+
+        from ..utils.log import Log
+
+        config = config or Config()
+        if reference is None and os.path.exists(path + ".bin"):
+            try:
+                return cls.from_binary(path + ".bin", config)
+            except (OSError, ValueError, KeyError,
+                    zipfile.BadZipFile) as exc:
+                Log.warning(f"ignoring stale binary cache {path}.bin: {exc}")
+        if bool(config.two_round):
+            try:
+                data = cls._from_file_two_round(path, config, reference)
+            except NoStreamingReader as exc:  # libsvm
+                Log.warning(f"two_round fell back to one-pass load: {exc}")
+            else:
+                if bool(config.save_binary):
+                    data.save_binary(path + ".bin")
+                return data
+        t0 = time.perf_counter()
+        X, y, w, group, init, names = load_text_file(
+            path, label_column=config.label_column,
+            header=True if config.header else None)
+        parse_s = time.perf_counter() - t0
+        cat = _parse_column_spec(config.categorical_feature, names)
+        data = cls.from_matrix(X, y, config, weight=w, group_sizes=group,
+                               init_score=init, reference=reference,
+                               feature_names=names, categorical_features=cat,
+                               forced_bins=_load_forced_bins(config))
+        data.ingest_s["parse"] = parse_s
+        if bool(config.save_binary):
+            data.save_binary(path + ".bin")
+        return data
+
+    @classmethod
+    def _from_file_two_round(cls, path: str, config: Config,
+                             reference: Optional["TrainingData"],
+                             chunk_rows: int = 200_000) -> "TrainingData":
+        """Two passes over the file in chunks of `chunk_rows` rows
+        (lightgbm_tpu/io/dataset.py:_from_file_two_round; reference
+        dataset_loader.cpp:188-216).  Pass 1 counts the rows, keeps the
+        labels and draws `bin_construct_sample_cnt` of them by algorithm
+        R with `np.random.default_rng(data_random_seed)`, as the JAX
+        package draws them, for bin finding; pass 2 bins each chunk on
+        the device into the `[F, n]` matrix.  The raw f64 matrix is never
+        held, only one chunk of it."""
+        from ..ops.binning import bin_chunks_t
+
+        t0 = time.perf_counter()
+        reader = TextChunkReader(path, label_column=config.label_column,
+                                 header=True if config.header else None,
+                                 chunk_rows=chunk_rows)
+        names = reader.feature_names
+        sample_cnt = max(int(config.bin_construct_sample_cnt), 2)
+        rng = np.random.default_rng(int(config.data_random_seed))
+        n = 0
+        ncols = 0
+        sample: Optional[np.ndarray] = None
+        labels_parts: List[np.ndarray] = []
+        for Xc, yc in reader.chunks():
+            m = len(yc)
+            labels_parts.append(yc)
+            ncols = Xc.shape[1]
+            if reference is None:
+                if sample is None:
+                    sample = Xc[:sample_cnt].copy()
+                elif len(sample) < sample_cnt:
+                    # the reservoir is not full yet: the chunk's leading
+                    # rows are the next positions below sample_cnt
+                    sample = np.vstack([sample, Xc[:sample_cnt
+                                                   - len(sample)]])
+                start = max(n, sample_cnt)
+                if start < n + m:
+                    pos = np.arange(start, n + m)
+                    accept = rng.random(len(pos)) < sample_cnt / (pos + 1.0)
+                    slots = rng.integers(0, sample_cnt,
+                                         size=int(accept.sum()))
+                    sample[slots] = Xc[(pos - n)[accept]]
+            n += m
+        if n == 0:
+            raise ValueError(f"empty data file {path}")
+        label = np.concatenate(labels_parts)
+        self = cls()
+        self.config = config
+        self.device = (reference.device if reference is not None
+                       else resolve_device(config))
+        self.num_data = n
+        self.num_total_features = ncols
+        self.feature_names = list(names)
+        t1 = time.perf_counter()
+        if reference is not None:
+            self._adopt_reference_mappers(reference)
+        else:
+            self._find_mappers(
+                sample, config,
+                _parse_column_spec(config.categorical_feature, names),
+                _load_forced_bins(config), total_rows=n)
+        t2 = time.perf_counter()
+        self.bins_t = bin_chunks_t(
+            (Xc for Xc, _ in reader.chunks()), n, self.mappers,
+            self.used_feature_idx, self.device,
+            int(config.tpu_ingest_chunk_rows))
+        weight, group, init_score = load_sidecars(path)
+        self.metadata = Metadata(n, label, weight, group, init_score)
+        self._set_constraints(config)
+        # pass 2 parses the file again inside "binning"; "two_round"
+        # marks this loader's result
+        self.ingest_s = {"parse": t1 - t0, "sketch": t2 - t1,
+                         "binning": time.perf_counter() - t2,
+                         "two_round": 1.0}
+        return self
+
+    # the binary cache's token, shared with the JAX package
+    _BINARY_TOKEN = "lightgbm_tpu.binned.v1"
+
+    def save_binary(self, path: str) -> None:
+        """The binned dataset as a compressed npz (reference
+        Dataset::SaveBinaryFile, src/io/dataset.cpp:695), in the JAX
+        package's layout: `[n, F]` bins (uint8, or uint16 past 256 bins
+        a feature), mappers, names and metadata, so either package loads
+        the other's file and skips parsing and bin finding."""
+        import json
+
+        md = self.metadata
+        dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
+        np.savez_compressed(
+            path,
+            token=np.frombuffer(self._BINARY_TOKEN.encode(), np.uint8),
+            bins=np.ascontiguousarray(self.bins.astype(dtype, copy=False)),
+            used_feature_idx=np.asarray(self.used_feature_idx, np.int64),
+            num_total_features=np.int64(self.num_total_features),
+            mappers=np.frombuffer(json.dumps(
+                [m.to_dict() for m in self.mappers]).encode(), np.uint8),
+            feature_names=np.frombuffer(
+                json.dumps(self.feature_names).encode(), np.uint8),
+            label=md.label,
+            weight=(md.weight if md.weight is not None
+                    else np.zeros(0, np.float32)),
+            query_boundaries=(md.query_boundaries
+                              if md.query_boundaries is not None
+                              else np.zeros(0, np.int64)),
+            init_score=(md.init_score if md.init_score is not None
+                        else np.zeros(0, np.float64)),
+            monotone=(self.monotone_constraints
+                      if self.monotone_constraints is not None
+                      else np.zeros(0, np.int32)),
+            penalty=(self.feature_penalty
+                     if self.feature_penalty is not None
+                     else np.zeros(0, np.float32)))
+        # numpy appends .npz; keep the requested name
+        if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+            os.replace(path + ".npz", path)
+
+    @classmethod
+    def from_binary(cls, path: str, config: Optional[Config] = None
+                    ) -> "TrainingData":
+        """A binary cache of either package (`save_binary`), its bins
+        sent to the config's device."""
+        import json
+
+        import torch
+
+        config = config or Config()
+        t0 = time.perf_counter()
+        with np.load(path, allow_pickle=False) as z:
+            token = bytes(z["token"]).decode()
+            if token != cls._BINARY_TOKEN:
+                raise ValueError(f"unrecognized binary dataset token "
+                                 f"{token!r}")
+            self = cls()
+            self.config = config
+            self.device = resolve_device(config)
+            bins = z["bins"]
+            self.used_feature_idx = [int(i) for i in z["used_feature_idx"]]
+            self.num_total_features = int(z["num_total_features"])
+            self.mappers = [BinMapper.from_dict(d) for d in
+                            json.loads(bytes(z["mappers"]).decode())]
+            self.feature_names = json.loads(
+                bytes(z["feature_names"]).decode())
+            self.num_data = int(bins.shape[0])
+            md = Metadata(self.num_data, label=z["label"])
+            if z["weight"].size:
+                md.weight = z["weight"]
+            if z["query_boundaries"].size:
+                md.query_boundaries = z["query_boundaries"]
+            if z["init_score"].size:
+                md.init_score = z["init_score"]
+            self.metadata = md
+            if z["monotone"].size:
+                self.monotone_constraints = z["monotone"]
+            if z["penalty"].size:
+                self.feature_penalty = z["penalty"]
+        dtype = np.uint8 if self.max_num_bin <= 256 else np.int32
+        self.bins_t = torch.from_numpy(
+            np.ascontiguousarray(bins.T.astype(dtype))).to(self.device)
+        self.ingest_s = {"binary": time.perf_counter() - t0}
+        return self
+
     def create_valid(self, X, label: Optional[np.ndarray] = None,
                      **kw) -> "TrainingData":
         factory = (TrainingData.from_sparse if _is_scipy_sparse(X)
@@ -327,14 +583,21 @@ class TrainingData:
         return factory(X, label, self.config, reference=self, **kw)
 
     def _find_mappers(self, X, config: Config,
-                      categorical_features: Sequence[int]) -> None:
+                      categorical_features: Sequence[int],
+                      forced_bins: Optional[Dict[int, List[float]]] = None,
+                      total_rows: Optional[int] = None) -> None:
         """Greedy bin finding per column on a row sample, as the JAX
         package does it (reference dataset_loader.cpp:599-600,696); the
-        columns of `categorical_features` bin as categories.  X is a
-        dense matrix or a scipy sparse one, whose columns' stored values
-        are read off the CSC arrays of the sample (reference sparse-aware
-        sampling, dataset_loader.cpp:959-1042)."""
+        columns of `categorical_features` bin as categories, and those of
+        `forced_bins` take its upper bounds first.  X is a dense matrix
+        or a scipy sparse one, whose columns' stored values are read off
+        the CSC arrays of the sample (reference sparse-aware sampling,
+        dataset_loader.cpp:959-1042).  `total_rows`: the whole data's
+        rows where X is already a sample (two-round loading), which
+        scales the near-unsplittable filter."""
+        forced_bins = forced_bins or {}
         n, nf = X.shape
+        full_n = max(int(total_rows), n) if total_rows is not None else n
         sample_cnt = min(n, int(config.bin_construct_sample_cnt))
         if sample_cnt < n:
             rng = np.random.default_rng(int(config.data_random_seed))
@@ -352,7 +615,7 @@ class TrainingData:
         cat_set = set(int(c) for c in categorical_features)
         max_bin_by_feature = list(config.max_bin_by_feature)
         # near-unsplittable feature filter (dataset_loader.cpp:599-600)
-        filter_cnt = int(float(config.min_data_in_leaf) * total / n)
+        filter_cnt = int(float(config.min_data_in_leaf) * total / full_n)
         self.mappers = [BinMapper() for _ in range(nf)]
 
         def _find_col(col: int) -> None:
@@ -380,7 +643,8 @@ class TrainingData:
                        bin_type=(BinType.CATEGORICAL if col in cat_set
                                  else BinType.NUMERICAL),
                        use_missing=bool(config.use_missing),
-                       zero_as_missing=bool(config.zero_as_missing))
+                       zero_as_missing=bool(config.zero_as_missing),
+                       forced_bounds=forced_bins.get(col))
 
         _parallel_columns(_find_col, nf, config)
         self.used_feature_idx = [c for c in range(nf)

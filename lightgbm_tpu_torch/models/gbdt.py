@@ -738,10 +738,49 @@ class GBDT:
         # random-forest averaging (gbdt_prediction.cpp:55)
         return out / div
 
+    def predict_binned(self, data: TrainingData, num_iteration: int = -1,
+                       raw_score: bool = False) -> np.ndarray:
+        """`predict` of a dataset binned with the training mappers
+        (reference= the training set): its `[F, n]` bins are walked on
+        their device with the packed forest in row chunks, with no
+        binning pass (lightgbm_tpu/models/gbdt.py:predict_binned_device);
+        the scores equal `predict` of the raw rows."""
+        self._materialize()
+        if self._pred_ctx is None:
+            raise ValueError("device predict on binned data needs a booster "
+                             "with a training context (file-loaded boosters "
+                             "carry no bin mappers)")
+        if data.bins_t is None:
+            raise ValueError("dataset has no binned representation")
+        # the same mapper list, not equal mappers: anything else would walk
+        # another bin space
+        if data.mappers is not self._pred_ctx.mappers:
+            raise ValueError("predict data must be created with "
+                             "reference=the training dataset")
+        k = self.num_tree_per_iteration
+        n = data.num_data
+        raw = np.zeros((k, n), np.float64)
+        total, div = self._model_subset(num_iteration)
+        if total > 0:
+            tables, depth = self._forest(total)
+            meta = self._pred_ctx.meta_dev(self.device)
+            chunk = max(int(self.config.tpu_predict_chunk_rows)
+                        if self.config is not None else 65536, 1024)
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                bins_t = data.bins_t[:, lo:hi].to(self.device).contiguous()
+                raw[:, lo:hi] = class_scores(tables, bins_t, meta, k,
+                                             depth).cpu().numpy()
+            raw = raw / div
+        return self._finish(raw, raw_score)
+
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
         """[n] outputs, or [n, k] with several trees an iteration."""
-        raw = self.predict_raw(X, num_iteration)
+        return self._finish(self.predict_raw(X, num_iteration), raw_score)
+
+    def _finish(self, raw: np.ndarray, raw_score: bool) -> np.ndarray:
+        """[k, n] raw scores -> the objective's outputs, [n] or [n, k]."""
         if not raw_score and self.objective is not None:
             raw = self.objective.convert_output(raw)
         if raw.shape[0] == 1:

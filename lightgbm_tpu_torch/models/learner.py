@@ -54,6 +54,14 @@ into BFS (leaf, feature, threshold bin) triples (`_parse_forced_splits`),
 and forced splits form no EFB plan.  deterministic=true turns the float
 precisions into "f64" (`resolve_precision`), which runs on the XLA
 branch's impl.
+
+tpu_sparse_threshold > 0 (learner.py:296-353,487-596 of the JAX
+package; float precisions, enable_bundle=false, no forced splits:
+`check_sparse_storage`) keeps the features whose share of rows off their
+zero bin is at most the threshold out of the bins: their entries are
+laid out back to back on the device (`_sparse_layout`), the dense
+features' columns alone go to the kernels, and `hist_perm` maps the
+features onto the merged histogram columns.
 """
 
 from __future__ import annotations
@@ -116,9 +124,14 @@ def check_slice(config: Config) -> None:
     # the JAX package itself trains a parallel learner serially on one
     # machine (with a warning), so only a real multi-machine run is refused
     if str(c.tree_learner) != "serial" and int(c.num_machines) > 1:
+        if float(c.tpu_sparse_threshold) > 0.0:
+            # on a host with the devices for num_machines, the JAX learner
+            # raises its sparse-storage refusals before it shards
+            # anything (where it lacks them, its num_machines ValueError
+            # comes first); the port takes the first case
+            check_sparse_storage(c, TreeLearner.resolve_precision(c),
+                                 str(c.tree_learner), forced=False)
         refuse(f"tree_learner={c.tree_learner!r} with num_machines>1")
-    if float(c.tpu_sparse_threshold) > 0.0:
-        refuse("tpu_sparse_threshold>0")
     if str(c.tpu_stream_mode) == "streamed":
         refuse("tpu_stream_mode=streamed")
     _dot_spec(str(c.tpu_hist_precision))
@@ -143,6 +156,36 @@ def check_slice(config: Config) -> None:
     if str(c.tpu_trace_dir):
         refuse(f"tpu_trace_dir={c.tpu_trace_dir!r}")
     refuse_host_predict(c.tpu_predict_device, "a training parameter")
+
+
+# tree_learner names of the strategies that shard rows (the JAX package's
+# parallel/strategies.py:_CANON); sparse storage takes these and serial
+_ROW_STRATEGIES = ("serial", "data", "data_parallel", "voting",
+                   "voting_parallel")
+
+
+def check_sparse_storage(config: Config, precision: str, tree_learner: str,
+                         forced: bool) -> None:
+    """The JAX learner's refusals of sparse train-time storage
+    (learner.py:303-325), in its order and with its texts."""
+    if precision in INT_PRECISIONS:
+        # the zero-bin reconstruction mixes histogram rows with leaf
+        # totals; the integer domain is not covered
+        raise ValueError(
+            "tpu_sparse_threshold does not compose with quantized "
+            "histogram precisions (tpu_hist_precision=int8|int16)")
+    if bool(config.enable_bundle):
+        # a refusal on the flag, not on whether a plan formed
+        raise ValueError(
+            "tpu_sparse_threshold requires enable_bundle=false "
+            "(EFB already re-columns sparse features; pick one)")
+    if tree_learner not in _ROW_STRATEGIES:
+        raise NotImplementedError(
+            "tpu_sparse_threshold requires tree_learner=serial, "
+            "data, or voting (feature sharding replicates rows)")
+    if forced:
+        raise ValueError("tpu_sparse_threshold does not compose "
+                         "with forced splits")
 
 
 class TreeLearner:
@@ -195,6 +238,22 @@ class TreeLearner:
         self.num_columns = F if plan is None else plan.num_columns
 
         precision = self.resolve_precision(config)
+        # sparse train-time storage: the features whose share of rows off
+        # their zero bin is at most tpu_sparse_threshold keep only those
+        # rows' (row, bin) pairs (learner.py:296-353)
+        sparse_mask = None
+        sth = float(config.tpu_sparse_threshold)
+        if sth > 0.0:
+            check_sparse_storage(config, precision, "serial", bool(forced))
+            nz_counts = train_data.column_nonzero_counts(
+                meta_np["default_bin"])
+            nz_frac = nz_counts / max(n, 1)
+            sp_mask = nz_frac <= sth
+            if sp_mask.all():
+                # the dense histogram needs a column: the densest stays
+                sp_mask[int(np.argmax(nz_frac))] = False
+            if sp_mask.any():
+                sparse_mask = sp_mask
         impl, block = self._resolve_hist_impl(config, precision, B)
         # the JAX package pads the column axis to a multiple of 32 for its
         # perfeature kernel, and the port's kernels take chunks of 32
@@ -250,18 +309,29 @@ class TreeLearner:
         self.f_pad = self.g_pad if plan is None else self.draw_width
         # the pack layout's blocks are the grower's: min(block, n_pad)
         eff_block = min(block, self.n_pad)
-        self.packed_bins = self._would_pack(config, B, impl, eff_block,
-                                            self.n_pad, plan is not None)
+        self.packed_bins = self._would_pack(
+            config, B, impl, eff_block, self.n_pad,
+            plan is not None or sparse_mask is not None)
         # rows of a packed block (0: bins unpacked), as the kernels take it
         self.packed_block = eff_block if self.packed_bins else 0
 
         dev = self.device
+        self.sparse = None
+        sparse_meta = {}
+        if sparse_mask is not None:
+            # the dense columns alone go to the kernels, padded to 32
+            sparse_meta = self._sparse_layout(train_data, sparse_mask,
+                                              nz_counts, meta_np, B)
+            self.g_pad = -(-self.num_columns // 32) * 32
         # uint8 when every feature fits a byte, else int32, as the JAX
         # learner stores them (learner.py:486)
         bins_t = torch.zeros((self.g_pad, self.n_pad),
                              dtype=torch.uint8 if B <= 256 else torch.int32,
                              device=dev)
-        if plan is None:
+        if sparse_mask is not None:
+            bins_t[:self.num_columns, :n] = train_data.bins_t[
+                torch.as_tensor(self.sparse["dense_idx"], device=dev)]
+        elif plan is None:
             bins_t[:F, :n] = train_data.bins_t
         else:
             # [n, G] int32 bundle columns of the host matrix
@@ -297,6 +367,16 @@ class TreeLearner:
             meta[k] = torch.as_tensor(
                 v if v.dtype == np.float32 else v.astype(np.int32),
                 device=dev)
+        if sparse_mask is not None:
+            # the COO tables and the feature -> histogram column map ride
+            # meta beside the per-feature arrays (learner.py:713-741)
+            perm = np.full(self.f_pad, min(self.num_columns, self.g_pad - 1),
+                           np.int64)
+            perm[self.sparse["dense_idx"]] = np.arange(self.num_columns)
+            perm[self.sparse["sparse_idx"]] = self.g_pad + np.arange(
+                len(self.sparse["sparse_idx"]))
+            meta["hist_perm"] = torch.as_tensor(perm, device=dev)
+            meta.update(sparse_meta)
         self.meta = meta
         self.params = GrowerParams(
             num_leaves=max(int(config.num_leaves), 2),
@@ -331,6 +411,9 @@ class TreeLearner:
             feature_fraction_bynode=float(config.feature_fraction_bynode),
             bynode_width=self.draw_width,
             has_bundles=plan is not None,
+            has_sparse=sparse_mask is not None,
+            sparse_window=(0 if self.sparse is None
+                           else self.sparse["window"]),
             has_cegb=has_cegb,
             has_cegb_lazy=has_cegb_lazy,
             cegb_tradeoff=float(config.cegb_tradeoff),
@@ -455,13 +538,73 @@ class TreeLearner:
             sample_rows=EFB_SAMPLE_ROWS)
         return None if plan.is_trivial else plan
 
+    def _sparse_layout(self, td: TrainingData, sparse_mask: np.ndarray,
+                       nz_counts: np.ndarray, meta_np: dict, B: int
+                       ) -> dict:
+        """The sparse features' COO entries and the feature maps
+        (learner.py:487-596 of the JAX package), built on the device from
+        the dataset's bins.  The JAX package pads each sparse feature's
+        entries to the longest one's ([Gs, M]); here they lie back to
+        back, sorted by (feature, row), with each feature's start in
+        `sp_off` [Gs + 1]: `sp_rows` [E] int32 holds the row and `sp_key`
+        [E] int32 the feature's slot times B plus the bin; `nz_counts`
+        [F] (`column_nonzero_counts`) gives each feature's entries.  Sets
+        `self.sparse` (the index lists, the longest feature's entries
+        `window`, the bytes of each part) and `num_columns` (the dense
+        columns); adds is_sparse, sparse_slot, dense_col and dense_ref
+        to meta_np and returns the tables for meta."""
+        dev = self.device
+        n = td.num_data
+        dense_idx = np.flatnonzero(~sparse_mask)
+        sparse_idx = np.flatnonzero(sparse_mask)
+        gd, Gs = len(dense_idx), len(sparse_idx)
+        zb = torch.as_tensor(meta_np["default_bin"], device=dev).to(
+            td.bins_t.dtype)
+        # column blocks of at most 2^26 bins bound the temporaries
+        step = max((1 << 26) // max(n, 1), 1)
+        rows, keys = [], []
+        for lo in range(0, Gs, step):
+            cols = torch.as_tensor(sparse_idx[lo:lo + step], device=dev)
+            sub = td.bins_t[cols]                               # [blk, n]
+            g_i, r_i = (sub != zb[cols][:, None]).nonzero(as_tuple=True)
+            rows.append(r_i.to(torch.int32))
+            keys.append(((g_i + lo) * B + sub[g_i, r_i].long()).to(
+                torch.int32))
+        sp_rows = torch.cat(rows)
+        sp_key = torch.cat(keys)
+        counts = nz_counts[sparse_idx]
+        sp_off = torch.zeros(Gs + 1, dtype=torch.int64, device=dev)
+        sp_off[1:] = torch.as_tensor(np.cumsum(counts), device=dev)
+        F = self.num_features
+        is_sparse = np.zeros(F, np.int32)
+        is_sparse[sparse_idx] = 1
+        sparse_slot = np.zeros(F, np.int32)
+        sparse_slot[sparse_idx] = np.arange(Gs)
+        dense_col = np.zeros(F, np.int32)
+        dense_col[dense_idx] = np.arange(gd)
+        meta_np["is_sparse"] = is_sparse
+        meta_np["sparse_slot"] = sparse_slot
+        meta_np["dense_col"] = dense_col
+        # a dense feature: its histogram gives each leaf's exact totals
+        meta_np["dense_ref"] = np.full(F, dense_idx[0], np.int32)
+        self.num_columns = gd
+        window = int(counts.max()) if Gs else 0
+        self.sparse = {
+            "dense_idx": dense_idx, "sparse_idx": sparse_idx,
+            "entries": int(sp_rows.numel()), "window": max(window, 1),
+            "coo_bytes": sum(t.numel() * t.element_size()
+                             for t in (sp_rows, sp_key, sp_off))}
+        Log.info(f"sparse storage: {Gs} of {F} features as COO "
+                 f"({self.sparse['entries']} entries), {gd} dense columns")
+        return {"sp_rows": sp_rows, "sp_key": sp_key, "sp_off": sp_off}
+
     @staticmethod
     def _would_pack(config: Config, B: int, impl: str, eff_block: int,
                     n_pad: int, bundled: bool) -> bool:
         """Whether the JAX learner stores 4-bit packed bins here
-        (learner.py:628-634, on one device: no stream layout, sparse
-        storage or partitioned rows, which this slice refuses, and no
-        EFB bundles)."""
+        (learner.py:628-634, on one device: no stream layout or
+        partitioned rows, which this slice refuses, and no EFB bundles or
+        sparse storage: `bundled`)."""
         return (bool(config.tpu_pack_bins) and B <= 16 and not bundled
                 and impl in ("pallas", "pallas2")
                 and str(config.tpu_partition_impl) in ("select", "vselect")

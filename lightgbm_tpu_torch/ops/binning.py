@@ -29,7 +29,7 @@ The result is the transposed `[F, n]` matrix the grower reads.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -145,30 +145,53 @@ def bin_matrix_t(X: np.ndarray, mappers: Sequence[BinMapper],
 
     Rows stream through in chunks of `chunk_rows`, so the device holds
     one chunk of f64 values and keys at a time beside the output."""
+    return bin_chunks_t([X], X.shape[0], mappers, used_cols, device,
+                        chunk_rows)
+
+
+def bin_chunks_t(chunks: Iterable[np.ndarray], n: int,
+                 mappers: Sequence[BinMapper], used_cols: Sequence[int],
+                 device, chunk_rows: int = 65536) -> torch.Tensor:
+    """`bin_matrix_t` of the row blocks `chunks` (each `[m, nf]` f64, n
+    rows in all, in order), written into one `[F_used, n]` matrix: the
+    second pass of two-round loading, which never holds the whole raw
+    matrix.  The tables go to the device once."""
     used = [int(c) for c in used_cols]
-    n = X.shape[0]
     max_bin = max([mappers[c].num_bin for c in used], default=1)
     out_dtype = torch.uint8 if max_bin <= 256 else torch.int32
     out = torch.empty((len(used), n), dtype=out_dtype, device=device)
     if not used or n == 0:
         return out
     t = bin_tables(mappers, used, device)
-    if t is None:
-        # category ids past the LUT: the host bins every column
-        host = np.stack([mappers[c].values_to_bins(
-            np.ascontiguousarray(X[:, c], dtype=np.float64)) for c in used])
-        return torch.from_numpy(host).to(device=device, dtype=out_dtype)
-    has_cat = "cat_lut" in t
+    has_cat = t is not None and "cat_lut" in t
     chunk = max(int(chunk_rows), 256)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        block = np.ascontiguousarray(X[lo:hi][:, used].T, dtype=np.float64)
-        vals = torch.from_numpy(block).to(device)               # [F, rows]
-        keys = sort_keys_t(vals)
-        num = torch.searchsorted(t["bkeys"], keys)              # [F, rows]
-        bins = torch.where(keys == _NAN_KEY, t["nan_bin"], num)
-        if has_cat:
-            bins = torch.where(t["is_cat"][:, None], _cat_bins(vals, t),
-                               bins)
-        out[:, lo:hi] = bins.to(out_dtype)
+    row = 0
+    for X in chunks:
+        m = X.shape[0]
+        if row + m > n:
+            raise ValueError(f"more than the {n} rows announced")
+        if t is None:
+            # category ids past the LUT: the host bins every column
+            host = np.stack([mappers[c].values_to_bins(
+                np.ascontiguousarray(X[:, c], dtype=np.float64))
+                for c in used])
+            out[:, row:row + m] = torch.from_numpy(host).to(
+                device=device, dtype=out_dtype)
+            row += m
+            continue
+        for lo in range(0, m, chunk):
+            hi = min(lo + chunk, m)
+            block = np.ascontiguousarray(X[lo:hi][:, used].T,
+                                         dtype=np.float64)
+            vals = torch.from_numpy(block).to(device)           # [F, rows]
+            keys = sort_keys_t(vals)
+            num = torch.searchsorted(t["bkeys"], keys)          # [F, rows]
+            bins = torch.where(keys == _NAN_KEY, t["nan_bin"], num)
+            if has_cat:
+                bins = torch.where(t["is_cat"][:, None],
+                                   _cat_bins(vals, t), bins)
+            out[:, row + lo:row + hi] = bins.to(out_dtype)
+        row += m
+    if row != n:
+        raise ValueError(f"{row} rows binned, {n} announced")
     return out

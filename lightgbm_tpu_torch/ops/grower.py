@@ -103,6 +103,18 @@ deterministic=true ("f64"): f64 stats, histograms (`histogram.
 hist_batched_f64`, torch ops in one fixed order, no kernel), pool and
 candidate math, cast to f32 once in `split.finalize_split`; the leaf
 totals are summed in f64 and kept f32, as in the JAX grower.
+
+With has_sparse (tpu_sparse_threshold, grower.py:1002-1074,1254-1321 of
+the JAX package) bins_t holds only the dense features' columns, and the
+sparse features' (row, bin) entries ride meta: each round's histograms
+are the dense columns' (B1 on the card) and the entries' (torch ops:
+`sparse_histograms`, summed in a fixed order under f64), merged into
+feature order (`merged_histograms`), so the pool, the sibling
+subtraction and the records stay in feature space.  The sparse
+features' zero bins are missing there until every search rebuilds them
+from a dense feature's totals (`expand_sparse`); the partition rebuilds
+each sparse split feature's column from its entries.  Float precisions
+only, no bundles, no packing, a select-family partition.
 """
 
 from __future__ import annotations
@@ -116,8 +128,9 @@ from ..utils.prng import fold_in, split, uniform
 from .fused import (CTX_COUNT, CTX_MAX_C, CTX_MIN_C, CTX_SUM_G, CTX_SUM_H,
                     CTX_USE_SMALL, CTX_WIDTH, fix_bundle_col, fused_hist_scan,
                     partition_rows, partition_rows_plain)
-from .histogram import (INT_PRECISIONS, build_histogram_batched_t, key_words,
-                        pack_stats, quant_limit, quantize_values, unpack2d)
+from .histogram import (INT_PRECISIONS, _unpack_hist,
+                        build_histogram_batched_t, key_words, pack_stats,
+                        quant_limit, quantize_values, unpack2d)
 from .leafsum import leaf_sums
 from .predict import upload
 from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
@@ -208,6 +221,13 @@ class GrowerParams(NamedTuple):
     # some feature has a monotone constraint (meta monotone != 0); without
     # one every leaf's bounds stay [-1e30, 1e30], so none are tracked
     has_mono: bool = False
+    # sparse train-time storage (tpu_sparse_threshold): bins_t holds the
+    # dense features' columns only; the sparse features' (row, bin)
+    # entries ride meta (sp_rows, sp_key, sp_off, hist_perm and the
+    # per-feature is_sparse/sparse_slot/dense_col/dense_ref); the
+    # longest feature's entry count is the partition's gather window
+    has_sparse: bool = False
+    sparse_window: int = 0
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -258,6 +278,102 @@ def expand_bundles(hist_g: torch.Tensor, sg: torch.Tensor, sh: torch.Tensor,
     return hist_f
 
 
+def expand_sparse(hist: torch.Tensor, meta: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """[C, F, B, 3] feature histograms whose sparse features lack their
+    zero bin (the rows no entry stores) -> the full histograms
+    (grower.py:661-687 of the JAX package, vmapped over the C leaves
+    there): each sparse feature's default bin becomes the leaf's totals
+    minus its other bins, the FixHistogram identity (reference
+    src/io/dataset.cpp:1044-1063).  The totals are a dense feature's
+    (dense_ref) bins summed, in the histogram's own dtype, so that f64
+    sparse storage gives the dense histograms' bits; sums in XLA's
+    order (`split.reduce_sum`)."""
+    B = hist.shape[2]
+    totals = reduce_sum(hist[:, meta["dense_ref"][0].long()], 1)  # [C, 3]
+    iota_b = torch.arange(B, dtype=torch.int32, device=hist.device)
+    at_db = ((meta["is_sparse"] > 0)[:, None]
+             & (iota_b[None, :] == meta["default_bin"][:, None]))   # [F, B]
+    at_db = at_db[None, :, :, None]
+    zeroed = torch.where(at_db, 0.0, hist)
+    bin0 = totals[:, None, :] - reduce_sum(zeroed, 2)              # [C, F, 3]
+    return torch.where(at_db, bin0[:, :, None, :], zeroed)
+
+
+def sparse_histograms(meta: Dict[str, torch.Tensor], sp_stats: torch.Tensor,
+                      leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
+                      num_bins: int, num_leaves: int, precision: str
+                      ) -> torch.Tensor:
+    """[K, Gs, B, 3] histograms of the sparse features' stored entries
+    (the JAX package's `build_histogram_sparse`, histogram.py:340, an XLA
+    program there, torch ops here): each entry's leaf is read at its row,
+    and its row's stats (`sp_stats` [E, S], gathered once a tree) are
+    added at (slot, feature, bin); entries of rows in no slot go to a
+    trash slot.  The rows no entry stores are missing: `expand_sparse`
+    puts them back."""
+    K = slot_leaf_ids.shape[0]
+    Gs = meta["sp_off"].shape[0] - 1
+    B = int(num_bins)
+    dev = leaf_ids.device
+    # leaf id -> slot (K: none), the dead slots written past the leaves
+    table = torch.full((num_leaves + 1,), K, dtype=torch.int64, device=dev)
+    live = slot_leaf_ids >= 0
+    table[torch.where(live, slot_leaf_ids, table.shape[0] - 1).long()] = \
+        torch.arange(K, device=dev)
+    k_e = table[leaf_ids[meta["sp_rows"].long()].long()]          # [E]
+    flat = k_e * (Gs * B) + meta["sp_key"].long()
+    size = (K + 1) * Gs * B
+    if precision == "f64":
+        raw = fixed_order_index_sum(flat, sp_stats, size)
+    else:
+        raw = torch.zeros((size, sp_stats.shape[1]), dtype=sp_stats.dtype,
+                          device=dev)
+        raw.index_add_(0, flat, sp_stats)
+    raw = raw[:K * Gs * B].view(K, Gs, B, -1)
+    return _unpack_hist(raw.permute(3, 0, 1, 2), precision)
+
+
+def fixed_order_index_sum(index: torch.Tensor, values: torch.Tensor,
+                          size: int) -> torch.Tensor:
+    """[size, S]: the rows of values [E, S] summed at index [E] in one
+    fixed order on every device, for the f64 histograms of
+    deterministic=true (`index_add_` adds through atomics on CUDA, in
+    arrival order; `hist_batched_f64` keeps the dense columns' order
+    fixed the same way).  The entries are sorted stably by index, then
+    each run of equal indices is summed by a segmented scan of log2(E)
+    elementwise steps: at step d an entry adds the partial sum d places
+    back when that entry has its index.  The last entry of each run then
+    holds the run's sum."""
+    key, order = torch.sort(index, stable=True)
+    v = values[order]
+    E = key.shape[0]
+    d = 1
+    while d < E:
+        same = (key[d:] == key[:-d])[:, None]
+        v = torch.cat([v[:d], v[d:] + torch.where(same, v[:-d], 0.0)])
+        d *= 2
+    last = torch.ones_like(key, dtype=torch.bool)
+    last[:-1] = key[1:] != key[:-1]
+    out = torch.zeros((size + 1, values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    # every entry but a run's last writes to the trash row `size`
+    out[torch.where(last, key, size)] = v
+    return out[:size]
+
+
+def merged_histograms(dense_hist: torch.Tensor, meta: Dict[str, torch.Tensor],
+                      sp_stats: torch.Tensor, leaf_ids: torch.Tensor,
+                      slot_leaf_ids: torch.Tensor, num_bins: int,
+                      num_leaves: int, precision: str) -> torch.Tensor:
+    """[K, F, B, 3]: the dense columns' histograms [K, G, B, 3] and the
+    sparse features' (`sparse_histograms`) merged into feature order
+    (grower.py:1038-1056 of the JAX package); the sparse features' zero
+    bins are still missing (`expand_sparse`)."""
+    sp = sparse_histograms(meta, sp_stats, leaf_ids, slot_leaf_ids,
+                           num_bins, num_leaves, precision)
+    return torch.cat([dense_hist, sp], dim=1)[:, meta["hist_perm"]]
+
+
 def check_params(params: GrowerParams) -> None:
     """The JAX grower's refusals of parameter combinations
     (grower.py:359-421 of the JAX package, on the serial learner), which
@@ -275,8 +391,16 @@ def check_params(params: GrowerParams) -> None:
         raise ValueError(
             "packed 4-bit bins require the pallas histogram impl, a "
             "select-family partition lowering, and no EFB bundling")
-    if params.partition_impl == "kernel" and (params.has_cat
-                                              or params.has_bundles):
+    if params.has_sparse and (
+            params.has_bundles or params.packed_bins
+            or params.partition_impl not in ("select", "vselect")):
+        # grower.py:373-382
+        raise ValueError(
+            "sparse train-time storage (tpu_sparse_threshold) requires "
+            "tree_learner=serial/data/voting, a select-family partition "
+            "lowering, and no EFB bundling / 4-bit packing")
+    if params.partition_impl == "kernel" and (
+            params.has_cat or params.has_bundles or params.has_sparse):
         # grower.py:384-390
         raise ValueError(
             "tpu_partition_impl=kernel (the pallas row-partition) covers "
@@ -287,6 +411,11 @@ def check_params(params: GrowerParams) -> None:
         # grower.py:397-399
         raise ValueError("quantized histogram precisions do not compose "
                          "with forced splits")
+    if quantized and params.has_sparse:
+        # grower.py:400-403
+        raise ValueError(
+            "quantized histogram precisions do not compose with "
+            "sparse train-time storage (tpu_sparse_threshold)")
     if quantized and params.quant_round not in ("stochastic", "nearest"):
         raise ValueError(f"tpu_quant_round={params.quant_round!r}; expected "
                          "stochastic or nearest")
@@ -313,8 +442,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
 
     bins_t: [G, n_pad] uint8, or int32 when a feature has more than 256
     bins (padding rows and columns hold bin 0), or [G, n_pad/2] packed
-    with params.packed_bins; its G columns are the F features, or EFB
-    bundle columns under params.has_bundles;
+    with params.packed_bins; its G columns are the F features, EFB
+    bundle columns under params.has_bundles, or the dense features'
+    columns under params.has_sparse;
     grad/hess/row_mask: [n_pad] f32 (padding rows zero); feature_mask:
     [F] f32; meta: per-feature int32 num_bin/missing_type/default_bin/
     monotone and f32 penalty (and is_categorical under has_cat, and
@@ -336,9 +466,11 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     dev = bins_t.device
     L = params.num_leaves
     B = params.num_bins
-    # the column axis of the bins, the kernels and the pool; the features
-    # are feature_mask's axis
-    G = bins_t.shape[0]
+    # the column axis of the pool: the bins' columns, or with sparse
+    # storage the features (dense columns and sparse entries merged); the
+    # features are feature_mask's axis
+    G = (meta["hist_perm"].shape[0] if params.has_sparse
+         else bins_t.shape[0])
     # rows come from grad, not bins_t: packed bins hold two rows a byte
     n_pad = grad.shape[0]
     block = min(params.block_rows, n_pad)
@@ -429,6 +561,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             hist = hist.to(f32) * qscale
         if params.has_bundles:
             hist = expand_bundles(hist, sg, sh, cnt, meta)
+        if params.has_sparse:
+            hist = expand_sparse(hist, meta)
         if not params.has_cat:
             pf = per_feature_best_split(
                 hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
@@ -513,12 +647,30 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         sum_h = h.sum(dtype=sum_t).to(f32)
         cnt = row_mask.sum(dtype=sum_t).to(f32)
         stats = pack_stats(g, h, row_mask, params.precision).contiguous()
+    if params.has_sparse:
+        # each entry's row stats, gathered once a tree (grower.py:1038-
+        # 1056 gathers them every round)
+        sp_stats = stats[:, meta["sp_rows"].long()].to(
+            torch.float64 if params.precision == "f64" else f32).T \
+            .contiguous()                                       # [E, S]
+
+    def histograms(leaf_vec, slot_ids):
+        """[K, G, B, 3]: the dense columns' histograms of the slots (B1
+        on the card) and, with sparse storage, the sparse features',
+        merged into feature order (grower.py:1038-1056); the sparse
+        features' zero bins are rebuilt at the search."""
+        h = build_histogram_batched_t(
+            bins_t, stats, leaf_vec, slot_ids, B, params.precision,
+            params.hist_impl, pblock)
+        if not params.has_sparse:
+            return h
+        return merged_histograms(h, meta, sp_stats, leaf_vec, slot_ids, B,
+                                 L, params.precision)
+
     leaf_ids = torch.zeros(n_pad, dtype=i32, device=dev)
     root_slots = torch.full((K,), -1, dtype=i32, device=dev)
     root_slots[0] = 0
-    root_hist = build_histogram_batched_t(
-        bins_t, stats, leaf_ids, root_slots, B, params.precision,
-        params.hist_impl, pblock)[0]
+    root_hist = histograms(leaf_ids, root_slots)[0]
     big = torch.tensor(1e30, dtype=f32, device=dev)
     root_fmask = feature_mask
     node_key = key
@@ -615,6 +767,32 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         return torch.where(st["leaf_depth"][:L] < params.max_depth, gains,
                            K_MIN_SCORE)
 
+    if params.has_sparse:
+        win = torch.arange(max(params.sparse_window, 1), device=dev)
+        n_entries = meta["sp_rows"].shape[0]
+
+    def feature_columns(sel_feat):
+        """[Kr, n_pad] int32 bins of the features sel_feat [Kr]: each
+        dense one's column, each sparse one's default bin with its stored
+        entries written over it.  A feature's entries are read through a
+        window of the longest feature's length from its start; the
+        window's entries past its end write to a trash column."""
+        f = sel_feat.long()
+        sp = (meta["is_sparse"][f] > 0)[:, None]
+        cols = torch.zeros((f.shape[0], n_pad + 1), dtype=i32, device=dev)
+        cols[:, :n_pad] = torch.where(
+            sp, meta["default_bin"][f].to(i32)[:, None],
+            bins_t[meta["dense_col"][f].long()].to(i32))          # [Kr, n]
+        slot = meta["sparse_slot"][f].long()
+        pos = meta["sp_off"][slot][:, None] + win                 # [Kr, M]
+        e = pos.clamp(max=n_entries - 1)
+        # a dense feature's window writes to the trash column only
+        rows = torch.where(sp & (pos < meta["sp_off"][slot + 1][:, None]),
+                           meta["sp_rows"][e].long(), n_pad)
+        cols.scatter_(1, rows, (meta["sp_key"][e] - slot[:, None] * B)
+                      .to(i32))
+        return cols[:, :n_pad]
+
     def partition(sel, new_ids, do_k, sel_feat, sel_thr, sel_dleft,
                   sel_iscat, cmask_sel):
         mt = meta["missing_type"][sel_feat]
@@ -623,6 +801,15 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         if params.partition_impl == "kernel":
             return partition_rows(bins_t, sel_feat, leaf_ids, sel, new_ids,
                                   sel_thr, sel_dleft, mt, nbf, db, do_k)
+        if params.has_sparse:
+            # the split features' columns, the sparse ones rebuilt from
+            # their entries (grower.py:1254-1273,1306-1321)
+            cols = feature_columns(sel_feat)
+            if params.partition_impl == "vselect":
+                return partition_rows_plain(
+                    cols, torch.arange(cols.shape[0], device=dev), leaf_ids,
+                    sel, new_ids, sel_thr, sel_dleft, mt, nbf, db, do_k, 0,
+                    sel_iscat, cmask_sel)
         # EFB: each split feature's bundle column, mapped back to its bins
         bundle = None
         if params.has_bundles:
@@ -637,8 +824,11 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         # "select": one scalar-broadcast pass per slot
         new_leaf = leaf_ids
         for k in range(sel.shape[0]):
-            col = bins_t[(sel_feat if bundle is None
-                          else bundle[0])[k].long()]
+            if params.has_sparse:
+                col = cols[k]
+            else:
+                col = bins_t[(sel_feat if bundle is None
+                              else bundle[0])[k].long()]
             if pblock:
                 col = unpack2d(col, pblock)
             col = col.to(i32)
@@ -766,9 +956,7 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
                 bins_t, stats, leaf_ids, smaller_ids, parent_hist, ctx,
                 fmeta_i, fmeta_f, B, params.precision, split_kw=split_kw)
         else:
-            hist_small = build_histogram_batched_t(
-                bins_t, stats, leaf_ids, smaller_ids, B, params.precision,
-                params.hist_impl, pblock)
+            hist_small = histograms(leaf_ids, smaller_ids)
         hist_large = parent_hist - hist_small
         sil = smaller_is_left[:, None, None, None]
         hist_left = torch.where(sil, hist_small, hist_large)

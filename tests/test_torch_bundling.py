@@ -29,7 +29,7 @@ before the port trains beside it on the CPU.
 - lgb.cv trains and predicts on CSR as the JAX package does, and
   LGBMClassifier on CSR as the JAX wrapper on the densified rows;
 - tpu_partition_impl=kernel with bundles raises the JAX package's
-  ValueError, and tpu_sparse_threshold>0 stays refused by name.
+  ValueError, and so does tpu_sparse_threshold>0 with enable_bundle=true.
 """
 
 import json
@@ -464,10 +464,15 @@ def test_kernel_partition_with_bundles_raises_the_jax_error():
 
 
 def test_sparse_threshold_stays_refused_by_name():
+    # sparse storage is ported; with EFB on (the default) both packages
+    # refuse it by the name of enable_bundle (learner.py:313-318)
     X, y, _ = _data()
-    with pytest.raises(NotImplementedError, match="tpu_sparse_threshold"):
-        tlgb.train(dict(REG, **CPU, tpu_sparse_threshold=0.5,
-                        enable_bundle=False), tlgb.Dataset(X, label=y), 1)
+    params = dict(REG, tpu_hist_precision="hilo", tpu_sparse_threshold=0.5)
+    with pytest.raises(ValueError, match="enable_bundle=false") as want:
+        jlgb.train(params, jlgb.Dataset(X, label=y), 1)
+    with pytest.raises(ValueError) as got:
+        tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+    assert str(got.value) == str(want.value)
 
 
 def test_grower_refuses_packed_bundle_columns():

@@ -571,12 +571,22 @@ def test_grower_refuses_forced_splits_with_bundles_or_f64():
 
 def test_unported_features_stay_refused_by_name(tmp_path):
     X, y, _ = _data()
-    for extra in ({"tpu_sparse_threshold": 0.5, "enable_bundle": False},
-                  {"tpu_stream_mode": "streamed"}):
-        with pytest.raises(NotImplementedError, match=next(iter(extra))):
-            tlgb.train(dict(REG, **CPU, **extra), tlgb.Dataset(X, label=y),
-                       1)
+    # streaming stays refused by name
+    with pytest.raises(NotImplementedError, match="tpu_stream_mode"):
+        tlgb.train(dict(REG, **CPU, tpu_stream_mode="streamed"),
+                   tlgb.Dataset(X, label=y), 1)
+    # sparse storage is ported, and refuses the int8 precision of REG as
+    # the JAX package does
+    extra = {"tpu_sparse_threshold": 0.5, "enable_bundle": False}
+    with pytest.raises(ValueError, match="quantized") as want:
+        jlgb.train(dict(REG, **extra), jlgb.Dataset(X, label=y), 1)
+    with pytest.raises(ValueError) as got:
+        tlgb.train(dict(REG, **CPU, **extra), tlgb.Dataset(X, label=y), 1)
+    assert str(got.value) == str(want.value)
+    # file input is ported: the file's bins are the JAX package's
     path = tmp_path / "train.csv"
     np.savetxt(path, np.column_stack([y, X]), delimiter=",")
-    with pytest.raises(NotImplementedError, match="file Dataset input"):
-        tlgb.Dataset(str(path), params=CPU).construct()
+    got = tlgb.Dataset(str(path), params=dict(REG, **CPU)).construct()
+    want = jlgb.Dataset(str(path), params=REG).construct()
+    np.testing.assert_array_equal(got._inner.bins, want._inner.bins)
+    np.testing.assert_array_equal(got.get_label(), want.get_label())

@@ -80,6 +80,14 @@ OUT_OF_SLICE = [
 ]
 
 
+# cases that the port now takes, and that raise where the JAX package
+# raises: the parameters the case adds, and the JAX exception's class
+JAX_REFUSALS = {
+    # sparse storage is float only (learner.py:304-311)
+    "tpu_sparse_threshold": ({"tpu_hist_precision": "int8"}, ValueError),
+}
+
+
 @pytest.mark.parametrize("extra", OUT_OF_SLICE, ids=lambda d: ",".join(d))
 def test_out_of_slice_parameters_raise(extra):
     # 512 rows where the case packs: the JAX learner packs only row blocks
@@ -88,6 +96,16 @@ def test_out_of_slice_parameters_raise(extra):
     X, y = binary_data(n=n, f=3, seed=1)
     params = dict(SMALL, **CPU, **extra)
     name = next(iter(extra))
+    if name in JAX_REFUSALS:
+        more, exc = JAX_REFUSALS[name]
+        params.update(more)
+        with pytest.raises(exc) as want:
+            jlgb.train(dict(params, device_type="tpu"),
+                       jlgb.Dataset(X, label=y), num_boost_round=1)
+        with pytest.raises(exc) as got:
+            tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError, match=name.split("_")[0]):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
 

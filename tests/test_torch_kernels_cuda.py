@@ -1259,3 +1259,111 @@ def test_deterministic_training_on_card_is_byte_identical():
         ref = np.asarray(tp.leaf_value[:nl])
         assert np.abs(np.asarray(tc.leaf_value[:nl]) - ref).max() \
             <= 1e-12 * np.abs(ref).max()
+
+
+def _sparse_card_data(n=20000, seed=9):
+    """Four dense normal columns and twelve with about 2% nonzero rows."""
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, 16))
+    X[:, :4] = rng.normal(size=(n, 4))
+    for f in range(4, 16):
+        nz = rng.choice(n, size=n // 50, replace=False)
+        X[nz, f] = rng.normal(size=len(nz)) + f * 0.1
+    y = X[:, 0] + 2.0 * X[:, 5] - X[:, 9] + 0.3 * rng.normal(size=n)
+    return X, y
+
+
+def test_sparse_storage_on_card_matches_cpu():
+    """tpu_sparse_threshold: the dense columns through B1 on the card,
+    the sparse entries through torch ops; f64 trees (deterministic=true)
+    within 1e-12 of the CPU's and of the card's dense storage; hilo
+    launches B1 and not B3."""
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _sparse_card_data()
+    p = dict(CONSTRAINT_CARD, tpu_hist_precision="hilo", deterministic=True,
+             tpu_hist_impl="xla", enable_bundle=False,
+             tpu_partition_impl="select")
+    models = {}
+    for tag, dev, sth in (("cuda", "cuda", 0.05), ("cpu", "cpu", 0.05),
+                          ("dense", "cuda", 0.0)):
+        q = dict(p, device_type=dev, tpu_sparse_threshold=sth)
+        b = lgb.train(q, lgb.Dataset(X, label=y, params=q), 3,
+                      keep_training_booster=True)
+        assert b._driver.learner.params.has_sparse == (sth > 0)
+        assert b.num_trees() == 3        # the lazy trees materialized
+        models[tag] = b._driver.models
+    for other in ("cpu", "dense"):
+        for tc, tp in zip(models["cuda"], models[other]):
+            nl = tc.num_leaves
+            assert tp.num_leaves == nl
+            np.testing.assert_array_equal(tc.split_feature[:nl - 1],
+                                          tp.split_feature[:nl - 1])
+            np.testing.assert_array_equal(tc.threshold_in_bin[:nl - 1],
+                                          tp.threshold_in_bin[:nl - 1])
+            ref = np.asarray(tp.leaf_value[:nl])
+            assert np.abs(np.asarray(tc.leaf_value[:nl]) - ref).max() \
+                <= 1e-12 * np.abs(ref).max()
+    q = dict(p, deterministic=False, device_type="cuda",
+             tpu_sparse_threshold=0.05, tpu_hist_impl="pallas2")
+    before = dict(kernels.launches)
+    lgb.train(q, lgb.Dataset(X, label=y, params=q), 2)
+    assert kernels.launches["hist_batched"] > before["hist_batched"]
+    assert kernels.launches["partition_rows"] == before["partition_rows"]
+
+
+def test_sparse_f64_on_card_is_deterministic():
+    """deterministic=true with sparse storage on the card: two runs
+    write the same model text, which is also the card's dense storage
+    text (the sparse histograms add in a fixed order, as the dense f64
+    histograms do)."""
+    import re
+
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _sparse_card_data()
+    p = dict(CONSTRAINT_CARD, tpu_hist_precision="hilo", deterministic=True,
+             tpu_hist_impl="xla", enable_bundle=False, device_type="cuda",
+             tpu_partition_impl="select")
+    texts = []
+    for sth in (0.05, 0.05, 0.0):
+        q = dict(p, tpu_sparse_threshold=sth)
+        text = lgb.train(q, lgb.Dataset(X, label=y, params=q),
+                         3).model_to_string()
+        texts.append(re.sub(r"^\[tpu_sparse_threshold: [^\]]*\]$", "",
+                            text, flags=re.M))
+    assert texts[0] == texts[1]
+    assert texts[0] == texts[2]
+
+
+def test_predict_binned_on_card_equals_array_predict():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _constraint_data()
+    p = dict(CONSTRAINT_CARD, device_type="cuda")
+    train = lgb.Dataset(X[:20000], label=y[:20000], params=p)
+    b = lgb.train(p, train, 3)
+    valid = lgb.Dataset(X[20000:], label=y[20000:], reference=train)
+    got = b.predict(valid, raw_score=True)
+    np.testing.assert_array_equal(got, b.predict(X[20000:], raw_score=True))
+
+
+def test_file_ingest_on_card_matches_cpu_bins(tmp_path):
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    X, y = _constraint_data(n=5000)
+    X[::7, 2] = np.nan
+    path = tmp_path / "train.csv"
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.9g")
+    for extra in ({}, {"two_round": True, "bin_construct_sample_cnt": 1000}):
+        bins = {}
+        for dev in ("cuda", "cpu"):
+            q = dict(CONSTRAINT_CARD, device_type=dev, **extra)
+            ds = lgb.Dataset(str(path), params=q).construct()
+            assert ds._inner.bins_t.device.type == dev
+            bins[dev] = ds._inner.bins
+        np.testing.assert_array_equal(bins["cuda"], bins["cpu"])

@@ -876,6 +876,195 @@ def _job_constraints(inp, spec):
     return out
 
 
+# ---- file ingest, the binary cache, the Dataset surface ----------------------
+
+
+def _mapper_json(mappers):
+    import json
+
+    return json.dumps([m.to_dict() for m in mappers])
+
+
+def fileio_run(lgb, run, inp):
+    """One run of tests/test_torch_fileio.py with the package `lgb` (the
+    port on the CPU, or the JAX package, whose raw scores come from its
+    device path).  Kinds: "parse" (load_text_file's arrays and names),
+    "chunks" (TrainingData._from_file_two_round at run["chunk_rows"]:
+    bins and mappers), "train" (lgb.Dataset(run["path"]) trained: model
+    text, bins, mappers, metadata and raw scores of run["predict"]'s
+    files, each with its predict keywords, or the error it raises),
+    "surface" (the Dataset setters and getters on the arrays of
+    `inp`), "merge" (add_features_from), "predict" (predict of a Dataset
+    built with reference=, and the errors of one built without it and
+    of pred_leaf).  A run that raises returns the exception's class name
+    and message."""
+    import importlib
+    import json
+
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    kw = {"tpu_predict_device": "true"} if jax_side else {}
+    p = dict(run.get("params", {}))
+    if not jax_side:
+        p["device_type"] = "cpu"
+    kind = run["kind"]
+    if kind == "parse":
+        parser = importlib.import_module(lgb.__name__ + ".io.parser")
+        X, y, w, g, init, names = parser.load_text_file(
+            run["path"], label_column=run.get("label_column", ""),
+            header=run.get("header"))
+        out = {"X": X, "y": y, "names": json.dumps(names)}
+        for k, v in (("weight", w), ("group", g), ("init", init)):
+            if v is not None:
+                out[k] = v
+        return out
+    if kind == "chunks":
+        TD = importlib.import_module(lgb.__name__ + ".io.dataset") \
+            .TrainingData
+        td = TD._from_file_two_round(run["path"], lgb.Config(p), None,
+                                     chunk_rows=run["chunk_rows"])
+        return {"bins": np.asarray(td.bins), "mappers":
+                _mapper_json(td.mappers)}
+
+    def model(ds, valid=()):
+        return lgb.train(p, ds, num_boost_round=run["rounds"],
+                         keep_training_booster=True)
+
+    def text_of(b):
+        return np.array(b.model_to_string())
+
+    if kind == "train":
+        ds = lgb.Dataset(run["path"], params=p).construct()
+        inner = ds._inner
+        md = inner.metadata
+        out = {"bins": np.asarray(inner.bins),
+               "mappers": _mapper_json(inner.mappers),
+               "names": json.dumps(inner.feature_names),
+               "used": np.asarray(inner.used_feature_idx),
+               "label": md.label}
+        for k in ("weight", "init_score", "query_boundaries"):
+            if getattr(md, k) is not None:
+                out[k] = getattr(md, k)
+        b = model(ds)
+        out["text"] = text_of(b)
+        for i, (path, pkw) in enumerate(run.get("predict", [])):
+            try:
+                out[f"raw_{i}"] = np.asarray(b.predict(
+                    path, raw_score=True, **kw, **pkw))
+            except Exception as exc:  # noqa: BLE001 - the type is the result
+                out[f"error_{i}"] = f"{type(exc).__name__}: {exc}"
+        return out
+    X, y, w = inp["X"], inp["y"], inp["w"]
+    if kind == "surface":
+        ds = lgb.Dataset(X, label=np.zeros_like(y), params=p).construct()
+        ds.set_label(y).set_weight(w).set_init_score(w * 0.1)
+        ds.set_feature_name([f"c{i}" for i in range(X.shape[1])])
+        valid = lgb.Dataset(X[:50], label=y[:50], reference=ds)
+        sub = ds.subset(np.arange(0, len(y), 3))
+        subsub = sub.subset(np.arange(0, 40, 2))
+        out = {"weight": ds.get_weight(), "init": ds.get_init_score(),
+               "num_feature": ds.num_feature(),
+               "penalty": ds.get_feature_penalty(),
+               "mono": ds.get_monotone_constraints(),
+               "chain": len(valid.get_ref_chain()),
+               "subsub_data": subsub.get_data()}
+        try:
+            unset = lgb.Dataset(X, label=y, params=p)
+            unset.set_reference(ds)
+            unset.construct()
+            unset.set_reference(valid)
+        except RuntimeError as exc:
+            out["reference_error"] = str(exc)
+        out["same_mappers"] = unset._inner.mappers is ds._inner.mappers
+        out["text"] = text_of(model(ds))
+        return out
+    if kind == "merge":
+        a = lgb.Dataset(X[:, :3], label=y, params=p).construct()
+        b = lgb.Dataset(X[:, 3:], label=y, params=p).construct()
+        a.add_features_from(b)
+        return {"bins": np.asarray(a._inner.bins),
+                "used": np.asarray(a._inner.used_feature_idx),
+                "num_feature": a.num_feature(),
+                "names": json.dumps(a._inner.feature_names),
+                "text": text_of(model(a))}
+    if kind == "predict":
+        ds = lgb.Dataset(X, label=y, params=p)
+        b = model(ds)
+        valid = lgb.Dataset(X[::2], label=y[::2], reference=ds)
+        out = {"raw": np.asarray(b.predict(valid, raw_score=True)),
+               "raw_rows": np.asarray(b.predict(X[::2], raw_score=True,
+                                                **kw))}
+        for name, call in (
+                ("foreign", lambda: b.predict(
+                    lgb.Dataset(X[::2], label=y[::2], params=p))),
+                ("pred_leaf", lambda: b.predict(valid, pred_leaf=True))):
+            try:
+                call()
+            except ValueError as exc:
+                out[f"{name}_error"] = str(exc)
+        return out
+    raise ValueError(f"unknown run kind {kind!r}")
+
+
+def _job_fileio(inp, spec):
+    """fileio_run of the JAX package for every run of the spec."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        for k, v in fileio_run(lgb, run, inp).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
+# ---- sparse train-time storage (tpu_sparse_threshold) ----------------------
+
+
+def sparse_storage_run(lgb, inp, run):
+    """lgb.train of `lgb` on the arrays X_<data>, y_<data> (and w_<data>
+    where run["weight"]) of `inp`; run: params, rounds, and optionally
+    cat (the Dataset's categorical columns).  Returns the model text,
+    the training predictions' raw scores (the JAX package's on its
+    device path), whether the learner stored sparse features and how
+    many; or, where training raises, the exception's class name and
+    message."""
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    kw = {"tpu_predict_device": "true"} if jax_side else {}
+    p = dict(run["params"])
+    if not jax_side:
+        p["device_type"] = "cpu"
+    data = run.get("data", "base")
+    X, y = inp[f"X_{data}"], inp[f"y_{data}"]
+    w = inp[f"w_{data}"] if run.get("weight") else None
+    try:
+        ds = lgb.Dataset(X, label=y, weight=w,
+                         categorical_feature=run.get("cat", "auto"),
+                         params={"max_bin": p["max_bin"]})
+        b = lgb.train(p, ds, num_boost_round=run["rounds"],
+                      keep_training_booster=True)
+    except Exception as exc:  # noqa: BLE001 - the type is the result
+        return {"error": type(exc).__name__, "message": str(exc)}
+    learner = b._driver.learner
+    if jax_side:
+        sparse = getattr(learner, "_sparse_mask", None)
+        count = 0 if sparse is None else int(np.sum(sparse))
+    else:
+        count = (0 if learner.sparse is None
+                 else len(learner.sparse["sparse_idx"]))
+    return {"text": b.model_to_string(), "sparse_features": count,
+            "raw": np.asarray(b.predict(X, raw_score=True, **kw))}
+
+
+def _job_sparse_storage(inp, spec):
+    """sparse_storage_run of the JAX package for every run of the spec."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        for k, v in sparse_storage_run(lgb, inp, run).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -888,6 +1077,8 @@ if __name__ == "__main__":
               "train": _job_train, "train_valid": _job_train_valid,
               "boosting": _job_boosting, "cat_split": _job_cat_split,
               "sklearn": _job_sklearn, "sparse": _job_sparse,
-              "constraints": _job_constraints}[job](
+              "constraints": _job_constraints,
+              "fileio": _job_fileio,
+              "sparse_storage": _job_sparse_storage}[job](
                   inp, spec)
     np.savez(dst, **result)
