@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. thirty-three paths at full width, each lgb.train (cv_int8:
+  3. thirty-eight paths at full width, each lgb.train (cv_int8:
      lgb.cv) on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
      and sparse paths: a sparse table of 697 features), then
@@ -179,6 +179,36 @@ Phases, each fatal on failure (exit code 1, no result line):
                the all-dense matrix's, the sparse histograms' ms a round
                (random operands, K slots), host ops and device busy ms
                of one profiled iteration and iters/s of both;
+       continue_int8  int8 for 5 iterations with the held-out rows as a
+               validation set, saved; then lgb.train(init_model=<that
+               file>) for 5 more with snapshot_freq=5 into a temp
+               output_model, kept for training, then rollback_one_iter:
+               B1-int, B2, B3, the leaf sums; the first 5 trees must be
+               the init model's, the snapshot the model text it was
+               written from, and after the rollback the train scores
+               within 1e-6 of the 9-iteration model's predict; it prints
+               the replay's seconds (5 trees onto 1,100,000 rows),
+               iters/s of the continued rounds and the valid AUC;
+       refit_int8  the int8 booster refit on a fresh 1,000,000-row draw
+               of the generator (seed 43): leaf_group and the f64 leaf
+               sums; each tree's leaf values bit for bit those of a refit
+               whose sums are the CPU twin's on the card's leaf ids and
+               gradients; refit seconds, the f64 sums' ms a tree beside
+               the f32 instance's on the same operands, held-out AUC
+               before and after;
+       raw_walk  the hilo booster's text without its mapper trailer,
+               loaded on the card: raw scores, pred_leaf, the trained
+               booster with tpu_predict_device=false and pred_early_stop
+               (freq 2, margin 1.5) of the held-out rows through the
+               raw-value walker (torch ops): the f64 scores bit for bit
+               the numpy Tree.predict walk's and within 1e-6 of the
+               bin-space predict, the leaves the bin-space leaf index,
+               the early stop the numpy loop's; rows/s of each and the
+               stopped share;
+       contrib_hilo  pred_contrib of the hilo booster on the held-out
+               rows, TreeSHAP batched over rows as f64 torch ops: the
+               first 64 rows bit for bit the numpy twin's, each row
+               summing to its raw f64 score within 1e-9; rows/s;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -212,7 +242,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      on the efb learners' bundle columns, random and root operands; B2
      and B2-wide at monotone operands (constraints on half of the
      features, finite bounds binding on two thirds of the children),
-     bitwise, and the constraints must change some record;
+     bitwise, and the constraints must change some record; the leaf
+     sums' f64 instance (Booster.refit's) at the uniform and skewed
+     operands, bitwise against index_add_ in f64 on the CPU, beside its
+     floor at DADD_CYCLES an add;
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
@@ -258,7 +291,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      text; and the first 20,000 rows of the sparse table with sparse
      storage, max_bin=63 and deterministic=true, 3 iterations, by their
      f64 trees (within 1e-12), and on the card by its whole model text
-     against a second card run and the card's all-dense run.
+     against a second card run and the card's all-dense run; and an int8
+     regression continuation with a validation set by its whole model
+     text, its refit by the refit's text (leaf values bit for bit) and its
+     contributions of 500 rows bit for bit.
 With --profile, after phase 4, two more iterations of every path run
 under torch.profiler and the device time by op, each port kernel's
 device time per call on the path and the device's idle share are
@@ -307,6 +343,13 @@ PEAK_ALU_S = 67e12         # H100 SXM scalar rate (the f32 row of the table)
 # cycles from one f32 add to the next that depends on it (the issue
 # latency of FADD on sm_70 and later): the leaf sums' serial chain
 FADD_CYCLES = 4
+# H100 SXM f64 outside the tensor cores (NVIDIA's data sheet); the
+# dependent-issue latency of DADD assumed for the refit's f64 chain (8
+# cycles, as measured for sm_70 by Jia et al., "Dissecting the NVIDIA
+# Volta GPU Architecture via Microbenchmarking", 2018); phase 4 prints
+# the cycles an add the f64 sums take beside it
+PEAK_F64_S = 34e12
+DADD_CYCLES = 8
 # phase 4's skewed leaf-sum operands: one leaf holds this many of the
 # n_pad rows (multiclass_int8's largest leaf on an H100)
 SKEW_LEAF_ROWS = 570_000
@@ -962,6 +1005,305 @@ def predict_dataset_path(lgb, ds, booster, X, y):
             "array_rows_per_s": len(Xho) / rows_s, "bit_equal": True}
 
 
+# ---- the model utilities ---------------------------------------------------
+# continue_int8: 5 iterations, then 5 more from the saved model
+ITERS_CONTINUE = 5
+# refit_int8: a fresh draw of the generator
+REFIT_SEED = 43
+# raw_walk: the prediction early stop's frequency and margin
+EARLY_STOP_FREQ = 2
+EARLY_STOP_MARGIN = 1.5
+# contrib_hilo: rows of the numpy twin's check (one row at a time)
+CONTRIB_TWIN_ROWS = 64
+
+
+def strip_mapper_trailer(text):
+    """A model text without its `tpu_bin_mappers:` line, as upstream
+    LightGBM writes it: loaded, it predicts through the raw-value
+    walker."""
+    return "".join(line for line in text.splitlines(True)
+                   if not line.startswith("tpu_bin_mappers:"))
+
+
+def _tree_blocks(text):
+    return text.split("\ntree_sizes=")[1].split("\nend of trees")[0]
+
+
+def continue_path(lgb, kernels, ds, X, y, tmp):
+    """continue_int8: int8 for ITERS_CONTINUE iterations with the
+    held-out rows as a validation set, its model saved; then
+    lgb.train(init_model=<that file>) for ITERS_CONTINUE more with
+    snapshot_freq=ITERS_CONTINUE into a temp output_model, on a
+    keep_training_booster; then one rollback.  The replay's seconds (the
+    init trees onto the 1,000,000 training and 100,000 validation rows),
+    iters/s of the continued rounds, the valid AUC."""
+    import torch
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+
+    params = dict(PARAMS, tpu_hist_precision="int8")
+    Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
+    valid = ds.create_valid(Xho, label=yho)
+    init_file = os.path.join(tmp, "continue_init.txt")
+    out_model = os.path.join(tmp, "continue.txt")
+    replay = []
+    merge = GBDT.merge_from_model_string
+
+    def timed_merge(self, text):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merge(self, text)
+        torch.cuda.synchronize()
+        replay.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    init = lgb.train(params, ds, ITERS_CONTINUE, valid_sets=[valid],
+                     valid_names=["v"], verbose_eval=False)
+    init.save_model(init_file)
+    init_s = time.perf_counter() - t0
+    evals = {}
+    rounds_from = []
+
+    def first_round(env):
+        # the continued rounds start: the booster built, the init model
+        # replayed
+        if env.iteration == 0:
+            torch.cuda.synchronize()
+            rounds_from.append(time.perf_counter())
+    first_round.before_iteration = True
+
+    GBDT.merge_from_model_string = timed_merge
+    try:
+        t0 = time.perf_counter()
+        booster = lgb.train(dict(params, snapshot_freq=ITERS_CONTINUE,
+                                 output_model=out_model), ds,
+                            ITERS_CONTINUE, valid_sets=[valid],
+                            valid_names=["v"], init_model=init_file,
+                            evals_result=evals, verbose_eval=False,
+                            callbacks=[first_round],
+                            keep_training_booster=True)
+        trees = booster.num_trees()
+        torch.cuda.synchronize()
+        done = time.perf_counter()
+        train_s = done - t0
+    finally:
+        GBDT.merge_from_model_string = merge
+    text = booster.model_to_string()
+    booster.rollback_one_iter()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in INT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"continue_int8: kernel {name} was not launched")
+    if trees != 2 * ITERS_CONTINUE or booster.num_trees() != trees - 1:
+        fail(f"continue_int8: {trees} trees, then {booster.num_trees()} "
+             "after the rollback")
+    with open(init_file) as f:
+        init_text = f.read()
+    if _tree_blocks(booster.model_to_string(num_iteration=ITERS_CONTINUE)) \
+            != _tree_blocks(init_text):
+        fail("continue_int8: the first trees are not the init model's")
+    snap = f"{out_model}.snapshot_iter_{ITERS_CONTINUE}"
+    with open(snap) as f:
+        if f.read() != text:
+            fail("continue_int8: the snapshot differs from the model text "
+                 "it was written from")
+    scores = booster._driver.train_scores.numpy()[0]
+    pred = booster.predict(X[:N_TRAIN], raw_score=True)
+    err = float(np.abs(scores - pred).max())
+    if not err <= 1e-6:
+        fail(f"continue_int8: after the rollback the train scores are "
+             f"{err} from the {trees - 1}-iteration model's predict")
+    valid_auc = evals["v"]["auc"][-1]
+    if not 0.6 < valid_auc <= 1.0:
+        fail(f"continue_int8: valid AUC {valid_auc}")
+    return {"init_train_s": init_s, "replay_s": replay[0],
+            "replay_rows": N_TRAIN + N_HOLD, "replay_trees": ITERS_CONTINUE,
+            "continued_train_s": train_s,
+            "set_up_s": rounds_from[0] - t0,
+            "iters_per_s": ITERS_CONTINUE / (done - rounds_from[0]),
+            "valid_auc": valid_auc,
+            "rollback_max_abs_err": err, "snapshot_equal": True,
+            "init_trees_equal": True, "launches": launches,
+            "launches_per_tree": {k: v / (2 * ITERS_CONTINUE)
+                                  for k, v in launches.items()}}, booster
+
+
+def refit_path(lgb, kernels, booster, X, y):
+    """refit_int8: the int8 path's 10-iteration booster refit on a fresh
+    N_TRAIN-row draw of the generator (seed REFIT_SEED): leaf_group and
+    the f64 leaf sums must launch; each tree's leaf values must equal, bit
+    for bit, a second refit whose sums are the CPU twin's (index_add_ in
+    f64) on the card's leaf ids and gradients.  Refit seconds, the f64
+    sums' device ms a tree (one call at each tree's operands, beside the
+    f32 instance on the same operands), held-out AUC before and after."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import leafsum
+
+    Xr, yr = make_data(N_TRAIN, N_FEAT, seed=REFIT_SEED)
+    Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
+    before_auc = auc(booster.predict(Xho), yho)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    refit = booster.refit(Xr, yr, decay_rate=0.9)
+    trees = refit.num_trees()
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in ("leaf_group", "leaf_sums_f64"):
+        if launches[name] <= 0:
+            fail(f"refit_int8: kernel {name} was not launched")
+    operands = []
+
+    def cpu_sums(ids, vals, L, out_dtype):
+        operands.append((ids.clone(), vals.clone(), L))
+        return leafsum.leaf_sums_plain(ids.cpu(), vals.cpu(), L,
+                                       out_dtype).to(ids.device)
+
+    twin = lgb.Booster(model_str=booster._driver.save_model_to_string(),
+                       params=booster.params)
+    twin._driver.refit(Xr, yr, 0.9, config=Config(booster.params),
+                       sums=cpu_sums)
+    for a, b in zip(refit._driver.models, twin._driver.models):
+        nl = a.num_leaves
+        if not np.array_equal(a.leaf_value[:nl], b.leaf_value[:nl]):
+            fail("refit_int8: a tree's leaf values differ from the CPU "
+                 "twin's sums on the same leaf ids and gradients")
+    after_auc = auc(refit.predict(Xho), yho)
+    # the sums alone at each tree's operands (the twin's, taken on the
+    # card): the grouping and the sums of each instance, by CUDA events
+    # (a profile here would leave phase 4's profiles short of events)
+    ms = {torch.float64: [], torch.float32: []}
+    for ids, vals, L in operands:
+        for dt in ms:
+            ms[dt].append(cuda_ms(
+                lambda: leafsum.leaf_sums_kernel(ids, vals, L, dt), 10))
+    largest = max(int(torch.bincount(ids.long()).max())
+                  for ids, _, _ in operands)
+    return {"refit_s": refit_s, "rows": N_TRAIN, "trees": trees,
+            "f64_sums_event_ms_per_tree": float(np.mean(ms[torch.float64])),
+            "f32_sums_event_ms_per_tree_same_operands":
+                float(np.mean(ms[torch.float32])),
+            "largest_leaf_rows": largest,
+            "holdout_auc_before": before_auc,
+            "holdout_auc_after": after_auc, "twin_bit_equal": True,
+            "launches": launches,
+            "launches_per_tree": {k: v / trees for k, v in launches.items()}}
+
+
+def raw_walk_path(lgb, kernels, booster, X):
+    """raw_walk: the hilo booster's text without its mapper trailer,
+    loaded on the card, predicts the held-out rows through the raw-value
+    walker: raw scores, pred_leaf, the trained booster with
+    tpu_predict_device=false, and pred_early_stop (EARLY_STOP_FREQ,
+    EARLY_STOP_MARGIN).  The f64 scores must equal the numpy Tree.predict
+    walk bit for bit and lie within 1e-6 of the bin-space predict; the
+    leaves must be the bin-space leaf index; the early stop must equal the
+    numpy walk's loop.  Rows/s of each, the stopped share."""
+    import torch
+    from lightgbm_tpu_torch.ops.predict import leaf_index, raw_scores_plain
+
+    Xho = X[N_TRAIN:]
+    bare = lgb.Booster(model_str=strip_mapper_trailer(
+        booster.model_to_string()))
+    if bare._driver._pred_ctx is not None:
+        fail("raw_walk: the stripped text still carries its mappers")
+    trees = bare._driver.models
+    # a second margin: the median |raw score|, which stops rows early
+    median = float(np.median(np.abs(booster.predict(Xho, raw_score=True))))
+    kernels.reset_launches()
+    out, secs = {}, {}
+    for name, fn in (
+            ("raw", lambda: bare.predict(Xho, raw_score=True)),
+            ("leaf", lambda: bare.predict(Xho, pred_leaf=True)),
+            ("host", lambda: booster.predict(Xho, raw_score=True,
+                                             tpu_predict_device=False)),
+            ("early_stop", lambda: bare.predict(
+                Xho, raw_score=True, pred_early_stop=True,
+                pred_early_stop_freq=EARLY_STOP_FREQ,
+                pred_early_stop_margin=EARLY_STOP_MARGIN)),
+            ("early_stop_median", lambda: bare.predict(
+                Xho, raw_score=True, pred_early_stop=True,
+                pred_early_stop_freq=EARLY_STOP_FREQ,
+                pred_early_stop_margin=median))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = raw_scores_plain(trees, Xho, 1)[0]
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(out["raw"], plain):
+        fail("raw_walk: the f64 scores differ from the numpy walk's (max "
+             f"{float(np.abs(out['raw'] - plain).max())})")
+    if not np.array_equal(out["host"], plain):
+        fail("raw_walk: tpu_predict_device=false differs from the numpy "
+             "walk")
+    binned = booster.predict(Xho, raw_score=True)
+    err = float(np.abs(out["raw"] - binned).max())
+    if not err <= 1e-6:
+        fail(f"raw_walk: {err} from the bin-space predict")
+    drv = booster._driver
+    tables, depth = drv._forest(len(drv.models))
+    ctx = drv._pred_ctx
+    bins_leaf = leaf_index(tables, ctx.bin_rows_t(Xho, drv.device),
+                           *ctx.meta_dev(drv.device), depth)
+    if not np.array_equal(out["leaf"], bins_leaf.T.cpu().numpy()):
+        fail("raw_walk: pred_leaf differs from the bin-space leaf index")
+    for key, margin in (("early_stop", EARLY_STOP_MARGIN),
+                        ("early_stop_median", median)):
+        es_plain = raw_scores_plain(trees, Xho, 1, EARLY_STOP_FREQ,
+                                    margin)[0]
+        if not np.array_equal(out[key], es_plain):
+            fail(f"raw_walk: the early stop at margin {margin} differs from "
+                 "the numpy walk's")
+    return {"rows": len(Xho), "trees": len(trees),
+            **{f"{k}_rows_per_s": len(Xho) / v for k, v in secs.items()},
+            "numpy_walk_rows_per_s": len(Xho) / plain_s,
+            "stopped_share": float(np.mean(out["early_stop"] != out["raw"])),
+            "median_margin": median, "stopped_share_median": float(
+                np.mean(out["early_stop_median"] != out["raw"])),
+            "max_abs_err_to_bin_space": err, "launches": dict(
+                kernels.launches)}
+
+
+def contrib_path(lgb, booster, X):
+    """contrib_hilo: pred_contrib of the hilo booster (10 trees of 255
+    leaves) on the 100,000 held-out rows, batched on the card; the first
+    CONTRIB_TWIN_ROWS rows bit for bit the numpy twin's, and every row's
+    contributions summing to its raw f64 score within 1e-9.  Rows/s."""
+    import torch
+    from lightgbm_tpu_torch.models import shap
+
+    Xho = X[N_TRAIN:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = booster.predict(Xho, pred_contrib=True)
+    secs = time.perf_counter() - t0
+    trees = booster._driver.models
+    if got.shape != (len(Xho), N_FEAT + 1) or not np.isfinite(got).all():
+        fail(f"contrib_hilo: contributions of shape {got.shape}")
+    t0 = time.perf_counter()
+    twin = shap.forest_contribs(trees, Xho[:CONTRIB_TWIN_ROWS], len(trees),
+                                1)[:, 0, :]
+    twin_s = time.perf_counter() - t0
+    if not np.array_equal(got[:CONTRIB_TWIN_ROWS], twin):
+        fail("contrib_hilo: the batched contributions differ from the "
+             "numpy twin's")
+    raw = booster.predict(Xho, raw_score=True, tpu_predict_device=False)
+    err = float(np.abs(got.sum(axis=1) - raw).max())
+    if not err <= 1e-9:
+        fail(f"contrib_hilo: the contributions sum {err} from the raw score")
+    return {"rows": len(Xho), "trees": len(trees), "seconds": secs,
+            "rows_per_s": len(Xho) / secs,
+            "twin_rows_per_s": CONTRIB_TWIN_ROWS / twin_s,
+            "max_abs_sum_err": err, "twin_bit_equal": True}
+
+
 def sparse_hist_ms(learner):
     """Device ms of one round's sparse histograms and their merge with the
     dense columns' into feature order (the torch ops beside B1), at K
@@ -1151,14 +1493,15 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def leaf_sums_floor(n, L, longest, mhz):
+def leaf_sums_floor(n, L, longest, mhz, cycles=FADD_CYCLES, out_bytes=4):
     """The least time of the leaf sums (ms) on this card, from what the
     row-order contract imposes: the largest leaf's `longest` rows as one
-    chain of dependent f32 adds (FADD_CYCLES each at the highest SM
-    clock), after the function's own bytes moved once (n leaf ids and 2n
-    values read, 2L sums written).  Returns (floor, chain)."""
-    chain = longest * FADD_CYCLES / (mhz * 1e3)
-    nbytes = n * 4 + 2 * n * 4 + 2 * L * 4
+    chain of dependent adds (`cycles` each at the highest SM clock: f32
+    FADD_CYCLES; f64 DADD_CYCLES, out_bytes 8), after the function's own
+    bytes moved once (n leaf ids and 2n f32 values read, 2L sums
+    written).  Returns (floor, chain)."""
+    chain = longest * cycles / (mhz * 1e3)
+    nbytes = n * 4 + 2 * n * 4 + 2 * L * out_bytes
     return chain + nbytes / PEAK_BYTES_S * 1e3, chain
 
 
@@ -1720,6 +2063,7 @@ _LAYOUT_SUFFIX = {"U8": "", "Packed": "_packed", "Wide": "_wide",
 _OTHER_KERNELS = ((r"partition_rows_kernel<int>", "partition_rows_wide"),
                   (r"partition_rows_kernel", "partition_rows"),
                   (r"leaf_group_kernel", "leaf_group"),
+                  (r"leaf_sums_kernel<double>", "leaf_sums_f64"),
                   (r"leaf_sums_kernel", "leaf_sums"))
 
 
@@ -2326,6 +2670,69 @@ def check_leaf_sums(learner, gen, operands):
     return [group, sums]
 
 
+def check_leaf_sums_f64(learner, gen, operands):
+    """Phase 4, Booster.refit's sums at the int8 path's shapes
+    (_leaf_operands): leaf_group, then the sums kernel's f64 instance,
+    the whole call bitwise against index_add_ in f64 on the CPU (the
+    order of np.bincount).  ms: the whole call's device time (kernel_ms
+    the sums kernel's, group_ms the grouping's), beside the floor its
+    largest leaf sets at DADD_CYCLES an add, and the cycles an add the
+    sums kernel took on that leaf (kernel_ms over its rows)."""
+    import torch
+    from lightgbm_tpu_torch.ops import leafsum
+
+    f64 = torch.float64
+    leaf, vals, L = _leaf_operands(learner, gen, operands)
+    n = leaf.numel()
+    got = leafsum.leaf_sums_kernel(leaf, vals, L, f64).cpu()
+    ids_c, vals_c = leaf.cpu(), vals.cpu()
+    ref = leafsum.leaf_sums_plain(ids_c, vals_c, L, f64)
+    if not torch.equal(got, ref):
+        fail(f"leaf_sums_f64 differs from index_add_ in f64 on the CPU at "
+             f"{operands} operands: max err "
+             f"{(got - ref).abs().max().item()}")
+
+    def call():
+        return leafsum.leaf_sums_kernel(leaf, vals, L, f64)
+
+    def only(name):
+        return lambda names: [k if k == name else None
+                              for k in port_kernels(names)]
+
+    kernel_ms = device_ms(call, 20, kernels_of=only("leaf_sums_f64"))
+    group_ms = device_ms(call, 20, kernels_of=only("leaf_group"))
+    event_ms = cuda_ms(call, 20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        leafsum.leaf_sums_plain(ids_c, vals_c, L, f64)
+    plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    ids = leaf.long()
+    out = torch.zeros(L, dtype=f64, device=leaf.device)
+    vd = vals.to(f64)
+    lib_ms = cuda_ms(lambda: (out.index_add_(0, ids, vd[0]),
+                              out.index_add_(0, ids, vd[1])), 5)
+    longest = int(torch.bincount(ids, minlength=L).max().item())
+    mhz = sm_clock_mhz()
+    floor, chain = leaf_sums_floor(n, L, longest, mhz, DADD_CYCLES, 8)
+    return {"name": "leaf_sums_f64", "route": "cuda", "operands": operands,
+            "source": "lightgbm_tpu_torch/csrc/leafsum.cu",
+            "replaces": "lightgbm_tpu/models/gbdt.py:2039",
+            "max_abs_err": 0.0, "max_rel_err": 0.0,
+            "tolerance": "bitwise to index_add_ in f64 on the CPU",
+            "largest_leaf_rows": longest,
+            "shape": f"leaf ids [{n}] i32, values [2, {n}] f32, L={L}, "
+                     "sums f64",
+            "ms": group_ms + kernel_ms, "kernel_ms": kernel_ms,
+            "group_ms": group_ms, "event_ms": event_ms, "chain_ms": chain,
+            "floor_ms": floor,
+            "cycles_per_add": kernel_ms * mhz * 1e3 / max(longest, 1),
+            "plain_ms": plain_ms, "plain_on": "cpu",
+            **_bound(n * 4 + 2 * n * 4 + 2 * L * 8, 2 * n, PEAK_F64_S),
+            "library_ms": lib_ms,
+            "library": "2 x index_add_ in f64 on the card (atomics, not "
+                       "deterministic)"}
+
+
 def _fused_operands(learner, gen, bagged=False, goss=None, root=False,
                     mono=False):
     """Kernel B2's operands at the int8 path's shapes: K parent leaves
@@ -2671,6 +3078,47 @@ def cross_check(lgb, X, y, latent):
              "different model text")
     out.update(cross_check_zoo(lgb, Xs, y_reg, latent[:N_SMALL]))
     out.update(cross_check_cat(lgb, cat_data(Xs, n_fit=N_SMALL), ys, y_reg))
+    return out
+
+
+def cross_check_utilities(lgb, X):
+    """Phase 5 of the model utilities, card against CPU on the first
+    N_SMALL rows: an int8 regression continuation (3 iterations, saved,
+    then 2 more with a validation set) by its whole model text; its refit
+    on the validation rows by the refit text (leaf values bit for bit);
+    its contributions of 500 rows bit for bit."""
+    Xs = X[:N_SMALL]
+    rng = np.random.default_rng(43)
+    y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
+        size=N_SMALL)
+    n_tr = N_SMALL * 4 // 5
+    reg = dict(PARAMS, objective="regression", metric="l2",
+               tpu_hist_precision="int8", tpu_quant_refit_leaves=False)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = dict(reg, device_type=dev)
+        t0 = time.perf_counter()
+        init = lgb.train(p, lgb.Dataset(Xs[:n_tr], label=y_reg[:n_tr],
+                                        params=p), 3)
+        ds = lgb.Dataset(Xs[:n_tr], label=y_reg[:n_tr], params=p)
+        b = lgb.train(p, ds, 2, init_model=init,
+                      valid_sets=[ds.create_valid(Xs[n_tr:],
+                                                  label=y_reg[n_tr:])],
+                      verbose_eval=False, keep_training_booster=True)
+        refit = b.refit(Xs[n_tr:], y_reg[n_tr:][::-1], decay_rate=0.9)
+        got[dev] = (_norm_param(b.model_to_string(), "device_type"),
+                    refit.model_to_string(),
+                    b.predict(Xs[:500], pred_contrib=True),
+                    time.perf_counter() - t0)
+    out = {"utilities_cuda_s": got["cuda"][3],
+           "utilities_cpu_s": got["cpu"][3]}
+    for i, what in enumerate(("continuation_text", "refit_text",
+                              "contribs")):
+        a, b = got["cuda"][i], got["cpu"][i]
+        same = np.array_equal(a, b) if i == 2 else a == b
+        out[f"utilities_{what}_identical"] = bool(same)
+        if not same:
+            fail(f"utilities: the card's {what} differs from the CPU's")
     return out
 
 
@@ -3230,6 +3678,25 @@ def main() -> None:
           + json.dumps(reports["predict_dataset"]), flush=True)
     print(f"path_s predict_dataset {time.perf_counter() - t0:.1f}",
           flush=True)
+    # the model utilities: init_model continuation with a snapshot and a
+    # rollback (B1-int, B2, B3, leaf sums), refit (leaf_group, the f64
+    # leaf sums), the raw-value walker and SHAP (torch ops)
+    for name, run in (
+            ("continue_int8", lambda: continue_path(lgb, kernels, ds, X, y,
+                                                    tmp)),
+            ("refit_int8", lambda: (refit_path(lgb, kernels,
+                                               boosters["int8"], X, y),
+                                    None)),
+            ("raw_walk", lambda: (raw_walk_path(lgb, kernels,
+                                                boosters["hilo"], X), None)),
+            ("contrib_hilo", lambda: (contrib_path(lgb, boosters["hilo"], X),
+                                      None))):
+        t0 = time.perf_counter()
+        reports[name], booster = run()
+        if booster is not None:
+            boosters[name] = booster
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
     del datasets, ds
     # categorical features: columns 22-27 as categories, both modes
     Xc = cat_data(X)
@@ -3303,6 +3770,9 @@ def main() -> None:
     kernel_rows += [(row, "int8") for operands in ("uniform", "skewed")
                     for row in check_leaf_sums(learners["int8"], gen,
                                                operands)]
+    # and Booster.refit's f64 instance of the sums, at the same operands
+    kernel_rows += [(check_leaf_sums_f64(learners["int8"], gen, operands),
+                     "refit_int8") for operands in ("uniform", "skewed")]
     # B1-int and B2 on bagged operands: rows with zero stats, features
     # masked, at the validation path's shapes
     bagged = learners["valid_bag_int8"]
@@ -3367,6 +3837,10 @@ def main() -> None:
     cross = cross_check(lgb, X, y, latent)
     cross.update(cross_check_efb(lgb, Xe, ye, latent_e))
     cross.update(cross_check_constraints(lgb, X, w, forced_file))
+    t0 = time.perf_counter()
+    cross.update(cross_check_utilities(lgb, X))
+    print(f"path_s cross_check_utilities {time.perf_counter() - t0:.1f}",
+          flush=True)
     t0 = time.perf_counter()
     cross.update(cross_check_storage(lgb, X, w, Xe, latent_e, tmp))
     print(f"path_s cross_check_storage {time.perf_counter() - t0:.1f}",

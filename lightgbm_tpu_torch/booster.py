@@ -3,8 +3,10 @@
 The port of `lightgbm_tpu/booster.py:Booster`: update (with custom
 gradients), validation sets and evaluation, `best_iteration`/
 `best_score` (predict and model text default to the best iteration),
-`reset_parameter` of the learning rate, `free_dataset`, predict
-(`[n]`, or `[n, k]` for multiclass), and the model surface: model text
+`reset_parameter` of any parameter, `rollback_one_iter`, `free_dataset`,
+predict (`[n]`, or `[n, k]` for multiclass; `pred_leaf`, `pred_contrib`,
+`pred_early_stop*` and `tpu_predict_device=false` through the
+raw-value walker), `refit`, and the model surface: model text
 and files in both directions (`model_to_string`, `save_model`,
 `model_from_string`, `Booster(model_file=/model_str=)`, with the
 `pandas_categorical:` line), `dump_model`, `trees_to_dataframe`,
@@ -16,9 +18,9 @@ DataFrames whose `category` columns remap through the model's
 copies and pickles through the model text.  The boosting driver follows
 `boosting` (gbdt, goss, dart, rf: `models.create_boosting`).
 
-Refused by name until their items are ported: rollback, `refit`,
-checkpoints (`save_checkpoint`, `resume_from_checkpoint`) and the
-network (`set_network`, `free_network`).
+Refused by name until their items are ported: checkpoints
+(`save_checkpoint`, `resume_from_checkpoint`) and the network
+(`set_network`, `free_network`).
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .config import (Config, canonical_name, refuse_host_predict,
-                     resolve_device)
+from .config import Config, canonical_name, parse_tristate, resolve_device
 
 
 def _split_pandas_categorical(text: str):
@@ -90,11 +91,8 @@ class Booster:
                     model_str = f.read()
             model_str, self.pandas_categorical = \
                 _split_pandas_categorical(model_str)
-            cfg = Config(self.params)
-            refuse_host_predict(cfg.tpu_predict_device,
-                                "a parameter of the loading Booster")
-            self._driver = GBDT.from_model_string(model_str,
-                                                  resolve_device(cfg))
+            self._driver = GBDT.from_model_string(
+                model_str, resolve_device(Config(self.params)))
         else:
             raise ValueError("need train_set, model_file or model_str")
 
@@ -181,13 +179,10 @@ class Booster:
                                            np.asarray(hess, np.float32))
 
     def rollback_one_iter(self) -> "Booster":
-        """Not ported: the rollback of an iteration (and of DART's and
-        RF's state with it) waits for a later slice."""
-        cfg = self._driver.config
-        raise NotImplementedError(
-            "Booster.rollback_one_iter (boosting="
-            f"{cfg.boosting if cfg is not None else 'gbdt'}) is not ported "
-            "to lightgbm_tpu_torch yet")
+        """Drop the last iteration (GBDT.rollback_one_iter; RF undoes its
+        running average)."""
+        self._driver.rollback_one_iter()
+        return self
 
     def current_iteration(self) -> int:
         return self._driver.current_iteration()
@@ -214,14 +209,8 @@ class Booster:
         return self._driver.eval_for_data(data._inner, name, feval=feval)
 
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
-        """Take new parameters between iterations; only the learning rate
-        is ported (the train step is rebuilt with the new shrinkage)."""
-        other = sorted(k for k in params
-                       if canonical_name(str(k)) != "learning_rate")
-        if other:
-            raise NotImplementedError(
-                f"reset_parameter({', '.join(other)}=...) is not ported to "
-                "lightgbm_tpu_torch yet (ported: learning_rate)")
+        """Take new parameters between iterations: the learner and the
+        train step are rebuilt from them (GBDT.reset_config)."""
         self.params.update(params)
         self._driver.reset_config(Config(self.params))
         return self
@@ -244,11 +233,10 @@ class Booster:
             return self.best_iteration if self.best_iteration >= 0 else -1
         return int(num_iteration)
 
-    # predict keywords the JAX package reads and the port does not honor
-    # yet, each with the value that leaves predict as it is
-    _UNPORTED_PREDICT = {"pred_leaf": False, "pred_contrib": False,
-                         "pred_early_stop": False, "pred_early_stop_freq": 10,
-                         "pred_early_stop_margin": 10.0}
+    # the keywords of the JAX package's predict
+    _PREDICT_KEYWORDS = ("predict_disable_shape_check", "tpu_predict_device",
+                         "pred_early_stop", "pred_early_stop_freq",
+                         "pred_early_stop_margin")
 
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
@@ -264,10 +252,15 @@ class Booster:
         65,536 rows at a time (`_predict_sparse_chunked`).  The columns
         must be the model's (`predict_disable_shape_check`, a parameter
         or a keyword, pads missing trailing ones with NaN and drops extra
-        ones, as lightgbm_tpu/booster.py:predict does).  Keywords:
-        `predict_disable_shape_check` and `tpu_predict_device` (`auto`
-        or `true`: the device walk); the other keywords of the JAX
-        package's predict raise by name."""
+        ones, as lightgbm_tpu/booster.py:predict does).  `pred_leaf`:
+        [n, T] int32 leaf indices; `pred_contrib`: SHAP contributions,
+        [n, F+1] or [n, k*(F+1)].  Keywords: `predict_disable_shape_check`,
+        `tpu_predict_device` (over the booster's parameter, then the model
+        text's: `false` takes the raw-value walker, `auto`/`true` the
+        bin-space device walk where the model has its mappers) and
+        `pred_early_stop` with `pred_early_stop_freq` and
+        `pred_early_stop_margin` (the raw-value walker); other keywords
+        raise by name."""
         from .basic import Dataset, _to_2d_array
         from .io.dataset import _is_scipy_sparse
 
@@ -276,16 +269,23 @@ class Booster:
             raise ValueError("pred_leaf/pred_contrib/pred_early_stop "
                              "need raw data, not a Dataset (they run "
                              "on the native walker)")
-        self._check_predict_kwargs(dict(kwargs, pred_leaf=pred_leaf,
-                                        pred_contrib=pred_contrib))
+        self._check_predict_kwargs(kwargs)
         it = self._default_iteration(num_iteration)
         if isinstance(data, Dataset):
+            if self._host_predict(kwargs):
+                raise TypeError(
+                    "Cannot use Dataset instance for prediction on the "
+                    "native path; pass raw data, or enable the device "
+                    "predictor (device='tpu' with tpu_predict_device "
+                    "not 'false')")
             # the dataset's bins, walked where they lie: no binning pass
             data.construct()
             return self._driver.predict_binned(data._inner, it,
                                                raw_score=raw_score)
         if _is_scipy_sparse(data):
-            return self._predict_sparse_chunked(data, it, raw_score, kwargs)
+            return self._predict_sparse_chunked(data, it, raw_score,
+                                                pred_leaf, pred_contrib,
+                                                kwargs)
         if isinstance(data, str):
             from .io.parser import load_text_file
 
@@ -308,24 +308,40 @@ class Booster:
                     (X.shape[0], n_feat - X.shape[1]), np.nan)], axis=1)
             else:
                 X = X[:, :n_feat]
-        return self._driver.predict(X, it, raw_score=raw_score)
+        return self._predict_rows(X, it, raw_score, pred_leaf, pred_contrib,
+                                  kwargs)
+
+    def _predict_rows(self, X, num_iteration: int, raw_score: bool,
+                      pred_leaf: bool, pred_contrib: bool, kwargs):
+        """GBDT.predict of raw rows with the keywords read."""
+        return self._driver.predict(
+            X, num_iteration, raw_score=raw_score, pred_leaf=pred_leaf,
+            pred_contrib=pred_contrib,
+            pred_early_stop=bool(kwargs.get("pred_early_stop", False)),
+            pred_early_stop_freq=int(kwargs.get("pred_early_stop_freq", 10)),
+            pred_early_stop_margin=float(
+                kwargs.get("pred_early_stop_margin", 10.0)),
+            host=self._host_predict(kwargs))
+
+    def _host_predict(self, kwargs) -> bool:
+        """tpu_predict_device=false: the keyword, else this booster's
+        parameter, else the model's (its training parameters, or its
+        model text's)."""
+        if "tpu_predict_device" in kwargs:
+            return parse_tristate(kwargs["tpu_predict_device"]) == "false"
+        given = [v for k, v in self.params.items()
+                 if canonical_name(str(k)) == "tpu_predict_device"]
+        if given:
+            return parse_tristate(given[-1]) == "false"
+        return self._driver.host_predict()
 
     def _check_predict_kwargs(self, kwargs) -> None:
-        """Refuse by name what predict does not honor (see predict)."""
-        for key, value in kwargs.items():
-            if key in ("predict_disable_shape_check", "tpu_predict_device"):
-                continue
-            if key not in self._UNPORTED_PREDICT:
+        """Refuse by name a keyword predict does not read (see predict)."""
+        for key in kwargs:
+            if key not in self._PREDICT_KEYWORDS:
                 raise NotImplementedError(
                     f"predict({key}=...) is not ported to lightgbm_tpu_torch "
                     "yet")
-            if value != self._UNPORTED_PREDICT[key]:
-                raise NotImplementedError(
-                    f"predict({key}={value!r}) is not ported to "
-                    "lightgbm_tpu_torch yet")
-        if "tpu_predict_device" in kwargs:
-            refuse_host_predict(kwargs["tpu_predict_device"],
-                                "a predict keyword")
 
     def _check_predict_shape(self, ncols: int, kwargs) -> None:
         """Raise on a feature-count mismatch unless
@@ -346,7 +362,8 @@ class Booster:
             "this error, but please be aware what you are doing.")
 
     def _predict_sparse_chunked(self, data, num_iteration: int,
-                                raw_score: bool, kwargs,
+                                raw_score: bool, pred_leaf: bool,
+                                pred_contrib: bool, kwargs,
                                 chunk_rows: int = 65536) -> np.ndarray:
         """Predict a scipy sparse matrix in dense row chunks
         (lightgbm_tpu/booster.py:_predict_sparse_chunked): every output
@@ -368,8 +385,8 @@ class Booster:
                 chunk = np.concatenate([chunk, np.full(
                     (chunk.shape[0], n_feat - chunk.shape[1]), np.nan)],
                     axis=1)
-            outs.append(self._driver.predict(chunk, num_iteration,
-                                             raw_score=raw_score))
+            outs.append(self._predict_rows(chunk, num_iteration, raw_score,
+                                           pred_leaf, pred_contrib, kwargs))
         return np.concatenate(outs, axis=0)
 
     # -- model text ------------------------------------------------------
@@ -524,10 +541,20 @@ class Booster:
             walk(t["tree_structure"], t["tree_index"], 1, None)
         return pd.DataFrame(rows)
 
-    # -- refused by name until their items are ported --------------------
     def refit(self, data, label, decay_rate: float = 0.9) -> "Booster":
-        _not_ported("Booster.refit")
+        """A new Booster with every tree's leaf values refit on `data`
+        (lightgbm_tpu/booster.py:473-486, GBDT.refit)."""
+        from .basic import _to_2d_array
 
+        X = _to_2d_array(data, self.pandas_categorical)
+        out = Booster(model_str=self._driver.save_model_to_string(),
+                      params=self.params)
+        out.pandas_categorical = self.pandas_categorical
+        out._driver.refit(X, np.asarray(label), decay_rate,
+                          config=Config(self.params) if self.params else None)
+        return out
+
+    # -- refused by name until their items are ported --------------------
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
         _not_ported("Booster.save_checkpoint")
 

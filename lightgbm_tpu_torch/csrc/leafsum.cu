@@ -48,6 +48,15 @@
 //      a chain can hold (it starts at +0, and a round-to-nearest sum is
 //      -0 only when both terms are -0), so the padding leaves the sums
 //      bitwise the twin's.
+//
+// The refit of a trained model on new data (Booster.refit) sums each
+// leaf's f32 gradients and hessians into doubles in row order, as the
+// JAX package's np.bincount of their f64 values does
+// (lightgbm_tpu/models/gbdt.py:2039-2041).  leaf_sums_kernel<double> is
+// that instance: the same grouping and ring, each f32 value widened
+// exactly and added with __dadd_rn into a double chain from +0, bitwise
+// the twin's index_add_ in f64 on the CPU.  Its chain's adds are the
+// card's f64 adds, whose dependent latency bounds the largest leaf.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -281,11 +290,21 @@ __device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ void add4(const float4& x, float& g, float& h) {
-  g = __fadd_rn(g, x.x);
-  h = __fadd_rn(h, x.y);
-  g = __fadd_rn(g, x.z);
-  h = __fadd_rn(h, x.w);
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+// an f32 value widened exactly, added to a double chain
+__device__ __forceinline__ double add_rn(double a, float b) {
+  return __dadd_rn(a, static_cast<double>(b));
+}
+
+template <typename Acc>
+__device__ __forceinline__ void add4(const float4& x, Acc& g, Acc& h) {
+  g = add_rn(g, x.x);
+  h = add_rn(h, x.y);
+  g = add_rn(g, x.z);
+  h = add_rn(h, x.w);
 }
 
 // Two warps a leaf.  Warp 0's lane 0, the producer, fills the stage of
@@ -296,10 +315,11 @@ __device__ __forceinline__ void add4(const float4& x, float& g, float& h) {
 // one's row after it, the last chunk's float4s past the segment).  Warp
 // 1's lane 0, the consumer, adds every float4 of every chunk the same
 // way, kPrefetch float4s ahead in registers, across the chunks too.
+template <typename Acc>
 __global__ void __launch_bounds__(64)
     leaf_sums_kernel(const float4* __restrict__ pairs,
                      const int32_t* __restrict__ offsets,
-                     float* __restrict__ out, int L) {
+                     Acc* __restrict__ out, int L) {
   __shared__ __align__(128) float4 ring[kStages][kChunkVecs];
   __shared__ __align__(8) unsigned long long full[kStages], empty[kStages];
   const int l = blockIdx.x, tid = threadIdx.x;
@@ -360,7 +380,7 @@ __global__ void __launch_bounds__(64)
     // the g and h chains, interleaved; x + (+0) is x for every value a
     // chain holds (it starts at +0, and a round-to-nearest sum is -0 only
     // when both terms are), so the padding leaves them as the twin's
-    float g = 0.f, h = 0.f;
+    Acc g = 0, h = 0;
     float4 buf[kPrefetch];
     if (chunks > 0) {
       bar_wait(smem_addr(&full[0]), 0);
@@ -505,14 +525,26 @@ extern "C" int lgbt_leaf_group(const void* leaf, const void* vals,
       static_cast<cudaStream_t>(stream)));
 }
 
+template <typename Acc>
+int launch_sums(const void* grouped, const void* offsets, void* out, int L,
+                void* stream) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  leaf_sums_kernel<Acc><<<L, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(grouped),
+      static_cast<const int32_t*>(offsets), static_cast<Acc*>(out), L);
+  return returned(cudaGetLastError());
+}
+
 // grouped: [n_even] (g, h) pairs in leaf order, 16-byte aligned, n_even
 // >= offsets[L] rounded up to even; offsets [L + 1] int32; out [2, L] f32.
 // A grid of L blocks of two warps.
 extern "C" int lgbt_leaf_sums(const void* grouped, const void* offsets,
                               void* out, int L, void* stream) {
-  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  leaf_sums_kernel<<<L, 64, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(grouped),
-      static_cast<const int32_t*>(offsets), static_cast<float*>(out), L);
-  return returned(cudaGetLastError());
+  return launch_sums<float>(grouped, offsets, out, L, stream);
+}
+
+// lgbt_leaf_sums with double chains: out [2, L] f64.
+extern "C" int lgbt_leaf_sums_f64(const void* grouped, const void* offsets,
+                                  void* out, int L, void* stream) {
+  return launch_sums<double>(grouped, offsets, out, L, stream);
 }

@@ -5,14 +5,18 @@ The port of `lightgbm_tpu/engine.py`.  `train`: validation sets (the
 training set among them, too), custom objectives (`fobj`) and metrics
 (`feval`), callbacks run before and after each iteration in their
 `order`, early stopping, evaluation logging and recording, and a
-learning-rate schedule.  `cv`: k folds (whole queries for ranking data,
+learning-rate schedule, continuation from an init model (a path or a
+Booster, its trees first and replayed onto the scores) and training
+snapshots (`snapshot_freq`: `<output_model>.snapshot_iter_N` every N
+rounds).  `cv`: k folds (whole queries for ranking data,
 stratified for binary and multiclass labels, shuffled from a numpy
 generator of `seed`), one booster a fold trained
 in turns on a row subset of the dataset (`Dataset.subset`), the mean
 and standard deviation of each metric over the folds after each round,
 early stopping on the first metric, and the fold boosters as a
-`CVBooster`.  Init models, checkpoints, `resume` and training snapshots
-are not ported yet and raise when given.
+`CVBooster`.  Checkpoints and `resume` are not ported yet and raise
+when given, and so do `cv`'s `init_model` and `callbacks` (the JAX
+package's `cv` never reads them).
 """
 
 from __future__ import annotations
@@ -35,17 +39,12 @@ _EARLY_STOP_ALIASES = ("early_stopping_round", "early_stopping_rounds",
                        "early_stopping", "n_iter_no_change")
 
 
-def _refuse_unported(params: Dict[str, Any], init_model, resume: bool
-                     ) -> None:
+def _refuse_unported(params: Dict[str, Any], resume: bool) -> None:
     given = []
-    if init_model is not None:
-        given.append("init_model")
     if resume:
         given.append("resume")
     if str(params.get("tpu_checkpoint_dir", "") or ""):
         given.append("tpu_checkpoint_dir")
-    if int(params.get("snapshot_freq", -1) or -1) > 0:
-        given.append("snapshot_freq")
     if given:
         raise NotImplementedError(
             f"lgb.train({', '.join(given)}=...) is not ported to "
@@ -72,7 +71,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     keep_training_booster the returned booster is predict-only, as the
     JAX package's is."""
     params = copy.deepcopy(params)
-    _refuse_unported(params, init_model, resume)
+    _refuse_unported(params, resume)
     if feature_name != "auto":
         train_set.feature_name = feature_name
     if categorical_feature != "auto":
@@ -89,7 +88,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
             early_stopping_rounds = int(params.pop(alias))
     first_metric_only = bool(params.get("first_metric_only", False))
 
+    init_model_str = None
+    if init_model is not None:
+        init_booster = (Booster(model_file=init_model, params=params)
+                        if isinstance(init_model, str) else init_model)
+        init_model_str = init_booster.model_to_string()
+
     booster = Booster(params=params, train_set=train_set)
+    if init_model_str is not None:
+        booster._driver.merge_from_model_string(init_model_str)
     booster.set_train_data_name(params.get("train_data_name", "training"))
 
     valid_sets = valid_sets or []
@@ -125,6 +132,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                        if not getattr(cb, "before_iteration", False)),
                       key=lambda cb: getattr(cb, "order", 0))
 
+    # training snapshots (reference GBDT::Train, gbdt.cpp:290-294)
+    snapshot_freq = int(params.get("snapshot_freq", -1) or -1)
+    snapshot_out = str(params.get("output_model", "LightGBM_model.txt"))
+
     evaluation_result_list: List = []
     for i in range(num_boost_round):
         for cb in cb_before:
@@ -132,6 +143,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                            begin_iteration=0, end_iteration=num_boost_round,
                            evaluation_result_list=None))
         booster.update(fobj=fobj)
+        if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
+            booster.save_model(f"{snapshot_out}.snapshot_iter_{i + 1}")
         evaluation_result_list = []
         if valid_sets:
             if is_valid_contain_train:

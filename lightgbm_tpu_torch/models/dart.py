@@ -13,8 +13,11 @@ validation sets on the device, summed per row in f64 in list order and
 cast to f32 once (`GBDT._score_trees_binned`), as the JAX package's
 binned walker sums them.  Gradients and growth take the sync step.
 
-The rollback, snapshot and checkpoint hooks of the JAX class are not
-ported: `rollback_one_iter` raises.
+`rollback_one_iter` is GBDT's, as in the JAX package: it undoes no
+drop or normalization.  The atomic-iteration rollback's hooks
+(`_snapshot_extra`, `_restore_extra`) and the checkpoint hooks of the
+JAX class are not ported.  With an init model, the drop set indexes the
+trees after its iterations (dart.py:80-88, 121).
 """
 
 from __future__ import annotations
@@ -78,7 +81,8 @@ class DART(GBDT):
                     for i in range(self.iter_):
                         if self._drop_rng.random() < \
                                 drop_rate * self.tree_weight[i] * inv_avg:
-                            self._drop_idx.append(i)
+                            self._drop_idx.append(
+                                self.num_init_iteration + i)
                             if max_drop > 0 \
                                     and len(self._drop_idx) >= max_drop:
                                 break
@@ -87,7 +91,7 @@ class DART(GBDT):
                     drop_rate = min(drop_rate, max_drop / float(self.iter_))
                 for i in range(self.iter_):
                     if self._drop_rng.random() < drop_rate:
-                        self._drop_idx.append(i)
+                        self._drop_idx.append(self.num_init_iteration + i)
                         if max_drop > 0 and len(self._drop_idx) >= max_drop:
                             break
         self._apply_iters_to_scores(self._drop_idx, -1.0)
@@ -111,11 +115,12 @@ class DART(GBDT):
             for c in range(K):
                 self.models[i * K + c].apply_shrinkage(scale)
             if not cfg.uniform_drop:
+                j = i - self.num_init_iteration
                 if not cfg.xgboost_dart_mode:
-                    self.sum_weight -= self.tree_weight[i] / (k + 1.0)
+                    self.sum_weight -= self.tree_weight[j] / (k + 1.0)
                 else:
-                    self.sum_weight -= self.tree_weight[i] / (k + lr)
-                self.tree_weight[i] *= scale
+                    self.sum_weight -= self.tree_weight[j] / (k + lr)
+                self.tree_weight[j] *= scale
         # leaf values changed in place: the cached device forest is stale
         self._invalidate_tables()
         self._apply_iters_to_scores(self._drop_idx, 1.0)

@@ -24,8 +24,18 @@ fused step once per class, every class's gradients from the scores at
 the iteration's start.  The model surface: `feature_importance`,
 `dump_model`, `shuffle_models`.
 
-Left out, and not silently: rollback, OOM ladders, fault injection,
-telemetry, checkpoints.
+The model utilities (lightgbm_tpu/models/gbdt.py:1197-1224, 1889-2100,
+2346-2378): the raw-value walker (`ops/predict.py`) for models without
+the mapper trailer, `tpu_predict_device=false`, `pred_leaf` and the
+prediction early stop; SHAP contributions (`models/shap.py`); `refit`
+of every leaf on new data, its per-leaf f64 sums in row order through
+`ops/leafsum.py`; `merge_from_model_string` (init_model continuation,
+the loaded trees replayed onto the score states as the JAX package
+replays them); `rollback_one_iter`; and `reset_config` of any parameter,
+which rebuilds the learner and the train step.
+
+Left out, and not silently: OOM ladders, fault injection, telemetry,
+checkpoints.
 """
 
 from __future__ import annotations
@@ -38,13 +48,16 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, refuse_host_predict
+from ..config import Config, parse_tristate
 from ..io.bin_mapper import BinMapper, BinType
-from ..io.dataset import TrainingData
+from ..io.dataset import Metadata, TrainingData
 from ..obs import modelhealth
+from ..ops import leafsum
 from ..ops.binning import bin_matrix_t
 from ..ops.predict import (PackedForest, class_scores, device_tables,
-                           pack_trees, subset_scores, tree_leaf_values,
+                           leaf_values, pack_raw_trees, pack_trees,
+                           raw_device_tables, raw_forest_scores,
+                           raw_leaf_index, subset_scores, tree_leaf_values,
                            upload)
 from ..utils.prng import PRNGKey
 from .learner import TreeLearner, _to_bitset
@@ -198,7 +211,10 @@ class GBDT:
 
     def __init__(self):
         self.models: List[Tree] = []
+        # iter_ counts the boosting rounds of this run; the trees of an
+        # init model are in models but not in iter_
         self.iter_ = 0
+        self.num_init_iteration = 0
         self.config: Optional[Config] = None
         self.objective: Optional[Objective] = None
         self.train_data: Optional[TrainingData] = None
@@ -225,6 +241,8 @@ class GBDT:
         self._tables_key = None
         self._tables: Optional[PackedForest] = None
         self._preset_dev = None
+        # the raw-value walker's device tables: (models key, tables, depth)
+        self._raw: Optional[Tuple] = None
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
         self._key: Optional[np.ndarray] = None
@@ -321,17 +339,17 @@ class GBDT:
         return out
 
     def reset_config(self, config: Config) -> None:
-        """Take a new learning rate (reset_parameter): the train step is
-        rebuilt with the new shrinkage."""
+        """Take new parameters between iterations (reset_parameter), as
+        lightgbm_tpu/models/gbdt.py:2093-2100 does: a new learner from the
+        config (which restarts its feature generator from its seed; the
+        booster's key streams and bagging generator go on), the bagging
+        plan and the train step rebuilt."""
         self._materialize()
         self.config = config
         self.shrinkage_rate = float(config.learning_rate)
         if self.learner is not None:
-            # the JAX driver rebuilds its learner here, which restarts the
-            # sync path's feature generator from its seed
-            self.learner.config = config
-            self.learner._feature_rng = np.random.default_rng(
-                int(config.feature_fraction_seed))
+            self.learner = TreeLearner(config, self.train_data)
+            self._bag_cfg = self._bagging_config()
             self._make_train_step()
 
     def free_dataset(self) -> None:
@@ -364,20 +382,53 @@ class GBDT:
         state = _ScoreState(self.num_tree_per_iteration, data.num_data,
                             self.device, data.metadata.init_score)
         self.valid_scores.append(state)
-        self._replay(state, data)
+        self._replay(state, data, self.models)
 
-    def _replay(self, state: _ScoreState, data: TrainingData) -> None:
-        """Add the existing model's raw scores over a binned dataset to a
-        score state: one packed-forest pass on the device."""
-        if not self.models:
+    def _replay_in_blocks(self, n: int) -> bool:
+        """Whether a replay over n rows takes the JAX package's device
+        walk (gbdt.py:_device_replay_ok): tpu_predict_device true, or
+        auto at tpu_predict_min_rows rows or more; else its host walk."""
+        mode = parse_tristate(self.config.tpu_predict_device)
+        if mode != "auto":
+            return mode == "true"
+        return n >= int(self.config.tpu_predict_min_rows)
+
+    def _replay(self, state: _ScoreState, data: TrainingData,
+                trees: List[Tree]) -> None:
+        """Add the listed trees' raw scores over a binned dataset (tree i
+        to class i % k) to a score state, in the JAX package's order
+        (gbdt.py:_replay_scores_device and its host fallback): on its
+        device walk, blocks of k * max(128 // k, 1) trees, each block's
+        per-class f32 sum (`class_scores`, XLA's order) added in turn; on
+        its host walk, each tree's f32 leaf values added in turn."""
+        if not trees:
             return
-        tables, depth = pack_trees(self.models)
-        scores = class_scores(device_tables(tables, self.device),
-                              data.bins_t,
-                              self._pred_ctx.meta_dev(self.device),
-                              self.num_tree_per_iteration, depth)
-        for k in range(self.num_tree_per_iteration):
-            state.add(k, scores[k])
+        k = max(self.num_tree_per_iteration, 1)
+        meta = self._pred_ctx.meta_dev(self.device)
+        n = data.num_data
+        blocked = self._replay_in_blocks(n)
+        step = k * max(128 // k, 1) if blocked else 128
+        chunk = self._predict_chunk()
+        for s in range(0, len(trees), step):
+            block = list(trees[s:s + step])
+            tables, depth = pack_trees(block)
+            tables = device_tables(tables, self.device)
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                bins_t = data.bins_t[:, lo:hi]
+                if blocked:
+                    scores = class_scores(tables, bins_t, meta, k, depth)
+                    for kk in range(k):
+                        state.scores[kk, lo:hi] += scores[kk]
+                    continue
+                vals = leaf_values(tables, bins_t, *meta, depth)
+                for j in range(len(block)):
+                    state.scores[(s + j) % k, lo:hi] += vals[j]
+
+    def _predict_chunk(self) -> int:
+        """Rows a predict or replay walks at once."""
+        return max(int(self.config.tpu_predict_chunk_rows)
+                   if self.config is not None else 65536, 1024)
 
     def _boost_from_average(self, class_id: int) -> float:
         if (self.models or self._pending
@@ -580,6 +631,7 @@ class GBDT:
         them."""
         self._tables_key = None
         self._tables = None
+        self._raw = None
 
     def _materialize(self) -> None:
         """Fetch the pending device records (one batched copy) and build
@@ -611,7 +663,37 @@ class GBDT:
                 if len(self.models) < self.num_tree_per_iteration:
                     tree.as_constant_tree(init)
                     self.models.append(tree)
-        self.iter_ = len(self.models) // max(self.num_tree_per_iteration, 1)
+        self.iter_ = (len(self.models) // max(self.num_tree_per_iteration, 1)
+                      - self.num_init_iteration)
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's trees out of the model and their
+        f32 leaf values out of the train and validation scores
+        (lightgbm_tpu/models/gbdt.py:1197-1224)."""
+        self._materialize()
+        self._invalidate_tables()
+        if self.iter_ <= 0:
+            return
+        k = self.num_tree_per_iteration
+        for c in range(k):
+            tree = self.models.pop()
+            for state, data in self._score_sets():
+                state.add(k - 1 - c, -self._tree_values(tree, data))
+        self.iter_ -= 1
+
+    def _score_sets(self):
+        """(score state, dataset) of the training set, then of each
+        validation set."""
+        return [(self.train_scores, self.train_data),
+                *zip(self.valid_scores, self.valid_sets)]
+
+    def _tree_values(self, tree: Tree, data: TrainingData) -> torch.Tensor:
+        """[n] f32 leaf values of one tree over a binned dataset."""
+        tables, depth = pack_trees([tree],
+                                   leaf_width=int(self.config.num_leaves))
+        return tree_leaf_values(device_tables(tables, self.device),
+                                data.bins_t,
+                                self._pred_ctx.meta_dev(self.device), depth)
 
     def current_iteration(self) -> int:
         self._materialize()
@@ -665,7 +747,7 @@ class GBDT:
             m.init(data.metadata, data.num_data)
         state = _ScoreState(self.num_tree_per_iteration, data.num_data,
                             self.device, data.metadata.init_score)
-        self._replay(state, data)
+        self._replay(state, data, self.models)
         scores = state.numpy()
         out = []
         for m in ms:
@@ -707,18 +789,68 @@ class GBDT:
             self._tables_key = total
         return self._preset_dev
 
-    def predict_raw(self, X: np.ndarray, num_iteration: int = -1
-                    ) -> np.ndarray:
-        """[k, n] raw scores: bin the rows with the training mappers and
-        walk the packed forest, both on the device, in row chunks."""
+    def host_predict(self) -> bool:
+        """tpu_predict_device=false among the training parameters, or in
+        a loaded model text's: predict takes the raw-value walker."""
+        mode = (self.config.tpu_predict_device if self.config is not None
+                else self.loaded_params.get("tpu_predict_device", "auto"))
+        return parse_tristate(mode) == "false"
+
+    def _raw_forest(self, total: int):
+        """(device tables, depth) of the first `total` trees for the
+        raw-value walker, packed once for the model as it stands (keyed
+        by its count and last tree, as gbdt.py:_forest_tables keys its
+        cache; a change in place goes through _invalidate_tables)."""
+        if self._preset is not None:
+            raise NotImplementedError(
+                "the raw-value walk of a booster converted from packed "
+                "tables (it has no trees)")
+        key = (len(self.models), id(self.models[-1]) if self.models else 0)
+        if self._raw is None or self._raw[0] != key:
+            tables, depth = pack_raw_trees(self.models)
+            self._raw = (key, raw_device_tables(tables, self.device), depth)
+        _, tables, depth = self._raw
+        if total < len(self.models):
+            tables = {n: (v[:total] if n != "cat_words" else v)
+                      for n, v in tables.items()}
+        return tables, depth
+
+    def _raw_walk(self, X: np.ndarray, total: int, leaves: bool = False,
+                  early_stop_freq: int = 0, early_stop_margin: float = 0.0
+                  ) -> torch.Tensor:
+        """The raw-value walk of the first `total` trees over the raw rows
+        X [n, F] on the device, in row chunks: [k, n] f64 raw scores
+        (`raw_forest_scores`, with the prediction early stop), or with
+        `leaves` the [T, n] int32 leaf indices, left on the device."""
+        tables, depth = self._raw_forest(total)
+        k = self.num_tree_per_iteration
+        chunk = self._predict_chunk()
+        parts = []
+        for lo in range(0, X.shape[0], chunk):
+            xt = upload(np.ascontiguousarray(X[lo:lo + chunk].T), self.device)
+            leaf = raw_leaf_index(tables, xt, depth)
+            parts.append(leaf.to(torch.int32) if leaves else
+                         raw_forest_scores(tables["leaf_value"], leaf, k,
+                                           early_stop_freq,
+                                           early_stop_margin))
+        if not parts:
+            return torch.zeros((total if leaves else k, 0),
+                               dtype=torch.int32 if leaves else torch.float64,
+                               device=self.device)
+        return torch.cat(parts, dim=1)
+
+    def predict_raw(self, X: np.ndarray, num_iteration: int = -1,
+                    host: bool = False, early_stop_freq: int = 0,
+                    early_stop_margin: float = 0.0) -> np.ndarray:
+        """[k, n] raw scores.  The bin-space walk: bin the rows with the
+        training mappers and walk the packed forest, both on the device,
+        in row chunks.  The raw-value walk (`_raw_walk`) where the JAX
+        package leaves its device path: `host` (tpu_predict_device=false),
+        a model without the mapper trailer, or the prediction early stop
+        (early_stop_freq > 0)."""
         X = np.asarray(X, np.float64)
         if X.ndim == 1:
             X = X[None, :]
-        if self._pred_ctx is None:
-            raise NotImplementedError(
-                "predict on a model without the tpu_bin_mappers: trailer "
-                "(the raw-value host walker) is not ported to "
-                "lightgbm_tpu_torch yet")
         self._materialize()
         k = self.num_tree_per_iteration
         n = X.shape[0]
@@ -726,10 +858,14 @@ class GBDT:
         total, div = self._model_subset(num_iteration)
         if total == 0:
             return out
+        if host or self._pred_ctx is None or early_stop_freq > 0:
+            # random-forest averaging (gbdt_prediction.cpp:55)
+            return self._raw_walk(X, total, early_stop_freq=early_stop_freq,
+                                  early_stop_margin=early_stop_margin
+                                  ).cpu().numpy() / div
         tables, depth = self._forest(total)
         meta = self._pred_ctx.meta_dev(self.device)
-        chunk = max(int(self.config.tpu_predict_chunk_rows)
-                    if self.config is not None else 65536, 1024)
+        chunk = self._predict_chunk()
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
             bins_t = self._pred_ctx.bin_rows_t(X[lo:hi], self.device)
@@ -764,8 +900,7 @@ class GBDT:
         if total > 0:
             tables, depth = self._forest(total)
             meta = self._pred_ctx.meta_dev(self.device)
-            chunk = max(int(self.config.tpu_predict_chunk_rows)
-                        if self.config is not None else 65536, 1024)
+            chunk = self._predict_chunk()
             for lo in range(0, n, chunk):
                 hi = min(lo + chunk, n)
                 bins_t = data.bins_t[:, lo:hi].to(self.device).contiguous()
@@ -775,9 +910,177 @@ class GBDT:
         return self._finish(raw, raw_score)
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        """[n] outputs, or [n, k] with several trees an iteration."""
-        return self._finish(self.predict_raw(X, num_iteration), raw_score)
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                host: bool = False) -> np.ndarray:
+        """[n] outputs, or [n, k] with several trees an iteration;
+        pred_leaf: [n, T] int32 leaf indices; pred_contrib: [n, F+1] SHAP
+        contributions (the expected value last), [n, k*(F+1)] for several
+        classes (lightgbm_tpu/models/gbdt.py:1931-1975)."""
+        if pred_leaf:
+            return self.predict_leaf(X, num_iteration)
+        if pred_contrib:
+            return self.predict_contrib(X, num_iteration)
+        return self._finish(self.predict_raw(
+            X, num_iteration, host=host,
+            early_stop_freq=(int(pred_early_stop_freq) if pred_early_stop
+                             else 0),
+            early_stop_margin=float(pred_early_stop_margin)), raw_score)
+
+    def predict_leaf(self, X: np.ndarray, num_iteration: int = -1
+                     ) -> np.ndarray:
+        """[n, T] int32: each row's leaf in each of the first
+        num_iteration iterations' trees (the raw-value walk)."""
+        X = np.atleast_2d(np.asarray(X, np.float64))
+        self._materialize()
+        total, _ = self._model_subset(num_iteration)
+        if total == 0:
+            return np.zeros((X.shape[0], 0), np.int32)
+        return self._raw_walk(X, total, leaves=True).T.cpu().numpy()
+
+    def predict_contrib(self, X: np.ndarray, num_iteration: int = -1
+                        ) -> np.ndarray:
+        """SHAP contributions of the first num_iteration iterations'
+        trees, batched over rows on the device (`shap.forest_contribs_t`):
+        [n, F+1], or [n, k*(F+1)] for several trees an iteration."""
+        from .shap import forest_contribs_t
+
+        X = np.atleast_2d(np.asarray(X, np.float64))
+        self._materialize()
+        k = self.num_tree_per_iteration
+        total, _ = self._model_subset(num_iteration)
+        out = forest_contribs_t(self.models, X, total, k, self.device)
+        if k == 1:
+            return out[:, 0, :]
+        return out.reshape(X.shape[0], -1)
+
+    # ------------------------------------------------------------------
+    def refit(self, X: np.ndarray, label: np.ndarray,
+              decay_rate: float = 0.9, config: Optional[Config] = None,
+              sums=leafsum.leaf_sums) -> None:
+        """Refit every leaf value on new data, keeping the trees'
+        structure (lightgbm_tpu/models/gbdt.py:1977-2056, the reference's
+        GBDT::RefitTree): the rows' leaves from the raw-value walk; per
+        iteration, gradients of a fresh objective on the new labels at
+        the running refit scores; per tree, each leaf's f64 gradient and
+        hessian sums in row order (`sums`: the f64 instance of the leaf
+        sums), its regularized output, and the blend decay * old +
+        (1 - decay) * new * shrinkage.  The scores are carried in f64; the
+        profile trailer takes the refit scores."""
+        self._materialize()
+        cfg = config or self.config or Config({})
+        X = np.atleast_2d(np.asarray(X, np.float64))
+        n = X.shape[0]
+        leaves = self._raw_walk(X, len(self.models), leaves=True)
+        md = Metadata(num_data=n, label=np.asarray(label, np.float32))
+        # a fresh objective on the new labels; a loaded booster's params
+        # may carry the model text's objective spelling, which the config
+        # factory refuses
+        try:
+            obj = create_objective(cfg)
+        except ValueError:
+            obj = None
+        if obj is None:
+            obj = create_objective_from_model_string(
+                self.loaded_params.get("objective", "")
+                or str(cfg.objective or ""))
+        if obj is None:
+            raise ValueError("cannot refit without an objective")
+        obj.init(md, n, self.device)
+        scores = self._refit_by_leaf_preds(leaves, obj, decay_rate, cfg,
+                                           sums)
+        self._recapture_profile_scores(scores,
+                                       np.asarray(label, np.float64))
+
+    def _refit_by_leaf_preds(self, leaves: torch.Tensor, obj,
+                             decay_rate: float, cfg: Config, sums
+                             ) -> np.ndarray:
+        """The refit's core on the [T, n] int32 device leaf ids; returns
+        the [k, n] f64 refit scores."""
+        n = leaves.shape[1]
+        k = self.num_tree_per_iteration
+        l1 = float(cfg.lambda_l1)
+        l2 = float(cfg.lambda_l2)
+        mds = float(cfg.max_delta_step)
+        decay = float(decay_rate)
+        scores = torch.zeros((k, n), dtype=torch.float64, device=self.device)
+        grad = hess = None
+        for i, tree in enumerate(self.models):
+            cid = i % k
+            if cid == 0:
+                g, h = obj.get_gradients(scores.to(torch.float32))
+                grad, hess = g.reshape(k, n), h.reshape(k, n)
+            nl = tree.num_leaves
+            ids = leaves[i].contiguous()
+            sum_g, sum_h = sums(ids, torch.stack([grad[cid], hess[cid]]), nl,
+                                out_dtype=torch.float64).cpu().numpy()
+            sum_h = sum_h + K_EPSILON
+            # CalculateSplittedLeafOutput (feature_histogram.hpp:449-456)
+            reg = np.maximum(np.abs(sum_g) - l1, 0.0) * np.sign(sum_g)
+            new_out = -reg / (sum_h + l2)
+            if mds > 0.0:
+                new_out = np.clip(new_out, -mds, mds)
+            old = tree.leaf_value[:nl]
+            tree.leaf_value[:nl] = (decay * old
+                                    + (1.0 - decay) * new_out * tree.shrinkage)
+            lv = upload(np.ascontiguousarray(tree.leaf_value[:nl]),
+                        self.device)
+            scores[cid] = scores[cid] + lv[ids.long()]
+        self._invalidate_tables()  # leaf values changed in place
+        return scores.cpu().numpy()
+
+    def _recapture_profile_scores(self, scores: np.ndarray,
+                                  label: np.ndarray) -> None:
+        """The profile trailer after a refit (gbdt.py:2058-2091): the
+        trees' and features' part stays the training reference, the
+        score histogram and the label statistics describe the refit
+        scores and labels."""
+        base = self.health_profile()
+        if base is None:
+            return
+        s = np.asarray(scores, np.float64)
+        if s.ndim == 1:
+            s = s[None, :]
+        fin = s[np.isfinite(s)]
+        lo = float(fin.min()) if fin.size else 0.0
+        hi = float(fin.max()) if fin.size else 1.0
+        if hi <= lo:
+            hi = lo + 1.0
+        nb = max(len(base.score_edges) - 1, 2)
+        edges = [float(x) for x in np.linspace(lo, hi, nb + 1)]
+        counts = [[int(x) for x in
+                   modelhealth.score_hist_counts(edges, row)]
+                  for row in s]
+        y = np.asarray(label, np.float64)
+        lab = {"n": int(y.size),
+               "mean": float(y.mean()) if y.size else 0.0,
+               "std": float(y.std()) if y.size else 0.0,
+               "min": float(y.min()) if y.size else 0.0,
+               "max": float(y.max()) if y.size else 0.0}
+        self._profile = modelhealth.FeatureProfile(
+            {c: dict(f) for c, f in base.features.items()},
+            lab, edges, counts)
+
+    def merge_from_model_string(self, text: str) -> None:
+        """init_model continuation (gbdt.py:2346-2378): the loaded model's
+        trees go first, rebound to the training mappers (`_rebind_tree`,
+        which also sets each categorical node's bitset index), and are
+        replayed onto the train and validation scores (`_replay`)."""
+        self._materialize()
+        other = GBDT.from_model_string(text, self.device)
+        if other.num_tree_per_iteration != self.num_tree_per_iteration:
+            raise ValueError("init model has different "
+                             "num_tree_per_iteration")
+        for tree in other.models:
+            if tree.num_leaves > 1:
+                _rebind_tree(tree, self._pred_ctx)
+        self.models = other.models + self.models
+        self.num_init_iteration = other.current_iteration()
+        self._invalidate_tables()
+        for state, data in self._score_sets():
+            self._replay(state, data, other.models)
 
     def _finish(self, raw: np.ndarray, raw_score: bool) -> np.ndarray:
         """[k, n] raw scores -> the objective's outputs, [n] or [n, k]."""
@@ -941,9 +1244,6 @@ class GBDT:
             text = text[:pos]
         text, self._profile = modelhealth.split_profile_trailer(text)
         text, ctx = _split_mapper_snapshot(text)
-        refuse_host_predict(_text_params(text).get("tpu_predict_device",
-                                                   "auto"),
-                            "in the model text's parameters")
         lines = text.split("\n")
         kv: Dict[str, str] = {}
         tree_blocks: List[str] = []
@@ -976,7 +1276,9 @@ class GBDT:
         self.feature_names = kv.get("feature_names", "").split()
         self.loaded_params = {"feature_infos":
                               kv.get("feature_infos", "").split(),
-                              "objective": kv.get("objective", "")}
+                              "objective": kv.get("objective", ""),
+                              "tpu_predict_device": _text_params(text).get(
+                                  "tpu_predict_device", "auto")}
         if "objective" in kv:
             self.objective = create_objective_from_model_string(
                 kv["objective"])

@@ -72,7 +72,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import Config, refuse_host_predict
+from ..config import Config
 from ..io.bundling import EFB_SAMPLE_ROWS, BundlePlan, apply_bundles, \
     find_bundles
 from ..io.dataset import TrainingData
@@ -111,7 +111,7 @@ def check_slice(config: Config) -> None:
     (the serial learner; the gbdt, goss, dart and rf boosting modes with
     bagging and per-tree and per-node feature sampling; float, f64
     (deterministic=true) and int8/int16 histograms; monotone
-    constraints, CEGB and forced splits; predict on the device)."""
+    constraints, CEGB and forced splits)."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
@@ -155,7 +155,6 @@ def check_slice(config: Config) -> None:
         refuse(f"tpu_telemetry={c.tpu_telemetry!r}")
     if str(c.tpu_trace_dir):
         refuse(f"tpu_trace_dir={c.tpu_trace_dir!r}")
-    refuse_host_predict(c.tpu_predict_device, "a training parameter")
 
 
 # tree_learner names of the strategies that shard rows (the JAX package's

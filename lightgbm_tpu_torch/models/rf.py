@@ -8,8 +8,8 @@ times the iteration count, plus the new tree's binned output, times
 1/(count+1) (rf.hpp:146-149).  Predict divides the sum over trees by
 their count, and the model text carries the bare `average_output` line.
 
-The rollback, snapshot and checkpoint hooks of the JAX class are not
-ported: `rollback_one_iter` raises.
+`rollback_one_iter` undoes the running average of the last iteration
+(rf.py:125-149).  The checkpoint hooks of the JAX class are not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.predict import device_tables, pack_trees, tree_leaf_values
 from .gbdt import GBDT, K_EPSILON
 from .tree import Tree
 
@@ -57,7 +56,7 @@ class RF(GBDT):
             raise ValueError("RF mode does not support custom gradients")
         mask = self.bagging_mask(self.iter_)
         K = self.num_tree_per_iteration
-        it = self.iter_
+        it = self.iter_ + self.num_init_iteration
         for k in range(K):
             need = self.objective.class_need_train(k)
             tree = None
@@ -94,12 +93,29 @@ class RF(GBDT):
                               ) -> None:
         """score = (score * it + tree's f32 output) * 1/(it + 1) on the
         train and every validation set, the tree walked in bin space."""
-        tables, depth = pack_trees([tree])
-        tables = device_tables(tables, self.device)
-        meta = self._pred_ctx.meta_dev(self.device)
-        for state, data in ((self.train_scores, self.train_data),
-                            *zip(self.valid_scores, self.valid_sets)):
+        for state, data in self._score_sets():
             state.multiply(class_id, float(it))
-            state.add(class_id, tree_leaf_values(tables, data.bins_t, meta,
-                                                 depth))
+            state.add(class_id, self._tree_values(tree, data))
             state.multiply(class_id, 1.0 / (it + 1))
+
+    def rollback_one_iter(self) -> None:
+        """The last iteration's trees out of the model, and out of the
+        running averages: score = (score * (it + 1) - tree's f32 output) *
+        1/it, with it the iterations before it (rf.py:125-149)."""
+        self._materialize()
+        self._invalidate_tables()
+        if self.iter_ <= 0:
+            return
+        K = self.num_tree_per_iteration
+        it = self.iter_ + self.num_init_iteration - 1
+        for k in range(K):
+            tree = self.models.pop()
+            k_id = K - 1 - k
+            if it < 0:
+                continue
+            for state, data in self._score_sets():
+                state.multiply(k_id, float(it + 1))
+                state.add(k_id, -self._tree_values(tree, data))
+                if it > 0:
+                    state.multiply(k_id, 1.0 / it)
+        self.iter_ -= 1

@@ -39,7 +39,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "--fmad=false", "-Xcompiler",
 
 # B1 float, B1 integer variant, B1 on packed 4-bit bins and on wide
 # (int32) bins (float and integer), B2 and B3 on uint8 and on wide bins,
-# B4 in B1's six variants, and the leaf refit's grouping and sums
+# B4 in B1's six variants, and the leaf refit's grouping and sums (f32;
+# f64 for Booster.refit)
 launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
                             "hist_batched_packed": 0,
                             "hist_batched_packed_int": 0,
@@ -52,7 +53,8 @@ launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
                             "hist_flat_packed": 0,
                             "hist_flat_packed_int": 0,
                             "hist_flat_wide": 0, "hist_flat_wide_int": 0,
-                            "leaf_group": 0, "leaf_sums": 0}
+                            "leaf_group": 0, "leaf_sums": 0,
+                            "leaf_sums_f64": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -159,8 +161,9 @@ def library() -> ctypes.CDLL:
     lib.lgbt_leaf_group_plan.restype = i32
     lib.lgbt_leaf_group.argtypes = [vp, vp, i64, i32, vp, vp, vp, ip, vp]
     lib.lgbt_leaf_group.restype = i32
-    lib.lgbt_leaf_sums.argtypes = [vp, vp, vp, i32, vp]
-    lib.lgbt_leaf_sums.restype = i32
+    for entry in (lib.lgbt_leaf_sums, lib.lgbt_leaf_sums_f64):
+        entry.argtypes = [vp, vp, vp, i32, vp]
+        entry.restype = i32
     lib.lgbt_error_string.argtypes = [i32]
     lib.lgbt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -12,6 +12,12 @@ leaves; its twin `leaf_group_plain`, a counting sort) and `leaf_sums`
 (each leaf's pairs added in order, one chain a leaf).  Its sums are
 bitwise the twin's, and the refit-on model text is the same on every
 run.
+
+`Booster.refit` takes the same sums in f64 (`out_dtype=torch.float64`):
+the JAX package's `np.bincount` of the f64 gradients (gbdt.py:2039-2041)
+adds each leaf's rows in row order too.  The twin is `index_add_` in f64
+on the CPU, and on the card `leaf_group` feeds the sums kernel's double
+instance (counter `leaf_sums_f64`), bitwise the twin's.
 """
 
 from __future__ import annotations
@@ -28,14 +34,16 @@ _PLAIN_CHUNK = 2048
 
 
 def leaf_sums_plain(leaf_ids: torch.Tensor, vals: torch.Tensor,
-                    num_leaves: int) -> torch.Tensor:
-    """[V, L] f32: out[v, l] = the sum, in row order, of vals[v, r] over
-    the rows r with leaf_ids[r] == l.  leaf_ids: [n] int32 in [0, L);
+                    num_leaves: int,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[V, L] of out_dtype (f32 or f64): out[v, l] = the sum from +0, in
+    row order, of vals[v, r] over the rows r with leaf_ids[r] == l, each
+    value widened to out_dtype first.  leaf_ids: [n] int32 in [0, L);
     vals: [V, n] f32."""
     ids = leaf_ids.long()
     return torch.stack([
-        torch.zeros(num_leaves, dtype=torch.float32,
-                    device=vals.device).index_add_(0, ids, v)
+        torch.zeros(num_leaves, dtype=out_dtype,
+                    device=vals.device).index_add_(0, ids, v.to(out_dtype))
         for v in vals])
 
 
@@ -114,28 +122,39 @@ def leaf_group_kernel(leaf_ids: torch.Tensor, vals: torch.Tensor,
     return grouped[:n], offsets
 
 
+# the sums kernel's instance of each output type: (entry, launch counter)
+_SUMS = {torch.float32: ("lgbt_leaf_sums", "leaf_sums"),
+         torch.float64: ("lgbt_leaf_sums_f64", "leaf_sums_f64")}
+
+
 def leaf_sums_kernel(leaf_ids: torch.Tensor, vals: torch.Tensor,
-                     num_leaves: int) -> torch.Tensor:
+                     num_leaves: int,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """`leaf_sums_plain`'s contract on the card, for V = 2: kernel
-    leaf_group, then kernel leaf_sums (one warp a leaf)."""
+    leaf_group, then the sums kernel's f32 or f64 instance (two warps a
+    leaf)."""
+    if out_dtype not in _SUMS:
+        raise ValueError(f"the leaf sums are f32 or f64, not {out_dtype}")
+    entry, counter = _SUMS[out_dtype]
     grouped, offsets = leaf_group_kernel(leaf_ids, vals, num_leaves)
     L = int(num_leaves)
-    out = torch.empty((2, L), dtype=torch.float32, device=vals.device)
+    out = torch.empty((2, L), dtype=out_dtype, device=vals.device)
     with torch.cuda.device(vals.device):
-        code = kernels.library().lgbt_leaf_sums(
+        code = getattr(kernels.library(), entry)(
             grouped.data_ptr(), offsets.data_ptr(), out.data_ptr(), L,
             torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "leaf_sums launch")
-    kernels.launches["leaf_sums"] += 1
+    kernels.check(code, f"{counter} launch")
+    kernels.launches[counter] += 1
     return out
 
 
 def leaf_sums(leaf_ids: torch.Tensor, vals: torch.Tensor,
-              num_leaves: int) -> torch.Tensor:
+              num_leaves: int,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Per-leaf sums in row order: the kernels on a CUDA tensor, the
     plain twin on a CPU one."""
     if leaf_ids.device.type == "cuda":
-        return leaf_sums_kernel(leaf_ids, vals, num_leaves)
+        return leaf_sums_kernel(leaf_ids, vals, num_leaves, out_dtype)
     if leaf_ids.device.type == "cpu":
-        return leaf_sums_plain(leaf_ids, vals, num_leaves)
+        return leaf_sums_plain(leaf_ids, vals, num_leaves, out_dtype)
     raise ValueError(f"unsupported device {leaf_ids.device}")

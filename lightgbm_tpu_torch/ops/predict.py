@@ -11,6 +11,18 @@ missing routing and the bitset override.  `PackedForest` appends the
 trees trained since its last call to amortized host tables instead of
 packing the forest anew.  The JAX package runs this as plain XLA, so the
 port runs it as plain torch ops on the card; it has no hand kernel.
+
+The raw-value walker (`pack_raw_trees`, `raw_leaf_index`,
+`raw_forest_scores`) is the port of the JAX package's f64 host walker,
+the OpenMP forest predictor (src/capi/forest_predictor.cpp:55-155) and
+its numpy fallback (lightgbm_tpu/models/gbdt.py:1889-1929): the trees'
+f64 thresholds against the raw f64 feature values, NaN and zero as
+missing by `missing_type`, `default_left`, and the raw categories'
+bitsets (a negative or NaN category goes right), every tree's leaf
+values summed per row in f64 in tree order, with the prediction early
+stop of forest_predictor.cpp:134-149.  It runs as torch ops on the
+booster's device, and its plain twin is the numpy `Tree.predict` walk
+(`raw_scores_plain`), which it equals bit for bit.
 """
 
 from __future__ import annotations
@@ -309,3 +321,186 @@ class PackedForest:
             return self._dev
         return {k: (v[:num_trees] if k != "cat_words" else v)
                 for k, v in self._dev.items()}
+
+
+# ---- the raw-value walker --------------------------------------------------
+
+K_ZERO_THRESHOLD = 1e-35
+# a categorical value is truncated to its category after a clamp into
+# [-1, _CAT_CAP]: -1 and below go right, and so does anything past every
+# bitset (the native walker's int64 cast, without its undefined range)
+_CAT_CAP = float(2 ** 40)
+
+
+def pack_raw_trees(trees: Sequence) -> Tuple[Dict[str, np.ndarray], int]:
+    """Flatten host Tree models into the raw-value node tables of the
+    native walker (lightgbm_tpu/native.py:ForestTables), padded to
+    [T, ...] like `pack_trees`: real feature indices, f64 thresholds, the
+    raw categories' bitset words in one pool (word 0 kept zero) with a
+    (start, width) window a categorical node, f64 leaf values.  Leaves
+    stay `~leaf` in the child columns; a constant tree starts at `~0`.
+    Returns (tables, max_depth)."""
+    T = len(trees)
+    L = max([t.num_leaves for t in trees] + [1])
+    ni_w = max(L - 1, 1)
+    sf = np.zeros((T, ni_w), np.int64)
+    thr = np.zeros((T, ni_w), np.float64)
+    dt = np.zeros((T, ni_w), np.int64)
+    lc = np.zeros((T, ni_w), np.int64)
+    rc = np.zeros((T, ni_w), np.int64)
+    cs = np.zeros((T, ni_w), np.int64)
+    cw = np.zeros((T, ni_w), np.int64)
+    lv = np.zeros((T, L), np.float64)
+    init = np.zeros(T, np.int64)
+    words: List[np.ndarray] = [np.zeros(1, np.int64)]
+    woff = 1
+    depth = 1
+    for ti, t in enumerate(trees):
+        nl = int(t.num_leaves)
+        lv[ti, :nl] = t.leaf_value[:nl]
+        ni = nl - 1
+        if ni <= 0:
+            init[ti] = -1
+            continue
+        sf[ti, :ni] = t.split_feature[:ni]
+        thr[ti, :ni] = t.threshold[:ni]
+        dt[ti, :ni] = t.decision_type[:ni].astype(np.int64) & 0xF
+        lc[ti, :ni] = t.left_child[:ni]
+        rc[ti, :ni] = t.right_child[:ni]
+        depth = max(depth, int(t.max_depth()))
+        if t.num_cat > 0:
+            cb = np.asarray(t.cat_boundaries, np.int64)
+            is_cat = (dt[ti, :ni] & 1) != 0
+            # a categorical node's threshold is its bitset's index
+            ci = np.clip(np.where(is_cat, thr[ti, :ni], 0.0).astype(np.int64),
+                         0, max(len(cb) - 2, 0))
+            cs[ti, :ni] = np.where(is_cat, woff + cb[ci], 0)
+            cw[ti, :ni] = np.where(is_cat, cb[ci + 1] - cb[ci], 0)
+            tw = np.asarray(t.cat_threshold, np.int64)
+            if len(tw):
+                words.append(tw)
+                woff += len(tw)
+    tables = {"split_feature": sf, "threshold": thr, "decision_type": dt,
+              "left_child": lc, "right_child": rc, "cat_start": cs,
+              "cat_width": cw, "leaf_value": lv, "init_node": init,
+              "cat_words": np.concatenate(words)}
+    return tables, depth
+
+
+def raw_device_tables(tables: Dict[str, np.ndarray], device
+                      ) -> Dict[str, torch.Tensor]:
+    """`pack_raw_trees`' tables on `device`."""
+    return {k: upload(np.ascontiguousarray(v), device)
+            for k, v in tables.items()}
+
+
+def raw_go_left(v: torch.Tensor, dt: torch.Tensor, thr: torch.Tensor,
+                cs: torch.Tensor, cw: torch.Tensor, words: torch.Tensor
+                ) -> torch.Tensor:
+    """The native walker's decision (forest_predictor.cpp:59-97) for
+    values `v` at nodes of decision types `dt`, f64 thresholds `thr` and
+    bitset windows (cs, cw) into `words`, all of one shape.  Numerical:
+    NaN is missing under missing type NaN and reads as 0 otherwise, and
+    a missing value (NaN, or |v| <= 1e-35 under missing type zero) goes
+    the default way; else v <= threshold goes left.  Categorical: NaN is
+    category 0 unless the missing type is NaN (then right), a value is
+    truncated toward 0 to its category, and a category goes left when its
+    bit is set in the node's bitset."""
+    mt = (dt >> 2) & 3
+    isnan = torch.isnan(v)
+    fv = torch.where(isnan & (mt != 2), torch.zeros_like(v), v)
+    is_default = (((mt == 1) & (fv.abs() <= K_ZERO_THRESHOLD))
+                  | ((mt == 2) & isnan))
+    go_left = torch.where(is_default, (dt & 2) != 0, fv <= thr)
+    is_cat = (dt & 1) != 0
+    if words.shape[0] > 1:
+        cat = torch.clamp(torch.nan_to_num(v, nan=0.0), -1.0,
+                          _CAT_CAP).trunc().long()
+        cat = torch.where(isnan & (mt == 2), torch.full_like(cat, -1), cat)
+        word_idx = torch.div(cat.clamp(min=0), 32, rounding_mode="floor")
+        word = words[torch.clamp(cs + word_idx, 0, words.shape[0] - 1)]
+        bit = (word >> (cat.clamp(min=0) % 32)) & 1
+        go_cat = (cat >= 0) & (word_idx < cw) & (bit == 1)
+        go_left = torch.where(is_cat, go_cat, go_left)
+    return go_left
+
+
+def raw_leaf_index(tables: Dict[str, torch.Tensor], xt: torch.Tensor,
+                   depth: int) -> torch.Tensor:
+    """[T, n] int64 leaf indices of every tree over the raw rows
+    `xt` [F, n] f64 (the features along the first axis), one gather step
+    a depth level; rows already at a leaf keep it."""
+    T = tables["leaf_value"].shape[0]
+    n = xt.shape[1]
+    node = tables["init_node"][:, None].expand(T, n).contiguous()
+    for _ in range(depth):
+        nid = node.clamp(min=0)
+        f = torch.gather(tables["split_feature"], 1, nid)
+        v = torch.gather(xt, 0, f)
+        go_left = raw_go_left(
+            v, torch.gather(tables["decision_type"], 1, nid),
+            torch.gather(tables["threshold"], 1, nid),
+            torch.gather(tables["cat_start"], 1, nid),
+            torch.gather(tables["cat_width"], 1, nid), tables["cat_words"])
+        nxt = torch.where(go_left,
+                          torch.gather(tables["left_child"], 1, nid),
+                          torch.gather(tables["right_child"], 1, nid))
+        node = torch.where(node >= 0, nxt, node)
+    return torch.where(node < 0, ~node, 0)
+
+
+def raw_forest_scores(leaf_value: torch.Tensor, leaf: torch.Tensor, k: int,
+                      early_stop_freq: int = 0,
+                      early_stop_margin: float = 0.0) -> torch.Tensor:
+    """[k, n] f64 raw scores from the [T, n] leaf indices: tree t adds its
+    f64 leaf value to class t % k, per row in tree order from 0, as the
+    native walker adds (forest_predictor.cpp:129-155).  early_stop_freq >
+    0: after every iteration i (its k trees) with i % freq == 0, a row
+    whose margin (|score|, or for several classes the best minus the
+    second best) is >= early_stop_margin takes no more trees."""
+    vals = torch.gather(leaf_value, 1, leaf)
+    T, n = vals.shape
+    out = torch.zeros((k, n), dtype=torch.float64, device=vals.device)
+    active = None
+    if early_stop_freq > 0:
+        active = torch.ones(n, dtype=torch.bool, device=vals.device)
+    for t in range(T):
+        c = t % k
+        if active is None:
+            out[c] = out[c] + vals[t]
+            continue
+        out[c] = torch.where(active, out[c] + vals[t], out[c])
+        if c == k - 1 and (t // k + 1) % early_stop_freq == 0:
+            if k == 1:
+                margin = out[0].abs()
+            else:
+                top = torch.topk(out, 2, dim=0).values
+                margin = top[0] - top[1]
+            active = active & (margin < early_stop_margin)
+    return out
+
+
+def raw_scores_plain(trees: Sequence, X: np.ndarray, k: int,
+                     early_stop_freq: int = 0,
+                     early_stop_margin: float = 0.0) -> np.ndarray:
+    """The plain twin of the raw walk: the JAX package's numpy fallback
+    (lightgbm_tpu/models/gbdt.py:1907-1927), each tree's `Tree.predict`
+    added to its class in tree order, in f64."""
+    out = np.zeros((k, X.shape[0]), np.float64)
+    active = np.ones(X.shape[0], bool)
+    for i, tree in enumerate(trees):
+        if early_stop_freq > 0 and not active.any():
+            break
+        if early_stop_freq > 0:
+            out[i % k, active] += tree.predict(X[active])
+        else:
+            out[i % k] += tree.predict(X)
+        if (early_stop_freq > 0 and i % k == k - 1
+                and (i // k + 1) % early_stop_freq == 0):
+            if k == 1:
+                margin = np.abs(out[0])
+            else:
+                top2 = np.sort(out, axis=0)[-2:]
+                margin = top2[1] - top2[0]
+            active &= margin < early_stop_margin
+    return out

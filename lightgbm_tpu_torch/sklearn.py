@@ -8,9 +8,11 @@ The port of `lightgbm_tpu/sklearn.py`: `LGBMModel` / `LGBMRegressor` /
 `fit` passes `categorical_feature` to the Dataset, so a DataFrame's
 `category` columns train as categorical features.  Extra keyword
 arguments become parameters: `device_type="cpu"` runs on the CPU, and
-without it the estimators train and predict on the card.  `pred_leaf`
-and `pred_contrib` wait for the model utilities (ROADMAP A7) and are
-refused by name.
+without it the estimators train and predict on the card.  `predict`
+passes `pred_leaf` and `pred_contrib` to the booster, as the JAX
+wrapper does (sklearn.py:251-257, 330-342).  `fit(init_model=...)`, a
+model file or a Booster, continues training from it, as the
+reference's wrapper does; the JAX wrapper's `fit` has no such argument.
 """
 
 from __future__ import annotations
@@ -201,7 +203,7 @@ class LGBMModel:
             eval_init_score=None, eval_group=None, eval_metric=None,
             early_stopping_rounds=None, verbose=False,
             feature_name="auto", categorical_feature="auto",
-            callbacks=None) -> "LGBMModel":
+            callbacks=None, init_model=None) -> "LGBMModel":
         params = self._prepare_params()
         if eval_metric is not None and not callable(eval_metric):
             metrics = eval_metric if isinstance(eval_metric, list) \
@@ -246,7 +248,7 @@ class LGBMModel:
             fobj=self._fobj, feval=feval,
             early_stopping_rounds=early_stopping_rounds,
             verbose_eval=verbose, evals_result=evals_result,
-            callbacks=callbacks)
+            callbacks=callbacks, init_model=init_model)
         self._evals_result = evals_result if evals_result else None
         self._best_iteration = self._Booster.best_iteration
         self._best_score = self._Booster.best_score
@@ -260,13 +262,10 @@ class LGBMModel:
                 pred_leaf=False, pred_contrib=False, **kwargs):
         if self._Booster is None:
             raise ValueError("Estimator not fitted, call fit first")
-        for name, on in (("pred_leaf", pred_leaf),
-                         ("pred_contrib", pred_contrib)):
-            if on:
-                raise NotImplementedError(
-                    f"{name}=True is not ported to lightgbm_tpu_torch yet")
         return self._Booster.predict(X, raw_score=raw_score,
-                                     num_iteration=num_iteration, **kwargs)
+                                     num_iteration=num_iteration,
+                                     pred_leaf=pred_leaf,
+                                     pred_contrib=pred_contrib, **kwargs)
 
     # -- attributes ----------------------------------------------------
     @property

@@ -206,18 +206,33 @@ def test_boosting_cases_train_on_the_cpu(extra):
 @pytest.mark.parametrize("extra", BOOSTING_NOW_PORTED[::2],
                          ids=lambda d: d["boosting"])
 def test_rollback_is_refused_by_name(extra):
-    # the rollback of an iteration (and DART's and RF's undo of it) waits
-    # for a later slice
+    """Once refused; now the JAX package's rollback: the last
+    iteration's tree leaves the model and its output the scores
+    (tests/test_torch_utilities.py holds int8 texts byte for byte)."""
     X, y = binary_data(n=300, f=3, seed=1)
-    b = tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y), 2,
-                   keep_training_booster=True)
-    with pytest.raises(NotImplementedError,
-                       match=f"rollback_one_iter.*{extra['boosting']}"):
+    params = dict(SMALL, tpu_hist_impl="xla", **extra)
+    out = []
+    for lgb, p in ((jlgb, dict(params, verbosity=-1)),
+                   (tlgb, dict(params, **CPU))):
+        b = lgb.train(p, lgb.Dataset(X, label=y), 3,
+                      keep_training_booster=True)
         b.rollback_one_iter()
+        out.append((b, b._driver.train_scores.numpy()))
+    (bj, sj), (bt, st) = out
+    assert bt.num_trees() == bj.num_trees() == 2
+    assert bt.current_iteration() == 2
+    assert_trees_match(bj._driver.models, bt._driver.models)
+    np.testing.assert_allclose(st, sj, rtol=1e-5, atol=1e-5)
 
 
-# arguments and parameters of lgb.train that wait on later slices
-UNPORTED_TRAIN_ARGS = [
+def _trees(text):
+    """The tree blocks of a model text."""
+    return text.split("\ntree_sizes=")[1].split("\nend of trees")[0]
+
+
+# arguments and parameters of lgb.train: checkpoints and resume wait on
+# later slices; init_model and snapshot_freq, once refused, now train
+TRAIN_ARGS = [
     ({"init_model": "model.txt"}, {}, "init_model"),
     ({"resume": True}, {}, "resume"),
     ({}, {"tpu_checkpoint_dir": "ckpt"}, "tpu_checkpoint_dir"),
@@ -225,27 +240,63 @@ UNPORTED_TRAIN_ARGS = [
 ]
 
 
-@pytest.mark.parametrize("kwargs,extra,name", UNPORTED_TRAIN_ARGS,
-                         ids=[c[2] for c in UNPORTED_TRAIN_ARGS])
-def test_unported_train_arguments_raise(kwargs, extra, name):
+@pytest.mark.parametrize("kwargs,extra,name", TRAIN_ARGS,
+                         ids=[c[2] for c in TRAIN_ARGS])
+def test_unported_train_arguments_raise(kwargs, extra, name, tmp_path):
     X, y = binary_data(n=300, f=3, seed=1)
-    with pytest.raises(NotImplementedError, match=name):
-        tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y),
-                   1, **kwargs)
+    params = dict(SMALL, tpu_hist_impl="xla", **extra)
+    if name in ("resume", "tpu_checkpoint_dir"):
+        with pytest.raises(NotImplementedError, match=name):
+            tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1,
+                       **kwargs)
+        return
+    # as the JAX package: a continuation from the JAX model's file, or
+    # snapshot files every snapshot_freq rounds
+    init = tmp_path / kwargs.get("init_model", "none")
+    jlgb.train(dict(SMALL, verbosity=-1), jlgb.Dataset(X, label=y),
+               2).save_model(str(init))
+    got = []
+    for lgb, p in ((jlgb, dict(params, verbosity=-1)),
+                   (tlgb, dict(params, **CPU))):
+        p["output_model"] = str(tmp_path / f"{lgb.__name__}.txt")
+        kw = {"init_model": str(init)} if kwargs else {}
+        got.append(lgb.train(p, lgb.Dataset(X, label=y), 2, **kw))
+    bj, bt = got
+    assert_trees_match(bj._driver.models, bt._driver.models)
+    snaps = sorted(f.name.split(".", 1)[1] for f in tmp_path.iterdir()
+                   if "snapshot" in f.name)
+    if name == "init_model":
+        assert bt.num_trees() == 4 and not snaps
+        # the init model's trees go first, as they are in its file
+        assert _trees(bt.model_to_string(num_iteration=2)) == \
+            _trees(init.read_text())
+    else:
+        assert snaps == ["txt.snapshot_iter_2"] * 2
 
 
 def test_reset_parameter_refuses_all_but_the_learning_rate():
+    """Once only the learning rate; now any parameter, as the JAX
+    package takes it: the learner and the train step rebuilt."""
     X, y = binary_data(n=300, f=3, seed=1)
-    b = tlgb.train(dict(SMALL, **CPU), tlgb.Dataset(X, label=y), 1,
-                   keep_training_booster=True)
-    b.reset_parameter({"eta": 0.05})
-    assert b._driver.shrinkage_rate == 0.05
-    with pytest.raises(NotImplementedError, match="num_leaves"):
+    got = []
+    for lgb, p in ((jlgb, dict(SMALL, tpu_hist_impl="xla", verbosity=-1)),
+                   (tlgb, dict(SMALL, tpu_hist_impl="xla", **CPU))):
+        b = lgb.train(p, lgb.Dataset(X, label=y), 1,
+                      keep_training_booster=True)
+        b.reset_parameter({"eta": 0.05})
+        assert b._driver.shrinkage_rate == 0.05
         b.reset_parameter({"num_leaves": 3})
-    with pytest.raises(NotImplementedError, match="bagging_fraction"):
-        tlgb.train(dict(SMALL, **CPU), tlgb.Dataset(X, label=y), 2,
-                   callbacks=[tlgb.reset_parameter(
-                       bagging_fraction=[0.5, 0.6])])
+        b.update()
+        b2 = lgb.train(dict(p, bagging_freq=1), lgb.Dataset(X, label=y), 2,
+                       callbacks=[lgb.reset_parameter(
+                           bagging_fraction=[0.5, 0.6])])
+        got.append((b, b2))
+    (bj, bj2), (bt, bt2) = got
+    for b in (bj, bj2, bt, bt2):
+        b.num_trees()                  # the lazy trees materialized
+    assert bt._driver.models[-1].num_leaves <= 3
+    assert_trees_match(bj._driver.models, bt._driver.models)
+    assert_trees_match(bj2._driver.models, bt2._driver.models)
 
 
 # once refused; now packed as the JAX learner packs, into the packed

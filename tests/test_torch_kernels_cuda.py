@@ -1367,3 +1367,102 @@ def test_file_ingest_on_card_matches_cpu_bins(tmp_path):
             assert ds._inner.bins_t.device.type == dev
             bins[dev] = ds._inner.bins
         np.testing.assert_array_equal(bins["cuda"], bins["cpu"])
+
+
+# ---- the model utilities: the f64 leaf sums, the raw-value walker, SHAP --
+
+
+@pytest.mark.parametrize("case", list(LEAF_CASES))
+def test_leaf_sums_f64_kernel_bitwise_to_cpu_index_add(case):
+    """Booster.refit's sums: the f32 pairs added into doubles in row
+    order, bitwise index_add_ in f64 on the CPU (np.bincount's order)."""
+    from lightgbm_tpu_torch.ops import leafsum as TL
+
+    dev = cuda_device()
+    ids_c, vals_c, L = _leaf_operands(case)
+    before = dict(kernels.launches)
+    got = TL.leaf_sums(ids_c.to(dev), vals_c.to(dev), L,
+                       out_dtype=torch.float64)
+    assert {k: v - before[k] for k, v in kernels.launches.items()
+            if v != before[k]} == {"leaf_group": 1, "leaf_sums_f64": 1}
+    assert got.dtype == torch.float64
+    assert torch.equal(got.cpu(), TL.leaf_sums_plain(
+        ids_c, vals_c, L, out_dtype=torch.float64))
+
+
+def _utility_model(cat):
+    import lightgbm_tpu_torch as tlgb
+
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(3000, 6))
+    X[rng.random(X.shape) < 0.05] = np.nan
+    if cat:
+        X[:, 0] = rng.integers(0, 6, len(X)).astype(np.float64)
+        X[:40, 0] = np.nan
+    y = np.nan_to_num(X[:, 1]) - 0.5 * np.nan_to_num(X[:, 2]) ** 2
+    kw = {"categorical_feature": [0]} if cat else {}
+    params = {"objective": "regression", "num_leaves": 15, "max_bin": 63,
+              "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+              "verbosity": -1}
+    cpu = tlgb.train(dict(params, device_type="cpu"),
+                     tlgb.Dataset(X, label=y, **kw), 6)
+    return X, y, params, cpu.model_to_string()
+
+
+@pytest.mark.parametrize("cat", [False, True], ids=["numerical",
+                                                    "categorical"])
+def test_raw_walker_and_shap_on_card_equal_cpu(cat):
+    """The raw-value walk (scores, leaves, early stop) and the batched
+    SHAP contributions of one model text, card against CPU, bit for bit
+    (f64 torch ops, no fused multiply-add)."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops.predict import raw_scores_plain
+
+    dev = cuda_device()
+    X, _, _, text = _utility_model(cat)
+    card = tlgb.Booster(model_str=text, params={"device_type": "cuda"})
+    cpu = tlgb.Booster(model_str=text, params={"device_type": "cpu"})
+    assert card._driver.device.type == dev.type
+    for kw in ({"raw_score": True, "tpu_predict_device": False},
+               {"pred_leaf": True},
+               {"raw_score": True, "pred_early_stop": True,
+                "pred_early_stop_freq": 2, "pred_early_stop_margin": 0.5}):
+        np.testing.assert_array_equal(card.predict(X, **kw),
+                                      cpu.predict(X, **kw))
+    np.testing.assert_array_equal(
+        card.predict(X, raw_score=True, tpu_predict_device=False),
+        raw_scores_plain(cpu._driver.models, X, 1)[0])
+    np.testing.assert_array_equal(card.predict(X[:300], pred_contrib=True),
+                                  cpu.predict(X[:300], pred_contrib=True))
+
+
+def test_refit_and_continuation_on_card_equal_cpu():
+    """Booster.refit on the card (leaf_group and the f64 leaf sums)
+    writes the CPU's text; an int8 regression continuation with a
+    validation set writes the CPU's text and rolls back alike."""
+    import lightgbm_tpu_torch as tlgb
+
+    dev = cuda_device()
+    X, y, params, text = _utility_model(False)
+    y2 = y[::-1].copy()
+    before = dict(kernels.launches)
+    card = tlgb.Booster(model_str=text, params={"device_type": "cuda"}
+                        ).refit(X, y2, decay_rate=0.9)
+    used = {k for k, v in kernels.launches.items() if v != before[k]}
+    assert used == {"leaf_group", "leaf_sums_f64"}
+    cpu = tlgb.Booster(model_str=text, params={"device_type": "cpu"}
+                       ).refit(X, y2, decay_rate=0.9)
+    assert card.model_to_string() == cpu.model_to_string()
+    texts = []
+    for device in ("cuda", "cpu"):
+        p = dict(params, device_type=device)
+        ds = tlgb.Dataset(X[:2500], label=y[:2500])
+        b = tlgb.train(p, ds, 3, init_model=tlgb.Booster(
+            model_str=text, params=p),
+            valid_sets=[ds.create_valid(X[2500:], label=y[2500:])],
+            keep_training_booster=True)
+        b.rollback_one_iter()
+        texts.append(re.sub(r"\[device_type: [^\]]*\]", "",
+                            b.model_to_string()))
+    assert texts[0] == texts[1]
+    assert dev.type == "cuda"

@@ -102,3 +102,22 @@ def test_grouping_twin_refuses_ids_past_the_leaves():
     ids = torch.tensor([0, 3, 5], dtype=torch.int32)
     with pytest.raises(ValueError, match=r"\[0, 4\)"):
         leaf_group_plain(ids, torch.ones(2, 3), 4)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_f64_sums_are_numpy_bincount(case):
+    """Booster.refit's sums (out_dtype f64): each leaf's f32 values
+    widened and added in row order, bitwise np.bincount of their f64
+    values, the JAX package's refit sums (gbdt.py:2039-2041); the CPU
+    dispatch takes the twin."""
+    n, L, how = CASES[case]
+    ids, vals = _operands(n, L, how)
+    got = leaf_sums(ids, vals, L, out_dtype=torch.float64)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, leaf_sums_plain(ids, vals, L,
+                                            out_dtype=torch.float64))
+    for v in range(2):
+        want = np.bincount(ids.numpy().astype(np.int64),
+                           weights=vals[v].numpy().astype(np.float64),
+                           minlength=L)
+        np.testing.assert_array_equal(got[v].numpy(), want)

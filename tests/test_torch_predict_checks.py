@@ -1,11 +1,13 @@
-"""What predict of lightgbm_tpu_torch checks before it walks the trees:
-the feature count (with predict_disable_shape_check), and the predict
-routes and keywords it does not honor yet, refused by name
-(tpu_predict_device=false at train, at load and at predict; pred_leaf,
-pred_contrib, pred_early_stop*).  The model is one JAX-trained text
-loaded by both packages, so their raw scores compare exactly; the JAX
-side predicts on its device path (tpu_predict_device=true), the f32
-walk the port makes."""
+"""What predict of lightgbm_tpu_torch checks before it walks the trees,
+and where it walks them: the feature count (with
+predict_disable_shape_check); tpu_predict_device=false at train, at load
+and at predict, and the keywords pred_leaf, pred_contrib and
+pred_early_stop*, which take the raw-value walker as the JAX package
+takes its f64 host walker; other keywords raise by name.  The model is
+one JAX-trained text loaded by both packages, so their raw scores
+compare exactly; the JAX side predicts on its device path
+(tpu_predict_device=true) where the port makes its f32 bin-space walk,
+and on its host walker where the port takes the raw-value walker."""
 
 import numpy as np
 import pytest
@@ -97,37 +99,50 @@ def test_training_parameter_disables_the_shape_check():
 
 @pytest.mark.parametrize("value", [False, "false"])
 def test_host_predict_is_refused_at_train(value):
+    """Once refused; now trained, and its predict is the raw-value walk,
+    the JAX package's host walker on the same text."""
     X, y = binary_data(n=300, f=3, seed=1)
-    with pytest.raises(NotImplementedError,
-                       match="tpu_predict_device=false .*training"):
-        tlgb.train(dict(SMALL, **CPU, tpu_predict_device=value),
-                   tlgb.Dataset(X, label=y), num_boost_round=1)
+    bt = tlgb.train(dict(SMALL, **CPU, tpu_predict_device=value),
+                    tlgb.Dataset(X, label=y), num_boost_round=2)
+    text = bt.model_to_string()
+    assert bt._driver.host_predict()
+    want = jlgb.Booster(model_str=text).predict(X, raw_score=True,
+                                                tpu_predict_device=False)
+    np.testing.assert_array_equal(bt.predict(X, raw_score=True), want)
 
 
 def test_host_predict_is_refused_at_load(model):
+    """Once refused; now a text whose parameters say
+    tpu_predict_device=false, or a loading Booster's parameter, takes
+    the raw-value walker: the JAX package's host walker."""
     X, text = model
     y = (X[:, 0] > 0).astype(float)
     bj = jlgb.train(dict(SMALL, verbosity=-1, tpu_predict_device="false"),
                     jlgb.Dataset(X, label=y), num_boost_round=2)
     pinned = bj.model_to_string()
     assert "[tpu_predict_device: false]" in pinned
-    with pytest.raises(NotImplementedError,
-                       match="tpu_predict_device=false .*model text"):
-        tlgb.Booster(model_str=pinned, params=CPU)
-    with pytest.raises(NotImplementedError,
-                       match="tpu_predict_device=false .*loading Booster"):
+    np.testing.assert_array_equal(
+        tlgb.Booster(model_str=pinned, params=CPU).predict(X,
+                                                           raw_score=True),
+        bj.predict(X, raw_score=True))
+    want = jlgb.Booster(model_str=text).predict(X, raw_score=True,
+                                                tpu_predict_device=False)
+    np.testing.assert_array_equal(
         tlgb.Booster(model_str=text,
-                     params=dict(CPU, tpu_predict_device=False))
+                     params=dict(CPU, tpu_predict_device=False)).predict(
+                         X, raw_score=True), want)
 
 
 def test_host_predict_is_refused_as_a_keyword(model):
+    """Once refused; now the keyword false takes the raw-value walker
+    (the JAX host walker's scores), auto and true the device walk."""
     X, text = model
     bt = tlgb.Booster(model_str=text, params=CPU)
+    host = jlgb.Booster(model_str=text).predict(X, raw_score=True,
+                                                tpu_predict_device=False)
     for value in (False, "false", "0"):
-        with pytest.raises(NotImplementedError,
-                           match="tpu_predict_device=false .*keyword"):
-            bt.predict(X[:10], tpu_predict_device=value)
-    # auto and true are the device walk the port always makes
+        np.testing.assert_array_equal(
+            bt.predict(X, raw_score=True, tpu_predict_device=value), host)
     want = bt.predict(X[:50])
     for value in ("auto", True, "true"):
         np.testing.assert_array_equal(
@@ -139,11 +154,21 @@ def test_host_predict_is_refused_as_a_keyword(model):
     {"pred_early_stop_freq": 5}, {"pred_early_stop_margin": 2.0},
     {"num_threads": 2}], ids=lambda d: next(iter(d)))
 def test_unhonored_predict_keywords_raise_by_name(model, kw):
+    """num_threads raises by name; the JAX package's keywords, once
+    refused, now predict as its predict does: pred_leaf, pred_contrib
+    and pred_early_stop on its host walker, the freq and margin alone
+    changing nothing."""
     X, text = model
     bt = tlgb.Booster(model_str=text, params=CPU)
     (name, _), = kw.items()
-    with pytest.raises(NotImplementedError, match=f"predict\\({name}="):
-        bt.predict(X[:10], **kw)
+    if name == "num_threads":
+        with pytest.raises(NotImplementedError, match=f"predict\\({name}="):
+            bt.predict(X[:10], **kw)
+    else:
+        host = name in ("pred_leaf", "pred_contrib", "pred_early_stop")
+        want = jlgb.Booster(model_str=text).predict(
+            X[:200], tpu_predict_device=not host, **kw)
+        np.testing.assert_array_equal(bt.predict(X[:200], **kw), want)
     # their defaults leave predict as it is
     np.testing.assert_array_equal(
         bt.predict(X[:10], pred_leaf=False, pred_contrib=False,

@@ -189,8 +189,11 @@ def test_pickle_and_clone_round_trip():
         m.booster_.model_to_string().split("\nparameters:")[0]
     refit = clone(m).fit(X, labels["binary"])
     assert refit.booster_.model_to_string() == m.booster_.model_to_string()
-    with pytest.raises(NotImplementedError, match="pred_leaf"):
-        m.predict(X, pred_leaf=True)
+    # pred_leaf (once refused) passes through to the booster
+    leaves = m.predict(X, pred_leaf=True)
+    np.testing.assert_array_equal(leaves,
+                                  m.booster_.predict(X, pred_leaf=True))
+    np.testing.assert_array_equal(back.predict(X, pred_leaf=True), leaves)
 
 
 def test_estimators_ask_for_the_card_by_default():

@@ -1065,6 +1065,164 @@ def _job_sparse_storage(inp, spec):
     return out
 
 
+# ---- the model utilities (init_model, snapshots, rollback, reset, refit) ---
+
+
+def strip_mapper_trailer(text):
+    """A model text without its `tpu_bin_mappers:` line (as upstream
+    LightGBM writes it): loaded, it predicts through the raw-value
+    walker."""
+    return "".join(line for line in text.splitlines(True)
+                   if not line.startswith("tpu_bin_mappers:"))
+
+
+def utilities_run(lgb, inp, run, tmp):
+    """One training case of tests/test_torch_utilities.py, the same
+    script for either package (the JAX package's in the no-FMA process,
+    job "utilities"): the model texts, score states and predictions the
+    test compares."""
+    import os
+
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    p = dict(run["params"], verbosity=-1)
+    if not jax_side:
+        p["device_type"] = "cpu"
+    X, y = inp["X_" + run["data"]], inp["y_" + run["data"]]
+    n_tr = run.get("n_train", len(y))
+    kind = run["kind"]
+    tag = f"{run['name']}_{'jax' if jax_side else 'port'}"
+
+    def dataset(a, b, **kw):
+        return lgb.Dataset(a, label=b, params={"max_bin": p["max_bin"]},
+                           **kw)
+
+    def scores(b):
+        d = b._driver
+        return ([np.asarray(d.train_scores.numpy())]
+                + [np.asarray(v.numpy()) for v in d.valid_scores])
+
+    if kind == "continue":
+        init = lgb.train(p, dataset(X[:n_tr], y[:n_tr]), run["init_rounds"])
+        src = init
+        if run["from"] == "path":
+            src = os.path.join(tmp, f"init_{tag}.txt")
+            init.save_model(src)
+        train = dataset(X[:n_tr], y[:n_tr])
+        evals = {}
+        b = lgb.train(p, train, run["rounds"],
+                      valid_sets=[train.create_valid(X[n_tr:], y[n_tr:])],
+                      valid_names=["v"], init_model=src, evals_result=evals,
+                      verbose_eval=False, keep_training_booster=True)
+        train_scores, valid_scores = scores(b)
+        return {"init_text": init.model_to_string(),
+                "text": b.model_to_string(), "train_scores": train_scores,
+                "valid_scores": valid_scores,
+                "curve": np.asarray(evals["v"]["l2"]),
+                "iteration": b.current_iteration()}
+    if kind == "snapshot":
+        out = os.path.join(tmp, f"snap_{tag}.txt")
+        b = lgb.train(dict(p, snapshot_freq=run["freq"], output_model=out),
+                      dataset(X, y), run["rounds"])
+        res = {"text": b.model_to_string()}
+        for i in range(run["freq"], run["rounds"] + 1, run["freq"]):
+            with open(f"{out}.snapshot_iter_{i}") as f:
+                res[f"snapshot_{i}"] = f.read()
+            res[f"text_{i}"] = b.model_to_string(num_iteration=i)
+        return res
+    if kind == "rollback":
+        train = dataset(X[:n_tr], y[:n_tr])
+        b = lgb.Booster(params=p, train_set=train)
+        b.add_valid(train.create_valid(X[n_tr:], y[n_tr:]), "v")
+        for _ in range(run["rounds"]):
+            b.update()
+        before = scores(b)
+        b.update()
+        b.rollback_one_iter()
+        after = scores(b)
+        res = {"before_train": before[0], "before_valid": before[1],
+               "after_train": after[0], "after_valid": after[1],
+               "iteration": b.current_iteration(),
+               "text_rolled": b.model_to_string()}
+        b.update()
+        res["text_next"] = b.model_to_string()
+        return res
+    if kind == "reset":
+        sched = {k: list(v) for k, v in run["schedule"].items()}
+        b = lgb.train(p, dataset(X, y), run["rounds"],
+                      callbacks=[lgb.reset_parameter(**sched)],
+                      keep_training_booster=True)
+        b.reset_parameter(dict(run["then"]))
+        b.update()
+        return {"text": b.model_to_string()}
+    if kind == "refit":
+        b = lgb.train(p, dataset(X[:n_tr], y[:n_tr]), run["rounds"])
+        res = {"text": b.model_to_string()}
+        for decay in run["decays"]:
+            r = b.refit(X[n_tr:], y[n_tr:], decay_rate=decay)
+            res[f"refit_{decay}"] = r.model_to_string()
+        return res
+    if kind == "sklearn":
+        kw = dict(p)
+        kw.pop("objective", None)
+        m = lgb.LGBMRegressor(n_estimators=run["rounds"], **kw).fit(X, y)
+        return {"leaf": m.predict(X, pred_leaf=True),
+                "contrib": m.predict(X[:run["contrib_rows"]],
+                                     pred_contrib=True),
+                "text": m.booster_.model_to_string()}
+    if kind == "cat_continue":
+        def cat_set():
+            return dataset(X, y, categorical_feature=run["cat"])
+
+        init = lgb.train(p, cat_set(), run["init_rounds"])
+        b = lgb.train(p, cat_set(), 0, init_model=init,
+                      keep_training_booster=True)
+        return {"text": init.model_to_string(),
+                "train_scores": scores(b)[0],
+                "init_raw": init.predict(X, raw_score=True,
+                                         tpu_predict_device=False)}
+    if kind == "walk":
+        b = lgb.train(p, dataset(X, y, categorical_feature=run["cat"]),
+                      run["rounds"])
+        return {"text": b.model_to_string()}
+    raise ValueError(f"unknown utilities case {kind!r}")
+
+
+def _job_utilities(inp, spec):
+    """utilities_run of the JAX package for every run of the spec."""
+    import tempfile
+
+    import lightgbm_tpu as lgb
+
+    tmp = tempfile.mkdtemp()
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        for k, v in utilities_run(lgb, inp, run, tmp).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
+def _job_shap(inp, spec):
+    """lgb.train of the JAX package for every run of
+    tests/test_torch_shap.py: each model's text, and its SHAP
+    contributions and raw scores on the run's predict rows."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        X, y = inp["X_" + run["data"]], inp["y_" + run["data"]]
+        ds = lgb.Dataset(X, label=y, categorical_feature=run.get("cat",
+                                                                 "auto"),
+                         params={"max_bin": run["params"]["max_bin"]})
+        b = lgb.train(dict(run["params"], verbosity=-1), ds,
+                      num_boost_round=run["rounds"])
+        Xp = inp["Xp_" + run["data"]]
+        out[f"{c}_text"] = np.array(b.model_to_string())
+        out[f"{c}_contrib"] = b.predict(Xp, pred_contrib=True)
+        out[f"{c}_raw"] = b.predict(Xp, raw_score=True,
+                                    tpu_predict_device=False)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -1079,6 +1237,7 @@ if __name__ == "__main__":
               "sklearn": _job_sklearn, "sparse": _job_sparse,
               "constraints": _job_constraints,
               "fileio": _job_fileio,
-              "sparse_storage": _job_sparse_storage}[job](
+              "sparse_storage": _job_sparse_storage,
+              "utilities": _job_utilities, "shap": _job_shap}[job](
                   inp, spec)
     np.savez(dst, **result)
