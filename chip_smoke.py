@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. thirty-eight paths at full width, each lgb.train (cv_int8:
+  3. forty-two paths at full width, each lgb.train (cv_int8:
      lgb.cv) on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
      and sparse paths: a sparse table of 697 features), then
@@ -209,6 +209,49 @@ Phases, each fatal on failure (exit code 1, no result line):
                rows, TreeSHAP batched over rows as f64 torch ops: the
                first 64 rows bit for bit the numpy twin's, each row
                summing to its raw f64 score within 1e-9; rows/s;
+     the next four run after phase 4 (and --profile's profiles), before
+     phase 5:
+       resume_int8  valid_bag_int8's parameters with tpu_checkpoint_dir
+               (interval 2, keep 3), 10 iterations with early stopping
+               armed: B1-int, B2, B3, the leaf sums; the text must be the
+               same run's without checkpoints, byte for byte; a run whose
+               grow_step raises at its 7th iteration must leave bundles
+               6, 4 and 2 (the flush finds 6 valid) and a booster that
+               predicts; resume=True to 10 must give the uninterrupted
+               text; it prints the bundle's bytes, its save and restore
+               seconds, the snapshot's ms an iteration and iters/s with
+               and without checkpoints;
+       guard_int8  the same parameters under tpu_guard_numerics=skip with
+               the 4th iteration's scores NaN-poisoned: one skip, finite
+               scores, 10 trees; under raise, 3 iterations left and a
+               finite predict; the guard's ms an iteration (5 more
+               iterations with it off and on, twice in turns) and its
+               check's ms alone;
+       oom_int8  int8 with tpu_hist_impl=fused pinned and the chunk
+               rows one halving above the ladder's floor, two OOMs
+               injected at the 3rd iteration (device_alloc): the ladder
+               takes shrink_chunk_rows, then fused_unfuse, the later
+               iterations launch B1-int and no B2, the text is the
+               undisturbed fused run's, and the recoveries and steps
+               counters move by 2; then a genuine OOM (after the first
+               iteration the caching allocator capped 8 MiB above what
+               it holds and its free blocks filled, the cap lifted and
+               the blocks freed after): the run
+               settles at an undisturbed run's text at the settled
+               configuration, or ends in MemoryLadderExhausted with a
+               final checkpoint and a booster that predicts, never a raw
+               torch.OutOfMemoryError; torch.empty past capacity inside
+               oom_guard("predict_chunk") must be a DeviceOutOfMemory
+               naming the site;
+       preflight  plan_training of a fresh hilo and int8 learner: each
+               component the live tensors give (membudget.live_bytes,
+               after one iteration) must equal the plan's; the plan's
+               total beside one steady iteration's peak (its rise of
+               max_memory_allocated plus the resident bins, row-major
+               copy, scores and row mask); tpu_hbm_preflight=raise with
+               a budget of the int8 plan less one byte must refuse before
+               iteration 0, print the itemized table and launch no
+               kernel;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -294,7 +337,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      against a second card run and the card's all-dense run; and an int8
      regression continuation with a validation set by its whole model
      text, its refit by the refit's text (leaf values bit for bit) and its
-     contributions of 500 rows bit for bit.
+     contributions of 500 rows bit for bit; and an int8 regression
+     bundle (bagging) written on the card after 3 iterations and resumed
+     on the CPU to 6, and one written on the CPU and resumed on the card,
+     each by its whole model text against the uninterrupted card run.
 With --profile, after phase 4, two more iterations of every path run
 under torch.profiler and the device time by op, each port kernel's
 device time per call on the path and the device's idle share are
@@ -332,8 +378,16 @@ AUC_TOL = 5e-3
 # kernel B1 against its twin: count rows exact; g and h within this
 # fraction of the slot's sum of |stat|, the f32 summation-order bound
 HIST_RTOL = 1e-6
-# device_ms: profiles taken before a timing with too few launches seen fails
+# device_ms: profiles taken before a timing with too few launches seen
+# fails
 PROFILE_TRIES = 3
+# device_ms: the least calls one profile times.  After minutes of
+# training a profile drops its first device records, a number that
+# grows with the process's age and not with the calls (on an H100: 12
+# of 20 calls and 12 of 200 after 150 s, the profiler's log counting
+# them "Out-of-range"; 17-20 of 20 in phase 4;
+# probes/profiler_starvation.py)
+PROFILE_CALLS = 100
 # phase 4's bagged operands: the share of the rows with zero stats and of
 # the features masked (bagging_fraction and feature_fraction 0.8)
 BAG_OUT = 0.2
@@ -1436,10 +1490,12 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
     empty profile first takes stragglers of earlier ones, another after
     the timed one takes its own, and the time is the mean over the
     launches seen times `launches`; with launches=None it is the sum
-    seen over reps.  Where a profile saw fewer than half the launches
-    (seen on an H100 after the path profiles of --profile: 4 and 9 of 20),
-    more are taken, up to PROFILE_TRIES in all, until the launches seen
-    in them together reach half of one profile's."""
+    seen over the calls.  A profile drops its first device records once
+    the process has trained for minutes (seen on an H100: 0 to 9 of 20
+    launches in phase 4's first row), so it times at least
+    PROFILE_CALLS calls.  Where a profile saw fewer than half the
+    launches, more are taken, up to PROFILE_TRIES in all, until the
+    launches seen in them together reach half of one profile's."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1453,23 +1509,24 @@ def device_ms(fn, reps, kernels_of=None, launches=1):
         return [float(ev.self_device_time_total)
                 for ev, label in zip(events, labels) if label is not None]
 
+    calls = max(reps, PROFILE_CALLS)
     us = []
     for _ in range(PROFILE_TRIES):
         with tprofile(activities=acts):
             torch.cuda.synchronize()
         with tprofile(activities=acts) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         with tprofile(activities=acts) as late:
             torch.cuda.synchronize()
         if launches is None:
-            return sum(launches_of(prof) + launches_of(late)) / 1e3 / reps
+            return sum(launches_of(prof) + launches_of(late)) / 1e3 / calls
         us += launches_of(prof) + launches_of(late)
-        if len(us) >= reps * launches // 2:
+        if len(us) >= calls * launches // 2:
             return sum(us) / len(us) * launches / 1e3
     fail(f"torch.profiler saw {len(us)} port kernel launches in "
-         f"{PROFILE_TRIES} profiles of {reps} calls")
+         f"{PROFILE_TRIES} profiles of {calls} calls")
 
 
 def smi_line() -> str:
@@ -3551,6 +3608,605 @@ def cross_check_zoo(lgb, Xs, y_reg, lat):
     return out
 
 
+# ---- fault tolerance and device memory ------------------------------------
+# resume_int8: valid_bag_int8's parameters, a checkpoint every 2 rounds,
+# 3 kept, early stopping armed, ITERS iterations; the cut run raises at
+# its 7th iteration (1-based), so 6 are complete
+CKPT_INTERVAL = 2
+CKPT_KEEP = 3
+CUT_AT = 7
+# guard_int8: the same parameters under tpu_guard_numerics, the 4th
+# iteration (1-based) poisoned
+POISON_AT = 4
+# oom_int8: int8 with the grow megakernel pinned, chunks one halving above
+# the ladder's floor (4096), 2 injected OOMs at the 3rd iteration (1-based)
+OOM_PARAMS = dict(PARAMS, tpu_hist_precision="int8", tpu_hist_impl="fused",
+                  tpu_ingest_chunk_rows=8192, tpu_predict_chunk_rows=8192)
+ITERS_OOM = 6
+OOM_AT = 3
+# the genuine OOM: after the first iteration the caching allocator is
+# capped this far above what it holds, and its free blocks are filled
+# with 2 MiB tensors, the last OOM_MARGIN of them given back for the
+# final checkpoint's small copies: the next iteration cannot fit
+OOM_MARGIN = 8 << 20
+FILL_BLOCK = 2 << 20
+# timings of the snapshot and the guard's check: calls of each
+FT_REPS = 20
+
+
+def model_text(booster):
+    """A model text without its parameters block (it names the run's
+    checkpoint directory and device); the trees and trailers stay."""
+    text = booster.model_to_string(num_iteration=-1)
+    head, rest = text.split("\nparameters:", 1)
+    return head + rest.split("end of parameters", 1)[1]
+
+
+class _Grab:
+    """A callback keeping the booster of an lgb.train that raises."""
+
+    order = 0
+    before_iteration = True
+
+    def __init__(self):
+        self.booster = None
+
+    def __call__(self, env):
+        self.booster = env.model
+
+
+def _sync_s(fn):
+    """fn()'s wall seconds, the card synchronized on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _save_parts(booster, path):
+    """Seconds of each part of one checkpoint save of `booster` into
+    `path`: the captured state (the lazy trees materialized, the scores
+    copied to the host), the model text, the npz of the arrays and the
+    CRC32s, each alone; then the whole save, with the time spent in
+    os.fsync (four files and two directories) summed apart."""
+    import io
+    import zlib
+
+    drv = booster._driver
+    out = {}
+    out["capture_s"], (state, arrays) = _sync_s(drv.capture_train_state)
+    out["model_text_s"], text = _sync_s(
+        lambda: booster.model_to_string(num_iteration=-1))
+    buf = io.BytesIO()
+    out["npz_s"], _ = _sync_s(lambda: np.savez(buf, **arrays))
+    payloads = [text.encode("utf-8"),
+                json.dumps(state, sort_keys=True).encode(), buf.getvalue()]
+    out["crc_s"], _ = _sync_s(lambda: [zlib.crc32(p) for p in payloads])
+    fsync, spent = os.fsync, []
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        fsync(fd)
+        spent.append(time.perf_counter() - t0)
+
+    os.fsync = timed_fsync
+    try:
+        out["save_s"], _ = _sync_s(lambda: booster.save_checkpoint(path))
+    finally:
+        os.fsync = fsync
+    out["fsync_s"] = sum(spent)
+    out["fsyncs"] = len(spent)
+    return out
+
+
+def _bundle_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def resume_path(lgb, kernels, ds, X, y, tmp):
+    """resume_int8: lgb.train of VALID_PARAMS with the held-out rows as a
+    validation set and early stopping, without and with checkpoints
+    (tpu_checkpoint_dir, interval CKPT_INTERVAL, keep CKPT_KEEP): the
+    texts must be byte-identical, and the checkpointing run must launch
+    B1-int, B2, B3 and the leaf sums.  A run whose grow_step raises at
+    iteration CUT_AT leaves its last interval bundle (ckpt-6, flushed),
+    CKPT_KEEP of them, and a booster that predicts; resume=True then
+    gives the uninterrupted text.  Returns the report."""
+    import torch
+    from lightgbm_tpu_torch.utils import faultline
+    from lightgbm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
+    valid = ds.create_valid(Xho, label=yho)
+    d = os.path.join(tmp, "resume_ckpt")
+
+    def run(params, **kw):
+        return lgb.train(dict(params), ds, num_boost_round=ITERS,
+                         valid_sets=[valid], valid_names=["valid"],
+                         early_stopping_rounds=EARLY_STOP,
+                         verbose_eval=False, keep_training_booster=True,
+                         **kw)
+
+    plain_s, plain = _sync_s(lambda: run(VALID_PARAMS))
+    want = model_text(plain)
+    ckpt = dict(VALID_PARAMS, tpu_checkpoint_dir=d,
+                tpu_checkpoint_interval=CKPT_INTERVAL,
+                tpu_checkpoint_keep=CKPT_KEEP)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ckpt_s, booster = _sync_s(lambda: run(ckpt))
+    launches = dict(kernels.launches)
+    for name in INT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on path resume_int8")
+    if model_text(booster) != want:
+        fail("resume_int8: checkpointing changed the model text")
+    mgr = CheckpointManager(d)
+    newest = mgr.checkpoints()[0][1]
+    bundle = _bundle_bytes(newest)
+    save = _save_parts(booster, os.path.join(tmp, "resume_save"))
+    snapshot_ms = cuda_ms(booster._driver._iter_snapshot, FT_REPS)
+    shutil.rmtree(d)
+    grab = _Grab()
+    faultline.reset()
+    faultline.arm("grow_step", action="raise", at=CUT_AT)
+    try:
+        run(ckpt, callbacks=[grab])
+        fail("resume_int8: the armed grow_step did not raise")
+    except faultline.FaultInjected:
+        pass
+    finally:
+        faultline.reset()
+    kept = [it for it, _ in mgr.checkpoints()]
+    if kept != [CUT_AT - 1 - CKPT_INTERVAL * i for i in range(CKPT_KEEP)]:
+        fail(f"resume_int8: bundles {kept} after the cut at iteration "
+             f"{CUT_AT}")
+    cut = grab.booster
+    if cut.current_iteration() != CUT_AT - 1:
+        fail(f"resume_int8: the cut booster is at iteration "
+             f"{cut.current_iteration()}")
+    pred = cut.predict(Xho)
+    if not np.all(np.isfinite(pred)):
+        fail("resume_int8: the cut booster's predictions are not finite")
+    fresh = lgb.Booster(params=dict(ckpt), train_set=ds)
+    restore_s, it = _sync_s(lambda: fresh.resume_from_checkpoint(d))
+    if it != CUT_AT - 1:
+        fail(f"resume_int8: resume_from_checkpoint gave iteration {it}")
+    resumed_s, resumed = _sync_s(lambda: run(ckpt, resume=True))
+    if model_text(resumed) != want:
+        fail("resume_int8: the resumed text is not the uninterrupted one")
+    return {"iters_per_s_without_ckpt": plain.num_trees() / plain_s,
+            "iters_per_s_with_ckpt": booster.num_trees() / ckpt_s,
+            "trees": booster.num_trees(),
+            "best_iteration": booster.best_iteration,
+            "bundle_bytes": bundle, "save_s": save["save_s"],
+            "save_parts": save,
+            "snapshot_ms_per_iter": snapshot_ms,
+            "restore_s": restore_s, "resumed_rounds_s": resumed_s,
+            "kept_bundles": kept, "cut_holdout_auc": auc(pred, yho),
+            "texts_identical": True, "launches": launches,
+            "launches_per_tree": {k: v / booster.num_trees()
+                                  for k, v in launches.items()}}
+
+
+def guard_path(lgb, kernels, ds, X, y):
+    """guard_int8: VALID_PARAMS under tpu_guard_numerics=skip with the
+    POISON_AT-th iteration's scores NaN-poisoned: one skip, finite
+    scores, ITERS trees; under raise the poisoned iteration is rolled
+    back (POISON_AT - 1 iterations) and the booster predicts.  The
+    guard's ms an iteration: the skip booster's next iterations with the
+    guard off and on in turns, and its one reduction alone.  Returns the
+    report."""
+    import torch
+    from lightgbm_tpu_torch.utils import faultline
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+
+    Xho = X[N_TRAIN:]
+    valid = ds.create_valid(Xho, label=y[N_TRAIN:])
+
+    def booster(mode):
+        b = lgb.Booster(params=dict(VALID_PARAMS, tpu_guard_numerics=mode),
+                        train_set=ds)
+        b.add_valid(valid, "valid")
+        return b
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    skip = booster("skip")
+    faultline.reset()
+    faultline.arm("grow_step", action="poison", at=POISON_AT)
+    try:
+        while skip.current_iteration() < ITERS:
+            skip.update()
+    finally:
+        faultline.reset()
+    launches = dict(kernels.launches)
+    drv = skip._driver
+    trees = skip.num_trees()
+    if drv._guard_skips_total != 1 or trees != ITERS \
+            or not bool(torch.isfinite(drv.train_scores.scores).all()):
+        fail(f"guard_int8: {drv._guard_skips_total} skips, "
+             f"{skip.num_trees()} trees")
+    for name in INT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on path guard_int8")
+    raising = booster("raise")
+    faultline.arm("grow_step", action="poison", at=POISON_AT)
+    try:
+        for _ in range(ITERS):
+            raising.update()
+        fail("guard_int8: tpu_guard_numerics=raise did not raise")
+    except LightGBMError as exc:
+        if "non-finite" not in str(exc):
+            fail(f"guard_int8: raise mode said {exc}")
+    finally:
+        faultline.reset()
+    if raising.current_iteration() != POISON_AT - 1 \
+            or not np.all(np.isfinite(raising.predict(Xho))):
+        fail(f"guard_int8: raise left {raising.current_iteration()} "
+             "iterations or non-finite predictions")
+    # the guard's cost: ITERS_EVAL_COST more iterations of the skip
+    # booster with the guard off and on, twice in turns; beside each
+    # iteration's wall time, the host's time in update() and, guarded,
+    # the part of it spent in the guard's check (its wait drains the
+    # queue the host built up, which the unguarded host runs ahead of)
+    spent = {"off": [], "skip": []}
+    host = {"off": [], "skip": []}
+    waits = []
+    check = drv._scores_finite
+
+    def timed_check():
+        t0 = time.perf_counter()
+        ok = check()
+        waits.append(time.perf_counter() - t0)
+        return ok
+
+    drv._scores_finite = timed_check
+
+    def iterations(mode):
+        in_update = 0.0
+        for _ in range(ITERS_EVAL_COST):
+            t0 = time.perf_counter()
+            skip.update()
+            in_update += time.perf_counter() - t0
+        skip.num_trees()
+        host[mode].append(in_update / ITERS_EVAL_COST)
+
+    try:
+        for mode in ("off", "skip", "off", "skip"):
+            drv._guard = mode
+            spent[mode].append(
+                _sync_s(lambda: iterations(mode))[0] / ITERS_EVAL_COST)
+    finally:
+        drv._scores_finite = check
+    mean = {m: sum(v) / len(v) for m, v in spent.items()}
+    return {"skips": drv._guard_skips_total, "trees": trees,
+            "raise_iterations": raising.current_iteration(),
+            "iter_s_unguarded": spent["off"], "iter_s_guarded": spent["skip"],
+            "guard_ms_per_iter": 1e3 * (mean["skip"] - mean["off"]),
+            "host_update_s_unguarded": host["off"],
+            "host_update_s_guarded": host["skip"],
+            "guard_wait_ms_per_iter": 1e3 * sum(waits) / len(waits),
+            "finite_check_ms": cuda_ms(drv._scores_finite, FT_REPS),
+            "launches": launches,
+            "launches_per_tree": {k: v / trees
+                                  for k, v in launches.items()}}
+
+
+def oom_path(lgb, kernels, ds, X, y, tmp):
+    """oom_int8: OOM_PARAMS (B2 pinned) with two injected OOMs at the
+    OOM_AT-th iteration: the ladder takes shrink_chunk_rows, then
+    fused_unfuse; the later iterations launch B1-int and no B2; the text
+    is the undisturbed run's; the recoveries and steps counters read 2.
+    Then a genuine OOM: after one iteration the caching allocator is
+    capped OOM_MARGIN above what it holds and its free blocks are filled;
+    the run settles at a
+    text equal to an undisturbed run at the settled configuration, or
+    ends in MemoryLadderExhausted with a final checkpoint and a booster
+    that predicts (never a raw torch.OutOfMemoryError).  Last,
+    torch.empty past the card's capacity inside the predict_chunk guard
+    is a DeviceOutOfMemory naming the site.  Returns the report."""
+    import torch
+    from lightgbm_tpu_torch.obs import REGISTRY
+    from lightgbm_tpu_torch.utils import faultline, membudget
+    from lightgbm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    Xho = X[N_TRAIN:]
+    want = model_text(lgb.train(dict(OOM_PARAMS), ds, ITERS_OOM,
+                                keep_training_booster=True))
+
+    def counters():
+        return (REGISTRY.value("lgbm_oom_recoveries_total",
+                               site="train_step"),
+                sum(REGISTRY.value("lgbm_oom_ladder_steps_total", step=s)
+                    for s in membudget.LADDER_STEPS))
+
+    b = lgb.Booster(params=dict(OOM_PARAMS), train_set=ds)
+    before = counters()
+    faultline.reset()
+    try:
+        for it in range(ITERS_OOM):
+            if it == OOM_AT - 1:
+                faultline.arm("device_alloc", action="oom", times=2)
+            if it == OOM_AT:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+            b.update()
+    finally:
+        faultline.reset()
+    b.num_trees()
+    torch.cuda.synchronize()
+    after_launches = dict(kernels.launches)
+    after = counters()
+    steps = b._driver._mem_ladder.describe()
+    if steps != ["shrink_chunk_rows", "fused_unfuse"]:
+        fail(f"oom_int8: the ladder took {steps}")
+    if after_launches["hist_batched_int"] <= 0 \
+            or after_launches["fused_hist_scan"] != 0:
+        fail(f"oom_int8: after fused_unfuse the launches were "
+             f"{after_launches}")
+    if model_text(b) != want:
+        fail("oom_int8: the recovered text is not the undisturbed one")
+    moved = (after[0] - before[0], after[1] - before[1])
+    if moved != (2, 2):
+        fail(f"oom_int8: recoveries and ladder steps moved by {moved}")
+    del b
+    # the genuine OOM
+    d = os.path.join(tmp, "oom_ckpt")
+    params = dict(PARAMS, tpu_hist_precision="int8", tpu_checkpoint_dir=d)
+    total = torch.cuda.get_device_properties(0).total_memory
+    grab = _Grab()
+
+    class Cap:
+        order = 50
+        before_iteration = False
+        filler = []
+
+        def __call__(self, env):
+            if env.iteration != 0:
+                return
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.set_per_process_memory_fraction(
+                min((torch.cuda.memory_reserved() + OOM_MARGIN) / total,
+                    1.0))
+            try:
+                while True:
+                    self.filler.append(torch.empty(
+                        FILL_BLOCK, dtype=torch.uint8, device="cuda"))
+            except torch.OutOfMemoryError:
+                pass
+            del self.filler[-(OOM_MARGIN // FILL_BLOCK):]
+            genuine["filled_bytes"] = len(self.filler) * FILL_BLOCK
+
+    outcome, genuine, cap = None, {}, Cap()
+    try:
+        b = lgb.train(dict(params), ds, ITERS_OOM, callbacks=[grab, cap],
+                      keep_training_booster=True)
+        outcome = "settled"
+    except membudget.MemoryLadderExhausted as exc:
+        outcome = "exhausted"
+        genuine["error"] = str(exc)[:300]
+        b = grab.booster
+    except torch.OutOfMemoryError as exc:
+        fail(f"oom_int8: an unclassified torch.OutOfMemoryError ({exc})")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        cap.filler.clear()
+    genuine["steps"] = b._driver._mem_ladder.describe()
+    genuine["outcome"] = outcome
+    if outcome == "settled":
+        settled = dict(params)
+        for _, overrides in b._driver._mem_ladder.steps_taken:
+            settled.update(overrides)
+        settled.pop("tpu_checkpoint_dir")
+        if model_text(b) != model_text(lgb.train(settled, ds, ITERS_OOM)):
+            fail("oom_int8: the settled text is not an undisturbed run's "
+                 "at the settled configuration")
+    else:
+        found = CheckpointManager(d).load_latest()
+        if found is None or found[0] != b.current_iteration():
+            fail(f"oom_int8: no final checkpoint of iteration "
+                 f"{b.current_iteration()} after the exhaustion")
+        genuine["final_checkpoint"] = found[0]
+        if not np.all(np.isfinite(b.predict(Xho))):
+            fail("oom_int8: the exhausted booster does not predict")
+    del b, grab
+    torch.cuda.empty_cache()
+    try:
+        with membudget.oom_guard("predict_chunk"):
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        fail("oom_int8: an allocation past capacity did not fail")
+    except membudget.DeviceOutOfMemory as exc:
+        if exc.site != "predict_chunk":
+            fail(f"oom_int8: the past-capacity OOM names {exc.site!r}")
+    return {"ladder_steps": steps, "counters_moved": list(moved),
+            "launches_after_unfuse": after_launches,
+            "texts_identical": True, "genuine": genuine}
+
+
+def preflight_path(lgb, kernels, ds, X):
+    """preflight: plan_training on a fresh hilo and int8 learner, after
+    one iteration each: every component the live tensors give
+    (membudget.live_bytes: the bins, their row-major copy, the pool, the
+    stat planes, the row state, the kernel scratch, the score buffers
+    and the ingest chunk's tensors) must equal the plan's, and the
+    forest's device tables after a predict must equal the closed form
+    at their shape; the plan's total against the card's peak over one
+    steady iteration (the iteration's rise of
+    torch.cuda.max_memory_allocated over what was allocated before it,
+    plus the learner's resident bins, row-major copy, scores and row
+    mask).  The allocator's peak over one binning chunk and over one
+    predict chunk are printed beside the plan's two closed forms.  Then
+    tpu_hbm_preflight=raise with a budget of the int8 plan less one byte
+    must refuse before iteration 0, launching no kernel.  Returns the
+    report."""
+    import torch
+    from lightgbm_tpu_torch.ops.binning import bin_matrix_t
+    from lightgbm_tpu_torch.ops.histogram import reset_call_bytes
+    from lightgbm_tpu_torch.utils import membudget
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+
+    out = {}
+    for name, params in (("hilo", PARAMS),
+                         ("int8", dict(PARAMS, tpu_hist_precision="int8"))):
+        b = lgb.Booster(params=dict(params), train_set=ds)
+        drv = b._driver
+        plan = membudget.plan_training(drv.config, drv.learner, 1)
+        b.update()
+        b.num_trees()
+        torch.cuda.synchronize()
+        reset_call_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        b.update()
+        b.num_trees()
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - base
+        live = membudget.live_bytes(drv)
+        missing = set(plan.components) - set(live) - {"packed_forest",
+                                                      "predict_scratch"}
+        if missing:
+            fail(f"preflight {name}: no live reading of {sorted(missing)}")
+        bad = {k: (plan.components[k], v) for k, v in live.items()
+               if plan.components[k] != v}
+        if bad:
+            fail(f"preflight {name}: plan against live bytes {bad}")
+        resident = (live["binned_matrix"] + live["row_major_bins"]
+                    + drv.train_scores.scores.nbytes
+                    + drv.learner._ones_mask.nbytes)
+        measured = transient + resident
+        # one predict chunk: the forest's tables stay, the rest is the
+        # chunk's scratch
+        chunk = int(drv.config.tpu_predict_chunk_rows)
+        rows = min(int(drv.config.tpu_ingest_chunk_rows), N_TRAIN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        b.predict(X[N_TRAIN:N_TRAIN + chunk])
+        torch.cuda.synchronize()
+        forest, closed = membudget.forest_live_bytes(drv._tables.device())
+        if forest != closed:
+            fail(f"preflight {name}: the forest's tables hold {forest} "
+                 f"bytes, the closed form {closed}")
+        predict_peak = torch.cuda.max_memory_allocated() - base - forest
+        out[name] = {"plan": plan.components, "plan_total": plan.total,
+                     "iteration_peak_bytes": measured,
+                     "transient_bytes": transient,
+                     "plan_over_peak": plan.total / measured,
+                     "forest_bytes": forest,
+                     "forest_trees": drv._tables.device()[
+                         "leaf_value"].shape[0],
+                     "predict_chunk_rows": chunk,
+                     "predict_chunk_peak_bytes": predict_peak,
+                     "predict_plan_over_peak": (
+                         plan.components["predict_scratch"] / predict_peak)}
+        del b, drv
+    # one binning chunk of the training rows: the tensors the binning
+    # names against the allocator's peak, less the output
+    td = ds._inner
+    scratch = {"chunk_bytes": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bins = bin_matrix_t(X[:rows], td.mappers, td.used_feature_idx, "cuda",
+                        rows, scratch)
+    torch.cuda.synchronize()
+    ingest_peak = torch.cuda.max_memory_allocated() - base - bins.nbytes
+    del bins
+    if scratch["chunk_bytes"] != out["int8"]["plan"]["ingest_scratch"]:
+        fail(f"preflight: a binning chunk's tensors hold "
+             f"{scratch['chunk_bytes']} bytes, the plan "
+             f"{out['int8']['plan']['ingest_scratch']}")
+    out["ingest_chunk"] = {"rows": rows, "tensor_bytes":
+                           scratch["chunk_bytes"],
+                           "allocator_peak_bytes": ingest_peak,
+                           "plan_over_peak": scratch["chunk_bytes"]
+                           / ingest_peak}
+    torch.cuda.empty_cache()
+    int8 = dict(PARAMS, tpu_hist_precision="int8",
+                tpu_hbm_budget_bytes=out["int8"]["plan_total"] - 1,
+                tpu_hbm_preflight="raise", tpu_stream_mode="resident")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        lgb.train(int8, ds, 1)
+        fail("preflight: a budget of the plan less one byte trained")
+    except LightGBMError as exc:
+        table = str(exc)
+    if sum(kernels.launches.values()) != 0:
+        fail(f"preflight: the refused run launched {kernels.launches}")
+    if "histogram_pool" not in table or "headroom" not in table:
+        fail(f"preflight: the refusal has no itemized table: {table}")
+    print("preflight refusal:\n" + table, flush=True)
+    out["refused_launches"] = 0
+    return out
+
+
+def cross_check_fault(lgb, X):
+    """Phase 5 of the checkpoints, card against CPU on the first N_SMALL
+    rows: an int8 regression bundle written on the card at iteration 3
+    resumes on the CPU to 6, and one written on the CPU resumes on the
+    card; both texts byte-identical to the uninterrupted card run
+    (`params_diff` names device_type, and warns)."""
+    Xs = X[:N_SMALL]
+    rng = np.random.default_rng(44)
+    y_reg = Xs[:, 0] - 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
+        size=N_SMALL)
+    reg = dict(PARAMS, objective="regression", metric="l2",
+               tpu_hist_precision="int8", tpu_quant_refit_leaves=False,
+               bagging_fraction=0.8, bagging_freq=1)
+    tmp = tempfile.mkdtemp()
+    try:
+        def run(dev, rounds, d=None, resume=False):
+            p = dict(reg, device_type=dev)
+            if d is not None:
+                p["tpu_checkpoint_dir"] = d
+            return lgb.train(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                             rounds, keep_training_booster=True,
+                             resume=resume)
+
+        t0 = time.perf_counter()
+        want = model_text(run("cuda", 6))
+        out = {}
+        for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = os.path.join(tmp, f"{src}_to_{dst}")
+            run(src, 3, d)
+            got = model_text(run(dst, 6, d, resume=True))
+            same = got == want
+            out[f"checkpoint_{src}_to_{dst}_identical"] = same
+            if not same:
+                fail(f"checkpoint: a {src} bundle resumed on the {dst} "
+                     "differs from the uninterrupted card run")
+        out["checkpoint_cross_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fault_paths(lgb, kernels, ds, X, y, tmp, reports):
+    """Phase 3's fault-tolerance and device-memory paths: checkpoints
+    and resume, the numeric guard, the OOM ladder and the preflight; the
+    blackboxes of their interrupted runs go to tmp."""
+    from lightgbm_tpu_torch.obs import flightrecorder
+
+    flightrecorder.configure(dump_dir=tmp)
+    for name, run in (
+            ("resume_int8", lambda: resume_path(lgb, kernels, ds, X, y,
+                                                tmp)),
+            ("guard_int8", lambda: guard_path(lgb, kernels, ds, X, y)),
+            ("oom_int8", lambda: oom_path(lgb, kernels, ds, X, y, tmp)),
+            ("preflight", lambda: preflight_path(lgb, kernels, ds, X))):
+        t0 = time.perf_counter()
+        reports[name] = run()
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3833,6 +4489,13 @@ def main() -> None:
             print(f"profile {name} "
                   + json.dumps(profile(boosters[name], **kw)), flush=True)
     del boosters, learners
+    # fault tolerance and device memory (B1-int, B2, B3, leaf sums), after
+    # phase 4 and the profiles, which see fewer launches the more the
+    # process made before them
+    ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                     params=dict(PARAMS)).construct()
+    fault_paths(lgb, kernels, ds, X, y, tmp, reports)
+    del ds
 
     cross = cross_check(lgb, X, y, latent)
     cross.update(cross_check_efb(lgb, Xe, ye, latent_e))
@@ -3845,6 +4508,7 @@ def main() -> None:
     cross.update(cross_check_storage(lgb, X, w, Xe, latent_e, tmp))
     print(f"path_s cross_check_storage {time.perf_counter() - t0:.1f}",
           flush=True)
+    cross.update(cross_check_fault(lgb, X))
     print("cross-check " + json.dumps(cross), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -11,7 +11,9 @@ pandas `category` columns), the booster's model files, dumps and
 importances, the scikit-learn wrappers (`LGBMRegressor`,
 `LGBMClassifier`, `LGBMRanker`), CSV/TSV/LibSVM files with two-round
 loading and the binary cache, and sparse train-time storage
-(`tpu_sparse_threshold`).  Entry points run on the first CUDA
+(`tpu_sparse_threshold`), atomic iterations, the numeric guard,
+checkpoints and `resume` in the JAX package's bundle format, and the
+device-memory preflight and OOM ladder.  Entry points run on the first CUDA
 device unless the params say `device_type="cpu"`; without CUDA and
 without that, they raise.  The hot kernels are hand-written CUDA C++ for Hopper
 (`csrc/`), built with `nvcc` at first use.  This package never imports
@@ -22,14 +24,16 @@ from . import callback
 from .version import __version__
 from .basic import Dataset
 from .booster import Booster
-from .callback import (EarlyStopException, early_stopping, log_evaluation,
-                       print_evaluation, record_evaluation, reset_parameter)
+from .callback import (EarlyStopException, checkpoint, early_stopping,
+                       log_evaluation, print_evaluation, record_evaluation,
+                       reset_parameter)
 from .config import Config
 from .engine import CVBooster, cv, train
 from .utils.log import LightGBMError
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
-           "LightGBMError", "callback", "early_stopping", "log_evaluation",
+           "LightGBMError", "callback", "checkpoint", "early_stopping",
+           "log_evaluation",
            "print_evaluation", "record_evaluation", "reset_parameter",
            "cv", "train", "__version__"]
 

@@ -18,9 +18,9 @@ DataFrames whose `category` columns remap through the model's
 copies and pickles through the model text.  The boosting driver follows
 `boosting` (gbdt, goss, dart, rf: `models.create_boosting`).
 
-Refused by name until their items are ported: checkpoints
-(`save_checkpoint`, `resume_from_checkpoint`) and the network
-(`set_network`, `free_network`).
+Checkpoints: `save_checkpoint` and `resume_from_checkpoint`
+(utils/checkpoint.py).  Refused by name until their item is ported
+(ROADMAP A9): the network (`set_network`, `free_network`).
 """
 
 from __future__ import annotations
@@ -554,13 +554,27 @@ class Booster:
                           config=Config(self.params) if self.params else None)
         return out
 
-    # -- refused by name until their items are ported --------------------
+    # -- fault tolerance (utils/checkpoint.py) -------------------------
     def save_checkpoint(self, directory: str, keep: int = 3) -> str:
-        _not_ported("Booster.save_checkpoint")
+        """Write one atomic training checkpoint (model, key streams,
+        generators and score buffers) into `directory`; returns its path.
+        `lgb.train` does this on its own with `tpu_checkpoint_dir`."""
+        from .utils.checkpoint import make_manager, save_checkpoint
+
+        return save_checkpoint(self, make_manager(directory, keep=keep))
 
     def resume_from_checkpoint(self, directory: str) -> Optional[int]:
-        _not_ported("Booster.resume_from_checkpoint")
+        """Restore this freshly constructed booster (same training data)
+        from the newest valid checkpoint in `directory`, either
+        package's; returns its iteration, or None without one.  A
+        material change of the params is named (a warning, or an error
+        under `tpu_resume_strict`)."""
+        from .utils.checkpoint import make_manager, restore_checkpoint
 
+        state = restore_checkpoint(self, make_manager(directory))
+        return None if state is None else int(state["iteration"])
+
+    # -- refused by name until their items are ported --------------------
     def set_network(self, machines: str, local_listen_port: int = 12400,
                     listen_time_out: int = 120, num_machines: int = 1
                     ) -> "Booster":

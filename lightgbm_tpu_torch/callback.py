@@ -15,16 +15,16 @@ callbacks port over unchanged:
 Evaluation entries are `(dataset_name, metric_name, value,
 higher_is_better)` tuples, with a 5th stdv element in cv runs.
 
-The checkpoint callback of the JAX package (`_Checkpoint`,
-`checkpoint`) waits on the port of its checkpoint module and is left
-out; the early-stopping state keeps its snapshot and restore.
+The checkpoint callback (`_Checkpoint`, `checkpoint`) writes the JAX
+package's bundle through `utils/checkpoint.py`; the early-stopping
+state rides it (`snapshot_state`/`restore_state`).
 """
 
 from __future__ import annotations
 
 import collections
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 CallbackEnv = collections.namedtuple(
     "CallbackEnv",
@@ -251,3 +251,37 @@ class _EarlyStopping:
 def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                    verbose: bool = True) -> Callable:
     return _EarlyStopping(stopping_rounds, first_metric_only, verbose)
+
+
+class _Checkpoint:
+    """Write an atomic training checkpoint every `interval` iterations
+    (and at the final one).  Runs after early stopping (order) so a
+    bundle never snapshots a half-evaluated iteration; sibling callbacks
+    exposing snapshot_state/restore_state (early stopping) ride the
+    bundle via `peers`."""
+
+    order = 40
+    before_iteration = False
+
+    def __init__(self, directory: Optional[str] = None, interval: int = 1,
+                 keep: int = 3, manager=None):
+        from .utils.checkpoint import make_manager
+
+        if manager is None:
+            manager = make_manager(directory, keep=keep)
+        self.manager = manager
+        self.interval = max(int(interval), 1)
+        self.peers: list = []  # sibling callbacks; engine.train fills it
+
+    def __call__(self, env: CallbackEnv) -> None:
+        from .utils.checkpoint import save_checkpoint
+
+        done = env.iteration + 1
+        if done % self.interval == 0 or done == env.end_iteration:
+            save_checkpoint(env.model, self.manager, callbacks=self.peers)
+
+
+def checkpoint(directory: str, interval: int = 1, keep: int = 3) -> Callable:
+    """Create the atomic-checkpoint callback (the engine adds one
+    automatically when `tpu_checkpoint_dir` is configured)."""
+    return _Checkpoint(directory, interval=interval, keep=keep)

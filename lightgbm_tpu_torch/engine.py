@@ -14,22 +14,33 @@ generator of `seed`), one booster a fold trained
 in turns on a row subset of the dataset (`Dataset.subset`), the mean
 and standard deviation of each metric over the folds after each round,
 early stopping on the first metric, and the fold boosters as a
-`CVBooster`.  Checkpoints and `resume` are not ported yet and raise
-when given, and so do `cv`'s `init_model` and `callbacks` (the JAX
-package's `cv` never reads them).
+`CVBooster`.  Fault tolerance, after lightgbm_tpu/engine.py:111-283:
+`tpu_checkpoint_dir` adds the atomic checkpoint callback (every
+`tpu_checkpoint_interval` rounds, `tpu_checkpoint_keep` kept),
+`resume=True` restarts from the newest valid bundle (either package's),
+SIGTERM becomes a KeyboardInterrupt in the main thread, and an
+interrupted or finished run flushes a final checkpoint, then dumps the
+flight recorder's blackbox on the way out of an interrupt.  `cv`'s
+`init_model` and `callbacks` raise (the JAX package's `cv` never reads
+them).
 """
 
 from __future__ import annotations
 
 import copy
+import signal
+import threading
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+from . import obs
 from .basic import Dataset
 from .booster import Booster
-from .callback import (CallbackEnv, EarlyStopException, early_stopping,
-                       log_evaluation, record_evaluation, reset_parameter)
+from .callback import (CallbackEnv, EarlyStopException, _Checkpoint,
+                       early_stopping, log_evaluation, record_evaluation,
+                       reset_parameter)
+from .utils.checkpoint import flush_checkpoint, restore_checkpoint
 from .utils.log import Log
 
 _ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
@@ -37,18 +48,6 @@ _ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
                   "num_rounds", "n_estimators")
 _EARLY_STOP_ALIASES = ("early_stopping_round", "early_stopping_rounds",
                        "early_stopping", "n_iter_no_change")
-
-
-def _refuse_unported(params: Dict[str, Any], resume: bool) -> None:
-    given = []
-    if resume:
-        given.append("resume")
-    if str(params.get("tpu_checkpoint_dir", "") or ""):
-        given.append("tpu_checkpoint_dir")
-    if given:
-        raise NotImplementedError(
-            f"lgb.train({', '.join(given)}=...) is not ported to "
-            "lightgbm_tpu_torch yet")
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -71,7 +70,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     keep_training_booster the returned booster is predict-only, as the
     JAX package's is."""
     params = copy.deepcopy(params)
-    _refuse_unported(params, resume)
     if feature_name != "auto":
         train_set.feature_name = feature_name
     if categorical_feature != "auto":
@@ -125,6 +123,25 @@ def train(params: Dict[str, Any], train_set: Dataset,
         callbacks.append(log_evaluation(verbose_eval))
     if evals_result is not None:
         callbacks.append(record_evaluation(evals_result))
+
+    # atomic interval checkpoints (tpu_checkpoint_dir) and resume=True;
+    # the callback is added unless the caller gave one
+    ckpt_dir = str(params.get("tpu_checkpoint_dir", "") or "")
+    ckpt_cb = next((cb for cb in callbacks if isinstance(cb, _Checkpoint)),
+                   None)
+    if ckpt_cb is None and ckpt_dir:
+        ckpt_cb = _Checkpoint(
+            ckpt_dir,
+            interval=int(params.get("tpu_checkpoint_interval", 1) or 1),
+            keep=int(params.get("tpu_checkpoint_keep", 3) or 3))
+        callbacks.append(ckpt_cb)
+    ckpt_manager = None
+    if ckpt_cb is not None:
+        ckpt_manager = ckpt_cb.manager
+        ckpt_cb.peers = [cb for cb in callbacks if cb is not ckpt_cb]
+    if resume and ckpt_manager is None:
+        raise ValueError("resume=True needs tpu_checkpoint_dir (or an "
+                         "explicit checkpoint callback)")
     cb_before = sorted((cb for cb in callbacks
                         if getattr(cb, "before_iteration", False)),
                        key=lambda cb: getattr(cb, "order", 0))
@@ -132,34 +149,82 @@ def train(params: Dict[str, Any], train_set: Dataset,
                        if not getattr(cb, "before_iteration", False)),
                       key=lambda cb: getattr(cb, "order", 0))
 
+    start_iteration = 0
+    if resume:
+        restored = restore_checkpoint(booster, ckpt_manager,
+                                      callbacks=callbacks)
+        if restored is not None:
+            # the stored iteration counts init_model trees too; the loop
+            # counts only new rounds
+            start_iteration = (int(restored["iteration"])
+                               - int(restored.get("num_init_iteration", 0)))
+
     # training snapshots (reference GBDT::Train, gbdt.cpp:290-294)
     snapshot_freq = int(params.get("snapshot_freq", -1) or -1)
     snapshot_out = str(params.get("output_model", "LightGBM_model.txt"))
 
-    evaluation_result_list: List = []
-    for i in range(num_boost_round):
-        for cb in cb_before:
-            cb(CallbackEnv(model=booster, params=params, iteration=i,
-                           begin_iteration=0, end_iteration=num_boost_round,
-                           evaluation_result_list=None))
-        booster.update(fobj=fobj)
-        if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
-            booster.save_model(f"{snapshot_out}.snapshot_iter_{i + 1}")
-        evaluation_result_list = []
-        if valid_sets:
-            if is_valid_contain_train:
-                evaluation_result_list.extend(booster.eval_train(feval))
-            evaluation_result_list.extend(booster.eval_valid(feval))
+    # graceful preemption: with checkpointing configured, SIGTERM becomes
+    # a KeyboardInterrupt, so the iteration's rollback and the final
+    # flush below run before the process goes
+    prev_sigterm = None
+    if ckpt_manager is not None and \
+            threading.current_thread() is threading.main_thread():
+        def _on_sigterm(signum, frame):
+            raise KeyboardInterrupt("SIGTERM")
+
         try:
-            for cb in cb_after:
+            prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+        except (ValueError, OSError):  # pragma: no cover - exotic host
+            prev_sigterm = None
+
+    evaluation_result_list: List = []
+    try:
+        for i in range(start_iteration, num_boost_round):
+            # the blackbox of a dying run names the round it died in
+            obs.flightrecorder.note("round", "train/round", iteration=i)
+            for cb in cb_before:
                 cb(CallbackEnv(model=booster, params=params, iteration=i,
                                begin_iteration=0,
                                end_iteration=num_boost_round,
-                               evaluation_result_list=evaluation_result_list))
-        except EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            evaluation_result_list = e.best_score
-            break
+                               evaluation_result_list=None))
+            booster.update(fobj=fobj)
+            if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
+                booster.save_model(f"{snapshot_out}.snapshot_iter_{i + 1}")
+            evaluation_result_list = []
+            if valid_sets:
+                if is_valid_contain_train:
+                    evaluation_result_list.extend(booster.eval_train(feval))
+                evaluation_result_list.extend(booster.eval_valid(feval))
+            try:
+                for cb in cb_after:
+                    cb(CallbackEnv(
+                        model=booster, params=params, iteration=i,
+                        begin_iteration=0, end_iteration=num_boost_round,
+                        evaluation_result_list=evaluation_result_list))
+            except EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                evaluation_result_list = e.best_score
+                break
+    except BaseException as exc:
+        # the partial iteration was rolled back inside update(): flush a
+        # final checkpoint so the run restarts from the last complete
+        # iteration, then dump the blackbox (after the flush, so its
+        # metric snapshot shows the checkpoint landed) and re-raise
+        if ckpt_manager is not None:
+            flush_checkpoint(booster, ckpt_manager, callbacks=callbacks)
+        obs.flightrecorder.note("crash", "train_interrupted",
+                                type=type(exc).__name__,
+                                iteration=booster.current_iteration())
+        obs.flightrecorder.dump(f"train_interrupt:{type(exc).__name__}",
+                                exc=exc)
+        raise
+    finally:
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+    if ckpt_manager is not None:
+        # early stop (or a zero-round run) can end between interval
+        # marks: one final bundle covers the completed state
+        flush_checkpoint(booster, ckpt_manager, callbacks=callbacks)
 
     booster.best_score = {}
     for item in evaluation_result_list:

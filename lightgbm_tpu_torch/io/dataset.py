@@ -182,6 +182,10 @@ class TrainingData:
         # "binning" (the bins made on or sent to the device); "binary"
         # (a cache load) and "two_round" (1.0) also mark the loader
         self.ingest_s: Dict[str, float] = {}
+        # bytes of the largest binning chunk's device tensors
+        # (ops/binning.py:bin_chunks_t), None where the bins were not
+        # made on the device in chunks (host binning, a cache load)
+        self.ingest_scratch_bytes: Optional[int] = None
 
     @property
     def bins(self) -> np.ndarray:
@@ -292,8 +296,11 @@ class TrainingData:
             self._find_mappers(X, config, categorical_features or [],
                                forced_bins)
         t1 = time.perf_counter()
+        scratch = {"chunk_bytes": 0}
         self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
-                                   device, int(config.tpu_ingest_chunk_rows))
+                                   device, int(config.tpu_ingest_chunk_rows),
+                                   scratch)
+        self.ingest_scratch_bytes = scratch["chunk_bytes"]
         self.ingest_s = {"sketch": t1 - t0,
                          "binning": time.perf_counter() - t1}
         self.metadata = Metadata(n, label, weight, group_sizes, init_score)
@@ -476,10 +483,12 @@ class TrainingData:
                 _parse_column_spec(config.categorical_feature, names),
                 _load_forced_bins(config), total_rows=n)
         t2 = time.perf_counter()
+        scratch = {"chunk_bytes": 0}
         self.bins_t = bin_chunks_t(
             (Xc for Xc, _ in reader.chunks()), n, self.mappers,
             self.used_feature_idx, self.device,
-            int(config.tpu_ingest_chunk_rows))
+            int(config.tpu_ingest_chunk_rows), scratch)
+        self.ingest_scratch_bytes = scratch["chunk_bytes"]
         weight, group, init_score = load_sidecars(path)
         self.metadata = Metadata(n, label, weight, group, init_score)
         self._set_constraints(config)

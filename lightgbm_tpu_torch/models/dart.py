@@ -14,9 +14,13 @@ cast to f32 once (`GBDT._score_trees_binned`), as the JAX package's
 binned walker sums them.  Gradients and growth take the sync step.
 
 `rollback_one_iter` is GBDT's, as in the JAX package: it undoes no
-drop or normalization.  The atomic-iteration rollback's hooks
-(`_snapshot_extra`, `_restore_extra`) and the checkpoint hooks of the
-JAX class are not ported.  With an init model, the drop set indexes the
+drop or normalization.  The atomic iteration's hooks (dart.py:135-170):
+`_normalize` scales earlier trees in place, and `apply_shrinkage`
+clamps tiny values to zero, so it keeps copies of what it changes in
+an undo ledger that `_restore_extra` replays backwards; the drop
+generator always varies a skipped iteration's retry.  The checkpoint
+bundle carries the tree weights, their sum and the drop generator
+(`_capture_extra_state`).  With an init model, the drop set indexes the
 trees after its iterations (dart.py:80-88, 121).
 """
 
@@ -36,6 +40,8 @@ class DART(GBDT):
         self.tree_weight: List[float] = []
         self.sum_weight = 0.0
         self._drop_idx: List[int] = []
+        # copies of what _normalize changes in place, for a rollback
+        self._dart_undo: List[tuple] = []
 
     def _make_train_step(self) -> None:
         # the drop set changes the scores every iteration: the sync step
@@ -103,7 +109,8 @@ class DART(GBDT):
             self.shrinkage_rate = lr if not self._drop_idx else lr / (lr + k)
 
     def _normalize(self) -> None:
-        """Scale the dropped trees and add them back (dart.hpp:152-196)."""
+        """Scale the dropped trees and add them back (dart.hpp:152-196),
+        each change first copied into the undo ledger."""
         cfg = self.config
         k = float(len(self._drop_idx))
         if k == 0:
@@ -111,19 +118,69 @@ class DART(GBDT):
         lr = float(cfg.learning_rate)
         scale = k / (k + 1.0) if not cfg.xgboost_dart_mode else k / (k + lr)
         K = self.num_tree_per_iteration
+        undo = self._dart_undo
         for i in self._drop_idx:
             for c in range(K):
-                self.models[i * K + c].apply_shrinkage(scale)
+                tree = self.models[i * K + c]
+                undo.append((tree, tree.leaf_value[:tree.num_leaves].copy(),
+                             tree.shrinkage, None, None))
+                tree.apply_shrinkage(scale)
             if not cfg.uniform_drop:
                 j = i - self.num_init_iteration
                 if not cfg.xgboost_dart_mode:
                     self.sum_weight -= self.tree_weight[j] / (k + 1.0)
                 else:
                     self.sum_weight -= self.tree_weight[j] / (k + lr)
+                undo.append((None, (), None, j, self.tree_weight[j]))
                 self.tree_weight[j] *= scale
         # leaf values changed in place: the cached device forest is stale
         self._invalidate_tables()
         self._apply_iters_to_scores(self._drop_idx, 1.0)
+
+    # -- the atomic iteration's and the checkpoint's hooks ---------------
+    def _snapshot_extra(self):
+        self._dart_undo = []
+        return {"dart": (list(self._drop_idx), len(self.tree_weight),
+                         float(self.sum_weight),
+                         self._drop_rng.bit_generator.state)}
+
+    def _restore_extra(self, snap):
+        drop_idx, n_weights, sum_weight, rng_state = snap["dart"]
+        for tree, leaf_values, shrinkage, j, weight in \
+                reversed(self._dart_undo):
+            if tree is not None:
+                tree.leaf_value[:len(leaf_values)] = leaf_values
+                tree.shrinkage = shrinkage
+            if weight is not None and j < len(self.tree_weight):
+                self.tree_weight[j] = weight
+        self._dart_undo = []
+        self._drop_idx = drop_idx
+        del self.tree_weight[n_weights:]
+        self.sum_weight = sum_weight
+        self._drop_rng.bit_generator.state = rng_state
+
+    def _has_skip_lever(self):
+        return True  # the drop selection stream always varies the retry
+
+    def _advance_streams_for_skip(self):
+        super()._advance_streams_for_skip()
+        # the rollback rewound the drop stream; one draw makes the retry
+        # select another drop set
+        self._drop_rng.random()
+
+    def _capture_extra_state(self):
+        return {"dart": {"tree_weight": [float(w) for w in self.tree_weight],
+                         "sum_weight": float(self.sum_weight),
+                         "drop_rng": self._drop_rng.bit_generator.state}}
+
+    def _restore_extra_state(self, extra):
+        d = (extra or {}).get("dart")
+        if not d:
+            return
+        self.tree_weight = [float(w) for w in d["tree_weight"]]
+        self.sum_weight = float(d["sum_weight"])
+        self._drop_rng = np.random.default_rng(0)
+        self._drop_rng.bit_generator.state = d["drop_rng"]
 
     def _train_one_iter_impl(self, grad, hess) -> bool:
         self._materialize()

@@ -34,8 +34,21 @@ the loaded trees replayed onto the score states as the JAX package
 replays them); `rollback_one_iter`; and `reset_config` of any parameter,
 which rebuilds the learner and the train step.
 
-Left out, and not silently: OOM ladders, fault injection, telemetry,
-checkpoints.
+Fault tolerance and device memory (lightgbm_tpu/models/gbdt.py:
+548-1030, 1287-1417): every iteration is atomic (`train_one_iter`
+snapshots the scores, the key streams, the generators and the counters,
+and rolls a raising iteration back); the numeric guard
+(`tpu_guard_numerics`); a classified device OOM inside an iteration
+descends the degradation ladder of `utils/membudget.py` and retries;
+the memory preflight runs before iteration 0; and
+`capture_train_state`/`restore_train_state` are the driver's half of
+the checkpoint bundle (`utils/checkpoint.py`).  Torch tensors can change
+in place where JAX arrays cannot, so every update of a `_ScoreState`
+inside an iteration writes a new buffer (the fused step's, or a copy),
+and the snapshot holds references, as the JAX package's does: the fused
+path pays no copy for it.
+
+Left out, and not silently: the span tracer (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ import torch
 from ..config import Config, parse_tristate
 from ..io.bin_mapper import BinMapper, BinType
 from ..io.dataset import Metadata, TrainingData
+from .. import obs
 from ..obs import modelhealth
 from ..ops import leafsum
 from ..ops.binning import bin_matrix_t
@@ -59,6 +73,8 @@ from ..ops.predict import (PackedForest, class_scores, device_tables,
                            raw_device_tables, raw_forest_scores,
                            raw_leaf_index, subset_scores, tree_leaf_values,
                            upload)
+from ..utils import faultline, membudget
+from ..utils.log import LightGBMError, Log
 from ..utils.prng import PRNGKey
 from .learner import TreeLearner, _to_bitset
 from .metrics import Metric, create_metrics
@@ -68,6 +84,27 @@ from .tree import Tree
 
 K_EPSILON = 1e-15
 _MAPPER_MARKER = "tpu_bin_mappers:"
+
+
+def quant_headroom_check(precision: str, total_rows: int, mode: str) -> int:
+    """The int32 histogram headroom sentinel of the quantized precisions
+    (lightgbm_tpu/models/gbdt.py:40-70): `quant_limit` narrows the
+    gradient grid with the row count so no bin overflows int32; warn
+    when the grid has narrowed below the dtype's range, and under
+    tpu_guard_numerics=raise refuse once it has lost two bits of it
+    (floor capped at 128)."""
+    from ..ops.histogram import _INT_TYPE_MAX, quant_limit
+
+    q = quant_limit(precision, total_rows)
+    full = _INT_TYPE_MAX[precision]
+    if q < full:
+        msg = (f"int32 histogram headroom: {total_rows} rows narrow the "
+               f"{precision} gradient grid to +-{q} (dtype max +-{full})")
+        if mode == "raise" and q < min(128, full // 4):
+            raise LightGBMError(
+                msg + "; use a wider precision or fewer global rows")
+        Log.warning(msg)
+    return q
 
 
 class PredictContext:
@@ -176,7 +213,8 @@ def _rebind_tree(tree: Tree, ctx: PredictContext) -> None:
 
 
 class _ScoreState:
-    """Raw scores [k, n] f32 on the device."""
+    """Raw scores [k, n] f32 on the device.  Each update writes a new
+    buffer, so an iteration's rollback snapshot can hold the old one."""
 
     def __init__(self, num_class: int, num_data: int, device,
                  init_score: Optional[np.ndarray] = None):
@@ -192,14 +230,17 @@ class _ScoreState:
         self.scores = torch.as_tensor(scores, device=device)
 
     def add_constant(self, val: float, class_id: int) -> None:
+        self.scores = self.scores.clone()
         self.scores[class_id] += np.float32(val)
 
     def add(self, class_id: int, delta: torch.Tensor) -> None:
+        self.scores = self.scores.clone()
         self.scores[class_id] += delta
 
     def multiply(self, class_id: int, val: float) -> None:
         """Scale one class's scores by f32(val) (the RF running average,
         reference score_updater.hpp MultiplyScore)."""
+        self.scores = self.scores.clone()
         self.scores[class_id] *= np.float32(val)
 
     def numpy(self) -> np.ndarray:
@@ -208,6 +249,9 @@ class _ScoreState:
 
 class GBDT:
     """The gradient boosting driver."""
+
+    # consecutive poisoned iterations tpu_guard_numerics=skip takes
+    _GUARD_MAX_STREAK = 5
 
     def __init__(self):
         self.models: List[Tree] = []
@@ -245,6 +289,7 @@ class GBDT:
         self._raw: Optional[Tuple] = None
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
+        self.last_score_bytes = 0
         self._key: Optional[np.ndarray] = None
         self._bag_key: Optional[np.ndarray] = None
         self._bag_rng: Optional[np.random.Generator] = None
@@ -257,6 +302,21 @@ class GBDT:
         self.average_output = False
         # a loaded model's tpu_feature_profile: trailer
         self._profile: Optional[modelhealth.FeatureProfile] = None
+        self.valid_names: List[str] = []
+        # the numeric guard (tpu_guard_numerics) and its skip state
+        self._guard = "off"
+        self._guard_streak = 0
+        self._guard_skips_total = 0
+        # a skip's retry draws a fresh bagging mask off the refresh
+        # boundary, or it would replay the poisoned iteration
+        self._force_bag_refresh = False
+        # the OOM ladder: its position persists across recoveries; the
+        # learner state carried across a ladder rebuild until one
+        # succeeds
+        self._mem_ladder = membudget.DegradationLadder()
+        self._ladder_carry = None
+        # a config-less booster's shrunk predict chunk
+        self._predict_chunk_override: Optional[int] = None
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data: TrainingData) -> None:
@@ -274,6 +334,11 @@ class GBDT:
         else:
             # objective=none: custom gradients through update(fobj=...)
             self.num_tree_per_iteration = self.num_class
+        # the flight recorder's depth and dump directory (tpu_obs_*)
+        obs.configure_from_config(config)
+        # tpu_stream_mode=auto that would stream is refused before the
+        # learner lays its bins out
+        membudget.check_layout(config, train_data)
         self.learner = TreeLearner(config, train_data)
         if self.learner.params.has_cegb and self._goss_cfg is not None:
             # gbdt.py:339-341 of the JAX package
@@ -300,7 +365,19 @@ class GBDT:
         self._bag_key = PRNGKey(int(config.bagging_seed))
         self._bag_rng = np.random.default_rng(int(config.bagging_seed))
         self._bag_cfg = self._bagging_config()
+        # the numeric guard, validated at init; the quantized headroom
+        # sentinel is a one-time check (gbdt.py:316-336)
+        self._guard = str(config.tpu_guard_numerics).strip().lower()
+        if self._guard not in ("off", "warn", "raise", "skip"):
+            raise ValueError("tpu_guard_numerics must be off|warn|raise|"
+                             f"skip, got {self._guard!r}")
+        if self._guard != "off" \
+                and str(config.tpu_hist_precision) in ("int8", "int16"):
+            quant_headroom_check(str(config.tpu_hist_precision),
+                                 train_data.num_data, self._guard)
         self._make_train_step()
+        # the memory preflight, before iteration 0
+        self._run_preflight()
 
     def _make_train_step(self) -> None:
         """(Re)build the fused step where the JAX package's GBDT builds it
@@ -363,6 +440,7 @@ class GBDT:
         self.learner = None
         self.train_scores = None
         self.valid_sets = []
+        self.valid_names = []
         self.valid_scores = []
         self.valid_metrics = []
         self._step = None
@@ -374,6 +452,7 @@ class GBDT:
                              "reference=train dataset")
         self._materialize()
         self.valid_sets.append(data)
+        self.valid_names.append(str(name))
         ms = create_metrics(self.config,
                             self.objective.name if self.objective else "")
         for m in ms:
@@ -409,26 +488,72 @@ class GBDT:
         blocked = self._replay_in_blocks(n)
         step = k * max(128 // k, 1) if blocked else 128
         chunk = self._predict_chunk()
+        faultline.fire("h2d_copy", rows=n)
         for s in range(0, len(trees), step):
             block = list(trees[s:s + step])
             tables, depth = pack_trees(block)
             tables = device_tables(tables, self.device)
-            for lo in range(0, n, chunk):
-                hi = min(lo + chunk, n)
-                bins_t = data.bins_t[:, lo:hi]
-                if blocked:
-                    scores = class_scores(tables, bins_t, meta, k, depth)
-                    for kk in range(k):
-                        state.scores[kk, lo:hi] += scores[kk]
-                    continue
-                vals = leaf_values(tables, bins_t, *meta, depth)
-                for j in range(len(block)):
-                    state.scores[(s + j) % k, lo:hi] += vals[j]
+            with membudget.oom_guard("score_replay", rows=n,
+                                     trees=len(trees)):
+                for lo in range(0, n, chunk):
+                    hi = min(lo + chunk, n)
+                    bins_t = data.bins_t[:, lo:hi]
+                    if blocked:
+                        scores = class_scores(tables, bins_t, meta, k,
+                                              depth)
+                        for kk in range(k):
+                            state.scores[kk, lo:hi] += scores[kk]
+                        continue
+                    vals = leaf_values(tables, bins_t, *meta, depth)
+                    for j in range(len(block)):
+                        state.scores[(s + j) % k, lo:hi] += vals[j]
 
     def _predict_chunk(self) -> int:
-        """Rows a predict or replay walks at once."""
-        return max(int(self.config.tpu_predict_chunk_rows)
-                   if self.config is not None else 65536, 1024)
+        """Rows a predict or replay walks at once (a booster without a
+        Config, loaded from a file, keeps its shrunk chunk apart)."""
+        if self.config is not None:
+            return max(int(self.config.tpu_predict_chunk_rows), 1024)
+        ov = self._predict_chunk_override
+        return max(int(ov) if ov is not None else 65536, 1024)
+
+    def _shrink_predict_chunk(self) -> bool:
+        """Halve the predict chunk after a classified predict-path OOM
+        (gbdt.py:1759-1779); False at the floor.  The walk is row by row,
+        so the chunk changes no output byte."""
+        cur = self._predict_chunk()
+        if cur <= membudget.CHUNK_FLOOR:
+            return False
+        new = max(cur // 2, membudget.CHUNK_FLOOR)
+        if self.config is not None:
+            self.config.update({"tpu_predict_chunk_rows": new})
+        else:
+            self._predict_chunk_override = new
+        membudget.note_ladder_step("predict_chunk", "shrink_chunk_rows",
+                                   {"tpu_predict_chunk_rows": new})
+        Log.warning(f"device OOM in chunked predict: shrinking "
+                    f"tpu_predict_chunk_rows {cur} -> {new} and "
+                    "re-running (outputs are chunk-invariant)")
+        return True
+
+    def _chunked_scores(self, n: int, walk) -> np.ndarray:
+        """[k, n] f64 host scores of `walk(lo, hi)` ([k, hi - lo] device
+        scores) over row chunks (gbdt.py:1789-1845): each chunk runs
+        under the predict_chunk guard, and a classified OOM halves the
+        chunk and resumes at the failed one, keeping the chunks done."""
+        out = np.zeros((self.num_tree_per_iteration, n), np.float64)
+        lo = 0
+        while lo < n:
+            hi = min(lo + self._predict_chunk(), n)
+            try:
+                faultline.fire("h2d_copy", rows=hi - lo)
+                with membudget.oom_guard("predict_chunk", rows=hi - lo):
+                    out[:, lo:hi] = walk(lo, hi).cpu().numpy()
+            except membudget.DeviceOutOfMemory:
+                if not self._shrink_predict_chunk():
+                    raise
+                continue
+            lo = hi
+        return out
 
     def _boost_from_average(self, class_id: int) -> float:
         if (self.models or self._pending
@@ -474,10 +599,357 @@ class GBDT:
         """One boosting iteration; True once training has stalled (known
         only after `_materialize` on the fused path, as in the JAX
         driver).  Given gradients (custom objectives) take the sync
-        path."""
+        path.
+
+        The iteration applies atomically (gbdt.py:548-575): an
+        exception anywhere inside (KeyboardInterrupt, SIGTERM through
+        engine.train, a CUDA error, an armed `grow_step` fault) rolls
+        it back to its snapshot before it propagates, so the booster
+        predicts, trains on and checkpoints afterwards.  A classified
+        device OOM rides the same rollback, then descends one rung of
+        the degradation ladder and retries; exhaustion raises
+        `MemoryLadderExhausted`."""
+        while True:
+            try:
+                return self._train_one_iter_guarded(grad, hess)
+            except membudget.DeviceOutOfMemory as exc:
+                self._recover_from_oom(exc)
+
+    def _train_one_iter_guarded(self, grad, hess) -> bool:
         if self._stopped:
             return True
-        return self._train_one_iter_impl(grad, hess)
+        if self.learner is None and self._ladder_carry is not None:
+            # a ladder rebuild OOMed and the run ended exhausted: retry
+            # the rebuild, so training can go on once memory is back
+            self._rebuild_learner()
+        snap = self._iter_snapshot()
+        try:
+            with membudget.oom_guard("train_step", iteration=self.iter_):
+                action = faultline.fire("grow_step", iteration=self.iter_)
+                ret = self._train_one_iter_impl(grad, hess)
+        except BaseException:
+            self._iter_restore(snap)
+            raise
+        # the score buffers the iteration held at once, its snapshot's
+        # and its own (utils/membudget.py:live_bytes)
+        self.last_score_bytes = membudget.unique_nbytes(
+            snap["scores"], *snap["valid"],
+            None if self.train_scores is None else self.train_scores.scores,
+            *(vs.scores for vs in self.valid_scores))
+        if action == "poison":
+            # fault harness: NaN-poison this iteration's scores (a new
+            # tensor: the snapshot's buffer stays clean)
+            self.train_scores.scores = (self.train_scores.scores
+                                        + np.float32(np.nan))
+        if self._guard != "off" and not ret and not self._scores_finite():
+            return self._poisoned_iteration(snap)
+        self._guard_streak = 0
+        self._force_bag_refresh = False
+        return ret
+
+    # -- atomic-iteration rollback -------------------------------------
+    def _iter_snapshot(self) -> Dict:
+        """The pre-iteration state a rollback returns to
+        (gbdt.py:677-702): references to the score buffers (an update
+        writes a new one, `_ScoreState`), the pending records, the row
+        mask and the CEGB state, which are replaced, never written; copies
+        of the key words, the generators' states and the counters."""
+        learner = self.learner
+        frng = getattr(learner, "_feature_rng", None)
+        snap = {
+            "scores": (self.train_scores.scores
+                       if self.train_scores is not None else None),
+            "valid": [vs.scores for vs in self.valid_scores],
+            "key": None if self._key is None else self._key.copy(),
+            "bag_key": (None if self._bag_key is None
+                        else self._bag_key.copy()),
+            "pending": list(self._pending),
+            "models": len(self.models),
+            "bfa": list(getattr(self, "_boosted_from_average", [])),
+            "bag_mask": self._cached_bag_mask,
+            "bag_rng": (self._bag_rng.bit_generator.state
+                        if self._bag_rng is not None else None),
+            "feature_rng": (frng.bit_generator.state
+                            if frng is not None else None),
+            "cegb": ({k: learner.meta[k] for k in ("cegb_used", "cegb_paid")
+                      if k in learner.meta} if learner is not None else {}),
+            "iter": self.iter_,
+            "stopped": self._stopped,
+            "shrinkage": self.shrinkage_rate,
+            "syncs": self.grower_syncs,
+        }
+        snap.update(self._snapshot_extra())
+        return snap
+
+    def _snapshot_extra(self) -> Dict:
+        return {}
+
+    def _restore_extra(self, snap: Dict) -> None:
+        pass
+
+    def _iter_restore(self, snap: Dict) -> None:
+        """Roll a partly applied iteration back to its snapshot
+        (gbdt.py:710-746).  The snapshot's buffers become the live ones
+        again: the iteration's queued kernels wrote only into newer
+        buffers, which nothing reads any more.  Trees a sync step
+        materialized go back to the pending list they came from."""
+        if self.train_scores is not None and snap["scores"] is not None:
+            self.train_scores.scores = snap["scores"]
+        for vs, s in zip(self.valid_scores, snap["valid"]):
+            vs.scores = s
+        self._key = snap["key"]
+        self._bag_key = snap["bag_key"]
+        self._pending = list(snap["pending"])
+        del self.models[snap["models"]:]
+        if snap["bfa"]:
+            self._boosted_from_average = snap["bfa"]
+        self._cached_bag_mask = snap["bag_mask"]
+        if snap["bag_rng"] is not None:
+            self._bag_rng.bit_generator.state = snap["bag_rng"]
+        if self.learner is not None:
+            if snap["feature_rng"] is not None:
+                self.learner._feature_rng.bit_generator.state = \
+                    snap["feature_rng"]
+            self.learner.meta.update(snap["cegb"])
+        self.iter_ = snap["iter"]
+        self._stopped = snap["stopped"]
+        self.shrinkage_rate = snap["shrinkage"]
+        self.grower_syncs = snap["syncs"]
+        self._invalidate_tables()
+        self._restore_extra(snap)
+
+    # -- the numeric guard (tpu_guard_numerics) ------------------------
+    def _scores_finite(self) -> bool:
+        """One all-isfinite reduction over the train scores and one host
+        wait, paid only while the guard is armed."""
+        if self.train_scores is None:
+            return True
+        return bool(torch.isfinite(self.train_scores.scores).all())
+
+    def _poisoned_iteration(self, snap: Dict) -> bool:
+        """A non-finite iteration (gbdt.py:953-1014): warn and go on,
+        roll back and raise, or roll back and skip, keeping the advanced
+        streams and forcing a fresh bagging mask so the retry differs."""
+        it = snap["iter"]
+        obs.REGISTRY.inc("lgbm_guard_poisoned_total", mode=self._guard,
+                         help="non-finite-score iterations caught by "
+                              "tpu_guard_numerics")
+        obs.event("guard_poisoned", iteration=it, mode=self._guard)
+        obs.flightrecorder.note("guard", "guard_poisoned",
+                                iteration=it, mode=self._guard)
+        if self._guard == "warn":
+            Log.warning(f"non-finite training scores after iteration {it} "
+                        "(tpu_guard_numerics=warn): continuing")
+            return False
+        if self._guard == "raise":
+            self._iter_restore(snap)
+            exc = LightGBMError(
+                f"non-finite training scores after iteration {it} "
+                "(tpu_guard_numerics=raise); the poisoned iteration was "
+                "rolled back")
+            obs.flightrecorder.dump("guard_raise", exc=exc)
+            raise exc
+        if not self._has_skip_lever():
+            self._iter_restore(snap)
+            raise LightGBMError(
+                f"non-finite training scores after iteration {it} and no "
+                "stochastic lever to re-bag (tpu_guard_numerics=skip "
+                "needs bagging/GOSS/feature_fraction/quantized rounding "
+                "to vary the retry)")
+        keys = (self._key, self._bag_key)
+        bag_rng = (self._bag_rng.bit_generator.state
+                   if self._bag_rng is not None else None)
+        frng = getattr(self.learner, "_feature_rng", None)
+        feat_rng = frng.bit_generator.state if frng is not None else None
+        self._iter_restore(snap)
+        self._key, self._bag_key = keys
+        if bag_rng is not None:
+            self._bag_rng.bit_generator.state = bag_rng
+        if feat_rng is not None:
+            self.learner._feature_rng.bit_generator.state = feat_rng
+        self._advance_streams_for_skip()
+        self._guard_streak += 1
+        self._guard_skips_total += 1
+        if self._guard_streak > self._GUARD_MAX_STREAK:
+            raise LightGBMError(
+                f"{self._guard_streak} consecutive poisoned iterations "
+                "under tpu_guard_numerics=skip; giving up")
+        Log.warning(f"dropped poisoned iteration {it} "
+                    "(tpu_guard_numerics=skip): rolled back, re-bagging")
+        return False
+
+    def _has_skip_lever(self) -> bool:
+        """Whether a skip's retry can differ from the dropped iteration:
+        bagging, GOSS, feature_fraction or quantized rounding."""
+        if self._bag_cfg is not None or self._goss_cfg is not None:
+            return True
+        if self.config is not None \
+                and float(self.config.feature_fraction) < 1.0:
+            return True
+        return (self.learner is not None
+                and self.learner.params.precision in ("int8", "int16"))
+
+    def _advance_streams_for_skip(self) -> None:
+        """Force a fresh bagging mask even off the bagging_freq boundary
+        (the fused step only takes _bag_key on a refresh; the sync path
+        only redraws without a cached mask)."""
+        self._cached_bag_mask = None
+        self._force_bag_refresh = True
+
+    # -- device memory (utils/membudget.py) ----------------------------
+    def _oom_recoverable(self) -> bool:
+        """May a classified OOM descend the ladder here?  A live training
+        context with tpu_oom_recovery=true."""
+        if (self.config is None or self.train_data is None
+                or not bool(self.config.tpu_oom_recovery)):
+            return False
+        return self.learner is not None or self._ladder_carry is not None
+
+    def _recover_from_oom(self, exc: "membudget.DeviceOutOfMemory",
+                          in_recovery: bool = False) -> None:
+        """One ladder descent after a rolled-back OOM iteration, or the
+        structured error (gbdt.py:762-817).  A rung the port cannot take
+        (stream_layout, ROADMAP A8) ends the descent like exhaustion."""
+        if not (in_recovery or self._oom_recoverable()):
+            obs.flightrecorder.note(
+                "oom", "oom_propagated", site=exc.site, recovery="off",
+                **{k: v for k, v in membudget.memory_snapshot().items()
+                   if v is not None})
+            obs.flightrecorder.dump("oom_unrecovered", exc=exc)
+            raise exc
+        step = self._mem_ladder.next_step(self.config)
+        if step is None or step[0] in membudget.UNPORTED_STEPS:
+            taken = self._mem_ladder.describe()
+            obs.flightrecorder.note(
+                "oom", "ladder_exhausted", site=exc.site,
+                steps_taken=",".join(taken) or "none",
+                **{k: v for k, v in membudget.memory_snapshot().items()
+                   if v is not None})
+            unported = ""
+            if step is not None:
+                unported = (f"; its next rung, {step[0]!r} ({step[1]}), is "
+                            "not ported to lightgbm_tpu_torch yet ("
+                            f"{membudget.UNPORTED_STEPS[step[0]]})")
+            err = membudget.MemoryLadderExhausted(
+                f"device out of memory at {exc.site!r} and the "
+                "degradation ladder is exhausted "
+                f"(steps taken: {taken or 'none'}){unported}; the failed "
+                "iteration was rolled back — the booster is usable and "
+                "a final checkpoint covers the last complete iteration",
+                site=exc.site, info=dict(exc.info))
+            obs.flightrecorder.dump("oom_ladder_exhausted", exc=err)
+            raise err from exc
+        name, overrides = step
+        membudget.note_ladder_step(exc.site, name, overrides)
+        Log.warning(
+            f"device OOM at {exc.site!r} (iteration {self.iter_}): "
+            f"rolled back; degradation ladder step {name!r} applies "
+            f"{overrides} — retrying (the settled model is byte-identical "
+            "to an undisturbed run at this config)")
+        try:
+            self.apply_memory_degradation(overrides)
+        except membudget.DeviceOutOfMemory as rebuild_exc:
+            self._recover_from_oom(rebuild_exc, in_recovery=True)
+
+    # parameters whose change rebuilds the learner and the train step;
+    # the chunk sizes take effect at the next launch.  The JAX package
+    # leaves tpu_hist_impl out, so its fused_unfuse rung changes nothing
+    # until a later rebuild; here it takes B2 out at once
+    _REBUILD_KEYS = frozenset({"tpu_hist_impl", "tpu_hist_agg",
+                               "tpu_bucket_policy", "tpu_stream_mode"})
+
+    def apply_memory_degradation(self, overrides: Dict) -> None:
+        """Apply a ladder step's parameters to the live run
+        (gbdt.py:819-865): the old learner's tensors go before the new
+        one is built (`torch.cuda.empty_cache` between), so two learners
+        are never resident; its feature generator and CEGB state carry
+        over."""
+        if not overrides:
+            return
+        self.config.update(overrides)
+        if not (self._REBUILD_KEYS & set(overrides)):
+            return
+        if self.train_data is None or (self.learner is None
+                                       and self._ladder_carry is None):
+            return
+        if self.learner is not None:
+            self._materialize()  # pending records belong to the OLD grower
+            old = self.learner
+            self._ladder_carry = (
+                old._feature_rng.bit_generator.state,
+                {k: old.meta[k] for k in ("cegb_used", "cegb_paid")
+                 if k in old.meta})
+            self._step = None
+            self.learner = None
+            old.bins_t = None
+            old.meta = None
+            del old
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        self._rebuild_learner()
+
+    def _rebuild_learner(self) -> None:
+        """The learner for the current config with the carried state, under
+        oom_guard: a failed rebuild is a classified train-step OOM."""
+        with membudget.oom_guard("train_step", stage="ladder_rebuild"):
+            self.learner = TreeLearner(self.config, self.train_data)
+        rng_state, cegb = self._ladder_carry or (None, {})
+        self._ladder_carry = None
+        if rng_state is not None:
+            self.learner._feature_rng.bit_generator.state = rng_state
+        self.learner.meta.update(cegb)
+        self._bag_cfg = self._bagging_config()
+        self._invalidate_tables()
+        self._make_train_step()
+
+    def _run_preflight(self) -> None:
+        """tpu_hbm_preflight before iteration 0 (gbdt.py:887-941): the
+        itemized plan against the budget — warn, refuse with the plan,
+        or descend the ladder's config steps until it fits."""
+        mode = str(self.config.tpu_hbm_preflight).strip().lower()
+        if mode not in ("off", "warn", "raise", "degrade"):
+            raise ValueError("tpu_hbm_preflight must be off|warn|raise|"
+                             f"degrade, got {mode!r}")
+        if mode == "off":
+            return
+        plan = membudget.plan_training(self.config, self.learner,
+                                       self.num_tree_per_iteration)
+        membudget.publish_budget_gauge(plan.budget, "training")
+        if plan.fits is not False:
+            return
+        if mode == "degrade":
+            pending: Dict = {}
+            while plan.fits is False:
+                step = self._mem_ladder.next_step(self.config)
+                if step is None or step[0] in membudget.UNPORTED_STEPS:
+                    break
+                name, overrides = step
+                membudget.note_ladder_step("preflight", name, overrides,
+                                           recovery=False)
+                self.config.update(overrides)
+                pending.update(overrides)
+                plan = membudget.plan_training(
+                    self.config, self.learner, self.num_tree_per_iteration)
+            if plan.fits is not False:
+                Log.warning(
+                    "HBM preflight degraded the configuration to fit "
+                    f"the budget: {pending}; headroom now "
+                    f"{plan.headroom:,d} bytes")
+                rebuild = {k: v for k, v in pending.items()
+                           if k in self._REBUILD_KEYS}
+                if rebuild:
+                    self.apply_memory_degradation(rebuild)
+                return
+        if mode == "warn":
+            Log.warning("HBM preflight: predicted peak exceeds the "
+                        "budget (tpu_hbm_preflight=warn):\n"
+                        + plan.format_table())
+            return
+        obs.flightrecorder.note("oom", "preflight_refused",
+                                total=plan.total, budget=plan.budget)
+        raise LightGBMError(plan.refuse_message(
+            "training preflight (tpu_hbm_preflight="
+            f"{mode}): this configuration"))
 
     def _train_one_iter_impl(self, grad, hess) -> bool:
         """The iteration itself; the boosting modes override it."""
@@ -501,7 +973,8 @@ class GBDT:
         # every class's gradients from the scores at the iteration's start
         base_scores = self.train_scores.scores
         for k, init in enumerate(inits):
-            refresh = bag is not None and self.iter_ % bag["freq"] == 0
+            refresh = bag is not None and (self.iter_ % bag["freq"] == 0
+                                           or self._force_bag_refresh)
             (records, scores, _, leaf_out, self._key,
              self._bag_key) = self._step(base_scores,
                                          self.train_scores.scores, k,
@@ -865,14 +1338,13 @@ class GBDT:
                                   ).cpu().numpy() / div
         tables, depth = self._forest(total)
         meta = self._pred_ctx.meta_dev(self.device)
-        chunk = self._predict_chunk()
-        for lo in range(0, n, chunk):
-            hi = min(lo + chunk, n)
+
+        def walk(lo, hi):
             bins_t = self._pred_ctx.bin_rows_t(X[lo:hi], self.device)
-            scores = class_scores(tables, bins_t, meta, k, depth)
-            out[:, lo:hi] = scores.cpu().numpy()
+            return class_scores(tables, bins_t, meta, k, depth)
+
         # random-forest averaging (gbdt_prediction.cpp:55)
-        return out / div
+        return self._chunked_scores(n, walk) / div
 
     def predict_binned(self, data: TrainingData, num_iteration: int = -1,
                        raw_score: bool = False) -> np.ndarray:
@@ -900,13 +1372,12 @@ class GBDT:
         if total > 0:
             tables, depth = self._forest(total)
             meta = self._pred_ctx.meta_dev(self.device)
-            chunk = self._predict_chunk()
-            for lo in range(0, n, chunk):
-                hi = min(lo + chunk, n)
+
+            def walk(lo, hi):
                 bins_t = data.bins_t[:, lo:hi].to(self.device).contiguous()
-                raw[:, lo:hi] = class_scores(tables, bins_t, meta, k,
-                                             depth).cpu().numpy()
-            raw = raw / div
+                return class_scores(tables, bins_t, meta, k, depth)
+
+            raw = self._chunked_scores(n, walk) / div
         return self._finish(raw, raw_score)
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
@@ -1081,6 +1552,144 @@ class GBDT:
         self._invalidate_tables()
         for state, data in self._score_sets():
             self._replay(state, data, other.models)
+
+    # ------------------------------------------------------------------
+    # checkpoint/resume (utils/checkpoint.py): the driver's half
+    # ------------------------------------------------------------------
+    def topology_snapshot(self) -> Dict:
+        """The `topology` block of the bundle, as the JAX package writes
+        it for one process (gbdt.py:1266-1285)."""
+        if self.train_data is None or self.learner is None:
+            raise ValueError("topology snapshot needs a live training "
+                             "context")
+        return {
+            "rows": int(self.train_data.num_data),
+            "host_count": 1,
+            "host_index": 0,
+            "partitioned": False,
+            "data_shards": 1,
+            "feature_shards": 1,
+            "hosts": 1,
+            "tree_learner": str(self.config.tree_learner),
+        }
+
+    def capture_train_state(self) -> Tuple[Dict, Dict]:
+        """The bundle's driver half (gbdt.py:1287-1324): a JSON-able
+        state dict and the f32 score arrays.  The lazy trees are
+        materialized first; the threefry keys are the same uint32 words
+        as the JAX package's `_key_words`."""
+        if self.train_data is None or self.learner is None \
+                or self.train_scores is None:
+            raise ValueError("checkpointing needs a live training context "
+                             "(predict-only/file-loaded boosters have "
+                             "nothing to resume)")
+        self._materialize()
+        frng = getattr(self.learner, "_feature_rng", None)
+        state = {
+            "iteration": int(self.current_iteration()),
+            "num_init_iteration": int(self.num_init_iteration),
+            "stopped": bool(self._stopped),
+            "boosted_from_average": [
+                bool(b) for b in self._boosted_from_average],
+            "key": [int(w) for w in np.asarray(self._key, np.uint32)],
+            "bag_key": [int(w) for w in np.asarray(self._bag_key,
+                                                   np.uint32)],
+            "bag_rng": self._bag_rng.bit_generator.state,
+            "feature_rng": (frng.bit_generator.state
+                            if frng is not None else None),
+            "valid_names": list(self.valid_names),
+            "guard_skips": int(self._guard_skips_total),
+            "topology": self.topology_snapshot(),
+        }
+        arrays = {"train_scores": self.train_scores.scores.cpu().numpy()
+                  .astype(np.float32)}
+        for name, vs in zip(self.valid_names, self.valid_scores):
+            arrays[f"valid_scores/{name}"] = vs.scores.cpu().numpy() \
+                .astype(np.float32)
+        if self._cached_bag_mask is not None:
+            arrays["bag_mask"] = self._cached_bag_mask.cpu().numpy() \
+                .astype(np.float32)
+        extra = self._capture_extra_state()
+        if extra:
+            state["extra"] = extra
+        return state, arrays
+
+    def _capture_extra_state(self) -> Dict:
+        return {}
+
+    def _restore_extra_state(self, extra: Dict) -> None:
+        pass
+
+    def restore_train_state(self, model_text: str, state: Dict,
+                            arrays: Dict) -> None:
+        """Rebuild this freshly initialized driver to the checkpointed
+        iteration (gbdt.py:1332-1417): the trees rebind to the live
+        mappers (`_rebind_tree`), the f32 score buffers load byte for
+        byte (no replay), and every key stream and generator resumes
+        where it stood, so training goes on bit for bit."""
+        if self.train_data is None or self.learner is None:
+            raise ValueError("restore needs a booster constructed with "
+                             "the training dataset")
+        self._materialize()
+        other = GBDT.from_model_string(model_text, self.device)
+        if other.num_tree_per_iteration != self.num_tree_per_iteration:
+            raise ValueError(
+                "checkpoint has different num_tree_per_iteration")
+        for tree in other.models:
+            if tree.num_leaves > 1:
+                _rebind_tree(tree, self._pred_ctx)
+        self.models = list(other.models)
+        self._pending = []
+        k = max(self.num_tree_per_iteration, 1)
+        total = len(self.models) // k
+        if int(state.get("iteration", total)) != total:
+            raise ValueError(
+                f"checkpoint iteration {state.get('iteration')} does not "
+                f"match its model ({total} iterations)")
+        self.num_init_iteration = int(state.get("num_init_iteration", 0))
+        self.iter_ = total - self.num_init_iteration
+        ts = np.asarray(arrays["train_scores"], np.float32)
+        want = (k, int(self.train_data.num_data))
+        if tuple(ts.shape) != want:
+            raise ValueError(
+                f"checkpoint train-score buffer has shape {ts.shape} but "
+                f"the live training context needs {want}; the checkpoint "
+                "was taken over different data")
+        self.train_scores.scores = torch.from_numpy(ts.copy()).to(
+            self.device)
+        for name, vs, vd in zip(self.valid_names, self.valid_scores,
+                                self.valid_sets):
+            a = arrays.get(f"valid_scores/{name}")
+            if a is not None and tuple(a.shape) == tuple(vs.scores.shape):
+                vs.scores = torch.from_numpy(
+                    np.asarray(a, np.float32).copy()).to(self.device)
+                continue
+            # a valid set the checkpointed run did not have: the restored
+            # model replayed onto its initial scores
+            fresh = _ScoreState(k, vd.num_data, self.device,
+                                vd.metadata.init_score)
+            vs.scores = fresh.scores
+            self._replay(vs, vd, self.models)
+        self._key = np.asarray(state["key"], np.uint32).reshape(-1)
+        self._bag_key = np.asarray(state["bag_key"], np.uint32).reshape(-1)
+        if state.get("bag_rng") is not None:
+            self._bag_rng = np.random.default_rng(0)
+            self._bag_rng.bit_generator.state = state["bag_rng"]
+        if state.get("feature_rng") is not None:
+            rng = np.random.default_rng(0)
+            rng.bit_generator.state = state["feature_rng"]
+            self.learner._feature_rng = rng
+        bfa = state.get("boosted_from_average")
+        if bfa:
+            self._boosted_from_average = [bool(b) for b in bfa]
+        self._stopped = bool(state.get("stopped", False))
+        self._guard_skips_total = int(state.get("guard_skips", 0))
+        mask = arrays.get("bag_mask")
+        self._cached_bag_mask = (
+            None if mask is None
+            else upload(np.asarray(mask, np.float32), self.device))
+        self._invalidate_tables()
+        self._restore_extra_state(state.get("extra") or {})
 
     def _finish(self, raw: np.ndarray, raw_score: bool) -> np.ndarray:
         """[k, n] raw scores -> the objective's outputs, [n] or [n, k]."""

@@ -83,7 +83,7 @@ from ..ops.histogram import (INT_PRECISIONS, MAX_WIDE_BINS, _dot_spec,
                              hashed_uniform, key_words, pack_bins,
                              row_major_bins)
 from ..ops.predict import upload
-from ..utils import prng
+from ..utils import membudget, prng
 from ..utils.log import Log
 from .tree import Tree
 
@@ -111,7 +111,8 @@ def check_slice(config: Config) -> None:
     (the serial learner; the gbdt, goss, dart and rf boosting modes with
     bagging and per-tree and per-node feature sampling; float, f64
     (deterministic=true) and int8/int16 histograms; monotone
-    constraints, CEGB and forced splits)."""
+    constraints, CEGB and forced splits).  The numeric guard, the
+    device-memory preflight and budget are taken by models/gbdt.py."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
@@ -139,18 +140,8 @@ def check_slice(config: Config) -> None:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
     if str(c.tpu_partition_impl) not in G.PARTITION_IMPLS:
         refuse(f"tpu_partition_impl={c.tpu_partition_impl!r}")
-    # the JAX package's numeric guardrails, HBM preflight and telemetry:
-    # only their defaults, which do nothing here, are taken
-    guard = str(c.tpu_guard_numerics).strip().lower()
-    if guard not in ("off", "warn", "raise", "skip"):
-        raise ValueError("tpu_guard_numerics must be off|warn|raise|skip, "
-                         f"got {guard!r}")
-    if guard != "off":
-        refuse(f"tpu_guard_numerics={guard!r}")
-    if str(c.tpu_hbm_preflight).strip().lower() != "warn":
-        refuse(f"tpu_hbm_preflight={c.tpu_hbm_preflight!r}")
-    if int(c.tpu_hbm_budget_bytes) != 0:
-        refuse(f"tpu_hbm_budget_bytes={c.tpu_hbm_budget_bytes}")
+    # the span tracer and its exporters (ROADMAP A11): only their
+    # defaults, which do nothing here, are taken
     if str(c.tpu_telemetry).strip().lower() not in ("", "off"):
         refuse(f"tpu_telemetry={c.tpu_telemetry!r}")
     if str(c.tpu_trace_dir):
@@ -443,6 +434,9 @@ class TreeLearner:
                     (self.f_pad, self.n_pad), dtype=torch.bool, device=dev)
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
+        # bytes of the last tree's pool and stat planes
+        # (utils/membudget.py:live_bytes)
+        self.last_buffers = {}
         # the sync path's per-tree feature_fraction draws and tree keys
         # (learner.py:860)
         self._feature_rng = np.random.default_rng(
@@ -654,6 +648,13 @@ class TreeLearner:
         return impl, block
 
     # ------------------------------------------------------------------
+    def _buffers(self, out, g, h, mask) -> dict:
+        """The grower's pool and stat-plane bytes and the row state the
+        tree was grown from: the ones mask, the [n_pad] gradient,
+        hessian and row mask, and the leaf ids (utils/membudget.py)."""
+        return dict(out["buffer_bytes"], row_state=membudget.unique_nbytes(
+            self._ones_mask, g, h, mask, out["leaf_ids"]))
+
     def pad_vector(self, v: torch.Tensor) -> torch.Tensor:
         v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
         if v.shape[0] == self.n_pad:
@@ -687,9 +688,11 @@ class TreeLearner:
         key = prng.PRNGKey(int(self._feature_rng.integers(2 ** 31)))
         mask = self._ones_mask if row_mask is None else \
             self.pad_vector(row_mask) * self._ones_mask
-        out = G.grow(self.params, self.bins_t, self.pad_vector(grad),
-                     self.pad_vector(hess), mask, fmask, self.meta, key)
+        g, h = self.pad_vector(grad), self.pad_vector(hess)
+        out = G.grow(self.params, self.bins_t, g, h, mask, fmask, self.meta,
+                     key)
         self.last_syncs = out["syncs"]
+        self.last_buffers = self._buffers(out, g, h, mask)
         if self.params.has_cegb:
             # the CEGB state the next tree starts from (learner.py:
             # 1337-1342)
@@ -822,6 +825,7 @@ class TreeLearner:
             out = G.grow(self.params, self.bins_t, g, h, mask, fmask,
                          self.meta, k_node)
             self.last_syncs = out["syncs"]
+            self.last_buffers = self._buffers(out, g, h, mask)
             records, leaf_ids = out["records"], out["leaf_ids"]
             # scale the [L] leaf vector first, then gather: one rounded add
             # per row, as the JAX step does

@@ -9,7 +9,8 @@ times the iteration count, plus the new tree's binned output, times
 their count, and the model text carries the bare `average_output` line.
 
 `rollback_one_iter` undoes the running average of the last iteration
-(rf.py:125-149).  The checkpoint hooks of the JAX class are not ported.
+(rf.py:125-149).  The atomic iteration needs no hook of its own: the
+running average lives in the score buffers, which the snapshot holds.
 """
 
 from __future__ import annotations

@@ -24,17 +24,22 @@ last bin, as `value_to_bin` routes them.  Where a feature's category ids
 or the table as a whole pass the LUT's capacity, the columns are binned on
 the host with `values_to_bins`, as the JAX package falls back.
 
-The result is the transposed `[F, n]` matrix the grower reads.
+The result is the transposed `[F, n]` matrix the grower reads.  Each
+chunk runs under the `ingest_chunk` OOM guard (`utils/membudget.py`): a
+classified device OOM halves the chunk, down to 256 rows, and bins the
+same rows again (lightgbm_tpu/ops/binning.py:200-252).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..io.bin_mapper import BinMapper, BinType, MissingType, sort_keys
+from ..utils import membudget
+from ..utils.log import Log
 
 _NAN_KEY = int(np.iinfo(np.int64).max)
 _INT64_MIN = int(np.iinfo(np.int64).min)
@@ -137,25 +142,47 @@ def _cat_bins(vals: torch.Tensor, t: dict) -> torch.Tensor:
     return torch.where(cv == _NAN_CAT, t["nan_cat_bin"][:, None], catbin)
 
 
+def _shrink_ingest_chunk(chunk: int,
+                         exc: "membudget.DeviceOutOfMemory") -> int:
+    """Halve the binning chunk after a classified OOM (floor 256 rows;
+    lightgbm_tpu/ops/binning.py:_shrink_chunk), re-raising at the floor.
+    Bins are the same at any chunk, so the retry is invisible; the
+    `tpu_ingest_chunk_rows` parameter stays as it is."""
+    if chunk <= 256:
+        raise exc
+    new = max(chunk // 2, 256)
+    membudget.note_ladder_step("ingest_chunk", "shrink_chunk_rows",
+                               {"binner_chunk_rows": new})
+    Log.warning(f"device OOM in chunked ingest: shrinking the binning "
+                f"chunk {chunk} -> {new} and re-binning (bins are "
+                "chunk-invariant)")
+    return new
+
+
 def bin_matrix_t(X: np.ndarray, mappers: Sequence[BinMapper],
                  used_cols: Sequence[int], device,
-                 chunk_rows: int = 65536) -> torch.Tensor:
+                 chunk_rows: int = 65536,
+                 scratch: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """Raw `[n, nf]` f64 rows -> `[F_used, n]` bins on `device` (uint8
     when every used feature has at most 256 bins, else int32).
 
     Rows stream through in chunks of `chunk_rows`, so the device holds
     one chunk of f64 values and keys at a time beside the output."""
     return bin_chunks_t([X], X.shape[0], mappers, used_cols, device,
-                        chunk_rows)
+                        chunk_rows, scratch)
 
 
 def bin_chunks_t(chunks: Iterable[np.ndarray], n: int,
                  mappers: Sequence[BinMapper], used_cols: Sequence[int],
-                 device, chunk_rows: int = 65536) -> torch.Tensor:
+                 device, chunk_rows: int = 65536,
+                 scratch: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """`bin_matrix_t` of the row blocks `chunks` (each `[m, nf]` f64, n
     rows in all, in order), written into one `[F_used, n]` matrix: the
     second pass of two-round loading, which never holds the whole raw
-    matrix.  The tables go to the device once."""
+    matrix.  The tables go to the device once.  scratch: where given,
+    its "chunk_bytes" takes the largest chunk's bytes of the tensors the
+    binning holds at once (utils/membudget.py:plan_training's
+    ingest_scratch)."""
     used = [int(c) for c in used_cols]
     max_bin = max([mappers[c].num_bin for c in used], default=1)
     out_dtype = torch.uint8 if max_bin <= 256 else torch.int32
@@ -179,18 +206,34 @@ def bin_chunks_t(chunks: Iterable[np.ndarray], n: int,
                 device=device, dtype=out_dtype)
             row += m
             continue
-        for lo in range(0, m, chunk):
+        lo = 0
+        while lo < m:
             hi = min(lo + chunk, m)
-            block = np.ascontiguousarray(X[lo:hi][:, used].T,
-                                         dtype=np.float64)
-            vals = torch.from_numpy(block).to(device)           # [F, rows]
-            keys = sort_keys_t(vals)
-            num = torch.searchsorted(t["bkeys"], keys)          # [F, rows]
-            bins = torch.where(keys == _NAN_KEY, t["nan_bin"], num)
-            if has_cat:
-                bins = torch.where(t["is_cat"][:, None],
-                                   _cat_bins(vals, t), bins)
-            out[:, row + lo:row + hi] = bins.to(out_dtype)
+            try:
+                with membudget.oom_guard("ingest_chunk", rows=hi - lo):
+                    block = np.ascontiguousarray(X[lo:hi][:, used].T,
+                                                 dtype=np.float64)
+                    vals = torch.from_numpy(block).to(device)  # [F, rows]
+                    keys = sort_keys_t(vals)
+                    num = torch.searchsorted(t["bkeys"], keys)  # [F, rows]
+                    bins = num_bins = torch.where(keys == _NAN_KEY,
+                                                  t["nan_bin"], num)
+                    cat = None
+                    if has_cat:
+                        cat = _cat_bins(vals, t)
+                        bins = torch.where(t["is_cat"][:, None], cat, bins)
+                    cast = bins.to(out_dtype)
+                    out[:, row + lo:row + hi] = cast
+                    if scratch is not None:
+                        scratch["chunk_bytes"] = max(
+                            scratch.get("chunk_bytes", 0),
+                            membudget.unique_nbytes(vals, keys, num,
+                                                    num_bins, cat, bins,
+                                                    cast))
+            except membudget.DeviceOutOfMemory as exc:
+                chunk = _shrink_ingest_chunk(chunk, exc)
+                continue
+            lo = hi
         row += m
     if row != n:
         raise ValueError(f"{row} rows binned, {n} announced")

@@ -1131,7 +1131,10 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     out = {"records": records[:L - 1], "leaf_ids": leaf_ids,
            "leaf_output": st["leaf_output"][:L],
            "leaf_cnt": st["leaf_cnt"][:L],
-           "leaf_sum_h": st["leaf_sum_h"][:L], "syncs": syncs}
+           "leaf_sum_h": st["leaf_sum_h"][:L], "syncs": syncs,
+           # the two largest per-tree buffers, for utils/membudget.py
+           "buffer_bytes": {"histogram_pool": int(st["pool"].nbytes),
+                            "stats_planes": int(stats.nbytes)}}
     if params.has_cegb:
         # the state the next tree starts from (grower.py:1767-1773)
         out["cegb_used"] = st["used"]

@@ -623,9 +623,9 @@ def row_major_bins(bins_t: torch.Tensor,
     many rows, and the copy is [n, FR/2], two features a byte (feature
     2j of a chunk in the low nibble of its byte j, 2j + 1 in the high
     one): one row of a 32-feature chunk is one 16-byte load."""
-    cached = getattr(bins_t, "_lgbt_rows", None)
-    if cached is not None and cached[0] == (bins_t._version, packed_block):
-        return cached[1]
+    cached = row_major_cached(bins_t, packed_block)
+    if cached is not None:
+        return cached
     F = bins_t.shape[0]
     fr = -(-F // 32) * 32
     if packed_block:
@@ -643,6 +643,25 @@ def row_major_bins(bins_t: torch.Tensor,
         rows[:, :F] = bins_t.t()
     bins_t._lgbt_rows = ((bins_t._version, packed_block), rows)
     return rows
+
+
+def row_major_cached(bins_t: torch.Tensor,
+                     packed_block: int = 0) -> Optional[torch.Tensor]:
+    """The row-major copy `row_major_bins` keeps on bins_t, or None when
+    none was made (on the CPU the twins read bins_t itself)."""
+    cached = getattr(bins_t, "_lgbt_rows", None)
+    if cached is not None and cached[0] == (bins_t._version, packed_block):
+        return cached[1]
+    return None
+
+
+# the largest int32 scratch of a B1/B2/B4 call since the last
+# `reset_call_bytes` (utils/membudget.py holds its plan to it)
+PEAK_CALL_BYTES = {"kernel_scratch": 0}
+
+
+def reset_call_bytes() -> None:
+    PEAK_CALL_BYTES["kernel_scratch"] = 0
 
 
 def group_rows_plain(leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor):
@@ -711,6 +730,8 @@ def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
                      scan, packed_block, flat)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=bins_t.device)
+    PEAK_CALL_BYTES["kernel_scratch"] = max(
+        PEAK_CALL_BYTES["kernel_scratch"], int(scratch.nbytes))
     return rows, plan, scratch, (ctypes.c_int * 8)(*plan[:8])
 
 

@@ -1,8 +1,8 @@
 """Leveled logging (reference include/LightGBM/utils/log.h:37-104).
 
 The port's own copy of `lightgbm_tpu/utils/log.py`, for one process:
-the `[host k]` prefix of multi-host JAX runs and the warning counter of
-the JAX package's telemetry registry are left out.
+the `[host k]` prefix of multi-host JAX runs is left out; warnings
+count into the port's registry (`lgbm_log_warnings_total`).
 
 Levels mirror the reference LogLevel enum: Fatal=-1, Warning=0, Info=1,
 Debug=2.  `Log.fatal` raises (reference log.h:76-90 throws
@@ -80,6 +80,12 @@ class Log:
 
     @staticmethod
     def warning(msg: str) -> None:
+        # counted before the verbosity filter, as in the JAX package: a
+        # silenced run's warning rate stays readable in the registry
+        from ..obs.metrics import REGISTRY
+
+        REGISTRY.inc("lgbm_log_warnings_total",
+                     help="Log.warning calls (pre-verbosity-filter)")
         Log._write(LOG_WARNING, "Warning", msg)
 
     @staticmethod

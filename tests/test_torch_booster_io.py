@@ -23,7 +23,8 @@ CPU, both through the same functions.
   a category column trains and writes its table, object columns are
   refused as the JAX package refuses them;
 - the methods that wait on later slices raise by name; `refit` refits
-  as the JAX package's.
+  as the JAX package's; `save_checkpoint` and `resume_from_checkpoint`
+  round-trip a bundle through the other package.
 """
 
 import copy
@@ -245,12 +246,31 @@ def test_category_and_object_columns_refused():
     ("refit", ()), ("save_checkpoint", ("ckpt",)),
     ("resume_from_checkpoint", ("ckpt",)), ("set_network", ("a,b",)),
     ("free_network", ())])
-def test_unported_methods_raise_by_name(both, method, args):
-    """The methods that wait on later slices raise by name; refit, once
-    refused, refits as the JAX package's refit (regression: the same
-    text, leaf values bit for bit)."""
+def test_unported_methods_raise_by_name(both, method, args, tmp_path):
+    """The network methods wait on a later slice and raise by name;
+    refit, once refused, refits as the JAX package's refit (regression:
+    the same text, leaf values bit for bit); the checkpoint methods, once
+    refused, round-trip: a bundle one package saves, the other resumes
+    to the same trees."""
     port, _ = both
     b = tlgb.Booster(model_str=port["text"], params=CPU)
+    if method in ("save_checkpoint", "resume_from_checkpoint"):
+        X, y = _data()
+        pkgs = [(tlgb, dict(PARAMS, **CPU)), (jlgb, dict(PARAMS))]
+        if method == "resume_from_checkpoint":
+            pkgs.reverse()
+        (src, ps), (dst, pd_) = pkgs
+        saver = src.Booster(params=ps, train_set=src.Dataset(X, label=y))
+        saver.update()
+        saver.update()
+        path = saver.save_checkpoint(str(tmp_path / args[0]))
+        assert path.endswith("ckpt-00000002")
+        fresh = dst.Booster(params=pd_, train_set=dst.Dataset(X, label=y))
+        assert getattr(fresh, "resume_from_checkpoint")(
+            str(tmp_path / args[0])) == 2
+        text = saver.model_to_string()
+        assert _trees(fresh.model_to_string()) == _trees(text)
+        return
     if method != "refit":
         with pytest.raises(NotImplementedError, match=f"Booster.{method}"):
             getattr(b, method)(*args)
@@ -261,3 +281,8 @@ def test_unported_methods_raise_by_name(both, method, args):
     want = jlgb.Booster(model_str=port["text"]).refit(X, y2, decay_rate=0.8)
     assert _norm(got.model_to_string()) == _norm(want.model_to_string())
     assert got.model_to_string() != port["text"]
+
+
+def _trees(text):
+    """The tree blocks of a model text."""
+    return text.split("\ntree_sizes=")[1].split("\nend of trees")[0]

@@ -69,14 +69,19 @@ OUT_OF_SLICE = [
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},
-    # the JAX package's numeric guardrails, HBM preflight and telemetry
+    # the JAX package's telemetry (ROADMAP A11)
+    {"tpu_telemetry": "trace"},
+    {"tpu_trace_dir": "traces"},
+]
+
+# once refused with the telemetry knobs: the numeric guard, the memory
+# preflight and the budget, which now train as the JAX package's
+GUARD_AND_MEMORY = [
     {"tpu_guard_numerics": "warn"},
     {"tpu_guard_numerics": "skip"},
     {"tpu_hbm_preflight": "raise"},
     {"tpu_hbm_preflight": "degrade"},
     {"tpu_hbm_budget_bytes": 1000},
-    {"tpu_telemetry": "trace"},
-    {"tpu_trace_dir": "traces"},
 ]
 
 
@@ -110,7 +115,50 @@ def test_out_of_slice_parameters_raise(extra):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
 
 
-@pytest.mark.parametrize("extra", OUT_OF_SLICE[-7:],
+@pytest.mark.parametrize("extra", GUARD_AND_MEMORY,
+                         ids=lambda d: ",".join(d))
+def test_guard_and_memory_knobs_train_as_the_jax_package(extra):
+    """Without a tight budget each knob trains, the same trees in both
+    packages (no budget resolves on the CPU unless one is given; the
+    budget's own case pins the resident layout, which the port needs:
+    see the next test)."""
+    X, y = binary_data(n=300, f=3, seed=1)
+    extra = dict(extra)
+    if "tpu_hbm_budget_bytes" in extra:
+        extra["tpu_stream_mode"] = "resident"
+    got = [lgb.train(dict(SMALL, **p, **extra), lgb.Dataset(X, label=y), 2)
+           for lgb, p in ((jlgb, {"verbosity": -1}), (tlgb, CPU))]
+    assert_trees_match(got[0]._driver.models, got[1]._driver.models)
+
+
+@pytest.mark.parametrize("extra", GUARD_AND_MEMORY,
+                         ids=lambda d: ",".join(d))
+def test_guard_and_memory_knobs_under_a_tight_budget(extra):
+    """Under a 1,000-byte budget: preflight raise and degrade refuse, as
+    the JAX package's do (degrade finds no rung that fits); warn trains.
+    Left on auto, the layout the JAX package would stream is refused by
+    name in the port (ROADMAP A8)."""
+    X, y = binary_data(n=300, f=3, seed=1)
+    params = dict(SMALL, tpu_hbm_budget_bytes=1000,
+                  tpu_stream_mode="resident")
+    params.update(extra)
+    if "tpu_hbm_budget_bytes" in extra:
+        del params["tpu_stream_mode"]
+        with pytest.raises(NotImplementedError,
+                           match="tpu_stream_mode=auto selecting streamed"):
+            tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+        return
+    if extra.get("tpu_hbm_preflight") in ("raise", "degrade"):
+        for lgb, p in ((jlgb, {"verbosity": -1}), (tlgb, CPU)):
+            with pytest.raises(lgb.LightGBMError, match="headroom"):
+                lgb.train(dict(params, **p), lgb.Dataset(X, label=y), 1)
+        return
+    got = [lgb.train(dict(params, **p), lgb.Dataset(X, label=y), 2)
+           for lgb, p in ((jlgb, {"verbosity": -1}), (tlgb, CPU))]
+    assert_trees_match(got[0]._driver.models, got[1]._driver.models)
+
+
+@pytest.mark.parametrize("extra", OUT_OF_SLICE[-2:],
                          ids=lambda d: ",".join(d))
 def test_knob_refusals_name_the_value(extra):
     X, y = binary_data(n=300, f=3, seed=1)
@@ -230,8 +278,8 @@ def _trees(text):
     return text.split("\ntree_sizes=")[1].split("\nend of trees")[0]
 
 
-# arguments and parameters of lgb.train: checkpoints and resume wait on
-# later slices; init_model and snapshot_freq, once refused, now train
+# arguments and parameters of lgb.train: init_model, snapshot_freq,
+# resume and tpu_checkpoint_dir, once refused, now train
 TRAIN_ARGS = [
     ({"init_model": "model.txt"}, {}, "init_model"),
     ({"resume": True}, {}, "resume"),
@@ -246,9 +294,20 @@ def test_unported_train_arguments_raise(kwargs, extra, name, tmp_path):
     X, y = binary_data(n=300, f=3, seed=1)
     params = dict(SMALL, tpu_hist_impl="xla", **extra)
     if name in ("resume", "tpu_checkpoint_dir"):
-        with pytest.raises(NotImplementedError, match=name):
-            tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1,
-                       **kwargs)
+        # as the JAX package: checkpoints every round, and with resume a
+        # run cut after one round goes on from its bundle
+        got = []
+        for lgb, p in ((jlgb, dict(params, verbosity=-1)),
+                       (tlgb, dict(params, **CPU))):
+            d = tmp_path / lgb.__name__
+            p["tpu_checkpoint_dir"] = str(d)
+            if name == "resume":
+                lgb.train(p, lgb.Dataset(X, label=y), 1)
+            got.append((lgb.train(p, lgb.Dataset(X, label=y), 2, **kwargs),
+                        sorted(f.name for f in d.iterdir())))
+        (bj, dj), (bt, dt) = got
+        assert_trees_match(bj._driver.models, bt._driver.models)
+        assert dt == dj == ["ckpt-00000001", "ckpt-00000002"]
         return
     # as the JAX package: a continuation from the JAX model's file, or
     # snapshot files every snapshot_freq rounds

@@ -1466,3 +1466,88 @@ def test_refit_and_continuation_on_card_equal_cpu():
                             b.model_to_string()))
     assert texts[0] == texts[1]
     assert dev.type == "cuda"
+
+
+def _text_without_params(booster):
+    """A model text without its parameters block (checkpoint directory,
+    device)."""
+    text = booster.model_to_string(num_iteration=-1)
+    head, rest = text.split("\nparameters:", 1)
+    return head + rest.split("end of parameters", 1)[1]
+
+
+def _ft_data():
+    rng = np.random.default_rng(31)
+    X = rng.normal(size=(6000, 8))
+    y = X[:, 0] - 0.5 * X[:, 1] ** 2 + 0.3 * X[:, 2] * X[:, 3]
+    params = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+              "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+              "bagging_fraction": 0.8, "bagging_freq": 1, "verbosity": -1,
+              "device_type": "cuda"}
+    return X, y, params
+
+
+def test_genuine_cuda_oom_in_a_guard_names_its_site():
+    """An allocation past the card's memory inside oom_guard is a
+    DeviceOutOfMemory naming the site, its cause torch's own error."""
+    from lightgbm_tpu_torch.utils import membudget
+
+    dev = cuda_device()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    with pytest.raises(membudget.DeviceOutOfMemory) as ei:
+        with membudget.oom_guard("predict_chunk", rows=1):
+            torch.empty(2 * total, dtype=torch.uint8, device=dev)
+    assert ei.value.site == "predict_chunk"
+    assert isinstance(ei.value.__cause__, torch.OutOfMemoryError)
+    assert membudget.device_capacity_bytes(dev) == \
+        torch.cuda.mem_get_info(dev)[1]
+
+
+def test_card_checkpoint_resumes_on_the_card_byte_identically(tmp_path):
+    """int8 training on the card cut after 3 rounds and resumed from its
+    bundle gives the uninterrupted card run's text; the run launches the
+    int8 kernels."""
+    import lightgbm_tpu_torch as tlgb
+
+    cuda_device()
+    X, y, params = _ft_data()
+    before = dict(kernels.launches)
+    full = tlgb.train(params, tlgb.Dataset(X, label=y), 6,
+                      keep_training_booster=True)
+    assert kernels.launches["fused_hist_scan"] > before["fused_hist_scan"]
+    p = dict(params, tpu_checkpoint_dir=str(tmp_path))
+    tlgb.train(p, tlgb.Dataset(X, label=y), 3)
+    resumed = tlgb.train(p, tlgb.Dataset(X, label=y), 6, resume=True,
+                         keep_training_booster=True)
+    assert _text_without_params(resumed) == _text_without_params(full)
+
+
+def test_fused_unfuse_rung_on_the_card_equals_the_fused_text():
+    """Two injected OOMs with B2 pinned: the ladder shrinks the chunks,
+    then leaves B2 for B1-int and the torch split search, and the text
+    is the undisturbed fused run's."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.utils import faultline
+
+    cuda_device()
+    X, y, params = _ft_data()
+    p = dict(params, tpu_hist_impl="fused", tpu_ingest_chunk_rows=8192,
+             tpu_predict_chunk_rows=8192)
+    want = _text_without_params(tlgb.train(p, tlgb.Dataset(X, label=y), 5,
+                                           keep_training_booster=True))
+    b = tlgb.Booster(params=p, train_set=tlgb.Dataset(X, label=y))
+    faultline.reset()
+    try:
+        for it in range(5):
+            if it == 2:
+                faultline.arm("device_alloc", action="oom", times=2)
+            if it == 3:
+                before = dict(kernels.launches)
+            b.update()
+    finally:
+        faultline.reset()
+    assert b._driver._mem_ladder.describe() == ["shrink_chunk_rows",
+                                                "fused_unfuse"]
+    assert kernels.launches["fused_hist_scan"] == before["fused_hist_scan"]
+    assert kernels.launches["hist_batched_int"] > before["hist_batched_int"]
+    assert _text_without_params(b) == want

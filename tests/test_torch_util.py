@@ -1223,6 +1223,103 @@ def _job_shap(inp, spec):
     return out
 
 
+def model_text(b) -> str:
+    """A model text without its parameters block, which names each run's
+    checkpoint directory and device; the trees and the trailers stay."""
+    text = b.model_to_string(num_iteration=-1)
+    head, rest = text.split("\nparameters:", 1)
+    return head + rest.split("end of parameters", 1)[1]
+
+
+def fault_run(lgb, inp, run, tmp):
+    """One case of tests/test_torch_fault_tolerance.py or
+    tests/test_torch_membudget.py, the same script for either package
+    (the JAX package's in the no-FMA process, job "fault"): model texts,
+    checkpoint bundles written into `tmp`, captured train states, guard
+    and ladder outcomes.  `run["from_dir"]` names another package's
+    bundle directory to resume from (copied first: a resume writes on)."""
+    import importlib
+    import json
+    import os
+    import shutil
+
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    pkg = "jax" if jax_side else "port"
+    faultline = importlib.import_module(lgb.__name__ + ".utils.faultline")
+    p = dict(run["params"], verbosity=-1)
+    if not jax_side:
+        p["device_type"] = "cpu"
+    X, y, Xv, yv = inp["X"], inp["y"], inp["Xv"], inp["yv"]
+    rounds = run.get("rounds", 6)
+    kind = run["kind"]
+
+    def train(params, n, **kw):
+        ds = lgb.Dataset(X, label=y, params={"max_bin": p["max_bin"]})
+        return lgb.train(params, ds, n, valid_sets=[ds.create_valid(
+            Xv, label=yv)], valid_names=["v"], verbose_eval=False,
+            keep_training_booster=True, **kw)
+
+    def booster(params):
+        ds = lgb.Dataset(X, label=y, params={"max_bin": p["max_bin"]})
+        return lgb.Booster(params=params, train_set=ds)
+
+    if kind == "full":
+        return {"text": model_text(train(p, rounds))}
+    if kind == "interrupt":
+        # a run cut after `at` rounds, its bundle kept at that iteration,
+        # and the train state it captured there
+        d = os.path.join(tmp, f"{run['name']}_{pkg}")
+        b = train(dict(p, tpu_checkpoint_dir=d), run["at"])
+        shutil.copytree(d, d + "_at")
+        state, arrays = b._driver.capture_train_state()
+        out = {"dir": d + "_at", "state": json.dumps(state, sort_keys=True)}
+        out.update({f"arr:{k}": v for k, v in arrays.items()})
+        return out
+    if kind == "resume":
+        src = run["from_dir"]
+        d = os.path.join(tmp, f"{run['name']}_{pkg}_resumed")
+        shutil.copytree(src, d)
+        b = train(dict(p, tpu_checkpoint_dir=d), rounds, resume=True)
+        return {"text": model_text(b)}
+    if kind == "guard":
+        b = booster(dict(p, tpu_guard_numerics="skip"))
+        faultline.reset()
+        faultline.arm("grow_step", action="poison", at=run["poison_at"])
+        try:
+            for _ in range(rounds):
+                b.update()
+        finally:
+            faultline.reset()
+        return {"text": model_text(b),
+                "skips": b._driver._guard_skips_total,
+                "iteration": b.current_iteration()}
+    if kind == "oom":
+        b = booster(p)
+        faultline.reset()
+        try:
+            for it in range(rounds):
+                if it == run["oom_at"]:
+                    faultline.arm("device_alloc", action="oom",
+                                  times=run["times"])
+                b.update()
+        finally:
+            faultline.reset()
+        return {"text": model_text(b),
+                "steps": json.dumps(b._driver._mem_ladder.describe())}
+    raise ValueError(f"unknown fault case {kind!r}")
+
+
+def _job_fault(inp, spec):
+    """fault_run of the JAX package for every run of the spec."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        for k, v in fault_run(lgb, inp, run, spec["tmp"]).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -1238,6 +1335,7 @@ if __name__ == "__main__":
               "constraints": _job_constraints,
               "fileio": _job_fileio,
               "sparse_storage": _job_sparse_storage,
-              "utilities": _job_utilities, "shap": _job_shap}[job](
+              "utilities": _job_utilities, "shap": _job_shap,
+              "fault": _job_fault}[job](
                   inp, spec)
     np.savez(dst, **result)
