@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. forty-two paths at full width, each lgb.train (cv_int8:
+  3. forty-six paths at full width, each lgb.train (cv_int8:
      lgb.cv) on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
      and sparse paths: a sparse table of 697 features), then
@@ -238,9 +238,12 @@ Phases, each fatal on failure (exit code 1, no result line):
                it holds and its free blocks filled, the cap lifted and
                the blocks freed after): the run
                settles at an undisturbed run's text at the settled
-               configuration, or ends in MemoryLadderExhausted with a
-               final checkpoint and a booster that predicts, never a raw
-               torch.OutOfMemoryError; torch.empty past capacity inside
+               configuration, or, its last rung (stream_layout) taken,
+               finishes streamed with a booster that predicts, or ends in
+               MemoryLadderExhausted with a final checkpoint and a
+               booster that predicts, never a raw
+               torch.OutOfMemoryError (it prints which);
+               torch.empty past capacity inside
                oom_guard("predict_chunk") must be a DeviceOutOfMemory
                naming the site;
        preflight  plan_training of a fresh hilo and int8 learner: each
@@ -252,6 +255,31 @@ Phases, each fatal on failure (exit code 1, no result line):
                a budget of the int8 plan less one byte must refuse before
                iteration 0, print the itemized table and launch no
                kernel;
+     and after those the streamed layout (ops/stream.py, the bins in
+     pinned host blocks of 131,072 rows copied through two device slots,
+     B1 once per block per pass, never B2 or B3), on a Dataset of its
+     own:
+       stream_int8  int8 with tpu_stream_mode=streamed, 10 iterations:
+               B1-int (blocks x (rounds + 1) a tree) and the leaf sums;
+               its text must be the resident int8 run's on the sync
+               path, byte for byte (it prints whether it is also the
+               fused step's); iters/s beside both resident runs', H2D
+               GB/s, overlap_pct, peak bytes beside the resident sync
+               run's; B1-int on one block against its twin; the plan's
+               stream_slots the live slots, its kernel scratch covering
+               the build ledger's largest hist plan;
+       stream_hilo  the same in hilo: B1; held-out AUC within AUC_TOL
+               of the hilo path's;
+       stream_goss_int8  stream_int8 with tpu_stream_goss_top=0.2 and
+               tpu_stream_goss_other=0.1: the blocks skipped and
+               replayed; two runs and a run with
+               tpu_stream_double_buffer=false write one text;
+       stream_large_int8  10,000,000 rows of the generator (seed 43),
+               int8, 3 iterations under tpu_stream_mode=auto and a
+               400 MiB budget (select_layout streams), blocks of
+               1,048,576 rows: no [F, n] bins matrix nor [n, FR]
+               row-major copy on the card, its bins in host memory, the
+               slots two of the largest block; set-up over 60 s fails;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -340,7 +368,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      contributions of 500 rows bit for bit; and an int8 regression
      bundle (bagging) written on the card after 3 iterations and resumed
      on the CPU to 6, and one written on the CPU and resumed on the card,
-     each by its whole model text against the uninterrupted card run.
+     each by its whole model text against the uninterrupted card run;
+     and a streamed int8 regression (blocks of 16,384 rows, refit off)
+     card against CPU by its whole text, and its bundle written at the
+     midpoint on either device resumed on the other, both the
+     uninterrupted card run's text.
+A line "build ledger" before the kernels line gives the kernel
+library's build (built or loaded, seconds, hash), the distinct launch
+plans of each kernel site over the run, and stream_int8's plan held to
+the ledger (membudget.ledger_cross_check).
 With --profile, after phase 4, two more iterations of every path run
 under torch.profiler and the device time by op, each port kernel's
 device time per call on the path and the device's idle share are
@@ -3998,7 +4034,20 @@ def oom_path(lgb, kernels, ds, X, y, tmp):
         torch.cuda.set_per_process_memory_fraction(1.0)
         cap.filler.clear()
     genuine["steps"] = b._driver._mem_ladder.describe()
+    if outcome == "settled" and "stream_layout" in genuine["steps"]:
+        # the last rung rebuilt the learner streamed: its first
+        # iteration took the fused step, the later ones the sync step
+        # (another key stream), so no undisturbed run writes its text
+        outcome = "settled_streamed"
+        learner = b._driver.learner
+        if not learner.stream_layout or learner.bins_t is not None:
+            fail("oom_int8: the stream_layout rung left a resident learner")
+        genuine["slot_bytes"] = learner._stream.slot_bytes()
+        if not np.all(np.isfinite(b.predict(Xho))):
+            fail("oom_int8: the streamed booster does not predict")
     genuine["outcome"] = outcome
+    print(f"oom_int8 genuine OOM outcome: {outcome} after "
+          f"{genuine['steps']}", flush=True)
     if outcome == "settled":
         settled = dict(params)
         for _, overrides in b._driver._mem_ladder.steps_taken:
@@ -4207,6 +4256,385 @@ def fault_paths(lgb, kernels, ds, X, y, tmp, reports):
         print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
 
 
+# the streamed layout (ops/stream.py): blocks of 131,072 rows of the
+# Higgs-1M shape (7 of them and a tail of 90,112 rows), and the
+# out-of-core scale, 10,000,000 rows streamed under tpu_stream_mode=auto
+# in blocks of 1,048,576 rows (9 and a tail of 565,248)
+STREAM_ROWS = 131072
+STREAM_PARAMS = dict(PARAMS, tpu_hist_precision="int8",
+                     tpu_stream_mode="streamed",
+                     tpu_stream_block_rows=STREAM_ROWS)
+STREAM_GOSS = dict(tpu_stream_goss_top=0.2, tpu_stream_goss_other=0.1)
+N_LARGE = 10_000_000
+LARGE_STREAM_ROWS = 1_048_576
+ITERS_LARGE = 3
+# a budget whose half the 280 MB binned matrix passes: auto streams
+LARGE_BUDGET = 400 << 20
+LARGE_SETUP_LIMIT_S = 60.0
+# phase 5: the streamed int8 regression, card against CPU, and resumed
+# across devices at its midpoint
+STREAM_SMALL_ROWS = 16384
+ITERS_STREAM_SMALL = 4
+
+
+class _StreamStats:
+    """A callback keeping each tree's `stream_stats` (none on the resident
+    layout), and resetting the allocator's peak after the first
+    iteration, so the peak read after training is the steady
+    iterations'."""
+
+    order = 40
+    before_iteration = False
+
+    def __init__(self):
+        self.trees = []
+
+    def __call__(self, env):
+        import torch
+
+        learner = env.model._driver.learner
+        if learner.stream_layout:
+            self.trees.append(learner.stream_stats)
+        if env.iteration == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+
+def _sync_step(lgb):
+    """A context in which every GBDT takes the sync step (the streamed
+    layout's), as tests/test_torch_stream.py pins its resident reference:
+    the fused step draws its tree keys from another stream."""
+    import contextlib
+
+    from lightgbm_tpu_torch.models.gbdt import GBDT as gbdt
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = gbdt._make_train_step
+        gbdt._make_train_step = lambda self: setattr(self, "_step", None)
+        try:
+            yield
+        finally:
+            gbdt._make_train_step = saved
+    return ctx()
+
+
+def stream_train(lgb, kernels, ds, params, iters):
+    """lgb.train with the launches counted from 0 and the per-tree stream
+    stats.  Returns (booster, seconds, launches, memory, tree stats);
+    memory: the allocator's peak over the steady iterations (after the
+    first) and the bytes the run holds after training, each above what
+    was allocated before it (the dataset's bins on the card
+    included)."""
+    import torch
+
+    stats = _StreamStats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    b = lgb.train(dict(params), ds, iters, keep_training_booster=True,
+                  callbacks=[stats])
+    b.num_trees()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    memory = {"steady_peak_bytes": torch.cuda.max_memory_allocated() - base,
+              "held_bytes": torch.cuda.memory_allocated() - base}
+    return b, secs, dict(kernels.launches), memory, stats.trees
+
+
+def stream_summary(name, booster, launches, trees, hist):
+    """The streamed report of a path: H2D GB/s over every copy, the
+    overlap share of each tree and in all, the blocks a tree streamed
+    and skipped, and the launches of the histogram kernel `hist` a tree,
+    which must be the blocks streamed times the passes (rounds + 1) of
+    each tree; B2 must not launch."""
+    learner = booster._driver.learner
+    if not learner.stream_layout or learner.bins_t is not None:
+        fail(f"{name}: the learner is not on the streamed layout")
+    if len(trees) != booster.num_trees():
+        fail(f"{name}: {len(trees)} tree stats for "
+             f"{booster.num_trees()} trees")
+    want = sum(int(t["blocks_streamed"]) * (int(t["rounds"]) + 1)
+               for t in trees)
+    if launches[hist] != want:
+        fail(f"{name}: {launches[hist]} launches of {hist}, the blocks "
+             f"and passes give {want}")
+    if launches["fused_hist_scan"] or launches["partition_rows"]:
+        fail(f"{name}: B2 or B3 launched on the streamed layout: "
+             f"{launches}")
+    h2d_b = sum(t["h2d_bytes"] for t in trees)
+    h2d_s = sum(t["h2d_wall_s"] for t in trees)
+    copy_s = sum(t["copy_est_s"] for t in trees)
+    hidden = sum(t["copy_est_s"] * t["overlap_pct"] / 100 for t in trees)
+    return {"blocks": len(learner._host_blocks),
+            "stream_rows": learner._stream_R,
+            "block_bytes": [int(b.nbytes) for b in learner._host_blocks[:1]]
+            + [int(learner._host_blocks[-1].nbytes)],
+            "slot_bytes": learner._stream.slot_bytes(),
+            "h2d_bytes": h2d_b, "h2d_s": h2d_s,
+            "h2d_gb_per_s": h2d_b / max(h2d_s, 1e-12) / 1e9,
+            "h2d_stall_s": sum(t["h2d_stall_s"] for t in trees),
+            "overlap_pct": 100.0 * hidden / max(copy_s, 1e-12),
+            "overlap_pct_by_tree": [t["overlap_pct"] for t in trees],
+            "rounds_by_tree": [t["rounds"] for t in trees],
+            "blocks_streamed_by_tree": [t["blocks_streamed"] for t in trees],
+            "blocks_skipped_by_tree": [t["blocks_skipped"] for t in trees],
+            "tree_wall_s": [t["tree_wall_s"] for t in trees],
+            f"{hist}_per_tree": launches[hist] / max(len(trees), 1),
+            "launches": launches}
+
+
+def check_block_hist(learner, precision):
+    """B1 (or B1-int) on one streamed block as the path gives it (its
+    pinned host block copied to the card, K = 25 slots over random leaf
+    ids, random stats) against its twin: int bitwise, float within 1e-6
+    of the sum of |stat|."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    blk = learner._host_blocks[0].to("cuda")
+    R, G = blk.shape[0], learner.g_pad
+    leaf = torch.randint(0, 60, (R,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    slots = torch.tensor(list(range(0, 48, 2)) + [-1], dtype=torch.int32,
+                         device="cuda")
+    ones = torch.ones(R, device="cuda")
+    g = torch.randn(R, generator=gen, device="cuda")
+    h = torch.rand(R, generator=gen, device="cuda")
+    if precision == "int8":
+        g = H.quantize_values(g, g.abs().max() / 127, 127, "nearest")
+        h = H.quantize_values(h, h.abs().max() / 127, 127, "nearest")
+    stats = H.pack_stats(g, h, ones, precision).contiguous()
+    got = H.build_histogram_rows(blk, G, stats, leaf, slots,
+                                 learner.num_bins, precision)
+    ref = H._unpack_hist(H.hist_batched_plain(
+        H.columns_of_rows(blk, G), stats, leaf, slots, learner.num_bins)
+        .permute(3, 2, 0, 1), precision)
+    err = float((got.double() - ref.double()).abs().max())
+    tol = 0.0 if precision == "int8" else 1e-6 * float(
+        stats.float().abs().sum())
+    if err > tol:
+        fail(f"B1 on a streamed block ({precision}): max error {err} "
+             f"over {tol}")
+    return {"rows": R, "max_abs_err": err, "tolerance": tol}
+
+
+def stream_paths(lgb, kernels, X, y, reports):
+    """Phase 3's streamed paths (run after the fault paths): stream_int8,
+    stream_hilo, stream_goss_int8 on the Higgs-1M rows, then
+    stream_large_int8 at 10,000,000 rows.  Returns the plan check of
+    stream_int8 against the build ledger."""
+    import torch
+    from lightgbm_tpu_torch.utils import membudget
+    from lightgbm_tpu_torch.utils.compile_ledger import LEDGER
+
+    Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                     params=dict(PARAMS)).construct()
+    int8 = dict(PARAMS, tpu_hist_precision="int8")
+    # the references, resident (their bins on the card): int8 on the sync
+    # path and on the fused step, hilo
+    with _sync_step(lgb):
+        ref, ref_s, _, ref_peak, _ = stream_train(lgb, kernels, ds, int8,
+                                                  ITERS)
+    ref_text = model_text(ref)
+    del ref
+    fused_text = model_text(lgb.train(dict(int8), ds, ITERS))
+    # stream_int8
+    LEDGER.reset()
+    b, secs, launches, peak, trees = stream_train(lgb, kernels, ds,
+                                                  STREAM_PARAMS, ITERS)
+    rep = stream_summary("stream_int8", b, launches, trees,
+                         "hist_batched_int")
+    if model_text(b) != ref_text:
+        fail("stream_int8: the text is not the resident int8 sync run's")
+    drv = b._driver
+    plan = membudget.plan_training(drv.config, drv.learner, 1)
+    cross = membudget.ledger_cross_check(plan, "hist")
+    if cross is None or not cross["covered"]:
+        fail(f"stream_int8: the plan's kernel scratch does not cover the "
+             f"build ledger's largest: {cross}")
+    live = membudget.live_bytes(drv)
+    if live["stream_slots"] != plan.components["stream_slots"]:
+        fail(f"stream_int8: slots {live['stream_slots']} against the "
+             f"plan's {plan.components['stream_slots']}")
+    pred = b.predict(Xho)
+    rep.update({"train_s": secs, "iters_per_s": ITERS / secs,
+                "resident_sync_iters_per_s": ITERS / ref_s,
+                "resident_fused_iters_per_s": reports["int8"]["iters_per_s"],
+                "text_equals_resident_sync": True,
+                "text_equals_resident_fused": model_text(b) == fused_text,
+                "memory": peak, "resident_sync_memory": ref_peak,
+                "holdout_auc": auc(pred, yho),
+                "block_check": check_block_hist(drv.learner, "int8"),
+                "plan_stream_slots": plan.components["stream_slots"]})
+    reports["stream_int8"] = rep
+    print("main path stream_int8 " + json.dumps(rep), flush=True)
+    del b, drv
+    # stream_hilo
+    b, secs, launches, peak, trees = stream_train(
+        lgb, kernels, ds, dict(STREAM_PARAMS, tpu_hist_precision="hilo"),
+        ITERS)
+    rep = stream_summary("stream_hilo", b, launches, trees, "hist_batched")
+    hold = auc(b.predict(Xho), yho)
+    if abs(hold - reports["hilo"]["holdout_auc"]) > AUC_TOL:
+        fail(f"stream_hilo: held-out AUC {hold} against resident hilo's "
+             f"{reports['hilo']['holdout_auc']}")
+    rep.update({"train_s": secs, "iters_per_s": ITERS / secs,
+                "resident_iters_per_s": reports["hilo"]["iters_per_s"],
+                "holdout_auc": hold,
+                "resident_holdout_auc": reports["hilo"]["holdout_auc"],
+                "memory": peak,
+                "block_check": check_block_hist(b._driver.learner, "hilo")})
+    reports["stream_hilo"] = rep
+    print("main path stream_hilo " + json.dumps(rep), flush=True)
+    del b
+    # stream_goss_int8: twice, and without double buffering
+    goss = dict(STREAM_PARAMS, **STREAM_GOSS)
+    texts = []
+    for run, params in (("a", goss), ("b", goss),
+                        ("single", dict(goss,
+                                        tpu_stream_double_buffer=False))):
+        b, secs, launches, peak, trees = stream_train(lgb, kernels, ds,
+                                                      params, ITERS)
+        texts.append(model_text(b))
+        if run == "a":
+            rep = stream_summary("stream_goss_int8", b, launches, trees,
+                                 "hist_batched_int")
+            skipped = sum(t["blocks_skipped"] for t in trees)
+            if skipped <= 0:
+                fail("stream_goss_int8: no block was skipped")
+            rep.update({"train_s": secs, "iters_per_s": ITERS / secs,
+                        "blocks_replayed": skipped, "memory": peak,
+                        "holdout_auc": auc(b.predict(Xho), yho)})
+        elif run == "single":
+            rep["single_buffer_iters_per_s"] = ITERS / secs
+            rep["single_buffer_overlap_pct"] = stream_summary(
+                "stream_goss_int8", b, launches, trees,
+                "hist_batched_int")["overlap_pct"]
+        del b
+    if len(set(texts)) != 1:
+        fail("stream_goss_int8: the two runs and the single-buffered run "
+             "wrote different texts")
+    rep["texts_identical"] = True
+    reports["stream_goss_int8"] = rep
+    print("main path stream_goss_int8 " + json.dumps(rep), flush=True)
+    del ds
+    print(f"path_s stream_int8+stream_hilo+stream_goss_int8 "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    reports["stream_large_int8"] = stream_large_path(lgb, kernels)
+    print("main path stream_large_int8 "
+          + json.dumps(reports["stream_large_int8"]), flush=True)
+    return cross
+
+
+def stream_large_path(lgb, kernels):
+    """stream_large_int8: 10,000,000 x 28 rows of the generator (seed
+    43), int8, 3 iterations under tpu_stream_mode=auto and a budget that
+    makes `select_layout` stream, in blocks of 1,048,576 rows.  No 2-D
+    integer tensor with the rows as an axis (a [F, n] bins matrix, a
+    [n, FR] row-major copy) may stay on the card, the slots are two of
+    the largest block.  Set-up past 60 s fails."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    Xl, yl = make_data(N_LARGE, N_FEAT, seed=43)
+    made_s = time.perf_counter() - t0
+    params = dict(PARAMS, tpu_hist_precision="int8",
+                  tpu_stream_block_rows=LARGE_STREAM_ROWS,
+                  tpu_hbm_budget_bytes=LARGE_BUDGET)
+    t1 = time.perf_counter()
+    ds = lgb.Dataset(Xl, label=yl, params=dict(params)).construct()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t1
+    setup_s = time.perf_counter() - t0
+    if setup_s > LARGE_SETUP_LIMIT_S:
+        fail(f"stream_large_int8: set-up took {setup_s:.1f} s")
+    b, secs, launches, peak, trees = stream_train(lgb, kernels, ds, params,
+                                                  ITERS_LARGE)
+    rep = stream_summary("stream_large_int8", b, launches, trees,
+                         "hist_batched_int")
+    learner = b._driver.learner
+    # no [F, n] bins matrix nor [n, FR] row-major copy of these rows
+    gc.collect()
+    rows = (N_LARGE, learner.n_pad)
+    big = [tuple(t.shape) for t in gc.get_objects()
+           if torch.is_tensor(t) and t.is_cuda
+           and t.dtype in (torch.uint8, torch.int16, torch.int32)
+           and t.dim() == 2 and (t.shape[0] in rows or t.shape[1] in rows)]
+    if big:
+        fail(f"stream_large_int8: bins tensors on the card: {big}")
+    largest = max(int(blk.nbytes) for blk in learner._host_blocks)
+    if learner._stream.slot_bytes() != 2 * largest:
+        fail(f"stream_large_int8: slots {learner._stream.slot_bytes()} "
+             f"bytes, the largest block {largest}")
+    if ds._inner.bins_t.device.type != "cpu":
+        fail("stream_large_int8: the dataset's bins stayed on the card")
+    pred = b.predict(Xl[:N_HOLD])
+    if not np.all(np.isfinite(pred)):
+        fail("stream_large_int8: predictions are not finite")
+    rep.update({"rows": N_LARGE, "n_pad": learner.n_pad, "made_s": made_s,
+                "ingest_s": ingest_s, "setup_s": setup_s, "train_s": secs,
+                "iters_per_s": ITERS_LARGE / secs, "memory": peak,
+                "bins_host_bytes": sum(int(blk.nbytes)
+                                       for blk in learner._host_blocks),
+                "big_cuda_tensors": big,
+                "memory_allocated_after": torch.cuda.memory_allocated()})
+    del b, ds, learner, Xl, yl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def cross_check_stream(lgb, X):
+    """Phase 5 of the streamed layout on the first N_SMALL rows: int8
+    regression (refit off) streamed in blocks of 16,384 rows, card
+    against CPU by the whole text; and a streamed bundle written at its
+    midpoint on the card resumed on the CPU, and one written on the CPU
+    resumed on the card, each the uninterrupted card run's text."""
+    Xs = X[:N_SMALL]
+    rng = np.random.default_rng(45)
+    y_reg = Xs[:, 0] - 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
+        size=N_SMALL)
+    reg = dict(PARAMS, objective="regression", metric="l2",
+               tpu_hist_precision="int8", tpu_quant_refit_leaves=False,
+               tpu_stream_mode="streamed",
+               tpu_stream_block_rows=STREAM_SMALL_ROWS)
+    tmp = tempfile.mkdtemp()
+    try:
+        def run(dev, rounds, d=None, resume=False):
+            p = dict(reg, device_type=dev)
+            if d is not None:
+                p["tpu_checkpoint_dir"] = d
+            return lgb.train(p, lgb.Dataset(Xs, label=y_reg, params=p),
+                             rounds, keep_training_booster=True,
+                             resume=resume)
+
+        t0 = time.perf_counter()
+        want = model_text(run("cuda", ITERS_STREAM_SMALL))
+        if model_text(run("cpu", ITERS_STREAM_SMALL)) != want:
+            fail("stream: the streamed int8 text differs card to CPU")
+        out = {"stream_int8_card_cpu_identical": True}
+        half = ITERS_STREAM_SMALL // 2
+        for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = os.path.join(tmp, f"stream_{src}_to_{dst}")
+            run(src, half, d)
+            if model_text(run(dst, ITERS_STREAM_SMALL, d,
+                              resume=True)) != want:
+                fail(f"stream: a streamed {src} bundle resumed on the "
+                     f"{dst} differs from the uninterrupted card run")
+            out[f"stream_resume_{src}_to_{dst}_identical"] = True
+        out["stream_cross_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4228,6 +4656,10 @@ def main() -> None:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
 
+    from lightgbm_tpu_torch.utils.compile_ledger import LEDGER
+
+    # the build ledger: the library's build, each kernel site's plans
+    LEDGER.enable()
     kernels.library()
     print(f"kernels built in {kernels.build_seconds:.2f} s", flush=True)
     print(kernels.build_log.strip(), flush=True)
@@ -4496,6 +4928,15 @@ def main() -> None:
                      params=dict(PARAMS)).construct()
     fault_paths(lgb, kernels, ds, X, y, tmp, reports)
     del ds
+    # the build ledger of every path so far; then the streamed paths,
+    # whose plans the ledger holds apart for stream_int8's cross-check
+    ledger_sites = {r["site"]: r["programs"] for r in LEDGER.report()}
+    t0 = time.perf_counter()
+    ledger_cross = stream_paths(lgb, kernels, X, y, reports)
+    print(f"path_s stream {time.perf_counter() - t0:.1f}", flush=True)
+    for r in LEDGER.report():
+        ledger_sites[r["site"]] = ledger_sites.get(r["site"], 0) \
+            + r["programs"]
 
     cross = cross_check(lgb, X, y, latent)
     cross.update(cross_check_efb(lgb, Xe, ye, latent_e))
@@ -4509,7 +4950,14 @@ def main() -> None:
     print(f"path_s cross_check_storage {time.perf_counter() - t0:.1f}",
           flush=True)
     cross.update(cross_check_fault(lgb, X))
+    t0 = time.perf_counter()
+    cross.update(cross_check_stream(lgb, X))
+    print(f"path_s cross_check_stream {time.perf_counter() - t0:.1f}",
+          flush=True)
     print("cross-check " + json.dumps(cross), flush=True)
+    print("build ledger " + json.dumps({
+        "builds": LEDGER.builds(), "plans_by_site": ledger_sites,
+        "cross_check": ledger_cross}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -72,11 +72,11 @@ from ..ops.predict import (PackedForest, class_scores, device_tables,
                            leaf_values, pack_raw_trees, pack_trees,
                            raw_device_tables, raw_forest_scores,
                            raw_leaf_index, subset_scores, tree_leaf_values,
-                           upload)
+                           upload, walk_step_bytes)
 from ..utils import faultline, membudget
 from ..utils.log import LightGBMError, Log
 from ..utils.prng import PRNGKey
-from .learner import TreeLearner, _to_bitset
+from .learner import TreeLearner, _to_bitset, make_tree_learner
 from .metrics import Metric, create_metrics
 from .objectives import (Objective, create_objective,
                          create_objective_from_model_string)
@@ -148,9 +148,12 @@ class PredictContext:
                 for k in ("num_bin", "default_bin", "missing_type")]
         return self._meta_dev[key]
 
-    def bin_rows_t(self, X: np.ndarray, device) -> torch.Tensor:
-        """[F_used, n] device bins of raw rows in training-mapper space."""
-        return bin_matrix_t(X, self.mappers, self.used_feature_idx, device)
+    def bin_rows_t(self, X: np.ndarray, device,
+                   scratch: Optional[Dict[str, int]] = None) -> torch.Tensor:
+        """[F_used, n] device bins of raw rows in training-mapper space
+        (scratch: `bin_matrix_t`'s, the binning chunk's bytes)."""
+        return bin_matrix_t(X, self.mappers, self.used_feature_idx, device,
+                            scratch=scratch)
 
 
 def _split_mapper_snapshot(text: str):
@@ -290,6 +293,9 @@ class GBDT:
         # host waits of the grower, summed over trained trees
         self.grower_syncs = 0
         self.last_score_bytes = 0
+        # the largest predict chunk's tensors of the last bin-space
+        # predict (utils/membudget.py:live_bytes), None before one
+        self.predict_scratch_bytes: Optional[int] = None
         self._key: Optional[np.ndarray] = None
         self._bag_key: Optional[np.ndarray] = None
         self._bag_rng: Optional[np.random.Generator] = None
@@ -336,10 +342,7 @@ class GBDT:
             self.num_tree_per_iteration = self.num_class
         # the flight recorder's depth and dump directory (tpu_obs_*)
         obs.configure_from_config(config)
-        # tpu_stream_mode=auto that would stream is refused before the
-        # learner lays its bins out
-        membudget.check_layout(config, train_data)
-        self.learner = TreeLearner(config, train_data)
+        self.learner = make_tree_learner(config, train_data)
         if self.learner.params.has_cegb and self._goss_cfg is not None:
             # gbdt.py:339-341 of the JAX package
             raise NotImplementedError(
@@ -385,12 +388,15 @@ class GBDT:
         the device, with no leaf refit on the host, no CEGB, and every
         class trainable.  Otherwise (objective=none, the ranking
         objectives, the percentile family, CEGB, whose state crosses
-        trees through the learner's `train`, a single label class) every
-        iteration takes the sync step."""
+        trees through the learner's `train`, the streamed layout, whose
+        trees grow from host blocks in the learner's `train`
+        (gbdt.py:372-375), a single label class) every iteration takes
+        the sync step."""
         self._step = None
         obj = self.objective
         if (obj is not None and not obj.needs_renew and not obj.host_only
                 and not self.learner.params.has_cegb
+                and not self.learner.stream_layout
                 and all(obj.class_need_train(k)
                         for k in range(self.num_tree_per_iteration))):
             self._step = self.learner.make_train_step(
@@ -425,7 +431,7 @@ class GBDT:
         self.config = config
         self.shrinkage_rate = float(config.learning_rate)
         if self.learner is not None:
-            self.learner = TreeLearner(config, self.train_data)
+            self.learner = make_tree_learner(config, self.train_data)
             self._bag_cfg = self._bagging_config()
             self._make_train_step()
 
@@ -497,7 +503,9 @@ class GBDT:
                                      trees=len(trees)):
                 for lo in range(0, n, chunk):
                     hi = min(lo + chunk, n)
-                    bins_t = data.bins_t[:, lo:hi]
+                    # the streamed layout keeps the training bins in host
+                    # memory: a chunk at a time goes to the device
+                    bins_t = data.bins_t[:, lo:hi].to(self.device)
                     if blocked:
                         scores = class_scores(tables, bins_t, meta, k,
                                               depth)
@@ -808,8 +816,7 @@ class GBDT:
     def _recover_from_oom(self, exc: "membudget.DeviceOutOfMemory",
                           in_recovery: bool = False) -> None:
         """One ladder descent after a rolled-back OOM iteration, or the
-        structured error (gbdt.py:762-817).  A rung the port cannot take
-        (stream_layout, ROADMAP A8) ends the descent like exhaustion."""
+        structured error (gbdt.py:762-817)."""
         if not (in_recovery or self._oom_recoverable()):
             obs.flightrecorder.note(
                 "oom", "oom_propagated", site=exc.site, recovery="off",
@@ -818,22 +825,17 @@ class GBDT:
             obs.flightrecorder.dump("oom_unrecovered", exc=exc)
             raise exc
         step = self._mem_ladder.next_step(self.config)
-        if step is None or step[0] in membudget.UNPORTED_STEPS:
+        if step is None:
             taken = self._mem_ladder.describe()
             obs.flightrecorder.note(
                 "oom", "ladder_exhausted", site=exc.site,
                 steps_taken=",".join(taken) or "none",
                 **{k: v for k, v in membudget.memory_snapshot().items()
                    if v is not None})
-            unported = ""
-            if step is not None:
-                unported = (f"; its next rung, {step[0]!r} ({step[1]}), is "
-                            "not ported to lightgbm_tpu_torch yet ("
-                            f"{membudget.UNPORTED_STEPS[step[0]]})")
             err = membudget.MemoryLadderExhausted(
                 f"device out of memory at {exc.site!r} and the "
                 "degradation ladder is exhausted "
-                f"(steps taken: {taken or 'none'}){unported}; the failed "
+                f"(steps taken: {taken or 'none'}); the failed "
                 "iteration was rolled back — the booster is usable and "
                 "a final checkpoint covers the last complete iteration",
                 site=exc.site, info=dict(exc.info))
@@ -883,6 +885,7 @@ class GBDT:
             self.learner = None
             old.bins_t = None
             old.meta = None
+            old._stream = None
             del old
             if self.device is not None and self.device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -892,7 +895,7 @@ class GBDT:
         """The learner for the current config with the carried state, under
         oom_guard: a failed rebuild is a classified train-step OOM."""
         with membudget.oom_guard("train_step", stage="ladder_rebuild"):
-            self.learner = TreeLearner(self.config, self.train_data)
+            self.learner = make_tree_learner(self.config, self.train_data)
         rng_state, cegb = self._ladder_carry or (None, {})
         self._ladder_carry = None
         if rng_state is not None:
@@ -921,7 +924,7 @@ class GBDT:
             pending: Dict = {}
             while plan.fits is False:
                 step = self._mem_ladder.next_step(self.config)
-                if step is None or step[0] in membudget.UNPORTED_STEPS:
+                if step is None:
                     break
                 name, overrides = step
                 membudget.note_ladder_step("preflight", name, overrides,
@@ -1094,8 +1097,9 @@ class GBDT:
         """[n] f32 device scores sum_i scales[i] * trees[i] over a binned
         [F, n] set, summed per row in f64 in list order and cast once
         (gbdt.py:1519-1543; the DART drop and restore)."""
-        return subset_scores(trees, scales, bins_t,
-                             self._pred_ctx.meta_dev(self.device))
+        meta = self._pred_ctx.meta_dev(self.device)
+        return self._binned_rows(bins_t, lambda b: subset_scores(
+            trees, scales, b, meta))
 
     def _invalidate_tables(self) -> None:
         """Drop the cached forest tables: they append the trees trained
@@ -1164,9 +1168,21 @@ class GBDT:
         """[n] f32 leaf values of one tree over a binned dataset."""
         tables, depth = pack_trees([tree],
                                    leaf_width=int(self.config.num_leaves))
-        return tree_leaf_values(device_tables(tables, self.device),
-                                data.bins_t,
-                                self._pred_ctx.meta_dev(self.device), depth)
+        tables = device_tables(tables, self.device)
+        meta = self._pred_ctx.meta_dev(self.device)
+        return self._binned_rows(data.bins_t, lambda bins_t:
+                                 tree_leaf_values(tables, bins_t, meta, depth))
+
+    def _binned_rows(self, bins_t: torch.Tensor, fn) -> torch.Tensor:
+        """fn([F, rows] device bins) -> [rows] values over a dataset's
+        [F, n] bins: at once where they are on the device, else (the
+        streamed layout's training set, in host memory) in predict
+        chunks copied there, the per-row values concatenated."""
+        if bins_t.device == self.device:
+            return fn(bins_t)
+        chunk = self._predict_chunk()
+        return torch.cat([fn(bins_t[:, lo:lo + chunk].to(self.device))
+                          for lo in range(0, bins_t.shape[1], chunk)])
 
     def current_iteration(self) -> int:
         self._materialize()
@@ -1338,10 +1354,22 @@ class GBDT:
                                   ).cpu().numpy() / div
         tables, depth = self._forest(total)
         meta = self._pred_ctx.meta_dev(self.device)
+        self.predict_scratch_bytes = 0
 
         def walk(lo, hi):
-            bins_t = self._pred_ctx.bin_rows_t(X[lo:hi], self.device)
-            return class_scores(tables, bins_t, meta, k, depth)
+            scratch = {"chunk_bytes": 0}
+            bins_t = self._pred_ctx.bin_rows_t(X[lo:hi], self.device,
+                                               scratch)
+            scores = class_scores(tables, bins_t, meta, k, depth)
+            # the chunk's tensors (utils/membudget.py:live_bytes): the
+            # binning's, the planes a step of the walk makes, the scores
+            self.predict_scratch_bytes = max(
+                self.predict_scratch_bytes, scratch["chunk_bytes"]
+                + walk_step_bytes(tables["leaf_value"].shape[0], hi - lo,
+                                  bins_t.element_size(),
+                                  tables["cat_words"].shape[0] > 1)
+                + int(scores.nbytes))
+            return scores
 
         # random-forest averaging (gbdt_prediction.cpp:55)
         return self._chunked_scores(n, walk) / div

@@ -133,8 +133,6 @@ def check_slice(config: Config) -> None:
             check_sparse_storage(c, TreeLearner.resolve_precision(c),
                                  str(c.tree_learner), forced=False)
         refuse(f"tree_learner={c.tree_learner!r} with num_machines>1")
-    if str(c.tpu_stream_mode) == "streamed":
-        refuse("tpu_stream_mode=streamed")
     _dot_spec(str(c.tpu_hist_precision))
     if str(c.tpu_hist_impl) not in HIST_IMPLS:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
@@ -180,6 +178,9 @@ def check_sparse_storage(config: Config, precision: str, tree_learner: str,
 
 class TreeLearner:
     """The serial learner: device bin layout + grower + tree replay."""
+
+    # StreamedTreeLearner: the bins stay in host blocks (ops/stream.py)
+    stream_layout = False
 
     def __init__(self, config: Config, train_data: TrainingData):
         check_slice(config)
@@ -244,7 +245,18 @@ class TreeLearner:
                 sp_mask[int(np.argmax(nz_frac))] = False
             if sp_mask.any():
                 sparse_mask = sp_mask
-        impl, block = self._resolve_hist_impl(config, precision, B)
+        # a persisted autotune profile (utils/autotune.py,
+        # learner.py:359-370 of the JAX package): its measured winners
+        # replace the "auto" rule for this shape bucket; a stale profile
+        # raises AutotuneStaleProfile here
+        self._autotune_entry = None
+        if str(config.tpu_autotune) != "off":
+            from ..utils.autotune import resolve_autotune
+
+            self._autotune_entry = resolve_autotune(
+                config, n, self.num_features, B, precision, self.device)
+        impl, block = self._resolve_hist_impl(config, precision, B,
+                                              self._autotune_entry)
         # the JAX package pads the column axis to a multiple of 32 for its
         # perfeature kernel, and the port's kernels take chunks of 32
         # columns; padding columns hold bin 0 (num_bin=1) and can never
@@ -301,7 +313,8 @@ class TreeLearner:
         eff_block = min(block, self.n_pad)
         self.packed_bins = self._would_pack(
             config, B, impl, eff_block, self.n_pad,
-            plan is not None or sparse_mask is not None)
+            plan is not None or sparse_mask is not None
+            or self.stream_layout)
         # rows of a packed block (0: bins unpacked), as the kernels take it
         self.packed_block = eff_block if self.packed_bins else 0
 
@@ -313,36 +326,7 @@ class TreeLearner:
             sparse_meta = self._sparse_layout(train_data, sparse_mask,
                                               nz_counts, meta_np, B)
             self.g_pad = -(-self.num_columns // 32) * 32
-        # uint8 when every feature fits a byte, else int32, as the JAX
-        # learner stores them (learner.py:486)
-        bins_t = torch.zeros((self.g_pad, self.n_pad),
-                             dtype=torch.uint8 if B <= 256 else torch.int32,
-                             device=dev)
-        if sparse_mask is not None:
-            bins_t[:self.num_columns, :n] = train_data.bins_t[
-                torch.as_tensor(self.sparse["dense_idx"], device=dev)]
-        elif plan is None:
-            bins_t[:F, :n] = train_data.bins_t
-        else:
-            # [n, G] int32 bundle columns of the host matrix
-            t0 = time.perf_counter()
-            cols = apply_bundles(train_data.bins, plan)
-            bins_t[:self.num_columns, :n] = torch.from_numpy(cols.T).to(
-                device=dev, dtype=bins_t.dtype)
-            del cols
-            self.efb_s["apply"] = time.perf_counter() - t0
-        if self.packed_bins:
-            # [f_pad, n_pad/2]: two rows a byte (reference
-            # dense_nbits_bin.hpp), the JAX learner's per-block layout
-            bins_t = pack_bins(bins_t, eff_block)
-        self.bins_t = bins_t
-        if dev.type == "cuda":
-            # kernels B1, B2 and B4 gather each live row's bins from a
-            # row-major copy ([n_pad, 32] uint8 at up to 32 columns,
-            # [n_pad, 16] packed, or [n_pad, 32] 16-bit for int32 bins);
-            # row_major_bins makes it here, at
-            # set-up, and keeps it on bins_t for every later call
-            row_major_bins(bins_t, self.packed_block)
+        self._place_bins(train_data, plan, sparse_mask, B, block, eff_block)
         ones = torch.zeros(self.n_pad, dtype=torch.float32, device=dev)
         ones[:n] = 1.0
         self._ones_mask = ones
@@ -416,8 +400,10 @@ class TreeLearner:
         # refitted outputs, not from the split records
         self.refits_leaves = self.params.quant_refit
         # under feature_fraction_bynode, with categorical features or with
-        # bundles the grower never runs B2's scan
-        if impl == "fused" and dev.type == "cuda" and fused_supported(
+        # bundles the grower never runs B2's scan, nor on the streamed
+        # layout
+        if impl == "fused" and dev.type == "cuda" and not self.stream_layout \
+                and fused_supported(
                 precision,
                 bynode=self.params.feature_fraction_bynode < 1.0,
                 has_cat=self.params.has_cat, has_bundles=plan is not None,
@@ -441,6 +427,46 @@ class TreeLearner:
         # (learner.py:860)
         self._feature_rng = np.random.default_rng(
             int(config.feature_fraction_seed))
+
+    def _place_bins(self, train_data: TrainingData, plan, sparse_mask,
+                    B: int, block: int, eff_block: int) -> None:
+        """Lay the [g_pad, n_pad] bins out on the device (learner.py:
+        _place_serial_bins of the JAX package): the dataset's columns,
+        its dense columns under sparse storage or the EFB bundle
+        columns, 4-bit packed where the layout packs, and on the card
+        the kernels' row-major copy."""
+        dev = self.device
+        n, F = self.n, self.num_features
+        # uint8 when every feature fits a byte, else int32, as the JAX
+        # learner stores them (learner.py:486)
+        bins_t = torch.zeros((self.g_pad, self.n_pad),
+                             dtype=torch.uint8 if B <= 256 else torch.int32,
+                             device=dev)
+        if sparse_mask is not None:
+            bins_t[:self.num_columns, :n] = train_data.bins_t[
+                torch.as_tensor(self.sparse["dense_idx"], device=dev)]
+        elif plan is None:
+            bins_t[:F, :n] = train_data.bins_t
+        else:
+            # [n, G] int32 bundle columns of the host matrix
+            t0 = time.perf_counter()
+            cols = apply_bundles(train_data.bins, plan)
+            bins_t[:self.num_columns, :n] = torch.from_numpy(cols.T).to(
+                device=dev, dtype=bins_t.dtype)
+            del cols
+            self.efb_s["apply"] = time.perf_counter() - t0
+        if self.packed_bins:
+            # [f_pad, n_pad/2]: two rows a byte (reference
+            # dense_nbits_bin.hpp), the JAX learner's per-block layout
+            bins_t = pack_bins(bins_t, eff_block)
+        self.bins_t = bins_t
+        if dev.type == "cuda":
+            # kernels B1, B2 and B4 gather each live row's bins from a
+            # row-major copy ([n_pad, 32] uint8 at up to 32 columns,
+            # [n_pad, 16] packed, or [n_pad, 32] 16-bit for int32 bins);
+            # row_major_bins makes it here, at
+            # set-up, and keeps it on bins_t for every later call
+            row_major_bins(bins_t, self.packed_block)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -595,9 +621,9 @@ class TreeLearner:
     def _would_pack(config: Config, B: int, impl: str, eff_block: int,
                     n_pad: int, bundled: bool) -> bool:
         """Whether the JAX learner stores 4-bit packed bins here
-        (learner.py:628-634, on one device: no stream layout or
-        partitioned rows, which this slice refuses, and no EFB bundles or
-        sparse storage: `bundled`)."""
+        (learner.py:628-634, on one device: no partitioned rows, which
+        this slice refuses, and no EFB bundles, sparse storage or stream
+        layout: `bundled`)."""
         return (bool(config.tpu_pack_bins) and B <= 16 and not bundled
                 and impl in ("pallas", "pallas2")
                 and str(config.tpu_partition_impl) in ("select", "vselect")
@@ -619,19 +645,29 @@ class TreeLearner:
         return step * bp * ks_pad * 4 <= PERFEATURE_OUT_BUDGET
 
     @staticmethod
-    def _resolve_hist_impl(config: Config, precision: str, num_bins: int):
+    def _resolve_hist_impl(config: Config, precision: str, num_bins: int,
+                           tuned: Optional[dict] = None):
         """(impl, row block), as the JAX learner resolves them on its
         accelerator (learner.py:912-993): "auto" is the grow megakernel
         ("fused", kernel B2) for int8/int16 and the perfeature kernel
         ("pallas2", B1) otherwise, where `chunk_fits` holds, and the XLA
         scan ("xla", which rides B1 here) where it does not.  The row
         blocks are the JAX package's: 256 for the flat kernel, 8192 for
-        the perfeature and fused ones, the XLA scan's 16384 for "xla"."""
+        the perfeature and fused ones, the XLA scan's 16384 for "xla".
+        `tuned`, an autotune profile entry, replaces "auto" and a block
+        of 0 with its measured winners; an explicit impl or block wins
+        over it."""
         impl = str(config.tpu_hist_impl)
         if impl not in HIST_IMPLS:
             raise NotImplementedError(
                 f"tpu_hist_impl={impl!r} is not ported to lightgbm_tpu_torch"
                 " yet")
+        block = int(config.tpu_block_rows)
+        if tuned:
+            if impl == "auto" and tuned.get("hist_impl"):
+                impl = str(tuned["hist_impl"])
+            if block <= 0 and int(tuned.get("block_rows", 0) or 0) > 0:
+                block = int(tuned["block_rows"])
         if impl == "auto":
             # f64 stays on the XLA branch (learner.py:963-965)
             if precision == "f64" or not TreeLearner.chunk_fits(
@@ -641,7 +677,6 @@ class TreeLearner:
                 impl = "fused"
             else:
                 impl = "pallas2"
-        block = int(config.tpu_block_rows)
         if block <= 0:
             block = {"pallas": 256, "pallas2": 8192,
                      "fused": 8192}.get(impl, 16384)
@@ -689,8 +724,7 @@ class TreeLearner:
         mask = self._ones_mask if row_mask is None else \
             self.pad_vector(row_mask) * self._ones_mask
         g, h = self.pad_vector(grad), self.pad_vector(hess)
-        out = G.grow(self.params, self.bins_t, g, h, mask, fmask, self.meta,
-                     key)
+        out = self._grow(g, h, mask, fmask, key)
         self.last_syncs = out["syncs"]
         self.last_buffers = self._buffers(out, g, h, mask)
         if self.params.has_cegb:
@@ -710,6 +744,11 @@ class TreeLearner:
             leaf_out = both[out["records"].numel():]
         tree = self.build_tree_from_records(rec, leaf_out)
         return tree, out["leaf_ids"][:self.n], out
+
+    def _grow(self, g, h, mask, fmask, key) -> dict:
+        """One tree of the sync path from padded vectors."""
+        return G.grow(self.params, self.bins_t, g, h, mask, fmask,
+                      self.meta, key)
 
     def make_train_step(self, grad_fn, learning_rate: float,
                         bagging: Optional[dict] = None,
@@ -888,3 +927,79 @@ class TreeLearner:
             tree.leaf_value[:tree.num_leaves] = np.asarray(
                 leaf_output[:tree.num_leaves], np.float64)
         return tree
+
+
+class StreamedTreeLearner(TreeLearner):
+    """The out-of-core serial learner (learner.py:1434-1524 of the JAX
+    package): the bins stay in host row blocks, made once in the
+    histogram kernels' row-major layout (`ops/stream.py:
+    make_host_blocks`, pinned on the card), and `train` grows each tree
+    through `StreamGrower`, which copies the blocks through two device
+    slots.  On the card the dataset's [F, n] matrix moves to host
+    memory as well, so no whole bins matrix stays there (a later
+    resident learner copies it back).  No 4-bit packing, no B2; the
+    refusals of `stream_supported` with the JAX texts; the GBDT takes
+    the sync path on this layout.  For int8/int16 the model is
+    byte-identical to the resident layout's sync path."""
+
+    stream_layout = True
+
+    def __init__(self, config: Config, train_data: TrainingData):
+        if str(config.tree_learner).strip().lower() not in (
+                "serial", "serial_tree_learner"):
+            raise NotImplementedError(
+                "tpu_stream_mode=streamed requires tree_learner=serial")
+        super().__init__(config, train_data)
+        from ..ops.stream import StreamGrower
+
+        self._stream = StreamGrower(
+            self.params, self.g_pad, self.n_pad, self._stream_R,
+            self.device,
+            double_buffer=bool(config.tpu_stream_double_buffer),
+            goss_top=float(config.tpu_stream_goss_top),
+            goss_other=float(config.tpu_stream_goss_other))
+        Log.info(
+            f"streamed layout: {len(self._host_blocks)} host blocks x "
+            f"{self._stream_R} rows "
+            f"({self._host_blocks[0].nbytes >> 20} MiB/block, "
+            f"double_buffer={self._stream.double_buffer})")
+
+    def _place_bins(self, train_data: TrainingData, plan, sparse_mask,
+                    B: int, block: int, eff_block: int) -> None:
+        from ..ops.stream import make_host_blocks, resolve_stream_rows
+
+        # the JAX learner's rule, on its [g_pad, n_pad] bytes a row
+        item = 1 if B <= 256 else 4
+        self._stream_R = resolve_stream_rows(
+            int(self.config.tpu_stream_block_rows), self.n_pad,
+            bytes_per_row=self.g_pad * item,
+            inner_block=min(block, self.n_pad),
+            budget_bytes=membudget.budget_bytes(self.config))
+        cuda = self.device.type == "cuda"
+        self._host_blocks = make_host_blocks(
+            train_data.bins_t, self._stream_R, self.n_pad, self.g_pad,
+            pin=cuda)
+        self.bins_t = None       # never on the device on this layout
+        if cuda and train_data.bins_t.device.type == "cuda":
+            train_data.bins_t = train_data.bins_t.cpu()
+
+    def _grow(self, g, h, mask, fmask, key) -> dict:
+        return self._stream.grow(self._host_blocks, g, h, mask, fmask,
+                                 self.meta, key)
+
+    @property
+    def stream_stats(self) -> dict:
+        """The last tree's streaming telemetry (`StreamGrower.
+        last_stats`: H2D seconds and bytes, overlap, blocks)."""
+        return dict(self._stream.last_stats)
+
+
+def make_tree_learner(config: Config,
+                      train_data: TrainingData) -> TreeLearner:
+    """The learner of the layout `membudget.select_layout` picks
+    (learner.py:1527-1540): resident, or streamed where
+    tpu_stream_mode=streamed, or auto with a binned matrix over half the
+    device budget and a streamable run."""
+    if membudget.select_layout(config, train_data) == "streamed":
+        return StreamedTreeLearner(config, train_data)
+    return TreeLearner(config, train_data)

@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import compile_ledger
 from . import kernels
 from .histogram import (BINS_WIDE, INT_PRECISIONS, MAX_WIDE_BINS,
                         _STAT_KINDS, _grouped_call, _raw_buffer, _raw_view,
@@ -143,13 +144,15 @@ def _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
                          "the quantized precisions")
     if not 1 <= B <= top or not 1 <= K < 255:
         raise ValueError(f"num_bins={B} or {K} slots out of range")
-    rows, _, scratch, cplan = _grouped_call(bins_t, stats, slot_leaf_ids, B,
-                                            scan=True)
+    rows, plan, scratch, cplan = _grouped_call(bins_t, stats, slot_leaf_ids,
+                                               B, scan=True)
     raw = _raw_buffer(K, F, B, 3, torch.int32, dev)
     records = torch.empty((C, F, PF_RECORD_WIDTH), dtype=torch.float32,
                           device=dev)
     kw = [float(split_kw[k]) for k in SPLIT_KW]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), compile_ledger.launch(
+            "fused_hist_scan", "fused_hist_scan" + bins_layout(bins_t)[1],
+            plan, int(scratch.nbytes)):
         code = kernels.library().lgbt_fused_hist_scan(
             rows.data_ptr(), rows.shape[1] * rows.element_size(), layout,
             stats.data_ptr(),
@@ -355,7 +358,9 @@ def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
     out = torch.empty_like(leaf_ids)         # its own, aligned allocation
     vec = leaf_ids.data_ptr() % 16 == 0
     wide = bins_t.dtype == torch.int32
-    with torch.cuda.device(bins_t.device):
+    name = "partition_rows_wide" if wide else "partition_rows"
+    with torch.cuda.device(bins_t.device), compile_ledger.launch(
+            "partition_rows", name, (sel.shape[0], int(vec))):
         code = kernels.library().lgbt_partition_rows(
             bins_t.data_ptr(), int(wide), n, sel_feat.data_ptr(),
             sel.data_ptr(),
@@ -364,8 +369,7 @@ def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
             leaf_ids.data_ptr(), out.data_ptr(), sel.shape[0], int(vec),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "partition_rows launch")
-    kernels.launches["partition_rows_wide" if wide else "partition_rows"] \
-        += 1
+    kernels.launches[name] += 1
     return out
 
 

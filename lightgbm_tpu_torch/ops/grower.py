@@ -434,10 +434,11 @@ def check_params(params: GrowerParams) -> None:
                          "bound needs a growth factor >= 2")
 
 
-def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
-         hess: torch.Tensor, row_mask: torch.Tensor,
+def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
+         grad: torch.Tensor, hess: torch.Tensor, row_mask: torch.Tensor,
          feature_mask: torch.Tensor, meta: Dict[str, torch.Tensor],
-         key: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+         key: Optional[np.ndarray] = None,
+         stream=None) -> Dict[str, torch.Tensor]:
     """Grow one tree.
 
     bins_t: [G, n_pad] uint8, or int32 when a feature has more than 256
@@ -458,18 +459,26 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     Returns records [L-1, 16] ([L-1, 16 + B] under has_cat, the bins
     routed left by each categorical split), leaf_ids [n_pad], leaf_output [L],
     leaf_cnt [L], leaf_sum_h [L] (device tensors), syncs (int) and, under
-    CEGB, the state for the next tree: cegb_used (and cegb_paid)."""
+    CEGB, the state for the next tree: cegb_used (and cegb_paid).
+
+    stream: the streamed layout's block loop (`ops/stream.py:
+    StreamGrower`), with bins_t None: the rows' bins live in host blocks,
+    and each histogram pass streams them, partitioning every block's
+    rows for the round's splits before its histogram (the JAX package's
+    `block_step`); the rest of every round is the code below.  No ramp
+    and no B2 scan there, as in the JAX package's streamed programs."""
     quantized = params.precision in INT_PRECISIONS
     check_params(params)
     if quantized and key is None:
         raise ValueError("the quantized precisions need the tree's key")
-    dev = bins_t.device
+    dev = grad.device
     L = params.num_leaves
     B = params.num_bins
     # the column axis of the pool: the bins' columns, or with sparse
     # storage the features (dense columns and sparse entries merged); the
     # features are feature_mask's axis
     G = (meta["hist_perm"].shape[0] if params.has_sparse
+         else stream.num_columns if stream is not None
          else bins_t.shape[0])
     # rows come from grad, not bins_t: packed bins hold two rows a byte
     n_pad = grad.shape[0]
@@ -496,7 +505,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     # too (grower.py:553-563)
     fused_scan = (params.hist_impl == "fused" and quantized and not bynode
                   and not params.has_cat and not params.has_bundles
-                  and not params.has_cegb and not params.forced)
+                  and not params.has_cegb and not params.forced
+                  and stream is None)
     # the int32 bin prefix sums serve the plain numerical search alone:
     # with categorical features or bundles the histograms rescale to f32
     # first (grower.py:845-848)
@@ -647,6 +657,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         sum_h = h.sum(dtype=sum_t).to(f32)
         cnt = row_mask.sum(dtype=sum_t).to(f32)
         stats = pack_stats(g, h, row_mask, params.precision).contiguous()
+    if stream is not None:
+        # each block's [S, rows] stats contiguous, in place of [S, n_pad]
+        stats = stream.block_stats(stats)
     if params.has_sparse:
         # each entry's row stats, gathered once a tree (grower.py:1038-
         # 1056 gathers them every round)
@@ -670,7 +683,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     leaf_ids = torch.zeros(n_pad, dtype=i32, device=dev)
     root_slots = torch.full((K,), -1, dtype=i32, device=dev)
     root_slots[0] = 0
-    root_hist = histograms(leaf_ids, root_slots)[0]
+    root_hist = (stream.root_histogram(stats, leaf_ids, root_slots)
+                 if stream is not None
+                 else histograms(leaf_ids, root_slots)[0])
     big = torch.tensor(1e30, dtype=f32, device=dev)
     root_fmask = feature_mask
     node_key = key
@@ -916,8 +931,9 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
         rg, rh, rc = pg - lg, ph - lh, pc - lc
 
         prev_leaf_ids = leaf_ids
-        leaf_ids = partition(sel, new_ids, do_k, sel_feat, sel_thr,
-                             sel_dleft, sel_iscat, cmask_sel)
+        if stream is None:
+            leaf_ids = partition(sel, new_ids, do_k, sel_feat, sel_thr,
+                                 sel_dleft, sel_iscat, cmask_sel)
 
         ch_min, ch_max = -big, big
         if params.has_mono:
@@ -955,6 +971,12 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
             hist_small, srecs = fused_hist_scan(
                 bins_t, stats, leaf_ids, smaller_ids, parent_hist, ctx,
                 fmeta_i, fmeta_f, B, params.precision, split_kw=split_kw)
+        elif stream is not None:
+            # each block partitioned, then its smaller children's
+            # histograms added (the JAX package's block_step)
+            leaf_ids, hist_small = stream.round_histograms(
+                stats, leaf_ids, sel, new_ids, do_k, sel_feat, sel_thr,
+                sel_dleft, smaller_ids, meta)
         else:
             hist_small = histograms(leaf_ids, smaller_ids)
         hist_large = parent_hist - hist_small
@@ -1097,7 +1119,8 @@ def grow(params: GrowerParams, bins_t: torch.Tensor, grad: torch.Tensor,
     forced_ok = torch.ones((), dtype=torch.bool, device=dev)
     for parent, feat, thr in params.forced:
         forced_ok = forced_round(forced_ok, int(parent), int(feat), int(thr))
-    if params.ramp and not params.forced and not bynode and K > 1:
+    if (params.ramp and not params.forced and not bynode and K > 1
+            and stream is None):
         # after r rounds the frontier holds at most 2^r leaves, so a
         # pre-round of width K' >= 2^r splits exactly the leaves the
         # full-K round would: the tree is the same, the dead-slot work

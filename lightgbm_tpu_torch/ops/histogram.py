@@ -61,6 +61,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import compile_ledger
 from . import kernels
 
 PRECISIONS = ("hilo", "bf16", "f32", "f64", "int8", "int16")
@@ -218,9 +219,18 @@ def pack_bins(bins_t: torch.Tensor, block: int) -> torch.Tensor:
     return (x[:, :, 0, :] | (x[:, :, 1, :] << 4)).reshape(F, n // 2)
 
 
-def bins_layout(bins_t: torch.Tensor, packed_block: int = 0):
+def bins_layout(bins_t: torch.Tensor, packed_block: int = 0,
+                row_major: bool = False):
     """(bins code, counter suffix) of a bin matrix: uint8, 4-bit packed
-    uint8 (packed_block > 0) or wide (int32)."""
+    uint8 (packed_block > 0) or wide (int32).  row_major: bins_t is a
+    row-major copy itself (`row_major_bins`' layout, uint8 or int16 for
+    wide bins; never packed), as the streamed layout's blocks are."""
+    if row_major:
+        if packed_block or bins_t.dtype not in (torch.uint8, torch.int16):
+            raise ValueError(f"a row-major bins operand is unpacked uint8 "
+                             f"or int16, got {bins_t.dtype}")
+        return ((BINS_WIDE, "_wide") if bins_t.dtype == torch.int16
+                else (BINS_U8, ""))
     if bins_t.dtype == torch.int32:
         if packed_block:
             raise ValueError("int32 bins are never packed")
@@ -315,9 +325,10 @@ def hist_batched_f64(bins_t: torch.Tensor, stats: torch.Tensor,
 
 
 def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
-                     num_bins: int, packed_block: int = 0) -> None:
-    """The checks both histogram kernels' wrappers make."""
-    F = bins_t.shape[0]
+                     num_bins: int, packed_block: int = 0,
+                     features: Optional[int] = None) -> None:
+    """The checks both histogram kernels' wrappers make; features: bins_t
+    is a row-major [n, FR] operand of that many feature columns."""
     S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     if bins_t.device.type != "cuda":
@@ -330,14 +341,21 @@ def _check_hist_args(what: str, bins_t, stats, leaf_ids, slot_leaf_ids,
                              f"{bins_t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    code, _ = bins_layout(bins_t, packed_block)
+    code, _ = bins_layout(bins_t, packed_block, features is not None)
     if stats.dtype not in _STAT_KINDS:
         raise ValueError(f"stats must be bf16, f32, int8 or int16, got "
                          f"{stats.dtype}")
     if leaf_ids.dtype != torch.int32 or slot_leaf_ids.dtype != torch.int32:
         raise ValueError("leaf_ids and slot_leaf_ids must be int32")
     cols = n // 2 if packed_block else n
-    if bins_t.shape[1] != cols or leaf_ids.shape != (n,) or not 1 <= S <= 5:
+    if features is not None:
+        # [n, FR]: every 32-feature chunk of a row is whole
+        ok = (bins_t.dim() == 2 and bins_t.shape[0] == n
+              and bins_t.shape[1] % 32 == 0
+              and 1 <= features <= bins_t.shape[1])
+    else:
+        ok = bins_t.shape[1] == cols
+    if not ok or leaf_ids.shape != (n,) or not 1 <= S <= 5:
         raise ValueError(f"shapes do not agree: bins_t {tuple(bins_t.shape)}"
                          f", stats {tuple(stats.shape)}, leaf_ids "
                          f"{tuple(leaf_ids.shape)}, packed_block "
@@ -700,17 +718,20 @@ def _resident_clusters(index: int, scan: bool, ints: bool, flat: bool,
 
 def call_plan(bins_t, S: int, n: int, K: int, num_bins: int, floats: bool,
               scan: bool = False, packed_block: int = 0,
-              flat: bool = False) -> HistPlan:
+              flat: bool = False,
+              features: Optional[int] = None) -> HistPlan:
     """The plan of one call of B1, B4 (flat) or B2 (scan) on the card
     that holds bins_t: its limits, and for wide bins the clusters that
-    card holds of the instance the call launches."""
+    card holds of the instance the call launches.  features: bins_t is a
+    row-major operand of that many feature columns."""
     index = bins_t.device.index
     if index is None:
         index = torch.cuda.current_device()
-    code, _ = bins_layout(bins_t, packed_block)
+    code, _ = bins_layout(bins_t, packed_block, features is not None)
     resident = functools.partial(_resident_clusters, index, scan,
                                  not floats, flat)
-    return hist_plan(bins_t.shape[0], K, S, int(num_bins), n,
+    F = bins_t.shape[0] if features is None else int(features)
+    return hist_plan(F, K, S, int(num_bins), n,
                      *_device_limits(index), scan=scan, floats=floats,
                      packed=code == BINS_PACKED, wide=code == BINS_WIDE,
                      resident=resident)
@@ -718,16 +739,18 @@ def call_plan(bins_t, S: int, n: int, K: int, num_bins: int, floats: bool,
 
 def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
                   scan: bool = False, packed_block: int = 0,
-                  flat: bool = False):
-    """Row-major bins, plan, scratch and ctypes plan of one call."""
+                  flat: bool = False, features: Optional[int] = None):
+    """Row-major bins, plan, scratch and ctypes plan of one call; with
+    `features`, bins_t is the row-major operand itself."""
     S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     if S * stats.element_size() > _MAX_STATS_BYTES:
         raise ValueError(f"{S} {stats.dtype} stat rows exceed the kernel's "
                          f"{_MAX_STATS_BYTES} bytes a row")
-    rows = row_major_bins(bins_t, packed_block)
+    rows = (row_major_bins(bins_t, packed_block) if features is None
+            else bins_t)
     plan = call_plan(bins_t, S, n, K, num_bins, stats.is_floating_point(),
-                     scan, packed_block, flat)
+                     scan, packed_block, flat, features)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=bins_t.device)
     PEAK_CALL_BYTES["kernel_scratch"] = max(
@@ -749,19 +772,25 @@ def _raw_view(raw, F, B, S):
 
 def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
                  group_only: bool, packed_block: int = 0,
-                 flat: bool = False):
-    F = bins_t.shape[0]
+                 flat: bool = False, features: Optional[int] = None):
+    F = bins_t.shape[0] if features is None else int(features)
     S, n = stats.shape
     K = slot_leaf_ids.shape[0]
     rows, plan, scratch, cplan = _grouped_call(
         bins_t, stats, slot_leaf_ids, num_bins, packed_block=packed_block,
-        flat=flat)
+        flat=flat, features=features)
     raw = _raw_buffer(K, F, int(num_bins), S, _acc_dtype(stats),
                       bins_t.device)
-    with torch.cuda.device(bins_t.device):
+    site = "hist_flat" if flat else "hist_batched"
+    instance = site + bins_layout(bins_t, packed_block,
+                                  features is not None)[1] \
+        + ("" if stats.is_floating_point() else "_int")
+    with torch.cuda.device(bins_t.device), compile_ledger.launch(
+            site, instance, plan, int(scratch.nbytes)):
         code = kernels.library().lgbt_hist_batched(
             rows.data_ptr(), rows.shape[1] * rows.element_size(),
-            bins_layout(bins_t, packed_block)[0], stats.data_ptr(),
+            bins_layout(bins_t, packed_block, features is not None)[0],
+            stats.data_ptr(),
             _STAT_KINDS[stats.dtype], leaf_ids.data_ptr(),
             slot_leaf_ids.data_ptr(), scratch.data_ptr(), raw.data_ptr(), F,
             n, S, K, int(num_bins), cplan, int(group_only), int(flat),
@@ -773,18 +802,23 @@ def _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins: int,
 
 def hist_batched_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                         leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
-                        num_bins: int, packed_block: int = 0) -> torch.Tensor:
+                        num_bins: int, packed_block: int = 0,
+                        features: Optional[int] = None) -> torch.Tensor:
     """Kernel B1 on the card: raw [F, B, K, S] sums (f32, or int32 for
     int8/int16 stats: the integer variant, counted apart).  One
     cooperative launch: the grouping pass, then the histogram.
     packed_block > 0: the packed 4-bit variant (bins_t [F, n/2] in
     blocks of that many rows); int32 bins_t: the wide variant; each
-    counted apart too."""
+    counted apart too.  features: bins_t is a row-major [n, FR] operand
+    of that many features (uint8, or int16 for wide bins), taken as it
+    is (a streamed block): no copy is made or kept."""
     _check_hist_args("B1", bins_t, stats, leaf_ids, slot_leaf_ids,
-                     num_bins, packed_block)
+                     num_bins, packed_block, features)
     raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
-                             num_bins, False, packed_block)
-    name = "hist_batched" + bins_layout(bins_t, packed_block)[1]
+                             num_bins, False, packed_block,
+                             features=features)
+    name = "hist_batched" + bins_layout(bins_t, packed_block,
+                                        features is not None)[1]
     kernels.launches[name if raw.dtype == torch.float32
                      else name + "_int"] += 1
     return raw
@@ -809,18 +843,21 @@ def hist_group_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
 
 def hist_flat_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                      leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor,
-                     num_bins: int, packed_block: int = 0) -> torch.Tensor:
+                     num_bins: int, packed_block: int = 0,
+                     features: Optional[int] = None) -> torch.Tensor:
     """Kernel B4 on the card (the flat variant): raw [F, B, K, S] sums,
     f32 or int32; B1's contract, on the flat path's operands (256-row
     blocks; packed_block > 0: 4-bit bins packed in blocks of that many
     rows; int32 bins_t: wide bins).  The grouped body of B1 under B4's
     own instance, one cooperative launch; its six variants are counted
-    apart."""
+    apart.  features: a row-major operand, as `hist_batched_kernel`."""
     _check_hist_args("B4", bins_t, stats, leaf_ids, slot_leaf_ids,
-                     num_bins, packed_block)
+                     num_bins, packed_block, features)
     raw, _, _ = _launch_hist(bins_t, stats, leaf_ids, slot_leaf_ids,
-                             num_bins, False, packed_block, flat=True)
-    name = "hist_flat" + bins_layout(bins_t, packed_block)[1]
+                             num_bins, False, packed_block, flat=True,
+                             features=features)
+    name = "hist_flat" + bins_layout(bins_t, packed_block,
+                                     features is not None)[1]
     kernels.launches[name if raw.dtype == torch.float32
                      else name + "_int"] += 1
     return raw
@@ -858,8 +895,58 @@ def build_histogram_batched_t(bins_t: torch.Tensor, stats: torch.Tensor,
         raw = kernel(bins_t, stats, leaf_ids, slot_leaf_ids, num_bins,
                      packed_block)
     elif bins_t.device.type == "cpu":
-        raw = hist_batched_plain(bins_t, stats, leaf_ids, slot_leaf_ids,
-                                 num_bins, packed_block)
+        with _plain_call(impl, bins_layout(bins_t, packed_block)[1], stats,
+                         bins_t.shape[0], num_bins, slot_leaf_ids):
+            raw = hist_batched_plain(bins_t, stats, leaf_ids, slot_leaf_ids,
+                                     num_bins, packed_block)
     else:
         raise ValueError(f"unsupported device {bins_t.device}")
+    return _unpack_hist(raw.permute(3, 2, 0, 1), precision)
+
+
+def _plain_call(impl: str, layout: str, stats, features: int, num_bins: int,
+                slot_leaf_ids):
+    """The compile ledger's record of a twin's call on the CPU: the
+    kernel's instance and the call's shape (features, bins, slots, stat
+    rows, rows) as its plan."""
+    site = "hist_flat" if impl == "pallas" else "hist_batched"
+    S, n = stats.shape
+    return compile_ledger.launch(
+        site, site + layout + ("" if stats.is_floating_point() else "_int"),
+        (features, num_bins, slot_leaf_ids.shape[0], S, n))
+
+
+def columns_of_rows(rows: torch.Tensor, features: int) -> torch.Tensor:
+    """[features, n] int32 bins of a row-major [n, FR] operand (uint8, or
+    int16 read unsigned for wide bins): a view's copy, for the twins and
+    the partition."""
+    cols = rows[:, :features].t().to(torch.int32)
+    return cols & 0xFFFF if rows.dtype == torch.int16 else cols
+
+
+def build_histogram_rows(rows: torch.Tensor, features: int,
+                         stats: torch.Tensor, leaf_ids: torch.Tensor,
+                         slot_leaf_ids: torch.Tensor, num_bins: int,
+                         precision: str = "hilo",
+                         impl: str = "pallas2") -> torch.Tensor:
+    """`build_histogram_batched_t` on a row-major [n, FR] operand of
+    `features` columns (`row_major_bins`' layout; a streamed block): on
+    a CUDA tensor kernel B1, or B4 for impl="pallas", reads it as it is;
+    on a CPU tensor `hist_batched_plain` runs on its columns;
+    precision="f64" takes `hist_batched_f64` on every device."""
+    if precision == "f64":
+        raw = hist_batched_f64(columns_of_rows(rows, features), stats,
+                               leaf_ids, slot_leaf_ids, num_bins)
+    elif rows.device.type == "cuda":
+        kernel = hist_flat_kernel if impl == "pallas" \
+            else hist_batched_kernel
+        raw = kernel(rows, stats, leaf_ids, slot_leaf_ids, num_bins,
+                     features=features)
+    elif rows.device.type == "cpu":
+        with _plain_call(impl, bins_layout(rows, row_major=True)[1], stats,
+                         features, num_bins, slot_leaf_ids):
+            raw = hist_batched_plain(columns_of_rows(rows, features), stats,
+                                     leaf_ids, slot_leaf_ids, num_bins)
+    else:
+        raise ValueError(f"unsupported device {rows.device}")
     return _unpack_hist(raw.permute(3, 2, 0, 1), precision)

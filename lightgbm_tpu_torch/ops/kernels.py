@@ -133,9 +133,13 @@ def library() -> ctypes.CDLL:
         h.update(src.read_bytes())
     target = BUILD_DIR / f"liblgbt_kernels_{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    if not target.exists():
+    built = not target.exists()
+    if built:
         build_log = _build(target)
     build_seconds = time.perf_counter() - t0
+    from ..utils.compile_ledger import LEDGER
+
+    LEDGER.record_build(build_seconds, built, h.hexdigest()[:16])
     lib = ctypes.CDLL(str(target))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float

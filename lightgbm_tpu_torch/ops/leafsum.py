@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import compile_ledger
 from . import kernels
 
 # rows of the grouping twin's chunk (a one-hot of at most this square)
@@ -113,10 +114,12 @@ def leaf_group_kernel(leaf_ids: torch.Tensor, vals: torch.Tensor,
                               device=dev)
         offsets = torch.empty(L + 1, dtype=torch.int32, device=dev)
         scratch = torch.empty(plan[4], dtype=torch.int32, device=dev)
-        code = kernels.library().lgbt_leaf_group(
-            leaf_ids.data_ptr(), vals.data_ptr(), n, L, grouped.data_ptr(),
-            offsets.data_ptr(), scratch.data_ptr(), plan,
-            torch.cuda.current_stream().cuda_stream)
+        with compile_ledger.launch("leaf_group", "leaf_group", plan,
+                                   int(scratch.nbytes)):
+            code = kernels.library().lgbt_leaf_group(
+                leaf_ids.data_ptr(), vals.data_ptr(), n, L,
+                grouped.data_ptr(), offsets.data_ptr(), scratch.data_ptr(),
+                plan, torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "leaf_group launch")
     kernels.launches["leaf_group"] += 1
     return grouped[:n], offsets
@@ -139,7 +142,8 @@ def leaf_sums_kernel(leaf_ids: torch.Tensor, vals: torch.Tensor,
     grouped, offsets = leaf_group_kernel(leaf_ids, vals, num_leaves)
     L = int(num_leaves)
     out = torch.empty((2, L), dtype=out_dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
+    with torch.cuda.device(vals.device), compile_ledger.launch(
+            "leaf_sums", counter, (L,)):
         code = getattr(kernels.library(), entry)(
             grouped.data_ptr(), offsets.data_ptr(), out.data_ptr(), L,
             torch.cuda.current_stream().cuda_stream)

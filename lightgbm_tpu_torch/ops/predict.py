@@ -123,6 +123,25 @@ def device_tables(tables: Dict[str, np.ndarray], device
     return out
 
 
+#: the [T, n] planes one step of `leaf_index` makes, the node it starts
+#: from included: int64 planes and one-byte (bool) planes, and the
+#: categorical branch's more; one plane of the bins' own dtype beside
+#: them (the gathered bin before its widening).  Every plane a step makes
+#: is counted, live or freed, so their bytes bound the step's peak.
+WALK_STEP_PLANES = (15, 10)
+WALK_CAT_PLANES = (10, 5)
+
+
+def walk_step_bytes(num_trees: int, rows: int, bins_item: int,
+                    has_cat: bool = False) -> int:
+    """Bytes of the [T, rows] planes one step of `leaf_index` makes
+    (utils/membudget.py's predict_scratch)."""
+    i64, b1 = WALK_STEP_PLANES
+    if has_cat:
+        i64, b1 = i64 + WALK_CAT_PLANES[0], b1 + WALK_CAT_PLANES[1]
+    return int(num_trees) * int(rows) * (8 * i64 + b1 + int(bins_item))
+
+
 def leaf_index(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
                num_bin: torch.Tensor, default_bin: torch.Tensor,
                missing_type: torch.Tensor, depth: int) -> torch.Tensor:

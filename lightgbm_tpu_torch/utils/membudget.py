@@ -20,27 +20,32 @@ The port of the training half of `lightgbm_tpu/utils/membudget.py`:
   ``tpu_hbm_budget_frac``; None on the CPU, where no number is
   invented.
 * **preflight plan** — `plan_training` itemizes the port's own
-  buffers: the learner's [G, n] bins and the kernels' row-major copy,
-  the grower's [L + 1, G, B, 3] pool and stat planes, the per-call
-  scratch of B1/B2/B4, the score buffers (the one the rollback
-  snapshot holds and the iteration's new one), the row masks, the packed forest,
-  and the ingest and predict chunks.  `live_bytes` reads the same
-  components off the live tensors, which is what the plan is held to.
+  buffers: the learner's [G, n] bins and the kernels' row-major copy
+  (on the streamed layout the two device slots of its largest block in
+  their place), the grower's [L + 1, G, B, 3] pool and stat planes,
+  the per-call scratch of B1/B2/B4, the score buffers (the one the
+  rollback snapshot holds and the iteration's new one), the row masks,
+  the packed forest, the ingest chunk, and a predict chunk with the
+  tree walk's [T, rows] planes at the model's tree count.
+  `live_bytes` reads the same components off the live tensors, which
+  is what the plan is held to; `ledger_cross_check` holds the plan to
+  the largest kernel scratch the compile ledger recorded.
+* **layout** — `select_layout`: ``tpu_stream_mode`` resolved to the
+  resident or the streamed layout (`ops/stream.py`) by the JAX rule.
 * **degradation ladder** — `DegradationLadder`, the JAX package's rungs
   in its order: halve ``tpu_ingest_chunk_rows``/
   ``tpu_predict_chunk_rows`` (floor 4096), ``tpu_hist_agg=scatter``
   (only on a multi-machine run, which the port refuses),
   ``fused_unfuse`` (``tpu_hist_impl=fused`` -> ``pallas2``: int8/int16
-  leave kernel B2 for B1-int and the torch split search), then
-  ``tpu_bucket_policy=fine``.  Each leaves the model's bytes as they
-  are.  The JAX package's last rung, ``stream_layout``, trades the
-  resident bins for the streamed layout, which the port has not got
-  (ROADMAP A8): where it would be taken, the port ends in
-  `MemoryLadderExhausted` and says so.
+  leave kernel B2 for B1-int and the torch split search),
+  ``tpu_bucket_policy=fine``, and last ``stream_layout``: a run left on
+  ``tpu_stream_mode=auto`` and streamable rebuilds its learner on the
+  streamed layout, the resident tensors dropped first.  Each rung but
+  the last leaves the model's bytes as they are; the last too for
+  int8/int16 (int32 block sums are associative).
 
 The serving budget and the registry's pressure of the JAX module are
-not ported (ROADMAP A12); neither is its compile-ledger cross-check
-(A10b).
+not ported (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -62,9 +67,6 @@ CHUNK_FLOOR = 4096
 #: the JAX package's rung vocabulary, in descent order
 LADDER_STEPS = ("shrink_chunk_rows", "hist_agg_scatter", "fused_unfuse",
                 "bucket_policy_fine", "stream_layout")
-
-#: rungs of the JAX ladder that the port cannot take yet
-UNPORTED_STEPS = {"stream_layout": "ROADMAP A8, the streamed layout"}
 
 #: what CUDA's allocator and runtime say when memory runs out: torch's
 #: caching allocator ("CUDA out of memory. Tried to allocate ..."), a
@@ -318,7 +320,7 @@ def _pool_shape(learner) -> Tuple[int, int, int]:
     bins' columns, or with sparse storage the merged features."""
     params = learner.params
     G = (int(learner.meta["hist_perm"].shape[0]) if params.has_sparse
-         else int(learner.bins_t.shape[0]))
+         else int(learner.g_pad))
     return int(params.num_leaves) + 1, G, int(params.num_bins)
 
 
@@ -343,10 +345,13 @@ def _stats_planes(precision: str) -> Tuple[int, int]:
 
 def kernel_scratch_bytes(learner) -> int:
     """The int32 scratch of the widest B1/B2/B4 call of this learner on
-    the card (`histogram.call_plan` at the split batch's K slots); 0 on
-    the CPU, where the twins run and allocate no scratch."""
+    the card (`histogram.call_plan` at the split batch's K slots, over
+    all rows, or over a stream block's on the streamed layout); 0 on the
+    CPU, where the twins run and allocate no scratch."""
     if learner.device.type != "cuda" or learner.params.precision == "f64":
         return 0
+    import torch
+
     from ..ops import histogram
 
     params = learner.params
@@ -356,14 +361,62 @@ def kernel_scratch_bytes(learner) -> int:
     pblock = learner.packed_block
     out = 0
     calls = [(False, params.hist_impl == "pallas")]
-    if params.hist_impl == "fused" and not floats:
-        calls.append((True, False))
+    if learner.stream_layout:
+        # the plan of a block's call: its operand's dtype, its rows
+        n, features = learner._stream_R, learner.g_pad
+        operand = torch.empty((0, features), device=learner.device,
+                              dtype=learner._host_blocks[0].dtype)
+    else:
+        n, features, operand = learner.n_pad, None, learner.bins_t
+        if params.hist_impl == "fused" and not floats:
+            calls.append((True, False))
     for scan, flat in calls:
-        plan = histogram.call_plan(learner.bins_t, rows, learner.n_pad, K,
-                                   params.num_bins, floats, scan, pblock,
-                                   flat)
+        plan = histogram.call_plan(operand, rows, n, K, params.num_bins,
+                                   floats, scan, pblock, flat, features)
         out = max(out, 4 * plan.scratch_words)
     return out
+
+
+def stream_slot_bytes(config, learner) -> int:
+    """Device bytes of the streamed layout's two slots: read off the live
+    slots once they exist, else two of the learner's largest host block,
+    else (the ladder's last rung, planned before the learner is rebuilt)
+    two blocks of the rows `resolve_stream_rows` would give, in the
+    row-major bytes of the resident learner's columns."""
+    import torch
+
+    from ..ops.stream import resolve_stream_rows
+
+    stream = getattr(learner, "_stream", None)
+    if stream is not None and stream.slot_bytes():
+        return stream.slot_bytes()
+    blocks = getattr(learner, "_host_blocks", None)
+    if blocks:
+        return 2 * max(int(b.nbytes) for b in blocks)
+    n_pad, g_pad = int(learner.n_pad), int(learner.g_pad)
+    wide = learner.bins_t.dtype == torch.int32
+    rows = resolve_stream_rows(
+        int(config.get("tpu_stream_block_rows", 0) or 0), n_pad,
+        g_pad * (4 if wide else 1),
+        min(int(learner.params.block_rows), n_pad), budget_bytes(config))
+    return 2 * rows * g_pad * (2 if wide else 1)
+
+
+def predict_chunk_bytes(config, num_features: int, num_class: int,
+                        num_trees: int, bins_item: int = 1,
+                        has_cat: bool = False) -> int:
+    """Device bytes of one predict chunk (`GBDT.predict`, read off its
+    tensors as `predict_scratch_bytes`): the binning chunk's tensors (as
+    ingest_scratch), every [T, rows] plane one step of the tree walk
+    makes at the model's tree count T (`ops/predict.py:
+    walk_step_bytes`), and the [k, rows] f32 scores."""
+    from ..ops.predict import walk_step_bytes
+
+    rows = int(config.get("tpu_predict_chunk_rows", 65536))
+    F = max(int(num_features), 1)
+    binning = rows * F * (32 + 16 * has_cat + int(bins_item))
+    return (binning + walk_step_bytes(num_trees, rows, bins_item, has_cat)
+            + rows * max(int(num_class), 1) * 4)
 
 
 def plan_training(config, learner, num_class: int,
@@ -379,9 +432,16 @@ def plan_training(config, learner, num_class: int,
     n, n_pad = int(learner.n), int(learner.n_pad)
     precision = str(learner.params.precision)
     comps: Dict[str, int] = {}
-    comps["binned_matrix"] = int(learner.bins_t.nbytes)
-    rows = row_major_cached(learner.bins_t, learner.packed_block)
-    comps["row_major_bins"] = 0 if rows is None else int(rows.nbytes)
+    if (learner.stream_layout
+            or str(config.get("tpu_stream_mode", "auto")) == "streamed"):
+        # the matrix and its row-major copy stay in host memory: two
+        # slots of the largest block take their place (also where the
+        # ladder's last rung plans before rebuilding the learner)
+        comps["stream_slots"] = stream_slot_bytes(config, learner)
+    else:
+        comps["binned_matrix"] = int(learner.bins_t.nbytes)
+        rows = row_major_cached(learner.bins_t, learner.packed_block)
+        comps["row_major_bins"] = 0 if rows is None else int(rows.nbytes)
     L1, G, B = _pool_shape(learner)
     comps["histogram_pool"] = L1 * G * B * 3 * _pool_itemsize(precision)
     planes, item = _stats_planes(precision)
@@ -397,6 +457,12 @@ def plan_training(config, learner, num_class: int,
         int(config.get("num_iterations", 100)) * k,
         int(config.get("num_leaves", 31)))
     F = max(len(learner.td.used_feature_idx), 1)
+    if str(config.get("tpu_autotune", "off")) != "off":
+        # the autotune probe's synthetic operands (utils/autotune.py:
+        # tune_entry): bins, stats and one histogram, its rows capped
+        from .autotune import probe_bytes
+
+        comps["autotune_scratch"] = probe_bytes(n_pad, learner.g_pad)
     # a binning chunk (ops/binning.py:bin_chunks_t): the f64 values, the
     # int64 keys, searchsorted positions and bins ([F, rows] each), two
     # more int64 planes with categorical features, and the output's cast
@@ -407,37 +473,68 @@ def plan_training(config, learner, num_class: int,
     out_item = int(learner.td.bins_t.element_size())
     comps["ingest_scratch"] = ingest_rows * F * (32 + 16 * has_cat
                                                  + out_item)
-    # a predict chunk: the binning chunk's scratch and the [k, rows] f32
-    # scores (a closed form: the tree walk's [T, rows] planes are not in
-    # it, PERF.md)
-    predict_chunk = int(config.get("tpu_predict_chunk_rows", 65536))
-    comps["predict_scratch"] = predict_chunk * (F * 33 + k * 4)
+    # a predict chunk at the model's tree count
+    comps["predict_scratch"] = predict_chunk_bytes(
+        config, F, k, int(config.get("num_iterations", 100)) * k, out_item,
+        has_cat)
     return MemoryPlan(comps, budget_bytes(config), "training")
 
 
 def live_bytes(driver) -> Dict[str, int]:
     """The plan's components read off the live tensors of a driver that
     has trained at least one iteration: the bins and their row-major
-    copy, the last tree's pool, stat planes and row state
-    (`learner.last_buffers`), the largest kernel scratch since
-    `histogram.reset_call_bytes`, the score buffers the last iteration
-    held (its snapshot's and its own), the training data's largest
-    binning chunk where the bins were made on the device in chunks.
-    The forest's device tables have their own check at their own tree
-    count (`forest_live_bytes`); predict_scratch is not read (PERF.md)."""
+    copy (the two slots on the streamed layout), the last tree's pool,
+    stat planes and row state (`learner.last_buffers`), the largest
+    kernel scratch since `histogram.reset_call_bytes`, the score buffers
+    the last iteration held (its snapshot's and its own), the training
+    data's largest binning chunk where the bins were made on the device
+    in chunks, and the last predict chunk's tensors
+    (`GBDT.predict_scratch_bytes`, where a predict ran).  The forest's
+    device tables have their own check at their own tree count
+    (`forest_live_bytes`)."""
     from ..ops.histogram import PEAK_CALL_BYTES, row_major_cached
 
     learner = driver.learner
-    out = {"binned_matrix": int(learner.bins_t.nbytes)}
-    rows = row_major_cached(learner.bins_t, learner.packed_block)
-    out["row_major_bins"] = 0 if rows is None else int(rows.nbytes)
+    if learner.stream_layout:
+        out = {"stream_slots": learner._stream.slot_bytes()}
+    else:
+        out = {"binned_matrix": int(learner.bins_t.nbytes)}
+        rows = row_major_cached(learner.bins_t, learner.packed_block)
+        out["row_major_bins"] = 0 if rows is None else int(rows.nbytes)
     out.update(learner.last_buffers)
     out["kernel_scratch"] = int(PEAK_CALL_BYTES["kernel_scratch"])
     out["score_buffers"] = int(driver.last_score_bytes)
     ingest = getattr(learner.td, "ingest_scratch_bytes", None)
     if ingest is not None:
         out["ingest_scratch"] = int(ingest)
+    predict = getattr(driver, "predict_scratch_bytes", None)
+    if predict is not None:
+        out["predict_scratch"] = int(predict)
     return out
+
+
+def ledger_cross_check(plan: MemoryPlan, site: str = "hist"
+                       ) -> Optional[Dict]:
+    """The plan held to the compile ledger's other side (the JAX
+    package's `ledger_cross_check`, which holds it to XLA's argument
+    bytes): the largest scratch of a recorded launch plan whose site
+    contains `site` against the plan's kernel_scratch (on the CPU the
+    twins' records hold no scratch).  None when no plan was recorded
+    (the ledger off)."""
+    from .compile_ledger import LEDGER
+
+    rows = [r for r in LEDGER.cost_table(memory=True)
+            if site in r["site"] and r.get("argument_bytes") is not None]
+    if not rows:
+        return None
+    biggest = max(rows, key=lambda r: r["argument_bytes"])
+    planned = int(plan.components.get("kernel_scratch", 0))
+    return {"site": biggest["site"],
+            "signature": biggest["signature"],
+            "ledger_argument_bytes": int(biggest["argument_bytes"]),
+            "plan_kernel_scratch": planned,
+            "plan_total": plan.total,
+            "covered": planned >= int(biggest["argument_bytes"])}
 # ---------------------------------------------------------------------------
 # layout
 # ---------------------------------------------------------------------------
@@ -492,37 +589,20 @@ def select_layout(config, train_data=None) -> str:
     return "streamed" if n * F * item > budget // 2 else "resident"
 
 
-def check_layout(config, train_data) -> None:
-    """Refuse by name, before the learner lays out its bins, a run that
-    `select_layout` would stream: the port has no streamed layout yet
-    (ROADMAP A8), and the resident one would not fit."""
-    if str(config.get("tpu_stream_mode", "auto")).lower() != "auto":
-        return
-    if select_layout(config, train_data) == "streamed":
-        raise NotImplementedError(
-            "tpu_stream_mode=auto selecting streamed (the binned matrix "
-            "would take more than half the device budget of "
-            f"{budget_bytes(config):,d} bytes) is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP A8); pass "
-            "tpu_stream_mode=resident to try the resident layout")
-
-
 # ---------------------------------------------------------------------------
 # the degradation ladder
 # ---------------------------------------------------------------------------
 class DegradationLadder:
     """The deterministic, logged descent a classified OOM retries down,
     the JAX package's rungs in its order.  `next_step(config)` returns
-    ``(step_name, param_overrides)`` or None when exhausted; a rung the
-    port cannot take (`UNPORTED_STEPS`) is returned but not recorded as
-    taken, and the caller ends the descent on it."""
+    ``(step_name, param_overrides)`` or None when exhausted."""
 
     def __init__(self):
         self.steps_taken: List[Tuple[str, Dict[str, Any]]] = []
 
     def next_step(self, config) -> Optional[Tuple[str, Dict[str, Any]]]:
         step = self._propose(config)
-        if step is not None and step[0] not in UNPORTED_STEPS:
+        if step is not None:
             self.steps_taken.append(step)
         return step
 
@@ -552,6 +632,10 @@ class DegradationLadder:
             return "fused_unfuse", {"tpu_hist_impl": "pallas2"}
         if str(config.get("tpu_bucket_policy", "wide")) == "wide":
             return "bucket_policy_fine", {"tpu_bucket_policy": "fine"}
+        # the last rung: the binned matrix leaves the card for host blocks
+        # (ops/stream.py); only under auto (a resident pin, or a run
+        # already streamed, has nothing left to give) and where the run
+        # streams
         if (str(config.get("tpu_stream_mode", "auto")) == "auto"
                 and not stream_config_blockers(config)):
             return "stream_layout", {"tpu_stream_mode": "streamed"}

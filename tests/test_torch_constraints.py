@@ -571,10 +571,14 @@ def test_grower_refuses_forced_splits_with_bundles_or_f64():
 
 def test_unported_features_stay_refused_by_name(tmp_path):
     X, y, _ = _data()
-    # streaming stays refused by name
-    with pytest.raises(NotImplementedError, match="tpu_stream_mode"):
-        tlgb.train(dict(REG, **CPU, tpu_stream_mode="streamed"),
-                   tlgb.Dataset(X, label=y), 1)
+    # the streamed layout is ported; CEGB, which it cannot serve, stays
+    # refused by name there, with the JAX package's text
+    cegb = {"tpu_stream_mode": "streamed", "cegb_penalty_split": 0.1}
+    with pytest.raises(NotImplementedError, match="tpu_stream_mode") as want:
+        jlgb.train(dict(REG, **cegb), jlgb.Dataset(X, label=y), 1)
+    with pytest.raises(NotImplementedError) as got:
+        tlgb.train(dict(REG, **CPU, **cegb), tlgb.Dataset(X, label=y), 1)
+    assert str(got.value) == str(want.value)
     # sparse storage is ported, and refuses the int8 precision of REG as
     # the JAX package does
     extra = {"tpu_sparse_threshold": 0.5, "enable_bundle": False}

@@ -65,7 +65,6 @@ def test_training_without_cuda_raises_unless_cpu_is_asked():
 
 OUT_OF_SLICE = [
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
-    {"tpu_stream_mode": "streamed"},
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
     {"tree_learner": "data", "num_machines": 2},
@@ -73,6 +72,11 @@ OUT_OF_SLICE = [
     {"tpu_telemetry": "trace"},
     {"tpu_trace_dir": "traces"},
 ]
+
+# once refused: the streamed layout, which now trains as the JAX
+# package's (tests/test_torch_stream.py holds it closer)
+STREAMED = [{"tpu_stream_mode": "streamed"},
+            {"tpu_stream_mode": "streamed", "tpu_stream_block_rows": 128}]
 
 # once refused with the telemetry knobs: the numeric guard, the memory
 # preflight and the budget, which now train as the JAX package's
@@ -115,13 +119,29 @@ def test_out_of_slice_parameters_raise(extra):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
 
 
+@pytest.mark.parametrize("extra", STREAMED,
+                         ids=lambda d: ",".join(f"{k}={v}"
+                                                for k, v in d.items()))
+def test_streamed_layout_trains_as_the_jax_package(extra):
+    """The case `test_out_of_slice_parameters_raise` refused before the
+    port had the streamed layout: the same trees as the JAX package's
+    streamed run (one block of 384 rows, and three of 128)."""
+    X, y = binary_data(n=300, f=3, seed=1)
+    got = [lgb.train(dict(SMALL, **p, **extra), lgb.Dataset(X, label=y), 2,
+                     keep_training_booster=True)
+           for lgb, p in ((jlgb, {"verbosity": -1}), (tlgb, CPU))]
+    for b in got:
+        assert type(b._driver.learner).__name__ == "StreamedTreeLearner"
+    assert_trees_match(got[0]._driver.models, got[1]._driver.models)
+
+
 @pytest.mark.parametrize("extra", GUARD_AND_MEMORY,
                          ids=lambda d: ",".join(d))
 def test_guard_and_memory_knobs_train_as_the_jax_package(extra):
     """Without a tight budget each knob trains, the same trees in both
     packages (no budget resolves on the CPU unless one is given; the
-    budget's own case pins the resident layout, which the port needs:
-    see the next test)."""
+    budget's own case pins the resident layout: the next test takes it
+    streamed)."""
     X, y = binary_data(n=300, f=3, seed=1)
     extra = dict(extra)
     if "tpu_hbm_budget_bytes" in extra:
@@ -136,17 +156,20 @@ def test_guard_and_memory_knobs_train_as_the_jax_package(extra):
 def test_guard_and_memory_knobs_under_a_tight_budget(extra):
     """Under a 1,000-byte budget: preflight raise and degrade refuse, as
     the JAX package's do (degrade finds no rung that fits); warn trains.
-    Left on auto, the layout the JAX package would stream is refused by
-    name in the port (ROADMAP A8)."""
+    Left on auto, the layout streams in both packages, as `select_layout`
+    says (the 900-byte matrix is over half the budget): the same trees."""
     X, y = binary_data(n=300, f=3, seed=1)
     params = dict(SMALL, tpu_hbm_budget_bytes=1000,
                   tpu_stream_mode="resident")
     params.update(extra)
     if "tpu_hbm_budget_bytes" in extra:
         del params["tpu_stream_mode"]
-        with pytest.raises(NotImplementedError,
-                           match="tpu_stream_mode=auto selecting streamed"):
-            tlgb.train(dict(params, **CPU), tlgb.Dataset(X, label=y), 1)
+        got = [lgb.train(dict(params, **p), lgb.Dataset(X, label=y), 2,
+                         keep_training_booster=True)
+               for lgb, p in ((jlgb, {"verbosity": -1}), (tlgb, CPU))]
+        for b in got:
+            assert type(b._driver.learner).__name__ == "StreamedTreeLearner"
+        assert_trees_match(got[0]._driver.models, got[1]._driver.models)
         return
     if extra.get("tpu_hbm_preflight") in ("raise", "degrade"):
         for lgb, p in ((jlgb, {"verbosity": -1}), (tlgb, CPU)):

@@ -1551,3 +1551,123 @@ def test_fused_unfuse_rung_on_the_card_equals_the_fused_text():
     assert kernels.launches["fused_hist_scan"] == before["fused_hist_scan"]
     assert kernels.launches["hist_batched_int"] > before["hist_batched_int"]
     assert _text_without_params(b) == want
+
+
+# ---- the streamed layout (ops/stream.py): B1 and B1-int on pinned
+# row-major blocks, block sums, a streamed run, the predict chunk ----
+
+def _pinned_block(bins_t, row0, rows, dev):
+    """Rows [row0, row0 + rows) of [F, n] uint8 bins as a pinned
+    row-major host block (`make_host_blocks`' layout) copied to dev."""
+    from lightgbm_tpu_torch.ops.stream import make_host_blocks
+
+    F, n = bins_t.shape
+    host = make_host_blocks(bins_t[:, row0:row0 + rows], rows, rows,
+                            -(-F // 32) * 32, pin=True)[0]
+    assert host.is_pinned()
+    return host.to(dev, non_blocking=True)
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["B1", "B4"])
+@pytest.mark.parametrize("precision", ["hilo", "int8"])
+def test_hist_kernel_on_a_row_major_block_matches_twin(precision, flat):
+    dev = cuda_device()
+    slots = list(range(0, 48, 2)) + [-1]
+    if precision == "int8":
+        args = _int_hist_inputs(dev, 5, 28, 131072, 255, 60, slots,
+                                precision)
+    else:
+        args = _hist_inputs(dev, 5, 28, 131072, 255, 60, slots,
+                            precision)[0]
+    bins, stats, leaf, sl = args
+    blk = _pinned_block(bins.cpu(), 0, 131072, dev)
+    name = ("hist_flat" if flat else "hist_batched") \
+        + ("_int" if precision == "int8" else "")
+    before = kernels.launches[name]
+    got = TH.build_histogram_rows(blk, 28, stats, leaf, sl, 255, precision,
+                                  "pallas" if flat else "pallas2")
+    assert kernels.launches[name] == before + 1
+    ref = TH._unpack_hist(TH.hist_batched_plain(bins, stats, leaf, sl, 255)
+                          .permute(3, 2, 0, 1), precision)
+    if precision == "int8":
+        assert torch.equal(got, ref)
+    else:
+        assert torch.equal(got[..., 2], ref[..., 2])
+        assert (got - ref).abs().max() <= 1e-6 * float(
+            stats.float().abs().sum())
+
+
+def test_int32_block_sums_equal_one_resident_call():
+    """The streamed histogram: a B1-int call a block, the int32 sums
+    added, bitwise one B1-int call over every row."""
+    dev = cuda_device()
+    slots = list(range(0, 48, 2)) + [-1]
+    bins, stats, leaf, sl = _int_hist_inputs(dev, 6, 28, 300000, 255, 60,
+                                             slots, "int8")
+    whole = TH.build_histogram_batched_t(bins, stats, leaf, sl, 255, "int8")
+    R = 131072
+    acc = torch.zeros_like(whole)
+    for row0 in range(0, 300000, R):
+        rows = min(R, 300000 - row0)
+        blk = _pinned_block(bins.cpu(), row0, rows, dev)
+        acc = acc + TH.build_histogram_rows(
+            blk, 28, stats[:, row0:row0 + rows].contiguous(),
+            leaf[row0:row0 + rows], sl, 255, "int8")
+    assert torch.equal(acc, whole)
+
+
+def test_streamed_int8_training_on_card_matches_cpu_text():
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(40000, 10))
+    X[rng.random(X.shape) < 0.03] = np.nan
+    y = X[:, 0] + np.nan_to_num(X[:, 1]) ** 2 + 0.3 * rng.normal(size=40000)
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tpu_quant_refit_leaves": False,
+         "tpu_stream_mode": "streamed", "tpu_stream_block_rows": 16384,
+         "verbosity": -1}
+    kernels.reset_launches()
+    gpu = lgb.train(dict(p), lgb.Dataset(X, label=y), num_boost_round=3,
+                    keep_training_booster=True)
+    learner = gpu._driver.learner
+    assert learner.stream_layout and learner.bins_t is None
+    assert learner._host_blocks[0].is_pinned()
+    assert kernels.launches["hist_batched_int"] > 0
+    assert kernels.launches["fused_hist_scan"] == 0
+    stats = learner.stream_stats
+    assert stats["h2d_bytes"] > 0 and 0.0 <= stats["overlap_pct"] <= 100.0
+    cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(X, label=y),
+                    num_boost_round=3)
+    assert gpu.model_to_string().split("parameters:")[0] == \
+        cpu.model_to_string().split("parameters:")[0]
+
+
+@pytest.mark.parametrize("trees", [2, 50])
+def test_plan_predict_scratch_covers_a_predict_chunks_peak(trees):
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.utils import membudget
+
+    dev = cuda_device()
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(70000, 28))
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.5).astype(np.float64)
+    p = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+         "num_iterations": trees, "tpu_hist_precision": "int8",
+         "tpu_predict_chunk_rows": 65536, "verbosity": -1}
+    b = lgb.Booster(params=p, train_set=lgb.Dataset(X, label=y, params=p))
+    for _ in range(trees):
+        b.update()
+    b.predict(X[:100])        # the forest's tables, made once
+    drv = b._driver
+    plan = membudget.plan_training(drv.config, drv.learner, 1)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    b.predict(X[:65536])
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert membudget.live_bytes(drv)["predict_scratch"] \
+        == plan.components["predict_scratch"]
+    assert plan.components["predict_scratch"] >= peak > 0

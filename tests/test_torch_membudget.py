@@ -1,7 +1,7 @@
 """Device memory of lightgbm_tpu_torch against lightgbm_tpu: the OOM
 classifier, the budget, the preflight plan held to the live tensors,
-the preflight modes, the degradation ladder, the guarded chunk sites
-and the refusal of the streamed layout.
+the preflight modes, the degradation ladder down to its streamed rung,
+the guarded chunk sites and the layout auto selects.
 
 The ladder's parity cases run one script in both packages
 (tests/test_torch_util.py:fault_run, job "fault" of the JAX package in
@@ -241,8 +241,7 @@ def test_preflight_modes(mode):
             _train(dict(p, tpu_hbm_preflight="definitely"), rounds=1)
         return
     if mode in ("raise", "warn", "exhausted"):
-        # a resident pin: under auto so small a budget would stream,
-        # which the port refuses before the preflight
+        # a resident pin: under auto so small a budget would stream
         budget = 100 if mode != "exhausted" else 50
         q = dict(p, tpu_hbm_budget_bytes=budget, tpu_stream_mode="resident",
                  tpu_hbm_preflight="degrade" if mode == "exhausted"
@@ -316,16 +315,22 @@ def test_recovery_disabled_propagates_structured():
     assert np.isfinite(b.predict(_inputs()["X"][:8], raw_score=True)).all()
 
 
-def test_exhaustion_checkpoint_booster_and_blackbox(tmp_path):
+@pytest.mark.parametrize("columns", ["dense", "categorical"])
+def test_exhaustion_checkpoint_booster_and_blackbox(tmp_path, columns):
+    """OOMs that never stop: the ladder takes its last rung and the run
+    goes on streamed until that too is spent; with a categorical column
+    (which blocks streaming, as in the JAX package) it is exhausted
+    without the rung."""
     flightrecorder.configure(dump_dir=str(tmp_path))
     try:
         p = dict(INT8, **CPU, tpu_checkpoint_dir=str(tmp_path / "ck"))
+        if columns == "categorical":
+            p["categorical_feature"] = "4"
         faultline.arm("device_alloc", action="oom", at=3, times=10 ** 6)
         with pytest.raises(membudget.MemoryLadderExhausted) as ei:
             _train(p, rounds=6)
         faultline.reset()
-        # the JAX ladder's last rung streams; the port names it
-        assert "stream_layout" in str(ei.value) and "A8" in str(ei.value)
+        assert ("stream_layout" in str(ei.value)) == (columns == "dense")
         found = CheckpointManager(str(tmp_path / "ck")).load_latest()
         assert found is not None and found[0] >= 1
         dump = json.loads((tmp_path / "blackbox-host0.json").read_text())
@@ -398,14 +403,18 @@ def test_score_replay_oom_is_classified():
 
 # -- the layout --------------------------------------------------------------
 def test_auto_layout_that_would_stream_is_refused_by_name():
+    """Once refused by name: auto over the budget now trains streamed,
+    the text of a streamed pin and, for int8, of a resident pin on the
+    sync path (the fused step draws its keys from another stream)."""
     p = dict(INT8, **CPU, tpu_hbm_budget_bytes=8000)
-    with pytest.raises(NotImplementedError,
-                       match="tpu_stream_mode=auto selecting streamed"):
-        _train(p, rounds=1)
+    b = _train(p, rounds=2)
+    assert b._driver.learner.stream_layout
+    assert model_text(b) == model_text(_train(
+        dict(p, tpu_stream_mode="streamed"), rounds=2))
     # a resident pin trains (the preflight warns); categorical columns
     # block streaming, so auto keeps the resident layout
-    assert _train(dict(p, tpu_stream_mode="resident"),
-                  rounds=1).current_iteration() == 1
+    assert not _train(dict(p, tpu_stream_mode="resident"),
+                      rounds=1)._driver.learner.stream_layout
     cfg = Config(dict(p, categorical_feature="0"))
     assert membudget.stream_config_blockers(cfg) == ["categorical features"]
     assert membudget.select_layout(cfg, None) == "resident"

@@ -1320,6 +1320,87 @@ def _job_fault(inp, spec):
     return out
 
 
+def stream_run(lgb, inp, run):
+    """One case of tests/test_torch_stream.py, the same script for either
+    package (the JAX package's in the no-FMA process, job "stream"):
+    a streamed run's model text; or the GOSS block plan of one tree
+    (weights and uniforms); or the OOM ladder run down to its
+    stream_layout rung."""
+    import importlib
+    import json
+
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    p = dict(run["params"], verbosity=-1)
+    if not jax_side:
+        p["device_type"] = "cpu"
+    X, y = inp["X"], inp["y"]
+    kind = run["kind"]
+
+    def dataset():
+        return lgb.Dataset(X, label=y, params=p)
+
+    if kind == "text":
+        b = lgb.train(p, dataset(), run.get("rounds", 5),
+                      keep_training_booster=True)
+        return {"text": model_text(b)}
+    if kind == "ladder":
+        faultline = importlib.import_module(lgb.__name__ + ".utils.faultline")
+        b = lgb.Booster(params=p, train_set=dataset())
+        b.update()
+        faultline.reset()
+        faultline.arm("device_alloc", action="oom", times=run["times"])
+        try:
+            for _ in range(run.get("rounds", 3) - 1):
+                b.update()
+        finally:
+            faultline.reset()
+        return {"text": model_text(b),
+                "steps": json.dumps(b._driver._mem_ladder.describe()),
+                "learner": type(b._driver.learner).__name__}
+    if kind == "goss_plan":
+        lmod = importlib.import_module(lgb.__name__ + ".models.learner")
+        cfg = importlib.import_module(lgb.__name__ + ".config").Config(p)
+        td = importlib.import_module(
+            lgb.__name__ + ".io.dataset").TrainingData.from_matrix(X, y, cfg)
+        sg = lmod.StreamedTreeLearner(cfg, td)._stream
+        g, h, mask, key = (inp["goss_g"], inp["goss_h"], inp["goss_mask"],
+                           inp["goss_key"])
+        if jax_side:
+            import jax
+            import jax.numpy as jnp
+            from lightgbm_tpu.ops.histogram import hashed_uniform, key_words
+
+            w = sg._goss_weights(jnp.asarray(g), jnp.asarray(h),
+                                 jnp.asarray(mask), jnp.asarray(key))
+            sa, sb = key_words(jax.random.fold_in(jnp.asarray(key), 0x51B5))
+            u = hashed_uniform(jnp.arange(sg.nbs, dtype=jnp.uint32)
+                               * jnp.uint32(sg.R), sa, sb, 0x60553)
+        else:
+            import torch
+            from lightgbm_tpu_torch.ops.histogram import (hashed_uniform,
+                                                          key_words)
+            from lightgbm_tpu_torch.utils.prng import fold_in
+
+            w = sg._goss_weights(torch.as_tensor(g), torch.as_tensor(h),
+                                 torch.as_tensor(mask), key)
+            sa, sb = key_words(fold_in(key, 0x51B5))
+            u = hashed_uniform(torch.arange(sg.nbs) * sg.R, sa, sb,
+                               0x60553).numpy()
+        return {"w": np.asarray(w), "u": np.asarray(u)}
+    raise ValueError(f"unknown stream case {kind!r}")
+
+
+def _job_stream(inp, spec):
+    """stream_run of the JAX package for every run of the spec."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        for k, v in stream_run(lgb, inp, run).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -1336,6 +1417,6 @@ if __name__ == "__main__":
               "fileio": _job_fileio,
               "sparse_storage": _job_sparse_storage,
               "utilities": _job_utilities, "shap": _job_shap,
-              "fault": _job_fault}[job](
+              "fault": _job_fault, "stream": _job_stream}[job](
                   inp, spec)
     np.savez(dst, **result)
