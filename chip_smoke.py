@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. forty-six paths at full width, each lgb.train (cv_int8:
+  3. fifty-one paths at full width, each lgb.train (cv_int8:
      lgb.cv) on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
      and sparse paths: a sparse table of 697 features), then
@@ -102,13 +102,13 @@ Phases, each fatal on failure (exit code 1, no result line):
        cat_hilo  columns 22-27 recoded as categorical_feature, cut at
                their training quantiles into 3, 7, 12, 31, 100 and 250
                categories relabelled by a seeded permutation, hilo with
-               tpu_partition_impl=select, 10 iterations: B1 every round,
+               tpu_partition_impl=select, 5 iterations: B1 every round,
                the categorical split search (one-hot on the 3-category
                column, sorted-CTR on the others), bin LUT, mask routing
                and bitset walk as torch ops, no B3; the trees must hold
                categorical splits, counted per mode (phase 5 requires
                both modes);
-       cat_int8  cat_hilo with tpu_hist_precision=int8, 10 iterations:
+       cat_int8  cat_hilo with tpu_hist_precision=int8, 5 iterations:
                B1-int every round and the leaf sums; B2 (categorical data
                leaves its scan) and B3 must not launch;
        efb_hilo  the Flight Delay-shaped table of LightGBM's EFB
@@ -116,7 +116,7 @@ Phases, each fatal on failure (exit code 1, no result line):
                DayofMonth, DayOfWeek, DepHour, UniqueCarrier, Origin and
                Dest, 697 features, 8 stored values a row) as a scipy CSR
                matrix, one Dataset for both paths, hilo with
-               tpu_partition_impl=select, 10 iterations: the plan must
+               tpu_partition_impl=select, 5 iterations: the plan must
                be EFB_COLUMNS bundle columns (printed with their bins,
                the plan's host seconds and the bytes on the card); B1
                every round on the bundle columns, the expansion to the
@@ -209,6 +209,21 @@ Phases, each fatal on failure (exit code 1, no result line):
                rows, TreeSHAP batched over rows as f64 torch ops: the
                first 64 rows bit for bit the numpy twin's, each row
                summing to its raw f64 score within 1e-9; rows/s;
+     the sharded tree learners (ROADMAP A9a), 5 iterations each, every
+     shard a thread on the one card (a simulated grid), B2 never
+     launched, the held-out AUC within AUC_TOL of the serial path's at 5
+     iterations, with their launches a tree a shard and iters/s:
+       data_int8  int8 with tree_learner=data, 2 shards, tpu_hist_agg
+               auto (scatter): B1-int, the torch split search, B3 and the
+               leaf sums on each shard's half of the rows;
+       data_psum_hilo  hilo with tree_learner=data, 2 shards,
+               tpu_hist_agg=psum: B1 and B3 on each shard;
+       voting_int8  int8 with tree_learner=voting, 2 shards, top_k=20;
+       feature_int8  int8 with tree_learner=feature, 2 shards: each
+               shard's B1-int on its 32-feature slice of every row, B3
+               on the whole matrix;
+       data_feature_int8  int8 with tree_learner=data_feature, 4 shards,
+               tpu_feature_shards=2, tpu_topology_hosts=2;
      the next four run after phase 4 (and --profile's profiles), before
      phase 5:
        resume_int8  valid_bag_int8's parameters with tpu_checkpoint_dir
@@ -316,7 +331,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      bitwise, and the constraints must change some record; the leaf
      sums' f64 instance (Booster.refit's) at the uniform and skewed
      operands, bitwise against index_add_ in f64 on the CPU, beside its
-     floor at DADD_CYCLES an add;
+     floor at DADD_CYCLES an add; B1 (data_psum_hilo), B1-int (the
+     shard's own grad, hess and row mask), B3 and the leaf sums of
+     data_int8 on one shard's operands (shard 1 of 2: n_pad/2 rows from
+     row0 = n_pad/2);
   5. the card against the CPU path at a reduced size (50,000 rows): hilo,
      binary int8 and packed hilo by AUC; regression int8 (fused) and
      packed regression int8 (pallas2, and pallas: B4), all with the leaf
@@ -372,7 +390,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      and a streamed int8 regression (blocks of 16,384 rows, refit off)
      card against CPU by its whole text, and its bundle written at the
      midpoint on either device resumed on the other, both the
-     uninterrupted card run's text.
+     uninterrupted card run's text; and data_int8's regression (refit
+     on) card against CPU by its whole text, and at full width data_int8
+     with the refit off against the serial int8 path's text on the
+     card.
 A line "build ledger" before the kernels line gives the kernel
 library's build (built or loaded, seconds, hash), the distinct launch
 plans of each kernel site over the run, and stream_int8's plan held to
@@ -527,6 +548,10 @@ NFOLD = 3
 # the objective zoo at full width, its labels cut from the generator's
 # latent (the logits plus their logistic noise) at its quintiles
 ITERS_ZOO = 5
+# the categorical and EFB paths: 5 iterations keep the whole run, the
+# sharded paths included, well inside its time limit
+ITERS_CAT = 5
+ITERS_EFB = 5
 # LightGBM's examples/multiclass_classification: 5 classes, one tree a
 # class an iteration, each through the fused int8 step
 MULTICLASS_PARAMS = dict(PARAMS, objective="multiclass", num_class=5,
@@ -741,13 +766,13 @@ def cat_path(lgb, kernels, ds, Xc, y, params, must_launch, must_not):
     """Phase 3, paths cat_hilo and cat_int8: main_path on the categorical
     data; fails unless the trees hold categorical splits, which it counts
     by mode."""
-    report, booster = main_path(lgb, kernels, ds, Xc, y, params, ITERS,
+    report, booster = main_path(lgb, kernels, ds, Xc, y, params, ITERS_CAT,
                                 must_launch, must_not)
     onehot, ctr = cat_splits(booster)
     if onehot + ctr == 0:
         fail("no categorical split on a categorical path")
     report.update(cat_splits_onehot=onehot, cat_splits_ctr=ctr,
-                  cat_splits_per_tree=(onehot + ctr) / ITERS)
+                  cat_splits_per_tree=(onehot + ctr) / ITERS_CAT)
     return report, booster
 
 
@@ -794,7 +819,7 @@ def efb_path(lgb, kernels, ds, X, y, params, must_launch, must_not):
     import torch
     from lightgbm_tpu_torch.ops.grower import expand_bundles
 
-    report, booster = main_path(lgb, kernels, ds, X, y, params, ITERS,
+    report, booster = main_path(lgb, kernels, ds, X, y, params, ITERS_EFB,
                                 must_launch, must_not)
     learner = booster._driver.learner
     plan = learner.bundle_plan
@@ -4635,6 +4660,187 @@ def cross_check_stream(lgb, X):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the sharded tree learners (ROADMAP A9a) --------------------------------
+ITERS_SHARDED = 5
+SHARD_INT_KERNELS = ("hist_batched_int", "partition_rows", "leaf_group",
+                     "leaf_sums")
+SHARD_INT8 = dict(PARAMS, tpu_hist_precision="int8")
+# (name, params, kernels the path must launch, the serial path it is
+# compared with); every shard of a path shares the one card: a simulated
+# grid
+SHARDED_PATHS = [
+    ("data_int8", dict(SHARD_INT8, tree_learner="data", num_machines=2),
+     SHARD_INT_KERNELS, "int8"),
+    ("data_psum_hilo", dict(PARAMS, tree_learner="data", num_machines=2,
+                            tpu_hist_agg="psum"),
+     ("hist_batched", "partition_rows"), "hilo"),
+    ("voting_int8", dict(SHARD_INT8, tree_learner="voting", num_machines=2,
+                         top_k=20), SHARD_INT_KERNELS, "int8"),
+    ("feature_int8", dict(SHARD_INT8, tree_learner="feature",
+                          num_machines=2), SHARD_INT_KERNELS, "int8"),
+    ("data_feature_int8", dict(SHARD_INT8, tree_learner="data_feature",
+                               num_machines=4, tpu_feature_shards=2,
+                               tpu_topology_hosts=2),
+     SHARD_INT_KERNELS, "int8"),
+]
+
+
+def sharded_path(lgb, kernels, ds, X, y, params, must_launch, serial):
+    """Phase 3, one sharded path: train ITERS_SHARDED iterations at full
+    width and predict the held-out rows; B2 must not launch (the JAX
+    grower never runs it sharded).  Its held-out AUC beside the serial
+    booster's at as many iterations.  Returns (report, booster)."""
+    import torch
+
+    Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    booster = lgb.train(dict(params), ds, num_boost_round=ITERS_SHARDED,
+                        keep_training_booster=True)
+    trees = booster.num_trees()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if trees != ITERS_SHARDED:
+        fail(f"trained {trees} trees, expected {ITERS_SHARDED}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on this sharded path")
+    if launches["fused_hist_scan"] != 0:
+        fail(f"B2 launched {launches['fused_hist_scan']} times under a "
+             "sharded learner")
+    driver = booster._driver
+    learner = driver.learner
+    t = learner.topology
+    pred = booster.predict(Xho)
+    if not np.all(np.isfinite(pred)) or pred.shape != (N_HOLD,):
+        fail(f"held-out predictions: shape {pred.shape}")
+    hold_auc = auc(pred, yho)
+    serial_auc = auc(serial.predict(Xho, num_iteration=ITERS_SHARDED), yho)
+    if not 0.6 < hold_auc <= 1.0 or abs(hold_auc - serial_auc) > AUC_TOL:
+        fail(f"held-out AUC {hold_auc} against the serial path's "
+             f"{serial_auc}")
+    per = {k: launches[k] / trees / t.size
+           for k in SHARD_INT_KERNELS + ("hist_batched", "fused_hist_scan")}
+    return {"train_s": train_s, "iters_per_s": ITERS_SHARDED / train_s,
+            "holdout_auc": hold_auc,
+            "serial_holdout_auc_at_same_iters": serial_auc,
+            "auc_minus_serial": hold_auc - serial_auc,
+            "strategy": learner.strategy, "hist_agg": learner.hist_agg,
+            "shards": t.size, "hosts": t.hosts,
+            "feature_shards": t.feature_shards,
+            "row_shards": t.data_shards,
+            "cards_used": len(set(t.devices)),
+            "b2_launched": launches["fused_hist_scan"] > 0,
+            "launches": launches,
+            "launches_per_tree": {k: v / trees for k, v in launches.items()},
+            "launches_per_tree_per_shard": per,
+            "host_syncs_per_tree": driver.grower_syncs / trees,
+            # the last tree: its host seconds, collectives, and each
+            # shard's seconds at the group's barrier
+            "last_tree": learner._strategy_grow.last_stats,
+            "n_pad": learner.n_pad, "g_pad": learner.g_pad}, booster
+
+
+def shard_operands(booster, rank=1):
+    """A view of shard `rank` of a sharded booster for phase 4's checks
+    (the learner attributes they read), and the grad, hess and row mask
+    the shard's grower got in one more iteration: its row shard's rows,
+    from row0 = rank x its rows on."""
+    import types
+
+    from lightgbm_tpu_torch.ops import grower
+    from lightgbm_tpu_torch.parallel import topology
+
+    learner = booster._driver.learner
+    t = learner.topology
+    seen = {}
+    grow = grower.grow
+
+    def spy(params, bins_t, g, h, mask, *rest, **kw):
+        if topology.current().rank == rank:
+            seen["ops"] = (g, h, mask)
+        return grow(params, bins_t, g, h, mask, *rest, **kw)
+
+    grower.grow = spy
+    try:
+        booster.update()
+        booster.num_trees()
+    finally:
+        grower.grow = grow
+    n_local = learner.n_pad // t.data_shards
+    row0 = t.row_shard(rank) * n_local
+    hist = learner.shard_hist_bins[rank]
+    view = types.SimpleNamespace(
+        bins_t=learner.shard_bins[rank] if hist is None else hist,
+        packed_block=learner.packed_block, num_bins=learner.num_bins,
+        params=learner.params, n_pad=n_local,
+        _ones_mask=learner._ones_mask[row0:row0 + n_local],
+        num_features=learner.num_features, meta=learner.shard_metas[rank],
+        feature_mask=learner.feature_mask)
+    return view, seen["ops"], row0
+
+
+def check_shards(boosters, gen):
+    """Phase 4 on one shard's operands (shard 1 of data_int8 and of
+    data_psum_hilo: n_pad/2 rows from row0 = n_pad/2): B1 (hilo, random
+    slots), B1-int (the shard's own grad, hess and row mask), B3 and
+    the leaf sums, each held to its twin.  Returns (row, path) pairs."""
+    out = []
+    view, ops, row0 = shard_operands(boosters["data_int8"])
+    where = (f"shard 1 of 2, rows {row0} to {row0 + view.n_pad - 1} "
+             f"(row0 {row0})")
+    rows = [(check_hist_int(view, gen, "shard", ops), "data_int8"),
+            (check_partition(view, gen), "data_int8")]
+    rows += [(r, "data_int8") for r in check_leaf_sums(view, gen,
+                                                       "uniform")]
+    hview, _, _ = shard_operands(boosters["data_psum_hilo"])
+    rows.append((check_hist(hview, gen, "random"), "data_psum_hilo"))
+    for row, path in rows:
+        row["operands"] = f"{row.get('operands', 'random')}, {where}"
+        out.append((row, path))
+    return out
+
+
+def cross_check_sharded(lgb, X, y, serial_params):
+    """Phase 5 of the sharded learners: a data_int8 regression run on the
+    first N_SMALL rows (the refit on) gives the same text on the card
+    and on the CPU; and at full width data_int8 with the refit off gives
+    the serial int8 path's text on the card (ITERS_SHARDED
+    iterations)."""
+    Xs = X[:N_SMALL]
+    rng = np.random.default_rng(46)
+    y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
+        size=N_SMALL)
+    p = dict(SHARDED_PATHS[0][1], objective="regression", metric="l2")
+    t0 = time.perf_counter()
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        q = dict(p, device_type=dev)
+        b = lgb.train(q, lgb.Dataset(Xs, label=y_reg, params=q),
+                      ITERS_SMALL, keep_training_booster=True)
+        texts[dev] = model_text(b)
+    if texts["cuda"] != texts["cpu"]:
+        fail("sharded: the data_int8 regression text differs card to CPU")
+    out = {"sharded_data_int8_card_cpu_identical": True,
+           "sharded_card_cpu_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                     params=dict(PARAMS)).construct()
+    off = {"tpu_quant_refit_leaves": False}
+    sharded = lgb.train(dict(SHARDED_PATHS[0][1], **off), ds, ITERS_SHARDED,
+                        keep_training_booster=True)
+    serial = lgb.train(dict(serial_params, **off), ds, ITERS_SHARDED,
+                       keep_training_booster=True)
+    if model_text(sharded) != model_text(serial):
+        fail("sharded: data_int8 with the refit off differs from the "
+             "serial int8 text on the card")
+    out["sharded_data_int8_equals_serial"] = True
+    out["sharded_serial_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4785,6 +4991,14 @@ def main() -> None:
             boosters[name] = booster
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
         print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
+    # the sharded learners on the int8 and hilo paths' Dataset, all their
+    # shards on this card
+    for name, params, must, serial in SHARDED_PATHS:
+        t0 = time.perf_counter()
+        reports[name], boosters[name] = sharded_path(
+            lgb, kernels, ds, X, y, params, must, boosters[serial])
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
     del datasets, ds
     # categorical features: columns 22-27 as categories, both modes
     Xc = cat_data(X)
@@ -4891,11 +5105,14 @@ def main() -> None:
             row = check(learners[path], gen, operands)
             row["operands"] = f"bundle columns, {operands}"
             kernel_rows.append((row, path))
+    # B1, B1-int, B3 and the leaf sums on one shard's operands
+    kernel_rows += check_shards(boosters, gen)
     # the leaf sums' floor on each path that refits: its largest leaf
     mhz = sm_clock_mhz()
     floors = {}
     for path, report in reports.items():
-        if report.get("launches", {}).get("leaf_sums", 0) > 0:
+        if report.get("launches", {}).get("leaf_sums", 0) > 0 \
+                and learners[path].topology is None:
             learner = learners[path]
             floors[path] = leaf_sums_floor(
                 learner.n_pad, learner.params.num_leaves + 1,
@@ -4950,6 +5167,10 @@ def main() -> None:
     print(f"path_s cross_check_storage {time.perf_counter() - t0:.1f}",
           flush=True)
     cross.update(cross_check_fault(lgb, X))
+    t0 = time.perf_counter()
+    cross.update(cross_check_sharded(lgb, X, y, PATHS[1][1]))
+    print(f"path_s cross_check_sharded {time.perf_counter() - t0:.1f}",
+          flush=True)
     t0 = time.perf_counter()
     cross.update(cross_check_stream(lgb, X))
     print(f"path_s cross_check_stream {time.perf_counter() - t0:.1f}",

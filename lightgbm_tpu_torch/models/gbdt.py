@@ -69,10 +69,10 @@ from ..obs import modelhealth
 from ..ops import leafsum
 from ..ops.binning import bin_matrix_t
 from ..ops.predict import (PackedForest, class_scores, device_tables,
-                           leaf_values, pack_raw_trees, pack_trees,
-                           raw_device_tables, raw_forest_scores,
+                           forest_walk_bytes, leaf_values, pack_raw_trees,
+                           pack_trees, raw_device_tables, raw_forest_scores,
                            raw_leaf_index, subset_scores, tree_leaf_values,
-                           upload, walk_step_bytes)
+                           upload)
 from ..utils import faultline, membudget
 from ..utils.log import LightGBMError, Log
 from ..utils.prng import PRNGKey
@@ -340,7 +340,12 @@ class GBDT:
         else:
             # objective=none: custom gradients through update(fobj=...)
             self.num_tree_per_iteration = self.num_class
-        # the flight recorder's depth and dump directory (tpu_obs_*)
+        # the collective watchdog's deadline and retries (gbdt.py:326-331
+        # of the JAX package), and the flight recorder's depth and dump
+        # directory (tpu_obs_*)
+        from ..parallel.collective import configure_from_config
+
+        configure_from_config(config)
         obs.configure_from_config(config)
         self.learner = make_tree_learner(config, train_data)
         if self.learner.params.has_cegb and self._goss_cfg is not None:
@@ -1365,9 +1370,9 @@ class GBDT:
             # binning's, the planes a step of the walk makes, the scores
             self.predict_scratch_bytes = max(
                 self.predict_scratch_bytes, scratch["chunk_bytes"]
-                + walk_step_bytes(tables["leaf_value"].shape[0], hi - lo,
-                                  bins_t.element_size(),
-                                  tables["cat_words"].shape[0] > 1)
+                + forest_walk_bytes(tables["leaf_value"].shape[0], k,
+                                    hi - lo, bins_t.element_size(),
+                                    tables["cat_words"].shape[0] > 1)
                 + int(scores.nbytes))
             return scores
 

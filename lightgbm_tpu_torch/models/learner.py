@@ -1,4 +1,4 @@
-"""Serial tree learner: lays the bins out for the grower, replays trees.
+"""The tree learner: lays the bins out for the grower, replays trees.
 
 The port of the serial, dense subset of
 `lightgbm_tpu/models/learner.py:TPUTreeLearner`, numerical and
@@ -62,12 +62,25 @@ zero bin is at most the threshold out of the bins: their entries are
 laid out back to back on the device (`_sparse_layout`), the dense
 features' columns alone go to the kernels, and `hist_perm` maps the
 features onto the merged histogram columns.
+
+tree_learner data, feature, voting or data_feature with num_machines > 1
+(learner.py:93-173,456-476,620-690 of the JAX package) shards the
+learner over a (hosts, data, feature) grid in one process
+(`parallel/`): `resolve_strategy` and `resolve_hist_agg` as the JAX
+learner resolves them, the feature axis padded to 32 columns a feature
+shard (and to the row shards under scatter), the rows to a whole number
+of blocks a row shard, and `_place_shards` puts each shard's bins on
+its device; `_grow` runs `parallel/strategies.py`'s grower over them.
+What a sharded learner does not carry yet is refused by name
+(`check_sharded_slice`, and the EFB, categorical and monotone refusals
+at set-up).
 """
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +96,11 @@ from ..ops.histogram import (INT_PRECISIONS, MAX_WIDE_BINS, _dot_spec,
                              hashed_uniform, key_words, pack_bins,
                              row_major_bins)
 from ..ops.predict import upload
+from ..parallel import topology as topo
+from ..parallel.mesh import available_devices, put_global
+from ..parallel.strategies import (bins_sharding, make_strategy_grower,
+                                   resolve_tree_learner)
+from ..parallel.topology import resolve_hosts
 from ..utils import membudget, prng
 from ..utils.log import Log
 from .tree import Tree
@@ -122,17 +140,9 @@ def check_slice(config: Config) -> None:
     if str(c.boosting) not in ("gbdt", "goss", "dart", "rf",
                                "random_forest"):
         refuse(f"boosting={c.boosting!r}")
-    # the JAX package itself trains a parallel learner serially on one
-    # machine (with a warning), so only a real multi-machine run is refused
-    if str(c.tree_learner) != "serial" and int(c.num_machines) > 1:
-        if float(c.tpu_sparse_threshold) > 0.0:
-            # on a host with the devices for num_machines, the JAX learner
-            # raises its sparse-storage refusals before it shards
-            # anything (where it lacks them, its num_machines ValueError
-            # comes first); the port takes the first case
-            check_sparse_storage(c, TreeLearner.resolve_precision(c),
-                                 str(c.tree_learner), forced=False)
-        refuse(f"tree_learner={c.tree_learner!r} with num_machines>1")
+    if resolve_tree_learner(c.tree_learner) != "serial" \
+            and int(c.num_machines) > 1:
+        check_sharded_slice(c)
     _dot_spec(str(c.tpu_hist_precision))
     if str(c.tpu_hist_impl) not in HIST_IMPLS:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
@@ -144,6 +154,96 @@ def check_slice(config: Config) -> None:
         refuse(f"tpu_telemetry={c.tpu_telemetry!r}")
     if str(c.tpu_trace_dir):
         refuse(f"tpu_trace_dir={c.tpu_trace_dir!r}")
+
+
+def check_sharded_slice(config: Config) -> None:
+    """What a sharded tree learner (tree_learner data, feature, voting or
+    data_feature with num_machines > 1) does not carry in this port yet
+    (ROADMAP A9b), refused by name in the JAX learner's order where it
+    has one: a machine list of several hosts (`parallel/mesh.py:
+    init_multihost`), sparse storage (after the JAX package's own
+    refusals of it, with its texts), CEGB, forced splits, monotone
+    constraints, feature_fraction_bynode and deterministic=true.  EFB
+    bundles, categorical features and constraints given by the Dataset
+    are refused where the learner meets them."""
+    from ..parallel.mesh import init_multihost
+
+    c = config
+
+    def refuse(what: str) -> None:
+        raise NotImplementedError(
+            f"{what} under tree_learner={c.tree_learner} is not ported to "
+            "lightgbm_tpu_torch yet (ROADMAP A9b)")
+
+    init_multihost(str(c.machines), int(c.local_listen_port),
+                   int(c.num_machines))
+    if float(c.tpu_sparse_threshold) > 0.0:
+        check_sparse_storage(c, TreeLearner.resolve_precision(c),
+                             str(c.tree_learner), forced=False)
+        refuse("sparse COO storage (tpu_sparse_threshold)")
+    if (any(float(v) != 0.0 for v in c.cegb_penalty_feature_coupled)
+            or any(float(v) != 0.0 for v in c.cegb_penalty_feature_lazy)
+            or float(c.cegb_penalty_split) != 0.0):
+        refuse("CEGB")
+    if str(c.forcedsplits_filename or ""):
+        refuse("forced splits (forcedsplits_filename)")
+    if any(int(v) != 0 for v in c.monotone_constraints):
+        refuse("monotone constraints")
+    if float(c.feature_fraction_bynode) < 1.0:
+        refuse("feature_fraction_bynode")
+    if bool(c.deterministic):
+        refuse("deterministic=true")
+
+
+def resolve_strategy(config: Config) -> Tuple[str, int, int, int, int]:
+    """(strategy, shards, hosts, feature shards, row shards) of a config
+    (learner.py:93-173 of the JAX package): tree_learner's canonical
+    name; a parallel learner with num_machines <= 1 trains serially, with
+    a warning; data_feature factors the shards into tpu_feature_shards
+    feature shards (auto: 2 where the count factors) times row shards;
+    feature across more than one host becomes data_feature with one row
+    shard a host; data and voting shard rows only."""
+    strategy = resolve_tree_learner(config.tree_learner)
+    n_shards = int(config.num_machines)
+    if strategy != "serial" and n_shards <= 1:
+        Log.warning(f"tree_learner={strategy} needs num_machines>1; "
+                    "falling back to serial")
+        strategy = "serial"
+    if strategy == "serial":
+        return strategy, 1, 1, 1, 1
+    hosts = resolve_hosts(int(config.tpu_topology_hosts))
+    if strategy == "data_feature":
+        fs = int(config.tpu_feature_shards)
+        if fs <= 0:
+            fs = 2 if (n_shards % 2 == 0 and n_shards > 2) else 1
+        if n_shards % fs != 0:
+            raise ValueError(f"tpu_feature_shards={fs} must divide "
+                             f"num_machines={n_shards}")
+        return strategy, n_shards, hosts, fs, n_shards // fs
+    if strategy == "feature":
+        if hosts > 1:
+            # no host holds every row once the hosts axis is real: one row
+            # shard a host, its devices shard the features
+            if n_shards % hosts != 0:
+                raise ValueError(
+                    f"num_machines={n_shards} must split evenly across "
+                    f"{hosts} hosts for tree_learner=feature")
+            return "data_feature", n_shards, hosts, n_shards // hosts, hosts
+        return strategy, n_shards, hosts, n_shards, 1
+    return strategy, n_shards, hosts, 1, n_shards
+
+
+def resolve_hist_agg(config: Config, strategy: str, d_shards: int) -> str:
+    """The row axes' histogram aggregation (learner.py:894-910): auto is
+    scatter wherever the data axis spans more than one shard, psum
+    everywhere else."""
+    agg = str(config.tpu_hist_agg)
+    if agg not in ("auto", "psum", "scatter"):
+        raise ValueError(f"tpu_hist_agg={agg!r}; expected one of "
+                         "('auto', 'psum', 'scatter')")
+    if strategy in ("data", "voting", "data_feature") and d_shards > 1:
+        return "scatter" if agg in ("auto", "scatter") else "psum"
+    return "psum"
 
 
 # tree_learner names of the strategies that shard rows (the JAX package's
@@ -177,13 +277,22 @@ def check_sparse_storage(config: Config, precision: str, tree_learner: str,
 
 
 class TreeLearner:
-    """The serial learner: device bin layout + grower + tree replay."""
+    """The learner: device bin layout (one device, or the shards of a
+    parallel learner) + grower + tree replay."""
 
     # StreamedTreeLearner: the bins stay in host blocks (ops/stream.py)
     stream_layout = False
 
     def __init__(self, config: Config, train_data: TrainingData):
         check_slice(config)
+        # the parallel learners (learner.py:93-173, 894-910): the strategy,
+        # its (hosts, data, feature) grid and the row axes' aggregation
+        (self.strategy, self.n_shards, self.hosts, self.f_shards,
+         self.d_shards) = resolve_strategy(config)
+        self.hist_agg = resolve_hist_agg(config, self.strategy,
+                                         self.d_shards)
+        sharded = self.strategy != "serial"
+        self.topology = None
         self.config = config
         self.td = train_data
         self.device = train_data.device
@@ -207,6 +316,17 @@ class TreeLearner:
         forced = self._parse_forced_splits(config, train_data)
         B = int(meta_np["num_bin"].max())
         self.num_bins = B
+        if sharded:
+            for what, on in (
+                    ("categorical features",
+                     bool(meta_np["is_categorical"].any())),
+                    ("monotone constraints",
+                     bool(np.any(meta_np["monotone"] != 0)))):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} under tree_learner={config.tree_learner} "
+                        "is not ported to lightgbm_tpu_torch yet (ROADMAP "
+                        "A9b)")
         if B > MAX_WIDE_BINS:
             raise NotImplementedError(
                 f"max_bin={config.max_bin} (features with more than "
@@ -214,9 +334,19 @@ class TreeLearner:
                 "yet: its kernels read wide bins as 16-bit values")
         F = self.num_features
         t0 = time.perf_counter()
-        # no plan under forced splits (learner.py:239)
-        plan = None if forced else self._plan_bundles(
+        # no plan under forced splits (learner.py:239); the voting and
+        # feature learners train unbundled (learner.py:228-237)
+        bundling = self.strategy in ("serial", "data")
+        if not bundling and bool(config.enable_bundle) and F > 1:
+            Log.info(f"EFB bundling is inactive under tree_learner="
+                     f"{self.strategy}; training on plain columns")
+        plan = None if forced or not bundling else self._plan_bundles(
             config, train_data, meta_np["num_bin"], B)
+        if plan is not None and sharded:
+            raise NotImplementedError(
+                f"EFB bundles under tree_learner={config.tree_learner} are "
+                "not ported to lightgbm_tpu_torch yet (ROADMAP A9b); set "
+                "enable_bundle=false")
         self.bundle_plan = plan
         # host seconds of the EFB plan and of making its bundle columns
         self.efb_s = {"plan": time.perf_counter() - t0, "apply": 0.0}
@@ -261,7 +391,10 @@ class TreeLearner:
         # perfeature kernel, and the port's kernels take chunks of 32
         # columns; padding columns hold bin 0 (num_bin=1) and can never
         # split
-        self.g_pad = -(-self.num_columns // 32) * 32
+        # a feature shard's slice is a kernel operand too: the axis pads
+        # to 32 columns a feature shard (learner.py:371-386)
+        col_align = 32 * self.f_shards
+        self.g_pad = -(-self.num_columns // col_align) * col_align
         buckets = int(config.tpu_shape_buckets)
 
         def bucket_up(count: int, quantum: int) -> int:
@@ -282,9 +415,16 @@ class TreeLearner:
                 return bucket_up(base // eff, 1) * eff
             return min(bucket_up(count, 128), block)
 
-        self.n_pad = bucket_rows(n)
+        # sharded: every row shard an equal, whole number of blocks
+        self.n_pad = (bucket_rows(n) if self.d_shards == 1 else
+                      bucket_rows(-(-n // self.d_shards)) * self.d_shards)
         if buckets > 0:
-            self.g_pad = bucket_up(self.g_pad, 32)
+            self.g_pad = bucket_up(self.g_pad, col_align)
+        if self.hist_agg == "scatter" and self.strategy != "voting":
+            # the reduce-scatter hands each row shard a contiguous 1/P
+            # column slice of each feature shard's (learner.py:456-476)
+            a = math.lcm(col_align, self.f_shards * self.d_shards)
+            self.g_pad = -(-self.g_pad // a) * a
         # the feature axis the JAX learner pads to for this impl
         # (learner.py:371-386, 445-454): without bundles the column axis,
         # 32-aligned for its perfeature and fused kernels, else unpadded,
@@ -309,10 +449,12 @@ class TreeLearner:
         # without bundles the columns, else the JAX learner's (no kernel
         # reads it)
         self.f_pad = self.g_pad if plan is None else self.draw_width
-        # the pack layout's blocks are the grower's: min(block, n_pad)
-        eff_block = min(block, self.n_pad)
+        # the pack layout's blocks are the grower's: min(block, n_pad) of
+        # a row shard's rows (learner.py:623-634)
+        local_rows = self.n_pad // self.d_shards
+        eff_block = min(block, local_rows)
         self.packed_bins = self._would_pack(
-            config, B, impl, eff_block, self.n_pad,
+            config, B, impl, eff_block, local_rows,
             plan is not None or sparse_mask is not None
             or self.stream_layout)
         # rows of a packed block (0: bins unpacked), as the kernels take it
@@ -352,6 +494,10 @@ class TreeLearner:
             meta["hist_perm"] = torch.as_tensor(perm, device=dev)
             meta.update(sparse_meta)
         self.meta = meta
+        if sharded:
+            self._place_shards()
+        else:
+            topo.activate(None)
         self.params = GrowerParams(
             num_leaves=max(int(config.num_leaves), 2),
             num_bins=B,
@@ -393,7 +539,8 @@ class TreeLearner:
             cegb_tradeoff=float(config.cegb_tradeoff),
             cegb_penalty_split=float(config.cegb_penalty_split),
             forced=forced,
-            has_mono=bool(np.any(meta_np["monotone"] != 0)))
+            has_mono=bool(np.any(meta_np["monotone"] != 0)),
+            hist_agg=self.hist_agg)
         # the JAX grower's refusals, at set-up as there
         G.check_params(self.params)
         # refit leaves: the trees take their leaf values from the grower's
@@ -403,7 +550,7 @@ class TreeLearner:
         # bundles the grower never runs B2's scan, nor on the streamed
         # layout
         if impl == "fused" and dev.type == "cuda" and not self.stream_layout \
-                and fused_supported(
+                and not sharded and fused_supported(
                 precision,
                 bynode=self.params.feature_fraction_bynode < 1.0,
                 has_cat=self.params.has_cat, has_bundles=plan is not None,
@@ -418,6 +565,10 @@ class TreeLearner:
             if has_cegb_lazy:
                 self.meta["cegb_paid"] = torch.zeros(
                     (self.f_pad, self.n_pad), dtype=torch.bool, device=dev)
+        # the sharded learners' grower: every shard runs ops/grower.py's
+        # grow in its own thread (parallel/strategies.py)
+        self._strategy_grow = make_strategy_grower(
+            self.params, self.strategy, self.topology, int(config.top_k))
         # host waits of the last grown tree (grower stop tests)
         self.last_syncs = 0
         # bytes of the last tree's pool and stat planes
@@ -460,13 +611,58 @@ class TreeLearner:
             # dense_nbits_bin.hpp), the JAX learner's per-block layout
             bins_t = pack_bins(bins_t, eff_block)
         self.bins_t = bins_t
-        if dev.type == "cuda":
+        if dev.type == "cuda" and self.strategy == "serial":
             # kernels B1, B2 and B4 gather each live row's bins from a
             # row-major copy ([n_pad, 32] uint8 at up to 32 columns,
             # [n_pad, 16] packed, or [n_pad, 32] 16-bit for int32 bins);
             # row_major_bins makes it here, at
             # set-up, and keeps it on bins_t for every later call
             row_major_bins(bins_t, self.packed_block)
+
+    def _place_shards(self) -> None:
+        """The sharded learners' placement (learner.py:645-690 of the JAX
+        package, `put_global`'s role): the (hosts, data, feature) grid,
+        shard i on ``cuda:(i % cards)`` (or the CPU); each shard's bins,
+        its row shard's columns or, where the rows are not sharded, the
+        whole matrix (one copy a device); under a feature axis its own
+        [F/P, rows] slice for the histograms; the kernels' row-major copy
+        of each, made here before any shard thread runs; and the meta
+        arrays on each shard's device.  The global matrix goes."""
+        devices = topo.shard_devices(self.n_shards, self.device)
+        held = len(set(devices))
+        if self.n_shards > held:
+            where = ("card" if self.device.type == "cuda" else "CPU")
+            Log.warning(
+                f"tree_learner={self.strategy}: {self.n_shards} shards on "
+                f"{held} {where}{'s' if held > 1 else ''} of "
+                f"{available_devices()}; shards share a device (a "
+                f"simulated grid of {self.hosts} host(s))")
+        t = topo.make_topology(self.d_shards, self.f_shards, self.hosts,
+                               devices=devices)
+        self.topology = t
+        topo.activate(t)
+        bins = put_global(self.bins_t, t, bins_sharding(self.strategy))
+        hist = [None] * t.size
+        if self.f_shards > 1:
+            F = self.g_pad // self.f_shards
+            made = {}
+            for r, b in enumerate(bins):
+                lo = t.coords(r)[topo.FEATURE] * F
+                key = (b.data_ptr(), str(b.device), lo)
+                if key not in made:
+                    made[key] = b[lo:lo + F].contiguous()
+                hist[r] = made[key]
+        if self.device.type == "cuda":
+            ops = {x.data_ptr(): x for x in
+                   (h if h is not None else b for h, b in zip(hist, bins))}
+            for x in ops.values():
+                row_major_bins(x, self.packed_block)
+        metas = {d: (self.meta if d == self.device else
+                     {k: v.to(d) for k, v in self.meta.items()})
+                 for d in set(t.devices)}
+        self.shard_bins, self.shard_hist_bins = bins, hist
+        self.shard_metas = [metas[d] for d in t.devices]
+        self.bins_t = None
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -686,9 +882,11 @@ class TreeLearner:
     def _buffers(self, out, g, h, mask) -> dict:
         """The grower's pool and stat-plane bytes and the row state the
         tree was grown from: the ones mask, the [n_pad] gradient,
-        hessian and row mask, and the leaf ids (utils/membudget.py)."""
+        hessian and row mask, and the leaf ids (each shard's too, on a
+        sharded learner) (utils/membudget.py)."""
         return dict(out["buffer_bytes"], row_state=membudget.unique_nbytes(
-            self._ones_mask, g, h, mask, out["leaf_ids"]))
+            self._ones_mask, g, h, mask, out["leaf_ids"],
+            *out.get("shard_leaf_ids", ())))
 
     def pad_vector(self, v: torch.Tensor) -> torch.Tensor:
         v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
@@ -746,9 +944,13 @@ class TreeLearner:
         return tree, out["leaf_ids"][:self.n], out
 
     def _grow(self, g, h, mask, fmask, key) -> dict:
-        """One tree of the sync path from padded vectors."""
-        return G.grow(self.params, self.bins_t, g, h, mask, fmask,
-                      self.meta, key)
+        """One tree from padded vectors, on one device or on every shard
+        of a sharded learner."""
+        if self.topology is None:
+            return G.grow(self.params, self.bins_t, g, h, mask, fmask,
+                          self.meta, key)
+        return self._strategy_grow(self.shard_bins, self.shard_hist_bins, g,
+                                   h, mask, fmask, self.shard_metas, key)
 
     def make_train_step(self, grad_fn, learning_rate: float,
                         bagging: Optional[dict] = None,
@@ -861,8 +1063,7 @@ class TreeLearner:
                 mask = row_mask(bag_key)
             fmask = feature_mask(kf)
             key, k_node = prng.split(key)
-            out = G.grow(self.params, self.bins_t, g, h, mask, fmask,
-                         self.meta, k_node)
+            out = self._grow(g, h, mask, fmask, k_node)
             self.last_syncs = out["syncs"]
             self.last_buffers = self._buffers(out, g, h, mask)
             records, leaf_ids = out["records"], out["leaf_ids"]

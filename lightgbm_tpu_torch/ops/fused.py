@@ -174,7 +174,7 @@ def fused_hist_scan_kernel(bins_t, stats, leaf_ids, slot_leaf_ids,
     out = _launch_fused(bins_t, stats, leaf_ids, slot_leaf_ids, parent_hist,
                         child_ctx, meta_i, meta_f, num_bins, precision,
                         split_kw)
-    kernels.launches["fused_hist_scan" + bins_layout(bins_t)[1]] += 1
+    kernels.count("fused_hist_scan" + bins_layout(bins_t)[1])
     return out
 
 
@@ -369,7 +369,7 @@ def partition_rows_kernel(bins_t, sel_feat, leaf_ids, sel, new_ids, thr,
             leaf_ids.data_ptr(), out.data_ptr(), sel.shape[0], int(vec),
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "partition_rows launch")
-    kernels.launches[name] += 1
+    kernels.count(name)
     return out
 
 

@@ -115,6 +115,16 @@ features' zero bins are missing there until every search rebuilds them
 from a dense feature's totals (`expand_sparse`); the partition rebuilds
 each sparse split feature's column from its entries.  Float precisions
 only, no bundles, no packing, a select-family partition.
+
+Under a sharded learner (data_axis / feature_axis / voting_k,
+grower.py:294-470,713-925 of the JAX package) every shard runs this
+function in its own thread (`parallel/strategies.py`) and the
+collectives of `parallel/topology.py` join them: the histograms
+aggregate over the row axes (psum, or a reduce-scatter to column slices
+with a best-split sync; voting aggregates only its voted features), a
+feature axis syncs each shard's best split, and the leaf totals, the
+quantization scales and the refit's sums reduce over the row axes.  No
+B2 there, as in the JAX grower.
 """
 
 from __future__ import annotations
@@ -134,7 +144,7 @@ from .histogram import (INT_PRECISIONS, _unpack_hist,
 from .leafsum import leaf_sums
 from .predict import upload
 from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
-                    finalize_split, leaf_output, leaf_split_gain,
+                    argbest, finalize_split, leaf_output, leaf_split_gain,
                     numeric_go_left, per_feature_best_split,
                     per_feature_best_split_categorical, reduce_sum,
                     unpack_pf_records)
@@ -228,6 +238,10 @@ class GrowerParams(NamedTuple):
     # longest feature's entry count is the partition's gather window
     has_sparse: bool = False
     sparse_window: int = 0
+    # the sharded learners' histogram aggregation over the row axes:
+    # "psum" (every shard the whole aggregate) or "scatter" (each shard
+    # its contiguous 1/P column slice, then a best-split sync)
+    hist_agg: str = "psum"
 
 
 def resolve_split_batch(split_batch: int, num_leaves: int) -> int:
@@ -434,11 +448,38 @@ def check_params(params: GrowerParams) -> None:
                          "bound needs a growth factor >= 2")
 
 
+def check_sharded(params: GrowerParams, data_axis, feature_axis,
+                  voting_k: int) -> None:
+    """The sharded grower's refusals (grower.py:353-362,423-433 of the
+    JAX package), and what this port's sharded grower does not carry."""
+    if voting_k and not data_axis:
+        raise ValueError("voting requires a data axis")
+    if voting_k and feature_axis:
+        raise ValueError("voting does not compose with a feature axis")
+    if params.hist_agg not in ("psum", "scatter"):
+        raise ValueError(f"hist_agg={params.hist_agg!r}; expected psum or "
+                         "scatter (the learner resolves 'auto' upstream)")
+    off = [name for name, on in (
+        ("EFB bundles", params.has_bundles),
+        ("sparse COO storage", params.has_sparse),
+        ("categorical features", params.has_cat),
+        ("CEGB", params.has_cegb), ("forced splits", bool(params.forced)),
+        ("monotone constraints", params.has_mono),
+        ("feature_fraction_bynode", params.feature_fraction_bynode < 1.0),
+        ("deterministic=true", params.precision == "f64")) if on]
+    if off:
+        raise NotImplementedError(
+            f"{off[0]} under a sharded tree learner is not ported to "
+            "lightgbm_tpu_torch yet (ROADMAP A9b)")
+
+
 def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
          grad: torch.Tensor, hess: torch.Tensor, row_mask: torch.Tensor,
          feature_mask: torch.Tensor, meta: Dict[str, torch.Tensor],
          key: Optional[np.ndarray] = None,
-         stream=None) -> Dict[str, torch.Tensor]:
+         stream=None, data_axis=None, feature_axis=None, voting_k: int = 0,
+         num_shards: int = 1, hist_bins: Optional[torch.Tensor] = None
+         ) -> Dict[str, torch.Tensor]:
     """Grow one tree.
 
     bins_t: [G, n_pad] uint8, or int32 when a feature has more than 256
@@ -466,20 +507,84 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     and each histogram pass streams them, partitioning every block's
     rows for the round's splits before its histogram (the JAX package's
     `block_step`); the rest of every round is the code below.  No ramp
-    and no B2 scan there, as in the JAX package's streamed programs."""
+    and no B2 scan there, as in the JAX package's streamed programs.
+
+    data_axis / feature_axis / voting_k / num_shards: one shard of a
+    sharded learner (grower.py:294-470 of the JAX package), run in a
+    shard thread of `parallel/strategies.py`, whose collectives
+    (`parallel/topology.py`) address these axes.  Under `data_axis` the
+    shard's rows are its row shard (grad etc. [n_pad local]); the
+    histograms aggregate over the row axes by psum, or under
+    params.hist_agg="scatter" by reduce-scatter to this shard's G/P
+    column slice, searched and then synced as one best-split record;
+    the leaf totals and the refit's sums are psummed; the quantization
+    scales are the row axes' max, and the stochastic rounding keys on
+    the global row.  Voting (`voting_k`) keeps the pool local, votes the
+    top 2k features of each leaf with the local thresholds at 1/P, and
+    aggregates only the k voted features' histograms (reduce-scattered
+    under scatter).  Under `feature_axis` the bins are every row's and
+    every feature's: the shard histograms its F/P feature slice
+    (`hist_bins`, its own tensor, else sliced from bins_t), partitions
+    from the full matrix, and syncs its best split over the feature
+    axis.  The meta arrays and the feature mask stay global.  No B2."""
     quantized = params.precision in INT_PRECISIONS
     check_params(params)
+    sharded = data_axis is not None or feature_axis is not None
+    if sharded:
+        check_sharded(params, data_axis, feature_axis, voting_k)
+        from ..parallel.topology import (axis_best_split_sync, axis_index,
+                                         axis_pmax, axis_psum,
+                                         axis_psum_scatter, axis_size)
     if quantized and key is None:
         raise ValueError("the quantized precisions need the tree's key")
     dev = grad.device
     L = params.num_leaves
     B = params.num_bins
+    FG = feature_mask.shape[0]
+    meta_l, fmask_l, f_lo, bins_h = meta, feature_mask, 0, bins_t
+    if feature_axis:
+        # this shard's feature slice [f_lo, f_lo + F) of the global axis
+        F = FG // axis_size(feature_axis)
+        f_lo = axis_index(feature_axis) * F
+        meta_l = {k: (v[f_lo:f_lo + F]
+                      if v.dim() == 1 and v.shape[0] == FG else v)
+                  for k, v in meta.items()}
+        fmask_l = feature_mask[f_lo:f_lo + F]
+        bins_h = hist_bins if hist_bins is not None \
+            else bins_t[f_lo:f_lo + F].contiguous()
     # the column axis of the pool: the bins' columns, or with sparse
     # storage the features (dense columns and sparse entries merged); the
     # features are feature_mask's axis
     G = (meta["hist_perm"].shape[0] if params.has_sparse
          else stream.num_columns if stream is not None
-         else bins_t.shape[0])
+         else bins_h.shape[0])
+    # scatter aggregation (grower.py:436-452): the pool holds this shard's
+    # contiguous column slice [dax * SG, (dax + 1) * SG); voting keeps its
+    # pool local and scatters only the voted block
+    scatter_on = (params.hist_agg == "scatter" and data_axis is not None
+                  and num_shards > 1)
+    pool_scatter = scatter_on and not voting_k
+    vote_scatter = scatter_on and bool(voting_k)
+    if pool_scatter and G % num_shards != 0:
+        raise ValueError(
+            f"hist_agg=scatter needs the histogram column count {G} padded "
+            f"to a multiple of the data-shard count {num_shards}")
+    SG = G // num_shards if pool_scatter else G
+    dax = axis_index(data_axis) if scatter_on else 0
+
+    def preduce(x):
+        """A sum of the shard's rows, reduced over the row axes."""
+        return axis_psum(x, data_axis) if data_axis else x
+
+    def agg_hist(x):
+        """Local [.., G, B, 3] histograms aggregated over the row axes
+        (grower.py:454-466): psum, or the reduce-scatter to this shard's
+        column slice; voting's stay local."""
+        if not data_axis or voting_k:
+            return x
+        if pool_scatter:
+            return axis_psum_scatter(x, data_axis, x.dim() - 3)
+        return axis_psum(x, data_axis)
     # rows come from grad, not bins_t: packed bins hold two rows a byte
     n_pad = grad.shape[0]
     block = min(params.block_rows, n_pad)
@@ -494,6 +599,12 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                     min_gain_to_split=params.min_gain_to_split)
     out_kw = dict(l1=params.l1, l2=params.l2,
                   max_delta_step=params.max_delta_step)
+    # voting's local search: min data and hessian at 1/P of the global
+    # thresholds (voting_parallel_tree_learner.cpp:58-59)
+    local_kw = dict(split_kw)
+    if voting_k:
+        local_kw["min_data_in_leaf"] = params.min_data_in_leaf / num_shards
+        local_kw["min_sum_hessian"] = params.min_sum_hessian / num_shards
 
     # per-node feature masks reshape the split search, so the megakernel's
     # in-launch scan (one mask for every child) is left, as the JAX
@@ -506,7 +617,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     fused_scan = (params.hist_impl == "fused" and quantized and not bynode
                   and not params.has_cat and not params.has_bundles
                   and not params.has_cegb and not params.forced
-                  and stream is None)
+                  and stream is None and not sharded)
     # the int32 bin prefix sums serve the plain numerical search alone:
     # with categorical features or bundles the histograms rescale to f32
     # first (grower.py:845-848)
@@ -623,6 +734,132 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                             .expand(*bf.shape, 1, B))[..., 0, :]
         return res, c, mask * c[..., None].to(f32)
 
+    def dequant(hh):
+        return hh.to(f32) * qscale if quantized else hh
+
+    def sync_best(res: SplitResult, gfeat, axis) -> SplitResult:
+        """The global best of the shards' best splits along `axis`, one
+        record a leaf (grower.py:713-743): `gfeat` is each leaf's winning
+        feature in the frame common to the axis, and becomes the
+        feature."""
+        payload = dict(default_left=res.default_left.to(i32),
+                       left_sum_g=res.left_sum_g, left_sum_h=res.left_sum_h,
+                       left_count=res.left_count,
+                       left_output=res.left_output,
+                       right_output=res.right_output)
+        gain, feat, thr, w = axis_best_split_sync(
+            axis, res.gain, gfeat.to(i32), res.threshold, payload)
+        return SplitResult(
+            gain=gain, feature=feat, threshold=thr.to(i32),
+            default_left=w["default_left"] > 0, left_sum_g=w["left_sum_g"],
+            left_sum_h=w["left_sum_h"], left_count=w["left_count"],
+            left_output=w["left_output"], right_output=w["right_output"])
+
+    def pf_search(hist, sg, sh, cnt, fmeta, fmask, min_c, max_c, kw,
+                  acc=None):
+        return per_feature_best_split(
+            hist, sg, sh, cnt, fmeta["num_bin"], fmeta["missing_type"],
+            fmeta["default_bin"], fmeta["monotone"], fmeta["penalty"],
+            fmask, min_constraint=min_c, max_constraint=max_c,
+            acc_scale=acc, **kw)
+
+    def per_feature(fmeta, idx):
+        """The per-feature meta arrays at feature indices idx."""
+        return {k: fmeta[k][idx] for k in ("num_bin", "missing_type",
+                                           "default_bin", "monotone",
+                                           "penalty")}
+
+    def vote(hist, sg, sh, cnt, min_c, max_c):
+        """Voting's search of C leaves (grower.py:757-840): hist [C, F,
+        B, 3] is each leaf's LOCAL histogram.  The local search (min data
+        and hessian at 1/P) votes each leaf's top 2k features, weighted
+        by gain; the psummed votes pick the k features whose histograms
+        alone are aggregated (reduce-scattered under scatter) and
+        searched against the global totals; the lowest global feature
+        id wins a tie."""
+        C, F = hist.shape[0], hist.shape[1]
+        # each leaf's local totals from feature 0's bins (every row lands
+        # in one bin of every feature): exact int32, or in XLA's order
+        loc = dequant(hist[:, 0].sum(1) if quantized
+                      else reduce_sum(hist[:, 0], 1))          # [C, 3]
+        gain_loc = pf_search(dequant(hist), loc[:, 0], loc[:, 1],
+                             loc[:, 2], meta_l, fmask_l, min_c, max_c,
+                             local_kw).gain                    # [C, F]
+        order = torch.sort(gain_loc, dim=-1, descending=True, stable=True)
+        k2 = min(2 * voting_k, F)
+        vals, idx = order.values[:, :k2], order.indices[:, :k2]
+        contrib = torch.zeros((C, F), dtype=f32, device=dev)
+        contrib.scatter_add_(1, idx, torch.where(vals > K_MIN_SCORE / 2,
+                                                 vals, 0.0))
+        score = axis_psum(contrib, data_axis)
+        kk = min(voting_k, F)
+        sel = torch.sort(score, dim=-1, descending=True,
+                         stable=True).indices[:, :kk]            # [C, kk]
+        gat = sel[:, :, None, None].expand(C, kk, *hist.shape[2:])
+        if vote_scatter:
+            # the voted set padded to a shard multiple with copies of its
+            # first feature, masked off: each shard receives kp/P of the
+            # aggregated block
+            kp = -(-kk // num_shards) * num_shards
+            sel_p = torch.cat([sel, sel[:, :1].expand(C, kp - kk)], 1)
+            vmask = (torch.arange(kp, device=dev) < kk).to(f32)
+            gat = sel_p[:, :, None, None].expand(C, kp, *hist.shape[2:])
+            sel_hist = axis_psum_scatter(torch.gather(hist, 1, gat),
+                                         data_axis, 1)
+            W = kp // num_shards
+            sel_loc = sel_p[:, dax * W:(dax + 1) * W]
+            fmask_sel = fmask_l[sel_loc] * vmask[dax * W:(dax + 1) * W]
+        else:
+            sel_loc = sel
+            sel_hist = axis_psum(torch.gather(hist, 1, gat), data_axis)
+            fmask_sel = fmask_l[sel]
+        pf = pf_search(dequant(sel_hist), sg, sh, cnt,
+                       per_feature(meta_l, sel_loc), fmask_sel, min_c,
+                       max_c, split_kw)
+        bi = argbest(pf.gain, sel_loc)
+        res = finalize_split(pf, bi, sg, sh, min_constraint=min_c,
+                             max_constraint=max_c, **out_kw)
+        feat = torch.gather(sel_loc, 1, bi[:, None].long())[:, 0]
+        res = res._replace(feature=feat.to(i32))
+        if vote_scatter:
+            res = sync_best(res, feat, data_axis)
+        return res
+
+    def select_sharded(hist, sg, sh, cnt, min_c, max_c, *_):
+        """A sharded learner's search of C leaves (grower.py:745-925):
+        hist [C, SG, B, 3] is the aggregated histogram (this shard's
+        column slice under scatter, its feature slice under a feature
+        axis; each shard's local one under voting).  Returns
+        (SplitResult with global feature ids, None, None)."""
+        if voting_k:
+            return vote(hist, sg, sh, cnt, min_c, max_c), None, None
+        acc = qscale if quantized else None
+        if pool_scatter:
+            # the features of this shard's column slice, against the
+            # global leaf totals; the winner synced over the row axes
+            SF = SG
+            s0 = dax * SF
+            pf = pf_search(hist, sg, sh, cnt,
+                           per_feature(meta_l, slice(s0, s0 + SF)),
+                           fmask_l[s0:s0 + SF], min_c, max_c, split_kw, acc)
+            bf = torch.argmax(pf.gain, dim=-1).to(i32)
+            res = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
+                                 max_constraint=max_c, **out_kw)
+            res = sync_best(res, s0 + bf, data_axis)
+        else:
+            pf = pf_search(hist, sg, sh, cnt, meta_l, fmask_l, min_c, max_c,
+                           split_kw, acc)
+            bf = torch.argmax(pf.gain, dim=-1).to(i32)
+            res = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
+                                 max_constraint=max_c, **out_kw)
+        if feature_axis:
+            # contiguous feature slices keep f_lo + local ids ascending,
+            # so the tie-break is the serial lowest-feature rule
+            res = sync_best(res, f_lo + res.feature, feature_axis)
+        return res, None, None
+
+    search = select_sharded if sharded else select
+
     # ---- root ------------------------------------------------------------
     g = grad * row_mask
     h = hess * row_mask
@@ -631,31 +868,40 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         # max-abs scales capped by quant_limit so no int32 bin overflows,
         # stochastic rounding from the tree key folded with 0x5154, and
         # the leaf totals from the same integers the histograms add
-        qmax = quant_limit(params.precision, n_pad)
+        # (sharded: the grid and the scales over the global rows, the
+        # rounding keyed on the global row index, grower.py:944-960)
+        qmax = quant_limit(params.precision,
+                           n_pad * (num_shards if data_axis else 1))
         # XLA rewrites the JAX grower's division by the constant qmax
         # into a product with its f32 reciprocal; so does this
         inv_q = torch.tensor(np.float32(1.0) / np.float32(qmax), device=dev)
         floor = torch.tensor(1e-30, dtype=f32, device=dev)
-        g_scale = torch.maximum(g.abs().max(), floor) * inv_q
-        h_scale = torch.maximum(h.abs().max(), floor) * inv_q
+        amax = torch.stack([g.abs().max(), h.abs().max()])
+        if data_axis:
+            amax = axis_pmax(amax, data_axis)
+        g_scale = torch.maximum(amax[0], floor) * inv_q
+        h_scale = torch.maximum(amax[1], floor) * inv_q
         seed_a, seed_b = key_words(fold_in(key, 0x5154))
+        row0 = axis_index(data_axis) * n_pad if data_axis else 0
         g_q = quantize_values(g, g_scale, qmax, params.quant_round, seed_a,
-                              seed_b, 0, salt=0x9E3779B9)
+                              seed_b, row0, salt=0x9E3779B9)
         h_q = quantize_values(h, h_scale, qmax, params.quant_round, seed_a,
-                              seed_b, 0, salt=0x85EBCA6B)
+                              seed_b, row0, salt=0x85EBCA6B)
         qscale = torch.stack([g_scale, h_scale,
                               torch.ones((), dtype=f32, device=dev)])
-        sum_g = g_q.sum(dtype=i32).to(f32) * g_scale
-        sum_h = h_q.sum(dtype=i32).to(f32) * h_scale
-        cnt = row_mask.to(i32).sum(dtype=i32).to(f32)
+        tot = preduce(torch.stack([g_q.sum(dtype=i32), h_q.sum(dtype=i32),
+                                   row_mask.to(i32).sum(dtype=i32)]))
+        sum_g = tot[0].to(f32) * g_scale
+        sum_h = tot[1].to(f32) * h_scale
+        cnt = tot[2].to(f32)
         stats = pack_stats(g_q, h_q, row_mask, params.precision).contiguous()
     else:
         # deterministic=true ("f64"): the leaf totals are summed in f64
         # too, then kept f32 as the JAX grower keeps them (:989-992)
         sum_t = torch.float64 if params.precision == "f64" else f32
-        sum_g = g.sum(dtype=sum_t).to(f32)
-        sum_h = h.sum(dtype=sum_t).to(f32)
-        cnt = row_mask.sum(dtype=sum_t).to(f32)
+        tot = preduce(torch.stack([g.sum(dtype=sum_t), h.sum(dtype=sum_t),
+                                   row_mask.sum(dtype=sum_t)]))
+        sum_g, sum_h, cnt = tot[0].to(f32), tot[1].to(f32), tot[2].to(f32)
         stats = pack_stats(g, h, row_mask, params.precision).contiguous()
     if stream is not None:
         # each block's [S, rows] stats contiguous, in place of [S, n_pad]
@@ -673,7 +919,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         merged into feature order (grower.py:1038-1056); the sparse
         features' zero bins are rebuilt at the search."""
         h = build_histogram_batched_t(
-            bins_t, stats, leaf_vec, slot_ids, B, params.precision,
+            bins_h, stats, leaf_vec, slot_ids, B, params.precision,
             params.hist_impl, pblock)
         if not params.has_sparse:
             return h
@@ -685,7 +931,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     root_slots[0] = 0
     root_hist = (stream.root_histogram(stats, leaf_ids, root_slots)
                  if stream is not None
-                 else histograms(leaf_ids, root_slots)[0])
+                 else agg_hist(histograms(leaf_ids, root_slots)[0]))
     big = torch.tensor(1e30, dtype=f32, device=dev)
     root_fmask = feature_mask
     node_key = key
@@ -711,7 +957,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                 cnt - (paid0 & live_rows).sum(dim=1, dtype=i32).to(f32),
                 min=0.0)[None, :]
         delta0 = cegb_delta(used0, cnt.reshape(1), unpaid_root)[0]
-    root, root_iscat, root_cmask = select(
+    root, root_iscat, root_cmask = search(
         root_hist[None], sum_g[None], sum_h[None], cnt[None], -big, big,
         root_fmask, delta0)
     if fused_scan:
@@ -736,7 +982,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     st = {
         # int32 under the quantized precisions: subtraction stays exact;
         # f64 under deterministic=true
-        "pool": torch.zeros((L + 1, G, B, 3), dtype=root_hist.dtype,
+        "pool": torch.zeros((L + 1, SG, B, 3), dtype=root_hist.dtype,
                             device=dev),
         "leaf_sum_g": vec(0.0, first=sum_g),
         "leaf_sum_h": vec(0.0, first=sum_h),
@@ -978,7 +1224,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                 stats, leaf_ids, sel, new_ids, do_k, sel_feat, sel_thr,
                 sel_dleft, smaller_ids, meta)
         else:
-            hist_small = histograms(leaf_ids, smaller_ids)
+            hist_small = agg_hist(histograms(leaf_ids, smaller_ids))
         hist_large = parent_hist - hist_small
         sil = smaller_is_left[:, None, None, None]
         hist_left = torch.where(sil, hist_small, hist_large)
@@ -1011,7 +1257,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                 unpack_pf_records(srecs), torch.cat([lg, rg]),
                 torch.cat([lh, rh]), ch_min, ch_max)
         else:
-            ch, ch_iscat, ch_cmask = select(
+            ch, ch_iscat, ch_cmask = search(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
                 torch.cat([lh, rh]), torch.cat([lc, rc]), ch_min, ch_max,
                 child_masks, delta)
@@ -1144,7 +1390,9 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         # to each leaf's monotone bounds
         # per-leaf sums in row order, as XLA:CPU's scatter adds them (a
         # fixed-order kernel on the card: ops/leafsum.py)
-        rg, rh = leaf_sums(leaf_ids, torch.stack([g, h]), L + 1)
+        # (sharded: each shard's sums, psummed over the row axes; in f32
+        # the shard order can move the last ulp, grower.py:1736-1740)
+        rg, rh = preduce(leaf_sums(leaf_ids, torch.stack([g, h]), L + 1))
         lo_b, hi_b = ((st["leaf_min"], st["leaf_max"]) if params.has_mono
                       else (-big, big))
         refit = torch.minimum(torch.maximum(

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -625,6 +626,9 @@ def _device_limits(index: int) -> tuple:
     return tuple(out)
 
 
+_ROWS_LOCK = threading.Lock()
+
+
 def row_major_bins(bins_t: torch.Tensor,
                    packed_block: int = 0) -> torch.Tensor:
     """[n, FR] uint8 copy of the [F, n] bins, FR = F rounded up to 32
@@ -644,6 +648,15 @@ def row_major_bins(bins_t: torch.Tensor,
     cached = row_major_cached(bins_t, packed_block)
     if cached is not None:
         return cached
+    # shard threads may read one tensor: the copy is made once
+    with _ROWS_LOCK:
+        cached = row_major_cached(bins_t, packed_block)
+        if cached is not None:
+            return cached
+        return _make_row_major(bins_t, packed_block)
+
+
+def _make_row_major(bins_t: torch.Tensor, packed_block: int) -> torch.Tensor:
     F = bins_t.shape[0]
     fr = -(-F // 32) * 32
     if packed_block:
@@ -674,12 +687,15 @@ def row_major_cached(bins_t: torch.Tensor,
 
 
 # the largest int32 scratch of a B1/B2/B4 call since the last
-# `reset_call_bytes` (utils/membudget.py holds its plan to it)
+# `reset_call_bytes` (utils/membudget.py holds its plan to it); shard
+# threads update it under the lock
 PEAK_CALL_BYTES = {"kernel_scratch": 0}
+_PEAK_LOCK = threading.Lock()
 
 
 def reset_call_bytes() -> None:
-    PEAK_CALL_BYTES["kernel_scratch"] = 0
+    with _PEAK_LOCK:
+        PEAK_CALL_BYTES["kernel_scratch"] = 0
 
 
 def group_rows_plain(leaf_ids: torch.Tensor, slot_leaf_ids: torch.Tensor):
@@ -753,8 +769,9 @@ def _grouped_call(bins_t, stats, slot_leaf_ids, num_bins: int,
                      scan, packed_block, flat, features)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=bins_t.device)
-    PEAK_CALL_BYTES["kernel_scratch"] = max(
-        PEAK_CALL_BYTES["kernel_scratch"], int(scratch.nbytes))
+    with _PEAK_LOCK:
+        PEAK_CALL_BYTES["kernel_scratch"] = max(
+            PEAK_CALL_BYTES["kernel_scratch"], int(scratch.nbytes))
     return rows, plan, scratch, (ctypes.c_int * 8)(*plan[:8])
 
 
@@ -819,8 +836,7 @@ def hist_batched_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                              features=features)
     name = "hist_batched" + bins_layout(bins_t, packed_block,
                                         features is not None)[1]
-    kernels.launches[name if raw.dtype == torch.float32
-                     else name + "_int"] += 1
+    kernels.count(name if raw.dtype == torch.float32 else name + "_int")
     return raw
 
 
@@ -858,8 +874,7 @@ def hist_flat_kernel(bins_t: torch.Tensor, stats: torch.Tensor,
                              features=features)
     name = "hist_flat" + bins_layout(bins_t, packed_block,
                                      features is not None)[1]
-    kernels.launches[name if raw.dtype == torch.float32
-                     else name + "_int"] += 1
+    kernels.count(name if raw.dtype == torch.float32 else name + "_int")
     return raw
 
 

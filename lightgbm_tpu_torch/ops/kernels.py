@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -59,11 +60,23 @@ launches: Dict[str, int] = {"hist_batched": 0, "hist_batched_int": 0,
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 build_log: str = ""
+# the library is built and loaded once, whichever shard thread of a
+# sharded learner first launches a kernel; the counters take one lock
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel `name` (the wrappers call this where they
+    launch, and nowhere else)."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -123,10 +136,18 @@ def _build(target: Path) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    global _lib, build_seconds, build_log
+    """The loaded kernel library, built at first use (once, under a lock:
+    several shard threads may ask at once)."""
     if _lib is not None:
         return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib, build_seconds, build_log
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources() + _headers():
         h.update(src.name.encode())

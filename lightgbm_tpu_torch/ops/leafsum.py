@@ -121,7 +121,7 @@ def leaf_group_kernel(leaf_ids: torch.Tensor, vals: torch.Tensor,
                 grouped.data_ptr(), offsets.data_ptr(), scratch.data_ptr(),
                 plan, torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "leaf_group launch")
-    kernels.launches["leaf_group"] += 1
+    kernels.count("leaf_group")
     return grouped[:n], offsets
 
 
@@ -148,7 +148,7 @@ def leaf_sums_kernel(leaf_ids: torch.Tensor, vals: torch.Tensor,
             grouped.data_ptr(), offsets.data_ptr(), out.data_ptr(), L,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, f"{counter} launch")
-    kernels.launches[counter] += 1
+    kernels.count(counter)
     return out
 
 

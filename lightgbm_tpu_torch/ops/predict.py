@@ -134,12 +134,33 @@ WALK_CAT_PLANES = (10, 5)
 
 def walk_step_bytes(num_trees: int, rows: int, bins_item: int,
                     has_cat: bool = False) -> int:
-    """Bytes of the [T, rows] planes one step of `leaf_index` makes
-    (utils/membudget.py's predict_scratch)."""
+    """Bytes of the [T, rows] planes one step of `leaf_index` makes over
+    T trees."""
     i64, b1 = WALK_STEP_PLANES
     if has_cat:
         i64, b1 = i64 + WALK_CAT_PLANES[0], b1 + WALK_CAT_PLANES[1]
     return int(num_trees) * int(rows) * (8 * i64 + b1 + int(bins_item))
+
+
+#: trees `leaf_values` and `class_scores` walk at once: one window of
+#: XLA:CPU's reduce (`sum_trees`), so a forest of any size walks in
+#: groups whose planes stay bounded
+WALK_GROUP = 32
+
+
+def forest_walk_bytes(num_trees: int, num_class: int, rows: int,
+                      bins_item: int, has_cat: bool = False) -> int:
+    """Device bytes of `class_scores` over `num_trees` trees and `rows`
+    rows, its [k, rows] scores aside (utils/membudget.py's
+    predict_scratch): the planes of one group's walk step, the group's
+    [G, rows] f32 leaf values, and for one class over more than a group
+    its [ceil(T / 32), rows] f32 window sums."""
+    T = int(num_trees)
+    group = min(T, WALK_GROUP)
+    windows = -(-T // _XLA_WINDOW) if num_class <= 1 and T > _XLA_WINDOW \
+        else 0
+    return (walk_step_bytes(group, rows, bins_item, has_cat)
+            + (group + windows) * int(rows) * 4)
 
 
 def leaf_index(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
@@ -181,12 +202,36 @@ def leaf_index(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
     return torch.where(node < 0, ~node, 0)
 
 
+def tree_group(tables: Dict[str, torch.Tensor], lo: int, hi: int
+               ) -> Dict[str, torch.Tensor]:
+    """The tables of trees [lo, hi) (the bitset word pool is shared)."""
+    return {k: (v if k == "cat_words" else v[lo:hi])
+            for k, v in tables.items()}
+
+
+def group_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
+                 meta, depth: int, lo: int, hi: int) -> torch.Tensor:
+    """[hi - lo, n] f32 leaf values of trees [lo, hi) over every row."""
+    sub = tree_group(tables, lo, hi)
+    return torch.gather(sub["leaf_value"], 1,
+                        leaf_index(sub, bins_t, *meta, depth))
+
+
 def leaf_values(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
                 num_bin: torch.Tensor, default_bin: torch.Tensor,
                 missing_type: torch.Tensor, depth: int) -> torch.Tensor:
-    """[T, n] f32 leaf values: every tree walked over every row."""
-    return torch.gather(tables["leaf_value"], 1, leaf_index(
-        tables, bins_t, num_bin, default_bin, missing_type, depth))
+    """[T, n] f32 leaf values: every tree walked over every row, in
+    groups of WALK_GROUP trees."""
+    T = tables["leaf_value"].shape[0]
+    meta = (num_bin, default_bin, missing_type)
+    if T <= WALK_GROUP:
+        return group_values(tables, bins_t, meta, depth, 0, T)
+    out = torch.empty((T, bins_t.shape[1]), dtype=torch.float32,
+                      device=bins_t.device)
+    for lo in range(0, T, WALK_GROUP):
+        hi = min(lo + WALK_GROUP, T)
+        out[lo:hi] = group_values(tables, bins_t, meta, depth, lo, hi)
+    return out
 
 
 def subset_scores(trees: Sequence, scales: Sequence[float],
@@ -257,14 +302,39 @@ def class_scores(tables: Dict[str, torch.Tensor], bins_t: torch.Tensor,
     in the order of its `segment_sum(vals, i % k)` scatter, which adds
     the updates one by one in tree order onto zeros
     (lightgbm_tpu/ops/predict.py:318-330): each class's trees in
-    sequence, as elementwise adds, so the card rounds alike."""
-    vals = leaf_values(tables, bins_t, *meta, depth)
+    sequence, as elementwise adds, so the card rounds alike.
+
+    The trees are walked a group at a time (WALK_GROUP), so the walk's
+    planes stay bounded at any tree count (`forest_walk_bytes`): one
+    class takes each of the reduce's first windows of 32 trees as one
+    group and keeps the window sums, several classes add each group's
+    trees in turn; the sums go in the order above either way."""
+    T = tables["leaf_value"].shape[0]
+    n = bins_t.shape[1]
     if k == 1:
-        return sum_trees(vals)[None]
-    out = torch.zeros((k, vals.shape[1]), dtype=vals.dtype,
-                      device=vals.device)
-    for t in range(vals.shape[0]):
-        out[t % k] += vals[t]
+        if T <= _XLA_WINDOW:
+            return sum_trees(group_values(tables, bins_t, meta, depth, 0,
+                                          T))[None]
+        # the first level of the reduce: window w sums the (front-padded)
+        # trees [32 w - front, 32 w - front + 32)
+        nb = -(-T // _XLA_WINDOW)
+        front = (nb * _XLA_WINDOW - T) // 2
+        win = torch.empty((nb, n), dtype=torch.float32, device=bins_t.device)
+        for w in range(nb):
+            lo = max(w * _XLA_WINDOW - front, 0)
+            hi = min((w + 1) * _XLA_WINDOW - front, T)
+            vals = group_values(tables, bins_t, meta, depth, lo, hi)
+            acc = torch.zeros_like(vals[0])
+            for j in range(vals.shape[0]):
+                acc = acc + vals[j]
+            win[w] = acc
+        return sum_trees(win)[None]
+    out = torch.zeros((k, n), dtype=torch.float32, device=bins_t.device)
+    for lo in range(0, T, WALK_GROUP):
+        hi = min(lo + WALK_GROUP, T)
+        vals = group_values(tables, bins_t, meta, depth, lo, hi)
+        for t in range(lo, hi):
+            out[t % k] += vals[t - lo]
     return out
 
 

@@ -38,16 +38,18 @@ def numeric_go_left(col, mt, nbf, db, thr, dleft):
 
 
 def argbest(gain, feature, threshold=None):
-    """Winner index with the shared deterministic tie-break: highest
-    gain, then lowest feature id, then lowest threshold bin."""
-    elig = gain >= gain.max()
+    """Winner index over the last axis with the shared deterministic
+    tie-break of `lightgbm_tpu/ops/split.py:argbest`: highest gain, then
+    lowest feature id, then lowest threshold bin (the first such entry);
+    leading axes are a batch ([...] indices)."""
+    elig = gain >= gain.amax(-1, keepdim=True)
     big = 2 ** 31 - 1
     f = torch.where(elig, feature.to(torch.int32), big)
-    elig = elig & (feature == f.min())
+    elig = elig & (feature == f.amin(-1, keepdim=True))
     if threshold is not None:
         t = torch.where(elig, threshold.to(torch.int32), big)
-        elig = elig & (threshold == t.min())
-    return torch.argmax(elig.to(torch.int32)).to(torch.int32)
+        elig = elig & (threshold == t.amin(-1, keepdim=True))
+    return torch.argmax(elig.to(torch.int32), dim=-1).to(torch.int32)
 
 
 _SCAN_BASE = 16
@@ -201,7 +203,8 @@ def per_feature_best_split(
 
     hist: [..., F, B, 3] f32 (g, h, cnt); sum_g/sum_h/num_data and the
     monotone bounds min/max_constraint: [...] (or scalars); the
-    per-feature arrays: [F].
+    per-feature arrays: [F], or [..., F] (each leaf its own features: the
+    voting learner's voted sets).
 
     acc_scale (quantized precisions): hist arrives as int32 sums and the
     bin prefix sums run in int32, which is exact in any order; the [3]
@@ -217,12 +220,12 @@ def per_feature_best_split(
     sg, sh, nd = lead(sum_g), lead(sum_h), lead(num_data)
     min_c, max_c = lead(min_constraint), lead(max_constraint)
     bin_iota = torch.arange(B, device=dev, dtype=torch.int32)[None, :]
-    nb = num_bin[:, None]
+    nb = num_bin[..., None]
     hg, hh, hc = hist[..., 0], hist[..., 1], hist[..., 2]
 
-    is_zero_missing = missing_type[:, None] == MISSING_ZERO
-    is_nan_missing = missing_type[:, None] == MISSING_NAN
-    skip_bin = is_zero_missing & (bin_iota == default_bin[:, None])
+    is_zero_missing = missing_type[..., None] == MISSING_ZERO
+    is_nan_missing = missing_type[..., None] == MISSING_NAN
+    skip_bin = is_zero_missing & (bin_iota == default_bin[..., None])
     na_bin = is_nan_missing & (bin_iota == nb - 1)
     acc_mask = (~skip_bin) & (~na_bin) & (bin_iota < nb)
 
@@ -239,7 +242,7 @@ def per_feature_best_split(
     gain_shift = leaf_split_gain(sg, sh + 2 * K_EPSILON, l1, l2,
                                  max_delta_step)
     min_gain_shift = gain_shift + min_gain_to_split
-    mono = monotone[:, None]
+    mono = monotone[..., None]
 
     def eval_dir(left_g, left_h, left_c, thr_valid):
         right_g = sg - left_g

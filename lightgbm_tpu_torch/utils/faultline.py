@@ -19,9 +19,8 @@ how to apply:
   `checkpoint_write` point produces a torn file whose manifest CRC
   cannot match) so recovery-from-corruption paths are testable.
 * ``hang``     — the site simulates an unresponsive peer: the
-  collective watchdog of the JAX package (`parallel/collective.py`)
-  turns it into a deterministic `CollectiveTimeout`; the port has no
-  collectives yet, so no site of it applies this action.
+  collective watchdog (`parallel/collective.py`) turns it into a
+  deterministic `CollectiveTimeout`.
 * ``oom``      — raises a realistic device out-of-memory error:
   torch's own `torch.OutOfMemoryError` with the message of CUDA's
   caching allocator (the class exists in torch's CPU build too), so the

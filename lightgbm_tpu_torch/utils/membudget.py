@@ -317,11 +317,53 @@ def _draws_row_mask(config) -> bool:
 
 def _pool_shape(learner) -> Tuple[int, int, int]:
     """(L + 1, G, B) of the grower's pool (ops/grower.py:grow): the
-    bins' columns, or with sparse storage the merged features."""
+    bins' columns, or with sparse storage the merged features; on a
+    sharded learner one shard's: its feature slice, and of that its 1/P
+    column slice under scatter aggregation."""
     params = learner.params
     G = (int(learner.meta["hist_perm"].shape[0]) if params.has_sparse
          else int(learner.g_pad))
+    t = getattr(learner, "topology", None)
+    if t is not None:
+        from ..parallel.strategies import pool_partition_spec
+
+        for axis in pool_partition_spec(learner.strategy,
+                                        learner.hist_agg == "scatter"):
+            G //= t.shape[axis]
     return int(params.num_leaves) + 1, G, int(params.num_bins)
+
+
+def _shards(learner) -> int:
+    """Shards of the learner's grid (1: serial)."""
+    t = getattr(learner, "topology", None)
+    return 1 if t is None else t.size
+
+
+def _hist_operands(learner) -> list:
+    """The distinct tensors the histogram kernels read: the serial bins,
+    or each shard's (its feature slice under a feature axis)."""
+    if getattr(learner, "topology", None) is None:
+        return [learner.bins_t]
+    ops = {}
+    for h, b in zip(learner.shard_hist_bins, learner.shard_bins):
+        x = h if h is not None else b
+        ops[(x.data_ptr(), str(x.device))] = x
+    return list(ops.values())
+
+
+def device_bins_bytes(learner) -> Tuple[int, int]:
+    """(binned matrix, row-major copies) bytes on the device: the serial
+    learner's matrix, or a sharded learner's distinct shard tensors (the
+    shards that share a card share a replicated matrix)."""
+    from ..ops.histogram import row_major_cached
+
+    rows = [row_major_cached(x, learner.packed_block)
+            for x in _hist_operands(learner)]
+    rows = sum(int(r.nbytes) for r in rows if r is not None)
+    if getattr(learner, "topology", None) is None:
+        return int(learner.bins_t.nbytes), rows
+    return unique_nbytes(*learner.shard_bins, *[
+        h for h in learner.shard_hist_bins if h is not None]), rows
 
 
 def _pool_itemsize(precision: str) -> int:
@@ -366,6 +408,14 @@ def kernel_scratch_bytes(learner) -> int:
         n, features = learner._stream_R, learner.g_pad
         operand = torch.empty((0, features), device=learner.device,
                               dtype=learner._host_blocks[0].dtype)
+    elif getattr(learner, "topology", None) is not None:
+        # every shard launches at once, each with its own scratch: the
+        # widest call of a shard's operand, times the shards
+        operand = _hist_operands(learner)[0]
+        n = learner.n_pad // learner.d_shards
+        plan = histogram.call_plan(operand, rows, n, K, params.num_bins,
+                                   floats, False, pblock, calls[0][1])
+        return 4 * plan.scratch_words * _shards(learner)
     else:
         n, features, operand = learner.n_pad, None, learner.bins_t
         if params.hist_impl == "fused" and not floats:
@@ -404,18 +454,22 @@ def stream_slot_bytes(config, learner) -> int:
 
 def predict_chunk_bytes(config, num_features: int, num_class: int,
                         num_trees: int, bins_item: int = 1,
-                        has_cat: bool = False) -> int:
+                        has_cat: bool = False,
+                        rows: Optional[int] = None) -> int:
     """Device bytes of one predict chunk (`GBDT.predict`, read off its
-    tensors as `predict_scratch_bytes`): the binning chunk's tensors (as
-    ingest_scratch), every [T, rows] plane one step of the tree walk
-    makes at the model's tree count T (`ops/predict.py:
-    walk_step_bytes`), and the [k, rows] f32 scores."""
-    from ..ops.predict import walk_step_bytes
+    tensors as `predict_scratch_bytes`) of `rows` rows (default a full
+    `tpu_predict_chunk_rows` chunk): the binning chunk's tensors (as
+    ingest_scratch), the forest walk's (`ops/predict.py:
+    forest_walk_bytes`: one group of trees' planes at any tree count),
+    and the [k, rows] f32 scores."""
+    from ..ops.predict import forest_walk_bytes
 
-    rows = int(config.get("tpu_predict_chunk_rows", 65536))
+    if rows is None:
+        rows = int(config.get("tpu_predict_chunk_rows", 65536))
     F = max(int(num_features), 1)
     binning = rows * F * (32 + 16 * has_cat + int(bins_item))
-    return (binning + walk_step_bytes(num_trees, rows, bins_item, has_cat)
+    return (binning + forest_walk_bytes(num_trees, num_class, rows,
+                                        bins_item, has_cat)
             + rows * max(int(num_class), 1) * 4)
 
 
@@ -426,7 +480,6 @@ def plan_training(config, learner, num_class: int,
     row-major copy) and the closed forms of the buffers each iteration
     makes (`live_bytes` reads those off a trained iteration)."""
     from ..io.bin_mapper import BinType
-    from ..ops.histogram import row_major_cached
 
     k = max(int(num_class), 1)
     n, n_pad = int(learner.n), int(learner.n_pad)
@@ -439,20 +492,28 @@ def plan_training(config, learner, num_class: int,
         # ladder's last rung plans before rebuilding the learner)
         comps["stream_slots"] = stream_slot_bytes(config, learner)
     else:
-        comps["binned_matrix"] = int(learner.bins_t.nbytes)
-        rows = row_major_cached(learner.bins_t, learner.packed_block)
-        comps["row_major_bins"] = 0 if rows is None else int(rows.nbytes)
+        comps["binned_matrix"], comps["row_major_bins"] = \
+            device_bins_bytes(learner)
     L1, G, B = _pool_shape(learner)
-    comps["histogram_pool"] = L1 * G * B * 3 * _pool_itemsize(precision)
+    shards = _shards(learner)
+    fs = int(getattr(learner, "f_shards", 1))
+    comps["histogram_pool"] = (L1 * G * B * 3 * _pool_itemsize(precision)
+                               * shards)
     planes, item = _stats_planes(precision)
-    comps["stats_planes"] = planes * n_pad * item
+    # each shard's planes over its rows: n_pad a feature shard
+    comps["stats_planes"] = planes * n_pad * item * fs
     comps["kernel_scratch"] = kernel_scratch_bytes(learner)
     # the train scores the rollback snapshot holds and the new buffer an
     # iteration writes, and the same two of each validation set's
     comps["score_buffers"] = 2 * k * n * 4 + 2 * k * int(num_valid_rows) * 4
     # the learner's ones mask, the step's [n_pad] f32 gradient and
-    # hessian, its int32 leaf ids, and its row mask where it draws one
+    # hessian, its int32 leaf ids, and its row mask where it draws one;
+    # sharded, each shard's leaf ids besides (shard 0's are the tree's
+    # where the rows are not sharded)
     comps["row_state"] = (4 + _draws_row_mask(config)) * n_pad * 4
+    if shards > 1:
+        rows_sharded = learner.strategy != "feature"
+        comps["row_state"] += (fs - (not rows_sharded)) * n_pad * 4
     comps["packed_forest"] = packed_forest_bytes(
         int(config.get("num_iterations", 100)) * k,
         int(config.get("num_leaves", 31)))
@@ -473,10 +534,13 @@ def plan_training(config, learner, num_class: int,
     out_item = int(learner.td.bins_t.element_size())
     comps["ingest_scratch"] = ingest_rows * F * (32 + 16 * has_cat
                                                  + out_item)
-    # a predict chunk at the model's tree count
+    # a predict chunk at the model's tree count, of the rows of the
+    # largest set the run predicts (the training set or a validation
+    # set), at most a chunk
+    chunk = int(config.get("tpu_predict_chunk_rows", 65536))
     comps["predict_scratch"] = predict_chunk_bytes(
         config, F, k, int(config.get("num_iterations", 100)) * k, out_item,
-        has_cat)
+        has_cat, rows=min(chunk, max(n, int(num_valid_rows), 1)))
     return MemoryPlan(comps, budget_bytes(config), "training")
 
 
@@ -492,17 +556,18 @@ def live_bytes(driver) -> Dict[str, int]:
     (`GBDT.predict_scratch_bytes`, where a predict ran).  The forest's
     device tables have their own check at their own tree count
     (`forest_live_bytes`)."""
-    from ..ops.histogram import PEAK_CALL_BYTES, row_major_cached
+    from ..ops.histogram import PEAK_CALL_BYTES
 
     learner = driver.learner
     if learner.stream_layout:
         out = {"stream_slots": learner._stream.slot_bytes()}
     else:
-        out = {"binned_matrix": int(learner.bins_t.nbytes)}
-        rows = row_major_cached(learner.bins_t, learner.packed_block)
-        out["row_major_bins"] = 0 if rows is None else int(rows.nbytes)
+        out = dict(zip(("binned_matrix", "row_major_bins"),
+                       device_bins_bytes(learner)))
     out.update(learner.last_buffers)
-    out["kernel_scratch"] = int(PEAK_CALL_BYTES["kernel_scratch"])
+    # the shards of a sharded learner launch at once, each with its own
+    out["kernel_scratch"] = (int(PEAK_CALL_BYTES["kernel_scratch"])
+                             * _shards(learner))
     out["score_buffers"] = int(driver.last_score_bytes)
     ingest = getattr(learner.td, "ingest_scratch_bytes", None)
     if ingest is not None:

@@ -150,7 +150,9 @@ def test_predict_scratch_is_a_chunks_tensors(rounds):
     # a Booster keeps num_iterations in its config (lgb.train takes it as
     # its round count), the tree count the plan is made at
     p = dict(INT8, **CPU, num_iterations=rounds, tpu_predict_chunk_rows=2048)
-    X, y = binary_data(n=1200, f=5, seed=2)
+    # more training rows than a chunk: the plan's chunk is at most the
+    # rows of the largest set a run predicts
+    X, y = binary_data(n=2500, f=5, seed=2)
     b = tlgb.Booster(params=p, train_set=tlgb.Dataset(X, label=y, params=p))
     for _ in range(rounds):
         b.update()

@@ -67,7 +67,6 @@ OUT_OF_SLICE = [
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
-    {"tree_learner": "data", "num_machines": 2},
     # the JAX package's telemetry (ROADMAP A11)
     {"tpu_telemetry": "trace"},
     {"tpu_trace_dir": "traces"},
@@ -87,6 +86,40 @@ GUARD_AND_MEMORY = [
     {"tpu_hbm_preflight": "degrade"},
     {"tpu_hbm_budget_bytes": 1000},
 ]
+
+
+# once refused: the sharded tree learners with num_machines > 1, which
+# now train in one process (tests/test_torch_parallel.py holds them to the
+# JAX package)
+SHARDED = [{"tree_learner": "data", "num_machines": 2},
+           {"tree_learner": "feature", "num_machines": 2},
+           {"tree_learner": "voting", "num_machines": 2},
+           {"tree_learner": "data_feature", "num_machines": 4,
+            "tpu_topology_hosts": 2}]
+
+# what a sharded learner does not carry yet (ROADMAP A9b), refused by name:
+# the parameters the case adds, the name the message gives, and the
+# Dataset's own arguments
+SHARDED_REFUSALS = {
+    "machines": ({"machines": "10.0.0.1:12400,10.0.0.2:12400"},
+                 "machines=", {}),
+    "sparse": ({"tpu_sparse_threshold": 0.5, "enable_bundle": False},
+               "sparse COO storage", {}),
+    "cegb": ({"cegb_penalty_split": 0.1}, "CEGB", {}),
+    "forced": ({"forcedsplits_filename": "forced.json"}, "forced splits",
+               {}),
+    "monotone": ({"monotone_constraints": [1, 0, 0]},
+                 "monotone constraints", {}),
+    "bynode": ({"feature_fraction_bynode": 0.5}, "feature_fraction_bynode",
+               {}),
+    "deterministic": ({"deterministic": True}, "deterministic=true", {}),
+    "categorical": ({}, "categorical features",
+                    {"categorical_feature": [0]}),
+    "efb": ({"enable_bundle": True}, "EFB bundles", {}),
+    "streamed": ({"tpu_stream_mode": "streamed"},
+                 "tpu_stream_mode=streamed requires tree_learner=serial",
+                 {}),
+}
 
 
 # cases that the port now takes, and that raise where the JAX package
@@ -116,6 +149,47 @@ def test_out_of_slice_parameters_raise(extra):
         assert str(got.value) == str(want.value)
         return
     with pytest.raises(NotImplementedError, match=name.split("_")[0]):
+        tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
+
+
+@pytest.mark.parametrize("extra", SHARDED, ids=lambda d: d["tree_learner"])
+def test_sharded_learners_train(extra):
+    X, y = binary_data(n=600, f=3, seed=1)
+    b = tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y),
+                   num_boost_round=2)
+    assert b.num_trees() == 2
+    assert np.isfinite(b.predict(X)).all()
+
+
+@pytest.mark.parametrize("case", list(SHARDED_REFUSALS))
+def test_sharded_learner_refusals_name_what(case, tmp_path, monkeypatch):
+    extra, what, ds_kw = SHARDED_REFUSALS[case]
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "forced.json").write_text(
+        '{"feature": 0, "threshold": 0.0}')
+    X, y = binary_data(n=600, f=3, seed=1)
+    if case == "categorical":
+        X[:, 0] = np.abs(np.nan_to_num(np.round(X[:, 0] * 2)))
+    if case == "efb":
+        # eight exclusive one-hot columns: one bundle
+        hot = np.eye(8)[np.random.default_rng(2).integers(0, 8, len(y))]
+        X = np.hstack([X, hot])
+    params = dict(SMALL, **CPU, tree_learner="data", num_machines=2,
+                  **extra)
+    with pytest.raises(NotImplementedError, match=what.split("(")[0]) as ei:
+        tlgb.train(params, tlgb.Dataset(X, label=y, params=params, **ds_kw),
+                   num_boost_round=1)
+    if case != "streamed":
+        assert "not ported" in str(ei.value)
+
+
+def test_sharded_sparse_storage_keeps_the_jax_refusals():
+    """Before its own refusal, sparse storage under a sharded learner
+    raises what the JAX learner raises (learner.py:303-325)."""
+    X, y = binary_data(n=600, f=3, seed=1)
+    params = dict(SMALL, **CPU, tree_learner="data", num_machines=2,
+                  tpu_sparse_threshold=0.5, tpu_hist_precision="int8")
+    with pytest.raises(ValueError, match="quantized histogram precisions"):
         tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=1)
 
 

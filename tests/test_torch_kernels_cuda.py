@@ -1644,7 +1644,7 @@ def test_streamed_int8_training_on_card_matches_cpu_text():
         cpu.model_to_string().split("parameters:")[0]
 
 
-@pytest.mark.parametrize("trees", [2, 50])
+@pytest.mark.parametrize("trees", [2, 50, 1000])
 def test_plan_predict_scratch_covers_a_predict_chunks_peak(trees):
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.utils import membudget
@@ -1671,3 +1671,105 @@ def test_plan_predict_scratch_covers_a_predict_chunks_peak(trees):
     assert membudget.live_bytes(drv)["predict_scratch"] \
         == plan.components["predict_scratch"]
     assert plan.components["predict_scratch"] >= peak > 0
+
+
+# -- the sharded learners ------------------------------------------------------
+def test_sharded_b1_int_and_b3_on_two_streams_equal_one_call():
+    """Two shard threads on one card, each launching B1-int and B3 on its
+    own stream over its half of the rows: the histograms psummed over the
+    data axis equal one B1-int call over all rows, bit for bit, and the
+    halves' leaf ids one B3 call's."""
+    from lightgbm_tpu_torch.parallel import strategies, topology
+
+    dev = cuda_device()
+    F, n, B, L, K = 32, 1 << 18, 255, 60, 24
+    rng = np.random.default_rng(5)
+    bins = torch.from_numpy(rng.integers(0, B, (F, n)).astype(np.uint8)).to(
+        dev)
+    g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    mask = torch.ones(n, device=dev)
+    q = TH.quant_limit("int8", n)
+    stats = TH.pack_stats(TH.quantize_values(g, g.abs().max() / q, q,
+                                             "nearest"),
+                          TH.quantize_values(h, h.abs().max() / q, q,
+                                             "nearest"),
+                          mask, "int8").contiguous()
+    leaf = torch.from_numpy(rng.integers(0, L, n).astype(np.int32)).to(dev)
+    slots = torch.from_numpy(rng.permutation(L)[:K].astype(np.int32)).to(dev)
+    slots[K // 2] = -1
+    i32 = dict(dtype=torch.int32, device=dev)
+    sel = torch.from_numpy(rng.permutation(L - K)[:K].astype(np.int32)).to(
+        dev)
+    new_ids = torch.arange(L - K, L, **i32)
+    feat = torch.from_numpy(rng.integers(0, F, K).astype(np.int32)).to(dev)
+    thr = torch.from_numpy(rng.integers(0, B - 1, K).astype(np.int32)).to(
+        dev)
+    dleft = torch.from_numpy(rng.random(K) < 0.5).to(dev)
+    mt = torch.zeros(K, **i32)
+    nbf = torch.full((K,), B, **i32)
+    db = torch.zeros(K, **i32)
+    do_k = torch.arange(K, device=dev) < K - 2
+    half = n // 2
+    parts = [bins[:, r * half:(r + 1) * half].contiguous() for r in (0, 1)]
+    for part in parts:
+        TH.row_major_bins(part)       # before the shard threads start
+    t = topology.make_topology(2, devices=[dev])
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    before = kernels.launches["hist_batched_int"]
+
+    def shard(ctx):
+        lo = ctx.rank * half
+        rows = slice(lo, lo + half)
+        lf = leaf[rows].contiguous()
+        raw = TH.hist_batched_kernel(parts[ctx.rank],
+                                     stats[:, rows].contiguous(), lf, slots,
+                                     B)
+        out = TF.partition_rows_kernel(parts[ctx.rank], feat, lf, sel,
+                                       new_ids, thr, dleft, mt, nbf, db,
+                                       do_k)
+        return topology.axis_psum(raw, topology.DATA), out
+
+    res = strategies.run_shards(t, shard, streams)
+    whole = TH.hist_batched_kernel(bins, stats, leaf, slots, B)
+    moved = TF.partition_rows_kernel(bins, feat, leaf, sel, new_ids, thr,
+                                     dleft, mt, nbf, db, do_k)
+    torch.cuda.synchronize()
+    assert kernels.launches["hist_batched_int"] == before + 3
+    for raw, _ in res:
+        assert torch.equal(raw, whole)
+    assert torch.equal(torch.cat([res[0][1], res[1][1]]), moved)
+
+
+@pytest.mark.parametrize("learner", ["data", "voting", "feature",
+                                     "data_feature"])
+def test_sharded_int8_training_on_card_matches_cpu(learner):
+    """A sharded int8 regression run (2 shards, 4 under data_feature)
+    gives the CPU's text on the card, launching no B2; under data and
+    data_feature, and with the refit off, the serial text too."""
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(20000, 12))
+    y = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.1 * rng.normal(size=20000)
+    P = 4 if learner == "data_feature" else 2
+    p = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tpu_partition_impl": "kernel",
+         "tpu_quant_refit_leaves": False, "tree_learner": learner,
+         "num_machines": P, "verbosity": -1}
+
+    def text(params):
+        b = lgb.train(params, lgb.Dataset(X, label=y, params=params), 4)
+        return b.model_to_string().split("parameters:")[0]
+
+    kernels.reset_launches()
+    card = text(p)
+    assert kernels.launches["fused_hist_scan"] == 0
+    assert kernels.launches["hist_batched_int"] > 0
+    assert kernels.launches["partition_rows"] > 0
+    assert card == text(dict(p, device_type="cpu"))
+    if learner in ("data", "data_feature"):
+        serial = {k: v for k, v in p.items()
+                  if k not in ("tree_learner", "num_machines")}
+        assert card == text(serial)

@@ -26,7 +26,8 @@ from lightgbm_tpu_torch.utils import faultline, membudget
 from lightgbm_tpu_torch.utils.checkpoint import CheckpointManager
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
-from .test_torch_util import fault_run, model_text, start_jax_nofma
+from .test_torch_util import (fault_run, model_text, sharded_run,
+                              start_jax_nofma)
 
 CPU = {"device_type": "cpu", "verbosity": -1}
 INT8 = {"objective": "regression", "num_leaves": 7, "max_bin": 63,
@@ -226,8 +227,8 @@ def test_plan_fits_semantics_and_table():
 
 
 # -- preflight ---------------------------------------------------------------
-def _full_plan(params):
-    drv = _train(params, rounds=1)._driver
+def _full_plan(params, data=None):
+    drv = _train(params, rounds=1, data=data)._driver
     return membudget.plan_training(drv.config, drv.learner,
                                    drv.num_tree_per_iteration).total
 
@@ -257,11 +258,14 @@ def test_preflight_modes(mode):
         assert "histogram_pool" in str(ei.value)
         assert "headroom" in str(ei.value)
         return
-    ref = model_text(_train(p, rounds=3))
-    full = _full_plan(p)
+    # more rows than a shrunken chunk: the plan's ingest and predict
+    # chunks are at most the rows the run bins and predicts
+    big = _inputs(n=12000)
+    ref = model_text(_train(p, rounds=3, data=big))
+    full = _full_plan(p, data=big)
     before = counter("lgbm_oom_ladder_steps_total", step="shrink_chunk_rows")
     b = _train(dict(p, tpu_hbm_budget_bytes=full - 1000,
-                    tpu_hbm_preflight="degrade"), rounds=3)
+                    tpu_hbm_preflight="degrade"), rounds=3, data=big)
     assert model_text(b) == ref
     assert counter("lgbm_oom_ladder_steps_total",
                    step="shrink_chunk_rows") > before
@@ -418,3 +422,96 @@ def test_auto_layout_that_would_stream_is_refused_by_name():
     cfg = Config(dict(p, categorical_feature="0"))
     assert membudget.stream_config_blockers(cfg) == ["categorical features"]
     assert membudget.select_layout(cfg, None) == "resident"
+
+
+# -- C7: a predict chunk's walk is bounded at any tree count -------------------
+# the re-anchor's probe (ROADMAP §C7): 1,500 x 8, regression int8, 100
+# iterations, a 10,000,000-byte budget
+C7 = {"objective": "regression", "num_leaves": 7, "max_bin": 31,
+      "tpu_hist_precision": "int8", "tpu_hist_impl": "xla",
+      "tpu_hbm_budget_bytes": 10_000_000}
+
+
+@pytest.fixture(scope="module")
+def c7_runs(tmp_path_factory):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(1500, 8))
+    y = X[:, 0] + X[:, 1] * X[:, 2] + 0.1 * rng.normal(size=1500)
+    runs = [{"params": dict(C7, tpu_hbm_preflight=m), "rounds": 100,
+             "label": "reg"} for m in ("raise", "degrade")]
+    job = start_jax_nofma("train_sharded", {"X_a": X, "y_reg": y}, {"runs": runs},
+                          tmp_path_factory.mktemp("c7"))
+    port = [sharded_run(tlgb, X, y, r)["text"] for r in runs]
+    out = job()
+    return port, [str(out[f"{c}_text"]) for c in range(len(runs))]
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["raise", "degrade"])
+def test_c7_probe_trains_as_the_jax_package(c7_runs, mode):
+    port, jax = c7_runs
+    assert port[mode] == jax[mode]
+    assert port[mode].count("Tree=") == 100
+
+
+@pytest.mark.parametrize("trees, k", [(1, 1), (32, 1), (33, 1), (100, 1),
+                                      (130, 1), (7, 3), (100, 3)])
+def test_grouped_walk_is_the_whole_forests_walk(trees, k):
+    """class_scores walks WALK_GROUP trees at a time and gives the bits of
+    the walk of every tree at once (the order of sum_trees, or of each
+    class's trees in turn)."""
+    from lightgbm_tpu_torch.ops import predict as P
+
+    inp = _inputs(n=600)
+    p = dict(INT8, **CPU, num_class=k, objective="multiclass") if k > 1 \
+        else dict(INT8, **CPU)
+    y = inp["y"] if k == 1 else np.digitize(inp["y"], [-0.5, 0.5])
+    b = tlgb.train(p, tlgb.Dataset(inp["X"], label=y, params=p),
+                   -(-trees // k), keep_training_booster=True)
+    drv = b._driver
+    drv._materialize()
+    assert len(drv.models) >= trees
+    tables, depth = P.pack_trees(drv.models[:trees])
+    tables = P.device_tables(tables, drv.device)
+    meta = drv._pred_ctx.meta_dev(drv.device)
+    bins_t = drv._pred_ctx.bin_rows_t(inp["X"], drv.device, {"chunk_bytes": 0})
+    got = P.class_scores(tables, bins_t, meta, k, depth)
+    vals = torch.gather(tables["leaf_value"], 1,
+                        P.leaf_index(tables, bins_t, *meta, depth))
+    if k == 1:
+        want = P.sum_trees(vals)[None]
+    else:
+        want = torch.zeros_like(got)
+        for t in range(vals.shape[0]):
+            want[t % k] += vals[t]
+    assert torch.equal(got, want)
+    assert torch.equal(P.leaf_values(tables, bins_t, *meta, depth), vals)
+
+
+def test_predict_plan_is_bounded_at_any_tree_count():
+    from lightgbm_tpu_torch.ops.predict import (WALK_GROUP,
+                                                forest_walk_bytes,
+                                                walk_step_bytes)
+
+    rows = 65536
+    walk = [forest_walk_bytes(t, 1, rows, 1) for t in (50, 1000, 10000)]
+    # one group's planes and values, and the [ceil(T / 32), rows] window
+    # sums of one class
+    for t, got in zip((50, 1000, 10000), walk):
+        assert got == (walk_step_bytes(WALK_GROUP, rows, 1)
+                       + (WALK_GROUP + -(-t // 32)) * rows * 4)
+    assert walk[1] < 2 * walk[0] and walk[2] < 2.2 * walk[0]
+    assert forest_walk_bytes(1000, 3, rows, 1) == \
+        walk_step_bytes(WALK_GROUP, rows, 1) + WALK_GROUP * rows * 4
+    # the training plan's chunk: the rows of the largest set the run
+    # predicts, at most a chunk
+    drv = _train(dict(INT8, **CPU), rounds=1)._driver
+    small = membudget.plan_training(drv.config, drv.learner, 1)
+    valid = membudget.plan_training(drv.config, drv.learner, 1,
+                                    num_valid_rows=5000)
+    F = len(drv.learner.td.used_feature_idx)
+    item = int(drv.learner.td.bins_t.element_size())
+    trees = int(drv.config.num_iterations)
+    for plan, rows in ((small, drv.learner.n), (valid, 5000)):
+        assert plan.components["predict_scratch"] == \
+            membudget.predict_chunk_bytes(drv.config, F, 1, trees, item,
+                                          rows=rows)

@@ -163,6 +163,12 @@ def assert_trees_match(trees_j, trees_t, rtol=1e-5):
 NOFMA_FLAGS = "--xla_cpu_max_isa=AVX"
 
 
+# the JAX package's sharded learners need a device a shard: the sharded
+# job's process gets 8 virtual CPU devices (its tests/conftest.py does the
+# same), beside the no-FMA ISA
+SHARDED_FLAGS = NOFMA_FLAGS + " --xla_force_host_platform_device_count=8"
+
+
 def run_jax_nofma(job, arrays, spec, tmp_path):
     """Run `job` of this module in a JAX process compiled without FMA;
     `arrays` (name -> numpy array) and the JSON-able `spec` go in, a dict
@@ -170,10 +176,10 @@ def run_jax_nofma(job, arrays, spec, tmp_path):
     return start_jax_nofma(job, arrays, spec, tmp_path)()
 
 
-def start_jax_nofma(job, arrays, spec, tmp_path):
+def start_jax_nofma(job, arrays, spec, tmp_path, xla_flags=NOFMA_FLAGS):
     """run_jax_nofma without the wait: the process starts, and calling
     the returned function waits for it and returns its arrays, so a test
-    can run the port meanwhile."""
+    can run the port meanwhile.  xla_flags: the process's XLA_FLAGS."""
     import json
     import os
     import pathlib
@@ -183,7 +189,7 @@ def start_jax_nofma(job, arrays, spec, tmp_path):
     root = pathlib.Path(__file__).resolve().parents[1]
     src, dst = tmp_path / f"{job}_in.npz", tmp_path / f"{job}_out.npz"
     np.savez(src, __spec__=np.array(json.dumps(spec)), **arrays)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=NOFMA_FLAGS)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=xla_flags)
     proc = subprocess.Popen(
         [sys.executable, "-m", "tests.test_torch_util", job, str(src),
          str(dst)], cwd=root, env=env, stdout=subprocess.PIPE,
@@ -1401,6 +1407,33 @@ def _job_stream(inp, spec):
     return out
 
 
+def sharded_run(lgb, X, y, run):
+    """One case of tests/test_torch_parallel.py (and the C7 preflight
+    case of tests/test_torch_membudget.py), the same script for either
+    package (the JAX package's in the no-FMA process with 8 devices, job
+    "train_sharded"): lgb.train's model text and raw scores over X."""
+    p = dict(run["params"], verbosity=-1)
+    if lgb.__name__ == "lightgbm_tpu_torch":
+        p["device_type"] = "cpu"
+    b = lgb.train(p, lgb.Dataset(X, label=y, params=p),
+                  run.get("rounds", 3), keep_training_booster=True)
+    return {"text": model_text(b),
+            "raw": np.asarray(b.predict(X, raw_score=True), np.float64)}
+
+
+def _job_train_sharded(inp, spec):
+    """sharded_run of the JAX package for every run of the spec."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        y = inp["y_" + run.get("label", "bin")]
+        for k, v in sharded_run(lgb, inp["X_" + run.get("data", "a")], y,
+                                run).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -1417,6 +1450,7 @@ if __name__ == "__main__":
               "fileio": _job_fileio,
               "sparse_storage": _job_sparse_storage,
               "utilities": _job_utilities, "shap": _job_shap,
-              "fault": _job_fault, "stream": _job_stream}[job](
+              "fault": _job_fault, "stream": _job_stream,
+              "train_sharded": _job_train_sharded}[job](
                   inp, spec)
     np.savez(dst, **result)
