@@ -7,7 +7,7 @@ that the port still starts on the GPU.
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from lightgbm_tpu_torch/csrc with nvcc;
-  3. fifty-one paths at full width, each lgb.train (cv_int8:
+  3. fifty-three paths at full width, each lgb.train (cv_int8:
      lgb.cv) on the Higgs-1M shape
      (1,000,000 rows x 28 dense features, binary, 255 leaves; the efb
      and sparse paths: a sparse table of 697 features), then
@@ -224,6 +224,22 @@ Phases, each fatal on failure (exit code 1, no result line):
                on the whole matrix;
        data_feature_int8  int8 with tree_learner=data_feature, 4 shards,
                tpu_feature_shards=2, tpu_topology_hosts=2;
+     the distributed learners across processes (ROADMAP A9b): two
+     workers of this script (`--mp-worker`), each a process on the first
+     card, join a gloo group over a machine list on localhost, one shard
+     each, 5 iterations; each rank's launch counters are set to 0 just
+     before each path and read just after (B1-int, B3 and the leaf sums
+     must launch on each rank, B2 never), with its iters/s, held-out
+     AUC, process-level collectives' seconds and bytes a tree and host
+     waits a tree:
+       mp_data_int8  data_int8 with every row on each rank; both ranks'
+               texts equal, and equal to an in-process run at
+               num_machines=2, tpu_topology_hosts=2;
+       mp_prepart_int8  pre_partition: each rank its half of the rows,
+               bins from distributed binning, its half of the held-out
+               rows a partitioned validation set (AUC merged across the
+               ranks each iteration); both ranks' texts equal but for
+               the tpu_feature_profile: trailer of each rank's rows;
      the next four run after phase 4 (and --profile's profiles), before
      phase 5:
        resume_int8  valid_bag_int8's parameters with tpu_checkpoint_dir
@@ -393,7 +409,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      uninterrupted card run's text; and data_int8's regression (refit
      on) card against CPU by its whole text, and at full width data_int8
      with the refit off against the serial int8 path's text on the
-     card.
+     card; and the workers' small int8 regression across the two
+     processes, card against CPU and against the CPU's in-process run.
 A line "build ledger" before the kernels line gives the kernel
 library's build (built or loaded, seconds, hash), the distinct launch
 plans of each kernel site over the run, and stream_int8's plan held to
@@ -4841,6 +4858,271 @@ def cross_check_sharded(lgb, X, y, serial_params):
     return out
 
 
+# ---- the distributed learners across processes (ROADMAP A9b) ----------------
+MP_RANKS = 2
+MP_TIMEOUT_S = 420.0
+# the deadline of every collective of the workers, and of their group
+MP_COLLECTIVE_S = 120.0
+MP_DATA = dict(SHARD_INT8, tree_learner="data", num_machines=2)
+# (name, how the rows are held): every rank holds every row, or each its
+# own half (pre_partition: distributed binning, a partitioned
+# validation set of the held-out rows)
+MP_PATHS = (("mp_data_int8", "full"), ("mp_prepart_int8", "prepart"))
+MP_KERNELS = ("hist_batched_int", "partition_rows", "leaf_group",
+              "leaf_sums")
+
+
+def _without_profile(text: str) -> str:
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith("tpu_feature_profile:"))
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _mp_train(lgb, kernels, params, ds, valid=None):
+    """One path of a worker: the launch counters set to 0 just before
+    lgb.train and read just after, the transport's counters around it."""
+    import torch
+
+    from lightgbm_tpu_torch.parallel import topology
+
+    ev = {}
+    kw = {} if valid is None else {"valid_sets": [valid],
+                                   "valid_names": ["hold"],
+                                   "evals_result": ev}
+    torch.cuda.synchronize()
+    # both ranks start the clock together: the skew of their ingest
+    # must not count as a wait in the first collective
+    topology.host_allgather(np.zeros(1), name="mp_path_start")
+    before = dict(topology.TRANSPORT)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    b = lgb.train(dict(params), ds, ITERS_SHARDED,
+                  keep_training_booster=True, **kw)
+    trees = b.num_trees()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    moved = {k: topology.TRANSPORT[k] - before[k] for k in before}
+    driver = b._driver
+    learner = driver.learner
+    st = learner._strategy_grow.last_stats
+    return b, ev, {
+        "train_s": train_s, "iters_per_s": ITERS_SHARDED / train_s,
+        "trees": trees, "launches": launches,
+        "launches_per_tree": {k: v / trees for k, v in launches.items()},
+        "host_syncs_per_tree": driver.grower_syncs / trees,
+        # every process-level collective of the run (the leader's device
+        # exchanges, the leaf-id gathers, metric and init syncs): calls,
+        # host seconds and the bytes this process sent, a tree
+        "proc_calls_per_tree": moved["calls"] / trees,
+        "proc_s_per_tree": moved["seconds"] / trees,
+        "proc_bytes_per_tree": moved["bytes"] / trees,
+        "last_tree": st, "local_shards": learner.topology.local_size,
+        "partitioned": bool(learner._partitioned),
+        "rows": int(driver.train_data.num_data),
+        "n_pad": learner.n_pad, "row_width": learner.row_width}
+
+
+def mp_worker(spec_path: str) -> None:
+    """One rank of the two-process paths (started by `mp_paths` with
+    LIGHTGBM_TPU_PROCESS_ID): mp_data_int8, every rank holding every row;
+    mp_prepart_int8, each its half (pre_partition), the held-out rows a
+    partitioned validation set; and phase 5's small int8 regression on
+    the card and on the CPU.  Writes its reports and texts as JSON."""
+    import torch
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["LIGHTGBM_TPU_PROCESS_ID"])
+    sys.path.insert(0, spec["root"])
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import kernels
+
+    from lightgbm_tpu_torch.parallel import collective, mesh
+
+    out = {"rank": rank}
+    net = {"machines": spec["machines"],
+           "tpu_collective_timeout_s": MP_COLLECTIVE_S}
+    # the rendezvous first, outside every timed path
+    collective.configure(timeout_s=MP_COLLECTIVE_S)
+    t0 = time.perf_counter()
+    mesh.init_multihost(spec["machines"], 0, MP_RANKS)
+    out["rendezvous_s"] = time.perf_counter() - t0
+    X, y = make_data(N_TRAIN + N_HOLD, N_FEAT)
+    Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                     params=dict(MP_DATA, **net)).construct()
+    out["ingest_s_full"] = time.perf_counter() - t0
+    b, _, rep = _mp_train(lgb, kernels, dict(MP_DATA, **net), ds)
+    pred = b.predict(Xho)
+    rep["holdout_auc"] = auc(pred, yho)
+    rep["finite"] = bool(np.all(np.isfinite(pred))
+                         and pred.shape == (N_HOLD,))
+    out["mp_data_int8"] = dict(rep, text=model_text(b))
+    del b, ds
+    # pre_partition: rank k keeps its half of the training rows and of
+    # the held-out rows; bins from distributed binning
+    pp = dict(MP_DATA, pre_partition=True, metric="auc", **net)
+    half, hh = N_TRAIN // MP_RANKS, N_HOLD // MP_RANKS
+    rows = slice(rank * half, (rank + 1) * half)
+    hrows = slice(N_TRAIN + rank * hh, N_TRAIN + (rank + 1) * hh)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X[rows], label=y[rows], params=pp).construct()
+    out["ingest_s_prepart"] = time.perf_counter() - t0
+    valid = lgb.Dataset(X[hrows], label=y[hrows], reference=ds, params=pp)
+    b, ev, rep = _mp_train(lgb, kernels, pp, ds, valid)
+    rep["holdout_auc"] = ev["hold"]["auc"][-1]
+    rep["holdout_auc_curve"] = ev["hold"]["auc"]
+    pred = b.predict(Xho)
+    rep["finite"] = bool(np.all(np.isfinite(pred)))
+    rep["whole_holdout_auc"] = auc(pred, yho)
+    out["mp_prepart_int8"] = dict(rep, text=model_text(b))
+    del b, ds, valid
+    # phase 5: the small int8 regression across the two processes, on
+    # the card and on the CPU
+    Xs = X[:N_SMALL]
+    rng = np.random.default_rng(46)
+    y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
+        size=N_SMALL)
+    small = {}
+    for dev in ("cuda", "cpu"):
+        q = dict(MP_DATA, objective="regression", metric="l2",
+                 device_type=dev, **net)
+        small[dev] = model_text(lgb.train(
+            q, lgb.Dataset(Xs, label=y_reg, params=q), ITERS_SMALL))
+    out["small"] = small
+    with open(spec["out"][rank], "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def mp_paths(lgb, ds, X, y, reports, cross):
+    """Phase 3's two-process paths and phase 5's check: two workers of
+    this script on the first card (`mp_worker`), rendezvous over a
+    machine list on localhost; the parent waits (killing both and
+    failing with their logs' ends past MP_TIMEOUT_S) and checks: both
+    ranks' texts equal; mp_data_int8's the text of an in-process run at
+    num_machines=2, tpu_topology_hosts=2; B1-int, B3 and the leaf sums
+    launched on each rank; the small regression's text equal on the card
+    and on the CPU, and to the CPU's in-process text."""
+    tmp = tempfile.mkdtemp()
+    outs = [os.path.join(tmp, f"rank{k}.json") for k in range(MP_RANKS)]
+    spec = {"root": os.path.dirname(os.path.abspath(__file__)),
+            "machines": ",".join(f"127.0.0.1:{_free_port()}"
+                                 for _ in range(MP_RANKS)),
+            "out": outs}
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(MP_RANKS):
+        log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+        logs.append(log.name)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker",
+             spec_path],
+            env=dict(os.environ, LIGHTGBM_TPU_PROCESS_ID=str(rank)),
+            stdout=log, stderr=subprocess.STDOUT))
+    def tails():
+        return "\n".join(f"--- rank {k}:\n" + open(p).read()[-4000:]
+                         for k, p in enumerate(logs))
+
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            for q in procs:
+                q.wait()
+            fail("a two-process worker timed out:\n" + tails())
+    for k, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"two-process rank {k} failed:\n" + tails())
+    wall_s = time.perf_counter() - t0
+    # the in-process run mp_data_int8 must equal, after the workers (it
+    # would share the card and the host with them)
+    inproc = model_text(lgb.train(dict(MP_DATA, tpu_topology_hosts=2), ds,
+                                  ITERS_SHARDED))
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for name, rows in MP_PATHS:
+        r0, r1 = (r[name] for r in ranks)
+        if _without_profile(r0["text"]) != _without_profile(r1["text"]) \
+                or (rows == "full" and r0["text"] != r1["text"]):
+            # under pre_partition the tpu_feature_profile: trailer is the
+            # profile of each rank's own rows, as in the JAX package
+            fail(f"{name}: the two ranks' model texts differ")
+        for k, r in enumerate((r0, r1)):
+            if r["trees"] != ITERS_SHARDED or not r["finite"]:
+                fail(f"{name} rank {k}: {r['trees']} trees, finite "
+                     f"predictions {r['finite']}")
+            for kern in MP_KERNELS:
+                if r["launches"][kern] <= 0:
+                    fail(f"{name} rank {k}: kernel {kern} was not launched")
+            if r["launches"]["fused_hist_scan"] != 0:
+                fail(f"{name} rank {k}: B2 launched under a sharded learner")
+            if not 0.6 < r["holdout_auc"] <= 1.0:
+                fail(f"{name} rank {k}: held-out AUC {r['holdout_auc']}")
+        shown = MP_KERNELS + ("fused_hist_scan", "hist_batched")
+        reports[name] = {
+            "iters_per_s": [r["iters_per_s"] for r in (r0, r1)],
+            "holdout_auc": [r["holdout_auc"] for r in (r0, r1)],
+            "launches": {k: sum(r["launches"][k] for r in (r0, r1))
+                         for k in r0["launches"]},
+            "launches_per_tree": {k: sum(r["launches_per_tree"][k]
+                                         for r in (r0, r1))
+                                  for k in r0["launches"]},
+            "rank_launches": [r["launches"] for r in (r0, r1)],
+            "ranks": [{**{k: v for k, v in r.items()
+                          if k not in ("text", "launches",
+                                       "launches_per_tree")},
+                       "launches_per_tree": {k: r["launches_per_tree"][k]
+                                             for k in shown}}
+                      for r in (r0, r1)]}
+        print(f"main path {name} " + json.dumps({
+            k: v for k, v in reports[name].items()
+            if k not in ("launches", "launches_per_tree", "rank_launches")}),
+            flush=True)
+    if ranks[0]["mp_data_int8"]["text"] != inproc:
+        fail("mp_data_int8: the two-process text differs from the "
+             "in-process run at num_machines=2, tpu_topology_hosts=2")
+    small = ranks[0]["small"]
+    if any(r["small"] != small for r in ranks):
+        fail("phase 5: the two ranks' small regression texts differ")
+    Xs = X[:N_SMALL]
+    rng = np.random.default_rng(46)
+    y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
+        size=N_SMALL)
+    q = dict(MP_DATA, objective="regression", metric="l2",
+             device_type="cpu", tpu_topology_hosts=2)
+    cpu_inproc = model_text(lgb.train(
+        q, lgb.Dataset(Xs, label=y_reg, params=q), ITERS_SMALL))
+    if not small["cuda"] == small["cpu"] == cpu_inproc:
+        fail("phase 5: the two-process int8 regression text differs card "
+             "to CPU, or from the CPU's in-process text")
+    cross["mp_small_int8_card_cpu_identical"] = True
+    print(f"path_s mp_paths {wall_s:.1f} (two workers, with their "
+          f"start-up, data and ingest: {[r['ingest_s_full'] for r in ranks]}"
+          " s full, " f"{[r['ingest_s_prepart'] for r in ranks]} s "
+          "pre_partition)", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4999,6 +5281,10 @@ def main() -> None:
             lgb, kernels, ds, X, y, params, must, boosters[serial])
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
         print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
+    # the two-process paths (and phase 5's two-process check, whose
+    # result joins the cross-checks)
+    mp_cross = {}
+    mp_paths(lgb, ds, X, y, reports, mp_cross)
     del datasets, ds
     # categorical features: columns 22-27 as categories, both modes
     Xc = cat_data(X)
@@ -5111,8 +5397,9 @@ def main() -> None:
     mhz = sm_clock_mhz()
     floors = {}
     for path, report in reports.items():
+        # (the two-process paths' learners live in their workers)
         if report.get("launches", {}).get("leaf_sums", 0) > 0 \
-                and learners[path].topology is None:
+                and path in learners and learners[path].topology is None:
             learner = learners[path]
             floors[path] = leaf_sums_floor(
                 learner.n_pad, learner.params.num_leaves + 1,
@@ -5124,6 +5411,10 @@ def main() -> None:
         row["launches"] = reports[path]["launches"][row["name"]]
         row["launches_per_tree"] = reports[path]["launches_per_tree"][
             row["name"]]
+        # the two-process paths' launches of this kernel, each rank's
+        row["worker_launches"] = {
+            mp: [r[row["name"]] for r in reports[mp]["rank_launches"]]
+            for mp, _ in MP_PATHS}
         row["path"] = path
         print("kernel " + json.dumps(row), flush=True)
     kernel_rows = [row for row, _ in kernel_rows]
@@ -5167,6 +5458,7 @@ def main() -> None:
     print(f"path_s cross_check_storage {time.perf_counter() - t0:.1f}",
           flush=True)
     cross.update(cross_check_fault(lgb, X))
+    cross.update(mp_cross)
     t0 = time.perf_counter()
     cross.update(cross_check_sharded(lgb, X, y, PATHS[1][1]))
     print(f"path_s cross_check_sharded {time.perf_counter() - t0:.1f}",
@@ -5188,7 +5480,8 @@ def main() -> None:
     # operands
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **({"operands": r["operands"]} if "operands" in r else {})}
+         **({"operands": r["operands"]} if "operands" in r else {}),
+         "worker_launches": r["worker_launches"]}
         for r in kernel_rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5197,4 +5490,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mp_worker(sys.argv[2])
+    else:
+        main()

@@ -51,11 +51,6 @@ def _split_pandas_categorical(text: str):
     return text[:pos] + "\n", pc
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to lightgbm_tpu_torch "
-                              "yet")
-
-
 class Booster:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set=None, model_file: Optional[str] = None,
@@ -574,11 +569,30 @@ class Booster:
         state = restore_checkpoint(self, make_manager(directory))
         return None if state is None else int(state["iteration"])
 
-    # -- refused by name until their items are ported --------------------
+    # -- the machine group ------------------------------------------------
     def set_network(self, machines: str, local_listen_port: int = 12400,
                     listen_time_out: int = 120, num_machines: int = 1
                     ) -> "Booster":
-        _not_ported("Booster.set_network")
+        """Join the multi-host training group (reference basic.py
+        Booster.set_network -> LGBM_NetworkInit): the machine list's
+        `torch.distributed` group (`parallel/mesh.py:init_multihost`),
+        and the network params recorded for the next training.
+        listen_time_out is accepted for signature parity; the group's
+        deadline is tpu_collective_timeout_s."""
+        from .parallel.mesh import init_multihost
+
+        init_multihost(machines, int(local_listen_port), int(num_machines))
+        self.params.update({"machines": machines,
+                            "local_listen_port": int(local_listen_port),
+                            "num_machines": int(num_machines)})
+        self._network_set = True
+        return self
 
     def free_network(self) -> "Booster":
-        _not_ported("Booster.free_network")
+        """Reference Booster.free_network analog: forget the network
+        params; the process group itself stays up for the process (it
+        cannot be joined again once torn down)."""
+        for k in ("machines", "local_listen_port", "num_machines"):
+            self.params.pop(k, None)
+        self._network_set = False
+        return self

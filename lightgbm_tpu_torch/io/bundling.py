@@ -1,9 +1,9 @@
 """EFB: exclusive feature bundling.
 
-A copy of `lightgbm_tpu/io/bundling.py` (host numpy), without its
-multi-host finder: the port's learner plans the same bundles from the
-same strided row sample, so both packages train on the same bundle
-columns.
+A copy of `lightgbm_tpu/io/bundling.py` (host numpy): the port's learner
+plans the same bundles from the same strided row sample, so both
+packages train on the same bundle columns; `find_bundles_multihost`
+agrees one plan across the processes of a `torch.distributed` group.
 
 Plays the role of the reference's `FindGroups` / `FastFeatureBundling`
 (reference src/io/dataset.cpp:91-263) + `FeatureGroup` storage (reference
@@ -142,6 +142,63 @@ def find_bundles(bins: np.ndarray, num_bin: np.ndarray,
     return BundlePlan(groups=final, bundle_idx=bundle_idx,
                       bin_offset=bin_offset, needs_fix=needs_fix,
                       num_bin=g_bins)
+
+
+def find_bundles_multihost(local_bins: np.ndarray, num_bin: np.ndarray,
+                           local_zero_frac: np.ndarray, local_rows: int,
+                           sparse_threshold: float,
+                           max_conflict_rate: float,
+                           max_bundle_bins: int,
+                           sample_rows: int = EFB_SAMPLE_ROWS) -> BundlePlan:
+    """Bundling plan agreed across the processes of the group.
+
+    EVERYTHING plan-determining reduces globally inside this function —
+    callers pass only LOCAL statistics (zero fractions and row count
+    from this rank's rows), so no half of the agreement contract can be
+    forgotten at a call site.  The candidate filter comes from the
+    globally weighted zero fractions; the greedy's per-bundle occupancy
+    is a UNION over sample rows, so a consistent plan cannot come from
+    locally-found plans or pairwise count sums: every rank contributes
+    an equal quota of its local rows, the samples allgather (ragged,
+    integer transport — never demoted; uint16 normally, widened to
+    uint32 when any feature's bin ids exceed the uint16 range so the
+    gather cannot silently truncate them), and the IDENTICAL greedy
+    runs on the identical global sample everywhere.  Single-process
+    groups degrade to the local find.
+    """
+    from ..parallel.topology import process_count
+
+    nproc = process_count()
+    if nproc <= 1:
+        return find_bundles(local_bins, num_bin,
+                            local_zero_frac >= sparse_threshold,
+                            max_conflict_rate, max_bundle_bins,
+                            sample_rows=sample_rows)
+    from ..parallel.topology import host_allgather, ragged_all_gather
+
+    # globally weighted zero fractions decide the candidate set; both
+    # exchanges ride distributed bin finding's own fault point so chaos
+    # runs can target ingest separately from train-loop sync
+    zf = host_allgather(
+        np.concatenate([np.asarray(local_zero_frac, np.float64)
+                        * local_rows, [local_rows]]).astype(np.float32),
+        name="efb_zero_frac", point="binning_allgather")
+    tot = zf.sum(axis=0)
+    mfz = tot[:-1] / max(tot[-1], 1) >= sparse_threshold
+    samp = _stride_sample(local_bins, max(1, sample_rows // nproc))
+    # transport dtype must hold every bin id: uint16 truncates silently
+    # past 65535, so wide-bin features ride uint32 instead (num_bin is
+    # plan input on every rank, so all ranks agree on the widening)
+    transport = (np.uint32
+                 if int(np.asarray(num_bin).max(initial=0))
+                 > int(np.iinfo(np.uint16).max)
+                 else np.uint16)
+    sample_global = ragged_all_gather(np.ascontiguousarray(
+        samp, dtype=transport), name="efb_bundle_exchange",
+        point="binning_allgather")
+    return find_bundles(sample_global, num_bin, mfz,
+                        max_conflict_rate, max_bundle_bins,
+                        sample_rows=sample_global.shape[0])
 
 
 def apply_bundles(bins: np.ndarray, plan: BundlePlan) -> np.ndarray:

@@ -293,8 +293,8 @@ class TrainingData:
         if reference is not None:
             self._adopt_reference_mappers(reference)
         else:
-            self._find_mappers(X, config, categorical_features or [],
-                               forced_bins)
+            self._find_mappers_maybe_distributed(
+                X, config, categorical_features or [], forced_bins)
         t1 = time.perf_counter()
         scratch = {"chunk_bytes": 0}
         self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
@@ -356,7 +356,8 @@ class TrainingData:
         if reference is not None:
             self._adopt_reference_mappers(reference)
         else:
-            self._find_mappers(sp, config, categorical_features or [])
+            self._find_mappers_maybe_distributed(
+                sp, config, categorical_features or [])
         t1 = time.perf_counter()
         dtype = np.uint8 if self.max_num_bin <= 256 else np.int32
         bins = np.empty((self.num_features, n), dtype=dtype)
@@ -387,9 +388,17 @@ class TrainingData:
         import zipfile
 
         from ..utils.log import Log
+        from .distributed_binning import (config_wants_distributed,
+                                          ensure_distributed)
 
         config = config or Config()
-        if reference is None and os.path.exists(path + ".bin"):
+        # the rendezvous before anything else; a binary cache present on
+        # one host only must not let that host skip the collective bin
+        # finding its peers enter (lightgbm_tpu/io/dataset.py:454-460)
+        ensure_distributed(config)
+        skip_cache = config_wants_distributed(config)
+        if reference is None and not skip_cache \
+                and os.path.exists(path + ".bin"):
             try:
                 return cls.from_binary(path + ".bin", config)
             except (OSError, ValueError, KeyError,
@@ -478,7 +487,7 @@ class TrainingData:
         if reference is not None:
             self._adopt_reference_mappers(reference)
         else:
-            self._find_mappers(
+            self._find_mappers_maybe_distributed(
                 sample, config,
                 _parse_column_spec(config.categorical_feature, names),
                 _load_forced_bins(config), total_rows=n)
@@ -591,10 +600,38 @@ class TrainingData:
                    else TrainingData.from_matrix)
         return factory(X, label, self.config, reference=self, **kw)
 
+    def _find_mappers_maybe_distributed(self, X, config: Config,
+                                        categorical: Sequence[int],
+                                        forced_bins=None,
+                                        total_rows: Optional[int] = None
+                                        ) -> None:
+        """Feature-sharded multi-host bin finding where this process is
+        part of a pre-partitioned group (io/distributed_binning.py,
+        reference dataset_loader.cpp:959-1042); the local find
+        otherwise.  One predicate decides (`config_wants_distributed`), so
+        no rank skips a collective that its peers enter."""
+        from .distributed_binning import (config_wants_distributed,
+                                          ensure_distributed,
+                                          find_mappers_multihost)
+
+        ensure_distributed(config)
+        if config_wants_distributed(config):
+            self.mappers = find_mappers_multihost(
+                X, config, categorical, forced_bins,
+                local_total_rows=total_rows,
+                feature_names=self.feature_names)
+            self.used_feature_idx = [i for i, m in enumerate(self.mappers)
+                                     if not m.is_trivial]
+            return
+        self._find_mappers(X, config, categorical, forced_bins,
+                           total_rows=total_rows)
+
     def _find_mappers(self, X, config: Config,
                       categorical_features: Sequence[int],
                       forced_bins: Optional[Dict[int, List[float]]] = None,
-                      total_rows: Optional[int] = None) -> None:
+                      total_rows: Optional[int] = None,
+                      feature_subset: Optional[Sequence[int]] = None
+                      ) -> None:
         """Greedy bin finding per column on a row sample, as the JAX
         package does it (reference dataset_loader.cpp:599-600,696); the
         columns of `categorical_features` bin as categories, and those of
@@ -603,7 +640,9 @@ class TrainingData:
         the CSC arrays of the sample (reference sparse-aware sampling,
         dataset_loader.cpp:959-1042).  `total_rows`: the whole data's
         rows where X is already a sample (two-round loading), which
-        scales the near-unsplittable filter."""
+        scales the near-unsplittable filter.  `feature_subset`: X's
+        columns' global feature ids (the feature-sharded distributed
+        find), which key the per-feature settings."""
         forced_bins = forced_bins or {}
         n, nf = X.shape
         full_n = max(int(total_rows), n) if total_rows is not None else n
@@ -628,8 +667,10 @@ class TrainingData:
         self.mappers = [BinMapper() for _ in range(nf)]
 
         def _find_col(col: int) -> None:
+            gcol = int(feature_subset[col]) if feature_subset is not None \
+                else col
             m = self.mappers[col]
-            if col in ignore:
+            if gcol in ignore:
                 m.num_bin = 1
                 m.is_trivial = True
                 return
@@ -644,16 +685,16 @@ class TrainingData:
             nonzero = colv[~((np.abs(colv) <= K_ZERO_THRESHOLD)
                              & ~np.isnan(colv))]
             mb = int(config.max_bin)
-            if max_bin_by_feature and col < len(max_bin_by_feature):
-                mb = int(max_bin_by_feature[col])
+            if max_bin_by_feature and gcol < len(max_bin_by_feature):
+                mb = int(max_bin_by_feature[gcol])
             m.find_bin(nonzero, total, mb,
                        min_data_in_bin=int(config.min_data_in_bin),
                        min_split_data=filter_cnt,
-                       bin_type=(BinType.CATEGORICAL if col in cat_set
+                       bin_type=(BinType.CATEGORICAL if gcol in cat_set
                                  else BinType.NUMERICAL),
                        use_missing=bool(config.use_missing),
                        zero_as_missing=bool(config.zero_as_missing),
-                       forced_bounds=forced_bins.get(col))
+                       forced_bounds=forced_bins.get(gcol))
 
         _parallel_columns(_find_col, nf, config)
         self.used_feature_idx = [c for c in range(nf)

@@ -421,7 +421,7 @@ class GBDT:
                "neg_fraction": neg_frac, "freq": freq}
         if balanced:
             label = np.asarray(self.train_data.metadata.label)
-            is_pos = np.zeros(self.learner.n_pad, bool)
+            is_pos = np.zeros(self.learner.row_width, bool)
             is_pos[:len(label)] = label > 0
             out["is_pos"] = is_pos
         return out
@@ -577,12 +577,25 @@ class GBDT:
         if not self.config.boost_from_average:
             return 0.0
         init = self.objective.boost_from_score(class_id)
+        if self._multiproc():
+            # every rank's init comes from its own rows: the ranks agree
+            # on the mean over processes (gbdt.py:490-499,
+            # GlobalSyncUpByMean); the same value where every rank holds
+            # every row
+            from ..parallel.metric_sync import process_count, sync_sums
+
+            init = float(sync_sums([init])[0] / process_count())
         if abs(init) > K_EPSILON:
             self.train_scores.add_constant(init, class_id)
             for vs in self.valid_scores:
                 vs.add_constant(init, class_id)
             return init
         return 0.0
+
+    def _multiproc(self) -> bool:
+        """Does the learner run a grid across several processes?"""
+        t = getattr(self.learner, "topology", None)
+        return t is not None and t.processes > 1
 
     def bagging_mask(self, it: int) -> Optional[torch.Tensor]:
         """The sync path's row mask for this iteration (None = all
@@ -1076,6 +1089,19 @@ class GBDT:
                        else mask.cpu().numpy()[:len(leaf_np)] > 0)
             self.objective.renew_tree_output(tree, score_np, leaf_np,
                                              mask_np)
+            if getattr(self.learner, "_partitioned", False):
+                # each machine refit its leaves on its own rows: average
+                # each leaf's output over the machines that had rows on
+                # it (gbdt.py:1168-1180, reference
+                # serial_tree_learner.cpp:865-891)
+                from ..parallel.metric_sync import sync_sums
+
+                L = tree.num_leaves
+                cnt = np.bincount(leaf_np[mask_np], minlength=L)[:L]
+                has = (cnt > 0).astype(np.float64)
+                outs = np.asarray(tree.leaf_value[:L], np.float64) * has
+                g = sync_sums(np.concatenate([outs, has]))
+                tree.leaf_value[:L] = g[:L] / np.maximum(g[L:], 1.0)
         tree.apply_shrinkage(self.shrinkage_rate)
         leaf_vals = torch.as_tensor(
             tree.leaf_value[:tree.num_leaves].astype(np.float32),
@@ -1591,18 +1617,24 @@ class GBDT:
     # ------------------------------------------------------------------
     def topology_snapshot(self) -> Dict:
         """The `topology` block of the bundle, as the JAX package writes
-        it for one process (gbdt.py:1266-1285)."""
+        it (gbdt.py:1266-1285): "rows" is THIS process's row count (the
+        global count where every process holds every row), beside the
+        group's size, this process's index and the shard grid.  Host
+        metadata only, no device transfer."""
+        from ..parallel.topology import process_count, process_index
+
         if self.train_data is None or self.learner is None:
             raise ValueError("topology snapshot needs a live training "
                              "context")
         return {
             "rows": int(self.train_data.num_data),
-            "host_count": 1,
-            "host_index": 0,
-            "partitioned": False,
-            "data_shards": 1,
-            "feature_shards": 1,
-            "hosts": 1,
+            "host_count": int(process_count()),
+            "host_index": int(process_index()),
+            "partitioned": bool(getattr(self.learner, "_partitioned",
+                                        False)),
+            "data_shards": int(getattr(self.learner, "d_shards", 1)),
+            "feature_shards": int(getattr(self.learner, "f_shards", 1)),
+            "hosts": int(getattr(self.learner, "hosts", 1)),
             "tree_learner": str(self.config.tree_learner),
         }
 

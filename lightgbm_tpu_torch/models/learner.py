@@ -64,16 +64,24 @@ features' columns alone go to the kernels, and `hist_perm` maps the
 features onto the merged histogram columns.
 
 tree_learner data, feature, voting or data_feature with num_machines > 1
-(learner.py:93-173,456-476,620-690 of the JAX package) shards the
-learner over a (hosts, data, feature) grid in one process
-(`parallel/`): `resolve_strategy` and `resolve_hist_agg` as the JAX
-learner resolves them, the feature axis padded to 32 columns a feature
-shard (and to the row shards under scatter), the rows to a whole number
-of blocks a row shard, and `_place_shards` puts each shard's bins on
+(learner.py:93-194,456-476,620-690 of the JAX package) shards the
+learner over a (hosts, data, feature) grid (`parallel/`): a `machines`
+list of several hosts first joins the process group
+(`parallel/mesh.py:init_multihost`), whose processes are the hosts axis;
+`resolve_strategy` and `resolve_hist_agg` as the JAX learner resolves
+them, the feature axis padded to 32 columns a feature shard (and to the
+row shards under scatter), the rows to a whole number of blocks a row
+shard, and `_place_shards` puts each of this process's shards' bins on
 its device; `_grow` runs `parallel/strategies.py`'s grower over them.
-What a sharded learner does not carry yet is refused by name
-(`check_sharded_slice`, and the EFB, categorical and monotone refusals
-at set-up).
+Under `pre_partition` in a group of several processes (`_partitioned`)
+each process holds only its own rows: the row shards are sized from the
+largest process's rows (`shard_rows_sync`), the row vectors span this
+process's row shards (`row_width`), and the leaf ids are this process's
+rows'.  What a sharded learner does not carry yet is refused by name
+(`check_sharded_slice`, and the categorical and monotone refusals at
+set-up).  EFB bundles train under data as in the JAX learner, the plan
+agreed across processes under pre_partition and, under scatter, each
+shard searching the features of its bundle columns (`scatter_feat`).
 """
 
 from __future__ import annotations
@@ -87,7 +95,7 @@ import torch
 
 from ..config import Config
 from ..io.bundling import EFB_SAMPLE_ROWS, BundlePlan, apply_bundles, \
-    find_bundles
+    find_bundles, find_bundles_multihost
 from ..io.dataset import TrainingData
 from ..ops import grower as G
 from ..ops.fused import fused_supported, probe_fused
@@ -97,7 +105,7 @@ from ..ops.histogram import (INT_PRECISIONS, MAX_WIDE_BINS, _dot_spec,
                              row_major_bins)
 from ..ops.predict import upload
 from ..parallel import topology as topo
-from ..parallel.mesh import available_devices, put_global
+from ..parallel.mesh import available_devices, put_global, put_local
 from ..parallel.strategies import (bins_sharding, make_strategy_grower,
                                    resolve_tree_learner)
 from ..parallel.topology import resolve_hosts
@@ -159,24 +167,19 @@ def check_slice(config: Config) -> None:
 def check_sharded_slice(config: Config) -> None:
     """What a sharded tree learner (tree_learner data, feature, voting or
     data_feature with num_machines > 1) does not carry in this port yet
-    (ROADMAP A9b), refused by name in the JAX learner's order where it
-    has one: a machine list of several hosts (`parallel/mesh.py:
-    init_multihost`), sparse storage (after the JAX package's own
-    refusals of it, with its texts), CEGB, forced splits, monotone
-    constraints, feature_fraction_bynode and deterministic=true.  EFB
-    bundles, categorical features and constraints given by the Dataset
-    are refused where the learner meets them."""
-    from ..parallel.mesh import init_multihost
-
+    (ROADMAP A9c), refused by name in the JAX learner's order where it
+    has one: sparse storage (after the JAX package's own refusals of it,
+    with its texts), CEGB, forced splits, monotone constraints,
+    feature_fraction_bynode and deterministic=true.  Categorical
+    features and constraints given by the Dataset are refused where the
+    learner meets them."""
     c = config
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
             f"{what} under tree_learner={c.tree_learner} is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP A9b)")
+            "lightgbm_tpu_torch yet (ROADMAP A9c)")
 
-    init_multihost(str(c.machines), int(c.local_listen_port),
-                   int(c.num_machines))
     if float(c.tpu_sparse_threshold) > 0.0:
         check_sparse_storage(c, TreeLearner.resolve_precision(c),
                              str(c.tree_learner), forced=False)
@@ -285,6 +288,15 @@ class TreeLearner:
 
     def __init__(self, config: Config, train_data: TrainingData):
         check_slice(config)
+        if (resolve_tree_learner(config.tree_learner) != "serial"
+                and str(config.machines)):
+            # a machine list joins the process group first (the
+            # Linkers-socket rendezvous role, learner.py:98-108)
+            from ..parallel.mesh import init_multihost
+
+            init_multihost(str(config.machines),
+                           int(config.local_listen_port),
+                           int(config.num_machines))
         # the parallel learners (learner.py:93-173, 894-910): the strategy,
         # its (hosts, data, feature) grid and the row axes' aggregation
         (self.strategy, self.n_shards, self.hosts, self.f_shards,
@@ -292,6 +304,22 @@ class TreeLearner:
         self.hist_agg = resolve_hist_agg(config, self.strategy,
                                          self.d_shards)
         sharded = self.strategy != "serial"
+        procs = topo.process_count()
+        if sharded and procs > 1 and self.hosts != procs:
+            raise ValueError(
+                f"tpu_topology_hosts={self.hosts} disagrees with the live "
+                f"process count {procs}; leave it 0 (auto) "
+                "on real multi-host meshes")
+        # pre-partitioned rows (learner.py:176-194): each process holds
+        # only its own row shards' rows.  The JAX learner's other check
+        # there, num_machines against the device count, has no
+        # counterpart: shards may share a device here
+        self._partitioned = (bool(config.pre_partition) and sharded
+                             and procs > 1)
+        if self._partitioned:
+            if self.d_shards % procs != 0:
+                raise ValueError("row shards must split evenly across "
+                                 "processes for pre_partition")
         self.topology = None
         self.config = config
         self.td = train_data
@@ -326,7 +354,7 @@ class TreeLearner:
                     raise NotImplementedError(
                         f"{what} under tree_learner={config.tree_learner} "
                         "is not ported to lightgbm_tpu_torch yet (ROADMAP "
-                        "A9b)")
+                        "A9c)")
         if B > MAX_WIDE_BINS:
             raise NotImplementedError(
                 f"max_bin={config.max_bin} (features with more than "
@@ -341,12 +369,7 @@ class TreeLearner:
             Log.info(f"EFB bundling is inactive under tree_learner="
                      f"{self.strategy}; training on plain columns")
         plan = None if forced or not bundling else self._plan_bundles(
-            config, train_data, meta_np["num_bin"], B)
-        if plan is not None and sharded:
-            raise NotImplementedError(
-                f"EFB bundles under tree_learner={config.tree_learner} are "
-                "not ported to lightgbm_tpu_torch yet (ROADMAP A9b); set "
-                "enable_bundle=false")
+            config, train_data, meta_np["num_bin"], B, self._partitioned)
         self.bundle_plan = plan
         # host seconds of the EFB plan and of making its bundle columns
         self.efb_s = {"plan": time.perf_counter() - t0, "apply": 0.0}
@@ -418,6 +441,17 @@ class TreeLearner:
         # sharded: every row shard an equal, whole number of blocks
         self.n_pad = (bucket_rows(n) if self.d_shards == 1 else
                       bucket_rows(-(-n // self.d_shards)) * self.d_shards)
+        # the row vectors' width: every row, or under pre_partition this
+        # process's row shards, sized from the largest process's rows
+        # (learner.py:422-433)
+        self.row_width = self.n_pad
+        if self._partitioned:
+            shards_local = self.d_shards // procs
+            ns = topo.host_allgather(np.asarray([n], np.int32),
+                                     name="shard_rows_sync")
+            max_shard_rows = -(-int(ns.max()) // shards_local)
+            self.n_pad = bucket_rows(max_shard_rows) * self.d_shards
+            self.row_width = (self.n_pad // self.d_shards) * shards_local
         if buckets > 0:
             self.g_pad = bucket_up(self.g_pad, col_align)
         if self.hist_agg == "scatter" and self.strategy != "voting":
@@ -469,7 +503,7 @@ class TreeLearner:
                                               nz_counts, meta_np, B)
             self.g_pad = -(-self.num_columns // 32) * 32
         self._place_bins(train_data, plan, sparse_mask, B, block, eff_block)
-        ones = torch.zeros(self.n_pad, dtype=torch.float32, device=dev)
+        ones = torch.zeros(self.row_width, dtype=torch.float32, device=dev)
         ones[:n] = 1.0
         self._ones_mask = ones
         self.feature_mask = torch.zeros(self.f_pad, dtype=torch.float32,
@@ -493,6 +527,21 @@ class TreeLearner:
                 len(self.sparse["sparse_idx"]))
             meta["hist_perm"] = torch.as_tensor(perm, device=dev)
             meta.update(sparse_meta)
+        if sharded and plan is not None and self.hist_agg == "scatter":
+            # EFB under scatter (learner.py:745-760): shard d holds the
+            # bundle columns [d*SG, (d+1)*SG) and searches the features
+            # bundled into them; each row ascending (the shard's argmax
+            # keeps the lowest feature id of a tie), -1 padded
+            sgc = self.g_pad // self.d_shards
+            bidx = meta_np["bundle_idx"][:F]
+            by_shard = [np.sort(np.flatnonzero(bidx // sgc == d))
+                        for d in range(self.d_shards)]
+            sf = np.full((self.d_shards,
+                          max(1, max(len(x) for x in by_shard))), -1,
+                         np.int32)
+            for d, x in enumerate(by_shard):
+                sf[d, :len(x)] = x
+            meta["scatter_feat"] = torch.as_tensor(sf, device=dev)
         self.meta = meta
         if sharded:
             self._place_shards()
@@ -590,7 +639,7 @@ class TreeLearner:
         n, F = self.n, self.num_features
         # uint8 when every feature fits a byte, else int32, as the JAX
         # learner stores them (learner.py:486)
-        bins_t = torch.zeros((self.g_pad, self.n_pad),
+        bins_t = torch.zeros((self.g_pad, self.row_width),
                              dtype=torch.uint8 if B <= 256 else torch.int32,
                              device=dev)
         if sparse_mask is not None:
@@ -621,33 +670,39 @@ class TreeLearner:
 
     def _place_shards(self) -> None:
         """The sharded learners' placement (learner.py:645-690 of the JAX
-        package, `put_global`'s role): the (hosts, data, feature) grid,
-        shard i on ``cuda:(i % cards)`` (or the CPU); each shard's bins,
-        its row shard's columns or, where the rows are not sharded, the
-        whole matrix (one copy a device); under a feature axis its own
-        [F/P, rows] slice for the histograms; the kernels' row-major copy
-        of each, made here before any shard thread runs; and the meta
-        arrays on each shard's device.  The global matrix goes."""
-        devices = topo.shard_devices(self.n_shards, self.device)
+        package, the roles of `put_global` and `put_local`): the (hosts,
+        data, feature) grid, this process's shard i on ``cuda:(i %
+        cards)`` (or the CPU); each local shard's bins, its row shard's
+        columns or, where the rows are not sharded, the whole matrix (one
+        copy a device); under a feature axis its own [F/P, rows] slice
+        for the histograms; the kernels' row-major copy of each, made
+        here before any shard thread runs; and the meta arrays on each
+        shard's device.  The process's matrix goes."""
+        procs = topo.process_count()
+        local = self.n_shards // procs
+        devices = topo.shard_devices(local, self.device)
         held = len(set(devices))
-        if self.n_shards > held:
+        if local > held:
             where = ("card" if self.device.type == "cuda" else "CPU")
             Log.warning(
-                f"tree_learner={self.strategy}: {self.n_shards} shards on "
+                f"tree_learner={self.strategy}: {local} shards on "
                 f"{held} {where}{'s' if held > 1 else ''} of "
                 f"{available_devices()}; shards share a device (a "
                 f"simulated grid of {self.hosts} host(s))")
         t = topo.make_topology(self.d_shards, self.f_shards, self.hosts,
+                               partitioned_rows=self._partitioned,
                                devices=devices)
         self.topology = t
         topo.activate(t)
-        bins = put_global(self.bins_t, t, bins_sharding(self.strategy))
-        hist = [None] * t.size
+        axes = bins_sharding(self.strategy)
+        bins = (put_local(self.bins_t, t, (self.g_pad, self.n_pad), axes)
+                if self._partitioned else put_global(self.bins_t, t, axes))
+        hist = [None] * t.local_size
         if self.f_shards > 1:
             F = self.g_pad // self.f_shards
             made = {}
             for r, b in enumerate(bins):
-                lo = t.coords(r)[topo.FEATURE] * F
+                lo = t.coords(t.first + r)[topo.FEATURE] * F
                 key = (b.data_ptr(), str(b.device), lo)
                 if key not in made:
                     made[key] = b[lo:lo + F].contiguous()
@@ -739,18 +794,28 @@ class TreeLearner:
 
     @staticmethod
     def _plan_bundles(config: Config, td: TrainingData, num_bin: np.ndarray,
-                      B: int) -> Optional[BundlePlan]:
+                      B: int, partitioned: bool = False
+                      ) -> Optional[BundlePlan]:
         """The JAX learner's EFB plan (learner.py:227-271), or None: the
         features whose zero-bin share reaches sparse_threshold (and with
         at most B bins) are the candidates, grouped on the strided row
-        sample; a plan of singletons alone is no plan."""
+        sample; a plan of singletons alone is no plan.  Under
+        pre_partition every process must group the same plan: the
+        statistics and the sample reduce across processes
+        (`find_bundles_multihost`)."""
         if not bool(config.enable_bundle) or td.num_features <= 1:
             return None
-        plan = find_bundles(
-            td.strided_row_sample(EFB_SAMPLE_ROWS), num_bin,
-            td.column_zero_fraction() >= float(config.sparse_threshold),
-            float(config.max_conflict_rate), B,
-            sample_rows=EFB_SAMPLE_ROWS)
+        if partitioned:
+            plan = find_bundles_multihost(
+                td.bins, num_bin, td.column_zero_fraction(), td.num_data,
+                float(config.sparse_threshold),
+                float(config.max_conflict_rate), B)
+        else:
+            plan = find_bundles(
+                td.strided_row_sample(EFB_SAMPLE_ROWS), num_bin,
+                td.column_zero_fraction() >= float(config.sparse_threshold),
+                float(config.max_conflict_rate), B,
+                sample_rows=EFB_SAMPLE_ROWS)
         return None if plan.is_trivial else plan
 
     def _sparse_layout(self, td: TrainingData, sparse_mask: np.ndarray,
@@ -890,9 +955,9 @@ class TreeLearner:
 
     def pad_vector(self, v: torch.Tensor) -> torch.Tensor:
         v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
-        if v.shape[0] == self.n_pad:
+        if v.shape[0] == self.row_width:
             return v
-        out = torch.zeros(self.n_pad, dtype=torch.float32,
+        out = torch.zeros(self.row_width, dtype=torch.float32,
                           device=self.device)
         out[:v.shape[0]] = v
         return out
@@ -967,7 +1032,9 @@ class TreeLearner:
             advances them (learner.py:1110-1197).  goss: {"top_rate",
             "other_rate"}; goss_on (decided on the host, after the
             warm-up) samples the rows of this tree by GOSS."""
-        n, n_pad = self.n, self.n_pad
+        # the row vectors span row_width rows: every row, or this
+        # process's row shards under pre_partition
+        n, n_pad = self.n, self.row_width
         dev = self.device
         F, f_pad = self.num_features, self.f_pad
         frac = 1.0 if bagging is None else bagging["fraction"]
@@ -980,8 +1047,13 @@ class TreeLearner:
         k_used = max(1, int(np.ceil(F * feature_frac)))
         # the row uniforms key on the global row index (a PCG hash, as
         # the quantized rounding), so padding rows draw too and stay
-        # masked by the ones mask
-        iota = torch.arange(n_pad, dtype=torch.int64, device=dev)
+        # masked by the ones mask; under pre_partition this process's
+        # rows start at its first row shard's global index
+        row0 = (self.topology.row_shard(self.topology.first)
+                * (self.n_pad // self.d_shards)
+                if self._partitioned else 0)
+        iota = torch.arange(row0, row0 + n_pad, dtype=torch.int64,
+                            device=dev)
         # the fractions as f32 device scalars, made once (a host scalar
         # per call would be a blocking copy each tree)
         frac_t, pos_t, neg_t = (torch.tensor(np.float32(v), device=dev)

@@ -1,10 +1,13 @@
 """Evaluation metrics (reference src/metric/*.hpp).
 
-A copy of the single-process part of `lightgbm_tpu/models/metrics.py`:
-metrics evaluate on host numpy arrays and report (name, value,
-higher_is_better); `metrics_ext.py` registers the rest of the zoo.  The
-cross-process reductions of the JAX package are not part of the port
-yet.
+A copy of `lightgbm_tpu/models/metrics.py`: metrics evaluate on host
+numpy arrays and report (name, value, higher_is_better); `metrics_ext.py`
+registers the rest of the zoo.  Distribution-aware as there (reference
+Network::GlobalSyncUp*, include/LightGBM/network.h:168-275): in a
+`torch.distributed` group every metric reduces its sufficient statistics
+across ranks through `parallel/metric_sync.py`, so all ranks report the
+global value and early stopping fires at the same iteration everywhere.
+In one process the reductions are identities.
 """
 
 from __future__ import annotations
@@ -44,9 +47,14 @@ class Metric:
 
 
 def _avg(loss: np.ndarray, weight: Optional[np.ndarray], sum_w: float) -> float:
-    """Weighted average of a per-row loss."""
+    """Weighted average with the (numerator, denominator) pair summed
+    across processes — both stay LOCAL sums until here, so the division
+    happens on the global statistics on every rank."""
+    from ..parallel.metric_sync import sync_sums
+
     num = float(loss.sum()) if weight is None else float((loss * weight).sum())
-    return float(num / float(sum_w))
+    g_num, g_den = sync_sums([num, float(sum_w)])
+    return float(g_num / g_den)
 
 
 class L2Metric(Metric):
@@ -106,9 +114,18 @@ class AUCMetric(Metric):
     higher_is_better = True
 
     def eval(self, score, objective):
+        from ..parallel.metric_sync import process_count, sync_concat
+
         s = score[0]
         label = self.label
         weight = self.weight
+        if process_count() > 1:
+            # AUC is a pairwise rank statistic with no per-rank sufficient
+            # sum: merge the raw (score, label, weight) columns exactly
+            # across ranks, then rank globally
+            s, label, weight = sync_concat(
+                s, label,
+                weight if weight is not None else np.ones_like(s))
         order = np.argsort(s, kind="stable")
         sorted_score = s[order]
         sorted_pos = (label[order] > 0).astype(np.float64)

@@ -1,10 +1,11 @@
 """The extended metric zoo: the regression family, multiclass,
 cross-entropy and ranking metrics (reference src/metric/*.hpp).
 
-A copy of the single-process part of `lightgbm_tpu/models/metrics_ext.py`:
-every metric evaluates on host numpy.  The JAX package's cross-process
-reductions are identities in one process and are left out with the rest
-of the distributed layer.
+A copy of `lightgbm_tpu/models/metrics_ext.py`: every metric evaluates on
+host numpy, and reduces across processes where the JAX package does
+(`parallel/metric_sync.py`; sums only where each rank holds distinct
+rows, `topology.rows_partitioned()`).  Formulas cite the reference per
+class.
 """
 
 from __future__ import annotations
@@ -126,7 +127,21 @@ class GammaDevianceMetric(Metric):
         loss = tmp - _safe_log(tmp) - 1.0
         if self.weight is not None:
             loss = loss * self.weight
-        return float(loss.sum()) * 2.0
+        total = float(loss.sum())
+        # a global SUM (no denominator): unlike averaged losses, a sum is
+        # NOT replication-safe — adding the local sums of P replicated
+        # ranks reports P x the true value.  Reduce across ranks only
+        # when each rank actually holds a distinct row shard — DERIVED
+        # from the live topology's row placement, not the pre_partition
+        # config flag (a flag echo desynchronizes from reality the
+        # moment a new axis changes what the flag implies).
+        from ..parallel.topology import rows_partitioned
+
+        if rows_partitioned():
+            from ..parallel.metric_sync import sync_sums
+
+            total = float(sync_sums([total])[0])
+        return total * 2.0
 
 
 @register_metric
@@ -211,8 +226,17 @@ class AucMuMetric(Metric):
         self.num_class = nc
 
     def eval(self, score, objective):
+        from ..parallel.metric_sync import process_count, sync_concat
+
         nc = self.num_class
-        lbl = self.label.astype(np.int64)
+        lbl = self.label
+        if process_count() > 1:
+            # pairwise rank statistic across class partitions — like AUC,
+            # merge the raw per-rank columns exactly before ranking
+            merged = sync_concat(lbl, *[score[k] for k in range(nc)])
+            lbl = merged[0]
+            score = np.stack(merged[1:])
+        lbl = lbl.astype(np.int64)
         sizes = np.bincount(lbl, minlength=nc)
         ans = 0.0
         for i in range(nc):
@@ -284,20 +308,35 @@ class KLDivergenceMetric(Metric):
                            -y * np.log(y) - (1 - y) * np.log(1 - y), 0.0)
         if self.weight is not None:
             ent = ent * self.weight
-        self._entropy_sum = float(ent.sum())
+        # keep the LOCAL sum; the global average forms at eval time (init
+        # can run before the process group is the final word on rank
+        # membership, eval never does)
+        self._local_entropy_sum = float(ent.sum())
 
     def eval(self, score, objective):
+        from ..parallel.metric_sync import sync_sums
+
         if objective is not None:
             p = np.asarray(objective.convert_output(score[0]))
         else:
             p = score[0]
         xent = _avg(_xent_loss(self.label, p), self.weight, self.sum_weights)
-        return xent - float(self._entropy_sum / self.sum_weights)
+        g_ent, g_w = sync_sums([self._local_entropy_sum, self.sum_weights])
+        return xent - float(g_ent / g_w)
 
 
 # ---------------------------------------------------------------------------
 # Ranking metrics (reference rank_metric.hpp / map_metric.hpp)
 # ---------------------------------------------------------------------------
+
+def _sync_rank_sums(results: np.ndarray, sum_qw: float):
+    """Queries live whole on one rank, so rank metrics reduce as plain
+    (per-position weighted sums, query-weight sum) across processes."""
+    from ..parallel.metric_sync import sync_sums
+
+    g = sync_sums(np.concatenate([results, [sum_qw]]))
+    return g[:-1], float(g[-1])
+
 
 class _RankMetric(Metric):
     higher_is_better = True
@@ -359,7 +398,8 @@ class NDCGMetric(_RankMetric):
             for ki, k in enumerate(self.eval_at):
                 kk = min(k, len(g))
                 results[ki] += cum[kk - 1] * self.inv_max_dcgs[q, ki] * qw
-        results /= self.sum_query_weights
+        results, sum_qw = _sync_rank_sums(results, self.sum_query_weights)
+        results /= sum_qw
         return [(f"ndcg@{k}", float(v)) for k, v in zip(self.eval_at, results)]
 
     def eval(self, score, objective):
@@ -397,7 +437,8 @@ class MapMetric(_RankMetric):
                     results[ki] += (cum_ap[kk - 1] / min(npos, kk)) * qw
                 else:
                     results[ki] += 1.0 * qw
-        results /= self.sum_query_weights
+        results, sum_qw = _sync_rank_sums(results, self.sum_query_weights)
+        results /= sum_qw
         return [(f"map@{k}", float(v)) for k, v in zip(self.eval_at, results)]
 
     def eval(self, score, objective):

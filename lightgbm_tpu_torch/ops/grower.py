@@ -460,7 +460,6 @@ def check_sharded(params: GrowerParams, data_axis, feature_axis,
         raise ValueError(f"hist_agg={params.hist_agg!r}; expected psum or "
                          "scatter (the learner resolves 'auto' upstream)")
     off = [name for name, on in (
-        ("EFB bundles", params.has_bundles),
         ("sparse COO storage", params.has_sparse),
         ("categorical features", params.has_cat),
         ("CEGB", params.has_cegb), ("forced splits", bool(params.forced)),
@@ -470,7 +469,7 @@ def check_sharded(params: GrowerParams, data_axis, feature_axis,
     if off:
         raise NotImplementedError(
             f"{off[0]} under a sharded tree learner is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP A9b)")
+            "lightgbm_tpu_torch yet (ROADMAP A9c)")
 
 
 def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
@@ -833,6 +832,8 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         (SplitResult with global feature ids, None, None)."""
         if voting_k:
             return vote(hist, sg, sh, cnt, min_c, max_c), None, None
+        if params.has_bundles:
+            return bundle_search(hist, sg, sh, cnt, min_c, max_c), None, None
         acc = qscale if quantized else None
         if pool_scatter:
             # the features of this shard's column slice, against the
@@ -857,6 +858,36 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
             # so the tie-break is the serial lowest-feature rule
             res = sync_best(res, f_lo + res.feature, feature_axis)
         return res, None, None
+
+    def bundle_search(hist, sg, sh, cnt, min_c, max_c):
+        """EFB under data (grower.py:845-925): the bundle columns are
+        rescaled to f32 and expanded to the features bundled into them
+        (FixHistogram against the global leaf totals) before the search;
+        under scatter this shard's column slice [dax*SG, (dax+1)*SG) and
+        the features of its `scatter_feat` row, the winner synced over
+        the row axes as one record."""
+        hist = dequant(hist)
+        if not pool_scatter:
+            hist = expand_bundles(hist, sg, sh, cnt, meta_l)
+            pf = pf_search(hist, sg, sh, cnt, meta_l, fmask_l, min_c, max_c,
+                           split_kw)
+            bf = torch.argmax(pf.gain, dim=-1).to(i32)
+            return finalize_split(pf, bf, sg, sh, min_constraint=min_c,
+                                  max_constraint=max_c, **out_kw)
+        sfeat = meta["scatter_feat"][dax]                  # [SF], -1 pads
+        sidx = sfeat.clamp(min=0).long()
+        fmask_s = fmask_l[sidx] * (sfeat >= 0).to(f32)
+        meta_s = {k: meta_l[k][sidx] for k in (
+            "num_bin", "missing_type", "default_bin", "monotone", "penalty",
+            "bin_offset", "needs_fix")}
+        meta_s["bundle_idx"] = meta_l["bundle_idx"][sidx] - dax * SG
+        hist = expand_bundles(hist, sg, sh, cnt, meta_s)
+        pf = pf_search(hist, sg, sh, cnt, meta_s, fmask_s, min_c, max_c,
+                       split_kw)
+        bf = torch.argmax(pf.gain, dim=-1).to(i32)
+        res = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
+                             max_constraint=max_c, **out_kw)
+        return sync_best(res, sfeat[bf.long()], data_axis)
 
     search = select_sharded if sharded else select
 

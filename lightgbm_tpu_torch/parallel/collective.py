@@ -24,9 +24,13 @@ reference's semantics:
   raise becomes `HostDropped`.
 
 In one process the host-level collectives are identities (`local=True`:
-no watchdog thread, the fault points still fire).  The in-process shard
-group of `parallel/topology.py` takes its barrier timeout from the same
-process defaults (`defaults()["timeout_s"]`).
+no watchdog thread, the fault points still fire).  Across processes they
+ride `parallel/topology.py`'s gloo transport, whose group takes the same
+deadline; a host that drops or times out records its failure in the
+rendezvous store (`topology.note_failure`), so a peer whose transport
+then breaks raises `HostDropped` instead of hanging.  The shard group of
+`parallel/topology.py` takes its barrier timeout from the same process
+defaults (`defaults()["timeout_s"]`).
 
 Defaults are process-global (`configure`, the reference's
 Network::Init analog), wired from `tpu_collective_timeout_s` /
@@ -224,6 +228,10 @@ def guarded_collective(fn: Callable, *args,
             return result
         except (CollectiveTimeout, HostDropped, KeyboardInterrupt,
                 SystemExit) as exc:
+            if isinstance(exc, (CollectiveTimeout, HostDropped)):
+                from .topology import note_failure
+
+                note_failure(exc)
             if isinstance(exc, CollectiveTimeout):
                 obs.REGISTRY.inc(
                     "lgbm_collective_timeouts_total",

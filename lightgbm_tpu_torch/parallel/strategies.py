@@ -17,12 +17,15 @@ templates over the serial one; the JAX package wraps one grower body in
   data_feature — rows over (hosts, data) x features over 'feature'
 
 Here `make_strategy_grower` runs the same `ops/grower.py:grow` once a
-shard, SPMD (`run_shards`): each shard is a host thread on its own
-device and CUDA stream, its collectives are `parallel/topology.py`'s
-exchanges, and the caller gets the grower's out dict with the leaf ids of
-the row shards put back together in row order.  On one card every shard
-shares the card: a simulated grid, as the JAX tests simulate theirs on
-virtual CPU devices.
+shard of this process, SPMD (`run_shards`): each local shard is a host
+thread on its own device and CUDA stream, its collectives are
+`parallel/topology.py`'s exchanges (across processes through the
+group's leader), and the caller gets the grower's out dict with the leaf
+ids of the row shards put back together in row order: this process's
+rows where the rows were placed per process (`pre_partition`), else all
+of them, gathered across processes (`leaf_id_allgather`).  On one card
+every shard shares the card: a simulated grid, as the JAX tests simulate
+theirs on virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -121,8 +124,9 @@ class _ShardRun:
 def run_shards(topology: Topology, fn: Callable[[ShardContext], object],
                streams: Sequence, name: str = "grow",
                group: Optional[ShardGroup] = None) -> List[object]:
-    """Run fn(ctx) once a shard, each in its own thread on its device and
-    stream, and return the shards' results in rank order.  The shards'
+    """Run fn(ctx) once a shard of this process (`topology.local_ranks`),
+    each in its own thread on its device and stream (`streams`, one a
+    local shard), and return their results in rank order.  The shards'
     streams wait for the caller's work before they start, and the
     caller's streams for theirs after.  A shard that raises aborts the
     group: its peers' collectives raise `ShardAborted`, and the first
@@ -132,8 +136,9 @@ def run_shards(topology: Topology, fn: Callable[[ShardContext], object],
 
     group = ShardGroup(topology) if group is None else group
     runs = []
-    for rank, dev in enumerate(topology.devices):
-        stream = streams[rank]
+    for i, (rank, dev) in enumerate(zip(topology.local_ranks,
+                                        topology.devices)):
+        stream = streams[i]
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
         runs.append(_ShardRun(ShardContext(group, rank, dev, stream), fn))
@@ -155,7 +160,13 @@ def run_shards(topology: Topology, fn: Callable[[ShardContext], object],
     if group.failed is not None:
         errs = [r.error for r in runs if r.error is not None]
         own = [e for e in errs if not isinstance(e, ShardAborted)]
-        raise (own[0] if own else group.failed)
+        err = own[0] if own else group.failed
+        from .topology import note_failure
+
+        # a peer process blocked in the group's transport then raises
+        # HostDropped naming this one
+        note_failure(err)
+        raise err
     for r, stream in zip(runs, streams):
         if stream is not None:
             torch.cuda.current_stream(r.ctx.device).wait_stream(stream)
@@ -164,9 +175,12 @@ def run_shards(topology: Topology, fn: Callable[[ShardContext], object],
 
 class StrategyGrower:
     """`grow` of one strategy over its topology: the per-shard bins (and
-    feature slices) are the learner's, placed once; each call splits the
-    row vectors by row shard, runs the grower on every shard and puts the
-    out dict together on the first shard's device."""
+    feature slices) of this process's shards are the learner's, placed
+    once; each call splits the row vectors by row shard, runs the grower
+    on every local shard and puts the out dict together on the first
+    local shard's device.  The row vectors are global (every process
+    holds every row), or, where the rows were placed per process, this
+    process's row shards' rows only."""
 
     def __init__(self, params: G.GrowerParams, strategy: str,
                  topology: Topology, voting_k: int = 20):
@@ -198,7 +212,7 @@ class StrategyGrower:
                       else feature_mask.to(d)) for d in set(t.devices)}
 
         def one(ctx: ShardContext):
-            r = ctx.rank
+            r = ctx.rank - t.first
             return G.grow(self.params, bins[r], parts[0][r], parts[1][r],
                           parts[2][r], fmasks[ctx.device], metas[r], key,
                           data_axis=self.data_axis,
@@ -210,19 +224,31 @@ class StrategyGrower:
         group = ShardGroup(t)
         t0 = time.perf_counter()
         outs = run_shards(t, one, self.streams, group=group)
-        self.last_stats = {"wall_s": time.perf_counter() - t0,
-                           "collectives": group.collectives,
-                           "wait_s": list(group.wait_s)}
         first = outs[0]
         out = dict(first)
         dev0 = t.devices[0]
+        t1 = time.perf_counter()
         if rows:
-            # the row shards' leaf ids in row order (feature shards of a
-            # row shard hold the same ids)
+            # this process's row shards' leaf ids in row order (feature
+            # shards of a row shard hold the same ids)
             fs = t.feature_shards
             out["leaf_ids"] = torch.cat(
                 [outs[i]["leaf_ids"].to(dev0)
-                 for i in range(0, t.size, fs)])
+                 for i in range(0, t.local_size, fs)])
+            if t.processes > 1 and not t.partitioned_rows:
+                # every process holds every row: reassemble the global
+                # leaf ids on each (learner.py:1356-1368)
+                from .topology import host_device_allgather
+
+                out["leaf_ids"] = host_device_allgather(
+                    out["leaf_ids"], name="leaf_id_allgather")
+        self.last_stats = {"wall_s": time.perf_counter() - t0,
+                           "collectives": group.collectives,
+                           "wait_s": list(group.wait_s),
+                           "proc_collectives": group.proc_collectives,
+                           "proc_s": group.proc_s,
+                           "proc_bytes": group.proc_bytes,
+                           "leaf_gather_s": time.perf_counter() - t1}
         out["shard_leaf_ids"] = [o["leaf_ids"] for o in outs]
         out["buffer_bytes"] = {
             k: sum(o["buffer_bytes"][k] for o in outs)
@@ -230,15 +256,20 @@ class StrategyGrower:
         return out
 
     def _split(self, v: torch.Tensor, rows: bool) -> List[torch.Tensor]:
-        """Each shard's part of an [n_pad] row vector: its row shard's
-        slice (a view where it lives on the vector's device), or the
-        whole vector."""
+        """Each local shard's part of a row vector: its row shard's slice
+        (a view where it lives on the vector's device), or the whole
+        vector.  The vector spans every row shard ([n_pad]), or, where
+        the rows were placed per process, this process's row shards
+        only."""
         t = self.topology
-        P = t.data_shards
+        local = t.processes > 1 and t.partitioned_rows
+        P = t.data_shards // t.processes if local else t.data_shards
+        r0 = t.row_shard(t.first) if local else 0
         w = v.shape[0] // P if rows else v.shape[0]
         out = []
-        for rank, dev in enumerate(t.devices):
-            part = v.narrow(0, t.row_shard(rank) * w, w) if rows else v
+        for rank, dev in zip(t.local_ranks, t.devices):
+            part = v.narrow(0, (t.row_shard(rank) - r0) * w, w) if rows \
+                else v
             out.append(part if part.device == dev else part.to(dev))
         return out
 

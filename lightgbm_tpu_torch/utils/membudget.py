@@ -334,9 +334,9 @@ def _pool_shape(learner) -> Tuple[int, int, int]:
 
 
 def _shards(learner) -> int:
-    """Shards of the learner's grid (1: serial)."""
+    """Shards of the learner's grid this process runs (1: serial)."""
     t = getattr(learner, "topology", None)
-    return 1 if t is None else t.size
+    return 1 if t is None else t.local_size
 
 
 def _hist_operands(learner) -> list:
@@ -500,8 +500,11 @@ def plan_training(config, learner, num_class: int,
     comps["histogram_pool"] = (L1 * G * B * 3 * _pool_itemsize(precision)
                                * shards)
     planes, item = _stats_planes(precision)
-    # each shard's planes over its rows: n_pad a feature shard
-    comps["stats_planes"] = planes * n_pad * item * fs
+    # each shard's planes over its rows: this process's rows a feature
+    # shard (every row in one process)
+    t = getattr(learner, "topology", None)
+    local_rows = n_pad // (1 if t is None else t.processes)
+    comps["stats_planes"] = planes * local_rows * item * fs
     comps["kernel_scratch"] = kernel_scratch_bytes(learner)
     # the train scores the rollback snapshot holds and the new buffer an
     # iteration writes, and the same two of each validation set's
@@ -510,10 +513,11 @@ def plan_training(config, learner, num_class: int,
     # hessian, its int32 leaf ids, and its row mask where it draws one;
     # sharded, each shard's leaf ids besides (shard 0's are the tree's
     # where the rows are not sharded)
-    comps["row_state"] = (4 + _draws_row_mask(config)) * n_pad * 4
+    width = int(getattr(learner, "row_width", n_pad))
+    comps["row_state"] = (4 + _draws_row_mask(config)) * width * 4
     if shards > 1:
         rows_sharded = learner.strategy != "feature"
-        comps["row_state"] += (fs - (not rows_sharded)) * n_pad * 4
+        comps["row_state"] += (fs - (not rows_sharded)) * local_rows * 4
     comps["packed_forest"] = packed_forest_bytes(
         int(config.get("num_iterations", 100)) * k,
         int(config.get("num_leaves", 31)))

@@ -247,8 +247,10 @@ def test_category_and_object_columns_refused():
     ("resume_from_checkpoint", ("ckpt",)), ("set_network", ("a,b",)),
     ("free_network", ())])
 def test_unported_methods_raise_by_name(both, method, args, tmp_path):
-    """The network methods wait on a later slice and raise by name;
-    refit, once refused, refits as the JAX package's refit (regression:
+    """The network methods, once refused, record and forget the network
+    params as the JAX package's do (a list under num_machines=1 joins no
+    group); refit, once refused, refits as the JAX package's refit
+    (regression:
     the same text, leaf values bit for bit); the checkpoint methods, once
     refused, round-trip: a bundle one package saves, the other resumes
     to the same trees."""
@@ -272,8 +274,15 @@ def test_unported_methods_raise_by_name(both, method, args, tmp_path):
         assert _trees(fresh.model_to_string()) == _trees(text)
         return
     if method != "refit":
-        with pytest.raises(NotImplementedError, match=f"Booster.{method}"):
-            getattr(b, method)(*args)
+        j = jlgb.Booster(model_str=port["text"])
+        for booster in (b, j):
+            if method == "free_network":
+                booster.set_network("a,b")
+            assert getattr(booster, method)(*args) is booster
+        keys = ("machines", "local_listen_port", "num_machines")
+        assert {k: b.params.get(k) for k in keys} == \
+            {k: j.params.get(k) for k in keys}
+        assert ("machines" in b.params) == (method == "set_network")
         return
     X, y = _data()
     y2 = y[::-1] * 0.5

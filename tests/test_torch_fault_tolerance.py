@@ -240,13 +240,26 @@ def test_interrupted_prune_keeps_newest_and_recovers(tmp_path, monkeypatch):
 
 
 def test_group_layouts_are_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        CheckpointManager(str(tmp_path), host_count=2)
+    """Once refused by name, the group layouts are the JAX package's: a
+    manager of two hosts keeps this host's bundles under host-<k>/, and a
+    torn group manifest is skipped, so a resume over it trains from the
+    start (tests/test_torch_multiprocess.py holds real groups)."""
+    from lightgbm_tpu.utils.checkpoint import CheckpointManager as JMgr
+
+    for k in (0, 1):
+        mine = CheckpointManager(str(tmp_path), host_count=2, host_index=k)
+        theirs = JMgr(str(tmp_path), host_count=2, host_index=k)
+        assert mine.directory == theirs.directory
+        assert os.path.basename(mine.directory) == f"host-{k:05d}"
     (tmp_path / "global-00000003.json").write_text("{}")
+    assert CheckpointManager(str(tmp_path)).load_latest_group() is None
     X, y = _inputs()["X"], _inputs()["y"]
-    p = dict(INT8, **CPU, tpu_checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="checkpoint group"):
-        tlgb.train(p, tlgb.Dataset(X, label=y), 2, resume=True)
+    p = dict(INT8, **CPU, tpu_checkpoint_dir=str(tmp_path / "run"))
+    b = tlgb.train(p, tlgb.Dataset(X, label=y), 2)
+    (tmp_path / "run" / "global-00000003.json").write_text("{}")
+    again = tlgb.train(p, tlgb.Dataset(X, label=y), 2, resume=True)
+    assert again.num_trees() == 2
+    assert again.model_to_string() == b.model_to_string()
 
 
 # -- resume, in either package ----------------------------------------------

@@ -22,8 +22,12 @@ SMALL = {"objective": "binary", "num_leaves": 7, "max_bin": 15,
 
 
 def _port_sources():
+    # the package, the smoke, the probes of the card and the two-process
+    # tests' worker (it runs without JAX)
     files = sorted((ROOT / "lightgbm_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" /
+                    "torch_mp_worker.py"] + sorted(
+                        (ROOT / "probes").glob("*.py"))
 
 
 def _imported_modules(path):
@@ -97,12 +101,12 @@ SHARDED = [{"tree_learner": "data", "num_machines": 2},
            {"tree_learner": "data_feature", "num_machines": 4,
             "tpu_topology_hosts": 2}]
 
-# what a sharded learner does not carry yet (ROADMAP A9b), refused by name:
+# what a sharded learner does not carry yet (ROADMAP A9c), refused by name:
 # the parameters the case adds, the name the message gives, and the
-# Dataset's own arguments
+# Dataset's own arguments.  A machine list of several hosts and EFB
+# bundles under data, once refused here, now train
+# (tests/test_torch_multiprocess.py)
 SHARDED_REFUSALS = {
-    "machines": ({"machines": "10.0.0.1:12400,10.0.0.2:12400"},
-                 "machines=", {}),
     "sparse": ({"tpu_sparse_threshold": 0.5, "enable_bundle": False},
                "sparse COO storage", {}),
     "cegb": ({"cegb_penalty_split": 0.1}, "CEGB", {}),
@@ -115,7 +119,6 @@ SHARDED_REFUSALS = {
     "deterministic": ({"deterministic": True}, "deterministic=true", {}),
     "categorical": ({}, "categorical features",
                     {"categorical_feature": [0]}),
-    "efb": ({"enable_bundle": True}, "EFB bundles", {}),
     "streamed": ({"tpu_stream_mode": "streamed"},
                  "tpu_stream_mode=streamed requires tree_learner=serial",
                  {}),
@@ -170,10 +173,6 @@ def test_sharded_learner_refusals_name_what(case, tmp_path, monkeypatch):
     X, y = binary_data(n=600, f=3, seed=1)
     if case == "categorical":
         X[:, 0] = np.abs(np.nan_to_num(np.round(X[:, 0] * 2)))
-    if case == "efb":
-        # eight exclusive one-hot columns: one bundle
-        hot = np.eye(8)[np.random.default_rng(2).integers(0, 8, len(y))]
-        X = np.hstack([X, hot])
     params = dict(SMALL, **CPU, tree_learner="data", num_machines=2,
                   **extra)
     with pytest.raises(NotImplementedError, match=what.split("(")[0]) as ei:

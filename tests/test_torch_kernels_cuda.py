@@ -1773,3 +1773,71 @@ def test_sharded_int8_training_on_card_matches_cpu(learner):
         serial = {k: v for k, v in p.items()
                   if k not in ("tree_learner", "num_machines")}
         assert card == text(serial)
+
+
+@pytest.mark.parametrize("learner", ["data", "voting", "data_feature",
+                                     "data_efb"])
+def test_multiprocess_int8_on_one_card_matches_in_process(learner,
+                                                          tmp_path):
+    """Two processes on the first card (time-sliced CUDA contexts, each
+    launching B1-int and B3 cooperatively on its own shards), joined over
+    gloo: both ranks' int8 texts equal the in-process run's on the card
+    at tpu_topology_hosts=2, and each rank launched B1-int and B3 and no
+    B2.  data_efb: EFB bundles under data (B1-int on the bundle columns;
+    B3 refuses bundles, so a select partition)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import lightgbm_tpu_torch as lgb
+
+    from .test_torch_util import model_text
+    from .torch_mp_worker import INT8, grid_data
+
+    cuda_device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    efb = learner == "data_efb"
+    params = dict(INT8, tpu_partition_impl="select" if efb else "kernel",
+                  tree_learner="data" if efb else learner, num_machines=4)
+    spec = {"root": root, "out": str(tmp_path), "device": "cuda",
+            "machines": ",".join(f"127.0.0.1:{p}" for p in ports),
+            "rounds": 3, "grid": {learner: params}, "cases": ["grid"]}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    procs, logs = [], []
+    for rank in range(2):
+        logs.append(tmp_path / f"rank{rank}.log")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[2]); "
+             "from tests.torch_mp_worker import main; main()",
+             str(tmp_path / "spec.json"), root], cwd=root,
+            env=dict(os.environ, LIGHTGBM_TPU_PROCESS_ID=str(rank)),
+            stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT))
+    X, _, y = grid_data(learner)
+    q = dict(params, tpu_topology_hosts=2)
+    want = model_text(lgb.train(q, lgb.Dataset(X, label=y, params=q), 3))
+    for p in procs:
+        try:
+            p.wait(timeout=240)
+        except subprocess.TimeoutExpired:
+            for other in procs:
+                other.kill()
+            pytest.fail("\n".join(log.read_text()[-4000:] for log in logs))
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log.read_text()[-4000:]
+    for rank in range(2):
+        got = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        run = got["grid"][learner]
+        assert run["text"] == want
+        assert run["bundled"] == efb
+        assert run["launches"]["hist_batched_int"] > 0
+        assert (run["launches"]["partition_rows"] > 0) == (not efb)
+        assert run["launches"]["fused_hist_scan"] == 0

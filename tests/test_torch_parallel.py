@@ -627,11 +627,26 @@ def test_topology_vocabulary(case, _watchdog):
         assert np.array_equal(metric_sync.sync_sums([3.0]), [3.0])
         assert faultline.hits("collective_sync") - before == 2
     elif case == "multihost_refused":
-        with pytest.raises(NotImplementedError, match="A9b"):
-            mesh.init_multihost("10.0.0.1:12400,10.0.0.2:12400", 12400, 2)
+        # once refused by name, a machine list of several hosts now joins
+        # a process group (tests/test_torch_multiprocess.py): without a
+        # rank it raises the JAX package's ValueError, and a list of one
+        # host needs no group; put_local in one process is put_global
+        import os
+
+        env = {k: os.environ.pop(k) for k in ("LIGHTGBM_TPU_HOST_IP",
+                                              "LIGHTGBM_TPU_PROCESS_ID")
+               if k in os.environ}
+        try:
+            with pytest.raises(ValueError, match="position in `machines`"):
+                mesh.init_multihost("10.0.0.1:12400,10.0.0.2:12400",
+                                    12400, 2)
+        finally:
+            os.environ.update(env)
         assert mesh.init_multihost("10.0.0.1:12400", 12400, 2) is False
-        with pytest.raises(NotImplementedError, match="pre_partition"):
-            mesh.put_local(None, None, None)
+        t = make_topology(num_data_shards=2, devices=["cpu"])
+        v = torch.arange(8)
+        got = mesh.put_local(v, t, (8,), ROW_AXES, 0)
+        assert [x.tolist() for x in got] == [[0, 1, 2, 3], [4, 5, 6, 7]]
 
 
 def test_cost_models_are_the_jax_packages():
