@@ -891,6 +891,14 @@ def mono_path(lgb, kernels, X, y, w):
     report, booster = main_path(lgb, kernels, ds, X, y, params, ITERS,
                                 INT_KERNELS)
     report["ingest_s"] = ingest_s
+    report.update(check_monotone(booster, X, mono, "mono_int8"))
+    return report, booster
+
+
+def check_monotone(booster, X, mono, name):
+    """The predictions of MONO_ROWS held-out rows along MONO_GRID values
+    of each constrained column must be monotone in its direction; fails
+    otherwise.  Returns the check's counts for the path's report."""
     feats = split_features(booster)
     constrained = [j for j, c in enumerate(mono) if c]
     rows = X[N_TRAIN:N_TRAIN + MONO_ROWS]
@@ -904,14 +912,12 @@ def mono_path(lgb, kernels, X, y, w):
         step = np.diff(pred, axis=1) * mono[j]
         worst = min(worst, float(step.min()))
         if step.min() < 0:
-            fail(f"mono_int8: predictions fall along column {j} against "
+            fail(f"{name}: predictions fall along column {j} against "
                  f"its constraint {mono[j]} (by {-step.min()})")
-    report.update({
-        "constraints": mono, "splits": int(feats.size),
-        "splits_on_constrained": int(np.isin(feats, constrained).sum()),
-        "grid_checks": len(constrained) * MONO_ROWS * (MONO_GRID - 1),
-        "worst_step": worst})
-    return report, booster
+    return {"constraints": mono, "splits": int(feats.size),
+            "splits_on_constrained": int(np.isin(feats, constrained).sum()),
+            "grid_checks": len(constrained) * MONO_ROWS * (MONO_GRID - 1),
+            "worst_step": worst}
 
 
 def cegb_path(lgb, kernels, ds, X, y, plain):
@@ -943,16 +949,22 @@ def forced_path(lgb, kernels, ds, X, y, path):
     report, booster = main_path(lgb, kernels, ds, X, y,
                                 dict(PARAMS, forcedsplits_filename=path),
                                 ITERS, ("hist_batched", "partition_rows"))
+    report["forced_bins"] = check_forced(booster, ds, "forced_hilo")
+    return report, booster
+
+
+def check_forced(booster, ds, name):
+    """Every tree's first three splits must be FORCED_TREE's, on the
+    bins of their thresholds; fails otherwise.  Returns the bins."""
     mappers = ds._inner.mappers
     want = [int(mappers[f].value_to_bin(0.0)) for f in FORCED_HEAD]
     for i, t in enumerate(booster._driver.models):
         head = [int(f) for f in t.split_feature[:3]]
         bins = [int(b) for b in t.threshold_in_bin[:3]]
         if head != list(FORCED_HEAD) or bins != want:
-            fail(f"forced_hilo: tree {i} starts with features {head} at "
+            fail(f"{name}: tree {i} starts with features {head} at "
                  f"bins {bins}, not {list(FORCED_HEAD)} at {want}")
-    report["forced_bins"] = want
-    return report, booster
+    return want
 
 
 def det_path(lgb, kernels, ds, X, y, hilo_report):
@@ -4702,45 +4714,51 @@ SHARDED_PATHS = [
 ]
 
 
-def sharded_path(lgb, kernels, ds, X, y, params, must_launch, serial):
-    """Phase 3, one sharded path: train ITERS_SHARDED iterations at full
-    width and predict the held-out rows; B2 must not launch (the JAX
-    grower never runs it sharded).  Its held-out AUC beside the serial
-    booster's at as many iterations.  Returns (report, booster)."""
+def sharded_path(lgb, kernels, ds, X, y, params, must_launch, serial,
+                 iters=ITERS_SHARDED, per_shard=False, must_not=()):
+    """Phase 3, one sharded path: train `iters` iterations at full width
+    and predict the held-out rows; B2 must not launch (the JAX grower
+    never runs it sharded), nor the kernels `must_not`.  per_shard: each
+    kernel of `must_launch` launched at least once a tree a shard.  Its
+    held-out AUC beside the serial booster's at as many iterations.
+    Returns (report, booster)."""
     import torch
 
     Xho, yho = X[N_TRAIN:], y[N_TRAIN:]
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    booster = lgb.train(dict(params), ds, num_boost_round=ITERS_SHARDED,
+    booster = lgb.train(dict(params), ds, num_boost_round=iters,
                         keep_training_booster=True)
     trees = booster.num_trees()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    if trees != ITERS_SHARDED:
-        fail(f"trained {trees} trees, expected {ITERS_SHARDED}")
-    for name in must_launch:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on this sharded path")
-    if launches["fused_hist_scan"] != 0:
-        fail(f"B2 launched {launches['fused_hist_scan']} times under a "
-             "sharded learner")
+    if trees != iters:
+        fail(f"trained {trees} trees, expected {iters}")
     driver = booster._driver
     learner = driver.learner
     t = learner.topology
+    least = trees * t.size if per_shard else 1
+    for name in must_launch:
+        if launches[name] < least:
+            fail(f"kernel {name} was launched {launches[name]} times on "
+                 f"this sharded path, under {least}")
+    for name in must_not + ("fused_hist_scan",):
+        if launches[name] != 0:
+            fail(f"{name} launched {launches[name]} times on this sharded "
+                 "path")
     pred = booster.predict(Xho)
     if not np.all(np.isfinite(pred)) or pred.shape != (N_HOLD,):
         fail(f"held-out predictions: shape {pred.shape}")
     hold_auc = auc(pred, yho)
-    serial_auc = auc(serial.predict(Xho, num_iteration=ITERS_SHARDED), yho)
+    serial_auc = auc(serial.predict(Xho, num_iteration=iters), yho)
     if not 0.6 < hold_auc <= 1.0 or abs(hold_auc - serial_auc) > AUC_TOL:
         fail(f"held-out AUC {hold_auc} against the serial path's "
              f"{serial_auc}")
     per = {k: launches[k] / trees / t.size
            for k in SHARD_INT_KERNELS + ("hist_batched", "fused_hist_scan")}
-    return {"train_s": train_s, "iters_per_s": ITERS_SHARDED / train_s,
+    return {"train_s": train_s, "iters_per_s": iters / train_s,
             "holdout_auc": hold_auc,
             "serial_holdout_auc_at_same_iters": serial_auc,
             "auc_minus_serial": hold_auc - serial_auc,
@@ -4823,9 +4841,13 @@ def check_shards(boosters, gen):
 def cross_check_sharded(lgb, X, y, serial_params):
     """Phase 5 of the sharded learners: a data_int8 regression run on the
     first N_SMALL rows (the refit on) gives the same text on the card
-    and on the CPU; and at full width data_int8 with the refit off gives
-    the serial int8 path's text on the card (ITERS_SHARDED
-    iterations)."""
+    and on the CPU, and so does the two-process test's small int8 run
+    with the features once refused (a categorical column, monotone
+    constraints, per-node sampling, coupled CEGB); its deterministic=true
+    data run gives the CPU's text, or where a last bit of the f64
+    matmuls parts, its trees within F64_RTOL (as det_f64's phase 5); and
+    at full width data_int8 with the refit off gives the serial int8
+    path's text on the card (ITERS_SHARDED iterations)."""
     Xs = X[:N_SMALL]
     rng = np.random.default_rng(46)
     y_reg = Xs[:, 0] + 0.5 * Xs[:, 1] * Xs[:, 2] + 0.3 * rng.normal(
@@ -4842,6 +4864,56 @@ def cross_check_sharded(lgb, X, y, serial_params):
         fail("sharded: the data_int8 regression text differs card to CPU")
     out = {"sharded_data_int8_card_cpu_identical": True,
            "sharded_card_cpu_s": time.perf_counter() - t0}
+    # the two-process test's small runs (tests/test_torch_multiprocess.py
+    # and tests/torch_mp_worker.py: 4,096 x 10 regression, 15 leaves,
+    # max_bin 63): the features once refused, together (monotone
+    # constraints, per-node sampling, coupled CEGB, column 3 as twelve
+    # categories; data over 4 shards on 2 simulated hosts), and
+    # deterministic=true under data
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(7)
+    Xm = gen.normal(size=(MP_SMALL_ROWS, 10))
+    ym = Xm[:, 0] + 0.5 * Xm[:, 1] * Xm[:, 2] + 0.1 * gen.normal(
+        size=MP_SMALL_ROWS)
+    Xc = Xm.copy()
+    gen = np.random.default_rng(23)
+    Xc[:, 3] = gen.integers(0, 12, MP_SMALL_ROWS)
+    yc = ym + gen.normal(size=12)[Xc[:, 3].astype(int)]
+    small = {"objective": "regression", "num_leaves": 15, "max_bin": 63,
+             "min_data_in_leaf": 5, "tpu_block_rows": 512,
+             "tpu_hist_impl": "xla", "tpu_shape_buckets": 0,
+             "tpu_quant_refit_leaves": False, "verbosity": -1}
+    combined = dict(small, tpu_hist_precision="int8", tree_learner="data",
+                    num_machines=4, tpu_topology_hosts=2,
+                    tpu_partition_impl="select",
+                    monotone_constraints=[1, 1, -1] + [0] * 7,
+                    feature_fraction_bynode=0.5,
+                    cegb_penalty_feature_coupled=[5.0] * 10)
+    det = dict(small, tpu_hist_precision="f32", deterministic=True,
+               tree_learner="data", num_machines=4, tpu_topology_hosts=2)
+    for what, q0, Xq, yq, cat in (
+            ("features_int8", combined, Xc, yc, [3]),
+            ("data_f64", det, Xm, ym, "auto")):
+        texts, got = {}, {}
+        for dev in ("cuda", "cpu"):
+            q = dict(q0, device_type=dev)
+            got[dev] = lgb.train(q, lgb.Dataset(Xq, label=yq, params=q,
+                                                categorical_feature=cat),
+                                 MP_SMALL_ITERS, keep_training_booster=True)
+            texts[dev] = model_text(got[dev])
+            if got[dev].num_trees() != MP_SMALL_ITERS:
+                fail(f"sharded: the {what} run stopped at "
+                     f"{got[dev].num_trees()} trees")
+        same = texts["cuda"] == texts["cpu"]
+        out[f"sharded_{what}_card_cpu_identical"] = same
+        if not same and what == "data_f64":
+            # the serial f64 paths' card-CPU contract: cuBLAS and the
+            # CPU's f64 matmuls may part in a sum's last bit
+            out.update({f"sharded_{what}_{k}": v for k, v in _trees_close(
+                got["cpu"], got["cuda"], F64_RTOL, what).items()})
+        elif not same:
+            fail(f"sharded: the {what} regression text differs card to CPU")
+    out["sharded_features_card_cpu_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
                      params=dict(PARAMS)).construct()
@@ -4856,6 +4928,120 @@ def cross_check_sharded(lgb, X, y, serial_params):
     out["sharded_data_int8_equals_serial"] = True
     out["sharded_serial_s"] = time.perf_counter() - t0
     return out
+
+
+# ---- the sharded learners with the features they once refused (A9c) --------
+# the iterations of the paths whose serial paths are slow (det_f64,
+# cat_int8, sparse_hilo)
+ITERS_SHARDED_SLOW = 3
+# phase 5's runs at the two-process test's small shape
+MP_SMALL_ROWS = 4096
+MP_SMALL_ITERS = 2
+# CEGB under voting: CEGB_PARAMS without its lazy penalties, which a
+# sharded learner refuses as the JAX learner does
+VOTING_CEGB_PARAMS = dict(CEGB_PARAMS,
+                          cegb_penalty_feature_lazy=[0.0] * N_FEAT)
+# name -> (params, kernels each shard launches every tree, kernels that
+# must not launch, the serial path it is compared with, iterations); the
+# monotone path's constraints and the forced path's file are added where
+# they run.  Every shard shares the one card.  The serial path of
+# voting_cegb_int8 (cegb_int8 without its lazy penalties) is trained
+# where it runs
+FEATURE_PATHS = {
+    "data_mono_int8": (dict(MONO_PARAMS, tree_learner="data",
+                            num_machines=2), SHARD_INT_KERNELS, (),
+                       "mono_int8", ITERS_SHARDED),
+    "feature_bynode_int8": (dict(BYNODE_PARAMS, tree_learner="feature",
+                                 num_machines=2), SHARD_INT_KERNELS, (),
+                            "bynode_int8", ITERS_SHARDED),
+    "voting_cegb_int8": (dict(VOTING_CEGB_PARAMS, tree_learner="voting",
+                              num_machines=2, top_k=20), SHARD_INT_KERNELS,
+                         (), "cegb_coupled_int8", ITERS_SHARDED),
+    "data_forced_hilo": (dict(PARAMS, tree_learner="data", num_machines=2),
+                         ("hist_batched", "partition_rows"), (),
+                         "forced_hilo", ITERS_SHARDED),
+    "data_det_f64": (dict(DET_PARAMS, tree_learner="data", num_machines=2),
+                     ("partition_rows",), ("hist_batched",
+                                           "hist_batched_int"),
+                     "det_f64", ITERS_SHARDED_SLOW),
+    "data_cat_int8": (dict(CAT_PARAMS, tpu_hist_precision="int8",
+                           tree_learner="data", num_machines=2),
+                      ("hist_batched_int", "leaf_group", "leaf_sums"),
+                      ("partition_rows",), "cat_int8", ITERS_SHARDED_SLOW),
+    "data_sparse_hilo": (dict(SPARSE_PARAMS, tree_learner="data",
+                              num_machines=2), ("hist_batched",),
+                         ("partition_rows", "hist_batched_int"),
+                         "sparse_hilo", ITERS_SHARDED_SLOW),
+}
+
+
+def feature_path(lgb, kernels, name, ds, X, y, boosters, extra=None):
+    """Phase 3, one path of FEATURE_PATHS through `sharded_path` (its
+    kernels launched on each shard every tree, no B2), then the check its
+    serial path runs: the monotone grid, the forced heads, the features
+    CEGB lets split (fewer than the int8 path's in as many trees, and
+    every shard's CEGB state those features), the categorical splits by
+    mode, the f64 text equal to the serial path's first trees, the COO
+    entries of each row shard.  Returns (report, booster)."""
+    params, must, must_not, serial, iters = FEATURE_PATHS[name]
+    params = dict(params, **(extra or {}))
+    if serial not in boosters:
+        boosters[serial] = lgb.train(
+            dict(params, tree_learner="serial", num_machines=1), ds, iters,
+            keep_training_booster=True)
+    report, booster = sharded_path(lgb, kernels, ds, X, y, params, must,
+                                   boosters[serial], iters=iters,
+                                   per_shard=True, must_not=must_not)
+    report["serial_path"] = serial
+    learner = booster._driver.learner
+    if name == "data_mono_int8":
+        report.update(check_monotone(booster, X,
+                                     params["monotone_constraints"], name))
+    elif name == "data_forced_hilo":
+        report["forced_bins"] = check_forced(booster, ds, name)
+    elif name == "feature_bynode_int8":
+        report.update(draw_width=learner.draw_width, f_pad=learner.f_pad)
+    elif name == "voting_cegb_int8":
+        used = sorted({int(f) for f in split_features(booster)})
+        boosters["int8"].num_trees()     # the lazy trees materialized
+        plain = sorted({int(f) for t in boosters["int8"]._driver.models[
+            :iters] for f in t.split_feature[:t.num_leaves - 1]})
+        state = [m["cegb_used"].cpu().numpy() for m in learner.shard_metas]
+        if any(not np.array_equal(state[0], s) for s in state[1:]):
+            fail(f"{name}: the shards' CEGB states differ")
+        marked = sorted(int(learner.td.used_feature_idx[j]) for j in
+                        np.flatnonzero(state[0][:learner.num_features]))
+        if marked != used:
+            fail(f"{name}: the CEGB state marks {marked}, the trees split "
+                 f"on {used}")
+        if len(used) >= len(plain):
+            fail(f"{name} split on {len(used)} features, the int8 path on "
+                 f"{len(plain)} in as many trees")
+        report.update(features_used=used, int8_features_used=plain)
+    elif name == "data_cat_int8":
+        onehot, ctr = cat_splits(booster)
+        if onehot + ctr == 0:
+            fail(f"{name}: no categorical split")
+        report.update(cat_splits_onehot=onehot, cat_splits_ctr=ctr,
+                      cat_splits_per_tree=(onehot + ctr) / iters)
+    elif name == "data_det_f64":
+        if learner.params.precision != "f64":
+            fail(f"{name}: the learner does not run f64 histograms")
+        want = boosters[serial].model_to_string(num_iteration=iters)
+        if _tree_blocks(booster.model_to_string()) != _tree_blocks(want):
+            fail(f"{name}: the trees differ from the serial det_f64 path's "
+                 f"first {iters}")
+        report["trees_equal_serial"] = True
+    elif name == "data_sparse_hilo":
+        entries = [int(m["sp_rows"].numel()) for m in learner.shard_metas]
+        want = None if learner.sparse is None else learner.sparse["entries"]
+        if sum(entries) != want:
+            fail(f"{name}: the shards' COO tables hold {entries} entries "
+                 f"of {want}")
+        report.update(coo_features=len(learner.sparse["sparse_idx"]),
+                      coo_entries_by_shard=entries,
+                      window=learner.sparse["window"])
+    return report, booster
 
 
 # ---- the distributed learners across processes (ROADMAP A9b) ----------------
@@ -5281,6 +5467,24 @@ def main() -> None:
             lgb, kernels, ds, X, y, params, must, boosters[serial])
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
         print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
+    # the sharded learners with monotone constraints (their own Dataset:
+    # the constraints are a Dataset parameter), per-node sampling, CEGB,
+    # forced splits and deterministic=true
+    mono = mono_constraints(w)
+    mono_ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN], params=dict(
+        MONO_PARAMS, monotone_constraints=mono)).construct()
+    for name, data, extra in (
+            ("data_mono_int8", mono_ds, {"monotone_constraints": mono}),
+            ("feature_bynode_int8", ds, None),
+            ("voting_cegb_int8", ds, None),
+            ("data_forced_hilo", ds, {"forcedsplits_filename": forced_file}),
+            ("data_det_f64", ds, None)):
+        t0 = time.perf_counter()
+        reports[name], boosters[name] = feature_path(
+            lgb, kernels, name, data, X, y, boosters, extra)
+        print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+        print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
+    del mono_ds
     # the two-process paths (and phase 5's two-process check, whose
     # result joins the cross-checks)
     mp_cross = {}
@@ -5299,6 +5503,12 @@ def main() -> None:
         reports[name], boosters[name] = cat_path(
             lgb, kernels, cat_ds, Xc, y, params, must, must_not)
         print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+    t0 = time.perf_counter()
+    name = "data_cat_int8"
+    reports[name], boosters[name] = feature_path(lgb, kernels, name, cat_ds,
+                                                 Xc, y, boosters)
+    print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+    print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
     del cat_ds, Xc
     # sparse one-hot data: EFB bundles, both precisions, one Dataset
     t0 = time.perf_counter()
@@ -5328,6 +5538,12 @@ def main() -> None:
     print("main path sparse_hilo " + json.dumps(reports["sparse_hilo"]),
           flush=True)
     print(f"path_s sparse_hilo {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    name = "data_sparse_hilo"
+    reports[name], boosters[name] = feature_path(lgb, kernels, name, efb_ds,
+                                                 Xe, ye, boosters)
+    print(f"main path {name} " + json.dumps(reports[name]), flush=True)
+    print(f"path_s {name} {time.perf_counter() - t0:.1f}", flush=True)
     del efb_ds, inner
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -5415,6 +5631,10 @@ def main() -> None:
         row["worker_launches"] = {
             mp: [r[row["name"]] for r in reports[mp]["rank_launches"]]
             for mp, _ in MP_PATHS}
+        # and the sharded feature paths'
+        row["feature_path_launches"] = {
+            fp: reports[fp]["launches"].get(row["name"], 0)
+            for fp in FEATURE_PATHS}
         row["path"] = path
         print("kernel " + json.dumps(row), flush=True)
     kernel_rows = [row for row, _ in kernel_rows]
@@ -5481,7 +5701,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **({"operands": r["operands"]} if "operands" in r else {}),
-         "worker_launches": r["worker_launches"]}
+         "worker_launches": r["worker_launches"],
+         "feature_path_launches": r["feature_path_launches"]}
         for r in kernel_rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -736,7 +736,7 @@ class GBDT:
             if snap["feature_rng"] is not None:
                 self.learner._feature_rng.bit_generator.state = \
                     snap["feature_rng"]
-            self.learner.meta.update(snap["cegb"])
+            self.learner.set_cegb_state(snap["cegb"])
         self.iter_ = snap["iter"]
         self._stopped = snap["stopped"]
         self.shrinkage_rate = snap["shrinkage"]
@@ -918,7 +918,7 @@ class GBDT:
         self._ladder_carry = None
         if rng_state is not None:
             self.learner._feature_rng.bit_generator.state = rng_state
-        self.learner.meta.update(cegb)
+        self.learner.set_cegb_state(cegb)
         self._bag_cfg = self._bagging_config()
         self._invalidate_tables()
         self._make_train_step()

@@ -77,11 +77,15 @@ Under `pre_partition` in a group of several processes (`_partitioned`)
 each process holds only its own rows: the row shards are sized from the
 largest process's rows (`shard_rows_sync`), the row vectors span this
 process's row shards (`row_width`), and the leaf ids are this process's
-rows'.  What a sharded learner does not carry yet is refused by name
-(`check_sharded_slice`, and the categorical and monotone refusals at
-set-up).  EFB bundles train under data as in the JAX learner, the plan
-agreed across processes under pre_partition and, under scatter, each
-shard searching the features of its bundle columns (`scatter_feat`).
+rows'.  Each shard has a meta dict of its own (`shard_metas`): its CEGB
+state (`set_cegb_state`) and, with sparse storage under data or voting,
+the COO tables of its row shard (`_shard_sparse`).  The per-node masks
+are drawn over the JAX learner's width for the grid
+(`_jax_feature_width`).  Lazy CEGB penalties are refused as the JAX
+learner refuses them.  EFB bundles train under data as in the JAX
+learner, the plan agreed across processes under pre_partition and,
+under scatter, each shard searching the features of its bundle columns
+(`scatter_feat`).
 """
 
 from __future__ import annotations
@@ -148,9 +152,6 @@ def check_slice(config: Config) -> None:
     if str(c.boosting) not in ("gbdt", "goss", "dart", "rf",
                                "random_forest"):
         refuse(f"boosting={c.boosting!r}")
-    if resolve_tree_learner(c.tree_learner) != "serial" \
-            and int(c.num_machines) > 1:
-        check_sharded_slice(c)
     _dot_spec(str(c.tpu_hist_precision))
     if str(c.tpu_hist_impl) not in HIST_IMPLS:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
@@ -162,40 +163,6 @@ def check_slice(config: Config) -> None:
         refuse(f"tpu_telemetry={c.tpu_telemetry!r}")
     if str(c.tpu_trace_dir):
         refuse(f"tpu_trace_dir={c.tpu_trace_dir!r}")
-
-
-def check_sharded_slice(config: Config) -> None:
-    """What a sharded tree learner (tree_learner data, feature, voting or
-    data_feature with num_machines > 1) does not carry in this port yet
-    (ROADMAP A9c), refused by name in the JAX learner's order where it
-    has one: sparse storage (after the JAX package's own refusals of it,
-    with its texts), CEGB, forced splits, monotone constraints,
-    feature_fraction_bynode and deterministic=true.  Categorical
-    features and constraints given by the Dataset are refused where the
-    learner meets them."""
-    c = config
-
-    def refuse(what: str) -> None:
-        raise NotImplementedError(
-            f"{what} under tree_learner={c.tree_learner} is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP A9c)")
-
-    if float(c.tpu_sparse_threshold) > 0.0:
-        check_sparse_storage(c, TreeLearner.resolve_precision(c),
-                             str(c.tree_learner), forced=False)
-        refuse("sparse COO storage (tpu_sparse_threshold)")
-    if (any(float(v) != 0.0 for v in c.cegb_penalty_feature_coupled)
-            or any(float(v) != 0.0 for v in c.cegb_penalty_feature_lazy)
-            or float(c.cegb_penalty_split) != 0.0):
-        refuse("CEGB")
-    if str(c.forcedsplits_filename or ""):
-        refuse("forced splits (forcedsplits_filename)")
-    if any(int(v) != 0 for v in c.monotone_constraints):
-        refuse("monotone constraints")
-    if float(c.feature_fraction_bynode) < 1.0:
-        refuse("feature_fraction_bynode")
-    if bool(c.deterministic):
-        refuse("deterministic=true")
 
 
 def resolve_strategy(config: Config) -> Tuple[str, int, int, int, int]:
@@ -321,6 +288,7 @@ class TreeLearner:
                 raise ValueError("row shards must split evenly across "
                                  "processes for pre_partition")
         self.topology = None
+        self.shard_metas = None
         self.config = config
         self.td = train_data
         self.device = train_data.device
@@ -344,17 +312,6 @@ class TreeLearner:
         forced = self._parse_forced_splits(config, train_data)
         B = int(meta_np["num_bin"].max())
         self.num_bins = B
-        if sharded:
-            for what, on in (
-                    ("categorical features",
-                     bool(meta_np["is_categorical"].any())),
-                    ("monotone constraints",
-                     bool(np.any(meta_np["monotone"] != 0)))):
-                if on:
-                    raise NotImplementedError(
-                        f"{what} under tree_learner={config.tree_learner} "
-                        "is not ported to lightgbm_tpu_torch yet (ROADMAP "
-                        "A9c)")
         if B > MAX_WIDE_BINS:
             raise NotImplementedError(
                 f"max_bin={config.max_bin} (features with more than "
@@ -388,10 +345,19 @@ class TreeLearner:
         sparse_mask = None
         sth = float(config.tpu_sparse_threshold)
         if sth > 0.0:
-            check_sparse_storage(config, precision, "serial", bool(forced))
+            check_sparse_storage(config, precision, self.strategy,
+                                 bool(forced))
             nz_counts = train_data.column_nonzero_counts(
                 meta_np["default_bin"])
-            nz_frac = nz_counts / max(n, 1)
+            nz_all, denom = nz_counts, n
+            if self._partitioned:
+                # every process must pick the same sparse features: from
+                # the global shares (learner.py:330-340)
+                tot = topo.host_allgather(
+                    np.concatenate([nz_counts, [n]]).astype(np.int32),
+                    name="sparse_global_fractions").sum(axis=0)
+                nz_all, denom = tot[:-1], int(tot[-1])
+            nz_frac = nz_all / max(denom, 1)
             sp_mask = nz_frac <= sth
             if sp_mask.all():
                 # the dense histogram needs a column: the densest stays
@@ -459,26 +425,11 @@ class TreeLearner:
             # column slice of each feature shard's (learner.py:456-476)
             a = math.lcm(col_align, self.f_shards * self.d_shards)
             self.g_pad = -(-self.g_pad // a) * a
-        # the feature axis the JAX learner pads to for this impl
-        # (learner.py:371-386, 445-454): without bundles the column axis,
-        # 32-aligned for its perfeature and fused kernels, else unpadded,
-        # both bucketed (the perfeature kernel's axis to 32, the others'
-        # to 8); with bundles the features stay unpadded and only the
-        # bundle columns are aligned and bucketed, unless the two widths
-        # meet.  Its grower draws the per-node feature masks over that
-        # width, so the port draws over it too
-        aligned = impl in ("pallas2", "fused")
-        align = 32 if impl == "pallas2" else 8
-        if plan is None:
-            self.draw_width = -(-F // 32) * 32 if aligned else F
-            if buckets > 0:
-                self.draw_width = bucket_up(self.draw_width, align)
-        else:
-            g_jax = -(-self.num_columns // 32) * 32 if aligned \
-                else self.num_columns
-            self.draw_width = F
-            if buckets > 0 and g_jax == F:
-                self.draw_width = bucket_up(F, align)
+        # the feature axis the JAX learner pads to: its grower draws the
+        # per-node feature masks over that width, so the port draws over
+        # it too
+        self.draw_width = self._jax_feature_width(bucket_up, impl,
+                                                  plan is not None)
         # the features' axis of the meta arrays and the feature mask:
         # without bundles the columns, else the JAX learner's (no kernel
         # reads it)
@@ -559,6 +510,8 @@ class TreeLearner:
             min_gain_to_split=float(config.min_gain_to_split),
             max_depth=int(config.max_depth),
             has_cat=bool(meta_np["is_categorical"].any()),
+            cat_bins=int(meta_np["num_bin"][meta_np["is_categorical"] > 0]
+                         .max(initial=0)),
             max_cat_threshold=int(config.max_cat_threshold),
             cat_l2=float(config.cat_l2),
             cat_smooth=float(config.cat_smooth),
@@ -590,6 +543,11 @@ class TreeLearner:
             forced=forced,
             has_mono=bool(np.any(meta_np["monotone"] != 0)),
             hist_agg=self.hist_agg)
+        if has_cegb_lazy and sharded:
+            # learner.py:810-815: the paid matrix of a row-sharded
+            # learner would need a collective of its own
+            raise NotImplementedError(
+                "cegb_penalty_feature_lazy requires tree_learner=serial")
         # the JAX grower's refusals, at set-up as there
         G.check_params(self.params)
         # refit leaves: the trees take their leaf values from the grower's
@@ -609,11 +567,12 @@ class TreeLearner:
             # the CEGB state of the learner's lifetime (learner.py:810-830):
             # the features any split has used, and with lazy penalties
             # which rows have paid for which feature (bool, [f_pad, n_pad])
-            self.meta["cegb_used"] = torch.zeros(
-                self.f_pad, dtype=torch.float32, device=dev)
+            state = {"cegb_used": torch.zeros(self.f_pad, dtype=torch.float32,
+                                              device=dev)}
             if has_cegb_lazy:
-                self.meta["cegb_paid"] = torch.zeros(
+                state["cegb_paid"] = torch.zeros(
                     (self.f_pad, self.n_pad), dtype=torch.bool, device=dev)
+            self.set_cegb_state(state)
         # the sharded learners' grower: every shard runs ops/grower.py's
         # grow in its own thread (parallel/strategies.py)
         self._strategy_grow = make_strategy_grower(
@@ -716,8 +675,90 @@ class TreeLearner:
                      {k: v.to(d) for k, v in self.meta.items()})
                  for d in set(t.devices)}
         self.shard_bins, self.shard_hist_bins = bins, hist
-        self.shard_metas = [metas[d] for d in t.devices]
+        # a meta dict a shard: its sparse tables and its CEGB state are
+        # its own
+        self.shard_metas = [dict(metas[d]) for d in t.devices]
+        if self.sparse is not None:
+            for m, tables in zip(self.shard_metas, self._shard_sparse(t)):
+                m.update({k: v.to(m["num_bin"].device)
+                          for k, v in tables.items()})
         self.bins_t = None
+
+    def _shard_sparse(self, t) -> list:
+        """Each local row shard's COO tables (learner.py:527-560 of the
+        JAX package): the entries of its rows, in the (feature, row) order
+        of the learner's tables, with shard-local row ids, and their
+        offsets; the partition's window becomes the longest feature's
+        entries in any row shard (under pre_partition, of any process:
+        `sparse_table_width`)."""
+        m = self.meta
+        rps = self.n_pad // self.d_shards
+        rows = m["sp_rows"].long()
+        slot = m["sp_key"].long() // self.num_bins
+        Gs = m["sp_off"].shape[0] - 1
+        # the row shards the learner's rows span, from its first one's
+        r0 = t.row_shard(t.first) if self._partitioned else 0
+        span = self.row_width // rps
+        shard = rows // rps
+        counts = torch.bincount(shard * Gs + slot,
+                                minlength=span * Gs).reshape(span, Gs)
+        window = int(counts.max()) if counts.numel() else 0
+        if self._partitioned:
+            window = int(topo.host_allgather(
+                np.asarray([window], np.int32),
+                name="sparse_table_width").max())
+        self.sparse["window"] = max(window, 1)
+        out = []
+        for rank in t.local_ranks:
+            s = t.row_shard(rank) - r0
+            keep = shard == s
+            off = torch.zeros(Gs + 1, dtype=torch.int64, device=rows.device)
+            off[1:] = torch.cumsum(counts[s], 0)
+            out.append({"sp_rows": (rows[keep] - s * rps).to(torch.int32),
+                        "sp_key": m["sp_key"][keep], "sp_off": off})
+        return out
+
+    def set_cegb_state(self, state: dict) -> None:
+        """The CEGB state the next tree starts from (learner.py:
+        1337-1342) on the learner's meta and, sharded, on every shard's:
+        a copy a shard on its device, which its grower updates from the
+        synced records, so the copies stay equal."""
+        self.meta.update(state)
+        for m in self.shard_metas or ():
+            dev = m["num_bin"].device
+            m.update({k: v.to(dev, copy=True) for k, v in state.items()})
+
+    def _jax_feature_width(self, bucket_up, impl: str, bundled: bool) -> int:
+        """The feature axis the JAX learner pads to for this layout
+        (learner.py:215-220, 371-386, 445-476): the features padded to
+        the feature-shard count, then to 32 a feature shard (32 without
+        feature shards and bundles) under its perfeature and fused
+        kernels, bucketed with the columns where the two widths meet
+        (the perfeature kernel's to 32 a feature shard, the others' to
+        the shard count or 8), and under scatter to the grid's shard
+        count (with 32 a feature shard for the perfeature kernel); with
+        bundles only the bundle columns take the kernels' and the
+        scatter's alignments."""
+        fs = self.f_shards
+        f = -(-self.num_features // fs) * fs
+        g = f if fs > 1 else self.num_columns
+        if impl in ("pallas2", "fused"):
+            if fs > 1:
+                f = g = -(-f // (32 * fs)) * (32 * fs)
+            elif not bundled:
+                f = g = -(-f // 32) * 32
+            else:
+                g = -(-g // 32) * 32
+        if int(self.config.tpu_shape_buckets) > 0 and g == f:
+            f = bucket_up(f, (32 * fs) if impl == "pallas2"
+                          else (fs if fs > 1 else 8))
+        if (self.hist_agg == "scatter" and self.strategy != "voting"
+                and not bundled):
+            a = fs * self.d_shards
+            if impl == "pallas2":
+                a = math.lcm(a, 32 * fs)
+            f = -(-f // a) * a
+        return f
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -992,10 +1033,13 @@ class TreeLearner:
         self.last_buffers = self._buffers(out, g, h, mask)
         if self.params.has_cegb:
             # the CEGB state the next tree starts from (learner.py:
-            # 1337-1342)
+            # 1337-1342); each shard keeps the state its grower returned
             self.meta["cegb_used"] = out["cegb_used"]
             if self.params.has_cegb_lazy:
                 self.meta["cegb_paid"] = out["cegb_paid"]
+            for m, used in zip(self.shard_metas or (),
+                               out.get("shard_cegb_used", ())):
+                m["cegb_used"] = used
         leaf_out = out["leaf_output"] if self.refits_leaves else None
         if leaf_out is None:
             rec = out["records"].cpu().numpy()

@@ -124,7 +124,12 @@ aggregate over the row axes (psum, or a reduce-scatter to column slices
 with a best-split sync; voting aggregates only its voted features), a
 feature axis syncs each shard's best split, and the leaf totals, the
 quantization scales and the refit's sums reduce over the row axes.  No
-B2 there, as in the JAX grower.
+B2 there, as in the JAX grower.  Every feature above runs there too
+(grower.py:713-925,1625-1708): the serial merged search on the shard's
+slice or voted set with each leaf's bounds, mask and CEGB charges, the
+best-split sync carrying the categorical mask, the forced round's sums
+from the shard that owns the column, f64 sums in the members' order,
+and sparse zero bins rebuilt from global totals after the aggregation.
 """
 
 from __future__ import annotations
@@ -144,8 +149,8 @@ from .histogram import (INT_PRECISIONS, _unpack_hist,
 from .leafsum import leaf_sums
 from .predict import upload
 from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
-                    argbest, finalize_split, leaf_output, leaf_split_gain,
-                    numeric_go_left, per_feature_best_split,
+                    argbest, cat_scan_steps, finalize_split, leaf_output,
+                    leaf_split_gain, numeric_go_left, per_feature_best_split,
                     per_feature_best_split_categorical, reduce_sum,
                     unpack_pf_records)
 
@@ -182,6 +187,9 @@ class GrowerParams(NamedTuple):
     cat_smooth: float = 10.0
     max_cat_to_onehot: int = 4
     min_data_per_group: float = 100.0
+    # the most bins of a categorical feature (0: num_bins): the sorted-CTR
+    # scan stops changing after (bins + 1) // 2 steps
+    cat_bins: int = 0
     # leaves split per round; 1 = strict reference best-first order
     split_batch: int = 16
     # batch only leaves whose gain >= alpha * the round's best gain
@@ -303,12 +311,24 @@ def expand_sparse(hist: torch.Tensor, meta: Dict[str, torch.Tensor]
     (dense_ref) bins summed, in the histogram's own dtype, so that f64
     sparse storage gives the dense histograms' bits; sums in XLA's
     order (`split.reduce_sum`)."""
-    B = hist.shape[2]
     totals = reduce_sum(hist[:, meta["dense_ref"][0].long()], 1)  # [C, 3]
+    return fix_sparse_bins(hist, meta["is_sparse"], meta["default_bin"],
+                           totals)
+
+
+def fix_sparse_bins(hist: torch.Tensor, is_sparse: torch.Tensor,
+                    default_bin: torch.Tensor, totals: torch.Tensor
+                    ) -> torch.Tensor:
+    """hist [C, F, B, 3] with each sparse feature's default bin set to
+    the leaf totals [C, 3] minus its other bins (grower.py:643-651 of the
+    JAX package, vmapped over the C leaves there); is_sparse and
+    default_bin: [F], or [C, F] (each leaf its own features: the voted
+    sets)."""
+    B = hist.shape[2]
     iota_b = torch.arange(B, dtype=torch.int32, device=hist.device)
-    at_db = ((meta["is_sparse"] > 0)[:, None]
-             & (iota_b[None, :] == meta["default_bin"][:, None]))   # [F, B]
-    at_db = at_db[None, :, :, None]
+    at_db = ((is_sparse > 0)[..., None]
+             & (iota_b == default_bin[..., None]))            # [(C,) F, B]
+    at_db = (at_db if at_db.dim() == 3 else at_db[None])[..., None]
     zeroed = torch.where(at_db, 0.0, hist)
     bin0 = totals[:, None, :] - reduce_sum(zeroed, 2)              # [C, F, 3]
     return torch.where(at_db, bin0[:, :, None, :], zeroed)
@@ -450,26 +470,24 @@ def check_params(params: GrowerParams) -> None:
 
 def check_sharded(params: GrowerParams, data_axis, feature_axis,
                   voting_k: int) -> None:
-    """The sharded grower's refusals (grower.py:353-362,423-433 of the
-    JAX package), and what this port's sharded grower does not carry."""
+    """The sharded grower's refusals (grower.py:353-380,423-433 of the
+    JAX package)."""
     if voting_k and not data_axis:
         raise ValueError("voting requires a data axis")
     if voting_k and feature_axis:
         raise ValueError("voting does not compose with a feature axis")
+    if params.has_bundles and (feature_axis or voting_k):
+        raise ValueError("EFB bundling composes with serial/data learners "
+                         "only")
+    if params.has_sparse and feature_axis:
+        # grower.py:373-382: feature sharding replicates rows
+        raise ValueError(
+            "sparse train-time storage (tpu_sparse_threshold) requires "
+            "tree_learner=serial/data/voting, a select-family partition "
+            "lowering, and no EFB bundling / 4-bit packing")
     if params.hist_agg not in ("psum", "scatter"):
         raise ValueError(f"hist_agg={params.hist_agg!r}; expected psum or "
                          "scatter (the learner resolves 'auto' upstream)")
-    off = [name for name, on in (
-        ("sparse COO storage", params.has_sparse),
-        ("categorical features", params.has_cat),
-        ("CEGB", params.has_cegb), ("forced splits", bool(params.forced)),
-        ("monotone constraints", params.has_mono),
-        ("feature_fraction_bynode", params.feature_fraction_bynode < 1.0),
-        ("deterministic=true", params.precision == "f64")) if on]
-    if off:
-        raise NotImplementedError(
-            f"{off[0]} under a sharded tree learner is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP A9c)")
 
 
 def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
@@ -531,8 +549,8 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     sharded = data_axis is not None or feature_axis is not None
     if sharded:
         check_sharded(params, data_axis, feature_axis, voting_k)
-        from ..parallel.topology import (axis_best_split_sync, axis_index,
-                                         axis_pmax, axis_psum,
+        from ..parallel.topology import (FEATURE, axis_best_split_sync,
+                                         axis_index, axis_pmax, axis_psum,
                                          axis_psum_scatter, axis_size)
     if quantized and key is None:
         raise ValueError("the quantized precisions need the tree's key")
@@ -540,7 +558,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     L = params.num_leaves
     B = params.num_bins
     FG = feature_mask.shape[0]
-    meta_l, fmask_l, f_lo, bins_h = meta, feature_mask, 0, bins_t
+    meta_l, F, f_lo, bins_h = meta, FG, 0, bins_t
     if feature_axis:
         # this shard's feature slice [f_lo, f_lo + F) of the global axis
         F = FG // axis_size(feature_axis)
@@ -548,7 +566,6 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         meta_l = {k: (v[f_lo:f_lo + F]
                       if v.dim() == 1 and v.shape[0] == FG else v)
                   for k, v in meta.items()}
-        fmask_l = feature_mask[f_lo:f_lo + F]
         bins_h = hist_bins if hist_bins is not None \
             else bins_t[f_lo:f_lo + F].contiguous()
     # the column axis of the pool: the bins' columns, or with sparse
@@ -622,7 +639,6 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     # first (grower.py:845-848)
     int_scan = quantized and not params.has_cat and not params.has_bundles
     qscale = None
-    FG = feature_mask.shape[0]
     FW = params.bynode_width or FG
     if FW > FG:
         raise ValueError(f"bynode_width {FW} exceeds the feature axis {FG}")
@@ -667,7 +683,117 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
             d = d + meta["cegb_lazy"][None, :] * unpaid
         return tradeoff * d
 
-    def select(hist, sg, sh, cnt, min_c, max_c, fmask, delta=None):
+    # the per-feature meta arrays a search and its expansions read
+    feat_keys = ["num_bin", "missing_type", "default_bin", "monotone",
+                 "penalty"]
+    if params.has_cat:
+        feat_keys.append("is_categorical")
+    if params.has_sparse:
+        feat_keys.append("is_sparse")
+    if params.has_bundles:
+        feat_keys += ["bundle_idx", "bin_offset", "needs_fix"]
+
+    def per_feature(fmeta, idx):
+        """The per-feature meta arrays at feature indices idx: a slice,
+        [F'], or [C, F'] (each leaf its own features: the voted sets)."""
+        return {k: fmeta[k][idx] for k in feat_keys}
+
+    def take(a, idx):
+        """A per-feature vector, [F] or one a leaf [C, F] (a feature
+        mask, the CEGB charges; None stays None), at the feature indices
+        idx of `per_feature`."""
+        if a is None or isinstance(idx, slice) or idx.dim() == 1:
+            return None if a is None else a[..., idx]
+        return a[idx] if a.dim() == 1 else torch.gather(a, -1, idx.long())
+
+    def pick_f(a, bi):
+        """a [C, F'] at each leaf's feature index bi [C]."""
+        return torch.gather(a, -1, bi[..., None].long())[..., 0]
+
+    def pf_search(hist, sg, sh, cnt, fmeta, fmask, min_c, max_c, kw,
+                  acc=None):
+        return per_feature_best_split(
+            hist, sg, sh, cnt, fmeta["num_bin"], fmeta["missing_type"],
+            fmeta["default_bin"], fmeta["monotone"], fmeta["penalty"],
+            fmask, min_constraint=min_c, max_constraint=max_c,
+            acc_scale=acc, **kw)
+
+    cat_steps = cat_scan_steps(params.max_cat_threshold,
+                               params.cat_bins or B)
+
+    def combined(hist, sg, sh, cnt, fmeta, fmask, min_c, max_c, kw,
+                 acc=None):
+        """The per-feature bests of C leaves (`combined_search`,
+        grower.py:488-545): hist [C, F', B, 3] (int32 with `acc`, the
+        int32 bin prefix sums' scales), fmeta the features' meta arrays
+        ([F'] or [C, F']), fmask [F'] or [C, F'], min_c/max_c the
+        leaves' monotone bounds.  Under has_cat the numerical search
+        runs over the numerical features and the categorical one over
+        the others, merged by is_categorical.  Returns (gain [C, F'],
+        fin): fin(bi) is each leaf's (SplitResult, is_cat [C] bool,
+        cat_mask [C, B] f32) at its feature index bi [C], the last two
+        None without categorical features, so that each caller picks
+        its own winner."""
+        if not params.has_cat:
+            pf = pf_search(hist, sg, sh, cnt, fmeta, fmask, min_c, max_c,
+                           kw, acc)
+
+            def fin_plain(bi):
+                return finalize_split(pf, bi, sg, sh, min_constraint=min_c,
+                                      max_constraint=max_c,
+                                      **out_kw), None, None
+            return pf.gain, fin_plain
+        is_cat = fmeta["is_categorical"] > 0
+        catf = is_cat.to(f32)
+        pf = pf_search(hist, sg, sh, cnt, fmeta, fmask * (1.0 - catf),
+                       min_c, max_c, kw)
+        pfc = per_feature_best_split_categorical(
+            hist, sg, sh, cnt, fmeta["num_bin"], fmeta["missing_type"],
+            fmeta["penalty"], fmask * catf, cat_l2=params.cat_l2,
+            cat_smooth=params.cat_smooth,
+            max_cat_threshold=params.max_cat_threshold,
+            max_cat_to_onehot=params.max_cat_to_onehot,
+            min_data_per_group=params.min_data_per_group,
+            min_constraint=min_c, max_constraint=max_c,
+            scan_steps=cat_steps, **kw)
+        gain = torch.where(is_cat, pfc.gain, pf.gain)
+
+        def fin(bi):
+            resn = finalize_split(pf, bi, sg, sh, min_constraint=min_c,
+                                  max_constraint=max_c, **out_kw)
+            c = pick_f(is_cat.expand_as(gain), bi)
+            res = SplitResult(
+                gain=pick_f(gain, bi), feature=bi.to(i32),
+                # the serial record's threshold of a categorical split,
+                # which the shards' tie-break reads too
+                threshold=torch.where(c, 0, resn.threshold).to(i32),
+                default_left=resn.default_left & ~c,
+                left_sum_g=torch.where(c, pick_f(pfc.left_sum_g, bi),
+                                       resn.left_sum_g),
+                left_sum_h=torch.where(c, pick_f(pfc.left_sum_h, bi),
+                                       resn.left_sum_h),
+                left_count=torch.where(c, pick_f(pfc.left_count, bi),
+                                       resn.left_count),
+                left_output=torch.where(c, pick_f(pfc.left_output, bi),
+                                        resn.left_output),
+                right_output=torch.where(c, pick_f(pfc.right_output, bi),
+                                         resn.right_output))
+            mask = torch.gather(pfc.cat_mask, -2, bi.long()[..., None, None]
+                                .expand(*bi.shape, 1, B))[..., 0, :]
+            return res, c, mask * c[..., None].to(f32)
+        return gain, fin
+
+    def best(gain, fin, delta):
+        """Each leaf's best feature after the CEGB charges (the lowest
+        index among equal gains) and its split, whose gain is the
+        charged one (grower.py:903-909)."""
+        gain = apply_delta(gain, delta)
+        bf = torch.argmax(gain, dim=-1).to(i32)
+        res, c, mask = fin(bf)
+        return res._replace(gain=pick_f(gain, bf).float()), c, mask
+
+    def select(hist, sg, sh, cnt, min_c, max_c, fmask, delta=None,
+               sp_tot=None):
         """Best split of each leaf of the batch: hist [C, G, B, 3] (int32
         sums under the quantized precisions, rescaled after the bin
         prefix sums, or before the search with categorical features or
@@ -683,113 +809,69 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
             hist = expand_bundles(hist, sg, sh, cnt, meta)
         if params.has_sparse:
             hist = expand_sparse(hist, meta)
-        if not params.has_cat:
-            pf = per_feature_best_split(
-                hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
-                meta["default_bin"], meta["monotone"], meta["penalty"],
-                fmask, min_constraint=min_c, max_constraint=max_c,
-                acc_scale=qscale if int_scan else None, **split_kw)
-            return best_of(pf._replace(gain=apply_delta(pf.gain, delta)),
-                           sg, sh, min_c, max_c)
-        # the merged search (grower.py:509-543): numerical features
-        # through the numerical search, categorical ones through theirs
-        catf = meta["is_categorical"].to(f32)
-        pf = per_feature_best_split(
-            hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
-            meta["default_bin"], meta["monotone"], meta["penalty"],
-            fmask * (1.0 - catf), min_constraint=min_c,
-            max_constraint=max_c, **split_kw)
-        pfc = per_feature_best_split_categorical(
-            hist, sg, sh, cnt, meta["num_bin"], meta["missing_type"],
-            meta["penalty"], fmask * catf, cat_l2=params.cat_l2,
-            cat_smooth=params.cat_smooth,
-            max_cat_threshold=params.max_cat_threshold,
-            max_cat_to_onehot=params.max_cat_to_onehot,
-            min_data_per_group=params.min_data_per_group,
-            min_constraint=min_c, max_constraint=max_c, **split_kw)
-        is_cat = meta["is_categorical"] > 0
-        gain = apply_delta(torch.where(is_cat, pfc.gain, pf.gain), delta)
-        bf = torch.argmax(gain, dim=-1).to(i32)
-        resn = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
-                              max_constraint=max_c, **out_kw)
-        c = is_cat[bf.long()]
-
-        def pick(a):
-            return torch.gather(a, -1, bf[..., None].long())[..., 0]
-
-        res = SplitResult(
-            gain=pick(gain), feature=bf,
-            threshold=torch.where(c, 0, resn.threshold).to(i32),
-            default_left=resn.default_left & ~c,
-            left_sum_g=torch.where(c, pick(pfc.left_sum_g), resn.left_sum_g),
-            left_sum_h=torch.where(c, pick(pfc.left_sum_h), resn.left_sum_h),
-            left_count=torch.where(c, pick(pfc.left_count),
-                                   resn.left_count),
-            left_output=torch.where(c, pick(pfc.left_output),
-                                    resn.left_output),
-            right_output=torch.where(c, pick(pfc.right_output),
-                                     resn.right_output))
-        mask = torch.gather(pfc.cat_mask, -2, bf.long()[..., None, None]
-                            .expand(*bf.shape, 1, B))[..., 0, :]
-        return res, c, mask * c[..., None].to(f32)
+        return best(*combined(hist, sg, sh, cnt, meta, fmask, min_c, max_c,
+                              split_kw, qscale if int_scan else None), delta)
 
     def dequant(hh):
         return hh.to(f32) * qscale if quantized else hh
 
-    def sync_best(res: SplitResult, gfeat, axis) -> SplitResult:
+    def sync_best(res: SplitResult, is_cat, cmask, gfeat, axis):
         """The global best of the shards' best splits along `axis`, one
-        record a leaf (grower.py:713-743): `gfeat` is each leaf's winning
-        feature in the frame common to the axis, and becomes the
-        feature."""
+        record a leaf with its categorical flag and [B] mask
+        (grower.py:713-743): `gfeat` is each leaf's winning feature in
+        the frame common to the axis, and becomes the feature.  Returns
+        (SplitResult, is_cat, cat_mask) as the searches do."""
         payload = dict(default_left=res.default_left.to(i32),
                        left_sum_g=res.left_sum_g, left_sum_h=res.left_sum_h,
                        left_count=res.left_count,
                        left_output=res.left_output,
                        right_output=res.right_output)
+        if params.has_cat:
+            payload.update(is_cat=is_cat.to(i32), cat_mask=cmask)
         gain, feat, thr, w = axis_best_split_sync(
             axis, res.gain, gfeat.to(i32), res.threshold, payload)
-        return SplitResult(
+        res = SplitResult(
             gain=gain, feature=feat, threshold=thr.to(i32),
             default_left=w["default_left"] > 0, left_sum_g=w["left_sum_g"],
             left_sum_h=w["left_sum_h"], left_count=w["left_count"],
             left_output=w["left_output"], right_output=w["right_output"])
+        if params.has_cat:
+            return res, w["is_cat"] > 0, w["cat_mask"]
+        return res, None, None
 
-    def pf_search(hist, sg, sh, cnt, fmeta, fmask, min_c, max_c, kw,
-                  acc=None):
-        return per_feature_best_split(
-            hist, sg, sh, cnt, fmeta["num_bin"], fmeta["missing_type"],
-            fmeta["default_bin"], fmeta["monotone"], fmeta["penalty"],
-            fmask, min_constraint=min_c, max_constraint=max_c,
-            acc_scale=acc, **kw)
+    def leaf_totals(hist):
+        """[C, 3]: each leaf's totals from one dense feature's bins of
+        hist [C, F, B, 3] (every row lands in one bin of every feature):
+        exact int32, or summed in XLA's order."""
+        dref = (meta_l["dense_ref"][:1].long() if params.has_sparse
+                else torch.zeros(1, dtype=torch.int64, device=dev))
+        col = torch.index_select(hist, 1, dref)[:, 0]
+        return col.sum(1) if quantized else reduce_sum(col, 1)
 
-    def per_feature(fmeta, idx):
-        """The per-feature meta arrays at feature indices idx."""
-        return {k: fmeta[k][idx] for k in ("num_bin", "missing_type",
-                                           "default_bin", "monotone",
-                                           "penalty")}
-
-    def vote(hist, sg, sh, cnt, min_c, max_c):
+    def vote(hist, sg, sh, cnt, min_c, max_c, fmask, delta):
         """Voting's search of C leaves (grower.py:757-840): hist [C, F,
         B, 3] is each leaf's LOCAL histogram.  The local search (min data
-        and hessian at 1/P) votes each leaf's top 2k features, weighted
-        by gain; the psummed votes pick the k features whose histograms
-        alone are aggregated (reduce-scattered under scatter) and
-        searched against the global totals; the lowest global feature
-        id wins a tie."""
+        and hessian at 1/P, each leaf's bounds and mask; sparse zero bins
+        from the local totals) votes each leaf's top 2k features,
+        weighted by gain; the psummed votes pick the k features whose
+        histograms alone are aggregated (reduce-scattered under scatter)
+        and searched against the global totals, with the CEGB charges;
+        the lowest global feature id wins a tie."""
         C, F = hist.shape[0], hist.shape[1]
-        # each leaf's local totals from feature 0's bins (every row lands
-        # in one bin of every feature): exact int32, or in XLA's order
-        loc = dequant(hist[:, 0].sum(1) if quantized
-                      else reduce_sum(hist[:, 0], 1))          # [C, 3]
-        gain_loc = pf_search(dequant(hist), loc[:, 0], loc[:, 1],
-                             loc[:, 2], meta_l, fmask_l, min_c, max_c,
-                             local_kw).gain                    # [C, F]
+        loc = dequant(leaf_totals(hist))                         # [C, 3]
+        hist_loc = (fix_sparse_bins(hist, meta_l["is_sparse"],
+                                    meta_l["default_bin"], loc)
+                    if params.has_sparse else hist)
+        gain_loc, _ = combined(dequant(hist_loc), loc[:, 0], loc[:, 1],
+                               loc[:, 2], meta_l, fmask, min_c, max_c,
+                               local_kw)                         # [C, F]
         order = torch.sort(gain_loc, dim=-1, descending=True, stable=True)
         k2 = min(2 * voting_k, F)
         vals, idx = order.values[:, :k2], order.indices[:, :k2]
+        # f32 votes, the f64 gains of deterministic=true cast down
         contrib = torch.zeros((C, F), dtype=f32, device=dev)
         contrib.scatter_add_(1, idx, torch.where(vals > K_MIN_SCORE / 2,
-                                                 vals, 0.0))
+                                                 vals, 0.0).to(f32))
         score = axis_psum(contrib, data_axis)
         kk = min(voting_k, F)
         sel = torch.sort(score, dim=-1, descending=True,
@@ -807,87 +889,85 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                                          data_axis, 1)
             W = kp // num_shards
             sel_loc = sel_p[:, dax * W:(dax + 1) * W]
-            fmask_sel = fmask_l[sel_loc] * vmask[dax * W:(dax + 1) * W]
+            fmask_sel = take(fmask, sel_loc) * vmask[dax * W:(dax + 1) * W]
         else:
             sel_loc = sel
             sel_hist = axis_psum(torch.gather(hist, 1, gat), data_axis)
-            fmask_sel = fmask_l[sel]
-        pf = pf_search(dequant(sel_hist), sg, sh, cnt,
-                       per_feature(meta_l, sel_loc), fmask_sel, min_c,
-                       max_c, split_kw)
-        bi = argbest(pf.gain, sel_loc)
-        res = finalize_split(pf, bi, sg, sh, min_constraint=min_c,
-                             max_constraint=max_c, **out_kw)
-        feat = torch.gather(sel_loc, 1, bi[:, None].long())[:, 0]
-        res = res._replace(feature=feat.to(i32))
+            fmask_sel = take(fmask, sel)
+        sel_meta = per_feature(meta_l, sel_loc)
+        if params.has_sparse:
+            # the voted block's zero bins from the global totals
+            sel_hist = fix_sparse_bins(sel_hist, sel_meta["is_sparse"],
+                                       sel_meta["default_bin"],
+                                       axis_psum(loc, data_axis))
+        gain_sel, fin = combined(dequant(sel_hist), sg, sh, cnt, sel_meta,
+                                 fmask_sel, min_c, max_c, split_kw)
+        gain_sel = apply_delta(gain_sel, take(delta, sel_loc))
+        bi = argbest(gain_sel, sel_loc)
+        res, c, mask = fin(bi)
+        feat = pick_f(sel_loc, bi)
+        res = res._replace(feature=feat.to(i32),
+                           gain=pick_f(gain_sel, bi).float())
         if vote_scatter:
-            res = sync_best(res, feat, data_axis)
-        return res
+            return sync_best(res, c, mask, feat, data_axis)
+        return res, c, mask
 
-    def select_sharded(hist, sg, sh, cnt, min_c, max_c, *_):
+    def select_sharded(hist, sg, sh, cnt, min_c, max_c, fmask, delta=None,
+                       sp_tot=None):
         """A sharded learner's search of C leaves (grower.py:745-925):
         hist [C, SG, B, 3] is the aggregated histogram (this shard's
         column slice under scatter, its feature slice under a feature
-        axis; each shard's local one under voting).  Returns
-        (SplitResult with global feature ids, None, None)."""
+        axis; each shard's local one under voting); fmask and delta are
+        global-width, [F] or one a leaf [C, F]; sp_tot [C, 3], the
+        leaves' exact totals under scatter with sparse storage.  Returns
+        (SplitResult with global feature ids, is_cat, cat_mask)."""
+        if feature_axis:
+            fmask = take(fmask, slice(f_lo, f_lo + F))
+            delta = take(delta, slice(f_lo, f_lo + F))
         if voting_k:
-            return vote(hist, sg, sh, cnt, min_c, max_c), None, None
-        if params.has_bundles:
-            return bundle_search(hist, sg, sh, cnt, min_c, max_c), None, None
-        acc = qscale if quantized else None
+            return vote(hist, sg, sh, cnt, min_c, max_c, fmask, delta)
+        if not int_scan:
+            hist = dequant(hist)
+        fmeta = meta_l
         if pool_scatter:
             # the features of this shard's column slice, against the
-            # global leaf totals; the winner synced over the row axes
-            SF = SG
-            s0 = dax * SF
-            pf = pf_search(hist, sg, sh, cnt,
-                           per_feature(meta_l, slice(s0, s0 + SF)),
-                           fmask_l[s0:s0 + SF], min_c, max_c, split_kw, acc)
-            bf = torch.argmax(pf.gain, dim=-1).to(i32)
-            res = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
-                                 max_constraint=max_c, **out_kw)
-            res = sync_best(res, s0 + bf, data_axis)
-        else:
-            pf = pf_search(hist, sg, sh, cnt, meta_l, fmask_l, min_c, max_c,
-                           split_kw, acc)
-            bf = torch.argmax(pf.gain, dim=-1).to(i32)
-            res = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
-                                 max_constraint=max_c, **out_kw)
+            # global leaf totals; the winner synced over the row axes.
+            # With bundles its features are its `scatter_feat` row (each
+            # row ascending, -1 padded), else the slice's columns
+            if params.has_bundles:
+                sfeat = meta["scatter_feat"][dax]
+                idx = sfeat.clamp(min=0).long()
+                fmeta = per_feature(meta_l, idx)
+                fmeta["bundle_idx"] = fmeta["bundle_idx"] - dax * SG
+                fmask = take(fmask, idx) * (sfeat >= 0).to(f32)
+            else:
+                idx = slice(dax * SG, (dax + 1) * SG)
+                sfeat = torch.arange(dax * SG, (dax + 1) * SG, dtype=i32,
+                                     device=dev)
+                fmeta = per_feature(meta_l, idx)
+                fmask = take(fmask, idx)
+            delta = take(delta, idx)
+            if params.has_sparse:
+                # the zero bins from the threaded exact totals: dense_ref's
+                # column may live on another shard
+                hist = fix_sparse_bins(hist, fmeta["is_sparse"],
+                                       fmeta["default_bin"], sp_tot)
+        elif params.has_sparse:
+            hist = expand_sparse(hist, meta_l)
+        if params.has_bundles:
+            hist = expand_bundles(hist, sg, sh, cnt, fmeta)
+        res, c, mask = best(*combined(
+            hist, sg, sh, cnt, fmeta, fmask, min_c, max_c, split_kw,
+            qscale if int_scan else None), delta)
+        if pool_scatter:
+            res, c, mask = sync_best(res, c, mask, sfeat[res.feature.long()],
+                                     data_axis)
         if feature_axis:
             # contiguous feature slices keep f_lo + local ids ascending,
             # so the tie-break is the serial lowest-feature rule
-            res = sync_best(res, f_lo + res.feature, feature_axis)
-        return res, None, None
-
-    def bundle_search(hist, sg, sh, cnt, min_c, max_c):
-        """EFB under data (grower.py:845-925): the bundle columns are
-        rescaled to f32 and expanded to the features bundled into them
-        (FixHistogram against the global leaf totals) before the search;
-        under scatter this shard's column slice [dax*SG, (dax+1)*SG) and
-        the features of its `scatter_feat` row, the winner synced over
-        the row axes as one record."""
-        hist = dequant(hist)
-        if not pool_scatter:
-            hist = expand_bundles(hist, sg, sh, cnt, meta_l)
-            pf = pf_search(hist, sg, sh, cnt, meta_l, fmask_l, min_c, max_c,
-                           split_kw)
-            bf = torch.argmax(pf.gain, dim=-1).to(i32)
-            return finalize_split(pf, bf, sg, sh, min_constraint=min_c,
-                                  max_constraint=max_c, **out_kw)
-        sfeat = meta["scatter_feat"][dax]                  # [SF], -1 pads
-        sidx = sfeat.clamp(min=0).long()
-        fmask_s = fmask_l[sidx] * (sfeat >= 0).to(f32)
-        meta_s = {k: meta_l[k][sidx] for k in (
-            "num_bin", "missing_type", "default_bin", "monotone", "penalty",
-            "bin_offset", "needs_fix")}
-        meta_s["bundle_idx"] = meta_l["bundle_idx"][sidx] - dax * SG
-        hist = expand_bundles(hist, sg, sh, cnt, meta_s)
-        pf = pf_search(hist, sg, sh, cnt, meta_s, fmask_s, min_c, max_c,
-                       split_kw)
-        bf = torch.argmax(pf.gain, dim=-1).to(i32)
-        res = finalize_split(pf, bf, sg, sh, min_constraint=min_c,
-                             max_constraint=max_c, **out_kw)
-        return sync_best(res, sfeat[bf.long()], data_axis)
+            res, c, mask = sync_best(res, c, mask, f_lo + res.feature,
+                                     feature_axis)
+        return res, c, mask
 
     search = select_sharded if sharded else select
 
@@ -960,9 +1040,17 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
     leaf_ids = torch.zeros(n_pad, dtype=i32, device=dev)
     root_slots = torch.full((K,), -1, dtype=i32, device=dev)
     root_slots[0] = 0
-    root_hist = (stream.root_histogram(stats, leaf_ids, root_slots)
-                 if stream is not None
-                 else agg_hist(histograms(leaf_ids, root_slots)[0]))
+    root_local = (stream.root_histogram(stats, leaf_ids, root_slots)
+                  if stream is not None
+                  else histograms(leaf_ids, root_slots)[0])
+    # scatter with sparse storage (grower.py:635-640,1069-1078): each
+    # leaf's exact totals in the histograms' dtype, from dense_ref's
+    # local bins psummed, kept beside the pool (dense_ref's column may
+    # land on another shard)
+    sparse_tot = pool_scatter and params.has_sparse
+    tot_root = (preduce(leaf_totals(root_local[None])[0]) if sparse_tot
+                else None)
+    root_hist = agg_hist(root_local)
     big = torch.tensor(1e30, dtype=f32, device=dev)
     root_fmask = feature_mask
     node_key = key
@@ -990,7 +1078,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         delta0 = cegb_delta(used0, cnt.reshape(1), unpaid_root)[0]
     root, root_iscat, root_cmask = search(
         root_hist[None], sum_g[None], sum_h[None], cnt[None], -big, big,
-        root_fmask, delta0)
+        root_fmask, delta0, None if tot_root is None else tot_root[None])
     if fused_scan:
         # the megakernel's per-feature tables (the JAX package's fused.py
         # layout); no per-node masks on this path, so the feature mask
@@ -1045,6 +1133,10 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         if params.has_cegb_lazy:
             st["paid"] = paid0
     st["pool"][0] = root_hist
+    if sparse_tot:
+        st["leaf_tot"] = torch.zeros((L + 1, 3), dtype=root_hist.dtype,
+                                     device=dev)
+        st["leaf_tot"][0] = tot_root
     # K slack rows so the last round's full-width write stays in bounds
     RW = REC_WIDTH + (B if params.has_cat else 0)
     records = torch.zeros((L - 1 + K, RW), dtype=f32, device=dev)
@@ -1075,6 +1167,9 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         cols[:, :n_pad] = torch.where(
             sp, meta["default_bin"][f].to(i32)[:, None],
             bins_t[meta["dense_col"][f].long()].to(i32))          # [Kr, n]
+        if not n_entries:
+            # a row shard whose sparse features store no entry
+            return cols[:, :n_pad]
         slot = meta["sparse_slot"][f].long()
         pos = meta["sp_off"][slot][:, None] + win                 # [Kr, M]
         e = pos.clamp(max=n_entries - 1)
@@ -1255,7 +1350,10 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
                 stats, leaf_ids, sel, new_ids, do_k, sel_feat, sel_thr,
                 sel_dleft, smaller_ids, meta)
         else:
-            hist_small = agg_hist(histograms(leaf_ids, smaller_ids))
+            h_local = histograms(leaf_ids, smaller_ids)
+            if sparse_tot:
+                tot_small = preduce(leaf_totals(h_local))       # [Kr, 3]
+            hist_small = agg_hist(h_local)
         hist_large = parent_hist - hist_small
         sil = smaller_is_left[:, None, None, None]
         hist_left = torch.where(sil, hist_small, hist_large)
@@ -1269,6 +1367,16 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
             st[key].index_copy_(0, at_new, right.to(st[key].dtype))
 
         put("pool", hist_left, hist_right)
+        tot_children = None
+        if sparse_tot:
+            # the children's exact totals, the smaller's summed, its
+            # sibling's by subtraction (grower.py:1455-1465)
+            tot_large = st["leaf_tot"][sl] - tot_small
+            sl3 = smaller_is_left[:, None]
+            tot_left = torch.where(sl3, tot_small, tot_large)
+            tot_right = torch.where(sl3, tot_large, tot_small)
+            put("leaf_tot", tot_left, tot_right)
+            tot_children = torch.cat([tot_left, tot_right])
 
         # best splits of all 2K children
         child_masks = feature_mask
@@ -1291,7 +1399,7 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
             ch, ch_iscat, ch_cmask = search(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
                 torch.cat([lh, rh]), torch.cat([lc, rc]), ch_min, ch_max,
-                child_masks, delta)
+                child_masks, delta, tot_children)
 
         # the record block reads the parent's output before it changes
         rec = torch.stack([
@@ -1357,7 +1465,26 @@ def grow(params: GrowerParams, bins_t: Optional[torch.Tensor],
         db_f = meta["default_bin"][feat]
         nan_excl = (mt == MISSING_NAN) & (iota_b == nb_f - 1)
         mask_b = ((iota_b <= thr) & (iota_b < nb_f) & ~nan_excl).to(f32)
-        sums = reduce_sum(st["pool"][parent, feat] * mask_b[:, None], 0)
+        # sharded (grower.py:1641-1671): the forced feature's pooled
+        # column lives on the shard of its feature slice and, under
+        # scatter, of its column slice; that shard adds its sums, every
+        # other one zeros, and one psum over the sliced axes hands them
+        # to all.  Voting keeps its pool local: one more psum over the
+        # row axes
+        f_loc, own, axes = feat, True, ()
+        if feature_axis:
+            own = f_loc // F == axis_index(feature_axis)
+            f_loc, axes = f_loc % F, (FEATURE,)
+        if pool_scatter:
+            own = own and f_loc // SG == dax
+            f_loc = f_loc % SG
+            axes += ((data_axis,) if isinstance(data_axis, str)
+                     else tuple(data_axis))
+        sums = reduce_sum(st["pool"][parent, f_loc] * mask_b[:, None], 0)
+        if axes:
+            sums = axis_psum(sums if own else torch.zeros_like(sums), axes)
+        if voting_k:
+            sums = axis_psum(sums, data_axis)
         lg0, lh0, lc0 = sums[0], sums[1], sums[2]
         pg0, ph0, pc0 = (st["leaf_sum_g"][parent], st["leaf_sum_h"][parent],
                          st["leaf_cnt"][parent])

@@ -377,7 +377,8 @@ def per_feature_best_split_categorical(
     `lightgbm_tpu/ops/split.py:per_feature_best_split_categorical`.
 
     hist: [..., F, B, 3] f32; sum_g/sum_h/num_data and the bounds: [...];
-    num_bin/missing_type/penalty: [F]; feature_mask: [F] or [..., F].
+    num_bin/missing_type/penalty and feature_mask: [F], or [..., F]
+    (each leaf its own features: the voting learner's voted sets).
 
     Two modes a feature, by num_bin <= max_cat_to_onehot: one-hot (each
     category bin against the rest, vectorized over the bins), or the
@@ -416,7 +417,7 @@ def per_feature_best_split_categorical(
     min_gain_shift = gain_shift + min_gain_to_split
 
     # ---- one-hot mode (hpp:137-169) --------------------------------------
-    in_range = bin_iota < used_bin[:, None]                     # [F, B]
+    in_range = bin_iota < used_bin[..., None]                   # [F, B]
     oh_hl = hh + K_EPSILON
     oh_hr = sh - hh - K_EPSILON
     ok = (in_range
@@ -513,7 +514,7 @@ def per_feature_best_split_categorical(
     # ---- merge the modes a feature (hpp:136 use_onehot) ------------------
     use_oh = num_bin <= max_cat_to_onehot                       # [F]
     gain = torch.where(use_oh, oh_best_gain, so_gain)
-    mask = torch.where(use_oh[:, None], oh_mask, so_mask)
+    mask = torch.where(use_oh[..., None], oh_mask, so_mask)
     lg = torch.where(use_oh, oh_lg, so_lg)
     lh = torch.where(use_oh, oh_lh, so_lh)
     lc = torch.where(use_oh, oh_lc, so_lc)

@@ -250,6 +250,9 @@ class StrategyGrower:
                            "proc_bytes": group.proc_bytes,
                            "leaf_gather_s": time.perf_counter() - t1}
         out["shard_leaf_ids"] = [o["leaf_ids"] for o in outs]
+        if "cegb_used" in first:
+            # each shard's CEGB state, which it starts the next tree from
+            out["shard_cegb_used"] = [o["cegb_used"] for o in outs]
         out["buffer_bytes"] = {
             k: sum(o["buffer_bytes"][k] for o in outs)
             for k in first["buffer_bytes"]}

@@ -653,19 +653,25 @@ def axis_best_split_sync(axes: AxisNames, gain, feature, threshold,
     a leaf, or of each of a batch of leaves: [C]), pick the winner with
     the shared tie-break (`split.argbest`: highest gain, then lowest
     feature id, then lowest threshold bin), and take the winner's
-    payload.  Returns (gain, feature, threshold, payload) of the winner;
-    one exchange carries the whole record."""
+    payload.  A payload entry may carry trailing dims past the leaves'
+    (a categorical split's [C, B] mask).  Returns (gain, feature,
+    threshold, payload) of the winner; one exchange carries the whole
+    record."""
     from ..ops.split import argbest
 
     keys = list(payload)
     recs = _exchange([gain, feature.to(torch.int32), threshold]
                      + [payload[k] for k in keys], axes, "best_split_sync")
-    cols = [torch.stack([r[j] for r in recs], -1)
-            for j in range(3 + len(keys))]             # [..., P] each
+    # the shards on the axis after the leaves' dims: [..., P, *trailing]
+    nb = gain.dim()
+    cols = [torch.stack([r[j] for r in recs], nb)
+            for j in range(3 + len(keys))]
     winner = argbest(cols[0], cols[1], cols[2])        # [...]
 
     def pick(a):
-        return torch.gather(a, -1, winner[..., None].long())[..., 0]
+        idx = winner.long().reshape(winner.shape + (1,) * (a.dim() - nb))
+        idx = idx.expand(*winner.shape, 1, *a.shape[nb + 1:])
+        return torch.gather(a, nb, idx).squeeze(nb)
 
     return (pick(cols[0]), pick(cols[1]), pick(cols[2]),
             {k: pick(c) for k, c in zip(keys, cols[3:])})

@@ -101,27 +101,30 @@ SHARDED = [{"tree_learner": "data", "num_machines": 2},
            {"tree_learner": "data_feature", "num_machines": 4,
             "tpu_topology_hosts": 2}]
 
-# what a sharded learner does not carry yet (ROADMAP A9c), refused by name:
-# the parameters the case adds, the name the message gives, and the
-# Dataset's own arguments.  A machine list of several hosts and EFB
-# bundles under data, once refused here, now train
-# (tests/test_torch_multiprocess.py)
+# once refused under a sharded learner (ROADMAP A9c), now trained
+# (tests/test_torch_parallel_features.py holds them to the JAX package):
+# the parameters the case adds, and the Dataset's own arguments
+SHARDED_FEATURES = {
+    "sparse": ({"tpu_sparse_threshold": 0.5, "enable_bundle": False}, {}),
+    "cegb": ({"cegb_penalty_split": 0.001}, {}),
+    "forced": ({"forcedsplits_filename": "forced.json"}, {}),
+    "monotone": ({"monotone_constraints": [1, 0, 0]}, {}),
+    "bynode": ({"feature_fraction_bynode": 0.5}, {}),
+    "deterministic": ({"deterministic": True}, {}),
+    "categorical": ({}, {"categorical_feature": [0]}),
+}
+
+# what a sharded learner refuses, as the JAX learner does: the parameters
+# the case adds, the message it gives, and the Dataset's own arguments.
+# A machine list of several hosts and EFB bundles under data, once
+# refused here, now train (tests/test_torch_multiprocess.py)
 SHARDED_REFUSALS = {
-    "sparse": ({"tpu_sparse_threshold": 0.5, "enable_bundle": False},
-               "sparse COO storage", {}),
-    "cegb": ({"cegb_penalty_split": 0.1}, "CEGB", {}),
-    "forced": ({"forcedsplits_filename": "forced.json"}, "forced splits",
-               {}),
-    "monotone": ({"monotone_constraints": [1, 0, 0]},
-                 "monotone constraints", {}),
-    "bynode": ({"feature_fraction_bynode": 0.5}, "feature_fraction_bynode",
-               {}),
-    "deterministic": ({"deterministic": True}, "deterministic=true", {}),
-    "categorical": ({}, "categorical features",
-                    {"categorical_feature": [0]}),
     "streamed": ({"tpu_stream_mode": "streamed"},
                  "tpu_stream_mode=streamed requires tree_learner=serial",
                  {}),
+    "lazy_cegb": ({"cegb_penalty_feature_lazy": [1.0, 0.0, 0.0]},
+                  "cegb_penalty_feature_lazy requires tree_learner=serial",
+                  {}),
 }
 
 
@@ -164,22 +167,38 @@ def test_sharded_learners_train(extra):
     assert np.isfinite(b.predict(X)).all()
 
 
-@pytest.mark.parametrize("case", list(SHARDED_REFUSALS))
-def test_sharded_learner_refusals_name_what(case, tmp_path, monkeypatch):
-    extra, what, ds_kw = SHARDED_REFUSALS[case]
+def _sharded_case(extra, tmp_path, monkeypatch, categorical):
+    """(params, X, y) of a data learner over two shards with the case's
+    parameters, in tmp_path (which holds the forced splits' file)."""
     monkeypatch.chdir(tmp_path)
     (tmp_path / "forced.json").write_text(
         '{"feature": 0, "threshold": 0.0}')
     X, y = binary_data(n=600, f=3, seed=1)
-    if case == "categorical":
+    if categorical:
         X[:, 0] = np.abs(np.nan_to_num(np.round(X[:, 0] * 2)))
     params = dict(SMALL, **CPU, tree_learner="data", num_machines=2,
                   **extra)
-    with pytest.raises(NotImplementedError, match=what.split("(")[0]) as ei:
+    return params, X, y
+
+
+@pytest.mark.parametrize("case", list(SHARDED_FEATURES))
+def test_sharded_learner_features_train(case, tmp_path, monkeypatch):
+    extra, ds_kw = SHARDED_FEATURES[case]
+    params, X, y = _sharded_case(extra, tmp_path, monkeypatch,
+                                 case == "categorical")
+    b = tlgb.train(params, tlgb.Dataset(X, label=y, params=params, **ds_kw),
+                   num_boost_round=2)
+    assert b.num_trees() == 2
+    assert np.isfinite(b.predict(X)).all()
+
+
+@pytest.mark.parametrize("case", list(SHARDED_REFUSALS))
+def test_sharded_learner_refusals_name_what(case, tmp_path, monkeypatch):
+    extra, what, ds_kw = SHARDED_REFUSALS[case]
+    params, X, y = _sharded_case(extra, tmp_path, monkeypatch, False)
+    with pytest.raises(NotImplementedError, match=what):
         tlgb.train(params, tlgb.Dataset(X, label=y, params=params, **ds_kw),
                    num_boost_round=1)
-    if case != "streamed":
-        assert "not ported" in str(ei.value)
 
 
 def test_sharded_sparse_storage_keeps_the_jax_refusals():

@@ -1775,6 +1775,50 @@ def test_sharded_int8_training_on_card_matches_cpu(learner):
         assert card == text(serial)
 
 
+@pytest.mark.parametrize("feature, learner", [
+    ("categorical", "data"), ("categorical", "feature"),
+    ("categorical", "voting"), ("monotone", "data"),
+    ("monotone", "feature"), ("monotone", "voting")])
+def test_sharded_features_int8_on_card_matches_cpu(feature, learner):
+    """Two shards on the first card with categorical features (columns
+    3 and 4 as codes, the select partition: B1-int and the leaf sums, no
+    B3) or monotone constraints (B1-int, B3, the leaf sums) give the
+    CPU's int8 text, launching no B2."""
+    import lightgbm_tpu_torch as lgb
+
+    cuda_device()
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(20000, 12))
+    y = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.1 * rng.normal(size=20000)
+    p = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+         "tpu_hist_precision": "int8", "tree_learner": learner,
+         "num_machines": 2, "verbosity": -1}
+    cat = "auto"
+    if feature == "categorical":
+        X[:, 3] = rng.integers(0, 3, 20000)
+        X[:, 4] = rng.integers(0, 12, 20000)
+        y = y + rng.normal(size=12)[X[:, 4].astype(int)]
+        p["tpu_partition_impl"] = "select"
+        cat = [3, 4]
+    else:
+        p.update(tpu_partition_impl="kernel",
+                 monotone_constraints=[1, 1, -1] + [0] * 9)
+
+    def text(params):
+        ds = lgb.Dataset(X, label=y, params=params, categorical_feature=cat)
+        b = lgb.train(params, ds, 4)
+        return b.model_to_string().split("parameters:")[0]
+
+    kernels.reset_launches()
+    card = text(p)
+    assert kernels.launches["fused_hist_scan"] == 0
+    assert kernels.launches["hist_batched_int"] > 0
+    assert kernels.launches["leaf_sums"] > 0
+    assert (kernels.launches["partition_rows"] > 0) == (feature
+                                                        == "monotone")
+    assert card == text(dict(p, device_type="cpu"))
+
+
 @pytest.mark.parametrize("learner", ["data", "voting", "data_feature",
                                      "data_efb"])
 def test_multiprocess_int8_on_one_card_matches_in_process(learner,

@@ -51,7 +51,8 @@ from lightgbm_tpu_torch.utils import faultline
 
 from .test_torch_util import (SHARDED_FLAGS, assert_trees_match,
                               model_text, sharded_run, start_jax_nofma)
-from .torch_mp_worker import BASE, INT8, TIMEOUT_S, grid_data, problem
+from .torch_mp_worker import (BASE, INT8, TIMEOUT_S, grid_cat, grid_data,
+                              problem)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 3
@@ -79,6 +80,16 @@ GRID["data_hilo"] = dict(HILO, **_learner("data"))
 GRID["data_efb_int8"] = dict(INT8, **_learner("data"))
 GRID["data_psum_efb_int8"] = dict(INT8, **_learner("data",
                                                    tpu_hist_agg="psum"))
+# the features a sharded learner once refused, together: monotone
+# constraints, per-node feature sampling, coupled CEGB and a categorical
+# column (tests/torch_mp_worker.py:cat_problem); then deterministic=true,
+# last (the JAX learner turns x64 on for its process)
+GRID["data_features_int8"] = dict(
+    INT8, tpu_partition_impl="select",
+    monotone_constraints=[1, 1, -1] + [0] * 7, feature_fraction_bynode=0.5,
+    cegb_penalty_feature_coupled=[5.0] * 10, **_learner("data"))
+GRID["data_det_f64"] = dict(INT8, tpu_hist_precision="f32",
+                            deterministic=True, **_learner("data"))
 # pre_partition: rank 0 holds rows [0, cut), rank 1 the rest.  "even"
 # splits the rows at a row-shard boundary; "uneven" does not; "efb"
 # plans its bundles across the processes (find_bundles_multihost)
@@ -145,14 +156,19 @@ def runs(tmp_path_factory):
     X, yb, yr = problem()
     Xn = problem(nan=True)[0]
     Xe, _, ye = grid_data("efb")
+    Xc, _, yc = grid_data("features")
     jax_runs = [{"params": _in_process(n), "rounds": ROUNDS,
                  "data": ("nan" if n.endswith("hilo") else
-                          "efb" if "efb" in n else "a"),
+                          "efb" if "efb" in n else
+                          "cat" if "features" in n else "a"),
                  "label": ("bin" if GRID[n]["objective"] == "binary" else
-                           "efb" if "efb" in n else "reg")} for n in GRID]
+                           "efb" if "efb" in n else
+                           "cat" if "features" in n else "reg"),
+                 "cat": grid_cat(n)} for n in GRID]
     wait_jax = start_jax_nofma(
         "train_sharded", {"X_a": X, "X_nan": Xn, "X_efb": Xe, "y_bin": yb,
-                          "y_reg": yr, "y_efb": ye},
+                          "y_reg": yr, "y_efb": ye, "X_cat": Xc,
+                          "y_cat": yc},
         {"runs": jax_runs}, tmp, xla_flags=SHARDED_FLAGS)
     spec = {"root": ROOT, "out": str(tmp),
             "machines": f"127.0.0.1:{_free_port()},127.0.0.1:{_free_port()}",
@@ -174,7 +190,8 @@ def runs(tmp_path_factory):
             Xg, gb, gr = grid_data(n)
             y = gb if GRID[n]["objective"] == "binary" else gr
             port[n] = sharded_run(tlgb, Xg, y, {"params": _in_process(n),
-                                                "rounds": ROUNDS})
+                                                "rounds": ROUNDS,
+                                                "cat": grid_cat(n)})
     finally:
         _wait_workers(procs, logs, timeout=600)
     ranks = [json.loads((tmp / f"rank{k}.json").read_text())
@@ -204,6 +221,15 @@ def test_int_texts_equal_across_ranks_jax_and_in_process(runs, name):
     # list and the hosts knob
     assert a["text"] == runs["port"][name]["text"]
     assert a["text"] == runs["jax"][name]["text"]
+
+
+def test_features_case_grows_every_round(runs):
+    """The features once refused, together, still grow a tree of many
+    leaves every round (a coupled penalty above the root's best gain
+    among its per-node sample would stop training at one leaf)."""
+    b = tlgb.Booster(model_str=runs["port"]["data_features_int8"]["text"],
+                     params={"device_type": "cpu"})
+    assert [t.num_leaves for t in b._driver.models] == [15] * ROUNDS
 
 
 def test_hilo_across_ranks_and_packages(runs):

@@ -21,6 +21,7 @@ started before the port's runs, which work beside it.  The port places
 its shards on the CPU (device_type=cpu).
 """
 
+import json
 import time
 
 import numpy as np
@@ -131,15 +132,18 @@ def _auc(y, s):
     return (ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0)
 
 
-def run_grid(grid_cases, tmp_path_factory):
+def run_grid(grid_cases, tmp_path_factory, inputs=None):
     """The cases' runs in both packages: ({name: port result, with the
     port's serial text under "serial" where checked}, {name: JAX
     result}, inputs).  The JAX process starts first and works beside the
-    port's runs."""
-    inp = _inputs()
+    port's runs.  inputs: the data sets by name (default `_inputs()`);
+    a case's optional fifth entry adds to its run (`sharded_run`)."""
+    inp = _inputs() if inputs is None else inputs
     names = list(grid_cases)
-    runs = [{"params": grid_cases[k][2], "data": grid_cases[k][0],
-             "label": grid_cases[k][1], "rounds": ROUNDS} for k in names]
+    runs = [dict({"params": grid_cases[k][2], "data": grid_cases[k][0],
+                  "label": grid_cases[k][1], "rounds": ROUNDS},
+                 **(grid_cases[k][4] if len(grid_cases[k]) > 4 else {}))
+            for k in names]
     job = start_jax_nofma("train_sharded", inp, {"runs": runs},
                           tmp_path_factory.mktemp("sharded"),
                           xla_flags=SHARDED_FLAGS)
@@ -149,7 +153,7 @@ def run_grid(grid_cases, tmp_path_factory):
         port[k] = sharded_run(tlgb, X, y, run)
         if "serial" in grid_cases[k][3]:
             key = (run["data"], run["label"],
-                   tuple(sorted(_serial_params(run["params"]).items())))
+                   json.dumps(_serial_params(run["params"]), sort_keys=True))
             if key not in serial:
                 serial[key] = sharded_run(tlgb, X, y, dict(
                     run, params=_serial_params(run["params"])))["text"]
@@ -166,7 +170,7 @@ def grid_cases(grid_cases, check):
 
 def check_trees_match(grid, grid_cases, name):
     """assert_trees_match of the two packages' trees, and on the binary
-    objective their train AUCs within 1e-4."""
+    objective (a label named *bin) their train AUCs within 1e-4."""
     port, jax, inp = grid
     cpu = {"device_type": "cpu"}
     trees_t = tlgb.Booster(model_str=port[name]["text"],
@@ -175,7 +179,7 @@ def check_trees_match(grid, grid_cases, name):
                            params=cpu)._driver.models
     assert_trees_match(trees_j, trees_t)
     label = grid_cases[name][1]
-    if label == "bin":
+    if label.endswith("bin"):
         y = inp["y_" + label]
         a_t = _auc(y, port[name]["raw"].ravel())
         a_j = _auc(y, np.asarray(jax[name]["raw"]).ravel())

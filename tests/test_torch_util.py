@@ -1411,18 +1411,25 @@ def sharded_run(lgb, X, y, run):
     """One case of tests/test_torch_parallel.py (and the C7 preflight
     case of tests/test_torch_membudget.py), the same script for either
     package (the JAX package's in the no-FMA process with 8 devices, job
-    "train_sharded"): lgb.train's model text and raw scores over X."""
+    "train_sharded"): lgb.train's model text and raw scores over X.
+    run: params, rounds, and optionally cat (the categorical columns)."""
     p = dict(run["params"], verbosity=-1)
     if lgb.__name__ == "lightgbm_tpu_torch":
         p["device_type"] = "cpu"
-    b = lgb.train(p, lgb.Dataset(X, label=y, params=p),
-                  run.get("rounds", 3), keep_training_booster=True)
+    ds = lgb.Dataset(X, label=y, params=p,
+                     categorical_feature=run.get("cat", "auto"))
+    b = lgb.train(p, ds, run.get("rounds", 3), keep_training_booster=True)
     return {"text": model_text(b),
             "raw": np.asarray(b.predict(X, raw_score=True), np.float64)}
 
 
 def _job_train_sharded(inp, spec):
-    """sharded_run of the JAX package for every run of the spec."""
+    """sharded_run of the JAX package for every run of the spec; a
+    deterministic=true run turns JAX's x64 on for the process
+    (lightgbm_tpu/models/learner.py:1011), so it is turned off again
+    after each run."""
+    import jax
+
     import lightgbm_tpu as lgb
 
     out = {}
@@ -1431,6 +1438,7 @@ def _job_train_sharded(inp, spec):
         for k, v in sharded_run(lgb, inp["X_" + run.get("data", "a")], y,
                                 run).items():
             out[f"{c}_{k}"] = np.asarray(v)
+        jax.config.update("jax_enable_x64", False)
     return out
 
 

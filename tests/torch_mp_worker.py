@@ -68,11 +68,31 @@ def efb_problem(n=4096, seed=2):
     return X, y, y
 
 
+def cat_problem(n=4096, seed=7):
+    """The regression problem with column 3 as twelve category codes
+    that move the label (FEATURES_CAT), for the grid's run with the
+    features a sharded learner once refused."""
+    X, y_bin, y_reg = problem(n=n, seed=seed)
+    rng = np.random.default_rng(23)
+    X[:, 3] = rng.integers(0, 12, n)
+    return X, y_bin, y_reg + rng.normal(size=12)[X[:, 3].astype(int)]
+
+
+FEATURES_CAT = [3]
+
+
 def grid_data(name):
     """(X, binary label, regression label) of a grid run by its name."""
     if "efb" in name:
         return efb_problem()
+    if "features" in name:
+        return cat_problem()
     return problem(nan=name.endswith("hilo"))
+
+
+def grid_cat(name):
+    """The categorical columns of a grid run by its name."""
+    return FEATURES_CAT if "features" in name else "auto"
 
 
 def valid_problem(n=2000, f=10, seed=9):
@@ -85,9 +105,9 @@ def valid_problem(n=2000, f=10, seed=9):
     return X, y
 
 
-def _train(lgb, params, X, y, rounds, **kw):
-    return lgb.train(params, lgb.Dataset(X, label=y, params=params), rounds,
-                     keep_training_booster=True, **kw)
+def _train(lgb, params, X, y, rounds, cat="auto", **kw):
+    ds = lgb.Dataset(X, label=y, params=params, categorical_feature=cat)
+    return lgb.train(params, ds, rounds, keep_training_booster=True, **kw)
 
 
 def _case_network(lgb, spec, out):
@@ -116,7 +136,7 @@ def _case_grid(lgb, spec, out):
         X, yb, yr = grid_data(name)
         y = yb if p.get("objective") == "binary" else yr
         kernels.reset_launches()
-        b = _train(lgb, p, X, y, spec["rounds"])
+        b = _train(lgb, p, X, y, spec["rounds"], cat=grid_cat(name))
         lrn = b._driver.learner
         st = lrn._strategy_grow.last_stats
         res[name] = {"text": model_text(b),
