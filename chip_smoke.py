@@ -311,6 +311,36 @@ Phases, each fatal on failure (exit code 1, no result line):
                1,048,576 rows: no [F, n] bins matrix nor [n, FR]
                row-major copy on the card, its bins in host memory, the
                slots two of the largest block; set-up over 60 s fails;
+     then the telemetry phase (after the stream paths), each Dataset made
+     under its mode:
+       trace_int8  int8 with the held-out rows as a validation set, 20
+               iterations, tpu_telemetry=trace into a temp directory,
+               beside the same run with telemetry off: B1-int, B2, B3,
+               the leaf sums; the model texts equal, the host waits
+               (count_syncs) equal, trace-host0.json with the 20
+               train/round spans covering at least ROUND_COVER of the
+               loop's wall and the names TRACE_NAMES,
+               events-host0.jsonl parsed line by line; then a
+               torch.profiler profile of 2 more iterations holds the
+               mirrored annotations train/iteration and train_dispatch,
+               and every kernel launch call of the training thread lies
+               inside a train/iteration annotation;
+       metrics_hilo  hilo under tpu_telemetry=metrics, 10 iterations and
+               the held-out predict: B1, B3; 10 train_dispatch runs in
+               the phase timer, lgbm_phase_seconds_total and
+               lgbm_device_phase_peak_bytes in the Prometheus text, the
+               phase peaks ingest, hist_build and predict in (0, the
+               card's memory], hist_build at least the resident bins,
+               memory_snapshot equal to the allocator's numbers;
+       trace_data_int8  data_int8's learner (2 shards) traced, 3
+               iterations: each step holds one shard/grow span a shard,
+               on distinct threads other than the training thread, one
+               level below the step, and every exchange span lies
+               inside its shard's span;
+       telemetry overhead  int8 iterations a second, 10 iterations a
+               run, off, metrics, trace, trace, metrics, off on one
+               Dataset, beside the card's name and power limit; their
+               texts must agree;
      the wide paths print the bytes of the int32 bins and of their 16-bit
      row-major copy;
   4. each kernel against its plain PyTorch twin on the card, at the
@@ -5309,6 +5339,349 @@ def mp_paths(lgb, ds, X, y, reports, cross):
           "pre_partition)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the telemetry phase (ROADMAP A11): the span tracer, the registry's phase
+# timer and the device-memory gauges, live on the int8 and hilo paths
+# ---------------------------------------------------------------------------
+TELEMETRY_ITERS = 20
+TELEMETRY_HILO_ITERS = 10
+TELEMETRY_SHARDED_ITERS = 3
+TELEMETRY_PROFILED_ITERS = 2
+OVERHEAD_ITERS = 10
+# the modes of the overhead runs, interleaved
+OVERHEAD_ORDER = ("off", "metrics", "trace", "trace", "metrics", "off")
+# the share of the train loop's wall the round spans must cover
+ROUND_COVER = 0.95
+TRACE_NAMES = ("train/iteration", "train_dispatch", "tree_materialize",
+               "metric_eval", "sketch", "binning")
+TRACE_INT8 = PATHS[1][1]
+TRACE_DATA_INT8 = SHARDED_PATHS[0][1]
+
+
+def _reset_telemetry():
+    from lightgbm_tpu_torch import obs
+
+    obs.configure(mode="off", trace_dir="")
+    obs.flush()
+    obs.reset_events()
+
+
+def _telemetry_train(lgb, kernels, X, y, params, mode, iters, trace_dir,
+                     valid=False, ds=None):
+    """lgb.train of `iters` iterations under tpu_telemetry=mode (its own
+    Dataset, made under that mode, where `ds` is None), its host waits
+    counted (`count_syncs`).  Returns (booster, host waits, train
+    seconds, launches, Dataset seconds)."""
+    import torch
+
+    _reset_telemetry()
+    q = dict(params, tpu_telemetry=mode)
+    if mode == "trace":
+        q["tpu_trace_dir"] = trace_dir
+    t0 = time.perf_counter()
+    if ds is None:
+        ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                         params=dict(q)).construct()
+    vs = ([lgb.Dataset(X[N_TRAIN:], label=y[N_TRAIN:], reference=ds,
+                       params=dict(q)).construct()] if valid else None)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    box = {}
+
+    def train():
+        box["b"] = lgb.train(q, ds, num_boost_round=iters, valid_sets=vs,
+                             valid_names=["holdout"] if valid else None,
+                             keep_training_booster=True)
+        box["b"].num_trees()
+
+    t0 = time.perf_counter()
+    syncs = count_syncs(train)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if box["b"].num_trees() != iters:
+        fail(f"telemetry={mode}: {box['b'].num_trees()} trees, expected "
+             f"{iters}")
+    return box["b"], syncs, train_s, dict(kernels.launches), ingest_s
+
+
+def _within(ev, spans):
+    """Does span or launch `ev` lie inside one of `spans` (ts and dur in
+    µs, as Chrome events and the tracer's buffer give them) on its own
+    thread?"""
+    t0, t1 = ev["ts"], ev["ts"] + ev.get("dur", 0.0)
+    return any(s["tid"] == ev["tid"] and s["ts"] <= t0
+               and t1 <= s["ts"] + s["dur"] for s in spans)
+
+
+def check_mirror(booster, kernels, must, tmp):
+    """The spans' torch.profiler mirror: a profile of
+    TELEMETRY_PROFILED_ITERS traced iterations holds the user annotations
+    train/iteration and train_dispatch, and every kernel launch the
+    training thread made (the CUDA runtime's and driver's launch calls,
+    CPU-side events) lies inside a train/iteration annotation; there are
+    at least as many as the path's kernels counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with tprofile(activities=acts) as prof:
+        for _ in range(TELEMETRY_PROFILED_ITERS):
+            booster.update()
+        torch.cuda.synchronize()
+    calls = dict(kernels.launches)
+    path = os.path.join(tmp, "mirror-profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    notes = [e for e in evs if e.get("cat") == "user_annotation"]
+    iters = [e for e in notes if e["name"] == "train/iteration"]
+    names = {e["name"] for e in notes}
+    if len(iters) != TELEMETRY_PROFILED_ITERS or not {
+            "train/iteration", "train_dispatch"} <= names:
+        fail(f"mirror: {len(iters)} train/iteration annotations, names "
+             f"{sorted(names)}")
+    tids = {e["tid"] for e in iters}
+    launches = [e for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e["name"] and e["tid"] in tids]
+    outside = [e["name"] for e in launches if not _within(e, iters)]
+    ours = sum(calls[k] for k in must)
+    if outside:
+        fail(f"mirror: {len(outside)} of {len(launches)} launches of the "
+             f"training thread outside train/iteration: {outside[:5]}")
+    if len(launches) < ours:
+        fail(f"mirror: {len(launches)} launch calls on the training "
+             f"thread, fewer than the path kernels' {ours}")
+    for k in must:
+        if calls[k] <= 0:
+            fail(f"mirror: kernel {k} was not launched in the profile")
+    kinds = {}
+    for e in launches:
+        kinds[e["name"]] = kinds.get(e["name"], 0) + 1
+    return {"annotations": sorted(names), "launch_calls": kinds,
+            "path_kernel_launches": ours}
+
+
+def trace_int8_path(lgb, kernels, X, y, trace_dir, tmp):
+    """trace_int8: the int8 path with the held-out rows as a validation
+    set under tpu_telemetry=trace, beside the same run under off."""
+    from lightgbm_tpu_torch import obs
+
+    # one iteration first: a process's first training makes host waits
+    # of its own (12 on an H100: one-time reads the process keeps),
+    # which the two counted runs must not see
+    _telemetry_train(lgb, kernels, X, y, TRACE_INT8, "off", 1, trace_dir)
+    off, off_syncs, off_s, _, off_ingest = _telemetry_train(
+        lgb, kernels, X, y, TRACE_INT8, "off", TELEMETRY_ITERS, trace_dir,
+        valid=True)
+    b, syncs, train_s, launches, ingest_s = _telemetry_train(
+        lgb, kernels, X, y, TRACE_INT8, "trace", TELEMETRY_ITERS,
+        trace_dir, valid=True)
+    for k in INT_KERNELS:
+        if launches[k] <= 0:
+            fail(f"trace_int8: kernel {k} was not launched")
+    if model_text(b) != model_text(off):
+        fail("trace_int8: the model text differs from the run with "
+             "telemetry off")
+    if syncs != off_syncs:
+        fail(f"trace_int8: {syncs} host waits traced against {off_syncs} "
+             "with telemetry off")
+    with open(os.path.join(trace_dir, "trace-host0.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    rounds = [e for e in spans if e["name"] == "train/round"]
+    if sorted(e["args"]["iteration"] for e in rounds) != list(
+            range(TELEMETRY_ITERS)):
+        fail(f"trace_int8: {len(rounds)} train/round spans")
+    loop_wall = (max(e["ts"] + e["dur"] for e in rounds)
+                 - min(e["ts"] for e in rounds))
+    cover = sum(e["dur"] for e in rounds) / loop_wall
+    if cover < ROUND_COVER:
+        fail(f"trace_int8: the round spans cover {cover:.4f} of the loop")
+    names = {e["name"] for e in spans}
+    missing = [n for n in TRACE_NAMES if n not in names]
+    if missing:
+        fail(f"trace_int8: spans {missing} missing from {sorted(names)}")
+    with open(os.path.join(trace_dir, "events-host0.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    counts = {}
+    for e in spans:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    mirror = check_mirror(b, kernels, INT_KERNELS, tmp)
+    return {"train_s": train_s, "iters_per_s": TELEMETRY_ITERS / train_s,
+            "off_train_s": off_s,
+            "off_iters_per_s": TELEMETRY_ITERS / off_s,
+            "ingest_s": ingest_s, "off_ingest_s": off_ingest,
+            "host_syncs_per_tree": syncs / TELEMETRY_ITERS,
+            "off_host_syncs_per_tree": off_syncs / TELEMETRY_ITERS,
+            "round_cover": cover, "loop_wall_ms": loop_wall / 1e3,
+            "span_counts": counts, "jsonl_lines": len(lines),
+            "dropped": obs.REGISTRY.value("lgbm_trace_events_dropped_total"),
+            "launches": launches,
+            "mirror": mirror}
+
+
+def metrics_hilo_path(lgb, kernels, X, y, trace_dir):
+    """metrics_hilo: the hilo path under tpu_telemetry=metrics: the phase
+    timer's runs, the Prometheus text, the phase peaks against the card's
+    memory and the resident bins, memory_snapshot against the
+    allocator."""
+    import torch
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import resources
+    from lightgbm_tpu_torch.utils import membudget, timer
+
+    timer.reset()
+    resources.reset_phase_peaks()
+    b, syncs, train_s, launches, ingest_s = _telemetry_train(
+        lgb, kernels, X, y, PARAMS, "metrics", TELEMETRY_HILO_ITERS,
+        trace_dir)
+    pred = b.predict(X[N_TRAIN:])
+    if not np.all(np.isfinite(pred)):
+        fail("metrics_hilo: held-out predictions not finite")
+    for k in ("hist_batched", "partition_rows"):
+        if launches[k] <= 0:
+            fail(f"metrics_hilo: kernel {k} was not launched")
+    runs = timer.counts()
+    if runs.get("train_dispatch") != TELEMETRY_HILO_ITERS:
+        fail(f"metrics_hilo: phase runs {runs}")
+    text = obs.REGISTRY.to_prometheus_text()
+    for family in ("lgbm_phase_seconds_total",
+                   "lgbm_device_phase_peak_bytes"):
+        if f"# TYPE {family} " not in text:
+            fail(f"metrics_hilo: {family} missing from the Prometheus text")
+    peaks = resources.phase_peaks()
+    total = torch.cuda.get_device_properties(0).total_memory
+    for phase in ("ingest", "hist_build", "predict"):
+        if not 0 < peaks.get(phase, 0) <= total:
+            fail(f"metrics_hilo: phase peak {phase} {peaks.get(phase)} "
+                 f"outside (0, {total}]")
+    learner = b._driver.learner
+    rows = getattr(learner.bins_t, "_lgbt_rows", (None, None))[1]
+    resident = (learner.bins_t.numel() * learner.bins_t.element_size()
+                if rows is None else rows.numel() * rows.element_size())
+    if peaks["hist_build"] < resident:
+        fail(f"metrics_hilo: hist_build peak {peaks['hist_build']} under "
+             f"the resident bins' {resident} bytes")
+    snap = membudget.memory_snapshot()
+    want = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    if (snap["hbm_bytes_in_use"], snap["hbm_peak_bytes"]) != want:
+        fail(f"metrics_hilo: memory_snapshot {snap} against the "
+             f"allocator's {want}")
+    return {"train_s": train_s, "iters_per_s": TELEMETRY_HILO_ITERS / train_s,
+            "ingest_s": ingest_s,
+            "host_syncs_per_tree": syncs / TELEMETRY_HILO_ITERS,
+            "phase_runs": runs,
+            "phase_seconds": timer.summary(), "phase_peaks": peaks,
+            "resident_bins_bytes": resident, "total_memory": total,
+            "memory_snapshot": snap, "launches": launches,
+            "bench_resources": resources.bench_resource_metrics(
+                memory=False)["phase_peak_hbm_bytes"]}
+
+
+def trace_data_int8_path(lgb, kernels, X, y, ds, trace_dir):
+    """trace_data_int8: the data learner (2 shards on the card) traced:
+    each shard thread's `shard/grow` span on its own tid, inside the step
+    of the training thread one level below it, and each exchange span
+    inside its shard's span."""
+    from lightgbm_tpu_torch import obs
+
+    b, syncs, train_s, launches, _ = _telemetry_train(
+        lgb, kernels, X, y, TRACE_DATA_INT8, "trace",
+        TELEMETRY_SHARDED_ITERS, trace_dir, ds=ds)
+    for k in ("hist_batched_int", "partition_rows"):
+        if launches[k] <= 0:
+            fail(f"trace_data_int8: kernel {k} was not launched")
+    spans = [e for e in obs.events() if e["kind"] == "span"]
+    steps = [e for e in spans if e["name"] == "train_dispatch"]
+    shards = [e for e in spans if e["name"] == "shard/grow"]
+    exchanges = [e for e in spans if e["name"].startswith("exchange/")]
+    shard_count = TRACE_DATA_INT8["num_machines"]
+    if len(steps) != TELEMETRY_SHARDED_ITERS or \
+            len(shards) != shard_count * TELEMETRY_SHARDED_ITERS:
+        fail(f"trace_data_int8: {len(steps)} steps, {len(shards)} shard "
+             "spans")
+    main_tids = {e["tid"] for e in steps}
+    for step in steps:
+        inside = [s for s in shards
+                  if step["ts"] <= s["ts"]
+                  and s["ts"] + s["dur"] <= step["ts"] + step["dur"]]
+        tids = {s["tid"] for s in inside}
+        if len(inside) != shard_count or len(tids) != shard_count \
+                or tids & main_tids:
+            fail(f"trace_data_int8: a step holds {len(inside)} shard spans "
+                 f"on threads {sorted(tids)} (training thread "
+                 f"{sorted(main_tids)})")
+        if any(s["tags"]["parent"] != "train_dispatch"
+               or s["tags"]["depth"] != step["tags"]["depth"] + 1
+               for s in inside):
+            fail("trace_data_int8: a shard span does not nest under its "
+                 "step")
+    for e in exchanges:
+        if e["tags"].get("parent") != "shard/grow" or not _within(e, shards):
+            fail(f"trace_data_int8: {e['name']} outside its shard's span")
+    if not exchanges:
+        fail("trace_data_int8: no exchange spans")
+    return {"train_s": train_s,
+            "iters_per_s": TELEMETRY_SHARDED_ITERS / train_s,
+            "host_syncs_per_tree": syncs / TELEMETRY_SHARDED_ITERS,
+            "shard_spans": len(shards), "exchange_spans": len(exchanges),
+            "shard_tids": len({s["tid"] for s in shards}),
+            "launches": launches}
+
+
+def telemetry_overhead(lgb, kernels, X, y, ds, trace_dir):
+    """int8 iterations a second under each telemetry mode, interleaved
+    (OVERHEAD_ORDER) on one Dataset; the texts must agree."""
+    runs, texts = [], set()
+    for mode in OVERHEAD_ORDER:
+        b, syncs, train_s, _, _ = _telemetry_train(
+            lgb, kernels, X, y, TRACE_INT8, mode, OVERHEAD_ITERS, trace_dir,
+            ds=ds)
+        texts.add(model_text(b))
+        runs.append({"mode": mode, "iters_per_s": OVERHEAD_ITERS / train_s,
+                     "host_syncs_per_tree": syncs / OVERHEAD_ITERS})
+        del b
+    if len(texts) != 1:
+        fail(f"telemetry overhead: {len(texts)} distinct model texts "
+             "across the modes")
+    by_mode = {}
+    for r in runs:
+        by_mode.setdefault(r["mode"], []).append(r["iters_per_s"])
+    return {"order": runs, "iters_per_s_by_mode": by_mode}
+
+
+def telemetry_paths(lgb, kernels, X, y, reports, tmp):
+    """The telemetry phase: trace_int8, metrics_hilo, trace_data_int8 and
+    the overhead runs; every failed check fails the smoke."""
+    trace_dir = tempfile.mkdtemp(dir=tmp)
+    try:
+        t0 = time.perf_counter()
+        reports["trace_int8"] = trace_int8_path(lgb, kernels, X, y,
+                                                trace_dir, tmp)
+        print("main path trace_int8 " + json.dumps(reports["trace_int8"]),
+              flush=True)
+        reports["metrics_hilo"] = metrics_hilo_path(lgb, kernels, X, y,
+                                                    trace_dir)
+        print("main path metrics_hilo "
+              + json.dumps(reports["metrics_hilo"]), flush=True)
+        ds = lgb.Dataset(X[:N_TRAIN], label=y[:N_TRAIN],
+                         params=dict(TRACE_INT8)).construct()
+        reports["trace_data_int8"] = trace_data_int8_path(
+            lgb, kernels, X, y, ds, trace_dir)
+        print("main path trace_data_int8 "
+              + json.dumps(reports["trace_data_int8"]), flush=True)
+        overhead = telemetry_overhead(lgb, kernels, X, y, ds, trace_dir)
+        print(f"telemetry overhead ({smi_line()}) " + json.dumps(overhead),
+              flush=True)
+        print(f"path_s telemetry {time.perf_counter() - t0:.1f}",
+              flush=True)
+    finally:
+        _reset_telemetry()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -5665,6 +6038,8 @@ def main() -> None:
     for r in LEDGER.report():
         ledger_sites[r["site"]] = ledger_sites.get(r["site"], 0) \
             + r["programs"]
+    # the telemetry phase: traced and metered int8, hilo and data paths
+    telemetry_paths(lgb, kernels, X, y, reports, tmp)
 
     cross = cross_check(lgb, X, y, latent)
     cross.update(cross_check_efb(lgb, Xe, ye, latent_e))

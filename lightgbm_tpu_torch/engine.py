@@ -177,34 +177,63 @@ def train(params: Dict[str, Any], train_set: Dataset,
         except (ValueError, OSError):  # pragma: no cover - exotic host
             prev_sigterm = None
 
+    def _dump_trace() -> None:
+        # the Chrome trace and the JSONL flush at the end of train
+        # (success, early stop or interrupt: the trace of a failed run
+        # is the one worth reading), after the final checkpoint flush so
+        # its spans and events make the dump; nothing without
+        # tpu_trace_dir
+        if obs.tracing_on():
+            obs.write_chrome_trace()
+            obs.flush()
+
     evaluation_result_list: List = []
     try:
         for i in range(start_iteration, num_boost_round):
             # the blackbox of a dying run names the round it died in
+            # (recorded at the round's start: the span's mirror lands at
+            # its exit, which a death mid-round never reaches)
             obs.flightrecorder.note("round", "train/round", iteration=i)
-            for cb in cb_before:
-                cb(CallbackEnv(model=booster, params=params, iteration=i,
-                               begin_iteration=0,
-                               end_iteration=num_boost_round,
-                               evaluation_result_list=None))
-            booster.update(fobj=fobj)
-            if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
-                booster.save_model(f"{snapshot_out}.snapshot_iter_{i + 1}")
-            evaluation_result_list = []
-            if valid_sets:
-                if is_valid_contain_train:
-                    evaluation_result_list.extend(booster.eval_train(feval))
-                evaluation_result_list.extend(booster.eval_valid(feval))
-            try:
-                for cb in cb_after:
-                    cb(CallbackEnv(
-                        model=booster, params=params, iteration=i,
-                        begin_iteration=0, end_iteration=num_boost_round,
-                        evaluation_result_list=evaluation_result_list))
-            except EarlyStopException as e:
-                booster.best_iteration = e.best_iteration + 1
-                evaluation_result_list = e.best_score
-                break
+            # the round's span covers callbacks, update and evaluation:
+            # under tpu_telemetry=trace the round spans cover >= 95% of
+            # the loop's wall
+            with obs.span("train/round", iteration=i):
+                for cb in cb_before:
+                    cb(CallbackEnv(model=booster, params=params,
+                                   iteration=i, begin_iteration=0,
+                                   end_iteration=num_boost_round,
+                                   evaluation_result_list=None))
+                booster.update(fobj=fobj)
+                if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
+                    booster.save_model(
+                        f"{snapshot_out}.snapshot_iter_{i + 1}")
+                evaluation_result_list = []
+                if valid_sets:
+                    if is_valid_contain_train:
+                        evaluation_result_list.extend(
+                            booster.eval_train(feval))
+                    evaluation_result_list.extend(booster.eval_valid(feval))
+                    if obs.metrics_on():
+                        # the metric curves, in the registry's sample
+                        # ring (engine.py:218-229 of the JAX package)
+                        for item in evaluation_result_list:
+                            obs.REGISTRY.observe(
+                                "lgbm_train_metric", float(item[2]),
+                                help="per-iteration train/valid metric "
+                                     "values (ring = learning curve)",
+                                dataset=str(item[0]),
+                                metric=str(item[1]))
+                try:
+                    for cb in cb_after:
+                        cb(CallbackEnv(
+                            model=booster, params=params, iteration=i,
+                            begin_iteration=0,
+                            end_iteration=num_boost_round,
+                            evaluation_result_list=evaluation_result_list))
+                except EarlyStopException as e:
+                    booster.best_iteration = e.best_iteration + 1
+                    evaluation_result_list = e.best_score
+                    break
     except BaseException as exc:
         # the partial iteration was rolled back inside update(): flush a
         # final checkpoint so the run restarts from the last complete
@@ -217,6 +246,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                 iteration=booster.current_iteration())
         obs.flightrecorder.dump(f"train_interrupt:{type(exc).__name__}",
                                 exc=exc)
+        _dump_trace()
         raise
     finally:
         if prev_sigterm is not None:
@@ -225,6 +255,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         # early stop (or a zero-round run) can end between interval
         # marks: one final bundle covers the completed state
         flush_checkpoint(booster, ckpt_manager, callbacks=callbacks)
+    _dump_trace()
 
     booster.best_score = {}
     for item in evaluation_result_list:

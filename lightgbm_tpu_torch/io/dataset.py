@@ -35,16 +35,30 @@ other's.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..config import Config, resolve_device
+from ..utils import timer
 from .bin_mapper import BinMapper, BinType, K_ZERO_THRESHOLD
 from .parser import (NoStreamingReader, TextChunkReader, load_sidecars,
                      load_text_file)
+
+
+@contextlib.contextmanager
+def _ingest_phase(data: "TrainingData", name: str):
+    """`timer.PHASE(name)` around an ingest step (a span under
+    tpu_telemetry=trace; "binning" is the ingest memory watermark), its
+    wall kept in ``data.ingest_s[name]`` whatever the telemetry mode."""
+    t0 = time.perf_counter()
+    with timer.PHASE(name):
+        yield
+    data.ingest_s[name] = time.perf_counter() - t0
 
 
 def _is_scipy_sparse(data) -> bool:
@@ -276,6 +290,10 @@ class TrainingData:
         from ..ops.binning import bin_matrix_t
 
         config = config or Config()
+        # the telemetry policy before the ingest phases run: the training
+        # set is made before the GBDT, and its sketch and binning spans
+        # must not be lost (lightgbm_tpu/io/dataset.py:300-306)
+        obs.configure_from_config(config)
         device = (reference.device if reference is not None
                   else resolve_device(config))
         X = np.asarray(X, dtype=np.float64)
@@ -289,20 +307,18 @@ class TrainingData:
         self.num_total_features = nf
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(nf)])
-        t0 = time.perf_counter()
-        if reference is not None:
-            self._adopt_reference_mappers(reference)
-        else:
-            self._find_mappers_maybe_distributed(
-                X, config, categorical_features or [], forced_bins)
-        t1 = time.perf_counter()
+        with _ingest_phase(self, "sketch"):
+            if reference is not None:
+                self._adopt_reference_mappers(reference)
+            else:
+                self._find_mappers_maybe_distributed(
+                    X, config, categorical_features or [], forced_bins)
         scratch = {"chunk_bytes": 0}
-        self.bins_t = bin_matrix_t(X, self.mappers, self.used_feature_idx,
-                                   device, int(config.tpu_ingest_chunk_rows),
-                                   scratch)
+        with _ingest_phase(self, "binning"):
+            self.bins_t = bin_matrix_t(
+                X, self.mappers, self.used_feature_idx, device,
+                int(config.tpu_ingest_chunk_rows), scratch)
         self.ingest_scratch_bytes = scratch["chunk_bytes"]
-        self.ingest_s = {"sketch": t1 - t0,
-                         "binning": time.perf_counter() - t1}
         self.metadata = Metadata(n, label, weight, group_sizes, init_score)
         self._set_constraints(config)
         return self
@@ -337,41 +353,40 @@ class TrainingData:
         are.  The `[F, n]` bins then go to the device."""
         import torch
 
-        t0 = time.perf_counter()
         config = config or Config()
         device = (reference.device if reference is not None
                   else resolve_device(config))
-        sp = sp.tocsc()
-        # duplicate coordinates must add up, as scipy's own toarray()
-        # adds them, not let the last one win in the bin scatter
-        sp.sum_duplicates()
-        n, nf = sp.shape
         self = cls()
-        self.config = config
-        self.device = device
-        self.num_data = n
-        self.num_total_features = nf
-        self.feature_names = (list(feature_names) if feature_names
-                              else [f"Column_{i}" for i in range(nf)])
-        if reference is not None:
-            self._adopt_reference_mappers(reference)
-        else:
-            self._find_mappers_maybe_distributed(
-                sp, config, categorical_features or [])
-        t1 = time.perf_counter()
-        dtype = np.uint8 if self.max_num_bin <= 256 else np.int32
-        bins = np.empty((self.num_features, n), dtype=dtype)
-        indptr, indices, data = sp.indptr, sp.indices, sp.data
-        for j, col in enumerate(self.used_feature_idx):
-            m = self.mappers[col]
-            lo, hi = int(indptr[col]), int(indptr[col + 1])
-            bins[j] = m.default_bin
-            if hi > lo:
-                vals = np.asarray(data[lo:hi], dtype=np.float64)
-                bins[j, indices[lo:hi]] = m.values_to_bins(vals).astype(dtype)
-        self.bins_t = torch.from_numpy(bins).to(device)
-        self.ingest_s = {"sketch": t1 - t0,
-                         "binning": time.perf_counter() - t1}
+        with _ingest_phase(self, "sketch"):
+            sp = sp.tocsc()
+            # duplicate coordinates must add up, as scipy's own toarray()
+            # adds them, not let the last one win in the bin scatter
+            sp.sum_duplicates()
+            n, nf = sp.shape
+            self.config = config
+            self.device = device
+            self.num_data = n
+            self.num_total_features = nf
+            self.feature_names = (list(feature_names) if feature_names
+                                  else [f"Column_{i}" for i in range(nf)])
+            if reference is not None:
+                self._adopt_reference_mappers(reference)
+            else:
+                self._find_mappers_maybe_distributed(
+                    sp, config, categorical_features or [])
+        with _ingest_phase(self, "binning"):
+            dtype = np.uint8 if self.max_num_bin <= 256 else np.int32
+            bins = np.empty((self.num_features, n), dtype=dtype)
+            indptr, indices, data = sp.indptr, sp.indices, sp.data
+            for j, col in enumerate(self.used_feature_idx):
+                m = self.mappers[col]
+                lo, hi = int(indptr[col]), int(indptr[col + 1])
+                bins[j] = m.default_bin
+                if hi > lo:
+                    vals = np.asarray(data[lo:hi], dtype=np.float64)
+                    bins[j, indices[lo:hi]] = \
+                        m.values_to_bins(vals).astype(dtype)
+            self.bins_t = torch.from_numpy(bins).to(device)
         self.metadata = Metadata(n, label, weight, group_sizes, init_score)
         self._set_constraints(config)
         return self
@@ -392,6 +407,7 @@ class TrainingData:
                                           ensure_distributed)
 
         config = config or Config()
+        obs.configure_from_config(config)
         # the rendezvous before anything else; a binary cache present on
         # one host only must not let that host skip the collective bin
         # finding its peers enter (lightgbm_tpu/io/dataset.py:454-460)
@@ -483,29 +499,28 @@ class TrainingData:
         self.num_data = n
         self.num_total_features = ncols
         self.feature_names = list(names)
-        t1 = time.perf_counter()
-        if reference is not None:
-            self._adopt_reference_mappers(reference)
-        else:
-            self._find_mappers_maybe_distributed(
-                sample, config,
-                _parse_column_spec(config.categorical_feature, names),
-                _load_forced_bins(config), total_rows=n)
-        t2 = time.perf_counter()
+        self.ingest_s = {"parse": time.perf_counter() - t0}
+        with _ingest_phase(self, "sketch"):
+            if reference is not None:
+                self._adopt_reference_mappers(reference)
+            else:
+                self._find_mappers_maybe_distributed(
+                    sample, config,
+                    _parse_column_spec(config.categorical_feature, names),
+                    _load_forced_bins(config), total_rows=n)
         scratch = {"chunk_bytes": 0}
-        self.bins_t = bin_chunks_t(
-            (Xc for Xc, _ in reader.chunks()), n, self.mappers,
-            self.used_feature_idx, self.device,
-            int(config.tpu_ingest_chunk_rows), scratch)
+        # pass 2 parses the file again inside "binning"
+        with _ingest_phase(self, "binning"):
+            self.bins_t = bin_chunks_t(
+                (Xc for Xc, _ in reader.chunks()), n, self.mappers,
+                self.used_feature_idx, self.device,
+                int(config.tpu_ingest_chunk_rows), scratch)
         self.ingest_scratch_bytes = scratch["chunk_bytes"]
         weight, group, init_score = load_sidecars(path)
         self.metadata = Metadata(n, label, weight, group, init_score)
         self._set_constraints(config)
-        # pass 2 parses the file again inside "binning"; "two_round"
-        # marks this loader's result
-        self.ingest_s = {"parse": t1 - t0, "sketch": t2 - t1,
-                         "binning": time.perf_counter() - t2,
-                         "two_round": 1.0}
+        # "two_round" marks this loader's result
+        self.ingest_s["two_round"] = 1.0
         return self
 
     # the binary cache's token, shared with the JAX package

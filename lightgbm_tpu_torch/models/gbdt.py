@@ -73,7 +73,7 @@ from ..ops.predict import (PackedForest, class_scores, device_tables,
                            pack_trees, raw_device_tables, raw_forest_scores,
                            raw_leaf_index, subset_scores, tree_leaf_values,
                            upload)
-from ..utils import faultline, membudget
+from ..utils import faultline, membudget, timer
 from ..utils.log import LightGBMError, Log
 from ..utils.prng import PRNGKey
 from .learner import TreeLearner, _to_bitset, make_tree_learner
@@ -84,6 +84,14 @@ from .tree import Tree
 
 K_EPSILON = 1e-15
 _MAPPER_MARKER = "tpu_bin_mappers:"
+
+# training-quality histogram ladders (obs registry), the JAX package's
+# (gbdt.py:71-78): leaf counts and tree depths
+_LEAF_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0,
+                 48.0, 64.0, 96.0, 128.0, 192.0, 256.0, 384.0, 512.0,
+                 768.0, 1024.0)
+_DEPTH_BUCKETS = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 10.0, 12.0, 16.0,
+                  20.0, 24.0, 32.0, 48.0, 64.0)
 
 
 def quant_headroom_check(precision: str, total_rows: int, mode: str) -> int:
@@ -313,6 +321,9 @@ class GBDT:
         self._guard = "off"
         self._guard_streak = 0
         self._guard_skips_total = 0
+        # sync-step trees awaiting their telemetry until the numeric
+        # guard accepts the iteration (`_note_tree_telemetry`)
+        self._note_after_guard = None
         # a skip's retry draws a fresh bagging mask off the refresh
         # boundary, or it would replay the poisoned iteration
         self._force_bag_refresh = False
@@ -341,8 +352,8 @@ class GBDT:
             # objective=none: custom gradients through update(fobj=...)
             self.num_tree_per_iteration = self.num_class
         # the collective watchdog's deadline and retries (gbdt.py:326-331
-        # of the JAX package), and the flight recorder's depth and dump
-        # directory (tpu_obs_*)
+        # of the JAX package), and the telemetry policy: tpu_telemetry,
+        # tpu_trace_dir and the flight recorder's tpu_obs_*
         from ..parallel.collective import configure_from_config
 
         configure_from_config(config)
@@ -555,17 +566,19 @@ class GBDT:
         chunk and resumes at the failed one, keeping the chunks done."""
         out = np.zeros((self.num_tree_per_iteration, n), np.float64)
         lo = 0
-        while lo < n:
-            hi = min(lo + self._predict_chunk(), n)
-            try:
-                faultline.fire("h2d_copy", rows=hi - lo)
-                with membudget.oom_guard("predict_chunk", rows=hi - lo):
-                    out[:, lo:hi] = walk(lo, hi).cpu().numpy()
-            except membudget.DeviceOutOfMemory:
-                if not self._shrink_predict_chunk():
-                    raise
-                continue
-            lo = hi
+        with obs.resources.phase_peak("predict"):
+            while lo < n:
+                hi = min(lo + self._predict_chunk(), n)
+                try:
+                    faultline.fire("h2d_copy", rows=hi - lo)
+                    with membudget.oom_guard("predict_chunk",
+                                             rows=hi - lo):
+                        out[:, lo:hi] = walk(lo, hi).cpu().numpy()
+                except membudget.DeviceOutOfMemory:
+                    if not self._shrink_predict_chunk():
+                        raise
+                    continue
+                lo = hi
         return out
 
     def _boost_from_average(self, class_id: int) -> float:
@@ -648,9 +661,11 @@ class GBDT:
             # a ladder rebuild OOMed and the run ended exhausted: retry
             # the rebuild, so training can go on once memory is back
             self._rebuild_learner()
+        self._note_after_guard = None
         snap = self._iter_snapshot()
         try:
-            with membudget.oom_guard("train_step", iteration=self.iter_):
+            with obs.span("train/iteration", iteration=self.iter_), \
+                    membudget.oom_guard("train_step", iteration=self.iter_):
                 action = faultline.fire("grow_step", iteration=self.iter_)
                 ret = self._train_one_iter_impl(grad, hess)
         except BaseException:
@@ -671,6 +686,11 @@ class GBDT:
             return self._poisoned_iteration(snap)
         self._guard_streak = 0
         self._force_bag_refresh = False
+        # the sync step's trees survived the guard: their telemetry now
+        if self._note_after_guard:
+            for t in self._note_after_guard:
+                self._note_tree_telemetry(t)
+            self._note_after_guard = None
         return ret
 
     # -- atomic-iteration rollback -------------------------------------
@@ -985,30 +1005,38 @@ class GBDT:
         """One fused device step per class, no host wait beyond the
         grower's; the trees materialize lazily.  GOSS samples once its
         warm-up of 1/learning_rate iterations is over (decided here, on
-        the host, as gbdt.py:631-632 does)."""
-        bag = self._bag_cfg
-        goss_on = (self._goss_cfg is not None
-                   and self.iter_ >= self._goss_cfg["warmup"])
-        inits = [self._boost_from_average(k)
-                 for k in range(self.num_tree_per_iteration)]
-        # every class's gradients from the scores at the iteration's start
-        base_scores = self.train_scores.scores
-        for k, init in enumerate(inits):
-            refresh = bag is not None and (self.iter_ % bag["freq"] == 0
-                                           or self._force_bag_refresh)
-            (records, scores, _, leaf_out, self._key,
-             self._bag_key) = self._step(base_scores,
-                                         self.train_scores.scores, k,
-                                         self._key, self._bag_key, refresh,
-                                         goss_on)
-            self.train_scores.scores = scores
-            self.grower_syncs += self.learner.last_syncs
-            # refit leaves: the tree takes the refitted device outputs
-            self._pending.append((
-                records, leaf_out if self.learner.refits_leaves else None,
-                k, init))
-        self.iter_ += 1
-        return False
+        the host, as gbdt.py:631-632 does).
+
+        The step is tagged train_dispatch, and its device-memory
+        watermark hist_build (the grower's histogram pool dominates it;
+        the launches are asynchronous, so the bracket reads what was
+        allocated, not what ran: an under-estimate, never an
+        over-estimate)."""
+        with timer.PHASE("train_dispatch"), \
+                obs.resources.phase_peak("hist_build"):
+            bag = self._bag_cfg
+            goss_on = (self._goss_cfg is not None
+                       and self.iter_ >= self._goss_cfg["warmup"])
+            inits = [self._boost_from_average(k)
+                     for k in range(self.num_tree_per_iteration)]
+            # every class's gradients from the scores at the iteration's start
+            base_scores = self.train_scores.scores
+            for k, init in enumerate(inits):
+                refresh = bag is not None and (self.iter_ % bag["freq"] == 0
+                                               or self._force_bag_refresh)
+                (records, scores, _, leaf_out, self._key,
+                 self._bag_key) = self._step(base_scores,
+                                             self.train_scores.scores, k,
+                                             self._key, self._bag_key, refresh,
+                                             goss_on)
+                self.train_scores.scores = scores
+                self.grower_syncs += self.learner.last_syncs
+                # refit leaves: the tree takes the refitted device outputs
+                self._pending.append((
+                    records, leaf_out if self.learner.refits_leaves else None,
+                    k, init))
+            self.iter_ += 1
+            return False
 
     def _train_one_iter_sync(self, grad: Optional[np.ndarray] = None,
                              hess: Optional[np.ndarray] = None) -> bool:
@@ -1032,19 +1060,24 @@ class GBDT:
             hess = torch.as_tensor(np.asarray(hess, np.float32).reshape(
                 k_all, -1), device=self.device)
         self._materialize()
-        grad, hess, mask = self._sync_rows(grad, hess, given)
+        with obs.span("bagging"):
+            grad, hess, mask = self._sync_rows(grad, hess, given)
         should_continue = False
         for k in range(k_all):
             need = (self.objective is None
                     or self.objective.class_need_train(k))
             tree = None
             if need:
-                tree, leaf_ids, _ = self.learner.train(grad[k], hess[k],
-                                                       mask)
+                with obs.span("grow", class_id=k), \
+                        obs.resources.phase_peak("hist_build"):
+                    tree, leaf_ids, _ = self.learner.train(grad[k], hess[k],
+                                                           mask)
                 self.grower_syncs += self.learner.last_syncs
             if tree is not None and tree.num_leaves > 1:
                 should_continue = True
-                self._renew_and_update(tree, leaf_ids, k, mask)
+                with obs.span("score_update", class_id=k), \
+                        obs.resources.phase_peak("score_update"):
+                    self._renew_and_update(tree, leaf_ids, k, mask)
                 if abs(init_scores[k]) > K_EPSILON:
                     tree.add_bias(init_scores[k])
             else:
@@ -1063,6 +1096,9 @@ class GBDT:
                 del self.models[-k_all:]
             self._stopped = True
             return True
+        # their telemetry waits for the numeric guard: a skip rolls the
+        # trees back, and the counters must match feature_importance
+        self._note_after_guard = self.models[-k_all:]
         self.iter_ += 1
         return False
 
@@ -1147,32 +1183,35 @@ class GBDT:
         adds its leaf values to the validation scores."""
         if not self._pending:
             return
-        pending, self._pending = self._pending, []
-        recs = torch.stack([p[0] for p in pending]).cpu().numpy()
-        outs = [None] * len(pending)
-        if pending[0][1] is not None:
-            outs = list(torch.stack([p[1] for p in pending]).cpu().numpy())
-        for (_, _, class_id, init), rec, out in zip(pending, recs, outs):
-            if self._stopped:
-                # drop queued post-stall iterations (the reference pops
-                # them)
-                break
-            tree = self.learner.build_tree_from_records(rec, out)
-            if tree.num_leaves > 1:
-                tree.apply_shrinkage(self.shrinkage_rate)
-                self._add_valid_deltas(tree, class_id)
-                if abs(init) > K_EPSILON:
-                    tree.add_bias(init)
-                self.models.append(tree)
-            else:
-                # no split: the device scores did not change; stop like
-                # the reference (gbdt.cpp:434-442)
-                self._stopped = True
-                if len(self.models) < self.num_tree_per_iteration:
-                    tree.as_constant_tree(init)
+        with timer.PHASE("tree_materialize"):
+            pending, self._pending = self._pending, []
+            recs = torch.stack([p[0] for p in pending]).cpu().numpy()
+            outs = [None] * len(pending)
+            if pending[0][1] is not None:
+                outs = list(torch.stack([p[1] for p in pending]).cpu().numpy())
+            for (_, _, class_id, init), rec, out in zip(pending, recs, outs):
+                if self._stopped:
+                    # drop queued post-stall iterations (the reference pops
+                    # them)
+                    break
+                tree = self.learner.build_tree_from_records(rec, out)
+                if tree.num_leaves > 1:
+                    tree.apply_shrinkage(self.shrinkage_rate)
+                    self._add_valid_deltas(tree, class_id)
+                    if abs(init) > K_EPSILON:
+                        tree.add_bias(init)
                     self.models.append(tree)
-        self.iter_ = (len(self.models) // max(self.num_tree_per_iteration, 1)
-                      - self.num_init_iteration)
+                    self._note_tree_telemetry(tree)
+                else:
+                    # no split: the device scores did not change; stop like
+                    # the reference (gbdt.cpp:434-442)
+                    self._stopped = True
+                    if len(self.models) < self.num_tree_per_iteration:
+                        tree.as_constant_tree(init)
+                        self.models.append(tree)
+            self.iter_ = (len(self.models)
+                          // max(self.num_tree_per_iteration, 1)
+                          - self.num_init_iteration)
 
     def rollback_one_iter(self) -> None:
         """Take the last iteration's trees out of the model and their
@@ -1230,24 +1269,25 @@ class GBDT:
         """(dataset, metric, value, higher_is_better) of the train scores
         (valid_idx < 0) or of one validation set: one device fetch of
         the scores (gbdt.py:1420-1440)."""
-        self._materialize()
-        if valid_idx < 0:
-            scores = self.train_scores.numpy()
-            metrics = self.metrics
-        else:
-            scores = self.valid_scores[valid_idx].numpy()
-            metrics = self.valid_metrics[valid_idx]
-        out = []
-        for m in metrics:
-            for metric_name, val in m.eval_all(scores, self.objective):
-                out.append((name, metric_name, val, m.higher_is_better))
-        if feval is not None:
-            ds = (self.train_data if valid_idx < 0
-                  else self.valid_sets[valid_idx])
-            res = feval(scores.reshape(-1), _FevalData(ds))
-            for item in (res if isinstance(res, list) else [res]):
-                out.append((name, item[0], item[1], item[2]))
-        return out
+        with obs.span("metric_eval", dataset=name):
+            self._materialize()
+            if valid_idx < 0:
+                scores = self.train_scores.numpy()
+                metrics = self.metrics
+            else:
+                scores = self.valid_scores[valid_idx].numpy()
+                metrics = self.valid_metrics[valid_idx]
+            out = []
+            for m in metrics:
+                for metric_name, val in m.eval_all(scores, self.objective):
+                    out.append((name, metric_name, val, m.higher_is_better))
+            if feval is not None:
+                ds = (self.train_data if valid_idx < 0
+                      else self.valid_sets[valid_idx])
+                res = feval(scores.reshape(-1), _FevalData(ds))
+                for item in (res if isinstance(res, list) else [res]):
+                    out.append((name, item[0], item[1], item[2]))
+            return out
 
     def eval_for_data(self, data: TrainingData, name: str, feval=None
                       ) -> List[Tuple]:
@@ -1809,6 +1849,33 @@ class GBDT:
                 else:
                     imp[f] += max(float(tree.split_gain[j]), 0.0)
         return imp
+
+    def _note_tree_telemetry(self, tree: Tree) -> None:
+        """Training-quality telemetry of one newly trained tree
+        (gbdt.py:2115-2146): per-feature split and gain counters, in
+        `feature_importance`'s walk order (so their f64 totals equal
+        its values over the same trees), and the leaf-count and depth
+        distributions.  One flag check a tree when metrics are off."""
+        if not obs.metrics_on():
+            return
+        names = self.feature_names
+        for j in range(tree.num_leaves - 1):
+            f = int(tree.split_feature[j])
+            fname = names[f] if f < len(names) else f"Column_{f}"
+            obs.REGISTRY.inc(
+                "lgbm_train_splits_total", 1,
+                help="splits per feature across trained trees",
+                feature=fname)
+            obs.REGISTRY.inc(
+                "lgbm_train_split_gain_total",
+                max(float(tree.split_gain[j]), 0.0),
+                help="summed split gain per feature", feature=fname)
+        obs.REGISTRY.observe(
+            "lgbm_train_leaf_count", float(tree.num_leaves),
+            buckets=_LEAF_BUCKETS, help="leaves per trained tree")
+        obs.REGISTRY.observe(
+            "lgbm_train_tree_depth", float(tree.max_depth()),
+            buckets=_DEPTH_BUCKETS, help="depth per trained tree")
 
     def _feature_infos(self) -> List[str]:
         td = self.train_data

@@ -113,7 +113,7 @@ from ..parallel.mesh import available_devices, put_global, put_local
 from ..parallel.strategies import (bins_sharding, make_strategy_grower,
                                    resolve_tree_learner)
 from ..parallel.topology import resolve_hosts
-from ..utils import membudget, prng
+from ..utils import membudget, prng, timer
 from ..utils.log import Log
 from .tree import Tree
 
@@ -142,7 +142,8 @@ def check_slice(config: Config) -> None:
     bagging and per-tree and per-node feature sampling; float, f64
     (deterministic=true) and int8/int16 histograms; monotone
     constraints, CEGB and forced splits).  The numeric guard, the
-    device-memory preflight and budget are taken by models/gbdt.py."""
+    device-memory preflight and budget are taken by models/gbdt.py, the
+    telemetry knobs by obs/trace.py."""
 
     def refuse(what: str) -> None:
         raise NotImplementedError(
@@ -157,12 +158,6 @@ def check_slice(config: Config) -> None:
         refuse(f"tpu_hist_impl={c.tpu_hist_impl!r}")
     if str(c.tpu_partition_impl) not in G.PARTITION_IMPLS:
         refuse(f"tpu_partition_impl={c.tpu_partition_impl!r}")
-    # the span tracer and its exporters (ROADMAP A11): only their
-    # defaults, which do nothing here, are taken
-    if str(c.tpu_telemetry).strip().lower() not in ("", "off"):
-        refuse(f"tpu_telemetry={c.tpu_telemetry!r}")
-    if str(c.tpu_trace_dir):
-        refuse(f"tpu_trace_dir={c.tpu_trace_dir!r}")
 
 
 def resolve_strategy(config: Config) -> Tuple[str, int, int, int, int]:
@@ -318,6 +313,8 @@ class TreeLearner:
                 f"{MAX_WIDE_BINS} bins) is not ported to lightgbm_tpu_torch "
                 "yet: its kernels read wide bins as 16-bit values")
         F = self.num_features
+        # the layout phase (learner.py:222-761): everything from the EFB
+        # plan to the placed device tensors
         t0 = time.perf_counter()
         # no plan under forced splits (learner.py:239); the voting and
         # feature learners train unbundled (learner.py:228-237)
@@ -498,6 +495,7 @@ class TreeLearner:
             self._place_shards()
         else:
             topo.activate(None)
+        timer.add("layout", time.perf_counter() - t0)
         self.params = GrowerParams(
             num_leaves=max(int(config.num_leaves), 2),
             num_bins=B,

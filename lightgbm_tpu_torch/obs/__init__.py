@@ -1,70 +1,36 @@
-"""Telemetry of the port: the metrics registry, the flight recorder and
-the training reference profiles.
+"""Unified telemetry of the port: metrics registry + span tracer +
+resource accounting + flight recorder.
 
-One import surface, as `lightgbm_tpu/obs/__init__.py` gives it::
+One import surface for every instrumented layer, as
+`lightgbm_tpu/obs/__init__.py` gives it::
 
-    from ..obs import REGISTRY, flightrecorder, span, event
+    from ..obs import REGISTRY, span, timed, metrics_on, tracing_on
+    from ..obs import flightrecorder, resources
 
-* `REGISTRY` — the process-global `MetricsRegistry` (`obs/metrics.py`,
-  a copy of the JAX package's): the checkpoint, guard and OOM counters
-  of utils/checkpoint.py, models/gbdt.py and utils/membudget.py
-  record there unconditionally.
-* `flightrecorder` — the always-on ring dumped to
-  ``blackbox-host<k>.json`` (under ``tpu_obs_blackbox_dir``) when a
-  training run dies.
+* `REGISTRY` — process-global `MetricsRegistry` (counters, gauges,
+  fixed-bucket histograms; Prometheus text export).
+* `span(name, **tags)` — nested structured span (Chrome-trace/Perfetto
+  export, JSONL stream, torch.profiler `record_function` mirror); null
+  when ``tpu_telemetry`` != trace.
+* `timed(name)` — registry-backed stopwatch.
+* `configure` / `configure_from_config` — process-global policy from
+  ``tpu_telemetry`` (off | metrics | trace), ``tpu_trace_dir`` and the
+  ``tpu_obs_*`` params (histogram sample ring, flight-recorder depth
+  and blackbox dump dir).
+* `resources` — device memory gauges from the CUDA caching allocator,
+  phase-tagged peak watermarks, process runtime stats.
+* `flightrecorder` — the ALWAYS-ON bounded ring of recent spans/
+  transitions dumped to ``blackbox-host<k>.json`` on a crash.
 * `modelhealth` — the ``tpu_feature_profile:`` model trailer.
-* `span`, `event`, `timed`, `metrics_on`, `tracing_on` — the forms that
-  ``tpu_telemetry=off`` gives in the JAX package (its obs/trace.py:
-  225-260): a shared null context manager, no-op events, untimed
-  blocks.  The span tracer, its exporters and the resource gauges are
-  not ported (ROADMAP A11), and `models/learner.py:check_slice`
-  refuses ``tpu_telemetry``/``tpu_trace_dir`` by name.
+
+See `obs.metrics`, `obs.trace`, `obs.resources` and
+`obs.flightrecorder` for the full contracts.
 """
 
-from __future__ import annotations
-
-import contextlib
-
-from . import flightrecorder, modelhealth  # noqa: F401
+from . import flightrecorder, modelhealth, resources  # noqa: F401
 from .metrics import (DEFAULT_SECONDS_BUCKETS, MetricsRegistry,  # noqa: F401
                       REGISTRY, histogram_quantile)
-
-_NULL = contextlib.nullcontext()
-
-
-def span(_name: str, **tags):
-    """The null span: tracing is off."""
-    return _NULL
-
-
-def event(_name: str, **fields) -> None:
-    """No narrative record without a tracer; the registry still counts."""
-
-
-def timed(name: str, metric: str = "lgbm_timed_seconds"):
-    """An untimed block: metrics mode is off."""
-    return _NULL
-
-
-def metrics_on() -> bool:
-    return False
-
-
-def tracing_on() -> bool:
-    return False
-
-
-def configure_from_config(config) -> None:
-    """Apply the ``tpu_obs_*`` parameters of a Config (the JAX package's
-    obs/trace.py:124-140 without the tracer's two): the registry's
-    sample ring and the flight recorder's depth and dump directory.  The
-    defaults (0 / "") leave the process policy as it is."""
-    from . import metrics
-
-    ring = int(config.tpu_obs_ring_samples)
-    if ring > 0:
-        metrics.set_sample_ring(ring)
-    bb_events = int(config.tpu_obs_blackbox_events)
-    bb_dir = str(config.tpu_obs_blackbox_dir).strip()
-    flightrecorder.configure(events=bb_events if bb_events > 0 else None,
-                             dump_dir=bb_dir or None)
+from .trace import (adopt_span_stack, chrome_trace, configure,  # noqa: F401
+                    configure_from_config, event, events, flush,
+                    metrics_on, mode, reset_events, span, span_stack,
+                    timed, trace_dir, tracing_on, write_chrome_trace)

@@ -34,7 +34,7 @@ answer "who hung first".
 
 The dump directory resolves: `configure(dump_dir=...)` (the
 ``tpu_obs_blackbox_dir`` param) > ``LIGHTGBM_TPU_BLACKBOX_DIR`` env >
-the working directory — EXCEPT when the
+the live ``tpu_trace_dir`` > the working directory — EXCEPT when the
 working directory is a source checkout (a ``.git`` entry is present),
 which falls through to the system temp dir instead: .gitignore or
 not, a crash artifact must never regrow at a repo root and ride into
@@ -43,11 +43,7 @@ a commit.  Wherever it lands, the FILENAME is always the canonical
 the canonical name joined under it.
 
 The port's own copy of `lightgbm_tpu/obs/flightrecorder.py`, the same
-ring, dump format and file name.  The port has no span tracer yet
-(``tpu_telemetry``/``tpu_trace_dir``, ROADMAP A11), so the dump
-directory skips the trace directory, and the dump triggers are the
-training ones: `engine.train`'s interrupt path, the guard's raise and
-the OOM ladder's exhaustion.
+ring, dump format and file name.
 """
 
 from __future__ import annotations
@@ -149,6 +145,11 @@ def blackbox_dir() -> str:
     env = os.environ.get("LIGHTGBM_TPU_BLACKBOX_DIR", "")
     if env:
         return env
+    from .trace import trace_dir
+
+    td = trace_dir()
+    if td:
+        return td
     cwd = os.getcwd()
     if os.path.exists(os.path.join(cwd, ".git")):
         # a source checkout: a crash dump written here would sit at the

@@ -244,11 +244,12 @@ class StreamGrower:
         return w
 
     def _stream_blocks(self, host_blocks: List[torch.Tensor], indices,
-                       consume) -> None:
+                       consume, **tags) -> None:
         """consume(i, device block, row0) over the listed blocks, each
         copied into a slot first: on the card, block i+1's copy is issued
         on the side stream before block i is consumed (double-buffered),
-        or on the compute stream (not); on the CPU a plain copy."""
+        or on the compute stream (not); on the CPU a plain copy.  tags:
+        more tags of each block's `stream_block` span."""
         indices = list(indices)
         if not indices:
             return
@@ -294,7 +295,7 @@ class StreamGrower:
             else:
                 self._timings.append((timing, timing))
             row0, _ = self._block_bounds(i)
-            with obs.span("stream_block", block=i):
+            with obs.span("stream_block", block=i, **tags):
                 consume(i, dst, row0)
             if cuda and side is not compute:
                 ev = torch.cuda.Event()
@@ -435,7 +436,7 @@ class StreamGrower:
                 self._partition_block(blk, lb, plan)
 
         with obs.span("hist_build", streamed=True, phase="replay"):
-            self._stream_blocks(host_blocks, skipped, consume)
+            self._stream_blocks(host_blocks, skipped, consume, replay=True)
 
     # ------------------------------------------------------------------
     def grow(self, host_blocks: List[torch.Tensor], grad, hess, row_mask,

@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import obs
 from ..ops import grower as G
 from .topology import (FEATURE, ROW_AXES, ShardAborted, ShardContext,
                        ShardGroup, Topology, enter_shard)
@@ -97,8 +98,11 @@ def rows_sharding(strategy: str) -> Tuple[str, ...]:
 class _ShardRun:
     """One shard's thread: its context, result and error."""
 
-    def __init__(self, ctx: ShardContext, fn: Callable):
-        self.ctx, self.fn = ctx, fn
+    def __init__(self, ctx: ShardContext, fn: Callable, name: str,
+                 spans):
+        self.ctx, self.fn, self.name = ctx, fn, name
+        # the caller's open spans: the shard's span nests under them
+        self.spans = spans
         self.out = None
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
@@ -106,13 +110,15 @@ class _ShardRun:
     def __call__(self):
         ctx = self.ctx
         enter_shard(ctx)
+        obs.adopt_span_stack(self.spans)
         try:
-            if ctx.device.type == "cuda":
-                with torch.cuda.device(ctx.device), \
-                        torch.cuda.stream(ctx.stream):
+            with obs.span(f"shard/{self.name}", shard=ctx.rank):
+                if ctx.device.type == "cuda":
+                    with torch.cuda.device(ctx.device), \
+                            torch.cuda.stream(ctx.stream):
+                        self.out = self.fn(ctx)
+                else:
                     self.out = self.fn(ctx)
-            else:
-                self.out = self.fn(ctx)
         except BaseException as exc:  # noqa: BLE001 - re-raised by caller
             self.error = exc
             ctx.group.abort(exc)
@@ -135,13 +141,15 @@ def run_shards(topology: Topology, fn: Callable[[ShardContext], object],
     from .collective import defaults
 
     group = ShardGroup(topology) if group is None else group
+    spans = obs.span_stack()
     runs = []
     for i, (rank, dev) in enumerate(zip(topology.local_ranks,
                                         topology.devices)):
         stream = streams[i]
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
-        runs.append(_ShardRun(ShardContext(group, rank, dev, stream), fn))
+        runs.append(_ShardRun(ShardContext(group, rank, dev, stream), fn,
+                              name, spans))
     threads = [threading.Thread(target=r, daemon=True,
                                 name=f"lgbt-shard-{name}-{i}")
                for i, r in enumerate(runs)]

@@ -70,6 +70,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, \
 import numpy as np
 import torch
 
+from .. import obs
 from .collective import (CollectiveTimeout, HostDropped, defaults,
                          guarded_collective)
 
@@ -553,26 +554,28 @@ def _exchange(tensors: Sequence[torch.Tensor], axes: AxisNames,
     order), its tensors on this shard's device.  Where the axes span
     processes, the leader gathers the remote slots between two barrier
     rounds."""
-    ctx = current()
-    g = ctx.group
-    g._slots[ctx.rank] = [_ready(t) for t in tensors]
-    t0 = time.perf_counter()
-    g.wait(name)
-    t = g.topology
-    if t.processes > 1 and HOSTS in _axes(axes):
-        if ctx.rank == g.leader:
-            g.gather_remote(name)
+    with obs.span(f"exchange/{name}"):
+        ctx = current()
+        g = ctx.group
+        g._slots[ctx.rank] = [_ready(t) for t in tensors]
+        t0 = time.perf_counter()
         g.wait(name)
-    t1 = time.perf_counter()
-    out = [[_take(item, ctx) for item in g._slots[r]]
-           for r in g.members(ctx.rank, axes)]
-    # no slot is written again before every member has read it
-    t2 = time.perf_counter()
-    g.wait(name)
-    g.wait_s[ctx.rank - t.first] += (t1 - t0) + (time.perf_counter() - t2)
-    if ctx.rank == g.leader:
-        g.collectives += 1
-    return out
+        t = g.topology
+        if t.processes > 1 and HOSTS in _axes(axes):
+            if ctx.rank == g.leader:
+                g.gather_remote(name)
+            g.wait(name)
+        t1 = time.perf_counter()
+        out = [[_take(item, ctx) for item in g._slots[r]]
+               for r in g.members(ctx.rank, axes)]
+        # no slot is written again before every member has read it
+        t2 = time.perf_counter()
+        g.wait(name)
+        g.wait_s[ctx.rank - t.first] += ((t1 - t0)
+                                         + (time.perf_counter() - t2))
+        if ctx.rank == g.leader:
+            g.collectives += 1
+        return out
 
 
 # --------------------------------------------------------------------------

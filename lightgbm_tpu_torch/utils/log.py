@@ -1,8 +1,6 @@
 """Leveled logging (reference include/LightGBM/utils/log.h:37-104).
 
-The port's own copy of `lightgbm_tpu/utils/log.py`, for one process:
-the `[host k]` prefix of multi-host JAX runs is left out; warnings
-count into the port's registry (`lgbm_log_warnings_total`).
+The port's own copy of `lightgbm_tpu/utils/log.py`.
 
 Levels mirror the reference LogLevel enum: Fatal=-1, Warning=0, Info=1,
 Debug=2.  `Log.fatal` raises (reference log.h:76-90 throws
@@ -13,6 +11,14 @@ verbosity<0 -> Fatal, 0 -> Warning, 1 -> Info, >1 -> Debug).
 
 A redirect callback supports the binding use-case (reference
 Log::ResetCallBack used by the R/Python packages).
+
+Multi-process attribution: while this process is a member of an
+initialized `torch.distributed` group of more than one process (the
+`machines` list, parallel/mesh.py), every line gets a ``[host k]``
+prefix, k its rank, so the interleaved logs of a run stay attributable;
+and every `Log.warning` counts into the telemetry registry
+(``lgbm_log_warnings_total``), so a run's warning rate is readable even
+when nobody is tailing stdout.
 """
 
 from __future__ import annotations
@@ -28,6 +34,22 @@ LOG_DEBUG = 2
 
 _state = threading.local()
 _callback: Optional[Callable[[str], None]] = None
+
+
+def _host_tag() -> str:
+    """``"[host k] "`` in a process group of more than one process, else
+    "".  Read from torch only when it is already imported, and read on
+    every line: a group joined by `Booster.set_network` may be freed
+    again."""
+    torch_mod = sys.modules.get("torch")
+    if torch_mod is None:
+        return ""
+    dist = torch_mod.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return ""
+    if dist.get_world_size() <= 1:
+        return ""
+    return f"[host {dist.get_rank()}] "
 
 
 class LightGBMError(RuntimeError):
@@ -63,7 +85,7 @@ class Log:
     def _write(level: int, tag: str, msg: str) -> None:
         if level > Log.get_level():
             return
-        line = f"[LightGBM] [{tag}] {msg}\n"
+        line = f"{_host_tag()}[LightGBM] [{tag}] {msg}\n"
         if _callback is not None:
             _callback(line)
         else:

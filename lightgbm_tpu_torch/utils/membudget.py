@@ -116,15 +116,18 @@ def is_oom_error(exc: BaseException) -> bool:
 
 
 def memory_snapshot() -> Dict[str, Optional[int]]:
-    """The card's memory numbers for diagnostics (None on the CPU)."""
-    import torch
+    """The cards' memory numbers for diagnostics, read through
+    `obs.resources` (membudget.py:148-156 of the JAX package): the
+    caching allocator's allocated bytes, current and peak, the most of
+    any card, and the smallest card's memory; all None on the CPU or
+    before CUDA is initialized."""
+    from ..obs import resources
 
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
-        return {"hbm_bytes_in_use": None, "hbm_peak_bytes": None,
-                "hbm_capacity_bytes": None}
-    return {"hbm_bytes_in_use": int(torch.cuda.memory_allocated()),
-            "hbm_peak_bytes": int(torch.cuda.max_memory_allocated()),
-            "hbm_capacity_bytes": device_capacity_bytes("cuda")}
+    limits = [s["bytes_limit"] for s in resources.all_device_memory_stats()
+              if s is not None]
+    return {"hbm_bytes_in_use": resources.hbm_bytes_in_use(),
+            "hbm_peak_bytes": resources.peak_hbm_bytes(),
+            "hbm_capacity_bytes": min(limits) if limits else None}
 
 
 def note_oom(site: str, exc: Optional[BaseException] = None,

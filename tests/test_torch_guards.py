@@ -71,7 +71,12 @@ OUT_OF_SLICE = [
     {"tpu_sparse_threshold": 0.5, "enable_bundle": False},
     {"tpu_hist_impl": "fused", "tpu_partition_impl": "gather"},
     {"tpu_partition_impl": "gather"},
-    # the JAX package's telemetry (ROADMAP A11)
+]
+
+# once refused: the JAX package's telemetry (tpu_telemetry,
+# tpu_trace_dir), which now trains (tests/test_torch_telemetry.py holds
+# it to the JAX package)
+TELEMETRY = [
     {"tpu_telemetry": "trace"},
     {"tpu_trace_dir": "traces"},
 ]
@@ -273,14 +278,40 @@ def test_guard_and_memory_knobs_under_a_tight_budget(extra):
     assert_trees_match(got[0]._driver.models, got[1]._driver.models)
 
 
-@pytest.mark.parametrize("extra", OUT_OF_SLICE[-2:],
-                         ids=lambda d: ",".join(d))
+@pytest.mark.parametrize("extra", TELEMETRY, ids=lambda d: ",".join(d))
+def test_telemetry_knobs_train_on_the_cpu(extra, tmp_path, monkeypatch):
+    from lightgbm_tpu_torch import obs
+
+    monkeypatch.chdir(tmp_path)
+    X, y = binary_data(n=300, f=3, seed=1)
+    try:
+        b = tlgb.train(dict(SMALL, **CPU, **extra),
+                       tlgb.Dataset(X, label=y), 2)
+        assert b.num_trees() == 2
+        assert obs.mode() == extra.get("tpu_telemetry", "off")
+    finally:
+        obs.configure(mode="off", trace_dir="")
+        obs.flush()
+        obs.reset_events()
+    if "tpu_trace_dir" in extra:
+        # a directory alone traces nothing
+        assert not (tmp_path / "traces").exists()
+
+
+@pytest.mark.parametrize("extra", [{"tpu_telemetry": "bogus"},
+                                   {"tpu_telemetry": "full"}],
+                         ids=lambda d: ",".join(f"{k}={v}"
+                                                for k, v in d.items()))
 def test_knob_refusals_name_the_value(extra):
+    # an invalid telemetry mode raises the JAX package's ValueError, which
+    # names the value
     X, y = binary_data(n=300, f=3, seed=1)
     (name, value), = extra.items()
-    with pytest.raises(NotImplementedError, match=f"{name}={value!r}"
-                       .replace("'", ".")):
+    with pytest.raises(ValueError) as want:
+        jlgb.train(dict(SMALL, **extra), jlgb.Dataset(X, label=y), 1)
+    with pytest.raises(ValueError, match=f"{name}.*{value!r}") as got:
         tlgb.train(dict(SMALL, **CPU, **extra), tlgb.Dataset(X, label=y), 1)
+    assert str(got.value) == str(want.value)
 
 
 def test_invalid_guard_value_raises_value_error():

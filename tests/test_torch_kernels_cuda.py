@@ -1885,3 +1885,116 @@ def test_multiprocess_int8_on_one_card_matches_in_process(learner,
         assert run["launches"]["hist_batched_int"] > 0
         assert (run["launches"]["partition_rows"] > 0) == (not efb)
         assert run["launches"]["fused_hist_scan"] == 0
+
+
+def test_traced_cpu_run_in_a_fresh_process_makes_no_cuda_context(tmp_path):
+    """Telemetry on a device_type=cpu run reads no card: the resource
+    gauges answer None and no CUDA context is made."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    cuda_device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import json\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "import lightgbm_tpu_torch as lgb\n"
+        "from lightgbm_tpu_torch.obs import resources\n"
+        "from lightgbm_tpu_torch.utils import membudget\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.normal(size=(2000, 5)); y = X[:, 0]\n"
+        "p = {'objective': 'regression', 'num_leaves': 15,\n"
+        "     'tpu_hist_precision': 'int8', 'verbosity': -1,\n"
+        "     'device_type': 'cpu'}\n"
+        "b = lgb.train(p, lgb.Dataset(X, label=y), 3)\n"
+        "b.predict(X)\n"
+        "print(json.dumps({'cuda': torch.cuda.is_initialized(),\n"
+        "  'stats': resources.device_memory_stats(),\n"
+        "  'peaks': resources.phase_peaks(),\n"
+        "  'snap': membudget.memory_snapshot()}))\n")
+    env = dict(os.environ, LIGHTGBM_TPU_TELEMETRY="trace",
+               LIGHTGBM_TPU_TRACE_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"cuda": False, "stats": None, "peaks": {},
+                   "snap": {"hbm_bytes_in_use": None,
+                            "hbm_peak_bytes": None,
+                            "hbm_capacity_bytes": None}}
+    assert (tmp_path / "trace-host0.json").exists()
+
+
+def test_device_memory_stats_agree_with_the_allocator():
+    from lightgbm_tpu_torch.obs import resources
+    from lightgbm_tpu_torch.utils import membudget
+
+    dev = cuda_device()
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for d in range(torch.cuda.device_count()):
+        got = resources.device_memory_stats(d)
+        want = torch.cuda.memory_stats(d)
+        assert got["bytes_in_use"] == want["allocated_bytes.all.current"]
+        assert got["peak_bytes_in_use"] == want["allocated_bytes.all.peak"]
+        assert got["bytes_reserved"] == want["reserved_bytes.all.current"]
+        assert got["bytes_limit"] == \
+            torch.cuda.get_device_properties(d).total_memory
+    assert resources.device_memory_stats()["bytes_in_use"] >= keep.numel()
+    if torch.cuda.device_count() == 1:
+        snap = membudget.memory_snapshot()
+        assert snap["hbm_bytes_in_use"] == torch.cuda.memory_allocated()
+        assert snap["hbm_peak_bytes"] == torch.cuda.max_memory_allocated()
+    del keep
+
+
+def test_telemetry_on_the_card_adds_no_sync_and_keeps_the_text(tmp_path):
+    """int8 on the card: the same text and the same host waits with
+    tracing on and off; under metrics the phase peaks lie in (0, the
+    card's memory]."""
+    import warnings
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import resources
+
+    cuda_device()
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(40000, 10))
+    y = X[:, 0] + X[:, 1] ** 2 + 0.3 * rng.normal(size=40000)
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "tpu_hist_precision": "int8", "verbosity": -1}
+
+    def run(mode):
+        q = dict(p, tpu_telemetry=mode, tpu_trace_dir=str(tmp_path))
+        ds = lgb.Dataset(X, label=y, params=q).construct()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                b = lgb.train(q, ds, 4, keep_training_booster=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in seen)
+        return b.model_to_string().split("parameters:")[0], syncs, b
+
+    try:
+        run("off")          # the process's one-time host waits
+        off = run("off")
+        traced = run("trace")
+        assert traced[:2] == off[:2]
+        resources.reset_phase_peaks()
+        _, _, b = run("metrics")
+        b.predict(X[:5000])
+        peaks = resources.phase_peaks()
+        total = torch.cuda.get_device_properties(0).total_memory
+        assert set(peaks) >= {"ingest", "hist_build", "predict"}
+        assert all(0 < v <= total for v in peaks.values())
+    finally:
+        obs.configure(mode="off", trace_dir="")
+        obs.flush()
+        obs.reset_events()
+        resources.reset_phase_peaks()

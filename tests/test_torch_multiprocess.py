@@ -339,6 +339,28 @@ def test_set_network_trains_and_free_network_forgets(runs):
     assert a["text"] == runs["port"]["data_int8"]["text"]
 
 
+def test_log_lines_carry_the_host_prefix_in_a_group(runs):
+    # tests/test_telemetry.py:test_host_prefix_on_multiprocess of the JAX
+    # package, on a live two-process group
+    for k, r in enumerate(runs["ranks"]):
+        assert r["network"]["log_line"] == (
+            f"[host {k}] [LightGBM] [Warning] who said this\n")
+
+
+def test_log_lines_have_no_prefix_in_one_process():
+    from lightgbm_tpu_torch.utils import log as log_mod
+
+    lines, level = [], log_mod.Log.get_level()
+    log_mod.Log.reset_callback(lines.append)
+    log_mod.Log.reset_level(log_mod.LOG_WARNING)
+    try:
+        log_mod.Log.warning("who said this")
+    finally:
+        log_mod.Log.reset_callback(None)
+        log_mod.Log.reset_level(level)
+    assert lines == ["[LightGBM] [Warning] who said this\n"]
+
+
 # -- (e) the checkpoint group -------------------------------------------------------
 def test_checkpoint_group_is_the_jax_packages(runs):
     """Two ranks commit a group that the JAX manager validates; resumed

@@ -1442,6 +1442,122 @@ def _job_train_sharded(inp, spec):
     return out
 
 
+def _span_summary(events):
+    """The vocabulary of a list of buffered spans (`obs.events()`): the
+    names, each name's parents, each name's count, and the (name,
+    iteration) pairs of the spans that carry an iteration tag."""
+    import json
+
+    spans = [e for e in events if e["kind"] == "span"]
+    parents, counts = {}, {}
+    for e in spans:
+        parents.setdefault(e["name"], set()).add(
+            str(e["tags"].get("parent")))
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    iters = sorted((e["name"], int(e["tags"]["iteration"])) for e in spans
+                   if "iteration" in e["tags"])
+    return json.dumps({"parents": {k: sorted(v) for k, v in parents.items()},
+                       "counts": counts, "iterations": iters},
+                      sort_keys=True)
+
+
+def telemetry_run(lgb, inp, run, tmp):
+    """One case of tests/test_torch_telemetry.py, the same script for
+    either package (the JAX package's in the no-FMA process, job
+    "telemetry"): a run under tpu_telemetry=trace or metrics and what it
+    recorded.  The process-global telemetry policy, span buffer and
+    registry are reset before the run and the policy turned off after
+    it."""
+    import importlib
+    import json
+    import os
+
+    jax_side = lgb.__name__ != "lightgbm_tpu_torch"
+    pkg = "jax" if jax_side else "port"
+    obs = importlib.import_module(lgb.__name__ + ".obs")
+    timer = importlib.import_module(lgb.__name__ + ".utils.timer")
+    faultline = importlib.import_module(lgb.__name__ + ".utils.faultline")
+    p = dict(run["params"], verbosity=-1)
+    if not jax_side:
+        p["device_type"] = "cpu"
+    X, y, Xv, yv = inp["X"], inp["y"], inp["Xv"], inp["yv"]
+    rounds = run.get("rounds", 10)
+    kind = run["kind"]
+    d = os.path.join(tmp, f"{run['name']}_{pkg}")
+    obs.configure(mode="off", trace_dir="")
+    obs.reset_events()
+    obs.REGISTRY.reset()
+
+    def train(params, n, valid=True, **kw):
+        ds = lgb.Dataset(X, label=y, params=params)
+        vs = [lgb.Dataset(Xv, label=yv, reference=ds, params=params)]
+        return lgb.train(params, ds, n, valid_sets=vs if valid else None,
+                         valid_names=["v"] if valid else None,
+                         verbose_eval=False, keep_training_booster=True,
+                         **kw)
+
+    try:
+        if kind == "trace":
+            b = train(dict(p, tpu_telemetry="trace", tpu_trace_dir=d),
+                      rounds, valid=run.get("valid", True))
+            with open(os.path.join(d, "trace-host0.json")) as f:
+                chrome = json.load(f)["traceEvents"]
+            with open(os.path.join(d, "events-host0.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            shapes = sorted({json.dumps([e["ph"], sorted(e)])
+                             for e in chrome})
+            return {"spans": _span_summary(obs.events()),
+                    "chrome": json.dumps(shapes),
+                    "jsonl": json.dumps(sorted({json.dumps(sorted(e))
+                                                for e in lines})),
+                    "text": model_text(b)}
+        if kind == "events":
+            q = dict(p, tpu_telemetry="trace", tpu_trace_dir=d,
+                     tpu_checkpoint_dir=os.path.join(d, "ckpt"))
+            train(q, rounds, valid=False)
+            saved = [e["name"] for e in obs.events() if e["kind"] == "event"]
+            obs.reset_events()
+            train(q, rounds + 2, valid=False, resume=True)
+            resumed = [e["name"] for e in obs.events()
+                       if e["kind"] == "event"]
+            obs.reset_events()
+            g = dict(p, tpu_telemetry="trace", tpu_guard_numerics="skip")
+            bst = lgb.Booster(params=g, train_set=lgb.Dataset(
+                X, label=y, params=g))
+            faultline.reset()
+            faultline.arm("grow_step", action="poison", at=run["poison_at"])
+            try:
+                for _ in range(rounds):
+                    bst.update()
+            finally:
+                faultline.reset()
+            guard = [e["name"] for e in obs.events() if e["kind"] == "event"]
+            return {"events": json.dumps([saved, resumed, guard])}
+        if kind == "metrics":
+            b = train(dict(p, tpu_telemetry="metrics"), rounds)
+            b.predict(Xv)
+            snap = obs.REGISTRY.snapshot()
+            return {"families": json.dumps(sorted(snap)),
+                    "runs": json.dumps(timer.counts(), sort_keys=True),
+                    "text": model_text(b)}
+        raise ValueError(f"unknown telemetry case {kind!r}")
+    finally:
+        obs.configure(mode="off", trace_dir="")
+        obs.flush()
+        obs.reset_events()
+
+
+def _job_telemetry(inp, spec):
+    """telemetry_run of the JAX package for every run of the spec."""
+    import lightgbm_tpu as lgb
+
+    out = {}
+    for c, run in enumerate(spec["runs"]):
+        for k, v in telemetry_run(lgb, inp, run, spec["tmp"]).items():
+            out[f"{c}_{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -1459,6 +1575,7 @@ if __name__ == "__main__":
               "sparse_storage": _job_sparse_storage,
               "utilities": _job_utilities, "shap": _job_shap,
               "fault": _job_fault, "stream": _job_stream,
+              "telemetry": _job_telemetry,
               "train_sharded": _job_train_sharded}[job](
                   inp, spec)
     np.savez(dst, **result)

@@ -8,7 +8,7 @@ case of the spec in order on the CPU and writes one JSON result a rank
 far it got).  The cases, in order:
 
 * ``network``: `Booster.set_network` joins the group (the rendezvous),
-  a sharded train across the two processes, `free_network`;
+  a sharded train across the two processes, a log line, `free_network`;
 * ``grid``: every learner of the spec over the full data on both ranks
   (on the spec's device, the CPU by default), with its launch counts;
 * ``prepart``: `pre_partition` runs, each rank holding its own rows
@@ -121,9 +121,21 @@ def _case_network(lgb, spec, out):
     net = {k: seed.params[k] for k in ("machines", "num_machines")}
     p = dict(INT8, device_type="cpu", tree_learner="data", **net)
     text = model_text(_train(lgb, p, X, y, spec["rounds"]))
+    # a log line of a member of the group carries its [host k] prefix
+    from lightgbm_tpu_torch.utils.log import Log
+
+    lines, level = [], Log.get_level()
+    Log.reset_callback(lines.append)
+    Log.reset_level(0)      # warnings on: the runs set verbosity=-1
+    try:
+        Log.warning("who said this")
+    finally:
+        Log.reset_callback(None)
+        Log.reset_level(level)
     seed.free_network()
     out["network"] = {"text": text, "rendezvous_s": rendezvous_s,
-                      "freed": "machines" not in seed.params}
+                      "freed": "machines" not in seed.params,
+                      "log_line": lines[-1]}
 
 
 def _case_grid(lgb, spec, out):
